@@ -36,3 +36,9 @@ assert len(jax.devices()) == 8, "tests expect 8 virtual CPU devices"
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the PyTorch port's CUDA kernels); skips without one"
+    )
