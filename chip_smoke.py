@@ -10,20 +10,30 @@ Phases, in order; any failure exits non-zero before the final line:
                build (one ``nvcc`` per source, all in parallel) and the
                device-to-device copy bandwidth on a 1 GiB buffer.
 2. ``kernels`` each hand-written kernel against its plain PyTorch version on
-               the same inputs at Qwen3-8B shapes (INT8-g64, bf16 scales),
-               with its time, the plain version's time, one PyTorch library
-               call's time and the least time the card could take.
+               the same inputs at Qwen3-8B shapes (INT8-g64), with its time,
+               the plain version's time, one PyTorch library call's time
+               where one computes the same function, and the least time the
+               card could take.
 3. ``e2e``     Qwen3-8B at full width and depth with random weights made on
-               the card from a seed, driven through ``Engine``, ``generate()``
-               and ``chat()``; every decode step must launch each kernel of
-               the path (4·L+1 W8A16 matmuls, L flash-decode attentions), and
-               two greedy runs must give the same tokens.
+               the card from a seed, each path driven with the launch counts
+               reset just before it and read just after:
+               * ``generate()``/``chat()`` on a 200-token prompt, f32 and INT8
+                 caches: every decode step launches 4·L+1 W8A16 matmuls and L
+                 flash-decode attentions, two greedy runs agree;
+               * ``generate()`` on a 3000-token prompt: a fresh 2048-row window
+                 (L causal prefill attentions, 4·L row-blocked W8A16 matmuls),
+                 a continuation window (4·L row-blocked), then decode steps;
+               * ``compute_perplexity`` (eval-ppl) at 4096-row windows, fast
+                 (3·L row-blocked, L dequant per window) twice, identical;
+               * exact-mode ``generate()`` on a 300-token prompt (4·L W8A8 on
+                 the window) and exact eval-ppl (4·L+1 W8A8 per window).
 4. ``cli``     a 2-layer 8B-width ``.qtpu`` checkpoint written with numpy,
-               run through ``qwen3_rs_tpu_torch.cli.main(["inference", ...])``
-               in generate and chat mode; its output must equal the API's.
-5. ``parity``  the same 2-layer model on the CPU (plain versions) and on the
-               card (kernels): prefill logits and 8 teacher-forced decode
-               steps must agree.
+               run through ``qwen3_rs_tpu_torch.cli.main`` (``inference`` in
+               generate, chat and exact mode, ``eval-ppl`` in three modes);
+               its output must equal the API's.
+5. ``parity``  the 2-layer model on the CPU (plain versions) and on the card
+               (kernels): prefill windows and decode steps in fast mode (16-,
+               512- and 300-row windows) and exact mode; eval-ppl at 0.6B width.
 
 Output: one JSON object per line.  The second-to-last lines hold the kernel
 table (``{"kernels": [...]}``) and the card's ``name, power.limit``; the last
@@ -51,10 +61,14 @@ PHASES = ("build", "kernels", "e2e", "cli", "parity")
 
 # Published peaks of one H100 SXM (dense): the denominators of bound_ms.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 SLEEP_CYCLES = 2_000_000  # ~1 ms of device time: keeps the host ahead of the card
 SEED = 0
 DECODE_TOKENS = 64  # per greedy generate run
+LONG_PROMPT_TOKENS = 3000  # one token per character: a fresh 2048-row window and a continuation
+LONG_DECODE_TOKENS = 16
+EXACT_PROMPT_TOKENS = 300
+EXACT_DECODE_TOKENS = 8
 
 
 def emit(obj) -> None:
@@ -308,12 +322,198 @@ def flash_cases(torch, ctx) -> list[dict]:
     return out
 
 
+def _row(ctx, name, case, source, replaces, shape, err, tol, ms, plain_ms, nbytes, b_ms, b_by,
+         lib_ms, library) -> dict:
+    row = {
+        "name": name, "case": case, "route": "cuda", "source": source, "replaces": replaces,
+        "shape": shape, "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": nbytes,
+        "bound_ms_copy_bw": nbytes / (ctx["copy_gbps"] * 1e9) * 1e3,
+        "library_ms": lib_ms, "library": library,
+    }
+    emit({"phase": "kernels", **row})
+    return row
+
+
+def _stacked_weights(torch, gen, layers, n, d, g, scale_dtype):
+    from qwen3_rs_tpu_torch.ops.quant import QuantizedTensor
+
+    codes = torch.randint(-127, 128, (layers, n, d), generator=gen, device=DEV, dtype=torch.int8)
+    scales = (torch.rand(layers, n // g, d, generator=gen, device=DEV) * 0.02 + 1e-3).to(scale_dtype)
+    return QuantizedTensor(codes, scales)
+
+
+def rows_cases(torch, ctx) -> list[dict]:
+    """Row-blocked W8A16 (#6) at the long windows' shapes: a fresh 2048-row
+    window, a ragged continuation, and eval-ppl's 4096-row window."""
+    from qwen3_rs_tpu_torch.ops.kernels.qmatmul import qmatmul_w8a16_rows, qmatmul_w8a16_rows_plain
+    from qwen3_rs_tpu_torch.ops.matmul import dequant_weights
+    from qwen3_rs_tpu_torch.ops.quant import QuantizedTensor
+    from qwen3_rs_tpu_torch.testing import qwen3_config
+
+    c = qwen3_config("8b")
+    g, bf16 = c.group_size, torch.bfloat16
+    ah, kvd, dim, hid = c.all_heads_dim, c.kv_dim, c.dim, c.hidden_dim
+    specs = [("wqkv", dim, ah + 2 * kvd, 2048), ("wo", ah, dim, 2048), ("w13", dim, 2 * hid, 2048),
+             ("w2", hid, dim, 2048), ("wqkv", dim, ah + 2 * kvd, 952), ("w13", dim, 2 * hid, 4096),
+             ("w2", hid, dim, 4096)]  # at 4096 rows w2 takes #7 + torch.matmul: the two side by side
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(5678)
+    out = []
+    for proj, n, d, rows in specs:
+        w = _stacked_weights(torch, gen, 2, n, d, g, bf16)
+        x = torch.randn(rows, n, generator=gen, device=DEV).to(bf16)
+        ref = qmatmul_w8a16_rows_plain(x, w, 1)
+        got = qmatmul_w8a16_rows(x, w, 1)
+        torch.cuda.synchronize()
+        err, tol = float((got - ref).abs().max()), 1e-4 * float(ref.abs().max())
+        need(math.isfinite(err) and err <= tol, f"qmatmul_w8a16_rows {proj} rows={rows}: {err} > {tol}")
+        ms = device_ms(torch, lambda i: qmatmul_w8a16_rows(x, w, i % 2))
+        plain_ms = device_ms(torch, lambda i: qmatmul_w8a16_rows_plain(x, w, i % 2), reps=5, warmup=1)
+        dense = [dequant_weights(QuantizedTensor(w.q[l], w.scales[l])) for l in range(2)]
+        lib_ms = device_ms(torch, lambda i: torch.matmul(x, dense[i % 2]))
+        del dense
+        nbytes = n * d + (n // g) * d * 2 + rows * n * 2 + rows * d * 4
+        b_ms, b_by = bound(nbytes, 2.0 * rows * n * d, "bf16")
+        out.append(_row(
+            ctx, "qmatmul_w8a16_rows", f"{proj} rows={rows}", "qwen3_rs_tpu_torch/csrc/qmatmul_rows.cu",
+            "qwen3_rs_tpu/ops/pallas/qmatmul.py:956 qmatmul_pallas_stacked_rows",
+            {"rows": rows, "N": n, "D": d, "g": g}, err, tol, ms, plain_ms, nbytes, b_ms, b_by, lib_ms,
+            "torch.matmul bf16, weights dequantized beforehand",
+        ))
+        del w, x, ref, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def dequant_cases(torch, ctx) -> list[dict]:
+    """Dequant (#7) of one w2 layer, the xdot path's weight at 4096-row
+    eval-ppl windows: f32 scales (as evaluation keeps them) and bf16."""
+    from qwen3_rs_tpu_torch.ops.kernels.qmatmul import dequant_w8_stacked, dequant_w8_stacked_plain
+    from qwen3_rs_tpu_torch.testing import qwen3_config
+
+    c = qwen3_config("8b")
+    n, d, g = c.hidden_dim, c.dim, c.group_size
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(8765)
+    out = []
+    for sdt, sname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        nl = _layers_for(3 * n * d)
+        w = _stacked_weights(torch, gen, nl, n, d, g, sdt)
+        got = dequant_w8_stacked(w, 1)
+        ref = dequant_w8_stacked_plain(w, 1)
+        torch.cuda.synchronize()
+        need(torch.equal(got, ref), f"dequant_w8_stacked {sname} scales: not bit-exact")
+        ms = device_ms(torch, lambda i: dequant_w8_stacked(w, i % nl))
+        plain_ms = device_ms(torch, lambda i: dequant_w8_stacked_plain(w, i % nl), reps=5, warmup=1)
+        nbytes = n * d + (n // g) * d * w.scales.element_size() + n * d * 2
+        b_ms, b_by = bound(nbytes, float(n * d), "f32")
+        out.append(_row(
+            ctx, "dequant_w8_stacked", f"w2 {sname} scales", "qwen3_rs_tpu_torch/csrc/dequant.cu",
+            "qwen3_rs_tpu/ops/pallas/qmatmul.py:1063 dequant_pallas_stacked",
+            {"N": n, "D": d, "g": g}, 0.0, 0.0, ms, plain_ms, nbytes, b_ms, b_by, None, None,
+        ))
+        del w, got, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def a8_cases(torch, ctx) -> list[dict]:
+    """W8A8 rows (#8) at exact mode's shapes: a ragged prompt window, a
+    2048-row window, and eval-ppl's 4096 rows on w2 and on the classifier."""
+    from qwen3_rs_tpu_torch.ops.kernels.qmatmul_a8 import qmatmul_w8a8_rows, qmatmul_w8a8_rows_plain
+    from qwen3_rs_tpu_torch.ops.quant import quantize_activations
+    from qwen3_rs_tpu_torch.testing import padded_vocab, qwen3_config
+
+    c = qwen3_config("8b")
+    g = c.group_size
+    ah, kvd, dim, hid = c.all_heads_dim, c.kv_dim, c.dim, c.hidden_dim
+    specs = [("wqkv", dim, ah + 2 * kvd, 300, 2), ("w13", dim, 2 * hid, 2048, 2), ("w2", hid, dim, 4096, 2),
+             ("lm_head", dim, padded_vocab(c.vocab_size), 4096, 1)]
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(2468)
+    out = []
+    for proj, n, d, rows, nl in specs:
+        w = _stacked_weights(torch, gen, nl, n, d, g, torch.float32)
+        xq = quantize_activations(torch.randn(rows, n, generator=gen, device=DEV), g)
+        got = qmatmul_w8a8_rows(xq.q, xq.scales, w, nl - 1)
+        ref = qmatmul_w8a8_rows_plain(xq.q, xq.scales, w, nl - 1)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        need(torch.equal(got, ref), f"qmatmul_w8a8_rows {proj} rows={rows}: not bit-exact ({err})")
+        del ref, got
+        ms = device_ms(torch, lambda i: qmatmul_w8a8_rows(xq.q, xq.scales, w, i % nl), reps=10)
+        plain_ms = device_ms(torch, lambda i: qmatmul_w8a8_rows_plain(xq.q, xq.scales, w, i % nl), reps=3, warmup=1)
+        groups = n // g
+        nbytes = rows * n + rows * groups * 4 + n * d + groups * d * 4 + rows * d * 4
+        # int8 products on the tensor cores, then 3 rounded f32 operations per
+        # output element and group (the fixup) on the CUDA cores.
+        t_ops = (2.0 * rows * n * d / PEAK_OPS_PER_S["int8"] + 3.0 * rows * d * groups / PEAK_OPS_PER_S["f32"]) * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        out.append(_row(
+            ctx, "qmatmul_w8a8_rows", f"{proj} rows={rows}", "qwen3_rs_tpu_torch/csrc/qmatmul_a8.cu",
+            "qwen3_rs_tpu/ops/pallas/qmatmul.py:1287 qmatmul_pallas_stacked_rows_a8",
+            {"rows": rows, "N": n, "D": d, "g": g}, err, 0.0, ms, plain_ms, nbytes, b_ms, b_by, None, None,
+        ))
+        del w, xq
+        torch.cuda.empty_cache()
+    return out
+
+
+def prefill_attention_cases(torch, ctx) -> list[dict]:
+    """Causal prefill attention (#5) over a fresh window at 8B's heads: the
+    2048-row window and a ragged one."""
+    import torch.nn.functional as F
+
+    from qwen3_rs_tpu_torch.ops.kernels.prefill_attention import (
+        causal_prefill_attention,
+        causal_prefill_attention_plain,
+    )
+    from qwen3_rs_tpu_torch.testing import qwen3_config
+
+    c = qwen3_config("8b")
+    h, n_kv, hd = c.n_heads, c.n_kv_heads, c.head_dim
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(1357)
+    out = []
+    for s in (2048, 1000):
+        q, k, v = (torch.randn(1, s, heads, hd, generator=gen, device=DEV).to(torch.bfloat16)
+                   for heads in (h, n_kv, n_kv))
+        got = causal_prefill_attention(q, k, v).float()
+        ref = causal_prefill_attention_plain(q, k, v).float()
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        # Both round an f32 result to bf16; f32 sums in another order may flip
+        # that rounding: one bf16 step of each element, plus 1e-5 of f32 sums of
+        # O(1) values for outputs that cancel to near zero.
+        excess = float(((got - ref).abs() - 2.0**-7 * ref.abs()).max())
+        need(math.isfinite(err) and excess <= 1e-5, f"causal_prefill_attention S={s}: off by more than a bf16 step")
+        ms = device_ms(torch, lambda i: causal_prefill_attention(q, k, v))
+        plain_ms = device_ms(torch, lambda i: causal_prefill_attention_plain(q, k, v), reps=5, warmup=1)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib_ms = device_ms(torch, lambda i: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True))
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        b_ms, b_by = bound(nbytes, 4.0 * (s * (s + 1) // 2) * hd * h, "bf16")
+        out.append(_row(
+            ctx, "causal_prefill_attention", f"fresh window S={s}", "qwen3_rs_tpu_torch/csrc/prefill_attention.cu",
+            "qwen3_rs_tpu/ops/pallas/prefill_attention.py:87 causal_prefill_attention",
+            {"B": 1, "S": s, "heads": h, "kv_heads": n_kv, "hd": hd}, err, "2^-7 * |ref| + 1e-5 per element",
+            ms, plain_ms, nbytes, b_ms, b_by, lib_ms, "F.scaled_dot_product_attention is_causal, enable_gqa",
+        ))
+        del q, k, v, qt, kt, vt, got, ref
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_kernels(torch, ctx) -> None:
     from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES
 
     before = dict(LAUNCHES)
-    ctx["kernel_rows"] = qmatmul_cases(torch, ctx) + flash_cases(torch, ctx)
-    need(LAUNCHES != before, "the kernel cases launched no kernel")
+    ctx["kernel_rows"] = (qmatmul_cases(torch, ctx) + flash_cases(torch, ctx) + prefill_attention_cases(torch, ctx)
+                          + rows_cases(torch, ctx) + dequant_cases(torch, ctx) + a8_cases(torch, ctx))
+    made = {k for k in LAUNCHES if LAUNCHES[k] != before[k]}
+    need(made == set(LAUNCHES), f"the kernel cases launched no {sorted(set(LAUNCHES) - made)}")
 
 
 # ------------------------------------------------------------ model helpers
@@ -384,9 +584,8 @@ def phase_e2e(torch, ctx) -> None:
 
     cfg = qwen3_config("8b", seq_len=4096)
     t0 = time.perf_counter()
-    weights = random_weights(cfg, seed=SEED, device=DEV)
-    engine = Engine(config=cfg, weights=weights, device=DEV)
-    del weights
+    weights = random_weights(cfg, seed=SEED, device=DEV)  # f32 scales: eval-ppl and exact mode
+    engine = Engine(config=cfg, weights=weights, device=DEV)  # bf16 scales, the same codes
     torch.cuda.synchronize()
     emit({"phase": "e2e", "model": "qwen3-8b INT8-g64", "layers": cfg.n_layers, "dim": cfg.dim,
           "hidden": cfg.hidden_dim, "vocab": cfg.vocab_size, "ctx": cfg.seq_len,
@@ -459,7 +658,7 @@ def phase_e2e(torch, ctx) -> None:
     launches = dict(LAUNCHES)  # the main path's run ends here
     for name in per_step:
         need(launches[name] > 0, f"kernel {name} was not launched on the main path")
-    ctx["launches"] = launches
+    ctx["path_launches"] = {"decode": launches}
 
     wbytes = weight_bytes_per_decode_token(cfg, scale_bytes=2)
     # Steady decode: the greedy steps without the first of each run.
@@ -479,26 +678,220 @@ def phase_e2e(torch, ctx) -> None:
           "every_step_checked": True})
     ctx["e2e"]["profile"] = profile_decode(torch, engine, prompt_ids=tok.encode(prompt))
     emit({"phase": "e2e", "profile": ctx["e2e"]["profile"]})
-    del engine, engine8
+    del engine8
     torch.cuda.empty_cache()
+
+    ctx["e2e"]["long_prompt"] = long_prompt_path(torch, ctx, cfg, engine, tok)
+    del engine
+    torch.cuda.empty_cache()
+    ctx["e2e"]["eval_ppl_fast"] = eval_path(torch, ctx, cfg, weights, "fast", windows=2, runs=2)
+    ctx["e2e"]["exact_generate"] = exact_generate_path(torch, ctx, cfg, weights, tok)
+    ctx["e2e"]["eval_ppl_exact"] = eval_path(torch, ctx, cfg, weights, "exact", windows=1, runs=1)
+    del weights
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def forward_records(torch, module, records: list):
+    """Wrap ``module.qwen3_forward``: each call appends its window rows, start
+    position, synchronised host seconds and the kernel launches it made."""
+    import numpy as np
+
+    from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES
+
+    orig = module.qwen3_forward
+
+    def wrapped(config, weights, tokens, cache, pos, **kw):
+        before = dict(LAUNCHES)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig(config, weights, tokens, cache, pos, **kw)
+        torch.cuda.synchronize()
+        records.append({
+            "rows": int(np.asarray(tokens).shape[1]), "pos": int(np.asarray(pos).reshape(-1)[0]),
+            "start": t, "seconds": time.perf_counter() - t,
+            "launches": {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]},
+        })
+        return out
+
+    module.qwen3_forward = wrapped
+    try:
+        yield
+    finally:
+        module.qwen3_forward = orig
+
+
+def _expect(rec: dict, want: dict, what: str) -> None:
+    want = {k: v for k, v in want.items() if v}
+    need(rec["launches"] == want, f"{what} ({rec['rows']} rows at {rec['pos']}) launched {rec['launches']}, expected {want}")
+
+
+def long_prompt_path(torch, ctx, cfg, engine, tok) -> dict:
+    """Fast-mode generate on a ~3000-token prompt: a fresh 2048-row window
+    (causal prefill kernel, row-blocked W8A16), a continuation window (split
+    attention, row-blocked W8A16), then decode steps; twice, greedy."""
+    import numpy as np
+
+    import qwen3_rs_tpu_torch.inference.engine as engine_mod
+    from qwen3_rs_tpu_torch import TokenSampler, generate
+    from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from qwen3_rs_tpu_torch.testing import prefill_ops
+
+    n_l = cfg.n_layers
+    prompt = prompt_text(LONG_PROMPT_TOKENS)
+    n_tok = len(tok.encode(prompt))
+    w = engine.MAX_PREFILL_WINDOW
+    windows = [(off, min(w, n_tok - off)) for off in range(0, n_tok, w)]
+    need(len(windows) == 2 and windows[0][1] == 2048, f"prompt of {n_tok} tokens: windows {windows}")
+    runs = []
+    reset_launches()  # this path's run starts here
+    for _ in range(2):
+        recs: list = []
+        with forward_records(torch, engine_mod, recs):
+            t0 = time.perf_counter()
+            ids = generate(engine, tok, TokenSampler(0.0, 0.9, SEED), prompt, out=io.StringIO(),
+                           max_tokens=LONG_DECODE_TOKENS)
+        runs.append((ids, recs, t0))
+    launches = dict(LAUNCHES)  # and ends here
+    ctx["path_launches"]["long_prompt"] = launches
+    need(runs[0][0] == runs[1][0], "two greedy long-prompt runs differ")
+    for ids, recs, _ in runs:
+        need(len(recs) - len(windows) in (len(ids) - 1, len(ids)), f"{len(recs)} forward calls for {len(ids)} tokens")
+        for i, (off, rows) in enumerate(windows):
+            need((recs[i]["rows"], recs[i]["pos"]) == (rows, off), f"window {i}: {recs[i]['rows']} rows at {recs[i]['pos']}")
+            long = rows > 256
+            _expect(recs[i], {"qmatmul_w8a16_rows": 4 * n_l if long else 0,
+                              "causal_prefill_attention": n_l if long and off == 0 else 0,
+                              "qmatmul_w8a16": 1 if long else 4 * n_l + 1}, f"prefill window {i}")
+        for rec in recs[len(windows):]:
+            _expect(rec, {"qmatmul_w8a16": 4 * n_l + 1, "flash_decode": n_l}, "decode step")
+    ids, recs, t0 = runs[1]
+    bounds = [prefill_ops(cfg, rows, cache_rows=off)["total"] / PEAK_OPS_PER_S["bf16"] * 1e3
+              for off, rows in windows]
+    win_ms = [recs[i]["seconds"] * 1e3 for i in range(len(windows))]
+    steps = [r["seconds"] for r in recs[len(windows) + 1:]]
+    out = {
+        "prompt_tokens": n_tok, "windows": [rows for _, rows in windows], "generated": len(ids),
+        "identical": True, "window_ms": win_ms, "window_ms_first_run": [r["seconds"] * 1e3 for r in runs[0][1][:2]],
+        "window_bound_ms": bounds, "window_bound_share": [b / m for b, m in zip(bounds, win_ms)],
+        "fresh_2048_ttft_ms": win_ms[0], "prefill_ms": sum(win_ms),
+        "prefill_bound_share": sum(bounds) / sum(win_ms),
+        "ttft_ms": (recs[len(windows)]["start"] - t0) * 1e3,
+        "decode_step_ms": statistics.median(steps) * 1e3, "launches": launches,
+    }
+    emit({"phase": "e2e", "run": "long prompt generate greedy x2", **out})
+    # Where a window's time goes (profiled apart from the checked runs).
+    ids_all = np.asarray([tok.encode(prompt)])
+    for name, (off, rows) in zip(("fresh_window", "continuation_window"), windows):
+        cache = engine.new_cache(1)
+        if off:
+            _, cache = engine.prefill(cache, ids_all[:, :off], np.zeros(1, np.int64))
+        out[f"profile_{name}"] = profile_calls(
+            torch, lambda i: engine.prefill(cache, ids_all[:, off : off + rows], np.full(1, off)), 1)
+        emit({"phase": "e2e", "profile": name, "rows": rows, **out[f"profile_{name}"]})
+    return out
+
+
+def eval_path(torch, ctx, cfg, weights, mode: str, windows: int, runs: int) -> dict:
+    """eval-ppl at the full 4096-row window, through ``compute_perplexity``:
+    fast mode sends wqkv, wo and w13 to the row-blocked kernel and w2 to the
+    dequant kernel and one bf16 product; exact mode every projection and the
+    classifier to the W8A8 kernel."""
+    import numpy as np
+
+    import qwen3_rs_tpu_torch.evaluation as ev
+    from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    n_l, window = cfg.n_layers, cfg.seq_len
+    tokens = np.random.default_rng(SEED).integers(0, cfg.vocab_size, windows * (window - 1) + 1).tolist()
+    want = ({"qmatmul_w8a16_rows": 3 * n_l, "dequant_w8_stacked": n_l} if mode == "fast"
+            else {"qmatmul_w8a8_rows": 4 * n_l + 1})
+    results, recs, seconds = [], [], []
+    reset_launches()  # this path's run starts here
+    with forward_records(torch, ev, recs):
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            results.append(ev.compute_perplexity(cfg, weights, tokens, mode=mode, window=window))
+            seconds.append(time.perf_counter() - t0)
+    launches = dict(LAUNCHES)  # and ends here
+    ctx["path_launches"][f"eval_ppl_{mode}"] = launches
+    need(len(recs) == windows * runs, f"eval-ppl {mode}: {len(recs)} windows, expected {windows * runs}")
+    for rec in recs:
+        need(rec["rows"] == window, f"eval-ppl window of {rec['rows']} rows")
+        _expect(rec, want, f"eval-ppl {mode} window")
+    r = results[0]
+    need(math.isfinite(r.perplexity) and r.n_tokens == windows * (window - 1), f"eval-ppl {mode}: {r}")
+    need(all(x == r for x in results), f"eval-ppl {mode}: runs differ {results}")
+    out = {
+        "mode": mode, "window": window, "windows": windows, "runs": runs, "perplexity": r.perplexity,
+        "avg_nll": r.avg_nll, "tokens": r.n_tokens, "identical_runs": runs > 1,
+        "seconds_per_window": statistics.median(seconds) / windows,
+        "forward_seconds_per_window": statistics.median(x["seconds"] for x in recs), "launches": launches,
+    }
+    emit({"phase": "e2e", "run": f"eval-ppl {mode}", **out})
+    if mode == "fast":  # where an eval window's time goes
+        out["profile"] = profile_calls(
+            torch, lambda i: ev.compute_perplexity(cfg, weights, tokens[:window], mode=mode, window=window), 1)
+        emit({"phase": "e2e", "profile": f"eval-ppl {mode} window", **out["profile"]})
+    return out
+
+
+def exact_generate_path(torch, ctx, cfg, weights, tok) -> dict:
+    """Exact (W8A8) generate: the prompt window takes the W8A8 kernel (4
+    projections per layer), decode steps the reference's group scan."""
+    import qwen3_rs_tpu_torch.inference.engine as engine_mod
+    from qwen3_rs_tpu_torch import Engine, TokenSampler, generate
+    from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    engine = Engine(config=cfg, weights=weights, mode="exact", device=DEV)
+    prompt = prompt_text(EXACT_PROMPT_TOKENS)
+    recs: list = []
+    reset_launches()  # this path's run starts here
+    with forward_records(torch, engine_mod, recs):
+        ids = generate(engine, tok, TokenSampler(0.0, 0.9, SEED), prompt, out=io.StringIO(),
+                       max_tokens=EXACT_DECODE_TOKENS)
+    launches = dict(LAUNCHES)  # and ends here
+    ctx["path_launches"]["exact_generate"] = launches
+    need(len(ids) > 2 and recs[0]["rows"] == EXACT_PROMPT_TOKENS, f"exact generate: {len(ids)} tokens")
+    _expect(recs[0], {"qmatmul_w8a8_rows": 4 * cfg.n_layers}, "exact prompt window")
+    for rec in recs[1:]:
+        _expect(rec, {}, "exact decode step")  # the group scan: plain PyTorch, as the reference
+    step_s = statistics.median(r["seconds"] for r in recs[2:])
+    out = {"prompt_tokens": recs[0]["rows"], "generated": len(ids), "window_ms": recs[0]["seconds"] * 1e3,
+           "decode_step_ms": step_s * 1e3, "decode_tok_per_s": 1.0 / step_s, "launches": launches}
+    emit({"phase": "e2e", "run": "exact generate greedy", **out})
+    return out
 
 
 def profile_decode(torch, engine, prompt_ids, steps: int = 8) -> dict:
     """Where a decode step's time goes: torch.profiler over ``steps`` greedy
-    decode steps after a prefill; device busy time against wall time, and
-    the kernels that take the most device time."""
+    decode steps after a prefill."""
     import numpy as np
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     cache = engine.new_cache(1)
     logits, cache = engine.prefill(cache, np.asarray([prompt_ids]), np.zeros(1, np.int64))
     pos = len(prompt_ids)
+    state = {"logits": logits, "cache": cache}
+
+    def step(i):
+        state["logits"], state["cache"] = engine.decode_step(
+            state["cache"], [int(state["logits"].argmax())], [pos + i])
+
+    return profile_calls(torch, step, steps)
+
+
+def profile_calls(torch, fn, calls: int) -> dict:
+    """torch.profiler over ``calls`` calls of ``fn(i)``: device busy time
+    against wall time per call, and the kernels that take the most device
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for i in range(steps):
-            logits, cache = engine.decode_step(cache, [int(logits.argmax())], [pos + i])
+        for i in range(calls):
+            fn(i)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -514,13 +907,13 @@ def profile_decode(torch, engine, prompt_ids, steps: int = 8) -> dict:
     busy_ms = sum(r[0] for r in rows) / 1e3
     if busy_ms == 0.0:
         return {"device_time": "not measured", "reason": "the profiler recorded no device time",
-                "wall_ms_per_step": wall_ms / steps}
+                "wall_ms_per_step": wall_ms / calls}
     return {
-        "steps": steps, "wall_ms_per_step": wall_ms / steps,
-        "device_busy_ms_per_step": busy_ms / steps,
+        "steps": calls, "wall_ms_per_step": wall_ms / calls,
+        "device_busy_ms_per_step": busy_ms / calls,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
-        "device_ops_per_step": sum(r[1] for r in rows) / steps,
-        "top": [{"kernel": k[:90], "ms_per_step": us / 1e3 / steps, "calls_per_step": n / steps}
+        "device_ops_per_step": sum(r[1] for r in rows) / calls,
+        "top": [{"kernel": k[:90], "ms_per_step": us / 1e3 / calls, "calls_per_step": n / calls}
                 for us, n, k in rows[:10]],
     }
 
@@ -546,29 +939,53 @@ def phase_cli(torch, ctx) -> None:
     write_tokenizer(root / "tokenizer.bin", cfg.vocab_size)
     write_templates(root)
     emit({"phase": "cli", "checkpoint_write_seconds": time.perf_counter() - t0})
-    ctx_len = 128
+    # (case, ctx, prompt, flags, engine mode)
     cases = [
-        ("generate", prompt_text(40), ["-m", "generate", "-t", "0", "-s", "5"]),
-        ("chat", prompt_text(20), ["-m", "chat", "-y", "sys", "-t", "0.8", "-s", "3"]),
+        ("generate", 128, prompt_text(40), ["-m", "generate", "-t", "0", "-s", "5"], "fast"),
+        ("chat", 128, prompt_text(20), ["-m", "chat", "-y", "sys", "-t", "0.8", "-s", "3"], "fast"),
+        ("generate exact", 512, prompt_text(200),
+         ["-m", "generate", "-t", "0", "-s", "5", "--engine-mode", "exact"], "exact"),
     ]
-    for mode, prompt, flags in cases:
+    for case, ctx_len, prompt, flags, mode in cases:
         buf = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             rc = cli_main(["inference", str(root), "-c", str(ctx_len), "-i", prompt, *flags])
-        need(rc == 0, f"cli {mode} exited {rc}")
+        need(rc == 0, f"cli {case} exited {rc}")
         cli_out = buf.getvalue()
         # The same run through the API on the same weights.
-        eng = Engine(config=cfg, weights=weights, ctx_length=ctx_len, device=DEV)
+        eng = Engine(config=cfg, weights=weights, ctx_length=ctx_len, mode=mode, device=DEV)
         tok = Tokenizer(root, cfg.vocab_size)
         api = io.StringIO()
-        if mode == "generate":
+        if case.startswith("generate"):
             generate(eng, tok, TokenSampler(0.0, 0.9, 5), prompt, out=api)
         else:
             chat(eng, tok, TokenSampler(0.8, 0.9, 3), prompt, "sys", out=api)
-        need(cli_out == api.getvalue(), f"cli {mode} output differs from the API's")
-        emit({"phase": "cli", "mode": mode, "chars_out": len(cli_out),
+        need(cli_out == api.getvalue(), f"cli {case} output differs from the API's")
+        emit({"phase": "cli", "mode": case, "chars_out": len(cli_out),
               "equal_to_api": True, "seconds": time.perf_counter() - t0})
+
+    # eval-ppl through the CLI against the API, at a 600-row window.
+    import numpy as np
+
+    from qwen3_rs_tpu_torch import evaluate_checkpoint
+
+    text = ctx["tmp"] / "eval.txt"
+    text.write_text(prompt_text(1500))
+    modes = "fast,exact,f32"
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["eval-ppl", str(root), "-f", str(text), "--modes", modes, "-w", "600"])
+    need(rc == 0, f"cli eval-ppl exited {rc}")
+    got = json.loads(buf.getvalue())
+    api = evaluate_checkpoint(root, text=text.read_text(), modes=tuple(modes.split(",")), window=600)
+    for m, r in api.items():
+        need(got[m]["tokens"] == r.n_tokens and np.isclose(got[m]["perplexity"], r.perplexity, rtol=1e-6, atol=0),
+             f"cli eval-ppl {m}: {got[m]} != {r}")
+    need(set(got["fast"]) == {"perplexity", "avg_nll", "tokens", "ppl_delta_vs_f32"}, f"eval-ppl keys {got}")
+    emit({"phase": "cli", "mode": "eval-ppl", "window": 600, "result": got, "equal_to_api_rtol": 1e-6,
+          "seconds": time.perf_counter() - t0})
 
 
 def phase_parity(torch, ctx) -> None:
@@ -606,6 +1023,76 @@ def phase_parity(torch, ctx) -> None:
     emit({"phase": "parity", "layers": cfg.n_layers, "width": cfg.dim, "steps": 1 + 8,
           "max_rel_err": max(errs), "tol_rel": tol_rel, "argmax_agree": agree,
           "seconds": time.perf_counter() - t0})
+    parity_long_windows(torch, ctx)
+    parity_eval(torch, ctx)
+
+
+def parity_long_windows(torch, ctx) -> None:
+    """Card against CPU on the 2-layer 8B-width model: a fresh 512-row window
+    and a 300-row continuation in fast mode (causal prefill and row-blocked
+    kernels on the card), a 256-row exact window (W8A8 kernel), 3 decode
+    steps after each."""
+    import numpy as np
+
+    from qwen3_rs_tpu_torch import Engine
+    from qwen3_rs_tpu_torch.models.qwen3 import weights_to
+
+    cfg, weights = small_model(ctx)
+    cpu_weights = weights_to(weights, "cpu")
+    rng = np.random.default_rng(SEED + 2)
+    # Fast: an f32 sum in another order can flip a bf16 rounding of the residual
+    # stream; exact: it can flip an activation's int8 code.
+    tol_rel = 2e-2
+    for mode, windows in (("fast", (512, 300)), ("exact", (256,))):
+        t0 = time.perf_counter()
+        card = Engine(config=cfg, weights=weights, mode=mode, device=DEV)
+        cpu = Engine(config=cfg, weights=cpu_weights, mode=mode, device="cpu")
+        caches = [card.new_cache(1), cpu.new_cache(1)]
+        pos, errs = 0, []
+        for rows in windows:
+            prompt = rng.integers(0, cfg.vocab_size, (1, rows))
+            lc, caches[0] = card.prefill(caches[0], prompt, [pos])
+            lp, caches[1] = cpu.prefill(caches[1], prompt, [pos])
+            pos += rows
+            errs.append(float((lc.float().cpu() - lp).abs().max()) / float(lp.abs().max()))
+        for step in range(3):
+            nxt = int(lp.argmax())
+            lc, caches[0] = card.decode_step(caches[0], [nxt], [pos + step])
+            lp, caches[1] = cpu.decode_step(caches[1], [nxt], [pos + step])
+            errs.append(float((lc.float().cpu() - lp).abs().max()) / float(lp.abs().max()))
+        need(all(math.isfinite(e) and e <= tol_rel for e in errs), f"card vs CPU {mode} long windows: {errs}")
+        emit({"phase": "parity", "mode": mode, "layers": cfg.n_layers, "width": cfg.dim,
+              "windows": list(windows), "decode_steps": 3, "rel_errs": errs, "tol_rel": tol_rel,
+              "seconds": time.perf_counter() - t0})
+
+
+def parity_eval(torch, ctx) -> None:
+    """eval-ppl on the card against the CPU: a 2-layer 0.6B-width model,
+    two 512-row windows, fast and exact."""
+    import numpy as np
+
+    from qwen3_rs_tpu_torch.evaluation import compute_perplexity
+    from qwen3_rs_tpu_torch.models.qwen3 import weights_to
+    from qwen3_rs_tpu_torch.testing import qwen3_config, random_weights
+
+    cfg = qwen3_config("0.6b", seq_len=512, n_layers=2)
+    weights = random_weights(cfg, seed=SEED + 3, device=DEV)
+    cpu_weights = weights_to(weights, "cpu")
+    tokens = np.random.default_rng(SEED + 3).integers(0, cfg.vocab_size, 900).tolist()
+    # Rounding flips of single logits average out over 899 tokens.  Random
+    # weights give large logits and NLLs; the NLL is compared, which the
+    # perplexity exponentiates.
+    tol_rel = 2e-3
+    for mode in ("fast", "exact"):
+        t0 = time.perf_counter()
+        a = compute_perplexity(cfg, weights, tokens, mode=mode)
+        b = compute_perplexity(cfg, cpu_weights, tokens, mode=mode)
+        rel = abs(a.avg_nll - b.avg_nll) / abs(b.avg_nll)
+        need(math.isfinite(a.avg_nll) and a.n_tokens == b.n_tokens and rel <= tol_rel,
+             f"eval-ppl {mode} card {a} vs CPU {b}")
+        emit({"phase": "parity", "run": f"eval-ppl {mode}", "width": cfg.dim, "layers": cfg.n_layers,
+              "window": 512, "tokens": a.n_tokens, "card_avg_nll": a.avg_nll, "cpu_avg_nll": b.avg_nll,
+              "rel_err": rel, "tol_rel": tol_rel, "seconds": time.perf_counter() - t0})
 
 
 # ----------------------------------------------------------------------- main
@@ -656,8 +1143,10 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    launches = ctx.get("launches", {})
-    rows = [dict(r, launches=launches.get(r["name"], 0)) for r in ctx.get("kernel_rows", [])]
+    paths = ctx.get("path_launches", {})
+    launches = {name: sum(p.get(name, 0) for p in paths.values()) for name in
+                {r["name"] for r in ctx.get("kernel_rows", [])}}
+    rows = [dict(r, launches=launches[r["name"]]) for r in ctx.get("kernel_rows", [])]
     emit({"kernels": rows, "e2e": ctx.get("e2e"), "total_seconds": time.perf_counter() - t_all})
     print(ctx.get("smi") or subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

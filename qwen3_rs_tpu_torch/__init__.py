@@ -1,10 +1,11 @@
 """qwen3_rs_tpu_torch — the PyTorch and CUDA port of the JAX package (``qwen3_rs_tpu``).
 
-INT8-g64 Qwen3/Llama inference for one NVIDIA H100: the same checkpoints,
-tokenizer, sampler and generation loops as the JAX package, with its Pallas
-kernels replaced by hand-written CUDA kernels for Hopper (``csrc/``).  Entry
-points run on the card unless the caller passes ``device="cpu"``, where the
-kernels' plain PyTorch versions run instead.
+INT8-g64 Qwen3/Llama inference and perplexity evaluation for one NVIDIA
+H100: the same checkpoints, tokenizer, sampler, generation loops, engine
+modes (fast W8A16, exact W8A8) and ``eval-ppl`` as the JAX package, with its
+Pallas kernels replaced by hand-written CUDA kernels for Hopper (``csrc/``).
+Entry points run on the card unless the caller passes ``device="cpu"``,
+where the kernels' plain PyTorch versions run instead.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from .checkpoint import load_checkpoint
 from .configuration import ModelConfig, read_config
+from .evaluation import PerplexityResult, evaluate_checkpoint
 from .inference import Engine, Tokenizer, TokenSampler, chat, generate
 from .inference.engine import not_ported
 
@@ -82,6 +84,8 @@ __all__ = [
     "read_config",
     "load_checkpoint",
     "run_inference",
+    "evaluate_checkpoint",
+    "PerplexityResult",
     "Engine",
     "Tokenizer",
     "TokenSampler",

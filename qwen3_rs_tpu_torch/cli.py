@@ -1,19 +1,22 @@
-"""Command-line interface: the ``inference`` subcommand.
+"""Command-line interface: the ``inference`` and ``eval-ppl`` subcommands.
 
-The same flags as the reference package's ``inference`` subcommand, plus
-``--device`` (default: the card).  Flags whose paths are not ported yet
-(``--engine-mode exact``, ``--device-sampling``, ``--spec``, ``--sp > 1``)
-raise a "not ported" error naming the ROADMAP.md item; they never run
-something else.
+The same flags as the reference package's subcommands, plus ``--device``
+(default: the card).  Flags whose paths are not ported yet
+(``--device-sampling``, ``--spec``, ``--sp > 1``) raise a "not ported" error
+naming the ROADMAP.md item; they never run something else.
 
     python -m qwen3_rs_tpu_torch.cli inference CKPT -m generate -i "hello" -t 0
+    python -m qwen3_rs_tpu_torch.cli inference CKPT -m generate -i "hello" --engine-mode exact
+    python -m qwen3_rs_tpu_torch.cli eval-ppl CKPT -f text.txt --modes fast,exact,f32 -w 4096
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import sys
+from pathlib import Path
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -36,7 +39,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     inf.add_argument(
         "--engine-mode", choices=["fast", "exact"], default="fast",
-        help="fast = W8A16 with the CUDA kernels; exact (W8A8) is not ported yet",
+        help="fast = W8A16 with the CUDA kernels; exact = W8A8 with the reference's rounding",
     )
     inf.add_argument(
         "--device-sampling", action="store_true",
@@ -61,12 +64,45 @@ def build_parser() -> argparse.ArgumentParser:
         "--device", default=None,
         help="torch device (default: cuda; cpu runs the kernels' plain PyTorch versions)",
     )
+
+    # eval-ppl: perplexity and the int8-vs-f32 delta (the accuracy bar).
+    ev = sub.add_parser("eval-ppl", help="Evaluate perplexity of a checkpoint")
+    ev.add_argument("checkpoint")
+    ev.add_argument("-f", "--file", required=True, help="UTF-8 text file to evaluate")
+    ev.add_argument(
+        "--modes", default="fast,f32",
+        help="comma-separated engine modes (fast, exact, f32); default fast,f32",
+    )
+    ev.add_argument("-w", "--window", type=int, default=None, help="evaluation window")
+    ev.add_argument(
+        "--device", default=None,
+        help="torch device (default: cuda; cpu runs the kernels' plain PyTorch versions)",
+    )
     return parser
 
 
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, format="%(message)s", stream=sys.stderr)
     args = build_parser().parse_args(argv)
+    if args.command == "eval-ppl":
+        from .evaluation import evaluate_checkpoint
+
+        text = Path(args.file).read_text()
+        results = evaluate_checkpoint(
+            args.checkpoint, text=text, modes=tuple(args.modes.split(",")),
+            window=args.window, device=args.device,
+        )
+        payload = {
+            mode: {"perplexity": r.perplexity, "avg_nll": r.avg_nll, "tokens": r.n_tokens}
+            for mode, r in results.items()
+        }
+        if "f32" in results:
+            for mode, r in results.items():
+                if mode != "f32":
+                    payload[mode]["ppl_delta_vs_f32"] = r.delta_vs(results["f32"])
+        print(json.dumps(payload, indent=2))
+        return 0
+
     from . import InferenceConfig, run_inference
 
     run_inference(

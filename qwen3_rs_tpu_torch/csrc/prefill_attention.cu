@@ -1,0 +1,261 @@
+// Causal prefill attention over a fresh window for Hopper (sm_90a), head_dim 128.
+//
+// Replaces the reference package's Pallas kernel
+//   qwen3_rs_tpu/ops/pallas/prefill_attention.py::causal_prefill_attention (the splash MQA
+//   kernel vmapped over batch and kv heads).
+// Output row i attends to window rows j <= i; query head h reads kv head h / kv_mul.
+//
+// Numerics, as the splash kernel: q is scaled by bf16(1/sqrt(128)) and rounded to bf16 before the
+// scores (the reference scales q in bf16 outside its kernel; here the same two roundings happen
+// as q is loaded); scores accumulate in f32; online softmax in f32 (running max, rescaled sums);
+// P.V is taken with P in f32.  The tensor cores take bf16, so P is split into
+// hi = bf16(P) and lo = bf16(P - hi) and both are multiplied with V (exact in bf16): the part of
+// P that neither carries is below 2^-16 of P, far under the output's bf16 rounding.  The output is
+// normalised in f32 and rounded to bf16.
+//
+// Bound on the H100: 4 * (S(S+1)/2) * 128 operations per query head (Q.K^T and P.V over the
+// causal triangle) at 989 TFLOP/s bf16; the bytes (q, k, v and out, each once) are far fewer.
+// Design (a flash-attention forward):
+//  * one block per (query tile, kv head, batch row) holds all kv_mul query heads of its kv head,
+//    128 query rows in all (128 / kv_mul rows per head), so each K/V tile read from device memory
+//    serves the kv_mul heads; 8 warps of 16 query rows each;
+//  * K/V tiles of 64 rows in shared memory (rows padded to 272 bytes: ldmatrix without bank
+//    conflicts), mma.sync m16n8k16 for Q.K^T and for P.V, the score tile and the output
+//    accumulator in registers;
+//  * key tiles past the block's last query row are never visited (fully masked), only tiles on
+//    the diagonal or past the window's end are masked element by element;
+//  * the query tiles with the most key tiles are scheduled first.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int HD = 128;   // head_dim
+constexpr int BKV = 64;   // key rows per tile
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRows = kWarps * 16;  // query rows per block, all heads of the group
+constexpr int KV_STRIDE = HD + 8;   // bf16 per shared K/V row
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                        uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t& r0, uint32_t& r1,
+                                              uint32_t& r2, uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// (hi, lo) bf16 pairs of two f32 values: hi = bf16(v), lo = bf16(v - hi).
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(a - hf.x, b - hf.y);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+prefill_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                         int S, int H, int KV, int kv_mul, float q_scale) {
+  __shared__ __align__(16) __nv_bfloat16 Ks[BKV * KV_STRIDE];
+  __shared__ __align__(16) __nv_bfloat16 Vs[BKV * KV_STRIDE];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int bq = kRows / kv_mul;  // query rows per head in this block
+  const int n_qt = (S + bq - 1) / bq;
+  const int q0 = (n_qt - 1 - (int)blockIdx.x) * bq;  // longest tiles first
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int warps_per_head = kWarps / kv_mul;
+  const int h = kvh * kv_mul + warp / warps_per_head;
+  const int r0 = q0 + (warp % warps_per_head) * 16;  // this warp's first query row
+  const int row_a = r0 + (lane >> 2), row_b = row_a + 8;  // this thread's two rows
+
+  // Q fragments of the warp's 16 rows x 128, scaled and rounded to bf16 as they are loaded.
+  uint32_t qf[HD / 16][4];
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = (r & 1) ? row_b : row_a;
+      const int col = ks * 16 + (lane & 3) * 2 + ((r & 2) ? 8 : 0);
+      uint32_t val = 0u;
+      if (row < S) {
+        const __nv_bfloat162 x2 = *reinterpret_cast<const __nv_bfloat162*>(
+            q + (((long)b * S + row) * H + h) * HD + col);
+        const float2 f = __bfloat1622float2(x2);
+        val = pack_bf16(f.x * q_scale, f.y * q_scale);
+      }
+      qf[ks][r] = val;
+    }
+  }
+
+  float o[HD / 8][4];
+#pragma unroll
+  for (int i = 0; i < HD / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+
+  const int kv_end = min(S, q0 + bq);  // keys past the block's last query row are all masked
+  const int n_kt = (kv_end + BKV - 1) / BKV;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int kv0 = kt * BKV;
+    __syncthreads();  // the previous tile is consumed
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int id = tid + i * kThreads, r = id >> 4, ch = id & 15;
+      const int key = kv0 + r;
+      const long src = (((long)b * S + key) * KV + kvh) * HD + ch * 8;
+      *reinterpret_cast<uint4*>(&Ks[r * KV_STRIDE + ch * 8]) =
+          key < S ? *reinterpret_cast<const uint4*>(k + src) : zero;
+      *reinterpret_cast<uint4*>(&Vs[r * KV_STRIDE + ch * 8]) =
+          key < S ? *reinterpret_cast<const uint4*>(v + src) : zero;
+    }
+    __syncthreads();
+
+    // Scores of 16 rows x 64 keys.
+    float s[BKV / 8][4];
+#pragma unroll
+    for (int i = 0; i < BKV / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < HD / 16; ++ks) {
+#pragma unroll
+      for (int nj = 0; nj < BKV / 16; ++nj) {
+        uint32_t b0, b1, b2, b3;
+        const int key = nj * 16 + (lane & 7) + (lane >> 4) * 8;
+        const int col = ks * 16 + ((lane >> 3) & 1) * 8;
+        ldsm_x4(smem_addr(&Ks[key * KV_STRIDE + col]), b0, b1, b2, b3);
+        mma_bf16(s[2 * nj], qf[ks], b0, b1);
+        mma_bf16(s[2 * nj + 1], qf[ks], b2, b3);
+      }
+    }
+
+    // Causal mask and the window's end, only where the tile reaches them.
+    if (kv0 + BKV - 1 > r0 || kv0 + BKV > S) {
+#pragma unroll
+      for (int ni = 0; ni < BKV / 8; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = kv0 + ni * 8 + (lane & 3) * 2 + (e & 1);
+          const int row = (e & 2) ? row_b : row_a;
+          if (key > row || key >= S) s[ni][e] = -INFINITY;
+        }
+    }
+
+    // Online softmax: each row's 64 scores sit in the 4 lanes of a quad.
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int ni = 0; ni < BKV / 8; ++ni) {
+      mx_a = fmaxf(mx_a, fmaxf(s[ni][0], s[ni][1]));
+      mx_b = fmaxf(mx_b, fmaxf(s[ni][2], s[ni][3]));
+    }
+#pragma unroll
+    for (int o_ = 1; o_ < 4; o_ <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, o_));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, o_));
+    }
+    // Key 0 lies in the first tile and below every row, so the running max is finite from
+    // the first tile on.
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    const float alpha_a = expf(m_a - mn_a), alpha_b = expf(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int ni = 0; ni < BKV / 8; ++ni) {
+      s[ni][0] = expf(s[ni][0] - mn_a);
+      s[ni][1] = expf(s[ni][1] - mn_a);
+      s[ni][2] = expf(s[ni][2] - mn_b);
+      s[ni][3] = expf(s[ni][3] - mn_b);
+      sum_a += s[ni][0] + s[ni][1];
+      sum_b += s[ni][2] + s[ni][3];
+    }
+#pragma unroll
+    for (int o_ = 1; o_ < 4; o_ <<= 1) {
+      sum_a += __shfl_xor_sync(0xffffffffu, sum_a, o_);
+      sum_b += __shfl_xor_sync(0xffffffffu, sum_b, o_);
+    }
+    l_a = l_a * alpha_a + sum_a;
+    l_b = l_b * alpha_b + sum_b;
+#pragma unroll
+    for (int i = 0; i < HD / 8; ++i) {
+      o[i][0] *= alpha_a;
+      o[i][1] *= alpha_a;
+      o[i][2] *= alpha_b;
+      o[i][3] *= alpha_b;
+    }
+
+    // O += P.V, P as hi + lo bf16 parts; the score accumulators' layout is the A operand's.
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+      uint32_t hi[4], lo[4];
+      split_bf16(s[2 * kk][0], s[2 * kk][1], hi[0], lo[0]);
+      split_bf16(s[2 * kk][2], s[2 * kk][3], hi[1], lo[1]);
+      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[2], lo[2]);
+      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[3], lo[3]);
+#pragma unroll
+      for (int nj = 0; nj < HD / 16; ++nj) {
+        uint32_t b0, b1, b2, b3;
+        const int key = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+        const int col = nj * 16 + (lane >> 4) * 8;
+        ldsm_x4_trans(smem_addr(&Vs[key * KV_STRIDE + col]), b0, b1, b2, b3);
+        mma_bf16(o[2 * nj], hi, b0, b1);
+        mma_bf16(o[2 * nj], lo, b0, b1);
+        mma_bf16(o[2 * nj + 1], hi, b2, b3);
+        mma_bf16(o[2 * nj + 1], lo, b2, b3);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int ni = 0; ni < HD / 8; ++ni) {
+    const int col = ni * 8 + (lane & 3) * 2;
+    if (row_a < S)
+      *reinterpret_cast<uint32_t*>(out + (((long)b * S + row_a) * H + h) * HD + col) =
+          pack_bf16(o[ni][0] / l_a, o[ni][1] / l_a);
+    if (row_b < S)
+      *reinterpret_cast<uint32_t*>(out + (((long)b * S + row_b) * H + h) * HD + col) =
+          pack_bf16(o[ni][2] / l_b, o[ni][3] / l_b);
+  }
+}
+
+}  // namespace
+
+// Plain C entry point.  q [B, S, H, 128], k/v [B, S, KV, 128] and out [B, S, H, 128] are
+// contiguous bf16 device pointers; kv_mul = H / KV is 1, 2, 4 or 8; q_scale is bf16(1/sqrt(128))
+// as a float.  Returns cudaGetLastError().
+extern "C" int causal_prefill_attention(const void* q, const void* k, const void* v, void* out,
+                                        int B, int S, int H, int KV, float q_scale, void* stream) {
+  const int kv_mul = H / KV;
+  const int bq = kRows / kv_mul;
+  const dim3 grid((S + bq - 1) / bq, KV, B);
+  prefill_attention_kernel<<<grid, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const __nv_bfloat16*>(q), reinterpret_cast<const __nv_bfloat16*>(k),
+      reinterpret_cast<const __nv_bfloat16*>(v), reinterpret_cast<__nv_bfloat16*>(out), S, H, KV,
+      kv_mul, q_scale);
+  return (int)cudaGetLastError();
+}

@@ -1,11 +1,12 @@
 """Inference engine: prefill and decode over a loaded checkpoint.
 
 The port of the reference package's ``inference/engine.py`` for the fast
-(W8A16) engine with host sampling.  PyTorch runs eagerly, so there is no
-compile step and no bucket padding: a prompt window is exactly as long as
-the prompt.  ``prefill`` feeds prompts in windows of at most
-``MAX_PREFILL_WINDOW`` rows; a later window attends over the cache rows the
-earlier ones wrote, as a chat turn does.
+(W8A16) and exact (W8A8) engines with host sampling.  PyTorch runs eagerly,
+so there is no compile step and no bucket padding: a prompt window is
+exactly as long as the prompt.  ``prefill`` feeds prompts in windows of at
+most ``MAX_PREFILL_WINDOW`` rows; a window that starts at position 0 is a
+fresh prefill (the causal prefill kernel in fast mode), a later window
+attends over the cache rows the earlier ones wrote, as a chat turn does.
 """
 
 from __future__ import annotations
@@ -50,7 +51,8 @@ class Engine:
     ctx_length:
         Optional context override, clamped to the checkpoint's seq_len.
     mode:
-        ``"fast"`` (W8A16, the port's kernels).  ``"exact"`` is not ported.
+        ``"fast"`` (W8A16, the port's kernels) or ``"exact"`` (W8A8 with the
+        reference's rounding, for parity; f32 residual stream).
     cache_dtype:
         ``torch.float32`` (default), ``torch.bfloat16`` or ``"int8"``.
     device:
@@ -58,9 +60,9 @@ class Engine:
         plain PyTorch versions of the kernels.
     """
 
-    # Prompt windows are at most this long: the W8A16 kernel takes up to 256
-    # activation rows, and the >256-row kernels are not ported yet.
-    MAX_PREFILL_WINDOW = 256
+    # Long prompts prefill in windows of this size, as the reference engine's;
+    # a continuation window attends over the prefix like a chat turn.
+    MAX_PREFILL_WINDOW = 2048
 
     def __init__(
         self,
@@ -75,16 +77,19 @@ class Engine:
         device=None,
     ):
         self.device = resolve_device(device)
-        if mode != "fast":
-            raise not_ported(f"engine mode {mode!r}", "queue 1: exact (W8A8) mode")
+        if mode not in ("fast", "exact"):
+            raise ValueError(f"engine mode {mode!r} is not 'fast' or 'exact'")
         if checkpoint is not None:
             config, weights = load_checkpoint(checkpoint)
         if config is None or weights is None:
             raise ValueError("Engine needs a checkpoint, or config and weights")
         self.config = config.with_seq_len(ctx_length).validate()
-        # bf16 scales: the kernel rounds scales to bf16 anyway, and they are
-        # half the streamed scale bytes.
-        self.weights = cast_weight_scales(weights_to(weights, self.device))
+        weights = weights_to(weights, self.device)
+        if mode == "fast":
+            # bf16 scales: the W8A16 kernels round scales to bf16 anyway, and
+            # they are half the streamed scale bytes.  Exact mode keeps f32.
+            weights = cast_weight_scales(weights)
+        self.weights = weights
         self.mode = mode
         self.cache_dtype = cache_dtype
         self.batch_size = batch_size
@@ -112,15 +117,27 @@ class Engine:
         w = self.MAX_PREFILL_WINDOW
         logits = None
         for off in range(0, s_real, w):
+            pos = pos0 + off
             logits, cache = qwen3_forward(
-                self.config, self.weights, prompt_tokens[:, off : off + w], cache, pos0 + off
+                self.config, self.weights, prompt_tokens[:, off : off + w], cache, pos,
+                mode=self.mode, fresh_prefill=bool((pos == 0).all()),
             )
         return logits, cache
 
     def decode_step(self, cache, tokens, pos) -> tuple[torch.Tensor, KVCache | QuantizedKVCache]:
         """One decode step: tokens [B], pos [B] → logits [B, V]."""
         tokens = np.asarray(tokens, np.int64).reshape(-1, 1)
-        return qwen3_forward(self.config, self.weights, tokens, cache, np.asarray(pos).reshape(-1))
+        return qwen3_forward(
+            self.config, self.weights, tokens, cache, np.asarray(pos).reshape(-1), mode=self.mode
+        )
+
+    def all_logits(self, cache, tokens, pos_start) -> tuple[torch.Tensor, KVCache | QuantizedKVCache]:
+        """Logits for every position of one window: tokens [B, S] → [B, S, V]."""
+        tokens = np.asarray(tokens, np.int64)
+        return qwen3_forward(
+            self.config, self.weights, tokens, cache, np.asarray(pos_start).reshape(-1),
+            mode=self.mode, return_all_logits=True,
+        )
 
 
 class TokenMetrics:

@@ -1,16 +1,28 @@
 """Qwen3 forward pass over stacked per-layer weights and a dense KV cache.
 
-The port of the reference package's ``models/qwen3.py::qwen3_forward`` in
-fast mode (W8A16), on the path it takes with its decode megakernel off:
-every projection is the fused W8A16 kernel (RMSNorm prologue for wqkv and
-w13, residual epilogue for wo and w2, SwiGLU prologue for w2), decode
-attention (S = 1) is the flash-decode kernel, and the attention of prefill
-windows (S > 1) is the plain split attention.  On CPU tensors the kernel
-wrappers run their plain PyTorch versions.
+The port of the reference package's ``models/qwen3.py::qwen3_forward`` on
+the path it takes with its decode megakernel off, in three modes:
+
+* ``fast`` (W8A16).  Windows of at most 256 rows: every projection is the
+  fused W8A16 kernel (RMSNorm prologue for wqkv and w13, residual epilogue
+  for wo and w2, SwiGLU prologue for w2).  Longer windows: the RMSNorm,
+  SwiGLU and residual adds run outside the projections, which take the
+  row-blocked W8A16 kernel, or, where the reference's "xdot" gate admits
+  them, the dequant kernel and one bf16 product.  Decode attention (S = 1)
+  is the flash-decode kernel, a fresh window (every position 0) of more than
+  256 rows takes the causal prefill kernel, and every other window the
+  plain split attention.
+* ``exact`` (W8A8, reference parity): activations are quantized per group
+  before each projection (``qmatmul_exact``); the residual stream and the
+  attention are f32.
+* ``f32``: weights dequantized to f32 and full-f32 products (the f32 side of
+  the perplexity accuracy bar).
+
+On CPU tensors the kernel wrappers run their plain PyTorch versions.
 
 Layouts as in the reference package: linear weights in-major, codes
 ``[L, in, out]`` with scales ``[L, in/g, out]``; the cache ``[L, B, kv, T, hd]``.
-The residual stream is bf16.
+The residual stream is bf16 (f32 in exact mode).
 
 Unlike the reference package, which emits the window's K/V rows from its
 layer scan and scatters them into the cache once after the last layer, the
@@ -29,11 +41,25 @@ import torch
 from ..configuration import ModelConfig
 from ..ops.attention import gqa_attention_split
 from ..ops.kernels.flash_attention import flash_decode
-from ..ops.kernels.qmatmul import qmatmul_w8a16
-from ..ops.matmul import qmatmul
+from ..ops.kernels.prefill_attention import causal_prefill_attention
+from ..ops.kernels.qmatmul import MAX_ROWS, dequant_w8_stacked, qmatmul_w8a16, qmatmul_w8a16_rows
+from ..ops.matmul import exact_float_products, f32_matmul, qmatmul, qmatmul_exact
 from ..ops.norms import rms_norm
-from ..ops.quant import QuantizedTensor, dequantize
+from ..ops.quant import QuantizedTensor, dequantize, quantize_activations
 from ..ops.rope import apply_rope, rope_table
+
+MODES = ("fast", "exact", "f32")
+
+# The reference package's measured gate for its long-prefill "xdot" path
+# (dequantize one layer, then one bf16 product): only large down-projections
+# (n > d) at long windows.  In the Qwen3 shapes it admits w2 (and the 4B's
+# wo), both of whose products are rounded to bf16 before the residual add.
+_XDOT_PREFILL_MIN_ROWS = 4096
+_XDOT_MIN_WEIGHT_ELEMS = 10_000_000
+
+
+def _xdot_prefill_wins(rows: int, n: int, d: int) -> bool:
+    return rows >= _XDOT_PREFILL_MIN_ROWS and n > d and n * d >= _XDOT_MIN_WEIGHT_ELEMS
 
 
 class Qwen3LayerWeights(NamedTuple):
@@ -189,6 +215,45 @@ def _write_rows(cache, layer: int, k: torch.Tensor, v: torch.Tensor, pos: np.nda
             cache.v_scale[layer, b, :, p : p + s] = v_sc[b].transpose(0, 1)
 
 
+
+
+def _project_layer(x, xq, w: QuantizedTensor, layer: int, mode: str, *, rounds_to_bf16: bool = False):
+    """One projection against layer ``layer`` of stacked weights, outside
+    the fused kernel: ``x [..., N]`` (``xq`` its quantized form in exact
+    mode) → ``[..., D]``.
+
+    ``rounds_to_bf16``: the caller rounds the result to bf16 before using it
+    (wo and w2 before the residual add).  The xdot product is then taken in
+    bf16, whose f32 sum the product rounds once, as the reference rounds its
+    f32 result; otherwise it keeps an f32 result.
+    """
+    if mode == "exact":
+        return qmatmul_exact(xq, w, layer)
+    if mode == "f32":
+        return f32_matmul(x, w, layer)
+    n, d = w.q.shape[-2:]
+    rows = x.numel() // n
+    if _xdot_prefill_wins(rows, n, d):
+        wbf = dequant_w8_stacked(w, layer)
+        xb = x.reshape(rows, n).to(torch.bfloat16)
+        with exact_float_products():
+            out = xb @ wbf if rounds_to_bf16 else xb.float() @ wbf.float()
+        return out.reshape(*x.shape[:-1], d)
+    return qmatmul_w8a16_rows(x, w, layer)
+
+
+def _head(config, weights, x, mode: str) -> torch.Tensor:
+    """Final norm + classifier → f32 logits over the real vocabulary."""
+    xn = rms_norm(x, weights.rms_final, config.norm_eps)
+    if mode == "exact":
+        logits = qmatmul_exact(quantize_activations(xn, config.group_size), weights.lm_head)
+    elif mode == "f32":
+        logits = f32_matmul(xn, weights.lm_head)
+    else:
+        logits = qmatmul(xn, weights.lm_head)
+    return logits[..., : config.vocab_size].float()
+
+
 def qwen3_forward(
     config: ModelConfig,
     weights: Qwen3Weights,
@@ -196,15 +261,23 @@ def qwen3_forward(
     cache: KVCache | QuantizedKVCache,
     pos_start,
     *,
+    mode: str = "fast",
     out_idx=None,
+    return_all_logits: bool = False,
+    fresh_prefill: bool = False,
 ) -> tuple[torch.Tensor, KVCache | QuantizedKVCache]:
     """One model step: prefill when S > 1, decode when S == 1.
 
     ``tokens`` [B, S] ints; ``pos_start`` [B] host ints, the absolute
     position of each row's first token; ``out_idx`` [B] host ints, the window
-    row whose logits are returned (default: the last).  Returns
-    (logits [B, vocab_size] f32, cache), the cache updated in place.
+    row whose logits are returned (default: the last).  ``fresh_prefill``
+    states that every position is 0 (checked), which routes long fast-mode
+    windows to the causal prefill kernel.  Returns (logits [B, vocab_size]
+    f32, or [B, S, vocab_size] with ``return_all_logits``; cache), the cache
+    updated in place.
     """
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r} is not one of {MODES}")
     dev = weights.embed.q.device
     tokens = torch.as_tensor(tokens, device=dev).long()
     b, s = tokens.shape
@@ -214,15 +287,24 @@ def qwen3_forward(
         raise ValueError(
             f"window of {s} rows at positions {pos.tolist()} does not fit the cache of {t_max} rows"
         )
+    if fresh_prefill and pos.any():
+        raise ValueError(f"fresh_prefill with positions {pos.tolist()}: a fresh window starts at 0")
     c = config
-    eps = c.norm_eps
+    eps, g = c.norm_eps, c.group_size
     bf16 = torch.bfloat16
+    exact = mode == "exact"
+    cd = torch.float32 if exact else bf16  # the residual stream's dtype
     ah, kvd, hd = c.all_heads_dim, c.kv_dim, c.head_dim
     ks_all, vs_all = (cache.k_scale, cache.v_scale) if isinstance(cache, QuantizedKVCache) else (None, None)
+    fused = mode == "fast" and b * s <= MAX_ROWS
+    prefill_kernel = mode == "fast" and fresh_prefill and s > MAX_ROWS
 
-    # Embedding: gather the quantized rows, dequantize in f32, round to bf16.
+    def quant(t):
+        return quantize_activations(t, g) if exact else None
+
+    # Embedding: gather the quantized rows, dequantize in f32.
     x = dequantize(QuantizedTensor(weights.embed.q[tokens], weights.embed.scales[tokens]))
-    x = x.to(bf16)
+    x = x.to(cd)
 
     q_pos = torch.as_tensor(pos[:, None] + np.arange(s), device=dev)  # [B, S]
     cos_t, sin_t = rope_table(t_max, hd, c.rope_theta, dev)
@@ -232,7 +314,11 @@ def qwen3_forward(
 
     lw = weights.layers
     for l in range(c.n_layers):
-        qkv = qmatmul_w8a16(x, lw.wqkv, l, norm_w=lw.rms_att, eps=eps)  # f32
+        if fused:
+            qkv = qmatmul_w8a16(x, lw.wqkv, l, norm_w=lw.rms_att, eps=eps)  # f32
+        else:
+            xn = rms_norm(x, lw.rms_att[l], eps)
+            qkv = _project_layer(xn, quant(xn), lw.wqkv, l, mode)
         q = qkv[..., :ah].reshape(b, s, c.n_heads, hd)
         k = qkv[..., ah : ah + kvd].reshape(b, s, c.n_kv_heads, hd)
         v = qkv[..., ah + kvd :].reshape(b, s, c.n_kv_heads, hd)
@@ -241,29 +327,40 @@ def qwen3_forward(
             k = rms_norm(k, lw.k_norm[l], eps)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        if s == 1:
+        if s == 1 and mode == "fast":
             att = flash_decode(
                 q[:, 0], k[:, 0], v[:, 0], cache.k, cache.v, pos_dev, l,
                 k_scale_all=ks_all, v_scale_all=vs_all,
             )
+        elif prefill_kernel:
+            att = causal_prefill_attention(q.to(bf16), k.to(bf16), v.to(bf16))
         else:
             att = gqa_attention_split(
-                q.to(bf16), cache.k[l], cache.v[l], k.to(bf16), v.to(bf16), pos,
+                q.to(cd), cache.k[l], cache.v[l], k.to(cd), v.to(cd), pos,
                 k_scale_cache=None if ks_all is None else ks_all[l],
                 v_scale_cache=None if vs_all is None else vs_all[l],
             )
         _write_rows(cache, l, k, v, pos)
         att = att.reshape(b, s, ah)
-        x = qmatmul_w8a16(att, lw.wo, l, residual=x).to(bf16)
-        gate_up = qmatmul_w8a16(x, lw.w13, l, norm_w=lw.rms_ffn, eps=eps)
-        x = qmatmul_w8a16(gate_up, lw.w2, l, swiglu=True, residual=x).to(bf16)
+        if fused:
+            x = qmatmul_w8a16(att, lw.wo, l, residual=x).to(bf16)
+            gate_up = qmatmul_w8a16(x, lw.w13, l, norm_w=lw.rms_ffn, eps=eps)
+            x = qmatmul_w8a16(gate_up, lw.w2, l, swiglu=True, residual=x).to(bf16)
+            continue
+        # Unfused layer body, in the reference's dtypes: each projection's f32
+        # result is rounded to the stream's dtype, then added in that dtype.
+        att = att.to(cd)
+        x = x + _project_layer(att, quant(att), lw.wo, l, mode, rounds_to_bf16=True).to(cd)
+        xn = rms_norm(x, lw.rms_ffn[l], eps)
+        gate_up = _project_layer(xn, quant(xn), lw.w13, l, mode)
+        gate, up = gate_up[..., : c.hidden_dim], gate_up[..., c.hidden_dim :]
+        h = (gate * torch.sigmoid(gate) * up).to(cd)
+        x = x + _project_layer(h, quant(h), lw.w2, l, mode, rounds_to_bf16=True).to(cd)
 
-    # Final norm + classifier on one row per request; drop the vocab padding.
-    if out_idx is None:
-        x = x[:, -1]
-    else:
-        rows = torch.as_tensor(np.asarray(out_idx, np.int64).reshape(b), device=dev)
-        x = x[torch.arange(b, device=dev), rows]
-    xn = rms_norm(x, weights.rms_final, eps)
-    logits = qmatmul(xn, weights.lm_head)[:, : c.vocab_size]
-    return logits, cache
+    if not return_all_logits:
+        if out_idx is None:
+            x = x[:, -1]
+        else:
+            rows = torch.as_tensor(np.asarray(out_idx, np.int64).reshape(b), device=dev)
+            x = x[torch.arange(b, device=dev), rows]
+    return _head(c, weights, x, mode), cache

@@ -9,7 +9,14 @@ that its path went through the kernels.
 
 from __future__ import annotations
 
-LAUNCHES: dict[str, int] = {"qmatmul_w8a16": 0, "flash_decode": 0}
+LAUNCHES: dict[str, int] = {
+    "qmatmul_w8a16": 0,
+    "flash_decode": 0,
+    "qmatmul_w8a16_rows": 0,
+    "dequant_w8_stacked": 0,
+    "qmatmul_w8a8_rows": 0,
+    "causal_prefill_attention": 0,
+}
 
 
 def reset_launches() -> None:

@@ -1,0 +1,94 @@
+"""Causal prefill attention over a fresh window: the Hopper kernel and its
+plain version.
+
+``causal_prefill_attention`` is pure causal GQA within a window that starts
+at position 0 (no cache prefix): output row i attends to window rows j ≤ i,
+and query head h reads kv head ``h // kv_mul``.  It replaces the reference
+package's ``causal_prefill_attention`` (the splash kernel), with its
+numerics: q is scaled by ``bf16(1/√hd)`` and rounded to bf16 before the
+scores, scores and softmax are f32, P·V keeps P in f32, and the normalised
+output is rounded to bf16.  Unlike the splash kernel it has no minimum
+window and no block divisibility: the engine sends it every fresh window of
+more than 256 rows.
+
+For a CPU tensor the wrapper runs the plain PyTorch version; for a CUDA
+tensor it launches ``csrc/prefill_attention.cu`` or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import LAUNCHES, build
+
+HEAD_DIM = 128  # the kernel's head_dim
+QUERY_CHUNK = 512  # query rows per step of the plain version (bounds its score tensor)
+
+
+def q_scale(head_dim: int) -> float:
+    """The attention scale as the reference applies it to a bf16 q: the
+    Python float ``1/√hd`` taken to bf16 (a weakly typed scalar)."""
+    return float(torch.tensor(1.0 / (head_dim**0.5)).to(torch.bfloat16))
+
+
+def causal_prefill_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version, in query chunks of ``QUERY_CHUNK`` rows; each
+    chunk reads only the keys at or below its last row."""
+    b, s, n_heads, hd = q.shape
+    n_kv = k.shape[2]
+    kv_mul = n_heads // n_kv
+    qs = (q.float() * q_scale(hd)).to(torch.bfloat16).float().reshape(b, s, n_kv, kv_mul, hd)
+    kf, vf = k.float(), v.float()
+    outs = []
+    for c0 in range(0, s, QUERY_CHUNK):
+        c1 = min(s, c0 + QUERY_CHUNK)
+        sc = torch.einsum("bsnmh,bjnh->bnmsj", qs[:, c0:c1], kf[:, :c1])
+        causal = torch.arange(c0, c1, device=q.device)[:, None] >= torch.arange(c1, device=q.device)[None, :]
+        sc = sc.masked_fill(~causal, float("-inf"))
+        m = sc.amax(dim=-1, keepdim=True)
+        e = torch.exp(sc - m)
+        o = torch.einsum("bnmsj,bjnh->bnmsh", e, vf[:, :c1]) / e.sum(dim=-1, keepdim=True)
+        outs.append(o.permute(0, 3, 1, 2, 4).reshape(b, c1 - c0, n_heads, hd))
+    return torch.cat(outs, dim=1).to(torch.bfloat16)
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = build.load("prefill_attention")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.causal_prefill_attention.argtypes = [p, p, p, p, i, i, i, i, f, p]
+    lib.causal_prefill_attention.restype = ctypes.c_int
+    return lib
+
+
+def _need(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"causal_prefill_attention: {msg}")
+
+
+def causal_prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """q ``[B, S, n_heads, hd]``, k/v ``[B, S, n_kv, hd]`` (bf16 on the card)
+    → ``[B, S, n_heads, hd]`` bf16."""
+    if q.device.type == "cpu":
+        return causal_prefill_attention_plain(q, k, v)
+    _need(q.device.type == "cuda", f"tensors on {q.device} are neither CPU nor CUDA")
+    b, s, n_heads, hd = q.shape
+    n_kv = k.shape[2]
+    _need(hd == HEAD_DIM, f"head_dim {hd} (the kernel takes {HEAD_DIM})")
+    _need(k.shape == v.shape == (b, s, n_kv, hd), f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
+    _need(n_heads % n_kv == 0 and n_heads // n_kv in (1, 2, 4, 8), f"kv_mul {n_heads}/{n_kv} not in (1, 2, 4, 8)")
+    _need(all(t.dtype == torch.bfloat16 for t in (q, k, v)), "q, k and v must be bf16")
+    _need(q.device == k.device == v.device, "all tensors must be on one device")
+    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(qc)
+    if b * s:
+        err = _lib().causal_prefill_attention(
+            qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(), b, s, n_heads, n_kv,
+            q_scale(hd), torch.cuda.current_stream(q.device).cuda_stream,
+        )
+        build.check(err, "causal_prefill_attention")
+        LAUNCHES["causal_prefill_attention"] += 1
+    return out

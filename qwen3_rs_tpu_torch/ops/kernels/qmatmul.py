@@ -11,8 +11,15 @@ Numerics ("scale_w"): the prologue runs in f32, the activation is rounded to
 bf16 after it, each weight element is ``bf16(bf16(code) · bf16(scale))`` and
 the products accumulate in f32.
 
-For a CPU tensor the wrapper runs the plain PyTorch version; for a CUDA
-tensor it launches ``csrc/qmatmul_w8a16.cu`` or raises.
+For windows of more than ``MAX_ROWS`` rows, ``qmatmul_w8a16_rows`` (the
+reference package's ``qmatmul_pallas_stacked_rows``) takes the projection on
+the tensor cores, without prologue or epilogue; and ``dequant_w8_stacked``
+(``dequant_pallas_stacked``) turns one layer's codes into a dense bf16
+matrix for the long-prefill "xdot" path.
+
+For a CPU tensor each wrapper runs its plain PyTorch version; for a CUDA
+tensor it launches ``csrc/qmatmul_w8a16.cu``, ``csrc/qmatmul_rows.cu`` or
+``csrc/dequant.cu``, or raises.
 """
 
 from __future__ import annotations
@@ -25,9 +32,8 @@ import torch
 from ..quant import QuantizedTensor
 from . import LAUNCHES, build
 
-# Activation rows the kernel takes in one call.  Longer prefill windows need
-# the row-blocked kernel (ROADMAP.md queue 2, qmatmul_pallas_stacked_rows),
-# which is not ported yet; the engine caps its windows at this size.
+# Activation rows the fused kernel takes in one call; longer windows take the
+# row-blocked kernel (``qmatmul_w8a16_rows``).
 MAX_ROWS = 256
 _BLOCK_COLS = 512  # output columns per block (32 lanes x 16 columns)
 _SPLIT_ROWS = 64  # contraction rows per split are a multiple of this
@@ -170,7 +176,7 @@ def qmatmul_w8a16(
     _need(
         0 < rows <= MAX_ROWS,
         f"{rows} activation rows; the kernel takes 1..{MAX_ROWS} "
-        "(the >256-row kernel is not ported, ROADMAP.md queue 2)",
+        "(longer windows take qmatmul_w8a16_rows)",
     )
     dev = x.device
     tensors = [codes, scales]
@@ -222,3 +228,113 @@ def qmatmul_w8a16(
     build.check(err, "qmatmul_w8a16")
     LAUNCHES["qmatmul_w8a16"] += 1
     return out.reshape(*x.shape[:-1], d)
+
+
+# ------------------------------------------------------------ row-blocked W8A16
+def qmatmul_w8a16_rows_plain(x: torch.Tensor, w: QuantizedTensor, layer: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the row-blocked kernel: x rounded to bf16,
+    each weight element ``bf16(code · bf16(scale))``, f32 sums.  It is the
+    fused kernel's plain version without prologue or residual."""
+    return qmatmul_w8a16_plain(x, w, layer)
+
+
+@functools.cache
+def _rows_lib() -> ctypes.CDLL:
+    lib = build.load("qmatmul_rows")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.qmatmul_w8a16_rows.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.qmatmul_w8a16_rows.restype = ctypes.c_int
+    return lib
+
+
+def _layer_on_card(w: QuantizedTensor, layer, what: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """Codes and scales of one layer as views (no copy of the codes), checked
+    for the card's kernels."""
+
+    def need(cond, msg):
+        if not cond:
+            raise ValueError(f"{what}: {msg}")
+
+    need(w.q.dim() in (2, 3) and w.scales.dim() == w.q.dim(), "weights must be [N, D] or [L, N, D]")
+    if w.q.dim() == 3:
+        need(layer is not None and 0 <= layer < w.q.shape[0], f"layer {layer} out of range")
+    else:
+        need(layer is None, "a layer index needs stacked weights")
+    codes, scales = _layer_of(w, layer)
+    need(codes.dtype == torch.int8 and codes.is_contiguous(), "codes must be contiguous int8")
+    n, d = codes.shape
+    need(n % scales.shape[0] == 0 and scales.shape[1] == d,
+         f"scales {tuple(scales.shape)} do not fit codes {tuple(codes.shape)}")
+    need(d % 16 == 0, f"D={d} must be a multiple of 16")
+    need(codes.data_ptr() % 16 == 0, "codes must be 16-byte aligned")
+    return codes, scales
+
+
+def qmatmul_w8a16_rows(x: torch.Tensor, w: QuantizedTensor, layer: int | None = None) -> torch.Tensor:
+    """``x [..., N]`` times layer ``layer`` of ``w`` → ``[..., D]`` f32, for
+    windows of any number of rows (the engine sends it those over
+    ``MAX_ROWS``).  Scales may be bf16 or f32; f32 scales are rounded to bf16,
+    as the reference kernel rounds them in its body."""
+    if x.device.type == "cpu":
+        return qmatmul_w8a16_rows_plain(x, w, layer)
+    if x.device.type != "cuda":
+        raise ValueError(f"qmatmul_w8a16_rows: tensors on {x.device} are neither CPU nor CUDA")
+    codes, scales = _layer_on_card(w, layer, "qmatmul_w8a16_rows")
+    n, d = codes.shape
+    g = n // scales.shape[0]
+    if n % 64 or x.shape[-1] != n:
+        raise ValueError(f"qmatmul_w8a16_rows: x width {x.shape[-1]} must be N={n}, a multiple of 64")
+    sb = scales.to(torch.bfloat16).contiguous()
+    x2 = x.reshape(-1, n).to(torch.bfloat16).contiguous()
+    if x2.data_ptr() % 16:
+        x2 = x2.clone()  # the kernel reads x in 16-byte pieces
+    if not (x2.device == codes.device == sb.device):
+        raise ValueError("qmatmul_w8a16_rows: all tensors must be on one device")
+    rows = x2.shape[0]
+    out = torch.empty(rows, d, dtype=torch.float32, device=x.device)
+    if rows:
+        err = _rows_lib().qmatmul_w8a16_rows(
+            x2.data_ptr(), codes.data_ptr(), sb.data_ptr(), out.data_ptr(), rows, n, d, g,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+        build.check(err, "qmatmul_w8a16_rows")
+        LAUNCHES["qmatmul_w8a16_rows"] += 1
+    return out.reshape(*x.shape[:-1], d)
+
+
+# ------------------------------------------------------------------- dequant
+def dequant_w8_stacked_plain(w: QuantizedTensor, layer: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version: ``bf16(code · scale)``, the product in f32 and
+    rounded once (f32 scales unrounded)."""
+    codes, scales = _layer_of(w, layer)
+    g = codes.shape[0] // scales.shape[0]
+    return (codes.float() * scales.float().repeat_interleave(g, dim=0)).to(torch.bfloat16)
+
+
+@functools.cache
+def _dequant_lib() -> ctypes.CDLL:
+    lib = build.load("dequant")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.dequant_w8.argtypes = [p, p, i, p, i, i, i, p]
+    lib.dequant_w8.restype = ctypes.c_int
+    return lib
+
+
+def dequant_w8_stacked(w: QuantizedTensor, layer: int | None = None) -> torch.Tensor:
+    """Layer ``layer`` of ``w`` (or a 2-D weight) → dense bf16 ``[N, D]``."""
+    if w.q.device.type == "cpu":
+        return dequant_w8_stacked_plain(w, layer)
+    if w.q.device.type != "cuda":
+        raise ValueError(f"dequant_w8_stacked: tensors on {w.q.device} are neither CPU nor CUDA")
+    codes, scales = _layer_on_card(w, layer, "dequant_w8_stacked")
+    if scales.dtype not in (torch.float32, torch.bfloat16) or not scales.is_contiguous():
+        raise ValueError("dequant_w8_stacked: scales must be contiguous f32 or bf16")
+    n, d = codes.shape
+    out = torch.empty(n, d, dtype=torch.bfloat16, device=codes.device)
+    err = _dequant_lib().dequant_w8(
+        codes.data_ptr(), scales.data_ptr(), int(scales.dtype == torch.float32), out.data_ptr(),
+        n, d, n // scales.shape[0], torch.cuda.current_stream(codes.device).cuda_stream,
+    )
+    build.check(err, "dequant_w8_stacked")
+    LAUNCHES["dequant_w8_stacked"] += 1
+    return out

@@ -27,6 +27,28 @@ class QuantizedTensor(NamedTuple):
         return QuantizedTensor(self.q.to(device), self.scales.to(device))
 
 
+Q_MAX = 127.0
+
+
+def quantize_activations(x: torch.Tensor, group_size: int) -> QuantizedTensor:
+    """Per-group symmetric INT8 activations (exact mode): scale
+    ``max|x| / 127`` over each group of the last axis (0 for an all-zero
+    group, whose codes are 0), codes rounded half away from zero as
+    ``trunc(x / scale ± 0.5)`` in f32, the Rust ``f32::round`` of the
+    reference engine.  Returns codes ``[..., N]`` int8 and scales
+    ``[..., N / group_size]`` f32."""
+    shape = x.shape
+    if shape[-1] % group_size:
+        raise ValueError(f"width {shape[-1]} is not a multiple of the group size {group_size}")
+    g = x.reshape(*shape[:-1], shape[-1] // group_size, group_size).float()
+    scale = g.abs().amax(dim=-1) / Q_MAX
+    safe = torch.where(scale == 0.0, torch.ones_like(scale), scale)
+    y = g / safe[..., None]
+    q = torch.trunc(y + torch.where(y >= 0, 0.5, -0.5))
+    q = torch.where(scale[..., None] == 0.0, torch.zeros_like(q), q).to(torch.int8)
+    return QuantizedTensor(q.reshape(shape), scale)
+
+
 def dequantize(qt: QuantizedTensor, dtype=torch.float32) -> torch.Tensor:
     """Row-major dequant: q * per-group scale along the last axis, in f32."""
     shape = qt.q.shape

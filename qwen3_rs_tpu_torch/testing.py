@@ -117,3 +117,26 @@ def weight_bytes_per_decode_token(config: ModelConfig, scale_bytes: int = 4) -> 
     linear = c.n_layers * per_layer
     head = c.vocab_size * c.dim
     return int(linear * (1.0 + scale_per_param) + head * (1.0 + scale_per_param))
+
+
+def prefill_ops(config: ModelConfig, rows: int, cache_rows: int = 0) -> dict:
+    """Operations (multiply and add counted apart) of one prefill window of
+    ``rows`` rows after ``cache_rows`` cached rows, b = 1: the projections of
+    every layer at 2 per weight per row, the causal attention at 4·hd per
+    (query head, query row, visible key) (Q·Kᵀ and P·V), and the classifier
+    on the window's last row.  Over the bf16 tensor-core rate it gives the
+    least time the card could take for the window."""
+    c = config
+    per_layer = (
+        c.dim * (c.all_heads_dim + 2 * c.kv_dim)  # wqkv
+        + c.all_heads_dim * c.dim  # wo
+        + 3 * c.dim * c.hidden_dim  # w13, w2
+    )
+    visible = rows * cache_rows + rows * (rows + 1) // 2  # (query, key) pairs with key <= query
+    out = {
+        "projections": 2 * rows * per_layer * c.n_layers,
+        "attention": 4 * visible * c.head_dim * c.n_heads * c.n_layers,
+        "classifier": 2 * c.dim * c.vocab_size,
+    }
+    out["total"] = sum(out.values())
+    return out

@@ -16,8 +16,20 @@ from qwen3_rs_tpu_torch.inference.engine import Engine
 from qwen3_rs_tpu_torch.models.qwen3 import weights_to
 from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES
 from qwen3_rs_tpu_torch.ops.kernels.flash_attention import flash_decode, flash_decode_plain
-from qwen3_rs_tpu_torch.ops.kernels.qmatmul import qmatmul_w8a16, qmatmul_w8a16_plain
-from qwen3_rs_tpu_torch.ops.quant import QuantizedTensor
+from qwen3_rs_tpu_torch.ops.kernels.prefill_attention import (
+    causal_prefill_attention,
+    causal_prefill_attention_plain,
+)
+from qwen3_rs_tpu_torch.ops.kernels.qmatmul import (
+    dequant_w8_stacked,
+    dequant_w8_stacked_plain,
+    qmatmul_w8a16,
+    qmatmul_w8a16_plain,
+    qmatmul_w8a16_rows,
+    qmatmul_w8a16_rows_plain,
+)
+from qwen3_rs_tpu_torch.ops.kernels.qmatmul_a8 import qmatmul_w8a8_rows, qmatmul_w8a8_rows_plain
+from qwen3_rs_tpu_torch.ops.quant import QuantizedTensor, quantize_activations
 from qwen3_rs_tpu_torch.testing import random_weights
 
 pytestmark = pytest.mark.cuda
@@ -158,3 +170,95 @@ def test_small_model_card_matches_cpu(card):
         tok = [int(b.argmax())]
         lg, caches[0] = gpu.decode_step(caches[0], tok, [40 + step])
         lc, caches[1] = cpu.decode_step(caches[1], tok, [40 + step])
+
+
+def _weights(gen, card, layers, n, d, g, scale_dtype=torch.bfloat16):
+    codes = torch.randint(-127, 128, (layers, n, d), generator=gen, device=card, dtype=torch.int8)
+    scales = (torch.rand(layers, n // g, d, generator=gen, device=card) * 0.02 + 1e-3).to(scale_dtype)
+    return QuantizedTensor(codes, scales)
+
+
+@pytest.mark.parametrize("rows", [1, 100, 257, 300, 1000])
+@pytest.mark.parametrize(
+    "n,d,g,scale_dtype",
+    [(256, 48, 64, torch.bfloat16), (512, 1040, 64, torch.float32), (1024, 384, 32, torch.bfloat16)],
+)
+def test_qmatmul_rows_matches_plain(card, rows, n, d, g, scale_dtype):
+    gen = _gen(rows + d)
+    w = _weights(gen, card, 2, n, d, g, scale_dtype)
+    x = torch.randn(rows, n, generator=gen, device=card).to(torch.bfloat16)
+    before = LAUNCHES["qmatmul_w8a16_rows"]
+    got = qmatmul_w8a16_rows(x, w, 1)
+    assert LAUNCHES["qmatmul_w8a16_rows"] == before + 1
+    ref = qmatmul_w8a16_rows_plain(x, w, 1)
+    torch.cuda.synchronize()
+    # Same bf16 products on both sides; the f32 sums differ in order.
+    assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("scale_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,d,g", [(64, 16, 64), (512, 1040, 64), (4096, 96, 32)])
+def test_dequant_matches_plain_bit_exact(card, scale_dtype, n, d, g):
+    w = _weights(_gen(n + d), card, 3, n, d, g, scale_dtype)
+    got = dequant_w8_stacked(w, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dequant_w8_stacked_plain(w, 2))
+
+
+@pytest.mark.parametrize("rows", [1, 128, 129, 300, 1000])
+@pytest.mark.parametrize("n,d,g", [(256, 48, 64), (512, 1040, 64), (1024, 384, 32), (512, 256, 128)])
+def test_qmatmul_a8_matches_plain_bit_exact(card, rows, n, d, g):
+    gen = _gen(rows * 3 + d)
+    w = _weights(gen, card, 2, n, d, g, torch.float32)
+    xq = quantize_activations(torch.randn(rows, n, generator=gen, device=card), g)
+    got = qmatmul_w8a8_rows(xq.q, xq.scales, w, 1)
+    ref = qmatmul_w8a8_rows_plain(xq.q, xq.scales, w, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("s", [1, 2, 63, 64, 65, 200, 257, 1000])
+@pytest.mark.parametrize("kv_mul", [1, 2, 4, 8])
+def test_prefill_attention_matches_plain(card, s, kv_mul):
+    gen = _gen(s * 11 + kv_mul)
+    b, n_kv = 2, 2
+    q = torch.randn(b, s, n_kv * kv_mul, 128, generator=gen, device=card).to(torch.bfloat16)
+    k = torch.randn(b, s, n_kv, 128, generator=gen, device=card).to(torch.bfloat16)
+    v = torch.randn(b, s, n_kv, 128, generator=gen, device=card).to(torch.bfloat16)
+    before = LAUNCHES["causal_prefill_attention"]
+    got = causal_prefill_attention(q, k, v)
+    assert LAUNCHES["causal_prefill_attention"] == before + 1
+    ref = causal_prefill_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    # Both round the f32 output to bf16; f32 sums in another order may flip
+    # that rounding: one bf16 step, plus 1e-5 of f32 sums of O(1) values for
+    # outputs that cancel to near zero.
+    torch.testing.assert_close(got.float(), ref.float(), rtol=2.0**-7, atol=1e-5)
+    assert torch.equal(got[:, 0], v[:, 0].repeat_interleave(kv_mul, dim=1))  # row 0: its own value
+
+
+def test_long_windows_card_match_cpu(card):
+    """A fresh 600-row window, a 300-row continuation and decode steps in fast
+    mode; a 200-row exact window and decode steps."""
+    cfg = ModelConfig(
+        architecture_id=1, dim=256, hidden_dim=512, n_layers=2, n_heads=4, n_kv_heads=2,
+        head_dim=128, seq_len=1024, vocab_size=2176, group_size=64, shared_classifier=True,
+    )
+    weights = random_weights(cfg, seed=4, device=card)
+    rng = np.random.default_rng(1)
+    for mode, windows in (("fast", (600, 300)), ("exact", (200,))):
+        gpu = Engine(config=cfg, weights=weights, mode=mode, device=card)
+        cpu = Engine(config=cfg, weights=weights_to(weights, "cpu"), mode=mode, device="cpu")
+        caches = [gpu.new_cache(), cpu.new_cache()]
+        pos = 0
+        for s in windows:
+            prompt = rng.integers(0, cfg.vocab_size, (1, s))
+            lg, caches[0] = gpu.prefill(caches[0], prompt, [pos])
+            lc, caches[1] = cpu.prefill(caches[1], prompt, [pos])
+            pos += s
+        for step in range(3):
+            a, b = lg.float().cpu(), lc.float()
+            assert float((a - b).abs().max()) <= 2e-2 * float(b.abs().max()), (mode, step)
+            tok = [int(b.argmax())]
+            lg, caches[0] = gpu.decode_step(caches[0], tok, [pos + step])
+            lc, caches[1] = cpu.decode_step(caches[1], tok, [pos + step])

@@ -121,7 +121,24 @@ def test_cli_matches_jax_cli(exported, fmt, run, monkeypatch):
     assert got == want
 
 
-@pytest.mark.parametrize("flag", [["--engine-mode", "exact"], ["--device-sampling"],
+@pytest.mark.parametrize("run", ["generate-greedy", "generate-t0.8", "chat-greedy"])
+def test_cli_exact_mode_matches_jax_cli(exported, run, monkeypatch):
+    """``--engine-mode exact`` (W8A8): prompt windows under 128 rows and
+    decode steps take the reference's group scan on both sides.  The scan's
+    last multiply and add are one FMA under XLA on the CPU and two roundings
+    in the port, which can flip an activation code; a 64-row context keeps
+    the streams short enough that such a flip does not change a sampled
+    token here."""
+    route_jax_through_interpret_kernels(monkeypatch, min_seq_len=CONFIG.seq_len)
+    ckpt = str(exported / "m.qtpu")
+    flags = ["--engine-mode", "exact", "-c", "64", *RUNS[run]]
+    want = _stdout(jax_main, ["inference", ckpt, *flags])
+    got = _stdout(port_main, ["inference", ckpt, "--device", "cpu", *flags])
+    assert len(want) > 30
+    assert got == want
+
+
+@pytest.mark.parametrize("flag", [["--sp", "4", "--sp-threshold", "8"], ["--device-sampling"],
                                   ["--spec", "2"], ["--sp", "2"]])
 def test_unported_flags_raise(exported, flag):
     argv = ["inference", str(exported / "m.qtpu"), "--device", "cpu", "-m", "generate",

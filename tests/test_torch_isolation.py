@@ -9,7 +9,8 @@ from pathlib import Path
 import pytest
 import torch
 
-from qwen3_rs_tpu_torch import Engine, InferenceConfig, run_inference
+from qwen3_rs_tpu_torch import Engine, InferenceConfig, evaluate_checkpoint, run_inference
+from qwen3_rs_tpu_torch.cli import main as port_main
 from qwen3_rs_tpu_torch.testing import qwen3_config, random_weights
 
 torch.set_num_threads(2)
@@ -63,3 +64,18 @@ def test_engine_defaults_to_the_card(no_cuda):
 def test_cli_defaults_to_the_card(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run_inference(InferenceConfig(str(tmp_path), mode="generate", prompt="hi"))
+
+
+def test_exact_engine_defaults_to_the_card(no_cuda):
+    cfg = qwen3_config("0.6b", seq_len=32, n_layers=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Engine(config=cfg, weights=None, mode="exact")
+
+
+def test_eval_ppl_defaults_to_the_card(no_cuda, tmp_path):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        evaluate_checkpoint(tmp_path, token_ids=[1, 2, 3])
+    text = tmp_path / "t.txt"
+    text.write_text("hello")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        port_main(["eval-ppl", str(tmp_path), "-f", str(text)])

@@ -1,6 +1,9 @@
 """Model forward: the port's ``qwen3_forward`` (plain kernel versions on the
 CPU) against the JAX package's ``qwen3_forward`` in fast mode, for a prefill
-window and 4 decode steps, f32/bf16/INT8 caches, Qwen3 and Llama.
+window and 4 decode steps, f32/bf16/INT8 caches, Qwen3 and Llama; and the
+long-window slice: a fresh 512-row window and a 384-row continuation (the
+causal prefill, row-blocked and dequant kernels), an exact-mode (W8A8)
+prefill with decode steps, and all-logits windows.
 
 Two references:
 
@@ -17,6 +20,7 @@ Weight scales are powers of two so that ``code · scale`` is exact in bf16
 (XLA on the CPU skips that rounding, see ``test_torch_qmatmul.py``).
 """
 
+import collections
 import dataclasses
 import functools
 
@@ -26,17 +30,13 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import route_jax_through_interpret_kernels
+from torch_parity import jax_numpy_weights, lower_xdot_gate, route_jax_through_interpret_kernels
 
-from qwen3_rs_tpu.checkpoint import _classifier_from
 from qwen3_rs_tpu.configuration import ModelConfig as JaxConfig
-from qwen3_rs_tpu.models.qwen3 import Qwen3LayerWeights as JaxLayers
-from qwen3_rs_tpu.models.qwen3 import Qwen3Weights as JaxWeights
-from qwen3_rs_tpu.models.qwen3 import cast_weight_scales as jax_cast_scales
 from qwen3_rs_tpu.models.qwen3 import init_kv_cache as jax_init_cache
 from qwen3_rs_tpu.models.qwen3 import qwen3_forward as jax_forward
-from qwen3_rs_tpu.ops.quant import QuantizedTensor as JaxQT
-from qwen3_rs_tpu.ops.quant import quantize_weights_np
+import qwen3_rs_tpu_torch.models.qwen3 as port_qwen3
+import qwen3_rs_tpu_torch.ops.matmul as port_matmul
 from qwen3_rs_tpu_torch.configuration import ModelConfig
 from qwen3_rs_tpu_torch.models.qwen3 import (
     cast_weight_scales,
@@ -55,49 +55,6 @@ LLAMA = dataclasses.replace(CONFIG, architecture_id=2, use_qk_norm=False)
 PROMPT_LEN, OUT_IDX, STEPS = 6, [5, 3], 4  # row 1's prompt is 4 tokens, right-padded
 
 
-def _pow2(s):
-    return (2.0 ** np.round(np.log2(s))).astype(np.float32)
-
-
-def _jax_numpy_weights(c, seed):
-    """JAX ``Qwen3Weights`` with numpy leaves, fast-mode bf16 scales."""
-    rng = np.random.default_rng(seed)
-    g = c.group_size
-
-    def rowmajor(*shape):
-        q, s, _ = quantize_weights_np(rng.normal(0, 0.08, shape).astype(np.float32), g)
-        return q, _pow2(s)
-
-    def linear(out_dim, in_dim):  # → in-major [L, in, out]
-        q, s = rowmajor(c.n_layers, out_dim, in_dim)
-        return np.swapaxes(q, 1, 2).copy(), np.swapaxes(s, 1, 2).copy()
-
-    def fused(*parts):
-        return JaxQT(np.concatenate([p[0] for p in parts], -1), np.concatenate([p[1] for p in parts], -1))
-
-    def norm(*shape):
-        return rng.normal(1, 0.05, shape).astype(np.float32)
-
-    eq, es = rowmajor(c.vocab_size, c.dim)
-    head = _classifier_from(eq, es)
-    tree = JaxWeights(
-        embed=JaxQT(eq, es),
-        layers=JaxLayers(
-            rms_att=norm(c.n_layers, c.dim),
-            rms_ffn=norm(c.n_layers, c.dim),
-            q_norm=norm(c.n_layers, c.head_dim),
-            k_norm=norm(c.n_layers, c.head_dim),
-            wqkv=fused(linear(c.all_heads_dim, c.dim), linear(c.kv_dim, c.dim), linear(c.kv_dim, c.dim)),
-            wo=fused(linear(c.dim, c.all_heads_dim)),
-            w13=fused(linear(c.hidden_dim, c.dim), linear(c.hidden_dim, c.dim)),
-            w2=fused(linear(c.dim, c.hidden_dim)),
-        ),
-        rms_final=norm(c.dim),
-        lm_head=JaxQT(np.asarray(head.q), np.asarray(head.scales)),
-    )
-    return jax.tree.map(np.asarray, jax_cast_scales(jax.tree.map(jnp.asarray, tree)))
-
-
 @pytest.fixture
 def interpret_kernels(monkeypatch):
     """The JAX forward through its Pallas kernels in interpret mode."""
@@ -106,7 +63,7 @@ def interpret_kernels(monkeypatch):
 
 def _run_both(config, cache_dtype, seed):
     rng = np.random.default_rng(seed)
-    tree = _jax_numpy_weights(config, seed)
+    tree = jax_numpy_weights(config, seed)
     jcfg = JaxConfig(**dataclasses.asdict(config))
     jw = jax.tree.map(jnp.asarray, tree)
     pw = weights_from_jax_numpy(tree)
@@ -169,7 +126,7 @@ def test_matches_jax_kernel_path(config, cache_dtype, interpret_kernels):
 
 
 def test_scales_cast_keeps_codes():
-    pw = weights_from_jax_numpy(_jax_numpy_weights(CONFIG, 0))
+    pw = weights_from_jax_numpy(jax_numpy_weights(CONFIG, 0))
     cast = cast_weight_scales(pw)
     assert cast.layers.wqkv.scales.dtype == torch.bfloat16
     assert cast.embed.scales.dtype == pw.embed.scales.dtype
@@ -177,7 +134,165 @@ def test_scales_cast_keeps_codes():
 
 
 def test_window_past_the_cache_is_refused():
-    pw = weights_from_jax_numpy(_jax_numpy_weights(CONFIG, 0))
+    pw = weights_from_jax_numpy(jax_numpy_weights(CONFIG, 0))
     cache = init_kv_cache(CONFIG, 1, seq_len=8)
     with pytest.raises(ValueError, match="does not fit"):
         qwen3_forward(CONFIG, pw, np.zeros((1, 4), np.int64), cache, [5])
+
+
+# ------------------------------------------------------------- long windows
+LONG = dataclasses.replace(CONFIG, seq_len=1024)
+
+
+def _spy_port(monkeypatch) -> collections.Counter:
+    """Count the port's calls of each kernel wrapper on the forward's path."""
+    calls = collections.Counter()
+    targets = [(port_qwen3, n) for n in ("causal_prefill_attention", "qmatmul_w8a16_rows",
+                                         "dequant_w8_stacked", "flash_decode", "qmatmul_w8a16")]
+    targets += [(port_matmul, "qmatmul_w8a8_rows"), (port_matmul, "qmatmul_w8a16")]  # classifier
+    for mod, name in targets:
+        def wrap(*args, _fn=getattr(mod, name), _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*args, **kw)
+
+        monkeypatch.setattr(mod, name, wrap)
+    return calls
+
+
+@pytest.fixture
+def long_kernels(monkeypatch):
+    """The JAX forward through its interpret-mode kernels #1-#8, the xdot
+    gate lowered in both packages (down-projections from 384 rows), and the
+    port's kernel wrappers counted."""
+    jax_calls = route_jax_through_interpret_kernels(monkeypatch, min_seq_len=128)
+    lower_xdot_gate(monkeypatch, min_rows=384, min_elems=0)
+    return jax_calls, _spy_port(monkeypatch)
+
+
+def _both(config, seed, mode):
+    # The exact engine keeps the checkpoint's f32 scales, the fast one casts them.
+    tree = jax_numpy_weights(config, seed, fast_scales=mode == "fast")
+    jcfg = JaxConfig(**dataclasses.asdict(config))
+    return jcfg, jax.tree.map(jnp.asarray, tree), weights_from_jax_numpy(tree)
+
+
+def _rel_err(out, ref):
+    out, ref = np.asarray(out, np.float32), np.asarray(ref, np.float32)
+    assert out.shape == ref.shape
+    return float(np.abs(out - ref).max()) / float(np.abs(ref).max())
+
+
+def test_long_fast_windows_match_jax(long_kernels):
+    """A fresh 512-row window, then a 384-row continuation at position 512."""
+    jax_calls, port_calls = long_kernels
+    jcfg, jw, pw = _both(LONG, 5, "fast")
+    rng = np.random.default_rng(5)
+    jcache, pcache = jax_init_cache(jcfg, 1), init_kv_cache(LONG, 1)
+    for s, p0, fresh in ((512, 0, True), (384, 512, False)):
+        tokens = rng.integers(0, LONG.vocab_size, (1, s))
+        pos = np.full(1, p0, np.int32)
+        fwd = jax.jit(functools.partial(jax_forward, jcfg, mode="fast", fresh_prefill=fresh))
+        jl, jcache = fwd(jw, jnp.asarray(tokens, jnp.int32), jcache, jnp.asarray(pos))
+        pl_, pcache = qwen3_forward(LONG, pw, tokens, pcache, pos, fresh_prefill=fresh)
+        assert pl_.shape == (1, LONG.vocab_size)
+        assert _rel_err(pl_.numpy(), jl) <= 2e-2
+    assert jax_calls["prefill"] and jax_calls["rows"] and jax_calls["dequant"]
+    n = LONG.n_layers
+    # wo and w2 (n > d) take the dequant kernel, wqkv and w13 the rows kernel.
+    assert port_calls == {"causal_prefill_attention": n, "qmatmul_w8a16_rows": 4 * n,
+                          "dequant_w8_stacked": 4 * n, "qmatmul_w8a16": 2}
+    # A flipped bf16 rounding of the residual stream moves layer 1's rows.
+    assert _rel_err(_cache_f32(pcache, "v")[..., :896, :], _cache_f32(jcache, "v")[..., :896, :]) <= 2e-2
+
+
+def test_exact_prefill_and_decode_match_jax(long_kernels):
+    """Exact mode: a 256-row window (the W8A8 kernel on both sides), then 3
+    decode steps (the group scan on both sides)."""
+    jax_calls, port_calls = long_kernels
+    jcfg, jw, pw = _both(LONG, 6, "exact")
+    rng = np.random.default_rng(6)
+    fwd = jax.jit(functools.partial(jax_forward, jcfg, mode="exact"))
+    jcache, pcache = jax_init_cache(jcfg, 1), init_kv_cache(LONG, 1)
+    tokens, pos = rng.integers(0, LONG.vocab_size, (1, 256)), np.zeros(1, np.int32)
+    errs = []
+    for step in range(4):
+        jl, jcache = fwd(jw, jnp.asarray(tokens, jnp.int32), jcache, jnp.asarray(pos))
+        pl_, pcache = qwen3_forward(LONG, pw, tokens, pcache, pos, mode="exact")
+        errs.append(_rel_err(pl_.numpy(), jl))
+        pos = pos + tokens.shape[1]
+        tokens = np.asarray([[int(np.argmax(np.asarray(jl)[0]))]])
+    assert jax_calls["a8"] == 4  # traced once for the layer scan's body
+    assert port_calls == {"qmatmul_w8a8_rows": 4 * LONG.n_layers}
+    # Summation orders and the FMA that XLA on the CPU makes of the W8A8
+    # epilogue differ by an f32 rounding, which can flip an activation's int8
+    # code: the JAX package's own two routes (kernel and scan, which differ
+    # only in the scale order) are 0.9% apart on this window.
+    assert max(errs) <= 2e-2, errs
+
+
+@pytest.mark.parametrize("s", [384, 512])
+def test_all_logits_match_jax(long_kernels, s):
+    """return_all_logits: the per-group classifier form below 512 rows, the
+    dense bf16 one from 512."""
+    jcfg, jw, pw = _both(LONG, 7, "fast")
+    tokens = np.random.default_rng(7).integers(0, LONG.vocab_size, (1, s))
+    fwd = jax.jit(functools.partial(jax_forward, jcfg, mode="fast", return_all_logits=True))
+    jl, _ = fwd(jw, jnp.asarray(tokens, jnp.int32), jax_init_cache(jcfg, 1), jnp.zeros(1, jnp.int32))
+    pl_, _ = qwen3_forward(LONG, pw, tokens, init_kv_cache(LONG, 1), [0], return_all_logits=True)
+    assert pl_.shape == (1, s, LONG.vocab_size) and pl_.dtype == torch.float32
+    assert _rel_err(pl_.numpy(), jl) <= 2e-2
+
+
+def test_fresh_prefill_needs_position_zero():
+    pw = weights_from_jax_numpy(jax_numpy_weights(CONFIG, 0))
+    with pytest.raises(ValueError, match="fresh"):
+        qwen3_forward(CONFIG, pw, np.zeros((1, 4), np.int64), init_kv_cache(CONFIG, 1), [3],
+                      fresh_prefill=True)
+
+
+@pytest.mark.parametrize("mode", ["f32", "exact"])
+def test_unfused_body_matches_jax_without_excess_precision(mode):
+    """XLA on the CPU keeps bf16 intermediates in f32 between fused ops
+    (``xla_allow_excess_precision``, on by default), so the JAX reference
+    rounds the residual stream less often than its source says.  Compiled
+    without it, the JAX forward and the port's unfused layer body (the f32
+    and exact modes at a short window) agree to f32 rounding: within 1e-5 of
+    max|logits| on every row but at most one, where an f32 sum in another
+    order may flip one bf16 rounding (one row of 8 on 2 of 8 seeds tried)."""
+    cfg = dataclasses.replace(LONG, n_layers=1)
+    jcfg, jw, pw = _both(cfg, 0, mode)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 8))
+    args = (jw, jnp.asarray(tokens, jnp.int32), jax_init_cache(jcfg, 1), jnp.zeros(1, jnp.int32))
+    fwd = jax.jit(functools.partial(jax_forward, jcfg, mode=mode, return_all_logits=True))
+    jl, _ = fwd.lower(*args).compile({"xla_allow_excess_precision": False})(*args)
+    pl_, _ = qwen3_forward(cfg, pw, tokens, init_kv_cache(cfg, 1), [0], mode=mode, return_all_logits=True)
+
+    def rows_apart(ref):
+        ref = np.asarray(ref, np.float32)[0]
+        return int((np.abs(pl_.numpy()[0] - ref).max(-1) > 1e-5 * np.abs(ref).max()).sum())
+
+    assert rows_apart(jl) <= 1
+    if mode == "f32":  # the bf16 residual stream: the default compile rounds it less often
+        assert rows_apart(fwd(*args)[0]) >= 4
+
+
+def test_engine_prefills_in_windows_and_marks_only_the_first_fresh(monkeypatch):
+    from qwen3_rs_tpu_torch.inference import engine as engine_mod
+
+    seen = []
+
+    def spy(config, weights, tokens, cache, pos, **kw):
+        seen.append((np.asarray(tokens).shape[1], int(np.asarray(pos)[0]),
+                     kw.get("fresh_prefill", kw.get("return_all_logits")), kw["mode"]))
+        return torch.zeros(1, config.vocab_size), cache
+
+    monkeypatch.setattr(engine_mod, "qwen3_forward", spy)
+    tree = jax_numpy_weights(LONG, 0, fast_scales=False)
+    eng = engine_mod.Engine(config=LONG, weights=weights_from_jax_numpy(tree), mode="exact", device="cpu")
+    assert eng.MAX_PREFILL_WINDOW == 2048 and eng.weights.lm_head.scales.dtype == torch.float32
+    monkeypatch.setattr(eng, "MAX_PREFILL_WINDOW", 300)
+    eng.prefill(eng.new_cache(1), np.zeros((1, 700), np.int64), np.zeros(1, np.int64))
+    eng.prefill(eng.new_cache(1), np.zeros((1, 10), np.int64), np.full(1, 5))
+    eng.all_logits(eng.new_cache(1), np.zeros((1, 7), np.int64), [0])  # (rows, pos, all logits, mode)
+    assert seen == [(300, 0, True, "exact"), (300, 300, False, "exact"), (100, 600, False, "exact"),
+                    (10, 5, False, "exact"), (7, 0, True, "exact")]

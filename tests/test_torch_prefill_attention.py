@@ -1,0 +1,89 @@
+"""Causal prefill attention: the port's plain version against the JAX
+package's ``causal_prefill_attention`` (the splash kernel) in interpret mode.
+
+Both scale q by ``bf16(1/√128)`` and round it to bf16, take scores and the
+softmax in f32 and round the normalised output to bf16.  The f32 sums run in
+another order, which can flip the output's bf16 rounding: tolerance one bf16
+step, ``2^-7 · |ref|`` per element.  The splash kernel needs its window to be
+a multiple of 128 rows; a ragged window is held against the first rows of a
+longer one, which causal attention leaves unchanged.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from qwen3_rs_tpu.ops.pallas.prefill_attention import causal_prefill_attention as jax_prefill
+from qwen3_rs_tpu_torch.ops.attention import gqa_attention_split
+from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES
+from qwen3_rs_tpu_torch.ops.kernels.prefill_attention import (
+    causal_prefill_attention,
+    causal_prefill_attention_plain,
+    q_scale,
+)
+
+torch.set_num_threads(2)
+
+HD = 128
+BF16_STEP = 2.0**-7
+
+
+def _inputs(seed, b, s, n_kv, kv_mul):
+    rng = np.random.default_rng(seed)
+    shapes = [(b, s, n_kv * kv_mul, HD), (b, s, n_kv, HD), (b, s, n_kv, HD)]
+    return [jnp.asarray(rng.normal(0, 1.5, sh).astype(np.float32)).astype(jnp.bfloat16) for sh in shapes]
+
+
+def _torch(a):
+    return torch.from_numpy(np.array(a.astype(jnp.float32))).to(torch.bfloat16)
+
+
+def _close(out, ref):
+    out, ref = out.float().numpy(), np.asarray(ref, np.float32)
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out, ref, rtol=BF16_STEP, atol=1e-6)
+
+
+@pytest.mark.parametrize("s,n_kv,kv_mul", [(512, 2, 4), (384, 1, 2), (512, 1, 8)])
+def test_plain_matches_splash_interpret(s, n_kv, kv_mul):
+    q, k, v = _inputs(s + kv_mul, 1, s, n_kv, kv_mul)
+    ref = jax_prefill(q, k, v, interpret=True)
+    out = causal_prefill_attention_plain(_torch(q), _torch(k), _torch(v))
+    assert out.dtype == torch.bfloat16
+    _close(out, ref)
+
+
+@pytest.mark.parametrize("s", [300, 1])
+def test_ragged_window_matches_the_first_rows_of_a_longer_one(s):
+    q, k, v = _inputs(7, 2, 384, 2, 4)
+    ref = jax_prefill(q, k, v, interpret=True)[:, :s]
+    out = causal_prefill_attention_plain(_torch(q[:, :s]), _torch(k[:, :s]), _torch(v[:, :s]))
+    _close(out, ref)
+
+
+def test_q_is_scaled_in_bf16():
+    """The reference multiplies a bf16 q by the scale taken to bf16: 2^-3.5
+    is not a power of two, so that product rounds."""
+    assert q_scale(HD) == 0.08837890625 != 1 / HD**0.5
+    q = torch.full((1, 1, 1, HD), 1.5, dtype=torch.bfloat16)
+    k = torch.zeros(1, 1, 1, HD, dtype=torch.bfloat16)
+    v = torch.arange(HD, dtype=torch.float32).reshape(1, 1, 1, HD).to(torch.bfloat16)
+    assert torch.equal(causal_prefill_attention_plain(q, k, v), v)  # one key: its value
+
+
+def test_plain_agrees_with_split_attention_at_position_zero():
+    """The plain split attention (f32 q, scale after the dot) differs only
+    by the bf16 roundings of the scaled q and of the output."""
+    q, k, v = (_torch(t) for t in _inputs(3, 1, 600, 2, 4))
+    out = causal_prefill_attention_plain(q, k, v).float()
+    cache = torch.zeros(1, 2, 8, HD)
+    ref = gqa_attention_split(q.float(), cache, cache, k.float(), v.float(), [0])
+    assert float((out - ref).abs().max()) <= 2e-2 * float(ref.abs().max())
+
+
+def test_cpu_wrapper_is_the_plain_version():
+    q, k, v = (_torch(t) for t in _inputs(4, 1, 260, 1, 4))
+    before = LAUNCHES["causal_prefill_attention"]
+    assert torch.equal(causal_prefill_attention(q, k, v), causal_prefill_attention_plain(q, k, v))
+    assert LAUNCHES["causal_prefill_attention"] == before
