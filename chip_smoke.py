@@ -10,10 +10,11 @@ Phases, in order; any failure exits non-zero before the final line:
                build (one ``nvcc`` per source, all in parallel) and the
                device-to-device copy bandwidth on a 1 GiB buffer.
 2. ``kernels`` each hand-written kernel against its plain PyTorch version on
-               the same inputs at Qwen3-8B shapes (INT8-g64), with its time,
-               the plain version's time, one PyTorch library call's time
-               where one computes the same function, and the least time the
-               card could take.
+               the same inputs at Qwen3-8B shapes (INT8-g64; the paged kernels
+               over a page-128 pool with shuffled tables), with its time, the
+               plain version's time, one PyTorch library call's time where one
+               computes the same function, and the least time the card could
+               take.
 3. ``e2e``     Qwen3-8B at full width and depth with random weights made on
                the card from a seed, each path driven with the launch counts
                reset just before it and read just after:
@@ -27,17 +28,29 @@ Phases, in order; any failure exits non-zero before the final line:
                  (3·L row-blocked, L dequant per window) twice, identical;
                * exact-mode ``generate()`` on a 300-token prompt (4·L W8A8 on
                  the window) and exact eval-ppl (4·L+1 W8A8 per window).
-4. ``cli``     a 2-layer 8B-width ``.qtpu`` checkpoint written with numpy,
+4. ``serve``   the continuous-batching engine on the same 8B weights, ctx
+               4096, 8 slots, page 128, greedy host sampling: 24 requests
+               (prompts of 16-1024 tokens, 64 new tokens) on the paged bf16
+               pool, the INT8 pool and the dense slots, every decode step
+               checked for L paged-decode (or flash-decode) launches; the
+               prefix cache (15 hits, each continued window L paged-window
+               launches); chunked prefill; the HTTP front end on port 0
+               (answers equal to the requests run alone, then a burst of 8).
+5. ``cli``     a 2-layer 8B-width ``.qtpu`` checkpoint written with numpy,
                run through ``qwen3_rs_tpu_torch.cli.main`` (``inference`` in
-               generate, chat and exact mode, ``eval-ppl`` in three modes);
-               its output must equal the API's.
-5. ``parity``  the 2-layer model on the CPU (plain versions) and on the card
+               generate, chat and exact mode, ``eval-ppl`` in three modes,
+               ``batch`` paged and dense) and ``serve`` in a process of its
+               own; the output must equal the API's.
+6. ``parity``  the 2-layer model on the CPU (plain versions) and on the card
                (kernels): prefill windows and decode steps in fast mode (16-,
-               512- and 300-row windows) and exact mode; eval-ppl at 0.6B width.
+               512- and 300-row windows) and exact mode; eval-ppl at 0.6B width;
+               the paged forward (a fresh group, a continued window, decode
+               steps with a slot masked) over bf16 and INT8 pools.
 
 Output: one JSON object per line.  The second-to-last lines hold the kernel
-table (``{"kernels": [...]}``) and the card's ``name, power.limit``; the last
-line is ``{"ok": true, "device": {...}}``.
+table and the serve phase's numbers (``{"kernels": [...], "serve": {...}}``)
+and the card's ``name, power.limit``; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -57,7 +70,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 DEV = "cuda"
-PHASES = ("build", "kernels", "e2e", "cli", "parity")
+PHASES = ("build", "kernels", "e2e", "serve", "cli", "parity")
 
 # Published peaks of one H100 SXM (dense): the denominators of bound_ms.
 HBM_BYTES_PER_S = 3.35e12
@@ -69,6 +82,8 @@ LONG_PROMPT_TOKENS = 3000  # one token per character: a fresh 2048-row window an
 LONG_DECODE_TOKENS = 16
 EXACT_PROMPT_TOKENS = 300
 EXACT_DECODE_TOKENS = 8
+SERVE_REQUESTS = 24
+SERVE_NEW_TOKENS = 64
 
 
 def emit(obj) -> None:
@@ -506,12 +521,170 @@ def prefill_attention_cases(torch, ctx) -> list[dict]:
     return out
 
 
+def _paged_inputs(torch, gen, pool, pos_list, n_layers_min=2):
+    """An 8B-shaped page pool (page 128, ctx 4096) with random rows, layers
+    enough that the touched pages of each launch are cold in L2, and one
+    shuffled table of disjoint pages per request."""
+    from qwen3_rs_tpu_torch.testing import paged_read_bytes, qwen3_config
+
+    c = qwen3_config("8b")
+    page, max_pages, n_kv, hd = 128, 4096 // 128, c.n_kv_heads, c.head_dim
+    b = len(pos_list)
+    n_pages = 1 + b * max_pages
+    esz = {"f32": 4, "bf16": 2, "int8": 1}[pool]
+    nl = _layers_for(max(paged_read_bytes(pos_list, n_kv, hd, esz), 1), floor=n_layers_min)
+    shape = (nl, n_pages, n_kv, page, hd)
+    if pool == "int8":
+        k, v = (torch.randint(-127, 128, shape, generator=gen, device=DEV, dtype=torch.int8) for _ in range(2))
+        sc = {name: torch.rand(shape[:-1], generator=gen, device=DEV) * 0.02 + 0.005
+              for name in ("k_scale_pool", "v_scale_pool")}
+    else:
+        dt = torch.float32 if pool == "f32" else torch.bfloat16
+        k, v = (torch.randn(shape, generator=gen, device=DEV).to(dt) for _ in range(2))
+        sc = {}
+    ids = torch.randperm(n_pages - 1, generator=gen, device=DEV) + 1
+    table = ids.reshape(b, max_pages).to(torch.int32).contiguous()
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=DEV)
+    return c, nl, k, v, sc, table, pos, esz
+
+
+def _gathered(torch, k, v, sc, table, pos_list, layer):
+    """The pool's rows of each request gathered into dense f32 [B, n_kv, T, hd]
+    (an INT8 pool's codes times their scales): the library call's input,
+    prepared beforehand."""
+    from qwen3_rs_tpu_torch.ops.attention import gather_pages
+
+    t = max(max(pos_list), 1)
+
+    def rows(pool):
+        return gather_pages(pool[layer], table, 0, -(-t // k.shape[3]))[:, :, :t]
+
+    kc, vc = rows(k).float(), rows(v).float()
+    if sc:
+        kc = kc * rows(sc["k_scale_pool"])[..., None]
+        vc = vc * rows(sc["v_scale_pool"])[..., None]
+    return kc, vc
+
+
+def paged_decode_cases(torch, ctx) -> list[dict]:
+    """Paged decode (#9) at 8B shapes: B = 8 slots at mixed positions over
+    bf16, f32 and INT8 pools, and one request at the context's end."""
+    import torch.nn.functional as F
+
+    from qwen3_rs_tpu_torch.ops.kernels.paged_attention import paged_decode, paged_decode_plain
+    from qwen3_rs_tpu_torch.testing import paged_read_bytes
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(9753)
+    mixed = [0, 1, 127, 128, 129, 1000, 2049, 4095]
+    out = []
+    for pool, pos_list in (("bf16", mixed), ("f32", mixed), ("int8", mixed), ("bf16", [4095])):
+        c, nl, k, v, sc, table, pos, esz = _paged_inputs(torch, gen, pool, pos_list)
+        b, h, n_kv, hd = len(pos_list), c.n_heads, c.n_kv_heads, c.head_dim
+        kv_mul = h // n_kv
+        q = torch.randn(b, h, hd, generator=gen, device=DEV)
+        kn, vn = (torch.randn(b, n_kv, hd, generator=gen, device=DEV) for _ in range(2))
+        ref = paged_decode_plain(q, kn, vn, k, v, table, pos, 1, **sc)
+        got = paged_decode(q, kn, vn, k, v, table, pos, 1, **sc)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        tol = 1e-4 * float(ref.abs().max())  # f32 throughout; only the summation order differs
+        need(math.isfinite(err) and err <= tol, f"paged_decode {pool} pos={pos_list}: max_abs_err {err} > tol {tol}")
+        if pos_list[0] == 0:  # only the self key: the output is v_self, exactly
+            need(torch.equal(got[0], vn[0].repeat_interleave(kv_mul, dim=0)), "paged_decode pos=0 != v_self")
+        ms = device_ms(torch, lambda i: paged_decode(q, kn, vn, k, v, table, pos, i % nl, **sc))
+        plain_ms = device_ms(torch, lambda i: paged_decode_plain(q, kn, vn, k, v, table, pos, i % nl, **sc),
+                             reps=10, warmup=1)
+        # Library yardstick: SDPA over [self; rows < pos], the rows gathered
+        # into dense f32 beforehand, a position mask.
+        lib = []
+        for l in range(min(nl, 2)):
+            kc, vc = _gathered(torch, k, v, sc, table, pos_list, l)
+            kk, vv = torch.cat([kn[:, :, None], kc], 2), torch.cat([vn[:, :, None], vc], 2)
+            mask = (torch.arange(kk.shape[2], device=DEV)[None, :] <= pos[:, None].long())[:, None, None, :]
+            lib.append((kk, vv, mask))
+        q4 = q[:, :, None]
+        lib_ms = device_ms(torch, lambda i: F.scaled_dot_product_attention(
+            q4, lib[i % len(lib)][0], lib[i % len(lib)][1], attn_mask=lib[i % len(lib)][2], enable_gqa=True))
+        del lib
+        nbytes = (paged_read_bytes(pos_list, n_kv, hd, esz) + (2 * q.numel() + kn.numel() + vn.numel()) * 4
+                  + table.numel() * 4 + b * 4)
+        b_ms, b_by = bound(nbytes, 4.0 * h * sum(p + 1 for p in pos_list) * hd, "f32")
+        out.append(_row(
+            ctx, "paged_decode", f"{pool} pool B={b} pos={pos_list}", "qwen3_rs_tpu_torch/csrc/paged_attention.cu",
+            "qwen3_rs_tpu/ops/pallas/paged_attention.py:207 paged_gqa_decode_stacked",
+            {"B": b, "heads": h, "kv_heads": n_kv, "hd": hd, "page": 128, "pos": pos_list}, err, tol, ms, plain_ms,
+            nbytes, b_ms, b_by, lib_ms, "F.scaled_dot_product_attention enable_gqa, K/V gathered into dense f32 beforehand",
+        ))
+        del k, v, sc, ref, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def paged_window_cases(torch, ctx) -> list[dict]:
+    """Paged window partials (#10) at 8B shapes: S = 32 (R = 128 query rows
+    per kv head) and S = 4 at mixed positions, 0 included, over bf16 and
+    INT8 pools."""
+    import torch.nn.functional as F
+
+    from qwen3_rs_tpu_torch.ops.kernels.paged_attention import paged_window_partials, paged_window_partials_plain
+    from qwen3_rs_tpu_torch.testing import paged_read_bytes
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(8642)
+    pos_list = [0, 1, 127, 128, 512, 1000, 2049, 4064]
+    out = []
+    for pool, s in (("bf16", 32), ("int8", 32), ("bf16", 4), ("int8", 4)):
+        c, nl, k, v, sc, table, pos, esz = _paged_inputs(torch, gen, pool, pos_list)
+        b, h, n_kv, hd = len(pos_list), c.n_heads, c.n_kv_heads, c.head_dim
+        r = s * (h // n_kv)
+        q = torch.randn(b, s, h, hd, generator=gen, device=DEV)
+        ref = paged_window_partials_plain(q, k, v, table, pos, 1, **sc)
+        got = paged_window_partials(q, k, v, table, pos, 1, **sc)
+        torch.cuda.synchronize()
+        err, tol = 0.0, 0.0
+        for a, e in zip(got, ref):
+            need(a.shape == e.shape and torch.equal(torch.isneginf(a), torch.isneginf(e)),
+                 f"paged_window_partials {pool} S={s}: shapes or -inf entries differ")
+            fin = torch.isfinite(e)
+            err = max(err, float((a[fin] - e[fin]).abs().max()))
+            t = 1e-4 * float(e[fin].abs().max())
+            need(float((a[fin] - e[fin]).abs().max()) <= t, f"paged_window_partials {pool} S={s}: off by more than {t}")
+            tol = max(tol, t)
+        ms = device_ms(torch, lambda i: paged_window_partials(q, k, v, table, pos, i % nl, **sc))
+        plain_ms = device_ms(torch, lambda i: paged_window_partials_plain(q, k, v, table, pos, i % nl, **sc),
+                             reps=10, warmup=1)
+        lib = []
+        for l in range(min(nl, 2)):
+            kc, vc = _gathered(torch, k, v, sc, table, pos_list, l)
+            mask = (torch.arange(kc.shape[2], device=DEV)[None, :] < pos[:, None].long())[:, None, None, :]
+            lib.append((kc, vc, mask))
+        qt = q.transpose(1, 2)
+        lib_ms = device_ms(torch, lambda i: F.scaled_dot_product_attention(
+            qt, lib[i % len(lib)][0], lib[i % len(lib)][1], attn_mask=lib[i % len(lib)][2], enable_gqa=True))
+        del lib
+        nbytes = (paged_read_bytes(pos_list, n_kv, hd, esz) + q.numel() * 4 + b * n_kv * r * (hd + 2) * 4
+                  + table.numel() * 4 + b * 4)
+        b_ms, b_by = bound(nbytes, 4.0 * h * s * sum(pos_list) * hd, "f32")
+        out.append(_row(
+            ctx, "paged_window_partials", f"{pool} pool B={b} S={s} (R={r})", "qwen3_rs_tpu_torch/csrc/paged_attention.cu",
+            "qwen3_rs_tpu/ops/pallas/paged_attention.py:437 paged_gqa_window_stacked (_partials_kernel :287)",
+            {"B": b, "S": s, "R": r, "heads": h, "kv_heads": n_kv, "hd": hd, "page": 128, "pos": pos_list},
+            err, tol, ms, plain_ms, nbytes, b_ms, b_by, lib_ms,
+            "F.scaled_dot_product_attention enable_gqa on the cache rows, gathered into dense f32 beforehand",
+        ))
+        del k, v, sc, ref, got
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_kernels(torch, ctx) -> None:
     from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES
 
     before = dict(LAUNCHES)
     ctx["kernel_rows"] = (qmatmul_cases(torch, ctx) + flash_cases(torch, ctx) + prefill_attention_cases(torch, ctx)
-                          + rows_cases(torch, ctx) + dequant_cases(torch, ctx) + a8_cases(torch, ctx))
+                          + rows_cases(torch, ctx) + dequant_cases(torch, ctx) + a8_cases(torch, ctx)
+                          + paged_decode_cases(torch, ctx) + paged_window_cases(torch, ctx))
     made = {k for k in LAUNCHES if LAUNCHES[k] != before[k]}
     need(made == set(LAUNCHES), f"the kernel cases launched no {sorted(set(LAUNCHES) - made)}")
 
@@ -577,26 +750,38 @@ def prompt_text(n_chars: int) -> str:
 
 
 # ------------------------------------------------------------------------ e2e
+def model_8b(torch, ctx):
+    """Qwen3-8B at full width and depth, INT8-g64 random weights drawn on the
+    card from the seed (f32 scales, as a checkpoint holds them), and a
+    tokenizer whose every id decodes to distinct bytes; made once and shared
+    by the e2e and serve phases."""
+    from qwen3_rs_tpu_torch import Tokenizer
+    from qwen3_rs_tpu_torch.testing import qwen3_config, random_weights
+
+    if "8b" not in ctx:
+        cfg = qwen3_config("8b", seq_len=4096)
+        t0 = time.perf_counter()
+        weights = random_weights(cfg, seed=SEED, device=DEV)
+        torch.cuda.synchronize()
+        emit({"phase": "model", "model": "qwen3-8b INT8-g64", "layers": cfg.n_layers, "dim": cfg.dim,
+              "hidden": cfg.hidden_dim, "vocab": cfg.vocab_size, "ctx": cfg.seq_len,
+              "setup_seconds": time.perf_counter() - t0,
+              "device_memory_gb": torch.cuda.memory_allocated() / 1e9})
+        tdir = ctx["tmp"] / "tok"
+        tdir.mkdir()
+        write_tokenizer(tdir / "tokenizer.bin", cfg.vocab_size)
+        write_templates(tdir)
+        ctx["8b"] = (cfg, weights, Tokenizer(tdir, cfg.vocab_size))
+    return ctx["8b"]
+
+
 def phase_e2e(torch, ctx) -> None:
-    from qwen3_rs_tpu_torch import Engine, Tokenizer, TokenSampler, chat, generate
+    from qwen3_rs_tpu_torch import Engine, TokenSampler, chat, generate
     from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES, reset_launches
-    from qwen3_rs_tpu_torch.testing import qwen3_config, random_weights, weight_bytes_per_decode_token
+    from qwen3_rs_tpu_torch.testing import weight_bytes_per_decode_token
 
-    cfg = qwen3_config("8b", seq_len=4096)
-    t0 = time.perf_counter()
-    weights = random_weights(cfg, seed=SEED, device=DEV)  # f32 scales: eval-ppl and exact mode
+    cfg, weights, tok = model_8b(torch, ctx)  # f32 scales: eval-ppl and exact mode
     engine = Engine(config=cfg, weights=weights, device=DEV)  # bf16 scales, the same codes
-    torch.cuda.synchronize()
-    emit({"phase": "e2e", "model": "qwen3-8b INT8-g64", "layers": cfg.n_layers, "dim": cfg.dim,
-          "hidden": cfg.hidden_dim, "vocab": cfg.vocab_size, "ctx": cfg.seq_len,
-          "setup_seconds": time.perf_counter() - t0,
-          "device_memory_gb": torch.cuda.memory_allocated() / 1e9})
-
-    tdir = ctx["tmp"] / "tok"
-    tdir.mkdir()
-    write_tokenizer(tdir / "tokenizer.bin", cfg.vocab_size)
-    write_templates(tdir)
-    tok = Tokenizer(tdir, cfg.vocab_size)
     prompt = prompt_text(200)
     per_step = {"qmatmul_w8a16": 4 * cfg.n_layers + 1, "flash_decode": cfg.n_layers}
     steps: list[float] = []
@@ -658,7 +843,7 @@ def phase_e2e(torch, ctx) -> None:
     launches = dict(LAUNCHES)  # the main path's run ends here
     for name in per_step:
         need(launches[name] > 0, f"kernel {name} was not launched on the main path")
-    ctx["path_launches"] = {"decode": launches}
+    ctx["path_launches"]["decode"] = launches
 
     wbytes = weight_bytes_per_decode_token(cfg, scale_bytes=2)
     # Steady decode: the greedy steps without the first of each run.
@@ -687,7 +872,6 @@ def phase_e2e(torch, ctx) -> None:
     ctx["e2e"]["eval_ppl_fast"] = eval_path(torch, ctx, cfg, weights, "fast", windows=2, runs=2)
     ctx["e2e"]["exact_generate"] = exact_generate_path(torch, ctx, cfg, weights, tok)
     ctx["e2e"]["eval_ppl_exact"] = eval_path(torch, ctx, cfg, weights, "exact", windows=1, runs=1)
-    del weights
     torch.cuda.empty_cache()
 
 
@@ -918,6 +1102,316 @@ def profile_calls(torch, fn, calls: int) -> dict:
     }
 
 
+# ---------------------------------------------------------------------- serve
+def _serve_traffic(cfg) -> list[tuple[list[int], int]]:
+    """The serve phase's traffic: 24 requests, prompt lengths uniform over
+    16-1024 tokens from seed 1 (random ids), 64 new tokens each."""
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    lens = rng.integers(16, 1025, SERVE_REQUESTS)
+    return [([int(t) for t in rng.integers(3, cfg.vocab_size - 2, n)], SERVE_NEW_TOKENS) for n in lens]
+
+
+def _instrument_engine(torch, engine, records: list):
+    """Wrap the engine's decode step and prefill windows: each call appends
+    its kind, rows, active slots, synchronised host seconds and the kernel
+    launches it made."""
+    from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES
+
+    def wrap(kind, fn):
+        def call(*args, **kw):
+            before = dict(LAUNCHES)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            active = int(sum(r is not None for r in engine.slot_request))
+            # _prefill_paged(tokens, out_idx, tables, pos): pos None for a fresh window.
+            records.append({"kind": kind, "rows": None if kind == "decode" else int(args[0].shape[1]),
+                            "cont": kind == "prefill" and len(args) > 3 and args[3] is not None,
+                            "active": active, "seconds": time.perf_counter() - t,
+                            "launches": {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}})
+            return out
+
+        return call
+
+    engine._decode = wrap("decode", engine._decode)
+    if engine.kv_layout == "paged":
+        engine._prefill_paged = wrap("prefill", engine._prefill_paged)
+
+
+def _serve_run(torch, ctx, name, engine, traffic, n_layers, *, profile=True) -> dict:
+    """Submit ``traffic`` at once and run the engine to the end, every
+    decode step checked for its launches; then the numbers of the run."""
+    from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from qwen3_rs_tpu_torch.serving import Request
+
+    paged = engine.kv_layout == "paged"
+    want = {"qmatmul_w8a16": 4 * n_layers + 1, "paged_decode" if paged else "flash_decode": n_layers}
+    recs: list = []
+    _instrument_engine(torch, engine, recs)
+    reqs = [Request(i, p, max_new_tokens=n, eos_token_ids=()) for i, (p, n) in enumerate(traffic)]
+    reset_launches()  # this path's run starts here
+    t0 = time.perf_counter()
+    for r in reqs:
+        engine.submit(r)
+    done = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)  # and ends here
+    ctx["path_launches"][f"serve_{name}"] = launches
+    need(len(done) == len(reqs) and all(r.finish_reason == "length" and len(r.generated) == r.max_new_tokens
+                                         for r in done), f"serve {name}: not every request completed")
+    decodes = [r for r in recs if r["kind"] == "decode"]
+    for rec in decodes:
+        need(rec["launches"] == want, f"serve {name}: a decode step launched {rec['launches']}, expected {want}")
+    if paged:
+        need(engine.allocator.free_pages == engine.allocator.n_pages - 1, f"serve {name}: pages still held")
+    ttft = sorted(r.ttft for r in done)
+    full = [r["seconds"] for r in decodes if r["active"] == engine.n_slots]
+    tokens = sum(len(r.generated) for r in done)
+    stats = engine.stats()
+    out = {
+        "requests": len(done), "generated_tokens": tokens, "wall_s": wall, "tok_per_s": tokens / wall,
+        "ttft_p50_ms": statistics.median(ttft) * 1e3, "ttft_p90_ms": statistics.quantiles(ttft, n=10)[-1] * 1e3,
+        "decode_steps": stats["decode_steps"], "slot_utilization": stats["slot_utilization"],
+        "decode_step_ms_8_active": statistics.median(full) * 1e3 if full else None,
+        "decode_steps_8_active": len(full),
+        "prefill_windows": [(r["rows"], r["seconds"] * 1e3) for r in recs if r["kind"] == "prefill"],
+        "launches": launches, "every_step_checked": True,
+    }
+    if profile:
+        out["profile_decode_8_active"] = _profile_full_decode(torch, engine, traffic)
+    emit({"phase": "serve", "run": name, **{k: v for k, v in out.items() if k != "prefill_windows"}})
+    return out
+
+
+def _profile_full_decode(torch, engine, traffic, steps: int = 8) -> dict:
+    """Where a decode step with every slot active goes: 8 requests admitted,
+    then ``steps`` engine steps (pure decode) under torch.profiler."""
+    from qwen3_rs_tpu_torch.serving import Request
+
+    for i in range(engine.n_slots):
+        engine.submit(Request(1000 + i, traffic[i][0][:200], max_new_tokens=steps + 4, eos_token_ids=()))
+    engine.step()  # admits all of them
+    need(engine.active_count == engine.n_slots, "profiled decode: not every slot active")
+    prof = profile_calls(torch, lambda i: engine.step(), steps)
+    engine.run()
+    return prof
+
+
+def phase_serve(torch, ctx) -> None:
+    """Continuous-batching serving at Qwen3-8B full depth, ctx 4096, 8 slots,
+    page 128, greedy host sampling: the same traffic on the paged bf16 pool,
+    the INT8 pool and the dense slots; the prefix cache; chunked prefill;
+    the HTTP front end."""
+    from qwen3_rs_tpu_torch.serving import ContinuousBatchingEngine
+    from qwen3_rs_tpu_torch.testing import paged_pool_bytes
+
+    cfg, weights, tok = model_8b(torch, ctx)
+    traffic = _serve_traffic(cfg)
+    ctx["serve"] = out = {"traffic": {"requests": len(traffic), "prompt_tokens": [len(p) for p, _ in traffic],
+                                      "max_new_tokens": SERVE_NEW_TOKENS}}
+    for name, kw in (("paged_bf16", {}), ("paged_int8", {"cache_dtype": "int8"}), ("dense_bf16", {"kv_layout": "dense"})):
+        t0 = time.perf_counter()
+        engine = ContinuousBatchingEngine(config=cfg, weights=weights, n_slots=8,
+                                          **{"kv_layout": "paged", "page_size": 128, **kw}, device=DEV)
+        engine.warmup()
+        warm = time.perf_counter() - t0
+        out[name] = _serve_run(torch, ctx, name, engine, traffic, cfg.n_layers)
+        out[name]["setup_and_warmup_s"] = warm
+        if engine.allocator is not None:
+            out[name]["kv_pages"] = engine.allocator.n_pages - 1
+            pool_bytes = sum(t.numel() * t.element_size() for t in engine.cache)
+            esz = engine.cache.k.element_size()
+            need(pool_bytes == paged_pool_bytes(cfg, engine.allocator.n_pages, 128, esz),
+                 f"serve {name}: the pool holds {pool_bytes} bytes, not the layout's")
+            out[name]["kv_pool_gb"] = pool_bytes / 1e9
+        del engine
+        torch.cuda.empty_cache()
+    out["prefix_cache"] = serve_prefix_path(torch, ctx, cfg, weights)
+    out["chunked_prefill"] = serve_chunked_path(torch, ctx, cfg, weights)
+    out["http"] = serve_http_path(torch, ctx, cfg, weights, tok)
+    ctx.pop("8b")  # the last user of the 8B weights
+    torch.cuda.empty_cache()
+
+
+def serve_prefix_path(torch, ctx, cfg, weights) -> dict:
+    """One request with a 512-token prefix and a 16-token suffix, one step;
+    then 15 with the same prefix and distinct 8-24-token suffixes: every
+    later admission adopts the prefix's 4 pages and prefills its suffix in a
+    continued window through the paged window kernel (#10)."""
+    import numpy as np
+
+    from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from qwen3_rs_tpu_torch.serving import ContinuousBatchingEngine, Request
+
+    rng = np.random.default_rng(SEED + 5)
+    prefix = [int(t) for t in rng.integers(3, cfg.vocab_size - 2, 512)]
+    suffixes = [[int(t) for t in rng.integers(3, cfg.vocab_size - 2, n)] for n in [16] + list(rng.integers(8, 25, 15))]
+    engine = ContinuousBatchingEngine(config=cfg, weights=weights, n_slots=8, kv_layout="paged", page_size=128,
+                                      prefix_cache=True, device=DEV)
+    engine.warmup()
+    recs: list = []
+    _instrument_engine(torch, engine, recs)
+    n = cfg.n_layers
+    reset_launches()  # this path's run starts here
+    t0 = time.perf_counter()
+    engine.submit(Request(0, prefix + suffixes[0], max_new_tokens=32, eos_token_ids=()))
+    engine.step()
+    for i, suf in enumerate(suffixes[1:], 1):
+        engine.submit(Request(i, prefix + suf, max_new_tokens=32, eos_token_ids=()))
+    done = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)  # and ends here
+    ctx["path_launches"]["serve_prefix_cache"] = launches
+    stats = engine.stats()
+    need(len(done) == 16 and stats["prefix_hits"] == 15, f"prefix cache: {len(done)} done, stats {stats}")
+    windows = [r for r in recs if r["kind"] == "prefill"]
+    cont = [r for r in windows if r["cont"]]
+    need(len(cont) >= 2 and all(r["launches"].get("paged_window_partials") == n for r in cont),
+         f"continued windows launched {[r['launches'] for r in cont]}, expected {n} paged_window_partials each")
+    for rec in recs:
+        if rec["kind"] == "decode":
+            need(rec["launches"].get("paged_decode") == n and "flash_decode" not in rec["launches"],
+                 f"prefix cache: a decode step launched {rec['launches']}")
+    ttft = sorted(r.ttft for r in done[1:])
+    res = {"requests": 16, "prefix_hits": stats["prefix_hits"], "prefix_rows_reused": stats["prefix_rows_reused"],
+           "continued_windows": [(r["rows"], r["seconds"] * 1e3) for r in cont],
+           "first_window": (windows[0]["rows"], windows[0]["seconds"] * 1e3),
+           "ttft_p50_ms_hits": statistics.median(ttft) * 1e3, "wall_s": wall,
+           "tok_per_s": sum(len(r.generated) for r in done) / wall, "launches": launches}
+    emit({"phase": "serve", "run": "prefix cache", **res})
+    del engine
+    torch.cuda.empty_cache()
+    return res
+
+
+def serve_chunked_path(torch, ctx, cfg, weights) -> dict:
+    """Chunked prefill (512-row chunks): one 3000-token prompt among 7 short
+    ones; its chunks interleave with the short requests' decode steps."""
+    import numpy as np
+
+    from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from qwen3_rs_tpu_torch.serving import ContinuousBatchingEngine, Request
+
+    rng = np.random.default_rng(SEED + 6)
+    lens = [20, 3000] + [int(n) for n in rng.integers(16, 200, 6)]
+    engine = ContinuousBatchingEngine(config=cfg, weights=weights, n_slots=8, kv_layout="paged", page_size=128,
+                                      prefill_chunk=512, device=DEV)
+    engine.warmup()
+    recs: list = []
+    _instrument_engine(torch, engine, recs)
+    reset_launches()  # this path's run starts here
+    t0 = time.perf_counter()
+    for i, n in enumerate(lens):
+        engine.submit(Request(i, [int(t) for t in rng.integers(3, cfg.vocab_size - 2, n)], max_new_tokens=32,
+                              eos_token_ids=()))
+    done = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)  # and ends here
+    ctx["path_launches"]["serve_chunked_prefill"] = launches
+    stats = engine.stats()
+    need(len(done) == len(lens) and all(len(r.generated) == 32 for r in done) and stats["prefill_waves"] > 0,
+         f"chunked prefill: {len(done)} done, stats {stats}")
+    long_req = next(r for r in done if r.request_id == 1)
+    res = {"prompt_tokens": lens, "prefill_waves": stats["prefill_waves"], "decode_steps": stats["decode_steps"],
+           "wall_s": wall, "long_prompt_ttft_ms": long_req.ttft * 1e3,
+           "longest_call_ms": max(r["seconds"] for r in recs) * 1e3, "launches": launches}
+    emit({"phase": "serve", "run": "chunked prefill", **res})
+    del engine
+    torch.cuda.empty_cache()
+    return res
+
+
+def serve_http_path(torch, ctx, cfg, weights, tok) -> dict:
+    """serve() on 127.0.0.1, port 0, in a thread: a completion, a streaming
+    completion and a chat completion one at a time, each equal to the
+    engine's tokens for that request alone through run(); then a burst of 8
+    concurrent completions."""
+    import threading
+    import urllib.request
+
+    from qwen3_rs_tpu_torch.serving import ContinuousBatchingEngine, Request, ServingFrontend, render_chat, serve
+
+    engine = ContinuousBatchingEngine(config=cfg, weights=weights, n_slots=8, kv_layout="paged", page_size=128,
+                                      device=DEV)
+    engine.warmup()
+    fe = ServingFrontend(engine, tok)
+    box, bound = {}, threading.Event()
+    thread = threading.Thread(target=serve, args=(fe, "127.0.0.1", 0),
+                              kwargs={"ready": lambda h: (box.setdefault("httpd", h), bound.set())}, daemon=True)
+    thread.start()
+    need(bound.wait(60), "the HTTP server did not start")
+    port = box["httpd"].server_address[1]
+
+    def post(path, payload):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=json.dumps(payload).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.read()
+
+    res = {}
+    try:
+        messages = [{"role": "system", "content": "be brief"}, {"role": "user", "content": prompt_text(80)}]
+        cases = [
+            ("completion", "/v1/completions", {"prompt": prompt_text(300), "max_tokens": 24}, prompt_text(300)),
+            ("stream", "/v1/completions", {"prompt": prompt_text(90), "max_tokens": 24, "stream": True},
+             prompt_text(90)),
+            ("chat", "/v1/chat/completions", {"messages": messages, "max_tokens": 24}, render_chat(messages, tok)),
+        ]
+        answers = {}
+        for name, path, payload, prompt in cases:
+            t0 = time.perf_counter()
+            raw = post(path, payload)
+            if payload.get("stream"):
+                lines = [json.loads(x) for x in raw.decode().splitlines() if x.strip()]
+                need(lines[-1].get("done") and "error" not in lines[-1], f"http stream: {lines[-1]}")
+                answers[name] = (tok.decode([x["token"] for x in lines if "token" in x]), prompt, payload)
+            else:
+                body = json.loads(raw)
+                answers[name] = (body["message"]["content"] if name == "chat" else body["text"], prompt, payload)
+            res[f"{name}_s"] = time.perf_counter() - t0
+        stats0 = json.loads(urllib.request.urlopen(f"http://127.0.0.1:{port}/v1/stats", timeout=60).read())
+        need(json.loads(urllib.request.urlopen(f"http://127.0.0.1:{port}/health", timeout=60).read())
+             == {"status": "ok"}, "http /health")
+        results = [None] * 8
+
+        def one(i):
+            results[i] = json.loads(post("/v1/completions", {"prompt": prompt_text(40 + 50 * i), "max_tokens": 48}))
+
+        t0 = time.perf_counter()
+        burst = [threading.Thread(target=one, args=(i,)) for i in range(8)]
+        for t in burst:
+            t.start()
+        for t in burst:
+            t.join(600)
+        burst_s = time.perf_counter() - t0
+        need(all(r is not None and r["finish_reason"] in ("length", "stop") for r in results),
+             f"http burst: {results}")
+        need(fe.error is None, f"the serving worker failed: {fe.error}")
+        res.update({"stats_after_three": stats0, "burst_requests": 8, "burst_s": burst_s,
+                    "burst_tok_per_s": sum(r["tokens"] for r in results) / burst_s,
+                    "burst_finish_reasons": sorted({r["finish_reason"] for r in results})})
+    finally:
+        box["httpd"].shutdown()
+        thread.join(60)
+    # Each of the three answers against the same request alone through run().
+    for name, (text, prompt, payload) in answers.items():
+        engine.submit(Request(0, tok.encode(prompt), max_new_tokens=payload["max_tokens"],
+                              eos_token_ids=(tok.bos_token_id, tok.eos_token_id)))
+        solo = engine.run()[-1]
+        need(tok.decode(solo.generated) == text, f"http {name}: the answer differs from the request run alone")
+    res["equal_to_run_alone"] = True
+    emit({"phase": "serve", "run": "http", **res})
+    del engine, fe
+    torch.cuda.empty_cache()
+    return res
+
+
 # ------------------------------------------------------------------ cli/parity
 def small_model(ctx):
     from qwen3_rs_tpu_torch.testing import qwen3_config, random_weights
@@ -986,6 +1480,87 @@ def phase_cli(torch, ctx) -> None:
     need(set(got["fast"]) == {"perplexity", "avg_nll", "tokens", "ppl_delta_vs_f32"}, f"eval-ppl keys {got}")
     emit({"phase": "cli", "mode": "eval-ppl", "window": 600, "result": got, "equal_to_api_rtol": 1e-6,
           "seconds": time.perf_counter() - t0})
+    cli_batch(torch, ctx, root, cfg, weights)
+    cli_serve(torch, ctx, root, cfg, weights)
+
+
+def cli_batch(torch, ctx, root, cfg, weights) -> None:
+    """``batch --sampling host`` on the paged pool and on the dense slots:
+    its JSON lines equal the API's on the same requests."""
+    from qwen3_rs_tpu_torch import Tokenizer
+    from qwen3_rs_tpu_torch.cli import main as cli_main
+    from qwen3_rs_tpu_torch.serving import ContinuousBatchingEngine, Request
+
+    prompts = [prompt_text(n) for n in (30, 200, 5, 700, 90)]
+    pfile = ctx["tmp"] / "prompts.txt"
+    pfile.write_text("\n".join(prompts) + "\n")
+    tok = Tokenizer(root, cfg.vocab_size)
+    for kv in ("paged", "dense"):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(["batch", str(root), "-f", str(pfile), "-n", "12", "-s", "3", "--sampling", "host",
+                           "--slots", "4", "--kv", kv])
+        need(rc == 0, f"cli batch --kv {kv} exited {rc}")
+        engine = ContinuousBatchingEngine(config=cfg, weights=weights, n_slots=4, kv_layout=kv, device=DEV)
+        for i, p in enumerate(prompts):
+            engine.submit(Request(i, tok.encode(p), max_new_tokens=12, seed=3 + i,
+                                  eos_token_ids=(tok.bos_token_id, tok.eos_token_id)))
+        done = sorted(engine.run(), key=lambda r: r.request_id)
+        api = "".join(json.dumps({"id": r.request_id, "prompt": prompts[r.request_id],
+                                  "completion": tok.decode(r.generated), "tokens": len(r.generated),
+                                  "finish_reason": r.finish_reason}) + "\n" for r in done)
+        need(buf.getvalue() == api, f"cli batch --kv {kv}: output differs from the API's")
+        emit({"phase": "cli", "mode": f"batch --kv {kv}", "requests": len(done), "equal_to_api": True,
+              "seconds": time.perf_counter() - t0})
+
+
+def cli_serve(torch, ctx, root, cfg, weights) -> None:
+    """``serve --sampling host`` in a process of its own: a completion over
+    HTTP equals the API's run of the same request; the process is stopped."""
+    import socket
+    import urllib.request
+
+    from qwen3_rs_tpu_torch import Tokenizer
+    from qwen3_rs_tpu_torch.serving import ContinuousBatchingEngine, Request
+
+    with socket.socket() as sock:  # a free port for the server
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    log = open(ctx["tmp"] / "serve.log", "w")
+    proc = subprocess.Popen([sys.executable, "-m", "qwen3_rs_tpu_torch.cli", "serve", str(root), "--sampling",
+                             "host", "--port", str(port), "--slots", "4"], cwd=ROOT, stdout=log, stderr=log)
+    try:
+        for _ in range(600):
+            need(proc.poll() is None, f"cli serve exited {proc.returncode}: {(ctx['tmp'] / 'serve.log').read_text()}")
+            try:
+                urllib.request.urlopen(f"http://127.0.0.1:{port}/health", timeout=5).read()
+                break
+            except OSError:
+                time.sleep(0.5)
+        ready_s = time.perf_counter() - t0
+        prompt = prompt_text(150)
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/completions",
+                                     data=json.dumps({"prompt": prompt, "max_tokens": 16}).encode(),
+                                     headers={"Content-Type": "application/json"})
+        body = json.loads(urllib.request.urlopen(req, timeout=300).read())
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(30)
+        log.close()
+    tok = Tokenizer(root, cfg.vocab_size)
+    engine = ContinuousBatchingEngine(config=cfg, weights=weights, n_slots=4, kv_layout="paged", device=DEV)
+    engine.submit(Request(0, tok.encode(prompt), max_new_tokens=16, eos_token_ids=(tok.bos_token_id, tok.eos_token_id)))
+    solo = engine.run()[0]
+    need(body["text"] == tok.decode(solo.generated) and body["tokens"] == len(solo.generated),
+         "cli serve: the completion differs from the API's")
+    emit({"phase": "cli", "mode": "serve", "ready_s": ready_s, "tokens": body["tokens"], "equal_to_api": True,
+          "seconds": time.perf_counter() - t0})
 
 
 def phase_parity(torch, ctx) -> None:
@@ -1025,6 +1600,59 @@ def phase_parity(torch, ctx) -> None:
           "seconds": time.perf_counter() - t0})
     parity_long_windows(torch, ctx)
     parity_eval(torch, ctx)
+    parity_paged(torch, ctx)
+
+
+def parity_paged(torch, ctx) -> None:
+    """Card against CPU on the 2-layer 8B-width model over a shuffled page
+    pool (bf16 and INT8): a fresh group prefill of 3 requests (300, 200 and
+    a padding row), a continued 32-row window (the paged window kernel on
+    the card), 3 decode steps (the paged decode kernel) with one slot idle."""
+    import numpy as np
+
+    from qwen3_rs_tpu_torch.models.qwen3 import cast_weight_scales, qwen3_forward, weights_to
+    from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES
+    from qwen3_rs_tpu_torch.serving.paged_cache import init_paged_cache
+
+    cfg, weights = small_model(ctx)
+    card_w = cast_weight_scales(weights)
+    cpu_w = weights_to(card_w, "cpu")
+    tol_rel = 2e-2  # f32 sums in another order can flip a bf16 rounding of the residual stream
+    for pool_dtype in (torch.bfloat16, "int8"):
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(SEED + 4)
+        pools = [init_paged_cache(cfg, 1 + 3 * 32, 128, dtype=pool_dtype, device=d) for d in (DEV, "cpu")]
+        table = np.zeros((3, 32), np.int32)
+        table[:2] = rng.permutation(np.arange(1, 1 + 3 * 32))[:64].reshape(2, 32)
+        errs, made = [], {}
+
+        def both(tokens, pos, mask, **kw):
+            before = dict(LAUNCHES)
+            lc, _ = qwen3_forward(cfg, card_w, tokens, pools[0], pos, page_table=table, write_mask=mask, **kw)
+            torch.cuda.synchronize()
+            made.update({k: made.get(k, 0) + LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]})
+            lp, _ = qwen3_forward(cfg, cpu_w, tokens, pools[1], pos, page_table=table, write_mask=mask, **kw)
+            a, b = lc.float().cpu()[:2], lp.float()[:2]
+            need(bool(torch.isfinite(a).all()), "paged parity: card logits are not finite")
+            errs.append(float((a - b).abs().max()) / float(b.abs().max()))
+            return b
+
+        both(rng.integers(0, cfg.vocab_size, (3, 300)), [0, 0, 0], np.array([1, 1, 0], bool),
+             fresh_prefill=True, out_idx=[299, 199, 0])
+        pos = np.array([300, 200, 0])
+        lp = both(rng.integers(0, cfg.vocab_size, (3, 32)), pos, np.array([1, 1, 0], bool))
+        pos = pos + [32, 32, 0]
+        for _ in range(3):
+            tok = np.concatenate([lp.argmax(-1).numpy(), [0]])[:, None]
+            lp = both(tok, pos, np.array([1, 0, 0], bool))
+            pos = pos + [1, 0, 0]
+        n = cfg.n_layers
+        need(made.get("paged_window_partials") == n and made.get("paged_decode") == 3 * n
+             and made.get("causal_prefill_attention") == n, f"paged parity launched {made}")
+        need(all(math.isfinite(e) and e <= tol_rel for e in errs), f"card vs CPU paged {pool_dtype}: {errs}")
+        emit({"phase": "parity", "run": f"paged {'int8' if pool_dtype == 'int8' else 'bf16'}", "layers": n, "width": cfg.dim,
+              "windows": [300, 32], "decode_steps": 3, "rel_errs": errs, "tol_rel": tol_rel, "launches": made,
+              "seconds": time.perf_counter() - t0})
 
 
 def parity_long_windows(torch, ctx) -> None:
@@ -1122,7 +1750,7 @@ def main(argv=None) -> int:
     tmp = ROOT / ".smoke_tmp"
     shutil.rmtree(tmp, ignore_errors=True)
     tmp.mkdir()
-    ctx = {"tmp": tmp, "copy_gbps": float("nan")}
+    ctx = {"tmp": tmp, "copy_gbps": float("nan"), "path_launches": {}}
     t_all = time.perf_counter()
     try:
         if "build" not in phases:
@@ -1138,7 +1766,7 @@ def main(argv=None) -> int:
             elif name == "kernels":
                 phase_kernels(torch, ctx)
             else:
-                {"e2e": phase_e2e, "cli": phase_cli, "parity": phase_parity}[name](torch, ctx)
+                {"e2e": phase_e2e, "serve": phase_serve, "cli": phase_cli, "parity": phase_parity}[name](torch, ctx)
             emit({"phase": name, "done": True, "seconds": time.perf_counter() - t0})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1147,7 +1775,8 @@ def main(argv=None) -> int:
     launches = {name: sum(p.get(name, 0) for p in paths.values()) for name in
                 {r["name"] for r in ctx.get("kernel_rows", [])}}
     rows = [dict(r, launches=launches[r["name"]]) for r in ctx.get("kernel_rows", [])]
-    emit({"kernels": rows, "e2e": ctx.get("e2e"), "total_seconds": time.perf_counter() - t_all})
+    emit({"kernels": rows, "e2e": ctx.get("e2e"), "serve": ctx.get("serve"),
+          "total_seconds": time.perf_counter() - t_all})
     print(ctx.get("smi") or subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0], flush=True)

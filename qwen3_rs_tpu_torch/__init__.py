@@ -1,8 +1,10 @@
 """qwen3_rs_tpu_torch — the PyTorch and CUDA port of the JAX package (``qwen3_rs_tpu``).
 
-INT8-g64 Qwen3/Llama inference and perplexity evaluation for one NVIDIA
-H100: the same checkpoints, tokenizer, sampler, generation loops, engine
-modes (fast W8A16, exact W8A8) and ``eval-ppl`` as the JAX package, with its
+INT8-g64 Qwen3/Llama inference, perplexity evaluation and continuous-batching
+serving for one NVIDIA H100: the same checkpoints, tokenizer, sampler,
+generation loops, engine modes (fast W8A16, exact W8A8), ``eval-ppl`` and
+serving engine (dense slots or the page pool, prefix cache, chunked prefill,
+HTTP front end, host sampling) as the JAX package, with its
 Pallas kernels replaced by hand-written CUDA kernels for Hopper (``csrc/``).
 Entry points run on the card unless the caller passes ``device="cpu"``,
 where the kernels' plain PyTorch versions run instead.
@@ -21,6 +23,7 @@ from .configuration import ModelConfig, read_config
 from .evaluation import PerplexityResult, evaluate_checkpoint
 from .inference import Engine, Tokenizer, TokenSampler, chat, generate
 from .inference.engine import not_ported
+from .serving import ContinuousBatchingEngine, Request, ServingFrontend
 
 __version__ = "0.1.0"
 
@@ -91,5 +94,8 @@ __all__ = [
     "TokenSampler",
     "generate",
     "chat",
+    "ContinuousBatchingEngine",
+    "Request",
+    "ServingFrontend",
     "__version__",
 ]

@@ -1,13 +1,19 @@
-"""Command-line interface: the ``inference`` and ``eval-ppl`` subcommands.
+"""Command-line interface: the ``inference``, ``eval-ppl``, ``batch`` and
+``serve`` subcommands.
 
-The same flags as the reference package's subcommands, plus ``--device``
-(default: the card).  Flags whose paths are not ported yet
-(``--device-sampling``, ``--spec``, ``--sp > 1``) raise a "not ported" error
-naming the ROADMAP.md item; they never run something else.
+The same flags, defaults and output as the reference package's subcommands,
+plus ``--device`` (default: the card).  Flags whose paths are not ported yet
+(``--device-sampling``, ``--spec``, ``--sp > 1``, ``--sampling device``,
+``--tp > 1``, ``--replicas > 1``, ``--gateway``) raise a "not ported" error
+naming the ROADMAP.md item; they never run something else.  ``--sampling``
+defaults to ``device`` as in the reference package, so ``batch`` and
+``serve`` need ``--sampling host`` for now.
 
     python -m qwen3_rs_tpu_torch.cli inference CKPT -m generate -i "hello" -t 0
     python -m qwen3_rs_tpu_torch.cli inference CKPT -m generate -i "hello" --engine-mode exact
     python -m qwen3_rs_tpu_torch.cli eval-ppl CKPT -f text.txt --modes fast,exact,f32 -w 4096
+    python -m qwen3_rs_tpu_torch.cli batch CKPT -f prompts.txt --sampling host --kv paged
+    python -m qwen3_rs_tpu_torch.cli serve CKPT --sampling host --kv-int8 --prefix-cache
 """
 
 from __future__ import annotations
@@ -16,7 +22,23 @@ import argparse
 import json
 import logging
 import sys
+import time
 from pathlib import Path
+
+_DEVICE_HELP = "torch device (default: cuda; cpu runs the kernels' plain PyTorch versions)"
+_SAMPLING_HELP = (
+    "host = reference-parity xorshift; device = on-device sampling "
+    "(not ported yet: pass --sampling host)"
+)
+_SPEC_HELP = "n-gram speculative decoding with K-token drafts (not ported yet)"
+_PREFIX_HELP = (
+    "reuse KV pages across requests sharing a prompt prefix "
+    "(paged layout; prefills run only the unmatched suffix)"
+)
+_CHUNK_HELP = (
+    "chunked prefill: long prompts prefill N rows per scheduler step, interleaved "
+    "with decode (paged layout; bounds inter-token latency under long-prompt admissions)"
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -60,10 +82,7 @@ def build_parser() -> argparse.ArgumentParser:
         "--sp-threshold", type=int, default=4096, metavar="ROWS",
         help="minimum prompt rows to engage the sequence-parallel prefill",
     )
-    inf.add_argument(
-        "--device", default=None,
-        help="torch device (default: cuda; cpu runs the kernels' plain PyTorch versions)",
-    )
+    inf.add_argument("--device", default=None, help=_DEVICE_HELP)
 
     # eval-ppl: perplexity and the int8-vs-f32 delta (the accuracy bar).
     ev = sub.add_parser("eval-ppl", help="Evaluate perplexity of a checkpoint")
@@ -74,16 +93,166 @@ def build_parser() -> argparse.ArgumentParser:
         help="comma-separated engine modes (fast, exact, f32); default fast,f32",
     )
     ev.add_argument("-w", "--window", type=int, default=None, help="evaluation window")
-    ev.add_argument(
-        "--device", default=None,
-        help="torch device (default: cuda; cpu runs the kernels' plain PyTorch versions)",
+    ev.add_argument("--device", default=None, help=_DEVICE_HELP)
+
+    # batch: continuous-batching throughput runner (serving surface).
+    bt = sub.add_parser("batch", help="Serve a batch of prompts with continuous batching")
+    bt.add_argument("checkpoint")
+    bt.add_argument("-f", "--file", required=True, help="text file: one prompt per line")
+    bt.add_argument("-n", "--max-new-tokens", type=int, default=128)
+    bt.add_argument("-t", "--temperature", type=float, default=0.0)
+    bt.add_argument("-p", "--topp", type=float, default=0.9)
+    bt.add_argument("-s", "--seed", type=int, default=0)
+    bt.add_argument("--slots", type=int, default=8, help="concurrent decode slots")
+    bt.add_argument("--sampling", choices=["host", "device"], default="device", help=_SAMPLING_HELP)
+    bt.add_argument("--no-warmup", action="store_true", help="skip the kernel build and warm-up step")
+    bt.add_argument(
+        "--kv", choices=["dense", "paged"], default="dense",
+        help="KV cache layout: dense slots or a shared page pool",
     )
+    bt.add_argument("--page-size", type=int, default=128, help="rows per KV page (paged only)")
+    bt.add_argument(
+        "--pages", type=int, default=None,
+        help="KV pool size in pages (paged only; default: half the dense footprint)",
+    )
+    bt.add_argument("--spec", type=int, default=0, metavar="K", help=_SPEC_HELP)
+    bt.add_argument("--prefix-cache", action="store_true", help=_PREFIX_HELP)
+    bt.add_argument("--prefill-chunk", type=int, default=None, metavar="N", help=_CHUNK_HELP)
+    bt.add_argument("--device", default=None, help=_DEVICE_HELP)
+
+    # serve: HTTP front end over the continuous-batching engine.
+    sv = sub.add_parser("serve", help="Serve a checkpoint over HTTP")
+    sv.add_argument("checkpoint")
+    sv.add_argument("--host", default="127.0.0.1")
+    sv.add_argument("--port", type=int, default=8000)
+    sv.add_argument("--slots", type=int, default=8)
+    sv.add_argument("--sampling", choices=["host", "device"], default="device", help=_SAMPLING_HELP)
+    sv.add_argument("--kv", choices=["dense", "paged"], default="paged")
+    sv.add_argument(
+        "--kv-int8", action="store_true",
+        help="INT8 page pool (per-row scales): halves KV traffic and doubles pool capacity; "
+        "paged layout only",
+    )
+    sv.add_argument("--page-size", type=int, default=128)
+    sv.add_argument("--pages", type=int, default=None)
+    sv.add_argument("--no-warmup", action="store_true")
+    sv.add_argument("--spec", type=int, default=0, metavar="K", help=_SPEC_HELP)
+    sv.add_argument(
+        "--spec-min-accept", type=float, default=1.35, metavar="T",
+        help="acceptance-adaptive floor of --spec (not ported yet)",
+    )
+    sv.add_argument("--prefix-cache", action="store_true", help=_PREFIX_HELP)
+    sv.add_argument("--prefill-chunk", type=int, default=None, metavar="N", help=_CHUNK_HELP)
+    sv.add_argument(
+        "--gateway", default=None, metavar="URL,URL",
+        help="cross-host gateway over worker servers (not ported yet)",
+    )
+    sv.add_argument("--tp", type=int, default=1, help="tensor-shard each replica (not ported yet)")
+    sv.add_argument("--replicas", type=int, default=1, help="engine replicas (not ported yet)")
+    sv.add_argument("--device", default=None, help=_DEVICE_HELP)
     return parser
+
+
+def _serving_not_ported(args) -> None:
+    """Raise the "not ported" error for a serving flag whose path the port
+    lacks."""
+    from .inference.engine import not_ported
+
+    if args.sampling == "device":
+        raise not_ported(
+            "--sampling device (the default) in batch/serve",
+            "queue 1, item 2: device sampling and decode_chunk; pass --sampling host",
+        )
+    if args.spec > 0:
+        raise not_ported("speculative serving (--spec)", "queue 1, item 6: speculative decoding")
+    if args.command == "serve":
+        if args.tp > 1:
+            raise not_ported("tensor-parallel serving (--tp)", "queue 1, item 10: parallel layouts")
+        if args.replicas > 1:
+            raise not_ported("replicated serving (--replicas)", "queue 1, item 9: serving")
+        if args.gateway:
+            raise not_ported("the cross-host gateway (--gateway)", "queue 1, item 9: serving")
+
+
+def _engine(args, config, weights, **kw):
+    from .serving import ContinuousBatchingEngine
+
+    for flag in ("prefix_cache", "prefill_chunk"):
+        if getattr(args, flag) not in (None, False) and args.kv != "paged":
+            name = "--" + flag.replace("_", "-")
+            raise SystemExit(f"{name} requires the paged KV layout: add --kv paged")
+    engine = ContinuousBatchingEngine(
+        config=config, weights=weights, n_slots=args.slots, sampling=args.sampling,
+        kv_layout=args.kv, page_size=args.page_size, n_pages=args.pages,
+        prefix_cache=args.prefix_cache, prefill_chunk=args.prefill_chunk, device=args.device, **kw,
+    )
+    if not args.no_warmup:
+        engine.warmup()
+    return engine
+
+
+def _batch(args) -> int:
+    from .checkpoint import load_checkpoint
+    from .inference.tokenizer import Tokenizer
+    from .serving import Request
+
+    config, weights = load_checkpoint(args.checkpoint)
+    tokenizer = Tokenizer(args.checkpoint, config.vocab_size)
+    engine = _engine(args, config, weights)
+    prompts = [line for line in Path(args.file).read_text().splitlines() if line.strip()]
+    for i, prompt in enumerate(prompts):
+        engine.submit(Request(
+            request_id=i,
+            prompt_tokens=tokenizer.encode(prompt),
+            max_new_tokens=args.max_new_tokens,
+            temperature=args.temperature,
+            topp=args.topp,
+            seed=args.seed + i,
+            eos_token_ids=(tokenizer.bos_token_id, tokenizer.eos_token_id),
+        ))
+    t0 = time.perf_counter()
+    done = engine.run()
+    elapsed = time.perf_counter() - t0
+    for req in sorted(done, key=lambda r: r.request_id):
+        print(json.dumps({
+            "id": req.request_id,
+            "prompt": prompts[req.request_id],
+            "completion": tokenizer.decode(req.generated),
+            "tokens": len(req.generated),
+            "finish_reason": req.finish_reason,
+        }))
+    stats = engine.stats()
+    total_tokens = sum(len(r.generated) for r in done)
+    logging.info(
+        "served %d requests, %d tokens in %.2fs (%.1f tok/s aggregate, slot utilization %.0f%%, p50 TTFT %s)",
+        len(done), total_tokens, elapsed, total_tokens / elapsed if elapsed else 0.0,
+        100 * stats["slot_utilization"],
+        f"{stats['p50_ttft']*1e3:.0f}ms" if stats["p50_ttft"] else "n/a",
+    )
+    return 0
+
+
+def _serve(args) -> int:
+    from .checkpoint import load_checkpoint
+    from .inference.tokenizer import Tokenizer
+    from .serving.server import ServingFrontend, serve
+
+    config, weights = load_checkpoint(args.checkpoint)
+    tokenizer = Tokenizer(args.checkpoint, config.vocab_size)
+    kw = {"cache_dtype": "int8"} if args.kv_int8 else {}
+    if not args.no_warmup:
+        logging.info("warming up (building the kernels)...")
+    engine = _engine(args, config, weights, **kw)
+    serve(ServingFrontend(engine, tokenizer), host=args.host, port=args.port)
+    return 0
 
 
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, format="%(message)s", stream=sys.stderr)
     args = build_parser().parse_args(argv)
+    if args.command in ("batch", "serve"):
+        _serving_not_ported(args)
+        return _batch(args) if args.command == "batch" else _serve(args)
     if args.command == "eval-ppl":
         from .evaluation import evaluate_checkpoint
 

@@ -1,4 +1,5 @@
-"""Qwen3 forward pass over stacked per-layer weights and a dense KV cache.
+"""Qwen3 forward pass over stacked per-layer weights and a dense KV cache or
+the serving page pool.
 
 The port of the reference package's ``models/qwen3.py::qwen3_forward`` on
 the path it takes with its decode megakernel off, in three modes:
@@ -9,9 +10,11 @@ the path it takes with its decode megakernel off, in three modes:
   SwiGLU and residual adds run outside the projections, which take the
   row-blocked W8A16 kernel, or, where the reference's "xdot" gate admits
   them, the dequant kernel and one bf16 product.  Decode attention (S = 1)
-  is the flash-decode kernel, a fresh window (every position 0) of more than
-  256 rows takes the causal prefill kernel, and every other window the
-  plain split attention.
+  is the flash-decode kernel (the paged decode kernel on the pool), a fresh
+  window (every position 0) of more than 256 rows takes the causal prefill
+  kernel, a window on the pool with S·kv_mul ≤ 128 the paged window path
+  (its kernel for a continued window's cache part; a fresh window has none),
+  and every other window the plain split attention.
 * ``exact`` (W8A8, reference parity): activations are quantized per group
   before each projection (``qmatmul_exact``); the residual stream and the
   attention are f32.
@@ -21,14 +24,16 @@ the path it takes with its decode megakernel off, in three modes:
 On CPU tensors the kernel wrappers run their plain PyTorch versions.
 
 Layouts as in the reference package: linear weights in-major, codes
-``[L, in, out]`` with scales ``[L, in/g, out]``; the cache ``[L, B, kv, T, hd]``.
+``[L, in, out]`` with scales ``[L, in/g, out]``; the cache ``[L, B, kv, T, hd]``,
+the page pool ``[L, P, kv, page, hd]`` (``serving/paged_cache.py``).
 The residual stream is bf16 (f32 in exact mode).
 
 Unlike the reference package, which emits the window's K/V rows from its
 layer scan and scatters them into the cache once after the last layer, the
 port writes each layer's rows into the cache **in place**, right after that
 layer's attention.  Layer ``l`` reads only rows ``< pos`` of layer ``l``'s
-cache plus the step's own K/V, so the result is the same.
+cache plus the step's own K/V, and every request of the batch has read its
+rows before any row is written, so the result is the same.
 """
 
 from __future__ import annotations
@@ -39,8 +44,9 @@ import numpy as np
 import torch
 
 from ..configuration import ModelConfig
-from ..ops.attention import gqa_attention_split
+from ..ops.attention import gqa_attention_split, gqa_attention_split_paged
 from ..ops.kernels.flash_attention import flash_decode
+from ..ops.kernels.paged_attention import paged_decode, paged_window_attention, window_supported
 from ..ops.kernels.prefill_attention import causal_prefill_attention
 from ..ops.kernels.qmatmul import MAX_ROWS, dequant_w8_stacked, qmatmul_w8a16, qmatmul_w8a16_rows
 from ..ops.matmul import exact_float_products, f32_matmul, qmatmul, qmatmul_exact
@@ -200,14 +206,17 @@ def _quant_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.round(xf / safe[..., None]).to(torch.int8), sc
 
 
-def _write_rows(cache, layer: int, k: torch.Tensor, v: torch.Tensor, pos: np.ndarray) -> None:
+def _write_rows(cache, layer: int, k: torch.Tensor, v: torch.Tensor, pos: np.ndarray, write_mask) -> None:
     """Write the window's K/V rows ([B, S, kv, hd]) of ``layer`` into the
-    cache at each request's offset, in place."""
+    dense cache at each request's offset, in place; requests whose
+    ``write_mask`` is false write nothing."""
     s = k.shape[1]
     quant = isinstance(cache, QuantizedKVCache)
     if quant:
         (k, k_sc), (v, v_sc) = _quant_rows(k), _quant_rows(v)
     for b, p in enumerate(pos.tolist()):
+        if write_mask is not None and not write_mask[b]:
+            continue
         cache.k[layer, b, :, p : p + s] = k[b].transpose(0, 1)
         cache.v[layer, b, :, p : p + s] = v[b].transpose(0, 1)
         if quant:
@@ -215,6 +224,33 @@ def _write_rows(cache, layer: int, k: torch.Tensor, v: torch.Tensor, pos: np.nda
             cache.v_scale[layer, b, :, p : p + s] = v_sc[b].transpose(0, 1)
 
 
+def _page_targets(table: np.ndarray, pos: np.ndarray, s: int, page: int, write_mask, dev):
+    """Where the window's rows land in the pool: (batch, window row, page id,
+    page row) index tensors of the rows that are written.  Row i of request b
+    sits at position p = pos[b] + i, in page ``table[b, p // page]`` at row
+    ``p % page``; rows of a request whose ``write_mask`` is false, and rows
+    past the table, are dropped, as the reference's scatter drops them."""
+    q_pos = pos[:, None] + np.arange(s)  # [B, S]
+    j = q_pos // page
+    keep = j < table.shape[1]
+    if write_mask is not None:
+        keep &= np.asarray(write_mask, bool).reshape(-1, 1)
+    bi, si = np.nonzero(keep)
+    idx = (bi, si, table[bi, j[bi, si]], q_pos[bi, si] % page)
+    return tuple(torch.as_tensor(a, dtype=torch.long, device=dev) for a in idx)
+
+
+def _write_pages(pool, layer: int, k: torch.Tensor, v: torch.Tensor, targets) -> None:
+    """Write the window's K/V rows ([B, S, kv, hd]) of ``layer`` into the
+    pool at ``targets`` (``_page_targets``), in place; an INT8 pool
+    quantizes them first."""
+    bi, si, pids, rows = targets
+    if hasattr(pool, "k_scale"):
+        (k, k_sc), (v, v_sc) = _quant_rows(k), _quant_rows(v)
+        pool.k_scale[layer][pids, :, rows] = k_sc[bi, si]
+        pool.v_scale[layer][pids, :, rows] = v_sc[bi, si]
+    pool.k[layer][pids, :, rows] = k[bi, si].to(pool.k.dtype)
+    pool.v[layer][pids, :, rows] = v[bi, si].to(pool.v.dtype)
 
 
 def _project_layer(x, xq, w: QuantizedTensor, layer: int, mode: str, *, rounds_to_bf16: bool = False):
@@ -265,16 +301,23 @@ def qwen3_forward(
     out_idx=None,
     return_all_logits: bool = False,
     fresh_prefill: bool = False,
-) -> tuple[torch.Tensor, KVCache | QuantizedKVCache]:
+    page_table=None,
+    write_mask=None,
+):
     """One model step: prefill when S > 1, decode when S == 1.
 
     ``tokens`` [B, S] ints; ``pos_start`` [B] host ints, the absolute
     position of each row's first token; ``out_idx`` [B] host ints, the window
     row whose logits are returned (default: the last).  ``fresh_prefill``
     states that every position is 0 (checked), which routes long fast-mode
-    windows to the causal prefill kernel.  Returns (logits [B, vocab_size]
-    f32, or [B, S, vocab_size] with ``return_all_logits``; cache), the cache
-    updated in place.
+    windows to the causal prefill kernel.  ``page_table`` ([B, max_pages]
+    ints) makes ``cache`` a page pool (``serving/paged_cache.py``): cache
+    row t of request b is row ``t % page`` of page ``page_table[b, t // page]``,
+    RoPE covers ``config.seq_len`` positions, and rows past the table are
+    dropped.  ``write_mask`` ([B] bools): requests whose entry is false
+    write nothing into the cache (idle and mid-prefill serving slots).
+    Returns (logits [B, vocab_size] f32, or [B, S, vocab_size] with
+    ``return_all_logits``; cache), the cache updated in place.
     """
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} is not one of {MODES}")
@@ -282,8 +325,16 @@ def qwen3_forward(
     tokens = torch.as_tensor(tokens, device=dev).long()
     b, s = tokens.shape
     pos = np.asarray(torch.as_tensor(pos_start).cpu(), np.int64).reshape(b)
-    t_max = cache.seq_len
-    if (pos < 0).any() or (pos + s > t_max).any():
+    paged = page_table is not None
+    if paged:
+        page = cache.k.shape[3]
+        table = np.asarray(torch.as_tensor(page_table).cpu(), np.int64).reshape(b, -1)
+        t_max, rope_len = table.shape[1] * page, config.seq_len
+        bad = (pos < 0) | (pos > t_max)  # rows past the table are dropped, not refused
+    else:
+        t_max = rope_len = cache.seq_len
+        bad = (pos < 0) | (pos + s > t_max)
+    if bad.any():
         raise ValueError(
             f"window of {s} rows at positions {pos.tolist()} does not fit the cache of {t_max} rows"
         )
@@ -295,9 +346,12 @@ def qwen3_forward(
     exact = mode == "exact"
     cd = torch.float32 if exact else bf16  # the residual stream's dtype
     ah, kvd, hd = c.all_heads_dim, c.kv_dim, c.head_dim
-    ks_all, vs_all = (cache.k_scale, cache.v_scale) if isinstance(cache, QuantizedKVCache) else (None, None)
+    ks_all, vs_all = (cache.k_scale, cache.v_scale) if hasattr(cache, "k_scale") else (None, None)
     fused = mode == "fast" and b * s <= MAX_ROWS
     prefill_kernel = mode == "fast" and fresh_prefill and s > MAX_ROWS
+    # A small window on the pool: the reference's paged window gate.  A fresh
+    # window takes the same f32 attention, but has no cache prefix to read.
+    window_kernel = paged and mode == "fast" and window_supported(s, c.kv_mul)
 
     def quant(t):
         return quantize_activations(t, g) if exact else None
@@ -306,11 +360,16 @@ def qwen3_forward(
     x = dequantize(QuantizedTensor(weights.embed.q[tokens], weights.embed.scales[tokens]))
     x = x.to(cd)
 
-    q_pos = torch.as_tensor(pos[:, None] + np.arange(s), device=dev)  # [B, S]
-    cos_t, sin_t = rope_table(t_max, hd, c.rope_theta, dev)
+    # Positions past the RoPE table (padding rows past the context) take its
+    # last row, as the reference's gather clamps them.
+    q_pos = torch.as_tensor(np.minimum(pos[:, None] + np.arange(s), rope_len - 1), device=dev)  # [B, S]
+    cos_t, sin_t = rope_table(rope_len, hd, c.rope_theta, dev)
     cos = cos_t[q_pos][:, :, None, :]  # [B, S, 1, hd/2]
     sin = sin_t[q_pos][:, :, None, :]
-    pos_dev = torch.as_tensor(pos, dtype=torch.int32, device=dev) if s == 1 else None
+    pos_dev = torch.as_tensor(pos, dtype=torch.int32, device=dev) if s == 1 or window_kernel else None
+    if paged:
+        table_dev = torch.as_tensor(table, dtype=torch.int32, device=dev)
+        targets = _page_targets(table, pos, s, page, write_mask, dev)
 
     lw = weights.layers
     for l in range(c.n_layers):
@@ -327,20 +386,36 @@ def qwen3_forward(
             k = rms_norm(k, lw.k_norm[l], eps)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        if s == 1 and mode == "fast":
+        pool_kw = dict(k_scale_pool=ks_all, v_scale_pool=vs_all)
+        if s == 1 and mode == "fast" and paged:
+            # The reference rounds the paged kernels' f32 output to the stream's dtype.
+            att = paged_decode(q[:, 0], k[:, 0], v[:, 0], cache.k, cache.v, table_dev, pos_dev, l, **pool_kw).to(cd)
+        elif s == 1 and mode == "fast":
             att = flash_decode(
                 q[:, 0], k[:, 0], v[:, 0], cache.k, cache.v, pos_dev, l,
                 k_scale_all=ks_all, v_scale_all=vs_all,
             )
         elif prefill_kernel:
             att = causal_prefill_attention(q.to(bf16), k.to(bf16), v.to(bf16))
+        elif window_kernel:
+            att = paged_window_attention(q, k, v, cache.k, cache.v, table_dev, pos_dev, l, **pool_kw,
+                                         fresh=fresh_prefill).to(cd)
+        elif paged:
+            att = gqa_attention_split_paged(
+                q.to(cd), cache.k[l], cache.v[l], table_dev, k.to(cd), v.to(cd), pos,
+                k_scale_pool=None if ks_all is None else ks_all[l],
+                v_scale_pool=None if vs_all is None else vs_all[l],
+            )
         else:
             att = gqa_attention_split(
                 q.to(cd), cache.k[l], cache.v[l], k.to(cd), v.to(cd), pos,
                 k_scale_cache=None if ks_all is None else ks_all[l],
                 v_scale_cache=None if vs_all is None else vs_all[l],
             )
-        _write_rows(cache, l, k, v, pos)
+        if paged:
+            _write_pages(cache, l, k, v, targets)
+        else:
+            _write_rows(cache, l, k, v, pos, write_mask)
         att = att.reshape(b, s, ah)
         if fused:
             x = qmatmul_w8a16(att, lw.wo, l, residual=x).to(bf16)

@@ -16,6 +16,8 @@ LAUNCHES: dict[str, int] = {
     "dequant_w8_stacked": 0,
     "qmatmul_w8a8_rows": 0,
     "causal_prefill_attention": 0,
+    "paged_decode": 0,
+    "paged_window_partials": 0,
 }
 
 

@@ -21,7 +21,10 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("qmatmul_w8a16", "flash_decode", "qmatmul_rows", "dequant", "qmatmul_a8", "prefill_attention")
+SOURCES = (
+    "qmatmul_w8a16", "flash_decode", "qmatmul_rows", "dequant", "qmatmul_a8", "prefill_attention",
+    "paged_attention",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

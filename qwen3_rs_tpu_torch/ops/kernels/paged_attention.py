@@ -1,0 +1,310 @@
+"""GQA attention over the serving page pool: the Hopper kernels and their
+plain versions.
+
+The pool is stacked over layers, ``[L, P, n_kv, page, hd]``; cache row t of
+request b is row ``t % page`` of page ``page_table[b, t // page]``, and only
+rows ``t < pos[b]`` are valid.  An INT8 pool passes per-row scales
+``[L, P, n_kv, page]``: the K scale multiplies the score, the V scale the
+probability.
+
+* ``paged_decode``: the S = 1 attention of one layer over rows < pos plus the
+  step's own key and value, which are not cached yet.  It replaces the
+  reference package's ``paged_gqa_decode_stacked``.
+* ``paged_window_partials``: for a window of S query rows, the online-softmax
+  partials (m, l, acc) of the cache part only.  It replaces the partials
+  kernel of the reference package's ``paged_gqa_window_stacked``.
+  ``paged_window_attention`` merges them with the causal attention inside
+  the window in plain PyTorch, as the reference package merges them in XLA
+  outside its kernel.
+
+Both kernels are in ``csrc/paged_attention.cu`` and share their first pass.
+For a CPU tensor a wrapper runs its plain PyTorch version; for a CUDA tensor
+it launches its kernel or raises.  Unlike the Pallas kernels they take any
+page size (the JAX gate asks for multiples of 128).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..attention import _merge_window, gather_pages
+from . import LAUNCHES, build
+
+HEAD_DIM = 128  # the kernels' head_dim
+CHUNK = 128  # cache rows per block of the kernels' first pass
+MAX_WINDOW_ROWS = 128  # the reference's bound on S·kv_mul for the window kernel
+_CACHE_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def window_supported(s: int, kv_mul: int) -> bool:
+    """The reference package's gate for its window kernel
+    (``paged_window_supported``): S > 1 and S·kv_mul ≤ 128."""
+    return s > 1 and s * kv_mul <= MAX_WINDOW_ROWS
+
+
+def _cache_scores(q_rows, k_pool, v_pool, page_table, pos, layer, k_scale_pool, v_scale_pool):
+    """Scores of q_rows [B, n_kv, R, hd] (pre-scaled) over each request's
+    valid rows, with V: (scores [B, n_kv, R, T] masked to -inf at t ≥ pos,
+    V [B, n_kv, T, hd] with invalid rows zeroed, V scales or None)."""
+    page = k_pool.shape[3]
+    pos_l = pos.to(device="cpu", dtype=torch.int64)
+    n_pages = -(-int(pos_l.max()) // page)
+    table = page_table.to(k_pool.device)
+
+    def live(pool):  # the pages below the largest position, every request's
+        return gather_pages(pool[layer], table, 0, n_pages)
+
+    kc, vc = live(k_pool).float(), live(v_pool).float()
+    sc = torch.einsum("bnrh,bnth->bnrt", q_rows, kc)
+    if k_scale_pool is not None:
+        sc = sc * live(k_scale_pool)[:, :, None, :]
+    t = kc.shape[2]
+    valid = (torch.arange(t)[None, :] < pos_l[:, None]).to(q_rows.device)  # [B, T]
+    sc = sc.masked_fill(~valid[:, None, None, :], float("-inf"))
+    vc = vc.masked_fill(~valid[:, None, :, None], 0.0)  # rows >= pos take no part
+    vs = None if v_scale_pool is None else live(v_scale_pool)
+    return sc, vc, vs
+
+
+def paged_decode_plain(
+    q: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,
+    pos: torch.Tensor,
+    layer: int,
+    *,
+    k_scale_pool: torch.Tensor | None = None,
+    v_scale_pool: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch version: one softmax over [self, cache rows < pos]."""
+    b, n_heads, hd = q.shape
+    n_kv = k_pool.shape[2]
+    kv_mul = n_heads // n_kv
+    qs = (q.float() * (1.0 / hd**0.5)).reshape(b, n_kv, kv_mul, hd)
+    s_self = torch.einsum("bnmh,bnh->bnm", qs, k_new.float())[..., None]
+    sc, vc, vs = _cache_scores(qs, k_pool, v_pool, page_table, pos, layer, k_scale_pool, v_scale_pool)
+    scores = torch.cat([s_self, sc], dim=-1)
+    m = scores.amax(dim=-1, keepdim=True)
+    e = torch.exp(scores - m)
+    denom = e.sum(dim=-1, keepdim=True)
+    pc = e[..., 1:]
+    if vs is not None:
+        pc = pc * vs[:, :, None, :]
+    out = e[..., :1] * v_new.float()[:, :, None, :] + torch.einsum("bnmt,bnth->bnmh", pc, vc)
+    return (out / denom).reshape(b, n_heads, hd)
+
+
+def _window_rows(q: torch.Tensor, n_kv: int) -> torch.Tensor:
+    """q [B, S, n_heads, hd] → the kernel's rows [B, n_kv, R = (mul, s), hd]
+    f32, the row order of the reference (``paged_attention.py:465-468``)."""
+    b, s, n_heads, hd = q.shape
+    qf = q.float().reshape(b, s, n_kv, n_heads // n_kv, hd)
+    return qf.permute(0, 2, 3, 1, 4).reshape(b, n_kv, (n_heads // n_kv) * s, hd)
+
+
+def paged_window_partials_plain(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,
+    pos: torch.Tensor,
+    layer: int,
+    *,
+    k_scale_pool: torch.Tensor | None = None,
+    v_scale_pool: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version: one softmax over the cache rows < pos →
+    (m, l [B, n_kv, R], acc [B, n_kv, R, hd]) f32; m = -inf, l = 0 and acc = 0
+    where pos is 0."""
+    hd = q.shape[-1]
+    rows = _window_rows(q, k_pool.shape[2]) * (1.0 / hd**0.5)
+    sc, vc, vs = _cache_scores(rows, k_pool, v_pool, page_table, pos, layer, k_scale_pool, v_scale_pool)
+    m = sc.amax(dim=-1) if sc.shape[-1] else torch.full(rows.shape[:3], float("-inf"), device=rows.device)
+    finite = torch.isfinite(m)[..., None]
+    p = torch.where(finite, torch.exp(sc - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    if vs is not None:
+        p = p * vs[:, :, None, :]
+    return m, l, torch.einsum("bnrt,bnth->bnrh", p, vc)
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = build.load("paged_attention")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.paged_decode.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, p, p, p, p]
+    lib.paged_decode.restype = ctypes.c_int
+    lib.paged_window_partials.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, f, p, p, p, p, p, p]
+    lib.paged_window_partials.restype = ctypes.c_int
+    return lib
+
+
+def _check_pool(name, q, k_pool, v_pool, page_table, pos, layer, k_scale_pool, v_scale_pool):
+    """Device, type, shape and contiguity checks shared by both kernels."""
+
+    def need(cond: bool, msg: str) -> None:
+        if not cond:
+            raise ValueError(f"{name}: {msg}")
+
+    need(q.device.type == "cuda", f"tensors on {q.device} are neither CPU nor CUDA")
+    n_layers, _, n_kv, page, hd = k_pool.shape
+    need(hd == HEAD_DIM and q.shape[-1] == hd, f"head_dim {hd} (the kernel takes {HEAD_DIM})")
+    need(q.shape[-2] % n_kv == 0 and q.shape[-2] // n_kv in (1, 2, 4, 8),
+         f"{q.shape[-2]} query heads over {n_kv} kv heads: kv_mul not in (1, 2, 4, 8)")
+    need(0 <= layer < n_layers, f"layer {layer} out of range")
+    need(v_pool.shape == k_pool.shape and v_pool.dtype == k_pool.dtype, "k_pool and v_pool differ")
+    need(k_pool.dtype in _CACHE_TYPES, f"pool dtype {k_pool.dtype} is not f32/bf16/int8")
+    need(k_pool.is_contiguous() and v_pool.is_contiguous(), "the pool must be contiguous")
+    quant = k_pool.dtype == torch.int8
+    need(quant == (k_scale_pool is not None) == (v_scale_pool is not None), "an INT8 pool needs both scales")
+    tensors = [k_pool, v_pool, page_table, pos]
+    if quant:
+        for s in (k_scale_pool, v_scale_pool):
+            need(s.shape == k_pool.shape[:-1] and s.dtype == torch.float32 and s.is_contiguous(),
+                 "scales must be contiguous f32 [L, P, n_kv, page]")
+        tensors += [k_scale_pool, v_scale_pool]
+    b = q.shape[0]
+    need(page_table.dtype == torch.int32 and page_table.dim() == 2 and page_table.shape[0] == b
+         and page_table.is_contiguous(), "page_table must be contiguous int32 [B, max_pages]")
+    need(pos.dtype == torch.int32 and pos.shape == (b,), "pos must be int32 [B]")
+    need(all(t.device == q.device for t in tensors), "all tensors must be on one device")
+    lp = k_pool[0].numel()  # elements of one layer's pool
+    ptrs = [k_pool.data_ptr() + layer * lp * k_pool.element_size(),
+            v_pool.data_ptr() + layer * lp * v_pool.element_size()]
+    ptrs += ([k_scale_pool.data_ptr() + layer * (lp // hd) * 4, v_scale_pool.data_ptr() + layer * (lp // hd) * 4]
+             if quant else [None, None])
+    return ptrs, n_kv, page, page_table.shape[1]
+
+
+def paged_decode(
+    q: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,
+    pos: torch.Tensor,
+    layer: int,
+    *,
+    k_scale_pool: torch.Tensor | None = None,
+    v_scale_pool: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Decode attention of layer ``layer`` over the pool → ``[B, n_heads, hd]`` f32.
+
+    q ``[B, n_heads, hd]``, k_new/v_new ``[B, n_kv, hd]``, pools
+    ``[L, P, n_kv, page, hd]``, page_table ``[B, max_pages]``, pos ``[B]``
+    (on the card: int32 tensors on the same device, pos at most
+    max_pages·page).
+    """
+    if q.device.type == "cpu":
+        return paged_decode_plain(q, k_new, v_new, k_pool, v_pool, page_table, pos, layer,
+                                  k_scale_pool=k_scale_pool, v_scale_pool=v_scale_pool)
+    (k, v, ks, vs), n_kv, page, max_pages = _check_pool(
+        "paged_decode", q, k_pool, v_pool, page_table, pos, layer, k_scale_pool, v_scale_pool)
+    b, n_heads, hd = q.shape
+    kv_mul = n_heads // n_kv
+    qf = q.float().contiguous()
+    kn = k_new.float().contiguous()
+    vn = v_new.float().contiguous()
+    if kn.shape != (b, n_kv, hd) or vn.shape != kn.shape:
+        raise ValueError("paged_decode: k_new/v_new must be [B, n_kv, hd]")
+    n_chunks = -(-max_pages * page // CHUNK)
+    slots = b * n_kv * n_chunks * kv_mul
+    part_ml = torch.empty(slots * 2, dtype=torch.float32, device=q.device)
+    part_acc = torch.empty(slots * hd, dtype=torch.float32, device=q.device)
+    out = torch.empty(b, n_heads, hd, dtype=torch.float32, device=q.device)
+    err = _lib().paged_decode(
+        qf.data_ptr(), kn.data_ptr(), vn.data_ptr(), k, v, ks, vs,
+        page_table.data_ptr(), pos.data_ptr(), _CACHE_TYPES[k_pool.dtype],
+        b, n_kv, kv_mul, page, max_pages, 1.0 / hd**0.5,
+        part_ml.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    build.check(err, "paged_decode")
+    LAUNCHES["paged_decode"] += 1
+    return out
+
+
+def paged_window_partials(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,
+    pos: torch.Tensor,
+    layer: int,
+    *,
+    k_scale_pool: torch.Tensor | None = None,
+    v_scale_pool: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Cache-part partials of a window q ``[B, S, n_heads, hd]`` over layer
+    ``layer`` of the pool → (m, l ``[B, n_kv, R]``, acc ``[B, n_kv, R, hd]``)
+    f32, with R = S·kv_mul rows in the order (mul, s)."""
+    if q.device.type == "cpu":
+        return paged_window_partials_plain(q, k_pool, v_pool, page_table, pos, layer,
+                                           k_scale_pool=k_scale_pool, v_scale_pool=v_scale_pool)
+    (k, v, ks, vs), n_kv, page, max_pages = _check_pool(
+        "paged_window_partials", q, k_pool, v_pool, page_table, pos, layer, k_scale_pool, v_scale_pool)
+    b, s, n_heads, hd = q.shape
+    r = s * (n_heads // n_kv)
+    if r > MAX_WINDOW_ROWS:
+        raise ValueError(f"paged_window_partials: S·kv_mul = {r} > {MAX_WINDOW_ROWS}")
+    rows = _window_rows(q, n_kv).contiguous()
+    n_chunks = -(-max_pages * page // CHUNK)
+    slots = b * n_kv * n_chunks * r
+    part_ml = torch.empty(slots * 2, dtype=torch.float32, device=q.device)
+    part_acc = torch.empty(slots * hd, dtype=torch.float32, device=q.device)
+    m = torch.empty(b, n_kv, r, dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    acc = torch.empty(b, n_kv, r, hd, dtype=torch.float32, device=q.device)
+    err = _lib().paged_window_partials(
+        rows.data_ptr(), k, v, ks, vs, page_table.data_ptr(), pos.data_ptr(),
+        _CACHE_TYPES[k_pool.dtype], b, n_kv, r, page, max_pages, 1.0 / hd**0.5,
+        part_ml.data_ptr(), part_acc.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    build.check(err, "paged_window_partials")
+    LAUNCHES["paged_window_partials"] += 1
+    return m, l, acc
+
+
+def paged_window_attention(
+    q: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,
+    pos: torch.Tensor,
+    layer: int,
+    *,
+    k_scale_pool: torch.Tensor | None = None,
+    v_scale_pool: torch.Tensor | None = None,
+    fresh: bool = False,
+) -> torch.Tensor:
+    """Window attention of layer ``layer``: q ``[B, S, n_heads, hd]`` at
+    positions pos[b] + i over the pool's rows < pos plus the window's own
+    K/V (``[B, S, n_kv, hd]``, causal) → ``[B, S, n_heads, hd]`` f32.  The
+    cache part is ``paged_window_partials``; the merge is plain PyTorch.
+    A ``fresh`` window (every pos 0) has an empty cache part, so no kernel
+    runs: its partials are the ones the kernel gives at pos 0."""
+    b, s, n_heads, hd = q.shape
+    n_kv = k_pool.shape[2]
+    kv_mul = n_heads // n_kv
+    if fresh:
+        m = torch.full((b, n_kv, kv_mul * s), float("-inf"), device=q.device)
+        l, acc = torch.zeros_like(m), torch.zeros(b, n_kv, kv_mul * s, hd, device=q.device)
+    else:
+        m, l, acc = paged_window_partials(q, k_pool, v_pool, page_table, pos, layer,
+                                          k_scale_pool=k_scale_pool, v_scale_pool=v_scale_pool)
+    qf = q.float().reshape(b, s, n_kv, kv_mul, hd)
+    out = _merge_window(  # [B, KV, M, S, hd]
+        qf, m.reshape(b, n_kv, kv_mul, s, 1), l.reshape(b, n_kv, kv_mul, s, 1),
+        acc.reshape(b, n_kv, kv_mul, s, hd), k_new, v_new, 0,
+    )
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, n_heads, hd)

@@ -1,0 +1,636 @@
+"""Continuous batching over fixed decode slots.
+
+The port of the reference package's ``serving/scheduler.py`` with host
+sampling.  The engine decodes a fixed-width batch of request *slots* every
+step and refills slots as requests finish:
+
+* decode: one step over all ``n_slots`` (per-slot positions; empty and
+  mid-prefill slots are masked out of the cache writes and their logits
+  ignored);
+* prefill, dense layout: a new request runs through a batch-1 scratch cache
+  (bucketed prompt length) and its K/V window is copied into the shared
+  cache at its slot;
+* prefill, paged layout: queued requests that share a prompt bucket admit as
+  a **group**, one batched prefill writing every request's K/V straight into
+  its own pages; the group pads to a power of two;
+* sampling: per-request host samplers (the reference's xorshift streams,
+  per-request seeds).
+
+PyTorch runs eagerly and compiles nothing, but the bucket ladder and the
+group padding stay: they decide each admission's page reservation and which
+requests admit together, so the same queue admits in the same groups as in
+the reference package.
+
+Scheduling is FCFS; each ``step()`` first admits queued requests into free
+slots (bounded by ``max_admissions_per_step``), then advances every active
+slot by one decode step.  Device sampling with ``decode_chunk_steps``,
+speculative decoding (``spec_k``) and tensor-parallel meshes are not ported
+yet and raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+import time
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..checkpoint import load_checkpoint
+from ..configuration import ModelConfig
+from ..device import resolve_device
+from ..inference.engine import not_ported
+from ..models.qwen3 import Qwen3Weights, cast_weight_scales, init_kv_cache, qwen3_forward, weights_to
+from ..ops.kernels import build
+from ..ops.sampling import Sampler
+from .paged_cache import PageAllocator, init_paged_cache
+
+
+class RequestState(enum.Enum):
+    QUEUED = "queued"
+    ACTIVE = "active"
+    DONE = "done"
+
+
+@dataclasses.dataclass
+class Request:
+    request_id: int
+    prompt_tokens: list[int]
+    max_new_tokens: int = 256
+    temperature: float = 0.0
+    topp: float = 0.9
+    seed: int = 0
+    eos_token_ids: tuple[int, ...] = ()
+    # Filled by the scheduler:
+    generated: list[int] = dataclasses.field(default_factory=list)
+    state: RequestState = RequestState.QUEUED
+    slot: Optional[int] = None
+    submit_time: float = 0.0
+    first_token_time: Optional[float] = None
+    finish_time: Optional[float] = None
+    finish_reason: Optional[str] = None
+    _sampler: Optional[Sampler] = None
+    _next_pos: int = 0
+
+    @property
+    def ttft(self) -> Optional[float]:
+        if self.first_token_time is None:
+            return None
+        return self.first_token_time - self.submit_time
+
+
+class ContinuousBatchingEngine:
+    """Slot-based continuous batching over one shared KV cache (dense slots
+    or a page pool), on ``device`` (the card unless the caller asks for the
+    CPU)."""
+
+    def __init__(
+        self,
+        checkpoint: str | Path | None = None,
+        *,
+        config: ModelConfig | None = None,
+        weights: Qwen3Weights | None = None,
+        n_slots: int = 8,
+        mode: str = "fast",
+        cache_dtype=torch.bfloat16,
+        prefill_buckets: tuple[int, ...] = (32, 128, 512, 2048),
+        sampling: str = "host",
+        decode_chunk_steps: int | None = None,
+        kv_layout: str = "dense",
+        page_size: int = 128,
+        n_pages: int | None = None,
+        max_admissions_per_step: int | None = None,
+        mesh=None,
+        spec_k: int = 0,
+        prefix_cache: bool = False,
+        prefill_chunk: int | None = None,
+        device=None,
+    ):
+        if sampling == "device" or decode_chunk_steps is not None:
+            raise not_ported(
+                "device sampling (sampling='device', decode_chunk_steps) in serving",
+                "queue 1, item 2: device sampling and decode_chunk; use sampling='host'",
+            )
+        if sampling != "host":
+            raise ValueError(f"unknown sampling: {sampling!r}")
+        if spec_k > 0:
+            raise not_ported("speculative serving (spec_k)", "queue 1, item 6: speculative decoding")
+        if mesh is not None:
+            raise not_ported("tensor-parallel serving (mesh)", "queue 1, item 10: parallel layouts")
+        self.device = resolve_device(device)
+        if checkpoint is not None:
+            config, weights = load_checkpoint(checkpoint)
+        if config is None or weights is None:
+            raise ValueError("ContinuousBatchingEngine needs a checkpoint, or config and weights")
+        self.config = config.validate()
+        weights = weights_to(weights, self.device)
+        if mode == "fast":
+            weights = cast_weight_scales(weights)
+        self.weights = weights
+        self.n_slots = n_slots
+        self.mode = mode
+        # prefix_cache: requests sharing a prompt prefix adopt the pages that
+        # cover it; their admission prefill runs only the prompt suffix, at
+        # pos_start = the matched rows.
+        self.prefix_cache = prefix_cache
+        if prefix_cache and kv_layout != "paged":
+            raise ValueError('prefix caching requires kv_layout="paged"')
+        # prefill_chunk: a long prompt prefills ``prefill_chunk`` rows per
+        # step through the continued prefill, interleaved with the decode
+        # steps of the active slots, which bounds their inter-token stall.
+        self.prefill_chunk = prefill_chunk
+        if prefill_chunk is not None:
+            if kv_layout != "paged":
+                raise ValueError('chunked prefill requires kv_layout="paged"')
+            if prefill_chunk <= 0:
+                raise ValueError("prefill_chunk must be positive")
+            self.prefill_chunk = min(prefill_chunk, config.seq_len)
+        # None = admit into every free slot each step (TTFT first); a small
+        # value bounds how long active streams stall behind prefills.
+        self.max_admissions_per_step = max_admissions_per_step
+        self.prefill_buckets = tuple(b for b in prefill_buckets if b <= config.seq_len) or (config.seq_len,)
+        if self.prefill_chunk is not None:
+            self.prefill_buckets = tuple(sorted(set(self.prefill_buckets) | {self.prefill_chunk}))
+
+        # "dense" reserves seq_len rows per slot; "paged" backs all slots with
+        # a shared page pool and per-slot page tables.
+        self.kv_layout = kv_layout
+        if kv_layout == "paged":
+            max_pages_per_slot = -(-self.config.seq_len // page_size)
+            if n_pages is None:
+                # Default pool: half of the dense footprint, plus the null page.
+                n_pages = 1 + max(2, (n_slots * max_pages_per_slot) // 2)
+            self.cache = init_paged_cache(self.config, n_pages, page_size, dtype=cache_dtype, device=self.device)
+            self.allocator = PageAllocator(n_pages, n_slots, max_pages_per_slot)
+            self.page_size = page_size
+            self._scratch_cache = None
+        elif kv_layout == "dense":
+            if cache_dtype in ("int8", torch.int8):
+                raise ValueError(
+                    'INT8 KV cache requires kv_layout="paged" (the dense layout has no per-row scale storage)'
+                )
+            self.cache = init_kv_cache(self.config, n_slots, dtype=cache_dtype, device=self.device)
+            self._scratch_cache = init_kv_cache(self.config, 1, dtype=cache_dtype, device=self.device)
+            self.allocator = None
+        else:
+            raise ValueError(f"unknown kv_layout: {kv_layout!r}")
+
+        # Host-side slot bookkeeping.
+        self.slot_request: list[Optional[Request]] = [None] * n_slots
+        self.slot_pos = np.zeros(n_slots, np.int32)  # next write position
+        self.slot_token = np.zeros(n_slots, np.int32)  # last sampled token
+        self.queue: list[Request] = []
+        self.completed: list[Request] = []
+        self._decode_steps = 0
+        self._decode_tokens = 0
+        self._prefix_hits = 0
+        self._prefix_rows_reused = 0
+        # Chunked prefill: slot → {"req", "done", "plen"} for requests whose
+        # prompt is mid-prefill.  A partial slot holds pages and its slot but
+        # stays out of ``slot_request`` (so out of every decode step's write
+        # mask) until its final chunk samples the first token.
+        self._partials: dict[int, dict] = {}
+        self._partial_waves = 0
+
+    # ------------------------------------------------------- step functions
+    def _forward(self, tokens, pos, **kw):
+        return qwen3_forward(self.config, self.weights, tokens, self.cache, pos, mode=self.mode, **kw)
+
+    def _decode(self, active):
+        """One decode step over every slot; inactive slots write nothing."""
+        tables = {"page_table": self.allocator.tables} if self.allocator is not None else {}
+        logits, self.cache = self._forward(self.slot_token[:, None], self.slot_pos, write_mask=active, **tables)
+        return logits
+
+    def _prefill_paged(self, tokens, out_idx, tables, pos=None):
+        """Batched prefill straight into the pool.  ``pos`` None: a fresh
+        window at position 0; otherwise a continued window (prefix-cache hits
+        and chunked-prefill waves) that reads the pages below ``pos``."""
+        fresh = pos is None
+        if fresh:
+            pos = np.zeros(tokens.shape[0], np.int64)
+        logits, self.cache = self._forward(tokens, pos, out_idx=out_idx, page_table=tables, fresh_prefill=fresh)
+        return logits
+
+    # ------------------------------------------------------------------ api
+    def warmup(self) -> None:
+        """Build the kernels and run one prefill per warmed bucket and one
+        decode step, so that the first requests' TTFT does not include them.
+
+        Safe on live state: every write goes to the null page (zeroed page
+        tables) or the dense scratch cache, and the decode step runs with
+        every slot masked."""
+        if self.device.type == "cuda":
+            build.build()
+        for b in self._warm_buckets():
+            s_pad = min(b, self.config.seq_len)
+            tokens = np.zeros((1, s_pad), np.int64)
+            if self.kv_layout == "paged":
+                tables = np.zeros((1, self.allocator.max_pages_per_slot), np.int32)
+                self._prefill_paged(tokens, [0], tables)
+            else:
+                _, self._scratch_cache = qwen3_forward(
+                    self.config, self.weights, tokens, self._scratch_cache, [0],
+                    mode=self.mode, out_idx=[0], fresh_prefill=True,
+                )
+        self._decode(np.zeros(self.n_slots, bool))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def submit(self, request: Request) -> None:
+        request.submit_time = time.perf_counter()
+        request.state = RequestState.QUEUED
+        request._sampler = Sampler(request.temperature, request.topp, request.seed)
+        self.queue.append(request)
+
+    @property
+    def active_count(self) -> int:
+        return sum(r is not None for r in self.slot_request)
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self.queue) or self.active_count > 0 or bool(self._partials)
+
+    def _ladder(self) -> list[int]:
+        """The widths above the largest declared bucket (last bucket × 2^k,
+        capped at seq_len), for both ``_bucket`` and ``_warm_buckets``."""
+        out = []
+        b = self.prefill_buckets[-1]
+        while b < self.config.seq_len:
+            b = min(b * 2, self.config.seq_len)
+            out.append(b)
+        return out
+
+    def _warm_buckets(self) -> list[int]:
+        """The declared buckets plus the ladder rungs up to 4096 rows (the
+        reference's default warm set): the admission snaps a prefix-cache
+        hit's window to one of these."""
+        cap = min(self.config.seq_len, 4096)
+        warm = list(self.prefill_buckets)
+        warm += [b for b in self._ladder() if b <= max(cap, warm[-1])]
+        return sorted(set(warm))
+
+    def _bucket(self, n: int) -> int:
+        for b in self.prefill_buckets:
+            if n <= b:
+                return b
+        for b in self._ladder():
+            if n <= b:
+                return b
+        return self.config.seq_len
+
+    def _free_slot(self) -> Optional[int]:
+        for i, r in enumerate(self.slot_request):
+            if r is None:
+                return i
+        return None
+
+    # ------------------------------------------------------------ scheduling
+    def step(self) -> list[tuple[Request, int]]:
+        """One scheduler iteration.  Returns the (request, token) pairs emitted."""
+        emitted: list[tuple[Request, int]] = []
+        admitted = 0
+        if self.prefill_chunk is not None:
+            # Advance every mid-prefill slot by one chunk (and start new
+            # partials from the queue head) before the group admission, so
+            # that short prompts still admit into the remaining slots.  New
+            # partial starts count against max_admissions_per_step.
+            admitted += self._advance_partials(emitted, budget=self.max_admissions_per_step)
+        while True:
+            budget = None if self.max_admissions_per_step is None else self.max_admissions_per_step - admitted
+            if budget is not None and budget <= 0:
+                break
+            if self.kv_layout == "paged":
+                k = self._admit_group(emitted, budget)
+            else:
+                k = 1 if self._admit_one(emitted) else 0
+            if k == 0:
+                break
+            admitted += k
+        if self.active_count:
+            self._decode_all(emitted)
+        return emitted
+
+    def run(self) -> list[Request]:
+        """Drain the queue and the slots; returns the completed requests."""
+        while self.has_work:
+            self.step()
+        return self.completed
+
+    def _admit_one(self, emitted) -> bool:
+        """Admit at most one queued request (dense layout).  True if one was
+        admitted."""
+        slot = self._free_slot()
+        if slot is None or not self.queue:
+            return False
+        req = self.queue.pop(0)
+        prompt = req.prompt_tokens[: self.config.seq_len - 1]
+        s_real = max(len(prompt), 1)
+        s_pad = max(s_real, min(self._bucket(s_real), self.config.seq_len))
+        padded = np.zeros((1, s_pad), np.int64)
+        padded[0, :s_real] = prompt
+        logits, self._scratch_cache = qwen3_forward(
+            self.config, self.weights, padded, self._scratch_cache, [0],
+            mode=self.mode, out_idx=[s_real - 1], fresh_prefill=True,
+        )
+        # Copy the scratch window into the slot (padding rows included: they
+        # sit past the request's position until decode overwrites them).
+        for big, small in zip(self.cache, self._scratch_cache):
+            big[:, slot, :, :s_pad] = small[:, 0, :, :s_pad]
+        first = req._sampler.sample(logits[0].float().cpu().numpy())
+        self._activate(req, slot, s_real, first, emitted)
+        return True
+
+    def _pad_group(self, k: int) -> int:
+        """A group size padded to a power of two (capped at n_slots)."""
+        p = 1
+        while p < k:
+            p *= 2
+        return min(p, self.n_slots)
+
+    def _admit_group(self, emitted, budget: int | None) -> int:
+        """Admit a group of queued requests with one batched prefill (paged
+        layout).  The group is the longest FCFS prefix that shares a prompt
+        bucket and a fresh/continued mode, fits in the free slots and pages,
+        and respects ``budget``; the step() loop admits the next group at
+        once.  Returns the number admitted."""
+        free = [i for i, r in enumerate(self.slot_request) if r is None and i not in self._partials]
+        if not free or not self.queue:
+            return 0
+        limit = len(free) if budget is None else min(len(free), budget)
+        # (request, prompt_len, hit_rows, hit_pages): hit_* nonzero only with
+        # prefix_cache on and an indexed prefix match.
+        picks: list[tuple[Request, int, int, list[int]]] = []
+        bucket = 0
+        cont_group = False
+        avail = self.allocator.free_pages
+        for req in self.queue:
+            if len(picks) == limit:
+                break
+            prompt_len = min(max(len(req.prompt_tokens), 1), self.config.seq_len - 1)
+            if self.prefix_cache:
+                hpages, hrows = self.allocator.match_prefix(req.prompt_tokens[:prompt_len], self.page_size)
+            else:
+                hpages, hrows = [], 0
+            # The window holds only the prompt suffix on a hit; the bucket
+            # follows the suffix length.
+            suffix = prompt_len - hrows
+            if self.prefill_chunk is not None and suffix > self.prefill_chunk:
+                break  # chunked prefill takes it (FCFS: end the group)
+            # Cap the padded window so that padding rows stay inside the
+            # context after a prefix hit, snapping to a warmed width that
+            # covers the suffix under the cap.
+            allowed = self.config.seq_len - hrows
+            b_width = self._bucket(suffix)
+            if b_width > allowed:
+                fits = [w for w in self._warm_buckets() if suffix <= w <= allowed]
+                b_width = min(fits) if fits else allowed
+            s_pad = max(suffix, min(b_width, allowed))
+            cont = hrows > 0
+            if not picks:
+                bucket, cont_group = s_pad, cont
+            elif s_pad != bucket or cont != cont_group:
+                break
+            # Reserve the whole request's pages up front; too few free pages
+            # leave it queued (backpressure; FCFS never skips past it).
+            # Padding rows write up to hrows + s_pad, decode rows up to
+            # hrows + suffix + max_new: the two overlap, so take the max.
+            worst_rows = min(self.config.seq_len, hrows + max(s_pad, suffix + req.max_new_tokens + 1))
+            need = -(-worst_rows // self.page_size)
+            if need > avail:
+                break
+            avail -= need
+            picks.append((req, prompt_len, hrows, hpages))
+        if not picks:
+            if self.active_count == 0 and not self._partials:
+                head = self.queue[0]
+                # Leave the head to _advance_partials only when it would take
+                # it (it routes by the prefix-adjusted suffix).
+                if self.prefill_chunk is not None:
+                    plen = min(max(len(head.prompt_tokens), 1), self.config.seq_len - 1)
+                    head_hrows = (
+                        self.allocator.match_prefix(head.prompt_tokens[:plen], self.page_size)[1]
+                        if self.prefix_cache else 0
+                    )
+                    if plen - head_hrows > self.prefill_chunk:
+                        return 0
+                raise RuntimeError(
+                    f"request {head.request_id} needs more KV pages than the pool holds "
+                    f"({self.allocator.n_pages}); raise n_pages or lower max_new_tokens"
+                )
+            return 0  # wait for active requests to release pages
+
+        k = len(picks)
+        k_pad = self._pad_group(k)
+        del self.queue[:k]
+        tokens = np.zeros((k_pad, bucket), np.int64)
+        out_idx = np.zeros(k_pad, np.int64)
+        pos0 = np.zeros(k_pad, np.int64)
+        tables = np.zeros((k_pad, self.allocator.max_pages_per_slot), np.int32)
+        slots: list[int] = []
+        # Pin every pick's matched pages first, so that an earlier pick's
+        # allocation cannot evict a later pick's still-cached match.
+        for i, (_, _, _, hpages) in enumerate(picks):
+            if hpages:
+                self.allocator.adopt(free[i], hpages)
+        for i, (req, prompt_len, hrows, _) in enumerate(picks):
+            slot = free[i]
+            suffix = prompt_len - hrows
+            worst_rows = min(self.config.seq_len, hrows + max(bucket, suffix + req.max_new_tokens + 1))
+            self.allocator.ensure_capacity(slot, worst_rows, self.page_size)
+            tokens[i, :suffix] = req.prompt_tokens[hrows:prompt_len]
+            out_idx[i] = suffix - 1
+            pos0[i] = hrows
+            tables[i] = self.allocator.tables[slot]
+            slots.append(slot)
+        if self.prefix_cache:
+            for i, (req, prompt_len, hrows, _) in enumerate(picks):
+                self.allocator.register_prefix(slots[i], req.prompt_tokens[:prompt_len], self.page_size)
+                if hrows:
+                    self._prefix_hits += 1
+                    self._prefix_rows_reused += hrows
+        # Padding rows (i >= k) keep zero tokens and all-null page tables:
+        # their K/V lands in the null page, which no request reads.
+        logits = self._prefill_paged(tokens, out_idx, tables, pos0 if cont_group else None)
+        logits_np = logits[:k].float().cpu().numpy()
+        for i, (req, prompt_len, _, _) in enumerate(picks):
+            self._occupy(req, slots[i], prompt_len)
+            self._first_token(req, req._sampler.sample(logits_np[i]), emitted)
+        return k
+
+    def _advance_partials(self, emitted, *, budget=None) -> int:
+        """Chunked prefill: start new partial prefills from the queue head and
+        advance every partial by one chunk.  Intermediate chunks only write
+        the cache; a partial's final chunk samples its first token.
+        ``budget`` caps the new starts.  Returns the number started."""
+        chunk = self.prefill_chunk
+        started = 0
+        while self.queue:
+            if budget is not None and started >= budget:
+                break
+            req = self.queue[0]
+            prompt_len = min(max(len(req.prompt_tokens), 1), self.config.seq_len - 1)
+            if self.prefix_cache:
+                hpages, hrows = self.allocator.match_prefix(req.prompt_tokens[:prompt_len], self.page_size)
+            else:
+                hpages, hrows = [], 0
+            if prompt_len - hrows <= chunk:
+                break  # one window: the group admission takes it
+            free = [i for i, r in enumerate(self.slot_request) if r is None and i not in self._partials]
+            if not free:
+                break
+            worst_rows = min(self.config.seq_len, prompt_len + req.max_new_tokens + 1)
+            need = -(-worst_rows // self.page_size)
+            if need > self.allocator.free_pages:
+                # Backpressure; if nothing holds pages, it never fits.
+                if self.active_count == 0 and not self._partials:
+                    raise RuntimeError(
+                        f"request {req.request_id} needs more KV pages than the pool holds "
+                        f"({self.allocator.n_pages}); raise n_pages or lower max_new_tokens"
+                    )
+                break
+            slot = free[0]
+            self.queue.pop(0)
+            if hpages:
+                self.allocator.adopt(slot, hpages)
+                self._prefix_hits += 1
+                self._prefix_rows_reused += hrows
+            self.allocator.ensure_capacity(slot, worst_rows, self.page_size)
+            self._partials[slot] = {"req": req, "done": hrows, "plen": prompt_len}
+            started += 1
+        if not self._partials:
+            return started
+        # One chunk per partial per step; intermediate chunks share one wave,
+        # final chunks group by their suffix bucket.
+        inter = [s for s, p in self._partials.items() if p["plen"] - p["done"] > chunk]
+        final = [s for s, p in self._partials.items() if p["plen"] - p["done"] <= chunk]
+        if inter:
+            self._partial_wave(sorted(inter), chunk, final=False, emitted=emitted)
+        by_bucket: dict[int, list[int]] = {}
+        for s in final:
+            rem = self._partials[s]["plen"] - self._partials[s]["done"]
+            b = max(rem, min(self._bucket(rem), self.config.seq_len))
+            by_bucket.setdefault(b, []).append(s)
+        for b, slots in sorted(by_bucket.items()):
+            self._partial_wave(sorted(slots), b, final=True, emitted=emitted)
+        return started
+
+    def _partial_wave(self, slots, win, *, final, emitted) -> None:
+        """One batched continued prefill over partial slots: ``win`` prompt
+        rows per slot from each slot's done-rows offset."""
+        k = len(slots)
+        k_pad = self._pad_group(k)
+        tokens = np.zeros((k_pad, win), np.int64)
+        out_idx = np.zeros(k_pad, np.int64)
+        pos0 = np.zeros(k_pad, np.int64)
+        tables = np.zeros((k_pad, self.allocator.max_pages_per_slot), np.int32)
+        for i, s in enumerate(slots):
+            p = self._partials[s]
+            n = min(win, p["plen"] - p["done"])
+            tokens[i, :n] = p["req"].prompt_tokens[p["done"] : p["done"] + n]
+            out_idx[i] = n - 1
+            pos0[i] = p["done"]
+            tables[i] = self.allocator.tables[s]
+        self._partial_waves += 1
+        logits = self._prefill_paged(tokens, out_idx, tables, pos0)
+        if not final:
+            for i, s in enumerate(slots):
+                self._partials[s]["done"] += int(out_idx[i]) + 1
+            return
+        picks = [(self._partials[s]["req"], self._partials[s]["plen"]) for s in slots]
+        for s in slots:
+            del self._partials[s]
+        logits_np = logits[:k].float().cpu().numpy()
+        for i, (req, plen) in enumerate(picks):
+            self._occupy(req, slots[i], plen)
+            self._first_token(req, req._sampler.sample(logits_np[i]), emitted)
+        if self.prefix_cache:
+            # Register only now that every prompt page is written: a partial
+            # registered at its start would let another admission adopt
+            # half-written pages.
+            for i, (req, plen) in enumerate(picks):
+                self.allocator.register_prefix(slots[i], req.prompt_tokens[:plen], self.page_size)
+
+    def _occupy(self, req: Request, slot: int, s_real: int) -> None:
+        """Bind an admitted request to its slot."""
+        req.state = RequestState.ACTIVE
+        req.slot = slot
+        req._next_pos = s_real
+        self.slot_request[slot] = req
+        self.slot_pos[slot] = s_real
+
+    def _first_token(self, req: Request, first: int, emitted) -> None:
+        req.first_token_time = time.perf_counter()
+        if req.slot is not None:
+            self.slot_token[req.slot] = first
+        self._emit(req, first, emitted)
+
+    def _activate(self, req: Request, slot: int, s_real: int, first: int, emitted) -> None:
+        self._occupy(req, slot, s_real)
+        self._first_token(req, first, emitted)
+
+    def _decode_all(self, emitted) -> None:
+        """One single-token step of every active slot."""
+        active = np.array([r is not None for r in self.slot_request])
+        logits_np = self._decode(active).float().cpu().numpy()
+        self._decode_steps += 1
+        for slot, req in enumerate(self.slot_request):
+            if req is None:
+                continue
+            self._decode_tokens += 1
+            self.slot_pos[slot] += 1
+            if self.slot_pos[slot] >= self.config.seq_len:
+                self._finish(req, "length")
+                continue
+            token = req._sampler.sample(logits_np[slot])
+            self.slot_token[slot] = token
+            self._emit(req, token, emitted)
+
+    def _emit(self, req: Request, token: int, emitted) -> None:
+        if token in req.eos_token_ids:
+            self._finish(req, "stop")
+            return
+        req.generated.append(token)
+        emitted.append((req, token))
+        if len(req.generated) >= req.max_new_tokens:
+            self._finish(req, "length")
+
+    def _finish(self, req: Request, reason: str) -> None:
+        req.state = RequestState.DONE
+        req.finish_time = time.perf_counter()
+        req.finish_reason = reason
+        if req.slot is not None:
+            if self.allocator is not None:
+                self.allocator.release(req.slot)
+            self.slot_request[req.slot] = None
+            self.slot_pos[req.slot] = 0
+            self.slot_token[req.slot] = 0
+            req.slot = None
+        self.completed.append(req)
+
+    # -------------------------------------------------------------- metrics
+    def stats(self) -> dict:
+        done = [r for r in self.completed if r.finish_time]
+        ttfts = sorted(r.ttft for r in done if r.ttft is not None)
+        out = {
+            "completed": len(done),
+            "decode_steps": self._decode_steps,
+            "decode_tokens": self._decode_tokens,
+            "p50_ttft": ttfts[len(ttfts) // 2] if ttfts else None,
+            "slot_utilization": (
+                self._decode_tokens / (self._decode_steps * self.n_slots) if self._decode_steps else 0.0
+            ),
+        }
+        if self.allocator is not None:
+            out["kv_pages_total"] = self.allocator.n_pages - 1
+            out["kv_pages_free"] = self.allocator.free_pages
+        if self.prefix_cache:
+            out["prefix_hits"] = self._prefix_hits
+            out["prefix_rows_reused"] = self._prefix_rows_reused
+            out["prefix_cached_pages"] = self.allocator.cached_pages
+        if self.prefill_chunk is not None:
+            out["prefill_waves"] = self._partial_waves
+        return out

@@ -140,3 +140,24 @@ def prefill_ops(config: ModelConfig, rows: int, cache_rows: int = 0) -> dict:
     }
     out["total"] = sum(out.values())
     return out
+
+
+def _kv_row_bytes(head_dim: int, elem_bytes: int) -> int:
+    """Bytes of one K (or V) row of one kv head: ``elem_bytes`` 4 = f32,
+    2 = bf16, 1 = INT8, which adds its f32 row scale."""
+    return head_dim * elem_bytes + (4 if elem_bytes == 1 else 0)
+
+
+def paged_pool_bytes(config: ModelConfig, n_pages: int, page_size: int, elem_bytes: int) -> int:
+    """Device bytes of a K/V page pool of ``n_pages`` pages of ``page_size``
+    rows, every layer."""
+    rows = config.n_layers * n_pages * config.n_kv_heads * page_size
+    return 2 * rows * _kv_row_bytes(config.head_dim, elem_bytes)
+
+
+def paged_read_bytes(pos, n_kv: int, head_dim: int, elem_bytes: int) -> int:
+    """K/V bytes a paged attention kernel must read for one layer: the rows
+    below each request's position, once each (with an INT8 pool's row
+    scales).  The least input of kernels #9 and #10; their query, output
+    and page-table bytes come on top."""
+    return 2 * sum(int(p) for p in pos) * n_kv * _kv_row_bytes(head_dim, elem_bytes)

@@ -16,6 +16,12 @@ from qwen3_rs_tpu_torch.inference.engine import Engine
 from qwen3_rs_tpu_torch.models.qwen3 import weights_to
 from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES
 from qwen3_rs_tpu_torch.ops.kernels.flash_attention import flash_decode, flash_decode_plain
+from qwen3_rs_tpu_torch.ops.kernels.paged_attention import (
+    paged_decode,
+    paged_decode_plain,
+    paged_window_partials,
+    paged_window_partials_plain,
+)
 from qwen3_rs_tpu_torch.ops.kernels.prefill_attention import (
     causal_prefill_attention,
     causal_prefill_attention_plain,
@@ -30,6 +36,7 @@ from qwen3_rs_tpu_torch.ops.kernels.qmatmul import (
 )
 from qwen3_rs_tpu_torch.ops.kernels.qmatmul_a8 import qmatmul_w8a8_rows, qmatmul_w8a8_rows_plain
 from qwen3_rs_tpu_torch.ops.quant import QuantizedTensor, quantize_activations
+from qwen3_rs_tpu_torch.serving import ContinuousBatchingEngine, Request
 from qwen3_rs_tpu_torch.testing import random_weights
 
 pytestmark = pytest.mark.cuda
@@ -262,3 +269,123 @@ def test_long_windows_card_match_cpu(card):
             tok = [int(b.argmax())]
             lg, caches[0] = gpu.decode_step(caches[0], tok, [pos + step])
             lc, caches[1] = cpu.decode_step(caches[1], tok, [pos + step])
+
+
+def _pool(gen, card, pool, page, n_pages, n_kv=2, layers=2):
+    """A page pool of ``pool`` type with random rows, and its scales."""
+    shape = (layers, n_pages, n_kv, page, 128)
+    if pool == "int8":
+        k, v = (torch.randint(-127, 128, shape, generator=gen, device=card, dtype=torch.int8) for _ in range(2))
+        return k, v, {name: torch.rand(shape[:-1], generator=gen, device=card) * 0.02 + 0.005
+                      for name in ("k_scale_pool", "v_scale_pool")}
+    dt = torch.float32 if pool == "f32" else torch.bfloat16
+    k, v = (torch.randn(shape, generator=gen, device=card).to(dt) for _ in range(2))
+    return k, v, {}
+
+
+def _tables(gen, card, b, max_pages, n_pages):
+    """Shuffled, disjoint page ids over the pool (0 is the null page)."""
+    ids = torch.randperm(n_pages - 1, generator=gen, device=card)[: b * max_pages] + 1
+    return ids.reshape(b, max_pages).to(torch.int32).contiguous()
+
+
+@pytest.mark.parametrize("pool", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("kv_mul", [1, 2, 4, 8])
+@pytest.mark.parametrize("page", [16, 128])
+def test_paged_decode_matches_plain(card, pool, kv_mul, page):
+    gen = _gen(kv_mul * 5 + page + len(pool))
+    max_pages = -(-300 // page)
+    pos_list = [0, 1, page - 1, page, page + 1, 300]  # 300 is not a multiple of the 128-row chunk
+    b = len(pos_list)
+    n_pages = 1 + b * max_pages
+    k, v, sc = _pool(gen, card, pool, page, n_pages)
+    table = _tables(gen, card, b, max_pages, n_pages)
+    q = torch.randn(b, 2 * kv_mul, 128, generator=gen, device=card)
+    kn, vn = torch.randn(2, b, 2, 128, generator=gen, device=card)
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=card)
+    before = LAUNCHES["paged_decode"]
+    got = paged_decode(q, kn, vn, k, v, table, pos, 1, **sc)
+    assert LAUNCHES["paged_decode"] == before + 1
+    ref = paged_decode_plain(q, kn, vn, k, v, table, pos, 1, **sc)
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    assert torch.equal(got[0], vn[0].repeat_interleave(kv_mul, dim=0))  # pos 0: v_self
+
+
+def test_paged_kernels_read_no_row_at_or_past_pos(card):
+    """Rows at or past pos, the unused table entries and the null page hold
+    NaN: neither kernel may read them."""
+    gen = _gen(13)
+    page, max_pages = 16, 8
+    k, v, _ = _pool(gen, card, "f32", page, 1 + 3 * max_pages, layers=1)
+    table = _tables(gen, card, 3, max_pages, 1 + 3 * max_pages)
+    pos_list = [0, 5, 40]
+    for b, p in enumerate(pos_list):
+        for t in range(p, max_pages * page):
+            k[0, table[b, t // page], :, t % page] = float("nan")
+            v[0, table[b, t // page], :, t % page] = float("nan")
+    k[:, 0] = v[:, 0] = float("nan")
+    table[0] = 0  # an idle slot: all-null table at pos 0
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=card)
+    q = torch.randn(3, 4, 128, generator=gen, device=card)
+    kn, vn = torch.randn(2, 3, 2, 128, generator=gen, device=card)
+    assert bool(torch.isfinite(paged_decode(q, kn, vn, k, v, table, pos, 0)).all())
+    m, l, acc = paged_window_partials(torch.randn(3, 5, 4, 128, generator=gen, device=card), k, v, table, pos, 0)
+    assert bool(torch.isfinite(acc).all()) and bool(torch.isneginf(m[0]).all()) and bool(torch.isfinite(m[1:]).all())
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+@pytest.mark.parametrize("s,kv_mul", [(2, 1), (3, 2), (32, 4), (16, 8), (5, 4)])
+@pytest.mark.parametrize("page", [16, 128])
+def test_paged_window_matches_plain(card, pool, s, kv_mul, page):
+    gen = _gen(s * 7 + kv_mul + page)
+    max_pages = -(-300 // page)
+    pos_list = [0, 1, page + 1, 300]
+    b = len(pos_list)
+    n_pages = 1 + b * max_pages
+    k, v, sc = _pool(gen, card, pool, page, n_pages)
+    table = _tables(gen, card, b, max_pages, n_pages)
+    q = torch.randn(b, s, 2 * kv_mul, 128, generator=gen, device=card)
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=card)
+    before = LAUNCHES["paged_window_partials"]
+    got = paged_window_partials(q, k, v, table, pos, 1, **sc)
+    assert LAUNCHES["paged_window_partials"] == before + 1
+    ref = paged_window_partials_plain(q, k, v, table, pos, 1, **sc)
+    torch.cuda.synchronize()
+    for a, r in zip(got, ref):
+        assert a.shape == r.shape
+        assert torch.equal(torch.isneginf(a), torch.isneginf(r))
+        fin = torch.isfinite(r)
+        assert float((a[fin] - r[fin]).abs().max()) <= 1e-4 * float(r[fin].abs().max())
+
+
+def test_paged_serving_card_matches_cpu(card):
+    """A short paged serving run (INT8 pool, prefix cache, a continued window
+    through #10) on the card and on the CPU: every request completes, the
+    kernels ran, and the first tokens agree."""
+    cfg = ModelConfig(
+        architecture_id=1, dim=256, hidden_dim=512, n_layers=2, n_heads=4, n_kv_heads=2,
+        head_dim=128, seq_len=512, vocab_size=2176, group_size=64, shared_classifier=True,
+    )
+    weights = random_weights(cfg, seed=5, device=card)
+    rng = np.random.default_rng(2)
+    stem = [int(t) for t in rng.integers(3, cfg.vocab_size, 128)]
+    # The three later suffixes share the 32-row bucket and fit the pool: one
+    # continued window.
+    prompts = [stem + [int(t) for t in rng.integers(3, cfg.vocab_size, n)] for n in (5, 20, 25, 30)]
+    firsts = []
+    for dev, w in ((card, weights), ("cpu", weights_to(weights, "cpu"))):
+        engine = ContinuousBatchingEngine(config=cfg, weights=w, n_slots=4, kv_layout="paged", n_pages=16,
+                                          cache_dtype="int8", prefix_cache=True, device=dev)
+        engine.submit(Request(0, prompts[0], max_new_tokens=8))
+        engine.step()  # registers the stem's page
+        for i, p in enumerate(prompts[1:], 1):
+            engine.submit(Request(i, p, max_new_tokens=8))
+        before = dict(LAUNCHES)
+        done = engine.run()
+        assert len(done) == 4 and engine.stats()["prefix_hits"] == 3
+        if dev == card:
+            assert LAUNCHES["paged_decode"] > before["paged_decode"]
+            assert LAUNCHES["paged_window_partials"] - before["paged_window_partials"] == cfg.n_layers
+        firsts.append({r.request_id: r.generated[0] for r in done})
+    assert firsts[0] == firsts[1]

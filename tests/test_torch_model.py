@@ -3,7 +3,11 @@ CPU) against the JAX package's ``qwen3_forward`` in fast mode, for a prefill
 window and 4 decode steps, f32/bf16/INT8 caches, Qwen3 and Llama; and the
 long-window slice: a fresh 512-row window and a 384-row continuation (the
 causal prefill, row-blocked and dequant kernels), an exact-mode (W8A8)
-prefill with decode steps, and all-logits windows.
+prefill with decode steps, and all-logits windows; and the serving slice:
+the forward over the page pool (``page_table``: a fresh group prefill, a
+continued window through the paged window kernel, decode steps through the
+paged decode kernel; bf16, f32 and INT8 pools) with ``write_mask``, and the
+dense cache's ``write_mask``.
 
 Two references:
 
@@ -148,7 +152,8 @@ def _spy_port(monkeypatch) -> collections.Counter:
     """Count the port's calls of each kernel wrapper on the forward's path."""
     calls = collections.Counter()
     targets = [(port_qwen3, n) for n in ("causal_prefill_attention", "qmatmul_w8a16_rows",
-                                         "dequant_w8_stacked", "flash_decode", "qmatmul_w8a16")]
+                                         "dequant_w8_stacked", "flash_decode", "qmatmul_w8a16",
+                                         "paged_decode", "paged_window_attention")]
     targets += [(port_matmul, "qmatmul_w8a8_rows"), (port_matmul, "qmatmul_w8a16")]  # classifier
     for mod, name in targets:
         def wrap(*args, _fn=getattr(mod, name), _name=name, **kw):
@@ -296,3 +301,143 @@ def test_engine_prefills_in_windows_and_marks_only_the_first_fresh(monkeypatch):
     eng.all_logits(eng.new_cache(1), np.zeros((1, 7), np.int64), [0])  # (rows, pos, all logits, mode)
     assert seen == [(300, 0, True, "exact"), (300, 300, False, "exact"), (100, 600, False, "exact"),
                     (10, 5, False, "exact"), (7, 0, True, "exact")]
+
+
+# -------------------------------------------------------------- page pool
+PAGED = dataclasses.replace(CONFIG, seq_len=1024)
+PAGE = 128
+
+
+def _pool_f32(pool, part):
+    """Pool rows as f32 without the null page (padding rows write it in any
+    order)."""
+    return _cache_f32(pool, part)[:, 1:]
+
+
+@pytest.mark.parametrize("pool_dtype", ["bf16", "f32", "int8"])
+def test_paged_forward_matches_jax(pool_dtype, long_kernels):
+    """Three slots on one shuffled pool: a fresh prefill of 200 and 150 rows
+    with a padding row (all-null table, write masked), a continued 16-row
+    window (the paged window kernel), then 3 decode steps with one slot
+    idle (write masked).  Logits and the pool's rows against the JAX forward
+    through its interpret-mode kernels."""
+    from qwen3_rs_tpu.serving.paged_cache import init_paged_cache as jax_init_pool
+    from qwen3_rs_tpu_torch.serving.paged_cache import init_paged_cache, paged_cache_from_jax_numpy
+
+    jax_calls, port_calls = long_kernels
+    jcfg, jw, pw = _both(PAGED, 8, "fast")
+    rng = np.random.default_rng(8)
+    n_pages, max_pages = 1 + 2 * 8, 8
+    jdt = {"bf16": jnp.bfloat16, "f32": jnp.float32, "int8": "int8"}[pool_dtype]
+    jpool = jax_init_pool(jcfg, n_pages, PAGE, dtype=jdt)
+    ppool = paged_cache_from_jax_numpy(jax.tree.map(np.asarray, jpool))
+    assert type(ppool) is type(init_paged_cache(PAGED, 2, PAGE, dtype=jdt if jdt == "int8" else ppool.k.dtype,
+                                                device="cpu"))
+    ids = rng.permutation(np.arange(1, n_pages)).reshape(2, max_pages)
+    table = np.zeros((3, max_pages), np.int32)
+    table[:2] = ids  # row 2 pads the group: all-null table
+    lens = [200, 150]
+
+    def step(tokens, pos, mask, fresh=False, out_idx=None):
+        nonlocal jpool, ppool
+        kw = dict(page_table=table, write_mask=np.asarray(mask, bool), out_idx=out_idx)
+        fwd = jax.jit(functools.partial(jax_forward, jcfg, mode="fast", fresh_prefill=fresh))
+        jl, jpool = fwd(jw, jnp.asarray(tokens, jnp.int32), jpool, jnp.asarray(pos, jnp.int32),
+                        **{k: None if v is None else jnp.asarray(v) for k, v in kw.items()})
+        pl_, ppool = qwen3_forward(PAGED, pw, tokens, ppool, pos, fresh_prefill=fresh, **kw)
+        assert _rel_err(pl_.numpy()[:2], np.asarray(jl)[:2]) <= 2e-2
+        for part in ("k", "v"):
+            assert _rel_err(_pool_f32(ppool, part), _pool_f32(jpool, part)) <= 2e-2
+        return np.asarray(jl)
+
+    tokens = rng.integers(0, PAGED.vocab_size, (3, 200))
+    step(tokens, [0, 0, 0], [1, 1, 0], fresh=True, out_idx=[199, 149, 0])
+    pos = np.asarray(lens + [0])
+    tokens = rng.integers(0, PAGED.vocab_size, (3, 16))
+    jl = step(tokens, pos, [1, 1, 0])
+    pos = pos + [16, 16, 0]
+    for _ in range(3):
+        tok = np.asarray(jl).argmax(-1)[:, None]
+        jl = step(tok, pos, [1, 0, 0])  # slot 1 idle: its pages must not change
+        pos = pos + [1, 0, 0]
+    assert jax_calls["paged"] and jax_calls["window"]
+    n = PAGED.n_layers
+    assert port_calls["paged_decode"] == 3 * n and port_calls["paged_window_attention"] == n
+
+
+@pytest.mark.parametrize("pool_dtype", ["bf16", "int8"])
+def test_small_paged_windows_match_jax_row_for_row(pool_dtype, long_kernels):
+    """Small windows on the pool (S·kv_mul ≤ 128: the window path, fresh or
+    continued) and decode steps, one layer, every row's logits against the
+    JAX forward through its interpret-mode kernels, compiled to round as
+    written: within 1e-5 of max|logits| on all rows but a few, where an f32
+    sum in another order flips one bf16 rounding (up to 2 of 32 rows seen).
+    A fresh window's attention in bf16 instead of the reference's f32 puts
+    nearly every row apart."""
+    from qwen3_rs_tpu.serving.paged_cache import init_paged_cache as jax_init_pool
+    from qwen3_rs_tpu_torch.serving.paged_cache import paged_cache_from_jax_numpy
+
+    cfg = dataclasses.replace(PAGED, n_layers=1, seq_len=512)
+    jcfg, jw, pw = _both(cfg, 3, "fast")
+    rng = np.random.default_rng(3)
+    jpool = jax_init_pool(jcfg, 9, PAGE, dtype=jnp.bfloat16 if pool_dtype == "bf16" else "int8")
+    ppool = paged_cache_from_jax_numpy(jax.tree.map(np.asarray, jpool))
+    table = np.asarray([[3, 1, 0, 0], [5, 2, 4, 0]], np.int32)
+    pos = np.zeros(2, np.int32)
+    for s, fresh in ((16, True), (16, False), (1, False), (1, False)):
+        tokens = rng.integers(0, cfg.vocab_size, (2, s))
+        args = (jw, jnp.asarray(tokens, jnp.int32), jpool, jnp.asarray(pos))
+        fwd = jax.jit(functools.partial(jax_forward, jcfg, mode="fast", fresh_prefill=fresh,
+                                        page_table=jnp.asarray(table), return_all_logits=True))
+        jl, jpool = fwd.lower(*args).compile({"xla_allow_excess_precision": False})(*args)
+        pl_, ppool = qwen3_forward(cfg, pw, tokens, ppool, pos, fresh_prefill=fresh, page_table=table,
+                                   return_all_logits=True)
+        ref = np.asarray(jl, np.float32).reshape(-1, cfg.vocab_size)
+        rel = np.abs(pl_.numpy().reshape(-1, cfg.vocab_size) - ref).max(-1) / np.abs(ref).max()
+        assert rel.max() <= 2e-2 and (rel > 1e-5).sum() <= max(1, len(rel) // 10), (s, fresh, rel)
+        pos = pos + s
+    jax_calls, port_calls = long_kernels
+    assert jax_calls["window"] and jax_calls["paged"]
+    assert port_calls["paged_window_attention"] == 2 and port_calls["paged_decode"] == 2
+
+
+def test_masked_paged_rows_write_nothing():
+    """Masked requests and rows past the table leave the pool untouched, bit
+    for bit; unmasked rows land at table[b, p // page], row p % page."""
+    from qwen3_rs_tpu_torch.serving.paged_cache import init_paged_cache
+
+    cfg = dataclasses.replace(CONFIG, seq_len=32)
+    pw = weights_from_jax_numpy(jax_numpy_weights(cfg, 0))
+    for dtype in (torch.bfloat16, "int8"):
+        pool = init_paged_cache(cfg, 6, 8, dtype=dtype, device="cpu")
+        table = np.asarray([[3, 1, 0, 0], [5, 2, 4, 0]], np.int32)
+        qwen3_forward(cfg, pw, np.ones((2, 6), np.int64), pool, [6, 2], page_table=table,
+                      write_mask=np.asarray([True, False]))
+        written = {(int(p), int(r)) for p, r in zip(*np.nonzero(pool.k[0, :, 0].float().abs().sum(-1).numpy()))}
+        assert written == {(3, 6), (3, 7), (1, 0), (1, 1), (1, 2), (1, 3)}
+        before = [t.clone() for t in pool]
+        qwen3_forward(cfg, pw, np.ones((2, 1), np.int64), pool, [10, 3], page_table=table,
+                      write_mask=np.asarray([False, False]))
+        assert all(torch.equal(a, b) for a, b in zip(before, pool))
+
+
+@pytest.mark.parametrize("cache_dtype", ["bf16", "int8"])
+def test_dense_write_mask_matches_jax(cache_dtype):
+    """The dense cache's write_mask: a masked slot's rows stay as they were,
+    as the reference's ``_scatter_dense`` keeps them."""
+    tree = jax_numpy_weights(CONFIG, 4)
+    jcfg = JaxConfig(**dataclasses.asdict(CONFIG))
+    jw, pw = jax.tree.map(jnp.asarray, tree), weights_from_jax_numpy(tree)
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if cache_dtype == "bf16" else ("int8", "int8")
+    jcache, pcache = jax_init_cache(jcfg, 2, dtype=jdt), init_kv_cache(CONFIG, 2, dtype=tdt)
+    rng = np.random.default_rng(4)
+    fwd = jax.jit(functools.partial(jax_forward, jcfg, mode="fast"))
+    for tokens, pos, mask in ((rng.integers(0, CONFIG.vocab_size, (2, 5)), [0, 0], [True, True]),
+                              (rng.integers(0, CONFIG.vocab_size, (2, 1)), [5, 3], [True, False])):
+        before = [t.clone() for t in pcache]
+        jl, jcache = fwd(jw, jnp.asarray(tokens, jnp.int32), jcache, jnp.asarray(pos, jnp.int32),
+                         write_mask=jnp.asarray(mask))
+        pl_, pcache = qwen3_forward(CONFIG, pw, tokens, pcache, pos, write_mask=np.asarray(mask))
+        assert _rel_err(pl_.numpy(), jl) <= 2e-2
+        assert _rel_err(_cache_f32(pcache, "k"), _cache_f32(jcache, "k")) <= 2e-2
+    assert all(torch.equal(a[:, 1], b[:, 1]) for a, b in zip(before, pcache))

@@ -1,0 +1,137 @@
+"""Paged attention: the plain versions of the port's paged decode (#9) and
+paged window (#10) kernels against the JAX package's Pallas kernels in
+interpret mode, as ``tests/test_paged_attention.py`` runs them, and against
+the XLA ``gqa_attention_split_paged``; and the port's plain paged split
+attention against the JAX one.
+
+hd 128 and page 128 (the Pallas kernels' tiling); f32, bf16 and INT8 pools;
+positions 0, 1, page - 1, page, page + 1 and ragged ones in one batch; page
+tables shuffled over the pool.  Every side computes in f32 and differs only
+in summation order: tolerance 1e-5 · max|ref|.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from qwen3_rs_tpu.ops.attention import gqa_attention_split_paged as jax_split_paged
+from qwen3_rs_tpu.ops.pallas.paged_attention import paged_gqa_decode_stacked, paged_gqa_window_stacked
+from qwen3_rs_tpu_torch.ops.attention import gqa_attention_split_paged
+from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES
+from qwen3_rs_tpu_torch.ops.kernels.paged_attention import (
+    paged_decode,
+    paged_window_attention,
+    paged_window_partials,
+    window_supported,
+)
+
+torch.set_num_threads(2)
+
+PAGE, HD, N_KV, L, LAYER = 128, 128, 2, 2, 1
+POS = [0, 1, PAGE - 1, PAGE, PAGE + 1, 300]  # one request each
+
+
+def _pool(rng, dtype, n_pages):
+    """(numpy pools and scales for JAX, torch ones for the port): bf16 values
+    rounded alike on both sides, INT8 codes with per-row scales."""
+    shape = (L, n_pages, N_KV, PAGE, HD)
+    if dtype == "int8":
+        k, v = (rng.integers(-127, 128, shape).astype(np.int8) for _ in range(2))
+        ks, vs = (rng.uniform(0.005, 0.02, shape[:-1]).astype(np.float32) for _ in range(2))
+        jax_args = (jnp.asarray(k), jnp.asarray(v)), dict(k_scale_pool=jnp.asarray(ks), v_scale_pool=jnp.asarray(vs))
+        port_args = (torch.from_numpy(k), torch.from_numpy(v)), dict(
+            k_scale_pool=torch.from_numpy(ks), v_scale_pool=torch.from_numpy(vs))
+        return jax_args, port_args
+    k, v = (rng.normal(0, 1, shape).astype(np.float32) for _ in range(2))
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if dtype == "bf16" else (jnp.float32, torch.float32)
+    return ((jnp.asarray(k, jdt), jnp.asarray(v, jdt)), {}), (
+        (torch.from_numpy(k).to(tdt), torch.from_numpy(v).to(tdt)), {})
+
+
+def _table(rng, b, max_pages, n_pages):
+    """Shuffled, disjoint page ids over the pool (0 is the null page)."""
+    ids = rng.permutation(np.arange(1, n_pages))[: b * max_pages]
+    return ids.reshape(b, max_pages).astype(np.int32)
+
+
+def _case(seed, dtype, pos, kv_mul):
+    rng = np.random.default_rng(seed)
+    b = len(pos)
+    max_pages = 3
+    n_pages = 1 + b * max_pages
+    (jpool, jsc), (ppool, psc) = _pool(rng, dtype, n_pages)
+    table = _table(rng, b, max_pages, n_pages)
+    return rng, b, jpool, jsc, ppool, psc, table, np.asarray(pos, np.int32)
+
+
+def _close(out, ref, rel=1e-5):
+    out, ref = np.asarray(out, np.float32), np.asarray(ref, np.float32)
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out, ref, rtol=0, atol=rel * float(np.abs(ref).max()))
+
+
+@pytest.mark.parametrize("kv_mul", [1, 4])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+def test_paged_decode_plain_matches_pallas(dtype, kv_mul):
+    rng, b, jpool, jsc, ppool, psc, table, pos = _case(7, dtype, POS, kv_mul)
+    q = rng.normal(0, 1, (b, N_KV * kv_mul, HD)).astype(np.float32)
+    kn, vn = (rng.normal(0, 1, (b, N_KV, HD)).astype(np.float32) for _ in range(2))
+    before = dict(LAUNCHES)
+    got = paged_decode(torch.from_numpy(q), torch.from_numpy(kn), torch.from_numpy(vn), *ppool,
+                       torch.from_numpy(table), torch.from_numpy(pos), LAYER, **psc)
+    assert LAUNCHES == before  # the plain version launches nothing
+    args = (jnp.asarray(q), jnp.asarray(kn), jnp.asarray(vn), *jpool, jnp.asarray(table), jnp.asarray(pos))
+    ref = paged_gqa_decode_stacked(*args, LAYER, interpret=True, **jsc)
+    _close(got.numpy(), ref)
+    # The XLA split path on the same layer.
+    xla_sc = {k: v[LAYER] for k, v in jsc.items()}
+    xla = jax_split_paged(jnp.asarray(q)[:, None], jpool[0][LAYER], jpool[1][LAYER], jnp.asarray(table),
+                          jnp.asarray(kn)[:, None], jnp.asarray(vn)[:, None], jnp.asarray(pos), **xla_sc)[:, 0]
+    _close(got.numpy(), xla)
+    # A request at position 0 sees only its own key: the output is v_self.
+    assert torch.equal(got[0], torch.from_numpy(vn[0]).repeat_interleave(kv_mul, 0))
+
+
+@pytest.mark.parametrize("s,kv_mul", [(4, 2), (32, 4), (2, 8)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+def test_paged_window_plain_matches_pallas(dtype, s, kv_mul):
+    assert window_supported(s, kv_mul)
+    rng, b, jpool, jsc, ppool, psc, table, pos = _case(11, dtype, POS, kv_mul)
+    q = rng.normal(0, 1, (b, s, N_KV * kv_mul, HD)).astype(np.float32)
+    kn, vn = (rng.normal(0, 1, (b, s, N_KV, HD)).astype(np.float32) for _ in range(2))
+    got = paged_window_attention(torch.from_numpy(q), torch.from_numpy(kn), torch.from_numpy(vn), *ppool,
+                                 torch.from_numpy(table), torch.from_numpy(pos), LAYER, **psc)
+    jargs = (jnp.asarray(q), jnp.asarray(kn), jnp.asarray(vn), *jpool, jnp.asarray(table), jnp.asarray(pos))
+    _close(got.numpy(), paged_gqa_window_stacked(*jargs, LAYER, interpret=True, **jsc))
+    xla_sc = {k: v[LAYER] for k, v in jsc.items()}
+    xla = jax_split_paged(jnp.asarray(q), jpool[0][LAYER], jpool[1][LAYER], jnp.asarray(table),
+                          jnp.asarray(kn), jnp.asarray(vn), jnp.asarray(pos), **xla_sc)
+    _close(got.numpy(), xla)
+
+
+def test_window_partials_of_an_empty_prefix():
+    """pos 0: m = -inf, l = 0, acc = 0 (the reference's guarded partials)."""
+    rng, b, _, _, ppool, psc, table, pos = _case(3, "f32", [0, 5], 2)
+    q = torch.from_numpy(rng.normal(0, 1, (b, 3, N_KV * 2, HD)).astype(np.float32))
+    m, l, acc = paged_window_partials(q, *ppool, torch.from_numpy(table), torch.from_numpy(pos), LAYER)
+    assert m.shape == l.shape == (b, N_KV, 6) and acc.shape == (b, N_KV, 6, HD)
+    assert bool(torch.isneginf(m[0]).all()) and bool((l[0] == 0).all()) and bool((acc[0] == 0).all())
+    assert bool(torch.isfinite(m[1]).all()) and bool((l[1] > 0).all())
+
+
+@pytest.mark.parametrize("s", [1, 5, 600])
+@pytest.mark.parametrize("dtype", ["f32", "int8"])
+def test_split_paged_matches_jax(dtype, s):
+    """The plain paged split attention (every paged window no kernel takes,
+    and the exact and f32 modes): 600 rows run in two query chunks."""
+    rng, b, jpool, jsc, ppool, psc, table, pos = _case(5, dtype, [0, 130, 299], 2)
+    q = rng.normal(0, 1, (b, s, N_KV * 2, HD)).astype(np.float32)
+    kn, vn = (rng.normal(0, 1, (b, s, N_KV, HD)).astype(np.float32) for _ in range(2))
+    got = gqa_attention_split_paged(
+        torch.from_numpy(q), ppool[0][LAYER], ppool[1][LAYER], torch.from_numpy(table),
+        torch.from_numpy(kn), torch.from_numpy(vn), pos, **{k: v[LAYER] for k, v in psc.items()})
+    ref = jax_split_paged(jnp.asarray(q), jpool[0][LAYER], jpool[1][LAYER], jnp.asarray(table),
+                          jnp.asarray(kn), jnp.asarray(vn), jnp.asarray(pos),
+                          **{k: v[LAYER] for k, v in jsc.items()})
+    _close(got.numpy(), ref)

@@ -12,6 +12,7 @@ import numpy as np
 import qwen3_rs_tpu.models.qwen3 as jax_qwen3
 import qwen3_rs_tpu.ops.pallas as pallas_pkg
 import qwen3_rs_tpu.ops.pallas.flash_attention as jax_flash
+import qwen3_rs_tpu.ops.pallas.paged_attention as jax_paged
 import qwen3_rs_tpu.ops.pallas.prefill_attention as jax_prefill
 import qwen3_rs_tpu.ops.pallas.qmatmul as jax_qmm
 from qwen3_rs_tpu.checkpoint import _classifier_from
@@ -28,9 +29,9 @@ import qwen3_rs_tpu_torch.models.qwen3 as port_qwen3
 def route_jax_through_interpret_kernels(monkeypatch, min_seq_len: int) -> collections.Counter:
     """Megakernel off; in interpret mode the fused W8A16 kernel, the
     classifier kernel, flash decode (from ``min_seq_len`` cache rows), the
-    row-blocked W8A16 kernel, the dequant kernel, the W8A8 rows kernel and
-    the causal prefill kernel.  Returns the count of kernel calls seen while
-    tracing."""
+    row-blocked W8A16 kernel, the dequant kernel, the W8A8 rows kernel, the
+    causal prefill kernel and the paged decode and window kernels (pages of
+    128 rows).  Returns the count of kernel calls seen while tracing."""
     calls = collections.Counter()
 
     def counted(name, fn):
@@ -59,6 +60,12 @@ def route_jax_through_interpret_kernels(monkeypatch, min_seq_len: int) -> collec
     )
     monkeypatch.setattr(
         jax_prefill, "causal_prefill_attention", counted("prefill", jax_prefill.causal_prefill_attention)
+    )
+    monkeypatch.setattr(
+        jax_paged, "paged_gqa_decode_stacked", counted("paged", jax_paged.paged_gqa_decode_stacked)
+    )
+    monkeypatch.setattr(
+        jax_paged, "paged_gqa_window_stacked", counted("window", jax_paged.paged_gqa_window_stacked)
     )
     return calls
 
