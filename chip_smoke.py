@@ -11,16 +11,23 @@ Phases, in order; any failure exits non-zero before the final line:
                device-to-device copy bandwidth on a 1 GiB buffer.
 2. ``kernels`` each hand-written kernel against its plain PyTorch version on
                the same inputs at Qwen3-8B shapes (INT8-g64; the paged kernels
-               over a page-128 pool with shuffled tables), with its time, the
-               plain version's time, one PyTorch library call's time where one
-               computes the same function, and the least time the card could
-               take.
+               over a page-128 pool with shuffled tables; the decode
+               megakernel at full depth), with its time, the plain version's
+               time, one PyTorch library call's time where one computes the
+               same function, and the least time the card could take.
 3. ``e2e``     Qwen3-8B at full width and depth with random weights made on
                the card from a seed, each path driven with the launch counts
                reset just before it and read just after:
                * ``generate()``/``chat()`` on a 200-token prompt, f32 and INT8
-                 caches: every decode step launches 4·L+1 W8A16 matmuls and L
-                 flash-decode attentions, two greedy runs agree;
+                 caches: every decode step is one decode-megakernel launch
+                 (all layers and the classifier), two greedy runs agree;
+               * the same greedy decode with the megakernel gate patched off
+                 (4·L+1 W8A16 matmuls and L flash-decode attentions a step),
+                 timed and profiled in the same call;
+               * device sampling (``decode_chunk``): greedy equal to the host
+                 stream, ``-t 0.8`` repeatable, a chunk with no host
+                 synchronisation before its final copy;
+               * a dense decode of 9 rows, which the gate refuses;
                * ``generate()`` on a 3000-token prompt: a fresh 2048-row window
                  (L causal prefill attentions, 4·L row-blocked W8A16 matmuls),
                  a continuation window (4·L row-blocked), then decode steps;
@@ -32,17 +39,20 @@ Phases, in order; any failure exits non-zero before the final line:
                4096, 8 slots, page 128, greedy host sampling: 24 requests
                (prompts of 16-1024 tokens, 64 new tokens) on the paged bf16
                pool, the INT8 pool and the dense slots, every decode step
-               checked for L paged-decode (or flash-decode) launches; the
+               checked for L paged-decode launches (on the dense slots: one
+               decode-megakernel launch); the
                prefix cache (15 hits, each continued window L paged-window
                launches); chunked prefill; the HTTP front end on port 0
                (answers equal to the requests run alone, then a burst of 8).
 5. ``cli``     a 2-layer 8B-width ``.qtpu`` checkpoint written with numpy,
                run through ``qwen3_rs_tpu_torch.cli.main`` (``inference`` in
-               generate, chat and exact mode, ``eval-ppl`` in three modes,
+               generate, chat, exact mode and with ``--device-sampling``,
+               ``eval-ppl`` in three modes,
                ``batch`` paged and dense) and ``serve`` in a process of its
                own; the output must equal the API's.
 6. ``parity``  the 2-layer model on the CPU (plain versions) and on the card
-               (kernels): prefill windows and decode steps in fast mode (16-,
+               (kernels): prefill windows and decode steps (the megakernel) in
+               fast mode (16-,
                512- and 300-row windows) and exact mode; eval-ppl at 0.6B width;
                the paged forward (a fresh group, a continued window, decode
                steps with a slot masked) over bf16 and INT8 pools.
@@ -678,13 +688,170 @@ def paged_window_cases(torch, ctx) -> list[dict]:
     return out
 
 
+# The decode megakernel against its plain version.  Both round the same
+# activations to bf16; an f32 sum in another order now and then flips one of
+# those roundings.  Over one layer that moves a row of the stream by < 5e-3 of
+# its largest value and the logits by < 1e-2 of theirs (tests/test_torch_
+# megakernel.py argues the same bounds), and an INT8 row by one code.  At full
+# depth each flip is carried through the later layers of random weights, where
+# one activation moved by one or two bf16 steps moves the final stream by about
+# 2e-2 of its largest value (each case reports it as "sensitivity": the plain
+# version with one norm weight of layer 0 scaled by 1 + 2^-7): the stream and
+# the logits are held within MK_TOL_DEEP there.  An error of the algorithm (a layer's weights,
+# a residual, a norm, RoPE, a cache row attended or not) moves them by O(1).
+MK_TOL_X, MK_TOL_LOGITS, MK_TOL_DEEP = 5e-3, 1e-2, 5e-2
+
+
+def megakernel_cases(torch, ctx) -> list[dict]:
+    """The decode megakernel (#11) at Qwen3-8B width, INT8-g64 (the e2e
+    phase's weights, bf16 scales): B = 1 over an f32 cache at positions 200
+    and 4095, over an INT8 cache, B = 8 over a bf16 cache at mixed positions
+    with one slot's write gate off, and the greedy head.  Each case runs over
+    the first layer alone and at full depth (timed), against the plain
+    version; the cache outside the rows written stays as it was, bit for
+    bit."""
+    import dataclasses
+
+    from qwen3_rs_tpu_torch.models.qwen3 import cast_weight_scales
+    from qwen3_rs_tpu_torch.ops.kernels.megakernel import (
+        decode_stack_megakernel,
+        decode_stack_megakernel_plain,
+        split_plans,
+    )
+    from qwen3_rs_tpu_torch.ops.quant import QuantizedTensor, dequantize
+    from qwen3_rs_tpu_torch.ops.rope import rope_table
+    from qwen3_rs_tpu_torch.testing import megakernel_bytes
+
+    cfg, weights, _ = model_8b(torch, ctx)
+    w = cast_weight_scales(weights)
+    lw = w.layers
+    n_l, n_kv, hd, t = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, cfg.seq_len
+    v_pad = w.lm_head.q.shape[-1]
+    cos_t, sin_t = rope_table(t, hd, cfg.rope_theta, torch.device(DEV, 0))
+    specs = [("f32", [200], [1], False), ("f32", [t - 1], [1], False), ("int8", [2049], [1], False),
+             ("bf16", [0, 1, 127, 128, 1000, 2049, 3000, t - 1], [1, 1, 1, 0, 1, 1, 1, 1], False),
+             ("f32", [200], [1], True)]
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(97531)
+    params = sum(n * d for n, d in ((cfg.dim, cfg.all_heads_dim + 2 * cfg.kv_dim), (cfg.all_heads_dim, cfg.dim),
+                                    (cfg.dim, 2 * cfg.hidden_dim), (cfg.hidden_dim, cfg.dim))) * n_l
+    out = []
+    for cache, pos_list, ok_list, greedy in specs:
+        b = len(pos_list)
+        shape = (n_l, b, n_kv, t, hd)
+        esz = {"f32": 4, "bf16": 2, "int8": 1}[cache]
+        if cache == "int8":
+            kv = [torch.randint(-127, 128, shape, generator=gen, device=DEV, dtype=torch.int8) for _ in range(2)]
+            sc = [torch.rand(shape[:-1], generator=gen, device=DEV) * 0.02 + 0.005 for _ in range(2)]
+        else:
+            dt = torch.float32 if cache == "f32" else torch.bfloat16
+            kv = [torch.randn(shape, generator=gen, device=DEV).to(dt) for _ in range(2)]
+            sc = [None, None]
+        tokens = torch.randint(0, cfg.vocab_size, (b,), generator=gen, device=DEV)
+        x = dequantize(QuantizedTensor(w.embed.q[tokens], w.embed.scales[tokens])).to(torch.bfloat16).float()
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=DEV)
+        ok = torch.tensor(ok_list, dtype=torch.int32, device=DEV)
+        rows = pos.long().clamp(max=t - 1)
+        bi = torch.arange(b, device=DEV)
+        written = ok.bool()
+        label = f"megakernel {cache} pos={pos_list}"
+
+        def run(fn, state, depth, greedy_=greedy, rms_att=lw.rms_att):
+            c = cfg if depth == n_l else dataclasses.replace(cfg, n_layers=depth)
+            mats = [QuantizedTensor(m.q[:depth], m.scales[:depth]) for m in (lw.wqkv, lw.wo, lw.w13, lw.w2)]
+            return fn(c, x, rms_att[:depth], lw.rms_ffn[:depth], lw.q_norm[:depth], lw.k_norm[:depth], cos_t[rows],
+                      sin_t[rows], *mats, state[0], state[1], pos, w.rms_final, w.lm_head, ok, k_scale=state[2],
+                      v_scale=state[3], eps=cfg.norm_eps, greedy=greedy_)
+
+        def state(depth):
+            return [None if a is None else a[:depth].clone() for a in kv + sc]
+
+        def rel(a, b_):
+            return float((a.float() - b_.float()).abs().max()) / float(b_.float().abs().max())
+
+        def compare(depth, tol_x, tol_logits):
+            """Kernel against plain over ``depth`` layers: (logits max abs
+            error, its tolerance, the kernel's state)."""
+            got, ref = state(depth), state(depth)
+            gx, ghead = run(decode_stack_megakernel, got, depth)
+            px, phead = run(decode_stack_megakernel_plain, ref, depth)
+            torch.cuda.synchronize()
+            for r in range(b):
+                need(rel(gx[r], px[r]) <= tol_x, f"{label} depth {depth}: stream row {r} off by {rel(gx[r], px[r])}")
+            if greedy:
+                # The fused greedy token is the first maximum of the kernel's
+                # own logits, and a maximum of the plain logits within their
+                # tolerance.
+                _, glog = run(decode_stack_megakernel, state(depth), depth, False)
+                _, plog = run(decode_stack_megakernel_plain, state(depth), depth, False)
+                want = glog[:, : cfg.vocab_size].argmax(-1).to(torch.int32)
+                need(torch.equal(ghead, want), f"{label}: greedy {ghead.tolist()} != first max {want.tolist()}")
+                gap = float(plog[0, : cfg.vocab_size].max() - plog[0, int(ghead[0])])
+                need(gap <= tol_logits * float(plog.abs().max()), f"{label}: greedy token {gap} below the plain max")
+                ghead, phead = glog, plog
+            tol = tol_logits * float(phead.abs().max())
+            err = float((ghead - phead).abs().max())
+            need(math.isfinite(err) and err <= tol, f"{label} depth {depth}: logits max_abs_err {err} > tol {tol}")
+            for i in range(2):
+                # The first layer's rows written depend on the input alone.
+                new_g, new_p = got[i][0, bi, :, rows], ref[i][0, bi, :, rows]
+                lim = 1 if cache == "int8" else MK_TOL_X * float(new_p.float().abs().max())
+                need(float((new_g.float() - new_p.float()).abs().max()) <= lim, f"{label}: layer 0 rows written off")
+                if depth > 1:  # the later layers' rows carry the stream's error
+                    deq = [s_[i][:, bi, :, rows] * (s_[2 + i][:, bi, :, rows, None] if sc[i] is not None else 1)
+                           for s_ in (got, ref)]
+                    need(rel(deq[0], deq[1]) <= tol_x, f"{label} depth {depth}: rows written off by {rel(*deq)}")
+                # Everything but the rows written is left as it was (the
+                # gated-off slot's row too).
+                for part in (i, 2 + i) if sc[i] is not None else (i,):
+                    base = (kv + sc)[part][:depth]
+                    got[part][:, bi[written], :, rows[written]] = base[:, bi[written], :, rows[written]]
+                    need(torch.equal(got[part], base), f"{label}: the cache changed outside the rows written")
+            return err, tol, got
+
+        err1, tol1, _ = compare(1, MK_TOL_X, MK_TOL_LOGITS)
+        err, tol, got_state = compare(n_l, MK_TOL_DEEP, MK_TOL_DEEP)
+        # The plain version's own sensitivity: one norm weight of layer 0
+        # scaled by 1 + 2^-7.
+        rms_moved = lw.rms_att.clone()
+        rms_moved[0, 7] *= 1 + 2.0**-7
+        sx = [run(decode_stack_megakernel_plain, state(n_l), n_l, False, ra)[0] for ra in (lw.rms_att, rms_moved)]
+        sensitivity = max(rel(sx[1][r], sx[0][r]) for r in range(b))
+        del sx
+        ms = device_ms(torch, lambda i: run(decode_stack_megakernel, got_state, n_l))
+        plain_ms = device_ms(torch, lambda i: run(decode_stack_megakernel_plain, got_state, n_l), reps=3, warmup=1)
+        nbytes = megakernel_bytes(cfg, pos_list, esz, written=sum(ok_list), v_pad=v_pad)
+        ops = 2.0 * b * (params + cfg.dim * v_pad) + 4.0 * hd * cfg.n_heads * n_l * sum(min(p, t) + 1 for p in pos_list)
+        b_ms, b_by = bound(nbytes, ops, "bf16")
+        case = f"{cache} cache B={b} pos={pos_list}" + (f" write_ok={ok_list}" if 0 in ok_list else "") + (
+            " greedy" if greedy else "")
+        row = _row(ctx, "decode_megakernel", case, "qwen3_rs_tpu_torch/csrc/decode_megakernel.cu",
+                   "qwen3_rs_tpu/ops/pallas/megakernel.py:1110 decode_stack_megakernel (pallas_call :1441)",
+                   {"B": b, "layers": n_l, "dim": cfg.dim, "T": t, "pos": pos_list, "v_pad": v_pad,
+                    "splits": split_plans(cfg, b, _mega_grid(torch, b), v_pad), "depth1_max_abs_err": err1,
+                    "depth1_tol": tol1, "sensitivity": sensitivity},
+                   err, tol, ms, plain_ms, nbytes, b_ms, b_by, None,
+                   "none: no one PyTorch call computes a whole decode step")
+        out.append(row)
+        del kv, sc, got_state
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mega_grid(torch, b: int) -> int:
+    from qwen3_rs_tpu_torch.ops.kernels import megakernel as mk
+
+    return mk._grid(mk._row_tile(b), torch.cuda.current_device())
+
+
 def phase_kernels(torch, ctx) -> None:
     from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES
 
     before = dict(LAUNCHES)
     ctx["kernel_rows"] = (qmatmul_cases(torch, ctx) + flash_cases(torch, ctx) + prefill_attention_cases(torch, ctx)
                           + rows_cases(torch, ctx) + dequant_cases(torch, ctx) + a8_cases(torch, ctx)
-                          + paged_decode_cases(torch, ctx) + paged_window_cases(torch, ctx))
+                          + paged_decode_cases(torch, ctx) + paged_window_cases(torch, ctx)
+                          + megakernel_cases(torch, ctx))
     made = {k for k in LAUNCHES if LAUNCHES[k] != before[k]}
     need(made == set(LAUNCHES), f"the kernel cases launched no {sorted(set(LAUNCHES) - made)}")
 
@@ -783,7 +950,7 @@ def phase_e2e(torch, ctx) -> None:
     cfg, weights, tok = model_8b(torch, ctx)  # f32 scales: eval-ppl and exact mode
     engine = Engine(config=cfg, weights=weights, device=DEV)  # bf16 scales, the same codes
     prompt = prompt_text(200)
-    per_step = {"qmatmul_w8a16": 4 * cfg.n_layers + 1, "flash_decode": cfg.n_layers}
+    per_step = {"decode_megakernel": 1}  # the whole step, classifier included, in one launch
     steps: list[float] = []
     prefills: list[float] = []
 
@@ -866,6 +1033,13 @@ def phase_e2e(torch, ctx) -> None:
     del engine8
     torch.cuda.empty_cache()
 
+    plain_engine = Engine(config=cfg, weights=engine.weights, device=DEV)  # not instrumented
+    ctx["e2e"]["megakernel_off"] = megakernel_off_path(torch, ctx, cfg, plain_engine, tok, prompt, steady)
+    ctx["e2e"]["device_sampling"] = device_sampling_path(torch, ctx, cfg, plain_engine, tok, prompt, runs[0])
+    ctx["e2e"]["dense_b9"] = dense_b9_path(torch, ctx, cfg, plain_engine)
+    del plain_engine
+    torch.cuda.empty_cache()
+
     ctx["e2e"]["long_prompt"] = long_prompt_path(torch, ctx, cfg, engine, tok)
     del engine
     torch.cuda.empty_cache()
@@ -910,6 +1084,136 @@ def _expect(rec: dict, want: dict, what: str) -> None:
     need(rec["launches"] == want, f"{what} ({rec['rows']} rows at {rec['pos']}) launched {rec['launches']}, expected {want}")
 
 
+@contextlib.contextmanager
+def megakernel_gate_off():
+    """The forward's megakernel gate patched to refuse every shape: decode
+    steps take the per-layer kernels (4·L+1 W8A16, L flash decode)."""
+    import qwen3_rs_tpu_torch.models.qwen3 as mq
+
+    orig = mq.megakernel_route
+    mq.megakernel_route = lambda *a, **k: False
+    try:
+        yield
+    finally:
+        mq.megakernel_route = orig
+
+
+def megakernel_off_path(torch, ctx, cfg, engine, tok, prompt, steady_on) -> dict:
+    """The b=1 greedy decode of the main path with the megakernel gate
+    patched off, in the same call: per-step launches, step time and a
+    profile, beside the megakernel's."""
+    import qwen3_rs_tpu_torch.inference.engine as engine_mod
+    from qwen3_rs_tpu_torch import TokenSampler, generate
+    from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    n_l = cfg.n_layers
+    recs: list = []
+    reset_launches()  # this path's run starts here
+    with megakernel_gate_off(), forward_records(torch, engine_mod, recs):
+        ids = generate(engine, tok, TokenSampler(0.0, 0.9, SEED), prompt, out=io.StringIO(), max_tokens=DECODE_TOKENS)
+    launches = dict(LAUNCHES)  # and ends here
+    ctx["path_launches"]["megakernel_off"] = launches
+    need(len(ids) > 1, "gate-off generate stopped before its first decode step")
+    for rec in recs[1:]:
+        _expect(rec, {"qmatmul_w8a16": 4 * n_l + 1, "flash_decode": n_l}, "gate-off decode step")
+    steady_off = [r["seconds"] for r in recs[2:]]
+    out = {"generated": len(ids), "decode_step_ms": statistics.median(steady_off) * 1e3,
+           "decode_tok_per_s": 1.0 / statistics.median(steady_off),
+           "decode_step_ms_megakernel_same_call": statistics.median(steady_on) * 1e3, "launches": launches}
+    with megakernel_gate_off():
+        out["profile"] = profile_decode(torch, engine, prompt_ids=tok.encode(prompt))
+    out["profile_megakernel_same_call"] = profile_decode(torch, engine, prompt_ids=tok.encode(prompt))
+    emit({"phase": "e2e", "run": "decode with the megakernel gate off", **out})
+    return out
+
+
+def device_sampling_path(torch, ctx, cfg, engine, tok, prompt, host_ids) -> dict:
+    """generate with device sampling (decode_chunk: 64-step chunks on the
+    device): at -t 0 the host-greedy stream, at -t 0.8 repeatable per seed;
+    every chunk step one megakernel launch; a chunk with no host
+    synchronisation before its final copy (torch.cuda.set_sync_debug_mode
+    "error"), and its time per token."""
+    import numpy as np
+
+    from qwen3_rs_tpu_torch import TokenSampler, generate
+    from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    n_l = cfg.n_layers
+    reset_launches()  # this path's run starts here
+    before = dict(LAUNCHES)
+    greedy = generate(engine, tok, TokenSampler(0.0, 0.9, SEED, device=True), prompt, out=io.StringIO(),
+                      max_tokens=DECODE_TOKENS)
+    made = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
+    need(greedy == host_ids, "device-sampling greedy generate differs from the host-greedy stream")
+    need(made.get("decode_megakernel", 0) >= len(greedy) - 1 and set(made) == {"qmatmul_w8a16", "decode_megakernel"}
+         and made["qmatmul_w8a16"] == 4 * n_l + 1, f"device-sampling generate launched {made}")
+    sampled = [generate(engine, tok, TokenSampler(0.8, 0.9, 7, device=True), prompt, out=io.StringIO(),
+                        max_tokens=DECODE_TOKENS) for _ in range(2)]
+    need(sampled[0] == sampled[1] and len(sampled[0]) > 1, "device-sampling -t 0.8 is not repeatable per seed")
+    launches = dict(LAUNCHES)  # and ends here
+    ctx["path_launches"]["device_sampling"] = launches
+
+    # One chunk with no host synchronisation, timed; then its tokens on the host.
+    ids = np.asarray([tok.encode(prompt)])
+    logits, cache = engine.prefill(engine.new_cache(1), ids, np.zeros(1, np.int64))
+    first, pos, n = int(logits.float().argmax()), ids.shape[1], DECODE_TOKENS
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED)
+    engine.decode_chunk_device(cache, first, pos, 2, temperature=0.8, generator=gen)  # warm
+    torch.cuda.synchronize()
+    chunks = {}
+    for temp in (0.0, 0.8):
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            toks, cache = engine.decode_chunk_device(cache, first, pos, n, temperature=temp, topp=0.9, generator=gen)
+            end = torch.cuda.Event()
+            end.record()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        enqueue_s = time.perf_counter() - t0
+        end.synchronize()
+        chunks[temp] = {"steps": n, "enqueue_ms": enqueue_s * 1e3,
+                        "ms_per_token": (time.perf_counter() - t0) * 1e3 / n, "tokens": len(toks.cpu().tolist())}
+    out = {"greedy_equals_host": True, "generated": len(greedy), "t0.8_repeatable": True,
+           "chunk_t0": chunks[0.0], "chunk_t0.8": chunks[0.8], "sync_free_chunk": True, "launches": launches}
+    emit({"phase": "e2e", "run": "device sampling", **out})
+    return out
+
+
+def dense_b9_path(torch, ctx, cfg, engine) -> dict:
+    """A dense decode of 9 rows, which the megakernel gate refuses (B > 8):
+    every step keeps the per-layer kernels, 4·L+1 W8A16 and L flash decode."""
+    import numpy as np
+
+    from qwen3_rs_tpu_torch.models.qwen3 import init_kv_cache, qwen3_forward
+    from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    n_l, b = cfg.n_layers, 9
+    cache = init_kv_cache(cfg, b, dtype=torch.bfloat16, device=DEV)
+    rng = np.random.default_rng(SEED + 9)
+    pos = np.arange(b) * 100
+    seconds = []
+    reset_launches()  # this path's run starts here
+    for step in range(3):
+        before = dict(LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = qwen3_forward(cfg, engine.weights, rng.integers(0, cfg.vocab_size, (b, 1)), cache, pos + step)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        made = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
+        need(made == {"qmatmul_w8a16": 4 * n_l + 1, "flash_decode": n_l}, f"B=9 decode step launched {made}")
+        need(logits.shape == (b, cfg.vocab_size) and bool(torch.isfinite(logits).all()), "B=9 logits malformed")
+    launches = dict(LAUNCHES)  # and ends here
+    ctx["path_launches"]["dense_b9"] = launches
+    out = {"rows": b, "steps": 3, "step_ms": [x * 1e3 for x in seconds], "launches": launches}
+    emit({"phase": "e2e", "run": "dense decode B=9 (gate refuses)", **out})
+    del cache
+    torch.cuda.empty_cache()
+    return out
+
+
 def long_prompt_path(torch, ctx, cfg, engine, tok) -> dict:
     """Fast-mode generate on a ~3000-token prompt: a fresh 2048-row window
     (causal prefill kernel, row-blocked W8A16), a continuation window (split
@@ -948,7 +1252,7 @@ def long_prompt_path(torch, ctx, cfg, engine, tok) -> dict:
                               "causal_prefill_attention": n_l if long and off == 0 else 0,
                               "qmatmul_w8a16": 1 if long else 4 * n_l + 1}, f"prefill window {i}")
         for rec in recs[len(windows):]:
-            _expect(rec, {"qmatmul_w8a16": 4 * n_l + 1, "flash_decode": n_l}, "decode step")
+            _expect(rec, {"decode_megakernel": 1}, "decode step")
     ids, recs, t0 = runs[1]
     bounds = [prefill_ops(cfg, rows, cache_rows=off)["total"] / PEAK_OPS_PER_S["bf16"] * 1e3
               for off, rows in windows]
@@ -1148,7 +1452,9 @@ def _serve_run(torch, ctx, name, engine, traffic, n_layers, *, profile=True) -> 
     from qwen3_rs_tpu_torch.serving import Request
 
     paged = engine.kv_layout == "paged"
-    want = {"qmatmul_w8a16": 4 * n_layers + 1, "paged_decode" if paged else "flash_decode": n_layers}
+    # The pool's decode takes the per-layer kernels; the dense slots' (8 rows)
+    # the megakernel, with the idle slots' writes gated off.
+    want = {"qmatmul_w8a16": 4 * n_layers + 1, "paged_decode": n_layers} if paged else {"decode_megakernel": 1}
     recs: list = []
     _instrument_engine(torch, engine, recs)
     reqs = [Request(i, p, max_new_tokens=n, eos_token_ids=()) for i, (p, n) in enumerate(traffic)]
@@ -1439,6 +1745,8 @@ def phase_cli(torch, ctx) -> None:
         ("chat", 128, prompt_text(20), ["-m", "chat", "-y", "sys", "-t", "0.8", "-s", "3"], "fast"),
         ("generate exact", 512, prompt_text(200),
          ["-m", "generate", "-t", "0", "-s", "5", "--engine-mode", "exact"], "exact"),
+        ("generate device-sampling", 128, prompt_text(40),
+         ["-m", "generate", "-t", "0", "-s", "5", "--device-sampling"], "fast"),
     ]
     for case, ctx_len, prompt, flags, mode in cases:
         buf = io.StringIO()
@@ -1581,6 +1889,9 @@ def phase_parity(torch, ctx) -> None:
     lp, caches[1] = cpu.prefill(caches[1], prompt, np.zeros(1, np.int64))
     errs, agree = [], 0
     pos = prompt.shape[1]
+    from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES
+
+    mk_before = LAUNCHES["decode_megakernel"]
     for step in range(9):
         a, b = lc.float().cpu(), lp.float()
         need(a.shape == b.shape == (1, cfg.vocab_size) and bool(torch.isfinite(a).all()),
@@ -1595,7 +1906,8 @@ def phase_parity(torch, ctx) -> None:
         lc, caches[0] = card.decode_step(caches[0], [nxt], [pos])
         lp, caches[1] = cpu.decode_step(caches[1], [nxt], [pos])
         pos += 1
-    emit({"phase": "parity", "layers": cfg.n_layers, "width": cfg.dim, "steps": 1 + 8,
+    need(LAUNCHES["decode_megakernel"] - mk_before == 8, "card decode steps did not take the megakernel")
+    emit({"phase": "parity", "layers": cfg.n_layers, "width": cfg.dim, "steps": 1 + 8, "decode_via": "megakernel",
           "max_rel_err": max(errs), "tol_rel": tol_rel, "argmax_agree": agree,
           "seconds": time.perf_counter() - t0})
     parity_long_windows(torch, ctx)
@@ -1774,6 +2086,9 @@ def main(argv=None) -> int:
     paths = ctx.get("path_launches", {})
     launches = {name: sum(p.get(name, 0) for p in paths.values()) for name in
                 {r["name"] for r in ctx.get("kernel_rows", [])}}
+    if {"kernels", "e2e", "serve"} <= set(phases):
+        idle = sorted(name for name, n in launches.items() if n == 0)
+        need(not idle, f"no path launched {idle}")
     rows = [dict(r, launches=launches[r["name"]]) for r in ctx.get("kernel_rows", [])]
     emit({"kernels": rows, "e2e": ctx.get("e2e"), "serve": ctx.get("serve"),
           "total_seconds": time.perf_counter() - t_all})

@@ -2,9 +2,11 @@
 
 INT8-g64 Qwen3/Llama inference, perplexity evaluation and continuous-batching
 serving for one NVIDIA H100: the same checkpoints, tokenizer, sampler,
-generation loops, engine modes (fast W8A16, exact W8A8), ``eval-ppl`` and
-serving engine (dense slots or the page pool, prefix cache, chunked prefill,
-HTTP front end, host sampling) as the JAX package, with its
+generation loops (host sampling, or device sampling in on-device chunks),
+engine modes (fast W8A16, exact W8A8; a decode step through the whole-step
+megakernel), ``eval-ppl`` and serving engine (dense slots or the page pool,
+prefix cache, chunked prefill, HTTP front end, host sampling) as the JAX
+package, with its
 Pallas kernels replaced by hand-written CUDA kernels for Hopper (``csrc/``).
 Entry points run on the card unless the caller passes ``device="cpu"``,
 where the kernels' plain PyTorch versions run instead.

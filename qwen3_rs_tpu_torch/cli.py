@@ -2,14 +2,16 @@
 ``serve`` subcommands.
 
 The same flags, defaults and output as the reference package's subcommands,
-plus ``--device`` (default: the card).  Flags whose paths are not ported yet
-(``--device-sampling``, ``--spec``, ``--sp > 1``, ``--sampling device``,
+plus ``--device`` (default: the card).  ``--device-sampling`` runs the
+decode loop in on-device chunks (``Engine.decode_chunk``).  Flags whose paths
+are not ported yet (``--spec``, ``--sp > 1``, ``--sampling device``,
 ``--tp > 1``, ``--replicas > 1``, ``--gateway``) raise a "not ported" error
 naming the ROADMAP.md item; they never run something else.  ``--sampling``
 defaults to ``device`` as in the reference package, so ``batch`` and
 ``serve`` need ``--sampling host`` for now.
 
     python -m qwen3_rs_tpu_torch.cli inference CKPT -m generate -i "hello" -t 0
+    python -m qwen3_rs_tpu_torch.cli inference CKPT -m generate -i "hello" -t 0.8 --device-sampling
     python -m qwen3_rs_tpu_torch.cli inference CKPT -m generate -i "hello" --engine-mode exact
     python -m qwen3_rs_tpu_torch.cli eval-ppl CKPT -f text.txt --modes fast,exact,f32 -w 4096
     python -m qwen3_rs_tpu_torch.cli batch CKPT -f prompts.txt --sampling host --kv paged
@@ -65,7 +67,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     inf.add_argument(
         "--device-sampling", action="store_true",
-        help="sample on the device (not ported yet; the host xorshift sampler is the default)",
+        help="sample on the device, in chunks of decode steps that stay on the device "
+        "(the host xorshift sampler is the default)",
     )
     inf.add_argument(
         "--kv-int8", action="store_true", help="INT8 KV cache with per-row scales"

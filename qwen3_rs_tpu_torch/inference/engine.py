@@ -1,9 +1,10 @@
 """Inference engine: prefill and decode over a loaded checkpoint.
 
 The port of the reference package's ``inference/engine.py`` for the fast
-(W8A16) and exact (W8A8) engines with host sampling.  PyTorch runs eagerly,
-so there is no compile step and no bucket padding: a prompt window is
-exactly as long as the prompt.  ``prefill`` feeds prompts in windows of at
+(W8A16) and exact (W8A8) engines, with host sampling or, through
+``decode_chunk``, device sampling.  PyTorch runs eagerly, so there is no
+compile step and no bucket padding: a prompt window is exactly as long as the
+prompt.  ``prefill`` feeds prompts in windows of at
 most ``MAX_PREFILL_WINDOW`` rows; a window that starts at position 0 is a
 fresh prefill (the causal prefill kernel in fast mode), a later window
 attends over the cache rows the earlier ones wrote, as a chat turn does.
@@ -28,10 +29,12 @@ from ..models.qwen3 import (
     Qwen3Weights,
     cast_weight_scales,
     init_kv_cache,
+    megakernel_route,
+    megakernel_step,
     qwen3_forward,
     weights_to,
 )
-from ..ops.sampling import Sampler
+from ..ops.sampling import Sampler, sample_tokens
 
 logger = logging.getLogger(__name__)
 
@@ -131,6 +134,57 @@ class Engine:
             self.config, self.weights, tokens, cache, np.asarray(pos).reshape(-1), mode=self.mode
         )
 
+    def decode_chunk(
+        self, cache, token: int, pos: int, n_steps: int, *, temperature: float = 0.0, topp: float = 0.9,
+        generator: torch.Generator | None = None,
+    ) -> tuple[np.ndarray, KVCache | QuantizedKVCache]:
+        """``n_steps`` decode-and-sample steps of one request from ``token``
+        at ``pos``, on the device: returns the sampled ids [n_steps].  Its
+        device part is ``decode_chunk_device``.
+
+        The counterpart of the reference engine's on-device loop.  Room is
+        checked once, before the chunk; inside it the token and the position
+        stay on the device (a decode step through the megakernel: the
+        embedding row gathered from the device token, the RoPE rows from the
+        device position, one launch, ``sample_tokens``), and the ids come back
+        to the host once, at the end.  ``generator`` (on the engine's device;
+        default seed 0) draws the samples: greedy is exact, temperature > 0
+        reproducible per seed, not the reference's ``jax.random`` bits.
+        Where the gate refuses the shapes the steps take the per-layer path,
+        which reads the position on the host."""
+        tokens, cache = self.decode_chunk_device(cache, token, pos, n_steps, temperature=temperature, topp=topp,
+                                                 generator=generator)
+        return tokens.cpu().numpy(), cache
+
+    def decode_chunk_device(
+        self, cache, token: int, pos: int, n_steps: int, *, temperature: float = 0.0, topp: float = 0.9,
+        generator: torch.Generator | None = None,
+    ) -> tuple[torch.Tensor, KVCache | QuantizedKVCache]:
+        """``decode_chunk`` without its copy to the host: the sampled ids
+        [n_steps] stay on the device."""
+        if n_steps < 1 or pos < 0 or pos + n_steps > cache.seq_len:
+            raise ValueError(
+                f"a chunk of {n_steps} steps at position {pos} does not fit the cache of {cache.seq_len} rows"
+            )
+        dev = self.weights.embed.q.device
+        if generator is None:
+            generator = torch.Generator(device=dev)
+            generator.manual_seed(0)
+        token_dev = torch.full((1,), int(token), dtype=torch.long, device=dev)
+        fused = megakernel_route(self.config, cache, 1, 1, self.mode)
+        pos_dev = torch.full((1,), int(pos), dtype=torch.int32, device=dev)
+        out = []
+        for i in range(n_steps):
+            if fused:
+                logits = megakernel_step(self.config, self.weights, token_dev, cache, pos_dev)
+                pos_dev += 1
+            else:
+                logits, cache = qwen3_forward(self.config, self.weights, token_dev[:, None], cache, [pos + i],
+                                              mode=self.mode)
+            token_dev = sample_tokens(logits, generator, temperature, topp).long()
+            out.append(token_dev)
+        return torch.cat(out), cache
+
     def all_logits(self, cache, tokens, pos_start) -> tuple[torch.Tensor, KVCache | QuantizedKVCache]:
         """Logits for every position of one window: tokens [B, S] → [B, S, V]."""
         tokens = np.asarray(tokens, np.int64)
@@ -185,26 +239,45 @@ class TokenMetrics:
 
 
 class TokenSampler:
-    """Host sampling front-end for the generation loops (the reference
-    package's xorshift64* sampler, bit-exact)."""
+    """Sampling front-end for the generation loops: the reference package's
+    xorshift64* host sampler (bit-exact), or with ``device=True`` device
+    sampling (``sample_tokens``) from generators seeded off one seeded
+    stream, the counterpart of the reference's PRNG key splits."""
 
     def __init__(self, temperature: float, topp: float, seed: int, device: bool = False):
-        if device:
-            raise not_ported("device sampling", "queue 1: device sampling and decode_chunk")
         self.temperature = temperature
         self.topp = topp
-        self.device = False
+        self.device = device
         self._host = Sampler(temperature, topp, seed)
+        self._seeds = torch.Generator()
+        self._seeds.manual_seed(seed & 0xFFFFFFFFFFFFFFFF)
 
     def sample(self, logits: torch.Tensor) -> int:
         """logits [1, V] or [V] → token id."""
+        if self.device:
+            gen = self.next_generator(logits.device)
+            return int(sample_tokens(logits.reshape(1, -1), gen, self.temperature, self.topp)[0])
         return self._host.sample(logits.reshape(-1).float().cpu().numpy())
+
+    def _next_seed(self) -> int:
+        return int(torch.randint(0, 2**62, (1,), generator=self._seeds))
+
+    def next_generator(self, device="cpu") -> torch.Generator:
+        """A fresh generator on ``device`` for an on-device sampling chunk
+        (the reference's ``next_key``)."""
+        gen = torch.Generator(device=device)
+        gen.manual_seed(self._next_seed())
+        return gen
 
     def skip_draws(self, n: int):
         """Advance the RNG stream by n discarded draws: the reference chat loop
         samples once per fed prompt token and keeps only the last sample, and
-        each sample at temperature > 0 takes one coin."""
+        each sample at temperature > 0 takes one coin (on the device: one
+        generator)."""
         if self.temperature == 0.0 or n <= 0:
             return
         for _ in range(n):
-            self._host.rng.random_f32()
+            if self.device:
+                self._next_seed()
+            else:
+                self._host.rng.random_f32()

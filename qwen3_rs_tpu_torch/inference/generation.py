@@ -1,8 +1,10 @@
 """Generation loops: single-shot ``generate`` and interactive ``chat``.
 
-The port of the reference package's ``inference/generation.py`` on its
-host-sampler branches.  The prompt goes through prefill windows instead of
-a token-at-a-time feed.
+The port of the reference package's ``inference/generation.py``: the
+host-sampler loops, one decode step per token, and the device-sampling loops,
+one ``Engine.decode_chunk`` per chunk of tokens (64 in ``generate``, 32 in a
+chat turn).  The prompt goes through prefill windows instead of a
+token-at-a-time feed.
 
 Sampling parity: in chat mode the Rust reference draws one RNG coin per
 *prompt* token as well (it samples after every fed token and keeps only the
@@ -67,6 +69,14 @@ def generate(
     generated: list[int] = []
     pos = len(prompt_tokens) - 1
 
+    if sampler.device:
+        _generate_chunks(engine, tokenizer, sampler, logits, cache, pos, generated, metrics, decoder, out,
+                         max_tokens)
+        _emit(decoder.flush(), out)
+        metrics.report_and_reset()
+        _emit("\n", out)
+        return generated
+
     while True:
         metrics.start_generation()
         next_token = sampler.sample(logits)
@@ -86,6 +96,41 @@ def generate(
     metrics.report_and_reset()
     _emit("\n", out)
     return generated
+
+
+def _generate_chunks(engine, tokenizer, sampler, logits, cache, pos, generated, metrics, decoder, out,
+                     max_tokens, chunk_size: int = 64) -> None:
+    """The device branch of ``generate``: forward and sampling of each chunk on
+    the device, one ``decode_chunk`` call per chunk; a chunk's last token is
+    the next chunk's input, emitted at the top of the loop as the single-step
+    loop emits it.  A chunk never outruns ``max_tokens``."""
+    metrics.start_generation()
+    next_token = sampler.sample(logits)
+    metrics.increment()
+    done = tokenizer.is_termination(next_token)
+    pos += 1  # next_token is fed at position len(prompt)
+    seq_len = engine.config.seq_len
+    while not done:
+        generated.append(next_token)
+        _emit(decoder.push(tokenizer.decode_bytes(next_token)), out)
+        if pos >= seq_len or len(generated) == max_tokens:
+            break
+        n = min(chunk_size, seq_len - pos)
+        if max_tokens is not None:
+            n = min(n, max_tokens - len(generated))
+        chunk, cache = engine.decode_chunk(cache, next_token, pos, n, temperature=sampler.temperature,
+                                           topp=sampler.topp, generator=sampler.next_generator(engine.device))
+        pos += n
+        for t in chunk[:-1]:
+            t = int(t)
+            metrics.increment()
+            if tokenizer.is_termination(t):
+                return
+            generated.append(t)
+            _emit(decoder.push(tokenizer.decode_bytes(t)), out)
+        next_token = int(chunk[-1])
+        metrics.increment()
+        done = tokenizer.is_termination(next_token)
 
 
 def render_prompt(
@@ -180,6 +225,31 @@ def chat(
                 continue
             metrics.start_generation()
             _emit(decoder.push(tokenizer.decode_bytes(next_token)), out)
+            if sampler.device:
+                # A chunk of the turn on the device.  Rows written past a
+                # termination token inside the chunk are overwritten before
+                # any query reads them: the next turn prefills from there.
+                n = min(32, seq_len - pos)
+                if max_tokens is not None:
+                    n = min(n, max_tokens - turn_tokens)
+                chunk_toks, cache = engine.decode_chunk(
+                    cache, next_token, pos, n, temperature=sampler.temperature, topp=sampler.topp,
+                    generator=sampler.next_generator(engine.device),
+                )
+                taken = n
+                for idx in range(n - 1):
+                    t = int(chunk_toks[idx])
+                    metrics.increment()
+                    if tokenizer.is_termination(t):
+                        taken = idx + 1
+                        break
+                    _emit(decoder.push(tokenizer.decode_bytes(t)), out)
+                else:
+                    metrics.increment()
+                next_token = int(chunk_toks[taken - 1])
+                turn_tokens += taken
+                pos += taken
+                continue
             logits, cache = engine.decode_step(
                 cache, np.asarray([next_token]), np.asarray([pos])
             )

@@ -1,8 +1,13 @@
 """Qwen3 forward pass over stacked per-layer weights and a dense KV cache or
 the serving page pool.
 
-The port of the reference package's ``models/qwen3.py::qwen3_forward`` on
-the path it takes with its decode megakernel off, in three modes:
+The port of the reference package's ``models/qwen3.py::qwen3_forward``.  A
+fast-mode decode step (S = 1) over the dense cache whose shapes pass the
+reference's gate (``megakernel_supported``: B ≤ 8, head_dim 128, tileable
+widths; at 8B and ctx 4096 it passes) is one launch of the decode megakernel
+(``megakernel_step``), the classifier fused where ``head_phase_supported``
+admits it; its residual stream is f32.  Every other call takes the per-layer
+path, in three modes:
 
 * ``fast`` (W8A16).  Windows of at most 256 rows: every projection is the
   fused W8A16 kernel (RMSNorm prologue for wqkv and w13, residual epilogue
@@ -26,7 +31,7 @@ On CPU tensors the kernel wrappers run their plain PyTorch versions.
 Layouts as in the reference package: linear weights in-major, codes
 ``[L, in, out]`` with scales ``[L, in/g, out]``; the cache ``[L, B, kv, T, hd]``,
 the page pool ``[L, P, kv, page, hd]`` (``serving/paged_cache.py``).
-The residual stream is bf16 (f32 in exact mode).
+The residual stream is bf16 (f32 in exact mode and in the megakernel).
 
 Unlike the reference package, which emits the window's K/V rows from its
 layer scan and scatters them into the cache once after the last layer, the
@@ -46,6 +51,7 @@ import torch
 from ..configuration import ModelConfig
 from ..ops.attention import gqa_attention_split, gqa_attention_split_paged
 from ..ops.kernels.flash_attention import flash_decode
+from ..ops.kernels.megakernel import decode_stack_megakernel, head_phase_supported, megakernel_supported
 from ..ops.kernels.paged_attention import paged_decode, paged_window_attention, window_supported
 from ..ops.kernels.prefill_attention import causal_prefill_attention
 from ..ops.kernels.qmatmul import MAX_ROWS, dequant_w8_stacked, qmatmul_w8a16, qmatmul_w8a16_rows
@@ -290,6 +296,49 @@ def _head(config, weights, x, mode: str) -> torch.Tensor:
     return logits[..., : config.vocab_size].float()
 
 
+def megakernel_route(config: ModelConfig, cache, batch: int, rows: int, mode: str = "fast",
+                     paged: bool = False) -> bool:
+    """Whether a forward call takes the decode megakernel: a fast-mode decode
+    step (one row per request) over the dense cache, on the shapes the
+    reference package's gate admits.  The gate looks at shapes only, so the
+    card and the CPU route alike."""
+    return (not paged and mode == "fast" and rows == 1
+            and megakernel_supported(config, cache.seq_len, cache.k.dtype, batch))
+
+
+def megakernel_step(config: ModelConfig, weights: Qwen3Weights, tokens: torch.Tensor, cache, pos: torch.Tensor,
+                    write_ok: torch.Tensor | None = None, *, greedy_head: bool = False) -> torch.Tensor:
+    """One decode step through the megakernel, from device tensors only (no
+    host synchronisation): tokens ``[B]`` ints and pos ``[B]`` int32 on the
+    weights' device, write_ok ``[B]`` or None.  Returns the logits
+    ``[B, vocab_size]`` f32, or with ``greedy_head`` the first-max argmax
+    ``[B]`` int32; the cache is updated in place.
+
+    The embedding row is rounded to bf16, the stream's dtype in fast mode, as
+    the reference casts it before its call.  Where the classifier is not
+    fused, it runs after the kernel on the f32 stream."""
+    c, lw = config, weights.layers
+    dev = weights.embed.q.device
+    tokens = tokens.reshape(-1).long()
+    x = dequantize(QuantizedTensor(weights.embed.q[tokens], weights.embed.scales[tokens]))
+    x = x.to(torch.bfloat16).float()
+    cos_t, sin_t = rope_table(cache.seq_len, c.head_dim, c.rope_theta, dev)
+    rows = pos.long().clamp(0, cache.seq_len - 1)
+    fuse = head_phase_supported(c, weights.lm_head.q.shape[-1])
+    greedy = greedy_head and fuse
+    x_out, head = decode_stack_megakernel(
+        c, x, lw.rms_att, lw.rms_ffn, lw.q_norm, lw.k_norm, cos_t[rows], sin_t[rows],
+        lw.wqkv, lw.wo, lw.w13, lw.w2, cache.k, cache.v, pos,
+        weights.rms_final if fuse else None, weights.lm_head if fuse else None, write_ok,
+        k_scale=getattr(cache, "k_scale", None), v_scale=getattr(cache, "v_scale", None),
+        eps=c.norm_eps, greedy=greedy,
+    )
+    if greedy:
+        return head
+    logits = head[:, : c.vocab_size] if fuse else _head(c, weights, x_out, "fast")
+    return logits.argmax(dim=-1).to(torch.int32) if greedy_head else logits
+
+
 def qwen3_forward(
     config: ModelConfig,
     weights: Qwen3Weights,
@@ -303,6 +352,7 @@ def qwen3_forward(
     fresh_prefill: bool = False,
     page_table=None,
     write_mask=None,
+    greedy_head: bool = False,
 ):
     """One model step: prefill when S > 1, decode when S == 1.
 
@@ -318,6 +368,8 @@ def qwen3_forward(
     write nothing into the cache (idle and mid-prefill serving slots).
     Returns (logits [B, vocab_size] f32, or [B, S, vocab_size] with
     ``return_all_logits``; cache), the cache updated in place.
+    ``greedy_head`` returns the first-max argmax of those logits (int32) in
+    their place; the megakernel fuses it into its classifier phase.
     """
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} is not one of {MODES}")
@@ -340,6 +392,11 @@ def qwen3_forward(
         )
     if fresh_prefill and pos.any():
         raise ValueError(f"fresh_prefill with positions {pos.tolist()}: a fresh window starts at 0")
+    if megakernel_route(config, cache, b, s, mode, paged):
+        ok = None if write_mask is None else torch.as_tensor(np.asarray(write_mask, bool), device=dev)
+        out = megakernel_step(config, weights, tokens[:, 0], cache, torch.as_tensor(pos, dtype=torch.int32, device=dev),
+                              ok, greedy_head=greedy_head)
+        return (out[:, None] if return_all_logits else out), cache
     c = config
     eps, g = c.norm_eps, c.group_size
     bf16 = torch.bfloat16
@@ -438,4 +495,7 @@ def qwen3_forward(
         else:
             rows = torch.as_tensor(np.asarray(out_idx, np.int64).reshape(b), device=dev)
             x = x[torch.arange(b, device=dev), rows]
-    return _head(c, weights, x, mode), cache
+    logits = _head(c, weights, x, mode)
+    if greedy_head:
+        return logits.argmax(dim=-1).to(torch.int32), cache
+    return logits, cache

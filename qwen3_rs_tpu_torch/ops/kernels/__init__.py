@@ -18,6 +18,7 @@ LAUNCHES: dict[str, int] = {
     "causal_prefill_attention": 0,
     "paged_decode": 0,
     "paged_window_partials": 0,
+    "decode_megakernel": 0,
 }
 
 

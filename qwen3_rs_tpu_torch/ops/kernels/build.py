@@ -23,7 +23,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = (
     "qmatmul_w8a16", "flash_decode", "qmatmul_rows", "dequant", "qmatmul_a8", "prefill_attention",
-    "paged_attention",
+    "paged_attention", "decode_megakernel",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

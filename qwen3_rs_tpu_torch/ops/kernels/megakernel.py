@@ -1,0 +1,415 @@
+"""Whole-step decode megakernel: the Hopper kernel, its plain version and its
+shape gate.
+
+``decode_stack_megakernel`` runs one whole decode step of B ≤ 8 rows over the
+dense cache: every layer (RMSNorm, wqkv, QK-norm and RoPE, attention over the
+cache rows below each row's position seeded with the step's own key, the
+step's K/V row written in place, wo and the residual, RMSNorm, w13, SwiGLU, w2
+and the residual) and, optionally, the final RMSNorm and the classifier, or
+its first-max argmax.  It replaces the reference package's
+``decode_stack_megakernel`` (``ops/pallas/megakernel.py``).
+
+Numerics, as the reference kernel's (which differ from the per-layer path):
+the residual stream is f32; each matmul rounds its activation to bf16 at the
+dot, each weight element is ``bf16(bf16(code) · bf16(scale))``, sums are f32;
+attention is f32 with q scaled by ``1/√128`` after RoPE, over the rows below
+``min(pos, T)``; the K/V row goes to ``min(pos, T - 1)`` in the cache's dtype
+where ``write_ok`` (INT8: scale ``amax/127``, codes rounded half to even),
+after every read of its layer.
+
+For a CPU tensor the wrapper runs the plain PyTorch version; for a CUDA
+tensor it makes one cooperative launch of ``csrc/decode_megakernel.cu`` or
+raises.  ``megakernel_supported`` and ``head_phase_supported`` are the
+reference package's gates, with its default budgets, so that the port takes
+the kernel on exactly the shapes the reference takes it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from . import LAUNCHES, build
+from .qmatmul import qmatmul_w8a16_plain
+
+HEAD_DIM = 128  # the kernel's head_dim
+CHUNK = 128  # cache rows per attention item of the kernel
+MAX_BATCH = 8  # rows per step the gate admits (the reference's default)
+_CACHE_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+# ------------------------------------------------------------------ the gate
+# The reference package's tile plans, kept only to decide where the kernel
+# engages: its default code-byte budget per weight tile (2 MB; 6 MB at dim
+# 2560, where full-depth tiles are admitted), the classifier phase's budget
+# and widest tile, the cache-block candidates and the INT8 scale block.
+_BLK_CANDIDATES = (512, 256, 128)
+_SCALE_BLK = 128
+_HEAD_TD_CAP = 8192
+
+
+def _pick_blk(t: int) -> int | None:
+    for b in _BLK_CANDIDATES:
+        if t % b == 0:
+            return b
+    return None
+
+
+def _mk_tiles(n: int, d: int, g: int, tile_bytes: int, td_cap: int = 4096,
+              full_depth: bool = False) -> tuple[int, int] | None:
+    """(tn, td) dividing (n, d): tn a multiple of g with 8-aligned group rows
+    (or tn == n) and at most 1024 rows (or n, with ``full_depth``), td a
+    multiple of 256 up to ``td_cap`` (or d, 128-aligned); the largest tile
+    whose codes fit ``tile_bytes``, then the most tiles."""
+    tn_cands = [c for c in range(g, n + 1, g) if n % c == 0 and ((c // g) % 8 == 0 or c == n) and c <= 1024]
+    if not tn_cands and n % g == 0:
+        tn_cands = [n]
+    if full_depth and n % g == 0 and (n // g) % 8 == 0 and n not in tn_cands:
+        tn_cands.append(n)
+    td_cands = [c for c in range(256, d + 1, 256) if d % c == 0 and c <= td_cap]
+    if not td_cands and d % 128 == 0:
+        td_cands = [d]
+    best = None
+    for tn in tn_cands:
+        for td in td_cands:
+            code_bytes = tn * td
+            if code_bytes > tile_bytes:
+                continue
+            key = (code_bytes, -((n // tn) * (d // td)))
+            if best is None or key > best[0]:
+                best = (key, tn, td)
+    return None if best is None else (best[1], best[2])
+
+
+def _tile_budget(dim: int) -> int:
+    return 6 * 1024 * 1024 if dim == 2560 else 2 * 1024 * 1024
+
+
+def megakernel_supported(config, t: int, dtype, batch: int = 1) -> bool:
+    """Whether a decode step of ``batch`` rows over a dense cache of ``t`` rows
+    of ``dtype`` (``torch.float32``, ``torch.bfloat16``, ``torch.int8`` or
+    ``"int8"``) takes the megakernel: the reference package's gate."""
+    dtype = torch.int8 if dtype == "int8" else dtype
+    if dtype not in _CACHE_TYPES or batch > MAX_BATCH:
+        return False
+    if config.head_dim != HEAD_DIM or config.n_heads % config.n_kv_heads:
+        return False
+    blk = _pick_blk(t)
+    if blk is None or (dtype == torch.int8 and (t % _SCALE_BLK or blk % _SCALE_BLK)):
+        return False
+    g = config.group_size
+    full_depth = config.dim == 2560
+    for n, d in (
+        (config.dim, config.all_heads_dim + 2 * config.kv_dim),
+        (config.all_heads_dim, config.dim),
+        (config.dim, 2 * config.hidden_dim),
+        (config.hidden_dim, config.dim),
+    ):
+        tiles = _mk_tiles(n, d, g, _tile_budget(config.dim), full_depth=full_depth)
+        if tiles is None or (tiles[0] // g) % 8:
+            return False
+    return True
+
+
+def head_phase_supported(config, v_pad: int) -> bool:
+    """Whether the classifier runs as the kernel's last phase (the reference
+    package's gate, with its default budget)."""
+    budget = 2 * 1024 * 1024 if config.dim <= 2048 else 6 * 1024 * 1024
+    tiles = _mk_tiles(config.dim, v_pad, config.group_size, budget, td_cap=_HEAD_TD_CAP,
+                      full_depth=config.dim == 2560)
+    return tiles is not None and (tiles[0] // config.group_size) % 8 == 0
+
+
+# ------------------------------------------------------------ plain version
+def _layer_attention(q, k_new, v_new, k_all, v_all, k_sc, v_sc, p):
+    """f32 attention of one layer: q [B, H, hd] (scaled), the self key and
+    value [B, KV, hd], cache rows [B, KV, T, hd] below p [B] (device ints),
+    scales [B, KV, T] or None."""
+    b, h, hd = q.shape
+    n_kv, t = k_all.shape[1], k_all.shape[2]
+    qs = q.reshape(b, n_kv, h // n_kv, hd)
+    s_self = torch.einsum("bnmh,bnh->bnm", qs, k_new)[..., None]
+    sc = torch.einsum("bnmh,bnth->bnmt", qs, k_all.float())
+    if k_sc is not None:
+        sc = sc * k_sc[:, :, None, :]
+    valid = torch.arange(t, device=q.device)[None, :] < p[:, None]  # [B, T]
+    sc = torch.where(valid[:, None, None, :], sc, float("-inf"))
+    vc = torch.where(valid[:, None, :, None], v_all.float(), 0.0)  # rows >= p take no part
+    scores = torch.cat([s_self, sc], dim=-1)
+    e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    denom = e.sum(dim=-1, keepdim=True)
+    pc = e[..., 1:]
+    if v_sc is not None:
+        pc = pc * torch.where(valid[:, None, :], v_sc, 0.0)[:, :, None, :]
+    out = e[..., :1] * v_new[:, :, None, :] + torch.einsum("bnmt,bnth->bnmh", pc, vc)
+    return (out / denom).reshape(b, h * hd)
+
+
+def _quant_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row INT8 over the last axis: scale ``amax/127``."""
+    sc = x.abs().amax(dim=-1) / 127.0
+    safe = torch.where(sc == 0.0, torch.ones_like(sc), sc)
+    return torch.round(x / safe[..., None]).to(torch.int8), sc
+
+
+def _rms_rows(m, w, eps):
+    return m * torch.rsqrt((m * m).mean(dim=-1, keepdim=True) + eps) * w
+
+
+def _rope(m, cos, sin):
+    half = m.shape[-1] // 2
+    m1, m2 = m[..., :half], m[..., half:]
+    return torch.cat([m1 * cos - m2 * sin, m1 * sin + m2 * cos], dim=-1)
+
+
+def decode_stack_megakernel_plain(
+    config, x, rms_att, rms_ffn, q_norm, k_norm, cos, sin, wqkv, wo, w13, w2, k_cache, v_cache, pos,
+    rms_final=None, lm_head=None, write_ok=None, k_scale=None, v_scale=None, *, eps=1e-6,
+    greedy=False,
+):
+    """Plain PyTorch version: the same arguments and results as
+    ``decode_stack_megakernel``, up to the f32 summation order.  It reads
+    positions and gates on the device (no host synchronisation)."""
+    c = config
+    b = x.shape[0]
+    t = k_cache.shape[3]
+    ah, kvd, hd, n_kv = c.all_heads_dim, c.kv_dim, c.head_dim, c.n_kv_heads
+    pos = pos.to(device=x.device, dtype=torch.long).reshape(b)
+    p_read = pos.clamp(0, t)
+    rows = pos.clamp(0, t - 1)
+    ok = torch.ones(b, dtype=torch.bool, device=x.device) if write_ok is None else (
+        write_ok.to(device=x.device).reshape(b) != 0)
+    bi = torch.arange(b, device=x.device)
+    cos_r, sin_r = cos.float()[:, None, :], sin.float()[:, None, :]
+    x = x.float()
+    for l in range(k_cache.shape[0]):
+        qkv = qmatmul_w8a16_plain(x, wqkv, l, norm_w=rms_att, eps=eps)
+        q = qkv[:, :ah].reshape(b, c.n_heads, hd)
+        k = qkv[:, ah : ah + kvd].reshape(b, n_kv, hd)
+        v = qkv[:, ah + kvd :].reshape(b, n_kv, hd)
+        if c.use_qk_norm:
+            q = _rms_rows(q, q_norm[l].float(), eps)
+            k = _rms_rows(k, k_norm[l].float(), eps)
+        q = _rope(q, cos_r, sin_r) * (1.0 / hd**0.5)
+        k = _rope(k, cos_r, sin_r)
+        quant = k_scale is not None
+        att = _layer_attention(q, k, v, k_cache[l], v_cache[l], k_scale[l] if quant else None,
+                               v_scale[l] if quant else None, p_read)
+        # The step's rows, after every read of this layer; masked rows keep theirs.
+        if quant:
+            for new, codes, scales in ((k, k_cache, k_scale), (v, v_cache, v_scale)):
+                nq, ns = _quant_rows(new)
+                codes[l, bi, :, rows] = torch.where(ok[:, None, None], nq, codes[l, bi, :, rows])
+                scales[l, bi, :, rows] = torch.where(ok[:, None], ns, scales[l, bi, :, rows])
+        else:
+            for new, cache in ((k, k_cache), (v, v_cache)):
+                cache[l, bi, :, rows] = torch.where(ok[:, None, None], new.to(cache.dtype), cache[l, bi, :, rows])
+        x = qmatmul_w8a16_plain(att, wo, l, residual=x)
+        gate_up = qmatmul_w8a16_plain(x, w13, l, norm_w=rms_ffn, eps=eps)
+        x = qmatmul_w8a16_plain(gate_up, w2, l, swiglu=True, residual=x)
+    if lm_head is None:
+        if greedy:
+            raise ValueError("greedy decode needs the fused head (lm_head and rms_final)")
+        return x, None
+    logits = qmatmul_w8a16_plain(x, lm_head, None, norm_w=rms_final.float(), eps=eps)
+    if greedy:
+        return x, logits[:, : c.vocab_size].argmax(dim=-1).to(torch.int32)  # first max
+    return x, logits
+
+
+# ------------------------------------------------------------------ the kernel
+class _MatPlan(ctypes.Structure):
+    _fields_ = [("codes", ctypes.c_void_p), ("scales", ctypes.c_void_p), ("n", ctypes.c_int),
+                ("d", ctypes.c_int), ("splits", ctypes.c_int), ("kc", ctypes.c_int)]
+
+
+_PTRS = ("x_in", "x_out", "rms_att", "rms_ffn", "q_norm", "k_norm", "rms_final", "cos", "sin", "k_cache",
+         "v_cache", "k_scale", "v_scale", "pos", "write_ok", "logits", "tokens", "part", "att", "act",
+         "red_val", "red_idx")
+_INTS = ("B", "dim", "ah", "kvd", "hidden", "n_kv", "kv_mul", "T", "L", "g", "vocab", "v_pad",
+         "cache_type", "use_qk_norm", "has_head", "greedy")
+
+
+class _Params(ctypes.Structure):
+    """The mirror of ``struct Params`` in ``csrc/decode_megakernel.cu``."""
+
+    _fields_ = ([("mat", _MatPlan * 5)] + [(n, ctypes.c_void_p) for n in _PTRS]
+                + [(n, ctypes.c_int) for n in _INTS] + [("eps", ctypes.c_float), ("scale", ctypes.c_float)])
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = build.load("decode_megakernel")
+    lib.decode_megakernel.argtypes = [ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.decode_megakernel.restype = ctypes.c_int
+    lib.decode_megakernel_grid.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.decode_megakernel_grid.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _grid(bt: int, device_index: int) -> int:
+    """The kernel's cooperative grid on the current device (cached per device)."""
+    out = ctypes.c_int(0)
+    build.check(_lib().decode_megakernel_grid(bt, ctypes.byref(out)), "decode_megakernel occupancy")
+    return out.value
+
+
+def _row_tile(b: int) -> int:
+    for bt in (1, 2, 4, 8):
+        if b <= bt:
+            return bt
+    raise ValueError(f"decode_stack_megakernel: {b} rows; the kernel takes at most {MAX_BATCH}")
+
+
+@functools.cache
+def split_plan(n: int, d: int, rows: int, grid: int, g: int) -> tuple[int, int]:
+    """(splits, rows per split) of a matmul phase: the split of the
+    contraction into multiples of 64 rows that gives the slowest block the
+    fewest bytes, counting the codes and scales it streams over its rounds
+    of (512-column strip, split) items and its share of the partials written
+    and read back."""
+    strips = -(-d // 512)
+    per_row = min(512, d) * (1.0 + 2.0 / g)
+    best = None
+    for want in range(1, n // 64 + 1):
+        kc = -(-n // want // 64) * 64
+        splits = -(-n // kc)
+        rounds = -(-strips * splits // grid)
+        cost = rounds * kc * per_row + splits * rows * d * 8.0 / grid
+        if best is None or cost < best[0]:
+            best = (cost, splits, kc)
+    return best[1], best[2]
+
+
+def _mat_shapes(config, v_pad: int | None) -> dict[str, tuple[int, int]]:
+    """(N, D) of each matmul phase, in the kernel's order (the classifier
+    only with ``v_pad``)."""
+    c = config
+    shapes = {"wqkv": (c.dim, c.all_heads_dim + 2 * c.kv_dim), "wo": (c.all_heads_dim, c.dim),
+              "w13": (c.dim, 2 * c.hidden_dim), "w2": (c.hidden_dim, c.dim)}
+    if v_pad:
+        shapes["lm_head"] = (c.dim, v_pad)
+    return shapes
+
+
+def _need(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"decode_stack_megakernel: {msg}")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def decode_stack_megakernel(
+    config, x, rms_att, rms_ffn, q_norm, k_norm, cos, sin, wqkv, wo, w13, w2, k_cache, v_cache, pos,
+    rms_final=None, lm_head=None, write_ok=None, k_scale=None, v_scale=None, *, eps=1e-6,
+    greedy=False,
+):
+    """One whole decode step over every layer → ``(x_out [B, dim] f32,
+    head)``: ``head`` is the logits ``[B, v_pad]`` f32 with ``lm_head`` and
+    ``rms_final``, the first-max argmax ``[B]`` int32 over the first
+    ``vocab_size`` columns with ``greedy``, else None.
+
+    x ``[B, dim]`` (the embedded tokens, f32), the norm weights ``[L, dim]``
+    and ``[L, hd]`` f32, cos/sin ``[B, hd/2]`` f32 (RoPE rows at each
+    position), the linear weights stacked ``[L, N, D]`` with bf16 scales,
+    the caches ``[L, B, n_kv, T, hd]`` (f32, bf16, or int8 with f32 scales
+    ``[L, B, n_kv, T]``), pos ``[B]`` int32, write_ok ``[B]`` (None: every
+    row writes).  The caches are updated in place.
+    """
+    if x.device.type == "cpu":
+        return decode_stack_megakernel_plain(
+            config, x, rms_att, rms_ffn, q_norm, k_norm, cos, sin, wqkv, wo, w13, w2, k_cache, v_cache, pos,
+            rms_final, lm_head, write_ok, k_scale, v_scale, eps=eps, greedy=greedy,
+        )
+    _need(x.device.type == "cuda", f"tensors on {x.device} are neither CPU nor CUDA")
+    c = config
+    b, dim = x.shape
+    n_layers, cb, n_kv, t, hd = k_cache.shape
+    dev = x.device
+    _need(1 <= b <= MAX_BATCH and cb == b, f"{b} rows over a cache of {cb}; the kernel takes 1..{MAX_BATCH}")
+    _need(hd == HEAD_DIM == c.head_dim and dim == c.dim and n_kv == c.n_kv_heads, "shapes do not fit the config")
+    _need(1 <= c.kv_mul <= 8, f"kv_mul {c.kv_mul}: the kernel takes 1..8 query heads per kv head")
+    _need(k_cache.dtype in _CACHE_TYPES and v_cache.dtype == k_cache.dtype and v_cache.shape == k_cache.shape,
+          "k_cache and v_cache must be f32, bf16 or int8 of one shape")
+    _need(k_cache.is_contiguous() and v_cache.is_contiguous(), "the caches must be contiguous")
+    quant = k_cache.dtype == torch.int8
+    _need(quant == (k_scale is not None) == (v_scale is not None), "an INT8 cache needs both scales")
+    if quant:
+        for s in (k_scale, v_scale):
+            _need(s.shape == k_cache.shape[:-1] and s.dtype == torch.float32 and s.is_contiguous(),
+                  "scales must be contiguous f32 [L, B, n_kv, T]")
+    _need((lm_head is None) == (rms_final is None), "the head needs lm_head and rms_final")
+    _need(not greedy or lm_head is not None, "greedy decode needs the fused head (lm_head and rms_final)")
+    _need(pos.dtype == torch.int32 and pos.shape == (b,) and pos.is_contiguous(), "pos must be int32 [B]")
+    g = c.group_size
+    _need(g % 4 == 0, f"group size {g} must be a multiple of 4")
+    mats = [wqkv, wo, w13, w2] + ([lm_head] if lm_head is not None else [])
+    shapes = list(_mat_shapes(c, lm_head.q.shape[-1] if lm_head is not None else None).values())
+    f32 = torch.float32
+    vecs = [x, rms_att, rms_ffn, q_norm, k_norm, cos, sin] + ([rms_final] if lm_head is not None else [])
+    vecs = [v.contiguous() if v.dtype == f32 else v.float().contiguous() for v in vecs]
+    x, rms_att, rms_ffn, q_norm, k_norm, cos, sin = vecs[:7]
+    rms_final = vecs[7] if lm_head is not None else None
+    _need(cos.shape == sin.shape == (b, hd // 2), "cos/sin must be [B, hd/2]")
+    _need(rms_att.shape == rms_ffn.shape == (n_layers, dim) and q_norm.shape == k_norm.shape == (n_layers, hd),
+          "norm weights must be [L, dim] and [L, hd]")
+    for w, (n, d), name in zip(mats, shapes, ("wqkv", "wo", "w13", "w2", "lm_head")):
+        stacked = name != "lm_head"
+        _need(w.q.shape == ((n_layers, n, d) if stacked else (n, d)) and w.q.dtype == torch.int8
+              and w.q.is_contiguous(), f"{name} codes {tuple(w.q.shape)} do not fit")
+        _need(w.scales.shape == ((n_layers, n // g, d) if stacked else (n // g, d))
+              and w.scales.dtype == torch.bfloat16 and w.scales.is_contiguous(),
+              f"{name} scales must be contiguous bf16 (cast_weight_scales does that)")
+        _need(n % 64 == 0 and d % 16 == 0 and w.q.data_ptr() % 16 == 0 and w.scales.data_ptr() % 16 == 0,
+              f"{name}: N={n} must be a multiple of 64, D={d} of 16, the weights 16-byte aligned")
+    ok = None
+    if write_ok is not None:
+        ok = write_ok.to(torch.int32).reshape(b).contiguous()
+    tensors = [k_cache, v_cache, pos, *vecs] + [t_ for w in mats for t_ in w] + [
+        s for s in (k_scale, v_scale, ok) if s is not None]
+    _need(all(t_.device == dev for t_ in tensors), "all tensors must be on one device")
+
+    bt = _row_tile(b)
+    grid = _grid(bt, dev.index if dev.index is not None else torch.cuda.current_device())
+    plans = [split_plan(n, d, b, grid, g) for n, d in shapes]
+    n_chunks = -(-t // CHUNK)
+    part = torch.empty(max(s * b * d for (s, _), (_, d) in zip(plans, shapes)), dtype=f32, device=dev)
+    att = torch.empty(b * n_kv * n_chunks * c.kv_mul * (2 + hd), dtype=f32, device=dev)
+    act = torch.empty(b * max(c.all_heads_dim, c.hidden_dim), dtype=f32, device=dev)
+    x_out = torch.empty(b, dim, dtype=f32, device=dev)
+    v_pad = lm_head.q.shape[-1] if lm_head is not None else 0
+    logits = torch.empty(b, v_pad, dtype=f32, device=dev) if lm_head is not None else None
+    tokens = torch.empty(b, dtype=torch.int32, device=dev) if greedy else None
+    red_val = torch.empty(grid * b, dtype=f32, device=dev) if greedy else None
+    red_idx = torch.empty(grid * b, dtype=torch.int32, device=dev) if greedy else None
+
+    prm = _Params()
+    for i, (w, (n, d), (splits, kc)) in enumerate(zip(mats, shapes, plans)):
+        prm.mat[i] = _MatPlan(w.q.data_ptr(), w.scales.data_ptr(), n, d, splits, kc)
+    ptrs = dict(x_in=x, x_out=x_out, rms_att=rms_att, rms_ffn=rms_ffn, q_norm=q_norm, k_norm=k_norm,
+                rms_final=rms_final, cos=cos, sin=sin, k_cache=k_cache, v_cache=v_cache, k_scale=k_scale,
+                v_scale=v_scale, pos=pos, write_ok=ok, logits=logits, tokens=tokens, part=part, att=att,
+                act=act, red_val=red_val, red_idx=red_idx)
+    for name in _PTRS:
+        setattr(prm, name, _ptr(ptrs[name]))
+    ints = dict(B=b, dim=dim, ah=c.all_heads_dim, kvd=c.kv_dim, hidden=c.hidden_dim, n_kv=n_kv, kv_mul=c.kv_mul,
+                T=t, L=n_layers, g=g, vocab=c.vocab_size, v_pad=v_pad, cache_type=_CACHE_TYPES[k_cache.dtype],
+                use_qk_norm=int(c.use_qk_norm), has_head=int(lm_head is not None), greedy=int(greedy))
+    for name in _INTS:
+        setattr(prm, name, ints[name])
+    prm.eps, prm.scale = eps, 1.0 / math.sqrt(hd)
+    err = _lib().decode_megakernel(ctypes.byref(prm), bt, grid, torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "decode_stack_megakernel")
+    LAUNCHES["decode_megakernel"] += 1
+    return x_out, (tokens if greedy else logits)
+
+
+def split_plans(config, b: int, grid: int, v_pad: int | None = None) -> dict[str, tuple[int, int]]:
+    """The kernel's (splits, rows per split) of each matmul phase at ``b``
+    rows on a grid of ``grid`` blocks (for reports)."""
+    return {k: split_plan(n, d, b, grid, config.group_size) for k, (n, d) in _mat_shapes(config, v_pad).items()}

@@ -161,3 +161,19 @@ def paged_read_bytes(pos, n_kv: int, head_dim: int, elem_bytes: int) -> int:
     scales).  The least input of kernels #9 and #10; their query, output
     and page-table bytes come on top."""
     return 2 * sum(int(p) for p in pos) * n_kv * _kv_row_bytes(head_dim, elem_bytes)
+
+
+def megakernel_bytes(config: ModelConfig, pos, elem_bytes: int, written: int, v_pad: int | None = None) -> int:
+    """Least device-memory bytes of one decode step through the megakernel
+    (kernel #11) for rows at positions ``pos``: the weights and their bf16
+    scales once (``weight_bytes_per_decode_token``, the classifier only with
+    ``v_pad``), the cache rows below each position read once (every layer,
+    K and V; ``elem_bytes`` as in ``paged_read_bytes``), the ``written`` rows'
+    K/V written once, and the f32 stream in and out and the logits out."""
+    c = config
+    weights = weight_bytes_per_decode_token(c, scale_bytes=2)
+    if v_pad is None:
+        weights -= int(c.vocab_size * c.dim * (1.0 + 2 / c.group_size))
+    rows = sum(min(int(p), c.seq_len) for p in pos) + written
+    kv = 2 * c.n_layers * c.n_kv_heads * rows * _kv_row_bytes(c.head_dim, elem_bytes)
+    return weights + kv + 2 * len(pos) * c.dim * 4 + (len(pos) * v_pad * 4 if v_pad else 0)

@@ -16,6 +16,7 @@ from qwen3_rs_tpu_torch.inference.engine import Engine
 from qwen3_rs_tpu_torch.models.qwen3 import weights_to
 from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES
 from qwen3_rs_tpu_torch.ops.kernels.flash_attention import flash_decode, flash_decode_plain
+from qwen3_rs_tpu_torch.ops.kernels.megakernel import decode_stack_megakernel, decode_stack_megakernel_plain
 from qwen3_rs_tpu_torch.ops.kernels.paged_attention import (
     paged_decode,
     paged_decode_plain,
@@ -389,3 +390,115 @@ def test_paged_serving_card_matches_cpu(card):
             assert LAUNCHES["paged_window_partials"] - before["paged_window_partials"] == cfg.n_layers
         firsts.append({r.request_id: r.generated[0] for r in done})
     assert firsts[0] == firsts[1]
+
+
+def _mega_inputs(gen, card, cfg, b, cache, v_pad):
+    """Random weights (bf16 scales), stream, RoPE rows and caches for the
+    decode megakernel at ``cfg``'s shapes."""
+    L, g, hd = cfg.n_layers, cfg.group_size, cfg.head_dim
+
+    def qt(*shape):
+        codes = torch.randint(-127, 128, shape, generator=gen, device=card, dtype=torch.int8)
+        scales = (torch.rand(*shape[:-2], shape[-2] // g, shape[-1], generator=gen, device=card) * 0.004 + 1e-3)
+        return QuantizedTensor(codes, scales.to(torch.bfloat16))
+
+    def norm(*shape):
+        return 1 + 0.1 * torch.randn(*shape, generator=gen, device=card)
+
+    ah, kvd = cfg.all_heads_dim, cfg.kv_dim
+    w = dict(rms_att=norm(L, cfg.dim), rms_ffn=norm(L, cfg.dim), q_norm=norm(L, hd), k_norm=norm(L, hd),
+             wqkv=qt(L, cfg.dim, ah + 2 * kvd), wo=qt(L, ah, cfg.dim), w13=qt(L, cfg.dim, 2 * cfg.hidden_dim),
+             w2=qt(L, cfg.hidden_dim, cfg.dim), rms_final=norm(cfg.dim), lm_head=qt(cfg.dim, v_pad))
+    ang = torch.rand(b, hd // 2, generator=gen, device=card) * 6
+    shape = (L, b, cfg.n_kv_heads, cfg.seq_len, hd)
+    if cache == "int8":
+        kv = [torch.randint(-127, 128, shape, generator=gen, device=card, dtype=torch.int8) for _ in range(2)]
+        sc = [torch.rand(shape[:-1], generator=gen, device=card) * 0.02 + 0.005 for _ in range(2)]
+    else:
+        dt = torch.float32 if cache == "f32" else torch.bfloat16
+        kv = [torch.randn(shape, generator=gen, device=card).to(dt) for _ in range(2)]
+        sc = [None, None]
+    x = torch.randn(b, cfg.dim, generator=gen, device=card)
+    return w, x, torch.cos(ang), torch.sin(ang), kv, sc
+
+
+def _mega(fn, cfg, w, x, cos, sin, kv, sc, pos, ok, head=True, greedy=False):
+    return fn(cfg, x, w["rms_att"], w["rms_ffn"], w["q_norm"], w["k_norm"], cos, sin, w["wqkv"], w["wo"], w["w13"],
+              w["w2"], kv[0], kv[1], pos, w["rms_final"] if head else None, w["lm_head"] if head else None, ok,
+              k_scale=sc[0], v_scale=sc[1], eps=cfg.norm_eps, greedy=greedy)
+
+
+@pytest.mark.parametrize("cache", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("heads,b", [((4, 4), 1), ((4, 2), 3), ((8, 2), 8), ((8, 1), 2)])
+def test_megakernel_matches_plain(card, cache, heads, b):
+    """Ragged cache (200 rows: not a multiple of the 128-row chunk), mixed
+    positions (0, past the window with its write gate on: clamped to the last
+    row), one row's write gate off; logits, greedy, and a run without the
+    head.  Tolerances as tests/test_torch_megakernel.py argues them: a row
+    within 5e-3 of its largest value (an f32 sum in another order may flip a
+    bf16 rounding), logits within 1e-2, INT8 codes within one step."""
+    cfg = ModelConfig(architecture_id=1, dim=512, hidden_dim=768, n_layers=2, n_heads=heads[0],
+                      n_kv_heads=heads[1], head_dim=128, seq_len=200, vocab_size=1000, group_size=64,
+                      shared_classifier=True)
+    gen = _gen(b * 31 + heads[0] * 7 + heads[1] + len(cache))
+    w, x, cos, sin, kv, sc = _mega_inputs(gen, card, cfg, b, cache, 1024)
+    pos = torch.tensor([0, 205, 64, 199, 1, 128, 127, 150][:b], dtype=torch.int32, device=card)
+    ok = torch.tensor([1, 1, 0, 1, 1, 0, 1, 1][:b], dtype=torch.int32, device=card)
+    copies = [[t.clone() if t is not None else None for t in kv + sc] for _ in range(4)]
+    before = LAUNCHES["decode_megakernel"]
+    gx, glog = _mega(decode_stack_megakernel, cfg, w, x, cos, sin, copies[0][:2], copies[0][2:], pos, ok)
+    assert LAUNCHES["decode_megakernel"] == before + 1
+    px, plog = _mega(decode_stack_megakernel_plain, cfg, w, x, cos, sin, copies[1][:2], copies[1][2:], pos, ok)
+    _, gtok = _mega(decode_stack_megakernel, cfg, w, x, cos, sin, copies[2][:2], copies[2][2:], pos, ok, greedy=True)
+    hx, none = _mega(decode_stack_megakernel, cfg, w, x, cos, sin, copies[3][:2], copies[3][2:], pos, ok, head=False)
+    torch.cuda.synchronize()
+    assert none is None and torch.equal(hx, gx)  # deterministic; the head does not touch the stream
+    for r in range(b):
+        assert float((gx[r] - px[r]).abs().max()) <= 5e-3 * float(px[r].abs().max()), r
+        assert float((glog[r] - plog[r]).abs().max()) <= 1e-2 * float(plog[r].abs().max()), r
+    assert torch.equal(gtok, glog[:, : cfg.vocab_size].argmax(-1).to(torch.int32))  # first max, padding masked
+    for i in range(2):
+        got, ref, old = copies[0][i].float(), copies[1][i].float(), kv[i].float()
+        assert float((got - ref).abs().max()) <= (1 if cache == "int8" else 5e-3 * float(ref.abs().max()))
+        for r in range(b):
+            row = min(int(pos[r]), cfg.seq_len - 1)
+            keep = torch.ones(cfg.seq_len, dtype=torch.bool, device=card)
+            if ok[r]:
+                keep[row] = False
+            assert torch.equal(got[:, r][:, :, keep], old[:, r][:, :, keep]), r  # bit for bit
+        for t_ in copies[2][i], copies[3][i]:
+            assert torch.equal(t_, copies[0][i])
+
+
+def test_megakernel_reads_no_row_at_or_past_pos(card):
+    cfg = ModelConfig(architecture_id=1, dim=512, hidden_dim=512, n_layers=1, n_heads=4, n_kv_heads=2,
+                      head_dim=128, seq_len=300, vocab_size=512, group_size=64, shared_classifier=True)
+    w, x, cos, sin, kv, sc = _mega_inputs(_gen(17), card, cfg, 3, "f32", 512)
+    pos_list = [0, 5, 260]
+    for r, p in enumerate(pos_list):
+        for t_ in kv:
+            t_[:, r, :, p:] = float("nan")
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=card)
+    out, logits = _mega(decode_stack_megakernel, cfg, w, x, cos, sin, kv, sc, pos, None)
+    assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(logits).all())
+    assert bool(torch.isfinite(kv[0][:, torch.arange(3), :, pos.long()]).all())  # the rows written
+
+
+def test_megakernel_engine_decode_chunk_matches_cpu(card):
+    """decode_chunk through the kernel on the card and through the plain
+    version on the CPU: the same greedy tokens from the same prompt."""
+    cfg = ModelConfig(architecture_id=1, dim=512, hidden_dim=1024, n_layers=2, n_heads=4, n_kv_heads=2,
+                      head_dim=128, seq_len=256, vocab_size=2048, group_size=64, shared_classifier=True)
+    weights = random_weights(cfg, seed=6, device=card)
+    weights = weights._replace(rms_final=weights.rms_final * 20)  # peaked: no near-ties
+    prompt = np.random.default_rng(6).integers(0, cfg.vocab_size, (1, 20))
+    toks = []
+    for eng in (Engine(config=cfg, weights=weights, device=card),
+                Engine(config=cfg, weights=weights_to(weights, "cpu"), device="cpu")):
+        logits, cache = eng.prefill(eng.new_cache(), prompt, [0])
+        before = LAUNCHES["decode_megakernel"]
+        chunk, _ = eng.decode_chunk(cache, int(logits.float().argmax()), 20, 12)
+        toks.append(chunk.tolist())
+        if eng.device.type == "cuda":
+            assert LAUNCHES["decode_megakernel"] == before + 12
+    assert toks[0] == toks[1]

@@ -5,8 +5,10 @@ A synthetic HF model is exported by the JAX exporter to ``.qtpu`` and
 ``.bin``; both CLIs run ``generate`` and ``chat`` on it (the port with
 ``--device cpu``, its kernels' plain versions) and must print the same text,
 for greedy and for seeded ``-t 0.8`` streams (xorshift coins, bit-exact on
-both sides).  The JAX side runs the path the port follows: its W8A16 and
-flash-decode kernels in interpret mode, decode megakernel off.
+both sides), and greedy with ``--device-sampling`` (on-device chunks).  The
+JAX side runs the path the port follows: its W8A16 and flash-decode kernels in
+interpret mode, decode megakernel off (the fixture's widths fail its gate in
+both packages).
 
 A sampled stream follows the logits' ranking, so the fixture keeps the two
 sides' logits within f32 summation order of each other: widths of 128
@@ -138,7 +140,26 @@ def test_cli_exact_mode_matches_jax_cli(exported, run, monkeypatch):
     assert got == want
 
 
-@pytest.mark.parametrize("flag", [["--sp", "4", "--sp-threshold", "8"], ["--device-sampling"],
+@pytest.mark.parametrize("run", ["generate-greedy", "chat-greedy"])
+def test_cli_device_sampling_greedy_matches_host_and_jax_cli(exported, run, monkeypatch):
+    """``--device-sampling -t 0``: decode in on-device chunks (greedy picks
+    the last maximum, as the host sampler does) prints the text of the host
+    loop, and of the JAX CLI's device sampling (its ``decode_chunk`` scan)."""
+    route_jax_through_interpret_kernels(monkeypatch, min_seq_len=CONFIG.seq_len)
+    ckpt = str(exported / "m.qtpu")
+    host = _stdout(port_main, ["inference", ckpt, "--device", "cpu", *RUNS[run]])
+    got = _stdout(port_main, ["inference", ckpt, "--device", "cpu", "--device-sampling", *RUNS[run]])
+    assert len(host) > 40 and got == host
+    if run.startswith("generate"):
+        assert got == _stdout(jax_main, ["inference", ckpt, "--engine-mode", "fast", "--device-sampling", *RUNS[run]])
+
+
+def test_cli_device_sampling_repeats_per_seed(exported):
+    argv = ["inference", str(exported / "m.qtpu"), "--device", "cpu", "--device-sampling", *RUNS["generate-t0.8"]]
+    assert _stdout(port_main, argv) == _stdout(port_main, argv)
+
+
+@pytest.mark.parametrize("flag", [["--sp", "4", "--sp-threshold", "8"], ["--device-sampling", "--spec", "2"],
                                   ["--spec", "2"], ["--sp", "2"]])
 def test_unported_flags_raise(exported, flag):
     argv = ["inference", str(exported / "m.qtpu"), "--device", "cpu", "-m", "generate",

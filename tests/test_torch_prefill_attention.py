@@ -4,7 +4,12 @@ package's ``causal_prefill_attention`` (the splash kernel) in interpret mode.
 Both scale q by ``bf16(1/√128)`` and round it to bf16, take scores and the
 softmax in f32 and round the normalised output to bf16.  The f32 sums run in
 another order, which can flip the output's bf16 rounding: tolerance one bf16
-step, ``2^-7 · |ref|`` per element.  The splash kernel needs its window to be
+step per element, counted on the ordered bit patterns of the two bf16 values
+(a relative bound of ``2^-7 · |ref|`` sits exactly on one step for values at
+a power of two, where a host's last-bit difference in an f32 sum or ``exp``
+tips it over).  Outputs that cancel to near zero carry the sums' absolute
+noise instead, which spans many bf16 steps there: they keep the absolute
+tolerance of 1e-6.  The splash kernel needs its window to be
 a multiple of 128 rows; a ragged window is held against the first rows of a
 longer one, which causal attention leaves unchanged.
 """
@@ -26,7 +31,7 @@ from qwen3_rs_tpu_torch.ops.kernels.prefill_attention import (
 torch.set_num_threads(2)
 
 HD = 128
-BF16_STEP = 2.0**-7
+ATOL = 1e-6
 
 
 def _inputs(seed, b, s, n_kv, kv_mul):
@@ -39,10 +44,23 @@ def _torch(a):
     return torch.from_numpy(np.array(a.astype(jnp.float32))).to(torch.bfloat16)
 
 
+def _ordered(bits: np.ndarray) -> np.ndarray:
+    """bf16 bit patterns → integers in the order of their values (±0 → 0):
+    neighbouring bf16 values differ by 1."""
+    bits = bits.astype(np.int32)
+    mag = bits & 0x7FFF
+    return np.where(bits & 0x8000, -mag, mag)
+
+
 def _close(out, ref):
-    out, ref = out.float().numpy(), np.asarray(ref, np.float32)
-    assert out.shape == ref.shape
-    np.testing.assert_allclose(out, ref, rtol=BF16_STEP, atol=1e-6)
+    assert out.dtype == torch.bfloat16
+    ref = jnp.asarray(ref).astype(jnp.bfloat16)
+    a = out.contiguous().view(torch.int16).numpy().view(np.uint16)
+    b = np.asarray(ref).view(np.uint16)
+    assert a.shape == b.shape
+    steps = np.abs(_ordered(a) - _ordered(b))
+    noise = np.abs(out.float().numpy() - np.asarray(ref, np.float32)) <= ATOL
+    assert ((steps <= 1) | noise).all(), (int(steps.max()), int((steps > 1).sum()))
 
 
 @pytest.mark.parametrize("s,n_kv,kv_mul", [(512, 2, 4), (384, 1, 2), (512, 1, 8)])
@@ -50,7 +68,6 @@ def test_plain_matches_splash_interpret(s, n_kv, kv_mul):
     q, k, v = _inputs(s + kv_mul, 1, s, n_kv, kv_mul)
     ref = jax_prefill(q, k, v, interpret=True)
     out = causal_prefill_attention_plain(_torch(q), _torch(k), _torch(v))
-    assert out.dtype == torch.bfloat16
     _close(out, ref)
 
 

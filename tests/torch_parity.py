@@ -12,6 +12,7 @@ import numpy as np
 import qwen3_rs_tpu.models.qwen3 as jax_qwen3
 import qwen3_rs_tpu.ops.pallas as pallas_pkg
 import qwen3_rs_tpu.ops.pallas.flash_attention as jax_flash
+import qwen3_rs_tpu.ops.pallas.megakernel as jax_mega
 import qwen3_rs_tpu.ops.pallas.paged_attention as jax_paged
 import qwen3_rs_tpu.ops.pallas.prefill_attention as jax_prefill
 import qwen3_rs_tpu.ops.pallas.qmatmul as jax_qmm
@@ -26,22 +27,41 @@ from qwen3_rs_tpu.ops.quant import quantize_weights_np
 import qwen3_rs_tpu_torch.models.qwen3 as port_qwen3
 
 
+def _counted(calls, name, fn):
+    def wrapper(*args, **kw):
+        calls[name] += 1
+        return fn(*args, interpret=True, **kw)
+
+    return wrapper
+
+
 def route_jax_through_interpret_kernels(monkeypatch, min_seq_len: int) -> collections.Counter:
     """Megakernel off; in interpret mode the fused W8A16 kernel, the
     classifier kernel, flash decode (from ``min_seq_len`` cache rows), the
     row-blocked W8A16 kernel, the dequant kernel, the W8A8 rows kernel, the
     causal prefill kernel and the paged decode and window kernels (pages of
     128 rows).  Returns the count of kernel calls seen while tracing."""
+    monkeypatch.setenv("QWEN3_TPU_DISABLE_MEGAKERNEL", "1")
+    return _route_per_layer_kernels(monkeypatch, min_seq_len)
+
+
+def route_jax_through_interpret_megakernel(monkeypatch, min_seq_len: int) -> collections.Counter:
+    """The JAX forward as it runs with Pallas on: decode steps whose shapes
+    pass its gate through the whole-step megakernel, every other call through
+    the per-layer kernels, all in interpret mode (the megakernel's count is
+    ``"mega"``).  ``QWEN3_TPU_DISABLE_MEGAKERNEL`` is left unset."""
+    monkeypatch.delenv("QWEN3_TPU_DISABLE_MEGAKERNEL", raising=False)
+    calls = _route_per_layer_kernels(monkeypatch, min_seq_len)
+    monkeypatch.setattr(jax_mega, "decode_stack_megakernel", _counted(calls, "mega", jax_mega.decode_stack_megakernel))
+    return calls
+
+
+def _route_per_layer_kernels(monkeypatch, min_seq_len: int) -> collections.Counter:
     calls = collections.Counter()
 
     def counted(name, fn):
-        def wrapper(*args, **kw):
-            calls[name] += 1
-            return fn(*args, interpret=True, **kw)
+        return _counted(calls, name, fn)
 
-        return wrapper
-
-    monkeypatch.setenv("QWEN3_TPU_DISABLE_MEGAKERNEL", "1")
     monkeypatch.setattr(pallas_pkg, "pallas_enabled", lambda: True)
     monkeypatch.setattr(
         pallas_pkg, "qmatmul_pallas_stacked_fused", counted("fused", qmatmul_pallas_stacked_fused)
