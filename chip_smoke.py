@@ -12,7 +12,8 @@ Phases, in order; any failure exits non-zero before the final line:
 2. ``kernels`` each hand-written kernel against its plain PyTorch version on
                the same inputs at Qwen3-8B shapes (INT8-g64; the paged kernels
                over a page-128 pool with shuffled tables; the decode
-               megakernel at full depth), with its time, the plain version's
+               megakernel at full depth; the Q4 variants of #3, #6 and #7 on
+               INT4-g64 codes), with its time, the plain version's
                time, one PyTorch library call's time where one computes the
                same function, and the least time the card could take.
 3. ``e2e``     Qwen3-8B at full width and depth with random weights made on
@@ -34,7 +35,13 @@ Phases, in order; any failure exits non-zero before the final line:
                * ``compute_perplexity`` (eval-ppl) at 4096-row windows, fast
                  (3·L row-blocked, L dequant per window) twice, identical;
                * exact-mode ``generate()`` on a 300-token prompt (4·L W8A8 on
-                 the window) and exact eval-ppl (4·L+1 W8A8 per window).
+                 the window) and exact eval-ppl (4·L+1 W8A8 per window);
+               * INT4 (the INT8 weights freed first): the same b=1 greedy
+                 decode, each step 4·L Q4 #3, one INT8 classifier and L
+                 flash-decode launches (no megakernel: its gate refuses Q4),
+                 profiled; the 3000-token prompt (Q4 #6, #5); eval-ppl at one
+                 4096-row window, fast (Q4 #6, Q4 #7) and f32; exact mode
+                 raising; the card against the CPU on a one-layer slice.
 4. ``serve``   the continuous-batching engine on the same 8B weights, ctx
                4096, 8 slots, page 128, greedy host sampling: 24 requests
                (prompts of 16-1024 tokens, 64 new tokens) on the paged bf16
@@ -49,7 +56,9 @@ Phases, in order; any failure exits non-zero before the final line:
                generate, chat, exact mode and with ``--device-sampling``,
                ``eval-ppl`` in three modes,
                ``batch`` paged and dense) and ``serve`` in a process of its
-               own; the output must equal the API's.
+               own; ``export`` of a synthetic HF directory to an INT4
+               ``.qtpu`` and an INT8 ``.bin``, ``inference`` on each and
+               ``batch`` on the INT4 one; the output must equal the API's.
 6. ``parity``  the 2-layer model on the CPU (plain versions) and on the card
                (kernels): prefill windows and decode steps (the megakernel) in
                fast mode (16-,
@@ -436,11 +445,161 @@ def dequant_cases(torch, ctx) -> list[dict]:
         out.append(_row(
             ctx, "dequant_w8_stacked", f"w2 {sname} scales", "qwen3_rs_tpu_torch/csrc/dequant.cu",
             "qwen3_rs_tpu/ops/pallas/qmatmul.py:1063 dequant_pallas_stacked",
-            {"N": n, "D": d, "g": g}, 0.0, 0.0, ms, plain_ms, nbytes, b_ms, b_by, None, None,
+            {"N": n, "D": d, "g": g}, 0.0, 0.0, ms, plain_ms, nbytes, b_ms, b_by, None,
+            "none: no one PyTorch call applies grouped scales to int8 codes (it takes a cast, a "
+            "broadcast of the scales and a multiply)",
         ))
         del w, got, ref
         torch.cuda.empty_cache()
     return out
+
+
+def _q4_stacked(torch, gen, layers, n, d, g, scale_dtype):
+    """Random INT4 weights: uniform packed bytes (every nibble value, code -8
+    included) and scales."""
+    from qwen3_rs_tpu_torch.ops.quant import Q4Tensor
+
+    packed = torch.randint(0, 256, (layers, n // 2, d), generator=gen, device=DEV, dtype=torch.uint8)
+    scales = (torch.rand(layers, n // g, d, generator=gen, device=DEV) * 0.02 + 1e-3).to(scale_dtype)
+    return Q4Tensor(packed, scales)
+
+
+def _q4_bytes(n, d, g) -> int:
+    """Packed codes and bf16 scales of one [N, D] INT4 layer."""
+    return n * d // 2 + (n // g) * d * 2
+
+
+def qmatmul_q4_cases(torch, ctx) -> list[dict]:
+    """The Q4 variant of #3 (``qmatmul_w8a16`` on a ``Q4Tensor``) at the
+    INT4 decode step's shapes, and a 256-row window."""
+    from qwen3_rs_tpu_torch.ops.kernels.qmatmul import dequant_q4_stacked_plain, qmatmul_w8a16, qmatmul_w8a16_plain
+    from qwen3_rs_tpu_torch.testing import qwen3_config
+
+    c = qwen3_config("8b")
+    g = c.group_size
+    ah, kvd, dim, hid = c.all_heads_dim, c.kv_dim, c.dim, c.hidden_dim
+    f32, bf16 = torch.float32, torch.bfloat16
+    specs = [  # (case, N, D, prologue, residual, rows, x dtype), as qwen3_forward calls it
+        ("wqkv+rms b=1", dim, ah + 2 * kvd, "rms", False, 1, bf16),
+        ("wo+residual b=1", ah, dim, None, True, 1, f32),
+        ("w13+rms b=1", dim, 2 * hid, "rms", False, 1, bf16),
+        ("w2+swiglu+residual b=1", hid, dim, "swiglu", True, 1, f32),
+        ("wqkv+rms b=256", dim, ah + 2 * kvd, "rms", False, 256, bf16),
+    ]
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(4242)
+    out = []
+    for case, n, d, prologue, has_res, rows, xdt in specs:
+        nl = _layers_for(_q4_bytes(n, d, g))
+        w = _q4_stacked(torch, gen, nl, n, d, g, bf16)
+        width = 2 * n if prologue == "swiglu" else n
+        x = torch.randn(rows, width, generator=gen, device=DEV).to(xdt)
+        kw = {}
+        if prologue == "rms":
+            kw["norm_w"] = 1.0 + 0.02 * torch.randn(nl, n, generator=gen, device=DEV)
+        if prologue == "swiglu":
+            kw["swiglu"] = True
+        if has_res:
+            kw["residual"] = torch.randn(rows, d, generator=gen, device=DEV).to(bf16)
+        ref = qmatmul_w8a16_plain(x, w, 1, **kw)
+        got = qmatmul_w8a16(x, w, 1, **kw)
+        torch.cuda.synchronize()
+        err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+        tol = (2e-3 if prologue else 1e-4) * scale  # as the INT8 cases
+        need(math.isfinite(err) and err <= tol, f"qmatmul_w8a16_q4 {case}: max_abs_err {err} > tol {tol}")
+        ms = device_ms(torch, lambda i: qmatmul_w8a16(x, w, i % nl, **kw))
+        plain_ms = device_ms(torch, lambda i: qmatmul_w8a16_plain(x, w, i % nl, **kw), reps=5, warmup=1)
+        xl = x[:, :n].to(bf16)
+        dense = [dequant_q4_stacked_plain(w, l) for l in range(min(nl, max(2, math.ceil(160e6 / (2 * n * d)))))]
+        lib_ms = device_ms(torch, lambda i: torch.matmul(xl, dense[i % len(dense)]))
+        del dense
+        nbytes = (_q4_bytes(n, d, g) + x.numel() * x.element_size() + rows * d * 4
+                  + (rows * d * 2 if has_res else 0) + (n * 4 if prologue == "rms" else 0))
+        b_ms, b_by = bound(nbytes, 2.0 * rows * n * d, "bf16")
+        out.append(_row(
+            ctx, "qmatmul_w8a16_q4", case, "qwen3_rs_tpu_torch/csrc/qmatmul_w8a16.cu",
+            "qwen3_rs_tpu/ops/pallas/qmatmul.py:761 qmatmul_pallas_stacked_fused (Q4 tiles, :34 _dequant_tile_q4)",
+            {"rows": rows, "N": n, "D": d, "g": g, "bits": 4}, err, tol, ms, plain_ms, nbytes, b_ms, b_by, lib_ms,
+            "torch.matmul bf16, weights dequantized beforehand",
+        ))
+        del w, x, kw, ref, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def rows_q4_cases(torch, ctx) -> list[dict]:
+    """The Q4 variant of #6 at the INT4 path's long windows: wqkv and w13 at
+    a fresh 2048-row window, w2 at eval-ppl's 4096 rows (where the path takes
+    #7 + torch.matmul instead: the two side by side)."""
+    from qwen3_rs_tpu_torch.ops.kernels.qmatmul import (
+        dequant_q4_stacked_plain,
+        qmatmul_w8a16_rows,
+        qmatmul_w8a16_rows_plain,
+    )
+    from qwen3_rs_tpu_torch.testing import qwen3_config
+
+    c = qwen3_config("8b")
+    g, bf16 = c.group_size, torch.bfloat16
+    specs = [("wqkv", c.dim, c.all_heads_dim + 2 * c.kv_dim, 2048), ("w13", c.dim, 2 * c.hidden_dim, 2048),
+             ("w2", c.hidden_dim, c.dim, 4096)]
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(4343)
+    out = []
+    for proj, n, d, rows in specs:
+        w = _q4_stacked(torch, gen, 2, n, d, g, bf16)
+        x = torch.randn(rows, n, generator=gen, device=DEV).to(bf16)
+        ref = qmatmul_w8a16_rows_plain(x, w, 1)
+        got = qmatmul_w8a16_rows(x, w, 1)
+        torch.cuda.synchronize()
+        err, tol = float((got - ref).abs().max()), 1e-4 * float(ref.abs().max())
+        need(math.isfinite(err) and err <= tol, f"qmatmul_w8a16_rows_q4 {proj} rows={rows}: {err} > {tol}")
+        ms = device_ms(torch, lambda i: qmatmul_w8a16_rows(x, w, i % 2))
+        plain_ms = device_ms(torch, lambda i: qmatmul_w8a16_rows_plain(x, w, i % 2), reps=5, warmup=1)
+        dense = [dequant_q4_stacked_plain(w, l) for l in range(2)]
+        lib_ms = device_ms(torch, lambda i: torch.matmul(x, dense[i % 2]))
+        del dense
+        nbytes = _q4_bytes(n, d, g) + rows * n * 2 + rows * d * 4
+        b_ms, b_by = bound(nbytes, 2.0 * rows * n * d, "bf16")
+        out.append(_row(
+            ctx, "qmatmul_w8a16_rows_q4", f"{proj} rows={rows}", "qwen3_rs_tpu_torch/csrc/qmatmul_rows.cu",
+            "qwen3_rs_tpu/ops/pallas/qmatmul.py:956 qmatmul_pallas_stacked_rows (Q4 tiles, :870)",
+            {"rows": rows, "N": n, "D": d, "g": g, "bits": 4}, err, tol, ms, plain_ms, nbytes, b_ms, b_by, lib_ms,
+            "torch.matmul bf16, weights dequantized beforehand",
+        ))
+        del w, x, ref, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def dequant_q4_cases(torch, ctx) -> list[dict]:
+    """The Q4 variant of #7 on one INT4 w2 layer (the xdot path's weight at
+    4096-row windows), f32 scales as evaluation keeps them."""
+    from qwen3_rs_tpu_torch.ops.kernels.qmatmul import dequant_q4_stacked, dequant_q4_stacked_plain
+    from qwen3_rs_tpu_torch.testing import qwen3_config
+
+    c = qwen3_config("8b")
+    n, d, g = c.hidden_dim, c.dim, c.group_size
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(4444)
+    nl = _layers_for(n * d // 2 + 2 * n * d)
+    w = _q4_stacked(torch, gen, nl, n, d, g, torch.float32)
+    got = dequant_q4_stacked(w, 1)
+    ref = dequant_q4_stacked_plain(w, 1)
+    torch.cuda.synchronize()
+    need(torch.equal(got, ref), "dequant_q4_stacked: not bit-exact")
+    ms = device_ms(torch, lambda i: dequant_q4_stacked(w, i % nl))
+    plain_ms = device_ms(torch, lambda i: dequant_q4_stacked_plain(w, i % nl), reps=5, warmup=1)
+    nbytes = n * d // 2 + (n // g) * d * 4 + n * d * 2
+    b_ms, b_by = bound(nbytes, float(n * d), "f32")
+    row = _row(
+        ctx, "dequant_q4_stacked", "w2 f32 scales", "qwen3_rs_tpu_torch/csrc/dequant.cu",
+        "qwen3_rs_tpu/ops/pallas/qmatmul.py:1063 dequant_pallas_stacked (Q4 branch, :998)",
+        {"N": n, "D": d, "g": g, "bits": 4}, 0.0, 0.0, ms, plain_ms, nbytes, b_ms, b_by, None,
+        "none: no one PyTorch call unpacks nibbles and applies grouped scales",
+    )
+    del w, got, ref
+    torch.cuda.empty_cache()
+    return [row]
 
 
 def a8_cases(torch, ctx) -> list[dict]:
@@ -479,7 +638,9 @@ def a8_cases(torch, ctx) -> list[dict]:
         out.append(_row(
             ctx, "qmatmul_w8a8_rows", f"{proj} rows={rows}", "qwen3_rs_tpu_torch/csrc/qmatmul_a8.cu",
             "qwen3_rs_tpu/ops/pallas/qmatmul.py:1287 qmatmul_pallas_stacked_rows_a8",
-            {"rows": rows, "N": n, "D": d, "g": g}, err, 0.0, ms, plain_ms, nbytes, b_ms, b_by, None, None,
+            {"rows": rows, "N": n, "D": d, "g": g}, err, 0.0, ms, plain_ms, nbytes, b_ms, b_by, None,
+            "none: torch._int_mm multiplies int8 matrices but no one call applies per-group activation "
+            "and weight scales inside the contraction",
         ))
         del w, xq
         torch.cuda.empty_cache()
@@ -851,7 +1012,8 @@ def phase_kernels(torch, ctx) -> None:
     ctx["kernel_rows"] = (qmatmul_cases(torch, ctx) + flash_cases(torch, ctx) + prefill_attention_cases(torch, ctx)
                           + rows_cases(torch, ctx) + dequant_cases(torch, ctx) + a8_cases(torch, ctx)
                           + paged_decode_cases(torch, ctx) + paged_window_cases(torch, ctx)
-                          + megakernel_cases(torch, ctx))
+                          + megakernel_cases(torch, ctx) + qmatmul_q4_cases(torch, ctx) + rows_q4_cases(torch, ctx)
+                          + dequant_q4_cases(torch, ctx))
     made = {k for k in LAUNCHES if LAUNCHES[k] != before[k]}
     need(made == set(LAUNCHES), f"the kernel cases launched no {sorted(set(LAUNCHES) - made)}")
 
@@ -911,6 +1073,58 @@ def write_qtpu(root: Path, config, weights) -> None:
     save("rms_final", weights.rms_final)
 
 
+def write_hf_model(root: Path, seed: int) -> Path:
+    """A synthetic HuggingFace model directory, written with numpy: a Qwen3
+    config at dim 512 (2 layers, 4 query and 2 kv heads of 128, hidden 1024,
+    vocabulary 1024), f32 safetensors drawn from ``seed``, a byte-level
+    ``tokenizer.json`` (every byte a token, no merges) and a Qwen3 chat
+    template."""
+    import numpy as np
+
+    dim, hidden, layers, heads, kv, hd, vocab = 512, 1024, 2, 4, 2, 128, 1024
+    rng = np.random.default_rng(seed)
+    t = {"model.embed_tokens.weight": rng.normal(0, 0.05, (vocab, dim)), "model.norm.weight": 1 + 0.02 * rng.normal(size=dim)}
+    for l in range(layers):
+        pre = f"model.layers.{l}"
+        for name, shape in (("input_layernorm", (dim,)), ("post_attention_layernorm", (dim,)),
+                            ("self_attn.q_norm", (hd,)), ("self_attn.k_norm", (hd,))):
+            t[f"{pre}.{name}.weight"] = 1 + 0.02 * rng.normal(size=shape)
+        for name, shape in (("self_attn.q_proj", (heads * hd, dim)), ("self_attn.k_proj", (kv * hd, dim)),
+                            ("self_attn.v_proj", (kv * hd, dim)), ("self_attn.o_proj", (dim, heads * hd)),
+                            ("mlp.gate_proj", (hidden, dim)), ("mlp.up_proj", (hidden, dim)),
+                            ("mlp.down_proj", (dim, hidden))):
+            t[f"{pre}.{name}.weight"] = rng.normal(0, 0.05, shape)
+    header, blobs, off = {}, [], 0
+    for name, arr in t.items():
+        raw = np.ascontiguousarray(arr, "<f4").tobytes()
+        header[name] = {"dtype": "F32", "shape": list(arr.shape), "data_offsets": [off, off + len(raw)]}
+        blobs.append(raw)
+        off += len(raw)
+    model = root / "hf_model"
+    model.mkdir(parents=True)
+    hjson = json.dumps(header).encode()
+    (model / "model.safetensors").write_bytes(struct.pack("<Q", len(hjson)) + hjson + b"".join(blobs))
+    # GPT-2 byte-level characters: printable bytes stand for themselves, the rest from U+0100 on.
+    printable = [b for b in range(256) if 33 <= b <= 126 or 161 <= b <= 172 or 174 <= b <= 255]
+    chars = {b: chr(b) for b in printable}
+    chars.update({b: chr(256 + i) for i, b in enumerate(b for b in range(256) if b not in chars)})
+    vocab_map = {chars[b]: b for b in range(256)}
+    vocab_map.update({f"w{i}": i for i in range(256, vocab - 2)})
+    tok = {"model": {"vocab": vocab_map, "merges": []},
+           "added_tokens": [{"id": vocab - 2, "content": "<|im_start|>"}, {"id": vocab - 1, "content": "<|im_end|>"}]}
+    (model / "tokenizer.json").write_text(json.dumps(tok))
+    (model / "tokenizer_config.json").write_text(json.dumps({"chat_template": (
+        "{% for message in messages %}<|im_start|>{{ message.role }}\n{{ message.content }}<|im_end|>\n"
+        "{% endfor %}{% if enable_thinking %}{% endif %}{% if messages[0].role == 'system' %}{% endif %}")}))
+    (model / "config.json").write_text(json.dumps({
+        "architectures": ["Qwen3ForCausalLM"], "hidden_size": dim, "intermediate_size": hidden,
+        "num_hidden_layers": layers, "num_attention_heads": heads, "num_key_value_heads": kv, "head_dim": hd,
+        "vocab_size": vocab, "max_position_embeddings": 1024, "rms_norm_eps": 1e-6, "rope_theta": 1e6,
+        "bos_token_id": vocab - 2, "eos_token_id": vocab - 1,
+    }))
+    return model
+
+
 def prompt_text(n_chars: int) -> str:
     words = "the quick brown fox jumps over the lazy dog while a card streams weights "
     return (words * (n_chars // len(words) + 1))[:n_chars]
@@ -934,11 +1148,13 @@ def model_8b(torch, ctx):
               "hidden": cfg.hidden_dim, "vocab": cfg.vocab_size, "ctx": cfg.seq_len,
               "setup_seconds": time.perf_counter() - t0,
               "device_memory_gb": torch.cuda.memory_allocated() / 1e9})
-        tdir = ctx["tmp"] / "tok"
-        tdir.mkdir()
-        write_tokenizer(tdir / "tokenizer.bin", cfg.vocab_size)
-        write_templates(tdir)
-        ctx["8b"] = (cfg, weights, Tokenizer(tdir, cfg.vocab_size))
+        if "8b_tok" not in ctx:
+            tdir = ctx["tmp"] / "tok"
+            tdir.mkdir()
+            write_tokenizer(tdir / "tokenizer.bin", cfg.vocab_size)
+            write_templates(tdir)
+            ctx["8b_tok"] = Tokenizer(tdir, cfg.vocab_size)
+        ctx["8b"] = (cfg, weights, ctx["8b_tok"])
     return ctx["8b"]
 
 
@@ -1046,7 +1262,110 @@ def phase_e2e(torch, ctx) -> None:
     ctx["e2e"]["eval_ppl_fast"] = eval_path(torch, ctx, cfg, weights, "fast", windows=2, runs=2)
     ctx["e2e"]["exact_generate"] = exact_generate_path(torch, ctx, cfg, weights, tok)
     ctx["e2e"]["eval_ppl_exact"] = eval_path(torch, ctx, cfg, weights, "exact", windows=1, runs=1)
+    del weights
+    ctx.pop("8b")  # the INT8 weights make room; the serve phase draws them again from the seed
     torch.cuda.empty_cache()
+    ctx["e2e"]["int4"] = int4_path(torch, ctx, cfg, tok)
+    torch.cuda.empty_cache()
+
+
+def int4_path(torch, ctx, cfg, tok) -> dict:
+    """Qwen3-8B with INT4 linear layers (random packed codes from the seed;
+    embedding and classifier INT8), on the JAX package's default route: b=1
+    greedy decode after a 200-token prompt, each step 4·L Q4 #3 launches, one
+    INT8 classifier launch and L flash-decode launches (no megakernel: its
+    gate refuses Q4); a 3000-token prompt (#5 and Q4 #6); eval-ppl at one
+    4096-row window, fast (Q4 #6 and Q4 #7) and f32; exact mode raises; and
+    the card against the CPU on a one-layer slice."""
+    import qwen3_rs_tpu_torch.inference.engine as engine_mod
+    from qwen3_rs_tpu_torch import Engine, TokenSampler, generate
+    from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from qwen3_rs_tpu_torch.testing import random_weights, weight_bytes_per_decode_token
+
+    n_l = cfg.n_layers
+    t0 = time.perf_counter()
+    weights = random_weights(cfg, seed=SEED, device=DEV, bits=4)
+    torch.cuda.synchronize()
+    out = {"setup_seconds": time.perf_counter() - t0, "device_memory_gb": torch.cuda.memory_allocated() / 1e9}
+    emit({"phase": "model", "model": "qwen3-8b INT4-g64 (INT8 embedding and classifier)", **out})
+    engine = Engine(config=cfg, weights=weights, device=DEV)
+    prompt = prompt_text(200)
+    step = {"qmatmul_w8a16_q4": 4 * n_l, "qmatmul_w8a16": 1, "flash_decode": n_l}
+    recs: list = []
+    reset_launches()  # this path's run starts here
+    with forward_records(torch, engine_mod, recs):
+        ids = generate(engine, tok, TokenSampler(0.0, 0.9, SEED), prompt, out=io.StringIO(), max_tokens=DECODE_TOKENS)
+    launches = dict(LAUNCHES)  # and ends here
+    ctx["path_launches"]["int4_decode"] = launches
+    need(len(ids) > 1 and recs[0]["rows"] == len(tok.encode(prompt)), f"INT4 generate: {len(ids)} tokens")
+    _expect(recs[0], {"qmatmul_w8a16_q4": 4 * n_l, "qmatmul_w8a16": 1}, "INT4 prompt window")
+    for rec in recs[1:]:
+        _expect(rec, step, "INT4 decode step")
+    need(launches["decode_megakernel"] == 0, "INT4 decode took the megakernel")
+    steady = [r["seconds"] for r in recs[2:]]
+    step_s = statistics.median(steady)
+    wbytes = weight_bytes_per_decode_token(cfg, scale_bytes=2, bits=4)
+    out.update({
+        "generated": len(ids), "decode_step_ms": step_s * 1e3, "decode_tok_per_s": 1.0 / step_s,
+        "decode_step_ms_p90": statistics.quantiles(steady, n=10)[-1] * 1e3, "decode_step_samples": len(steady),
+        "weight_bytes_per_token": wbytes, "weight_bound_ms": wbytes / HBM_BYTES_PER_S * 1e3,
+        "launches_per_decode_step": step, "every_step_checked": True, "launches": launches,
+    })
+    out["profile"] = profile_decode(torch, engine, prompt_ids=tok.encode(prompt))
+    emit({"phase": "e2e", "run": "INT4 generate greedy", **out})
+    out["long_prompt"] = long_prompt_path(torch, ctx, cfg, engine, tok, q4=True)
+    del engine
+    torch.cuda.empty_cache()
+    out["eval_ppl_fast"] = eval_path(torch, ctx, cfg, weights, "fast", windows=1, runs=1, q4=True)
+    out["eval_ppl_f32"] = eval_path(torch, ctx, cfg, weights, "f32", windows=1, runs=1, q4=True)
+    try:
+        exact = Engine(config=cfg, weights=weights, mode="exact", device=DEV)
+        exact.prefill(exact.new_cache(1), [tok.encode(prompt)], [0])
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    need(raised is not None and "INT4 weights have no reference-exact" in raised, f"INT4 exact mode: {raised}")
+    out["exact_mode"] = raised
+    del weights, exact
+    torch.cuda.empty_cache()
+    out["parity_one_layer"] = int4_parity(torch, ctx)
+    return out
+
+
+def int4_parity(torch, ctx) -> dict:
+    """Card against CPU on a one-layer INT4 slice at 8B width: a fresh
+    300-row window (Q4 #6, #5), a continued 16-row window (Q4 #3) and 3
+    decode steps (Q4 #3, #4)."""
+    import numpy as np
+
+    from qwen3_rs_tpu_torch import Engine
+    from qwen3_rs_tpu_torch.models.qwen3 import weights_to
+    from qwen3_rs_tpu_torch.testing import qwen3_config, random_weights
+
+    t0 = time.perf_counter()
+    cfg = qwen3_config("8b", seq_len=4096, n_layers=1)
+    weights = random_weights(cfg, seed=SEED + 7, device=DEV, bits=4)
+    card = Engine(config=cfg, weights=weights, device=DEV)
+    cpu = Engine(config=cfg, weights=weights_to(weights, "cpu"), device="cpu")
+    rng = np.random.default_rng(SEED + 7)
+    tol_rel = 2e-2  # f32 sums in another order can flip a bf16 rounding of the residual stream
+    caches, pos, errs = [card.new_cache(1), cpu.new_cache(1)], 0, []
+    for rows in (300, 16):
+        prompt = rng.integers(0, cfg.vocab_size, (1, rows))
+        lc, caches[0] = card.prefill(caches[0], prompt, [pos])
+        lp, caches[1] = cpu.prefill(caches[1], prompt, [pos])
+        pos += rows
+        errs.append(float((lc.float().cpu() - lp).abs().max()) / float(lp.abs().max()))
+    for i in range(3):
+        nxt = int(lp.argmax())
+        lc, caches[0] = card.decode_step(caches[0], [nxt], [pos + i])
+        lp, caches[1] = cpu.decode_step(caches[1], [nxt], [pos + i])
+        errs.append(float((lc.float().cpu() - lp).abs().max()) / float(lp.abs().max()))
+    need(all(math.isfinite(e) and e <= tol_rel for e in errs), f"INT4 card vs CPU: {errs}")
+    res = {"layers": 1, "width": cfg.dim, "windows": [300, 16], "decode_steps": 3, "rel_errs": errs,
+           "tol_rel": tol_rel, "seconds": time.perf_counter() - t0}
+    emit({"phase": "e2e", "run": "INT4 card vs CPU", **res})
+    return res
 
 
 @contextlib.contextmanager
@@ -1214,10 +1533,12 @@ def dense_b9_path(torch, ctx, cfg, engine) -> dict:
     return out
 
 
-def long_prompt_path(torch, ctx, cfg, engine, tok) -> dict:
+def long_prompt_path(torch, ctx, cfg, engine, tok, q4: bool = False) -> dict:
     """Fast-mode generate on a ~3000-token prompt: a fresh 2048-row window
     (causal prefill kernel, row-blocked W8A16), a continuation window (split
-    attention, row-blocked W8A16), then decode steps; twice, greedy."""
+    attention, row-blocked W8A16), then decode steps (the megakernel); twice,
+    greedy, each window profiled.  ``q4``: INT4 weights, once, unprofiled:
+    the Q4 row-blocked kernel, and decode steps on the per-layer path."""
     import numpy as np
 
     import qwen3_rs_tpu_torch.inference.engine as engine_mod
@@ -1232,8 +1553,11 @@ def long_prompt_path(torch, ctx, cfg, engine, tok) -> dict:
     windows = [(off, min(w, n_tok - off)) for off in range(0, n_tok, w)]
     need(len(windows) == 2 and windows[0][1] == 2048, f"prompt of {n_tok} tokens: windows {windows}")
     runs = []
+    rows_key = "qmatmul_w8a16_rows_q4" if q4 else "qmatmul_w8a16_rows"
+    step = ({"qmatmul_w8a16_q4": 4 * n_l, "qmatmul_w8a16": 1, "flash_decode": n_l} if q4
+            else {"decode_megakernel": 1})
     reset_launches()  # this path's run starts here
-    for _ in range(2):
+    for _ in range(1 if q4 else 2):
         recs: list = []
         with forward_records(torch, engine_mod, recs):
             t0 = time.perf_counter()
@@ -1241,33 +1565,36 @@ def long_prompt_path(torch, ctx, cfg, engine, tok) -> dict:
                            max_tokens=LONG_DECODE_TOKENS)
         runs.append((ids, recs, t0))
     launches = dict(LAUNCHES)  # and ends here
-    ctx["path_launches"]["long_prompt"] = launches
-    need(runs[0][0] == runs[1][0], "two greedy long-prompt runs differ")
+    ctx["path_launches"]["long_prompt_int4" if q4 else "long_prompt"] = launches
+    need(runs[0][0] == runs[-1][0], "two greedy long-prompt runs differ")
     for ids, recs, _ in runs:
         need(len(recs) - len(windows) in (len(ids) - 1, len(ids)), f"{len(recs)} forward calls for {len(ids)} tokens")
         for i, (off, rows) in enumerate(windows):
             need((recs[i]["rows"], recs[i]["pos"]) == (rows, off), f"window {i}: {recs[i]['rows']} rows at {recs[i]['pos']}")
-            long = rows > 256
-            _expect(recs[i], {"qmatmul_w8a16_rows": 4 * n_l if long else 0,
-                              "causal_prefill_attention": n_l if long and off == 0 else 0,
-                              "qmatmul_w8a16": 1 if long else 4 * n_l + 1}, f"prefill window {i}")
+            need(rows > 256, f"window {i} of {rows} rows takes the fused kernel")
+            _expect(recs[i], {rows_key: 4 * n_l, "causal_prefill_attention": n_l if off == 0 else 0,
+                              "qmatmul_w8a16": 1}, f"prefill window {i}")
         for rec in recs[len(windows):]:
-            _expect(rec, {"decode_megakernel": 1}, "decode step")
-    ids, recs, t0 = runs[1]
+            _expect(rec, step, "decode step")
+    ids, recs, t0 = runs[-1]
     bounds = [prefill_ops(cfg, rows, cache_rows=off)["total"] / PEAK_OPS_PER_S["bf16"] * 1e3
               for off, rows in windows]
     win_ms = [recs[i]["seconds"] * 1e3 for i in range(len(windows))]
     steps = [r["seconds"] for r in recs[len(windows) + 1:]]
     out = {
         "prompt_tokens": n_tok, "windows": [rows for _, rows in windows], "generated": len(ids),
-        "identical": True, "window_ms": win_ms, "window_ms_first_run": [r["seconds"] * 1e3 for r in runs[0][1][:2]],
+        "identical": len(runs) > 1, "window_ms": win_ms,
+        "window_ms_first_run": [r["seconds"] * 1e3 for r in runs[0][1][:2]],
         "window_bound_ms": bounds, "window_bound_share": [b / m for b, m in zip(bounds, win_ms)],
         "fresh_2048_ttft_ms": win_ms[0], "prefill_ms": sum(win_ms),
         "prefill_bound_share": sum(bounds) / sum(win_ms),
         "ttft_ms": (recs[len(windows)]["start"] - t0) * 1e3,
         "decode_step_ms": statistics.median(steps) * 1e3, "launches": launches,
     }
-    emit({"phase": "e2e", "run": "long prompt generate greedy x2", **out})
+    emit({"phase": "e2e", "run": "INT4 long prompt generate greedy" if q4 else "long prompt generate greedy x2",
+          **out})
+    if q4:
+        return out
     # Where a window's time goes (profiled apart from the checked runs).
     ids_all = np.asarray([tok.encode(prompt)])
     for name, (off, rows) in zip(("fresh_window", "continuation_window"), windows):
@@ -1280,11 +1607,12 @@ def long_prompt_path(torch, ctx, cfg, engine, tok) -> dict:
     return out
 
 
-def eval_path(torch, ctx, cfg, weights, mode: str, windows: int, runs: int) -> dict:
+def eval_path(torch, ctx, cfg, weights, mode: str, windows: int, runs: int, q4: bool = False) -> dict:
     """eval-ppl at the full 4096-row window, through ``compute_perplexity``:
     fast mode sends wqkv, wo and w13 to the row-blocked kernel and w2 to the
-    dequant kernel and one bf16 product; exact mode every projection and the
-    classifier to the W8A8 kernel."""
+    dequant kernel and one bf16 product (their Q4 variants with ``q4``);
+    exact mode every projection and the classifier to the W8A8 kernel; f32
+    mode launches no kernel."""
     import numpy as np
 
     import qwen3_rs_tpu_torch.evaluation as ev
@@ -1292,8 +1620,13 @@ def eval_path(torch, ctx, cfg, weights, mode: str, windows: int, runs: int) -> d
 
     n_l, window = cfg.n_layers, cfg.seq_len
     tokens = np.random.default_rng(SEED).integers(0, cfg.vocab_size, windows * (window - 1) + 1).tolist()
-    want = ({"qmatmul_w8a16_rows": 3 * n_l, "dequant_w8_stacked": n_l} if mode == "fast"
-            else {"qmatmul_w8a8_rows": 4 * n_l + 1})
+    want = {
+        "fast": {"qmatmul_w8a16_rows_q4": 3 * n_l, "dequant_q4_stacked": n_l} if q4
+        else {"qmatmul_w8a16_rows": 3 * n_l, "dequant_w8_stacked": n_l},
+        "exact": {"qmatmul_w8a8_rows": 4 * n_l + 1},
+        "f32": {},
+    }[mode]
+    name = f"eval_ppl_{mode}" + ("_int4" if q4 else "")
     results, recs, seconds = [], [], []
     reset_launches()  # this path's run starts here
     with forward_records(torch, ev, recs):
@@ -1302,7 +1635,7 @@ def eval_path(torch, ctx, cfg, weights, mode: str, windows: int, runs: int) -> d
             results.append(ev.compute_perplexity(cfg, weights, tokens, mode=mode, window=window))
             seconds.append(time.perf_counter() - t0)
     launches = dict(LAUNCHES)  # and ends here
-    ctx["path_launches"][f"eval_ppl_{mode}"] = launches
+    ctx["path_launches"][name] = launches
     need(len(recs) == windows * runs, f"eval-ppl {mode}: {len(recs)} windows, expected {windows * runs}")
     for rec in recs:
         need(rec["rows"] == window, f"eval-ppl window of {rec['rows']} rows")
@@ -1316,7 +1649,7 @@ def eval_path(torch, ctx, cfg, weights, mode: str, windows: int, runs: int) -> d
         "seconds_per_window": statistics.median(seconds) / windows,
         "forward_seconds_per_window": statistics.median(x["seconds"] for x in recs), "launches": launches,
     }
-    emit({"phase": "e2e", "run": f"eval-ppl {mode}", **out})
+    emit({"phase": "e2e", "run": f"eval-ppl {mode}" + (" INT4" if q4 else ""), **out})
     if mode == "fast":  # where an eval window's time goes
         out["profile"] = profile_calls(
             torch, lambda i: ev.compute_perplexity(cfg, weights, tokens[:window], mode=mode, window=window), 1)
@@ -1790,9 +2123,51 @@ def phase_cli(torch, ctx) -> None:
           "seconds": time.perf_counter() - t0})
     cli_batch(torch, ctx, root, cfg, weights)
     cli_serve(torch, ctx, root, cfg, weights)
+    cli_export(torch, ctx)
 
 
-def cli_batch(torch, ctx, root, cfg, weights) -> None:
+def cli_export(torch, ctx) -> None:
+    """``export`` of a synthetic HF directory to an INT4 ``.qtpu`` and an
+    INT8 legacy ``.bin``; ``inference -m generate`` on each, its output equal
+    to the API's (the INT4 one through the Q4 kernels); ``batch`` once on the
+    INT4 checkpoint."""
+    from qwen3_rs_tpu_torch import Engine, Tokenizer, TokenSampler, generate
+    from qwen3_rs_tpu_torch.checkpoint import load_checkpoint
+    from qwen3_rs_tpu_torch.cli import main as cli_main
+    from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    model = write_hf_model(ctx["tmp"] / "hf", SEED + 8)
+    prompt = prompt_text(60)
+    for name, flags, q4 in (("q4.qtpu", ["--bits", "4"], True), ("m8.bin", ["--format", "legacy"], False)):
+        ckpt = ctx["tmp"] / name
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+            rc = cli_main(["export", str(model), str(ckpt), "-g", "64", *flags])
+        need(rc == 0, f"cli export {name} exited {rc}")
+        export_s = time.perf_counter() - t0
+        buf = io.StringIO()
+        reset_launches()  # this path's run starts here
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(["inference", str(ckpt), "-m", "generate", "-i", prompt, "-t", "0", "-s", "5"])
+        launches = dict(LAUNCHES)  # and ends here
+        ctx["path_launches"][f"cli_export_{name}"] = launches
+        need(rc == 0, f"cli inference on the exported {name} exited {rc}")
+        key = "qmatmul_w8a16_q4" if q4 else "qmatmul_w8a16"
+        need(launches[key] > 0 and (launches["qmatmul_w8a16_q4"] == 0) == (not q4), f"cli {name}: launched {launches}")
+        cfg, weights = load_checkpoint(ckpt)
+        need(cfg.weight_bits == (4 if q4 else 8), f"{name}: weight_bits {cfg.weight_bits}")
+        api = io.StringIO()
+        generate(Engine(checkpoint=ckpt, device=DEV), Tokenizer(ckpt, cfg.vocab_size), TokenSampler(0.0, 0.9, 5),
+                 prompt, out=api)
+        need(buf.getvalue() == api.getvalue() and len(api.getvalue()) > len(prompt),
+             f"cli inference on the exported {name} differs from the API's")
+        emit({"phase": "cli", "mode": f"export {' '.join(flags)} + inference generate", "checkpoint": name,
+              "export_s": export_s, "chars_out": len(api.getvalue()), "equal_to_api": True, "launches": launches})
+        if q4:
+            cli_batch(torch, ctx, ckpt, cfg, weights, kvs=("paged",))
+
+
+def cli_batch(torch, ctx, root, cfg, weights, kvs=("paged", "dense")) -> None:
     """``batch --sampling host`` on the paged pool and on the dense slots:
     its JSON lines equal the API's on the same requests."""
     from qwen3_rs_tpu_torch import Tokenizer
@@ -1803,7 +2178,7 @@ def cli_batch(torch, ctx, root, cfg, weights) -> None:
     pfile = ctx["tmp"] / "prompts.txt"
     pfile.write_text("\n".join(prompts) + "\n")
     tok = Tokenizer(root, cfg.vocab_size)
-    for kv in ("paged", "dense"):
+    for kv in kvs:
         buf = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
@@ -1819,8 +2194,8 @@ def cli_batch(torch, ctx, root, cfg, weights) -> None:
                                   "completion": tok.decode(r.generated), "tokens": len(r.generated),
                                   "finish_reason": r.finish_reason}) + "\n" for r in done)
         need(buf.getvalue() == api, f"cli batch --kv {kv}: output differs from the API's")
-        emit({"phase": "cli", "mode": f"batch --kv {kv}", "requests": len(done), "equal_to_api": True,
-              "seconds": time.perf_counter() - t0})
+        emit({"phase": "cli", "mode": f"batch --kv {kv}", "checkpoint": root.name, "requests": len(done),
+              "equal_to_api": True, "seconds": time.perf_counter() - t0})
 
 
 def cli_serve(torch, ctx, root, cfg, weights) -> None:

@@ -1,9 +1,10 @@
-"""Checkpoint reader: the native ``.qtpu`` directory and the legacy ``.bin``.
+"""Checkpoint reader and writer: the native ``.qtpu`` directory and the
+legacy ``.bin``.
 
 Both formats load into the same ``Qwen3Weights`` of CPU tensors; the engine
 moves them to its device.  The native directory holds ``config.json`` and
 ``weights/*.npy`` arrays stacked per component on a leading ``[n_layers]``
-axis:
+axis (``NativeCheckpointWriter`` writes it, tensor by tensor):
 
     <ckpt>.qtpu/
       config.json  tokenizer.bin  template[.with-*]
@@ -17,6 +18,11 @@ axis:
         lm_head.q/s.npy [V, dim]     (absent when the classifier is shared)
         rms_att.npy [L, dim]  rms_ffn.npy [L, dim]  rms_final.npy [dim]
         q_norm.npy [L, hd]    k_norm.npy [L, hd]
+
+An INT4 checkpoint (``weight_bits`` 4, in-major only, ``"q4_pack":
+"biased-v2"`` in ``config.json``) stores the linear layers' codes
+nibble-packed, ``w*.q.npy [L, in/2, out]`` uint8 (``ops/quant.py``); they load
+as ``Q4Tensor``.  The embedding and the classifier stay INT8.
 
 The legacy file is the 256-byte header followed by the reference's tensor
 records, row-major ``[out, in]``.  The loader builds the compute layout:
@@ -38,12 +44,15 @@ import torch
 
 from .configuration import HEADER_SIZE, ModelConfig, read_config
 from .models.qwen3 import Qwen3LayerWeights, Qwen3Weights
-from .ops.quant import QuantizedTensor
+from .ops.quant import Q4Tensor, QuantizedTensor, pack_q4_np
 
 WEIGHTS_DIR = "weights"
 LAYOUT_MARKER = "_layout"
 LAYOUT_IN_MAJOR = "in_major_v2"
 VOCAB_PAD_MULTIPLE = 2048
+# Linear layers, stored in-major [L, in, out] in the v2 layout.
+IN_MAJOR_TENSORS = frozenset({"wq", "wk", "wv", "wo", "w1", "w2", "w3"})
+_Q4_LAYOUT_ERROR = "INT4 checkpoints require the in-major (v2) layout"
 
 
 def _t(a: np.ndarray) -> torch.Tensor:
@@ -61,8 +70,10 @@ def _transposed(q: np.ndarray, s: np.ndarray) -> QuantizedTensor:
     return _qt(np.swapaxes(q, -1, -2), np.swapaxes(s, -1, -2))
 
 
-def _fuse_out(*tensors: QuantizedTensor) -> QuantizedTensor:
-    return QuantizedTensor(
+def _fuse_out(*tensors):
+    """Concatenate along the out axis, keeping the tensor kind (packed INT4
+    codes concatenate the same way)."""
+    return type(tensors[0])(
         torch.cat([t.q for t in tensors], dim=-1), torch.cat([t.scales for t in tensors], dim=-1)
     )
 
@@ -78,28 +89,78 @@ def classifier_from(q_vd: np.ndarray, s_vd: np.ndarray) -> QuantizedTensor:
     return _qt(q_t, s_t)
 
 
-def _check_bits(config: ModelConfig) -> None:
-    if config.weight_bits != 8:
-        raise ValueError(
-            f"{config.weight_bits}-bit checkpoint: the port loads INT8 (Q8_0) checkpoints only; "
-            "INT4 is not ported yet (ROADMAP.md, queue 1)"
-        )
-
-
 # --------------------------------------------------------------------- native
+class NativeCheckpointWriter:
+    """Streaming writer of the native directory: tensors are written one at
+    a time into memory-mapped ``.npy`` files.  Linear layers arrive row-major
+    ``[out, in]`` from the quantizer and are stored in-major (transposed;
+    INT4 codes then nibble-packed along the in axis)."""
+
+    def __init__(self, path: str | Path, config: ModelConfig, *, in_major: bool = True):
+        if config.weight_bits == 4 and not in_major:
+            raise ValueError(_Q4_LAYOUT_ERROR)
+        self.root = Path(path)
+        self.wdir = self.root / WEIGHTS_DIR
+        self.wdir.mkdir(parents=True, exist_ok=True)
+        self.config = config
+        self.in_major = in_major
+        (self.root / "config.json").write_text(config.to_native_json())
+        if in_major:
+            (self.wdir / LAYOUT_MARKER).write_text(LAYOUT_IN_MAJOR)
+        self._open: dict[str, np.memmap] = {}
+
+    def _memmap(self, name: str, shape, dtype) -> np.memmap:
+        if name not in self._open:
+            self._open[name] = np.lib.format.open_memmap(
+                self.wdir / f"{name}.npy", mode="w+", dtype=dtype, shape=tuple(shape)
+            )
+        return self._open[name]
+
+    def write_norm(self, name: str, data: np.ndarray, layer_idx: int | None = None):
+        if layer_idx is None:
+            self._memmap(name, data.shape, np.float32)[...] = data
+        else:
+            self._memmap(name, (self.config.n_layers, *data.shape), np.float32)[layer_idx] = data
+
+    def write_quantized(self, name: str, q: np.ndarray, scales: np.ndarray, layer_idx: int | None = None):
+        q_dtype = np.int8
+        if self.in_major and name in IN_MAJOR_TENSORS:
+            q = np.ascontiguousarray(np.swapaxes(q, -1, -2))
+            scales = np.ascontiguousarray(np.swapaxes(scales, -1, -2))
+            if self.config.weight_bits == 4:
+                q = pack_q4_np(q, self.config.group_size)
+                q_dtype = np.uint8
+        if layer_idx is None:
+            self._memmap(f"{name}.q", q.shape, q_dtype)[...] = q
+            self._memmap(f"{name}.s", scales.shape, np.float32)[...] = scales
+        else:
+            l = self.config.n_layers
+            self._memmap(f"{name}.q", (l, *q.shape), q_dtype)[layer_idx] = q
+            self._memmap(f"{name}.s", (l, *scales.shape), np.float32)[layer_idx] = scales
+
+    def close(self):
+        for mm in self._open.values():
+            mm.flush()
+        self._open.clear()
+
+
 def load_native(path: str | Path) -> tuple[ModelConfig, Qwen3Weights]:
     root = Path(path)
     config = ModelConfig.from_native_json((root / "config.json").read_text())
-    _check_bits(config)
     wdir = root / WEIGHTS_DIR
     marker = wdir / LAYOUT_MARKER
     in_major = marker.exists() and marker.read_text().strip() == LAYOUT_IN_MAJOR
+    q4 = config.weight_bits == 4
+    if q4 and not in_major:
+        raise ValueError(_Q4_LAYOUT_ERROR)
 
     def arr(name):
         return np.load(wdir / f"{name}.npy", mmap_mode="r")
 
     def linear(name):
         q, s = arr(f"{name}.q"), arr(f"{name}.s")
+        if q4:
+            return Q4Tensor(_t(q), _t(s))
         return _qt(q, s) if in_major else _transposed(q, s)
 
     layers = Qwen3LayerWeights(
@@ -156,9 +217,9 @@ def _read_records(cur: _Cursor, n: int, rows: int, cols: int, g: int):
 
 
 def load_legacy(path: str | Path) -> tuple[ModelConfig, Qwen3Weights]:
-    """Load a reference-format ``.bin`` checkpoint."""
+    """Load a reference-format ``.bin`` checkpoint (INT8 only: its header
+    has no code width, and the writer refuses INT4)."""
     config = read_config(path)
-    _check_bits(config)
     cur = _Cursor(path)
     try:
         cur.offset = HEADER_SIZE

@@ -1,5 +1,5 @@
-"""Command-line interface: the ``inference``, ``eval-ppl``, ``batch`` and
-``serve`` subcommands.
+"""Command-line interface: the ``export``, ``inference``, ``eval-ppl``,
+``batch`` and ``serve`` subcommands.
 
 The same flags, defaults and output as the reference package's subcommands,
 plus ``--device`` (default: the card).  ``--device-sampling`` runs the
@@ -10,6 +10,8 @@ naming the ROADMAP.md item; they never run something else.  ``--sampling``
 defaults to ``device`` as in the reference package, so ``batch`` and
 ``serve`` need ``--sampling host`` for now.
 
+    python -m qwen3_rs_tpu_torch.cli export HF_DIR m.qtpu -g 64 --bits 4
+    python -m qwen3_rs_tpu_torch.cli export HF_DIR m.bin --format legacy
     python -m qwen3_rs_tpu_torch.cli inference CKPT -m generate -i "hello" -t 0
     python -m qwen3_rs_tpu_torch.cli inference CKPT -m generate -i "hello" -t 0.8 --device-sampling
     python -m qwen3_rs_tpu_torch.cli inference CKPT -m generate -i "hello" --engine-mode exact
@@ -45,9 +47,22 @@ _CHUNK_HELP = (
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
-        prog="qwen3-torch", description="Qwen3 INT8 inference on an NVIDIA GPU (PyTorch + CUDA)"
+        prog="qwen3-torch", description="Qwen3 INT8/INT4 export and inference on an NVIDIA GPU (PyTorch + CUDA)"
     )
     sub = parser.add_subparsers(dest="command", required=True)
+    exp = sub.add_parser("export", help="Export HF model to quantized checkpoint")
+    exp.add_argument("model_path", help="Path to the HF model directory")
+    exp.add_argument("output_path", help="Output checkpoint path")
+    exp.add_argument("-g", "--group-size", type=int, default=64, help="Quantization group size (default 64)")
+    exp.add_argument(
+        "--format", choices=["native", "legacy"], default="native",
+        help="native = checkpoint directory (.qtpu, default); legacy = reference .bin",
+    )
+    exp.add_argument(
+        "--bits", type=int, choices=[8, 4], default=8,
+        help="linear-layer code width: 8 = Q8_0 (default); 4 = nibble-packed INT4 (native format only: "
+        "halves the decode weight stream; embeddings/classifier stay INT8)",
+    )
     inf = sub.add_parser("inference", help="Run inference on a checkpoint")
     inf.add_argument("checkpoint", help="Checkpoint (native directory or legacy .bin)")
     inf.add_argument("-t", "--temperature", type=float, default=1.0)
@@ -250,9 +265,26 @@ def _serve(args) -> int:
     return 0
 
 
+def validate_export_dir(model_path: Path) -> None:
+    """The model directory holds config.json, tokenizer.json and safetensors."""
+    if not model_path.is_dir():
+        raise SystemExit(f"Model path is not a directory: {model_path}")
+    missing = [f for f in ("config.json", "tokenizer.json") if not (model_path / f).exists()]
+    if missing:
+        raise SystemExit(f"Model directory {model_path} is missing: {', '.join(missing)}")
+    if not list(model_path.glob("*.safetensors")):
+        raise SystemExit(f"No .safetensors files found in {model_path}")
+
+
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, format="%(message)s", stream=sys.stderr)
     args = build_parser().parse_args(argv)
+    if args.command == "export":
+        from .export import export_model
+
+        validate_export_dir(Path(args.model_path))
+        export_model(args.model_path, args.output_path, args.group_size, fmt=args.format, weight_bits=args.bits)
+        return 0
     if args.command in ("batch", "serve"):
         _serving_not_ported(args)
         return _batch(args) if args.command == "batch" else _serve(args)

@@ -27,6 +27,12 @@ NATIVE_FORMAT_MAGIC = "qtpu1"
 ARCHITECTURE_QWEN3 = 1
 ARCHITECTURE_LLAMA = 2
 
+# HF ``architectures`` names the exporter accepts.
+ARCHITECTURE_NAMES = {
+    "Qwen3ForCausalLM": ARCHITECTURE_QWEN3,
+    "LlamaForCausalLM": ARCHITECTURE_LLAMA,
+}
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
@@ -48,7 +54,7 @@ class ModelConfig:
     # Qwen3 applies per-head RMSNorm to Q/K before RoPE; Llama does not.
     use_qk_norm: bool = True
     # Linear-layer code width: 8 = Q8_0, 4 = nibble-packed INT4 (native
-    # format only).  The port loads 8-bit checkpoints only.
+    # format only).  The embedding and the classifier stay INT8 either way.
     weight_bits: int = 8
 
     @property
@@ -99,8 +105,8 @@ class ModelConfig:
     def to_legacy_header(self) -> bytes:
         if self.weight_bits != 8:
             raise ValueError(
-                "the legacy .bin format is Q8_0-only; export INT4 checkpoints "
-                "in the native format"
+                "the legacy .bin format is Q8_0-only (reference-compatible); "
+                "export INT4 checkpoints in the native format"
             )
         packed = struct.pack(
             "<13i",
@@ -194,7 +200,8 @@ class ModelConfig:
             raise ValueError(f"Unsupported native checkpoint version: {payload.get('version')}")
         if payload.get("weight_bits") == 4 and payload.get("q4_pack") != "biased-v2":
             raise ValueError(
-                "This INT4 checkpoint uses the pre-biased-v2 nibble packing; re-export it"
+                "This INT4 checkpoint uses the pre-biased-v2 nibble packing; "
+                "re-export it (ops/quant.py Q4_BIAS changed the on-disk encoding)"
             )
         fields = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in payload.items() if k in fields}).validate()

@@ -2,7 +2,9 @@
 //
 // Replaces the reference package's Pallas kernel
 //   qwen3_rs_tpu/ops/pallas/qmatmul.py::qmatmul_pallas_stacked_rows (prefill windows > 256 rows).
-// The layer offset of stacked weights is a pointer offset made by the wrapper.
+// The layer offset of stacked weights is a pointer offset made by the wrapper.  A template
+// parameter picks the code format: int8 codes [N, D], or INT4 codes nibble-packed [N/2, D]
+// (group split-half along N, code + 8 per nibble: the Q4 tiles of the same Pallas kernel).
 //
 // Numerics ("scale_w", as the Pallas kernel): x is bf16; each weight element is
 // bf16(code * bf16(scale)) (the product of an 8-bit code and a bf16 scale is exact in f32, then
@@ -20,6 +22,11 @@
 //    and the strip is read from device memory about once and from L2 afterwards;
 //  * shared-memory rows are padded by 16 bytes so that ldmatrix reads are free of bank
 //    conflicts.  wgmma, TMA and a deeper pipeline are later work.
+// INT4: a k-tile is 32 packed rows, i.e. 64 in-rows: shared row r < 32 holds the low nibbles of
+// packed row p0 + r, row r >= 32 the high nibbles of packed row p0 + r - 32.  The product does
+// not depend on the order of k, so the x tile is gathered in the same order (8-row runs: the
+// wrapper guarantees g % 16 == 0), and the mma.sync body is the INT8 kernel's.  Each weight is
+// bf16((nibble - 8) * bf16(scale)), as the Pallas "int" unpack.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,6 +77,13 @@ __device__ __forceinline__ uint32_t dequant2(float c0, float c1, uint32_t scale_
   return *reinterpret_cast<const uint32_t*>(&w);
 }
 
+// In-row of x that shared column k (0..63) of the k-tile starting at packed row p0 holds.
+__device__ __forceinline__ int q4_in_row(int p0, int k, int h) {
+  const int p = p0 + (k & 31);
+  return (p / h) * 2 * h + (p % h) + (k >> 5) * h;
+}
+
+template <bool Q4>
 __global__ void __launch_bounds__(kThreads)
 qmatmul_rows_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ codes,
                     const __nv_bfloat16* __restrict__ scales, float* __restrict__ out, int M,
@@ -89,24 +103,29 @@ qmatmul_rows_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restric
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
-  // Register stage: 4 x 16 bytes of x and 2 x 16 codes (with their 2 x 16 bf16 scales).
-  uint4 a_reg[4], c_reg[2], s_reg[2][2];
+  // Register stage: 4 x 16 bytes of x and 2 x 16 codes (with their 2 x 16 bf16 scales); INT4
+  // stages one 16-byte load of packed codes (32 shared rows of 16 columns) and its scales.
+  constexpr int kCodeLoads = Q4 ? 1 : 2;
+  uint4 a_reg[4], c_reg[kCodeLoads], s_reg[kCodeLoads][2];
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  const int h = g / 2;
 
   auto load_tile = [&](int k0) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int id = tid + i * kThreads, r = id >> 3, ch = id & 7;
       const int row = m0 + r;
-      a_reg[i] = row < M ? *reinterpret_cast<const uint4*>(x + (long)row * N + k0 + ch * 8) : zero;
+      const int k = Q4 ? q4_in_row(k0 / 2, ch * 8, h) : k0 + ch * 8;
+      a_reg[i] = row < M ? *reinterpret_cast<const uint4*>(x + (long)row * N + k) : zero;
     }
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < kCodeLoads; ++i) {
       const int id = tid + i * kThreads, r = id >> 3, ch = id & 7;
-      const int col = n0 + ch * 16, k = k0 + r;
+      const int col = n0 + ch * 16, k = (Q4 ? k0 / 2 : k0) + r;  // a packed row for INT4
       if (col < D) {
         c_reg[i] = __ldg(reinterpret_cast<const uint4*>(codes + (long)k * D + col));
-        const uint4* sp = reinterpret_cast<const uint4*>(scales + (long)(k / g) * D + col);
+        const int grp = Q4 ? k / h : k / g;
+        const uint4* sp = reinterpret_cast<const uint4*>(scales + (long)grp * D + col);
         s_reg[i][0] = __ldg(sp);
         s_reg[i][1] = __ldg(sp + 1);
       } else {
@@ -116,6 +135,20 @@ qmatmul_rows_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restric
     }
   };
 
+  // 16 codes (one byte each of cw, at byte k of each word, minus `bias`) times their scales,
+  // rounded to bf16, into shared row r.
+  auto store_row = [&](int r, int ch, const uint32_t* cw, const uint32_t* sw, float bias) {
+    uint32_t wv[8];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      wv[2 * q] = dequant2(code_of(cw[q], 0) - bias, code_of(cw[q], 1) - bias, sw[2 * q]);
+      wv[2 * q + 1] = dequant2(code_of(cw[q], 2) - bias, code_of(cw[q], 3) - bias, sw[2 * q + 1]);
+    }
+    uint4* dst = reinterpret_cast<uint4*>(&Bs[r * B_STRIDE + ch * 16]);
+    dst[0] = make_uint4(wv[0], wv[1], wv[2], wv[3]);
+    dst[1] = make_uint4(wv[4], wv[5], wv[6], wv[7]);
+  };
+
   auto store_tile = [&]() {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -123,20 +156,22 @@ qmatmul_rows_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restric
       *reinterpret_cast<uint4*>(&As[r * A_STRIDE + ch * 8]) = a_reg[i];
     }
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < kCodeLoads; ++i) {
       const int id = tid + i * kThreads, r = id >> 3, ch = id & 7;
       const uint32_t cw[4] = {c_reg[i].x, c_reg[i].y, c_reg[i].z, c_reg[i].w};
       const uint32_t sw[8] = {s_reg[i][0].x, s_reg[i][0].y, s_reg[i][0].z, s_reg[i][0].w,
                               s_reg[i][1].x, s_reg[i][1].y, s_reg[i][1].z, s_reg[i][1].w};
-      uint32_t wv[8];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        wv[2 * q] = dequant2(code_of(cw[q], 0), code_of(cw[q], 1), sw[2 * q]);
-        wv[2 * q + 1] = dequant2(code_of(cw[q], 2), code_of(cw[q], 3), sw[2 * q + 1]);
+      if constexpr (Q4) {
+        // Nibbles as unsigned bytes (code + 8, 0..15): code_of reads them as non-negative int8.
+        const uint32_t lo[4] = {cw[0] & 0x0F0F0F0Fu, cw[1] & 0x0F0F0F0Fu, cw[2] & 0x0F0F0F0Fu,
+                                cw[3] & 0x0F0F0F0Fu};
+        const uint32_t hi[4] = {(cw[0] >> 4) & 0x0F0F0F0Fu, (cw[1] >> 4) & 0x0F0F0F0Fu,
+                                (cw[2] >> 4) & 0x0F0F0F0Fu, (cw[3] >> 4) & 0x0F0F0F0Fu};
+        store_row(r, ch, lo, sw, 8.f);
+        store_row(r + 32, ch, hi, sw, 8.f);
+      } else {
+        store_row(r, ch, cw, sw, 0.f);
       }
-      uint4* dst = reinterpret_cast<uint4*>(&Bs[r * B_STRIDE + ch * 16]);
-      dst[0] = make_uint4(wv[0], wv[1], wv[2], wv[3]);
-      dst[1] = make_uint4(wv[4], wv[5], wv[6], wv[7]);
     }
   };
 
@@ -189,14 +224,21 @@ qmatmul_rows_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restric
 
 }  // namespace
 
-// Plain C entry point.  x [M, N] bf16, codes [N, D] int8 and scales [N/g, D] bf16 are device
-// pointers (codes/scales already offset to the layer); out [M, D] f32.  The wrapper guarantees
-// N % 64 == 0, D % 16 == 0 and 16-byte alignment.  Returns cudaGetLastError().
+// Plain C entry point.  x [M, N] bf16, codes [N, D] int8 (q4: [N/2, D] packed) and scales
+// [N/g, D] bf16 are device pointers (codes/scales already offset to the layer); out [M, D] f32.
+// The wrapper guarantees N % 64 == 0, D % 16 == 0, 16-byte alignment and, for q4, g % 16 == 0.
+// Returns cudaGetLastError().
 extern "C" int qmatmul_w8a16_rows(const void* x, const void* codes, const void* scales, void* out,
-                                  int M, int N, int D, int g, void* stream) {
+                                  int M, int N, int D, int g, int q4, void* stream) {
   const dim3 grid((M + BM - 1) / BM, (D + BN - 1) / BN);
-  qmatmul_rows_kernel<<<grid, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const __nv_bfloat16*>(x), reinterpret_cast<const int8_t*>(codes),
-      reinterpret_cast<const __nv_bfloat16*>(scales), reinterpret_cast<float*>(out), M, N, D, g);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const auto* xb = reinterpret_cast<const __nv_bfloat16*>(x);
+  const auto* cq = reinterpret_cast<const int8_t*>(codes);
+  const auto* cs = reinterpret_cast<const __nv_bfloat16*>(scales);
+  auto* o = reinterpret_cast<float*>(out);
+  if (q4)
+    qmatmul_rows_kernel<true><<<grid, kThreads, 0, s>>>(xb, cq, cs, o, M, N, D, g);
+  else
+    qmatmul_rows_kernel<false><<<grid, kThreads, 0, s>>>(xb, cq, cs, o, M, N, D, g);
   return (int)cudaGetLastError();
 }

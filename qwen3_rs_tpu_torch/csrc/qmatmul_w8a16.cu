@@ -6,10 +6,15 @@
 //   qwen3_rs_tpu/ops/pallas/qmatmul.py::qmatmul_pallas_stacked_fused (+ RMSNorm or SwiGLU
 //                                                                    prologue, residual epilogue).
 // The layer offset is a pointer offset made by the wrapper, so one kernel covers all three.
+// A template parameter picks the code format: int8 codes [N, D], or INT4 codes nibble-packed
+// [N/2, D] (the Q4 variant of the same three kernels, qmatmul.py::_dequant_tile_q4 "int"):
+// byte row k*g/2 + j of group k holds in-row k*g + j in its low nibble and in-row k*g + g/2 + j
+// in its high nibble, each stored as code + 8.
 //
 // Numerics ("scale_w", as the Pallas kernel): the prologue runs in f32 and the activation is
 // rounded to bf16 after it; each weight element is bf16(bf16(code) * bf16(scale)); products
-// accumulate in f32.  The residual, when given, is added once, in the last pass.
+// accumulate in f32.  The residual, when given, is added once, in the last pass.  INT4 codes
+// (-8..7) take the same rounding.
 //
 // Bound on the H100: at decode (B = 1) the kernel streams every weight byte once and does
 // ~2 flops per byte, so it is bound by device-memory bytes (codes N*D + bf16 scales 2*N*D/g).
@@ -27,6 +32,10 @@
 //    their partial sums meet in shared memory in a fixed order;
 //  * row tiles of up to 8 activation rows (grid.z) keep prefill windows (B <= 256) correct
 //    without holding B x 16 accumulators per thread; tensor cores are left for a later version.
+// INT4: the bound halves (N*D/2 code bytes).  A 16-byte load along D holds 16 columns of two
+// in-rows, j and j + g/2 of one group; the thread dequantizes the low nibbles, accumulates them
+// against activation row j, then the high nibbles against row j + g/2.  Splits and staged tiles
+// cover whole groups (g divides 256 and the split length), so both rows are always staged.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -54,14 +63,27 @@ __device__ __forceinline__ float code_at(uint32_t biased) {
   return __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7650 | K)) - 8388736.0f;
 }
 
-// 16 codes of one row times their bf16 scales, each product rounded to bf16, as f32.
-__device__ __forceinline__ void dequant16(const uint4& c, const float* sf, float* w) {
-  const uint32_t words[4] = {c.x ^ 0x80808080u, c.y ^ 0x80808080u, c.z ^ 0x80808080u,
-                             c.w ^ 0x80808080u};
+// Byte k of `nibbles` (a biased INT4 code, code + 8, in 0..15) as the float code, exactly.
+template <int K>
+__device__ __forceinline__ float q4_code_at(uint32_t nibbles) {
+  return __uint_as_float(__byte_perm(nibbles, 0x4B000000u, 0x7650 | K)) - 8388616.0f;
+}
+
+// 16 codes of one row times their bf16 scales, each product rounded to bf16, as f32.  `biased`
+// holds 16 int8 codes xor 0x80 (Q4 = false) or 16 biased INT4 codes, one per byte (Q4 = true).
+template <bool Q4>
+__device__ __forceinline__ void dequant16(const uint4& biased, const float* sf, float* w) {
+  const uint32_t words[4] = {biased.x, biased.y, biased.z, biased.w};
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
-    const float c0 = code_at<0>(words[q]), c1 = code_at<1>(words[q]);
-    const float c2 = code_at<2>(words[q]), c3 = code_at<3>(words[q]);
+    float c0, c1, c2, c3;
+    if constexpr (Q4) {
+      c0 = q4_code_at<0>(words[q]), c1 = q4_code_at<1>(words[q]);
+      c2 = q4_code_at<2>(words[q]), c3 = q4_code_at<3>(words[q]);
+    } else {
+      c0 = code_at<0>(words[q]), c1 = code_at<1>(words[q]);
+      c2 = code_at<2>(words[q]), c3 = code_at<3>(words[q]);
+    }
     const float2 lo = __bfloat1622float2(__floats2bfloat162_rn(c0 * sf[4 * q], c1 * sf[4 * q + 1]));
     const float2 hi =
         __bfloat1622float2(__floats2bfloat162_rn(c2 * sf[4 * q + 2], c3 * sf[4 * q + 3]));
@@ -72,7 +94,30 @@ __device__ __forceinline__ void dequant16(const uint4& c, const float* sf, float
   }
 }
 
-template <int BT>
+__device__ __forceinline__ uint4 xor4(const uint4& c, uint32_t m) {
+  return make_uint4(c.x ^ m, c.y ^ m, c.z ^ m, c.w ^ m);
+}
+
+__device__ __forceinline__ uint4 nibbles4(const uint4& c, int shift) {
+  return make_uint4((c.x >> shift) & 0x0F0F0F0Fu, (c.y >> shift) & 0x0F0F0F0Fu,
+                    (c.z >> shift) & 0x0F0F0F0Fu, (c.w >> shift) & 0x0F0F0F0Fu);
+}
+
+// Loads the bf16 scales of group `grp` for this thread's 16 columns into sf, as f32.
+__device__ __forceinline__ void load_scales(const __nv_bfloat16* __restrict__ scales, int grp,
+                                            int D, int col0, float* sf) {
+  const uint4* sp = reinterpret_cast<const uint4*>(scales + (long)grp * D + col0);
+  const uint4 s0 = __ldg(sp), s1 = __ldg(sp + 1);
+  const uint32_t sw[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&sw[e]));
+    sf[2 * e] = f.x;
+    sf[2 * e + 1] = f.y;
+  }
+}
+
+template <int BT, bool Q4>
 __global__ void __launch_bounds__(kThreads)
 qmatmul_w8a16_kernel(const void* __restrict__ x, int x_bf16, const int8_t* __restrict__ codes,
                      const __nv_bfloat16* __restrict__ scales, const float* __restrict__ norm_w,
@@ -144,7 +189,38 @@ qmatmul_w8a16_kernel(const void* __restrict__ x, int x_bf16, const int8_t* __res
       xs[b][r] = v;
     }
     __syncthreads();
-    if (active) {
+    if (active && Q4) {
+      // Packed rows of the tile: rows / 2, a multiple of 4 (g % 8 == 0); 4 in flight share a group.
+      const int h = g / 2;
+      for (int pb = warp * kRowsPerBatch; pb < rows / 2; pb += kWarps * kRowsPerBatch) {
+        const long pr = t0 / 2 + pb;  // packed row
+        uint4 c[kRowsPerBatch];
+#pragma unroll
+        for (int j = 0; j < kRowsPerBatch; ++j)
+          c[j] = __ldg(reinterpret_cast<const uint4*>(codes + (pr + j) * D + col0));
+        const int grp = static_cast<int>(pr / h);
+        if (grp != cur_grp) {
+          load_scales(scales, grp, D, col0, sf);
+          cur_grp = grp;
+        }
+        const int lo = grp * g + static_cast<int>(pr % h) - t0;  // staged row of the low nibbles
+#pragma unroll
+        for (int j = 0; j < kRowsPerBatch; ++j) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            float w[kColsPerThread];
+            dequant16<true>(nibbles4(c[j], 4 * half), sf, w);
+            const int r = lo + j + half * h;
+#pragma unroll
+            for (int b = 0; b < BT; ++b) {
+              const float xv = xs[b][r];
+#pragma unroll
+              for (int e = 0; e < kColsPerThread; ++e) acc[b][e] = fmaf(xv, w[e], acc[b][e]);
+            }
+          }
+        }
+      }
+    } else if (active) {
       for (int rb = warp * kRowsPerBatch; rb < rows; rb += kWarps * kRowsPerBatch) {
         const int n = t0 + rb;
         uint4 c[kRowsPerBatch];
@@ -153,21 +229,13 @@ qmatmul_w8a16_kernel(const void* __restrict__ x, int x_bf16, const int8_t* __res
           c[j] = __ldg(reinterpret_cast<const uint4*>(codes + (long)(n + j) * D + col0));
         const int grp = n / g;  // g % 4 == 0: the 4 rows share a group
         if (grp != cur_grp) {
-          const uint4* sp = reinterpret_cast<const uint4*>(scales + (long)grp * D + col0);
-          const uint4 s0 = __ldg(sp), s1 = __ldg(sp + 1);
-          const uint32_t sw[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&sw[e]));
-            sf[2 * e] = f.x;
-            sf[2 * e + 1] = f.y;
-          }
+          load_scales(scales, grp, D, col0, sf);
           cur_grp = grp;
         }
 #pragma unroll
         for (int j = 0; j < kRowsPerBatch; ++j) {
           float w[kColsPerThread];
-          dequant16(c[j], sf, w);
+          dequant16<false>(xor4(c[j], 0x80808080u), sf, w);
 #pragma unroll
           for (int b = 0; b < BT; ++b) {
             const float xv = xs[b][rb + j];
@@ -225,15 +293,47 @@ __global__ void qmatmul_reduce_kernel(const float* __restrict__ partial,
   out[i] = s;
 }
 
+template <bool Q4>
+int launch(const dim3& grid, cudaStream_t s, int bt, const void* x, int x_bf16, const int8_t* cq,
+           const __nv_bfloat16* cs, const float* nw, const void* residual, int res_bf16, float* o,
+           float* p, int B, int N, int D, int g, int prologue, float eps, int kc) {
+  switch (bt) {
+    case 1:
+      qmatmul_w8a16_kernel<1, Q4><<<grid, kThreads, 0, s>>>(x, x_bf16, cq, cs, nw, residual,
+                                                            res_bf16, o, p, B, N, D, g, prologue,
+                                                            eps, kc);
+      return 0;
+    case 2:
+      qmatmul_w8a16_kernel<2, Q4><<<grid, kThreads, 0, s>>>(x, x_bf16, cq, cs, nw, residual,
+                                                            res_bf16, o, p, B, N, D, g, prologue,
+                                                            eps, kc);
+      return 0;
+    case 4:
+      qmatmul_w8a16_kernel<4, Q4><<<grid, kThreads, 0, s>>>(x, x_bf16, cq, cs, nw, residual,
+                                                            res_bf16, o, p, B, N, D, g, prologue,
+                                                            eps, kc);
+      return 0;
+    case 8:
+      qmatmul_w8a16_kernel<8, Q4><<<grid, kThreads, 0, s>>>(x, x_bf16, cq, cs, nw, residual,
+                                                            res_bf16, o, p, B, N, D, g, prologue,
+                                                            eps, kc);
+      return 0;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // Plain C entry point.  Pointers are device pointers (codes/scales/norm_w already offset to
-// the layer).  `bt` is the activation row tile (1, 2, 4 or 8); `kc` the rows of N per split;
-// `partial` holds splits*B*D floats when splits > 1.  Returns cudaGetLastError().
+// the layer).  `q4`: codes are nibble-packed [N/2, D] (the wrapper guarantees g % 8 == 0,
+// 256 % g == 0 and kc % g == 0).  `bt` is the activation row tile (1, 2, 4 or 8); `kc` the
+// rows of N per split; `partial` holds splits*B*D floats when splits > 1.  Returns
+// cudaGetLastError().
 extern "C" int qmatmul_w8a16(const void* x, int x_bf16, const void* codes, const void* scales,
                              const void* norm_w, const void* residual, int res_bf16, void* out,
                              void* partial, int B, int N, int D, int g, int prologue, float eps,
-                             int bt, int kc, int splits, void* stream) {
+                             int bt, int kc, int splits, int q4, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const dim3 grid((D + kBlockCols - 1) / kBlockCols, splits, (B + bt - 1) / bt);
   const auto* cq = reinterpret_cast<const int8_t*>(codes);
@@ -241,30 +341,11 @@ extern "C" int qmatmul_w8a16(const void* x, int x_bf16, const void* codes, const
   const auto* nw = reinterpret_cast<const float*>(norm_w);
   auto* o = reinterpret_cast<float*>(out);
   auto* p = reinterpret_cast<float*>(partial);
-  switch (bt) {
-    case 1:
-      qmatmul_w8a16_kernel<1><<<grid, kThreads, 0, s>>>(x, x_bf16, cq, cs, nw, residual,
-                                                        res_bf16, o, p, B, N, D, g, prologue,
-                                                        eps, kc);
-      break;
-    case 2:
-      qmatmul_w8a16_kernel<2><<<grid, kThreads, 0, s>>>(x, x_bf16, cq, cs, nw, residual,
-                                                        res_bf16, o, p, B, N, D, g, prologue,
-                                                        eps, kc);
-      break;
-    case 4:
-      qmatmul_w8a16_kernel<4><<<grid, kThreads, 0, s>>>(x, x_bf16, cq, cs, nw, residual,
-                                                        res_bf16, o, p, B, N, D, g, prologue,
-                                                        eps, kc);
-      break;
-    case 8:
-      qmatmul_w8a16_kernel<8><<<grid, kThreads, 0, s>>>(x, x_bf16, cq, cs, nw, residual,
-                                                        res_bf16, o, p, B, N, D, g, prologue,
-                                                        eps, kc);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const int bad = q4 ? launch<true>(grid, s, bt, x, x_bf16, cq, cs, nw, residual, res_bf16, o, p,
+                                    B, N, D, g, prologue, eps, kc)
+                     : launch<false>(grid, s, bt, x, x_bf16, cq, cs, nw, residual, res_bf16, o, p,
+                                     B, N, D, g, prologue, eps, kc);
+  if (bad) return bad;
   if (splits > 1) {
     const long bd = (long)B * D;
     qmatmul_reduce_kernel<<<(unsigned)((bd + 255) / 256), 256, 0, s>>>(p, residual, res_bf16, o,

@@ -34,6 +34,7 @@ from ..models.qwen3 import (
     qwen3_forward,
     weights_to,
 )
+from ..ops.quant import Q4Tensor
 from ..ops.sampling import Sampler, sample_tokens
 
 logger = logging.getLogger(__name__)
@@ -171,7 +172,8 @@ class Engine:
             generator = torch.Generator(device=dev)
             generator.manual_seed(0)
         token_dev = torch.full((1,), int(token), dtype=torch.long, device=dev)
-        fused = megakernel_route(self.config, cache, 1, 1, self.mode)
+        fused = megakernel_route(self.config, cache, 1, 1, self.mode,
+                                 q4=isinstance(self.weights.layers.wqkv, Q4Tensor))
         pos_dev = torch.full((1,), int(pos), dtype=torch.int32, device=dev)
         out = []
         for i in range(n_steps):

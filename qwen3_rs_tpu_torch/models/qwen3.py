@@ -26,6 +26,13 @@ path, in three modes:
 * ``f32``: weights dequantized to f32 and full-f32 products (the f32 side of
   the perplexity accuracy bar).
 
+INT4 linear layers (``Q4Tensor``, an INT4 checkpoint) take the same routes
+through the Q4 variants of the kernels, as the reference's
+``_project_layer`` routes them: never the megakernel (its gate refuses Q4),
+the fused Q4 kernel up to 256 rows, the Q4 dequant on the xdot path and the
+Q4 row-blocked kernel otherwise; there is no exact mode for them.  The
+embedding and the classifier stay INT8.
+
 On CPU tensors the kernel wrappers run their plain PyTorch versions.
 
 Layouts as in the reference package: linear weights in-major, codes
@@ -54,10 +61,16 @@ from ..ops.kernels.flash_attention import flash_decode
 from ..ops.kernels.megakernel import decode_stack_megakernel, head_phase_supported, megakernel_supported
 from ..ops.kernels.paged_attention import paged_decode, paged_window_attention, window_supported
 from ..ops.kernels.prefill_attention import causal_prefill_attention
-from ..ops.kernels.qmatmul import MAX_ROWS, dequant_w8_stacked, qmatmul_w8a16, qmatmul_w8a16_rows
+from ..ops.kernels.qmatmul import (
+    MAX_ROWS,
+    dequant_q4_stacked,
+    dequant_w8_stacked,
+    qmatmul_w8a16,
+    qmatmul_w8a16_rows,
+)
 from ..ops.matmul import exact_float_products, f32_matmul, qmatmul, qmatmul_exact
 from ..ops.norms import rms_norm
-from ..ops.quant import QuantizedTensor, dequantize, quantize_activations
+from ..ops.quant import Q4Tensor, QuantizedTensor, dequantize, quantize_activations
 from ..ops.rope import apply_rope, rope_table
 
 MODES = ("fast", "exact", "f32")
@@ -81,6 +94,7 @@ class Qwen3LayerWeights(NamedTuple):
     rms_ffn: torch.Tensor  # [L, dim] f32
     q_norm: torch.Tensor  # [L, head_dim] f32
     k_norm: torch.Tensor  # [L, head_dim] f32
+    # QuantizedTensor, or Q4Tensor with the in axis packed (halved) in q.
     wqkv: QuantizedTensor  # [L, dim, all_heads_dim + 2·kv_dim]  (q | k | v)
     wo: QuantizedTensor  # [L, all_heads_dim, dim]
     w13: QuantizedTensor  # [L, dim, 2·hidden_dim]  (gate | up)
@@ -144,9 +158,7 @@ def cast_weight_scales(weights: Qwen3Weights, dtype=torch.bfloat16) -> Qwen3Weig
     """Fast mode: the linear layers' scales as bf16.  The kernel rounds every
     scale to bf16 anyway, so this halves the streamed scale bytes without
     changing a result.  Embedding scales stay f32."""
-    return _map_weights(
-        weights, lambda t: t, lambda qt: QuantizedTensor(qt.q, qt.scales.to(dtype))
-    )
+    return _map_weights(weights, lambda t: t, lambda qt: type(qt)(qt.q, qt.scales.to(dtype)))
 
 
 def _from_numpy(a) -> torch.Tensor:
@@ -158,10 +170,12 @@ def _from_numpy(a) -> torch.Tensor:
 
 def weights_from_jax_numpy(tree) -> Qwen3Weights:
     """The reference package's ``Qwen3Weights`` with numpy leaves → the
-    port's weights (CPU tensors, same layouts, same values)."""
+    port's weights (CPU tensors, same layouts, same values; its ``Q4Tensor``
+    leaves become the port's)."""
 
     def qt(t):
-        return QuantizedTensor(_from_numpy(t.q), _from_numpy(t.scales))
+        kind = Q4Tensor if type(t).__name__ == "Q4Tensor" else QuantizedTensor
+        return kind(_from_numpy(t.q), _from_numpy(t.scales))
 
     lw = tree.layers
     return Qwen3Weights(
@@ -273,10 +287,10 @@ def _project_layer(x, xq, w: QuantizedTensor, layer: int, mode: str, *, rounds_t
         return qmatmul_exact(xq, w, layer)
     if mode == "f32":
         return f32_matmul(x, w, layer)
-    n, d = w.q.shape[-2:]
+    n, d = w.shape[-2:]  # logical: packed INT4 codes hold n/2 rows
     rows = x.numel() // n
     if _xdot_prefill_wins(rows, n, d):
-        wbf = dequant_w8_stacked(w, layer)
+        wbf = dequant_q4_stacked(w, layer) if isinstance(w, Q4Tensor) else dequant_w8_stacked(w, layer)
         xb = x.reshape(rows, n).to(torch.bfloat16)
         with exact_float_products():
             out = xb @ wbf if rounds_to_bf16 else xb.float() @ wbf.float()
@@ -297,13 +311,14 @@ def _head(config, weights, x, mode: str) -> torch.Tensor:
 
 
 def megakernel_route(config: ModelConfig, cache, batch: int, rows: int, mode: str = "fast",
-                     paged: bool = False) -> bool:
+                     paged: bool = False, q4: bool = False) -> bool:
     """Whether a forward call takes the decode megakernel: a fast-mode decode
     step (one row per request) over the dense cache, on the shapes the
-    reference package's gate admits.  The gate looks at shapes only, so the
-    card and the CPU route alike."""
+    reference package's gate admits, with INT8 weights (``q4``: INT4 linear
+    layers, which it refuses).  The gate looks at shapes only, so the card
+    and the CPU route alike."""
     return (not paged and mode == "fast" and rows == 1
-            and megakernel_supported(config, cache.seq_len, cache.k.dtype, batch))
+            and megakernel_supported(config, cache.seq_len, cache.k.dtype, batch, q4=q4))
 
 
 def megakernel_step(config: ModelConfig, weights: Qwen3Weights, tokens: torch.Tensor, cache, pos: torch.Tensor,
@@ -392,7 +407,7 @@ def qwen3_forward(
         )
     if fresh_prefill and pos.any():
         raise ValueError(f"fresh_prefill with positions {pos.tolist()}: a fresh window starts at 0")
-    if megakernel_route(config, cache, b, s, mode, paged):
+    if megakernel_route(config, cache, b, s, mode, paged, q4=isinstance(weights.layers.wqkv, Q4Tensor)):
         ok = None if write_mask is None else torch.as_tensor(np.asarray(write_mask, bool), device=dev)
         out = megakernel_step(config, weights, tokens[:, 0], cache, torch.as_tensor(pos, dtype=torch.int32, device=dev),
                               ok, greedy_head=greedy_head)

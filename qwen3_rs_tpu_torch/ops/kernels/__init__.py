@@ -11,9 +11,12 @@ from __future__ import annotations
 
 LAUNCHES: dict[str, int] = {
     "qmatmul_w8a16": 0,
+    "qmatmul_w8a16_q4": 0,
     "flash_decode": 0,
     "qmatmul_w8a16_rows": 0,
+    "qmatmul_w8a16_rows_q4": 0,
     "dequant_w8_stacked": 0,
+    "dequant_q4_stacked": 0,
     "qmatmul_w8a8_rows": 0,
     "causal_prefill_attention": 0,
     "paged_decode": 0,

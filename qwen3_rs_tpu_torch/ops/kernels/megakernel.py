@@ -87,12 +87,14 @@ def _tile_budget(dim: int) -> int:
     return 6 * 1024 * 1024 if dim == 2560 else 2 * 1024 * 1024
 
 
-def megakernel_supported(config, t: int, dtype, batch: int = 1) -> bool:
+def megakernel_supported(config, t: int, dtype, batch: int = 1, q4: bool = False) -> bool:
     """Whether a decode step of ``batch`` rows over a dense cache of ``t`` rows
     of ``dtype`` (``torch.float32``, ``torch.bfloat16``, ``torch.int8`` or
-    ``"int8"``) takes the megakernel: the reference package's gate."""
+    ``"int8"``) takes the megakernel: the reference package's gate.  INT4
+    weights (``q4``) never do: the reference takes its Q4 tiles only on an
+    opt-in switch, and the port follows its default."""
     dtype = torch.int8 if dtype == "int8" else dtype
-    if dtype not in _CACHE_TYPES or batch > MAX_BATCH:
+    if q4 or dtype not in _CACHE_TYPES or batch > MAX_BATCH:
         return False
     if config.head_dim != HEAD_DIM or config.n_heads % config.n_kv_heads:
         return False

@@ -17,6 +17,13 @@ the tensor cores, without prologue or epilogue; and ``dequant_w8_stacked``
 (``dequant_pallas_stacked``) turns one layer's codes into a dense bf16
 matrix for the long-prefill "xdot" path.
 
+The two matmul wrappers take ``Q4Tensor`` weights too (nibble-packed INT4,
+``ops/quant.py``), with the same numerics on the codes -8..7: the Q4 variant
+of each kernel, counted under its own ``LAUNCHES`` key (``*_q4``).
+``dequant_q4_stacked`` is the Q4 dequant, whose numerics differ from the
+INT8 one: scales rounded to bf16, then a bf16 product, as the reference
+kernel's "int" unpack.
+
 For a CPU tensor each wrapper runs its plain PyTorch version; for a CUDA
 tensor it launches ``csrc/qmatmul_w8a16.cu``, ``csrc/qmatmul_rows.cu`` or
 ``csrc/dequant.cu``, or raises.
@@ -26,10 +33,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
-from ..quant import QuantizedTensor
+from ..quant import Q4Tensor, QuantizedTensor, unpack_q4
 from . import LAUNCHES, build
 
 # Activation rows the fused kernel takes in one call; longer windows take the
@@ -38,6 +46,14 @@ MAX_ROWS = 256
 _BLOCK_COLS = 512  # output columns per block (32 lanes x 16 columns)
 _SPLIT_ROWS = 64  # contraction rows per split are a multiple of this
 _PROLOGUES = {None: 0, "rms": 1, "swiglu": 2}
+
+
+def _codes_band(w, codes: torch.Tensor, r0: int, r1: int, g: int) -> torch.Tensor:
+    """In-rows ``r0:r1`` (whole groups) of one layer's codes as int8 ``[r1-r0, D]``;
+    packed INT4 rows are unpacked."""
+    if isinstance(w, Q4Tensor):
+        return unpack_q4(codes[r0 // 2 : r1 // 2], g)
+    return codes[r0:r1]
 
 
 def _layer_of(w: QuantizedTensor, layer):
@@ -61,9 +77,9 @@ def qmatmul_w8a16_plain(
     swiglu: bool = False,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel (same arguments, same result up to
-    the f32 summation order)."""
+    the f32 summation order); ``w`` a ``QuantizedTensor`` or a ``Q4Tensor``."""
     codes, scales = _layer_of(w, layer)
-    n, d = codes.shape
+    n, d = w.shape[-2:]
     g = n // scales.shape[0]
     xf = x.reshape(-1, x.shape[-1]).float()
     if swiglu:
@@ -85,7 +101,7 @@ def qmatmul_w8a16_plain(
     rows = max(g, budget // d // g * g)
     for r0 in range(0, n, rows):
         r1 = min(n, r0 + rows)
-        wf = codes[r0:r1].to(torch.bfloat16) * sb[r0 // g : r1 // g].repeat_interleave(g, dim=0)
+        wf = _codes_band(w, codes, r0, r1, g).to(torch.bfloat16) * sb[r0 // g : r1 // g].repeat_interleave(g, dim=0)
         out += xb[:, r0:r1] @ wf.float()
     return out.reshape(*x.shape[:-1], d)
 
@@ -94,7 +110,7 @@ def qmatmul_w8a16_plain(
 def _lib() -> ctypes.CDLL:
     lib = build.load("qmatmul_w8a16")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.qmatmul_w8a16.argtypes = [p, i, p, p, p, p, i, p, p, i, i, i, i, i, f, i, i, i, p]
+    lib.qmatmul_w8a16.argtypes = [p, i, p, p, p, p, i, p, p, i, i, i, i, i, f, i, i, i, i, p]
     lib.qmatmul_w8a16.restype = ctypes.c_int
     return lib
 
@@ -104,12 +120,14 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def split_plan(n: int, d: int, rows: int, bt: int, sms: int) -> tuple[int, int]:
+def split_plan(n: int, d: int, rows: int, bt: int, sms: int, unit: int = _SPLIT_ROWS) -> tuple[int, int]:
     """(splits, rows per split) of the contraction axis: enough blocks for
-    about three per SM, each split a multiple of 64 rows."""
+    about three per SM, each split a multiple of ``unit`` rows (64; for INT4
+    codes a multiple of the group as well, so that a split holds whole
+    packed groups)."""
     blocks = -(-d // _BLOCK_COLS) * -(-rows // bt)
     want = max(1, -(-3 * sms // blocks))
-    kc = max(_SPLIT_ROWS, -(-n // want // _SPLIT_ROWS) * _SPLIT_ROWS)
+    kc = max(unit, -(-n // want // unit) * unit)
     kc = min(kc, -(-n // 4) * 4)
     return -(-n // kc), kc
 
@@ -137,7 +155,8 @@ def qmatmul_w8a16(
     swiglu: bool = False,
 ) -> torch.Tensor:
     """``x [..., N]`` (``[..., 2N]`` gate|up with ``swiglu``) times layer
-    ``layer`` of ``w`` → ``[..., D]`` f32.
+    ``layer`` of ``w`` (a ``QuantizedTensor`` or a ``Q4Tensor``) → ``[..., D]``
+    f32.
 
     ``norm_w`` ([L, N] or [N] f32) fuses an RMSNorm prologue, ``swiglu`` a
     ``silu(gate)·up`` prologue, ``residual`` ([..., D]) is added once to the
@@ -151,19 +170,23 @@ def qmatmul_w8a16(
         )
     _need(x.device.type == "cuda", f"tensors on {x.device} are neither CPU nor CUDA")
     codes, scales = w.q, w.scales
+    q4 = isinstance(w, Q4Tensor)
     stacked = codes.dim() == 3
     _need(codes.dim() in (2, 3) and scales.dim() == codes.dim(), "weights must be [N, D] or [L, N, D]")
     if stacked:
         _need(layer is not None and 0 <= layer < codes.shape[0], f"layer {layer} out of range")
     else:
         _need(layer is None, "a layer index needs stacked weights")
-    n, d = codes.shape[-2:]
+    n, d = w.shape[-2:]
     groups = scales.shape[-2]
     _need(n % groups == 0 and scales.shape[-1] == d, f"scales {tuple(scales.shape)} do not fit codes {tuple(codes.shape)}")
     g = n // groups
     _need(g % 4 == 0, f"group size {g} must be a multiple of 4")
+    if q4:
+        _need(g % 8 == 0 and 256 % g == 0, f"INT4 group size {g} must be a multiple of 8 dividing 256")
     _need(d % 16 == 0, f"D={d} must be a multiple of 16")
-    _need(codes.dtype == torch.int8 and codes.is_contiguous(), "codes must be contiguous int8")
+    code_dtype = torch.uint8 if q4 else torch.int8
+    _need(codes.dtype == code_dtype and codes.is_contiguous(), f"codes must be contiguous {code_dtype}")
     _need(
         scales.dtype == torch.bfloat16 and scales.is_contiguous(),
         "scales must be contiguous bf16 (cast_weight_scales does that)",
@@ -201,13 +224,14 @@ def qmatmul_w8a16(
     li = layer if stacked else 0
     out = torch.empty(rows, d, dtype=torch.float32, device=dev)
     bt = _row_tile(rows)
-    splits, kc = split_plan(n, d, rows, bt, _sm_count(dev.index or 0))
+    unit = math.lcm(_SPLIT_ROWS, g) if q4 else _SPLIT_ROWS
+    splits, kc = split_plan(n, d, rows, bt, _sm_count(dev.index or 0), unit)
     partial = torch.empty(splits * rows * d, dtype=torch.float32, device=dev) if splits > 1 else None
     prologue = "rms" if norm_w is not None else ("swiglu" if swiglu else None)
     err = _lib().qmatmul_w8a16(
         x2.data_ptr(),
         int(x2.dtype == torch.bfloat16),
-        codes.data_ptr() + li * n * d,
+        codes.data_ptr() + li * codes.shape[-2] * d,
         scales.data_ptr() + li * groups * d * 2,
         nw_ptr,
         None if res is None else res.data_ptr(),
@@ -223,10 +247,11 @@ def qmatmul_w8a16(
         bt,
         kc,
         splits,
+        int(q4),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(err, "qmatmul_w8a16")
-    LAUNCHES["qmatmul_w8a16"] += 1
+    LAUNCHES["qmatmul_w8a16_q4" if q4 else "qmatmul_w8a16"] += 1
     return out.reshape(*x.shape[:-1], d)
 
 
@@ -242,14 +267,14 @@ def qmatmul_w8a16_rows_plain(x: torch.Tensor, w: QuantizedTensor, layer: int | N
 def _rows_lib() -> ctypes.CDLL:
     lib = build.load("qmatmul_rows")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.qmatmul_w8a16_rows.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.qmatmul_w8a16_rows.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.qmatmul_w8a16_rows.restype = ctypes.c_int
     return lib
 
 
-def _layer_on_card(w: QuantizedTensor, layer, what: str) -> tuple[torch.Tensor, torch.Tensor]:
+def _layer_on_card(w, layer, what: str) -> tuple[torch.Tensor, torch.Tensor]:
     """Codes and scales of one layer as views (no copy of the codes), checked
-    for the card's kernels."""
+    for the card's kernels; INT4 codes stay packed ``[N/2, D]``."""
 
     def need(cond, msg):
         if not cond:
@@ -261,8 +286,9 @@ def _layer_on_card(w: QuantizedTensor, layer, what: str) -> tuple[torch.Tensor, 
     else:
         need(layer is None, "a layer index needs stacked weights")
     codes, scales = _layer_of(w, layer)
-    need(codes.dtype == torch.int8 and codes.is_contiguous(), "codes must be contiguous int8")
-    n, d = codes.shape
+    code_dtype = torch.uint8 if isinstance(w, Q4Tensor) else torch.int8
+    need(codes.dtype == code_dtype and codes.is_contiguous(), f"codes must be contiguous {code_dtype}")
+    n, d = w.shape[-2:]
     need(n % scales.shape[0] == 0 and scales.shape[1] == d,
          f"scales {tuple(scales.shape)} do not fit codes {tuple(codes.shape)}")
     need(d % 16 == 0, f"D={d} must be a multiple of 16")
@@ -271,19 +297,23 @@ def _layer_on_card(w: QuantizedTensor, layer, what: str) -> tuple[torch.Tensor, 
 
 
 def qmatmul_w8a16_rows(x: torch.Tensor, w: QuantizedTensor, layer: int | None = None) -> torch.Tensor:
-    """``x [..., N]`` times layer ``layer`` of ``w`` → ``[..., D]`` f32, for
-    windows of any number of rows (the engine sends it those over
-    ``MAX_ROWS``).  Scales may be bf16 or f32; f32 scales are rounded to bf16,
-    as the reference kernel rounds them in its body."""
+    """``x [..., N]`` times layer ``layer`` of ``w`` (a ``QuantizedTensor`` or
+    a ``Q4Tensor``) → ``[..., D]`` f32, for windows of any number of rows
+    (the engine sends it those over ``MAX_ROWS``).  Scales may be bf16 or
+    f32; f32 scales are rounded to bf16, as the reference kernel rounds them
+    in its body."""
     if x.device.type == "cpu":
         return qmatmul_w8a16_rows_plain(x, w, layer)
     if x.device.type != "cuda":
         raise ValueError(f"qmatmul_w8a16_rows: tensors on {x.device} are neither CPU nor CUDA")
     codes, scales = _layer_on_card(w, layer, "qmatmul_w8a16_rows")
-    n, d = codes.shape
+    q4 = isinstance(w, Q4Tensor)
+    n, d = w.shape[-2:]
     g = n // scales.shape[0]
     if n % 64 or x.shape[-1] != n:
         raise ValueError(f"qmatmul_w8a16_rows: x width {x.shape[-1]} must be N={n}, a multiple of 64")
+    if q4 and g % 16:
+        raise ValueError(f"qmatmul_w8a16_rows: INT4 group size {g} must be a multiple of 16")
     sb = scales.to(torch.bfloat16).contiguous()
     x2 = x.reshape(-1, n).to(torch.bfloat16).contiguous()
     if x2.data_ptr() % 16:
@@ -294,11 +324,11 @@ def qmatmul_w8a16_rows(x: torch.Tensor, w: QuantizedTensor, layer: int | None = 
     out = torch.empty(rows, d, dtype=torch.float32, device=x.device)
     if rows:
         err = _rows_lib().qmatmul_w8a16_rows(
-            x2.data_ptr(), codes.data_ptr(), sb.data_ptr(), out.data_ptr(), rows, n, d, g,
+            x2.data_ptr(), codes.data_ptr(), sb.data_ptr(), out.data_ptr(), rows, n, d, g, int(q4),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
         build.check(err, "qmatmul_w8a16_rows")
-        LAUNCHES["qmatmul_w8a16_rows"] += 1
+        LAUNCHES["qmatmul_w8a16_rows_q4" if q4 else "qmatmul_w8a16_rows"] += 1
     return out.reshape(*x.shape[:-1], d)
 
 
@@ -315,13 +345,16 @@ def dequant_w8_stacked_plain(w: QuantizedTensor, layer: int | None = None) -> to
 def _dequant_lib() -> ctypes.CDLL:
     lib = build.load("dequant")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dequant_w8.argtypes = [p, p, i, p, i, i, i, p]
-    lib.dequant_w8.restype = ctypes.c_int
+    for fn in (lib.dequant_w8, lib.dequant_q4):
+        fn.argtypes = [p, p, i, p, i, i, i, p]
+        fn.restype = ctypes.c_int
     return lib
 
 
 def dequant_w8_stacked(w: QuantizedTensor, layer: int | None = None) -> torch.Tensor:
     """Layer ``layer`` of ``w`` (or a 2-D weight) → dense bf16 ``[N, D]``."""
+    if isinstance(w, Q4Tensor):
+        raise ValueError("dequant_w8_stacked: INT4 weights take dequant_q4_stacked")
     if w.q.device.type == "cpu":
         return dequant_w8_stacked_plain(w, layer)
     if w.q.device.type != "cuda":
@@ -337,4 +370,39 @@ def dequant_w8_stacked(w: QuantizedTensor, layer: int | None = None) -> torch.Te
     )
     build.check(err, "dequant_w8_stacked")
     LAUNCHES["dequant_w8_stacked"] += 1
+    return out
+
+
+def dequant_q4_stacked_plain(w: Q4Tensor, layer: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the Q4 dequant: ``bf16(code · bf16(scale))``,
+    the scales rounded to bf16 first (the reference's "int" unpack; the
+    product of a 4-bit code and a bf16 scale is exact in f32)."""
+    codes, scales = _layer_of(w, layer)
+    g = w.group_size
+    sb = scales.to(torch.bfloat16).float().repeat_interleave(g, dim=0)
+    return (unpack_q4(codes, g).float() * sb).to(torch.bfloat16)
+
+
+def dequant_q4_stacked(w: Q4Tensor, layer: int | None = None) -> torch.Tensor:
+    """Layer ``layer`` of INT4 ``w`` (or a 2-D weight) → dense bf16 ``[N, D]``."""
+    if not isinstance(w, Q4Tensor):
+        raise ValueError("dequant_q4_stacked: INT8 weights take dequant_w8_stacked")
+    if w.q.device.type == "cpu":
+        return dequant_q4_stacked_plain(w, layer)
+    if w.q.device.type != "cuda":
+        raise ValueError(f"dequant_q4_stacked: tensors on {w.q.device} are neither CPU nor CUDA")
+    codes, scales = _layer_on_card(w, layer, "dequant_q4_stacked")
+    if scales.dtype not in (torch.float32, torch.bfloat16) or not scales.is_contiguous():
+        raise ValueError("dequant_q4_stacked: scales must be contiguous f32 or bf16")
+    n, d = w.shape[-2:]
+    g = n // scales.shape[0]
+    if g % 2:
+        raise ValueError(f"dequant_q4_stacked: INT4 group size {g} must be even")
+    out = torch.empty(n, d, dtype=torch.bfloat16, device=codes.device)
+    err = _dequant_lib().dequant_q4(
+        codes.data_ptr(), scales.data_ptr(), int(scales.dtype == torch.float32), out.data_ptr(),
+        n, d, g, torch.cuda.current_stream(codes.device).cuda_stream,
+    )
+    build.check(err, "dequant_q4_stacked")
+    LAUNCHES["dequant_q4_stacked"] += 1
     return out

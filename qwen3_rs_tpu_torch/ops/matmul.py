@@ -10,7 +10,9 @@ subdivide the contraction axis N.
   the per-group form in between).
 * ``qmatmul_exact`` takes quantized activations (exact mode): the W8A8 rows
   kernel from 128 rows, below that the reference's group-by-group scan.
-* ``dequant_weights`` and ``f32_matmul`` serve the f32 mode.
+* ``dequant_weights`` and ``f32_matmul`` serve the f32 mode; ``f32_matmul``
+  takes INT4 (``Q4Tensor``) weights too.  INT4 has no exact mode:
+  ``qmatmul_exact`` refuses it, as the reference package does.
 
 For a CUDA tensor a kernel wrapper launches its kernel or raises; for a CPU
 tensor it runs the kernel's plain PyTorch version.
@@ -24,7 +26,7 @@ import torch
 
 from .kernels.qmatmul import MAX_ROWS, _layer_of, qmatmul_w8a16
 from .kernels.qmatmul_a8 import qmatmul_w8a8_rows
-from .quant import QuantizedTensor
+from .quant import Q4Tensor, QuantizedTensor, dequantize_q4_inmajor
 
 DENSE_MIN_ROWS = 512  # from here ``qmatmul`` dequantizes and runs one dense product
 EXACT_KERNEL_MIN_ROWS = 128  # from here ``qmatmul_exact`` runs the W8A8 kernel
@@ -61,7 +63,10 @@ def f32_matmul(x: torch.Tensor, w: QuantizedTensor, layer: int | None = None) ->
     """f32 mode: ``x`` in f32 times the weights dequantized to f32, in full
     f32 precision → ``[..., D]`` f32."""
     codes, scales = _layer_of(w, layer)
-    wf = dequant_weights(QuantizedTensor(codes, scales), torch.float32)
+    if isinstance(w, Q4Tensor):
+        wf = dequantize_q4_inmajor(Q4Tensor(codes, scales), torch.float32)
+    else:
+        wf = dequant_weights(QuantizedTensor(codes, scales), torch.float32)
     with exact_float_products():
         return x.float() @ wf
 
@@ -106,6 +111,8 @@ def qmatmul_exact(x: QuantizedTensor, w: QuantizedTensor, layer: int | None = No
     ``(dot · x_scale) · w_scale``.  The two orders round differently, and the
     reference package routes the same way.
     """
+    if isinstance(w, Q4Tensor):
+        raise ValueError("INT4 weights have no reference-exact (W8A8) mode")
     n = x.q.shape[-1]
     rows = x.q.numel() // n
     if rows >= EXACT_KERNEL_MIN_ROWS:

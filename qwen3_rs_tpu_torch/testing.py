@@ -8,7 +8,7 @@ from .checkpoint import VOCAB_PAD_MULTIPLE
 from .configuration import ARCHITECTURE_QWEN3, ModelConfig
 from .device import resolve_device
 from .models.qwen3 import Qwen3LayerWeights, Qwen3Weights
-from .ops.quant import QuantizedTensor
+from .ops.quant import Q4Tensor, QuantizedTensor
 
 # Real Qwen3 family shapes (HF configs).
 QWEN3_CONFIGS = {
@@ -44,15 +44,20 @@ def padded_vocab(vocab_size: int) -> int:
     return vocab_size
 
 
-def random_weights(config: ModelConfig, seed: int = 0, device=None) -> Qwen3Weights:
-    """Random INT8 weights with plausible scales, drawn on ``device`` (the
-    card unless the caller asks for the CPU) from a ``torch.Generator``.
+def random_weights(config: ModelConfig, seed: int = 0, device=None, bits: int = 8) -> Qwen3Weights:
+    """Random INT8 (or, with ``bits=4``, INT4 linear) weights with plausible
+    scales, drawn on ``device`` (the card unless the caller asks for the CPU)
+    from a ``torch.Generator``.
 
-    Codes are uniform int8 with -128 folded to 0 (the Q8_0 range is ±127),
-    scales uniform in [0, 0.02), norm weights 1 + 0.02·N(0, 1).  Linear
-    weights are in-major; the classifier is the transposed embedding with its
+    Codes are uniform int8 with -128 folded to 0 (the Q8_0 range is ±127);
+    INT4 codes are uniform random bytes, each two packed codes (so nibble 0,
+    code -8, occurs too).  Scales uniform in [0, 0.02), norm weights
+    1 + 0.02·N(0, 1).  Linear weights are in-major; the embedding and the
+    classifier stay INT8, the classifier the transposed embedding with its
     vocab axis padded as the loader pads it (zero codes, unit scales).
     """
+    if bits not in (8, 4):
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
     dev = resolve_device(device)
     c = config
     g = c.group_size
@@ -72,7 +77,15 @@ def random_weights(config: ModelConfig, seed: int = 0, device=None) -> Qwen3Weig
     def norm(*shape):
         return 1.0 + 0.02 * torch.randn(shape, generator=gen, device=dev)
 
+    def packed(*shape):
+        out = torch.empty(shape, dtype=torch.uint8, device=dev)
+        for part in out.view(-1, *shape[-2:]):
+            part.random_(0, 256, generator=gen)
+        return out
+
     def stack(in_dim, out_dim):
+        if bits == 4:
+            return Q4Tensor(packed(c.n_layers, in_dim // 2, out_dim), scales(c.n_layers, in_dim // g, out_dim))
         return QuantizedTensor(
             codes(c.n_layers, in_dim, out_dim), scales(c.n_layers, in_dim // g, out_dim)
         )
@@ -98,13 +111,14 @@ def random_weights(config: ModelConfig, seed: int = 0, device=None) -> Qwen3Weig
     )
 
 
-def weight_bytes_per_decode_token(config: ModelConfig, scale_bytes: int = 4) -> int:
+def weight_bytes_per_decode_token(config: ModelConfig, scale_bytes: int = 4, bits: int = 8) -> int:
     """Device-memory bytes of weights and scales streamed per decode step.
 
     The embedding gather reads one row; the classifier reads all of lm_head
     (counted at ``vocab_size`` columns, without the padding).
     ``scale_bytes``: the per-group scale width streamed (4 = f32 checkpoint
-    scales, 2 = the fast engine's bf16 cast).
+    scales, 2 = the fast engine's bf16 cast).  ``bits``: the linear layers'
+    code width (4 = nibble-packed INT4; the classifier stays INT8).
     """
     c = config
     scale_per_param = scale_bytes / c.group_size
@@ -116,7 +130,7 @@ def weight_bytes_per_decode_token(config: ModelConfig, scale_bytes: int = 4) -> 
     )
     linear = c.n_layers * per_layer
     head = c.vocab_size * c.dim
-    return int(linear * (1.0 + scale_per_param) + head * (1.0 + scale_per_param))
+    return int(linear * (bits / 8.0 + scale_per_param) + head * (1.0 + scale_per_param))
 
 
 def prefill_ops(config: ModelConfig, rows: int, cache_rows: int = 0) -> dict:

@@ -1,15 +1,16 @@
 """Checkpoint reader and configuration: the port against the JAX package.
 
 The synthetic HF fixture is exported by the JAX exporter to a native
-``.qtpu`` directory (in-major v2, and a row-major v1 copy) and to a legacy
-``.bin``; every tensor the port loads must equal what
-``qwen3_rs_tpu.checkpoint.load_checkpoint`` returns, bit for bit, and so must
-the config, its ``config.json`` and its 256-byte header.
+``.qtpu`` directory (in-major v2, and a row-major v1 copy), to a legacy
+``.bin`` and to an INT4 ``.qtpu``; every tensor the port loads must equal
+what ``qwen3_rs_tpu.checkpoint.load_checkpoint`` returns, bit for bit, and so
+must the config, its ``config.json`` and its 256-byte header.
 """
 
 import contextlib
 import dataclasses
 import io
+import json
 import shutil
 
 import numpy as np
@@ -92,8 +93,47 @@ def test_config_header_and_json_bit_exact(exported):
 
 
 def test_int4_checkpoint_is_refused(tmp_path):
+    """An INT4 checkpoint loads: its linear layers as ``Q4Tensor`` (packed
+    uint8 codes, f32 scales) bit for bit equal to the JAX loader's, the
+    embedding and the classifier INT8."""
     model = make_hf_model_dir(tmp_path, rng=np.random.default_rng(2))
     with contextlib.redirect_stdout(io.StringIO()):
         export_model(model, tmp_path / "q4.qtpu", 16, fmt="native", weight_bits=4)
-    with pytest.raises(ValueError, match="INT4"):
-        load_checkpoint(tmp_path / "q4.qtpu")
+    jc, jw = jax_load(tmp_path / "q4.qtpu")
+    pc, pw = load_checkpoint(tmp_path / "q4.qtpu")
+    assert dataclasses.asdict(pc) == dataclasses.asdict(jc) and pc.weight_bits == 4
+    assert type(pw.layers.wqkv).__name__ == "Q4Tensor" and pw.layers.wqkv.q.dtype == torch.uint8
+    assert pw.layers.wqkv.shape == (pc.n_layers, pc.dim, pc.all_heads_dim + 2 * pc.kv_dim)
+    assert type(pw.lm_head).__name__ == type(pw.embed).__name__ == "QuantizedTensor"
+    _assert_same(jw, pw)
+
+
+def test_int4_legacy_bin_and_old_int4_exports_are_refused(tmp_path):
+    """The legacy ``.bin`` is INT8 only (its header has no code width): the
+    writer refuses INT4 with the JAX error.  A native INT4 export without the
+    biased-v2 marker, or in the row-major v1 layout, is refused at load with
+    the JAX errors."""
+    model = make_hf_model_dir(tmp_path, rng=np.random.default_rng(2))
+    with contextlib.redirect_stdout(io.StringIO()):
+        export_model(model, tmp_path / "q4.qtpu", 16, fmt="native", weight_bits=4)
+    pc = read_config(tmp_path / "q4.qtpu")
+    jc = JaxConfig(**dataclasses.asdict(pc))
+    with pytest.raises(ValueError, match="legacy .bin format is Q8_0-only") as port_err:
+        pc.to_legacy_header()
+    with pytest.raises(ValueError) as jax_err:
+        jc.to_legacy_header()
+    assert str(port_err.value) == str(jax_err.value)
+    cfg = json.loads((tmp_path / "q4.qtpu" / "config.json").read_text())
+    old = tmp_path / "old.qtpu"
+    shutil.copytree(tmp_path / "q4.qtpu", old)
+    (old / "config.json").write_text(json.dumps({k: v for k, v in cfg.items() if k != "q4_pack"}))
+    errors = []
+    for load in (load_checkpoint, jax_load):
+        with pytest.raises(ValueError, match="pre-biased-v2 nibble packing") as e:
+            load(old)
+        errors.append(str(e.value))
+    assert errors[0] == errors[1]
+    (tmp_path / "q4.qtpu" / "weights" / "_layout").unlink()
+    for load in (load_checkpoint, jax_load):
+        with pytest.raises(ValueError, match="INT4 checkpoints require the in-major"):
+            load(tmp_path / "q4.qtpu")

@@ -27,7 +27,10 @@ from qwen3_rs_tpu_torch.ops.kernels.prefill_attention import (
     causal_prefill_attention,
     causal_prefill_attention_plain,
 )
+import qwen3_rs_tpu_torch.models.qwen3 as port_qwen3
 from qwen3_rs_tpu_torch.ops.kernels.qmatmul import (
+    dequant_q4_stacked,
+    dequant_q4_stacked_plain,
     dequant_w8_stacked,
     dequant_w8_stacked_plain,
     qmatmul_w8a16,
@@ -36,7 +39,7 @@ from qwen3_rs_tpu_torch.ops.kernels.qmatmul import (
     qmatmul_w8a16_rows_plain,
 )
 from qwen3_rs_tpu_torch.ops.kernels.qmatmul_a8 import qmatmul_w8a8_rows, qmatmul_w8a8_rows_plain
-from qwen3_rs_tpu_torch.ops.quant import QuantizedTensor, quantize_activations
+from qwen3_rs_tpu_torch.ops.quant import Q4Tensor, QuantizedTensor, quantize_activations
 from qwen3_rs_tpu_torch.serving import ContinuousBatchingEngine, Request
 from qwen3_rs_tpu_torch.testing import random_weights
 
@@ -211,6 +214,157 @@ def test_dequant_matches_plain_bit_exact(card, scale_dtype, n, d, g):
     got = dequant_w8_stacked(w, 2)
     torch.cuda.synchronize()
     assert torch.equal(got, dequant_w8_stacked_plain(w, 2))
+
+
+# ------------------------------------------------------------------- INT4
+def _q4_weights(gen, card, layers, n, d, g, scale_dtype=torch.bfloat16):
+    """Random packed bytes (every nibble value, code -8 included) and scales."""
+    packed = torch.randint(0, 256, (layers, n // 2, d), generator=gen, device=card, dtype=torch.uint8)
+    scales = (torch.rand(layers, n // g, d, generator=gen, device=card) * 0.02 + 1e-3).to(scale_dtype)
+    return Q4Tensor(packed, scales)
+
+
+@pytest.mark.parametrize("rows", [1, 2, 3, 8, 9, 37, 256])
+@pytest.mark.parametrize(
+    "n,d,g,prologue,residual",
+    [
+        (256, 48, 64, None, None),  # D below one 512-column strip
+        (512, 1040, 16, "rms", None),  # ragged last strip, g = 16
+        (1024, 512, 64, "swiglu", "bf16"),
+        (4096, 4096, 64, None, "f32"),  # split contraction + residual added once
+        (768, 512, 128, "rms", "f32"),  # g = 128: splits of whole groups
+        (640, 64, 8, None, None),  # g = 8: 4 packed rows per half-group
+    ],
+)
+def test_qmatmul_q4_matches_plain(card, rows, n, d, g, prologue, residual):
+    gen = _gen(rows * 11 + d + g)
+    w = _q4_weights(gen, card, 3, n, d, g)
+    width = 2 * n if prologue == "swiglu" else n
+    x = torch.randn(rows, width, generator=gen, device=card)
+    kw = {}
+    if prologue == "rms":
+        kw["norm_w"] = 1 + 0.1 * torch.randn(3, n, generator=gen, device=card)
+    if prologue == "swiglu":
+        kw["swiglu"] = True
+    if residual:
+        dt = torch.float32 if residual == "f32" else torch.bfloat16
+        kw["residual"] = torch.randn(rows, d, generator=gen, device=card).to(dt)
+    before = dict(LAUNCHES)
+    got = qmatmul_w8a16(x, w, 2, **kw)
+    assert LAUNCHES["qmatmul_w8a16_q4"] == before["qmatmul_w8a16_q4"] + 1
+    assert LAUNCHES["qmatmul_w8a16"] == before["qmatmul_w8a16"]
+    ref = qmatmul_w8a16_plain(x, w, 2, **kw)
+    torch.cuda.synchronize()
+    rel = 2e-3 if prologue else 1e-4  # as for INT8
+    assert float((got - ref).abs().max()) <= rel * float(ref.abs().max())
+
+
+def test_q4_kernels_place_every_nibble(card):
+    """One-hot activation rows pick single weight rows: the fused and the
+    row-blocked Q4 kernels give each row of the Q4 dequant exactly (sums of
+    one nonzero term), over packed bytes that hold every nibble value."""
+    gen = _gen(77)
+    n, d, g = 512, 160, 64
+    w = _q4_weights(gen, card, 2, n, d, g)
+    dense = dequant_q4_stacked(w, 1).float()
+    assert torch.equal(dense.to(torch.bfloat16), dequant_q4_stacked_plain(w, 1))
+    idx = torch.tensor([0, 1, 31, 32, 33, 63, 64, 95, 96, 127, 300, 511], device=card)
+    x = torch.zeros(len(idx), n, device=card)
+    x[torch.arange(len(idx), device=card), idx] = 1.0
+    assert torch.equal(qmatmul_w8a16(x, w, 1), dense[idx])
+    xr = torch.zeros(300, n, device=card, dtype=torch.bfloat16)
+    rows = torch.arange(300, device=card) % n
+    xr[torch.arange(300, device=card), rows] = 1.0
+    assert torch.equal(qmatmul_w8a16_rows(xr, w, 1), dense[rows])
+    codes = dense / w.scales[1].float().repeat_interleave(g, 0)
+    assert set(codes.round().unique().int().tolist()) == set(range(-8, 8))
+
+
+def test_qmatmul_q4_unstacked(card):
+    gen = _gen(6)
+    w = _q4_weights(gen, card, 1, 256, 4096, 64)
+    w = Q4Tensor(w.q[0], w.scales[0])
+    x = torch.randn(1, 256, generator=gen, device=card).to(torch.bfloat16)
+    got, ref = qmatmul_w8a16(x, w), qmatmul_w8a16_plain(x, w)
+    assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("rows", [1, 100, 257, 1000])
+@pytest.mark.parametrize(
+    "n,d,g,scale_dtype",
+    [(256, 48, 64, torch.bfloat16), (512, 1040, 64, torch.float32), (1024, 384, 32, torch.bfloat16),
+     (512, 256, 16, torch.bfloat16), (1024, 128, 128, torch.float32)],
+)
+def test_qmatmul_rows_q4_matches_plain(card, rows, n, d, g, scale_dtype):
+    gen = _gen(rows + d + 5)
+    w = _q4_weights(gen, card, 2, n, d, g, scale_dtype)
+    x = torch.randn(rows, n, generator=gen, device=card).to(torch.bfloat16)
+    before = LAUNCHES["qmatmul_w8a16_rows_q4"]
+    got = qmatmul_w8a16_rows(x, w, 1)
+    assert LAUNCHES["qmatmul_w8a16_rows_q4"] == before + 1
+    ref = qmatmul_w8a16_rows_plain(x, w, 1)
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("scale_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,d,g", [(64, 16, 64), (512, 1040, 64), (4096, 96, 32), (128, 48, 2)])
+def test_dequant_q4_matches_plain_bit_exact(card, scale_dtype, n, d, g):
+    w = _q4_weights(_gen(n + d + 9), card, 3, n, d, g, scale_dtype)
+    before = LAUNCHES["dequant_q4_stacked"]
+    got = dequant_q4_stacked(w, 2)
+    assert LAUNCHES["dequant_q4_stacked"] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, dequant_q4_stacked_plain(w, 2))
+
+
+def test_q4_wrappers_refuse_what_they_cannot_take(card):
+    w = _q4_weights(_gen(1), card, 2, 256, 64, 64)
+    with pytest.raises(ValueError, match="dequant_q4_stacked"):
+        dequant_w8_stacked(w, 0)
+    with pytest.raises(ValueError, match="INT4 group size"):
+        qmatmul_w8a16(torch.zeros(1, 192, device=card), _q4_weights(_gen(2), card, 1, 192, 64, 48), 0)
+    with pytest.raises(ValueError, match="codes must be contiguous"):
+        qmatmul_w8a16(torch.zeros(1, 256, device=card), Q4Tensor(w.q.to(torch.int8), w.scales), 0)
+
+
+def test_int4_model_card_matches_cpu(card, monkeypatch):
+    """INT4 linear layers: a fresh 600-row window (the Q4 row-blocked kernel;
+    w2 through the Q4 dequant, the xdot gate lowered), a 300-row
+    continuation, decode steps (the fused Q4 kernel, never the megakernel);
+    exact mode raises."""
+    monkeypatch.setattr(port_qwen3, "_XDOT_PREFILL_MIN_ROWS", 600)
+    monkeypatch.setattr(port_qwen3, "_XDOT_MIN_WEIGHT_ELEMS", 0)
+    cfg = ModelConfig(
+        architecture_id=1, dim=512, hidden_dim=1024, n_layers=2, n_heads=4, n_kv_heads=2,
+        head_dim=128, seq_len=1024, vocab_size=2176, group_size=64, shared_classifier=True, weight_bits=4,
+    )
+    weights = random_weights(cfg, seed=5, device=card, bits=4)
+    gpu = Engine(config=cfg, weights=weights, device=card)
+    cpu = Engine(config=cfg, weights=weights_to(weights, "cpu"), device="cpu")
+    rng = np.random.default_rng(2)
+    caches = [gpu.new_cache(), cpu.new_cache()]
+    before = dict(LAUNCHES)
+    pos = 0
+    for s in (600, 300):
+        prompt = rng.integers(0, cfg.vocab_size, (1, s))
+        lg, caches[0] = gpu.prefill(caches[0], prompt, [pos])
+        lc, caches[1] = cpu.prefill(caches[1], prompt, [pos])
+        pos += s
+    for step in range(3):
+        a, b = lg.float().cpu(), lc.float()
+        assert float((a - b).abs().max()) <= 2e-2 * float(b.abs().max()), step
+        tok = [int(b.argmax())]
+        lg, caches[0] = gpu.decode_step(caches[0], tok, [pos + step])
+        lc, caches[1] = cpu.decode_step(caches[1], tok, [pos + step])
+    made = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
+    n = cfg.n_layers
+    assert made == {"qmatmul_w8a16_rows_q4": 4 * n + 3 * n, "dequant_q4_stacked": n,
+                    "qmatmul_w8a16_q4": 3 * 4 * n, "qmatmul_w8a16": 2 + 3,
+                    "causal_prefill_attention": n, "flash_decode": 3 * n}, made
+    with pytest.raises(ValueError, match="INT4 weights have no reference-exact"):
+        exact = Engine(config=cfg, weights=weights, mode="exact", device=card)
+        exact.prefill(exact.new_cache(), np.zeros((1, 8), np.int64), [0])
 
 
 @pytest.mark.parametrize("rows", [1, 128, 129, 300, 1000])

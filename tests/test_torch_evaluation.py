@@ -30,7 +30,7 @@ from qwen3_rs_tpu.cli import main as jax_main
 from qwen3_rs_tpu.configuration import ModelConfig as JaxConfig
 from qwen3_rs_tpu.evaluation import compute_perplexity as jax_perplexity
 from qwen3_rs_tpu.evaluation import logit_kl as jax_logit_kl
-from qwen3_rs_tpu.export import export_model
+from qwen3_rs_tpu_torch.export import export_model
 from qwen3_rs_tpu_torch import evaluate_checkpoint
 from qwen3_rs_tpu_torch.cli import main as port_main
 from qwen3_rs_tpu_torch.configuration import ModelConfig

@@ -1,8 +1,9 @@
 """Generation end to end: the port's CLI ``inference`` against the JAX
 package's CLI on an exported fixture, and the host sampler's streams.
 
-A synthetic HF model is exported by the JAX exporter to ``.qtpu`` and
-``.bin``; both CLIs run ``generate`` and ``chat`` on it (the port with
+A synthetic HF model is exported by the port's exporter (byte-identical to
+the JAX exporter's, ``test_torch_export.py``) to ``.qtpu`` and ``.bin``, and
+to an INT4 ``.qtpu``; both CLIs run ``generate`` and ``chat`` on it (the port with
 ``--device cpu``, its kernels' plain versions) and must print the same text,
 for greedy and for seeded ``-t 0.8`` streams (xorshift coins, bit-exact on
 both sides), and greedy with ``--device-sampling`` (on-device chunks).  The
@@ -32,11 +33,11 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import route_jax_through_interpret_kernels
+from torch_parity import route_jax_q4_through_interpret_kernels, route_jax_through_interpret_kernels
 from utils import TINY_CONFIG, make_hf_model_dir, write_safetensors
 
 from qwen3_rs_tpu.cli import main as jax_main
-from qwen3_rs_tpu.export import export_model
+from qwen3_rs_tpu_torch.export import export_model
 from qwen3_rs_tpu.inference.engine import TokenSampler as JaxTokenSampler
 from qwen3_rs_tpu.ops.sampling import Sampler as JaxSampler
 from qwen3_rs_tpu_torch.cli import main as port_main
@@ -66,14 +67,14 @@ def _read_safetensors(path):
     return out
 
 
-def _pow2_groups(w):
+def _pow2_groups(w, q_max=127.0):
     """Rescale each group of G along the last axis so that its max |w| is
-    127·2^k: the exporter's scale max|w|/127 is then a power of two."""
+    q_max·2^k: the exporter's scale max|w|/q_max is then a power of two."""
     if w.ndim != 2 or w.shape[-1] % G:
         return w
     gr = w.reshape(-1, G).astype(np.float64)
     amax = np.abs(gr).max(-1)
-    target = 127.0 * 2.0 ** np.round(np.log2(amax / 127.0))
+    target = q_max * 2.0 ** np.round(np.log2(amax / q_max))
     gr *= (target / amax)[:, None]
     top = np.abs(gr).argmax(-1)
     rows = np.arange(len(gr))
@@ -93,6 +94,12 @@ def exported(tmp_path_factory):
     with contextlib.redirect_stdout(io.StringIO()):
         export_model(model, tmp / "m.qtpu", G, fmt="native")
         export_model(model, tmp / "m.bin", G, fmt="legacy")
+    # INT4: the same model with its linear layers' groups at 7·2^k.
+    for f in model.glob("*.safetensors"):
+        tensors = _read_safetensors(f)
+        write_safetensors(f, {k: _pow2_groups(v, 7.0) if "layers" in k else v for k, v in tensors.items()})
+    with contextlib.redirect_stdout(io.StringIO()):
+        export_model(model, tmp / "q4.qtpu", G, fmt="native", weight_bits=4)
     return tmp
 
 
@@ -121,6 +128,23 @@ def test_cli_matches_jax_cli(exported, fmt, run, monkeypatch):
     got = _stdout(port_main, ["inference", ckpt, "--device", "cpu", *RUNS[run]])
     assert len(want) > 40
     assert got == want
+
+
+def test_int4_cli_matches_jax_cli(exported, monkeypatch):
+    """An INT4 checkpoint, greedy: the port's Q4 kernels' plain versions
+    against the JAX CLI on its interpret-mode Q4 kernels (its fused glue off:
+    its fused kernel misreads packed codes, ``test_torch_q4.py``), the same
+    text; exact mode raises in both."""
+    calls = route_jax_q4_through_interpret_kernels(monkeypatch, min_seq_len=CONFIG.seq_len)
+    ckpt, run = str(exported / "q4.qtpu"), RUNS["generate-greedy"]
+    want = _stdout(jax_main, ["inference", ckpt, "--engine-mode", "fast", *run])
+    assert calls["stacked"] and calls["head"] and calls["flash"] and not calls["fused"]
+    got = _stdout(port_main, ["inference", ckpt, "--device", "cpu", *run])
+    assert len(want) > 40
+    assert got == want
+    for main, extra in ((jax_main, []), (port_main, ["--device", "cpu"])):
+        with pytest.raises(ValueError, match="INT4 weights have no reference-exact"):
+            _stdout(main, ["inference", ckpt, "--engine-mode", "exact", *extra, *run])
 
 
 @pytest.mark.parametrize("run", ["generate-greedy", "generate-t0.8", "chat-greedy"])

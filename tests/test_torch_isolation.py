@@ -19,9 +19,14 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "qwen3_rs_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 _IMPORT_ALL = """
-import sys
+import ctypes, sys
 sys.modules["jax"] = None
 sys.modules["qwen3_rs_tpu"] = None
+_load = ctypes.CDLL
+def _refuse_host_lib(name, *a, **k):
+    assert "libqwen3_host" not in str(name), name
+    return _load(name, *a, **k)
+ctypes.CDLL = _refuse_host_lib
 import importlib, pkgutil
 import qwen3_rs_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -42,6 +47,9 @@ def test_package_imports_without_jax():
     assert len(names) >= 30  # every module of the port was imported, the serving slice's too
     assert {f"qwen3_rs_tpu_torch.serving.{m}" for m in ("paged_cache", "scheduler", "server")} <= names
     assert "qwen3_rs_tpu_torch.ops.kernels.paged_attention" in names
+    export = ("tensor_reader", "config_loader", "architectures", "lora", "model_exporter", "tokenizer_exporter",
+              "chat_template_exporter")  # the exporter: numpy and JSON, no JAX helper either
+    assert {f"qwen3_rs_tpu_torch.export.{m}" for m in export} | {"qwen3_rs_tpu_torch.utils.progress"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -49,6 +57,8 @@ def test_no_source_names_jax(path):
     text = path.read_text()
     assert not re.search(r"\bqwen3_rs_tpu\.", text), "names the JAX package"
     assert not re.search(r"^\s*(import jax|from jax)", text, re.M), "imports jax"
+    # Nor the JAX package's native host helper (its C++ transpose and loaders).
+    assert not re.search(r"utils\.native|native_transpose|libqwen3_host", text), "uses the JAX package's native helper"
 
 
 @pytest.fixture

@@ -258,10 +258,13 @@ def test_gate_agrees_with_the_jax_gate(monkeypatch):
     monkeypatch.delenv("QWEN3_TPU_DISABLE_MEGAKERNEL", raising=False)
     jdt = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16, torch.int8: jnp.int8}
     seen, heads = set(), set()
+    monkeypatch.delenv("QWEN3_TPU_MEGA_Q4", raising=False)  # the JAX default: Q4 stays off
     for c, t, dt, b in _gate_grid():
         jc = JaxConfig(**dataclasses.asdict(c))
         got = megakernel_supported(c, t, dt, b)
         assert got == jax_gate(jc, t, jdt[dt], b), (c, t, dt, b)
+        # INT4 weights: both gates refuse every shape.
+        assert megakernel_supported(c, t, dt, b, q4=True) == jax_gate(jc, t, jdt[dt], b, q4=True) is False
         seen.add((c.dim, got))
         if c not in heads:
             heads.add(c)
@@ -272,4 +275,5 @@ def test_gate_agrees_with_the_jax_gate(monkeypatch):
                       **QWEN3_CONFIGS["8b"])
     assert megakernel_supported(big, 4096, torch.float32, 1) and megakernel_supported(big, 4096, "int8", 8)
     assert not megakernel_supported(big, 4096, torch.float32, 9)
+    assert not megakernel_supported(big, 4096, torch.float32, 1, q4=True)
     assert head_phase_supported(big, 153600)

@@ -20,9 +20,10 @@ from qwen3_rs_tpu.checkpoint import _classifier_from
 from qwen3_rs_tpu.models.qwen3 import Qwen3LayerWeights as JaxLayers
 from qwen3_rs_tpu.models.qwen3 import Qwen3Weights as JaxWeights
 from qwen3_rs_tpu.models.qwen3 import cast_weight_scales as jax_cast_scales
-from qwen3_rs_tpu.ops.pallas.qmatmul import qmatmul_pallas, qmatmul_pallas_stacked_fused
+from qwen3_rs_tpu.ops.pallas.qmatmul import qmatmul_pallas, qmatmul_pallas_stacked, qmatmul_pallas_stacked_fused
+from qwen3_rs_tpu.ops.quant import Q4Tensor as JaxQ4
 from qwen3_rs_tpu.ops.quant import QuantizedTensor as JaxQT
-from qwen3_rs_tpu.ops.quant import quantize_weights_np
+from qwen3_rs_tpu.ops.quant import pack_q4_np, quantize_weights_np, quantize_weights_q4_np
 
 import qwen3_rs_tpu_torch.models.qwen3 as port_qwen3
 
@@ -56,6 +57,16 @@ def route_jax_through_interpret_megakernel(monkeypatch, min_seq_len: int) -> col
     return calls
 
 
+def route_jax_q4_through_interpret_kernels(monkeypatch, min_seq_len: int) -> collections.Counter:
+    """``route_jax_through_interpret_kernels`` for INT4 weights, with the JAX
+    package's fused-glue projections off (``QWEN3_TPU_DISABLE_FUSED=1``): its
+    fused kernel misreads packed Q4 codes (``test_torch_q4.py``), so a
+    projection of at most 256 rows takes its stacked kernel (count
+    ``"stacked"``) with RMSNorm, SwiGLU and the residual add in XLA."""
+    monkeypatch.setenv("QWEN3_TPU_DISABLE_FUSED", "1")
+    return route_jax_through_interpret_kernels(monkeypatch, min_seq_len)
+
+
 def _route_per_layer_kernels(monkeypatch, min_seq_len: int) -> collections.Counter:
     calls = collections.Counter()
 
@@ -67,6 +78,7 @@ def _route_per_layer_kernels(monkeypatch, min_seq_len: int) -> collections.Count
         pallas_pkg, "qmatmul_pallas_stacked_fused", counted("fused", qmatmul_pallas_stacked_fused)
     )
     monkeypatch.setattr(pallas_pkg, "qmatmul_pallas", counted("head", qmatmul_pallas))
+    monkeypatch.setattr(pallas_pkg, "qmatmul_pallas_stacked", counted("stacked", qmatmul_pallas_stacked))
     monkeypatch.setattr(
         jax_flash, "flash_gqa_decode_stacked", counted("flash", jax_flash.flash_gqa_decode_stacked)
     )
@@ -103,11 +115,12 @@ def _pow2(s):
     return (2.0 ** np.round(np.log2(s))).astype(np.float32)
 
 
-def jax_numpy_weights(c, seed, fast_scales: bool = True):
+def jax_numpy_weights(c, seed, fast_scales: bool = True, bits: int = 8):
     """JAX ``Qwen3Weights`` with numpy leaves drawn from ``seed``: power-of-two
     scales (``code · scale`` is exact in bf16, which XLA on the CPU would not
     round), cast to bf16 as the fast engine casts them, or f32 as the exact
-    engine and the evaluation keep them."""
+    engine and the evaluation keep them.  ``bits=4``: INT4 linear layers
+    (``Q4Tensor``, nibble-packed), the embedding and the classifier INT8."""
     rng = np.random.default_rng(seed)
     g = c.group_size
 
@@ -116,11 +129,13 @@ def jax_numpy_weights(c, seed, fast_scales: bool = True):
         return q, _pow2(s)
 
     def linear(out_dim, in_dim):  # → in-major [L, in, out]
-        q, s = rowmajor(c.n_layers, out_dim, in_dim)
-        return np.swapaxes(q, 1, 2).copy(), np.swapaxes(s, 1, 2).copy()
+        w = rng.normal(0, 0.08, (c.n_layers, out_dim, in_dim)).astype(np.float32)
+        q, s, _ = (quantize_weights_q4_np if bits == 4 else quantize_weights_np)(w, g)
+        return np.swapaxes(q, 1, 2).copy(), np.swapaxes(_pow2(s), 1, 2).copy()
 
     def fused(*parts):
-        return JaxQT(np.concatenate([p[0] for p in parts], -1), np.concatenate([p[1] for p in parts], -1))
+        q, s = np.concatenate([p[0] for p in parts], -1), np.concatenate([p[1] for p in parts], -1)
+        return JaxQ4(pack_q4_np(q, g), s) if bits == 4 else JaxQT(q, s)
 
     def norm(*shape):
         return rng.normal(1, 0.05, shape).astype(np.float32)
