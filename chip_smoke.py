@@ -12,8 +12,8 @@ Phases, in order; any failure exits non-zero before the final line:
 2. ``kernels`` each hand-written kernel against its plain PyTorch version on
                the same inputs at Qwen3-8B shapes (INT8-g64; the paged kernels
                over a page-128 pool with shuffled tables; the decode
-               megakernel at full depth; the Q4 variants of #3, #6 and #7 on
-               INT4-g64 codes), with its time, the plain version's
+               megakernel at full depth; the Q4 variants of #3, #6, #7 and
+               #11 on INT4-g64 codes), with its time, the plain version's
                time, one PyTorch library call's time where one computes the
                same function, and the least time the card could take.
 3. ``e2e``     Qwen3-8B at full width and depth with random weights made on
@@ -38,16 +38,24 @@ Phases, in order; any failure exits non-zero before the final line:
                  the window) and exact eval-ppl (4·L+1 W8A8 per window);
                * INT4 (the INT8 weights freed first): the same b=1 greedy
                  decode, each step 4·L Q4 #3, one INT8 classifier and L
-                 flash-decode launches (no megakernel: its gate refuses Q4),
-                 profiled; the 3000-token prompt (Q4 #6, #5); eval-ppl at one
-                 4096-row window, fast (Q4 #6, Q4 #7) and f32; exact mode
-                 raising; the card against the CPU on a one-layer slice.
+                 flash-decode launches (the JAX default: no megakernel for
+                 Q4), profiled; then, in the same call, with the opt-in
+                 ``QWEN3_TPU_MEGA_Q4=1``, one Q4 #11 launch a step, profiled,
+                 and a sync-free device-sampling chunk on it; the 3000-token
+                 prompt (Q4 #6, #5); eval-ppl at one 4096-row window, fast
+                 (Q4 #6, Q4 #7) and f32; exact mode raising; the card against
+                 the CPU on a one-layer slice, per layer and through Q4 #11.
 4. ``serve``   the continuous-batching engine on the same 8B weights, ctx
-               4096, 8 slots, page 128, greedy host sampling: 24 requests
-               (prompts of 16-1024 tokens, 64 new tokens) on the paged bf16
-               pool, the INT8 pool and the dense slots, every decode step
-               checked for L paged-decode launches (on the dense slots: one
-               decode-megakernel launch); the
+               4096, 8 slots, page 128, greedy: 24 requests (prompts of
+               16-1024 tokens, 64 new tokens) with host sampling on the paged
+               bf16 pool, the INT8 pool and the dense slots, then with device
+               sampling (the CLI default, 8-step chunks) on the paged bf16
+               pool and the dense slots, its streams held to the host
+               runs' (a parting only at a near-tie), and on the dense slots
+               with the INT4 weights and ``QWEN3_TPU_MEGA_Q4=1`` beside the
+               INT8 run; every decode step checked for L paged-decode
+               launches (on the dense slots: one decode-megakernel launch,
+               Q4 #11 for INT4); the
                prefix cache (15 hits, each continued window L paged-window
                launches); chunked prefill; the HTTP front end on port 0
                (answers equal to the requests run alone, then a burst of 8).
@@ -55,16 +63,23 @@ Phases, in order; any failure exits non-zero before the final line:
                run through ``qwen3_rs_tpu_torch.cli.main`` (``inference`` in
                generate, chat, exact mode and with ``--device-sampling``,
                ``eval-ppl`` in three modes,
-               ``batch`` paged and dense) and ``serve`` in a process of its
-               own; ``export`` of a synthetic HF directory to an INT4
-               ``.qtpu`` and an INT8 ``.bin``, ``inference`` on each and
-               ``batch`` on the INT4 one; the output must equal the API's.
+               ``batch --sampling host`` paged and dense) and ``serve`` with
+               its defaults in a process of its own; ``export`` of a
+               synthetic dim-512 HF directory to an INT4 ``.qtpu`` and an
+               INT8 ``.bin``, ``inference`` on each, ``batch`` with its
+               defaults on each (INT4 with ``QWEN3_TPU_MEGA_Q4=1``: Q4 #11
+               where the gate admits dim 512) and ``--sampling host`` on the
+               INT4 one; the output must equal the API's.
 6. ``parity``  the 2-layer model on the CPU (plain versions) and on the card
                (kernels): prefill windows and decode steps (the megakernel) in
                fast mode (16-,
                512- and 300-row windows) and exact mode; eval-ppl at 0.6B width;
                the paged forward (a fresh group, a continued window, decode
-               steps with a slot masked) over bf16 and INT8 pools.
+               steps with a slot masked) over bf16 and INT8 pools; a shape the
+               JAX gates refuse (a head_dim-64 Llama) on the plain path with
+               no launch of the refused kernels, and shapes they admit that
+               the port's kernels once refused (INT4 with 512-row groups, 5
+               query heads per kv head) through the kernels.
 
 Output: one JSON object per line.  The second-to-last lines hold the kernel
 table and the serve phase's numbers (``{"kernels": [...], "serve": {...}}``)
@@ -863,14 +878,16 @@ def paged_window_cases(torch, ctx) -> list[dict]:
 MK_TOL_X, MK_TOL_LOGITS, MK_TOL_DEEP = 5e-3, 1e-2, 5e-2
 
 
-def megakernel_cases(torch, ctx) -> list[dict]:
+def megakernel_cases(torch, ctx, q4: bool = False) -> list[dict]:
     """The decode megakernel (#11) at Qwen3-8B width, INT8-g64 (the e2e
     phase's weights, bf16 scales): B = 1 over an f32 cache at positions 200
     and 4095, over an INT8 cache, B = 8 over a bf16 cache at mixed positions
     with one slot's write gate off, and the greedy head.  Each case runs over
     the first layer alone and at full depth (timed), against the plain
     version; the cache outside the rows written stays as it was, bit for
-    bit."""
+    bit.  ``q4``: its Q4 tiles, on the INT4-g64 layers of ``model_8b_q4`` (the
+    classifier INT8), at 200 (f32), 2049 (INT8), the B = 8 case and the
+    greedy head."""
     import dataclasses
 
     from qwen3_rs_tpu_torch.models.qwen3 import cast_weight_scales
@@ -884,14 +901,18 @@ def megakernel_cases(torch, ctx) -> list[dict]:
     from qwen3_rs_tpu_torch.testing import megakernel_bytes
 
     cfg, weights, _ = model_8b(torch, ctx)
+    if q4:
+        weights = model_8b_q4(torch, ctx)
     w = cast_weight_scales(weights)
     lw = w.layers
     n_l, n_kv, hd, t = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, cfg.seq_len
     v_pad = w.lm_head.q.shape[-1]
     cos_t, sin_t = rope_table(t, hd, cfg.rope_theta, torch.device(DEV, 0))
-    specs = [("f32", [200], [1], False), ("f32", [t - 1], [1], False), ("int8", [2049], [1], False),
-             ("bf16", [0, 1, 127, 128, 1000, 2049, 3000, t - 1], [1, 1, 1, 0, 1, 1, 1, 1], False),
+    mixed = ("bf16", [0, 1, 127, 128, 1000, 2049, 3000, t - 1], [1, 1, 1, 0, 1, 1, 1, 1], False)
+    specs = [("f32", [200], [1], False), ("f32", [t - 1], [1], False), ("int8", [2049], [1], False), mixed,
              ("f32", [200], [1], True)]
+    if q4:
+        specs = [specs[0], specs[2], mixed, specs[4]]
     gen = torch.Generator(device=DEV)
     gen.manual_seed(97531)
     params = sum(n * d for n, d in ((cfg.dim, cfg.all_heads_dim + 2 * cfg.kv_dim), (cfg.all_heads_dim, cfg.dim),
@@ -919,7 +940,7 @@ def megakernel_cases(torch, ctx) -> list[dict]:
 
         def run(fn, state, depth, greedy_=greedy, rms_att=lw.rms_att):
             c = cfg if depth == n_l else dataclasses.replace(cfg, n_layers=depth)
-            mats = [QuantizedTensor(m.q[:depth], m.scales[:depth]) for m in (lw.wqkv, lw.wo, lw.w13, lw.w2)]
+            mats = [type(m)(m.q[:depth], m.scales[:depth]) for m in (lw.wqkv, lw.wo, lw.w13, lw.w2)]
             return fn(c, x, rms_att[:depth], lw.rms_ffn[:depth], lw.q_norm[:depth], lw.k_norm[:depth], cos_t[rows],
                       sin_t[rows], *mats, state[0], state[1], pos, w.rms_final, w.lm_head, ok, k_scale=state[2],
                       v_scale=state[3], eps=cfg.norm_eps, greedy=greedy_)
@@ -981,15 +1002,19 @@ def megakernel_cases(torch, ctx) -> list[dict]:
         del sx
         ms = device_ms(torch, lambda i: run(decode_stack_megakernel, got_state, n_l))
         plain_ms = device_ms(torch, lambda i: run(decode_stack_megakernel_plain, got_state, n_l), reps=3, warmup=1)
-        nbytes = megakernel_bytes(cfg, pos_list, esz, written=sum(ok_list), v_pad=v_pad)
+        nbytes = megakernel_bytes(cfg, pos_list, esz, written=sum(ok_list), v_pad=v_pad, bits=4 if q4 else 8)
         ops = 2.0 * b * (params + cfg.dim * v_pad) + 4.0 * hd * cfg.n_heads * n_l * sum(min(p, t) + 1 for p in pos_list)
         b_ms, b_by = bound(nbytes, ops, "bf16")
         case = f"{cache} cache B={b} pos={pos_list}" + (f" write_ok={ok_list}" if 0 in ok_list else "") + (
             " greedy" if greedy else "")
-        row = _row(ctx, "decode_megakernel", case, "qwen3_rs_tpu_torch/csrc/decode_megakernel.cu",
-                   "qwen3_rs_tpu/ops/pallas/megakernel.py:1110 decode_stack_megakernel (pallas_call :1441)",
+        replaces = ("qwen3_rs_tpu/ops/pallas/megakernel.py:528-540 and :711-716 (Q4 tiles of "
+                    "decode_stack_megakernel :1110; gate :229-241)" if q4 else
+                    "qwen3_rs_tpu/ops/pallas/megakernel.py:1110 decode_stack_megakernel (pallas_call :1441)")
+        row = _row(ctx, "decode_megakernel_q4" if q4 else "decode_megakernel", case,
+                   "qwen3_rs_tpu_torch/csrc/decode_megakernel.cu", replaces,
                    {"B": b, "layers": n_l, "dim": cfg.dim, "T": t, "pos": pos_list, "v_pad": v_pad,
-                    "splits": split_plans(cfg, b, _mega_grid(torch, b), v_pad), "depth1_max_abs_err": err1,
+                    "layer_bits": 4 if q4 else 8,
+                    "splits": split_plans(cfg, b, _mega_grid(torch, b), v_pad, q4), "depth1_max_abs_err": err1,
                     "depth1_tol": tol1, "sensitivity": sensitivity},
                    err, tol, ms, plain_ms, nbytes, b_ms, b_by, None,
                    "none: no one PyTorch call computes a whole decode step")
@@ -997,6 +1022,29 @@ def megakernel_cases(torch, ctx) -> list[dict]:
         del kv, sc, got_state
         torch.cuda.empty_cache()
     return out
+
+
+def megakernel_q4_kernel_cases(torch, ctx) -> list[dict]:
+    """#11's Q4 tiles, with the reference's opt-in set for the gate's sake
+    (the wrapper itself takes INT4 layers whatever the variable says)."""
+    with q4_megakernel_opt_in():
+        return megakernel_cases(torch, ctx, q4=True)
+
+
+@contextlib.contextmanager
+def q4_megakernel_opt_in(on: bool = True):
+    """``QWEN3_TPU_MEGA_Q4`` set to 1 (or 0) for the block, then restored."""
+    import os
+
+    old = os.environ.get("QWEN3_TPU_MEGA_Q4")
+    os.environ["QWEN3_TPU_MEGA_Q4"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["QWEN3_TPU_MEGA_Q4"]
+        else:
+            os.environ["QWEN3_TPU_MEGA_Q4"] = old
 
 
 def _mega_grid(torch, b: int) -> int:
@@ -1013,7 +1061,7 @@ def phase_kernels(torch, ctx) -> None:
                           + rows_cases(torch, ctx) + dequant_cases(torch, ctx) + a8_cases(torch, ctx)
                           + paged_decode_cases(torch, ctx) + paged_window_cases(torch, ctx)
                           + megakernel_cases(torch, ctx) + qmatmul_q4_cases(torch, ctx) + rows_q4_cases(torch, ctx)
-                          + dequant_q4_cases(torch, ctx))
+                          + dequant_q4_cases(torch, ctx) + megakernel_q4_kernel_cases(torch, ctx))
     made = {k for k in LAUNCHES if LAUNCHES[k] != before[k]}
     need(made == set(LAUNCHES), f"the kernel cases launched no {sorted(set(LAUNCHES) - made)}")
 
@@ -1158,6 +1206,22 @@ def model_8b(torch, ctx):
     return ctx["8b"]
 
 
+def model_8b_q4(torch, ctx):
+    """Qwen3-8B with INT4-g64 linear layers (random packed codes from the
+    seed; the embedding and the classifier INT8), drawn once on the card and
+    kept until the serve phase's INT4 run frees it."""
+    from qwen3_rs_tpu_torch.testing import qwen3_config, random_weights
+
+    if "8b_q4" not in ctx:
+        cfg = qwen3_config("8b", seq_len=4096)
+        t0 = time.perf_counter()
+        ctx["8b_q4"] = random_weights(cfg, seed=SEED, device=DEV, bits=4)
+        torch.cuda.synchronize()
+        emit({"phase": "model", "model": "qwen3-8b INT4-g64 (INT8 embedding and classifier)",
+              "setup_seconds": time.perf_counter() - t0, "device_memory_gb": torch.cuda.memory_allocated() / 1e9})
+    return ctx["8b_q4"]
+
+
 def phase_e2e(torch, ctx) -> None:
     from qwen3_rs_tpu_torch import Engine, TokenSampler, chat, generate
     from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES, reset_launches
@@ -1283,11 +1347,8 @@ def int4_path(torch, ctx, cfg, tok) -> dict:
     from qwen3_rs_tpu_torch.testing import random_weights, weight_bytes_per_decode_token
 
     n_l = cfg.n_layers
-    t0 = time.perf_counter()
-    weights = random_weights(cfg, seed=SEED, device=DEV, bits=4)
-    torch.cuda.synchronize()
-    out = {"setup_seconds": time.perf_counter() - t0, "device_memory_gb": torch.cuda.memory_allocated() / 1e9}
-    emit({"phase": "model", "model": "qwen3-8b INT4-g64 (INT8 embedding and classifier)", **out})
+    weights = model_8b_q4(torch, ctx)
+    out = {"device_memory_gb": torch.cuda.memory_allocated() / 1e9}
     engine = Engine(config=cfg, weights=weights, device=DEV)
     prompt = prompt_text(200)
     step = {"qmatmul_w8a16_q4": 4 * n_l, "qmatmul_w8a16": 1, "flash_decode": n_l}
@@ -1313,6 +1374,7 @@ def int4_path(torch, ctx, cfg, tok) -> dict:
     })
     out["profile"] = profile_decode(torch, engine, prompt_ids=tok.encode(prompt))
     emit({"phase": "e2e", "run": "INT4 generate greedy", **out})
+    out["megakernel_q4"] = int4_megakernel_path(torch, ctx, cfg, engine, tok, prompt, step_s)
     out["long_prompt"] = long_prompt_path(torch, ctx, cfg, engine, tok, q4=True)
     del engine
     torch.cuda.empty_cache()
@@ -1329,13 +1391,102 @@ def int4_path(torch, ctx, cfg, tok) -> dict:
     del weights, exact
     torch.cuda.empty_cache()
     out["parity_one_layer"] = int4_parity(torch, ctx)
+    with q4_megakernel_opt_in():
+        out["parity_one_layer_megakernel_q4"] = int4_parity(torch, ctx, megakernel=True)
     return out
 
 
-def int4_parity(torch, ctx) -> dict:
+def int4_megakernel_path(torch, ctx, cfg, engine, tok, prompt, per_layer_step_s) -> dict:
+    """The INT4 b=1 greedy decode with the reference's opt-in to its Q4 tiles
+    (``QWEN3_TPU_MEGA_Q4=1``), in the same call as the per-layer INT4 path:
+    every decode step one Q4 megakernel launch and no Q4 #3 launch, timed and
+    profiled; then ``decode_chunk`` with device sampling on it (greedy equal
+    to the host-greedy stream, a chunk with no host synchronisation)."""
+    import numpy as np
+
+    import qwen3_rs_tpu_torch.inference.engine as engine_mod
+    from qwen3_rs_tpu_torch import TokenSampler, generate
+    from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    n_l = cfg.n_layers
+    recs: list = []
+    with q4_megakernel_opt_in():
+        reset_launches()  # this path's run starts here
+        with forward_records(torch, engine_mod, recs):
+            ids = generate(engine, tok, TokenSampler(0.0, 0.9, SEED), prompt, out=io.StringIO(),
+                           max_tokens=DECODE_TOKENS)
+        launches = dict(LAUNCHES)  # and ends here
+        ctx["path_launches"]["int4_megakernel_decode"] = launches
+        need(len(ids) > 2, f"INT4 megakernel generate: {len(ids)} tokens")
+        _expect(recs[0], {"qmatmul_w8a16_q4": 4 * n_l, "qmatmul_w8a16": 1}, "INT4 prompt window")
+        for rec in recs[1:]:
+            _expect(rec, {"decode_megakernel_q4": 1}, "INT4 decode step (Q4 megakernel)")
+        steady = [r["seconds"] for r in recs[2:]]
+        step_s = statistics.median(steady)
+        out = {"generated": len(ids), "decode_step_ms": step_s * 1e3, "decode_tok_per_s": 1.0 / step_s,
+               "decode_step_ms_p90": statistics.quantiles(steady, n=10)[-1] * 1e3, "decode_step_samples": len(steady),
+               "per_layer_decode_step_ms_same_call": per_layer_step_s * 1e3,
+               "launches_per_decode_step": {"decode_megakernel_q4": 1, "qmatmul_w8a16_q4": 0},
+               "every_step_checked": True, "launches": launches}
+        out["profile"] = profile_decode(torch, engine, prompt_ids=tok.encode(prompt))
+        # Device sampling on the same route: one chunk, greedy, checked for
+        # host synchronisation, against the host-greedy stream.
+        pids = np.asarray([tok.encode(prompt)])
+        logits, cache = engine.prefill(engine.new_cache(1), pids, np.zeros(1, np.int64))
+        first, n = int(logits.float().argmax()), DECODE_TOKENS
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(SEED)
+        before = dict(LAUNCHES)
+        engine.decode_chunk_device(cache, first, pids.shape[1], 2, generator=gen)  # warm
+        logits, cache = engine.prefill(engine.new_cache(1), pids, np.zeros(1, np.int64))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            toks, cache = engine.decode_chunk_device(cache, first, pids.shape[1], n, generator=gen)
+            end = torch.cuda.Event()
+            end.record()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        enqueue_s = time.perf_counter() - t0
+        end.synchronize()
+        chunk_s = time.perf_counter() - t0
+        made = LAUNCHES["decode_megakernel_q4"] - before["decode_megakernel_q4"]
+        chunk_ids = [first] + toks.cpu().tolist()
+        m = min(len(ids), len(chunk_ids))
+        need(made == n + 2 and chunk_ids[:m] == ids[:m], f"INT4 device chunk: {made} launches, tokens {chunk_ids[:m]}")
+    out["device_chunk"] = {"steps": n, "enqueue_ms": enqueue_s * 1e3, "ms_per_token": chunk_s * 1e3 / n,
+                           "greedy_equals_host": True, "sync_free_chunk": True}
+    emit({"phase": "e2e", "run": "INT4 generate greedy through the Q4 megakernel (QWEN3_TPU_MEGA_Q4=1)", **out})
+    return out
+
+
+def int4_dense_batch(torch, ctx, cfg, traffic) -> dict:
+    """The serve traffic on the INT4 weights' dense slots with device
+    sampling (the ``batch`` CLI's defaults) and the Q4 megakernel opted in:
+    every chunk step one Q4 megakernel launch.  It frees the INT4 weights."""
+    from qwen3_rs_tpu_torch.serving import ContinuousBatchingEngine
+
+    weights = model_8b_q4(torch, ctx)
+    ctx.pop("8b_q4")  # freed with this run's last reference
+    t0 = time.perf_counter()
+    with q4_megakernel_opt_in():
+        engine = ContinuousBatchingEngine(config=cfg, weights=weights, n_slots=8, kv_layout="dense", sampling="device",
+                                          device=DEV)
+        engine.warmup()
+        warm = time.perf_counter() - t0
+        res = _serve_run(torch, ctx, "int4_dense_device", engine, traffic, cfg.n_layers, profile=False)
+    res["setup_and_warmup_s"] = warm
+    need(res["launches"]["decode_megakernel_q4"] > 0, f"INT4 dense batch launched {res['launches']}")
+    del engine, weights
+    torch.cuda.empty_cache()
+    return res
+
+
+def int4_parity(torch, ctx, megakernel: bool = False) -> dict:
     """Card against CPU on a one-layer INT4 slice at 8B width: a fresh
     300-row window (Q4 #6, #5), a continued 16-row window (Q4 #3) and 3
-    decode steps (Q4 #3, #4)."""
+    decode steps (Q4 #3, #4; with ``megakernel``, under the opt-in, Q4 #11)."""
     import numpy as np
 
     from qwen3_rs_tpu_torch import Engine
@@ -1356,15 +1507,20 @@ def int4_parity(torch, ctx) -> dict:
         lp, caches[1] = cpu.prefill(caches[1], prompt, [pos])
         pos += rows
         errs.append(float((lc.float().cpu() - lp).abs().max()) / float(lp.abs().max()))
+    from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES
+
+    before = LAUNCHES["decode_megakernel_q4"]
     for i in range(3):
         nxt = int(lp.argmax())
         lc, caches[0] = card.decode_step(caches[0], [nxt], [pos + i])
         lp, caches[1] = cpu.decode_step(caches[1], [nxt], [pos + i])
         errs.append(float((lc.float().cpu() - lp).abs().max()) / float(lp.abs().max()))
+    made = LAUNCHES["decode_megakernel_q4"] - before
+    need(made == (3 if megakernel else 0), f"INT4 card vs CPU: {made} Q4 megakernel launches")
     need(all(math.isfinite(e) and e <= tol_rel for e in errs), f"INT4 card vs CPU: {errs}")
     res = {"layers": 1, "width": cfg.dim, "windows": [300, 16], "decode_steps": 3, "rel_errs": errs,
-           "tol_rel": tol_rel, "seconds": time.perf_counter() - t0}
-    emit({"phase": "e2e", "run": "INT4 card vs CPU", **res})
+           "tol_rel": tol_rel, "megakernel_q4_launches": made, "seconds": time.perf_counter() - t0}
+    emit({"phase": "e2e", "run": "INT4 card vs CPU" + (" (Q4 megakernel)" if megakernel else ""), **res})
     return res
 
 
@@ -1751,8 +1907,9 @@ def _serve_traffic(cfg) -> list[tuple[list[int], int]]:
 
 
 def _instrument_engine(torch, engine, records: list):
-    """Wrap the engine's decode step and prefill windows: each call appends
-    its kind, rows, active slots, synchronised host seconds and the kernel
+    """Wrap the engine's decode step (device sampling: its decode chunk) and
+    prefill windows: each call appends its kind, rows, active slots (of a
+    chunk: its active mask), steps, synchronised host seconds and the kernel
     launches it made."""
     from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES
 
@@ -1764,16 +1921,22 @@ def _instrument_engine(torch, engine, records: list):
             out = fn(*args, **kw)
             torch.cuda.synchronize()
             active = int(sum(r is not None for r in engine.slot_request))
+            if kind == "chunk":  # _decode_chunked(prev_last, fresh, pos0, active, temps, topps, n_steps, ...)
+                active = int(sum(args[3]))
             # _prefill_paged(tokens, out_idx, tables, pos): pos None for a fresh window.
-            records.append({"kind": kind, "rows": None if kind == "decode" else int(args[0].shape[1]),
+            records.append({"kind": kind, "rows": None if kind != "prefill" else int(args[0].shape[1]),
                             "cont": kind == "prefill" and len(args) > 3 and args[3] is not None,
+                            "steps": int(args[6]) if kind == "chunk" else 1,
                             "active": active, "seconds": time.perf_counter() - t,
                             "launches": {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}})
             return out
 
         return call
 
-    engine._decode = wrap("decode", engine._decode)
+    if engine.sampling == "device":
+        engine._decode_chunked = wrap("chunk", engine._decode_chunked)
+    else:
+        engine._decode = wrap("decode", engine._decode)
     if engine.kv_layout == "paged":
         engine._prefill_paged = wrap("prefill", engine._prefill_paged)
 
@@ -1784,10 +1947,13 @@ def _serve_run(torch, ctx, name, engine, traffic, n_layers, *, profile=True) -> 
     from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES, reset_launches
     from qwen3_rs_tpu_torch.serving import Request
 
+    from qwen3_rs_tpu_torch.ops.quant import Q4Tensor
+
     paged = engine.kv_layout == "paged"
     # The pool's decode takes the per-layer kernels; the dense slots' (8 rows)
     # the megakernel, with the idle slots' writes gated off.
-    want = {"qmatmul_w8a16": 4 * n_layers + 1, "paged_decode": n_layers} if paged else {"decode_megakernel": 1}
+    mk = "decode_megakernel_q4" if isinstance(engine.weights.layers.wqkv, Q4Tensor) else "decode_megakernel"
+    want = {"qmatmul_w8a16": 4 * n_layers + 1, "paged_decode": n_layers} if paged else {mk: 1}
     recs: list = []
     _instrument_engine(torch, engine, recs)
     reqs = [Request(i, p, max_new_tokens=n, eos_token_ids=()) for i, (p, n) in enumerate(traffic)]
@@ -1802,13 +1968,14 @@ def _serve_run(torch, ctx, name, engine, traffic, n_layers, *, profile=True) -> 
     ctx["path_launches"][f"serve_{name}"] = launches
     need(len(done) == len(reqs) and all(r.finish_reason == "length" and len(r.generated) == r.max_new_tokens
                                          for r in done), f"serve {name}: not every request completed")
-    decodes = [r for r in recs if r["kind"] == "decode"]
+    decodes = [r for r in recs if r["kind"] in ("decode", "chunk")]
     for rec in decodes:
-        need(rec["launches"] == want, f"serve {name}: a decode step launched {rec['launches']}, expected {want}")
+        per = {k: v * rec["steps"] for k, v in want.items()}
+        need(rec["launches"] == per, f"serve {name}: a decode {rec['kind']} launched {rec['launches']}, expected {per}")
     if paged:
         need(engine.allocator.free_pages == engine.allocator.n_pages - 1, f"serve {name}: pages still held")
     ttft = sorted(r.ttft for r in done)
-    full = [r["seconds"] for r in decodes if r["active"] == engine.n_slots]
+    full = [r["seconds"] / r["steps"] for r in decodes if r["active"] == engine.n_slots]
     tokens = sum(len(r.generated) for r in done)
     stats = engine.stats()
     out = {
@@ -1818,11 +1985,12 @@ def _serve_run(torch, ctx, name, engine, traffic, n_layers, *, profile=True) -> 
         "decode_step_ms_8_active": statistics.median(full) * 1e3 if full else None,
         "decode_steps_8_active": len(full),
         "prefill_windows": [(r["rows"], r["seconds"] * 1e3) for r in recs if r["kind"] == "prefill"],
-        "launches": launches, "every_step_checked": True,
+        "launches": launches, "every_step_checked": True, "sampling": engine.sampling,
+        "streams": {r.request_id: r.generated for r in done},
     }
     if profile:
         out["profile_decode_8_active"] = _profile_full_decode(torch, engine, traffic)
-    emit({"phase": "serve", "run": name, **{k: v for k, v in out.items() if k != "prefill_windows"}})
+    emit({"phase": "serve", "run": name, **{k: v for k, v in out.items() if k not in ("prefill_windows", "streams")}})
     return out
 
 
@@ -1852,13 +2020,20 @@ def phase_serve(torch, ctx) -> None:
     traffic = _serve_traffic(cfg)
     ctx["serve"] = out = {"traffic": {"requests": len(traffic), "prompt_tokens": [len(p) for p, _ in traffic],
                                       "max_new_tokens": SERVE_NEW_TOKENS}}
-    for name, kw in (("paged_bf16", {}), ("paged_int8", {"cache_dtype": "int8"}), ("dense_bf16", {"kv_layout": "dense"})):
+    runs = (("paged_bf16", {}), ("paged_int8", {"cache_dtype": "int8"}), ("dense_bf16", {"kv_layout": "dense"}),
+            ("paged_bf16_device", {"sampling": "device"}), ("dense_bf16_device", {"kv_layout": "dense", "sampling": "device"}))
+    for name, kw in runs:
         t0 = time.perf_counter()
         engine = ContinuousBatchingEngine(config=cfg, weights=weights, n_slots=8,
-                                          **{"kv_layout": "paged", "page_size": 128, **kw}, device=DEV)
+                                          **{"kv_layout": "paged", "page_size": 128, "sampling": "host", **kw},
+                                          device=DEV)
         engine.warmup()
         warm = time.perf_counter() - t0
-        out[name] = _serve_run(torch, ctx, name, engine, traffic, cfg.n_layers)
+        out[name] = _serve_run(torch, ctx, name, engine, traffic, cfg.n_layers, profile=kw.get("sampling") != "device")
+        if name.endswith("_device"):
+            out[name]["greedy_vs_host"] = stream_partings(torch, cfg, weights, traffic,
+                                                          out[name[: -len("_device")]]["streams"],
+                                                          out[name]["streams"])
         out[name]["setup_and_warmup_s"] = warm
         if engine.allocator is not None:
             out[name]["kv_pages"] = engine.allocator.n_pages - 1
@@ -1869,11 +2044,50 @@ def phase_serve(torch, ctx) -> None:
             out[name]["kv_pool_gb"] = pool_bytes / 1e9
         del engine
         torch.cuda.empty_cache()
+    out["int4_dense_device"] = int4_dense_batch(torch, ctx, cfg, traffic)
+    keys = ("tok_per_s", "decode_step_ms_8_active", "ttft_p50_ms", "ttft_p90_ms", "slot_utilization")
+    out["int4_vs_int8_dense_device"] = {k: {"int8": out["dense_bf16_device"][k], "int4": out["int4_dense_device"][k]}
+                                        for k in keys}
+    emit({"phase": "serve", "run": "dense slots, device sampling: INT4 (Q4 #11) beside INT8 (#11), same traffic",
+          **out["int4_vs_int8_dense_device"]})
+    for run in out.values():
+        if isinstance(run, dict):
+            run.pop("streams", None)
     out["prefix_cache"] = serve_prefix_path(torch, ctx, cfg, weights)
     out["chunked_prefill"] = serve_chunked_path(torch, ctx, cfg, weights)
     out["http"] = serve_http_path(torch, ctx, cfg, weights, tok)
     ctx.pop("8b")  # the last user of the 8B weights
     torch.cuda.empty_cache()
+
+
+def stream_partings(torch, cfg, weights, traffic, ref: dict, got: dict) -> dict:
+    """Where two greedy serving runs' streams part: for each parting, its
+    token and both picks' logits on the shared history (a b=1 prefill), the
+    top-2 logit gap there.  A parting is held to a near-tie: the two picks'
+    logits within 2e-2 of the largest."""
+    import numpy as np
+
+    from qwen3_rs_tpu_torch import Engine
+
+    need(ref.keys() == got.keys(), "the two runs completed different requests")
+    engine = Engine(config=cfg, weights=weights, cache_dtype=torch.bfloat16, device=DEV)
+    parts = []
+    for rid in sorted(ref):
+        a, b = ref[rid], got[rid]
+        diff = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+        if not diff:
+            need(a == b, f"request {rid}: streams of different lengths")
+            continue
+        i = diff[0]
+        hist = np.asarray([list(traffic[rid][0]) + a[:i]])
+        logits, _ = engine.prefill(engine.new_cache(1), hist, np.zeros(1, np.int64))
+        lg = logits[0].float()
+        top2 = torch.topk(lg, 2).values
+        gap = float((lg[a[i]] - lg[b[i]]).abs())
+        parts.append({"request": rid, "token_index": i, "tokens": [a[i], b[i]], "pick_gap": gap,
+                      "top2_gap": float(top2[0] - top2[1]), "max_abs_logit": float(lg.abs().max())})
+        need(gap <= 2e-2 * float(lg.abs().max()), f"request {rid} parts at token {i} away from a near-tie: {parts[-1]}")
+    return {"requests": len(ref), "equal": len(ref) - len(parts), "partings": parts}
 
 
 def serve_prefix_path(torch, ctx, cfg, weights) -> dict:
@@ -2165,27 +2379,44 @@ def cli_export(torch, ctx) -> None:
               "export_s": export_s, "chars_out": len(api.getvalue()), "equal_to_api": True, "launches": launches})
         if q4:
             cli_batch(torch, ctx, ckpt, cfg, weights, kvs=("paged",))
+        # ``batch`` with its defaults (device sampling, dense slots); the INT4
+        # twin with the Q4 megakernel opted in.
+        with q4_megakernel_opt_in(q4):
+            cli_batch(torch, ctx, ckpt, cfg, weights, kvs=("dense",), sampling=None)
 
 
-def cli_batch(torch, ctx, root, cfg, weights, kvs=("paged", "dense")) -> None:
-    """``batch --sampling host`` on the paged pool and on the dense slots:
-    its JSON lines equal the API's on the same requests."""
+def cli_batch(torch, ctx, root, cfg, weights, kvs=("paged", "dense"), sampling="host") -> None:
+    """``batch --sampling host`` (``sampling`` None: no flag, the default
+    device sampling) on the paged pool and on the dense slots: its JSON lines
+    equal the API's on the same requests, and the dense decode steps take
+    the megakernel where its gate admits the shapes."""
     from qwen3_rs_tpu_torch import Tokenizer
     from qwen3_rs_tpu_torch.cli import main as cli_main
+    from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from qwen3_rs_tpu_torch.ops.kernels.megakernel import megakernel_supported
+    from qwen3_rs_tpu_torch.ops.quant import Q4Tensor
     from qwen3_rs_tpu_torch.serving import ContinuousBatchingEngine, Request
 
     prompts = [prompt_text(n) for n in (30, 200, 5, 700, 90)]
     pfile = ctx["tmp"] / "prompts.txt"
     pfile.write_text("\n".join(prompts) + "\n")
     tok = Tokenizer(root, cfg.vocab_size)
+    q4 = isinstance(weights.layers.wqkv, Q4Tensor)
+    flags = [] if sampling is None else ["--sampling", sampling]
     for kv in kvs:
         buf = io.StringIO()
         t0 = time.perf_counter()
+        reset_launches()  # this path's run starts here
         with contextlib.redirect_stdout(buf):
-            rc = cli_main(["batch", str(root), "-f", str(pfile), "-n", "12", "-s", "3", "--sampling", "host",
+            rc = cli_main(["batch", str(root), "-f", str(pfile), "-n", "12", "-s", "3", *flags,
                            "--slots", "4", "--kv", kv])
+        launches = dict(LAUNCHES)  # and ends here
         need(rc == 0, f"cli batch --kv {kv} exited {rc}")
-        engine = ContinuousBatchingEngine(config=cfg, weights=weights, n_slots=4, kv_layout=kv, device=DEV)
+        gate = kv == "dense" and megakernel_supported(cfg, cfg.seq_len, torch.bfloat16, 4, q4=q4)
+        mk = "decode_megakernel_q4" if q4 else "decode_megakernel"
+        need((launches[mk] > 0) == gate, f"cli batch --kv {kv}: gate {gate}, launched {launches}")
+        engine = ContinuousBatchingEngine(config=cfg, weights=weights, n_slots=4, kv_layout=kv, device=DEV,
+                                          sampling=sampling or "device", seed=3)
         for i, p in enumerate(prompts):
             engine.submit(Request(i, tok.encode(p), max_new_tokens=12, seed=3 + i,
                                   eos_token_ids=(tok.bos_token_id, tok.eos_token_id)))
@@ -2194,13 +2425,16 @@ def cli_batch(torch, ctx, root, cfg, weights, kvs=("paged", "dense")) -> None:
                                   "completion": tok.decode(r.generated), "tokens": len(r.generated),
                                   "finish_reason": r.finish_reason}) + "\n" for r in done)
         need(buf.getvalue() == api, f"cli batch --kv {kv}: output differs from the API's")
-        emit({"phase": "cli", "mode": f"batch --kv {kv}", "checkpoint": root.name, "requests": len(done),
-              "equal_to_api": True, "seconds": time.perf_counter() - t0})
+        ctx["path_launches"][f"cli_batch_{root.name}_{kv}_{sampling or 'default'}"] = launches
+        emit({"phase": "cli", "mode": f"batch --kv {kv} " + (" ".join(flags) or "(default sampling: device)"),
+              "checkpoint": root.name, "dim": cfg.dim, "megakernel_gate": gate, "requests": len(done),
+              "equal_to_api": True, "launches": launches, "seconds": time.perf_counter() - t0})
 
 
 def cli_serve(torch, ctx, root, cfg, weights) -> None:
-    """``serve --sampling host`` in a process of its own: a completion over
-    HTTP equals the API's run of the same request; the process is stopped."""
+    """``serve`` with its defaults (device sampling, the paged pool) in a
+    process of its own: a completion over HTTP equals the API's run of the
+    same request; the process is stopped."""
     import socket
     import urllib.request
 
@@ -2212,8 +2446,8 @@ def cli_serve(torch, ctx, root, cfg, weights) -> None:
         port = sock.getsockname()[1]
     t0 = time.perf_counter()
     log = open(ctx["tmp"] / "serve.log", "w")
-    proc = subprocess.Popen([sys.executable, "-m", "qwen3_rs_tpu_torch.cli", "serve", str(root), "--sampling",
-                             "host", "--port", str(port), "--slots", "4"], cwd=ROOT, stdout=log, stderr=log)
+    proc = subprocess.Popen([sys.executable, "-m", "qwen3_rs_tpu_torch.cli", "serve", str(root),
+                             "--port", str(port), "--slots", "4"], cwd=ROOT, stdout=log, stderr=log)
     try:
         for _ in range(600):
             need(proc.poll() is None, f"cli serve exited {proc.returncode}: {(ctx['tmp'] / 'serve.log').read_text()}")
@@ -2237,7 +2471,8 @@ def cli_serve(torch, ctx, root, cfg, weights) -> None:
             proc.wait(30)
         log.close()
     tok = Tokenizer(root, cfg.vocab_size)
-    engine = ContinuousBatchingEngine(config=cfg, weights=weights, n_slots=4, kv_layout="paged", device=DEV)
+    engine = ContinuousBatchingEngine(config=cfg, weights=weights, n_slots=4, kv_layout="paged", sampling="device",
+                                      device=DEV)
     engine.submit(Request(0, tok.encode(prompt), max_new_tokens=16, eos_token_ids=(tok.bos_token_id, tok.eos_token_id)))
     solo = engine.run()[0]
     need(body["text"] == tok.decode(solo.generated) and body["tokens"] == len(solo.generated),
@@ -2288,6 +2523,63 @@ def phase_parity(torch, ctx) -> None:
     parity_long_windows(torch, ctx)
     parity_eval(torch, ctx)
     parity_paged(torch, ctx)
+    parity_gated_shapes(torch, ctx)
+
+
+def parity_gated_shapes(torch, ctx) -> None:
+    """Card against CPU on shapes at the JAX gates' edges, each 2 layers at
+    small widths (a 300-row fresh window, a 20-row window and two decode
+    steps): a head_dim-64 Llama, which the gates refuse, on the plain path
+    with no launch of the refused kernels (flash decode, causal prefill, the
+    megakernel); and shapes they admit that the port's kernels once refused,
+    through the kernels: INT4 with 512-row groups (Q4 #3; not the Q4
+    megakernel, whose gate refuses the group, opted in or not) and 5 query
+    heads per kv head (#4 and #5)."""
+    import numpy as np
+
+    from qwen3_rs_tpu_torch import Engine
+    from qwen3_rs_tpu_torch.configuration import ModelConfig
+    from qwen3_rs_tpu_torch.models.qwen3 import weights_to
+    from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from qwen3_rs_tpu_torch.testing import random_weights
+
+    common = dict(n_layers=2, seq_len=512, vocab_size=4096)
+    cases = (
+        ("head_dim 64 (Llama)", ModelConfig(architecture_id=2, dim=256, hidden_dim=768, n_heads=4, n_kv_heads=2,
+                                           head_dim=64, group_size=64, shared_classifier=False, use_qk_norm=False,
+                                           **common), 8,
+         {"flash_decode": False, "causal_prefill_attention": False, "decode_megakernel": False}),
+        ("INT4 g512", ModelConfig(architecture_id=1, dim=1024, hidden_dim=3072, n_heads=4, n_kv_heads=2, head_dim=128,
+                                  group_size=512, shared_classifier=True, **common), 4,
+         {"qmatmul_w8a16_q4": True, "decode_megakernel_q4": False}),
+        ("kv_mul 5", ModelConfig(architecture_id=1, dim=1024, hidden_dim=3072, n_heads=10, n_kv_heads=2, head_dim=128,
+                                 group_size=64, shared_classifier=True, **common), 8,
+         {"flash_decode": True, "causal_prefill_attention": True}),
+    )
+    for name, cfg, bits, want in cases:
+        t0 = time.perf_counter()
+        weights = random_weights(cfg, seed=SEED + 11, device=DEV, bits=bits)
+        engines = [Engine(config=cfg, weights=weights, device=DEV),
+                   Engine(config=cfg, weights=weights_to(weights, "cpu"), device="cpu")]
+        caches = [e.new_cache() for e in engines]
+        rng = np.random.default_rng(SEED + 11)
+        errs, pos = [], 0
+        with q4_megakernel_opt_in():
+            reset_launches()  # this path's run starts here
+            for rows in (300, 20, 1, 1):
+                toks = rng.integers(0, cfg.vocab_size, (1, rows))
+                lc, caches[0] = engines[0].prefill(caches[0], toks, [pos])
+                lp, caches[1] = engines[1].prefill(caches[1], toks, [pos])
+                errs.append(float((lc.float().cpu() - lp.float()).abs().max()) / float(lp.float().abs().max()))
+                pos += rows
+            torch.cuda.synchronize()
+            launches = dict(LAUNCHES)  # and ends here
+        ctx["path_launches"][f"gated {name}"] = launches
+        need({k: launches[k] > 0 for k in want} == want, f"{name}: launches {launches}, expected {want}")
+        need(all(math.isfinite(e) and e <= 2e-2 for e in errs), f"{name}: card vs CPU rel errs {errs}")
+        emit({"phase": "parity", "run": f"gated shapes: {name}", "rel_errs": errs, "tol_rel": 2e-2,
+              "expected_launched": want, "launches": {k: v for k, v in launches.items() if v},
+              "seconds": time.perf_counter() - t0})
 
 
 def parity_paged(torch, ctx) -> None:

@@ -1,15 +1,20 @@
 """qwen3_rs_tpu_torch — the PyTorch and CUDA port of the JAX package (``qwen3_rs_tpu``).
 
-INT8-g64 Qwen3/Llama inference, perplexity evaluation and continuous-batching
-serving for one NVIDIA H100: the same checkpoints, tokenizer, sampler,
-generation loops (host sampling, or device sampling in on-device chunks),
-engine modes (fast W8A16, exact W8A8; a decode step through the whole-step
-megakernel), ``eval-ppl`` and serving engine (dense slots or the page pool,
-prefix cache, chunked prefill, HTTP front end, host sampling) as the JAX
-package, with its
-Pallas kernels replaced by hand-written CUDA kernels for Hopper (``csrc/``).
+Qwen3/Llama inference from INT8-g64 or INT4 checkpoints, the HF exporter
+(LoRA merged), perplexity evaluation and continuous-batching serving for one
+NVIDIA H100: the same checkpoints, tokenizer, samplers, generation loops
+(host sampling, or device sampling in on-device chunks), engine modes (fast
+W8A16, exact W8A8; a dense decode step through the whole-step megakernel,
+INT4 layers too with ``QWEN3_TPU_MEGA_Q4=1``), ``eval-ppl`` and serving
+engine (dense slots or the page pool, prefix cache, chunked prefill, HTTP
+front end, host or device sampling) as the JAX package, with its Pallas
+kernels replaced by hand-written CUDA kernels for Hopper (``csrc/``).
 Entry points run on the card unless the caller passes ``device="cpu"``,
 where the kernels' plain PyTorch versions run instead.
+
+Not ported yet (``NOT_PORTED`` names each with its ``ROADMAP.md`` item):
+speculative decoding, the tensor-, pipeline- and sequence-parallel layouts,
+replicated serving and the cross-host gateway.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 from .checkpoint import load_checkpoint
 from .configuration import ModelConfig, read_config
 from .evaluation import PerplexityResult, evaluate_checkpoint
+from .export import export_model
 from .inference import Engine, Tokenizer, TokenSampler, chat, generate
 from .inference.engine import not_ported
 from .serving import ContinuousBatchingEngine, Request, ServingFrontend
@@ -59,9 +65,9 @@ class InferenceConfig:
 def run_inference(config: InferenceConfig) -> None:
     """Wire engine, tokenizer and sampler, and run generate or chat."""
     if config.speculative > 0:
-        raise not_ported("speculative decoding (--spec)", "queue 1: speculative decoding")
+        raise not_ported("speculative decoding (--spec)", "queue 1, item 3: speculative decoding")
     if config.sp > 1:
-        raise not_ported("sequence-parallel prefill (--sp)", "queue 1: parallel layouts")
+        raise not_ported("sequence-parallel prefill (--sp)", "queue 1, item 5: parallel layouts")
     if config.mode not in ("generate", "chat"):
         raise ValueError(f"Unknown mode: {config.mode}")
     sampler = TokenSampler(
@@ -83,11 +89,22 @@ def run_inference(config: InferenceConfig) -> None:
         chat(engine, tokenizer, sampler, config.prompt, config.system_prompt)
 
 
+# Public names of the reference package that the port lacks (by their path
+# inside the package: a module, or module.name), each with the ROADMAP.md
+# item that ports it.
+NOT_PORTED = {
+    "parallel": "queue 1, item 5: parallel layouts",
+    "utils.enable_compile_cache": "queue 1, item 6: not carried (the nvcc build cache serves)",
+    "inference.speculative": "queue 1, item 3: speculative decoding",
+    "serving.remote": "queue 1, item 4: the rest of serving",
+}
+
 __all__ = [
     "ModelConfig",
     "InferenceConfig",
     "read_config",
     "load_checkpoint",
+    "export_model",
     "run_inference",
     "evaluate_checkpoint",
     "PerplexityResult",

@@ -31,8 +31,8 @@ from pathlib import Path
 
 _DEVICE_HELP = "torch device (default: cuda; cpu runs the kernels' plain PyTorch versions)"
 _SAMPLING_HELP = (
-    "host = reference-parity xorshift; device = on-device sampling "
-    "(not ported yet: pass --sampling host)"
+    "host = reference-parity xorshift; device = on-device sampling in decode chunks "
+    "(reproducible per --seed, not the host stream's bits)"
 )
 _SPEC_HELP = "n-gram speculative decoding with K-token drafts (not ported yet)"
 _PREFIX_HELP = (
@@ -176,20 +176,15 @@ def _serving_not_ported(args) -> None:
     lacks."""
     from .inference.engine import not_ported
 
-    if args.sampling == "device":
-        raise not_ported(
-            "--sampling device (the default) in batch/serve",
-            "queue 1, item 2: device sampling and decode_chunk; pass --sampling host",
-        )
     if args.spec > 0:
-        raise not_ported("speculative serving (--spec)", "queue 1, item 6: speculative decoding")
+        raise not_ported("speculative serving (--spec)", "queue 1, item 3: speculative decoding")
     if args.command == "serve":
         if args.tp > 1:
-            raise not_ported("tensor-parallel serving (--tp)", "queue 1, item 10: parallel layouts")
+            raise not_ported("tensor-parallel serving (--tp)", "queue 1, item 5: parallel layouts")
         if args.replicas > 1:
-            raise not_ported("replicated serving (--replicas)", "queue 1, item 9: serving")
+            raise not_ported("replicated serving (--replicas)", "queue 1, item 4: the rest of serving")
         if args.gateway:
-            raise not_ported("the cross-host gateway (--gateway)", "queue 1, item 9: serving")
+            raise not_ported("the cross-host gateway (--gateway)", "queue 1, item 4: the rest of serving")
 
 
 def _engine(args, config, weights, **kw):
@@ -200,7 +195,7 @@ def _engine(args, config, weights, **kw):
             name = "--" + flag.replace("_", "-")
             raise SystemExit(f"{name} requires the paged KV layout: add --kv paged")
     engine = ContinuousBatchingEngine(
-        config=config, weights=weights, n_slots=args.slots, sampling=args.sampling,
+        config=config, weights=weights, n_slots=args.slots, sampling=args.sampling, seed=getattr(args, "seed", 0),
         kv_layout=args.kv, page_size=args.page_size, n_pages=args.pages,
         prefix_cache=args.prefix_cache, prefill_chunk=args.prefill_chunk, device=args.device, **kw,
     )

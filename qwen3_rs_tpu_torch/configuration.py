@@ -32,6 +32,7 @@ ARCHITECTURE_NAMES = {
     "Qwen3ForCausalLM": ARCHITECTURE_QWEN3,
     "LlamaForCausalLM": ARCHITECTURE_LLAMA,
 }
+ARCHITECTURE_IDS = {v: k for k, v in ARCHITECTURE_NAMES.items()}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +69,10 @@ class ModelConfig:
     @property
     def kv_mul(self) -> int:
         return self.n_heads // self.n_kv_heads
+
+    @property
+    def architecture_name(self) -> str:
+        return ARCHITECTURE_IDS.get(self.architecture_id, f"unknown-{self.architecture_id}")
 
     def validate(self) -> "ModelConfig":
         positive = dict(

@@ -15,8 +15,19 @@
 // in f32; attention runs in f32 with q scaled by 1/sqrt(128) after RoPE; an INT8 cache's K
 // scale multiplies the score and its V scale the probability.
 //
-// Bound on the H100: bytes.  A step streams every weight byte once (7.8 GB at 8B) plus the
-// cache rows below each position, against ~2 flops per weight byte and row.
+// INT4 layers (the Q4 tiles of the Pallas kernel, its _dequant_tile_q4 in the tile loop): the
+// four layer matrices of an INT4 checkpoint hold nibble-packed codes [L, n/2, d] (group
+// split-half, code + 8; csrc/w8a16_dequant.cuh), and each plan says its own format, so one
+// launch carries Q4 layers and the INT8 classifier.  A 16-byte load along d holds 16 columns of
+// two in-rows of one group, j and j + g/2; the thread dequantizes the low nibbles against
+// activation row j, then the high ones against row j + g/2, with the same rounding as INT8
+// (bias 8 in the exponent trick instead of 128).  A staged tile holds its activation rows in
+// packed order (staged_row in w8a16_dequant.cuh), so splits and tiles need not hold whole
+// groups and any even group size works.
+//
+// Bound on the H100: bytes.  A step streams every weight byte once (7.8 GB at 8B; 4.3 GB with
+// INT4 layers) plus the cache rows below each position, against ~2 flops per weight element
+// and row.
 // Design against that bound:
 //  * one persistent, cooperative grid (the occupancy limit times the SM count, launched with
 //    cudaLaunchCooperativeKernel); the phases of a layer are separated by grid-wide barriers
@@ -42,12 +53,15 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "w8a16_dequant.cuh"
+
 namespace cg = cooperative_groups;
 
 struct MatPlan {
-  const int8_t* codes;           // [L, n, d] (the classifier: [n, d])
+  const void* codes;             // int8 [L, n, d] (the classifier: [n, d]); Q4: uint8 [L, n/2, d]
   const __nv_bfloat16* scales;   // [L, n / g, d]
   int n, d, splits, kc;
+  int q4;                        // codes nibble-packed (layer matrices of an INT4 checkpoint)
 };
 
 // The C entry point's argument; the wrapper fills a ctypes mirror of it.
@@ -78,12 +92,12 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kColsPerThread = 16;
 constexpr int kStrip = 32 * kColsPerThread;  // 512 output columns per item
-constexpr int kRowsPerBatch = 4;             // code rows in flight per thread
-constexpr int kTileRows = 256;               // activation rows staged per pass
+constexpr int kRowsPerBatch = kCodeRowsInFlight;  // code rows in flight per thread
+constexpr int kTileRows = kThreads;          // activation rows staged per pass
 constexpr int kHd = 128;                     // head_dim
 constexpr int kChunk = 128;                  // cache rows per attention item
 constexpr int kRows = 8;                     // cache rows per warp in flight
-constexpr int kMaxM = 8;                     // query heads per kv head
+constexpr int kMaxM = 8;                     // query heads per attention item
 // Shared memory, reused by every phase: the attention items need the most
 // (q [M][128], the warps' m and l [8][M], their acc [8][M][128]).
 constexpr int kSmemFloats = kMaxM * kHd + 2 * kWarps * kMaxM + kWarps * kMaxM * kHd;
@@ -111,39 +125,16 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// Byte k of `biased` (an int8 code xor 0x80, i.e. code + 128) as the float code, exactly:
-// 0x4B0000xx is 2^23 + xx, so subtracting 2^23 + 128 leaves the signed code.
-template <int K>
-__device__ __forceinline__ float code_at(uint32_t biased) {
-  return __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7650 | K)) - 8388736.0f;
-}
-
-// 16 codes of one row times their bf16 scales, each product rounded to bf16, as f32.
-__device__ __forceinline__ void dequant16(const uint4& c, const float* sf, float* w) {
-  const uint32_t words[4] = {c.x ^ 0x80808080u, c.y ^ 0x80808080u, c.z ^ 0x80808080u,
-                             c.w ^ 0x80808080u};
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const float c0 = code_at<0>(words[q]), c1 = code_at<1>(words[q]);
-    const float c2 = code_at<2>(words[q]), c3 = code_at<3>(words[q]);
-    const float2 lo = __bfloat1622float2(__floats2bfloat162_rn(c0 * sf[4 * q], c1 * sf[4 * q + 1]));
-    const float2 hi =
-        __bfloat1622float2(__floats2bfloat162_rn(c2 * sf[4 * q + 2], c3 * sf[4 * q + 3]));
-    w[4 * q] = lo.x;
-    w[4 * q + 1] = lo.y;
-    w[4 * q + 2] = hi.x;
-    w[4 * q + 3] = hi.y;
-  }
-}
-
 // One matmul phase: part[split, b, :] = act(src)[b, split rows] . W[layer][split rows, :].
 // src [B, n] f32 (the stream, or an activation written by an earlier phase); with kRms the
-// activation is src * inv_rms(src) * norm_w, rounded to bf16 like every activation.
-template <int BT>
+// activation is src * inv_rms(src) * norm_w, rounded to bf16 like every activation.  Q4: the
+// layer's codes are nibble-packed [n/2, d], and the tile's activation rows are staged in packed
+// order.
+template <int BT, bool Q4, bool Shared>
 __device__ __noinline__ void matvec(const Params& p, const MatPlan& mp, int layer, int prologue,
                                     const float* src, const float* norm_w) {
   const int N = mp.n, D = mp.d, B = p.B;
-  const int8_t* codes = mp.codes + (long)layer * N * D;
+  const int8_t* codes = reinterpret_cast<const int8_t*>(mp.codes) + (long)layer * (Q4 ? N / 2 : N) * D;
   const __nv_bfloat16* scales = mp.scales + (long)layer * (N / p.g) * D;
   float* xs = g_smem;                         // [BT][kTileRows]
   float* red = g_smem + BT * kTileRows;       // [kWarps][kStrip]
@@ -186,17 +177,17 @@ __device__ __noinline__ void matvec(const Params& p, const MatPlan& mp, int laye
     for (int b = 0; b < BT; ++b)
 #pragma unroll
       for (int e = 0; e < kColsPerThread; ++e) acc[b][e] = 0.f;
-    float sf[kColsPerThread];
-    int cur_grp = -1;
+    GroupScales gs;
 
     for (int t0 = k_begin; t0 < k_end; t0 += kTileRows) {
-      const int rows = min(kTileRows, k_end - t0);  // a multiple of 4
+      const int rows = min(kTileRows, k_end - t0);  // a multiple of 8
       __syncthreads();  // the previous tile (or item, or the rms sums) is done with smem
-      for (int i = tid; i < BT * kTileRows; i += kThreads) {
-        const int b = i / kTileRows, r = i % kTileRows;
+      const int r = tid;  // each thread stages one slot of every activation row
+      const int n = staged_row<Q4>(t0, r, p.g);
+#pragma unroll
+      for (int b = 0; b < BT; ++b) {
         float v = 0.f;
         if (r < rows && b < B) {
-          const int n = t0 + r;
           v = __ldcg(src + (long)b * N + n);
           if (prologue == kRms) v = v * inv[b] * norm_w[n];
           v = bf16_round(v);
@@ -204,39 +195,9 @@ __device__ __noinline__ void matvec(const Params& p, const MatPlan& mp, int laye
         xs[b * kTileRows + r] = v;
       }
       __syncthreads();
-      if (active) {
-        for (int rb = warp * kRowsPerBatch; rb < rows; rb += kWarps * kRowsPerBatch) {
-          const int n = t0 + rb;
-          uint4 c[kRowsPerBatch];
-#pragma unroll
-          for (int j = 0; j < kRowsPerBatch; ++j)
-            c[j] = __ldg(reinterpret_cast<const uint4*>(codes + (long)(n + j) * D + col0));
-          const int grp = n / p.g;  // g % 4 == 0: the 4 rows share a group
-          if (grp != cur_grp) {
-            const uint4* sp = reinterpret_cast<const uint4*>(scales + (long)grp * D + col0);
-            const uint4 s0 = __ldg(sp), s1 = __ldg(sp + 1);
-            const uint32_t sw[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
-#pragma unroll
-            for (int e = 0; e < 8; ++e) {
-              const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&sw[e]));
-              sf[2 * e] = f.x;
-              sf[2 * e + 1] = f.y;
-            }
-            cur_grp = grp;
-          }
-#pragma unroll
-          for (int j = 0; j < kRowsPerBatch; ++j) {
-            float w[kColsPerThread];
-            dequant16(c[j], sf, w);
-#pragma unroll
-            for (int b = 0; b < BT; ++b) {
-              const float xv = xs[b * kTileRows + rb + j];
-#pragma unroll
-              for (int e = 0; e < kColsPerThread; ++e) acc[b][e] = fmaf(xv, w[e], acc[b][e]);
-            }
-          }
-        }
-      }
+      if (active)
+        tile_dot<BT, Q4, Shared>(codes, scales, D, p.g, col0, Q4 ? t0 / 2 : t0, Q4 ? rows / 2 : rows,
+                         warp * kRowsPerBatch, kWarps * kRowsPerBatch, xs, kTileRows, gs, acc);
     }
 
     // Sum the 8 warps' partials per row in warp order; one partial per (split, row, column).
@@ -262,6 +223,20 @@ __device__ __noinline__ void matvec(const Params& p, const MatPlan& mp, int laye
         *reinterpret_cast<float2*>(p.part + ((long)ki * B + b) * D + col) = make_float2(s0, s1);
       }
     }
+  }
+}
+
+// A matmul phase on the plan's code format and group size (uniform over the grid).
+template <int BT>
+__device__ void matmul(const Params& p, const MatPlan& mp, int layer, int prologue, const float* src,
+                       const float* norm_w) {
+  const bool shared = rows_share_group(p.g, mp.q4 != 0);
+  if (mp.q4) {
+    if (shared) matvec<BT, true, true>(p, mp, layer, prologue, src, norm_w);
+    else matvec<BT, true, false>(p, mp, layer, prologue, src, norm_w);
+  } else {
+    if (shared) matvec<BT, false, true>(p, mp, layer, prologue, src, norm_w);
+    else matvec<BT, false, false>(p, mp, layer, prologue, src, norm_w);
   }
 }
 
@@ -334,30 +309,34 @@ __device__ __forceinline__ void load4(const int8_t* p, float* o) {
   o[0] = (float)v.x; o[1] = (float)v.y; o[2] = (float)v.z; o[3] = (float)v.w;
 }
 
-// Attention, first pass: one partial (m, l, acc) per (row b, kv head, 128-row chunk) over
-// the cache rows below min(pos, T); chunks at or past it are skipped and never read.  The
-// M = kv_mul query heads of a kv head share each row; registers hold kMaxM of them.
+// Attention, first pass: one partial (m, l, acc) per (row b, kv head, group of query heads,
+// 128-row chunk) over the cache rows below min(pos, T); chunks at or past it are skipped and
+// never read.  The kv_mul query heads of a kv head go in groups of up to kMaxM, which share
+// each row the item reads and which registers hold.
 template <typename TC>
 __device__ __noinline__ void attn_chunks(const Params& p, int layer) {
-  const int M = p.kv_mul;
+  const int KM = p.kv_mul;
+  const int groups = (KM + kMaxM - 1) / kMaxM;
   const int n_chunks = (p.T + kChunk - 1) / kChunk;
-  const int items = p.B * p.n_kv * n_chunks;
+  const int items = p.B * p.n_kv * groups * n_chunks;
   const long layer_rows = (long)p.B * p.n_kv * p.T;
   const TC* kc = reinterpret_cast<const TC*>(p.k_cache) + layer * layer_rows * kHd;
   const TC* vc = reinterpret_cast<const TC*>(p.v_cache) + layer * layer_rows * kHd;
   const float* ks = p.k_scale != nullptr ? p.k_scale + layer * layer_rows : nullptr;
   const float* vs = p.v_scale != nullptr ? p.v_scale + layer * layer_rows : nullptr;
   const float* qn = p.use_qk_norm ? p.q_norm + layer * kHd : nullptr;
-  float* sq = g_smem;                        // [M][128]
+  float* sq = g_smem;                        // [kMaxM][128]
   float* sm_m = sq + kMaxM * kHd;            // [kWarps][M]
   float* sm_l = sm_m + kWarps * kMaxM;       // [kWarps][M]
   float* sm_acc = sm_l + kWarps * kMaxM;     // [kWarps][M][128]
   float* part_ml = p.att;
-  float* part_acc = p.att + (long)p.B * p.n_kv * n_chunks * M * 2;
+  float* part_acc = p.att + (long)p.B * p.n_kv * n_chunks * KM * 2;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   for (int it = blockIdx.x; it < items; it += gridDim.x) {
-    const int chunk = it % n_chunks, bh = it / n_chunks;
+    const int chunk = it % n_chunks, rest = it / n_chunks;
+    const int bh = rest / groups, m0 = (rest % groups) * kMaxM;
+    const int M = min(kMaxM, KM - m0);  // this item's query heads: m0 .. m0 + M - 1
     const int b = bh / p.n_kv, h = bh % p.n_kv;
     const int pb = min(max(p.pos[b], 0), p.T);
     const int t0 = chunk * kChunk;
@@ -365,7 +344,7 @@ __device__ __noinline__ void attn_chunks(const Params& p, int layer) {
     const int t1 = min(pb, t0 + kChunk);
     __syncthreads();  // the previous item is done with smem
     for (int m = warp; m < M; m += kWarps)
-      head_vector(p, b, (h * M + m) * kHd, qn, true, p.scale, sq + m * kHd);
+      head_vector(p, b, (h * KM + m0 + m) * kHd, qn, true, p.scale, sq + m * kHd);
     __syncthreads();
 
     float qr[kMaxM][4], mrun[kMaxM], lrun[kMaxM], acc[kMaxM][4];
@@ -440,7 +419,7 @@ __device__ __noinline__ void attn_chunks(const Params& p, int layer) {
     }
     __syncthreads();
     if (tid < kHd) {
-      const long slot = ((long)bh * n_chunks + chunk) * M;
+      const long slot = ((long)bh * n_chunks + chunk) * KM + m0;
       for (int m = 0; m < M; ++m) {
         float mm = -INFINITY;
         for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, sm_m[w * kMaxM + m]);
@@ -474,57 +453,62 @@ __device__ void store_row_int8(int8_t* dst, float* scale_dst, const float* v) {
   if (lane == 0) *scale_dst = sc;
 }
 
-// Attention, second pass, per (row b, kv head): the self key seeds the softmax (m = q.k_self,
-// l = 1, acc = v_self), the chunks below pos merge in order; then the step's K/V row.
+// Attention, second pass, per (row b, kv head): for each group of up to kMaxM query heads, the
+// self key seeds the softmax (m = q.k_self, l = 1, acc = v_self) and the chunks below pos merge
+// in order; then the step's K/V row.
 __device__ __noinline__ void attn_merge(const Params& p, int layer) {
-  const int M = p.kv_mul;
+  const int KM = p.kv_mul;
   const int n_chunks = (p.T + kChunk - 1) / kChunk;
   const int items = p.B * p.n_kv;
   const float* part_ml = p.att;
-  const float* part_acc = p.att + (long)p.B * p.n_kv * n_chunks * M * 2;
+  const float* part_acc = p.att + (long)p.B * p.n_kv * n_chunks * KM * 2;
   const float* qn = p.use_qk_norm ? p.q_norm + layer * kHd : nullptr;
   const float* kn = p.use_qk_norm ? p.k_norm + layer * kHd : nullptr;
-  float* vec = g_smem;                  // [M + 2][128]: q heads, k, v
-  float* sself = vec + (M + 2) * kHd;   // [M]
+  float* vec = g_smem;                      // [kMaxM][128]: a group's q heads
+  float* kv = vec + kMaxM * kHd;            // [2][128]: the step's k, v
+  float* sself = kv + 2 * kHd;              // [kMaxM]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   for (int it = blockIdx.x; it < items; it += gridDim.x) {
     const int b = it / p.n_kv, h = it % p.n_kv;
-    __syncthreads();
-    for (int vi = warp; vi < M + 2; vi += kWarps) {
-      if (vi < M)
-        head_vector(p, b, (h * M + vi) * kHd, qn, true, p.scale, vec + vi * kHd);
-      else if (vi == M)
-        head_vector(p, b, p.ah + h * kHd, kn, true, 1.f, vec + M * kHd);
-      else
-        head_vector(p, b, p.ah + p.kvd + h * kHd, nullptr, false, 1.f, vec + (M + 1) * kHd);
-    }
-    __syncthreads();
-    if (warp < M) {
-      float s = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        s = fmaf(vec[warp * kHd + lane + 32 * j], vec[M * kHd + lane + 32 * j], s);
-      s = warp_sum(s);
-      if (lane == 0) sself[warp] = s;
-    }
-    __syncthreads();
     const int pb = min(max(p.pos[b], 0), p.T);
     const int active = (pb + kChunk - 1) / kChunk;
-    if (tid < kHd) {
-      const float vd = vec[(M + 1) * kHd + tid];
-      for (int m = 0; m < M; ++m) {
-        float mcur = sself[m], l = 1.f, a = vd;
-        for (int j = 0; j < active; ++j) {
-          const long slot = ((long)it * n_chunks + j) * M + m;
-          const float mj = __ldcg(part_ml + slot * 2), lj = __ldcg(part_ml + slot * 2 + 1);
-          const float m_new = fmaxf(mcur, mj);
-          const float ca = expf(mcur - m_new), cj = expf(mj - m_new);
-          l = l * ca + lj * cj;
-          a = a * ca + __ldcg(part_acc + slot * kHd + tid) * cj;
-          mcur = m_new;
+    for (int m0 = 0; m0 < KM; m0 += kMaxM) {
+      const int M = min(kMaxM, KM - m0);
+      __syncthreads();  // the previous group (or item) is done with vec, kv and sself
+      // The group's q heads, and with the first group the step's k and v, in one pass.
+      for (int vi = warp; vi < M + (m0 == 0 ? 2 : 0); vi += kWarps) {
+        if (vi < M)
+          head_vector(p, b, (h * KM + m0 + vi) * kHd, qn, true, p.scale, vec + vi * kHd);
+        else if (vi == M)
+          head_vector(p, b, p.ah + h * kHd, kn, true, 1.f, kv);
+        else
+          head_vector(p, b, p.ah + p.kvd + h * kHd, nullptr, false, 1.f, kv + kHd);
+      }
+      __syncthreads();
+      if (warp < M) {
+        float s = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s = fmaf(vec[warp * kHd + lane + 32 * j], kv[lane + 32 * j], s);
+        s = warp_sum(s);
+        if (lane == 0) sself[warp] = s;
+      }
+      __syncthreads();
+      if (tid < kHd) {
+        const float vd = kv[kHd + tid];
+        for (int m = 0; m < M; ++m) {
+          float mcur = sself[m], l = 1.f, a = vd;
+          for (int j = 0; j < active; ++j) {
+            const long slot = ((long)it * n_chunks + j) * KM + m0 + m;
+            const float mj = __ldcg(part_ml + slot * 2), lj = __ldcg(part_ml + slot * 2 + 1);
+            const float m_new = fmaxf(mcur, mj);
+            const float ca = expf(mcur - m_new), cj = expf(mj - m_new);
+            l = l * ca + lj * cj;
+            a = a * ca + __ldcg(part_acc + slot * kHd + tid) * cj;
+            mcur = m_new;
+          }
+          p.act[(long)b * p.ah + (h * KM + m0 + m) * kHd + tid] = a / l;
         }
-        p.act[(long)b * p.ah + (h * M + m) * kHd + tid] = a / l;
       }
     }
     // The step's K/V row, in place; every read of this layer's cache ended at the barrier.
@@ -533,18 +517,17 @@ __device__ __noinline__ void attn_merge(const Params& p, int layer) {
       const long r = (((long)layer * p.B + b) * p.n_kv + h) * p.T + row;
       if (p.cache_type == 2) {
         if (warp == 0)
-          store_row_int8(reinterpret_cast<int8_t*>(p.k_cache) + r * kHd, p.k_scale + r, vec + M * kHd);
+          store_row_int8(reinterpret_cast<int8_t*>(p.k_cache) + r * kHd, p.k_scale + r, kv);
         else if (warp == 1)
-          store_row_int8(reinterpret_cast<int8_t*>(p.v_cache) + r * kHd, p.v_scale + r,
-                         vec + (M + 1) * kHd);
+          store_row_int8(reinterpret_cast<int8_t*>(p.v_cache) + r * kHd, p.v_scale + r, kv + kHd);
       } else if (tid < kHd && p.cache_type == 1) {
         __nv_bfloat16* kc = reinterpret_cast<__nv_bfloat16*>(p.k_cache);
         __nv_bfloat16* vc = reinterpret_cast<__nv_bfloat16*>(p.v_cache);
-        kc[r * kHd + tid] = __float2bfloat16_rn(vec[M * kHd + tid]);
-        vc[r * kHd + tid] = __float2bfloat16_rn(vec[(M + 1) * kHd + tid]);
+        kc[r * kHd + tid] = __float2bfloat16_rn(kv[tid]);
+        vc[r * kHd + tid] = __float2bfloat16_rn(kv[kHd + tid]);
       } else if (tid < kHd) {
-        reinterpret_cast<float*>(p.k_cache)[r * kHd + tid] = vec[M * kHd + tid];
-        reinterpret_cast<float*>(p.v_cache)[r * kHd + tid] = vec[(M + 1) * kHd + tid];
+        reinterpret_cast<float*>(p.k_cache)[r * kHd + tid] = kv[tid];
+        reinterpret_cast<float*>(p.v_cache)[r * kHd + tid] = kv[kHd + tid];
       }
     }
   }
@@ -615,27 +598,27 @@ __global__ void __launch_bounds__(kThreads, 1) decode_megakernel_kernel(const __
   const int dim = p.dim;
   for (int l = 0; l < p.L; ++l) {
     const float* x = l == 0 ? p.x_in : p.x_out;
-    matvec<BT>(p, p.mat[0], l, kRms, x, p.rms_att + (long)l * dim);  // wqkv
+    matmul<BT>(p, p.mat[0], l, kRms, x, p.rms_att + (long)l * dim);  // wqkv
     grid.sync();
     attention_chunks(p, l);
     grid.sync();
     attn_merge(p, l);
     grid.sync();
-    matvec<BT>(p, p.mat[1], l, kNone, p.act, nullptr);  // wo
+    matmul<BT>(p, p.mat[1], l, kNone, p.act, nullptr);  // wo
     grid.sync();
     residual_add(p, p.mat[1], x, p.x_out);
     grid.sync();
-    matvec<BT>(p, p.mat[2], l, kRms, p.x_out, p.rms_ffn + (long)l * dim);  // w13
+    matmul<BT>(p, p.mat[2], l, kRms, p.x_out, p.rms_ffn + (long)l * dim);  // w13
     grid.sync();
     swiglu(p);
     grid.sync();
-    matvec<BT>(p, p.mat[3], l, kNone, p.act, nullptr);  // w2
+    matmul<BT>(p, p.mat[3], l, kNone, p.act, nullptr);  // w2
     grid.sync();
     residual_add(p, p.mat[3], p.x_out, p.x_out);
     grid.sync();
   }
   if (!p.has_head) return;
-  matvec<BT>(p, p.mat[4], 0, kRms, p.x_out, p.rms_final);
+  matmul<BT>(p, p.mat[4], 0, kRms, p.x_out, p.rms_final);  // the classifier: INT8
   grid.sync();
   head_reduce(p);
   if (!p.greedy) return;

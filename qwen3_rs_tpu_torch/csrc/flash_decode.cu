@@ -11,9 +11,11 @@
 // Bound on the H100: bytes.  Every valid cache row is read once (2 * pos * hd elements per
 // kv head), against ~4 flops per element.
 // Design against that bound:
-//  * one block per (batch row, kv head, 128-row chunk of the cache): the kv head's kv_mul
-//    query heads share every K/V row the block reads, and split-KV gives the card enough
-//    blocks at B = 1 (8 kv heads alone would fill 8 of 132 SMs);
+//  * one block per (batch row, kv head, 128-row chunk of the cache, group of query heads): a
+//    group's M query heads share every K/V row the block reads, and split-KV gives the card
+//    enough blocks at B = 1 (8 kv heads alone would fill 8 of 132 SMs).  M is the largest
+//    power of two up to 8 that divides kv_mul, so any kv_mul works (3 or 5 read each row 3 or
+//    5 times, once per group);
 //  * blocks whose chunk starts at or past pos[b] return at once, and no row >= pos[b] is read;
 //  * a warp reads one 128-wide row per load (lane = 4 consecutive elements: 16 B in f32),
 //    and keeps 8 rows of K and V in flight before it computes on them;
@@ -57,23 +59,25 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Pass 1: one partial (m, l, acc) per (batch row, kv head, chunk) with rows below pos[b].
-// k/v: layer base of [B, n_kv, t_max, hd]; ks/vs: layer base of [B, n_kv, t_max] or null.
-// part_ml: [B * n_kv, n_chunks, M, 2]; part_acc: [B * n_kv, n_chunks, M, hd].
+// Pass 1: one partial (m, l, acc) per (batch row, kv head, chunk, query head) with rows below
+// pos[b], for the M query heads of group blockIdx.z.  k/v: layer base of [B, n_kv, t_max, hd];
+// ks/vs: layer base of [B, n_kv, t_max] or null.  part_ml: [B * n_kv, n_chunks, kv_mul, 2];
+// part_acc: [B * n_kv, n_chunks, kv_mul, hd].
 template <typename T, int M>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_decode_partial_kernel(const float* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v, const float* __restrict__ ks,
                             const float* __restrict__ vs, const int* __restrict__ pos,
-                            int n_kv, int t_max, float scale, float* __restrict__ part_ml,
-                            float* __restrict__ part_acc) {
+                            int n_kv, int kv_mul, int t_max, float scale,
+                            float* __restrict__ part_ml, float* __restrict__ part_acc) {
   __shared__ float sm_m[kWarps][M];
   __shared__ float sm_l[kWarps][M];
   __shared__ __align__(16) float sm_acc[kWarps][M][kHd];
 
   const int bh = blockIdx.y;  // b * n_kv + kv head
-  const int b = bh / n_kv, h = bh % n_kv;
+  const int b = bh / n_kv;
   const int chunk = blockIdx.x, n_chunks = gridDim.x;
+  const long head0 = (long)bh * kv_mul + blockIdx.z * M;  // the group's first query head
   const int p = min(max(pos[b], 0), t_max);  // a pos past the cache reads no row past it
   const int t0 = chunk * kChunk;
   if (t0 >= p) return;
@@ -83,7 +87,7 @@ flash_decode_partial_kernel(const float* __restrict__ q, const T* __restrict__ k
   float qr[M][4];
 #pragma unroll
   for (int m = 0; m < M; ++m) {
-    load4(q + ((long)b * n_kv * M + h * M + m) * kHd + lane * 4, qr[m]);
+    load4(q + (head0 + m) * kHd + lane * 4, qr[m]);
 #pragma unroll
     for (int i = 0; i < 4; ++i) qr[m][i] *= scale;
   }
@@ -159,7 +163,7 @@ flash_decode_partial_kernel(const float* __restrict__ q, const T* __restrict__ k
   }
   __syncthreads();
   const int d = threadIdx.x;  // kHd == blockDim.x
-  const long slot = ((long)bh * n_chunks + chunk) * M;
+  const long slot = ((long)bh * n_chunks + chunk) * kv_mul + blockIdx.z * M;
 #pragma unroll
   for (int m = 0; m < M; ++m) {
     float mm = -INFINITY;
@@ -180,22 +184,25 @@ flash_decode_partial_kernel(const float* __restrict__ q, const T* __restrict__ k
   }
 }
 
-// Pass 2: seed with the self key and merge the chunks below pos[b] in order.
-// q: [B, n_kv * M, hd]; k_new/v_new: [B, n_kv, hd]; out: [B, n_kv * M, hd].
+// Pass 2: seed with the self key and merge the chunks below pos[b] in order, for the M query
+// heads of group blockIdx.y.  q: [B, n_kv * kv_mul, hd]; k_new/v_new: [B, n_kv, hd]; out like q.
 template <int M>
 __global__ void __launch_bounds__(kHd)
 flash_decode_merge_kernel(const float* __restrict__ q, const float* __restrict__ k_new,
                           const float* __restrict__ v_new, const int* __restrict__ pos,
-                          int n_kv, int n_chunks, float scale, const float* __restrict__ part_ml,
-                          const float* __restrict__ part_acc, float* __restrict__ out) {
+                          int n_kv, int kv_mul, int n_chunks, float scale,
+                          const float* __restrict__ part_ml, const float* __restrict__ part_acc,
+                          float* __restrict__ out) {
   __shared__ float red[kHd / 32][M];
   const int bh = blockIdx.x;
-  const int b = bh / n_kv, h = bh % n_kv;
+  const int b = bh / n_kv;
+  const int m0 = blockIdx.y * M;
+  const long head0 = (long)bh * kv_mul + m0;
   const int d = threadIdx.x, lane = d & 31, warp = d >> 5;
   const float kd = k_new[(long)bh * kHd + d];
 #pragma unroll
   for (int m = 0; m < M; ++m) {
-    const float s = warp_sum(q[((long)b * n_kv * M + h * M + m) * kHd + d] * scale * kd);
+    const float s = warp_sum(q[(head0 + m) * kHd + d] * scale * kd);
     if (lane == 0) red[warp][m] = s;
   }
   __syncthreads();
@@ -208,7 +215,7 @@ flash_decode_merge_kernel(const float* __restrict__ q, const float* __restrict__
     for (int w = 0; w < kHd / 32; ++w) mcur += red[w][m];
     float l = 1.f, a = vd;
     for (int j = 0; j < active; ++j) {
-      const long slot = ((long)bh * n_chunks + j) * M + m;
+      const long slot = ((long)bh * n_chunks + j) * kv_mul + m0 + m;
       const float mj = part_ml[slot * 2], lj = part_ml[slot * 2 + 1];
       const float m_new = fmaxf(mcur, mj);
       const float ca = expf(mcur - m_new), cj = expf(mj - m_new);
@@ -216,37 +223,39 @@ flash_decode_merge_kernel(const float* __restrict__ q, const float* __restrict__
       a = a * ca + part_acc[slot * kHd + d] * cj;
       mcur = m_new;
     }
-    out[((long)b * n_kv * M + h * M + m) * kHd + d] = a / l;
+    out[(head0 + m) * kHd + d] = a / l;
   }
 }
 
 template <typename T, int M>
 void launch(const void* q, const void* k_new, const void* v_new, const void* k,
             const void* v, const void* ks, const void* vs, const int* pos, int B, int n_kv,
-            int t_max, float scale, float* part_ml, float* part_acc, float* out,
+            int kv_mul, int t_max, float scale, float* part_ml, float* part_acc, float* out,
             cudaStream_t s) {
   const int n_chunks = (t_max + kChunk - 1) / kChunk;
-  flash_decode_partial_kernel<T, M><<<dim3(n_chunks, B * n_kv), kWarps * 32, 0, s>>>(
+  const int groups = kv_mul / M;
+  flash_decode_partial_kernel<T, M><<<dim3(n_chunks, B * n_kv, groups), kWarps * 32, 0, s>>>(
       reinterpret_cast<const float*>(q), reinterpret_cast<const T*>(k),
       reinterpret_cast<const T*>(v), reinterpret_cast<const float*>(ks),
-      reinterpret_cast<const float*>(vs), pos, n_kv, t_max, scale, part_ml, part_acc);
-  flash_decode_merge_kernel<M><<<B * n_kv, kHd, 0, s>>>(
+      reinterpret_cast<const float*>(vs), pos, n_kv, kv_mul, t_max, scale, part_ml, part_acc);
+  flash_decode_merge_kernel<M><<<dim3(B * n_kv, groups), kHd, 0, s>>>(
       reinterpret_cast<const float*>(q), reinterpret_cast<const float*>(k_new),
-      reinterpret_cast<const float*>(v_new), pos, n_kv, n_chunks, scale, part_ml, part_acc,
-      out);
+      reinterpret_cast<const float*>(v_new), pos, n_kv, kv_mul, n_chunks, scale, part_ml,
+      part_acc, out);
 }
 
+// Launches with M, the largest power of two up to 8 that divides kv_mul.
 template <typename T>
 int dispatch_m(int kv_mul, const void* q, const void* k_new, const void* v_new, const void* k,
                const void* v, const void* ks, const void* vs, const int* pos, int B, int n_kv,
                int t_max, float scale, float* part_ml, float* part_acc, float* out,
                cudaStream_t s) {
-  switch (kv_mul) {
-    case 1: launch<T, 1>(q, k_new, v_new, k, v, ks, vs, pos, B, n_kv, t_max, scale, part_ml, part_acc, out, s); break;
-    case 2: launch<T, 2>(q, k_new, v_new, k, v, ks, vs, pos, B, n_kv, t_max, scale, part_ml, part_acc, out, s); break;
-    case 4: launch<T, 4>(q, k_new, v_new, k, v, ks, vs, pos, B, n_kv, t_max, scale, part_ml, part_acc, out, s); break;
-    case 8: launch<T, 8>(q, k_new, v_new, k, v, ks, vs, pos, B, n_kv, t_max, scale, part_ml, part_acc, out, s); break;
-    default: return (int)cudaErrorInvalidValue;
+  if (kv_mul < 1) return (int)cudaErrorInvalidValue;
+  switch ((kv_mul & -kv_mul) < 8 ? (kv_mul & -kv_mul) : 8) {
+    case 1: launch<T, 1>(q, k_new, v_new, k, v, ks, vs, pos, B, n_kv, kv_mul, t_max, scale, part_ml, part_acc, out, s); break;
+    case 2: launch<T, 2>(q, k_new, v_new, k, v, ks, vs, pos, B, n_kv, kv_mul, t_max, scale, part_ml, part_acc, out, s); break;
+    case 4: launch<T, 4>(q, k_new, v_new, k, v, ks, vs, pos, B, n_kv, kv_mul, t_max, scale, part_ml, part_acc, out, s); break;
+    default: launch<T, 8>(q, k_new, v_new, k, v, ks, vs, pos, B, n_kv, kv_mul, t_max, scale, part_ml, part_acc, out, s); break;
   }
   return 0;
 }

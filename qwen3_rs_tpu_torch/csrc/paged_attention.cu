@@ -26,7 +26,8 @@
 //  * pass 1, one block per (128-row chunk of the cache, request and kv head, tile of Q query
 //    rows): the tile's rows share every K/V row the block reads, and the split over chunks gives
 //    the card enough blocks at B = 8 (64 (request, kv head) pairs alone would fill 64 SMs).
-//    Decode takes Q = kv_mul (one tile); a window takes Q = 8, so the per-row state stays in
+//    Decode takes Q = the largest power of two up to 8 that divides kv_mul (so any kv_mul
+//    works, in kv_mul / Q tiles); a window takes Q = 8, so the per-row state stays in
 //    registers;
 //  * a block reads the page ids of its own rows from the table, per row, so any page size works
 //    and a chunk may span pages;
@@ -217,21 +218,23 @@ paged_partial_kernel(const float* __restrict__ q, const T* __restrict__ k,
 }
 
 // Decode pass 2: seed with the self key and merge the chunks below pos[b] in order, one block per
-// (request, kv head).  q: [B, n_kv * M, hd]; k_new/v_new: [B, n_kv, hd]; out: [B, n_kv * M, hd].
+// (request and kv head, tile of M query heads).  q: [B, n_kv * R, hd] (R = kv_mul);
+// k_new/v_new: [B, n_kv, hd]; out like q.
 template <int M>
 __global__ void __launch_bounds__(kHd)
 decode_merge_kernel(const float* __restrict__ q, const float* __restrict__ k_new,
-                    const float* __restrict__ v_new, const int* __restrict__ pos, int n_kv,
+                    const float* __restrict__ v_new, const int* __restrict__ pos, int n_kv, int R,
                     int n_chunks, float scale, const float* __restrict__ part_ml,
                     const float* __restrict__ part_acc, float* __restrict__ out) {
   __shared__ float red[kHd / 32][M];
   const int bh = blockIdx.x;
   const int b = bh / n_kv;
+  const int r0 = blockIdx.y * M;
   const int d = threadIdx.x, lane = d & 31, warp = d >> 5;
   const float kd = k_new[(long)bh * kHd + d];
 #pragma unroll
   for (int m = 0; m < M; ++m) {
-    const float s = warp_sum(q[((long)bh * M + m) * kHd + d] * scale * kd);
+    const float s = warp_sum(q[((long)bh * R + r0 + m) * kHd + d] * scale * kd);
     if (lane == 0) red[warp][m] = s;
   }
   __syncthreads();
@@ -244,7 +247,7 @@ decode_merge_kernel(const float* __restrict__ q, const float* __restrict__ k_new
     for (int w = 0; w < kHd / 32; ++w) mcur += red[w][m];
     float l = 1.f, a = vd;
     for (int j = 0; j < active; ++j) {
-      const long slot = ((long)bh * n_chunks + j) * M + m;
+      const long slot = ((long)bh * n_chunks + j) * R + r0 + m;
       const float mj = part_ml[slot * 2], lj = part_ml[slot * 2 + 1];
       const float m_new = fmaxf(mcur, mj);
       const float ca = expf(mcur - m_new), cj = expf(mj - m_new);
@@ -252,7 +255,7 @@ decode_merge_kernel(const float* __restrict__ q, const float* __restrict__ k_new
       a = a * ca + part_acc[slot * kHd + d] * cj;
       mcur = m_new;
     }
-    out[((long)bh * M + m) * kHd + d] = a / l;
+    out[((long)bh * R + r0 + m) * kHd + d] = a / l;
   }
 }
 
@@ -306,23 +309,23 @@ void launch_partials(const Pool& p, const float* q, int R, float scale, cudaStre
 }
 
 template <typename T, int M>
-void launch_decode(const Pool& p, const float* q, const float* k_new, const float* v_new,
-                   float scale, float* out, cudaStream_t s) {
-  launch_partials<T, M>(p, q, M, scale, s);
-  decode_merge_kernel<M><<<p.B * p.n_kv, kHd, 0, s>>>(q, k_new, v_new, p.pos, p.n_kv,
-                                                      p.n_chunks(), scale, p.part_ml,
-                                                      p.part_acc, out);
+void launch_decode(const Pool& p, const float* q, int kv_mul, const float* k_new,
+                   const float* v_new, float scale, float* out, cudaStream_t s) {
+  launch_partials<T, M>(p, q, kv_mul, scale, s);
+  decode_merge_kernel<M><<<dim3(p.B * p.n_kv, kv_mul / M), kHd, 0, s>>>(
+      q, k_new, v_new, p.pos, p.n_kv, kv_mul, p.n_chunks(), scale, p.part_ml, p.part_acc, out);
 }
 
+// Launches with M, the largest power of two up to 8 that divides kv_mul.
 template <typename T>
 int decode_for(int kv_mul, const Pool& p, const float* q, const float* k_new,
                const float* v_new, float scale, float* out, cudaStream_t s) {
-  switch (kv_mul) {
-    case 1: launch_decode<T, 1>(p, q, k_new, v_new, scale, out, s); break;
-    case 2: launch_decode<T, 2>(p, q, k_new, v_new, scale, out, s); break;
-    case 4: launch_decode<T, 4>(p, q, k_new, v_new, scale, out, s); break;
-    case 8: launch_decode<T, 8>(p, q, k_new, v_new, scale, out, s); break;
-    default: return (int)cudaErrorInvalidValue;
+  if (kv_mul < 1) return (int)cudaErrorInvalidValue;
+  switch ((kv_mul & -kv_mul) < 8 ? (kv_mul & -kv_mul) : 8) {
+    case 1: launch_decode<T, 1>(p, q, kv_mul, k_new, v_new, scale, out, s); break;
+    case 2: launch_decode<T, 2>(p, q, kv_mul, k_new, v_new, scale, out, s); break;
+    case 4: launch_decode<T, 4>(p, q, kv_mul, k_new, v_new, scale, out, s); break;
+    default: launch_decode<T, 8>(p, q, kv_mul, k_new, v_new, scale, out, s); break;
   }
   return 0;
 }

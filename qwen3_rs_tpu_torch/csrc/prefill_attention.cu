@@ -16,9 +16,10 @@
 // Bound on the H100: 4 * (S(S+1)/2) * 128 operations per query head (Q.K^T and P.V over the
 // causal triangle) at 989 TFLOP/s bf16; the bytes (q, k, v and out, each once) are far fewer.
 // Design (a flash-attention forward):
-//  * one block per (query tile, kv head, batch row) holds all kv_mul query heads of its kv head,
-//    128 query rows in all (128 / kv_mul rows per head), so each K/V tile read from device memory
-//    serves the kv_mul heads; 8 warps of 16 query rows each;
+//  * one block per (query tile, kv head and group of M query heads, batch row) holds the M
+//    heads, 128 query rows in all (128 / M rows per head), so each K/V tile read from device
+//    memory serves the M heads; 8 warps of 16 query rows each.  M is the largest power of two
+//    up to 8 that divides kv_mul, so any kv_mul works (3 or 5 read each tile 3 or 5 times);
 //  * K/V tiles of 64 rows in shared memory (rows padded to 272 bytes: ldmatrix without bank
 //    conflicts), mma.sync m16n8k16 for Q.K^T and for P.V, the score tile and the output
 //    accumulator in registers;
@@ -81,17 +82,18 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint3
 __global__ void __launch_bounds__(kThreads, 1)
 prefill_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                         int S, int H, int KV, int kv_mul, float q_scale) {
+                         int S, int H, int KV, int kv_mul, int M, float q_scale) {
   __shared__ __align__(16) __nv_bfloat16 Ks[BKV * KV_STRIDE];
   __shared__ __align__(16) __nv_bfloat16 Vs[BKV * KV_STRIDE];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int bq = kRows / kv_mul;  // query rows per head in this block
+  const int bq = kRows / M;  // query rows per head in this block
   const int n_qt = (S + bq - 1) / bq;
   const int q0 = (n_qt - 1 - (int)blockIdx.x) * bq;  // longest tiles first
-  const int kvh = blockIdx.y, b = blockIdx.z;
-  const int warps_per_head = kWarps / kv_mul;
-  const int h = kvh * kv_mul + warp / warps_per_head;
+  const int groups = kv_mul / M;
+  const int kvh = blockIdx.y / groups, b = blockIdx.z;
+  const int warps_per_head = kWarps / M;
+  const int h = kvh * kv_mul + (blockIdx.y % groups) * M + warp / warps_per_head;
   const int r0 = q0 + (warp % warps_per_head) * 16;  // this warp's first query row
   const int row_a = r0 + (lane >> 2), row_b = row_a + 8;  // this thread's two rows
 
@@ -246,16 +248,18 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
 }  // namespace
 
 // Plain C entry point.  q [B, S, H, 128], k/v [B, S, KV, 128] and out [B, S, H, 128] are
-// contiguous bf16 device pointers; kv_mul = H / KV is 1, 2, 4 or 8; q_scale is bf16(1/sqrt(128))
-// as a float.  Returns cudaGetLastError().
+// contiguous bf16 device pointers; KV divides H; q_scale is bf16(1/sqrt(128)) as a float.
+// Returns cudaGetLastError().
 extern "C" int causal_prefill_attention(const void* q, const void* k, const void* v, void* out,
                                         int B, int S, int H, int KV, float q_scale, void* stream) {
+  if (KV < 1 || H % KV) return (int)cudaErrorInvalidValue;
   const int kv_mul = H / KV;
-  const int bq = kRows / kv_mul;
-  const dim3 grid((S + bq - 1) / bq, KV, B);
+  const int M = (kv_mul & -kv_mul) < 8 ? (kv_mul & -kv_mul) : 8;  // query heads per block
+  const int bq = kRows / M;
+  const dim3 grid((S + bq - 1) / bq, KV * (kv_mul / M), B);
   prefill_attention_kernel<<<grid, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const __nv_bfloat16*>(q), reinterpret_cast<const __nv_bfloat16*>(k),
       reinterpret_cast<const __nv_bfloat16*>(v), reinterpret_cast<__nv_bfloat16*>(out), S, H, KV,
-      kv_mul, q_scale);
+      kv_mul, M, q_scale);
   return (int)cudaGetLastError();
 }

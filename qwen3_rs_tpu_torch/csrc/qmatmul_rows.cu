@@ -24,8 +24,8 @@
 //    conflicts.  wgmma, TMA and a deeper pipeline are later work.
 // INT4: a k-tile is 32 packed rows, i.e. 64 in-rows: shared row r < 32 holds the low nibbles of
 // packed row p0 + r, row r >= 32 the high nibbles of packed row p0 + r - 32.  The product does
-// not depend on the order of k, so the x tile is gathered in the same order (8-row runs: the
-// wrapper guarantees g % 16 == 0), and the mma.sync body is the INT8 kernel's.  Each weight is
+// not depend on the order of k, so the x tile is gathered in the same order (8-row runs where
+// g % 16 == 0, else row by row: any even g), and the mma.sync body is the INT8 kernel's.  Each weight is
 // bf16((nibble - 8) * bf16(scale)), as the Pallas "int" unpack.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -115,8 +115,17 @@ qmatmul_rows_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restric
     for (int i = 0; i < 4; ++i) {
       const int id = tid + i * kThreads, r = id >> 3, ch = id & 7;
       const int row = m0 + r;
-      const int k = Q4 ? q4_in_row(k0 / 2, ch * 8, h) : k0 + ch * 8;
-      a_reg[i] = row < M ? *reinterpret_cast<const uint4*>(x + (long)row * N + k) : zero;
+      if (!Q4 || h % 8 == 0) {  // the 8 columns are 8 adjacent in-rows
+        const int k = Q4 ? q4_in_row(k0 / 2, ch * 8, h) : k0 + ch * 8;
+        a_reg[i] = row < M ? *reinterpret_cast<const uint4*>(x + (long)row * N + k) : zero;
+      } else {  // a group boundary may fall inside them: gather one by one
+        __align__(16) __nv_bfloat16 e[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          e[j] = row < M ? x[(long)row * N + q4_in_row(k0 / 2, ch * 8 + j, h)]
+                         : __float2bfloat16_rn(0.f);
+        a_reg[i] = *reinterpret_cast<const uint4*>(e);
+      }
     }
 #pragma unroll
     for (int i = 0; i < kCodeLoads; ++i) {
@@ -226,7 +235,7 @@ qmatmul_rows_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restric
 
 // Plain C entry point.  x [M, N] bf16, codes [N, D] int8 (q4: [N/2, D] packed) and scales
 // [N/g, D] bf16 are device pointers (codes/scales already offset to the layer); out [M, D] f32.
-// The wrapper guarantees N % 64 == 0, D % 16 == 0, 16-byte alignment and, for q4, g % 16 == 0.
+// The wrapper guarantees N % 64 == 0, D % 16 == 0, 16-byte alignment and, for q4, an even g.
 // Returns cudaGetLastError().
 extern "C" int qmatmul_w8a16_rows(const void* x, const void* codes, const void* scales, void* out,
                                   int M, int N, int D, int g, int q4, void* stream) {

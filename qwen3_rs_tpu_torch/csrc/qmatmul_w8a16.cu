@@ -34,11 +34,14 @@
 //    without holding B x 16 accumulators per thread; tensor cores are left for a later version.
 // INT4: the bound halves (N*D/2 code bytes).  A 16-byte load along D holds 16 columns of two
 // in-rows, j and j + g/2 of one group; the thread dequantizes the low nibbles, accumulates them
-// against activation row j, then the high nibbles against row j + g/2.  Splits and staged tiles
-// cover whole groups (g divides 256 and the split length), so both rows are always staged.
+// against activation row j, then the high nibbles against row j + g/2.  The tile stages its
+// activation rows in packed order (staged_row), so any even group size works, 512 included.
+// Any group size: a thread reloads its scales where a code row leaves their group.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "w8a16_dequant.cuh"
 
 namespace {
 
@@ -46,8 +49,8 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kColsPerThread = 16;
 constexpr int kBlockCols = 32 * kColsPerThread;  // 512 output columns per block
-constexpr int kRowsPerBatch = 4;                 // code rows in flight per thread
-constexpr int kTileRows = 256;                   // activation rows staged per pass
+constexpr int kRowsPerBatch = kCodeRowsInFlight;  // code rows in flight per thread
+constexpr int kTileRows = kThreads;              // activation rows staged per pass
 
 enum Prologue { kNone = 0, kRms = 1, kSwiglu = 2 };
 
@@ -56,68 +59,7 @@ __device__ __forceinline__ float load_act(const void* p, int is_bf16, long i) {
                  : reinterpret_cast<const float*>(p)[i];
 }
 
-// Byte k of `biased` (an int8 code xor 0x80, i.e. code + 128) as the float code, exactly:
-// 0x4B0000xx is 2^23 + xx, so subtracting 2^23 + 128 leaves the signed code.
-template <int K>
-__device__ __forceinline__ float code_at(uint32_t biased) {
-  return __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7650 | K)) - 8388736.0f;
-}
-
-// Byte k of `nibbles` (a biased INT4 code, code + 8, in 0..15) as the float code, exactly.
-template <int K>
-__device__ __forceinline__ float q4_code_at(uint32_t nibbles) {
-  return __uint_as_float(__byte_perm(nibbles, 0x4B000000u, 0x7650 | K)) - 8388616.0f;
-}
-
-// 16 codes of one row times their bf16 scales, each product rounded to bf16, as f32.  `biased`
-// holds 16 int8 codes xor 0x80 (Q4 = false) or 16 biased INT4 codes, one per byte (Q4 = true).
-template <bool Q4>
-__device__ __forceinline__ void dequant16(const uint4& biased, const float* sf, float* w) {
-  const uint32_t words[4] = {biased.x, biased.y, biased.z, biased.w};
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    float c0, c1, c2, c3;
-    if constexpr (Q4) {
-      c0 = q4_code_at<0>(words[q]), c1 = q4_code_at<1>(words[q]);
-      c2 = q4_code_at<2>(words[q]), c3 = q4_code_at<3>(words[q]);
-    } else {
-      c0 = code_at<0>(words[q]), c1 = code_at<1>(words[q]);
-      c2 = code_at<2>(words[q]), c3 = code_at<3>(words[q]);
-    }
-    const float2 lo = __bfloat1622float2(__floats2bfloat162_rn(c0 * sf[4 * q], c1 * sf[4 * q + 1]));
-    const float2 hi =
-        __bfloat1622float2(__floats2bfloat162_rn(c2 * sf[4 * q + 2], c3 * sf[4 * q + 3]));
-    w[4 * q] = lo.x;
-    w[4 * q + 1] = lo.y;
-    w[4 * q + 2] = hi.x;
-    w[4 * q + 3] = hi.y;
-  }
-}
-
-__device__ __forceinline__ uint4 xor4(const uint4& c, uint32_t m) {
-  return make_uint4(c.x ^ m, c.y ^ m, c.z ^ m, c.w ^ m);
-}
-
-__device__ __forceinline__ uint4 nibbles4(const uint4& c, int shift) {
-  return make_uint4((c.x >> shift) & 0x0F0F0F0Fu, (c.y >> shift) & 0x0F0F0F0Fu,
-                    (c.z >> shift) & 0x0F0F0F0Fu, (c.w >> shift) & 0x0F0F0F0Fu);
-}
-
-// Loads the bf16 scales of group `grp` for this thread's 16 columns into sf, as f32.
-__device__ __forceinline__ void load_scales(const __nv_bfloat16* __restrict__ scales, int grp,
-                                            int D, int col0, float* sf) {
-  const uint4* sp = reinterpret_cast<const uint4*>(scales + (long)grp * D + col0);
-  const uint4 s0 = __ldg(sp), s1 = __ldg(sp + 1);
-  const uint32_t sw[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&sw[e]));
-    sf[2 * e] = f.x;
-    sf[2 * e + 1] = f.y;
-  }
-}
-
-template <int BT, bool Q4>
+template <int BT, bool Q4, bool Shared>
 __global__ void __launch_bounds__(kThreads)
 qmatmul_w8a16_kernel(const void* __restrict__ x, int x_bf16, const int8_t* __restrict__ codes,
                      const __nv_bfloat16* __restrict__ scales, const float* __restrict__ norm_w,
@@ -166,17 +108,17 @@ qmatmul_w8a16_kernel(const void* __restrict__ x, int x_bf16, const int8_t* __res
   for (int b = 0; b < BT; ++b)
 #pragma unroll
     for (int e = 0; e < kColsPerThread; ++e) acc[b][e] = 0.f;
-  float sf[kColsPerThread];
-  int cur_grp = -1;
+  GroupScales gs;
 
   for (int t0 = k_begin; t0 < k_end; t0 += kTileRows) {
-    const int rows = min(kTileRows, k_end - t0);  // a multiple of 4
-    for (int i = tid; i < BT * kTileRows; i += kThreads) {
-      const int b = i / kTileRows, r = i % kTileRows;
+    const int rows = min(kTileRows, k_end - t0);  // a multiple of 8
+    const int r = tid;  // each thread stages one slot of every activation row
+    const int n = staged_row<Q4>(t0, r, g);
+#pragma unroll
+    for (int b = 0; b < BT; ++b) {
       float v = 0.f;
       if (r < rows && row0 + b < B) {
         const long base = (row0 + b) * xw;
-        const int n = t0 + r;
         v = load_act(x, x_bf16, base + n);
         if (prologue == kSwiglu) {
           const float up = load_act(x, x_bf16, base + N + n);
@@ -189,62 +131,10 @@ qmatmul_w8a16_kernel(const void* __restrict__ x, int x_bf16, const int8_t* __res
       xs[b][r] = v;
     }
     __syncthreads();
-    if (active && Q4) {
-      // Packed rows of the tile: rows / 2, a multiple of 4 (g % 8 == 0); 4 in flight share a group.
-      const int h = g / 2;
-      for (int pb = warp * kRowsPerBatch; pb < rows / 2; pb += kWarps * kRowsPerBatch) {
-        const long pr = t0 / 2 + pb;  // packed row
-        uint4 c[kRowsPerBatch];
-#pragma unroll
-        for (int j = 0; j < kRowsPerBatch; ++j)
-          c[j] = __ldg(reinterpret_cast<const uint4*>(codes + (pr + j) * D + col0));
-        const int grp = static_cast<int>(pr / h);
-        if (grp != cur_grp) {
-          load_scales(scales, grp, D, col0, sf);
-          cur_grp = grp;
-        }
-        const int lo = grp * g + static_cast<int>(pr % h) - t0;  // staged row of the low nibbles
-#pragma unroll
-        for (int j = 0; j < kRowsPerBatch; ++j) {
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            float w[kColsPerThread];
-            dequant16<true>(nibbles4(c[j], 4 * half), sf, w);
-            const int r = lo + j + half * h;
-#pragma unroll
-            for (int b = 0; b < BT; ++b) {
-              const float xv = xs[b][r];
-#pragma unroll
-              for (int e = 0; e < kColsPerThread; ++e) acc[b][e] = fmaf(xv, w[e], acc[b][e]);
-            }
-          }
-        }
-      }
-    } else if (active) {
-      for (int rb = warp * kRowsPerBatch; rb < rows; rb += kWarps * kRowsPerBatch) {
-        const int n = t0 + rb;
-        uint4 c[kRowsPerBatch];
-#pragma unroll
-        for (int j = 0; j < kRowsPerBatch; ++j)
-          c[j] = __ldg(reinterpret_cast<const uint4*>(codes + (long)(n + j) * D + col0));
-        const int grp = n / g;  // g % 4 == 0: the 4 rows share a group
-        if (grp != cur_grp) {
-          load_scales(scales, grp, D, col0, sf);
-          cur_grp = grp;
-        }
-#pragma unroll
-        for (int j = 0; j < kRowsPerBatch; ++j) {
-          float w[kColsPerThread];
-          dequant16<false>(xor4(c[j], 0x80808080u), sf, w);
-#pragma unroll
-          for (int b = 0; b < BT; ++b) {
-            const float xv = xs[b][rb + j];
-#pragma unroll
-            for (int e = 0; e < kColsPerThread; ++e) acc[b][e] = fmaf(xv, w[e], acc[b][e]);
-          }
-        }
-      }
-    }
+    if (active)
+      tile_dot<BT, Q4, Shared>(codes, scales, D, g, col0, Q4 ? t0 / 2 : t0, Q4 ? rows / 2 : rows,
+                       warp * kRowsPerBatch, kWarps * kRowsPerBatch, &xs[0][0], kTileRows, gs,
+                       acc);
     __syncthreads();
   }
 
@@ -293,41 +183,40 @@ __global__ void qmatmul_reduce_kernel(const float* __restrict__ partial,
   out[i] = s;
 }
 
-template <bool Q4>
+template <bool Q4, bool Shared>
 int launch(const dim3& grid, cudaStream_t s, int bt, const void* x, int x_bf16, const int8_t* cq,
            const __nv_bfloat16* cs, const float* nw, const void* residual, int res_bf16, float* o,
            float* p, int B, int N, int D, int g, int prologue, float eps, int kc) {
+  decltype(&qmatmul_w8a16_kernel<1, Q4, Shared>) kernel;
   switch (bt) {
-    case 1:
-      qmatmul_w8a16_kernel<1, Q4><<<grid, kThreads, 0, s>>>(x, x_bf16, cq, cs, nw, residual,
-                                                            res_bf16, o, p, B, N, D, g, prologue,
-                                                            eps, kc);
-      return 0;
-    case 2:
-      qmatmul_w8a16_kernel<2, Q4><<<grid, kThreads, 0, s>>>(x, x_bf16, cq, cs, nw, residual,
-                                                            res_bf16, o, p, B, N, D, g, prologue,
-                                                            eps, kc);
-      return 0;
-    case 4:
-      qmatmul_w8a16_kernel<4, Q4><<<grid, kThreads, 0, s>>>(x, x_bf16, cq, cs, nw, residual,
-                                                            res_bf16, o, p, B, N, D, g, prologue,
-                                                            eps, kc);
-      return 0;
-    case 8:
-      qmatmul_w8a16_kernel<8, Q4><<<grid, kThreads, 0, s>>>(x, x_bf16, cq, cs, nw, residual,
-                                                            res_bf16, o, p, B, N, D, g, prologue,
-                                                            eps, kc);
-      return 0;
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 1: kernel = qmatmul_w8a16_kernel<1, Q4, Shared>; break;
+    case 2: kernel = qmatmul_w8a16_kernel<2, Q4, Shared>; break;
+    case 4: kernel = qmatmul_w8a16_kernel<4, Q4, Shared>; break;
+    case 8: kernel = qmatmul_w8a16_kernel<8, Q4, Shared>; break;
+    default: return (int)cudaErrorInvalidValue;
   }
+  kernel<<<grid, kThreads, 0, s>>>(x, x_bf16, cq, cs, nw, residual, res_bf16, o, p, B, N, D, g,
+                                   prologue, eps, kc);
+  return 0;
+}
+
+// The instantiation for the code format and for whether the rows in flight share a group.
+template <bool Q4>
+int launch_for_group(bool shared, const dim3& grid, cudaStream_t s, int bt, const void* x,
+                     int x_bf16, const int8_t* cq, const __nv_bfloat16* cs, const float* nw,
+                     const void* residual, int res_bf16, float* o, float* p, int B, int N, int D,
+                     int g, int prologue, float eps, int kc) {
+  return shared ? launch<Q4, true>(grid, s, bt, x, x_bf16, cq, cs, nw, residual, res_bf16, o, p,
+                                   B, N, D, g, prologue, eps, kc)
+                : launch<Q4, false>(grid, s, bt, x, x_bf16, cq, cs, nw, residual, res_bf16, o, p,
+                                    B, N, D, g, prologue, eps, kc);
 }
 
 }  // namespace
 
 // Plain C entry point.  Pointers are device pointers (codes/scales/norm_w already offset to
-// the layer).  `q4`: codes are nibble-packed [N/2, D] (the wrapper guarantees g % 8 == 0,
-// 256 % g == 0 and kc % g == 0).  `bt` is the activation row tile (1, 2, 4 or 8); `kc` the
+// the layer).  `q4`: codes are nibble-packed [N/2, D] (g even).  The wrapper guarantees
+// N % 8 == 0 and kc % 8 == 0.  `bt` is the activation row tile (1, 2, 4 or 8); `kc` the
 // rows of N per split; `partial` holds splits*B*D floats when splits > 1.  Returns
 // cudaGetLastError().
 extern "C" int qmatmul_w8a16(const void* x, int x_bf16, const void* codes, const void* scales,
@@ -341,10 +230,11 @@ extern "C" int qmatmul_w8a16(const void* x, int x_bf16, const void* codes, const
   const auto* nw = reinterpret_cast<const float*>(norm_w);
   auto* o = reinterpret_cast<float*>(out);
   auto* p = reinterpret_cast<float*>(partial);
-  const int bad = q4 ? launch<true>(grid, s, bt, x, x_bf16, cq, cs, nw, residual, res_bf16, o, p,
-                                    B, N, D, g, prologue, eps, kc)
-                     : launch<false>(grid, s, bt, x, x_bf16, cq, cs, nw, residual, res_bf16, o, p,
-                                     B, N, D, g, prologue, eps, kc);
+  const bool shared = rows_share_group(g, q4 != 0);
+  const int bad = q4 ? launch_for_group<true>(shared, grid, s, bt, x, x_bf16, cq, cs, nw, residual,
+                                              res_bf16, o, p, B, N, D, g, prologue, eps, kc)
+                     : launch_for_group<false>(shared, grid, s, bt, x, x_bf16, cq, cs, nw, residual,
+                                               res_bf16, o, p, B, N, D, g, prologue, eps, kc);
   if (bad) return bad;
   if (splits > 1) {
     const long bd = (long)B * D;

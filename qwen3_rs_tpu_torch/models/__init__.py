@@ -1,3 +1,9 @@
+"""Model registry: architecture id → forward implementation, as the
+reference package's."""
+
+from __future__ import annotations
+
+from ..configuration import ARCHITECTURE_LLAMA, ARCHITECTURE_QWEN3, ModelConfig
 from .qwen3 import (
     KVCache,
     QuantizedKVCache,
@@ -8,6 +14,20 @@ from .qwen3 import (
     weights_from_jax_numpy,
 )
 
+MODEL_FORWARDS = {
+    ARCHITECTURE_QWEN3: qwen3_forward,
+    # Llama shares the decoder structure; its config turns QK-norm off.
+    ARCHITECTURE_LLAMA: qwen3_forward,
+}
+
+
+def get_forward(config: ModelConfig):
+    fwd = MODEL_FORWARDS.get(config.architecture_id)
+    if fwd is None:
+        raise ValueError(f"Unknown architecture_id: {config.architecture_id}")
+    return fwd
+
+
 __all__ = [
     "KVCache",
     "QuantizedKVCache",
@@ -16,4 +36,6 @@ __all__ = [
     "init_kv_cache",
     "qwen3_forward",
     "weights_from_jax_numpy",
+    "get_forward",
+    "MODEL_FORWARDS",
 ]

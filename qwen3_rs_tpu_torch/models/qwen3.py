@@ -28,10 +28,17 @@ path, in three modes:
 
 INT4 linear layers (``Q4Tensor``, an INT4 checkpoint) take the same routes
 through the Q4 variants of the kernels, as the reference's
-``_project_layer`` routes them: never the megakernel (its gate refuses Q4),
-the fused Q4 kernel up to 256 rows, the Q4 dequant on the xdot path and the
-Q4 row-blocked kernel otherwise; there is no exact mode for them.  The
-embedding and the classifier stay INT8.
+``_project_layer`` routes them: the megakernel's Q4 tiles only with the
+reference's opt-in (``QWEN3_TPU_MEGA_Q4=1``), the fused Q4 kernel up to 256
+rows, the Q4 dequant on the xdot path and the Q4 row-blocked kernel
+otherwise; there is no exact mode for them.  The embedding and the
+classifier stay INT8.
+
+Every kernel sits behind the reference's shape gate for it, decided from
+shapes before any launch; a shape the gate refuses takes the plain PyTorch
+path, on the card too (the reference's XLA route there).  The port's kernels
+take every shape the gates admit, except a head_dim other than 128 in the
+attention kernels, whose wrappers raise on the card.
 
 On CPU tensors the kernel wrappers run their plain PyTorch versions.
 
@@ -57,16 +64,25 @@ import torch
 
 from ..configuration import ModelConfig
 from ..ops.attention import gqa_attention_split, gqa_attention_split_paged
-from ..ops.kernels.flash_attention import flash_decode
+from ..ops.kernels.flash_attention import decode_supported, flash_decode
 from ..ops.kernels.megakernel import decode_stack_megakernel, head_phase_supported, megakernel_supported
-from ..ops.kernels.paged_attention import paged_decode, paged_window_attention, window_supported
-from ..ops.kernels.prefill_attention import causal_prefill_attention
+from ..ops.kernels.paged_attention import (
+    paged_decode,
+    paged_decode_supported,
+    paged_window_attention,
+    paged_window_supported,
+)
+from ..ops.kernels.prefill_attention import causal_prefill_attention, splash_prefill_supported
 from ..ops.kernels.qmatmul import (
     MAX_ROWS,
     dequant_q4_stacked,
+    dequant_supported,
     dequant_w8_stacked,
     qmatmul_w8a16,
     qmatmul_w8a16_rows,
+    qmatmul_w8a16_rows_plain,
+    rows_supported,
+    supports_shapes,
 )
 from ..ops.matmul import exact_float_products, f32_matmul, qmatmul, qmatmul_exact
 from ..ops.norms import rms_norm
@@ -85,6 +101,14 @@ _XDOT_MIN_WEIGHT_ELEMS = 10_000_000
 
 def _xdot_prefill_wins(rows: int, n: int, d: int) -> bool:
     return rows >= _XDOT_PREFILL_MIN_ROWS and n > d and n * d >= _XDOT_MIN_WEIGHT_ELEMS
+
+
+def reference_rows(s: int) -> int:
+    """The window width the reference engine runs for ``s`` prompt rows: it
+    pads every window to a power-of-two bucket (from 32 rows), which its
+    shape gates then see.  The port runs the window unpadded and asks the
+    copied gates at this width."""
+    return max(32, 1 << (s - 1).bit_length())
 
 
 class Qwen3LayerWeights(NamedTuple):
@@ -288,14 +312,25 @@ def _project_layer(x, xq, w: QuantizedTensor, layer: int, mode: str, *, rounds_t
     if mode == "f32":
         return f32_matmul(x, w, layer)
     n, d = w.shape[-2:]  # logical: packed INT4 codes hold n/2 rows
+    g = n // w.scales.shape[-2]
+    q4 = isinstance(w, Q4Tensor)
     rows = x.numel() // n
-    if _xdot_prefill_wins(rows, n, d):
-        wbf = dequant_q4_stacked(w, layer) if isinstance(w, Q4Tensor) else dequant_w8_stacked(w, layer)
+    # The reference's routes, each behind its gate; what a gate refuses
+    # takes the plain projection (the reference's XLA route there).
+    if rows <= MAX_ROWS:
+        if supports_shapes(n, d, g, q4):
+            return qmatmul_w8a16(x, w, layer)
+        return qmatmul_w8a16_rows_plain(x, w, layer)
+    if _xdot_prefill_wins(rows, n, d) and dequant_supported(n, d, g, q4):
+        wbf = dequant_q4_stacked(w, layer) if q4 else dequant_w8_stacked(w, layer)
         xb = x.reshape(rows, n).to(torch.bfloat16)
         with exact_float_products():
             out = xb @ wbf if rounds_to_bf16 else xb.float() @ wbf.float()
         return out.reshape(*x.shape[:-1], d)
-    return qmatmul_w8a16_rows(x, w, layer)
+    padded = x.shape[0] * reference_rows(x.shape[1]) if x.dim() == 3 else rows
+    if rows_supported(n, d, g, padded, q4):
+        return qmatmul_w8a16_rows(x, w, layer)
+    return qmatmul_w8a16_rows_plain(x, w, layer)
 
 
 def _head(config, weights, x, mode: str) -> torch.Tensor:
@@ -314,9 +349,9 @@ def megakernel_route(config: ModelConfig, cache, batch: int, rows: int, mode: st
                      paged: bool = False, q4: bool = False) -> bool:
     """Whether a forward call takes the decode megakernel: a fast-mode decode
     step (one row per request) over the dense cache, on the shapes the
-    reference package's gate admits, with INT8 weights (``q4``: INT4 linear
-    layers, which it refuses).  The gate looks at shapes only, so the card
-    and the CPU route alike."""
+    reference package's gate admits (``q4``: INT4 linear layers, admitted
+    only with its opt-in).  The gate looks at shapes only, so the card and
+    the CPU route alike."""
     return (not paged and mode == "fast" and rows == 1
             and megakernel_supported(config, cache.seq_len, cache.k.dtype, batch, q4=q4))
 
@@ -400,6 +435,12 @@ def qwen3_forward(
         bad = (pos < 0) | (pos > t_max)  # rows past the table are dropped, not refused
     else:
         t_max = rope_len = cache.seq_len
+        if write_mask is not None:
+            # A masked row (a finished serving slot inside a decode chunk) may
+            # have run past the window: it writes nothing and its result is
+            # dropped, so it reads up to the window's end.
+            masked = ~np.asarray(write_mask, bool).reshape(b)
+            pos = np.where(masked, np.clip(pos, 0, max(t_max - s, 0)), pos)
         bad = (pos < 0) | (pos + s > t_max)
     if bad.any():
         raise ValueError(
@@ -419,11 +460,26 @@ def qwen3_forward(
     cd = torch.float32 if exact else bf16  # the residual stream's dtype
     ah, kvd, hd = c.all_heads_dim, c.kv_dim, c.head_dim
     ks_all, vs_all = (cache.k_scale, cache.v_scale) if hasattr(cache, "k_scale") else (None, None)
-    fused = mode == "fast" and b * s <= MAX_ROWS
-    prefill_kernel = mode == "fast" and fresh_prefill and s > MAX_ROWS
+    fast = mode == "fast"
+    lw = weights.layers
+    # Each kernel behind the reference's gate for it, decided from shapes
+    # alone; what a gate refuses takes the plain path (the reference's XLA
+    # route).  Flash decode engages below the reference's 512-row minimum
+    # window too (a speed choice on its chip).
+    fused = fast and b * s <= MAX_ROWS and all(
+        supports_shapes(n, d, g, isinstance(w, Q4Tensor)) for w, (n, d) in zip(
+            (lw.wqkv, lw.wo, lw.w13, lw.w2),
+            ((c.dim, ah + 2 * kvd), (ah, c.dim), (c.dim, 2 * c.hidden_dim), (c.hidden_dim, c.dim))))
+    prefill_kernel = (fast and fresh_prefill and s > MAX_ROWS
+                      and splash_prefill_supported(reference_rows(s), hd, c.n_heads, c.n_kv_heads))
+    paged_decode_kernel = (paged and fast and s == 1
+                           and paged_decode_supported(hd, cache.k.shape[3], cache.k.dtype))
     # A small window on the pool: the reference's paged window gate.  A fresh
     # window takes the same f32 attention, but has no cache prefix to read.
-    window_kernel = paged and mode == "fast" and window_supported(s, c.kv_mul)
+    window_kernel = (paged and fast and not prefill_kernel
+                     and paged_window_supported(hd, cache.k.shape[3], cache.k.dtype, s, c.kv_mul))
+    flash_kernel = (not paged and fast and s == 1
+                    and decode_supported(c.n_heads, c.n_kv_heads, hd, cache.seq_len, min_seq_len=0))
 
     def quant(t):
         return quantize_activations(t, g) if exact else None
@@ -438,12 +494,11 @@ def qwen3_forward(
     cos_t, sin_t = rope_table(rope_len, hd, c.rope_theta, dev)
     cos = cos_t[q_pos][:, :, None, :]  # [B, S, 1, hd/2]
     sin = sin_t[q_pos][:, :, None, :]
-    pos_dev = torch.as_tensor(pos, dtype=torch.int32, device=dev) if s == 1 or window_kernel else None
+    pos_dev = torch.as_tensor(pos, dtype=torch.int32, device=dev) if flash_kernel or paged_decode_kernel or window_kernel else None
     if paged:
         table_dev = torch.as_tensor(table, dtype=torch.int32, device=dev)
         targets = _page_targets(table, pos, s, page, write_mask, dev)
 
-    lw = weights.layers
     for l in range(c.n_layers):
         if fused:
             qkv = qmatmul_w8a16(x, lw.wqkv, l, norm_w=lw.rms_att, eps=eps)  # f32
@@ -459,10 +514,10 @@ def qwen3_forward(
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         pool_kw = dict(k_scale_pool=ks_all, v_scale_pool=vs_all)
-        if s == 1 and mode == "fast" and paged:
+        if paged_decode_kernel:
             # The reference rounds the paged kernels' f32 output to the stream's dtype.
             att = paged_decode(q[:, 0], k[:, 0], v[:, 0], cache.k, cache.v, table_dev, pos_dev, l, **pool_kw).to(cd)
-        elif s == 1 and mode == "fast":
+        elif flash_kernel:
             att = flash_decode(
                 q[:, 0], k[:, 0], v[:, 0], cache.k, cache.v, pos_dev, l,
                 k_scale_all=ks_all, v_scale_all=vs_all,

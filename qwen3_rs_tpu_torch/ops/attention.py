@@ -172,3 +172,17 @@ def _merge_window(qf, m_c, l_c, acc_c, k_new, v_new, win_offset: int):
     denom = l_c * r_c + en.sum(dim=-1, keepdim=True)
     out = acc_c * r_c + torch.einsum("bnmsj,bjnh->bnmsh", en, v_new.float())
     return out / denom
+
+
+def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_pos: torch.Tensor) -> torch.Tensor:
+    """Causal GQA over a written cache, the reference's dense form: q ``[B, S,
+    n_heads, hd]``, k/v ``[B, n_kv, T, hd]``, q_pos ``[B, S]``; key row t takes
+    part for a query at position p iff t ≤ p.  f32 inside, q's dtype out."""
+    b, s, n_heads, hd = q.shape
+    n_kv, t = k.shape[1], k.shape[2]
+    qf = q.float().reshape(b, s, n_kv, n_heads // n_kv, hd)
+    scores = torch.einsum("bsnmh,bnth->bnmst", qf, k.float()) * (1.0 / hd**0.5)
+    mask = torch.arange(t, device=q.device)[None, None, :] <= torch.as_tensor(q_pos, device=q.device)[:, :, None]
+    scores = scores.masked_fill(~mask[:, None, None], float("-inf"))
+    out = torch.einsum("bnmst,bnth->bsnmh", torch.softmax(scores, dim=-1), v.float())
+    return out.reshape(b, s, n_heads, hd).to(q.dtype)

@@ -9,6 +9,10 @@ that its path went through the kernels.
 
 from __future__ import annotations
 
+# The head_dim the attention kernels and the megakernel take (every Qwen3
+# model's; the reference's attention gates admit any multiple of 128).
+HEAD_DIM = 128
+
 LAUNCHES: dict[str, int] = {
     "qmatmul_w8a16": 0,
     "qmatmul_w8a16_q4": 0,
@@ -22,6 +26,7 @@ LAUNCHES: dict[str, int] = {
     "paged_decode": 0,
     "paged_window_partials": 0,
     "decode_megakernel": 0,
+    "decode_megakernel_q4": 0,
 }
 
 

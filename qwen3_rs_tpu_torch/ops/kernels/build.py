@@ -3,7 +3,8 @@
 Each ``qwen3_rs_tpu_torch/csrc/<name>.cu`` has a plain C interface and
 compiles on its own into ``qwen3_rs_tpu_torch/build/lib<name>-<hash>.so``
 with ``nvcc -gencode arch=compute_90a,code=sm_90a`` at first use; the hash
-covers the source and the flags, so an edited source rebuilds.  All missing
+covers the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source or header rebuilds.  All missing
 libraries compile in parallel, one ``nvcc`` each.  There is no fallback: a
 missing ``nvcc`` or a failed build raises.
 """
@@ -44,7 +45,8 @@ def nvcc_path() -> str:
 
 def lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

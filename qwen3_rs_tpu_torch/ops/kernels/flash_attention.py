@@ -9,9 +9,12 @@ and INT8 caches; an INT8 cache passes per-row scales ``[L, B, n_kv, T]``, and
 the K scale multiplies the score, the V scale the probability.
 
 For a CPU tensor the wrapper runs the plain PyTorch version; for a CUDA
-tensor it launches ``csrc/flash_decode.cu`` or raises.  Unlike the Pallas
-kernel it has no minimum window and no block divisibility: every S = 1
-dense-cache decode step on the card takes it.
+tensor it launches ``csrc/flash_decode.cu`` or raises.  The kernel takes
+any number of query heads per kv head, and head_dim ``HEAD_DIM``.
+``decode_supported`` is the reference package's gate, copied; the forward
+asks it without its minimum window (``MIN_SEQ_LEN``, a speed choice on the
+reference's chip, not a limit of either kernel), and a shape it refuses takes
+the plain attention.
 """
 
 from __future__ import annotations
@@ -21,11 +24,26 @@ import functools
 
 import torch
 
-from . import LAUNCHES, build
+from . import HEAD_DIM, LAUNCHES, build
 
-HEAD_DIM = 128  # the kernel's head_dim
 CHUNK = 128  # cache rows per block of the kernel's first pass
 _CACHE_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+# The reference package's gate: its cache-block candidates and the window
+# from which its kernel engages.
+MIN_SEQ_LEN = 512
+_BLK_CANDIDATES = (512, 256, 128)
+
+
+def _pick_blk(t: int) -> int | None:
+    return next((b for b in _BLK_CANDIDATES if t % b == 0), None)
+
+
+def decode_supported(n_heads: int, n_kv: int, head_dim: int, t: int, min_seq_len: int = MIN_SEQ_LEN) -> bool:
+    """The reference package's gate for its flash-decode kernel: a
+    128-multiple head_dim, a cache of ``t`` rows that a block size divides,
+    at least ``min_seq_len`` rows, whole query heads per kv head."""
+    return head_dim % 128 == 0 and _pick_blk(t) is not None and t >= min_seq_len and n_heads % n_kv == 0
 
 
 def flash_decode_plain(
@@ -110,7 +128,6 @@ def flash_decode(
     _need(hd == HEAD_DIM and chd == hd, f"head_dim {hd} (the kernel takes {HEAD_DIM})")
     _need(cb == b and n_heads % n_kv == 0, f"q {tuple(q.shape)} does not fit the cache {tuple(k_all.shape)}")
     kv_mul = n_heads // n_kv
-    _need(kv_mul in (1, 2, 4, 8), f"kv_mul {kv_mul} not in (1, 2, 4, 8)")
     _need(0 <= layer < n_layers, f"layer {layer} out of range")
     _need(v_all.shape == k_all.shape and v_all.dtype == k_all.dtype, "k_all and v_all differ")
     _need(k_all.dtype in _CACHE_TYPES, f"cache dtype {k_all.dtype} is not f32/bf16/int8")

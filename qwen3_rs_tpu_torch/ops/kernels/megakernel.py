@@ -17,11 +17,20 @@ attention is f32 with q scaled by ``1/√128`` after RoPE, over the rows below
 where ``write_ok`` (INT8: scale ``amax/127``, codes rounded half to even),
 after every read of its layer.
 
+INT4 checkpoints: the four layer matrices may be ``Q4Tensor`` stacks
+(nibble-packed codes ``[L, N/2, D]``, bf16 scales), the classifier staying
+INT8; each weight element is then ``bf16(code · bf16(scale))`` of the
+unpacked code, as the reference's Q4 tiles (``_dequant_tile_q4``) compute it.
+Such a launch counts under ``LAUNCHES["decode_megakernel_q4"]``.
+
 For a CPU tensor the wrapper runs the plain PyTorch version; for a CUDA
 tensor it makes one cooperative launch of ``csrc/decode_megakernel.cu`` or
 raises.  ``megakernel_supported`` and ``head_phase_supported`` are the
 reference package's gates, with its default budgets, so that the port takes
-the kernel on exactly the shapes the reference takes it.
+the kernel on exactly the shapes the reference takes it.  The gate reads one
+environment variable, as the reference's does: ``QWEN3_TPU_MEGA_Q4=1``
+admits INT4 layers (the reference's only route to its Q4 tiles; off by
+default there and here).
 """
 
 from __future__ import annotations
@@ -29,13 +38,14 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import os
 
 import torch
 
-from . import LAUNCHES, build
+from ..quant import Q4Tensor
+from . import HEAD_DIM, LAUNCHES, build
 from .qmatmul import qmatmul_w8a16_plain
 
-HEAD_DIM = 128  # the kernel's head_dim
 CHUNK = 128  # cache rows per attention item of the kernel
 MAX_BATCH = 8  # rows per step the gate admits (the reference's default)
 _CACHE_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -58,24 +68,30 @@ def _pick_blk(t: int) -> int | None:
 
 
 def _mk_tiles(n: int, d: int, g: int, tile_bytes: int, td_cap: int = 4096,
-              full_depth: bool = False) -> tuple[int, int] | None:
+              full_depth: bool = False, q4: bool = False,
+              max_q4_elems: int | None = None) -> tuple[int, int] | None:
     """(tn, td) dividing (n, d): tn a multiple of g with 8-aligned group rows
     (or tn == n) and at most 1024 rows (or n, with ``full_depth``), td a
     multiple of 256 up to ``td_cap`` (or d, 128-aligned); the largest tile
-    whose codes fit ``tile_bytes``, then the most tiles."""
+    whose codes fit ``tile_bytes``, then the most tiles.  ``q4``: packed
+    codes, tn/2 bytes per column, tn/2 a multiple of 32, and at most
+    ``max_q4_elems`` elements a tile (default: ``tile_bytes``)."""
     tn_cands = [c for c in range(g, n + 1, g) if n % c == 0 and ((c // g) % 8 == 0 or c == n) and c <= 1024]
     if not tn_cands and n % g == 0:
         tn_cands = [n]
     if full_depth and n % g == 0 and (n // g) % 8 == 0 and n not in tn_cands:
         tn_cands.append(n)
+    if q4:
+        tn_cands = [c for c in tn_cands if c % 2 == 0 and (c // 2) % 32 == 0]
     td_cands = [c for c in range(256, d + 1, 256) if d % c == 0 and c <= td_cap]
     if not td_cands and d % 128 == 0:
         td_cands = [d]
+    max_q4_elems = max_q4_elems or tile_bytes
     best = None
     for tn in tn_cands:
         for td in td_cands:
-            code_bytes = tn * td
-            if code_bytes > tile_bytes:
+            code_bytes = tn * td // 2 if q4 else tn * td
+            if code_bytes > tile_bytes or (q4 and tn * td > max_q4_elems):
                 continue
             key = (code_bytes, -((n // tn) * (d // td)))
             if best is None or key > best[0]:
@@ -87,14 +103,22 @@ def _tile_budget(dim: int) -> int:
     return 6 * 1024 * 1024 if dim == 2560 else 2 * 1024 * 1024
 
 
+def q4_opted_in() -> bool:
+    """``QWEN3_TPU_MEGA_Q4=1``: the reference package's opt-in to its Q4
+    tiles (default off there, where they measured slower than the per-matrix
+    Q4 kernels on its chip), read as it reads it."""
+    return os.environ.get("QWEN3_TPU_MEGA_Q4", "0") == "1"
+
+
 def megakernel_supported(config, t: int, dtype, batch: int = 1, q4: bool = False) -> bool:
     """Whether a decode step of ``batch`` rows over a dense cache of ``t`` rows
     of ``dtype`` (``torch.float32``, ``torch.bfloat16``, ``torch.int8`` or
     ``"int8"``) takes the megakernel: the reference package's gate.  INT4
-    weights (``q4``) never do: the reference takes its Q4 tiles only on an
-    opt-in switch, and the port follows its default."""
+    layers (``q4``) take it only with the reference's opt-in
+    (``q4_opted_in``), on tiles of packed codes.  The port's kernel takes
+    every shape the gate admits."""
     dtype = torch.int8 if dtype == "int8" else dtype
-    if q4 or dtype not in _CACHE_TYPES or batch > MAX_BATCH:
+    if dtype not in _CACHE_TYPES or batch > MAX_BATCH:
         return False
     if config.head_dim != HEAD_DIM or config.n_heads % config.n_kv_heads:
         return False
@@ -102,6 +126,8 @@ def megakernel_supported(config, t: int, dtype, batch: int = 1, q4: bool = False
     if blk is None or (dtype == torch.int8 and (t % _SCALE_BLK or blk % _SCALE_BLK)):
         return False
     g = config.group_size
+    if q4 and (g % 2 or not q4_opted_in()):
+        return False
     full_depth = config.dim == 2560
     for n, d in (
         (config.dim, config.all_heads_dim + 2 * config.kv_dim),
@@ -109,7 +135,7 @@ def megakernel_supported(config, t: int, dtype, batch: int = 1, q4: bool = False
         (config.dim, 2 * config.hidden_dim),
         (config.hidden_dim, config.dim),
     ):
-        tiles = _mk_tiles(n, d, g, _tile_budget(config.dim), full_depth=full_depth)
+        tiles = _mk_tiles(n, d, g, _tile_budget(config.dim), full_depth=full_depth, q4=q4)
         if tiles is None or (tiles[0] // g) % 8:
             return False
     return True
@@ -173,7 +199,9 @@ def decode_stack_megakernel_plain(
 ):
     """Plain PyTorch version: the same arguments and results as
     ``decode_stack_megakernel``, up to the f32 summation order.  It reads
-    positions and gates on the device (no host synchronisation)."""
+    positions and gates on the device (no host synchronisation).  INT4
+    layers take the same plain matmul, which unpacks each band of codes
+    (``unpack_q4``) and computes ``bf16(code · bf16(scale))``."""
     c = config
     b = x.shape[0]
     t = k_cache.shape[3]
@@ -224,7 +252,7 @@ def decode_stack_megakernel_plain(
 # ------------------------------------------------------------------ the kernel
 class _MatPlan(ctypes.Structure):
     _fields_ = [("codes", ctypes.c_void_p), ("scales", ctypes.c_void_p), ("n", ctypes.c_int),
-                ("d", ctypes.c_int), ("splits", ctypes.c_int), ("kc", ctypes.c_int)]
+                ("d", ctypes.c_int), ("splits", ctypes.c_int), ("kc", ctypes.c_int), ("q4", ctypes.c_int)]
 
 
 _PTRS = ("x_in", "x_out", "rms_att", "rms_ffn", "q_norm", "k_norm", "rms_final", "cos", "sin", "k_cache",
@@ -267,17 +295,17 @@ def _row_tile(b: int) -> int:
 
 
 @functools.cache
-def split_plan(n: int, d: int, rows: int, grid: int, g: int) -> tuple[int, int]:
+def split_plan(n: int, d: int, rows: int, grid: int, g: int, q4: bool = False) -> tuple[int, int]:
     """(splits, rows per split) of a matmul phase: the split of the
     contraction into multiples of 64 rows that gives the slowest block the
-    fewest bytes, counting the codes and scales it streams over its rounds
-    of (512-column strip, split) items and its share of the partials written
-    and read back."""
+    fewest bytes, counting the codes and scales (``q4``: packed codes) it
+    streams over its rounds of (512-column strip, split) items and its share
+    of the partials written and read back."""
     strips = -(-d // 512)
-    per_row = min(512, d) * (1.0 + 2.0 / g)
+    per_row = min(512, d) * ((0.5 if q4 else 1.0) + 2.0 / g)
     best = None
-    for want in range(1, n // 64 + 1):
-        kc = -(-n // want // 64) * 64
+    for want in range(1, max(1, n // 64) + 1):
+        kc = min(-(-n // want // 64) * 64, -(-n // 8) * 8)
         splits = -(-n // kc)
         rounds = -(-strips * splits // grid)
         cost = rounds * kc * per_row + splits * rows * d * 8.0 / grid
@@ -318,7 +346,9 @@ def decode_stack_megakernel(
 
     x ``[B, dim]`` (the embedded tokens, f32), the norm weights ``[L, dim]``
     and ``[L, hd]`` f32, cos/sin ``[B, hd/2]`` f32 (RoPE rows at each
-    position), the linear weights stacked ``[L, N, D]`` with bf16 scales,
+    position), the linear weights stacked ``[L, N, D]`` with bf16 scales
+    (all four INT8, or all four ``Q4Tensor`` with codes ``[L, N/2, D]``; the
+    classifier INT8),
     the caches ``[L, B, n_kv, T, hd]`` (f32, bf16, or int8 with f32 scales
     ``[L, B, n_kv, T]``), pos ``[B]`` int32, write_ok ``[B]`` (None: every
     row writes).  The caches are updated in place.
@@ -335,7 +365,6 @@ def decode_stack_megakernel(
     dev = x.device
     _need(1 <= b <= MAX_BATCH and cb == b, f"{b} rows over a cache of {cb}; the kernel takes 1..{MAX_BATCH}")
     _need(hd == HEAD_DIM == c.head_dim and dim == c.dim and n_kv == c.n_kv_heads, "shapes do not fit the config")
-    _need(1 <= c.kv_mul <= 8, f"kv_mul {c.kv_mul}: the kernel takes 1..8 query heads per kv head")
     _need(k_cache.dtype in _CACHE_TYPES and v_cache.dtype == k_cache.dtype and v_cache.shape == k_cache.shape,
           "k_cache and v_cache must be f32, bf16 or int8 of one shape")
     _need(k_cache.is_contiguous() and v_cache.is_contiguous(), "the caches must be contiguous")
@@ -349,7 +378,10 @@ def decode_stack_megakernel(
     _need(not greedy or lm_head is not None, "greedy decode needs the fused head (lm_head and rms_final)")
     _need(pos.dtype == torch.int32 and pos.shape == (b,) and pos.is_contiguous(), "pos must be int32 [B]")
     g = c.group_size
-    _need(g % 4 == 0, f"group size {g} must be a multiple of 4")
+    q4 = isinstance(wqkv, Q4Tensor)
+    _need(all(isinstance(w, Q4Tensor) == q4 for w in (wo, w13, w2)), "the layer matrices mix INT8 and INT4")
+    _need(lm_head is None or not isinstance(lm_head, Q4Tensor), "the classifier must be INT8")
+    _need(not q4 or g % 2 == 0, f"INT4 group size {g} must be even")
     mats = [wqkv, wo, w13, w2] + ([lm_head] if lm_head is not None else [])
     shapes = list(_mat_shapes(c, lm_head.q.shape[-1] if lm_head is not None else None).values())
     f32 = torch.float32
@@ -362,13 +394,15 @@ def decode_stack_megakernel(
           "norm weights must be [L, dim] and [L, hd]")
     for w, (n, d), name in zip(mats, shapes, ("wqkv", "wo", "w13", "w2", "lm_head")):
         stacked = name != "lm_head"
-        _need(w.q.shape == ((n_layers, n, d) if stacked else (n, d)) and w.q.dtype == torch.int8
+        packed = stacked and q4
+        rows, code_dtype = (n // 2, torch.uint8) if packed else (n, torch.int8)
+        _need(w.q.shape == ((n_layers, rows, d) if stacked else (n, d)) and w.q.dtype == code_dtype
               and w.q.is_contiguous(), f"{name} codes {tuple(w.q.shape)} do not fit")
         _need(w.scales.shape == ((n_layers, n // g, d) if stacked else (n // g, d))
               and w.scales.dtype == torch.bfloat16 and w.scales.is_contiguous(),
               f"{name} scales must be contiguous bf16 (cast_weight_scales does that)")
-        _need(n % 64 == 0 and d % 16 == 0 and w.q.data_ptr() % 16 == 0 and w.scales.data_ptr() % 16 == 0,
-              f"{name}: N={n} must be a multiple of 64, D={d} of 16, the weights 16-byte aligned")
+        _need(n % 8 == 0 and d % 16 == 0 and w.q.data_ptr() % 16 == 0 and w.scales.data_ptr() % 16 == 0,
+              f"{name}: N={n} must be a multiple of 8, D={d} of 16, the weights 16-byte aligned")
     ok = None
     if write_ok is not None:
         ok = write_ok.to(torch.int32).reshape(b).contiguous()
@@ -378,7 +412,7 @@ def decode_stack_megakernel(
 
     bt = _row_tile(b)
     grid = _grid(bt, dev.index if dev.index is not None else torch.cuda.current_device())
-    plans = [split_plan(n, d, b, grid, g) for n, d in shapes]
+    plans = [split_plan(n, d, b, grid, g, q4 and i < 4) for i, (n, d) in enumerate(shapes)]
     n_chunks = -(-t // CHUNK)
     part = torch.empty(max(s * b * d for (s, _), (_, d) in zip(plans, shapes)), dtype=f32, device=dev)
     att = torch.empty(b * n_kv * n_chunks * c.kv_mul * (2 + hd), dtype=f32, device=dev)
@@ -392,7 +426,7 @@ def decode_stack_megakernel(
 
     prm = _Params()
     for i, (w, (n, d), (splits, kc)) in enumerate(zip(mats, shapes, plans)):
-        prm.mat[i] = _MatPlan(w.q.data_ptr(), w.scales.data_ptr(), n, d, splits, kc)
+        prm.mat[i] = _MatPlan(w.q.data_ptr(), w.scales.data_ptr(), n, d, splits, kc, int(q4 and i < 4))
     ptrs = dict(x_in=x, x_out=x_out, rms_att=rms_att, rms_ffn=rms_ffn, q_norm=q_norm, k_norm=k_norm,
                 rms_final=rms_final, cos=cos, sin=sin, k_cache=k_cache, v_cache=v_cache, k_scale=k_scale,
                 v_scale=v_scale, pos=pos, write_ok=ok, logits=logits, tokens=tokens, part=part, att=att,
@@ -407,11 +441,12 @@ def decode_stack_megakernel(
     prm.eps, prm.scale = eps, 1.0 / math.sqrt(hd)
     err = _lib().decode_megakernel(ctypes.byref(prm), bt, grid, torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "decode_stack_megakernel")
-    LAUNCHES["decode_megakernel"] += 1
+    LAUNCHES["decode_megakernel_q4" if q4 else "decode_megakernel"] += 1
     return x_out, (tokens if greedy else logits)
 
 
-def split_plans(config, b: int, grid: int, v_pad: int | None = None) -> dict[str, tuple[int, int]]:
+def split_plans(config, b: int, grid: int, v_pad: int | None = None, q4: bool = False) -> dict[str, tuple[int, int]]:
     """The kernel's (splits, rows per split) of each matmul phase at ``b``
-    rows on a grid of ``grid`` blocks (for reports)."""
-    return {k: split_plan(n, d, b, grid, config.group_size) for k, (n, d) in _mat_shapes(config, v_pad).items()}
+    rows on a grid of ``grid`` blocks (for reports); ``q4``: INT4 layers."""
+    return {k: split_plan(n, d, b, grid, config.group_size, q4 and k != "lm_head")
+            for k, (n, d) in _mat_shapes(config, v_pad).items()}

@@ -19,7 +19,8 @@ probability.
 
 Both kernels are in ``csrc/paged_attention.cu`` and share their first pass.
 For a CPU tensor a wrapper runs its plain PyTorch version; for a CUDA tensor
-it launches its kernel or raises.  Unlike the Pallas kernels they take any
+it launches its kernel or raises.  They take any number of query heads per
+kv head and head_dim ``HEAD_DIM``; unlike the Pallas kernels they take any
 page size (the JAX gate asks for multiples of 128).
 """
 
@@ -31,18 +32,29 @@ import functools
 import torch
 
 from ..attention import _merge_window, gather_pages
-from . import LAUNCHES, build
+from . import HEAD_DIM, LAUNCHES, build
 
-HEAD_DIM = 128  # the kernels' head_dim
 CHUNK = 128  # cache rows per block of the kernels' first pass
 MAX_WINDOW_ROWS = 128  # the reference's bound on S·kv_mul for the window kernel
 _CACHE_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
+def paged_decode_supported(head_dim: int, page_size: int, dtype) -> bool:
+    """The reference package's gate for its paged decode kernel: a
+    128-multiple head_dim and page, an f32, bf16 or INT8 pool."""
+    return head_dim % 128 == 0 and page_size % 128 == 0 and dtype in _CACHE_TYPES
+
+
 def window_supported(s: int, kv_mul: int) -> bool:
-    """The reference package's gate for its window kernel
-    (``paged_window_supported``): S > 1 and S·kv_mul ≤ 128."""
+    """The window part of the reference's window gate: S > 1 and
+    S·kv_mul ≤ 128."""
     return s > 1 and s * kv_mul <= MAX_WINDOW_ROWS
+
+
+def paged_window_supported(head_dim: int, page_size: int, dtype, s: int, kv_mul: int) -> bool:
+    """The reference package's gate for its paged window kernel: the decode
+    kernel's, and ``window_supported``."""
+    return paged_decode_supported(head_dim, page_size, dtype) and window_supported(s, kv_mul)
 
 
 def _cache_scores(q_rows, k_pool, v_pool, page_table, pos, layer, k_scale_pool, v_scale_pool):
@@ -155,8 +167,7 @@ def _check_pool(name, q, k_pool, v_pool, page_table, pos, layer, k_scale_pool, v
     need(q.device.type == "cuda", f"tensors on {q.device} are neither CPU nor CUDA")
     n_layers, _, n_kv, page, hd = k_pool.shape
     need(hd == HEAD_DIM and q.shape[-1] == hd, f"head_dim {hd} (the kernel takes {HEAD_DIM})")
-    need(q.shape[-2] % n_kv == 0 and q.shape[-2] // n_kv in (1, 2, 4, 8),
-         f"{q.shape[-2]} query heads over {n_kv} kv heads: kv_mul not in (1, 2, 4, 8)")
+    need(q.shape[-2] % n_kv == 0, f"{q.shape[-2]} query heads over {n_kv} kv heads")
     need(0 <= layer < n_layers, f"layer {layer} out of range")
     need(v_pool.shape == k_pool.shape and v_pool.dtype == k_pool.dtype, "k_pool and v_pool differ")
     need(k_pool.dtype in _CACHE_TYPES, f"pool dtype {k_pool.dtype} is not f32/bf16/int8")

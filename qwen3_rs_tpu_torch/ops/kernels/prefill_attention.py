@@ -8,8 +8,11 @@ package's ``causal_prefill_attention`` (the splash kernel), with its
 numerics: q is scaled by ``bf16(1/√hd)`` and rounded to bf16 before the
 scores, scores and softmax are f32, P·V keeps P in f32, and the normalised
 output is rounded to bf16.  Unlike the splash kernel it has no minimum
-window and no block divisibility: the engine sends it every fresh window of
-more than 256 rows.
+window and no block divisibility: the forward sends it every fresh window of
+more than 256 rows whose shapes pass ``splash_prefill_supported`` (the
+reference package's gate, asked at the window's power-of-two bucket, the
+width the reference engine pads it to).  It takes any number of query heads
+per kv head, and head_dim ``HEAD_DIM``.
 
 For a CPU tensor the wrapper runs the plain PyTorch version; for a CUDA
 tensor it launches ``csrc/prefill_attention.cu`` or raises.
@@ -22,10 +25,27 @@ import functools
 
 import torch
 
-from . import LAUNCHES, build
+from . import HEAD_DIM, LAUNCHES, build
 
-HEAD_DIM = 128  # the kernel's head_dim
 QUERY_CHUNK = 512  # query rows per step of the plain version (bounds its score tensor)
+_BLOCK = 1024  # the reference splash kernel's default block
+
+
+def _effective_block(s: int) -> int:
+    """The reference's splash block for a window of ``s`` rows: the largest
+    of 1024, 512 that divides it, never below 512."""
+    blk = max(min(_BLOCK, s), 512)
+    while blk > 512 and s % blk:
+        blk //= 2
+    return blk
+
+
+def splash_prefill_supported(s: int, head_dim: int, n_heads: int, n_kv: int) -> bool:
+    """The reference package's gate for its splash prefill kernel: a
+    128-multiple head_dim, a window its block divides, whole query heads per
+    kv head."""
+    blk = _effective_block(s)
+    return head_dim % 128 == 0 and s % blk == 0 and s >= blk and n_heads % n_kv == 0
 
 
 def q_scale(head_dim: int) -> float:
@@ -79,7 +99,7 @@ def causal_prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) 
     n_kv = k.shape[2]
     _need(hd == HEAD_DIM, f"head_dim {hd} (the kernel takes {HEAD_DIM})")
     _need(k.shape == v.shape == (b, s, n_kv, hd), f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
-    _need(n_heads % n_kv == 0 and n_heads // n_kv in (1, 2, 4, 8), f"kv_mul {n_heads}/{n_kv} not in (1, 2, 4, 8)")
+    _need(n_heads % n_kv == 0, f"{n_heads} query heads over {n_kv} kv heads")
     _need(all(t.dtype == torch.bfloat16 for t in (q, k, v)), "q, k and v must be bf16")
     _need(q.device == k.device == v.device, "all tensors must be on one device")
     qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()

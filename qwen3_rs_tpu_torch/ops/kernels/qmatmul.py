@@ -33,7 +33,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import math
 
 import torch
 
@@ -46,6 +45,60 @@ MAX_ROWS = 256
 _BLOCK_COLS = 512  # output columns per block (32 lanes x 16 columns)
 _SPLIT_ROWS = 64  # contraction rows per split are a multiple of this
 _PROLOGUES = {None: 0, "rms": 1, "swiglu": 2}
+
+
+# ------------------------------------------------------------------- gates
+# The reference package's tiling gates for its W8A16 kernels (``qmatmul.py``
+# ``supports_shapes``, ``rows_supported``, ``dequant_supported``), copied with
+# their default budgets and no environment reads.  The forward asks them
+# before a launch and sends a shape they refuse to the plain projection; the
+# port's kernels take every shape they admit.
+_ROW_BLOCKS = (512, 256, 128)  # the row-blocked kernel's row tiles
+_ROWS_VMEM_CAP = 23 * 1024 * 1024  # its tile budget, in its estimate's units
+
+
+def _divisor_tiles(dim: int, step: int, cap: int) -> list[int]:
+    return [c for c in range(step, min(dim, cap) + 1, step) if dim % c == 0]
+
+
+def _tile_candidates(n: int, d: int, g: int) -> tuple[list[int], list[int]]:
+    """The reference's (tile_n, tile_d) candidates: tile_n a multiple of g
+    with 8-aligned group rows (or all of n), tile_d a multiple of 256 (else
+    of 128)."""
+    def n_ok(c: int) -> bool:
+        return c % g == 0 and ((c // g) % 8 == 0 or c == n)
+
+    n_cands = [c for c in _divisor_tiles(n, max(g, 256), 8192) if n_ok(c)]
+    n_cands = n_cands or [c for c in _divisor_tiles(n, 128, 8192) if n_ok(c)]
+    return n_cands, _divisor_tiles(d, 256, 8192) or _divisor_tiles(d, 128, 8192)
+
+
+def supports_shapes(n: int, d: int, group_size: int, q4: bool = False) -> bool:
+    """The reference's gate for its decode-sized W8A16 kernels (≤ 256 rows)."""
+    if q4 and group_size % 2:
+        return False
+    n_cands, d_cands = _tile_candidates(n, d, group_size)
+    return bool(n_cands and d_cands)
+
+
+def rows_supported(n: int, d: int, group_size: int, b: int, q4: bool = False) -> bool:
+    """The reference's gate for its row-blocked kernel at ``b`` rows (the
+    rows it runs: its engine pads a window to a power-of-two bucket)."""
+    if q4 and group_size % 2:
+        return False
+    tile_b = next((c for c in _ROW_BLOCKS if b % c == 0), None)
+    if tile_b is None:
+        return False
+    n_cands, d_cands = _tile_candidates(n, d, group_size)
+    per_elem = 12 if q4 else 8
+    return any(per_elem * tn * td + 8 * tile_b * (tn + td) <= _ROWS_VMEM_CAP for tn in n_cands for td in d_cands)
+
+
+def dequant_supported(n: int, d: int, group_size: int, q4: bool = False) -> bool:
+    """The reference's gate for its dequant kernel."""
+    tile_n = next((t for t in (512, 256, 128, 64) if n % t == 0 and t % group_size == 0), None)
+    tile_d = next((t for t in (1024, 512, 256, 128) if d % t == 0), None)
+    return tile_n is not None and tile_d is not None and (not q4 or group_size % 2 == 0)
 
 
 def _codes_band(w, codes: torch.Tensor, r0: int, r1: int, g: int) -> torch.Tensor:
@@ -120,15 +173,13 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def split_plan(n: int, d: int, rows: int, bt: int, sms: int, unit: int = _SPLIT_ROWS) -> tuple[int, int]:
+def split_plan(n: int, d: int, rows: int, bt: int, sms: int) -> tuple[int, int]:
     """(splits, rows per split) of the contraction axis: enough blocks for
-    about three per SM, each split a multiple of ``unit`` rows (64; for INT4
-    codes a multiple of the group as well, so that a split holds whole
-    packed groups)."""
+    about three per SM, each split a multiple of 64 rows."""
     blocks = -(-d // _BLOCK_COLS) * -(-rows // bt)
     want = max(1, -(-3 * sms // blocks))
-    kc = max(unit, -(-n // want // unit) * unit)
-    kc = min(kc, -(-n // 4) * 4)
+    kc = max(_SPLIT_ROWS, -(-n // want // _SPLIT_ROWS) * _SPLIT_ROWS)
+    kc = min(kc, -(-n // 8) * 8)
     return -(-n // kc), kc
 
 
@@ -181,10 +232,8 @@ def qmatmul_w8a16(
     groups = scales.shape[-2]
     _need(n % groups == 0 and scales.shape[-1] == d, f"scales {tuple(scales.shape)} do not fit codes {tuple(codes.shape)}")
     g = n // groups
-    _need(g % 4 == 0, f"group size {g} must be a multiple of 4")
-    if q4:
-        _need(g % 8 == 0 and 256 % g == 0, f"INT4 group size {g} must be a multiple of 8 dividing 256")
-    _need(d % 16 == 0, f"D={d} must be a multiple of 16")
+    _need(not q4 or g % 2 == 0, f"INT4 group size {g} must be even")
+    _need(n % 8 == 0 and d % 16 == 0, f"N={n} must be a multiple of 8, D={d} of 16")
     code_dtype = torch.uint8 if q4 else torch.int8
     _need(codes.dtype == code_dtype and codes.is_contiguous(), f"codes must be contiguous {code_dtype}")
     _need(
@@ -224,8 +273,7 @@ def qmatmul_w8a16(
     li = layer if stacked else 0
     out = torch.empty(rows, d, dtype=torch.float32, device=dev)
     bt = _row_tile(rows)
-    unit = math.lcm(_SPLIT_ROWS, g) if q4 else _SPLIT_ROWS
-    splits, kc = split_plan(n, d, rows, bt, _sm_count(dev.index or 0), unit)
+    splits, kc = split_plan(n, d, rows, bt, _sm_count(dev.index or 0))
     partial = torch.empty(splits * rows * d, dtype=torch.float32, device=dev) if splits > 1 else None
     prologue = "rms" if norm_w is not None else ("swiglu" if swiglu else None)
     err = _lib().qmatmul_w8a16(
@@ -312,8 +360,8 @@ def qmatmul_w8a16_rows(x: torch.Tensor, w: QuantizedTensor, layer: int | None = 
     g = n // scales.shape[0]
     if n % 64 or x.shape[-1] != n:
         raise ValueError(f"qmatmul_w8a16_rows: x width {x.shape[-1]} must be N={n}, a multiple of 64")
-    if q4 and g % 16:
-        raise ValueError(f"qmatmul_w8a16_rows: INT4 group size {g} must be a multiple of 16")
+    if q4 and g % 2:
+        raise ValueError(f"qmatmul_w8a16_rows: INT4 group size {g} must be even")
     sb = scales.to(torch.bfloat16).contiguous()
     x2 = x.reshape(-1, n).to(torch.bfloat16).contiguous()
     if x2.data_ptr() % 16:

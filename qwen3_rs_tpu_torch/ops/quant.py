@@ -80,6 +80,20 @@ def quantize_activations(x: torch.Tensor, group_size: int) -> QuantizedTensor:
     return QuantizedTensor(q.reshape(shape), scale)
 
 
+def quantize_weights(w: torch.Tensor, group_size: int) -> QuantizedTensor:
+    """Q8_0 weight quantization on the tensor's device, over groups of the
+    last axis (the math of ``quantize_weights_np``): scale ``max|w| / 127``
+    (1 for an all-zero group), codes rounded half to even and clipped."""
+    shape = w.shape
+    if shape[-1] % group_size:
+        raise ValueError(f"width {shape[-1]} is not a multiple of the group size {group_size}")
+    g = w.float().reshape(*shape[:-1], shape[-1] // group_size, group_size)
+    amax = g.abs().amax(dim=-1)
+    scale = torch.where(amax > 0.0, amax / 127.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(g / scale[..., None]), -127, 127).to(torch.int8)
+    return QuantizedTensor(q.reshape(shape), scale)
+
+
 def dequantize(qt: QuantizedTensor, dtype=torch.float32) -> torch.Tensor:
     """Row-major dequant: q * per-group scale along the last axis, in f32."""
     shape = qt.q.shape
@@ -159,3 +173,10 @@ def dequantize_q4_inmajor(qt: Q4Tensor, dtype=torch.float32) -> torch.Tensor:
     grp = codes.reshape(*codes.shape[:-2], n // g, g, d)
     out = grp * qt.scales[..., :, None, :].float()
     return out.reshape(*codes.shape[:-2], n, d).to(dtype)
+
+
+def dequantize_np(q: np.ndarray, scales: np.ndarray) -> np.ndarray:
+    """Row-major codes ``[..., N]`` times their group scales ``[..., N/g]``, f32."""
+    group_size = q.shape[-1] // scales.shape[-1]
+    g = q.astype(np.float32).reshape(*q.shape[:-1], scales.shape[-1], group_size)
+    return (g * scales[..., None].astype(np.float32)).reshape(q.shape)

@@ -1,8 +1,8 @@
 """Continuous batching over fixed decode slots.
 
-The port of the reference package's ``serving/scheduler.py`` with host
-sampling.  The engine decodes a fixed-width batch of request *slots* every
-step and refills slots as requests finish:
+The port of the reference package's ``serving/scheduler.py``, with host or
+device sampling.  The engine decodes a fixed-width batch of request *slots*
+every step and refills slots as requests finish:
 
 * decode: one step over all ``n_slots`` (per-slot positions; empty and
   mid-prefill slots are masked out of the cache writes and their logits
@@ -14,7 +14,17 @@ step and refills slots as requests finish:
   a **group**, one batched prefill writing every request's K/V straight into
   its own pages; the group pads to a power of two;
 * sampling: per-request host samplers (the reference's xorshift streams,
-  per-request seeds).
+  per-request seeds), or device sampling: ``decode_chunk_steps`` decode steps
+  per dispatch, each forward followed by ``sample_tokens`` with per-slot
+  temperatures and top-p, the tokens copied to the host once per chunk.
+  Draws come from one ``torch.Generator`` seeded with ``seed``: reproducible
+  per seed, not the reference's ``jax.random`` bits.
+* pipelining (device sampling): chunk N+1 is dispatched before chunk N's
+  tokens are read; continuing slots chain their input token on the device,
+  and on the page pool admissions sample their first tokens on the device
+  and scatter them into the next chunk's input.  A request that finishes
+  inside a chunk keeps decoding to its end with its writes masked off (its
+  tokens are dropped when the chunk is read).
 
 PyTorch runs eagerly and compiles nothing, but the bucket ladder and the
 group padding stay: they decide each admission's page reservation and which
@@ -23,8 +33,8 @@ the reference package.
 
 Scheduling is FCFS; each ``step()`` first admits queued requests into free
 slots (bounded by ``max_admissions_per_step``), then advances every active
-slot by one decode step.  Device sampling with ``decode_chunk_steps``,
-speculative decoding (``spec_k``) and tensor-parallel meshes are not ported
+slot by one decode step (host sampling) or one chunk (device sampling).
+Speculative decoding (``spec_k``) and tensor-parallel meshes are not ported
 yet and raise.
 """
 
@@ -43,9 +53,18 @@ from ..checkpoint import load_checkpoint
 from ..configuration import ModelConfig
 from ..device import resolve_device
 from ..inference.engine import not_ported
-from ..models.qwen3 import Qwen3Weights, cast_weight_scales, init_kv_cache, qwen3_forward, weights_to
+from ..models.qwen3 import (
+    Qwen3Weights,
+    cast_weight_scales,
+    init_kv_cache,
+    megakernel_route,
+    megakernel_step,
+    qwen3_forward,
+    weights_to,
+)
 from ..ops.kernels import build
-from ..ops.sampling import Sampler
+from ..ops.quant import Q4Tensor
+from ..ops.sampling import Sampler, sample_tokens
 from .paged_cache import PageAllocator, init_paged_cache
 
 
@@ -98,7 +117,8 @@ class ContinuousBatchingEngine:
         cache_dtype=torch.bfloat16,
         prefill_buckets: tuple[int, ...] = (32, 128, 512, 2048),
         sampling: str = "host",
-        decode_chunk_steps: int | None = None,
+        decode_chunk_steps: int = 8,
+        seed: int = 0,
         kv_layout: str = "dense",
         page_size: int = 128,
         n_pages: int | None = None,
@@ -109,17 +129,12 @@ class ContinuousBatchingEngine:
         prefill_chunk: int | None = None,
         device=None,
     ):
-        if sampling == "device" or decode_chunk_steps is not None:
-            raise not_ported(
-                "device sampling (sampling='device', decode_chunk_steps) in serving",
-                "queue 1, item 2: device sampling and decode_chunk; use sampling='host'",
-            )
-        if sampling != "host":
+        if sampling not in ("host", "device"):
             raise ValueError(f"unknown sampling: {sampling!r}")
         if spec_k > 0:
-            raise not_ported("speculative serving (spec_k)", "queue 1, item 6: speculative decoding")
+            raise not_ported("speculative serving (spec_k)", "queue 1, item 3: speculative decoding")
         if mesh is not None:
-            raise not_ported("tensor-parallel serving (mesh)", "queue 1, item 10: parallel layouts")
+            raise not_ported("tensor-parallel serving (mesh)", "queue 1, item 5: parallel layouts")
         self.device = resolve_device(device)
         if checkpoint is not None:
             config, weights = load_checkpoint(checkpoint)
@@ -132,6 +147,13 @@ class ContinuousBatchingEngine:
         self.weights = weights
         self.n_slots = n_slots
         self.mode = mode
+        # "host": per-request xorshift samplers, one forward per step.
+        # "device": forward and sampling chunked on the device,
+        # decode_chunk_steps tokens per dispatch per slot.
+        self.sampling = sampling
+        self.decode_chunk_steps = decode_chunk_steps
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(seed)
         # prefix_cache: requests sharing a prompt prefix adopt the pages that
         # cover it; their admission prefill runs only the prompt suffix, at
         # pos_start = the matched rows.
@@ -194,6 +216,9 @@ class ContinuousBatchingEngine:
         # mask) until its final chunk samples the first token.
         self._partials: dict[int, dict] = {}
         self._partial_waves = 0
+        # Device sampling pipelines decode chunks: the chunk whose tokens are
+        # still on the device, {toks, last, n_steps, pos0, active, reqs}.
+        self._inflight: Optional[dict] = None
 
     # ------------------------------------------------------- step functions
     def _forward(self, tokens, pos, **kw):
@@ -215,6 +240,76 @@ class ContinuousBatchingEngine:
         logits, self.cache = self._forward(tokens, pos, out_idx=out_idx, page_table=tables, fresh_prefill=fresh)
         return logits
 
+    def _to_device(self, a, dtype) -> torch.Tensor:
+        """A host array as a device tensor, copied without waiting for the
+        device (from pinned memory) on the card."""
+        t = torch.as_tensor(np.asarray(a)).to(dtype)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def _to_host(self, t: torch.Tensor) -> dict:
+        """Start the copy of a device tensor to the host; ``_host_array``
+        waits for it."""
+        if self.device.type != "cuda":
+            return {"host": t}
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return {"host": host, "done": done}
+
+    @staticmethod
+    def _host_array(copy: dict) -> np.ndarray:
+        if "done" in copy:
+            copy["done"].synchronize()
+        return copy["host"].numpy()
+
+    def _prefill_paged_sampled(self, tokens, out_idx, tables, pos, temps, topps, slots, fresh, generator=None):
+        """Device-sampling admission: the batched prefill, its first tokens
+        sampled on the device, and those scattered into ``fresh`` (the next
+        chunk's input, [n_slots] on the device) at ``slots`` (one per real
+        row; padding rows drop).  Returns (tokens [k_pad], fresh)."""
+        logits = self._prefill_paged(tokens, out_idx, tables, pos)
+        toks = sample_tokens(logits, generator or self._gen, self._to_device(temps, torch.float32),
+                             self._to_device(topps, torch.float32))
+        if len(slots):
+            fresh = fresh.clone()
+            fresh[self._to_device(slots, torch.long)] = toks[: len(slots)]
+        return toks, fresh
+
+    def _decode_chunked(self, prev_last, fresh, pos0, active, temps, topps, n_steps, generator=None):
+        """``n_steps`` decode-and-sample steps of every slot on the device:
+        slots with ``fresh >= 0`` start from that token, the others from
+        ``prev_last`` (the previous chunk's last tokens, still on the
+        device); inactive slots write nothing.  Returns (tokens
+        [n_steps, n_slots], the last row) on the device.
+
+        Dense slots whose shapes pass the megakernel gate run each step as
+        one megakernel launch from device tokens and positions (no host
+        synchronisation inside the chunk); other steps take the forward with
+        the host-known positions ``pos0 + i``."""
+        gen = generator or self._gen
+        tokens = torch.where(fresh >= 0, fresh, prev_last)
+        temps_t, topps_t = self._to_device(temps, torch.float32), self._to_device(topps, torch.float32)
+        paged = self.kv_layout == "paged"
+        fused = megakernel_route(self.config, self.cache, self.n_slots, 1, self.mode, paged,
+                                 q4=isinstance(self.weights.layers.wqkv, Q4Tensor))
+        if fused:
+            pos_dev = self._to_device(pos0, torch.int32)
+            ok = self._to_device(active, torch.int32)
+        tables = {"page_table": self.allocator.tables} if paged else {}
+        out = []
+        for i in range(n_steps):
+            if fused:
+                logits = megakernel_step(self.config, self.weights, tokens, self.cache, pos_dev, ok)
+                pos_dev = pos_dev + 1
+            else:
+                logits, self.cache = self._forward(tokens[:, None], pos0 + i, write_mask=active, **tables)
+            tokens = sample_tokens(logits, gen, temps_t, topps_t)
+            out.append(tokens)
+        return torch.stack(out), tokens
+
     # ------------------------------------------------------------------ api
     def warmup(self) -> None:
         """Build the kernels and run one prefill per warmed bucket and one
@@ -225,18 +320,34 @@ class ContinuousBatchingEngine:
         every slot masked."""
         if self.device.type == "cuda":
             build.build()
+        device = self.sampling == "device"
+        # Warm-up draws come from a generator of their own: the engine's
+        # stream stays as it would be without the warm-up.
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(0)
         for b in self._warm_buckets():
             s_pad = min(b, self.config.seq_len)
             tokens = np.zeros((1, s_pad), np.int64)
             if self.kv_layout == "paged":
                 tables = np.zeros((1, self.allocator.max_pages_per_slot), np.int32)
-                self._prefill_paged(tokens, [0], tables)
+                if device:
+                    self._prefill_paged_sampled(tokens, [0], tables, None, [0.0], [1.0], [],
+                                                self._to_device(np.full(self.n_slots, -1), torch.int32), gen)
+                else:
+                    self._prefill_paged(tokens, [0], tables)
             else:
                 _, self._scratch_cache = qwen3_forward(
                     self.config, self.weights, tokens, self._scratch_cache, [0],
                     mode=self.mode, out_idx=[0], fresh_prefill=True,
                 )
-        self._decode(np.zeros(self.n_slots, bool))
+        inactive = np.zeros(self.n_slots, bool)
+        if device:
+            zeros = torch.zeros(self.n_slots, dtype=torch.int32, device=self.device)
+            self._decode_chunked(zeros, zeros, self.slot_pos.copy(), inactive, np.zeros(self.n_slots, np.float32),
+                                 np.ones(self.n_slots, np.float32),
+                                 max(1, min(self.decode_chunk_steps, self.config.seq_len)), gen)
+        else:
+            self._decode(inactive)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -252,7 +363,7 @@ class ContinuousBatchingEngine:
 
     @property
     def has_work(self) -> bool:
-        return bool(self.queue) or self.active_count > 0 or bool(self._partials)
+        return bool(self.queue) or self.active_count > 0 or self._inflight is not None or bool(self._partials)
 
     def _ladder(self) -> list[int]:
         """The widths above the largest declared bucket (last bucket × 2^k,
@@ -292,25 +403,45 @@ class ContinuousBatchingEngine:
     def step(self) -> list[tuple[Request, int]]:
         """One scheduler iteration.  Returns the (request, token) pairs emitted."""
         emitted: list[tuple[Request, int]] = []
+        # Device sampling on the pool defers admissions: their first tokens
+        # stay on the device, chained into the next chunk's input (``fresh``),
+        # and are read only after that chunk is dispatched.
+        deferred = self.sampling == "device" and self.kv_layout == "paged"
+        prev = self._inflight
+        fresh = self._to_device(self._fresh_base(prev), torch.int32) if deferred else None
+        pending: list[dict] = [] if deferred else None
         admitted = 0
         if self.prefill_chunk is not None:
             # Advance every mid-prefill slot by one chunk (and start new
             # partials from the queue head) before the group admission, so
             # that short prompts still admit into the remaining slots.  New
             # partial starts count against max_admissions_per_step.
-            admitted += self._advance_partials(emitted, budget=self.max_admissions_per_step)
+            fresh, started = self._advance_partials(emitted, fresh, pending, budget=self.max_admissions_per_step)
+            admitted += started
         while True:
             budget = None if self.max_admissions_per_step is None else self.max_admissions_per_step - admitted
             if budget is not None and budget <= 0:
                 break
             if self.kv_layout == "paged":
-                k = self._admit_group(emitted, budget)
+                k, fresh = self._admit_group(emitted, budget, fresh=fresh, pending=pending)
             else:
                 k = 1 if self._admit_one(emitted) else 0
             if k == 0:
                 break
             admitted += k
-        if self.active_count:
+        if self.sampling == "device":
+            # Dispatch the next chunk first, then read the previous one (and
+            # the deferred admissions) while it runs.  When every live slot
+            # is certain to finish inside the previous chunk, the next one
+            # would run for nothing: skip it.
+            self._inflight = None
+            if self.active_count and not self._all_live_finish_within(prev):
+                self._inflight = self._dispatch_chunk(prev, fresh)
+            for entry in pending or ():
+                self._process_admits(entry, emitted)
+            if prev is not None:
+                self._process_chunk(prev, emitted)
+        elif self.active_count:
             self._decode_all(emitted)
         return emitted
 
@@ -351,15 +482,20 @@ class ContinuousBatchingEngine:
             p *= 2
         return min(p, self.n_slots)
 
-    def _admit_group(self, emitted, budget: int | None) -> int:
+    def _admit_group(self, emitted, budget: int | None, *, fresh=None, pending=None) -> tuple[int, object]:
         """Admit a group of queued requests with one batched prefill (paged
         layout).  The group is the longest FCFS prefix that shares a prompt
         bucket and a fresh/continued mode, fits in the free slots and pages,
         and respects ``budget``; the step() loop admits the next group at
-        once.  Returns the number admitted."""
+        once.  Returns (the number admitted, ``fresh``).
+
+        With ``pending`` (device sampling) the admission is deferred: the
+        first tokens are sampled on the device and scattered into ``fresh``
+        for the next chunk, and ``_process_admits`` reads them after that
+        chunk's dispatch."""
         free = [i for i, r in enumerate(self.slot_request) if r is None and i not in self._partials]
         if not free or not self.queue:
-            return 0
+            return 0, fresh
         limit = len(free) if budget is None else min(len(free), budget)
         # (request, prompt_len, hit_rows, hit_pages): hit_* nonzero only with
         # prefix_cache on and an indexed prefix match.
@@ -405,7 +541,7 @@ class ContinuousBatchingEngine:
             avail -= need
             picks.append((req, prompt_len, hrows, hpages))
         if not picks:
-            if self.active_count == 0 and not self._partials:
+            if self.active_count == 0 and self._inflight is None and not self._partials:
                 head = self.queue[0]
                 # Leave the head to _advance_partials only when it would take
                 # it (it routes by the prefix-adjusted suffix).
@@ -416,12 +552,12 @@ class ContinuousBatchingEngine:
                         if self.prefix_cache else 0
                     )
                     if plen - head_hrows > self.prefill_chunk:
-                        return 0
+                        return 0, fresh
                 raise RuntimeError(
                     f"request {head.request_id} needs more KV pages than the pool holds "
                     f"({self.allocator.n_pages}); raise n_pages or lower max_new_tokens"
                 )
-            return 0  # wait for active requests to release pages
+            return 0, fresh  # wait for active requests to release pages
 
         k = len(picks)
         k_pad = self._pad_group(k)
@@ -454,18 +590,39 @@ class ContinuousBatchingEngine:
                     self._prefix_rows_reused += hrows
         # Padding rows (i >= k) keep zero tokens and all-null page tables:
         # their K/V lands in the null page, which no request reads.
-        logits = self._prefill_paged(tokens, out_idx, tables, pos0 if cont_group else None)
+        pos = pos0 if cont_group else None
+        if pending is not None:
+            reqs = [p[0] for p in picks]
+            toks, fresh = self._prefill_paged_sampled(tokens, out_idx, tables, pos, *self._sampling_rows(reqs, k_pad),
+                                                      slots, fresh)
+            for i, (req, prompt_len, _, _) in enumerate(picks):
+                self._occupy(req, slots[i], prompt_len)
+            pending.append({"toks": self._to_host(toks[:k]), "picks": [(r, pl) for r, pl, _, _ in picks]})
+            return k, fresh
+        logits = self._prefill_paged(tokens, out_idx, tables, pos)
         logits_np = logits[:k].float().cpu().numpy()
         for i, (req, prompt_len, _, _) in enumerate(picks):
             self._occupy(req, slots[i], prompt_len)
             self._first_token(req, req._sampler.sample(logits_np[i]), emitted)
-        return k
+        return k, fresh
 
-    def _advance_partials(self, emitted, *, budget=None) -> int:
+    @staticmethod
+    def _sampling_rows(reqs, rows: int) -> tuple[np.ndarray, np.ndarray]:
+        """Per-row temperatures and top-p of ``rows`` rows: the requests',
+        then greedy padding (an empty row is None)."""
+        temps = np.zeros(rows, np.float32)
+        topps = np.ones(rows, np.float32)
+        for i, r in enumerate(reqs):
+            if r is not None:
+                temps[i], topps[i] = r.temperature, r.topp
+        return temps, topps
+
+    def _advance_partials(self, emitted, fresh=None, pending=None, *, budget=None) -> tuple[object, int]:
         """Chunked prefill: start new partial prefills from the queue head and
         advance every partial by one chunk.  Intermediate chunks only write
-        the cache; a partial's final chunk samples its first token.
-        ``budget`` caps the new starts.  Returns the number started."""
+        the cache; a partial's final chunk samples its first token (deferred,
+        as ``_admit_group``'s, with ``pending``).  ``budget`` caps the new
+        starts.  Returns (``fresh``, the number started)."""
         chunk = self.prefill_chunk
         started = 0
         while self.queue:
@@ -486,7 +643,7 @@ class ContinuousBatchingEngine:
             need = -(-worst_rows // self.page_size)
             if need > self.allocator.free_pages:
                 # Backpressure; if nothing holds pages, it never fits.
-                if self.active_count == 0 and not self._partials:
+                if self.active_count == 0 and self._inflight is None and not self._partials:
                     raise RuntimeError(
                         f"request {req.request_id} needs more KV pages than the pool holds "
                         f"({self.allocator.n_pages}); raise n_pages or lower max_new_tokens"
@@ -502,7 +659,7 @@ class ContinuousBatchingEngine:
             self._partials[slot] = {"req": req, "done": hrows, "plen": prompt_len}
             started += 1
         if not self._partials:
-            return started
+            return fresh, started
         # One chunk per partial per step; intermediate chunks share one wave,
         # final chunks group by their suffix bucket.
         inter = [s for s, p in self._partials.items() if p["plen"] - p["done"] > chunk]
@@ -515,12 +672,12 @@ class ContinuousBatchingEngine:
             b = max(rem, min(self._bucket(rem), self.config.seq_len))
             by_bucket.setdefault(b, []).append(s)
         for b, slots in sorted(by_bucket.items()):
-            self._partial_wave(sorted(slots), b, final=True, emitted=emitted)
-        return started
+            fresh = self._partial_wave(sorted(slots), b, final=True, emitted=emitted, fresh=fresh, pending=pending)
+        return fresh, started
 
-    def _partial_wave(self, slots, win, *, final, emitted) -> None:
+    def _partial_wave(self, slots, win, *, final, emitted, fresh=None, pending=None):
         """One batched continued prefill over partial slots: ``win`` prompt
-        rows per slot from each slot's done-rows offset."""
+        rows per slot from each slot's done-rows offset.  Returns ``fresh``."""
         k = len(slots)
         k_pad = self._pad_group(k)
         tokens = np.zeros((k_pad, win), np.int64)
@@ -535,24 +692,33 @@ class ContinuousBatchingEngine:
             pos0[i] = p["done"]
             tables[i] = self.allocator.tables[s]
         self._partial_waves += 1
-        logits = self._prefill_paged(tokens, out_idx, tables, pos0)
         if not final:
+            self._prefill_paged(tokens, out_idx, tables, pos0)  # cache writes only
             for i, s in enumerate(slots):
                 self._partials[s]["done"] += int(out_idx[i]) + 1
-            return
+            return fresh
         picks = [(self._partials[s]["req"], self._partials[s]["plen"]) for s in slots]
         for s in slots:
             del self._partials[s]
-        logits_np = logits[:k].float().cpu().numpy()
-        for i, (req, plen) in enumerate(picks):
-            self._occupy(req, slots[i], plen)
-            self._first_token(req, req._sampler.sample(logits_np[i]), emitted)
+        if pending is not None:
+            toks, fresh = self._prefill_paged_sampled(tokens, out_idx, tables, pos0,
+                                                      *self._sampling_rows([r for r, _ in picks], k_pad), slots, fresh)
+            for i, (req, plen) in enumerate(picks):
+                self._occupy(req, slots[i], plen)
+            pending.append({"toks": self._to_host(toks[:k]), "picks": picks})
+        else:
+            logits = self._prefill_paged(tokens, out_idx, tables, pos0)
+            logits_np = logits[:k].float().cpu().numpy()
+            for i, (req, plen) in enumerate(picks):
+                self._occupy(req, slots[i], plen)
+                self._first_token(req, req._sampler.sample(logits_np[i]), emitted)
         if self.prefix_cache:
             # Register only now that every prompt page is written: a partial
             # registered at its start would let another admission adopt
             # half-written pages.
             for i, (req, plen) in enumerate(picks):
                 self.allocator.register_prefix(slots[i], req.prompt_tokens[:plen], self.page_size)
+        return fresh
 
     def _occupy(self, req: Request, slot: int, s_real: int) -> None:
         """Bind an admitted request to its slot."""
@@ -588,6 +754,93 @@ class ContinuousBatchingEngine:
             token = req._sampler.sample(logits_np[slot])
             self.slot_token[slot] = token
             self._emit(req, token, emitted)
+
+    # ------------------------------------------------------- device sampling
+    def _process_admits(self, entry: dict, emitted) -> None:
+        """Read a deferred admission group's first tokens (the chunk that
+        consumes them is already dispatched) and emit them."""
+        firsts = self._host_array(entry["toks"])
+        for i, (req, _) in enumerate(entry["picks"]):
+            self._first_token(req, int(firsts[i]), emitted)
+
+    def _fresh_base(self, prev: Optional[dict]) -> np.ndarray:
+        """Host-known starting tokens of the next chunk: -1 for slots that are
+        empty or chain on the device from ``prev`` (the same request active
+        there), the last processed token otherwise."""
+        fresh = np.full(self.n_slots, -1, np.int32)
+        for slot, r in enumerate(self.slot_request):
+            if r is None:
+                continue
+            if not (prev is not None and prev["active"][slot] and prev["reqs"][slot] is r):
+                fresh[slot] = self.slot_token[slot]
+        return fresh
+
+    def _provably_done(self, r: Request, slot: int) -> bool:
+        """Whether the request is certain to finish by the tokens already
+        dispatched (processed and in flight): ``slot_pos`` is the dispatch
+        position, so it less the prompt end and the processed tokens counts
+        the unread ones (a deferred first token included).  EOS only ends a
+        request earlier, so True is exact."""
+        pending = int(self.slot_pos[slot]) - (r._next_pos + len(r.generated) - 1)
+        return (len(r.generated) + pending >= r.max_new_tokens
+                or int(self.slot_pos[slot]) >= self.config.seq_len)
+
+    def _all_live_finish_within(self, prev: Optional[dict]) -> bool:
+        """Whether every live slot is certain to finish inside the unread
+        chunk ``prev``: the next chunk would decode for nothing."""
+        if prev is None:
+            return False
+        live = [(slot, r) for slot, r in enumerate(self.slot_request) if r is not None]
+        return bool(live) and all(self._provably_done(r, s) for s, r in live)
+
+    def _dispatch_chunk(self, prev: Optional[dict], fresh=None) -> dict:
+        """Dispatch one device-sampled decode chunk without reading the
+        previous one: continuing slots take its last tokens on the device,
+        slots (re)admitted since take their known first token.  Slots whose
+        request is certain to finish inside ``prev`` are masked out (they
+        would otherwise shorten the chunk for every slot near the context
+        end); a request that turns out to finish inside ``prev`` decodes on
+        here with its tokens dropped and its writes masked or on its own
+        released rows, which a later admission's prefill overwrites in
+        dispatch order."""
+        active = np.array([r is not None and not self._provably_done(r, slot)
+                           for slot, r in enumerate(self.slot_request)])
+        reqs = list(self.slot_request)
+        if fresh is None:  # dense slots: admissions are synchronous, every start is known
+            fresh = self._to_device(self._fresh_base(prev), torch.int32)
+        prev_last = torch.zeros(self.n_slots, dtype=torch.int32, device=self.device) if prev is None else prev["last"]
+        pos0 = self.slot_pos.copy()
+        live_pos = pos0[active]
+        max_pos = int(live_pos.max()) if live_pos.size else 0
+        n_steps = max(1, min(self.decode_chunk_steps, self.config.seq_len - max_pos))
+        toks, last = self._decode_chunked(prev_last, fresh, pos0, active, *self._sampling_rows(reqs, self.n_slots),
+                                          n_steps)
+        # Dispatch-time positions advance now; request state when it is read.
+        self.slot_pos[active] += n_steps
+        return {"toks": self._to_host(toks), "last": last, "n_steps": n_steps, "pos0": pos0, "active": active,
+                "reqs": reqs}
+
+    def _process_chunk(self, chunk: dict, emitted) -> None:
+        """Read one chunk's tokens and emit them; EOS and length end a
+        request on the host (its rows past that point are never read)."""
+        toks_np = self._host_array(chunk["toks"])  # [n_steps, B]
+        n_steps = chunk["n_steps"]
+        self._decode_steps += n_steps
+        for slot, req in enumerate(chunk["reqs"]):
+            if req is None or req.state is not RequestState.ACTIVE:
+                continue  # empty at dispatch, or finished in an earlier chunk
+            pos = int(chunk["pos0"][slot])
+            for i in range(n_steps):
+                self._decode_tokens += 1
+                pos += 1
+                if pos >= self.config.seq_len:
+                    self._finish(req, "length")
+                    break
+                token = int(toks_np[i, slot])
+                self.slot_token[slot] = token
+                self._emit(req, token, emitted)
+                if req.state is RequestState.DONE:
+                    break
 
     def _emit(self, req: Request, token: int, emitted) -> None:
         if token in req.eos_token_ids:

@@ -177,15 +177,17 @@ def paged_read_bytes(pos, n_kv: int, head_dim: int, elem_bytes: int) -> int:
     return 2 * sum(int(p) for p in pos) * n_kv * _kv_row_bytes(head_dim, elem_bytes)
 
 
-def megakernel_bytes(config: ModelConfig, pos, elem_bytes: int, written: int, v_pad: int | None = None) -> int:
+def megakernel_bytes(config: ModelConfig, pos, elem_bytes: int, written: int, v_pad: int | None = None,
+                     bits: int = 8) -> int:
     """Least device-memory bytes of one decode step through the megakernel
     (kernel #11) for rows at positions ``pos``: the weights and their bf16
     scales once (``weight_bytes_per_decode_token``, the classifier only with
-    ``v_pad``), the cache rows below each position read once (every layer,
-    K and V; ``elem_bytes`` as in ``paged_read_bytes``), the ``written`` rows'
-    K/V written once, and the f32 stream in and out and the logits out."""
+    ``v_pad``; ``bits=4``: INT4 layers), the cache rows below each position
+    read once (every layer, K and V; ``elem_bytes`` as in
+    ``paged_read_bytes``), the ``written`` rows' K/V written once, and the f32
+    stream in and out and the logits out."""
     c = config
-    weights = weight_bytes_per_decode_token(c, scale_bytes=2)
+    weights = weight_bytes_per_decode_token(c, scale_bytes=2, bits=bits)
     if v_pad is None:
         weights -= int(c.vocab_size * c.dim * (1.0 + 2 / c.group_size))
     rows = sum(min(int(p), c.seq_len) for p in pos) + written

@@ -1,0 +1,62 @@
+"""The port's public API against the JAX package's: every name in an
+``__all__`` list of the JAX package exists in the port's module of the same
+path, or is listed in ``qwen3_rs_tpu_torch.NOT_PORTED`` with its ROADMAP.md
+item; the model registry and ``ModelConfig.architecture_name`` agree."""
+
+import dataclasses
+import importlib
+
+import pytest
+
+import qwen3_rs_tpu
+import qwen3_rs_tpu_torch
+from qwen3_rs_tpu.configuration import ModelConfig as JaxConfig
+from qwen3_rs_tpu_torch.configuration import ModelConfig
+from qwen3_rs_tpu_torch.models import MODEL_FORWARDS, get_forward, qwen3_forward
+
+MODULES = ["", "models", "ops", "inference", "serving", "export", "utils", "parallel"]
+
+
+def _listed(*parts):
+    return ".".join(p for p in parts if p) in qwen3_rs_tpu_torch.NOT_PORTED
+
+
+@pytest.mark.parametrize("sub", MODULES)
+def test_every_public_name_is_ported_or_listed(sub):
+    suffix = "." + sub if sub else ""
+    ref = importlib.import_module("qwen3_rs_tpu" + suffix)
+    if _listed(sub):
+        return
+    port = importlib.import_module("qwen3_rs_tpu_torch" + suffix)
+    names = [n for n in ref.__all__ if not _listed(sub, n)]
+    missing = [n for n in names if not hasattr(port, n)]
+    assert not missing, f"qwen3_rs_tpu{suffix}: {missing} neither ported nor listed as not ported"
+    assert set(names) <= set(port.__all__)
+
+
+def test_not_ported_names_their_roadmap_item():
+    for what, item in qwen3_rs_tpu_torch.NOT_PORTED.items():
+        assert item.startswith("queue 1, item "), (what, item)
+        mod = importlib.import_module("qwen3_rs_tpu." + what.split(".")[0])
+        rest = what.split(".")[1:]
+        assert not rest or hasattr(mod, rest[0]) or importlib.import_module(f"qwen3_rs_tpu.{what}")
+
+
+@pytest.mark.parametrize("arch", [1, 2, 7])
+def test_registry_and_architecture_name_match_jax(arch):
+    import qwen3_rs_tpu.models as jax_models
+
+    c = ModelConfig(architecture_id=arch, dim=64, hidden_dim=128, n_layers=1, n_heads=2, n_kv_heads=1, head_dim=32,
+                    seq_len=16, vocab_size=32, group_size=32, shared_classifier=True)
+    assert c.architecture_name == JaxConfig(**dataclasses.asdict(c)).architecture_name
+    assert set(MODEL_FORWARDS) == set(jax_models.MODEL_FORWARDS)
+    if arch in MODEL_FORWARDS:
+        assert get_forward(c) is qwen3_forward
+    else:
+        with pytest.raises(ValueError, match="Unknown architecture_id"):
+            get_forward(c)
+
+
+def test_top_level_docstring_names_the_formats():
+    doc = qwen3_rs_tpu_torch.__doc__
+    assert "INT4" in doc and "device sampling" in doc and qwen3_rs_tpu.__all__

@@ -68,6 +68,8 @@ def _gen(seed):
         (512, 1040, 16, "rms", None),  # ragged last strip, g = 16
         (1024, 512, 64, "swiglu", "bf16"),
         (4096, 4096, 64, None, "f32"),  # split contraction + residual added once
+        (256, 512, 2, None, None),  # g = 2: every code row starts a group
+        (768, 512, 6, "rms", None),  # g = 6: groups straddle the rows in flight
     ],
 )
 def test_qmatmul_matches_plain(card, rows, n, d, g, prologue, residual):
@@ -120,7 +122,7 @@ def test_qmatmul_refuses_what_it_cannot_take(card):
 
 
 @pytest.mark.parametrize("cache", ["f32", "bf16", "int8"])
-@pytest.mark.parametrize("kv_mul", [1, 2, 4, 8])
+@pytest.mark.parametrize("kv_mul", [1, 2, 3, 4, 5, 6, 8, 16])
 def test_flash_decode_matches_plain(card, cache, kv_mul):
     gen = _gen(kv_mul * 3 + len(cache))
     layers, n_kv, t, hd = 2, 2, 200, 128  # T not a multiple of the 128-row chunk
@@ -232,8 +234,11 @@ def _q4_weights(gen, card, layers, n, d, g, scale_dtype=torch.bfloat16):
         (512, 1040, 16, "rms", None),  # ragged last strip, g = 16
         (1024, 512, 64, "swiglu", "bf16"),
         (4096, 4096, 64, None, "f32"),  # split contraction + residual added once
-        (768, 512, 128, "rms", "f32"),  # g = 128: splits of whole groups
+        (768, 512, 128, "rms", "f32"),  # g = 128
         (640, 64, 8, None, None),  # g = 8: 4 packed rows per half-group
+        (1024, 512, 512, "rms", "f32"),  # g = 512: a group spans two staged tiles
+        (768, 64, 6, None, None),  # g = 6: half-groups straddle the rows in flight
+        (512, 256, 2, "swiglu", None),  # g = 2: one packed row per group
     ],
 )
 def test_qmatmul_q4_matches_plain(card, rows, n, d, g, prologue, residual):
@@ -293,7 +298,8 @@ def test_qmatmul_q4_unstacked(card):
 @pytest.mark.parametrize(
     "n,d,g,scale_dtype",
     [(256, 48, 64, torch.bfloat16), (512, 1040, 64, torch.float32), (1024, 384, 32, torch.bfloat16),
-     (512, 256, 16, torch.bfloat16), (1024, 128, 128, torch.float32)],
+     (512, 256, 16, torch.bfloat16), (1024, 128, 128, torch.float32), (768, 256, 6, torch.bfloat16),
+     (512, 128, 2, torch.bfloat16), (1024, 128, 512, torch.float32), (768, 256, 24, torch.bfloat16)],
 )
 def test_qmatmul_rows_q4_matches_plain(card, rows, n, d, g, scale_dtype):
     gen = _gen(rows + d + 5)
@@ -322,8 +328,9 @@ def test_q4_wrappers_refuse_what_they_cannot_take(card):
     w = _q4_weights(_gen(1), card, 2, 256, 64, 64)
     with pytest.raises(ValueError, match="dequant_q4_stacked"):
         dequant_w8_stacked(w, 0)
-    with pytest.raises(ValueError, match="INT4 group size"):
-        qmatmul_w8a16(torch.zeros(1, 192, device=card), _q4_weights(_gen(2), card, 1, 192, 64, 48), 0)
+    odd = Q4Tensor(w.q[:1, :96], torch.ones(1, 64, 64, dtype=torch.bfloat16, device=card))  # 3-row groups
+    with pytest.raises(ValueError, match="INT4 group size 3 must be even"):
+        qmatmul_w8a16(torch.zeros(1, 192, device=card), odd, 0)
     with pytest.raises(ValueError, match="codes must be contiguous"):
         qmatmul_w8a16(torch.zeros(1, 256, device=card), Q4Tensor(w.q.to(torch.int8), w.scales), 0)
 
@@ -380,7 +387,7 @@ def test_qmatmul_a8_matches_plain_bit_exact(card, rows, n, d, g):
 
 
 @pytest.mark.parametrize("s", [1, 2, 63, 64, 65, 200, 257, 1000])
-@pytest.mark.parametrize("kv_mul", [1, 2, 4, 8])
+@pytest.mark.parametrize("kv_mul", [1, 2, 3, 4, 5, 6, 8, 12])
 def test_prefill_attention_matches_plain(card, s, kv_mul):
     gen = _gen(s * 11 + kv_mul)
     b, n_kv = 2, 2
@@ -445,7 +452,7 @@ def _tables(gen, card, b, max_pages, n_pages):
 
 
 @pytest.mark.parametrize("pool", ["f32", "bf16", "int8"])
-@pytest.mark.parametrize("kv_mul", [1, 2, 4, 8])
+@pytest.mark.parametrize("kv_mul", [1, 2, 3, 4, 5, 8, 16])
 @pytest.mark.parametrize("page", [16, 128])
 def test_paged_decode_matches_plain(card, pool, kv_mul, page):
     gen = _gen(kv_mul * 5 + page + len(pool))
@@ -490,7 +497,7 @@ def test_paged_kernels_read_no_row_at_or_past_pos(card):
 
 
 @pytest.mark.parametrize("pool", ["bf16", "int8"])
-@pytest.mark.parametrize("s,kv_mul", [(2, 1), (3, 2), (32, 4), (16, 8), (5, 4)])
+@pytest.mark.parametrize("s,kv_mul", [(2, 1), (3, 2), (32, 4), (16, 8), (5, 4), (4, 3), (3, 5), (8, 16)])
 @pytest.mark.parametrize("page", [16, 128])
 def test_paged_window_matches_plain(card, pool, s, kv_mul, page):
     gen = _gen(s * 7 + kv_mul + page)
@@ -546,14 +553,19 @@ def test_paged_serving_card_matches_cpu(card):
     assert firsts[0] == firsts[1]
 
 
-def _mega_inputs(gen, card, cfg, b, cache, v_pad):
+def _mega_inputs(gen, card, cfg, b, cache, v_pad, q4=False):
     """Random weights (bf16 scales), stream, RoPE rows and caches for the
-    decode megakernel at ``cfg``'s shapes."""
+    decode megakernel at ``cfg``'s shapes; ``q4``: INT4 layer matrices
+    (random packed bytes, every nibble), the classifier INT8."""
     L, g, hd = cfg.n_layers, cfg.group_size, cfg.head_dim
 
     def qt(*shape):
-        codes = torch.randint(-127, 128, shape, generator=gen, device=card, dtype=torch.int8)
         scales = (torch.rand(*shape[:-2], shape[-2] // g, shape[-1], generator=gen, device=card) * 0.004 + 1e-3)
+        if q4 and len(shape) == 3:
+            packed = torch.randint(0, 256, (*shape[:-2], shape[-2] // 2, shape[-1]), generator=gen, device=card,
+                                   dtype=torch.uint8)
+            return Q4Tensor(packed, (scales * 16).to(torch.bfloat16))
+        codes = torch.randint(-127, 128, shape, generator=gen, device=card, dtype=torch.int8)
         return QuantizedTensor(codes, scales.to(torch.bfloat16))
 
     def norm(*shape):
@@ -583,7 +595,8 @@ def _mega(fn, cfg, w, x, cos, sin, kv, sc, pos, ok, head=True, greedy=False):
 
 
 @pytest.mark.parametrize("cache", ["f32", "bf16", "int8"])
-@pytest.mark.parametrize("heads,b", [((4, 4), 1), ((4, 2), 3), ((8, 2), 8), ((8, 1), 2)])
+@pytest.mark.parametrize("heads,b", [((4, 4), 1), ((4, 2), 3), ((8, 2), 8), ((8, 1), 2), ((5, 1), 2), ((12, 1), 3),
+                                     ((16, 1), 1)])
 def test_megakernel_matches_plain(card, cache, heads, b):
     """Ragged cache (200 rows: not a multiple of the 128-row chunk), mixed
     positions (0, past the window with its write gate on: clamped to the last
@@ -656,3 +669,99 @@ def test_megakernel_engine_decode_chunk_matches_cpu(card):
         if eng.device.type == "cuda":
             assert LAUNCHES["decode_megakernel"] == before + 12
     assert toks[0] == toks[1]
+
+
+@pytest.mark.parametrize("cache", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("g,heads,b", [(64, (4, 2), 1), (32, (4, 4), 3), (128, (8, 2), 8), (64, (8, 1), 5),
+                                       (32, (8, 2), 2), (2, (4, 2), 2), (4, (12, 1), 1), (512, (4, 2), 3)])
+def test_megakernel_q4_matches_plain(card, cache, g, heads, b):
+    """INT4 layers (the Q4 tiles) against the plain version: group sizes 2
+    to 512, 1 to 12 query heads per kv head, B = 1..8, a ragged 200-row
+    cache, odd positions, a row past the window with its write gate off and
+    one with it on (clamped to the last row); logits, greedy and the stream,
+    at the INT8 cases' tolerances."""
+    cfg = ModelConfig(architecture_id=1, dim=512, hidden_dim=1024 if g == 512 else 768, n_layers=2,
+                      n_heads=heads[0], n_kv_heads=heads[1], head_dim=128, seq_len=200, vocab_size=1000,
+                      group_size=g, shared_classifier=True)
+    gen = _gen(b * 37 + g + heads[0] * 5 + len(cache))
+    w, x, cos, sin, kv, sc = _mega_inputs(gen, card, cfg, b, cache, 1024, q4=True)
+    assert isinstance(w["wqkv"], Q4Tensor) and not isinstance(w["lm_head"], Q4Tensor)
+    pos = torch.tensor([77, 211, 3, 205, 0, 199, 131, 64][:b], dtype=torch.int32, device=card)
+    ok = torch.tensor([1, 0, 1, 1, 0, 1, 1, 1][:b], dtype=torch.int32, device=card)
+    copies = [[t.clone() if t is not None else None for t in kv + sc] for _ in range(3)]
+    before = dict(LAUNCHES)
+    gx, glog = _mega(decode_stack_megakernel, cfg, w, x, cos, sin, copies[0][:2], copies[0][2:], pos, ok)
+    assert LAUNCHES["decode_megakernel_q4"] == before["decode_megakernel_q4"] + 1
+    assert LAUNCHES["decode_megakernel"] == before["decode_megakernel"]
+    px, plog = _mega(decode_stack_megakernel_plain, cfg, w, x, cos, sin, copies[1][:2], copies[1][2:], pos, ok)
+    _, gtok = _mega(decode_stack_megakernel, cfg, w, x, cos, sin, copies[2][:2], copies[2][2:], pos, ok, greedy=True)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(glog).all())
+    for r in range(b):
+        assert float((gx[r] - px[r]).abs().max()) <= 5e-3 * float(px[r].abs().max()), r
+        assert float((glog[r] - plog[r]).abs().max()) <= 1e-2 * float(plog[r].abs().max()), r
+    assert torch.equal(gtok, glog[:, : cfg.vocab_size].argmax(-1).to(torch.int32))
+    for i in range(2):
+        got, ref, old = copies[0][i].float(), copies[1][i].float(), kv[i].float()
+        if cache == "int8":
+            assert float((got - ref).abs().max()) <= 1
+        else:
+            # The second layer's rows carry the stream's error, and a bf16 row
+            # may then round one step apart (at most 2^-7 of its value).
+            lim = 5e-3 * float(ref.abs().max()) + 2.0**-7 * ref.abs()
+            assert bool(((got - ref).abs() <= lim).all())
+        for r in range(b):
+            keep = torch.ones(cfg.seq_len, dtype=torch.bool, device=card)
+            if ok[r]:
+                keep[min(int(pos[r]), cfg.seq_len - 1)] = False
+            assert torch.equal(got[:, r][:, :, keep], old[:, r][:, :, keep]), r
+        assert torch.equal(copies[2][i], copies[0][i])
+
+
+def test_megakernel_q4_refuses_what_it_cannot_take(card):
+    cfg = ModelConfig(architecture_id=1, dim=512, hidden_dim=768, n_layers=1, n_heads=4, n_kv_heads=2,
+                      head_dim=128, seq_len=128, vocab_size=1000, group_size=64, shared_classifier=True)
+    w, x, cos, sin, kv, sc = _mega_inputs(_gen(3), card, cfg, 1, "f32", 1024, q4=True)
+    pos = torch.tensor([5], dtype=torch.int32, device=card)
+    w8, _, _, _, _, _ = _mega_inputs(_gen(4), card, cfg, 1, "f32", 1024)
+    with pytest.raises(ValueError, match="mix INT8 and INT4"):
+        _mega(decode_stack_megakernel, cfg, dict(w, wo=w8["wo"]), x, cos, sin, kv, sc, pos, None)
+    with pytest.raises(ValueError, match="classifier must be INT8"):
+        _mega(decode_stack_megakernel, cfg, dict(w, lm_head=w["wqkv"]), x, cos, sin, kv, sc, pos, None)
+
+
+GATED = {  # case: (config overrides, bits, {wrapper key: launched?}), as the JAX gates route them
+    "head_dim 64": (dict(architecture_id=2, dim=256, hidden_dim=512, head_dim=64, shared_classifier=False,
+                         use_qk_norm=False), 8, {"flash_decode": False, "causal_prefill_attention": False}),
+    "INT4 g512": (dict(group_size=512), 4, {"qmatmul_w8a16_q4": True}),
+    "kv_mul 5": (dict(dim=256, n_heads=5, n_kv_heads=1), 8, {"flash_decode": True, "causal_prefill_attention": True}),
+}
+
+
+@pytest.mark.parametrize("case", list(GATED))
+def test_gated_shapes_run_on_the_card(card, case):
+    """A shape the JAX gates refuse (a head_dim-64 Llama) runs on the card
+    through the plain path, with no launch of the refused kernels; shapes
+    they admit that the port's kernels once refused (INT4 with 512-row
+    groups, 5 query heads per kv head) run through the kernels.  A 300-row
+    fresh window, a 20-row window and two decode steps, each within 2e-2 of
+    the largest logit of the CPU's."""
+    over, bits, launched = GATED[case]
+    cfg = ModelConfig(**{**dict(architecture_id=1, dim=512, hidden_dim=1024, n_layers=2, n_heads=4, n_kv_heads=2,
+                                head_dim=128, seq_len=512, vocab_size=512, group_size=64, shared_classifier=True),
+                         **over})
+    weights = random_weights(cfg, seed=8, device=card, bits=bits)
+    rng = np.random.default_rng(8)
+    engines = [Engine(config=cfg, weights=weights, device=card),
+               Engine(config=cfg, weights=weights_to(weights, "cpu"), device="cpu")]
+    caches = [e.new_cache() for e in engines]
+    before = dict(LAUNCHES)
+    pos = 0
+    for rows in (300, 20, 1, 1):
+        toks = rng.integers(0, cfg.vocab_size, (1, rows))
+        (lc, caches[0]), (lp, caches[1]) = (e.prefill(c, toks, [pos]) for e, c in zip(engines, caches))
+        err = float((lc.float().cpu() - lp.float()).abs().max())
+        assert err <= 2e-2 * float(lp.float().abs().max()), (rows, err)
+        pos += rows
+    torch.cuda.synchronize()
+    assert {k: LAUNCHES[k] > before[k] for k in launched} == launched, {k: LAUNCHES[k] - before[k] for k in launched}

@@ -1,7 +1,8 @@
 """The serving front end and the ``batch`` / ``serve`` CLI: every HTTP
 endpoint of the port's server on the CPU, ``render_chat`` against the JAX
-package's, ``batch`` JSON lines against the JAX CLI's ``batch --sampling
-host``, the "not ported" flags and the card default."""
+package's, ``batch`` JSON lines against the JAX CLI's (``--sampling host`` and the
+default device sampling), ``serve`` with its defaults, the "not ported" flags
+and the card default."""
 
 import contextlib
 import io
@@ -202,10 +203,66 @@ def test_batch_cli_matches_jax_cli(exported, tmp_path, flags, monkeypatch):  # n
     assert got == want
 
 
+@pytest.mark.parametrize("kv", ["dense", "paged"])
+def test_batch_cli_defaults_match_jax_cli(exported, tmp_path, kv, monkeypatch):  # noqa: F811
+    """``batch`` with no ``--sampling`` flag (device sampling, greedy by
+    default): the same JSON lines as the JAX CLI's default run, its forward
+    through its interpret-mode kernels."""
+    route_jax_through_interpret_kernels(monkeypatch, min_seq_len=GEN_CONFIG.seq_len)
+    prompts = tmp_path / "p.txt"
+    prompts.write_text("hello world\nthe cat\nhello world again\n")
+    argv = ["batch", str(exported / "m.qtpu"), "-f", str(prompts), "-n", "6", "--no-warmup", "--slots", "2",
+            "--kv", kv]
+    want = _stdout(jax_main, argv)
+    got = _stdout(port_main, [*argv, "--device", "cpu"])
+    lines = [json.loads(x) for x in got.splitlines()]
+    assert [x["id"] for x in lines] == [0, 1, 2] and all(x["tokens"] > 0 for x in lines)
+    assert got == want
+
+
+@pytest.mark.parametrize("kv", ["paged", "dense"])
+def test_serve_cli_defaults_answer_as_the_api(exported, kv, monkeypatch):  # noqa: F811
+    """``serve`` with no ``--sampling`` flag (device sampling; the paged pool
+    by default): a greedy completion over HTTP equals the same request run
+    through the API's engine."""
+    import qwen3_rs_tpu_torch.serving.server as server_mod
+    from qwen3_rs_tpu_torch.checkpoint import load_checkpoint
+    from qwen3_rs_tpu_torch.inference.tokenizer import Tokenizer
+
+    real_serve, box = server_mod.serve, {}
+
+    def serve_once(frontend, host, port):
+        box["sampling"] = frontend.engine.sampling, frontend.engine.kv_layout
+
+        def ready(httpd):
+            def ask():
+                try:
+                    box["body"] = json.loads(_post(httpd.server_address[1], "/v1/completions",
+                                                   {"prompt": "hello world", "max_tokens": 5}).read())
+                finally:
+                    httpd.shutdown()
+
+            threading.Thread(target=ask, daemon=True).start()
+
+        real_serve(frontend, host, 0, ready=ready)
+
+    monkeypatch.setattr(server_mod, "serve", serve_once)
+    flags = [] if kv == "paged" else ["--kv", "dense"]
+    assert port_main(["serve", str(exported / "m.qtpu"), "--no-warmup", "--slots", "2", *flags,
+                      "--device", "cpu"]) == 0
+    assert box["sampling"] == ("device", kv)
+    config, weights = load_checkpoint(exported / "m.qtpu")
+    tok = Tokenizer(exported / "m.qtpu", config.vocab_size)
+    engine = ContinuousBatchingEngine(config=config, weights=weights, n_slots=2, kv_layout=kv, sampling="device",
+                                      device="cpu")
+    engine.submit(Request(0, tok.encode("hello world"), max_new_tokens=5,
+                          eos_token_ids=(tok.bos_token_id, tok.eos_token_id)))
+    want = engine.run()[0].generated
+    assert box["body"]["text"] == tok.decode(want) and box["body"]["tokens"] == len(want)
+
+
 @pytest.mark.parametrize("argv,what", [
-    (["batch", "-f", "p.txt"], "--sampling device"),
     (["batch", "-f", "p.txt", "--sampling", "host", "--spec", "2"], "speculative"),
-    (["serve"], "--sampling device"),
     (["serve", "--sampling", "host", "--tp", "2"], "tensor-parallel"),
     (["serve", "--sampling", "host", "--replicas", "2"], "replicated"),
     (["serve", "--sampling", "host", "--gateway", "http://a:1"], "gateway"),

@@ -357,9 +357,21 @@ def test_warmup_writes_nothing_live(weights):
     assert _drive(engine, schedule, Request, on_step=warm_midway) == plain and state
 
 
+@pytest.mark.parametrize("kw", [dict(sampling="device"), dict(sampling="device", decode_chunk_steps=8)])
+def test_device_sampling_options_run(weights, kw):
+    """``sampling="device"`` (with the default 8-step chunks, or given
+    explicitly) runs, with the host-sampling engine's greedy streams and
+    counters of completed requests."""
+    schedule = _schedule(_prompts(15, [4, 9, 3]), max_new=5)
+    common = dict(config=CONFIG, weights=weights[1], device="cpu", n_slots=2, prefill_buckets=BUCKETS)
+    engine = ContinuousBatchingEngine(**common, **kw)
+    assert (engine.sampling, engine.decode_chunk_steps) == ("device", 8)
+    streams, stats = _drive(engine, schedule, Request)
+    want, want_stats = _drive(ContinuousBatchingEngine(**common), schedule, Request)
+    assert streams == want and stats["completed"] == want_stats["completed"] == 3
+
+
 @pytest.mark.parametrize("kw,what", [
-    (dict(sampling="device"), "device sampling"),
-    (dict(decode_chunk_steps=8), "device sampling"),
     (dict(spec_k=2, kv_layout="paged"), "speculative"),
     (dict(mesh=object()), "tensor-parallel"),
 ])
