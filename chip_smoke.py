@@ -13,9 +13,12 @@ Phases, in order; any failure exits non-zero before the final line:
                the same inputs at Qwen3-8B shapes (INT8-g64; the paged kernels
                over a page-128 pool with shuffled tables; the decode
                megakernel at full depth; the Q4 variants of #3, #6, #7 and
-               #11 on INT4-g64 codes), with its time, the plain version's
-               time, one PyTorch library call's time where one computes the
-               same function, and the least time the card could take.
+               #11 on INT4-g64 codes; #6's column window at the 8B tp=2
+               shard shapes, also bit for bit against a full launch's
+               columns; #4, #5, #9 and #10 at head_dim 256), with its time,
+               the plain version's time, one PyTorch library call's time
+               where one computes the same function, and the least time the
+               card could take.
 3. ``e2e``     Qwen3-8B at full width and depth with random weights made on
                the card from a seed, each path driven with the launch counts
                reset just before it and read just after:
@@ -48,7 +51,8 @@ Phases, in order; any failure exits non-zero before the final line:
 4. ``serve``   the continuous-batching engine on the same 8B weights, ctx
                4096, 8 slots, page 128, greedy: 24 requests (prompts of
                16-1024 tokens, 64 new tokens) with host sampling on the paged
-               bf16 pool, the INT8 pool and the dense slots, then with device
+               bf16 pool, the INT8 pool (at 18 of the 36 layers) and the
+               dense slots, then with device
                sampling (the CLI default, 8-step chunks) on the paged bf16
                pool and the dense slots, its streams held to the host
                runs' (a parting only at a near-tie), and on the dense slots
@@ -70,7 +74,19 @@ Phases, in order; any failure exits non-zero before the final line:
                defaults on each (INT4 with ``QWEN3_TPU_MEGA_Q4=1``: Q4 #11
                where the gate admits dim 512) and ``--sampling host`` on the
                INT4 one; the output must equal the API's.
-6. ``parity``  the 2-layer model on the CPU (plain versions) and on the card
+6. ``tp``      tensor-parallel serving: the same 8B weights drawn by each of
+               2 ranks on the one card (gloo), each keeping its shard, the
+               serve phase's 24 requests on the paged bf16 pool with device
+               sampling; its greedy streams held to the tp=1 run's (a
+               parting only at a near-tie), every rank's streams, launches
+               and collectives equal, every decode chunk checked for its
+               launches and every window of 512 reference rows or more for
+               288 #6 column windows (wo and w2 in 4 chunks, 36 layers); the
+               collectives' share of a decode step; then ``cli.py serve --tp
+               2 --device cuda:0,cuda:0`` on the cli phase's dim-512 model
+               (two completions equal to the API's, SIGTERM leaves no rank)
+               and ``--tp 2`` with one device refused.
+7. ``parity``  the 2-layer model on the CPU (plain versions) and on the card
                (kernels): prefill windows and decode steps (the megakernel) in
                fast mode (16-,
                512- and 300-row windows) and exact mode; eval-ppl at 0.6B width;
@@ -79,10 +95,12 @@ Phases, in order; any failure exits non-zero before the final line:
                JAX gates refuse (a head_dim-64 Llama) on the plain path with
                no launch of the refused kernels, and shapes they admit that
                the port's kernels once refused (INT4 with 512-row groups, 5
-               query heads per kv head) through the kernels.
+               query heads per kv head) through the kernels; a head_dim-256
+               model through #4, #5, #9 and #10.
 
 Output: one JSON object per line.  The second-to-last lines hold the kernel
-table and the serve phase's numbers (``{"kernels": [...], "serve": {...}}``)
+table and the serve and tp phases' numbers
+(``{"kernels": [...], "serve": {...}, "tp": {...}}``)
 and the card's ``name, power.limit``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -104,7 +122,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 DEV = "cuda"
-PHASES = ("build", "kernels", "e2e", "serve", "cli", "parity")
+PHASES = ("build", "kernels", "e2e", "serve", "cli", "tp", "parity")
 
 # Published peaks of one H100 SXM (dense): the denominators of bound_ms.
 HBM_BYTES_PER_S = 3.35e12
@@ -118,6 +136,7 @@ EXACT_PROMPT_TOKENS = 300
 EXACT_DECODE_TOKENS = 8
 SERVE_REQUESTS = 24
 SERVE_NEW_TOKENS = 64
+SERVE_INT8_POOL_LAYERS = 18  # the serve phase's INT8-pool run: half of 8B's depth
 
 
 def emit(obj) -> None:
@@ -432,6 +451,187 @@ def rows_cases(torch, ctx) -> list[dict]:
         ))
         del w, x, ref, got
         torch.cuda.empty_cache()
+    return out
+
+
+def rows_cols_cases(torch, ctx) -> list[dict]:
+    """#6's column window (``out_cols``, the tensor-parallel chunks of wo and
+    w2) at the 8B tp=2 shard shapes: 2048 rows, N = 2048 (wo) and 6144 (w2),
+    D = 4096, windows of 1024 columns at 0 and 3072.  Each is held against
+    the plain version, and bit for bit against the same columns of a full #6
+    launch (an element's k order does not depend on the window)."""
+    from qwen3_rs_tpu_torch.ops.kernels.qmatmul import qmatmul_w8a16_rows, qmatmul_w8a16_rows_plain
+    from qwen3_rs_tpu_torch.ops.matmul import dequant_weights
+    from qwen3_rs_tpu_torch.ops.quant import QuantizedTensor
+    from qwen3_rs_tpu_torch.testing import qwen3_config, rows_cols_counts
+
+    c = qwen3_config("8b")
+    g, bf16, rows, dc = c.group_size, torch.bfloat16, 2048, 1024
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(2468)
+    out = []
+    for proj, n, d in (("wo", c.all_heads_dim // 2, c.dim), ("w2", c.hidden_dim // 2, c.dim)):
+        w = _stacked_weights(torch, gen, 2, n, d, g, bf16)
+        x = torch.randn(rows, n, generator=gen, device=DEV).to(bf16)
+        full = qmatmul_w8a16_rows(x, w, 1)
+        for c0 in (0, 3072):
+            cols = (c0, dc)
+            ref = qmatmul_w8a16_rows_plain(x, w, 1, out_cols=cols)
+            got = qmatmul_w8a16_rows(x, w, 1, out_cols=cols)
+            torch.cuda.synchronize()
+            err, tol = float((got - ref).abs().max()), 1e-4 * float(ref.abs().max())
+            need(math.isfinite(err) and err <= tol, f"qmatmul_w8a16_rows out_cols {proj} {cols}: {err} > {tol}")
+            need(torch.equal(got, full[:, c0 : c0 + dc]), f"qmatmul_w8a16_rows out_cols {proj} {cols} != full columns")
+            ms = device_ms(torch, lambda i: qmatmul_w8a16_rows(x, w, i % 2, out_cols=cols))
+            plain_ms = device_ms(torch, lambda i: qmatmul_w8a16_rows_plain(x, w, i % 2, out_cols=cols), reps=5, warmup=1)
+            dense = [dequant_weights(QuantizedTensor(w.q[l, :, c0 : c0 + dc], w.scales[l, :, c0 : c0 + dc]))
+                     for l in range(2)]
+            lib_ms = device_ms(torch, lambda i: torch.matmul(x, dense[i % 2]))
+            del dense
+            nbytes, ops = rows_cols_counts(rows, n, dc, g)
+            b_ms, b_by = bound(nbytes, ops, "bf16")
+            out.append(_row(
+                ctx, "qmatmul_w8a16_rows_cols", f"{proj} tp=2 shard rows={rows} out_cols={cols}",
+                "qwen3_rs_tpu_torch/csrc/qmatmul_rows.cu",
+                "qwen3_rs_tpu/ops/pallas/qmatmul.py:956 qmatmul_pallas_stacked_rows(out_cols=) (:888-953)",
+                {"rows": rows, "N": n, "D": d, "c0": c0, "dc": dc, "g": g}, err, tol, ms, plain_ms, nbytes, b_ms,
+                b_by, lib_ms, "torch.matmul bf16 on the column slice, dequantized beforehand",
+            ))
+            out[-1]["equal_to_full_columns"] = True
+        del w, x, full, ref, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def head_dim_cases(torch, ctx) -> list[dict]:
+    """#4, #5, #9 and #10 at head_dim 256 (small shapes: 2 kv heads of 4
+    query heads, 8 requests at mixed positions over a 1024-row cache or a
+    page-128 pool), each against its plain version with the tolerance of its
+    head_dim-128 cases."""
+    import torch.nn.functional as F
+
+    from qwen3_rs_tpu_torch.ops.kernels.flash_attention import flash_decode, flash_decode_plain
+    from qwen3_rs_tpu_torch.ops.kernels.paged_attention import (
+        paged_decode, paged_decode_plain, paged_window_partials, paged_window_partials_plain,
+    )
+    from qwen3_rs_tpu_torch.ops.kernels.prefill_attention import (
+        causal_prefill_attention, causal_prefill_attention_plain,
+    )
+    from qwen3_rs_tpu_torch.testing import paged_read_bytes
+
+    hd, n_kv, kv_mul, t = 256, 2, 4, 1024
+    h = n_kv * kv_mul
+    pos_list = [0, 1, 127, 128, 129, 500, 777, 1023]
+    b = len(pos_list)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(1256)
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=DEV)
+    out = []
+    mask_rows = lambda n: (torch.arange(n, device=DEV)[None, :] < pos[:, None].long())[:, None, None, :]
+
+    # #4 over a dense bf16 cache.
+    k_all, v_all = (torch.randn(2, b, n_kv, t, hd, generator=gen, device=DEV).to(torch.bfloat16) for _ in range(2))
+    q = torch.randn(b, h, hd, generator=gen, device=DEV)
+    kn, vn = (torch.randn(b, n_kv, hd, generator=gen, device=DEV) for _ in range(2))
+    ref = flash_decode_plain(q, kn, vn, k_all, v_all, pos, 1)
+    got = flash_decode(q, kn, vn, k_all, v_all, pos, 1)
+    torch.cuda.synchronize()
+    err, tol = float((got - ref).abs().max()), 1e-5
+    need(math.isfinite(err) and err <= tol, f"flash_decode head_dim 256: {err} > {tol}")
+    ms = device_ms(torch, lambda i: flash_decode(q, kn, vn, k_all, v_all, pos, i % 2))
+    plain_ms = device_ms(torch, lambda i: flash_decode_plain(q, kn, vn, k_all, v_all, pos, i % 2), reps=5, warmup=1)
+    kk = torch.cat([kn[:, :, None], k_all[1].float()], 2).repeat_interleave(kv_mul, dim=1)
+    vv = torch.cat([vn[:, :, None], v_all[1].float()], 2).repeat_interleave(kv_mul, dim=1)
+    m = (torch.arange(t + 1, device=DEV)[None, :] <= pos[:, None].long())[:, None, None, :]
+    lib_ms = device_ms(torch, lambda i: F.scaled_dot_product_attention(q[:, :, None], kk, vv, attn_mask=m))
+    nbytes = 2 * n_kv * sum(pos_list) * hd * 2 + (2 * q.numel() + kn.numel() + vn.numel()) * 4 + b * 4
+    b_ms, b_by = bound(nbytes, 4.0 * h * sum(p + 1 for p in pos_list) * hd, "f32")
+    out.append(_row(ctx, "flash_decode", f"head_dim 256, bf16 cache B={b} T={t}", "qwen3_rs_tpu_torch/csrc/flash_decode.cu",
+                    "qwen3_rs_tpu/ops/pallas/flash_attention.py:212 flash_gqa_decode_stacked",
+                    {"B": b, "heads": h, "kv_heads": n_kv, "hd": hd, "T": t, "pos": pos_list}, err, tol, ms, plain_ms,
+                    nbytes, b_ms, b_by, lib_ms, "F.scaled_dot_product_attention, K/V prepared beforehand"))
+    del k_all, v_all, kk, vv
+
+    # #5 over a fresh 1000-row window.
+    s = 1000
+    qp = torch.randn(1, s, h, hd, generator=gen, device=DEV).to(torch.bfloat16)
+    kp, vp = (torch.randn(1, s, n_kv, hd, generator=gen, device=DEV).to(torch.bfloat16) for _ in range(2))
+    got = causal_prefill_attention(qp, kp, vp).float()
+    ref = causal_prefill_attention_plain(qp, kp, vp).float()
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    excess = float(((got - ref).abs() - 2.0**-7 * ref.abs()).max())
+    need(math.isfinite(err) and excess <= 1e-5, "causal_prefill_attention head_dim 256: off by more than a bf16 step")
+    ms = device_ms(torch, lambda i: causal_prefill_attention(qp, kp, vp))
+    plain_ms = device_ms(torch, lambda i: causal_prefill_attention_plain(qp, kp, vp), reps=5, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (qp, kp, vp))
+    lib_ms = device_ms(torch, lambda i: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True))
+    nbytes = 2 * (2 * qp.numel() + kp.numel() + vp.numel())
+    b_ms, b_by = bound(nbytes, 4.0 * (s * (s + 1) // 2) * hd * h, "bf16")
+    out.append(_row(ctx, "causal_prefill_attention", f"head_dim 256, fresh window S={s}",
+                    "qwen3_rs_tpu_torch/csrc/prefill_attention.cu",
+                    "qwen3_rs_tpu/ops/pallas/prefill_attention.py:87 causal_prefill_attention",
+                    {"B": 1, "S": s, "heads": h, "kv_heads": n_kv, "hd": hd}, err, "2^-7 * |ref| + 1e-5 per element",
+                    ms, plain_ms, nbytes, b_ms, b_by, lib_ms, "F.scaled_dot_product_attention is_causal, enable_gqa"))
+    del qp, kp, vp, qt, kt, vt
+
+    # #9 and #10 over a page-128 bf16 pool, shuffled tables.
+    page, max_pages = 128, t // 128
+    n_pages = 1 + b * max_pages
+    kpool, vpool = (torch.randn(2, n_pages, n_kv, page, hd, generator=gen, device=DEV).to(torch.bfloat16)
+                    for _ in range(2))
+    table = (torch.randperm(n_pages - 1, generator=gen, device=DEV) + 1).reshape(b, max_pages).to(torch.int32)
+    rows_of = lambda l, pool: pool[l][table.long()].permute(0, 2, 1, 3, 4).reshape(b, n_kv, t, hd).float()
+    read = paged_read_bytes(pos_list, n_kv, hd, 2) + table.numel() * 4 + b * 4
+    ref = paged_decode_plain(q, kn, vn, kpool, vpool, table, pos, 1)
+    got = paged_decode(q, kn, vn, kpool, vpool, table, pos, 1)
+    torch.cuda.synchronize()
+    err, tol = float((got - ref).abs().max()), 1e-4 * float(ref.abs().max())
+    need(math.isfinite(err) and err <= tol, f"paged_decode head_dim 256: {err} > {tol}")
+    ms = device_ms(torch, lambda i: paged_decode(q, kn, vn, kpool, vpool, table, pos, i % 2))
+    plain_ms = device_ms(torch, lambda i: paged_decode_plain(q, kn, vn, kpool, vpool, table, pos, i % 2), reps=5, warmup=1)
+    kk = torch.cat([kn[:, :, None], rows_of(1, kpool)], 2)
+    vv = torch.cat([vn[:, :, None], rows_of(1, vpool)], 2)
+    lib_ms = device_ms(torch, lambda i: F.scaled_dot_product_attention(q[:, :, None], kk, vv, attn_mask=m, enable_gqa=True))
+    nbytes = read + (2 * q.numel() + kn.numel() + vn.numel()) * 4
+    b_ms, b_by = bound(nbytes, 4.0 * h * sum(p + 1 for p in pos_list) * hd, "f32")
+    out.append(_row(ctx, "paged_decode", f"head_dim 256, bf16 pool B={b} pos={pos_list}",
+                    "qwen3_rs_tpu_torch/csrc/paged_attention.cu",
+                    "qwen3_rs_tpu/ops/pallas/paged_attention.py:207 paged_gqa_decode_stacked",
+                    {"B": b, "heads": h, "kv_heads": n_kv, "hd": hd, "page": page, "pos": pos_list}, err, tol, ms,
+                    plain_ms, nbytes, b_ms, b_by, lib_ms,
+                    "F.scaled_dot_product_attention enable_gqa, K/V gathered into dense f32 beforehand"))
+    sw = 16
+    qw = torch.randn(b, sw, h, hd, generator=gen, device=DEV)
+    ref = paged_window_partials_plain(qw, kpool, vpool, table, pos, 1)
+    got = paged_window_partials(qw, kpool, vpool, table, pos, 1)
+    torch.cuda.synchronize()
+    err, tol = 0.0, 0.0
+    for a, e in zip(got, ref):
+        need(a.shape == e.shape and torch.equal(torch.isneginf(a), torch.isneginf(e)),
+             "paged_window_partials head_dim 256: shapes or -inf entries differ")
+        fin = torch.isfinite(e)
+        d_ = float((a[fin] - e[fin]).abs().max())
+        t_ = 1e-4 * float(e[fin].abs().max())
+        need(d_ <= t_, f"paged_window_partials head_dim 256: off by {d_} > {t_}")
+        err, tol = max(err, d_), max(tol, t_)
+    ms = device_ms(torch, lambda i: paged_window_partials(qw, kpool, vpool, table, pos, i % 2))
+    plain_ms = device_ms(torch, lambda i: paged_window_partials_plain(qw, kpool, vpool, table, pos, i % 2),
+                         reps=5, warmup=1)
+    kc, vc = rows_of(1, kpool), rows_of(1, vpool)
+    qt = qw.transpose(1, 2)
+    lib_ms = device_ms(torch, lambda i: F.scaled_dot_product_attention(qt, kc, vc, attn_mask=mask_rows(t), enable_gqa=True))
+    r = sw * kv_mul
+    nbytes = read + qw.numel() * 4 + b * n_kv * r * (hd + 2) * 4
+    b_ms, b_by = bound(nbytes, 4.0 * h * sw * sum(pos_list) * hd, "f32")
+    out.append(_row(ctx, "paged_window_partials", f"head_dim 256, bf16 pool B={b} S={sw} (R={r})",
+                    "qwen3_rs_tpu_torch/csrc/paged_attention.cu",
+                    "qwen3_rs_tpu/ops/pallas/paged_attention.py:437 paged_gqa_window_stacked (_partials_kernel :287)",
+                    {"B": b, "S": sw, "R": r, "heads": h, "kv_heads": n_kv, "hd": hd, "page": page, "pos": pos_list},
+                    err, tol, ms, plain_ms, nbytes, b_ms, b_by, lib_ms,
+                    "F.scaled_dot_product_attention enable_gqa on the cache rows, gathered into dense f32 beforehand"))
+    del kpool, vpool, kk, vv, kc, vc
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1061,7 +1261,8 @@ def phase_kernels(torch, ctx) -> None:
                           + rows_cases(torch, ctx) + dequant_cases(torch, ctx) + a8_cases(torch, ctx)
                           + paged_decode_cases(torch, ctx) + paged_window_cases(torch, ctx)
                           + megakernel_cases(torch, ctx) + qmatmul_q4_cases(torch, ctx) + rows_q4_cases(torch, ctx)
-                          + dequant_q4_cases(torch, ctx) + megakernel_q4_kernel_cases(torch, ctx))
+                          + dequant_q4_cases(torch, ctx) + megakernel_q4_kernel_cases(torch, ctx)
+                          + rows_cols_cases(torch, ctx) + head_dim_cases(torch, ctx))
     made = {k for k in LAUNCHES if LAUNCHES[k] != before[k]}
     need(made == set(LAUNCHES), f"the kernel cases launched no {sorted(set(LAUNCHES) - made)}")
 
@@ -1925,6 +2126,7 @@ def _instrument_engine(torch, engine, records: list):
                 active = int(sum(args[3]))
             # _prefill_paged(tokens, out_idx, tables, pos): pos None for a fresh window.
             records.append({"kind": kind, "rows": None if kind != "prefill" else int(args[0].shape[1]),
+                            "batch": None if kind != "prefill" else int(args[0].shape[0]),
                             "cont": kind == "prefill" and len(args) > 3 and args[3] is not None,
                             "steps": int(args[6]) if kind == "chunk" else 1,
                             "active": active, "seconds": time.perf_counter() - t,
@@ -1985,12 +2187,14 @@ def _serve_run(torch, ctx, name, engine, traffic, n_layers, *, profile=True) -> 
         "decode_step_ms_8_active": statistics.median(full) * 1e3 if full else None,
         "decode_steps_8_active": len(full),
         "prefill_windows": [(r["rows"], r["seconds"] * 1e3) for r in recs if r["kind"] == "prefill"],
+        "prefill_records": [r for r in recs if r["kind"] == "prefill"],
         "launches": launches, "every_step_checked": True, "sampling": engine.sampling,
         "streams": {r.request_id: r.generated for r in done},
     }
     if profile:
         out["profile_decode_8_active"] = _profile_full_decode(torch, engine, traffic)
-    emit({"phase": "serve", "run": name, **{k: v for k, v in out.items() if k not in ("prefill_windows", "streams")}})
+    emit({"phase": "serve", "run": name, **{k: v for k, v in out.items()
+                                             if k not in ("prefill_windows", "prefill_records", "streams")}})
     return out
 
 
@@ -2006,6 +2210,15 @@ def _profile_full_decode(torch, engine, traffic, steps: int = 8) -> dict:
     prof = profile_calls(torch, lambda i: engine.step(), steps)
     engine.run()
     return prof
+
+
+def _first_layers(cfg, weights, n: int):
+    """The model cut to its first ``n`` layers (views of the stacked weights)."""
+    import dataclasses
+
+    lw = weights.layers
+    layers = type(lw)(*(type(t)(t.q[:n], t.scales[:n]) if hasattr(t, "scales") else t[:n] for t in lw))
+    return dataclasses.replace(cfg, n_layers=n), weights._replace(layers=layers)
 
 
 def phase_serve(torch, ctx) -> None:
@@ -2024,12 +2237,16 @@ def phase_serve(torch, ctx) -> None:
             ("paged_bf16_device", {"sampling": "device"}), ("dense_bf16_device", {"kv_layout": "dense", "sampling": "device"}))
     for name, kw in runs:
         t0 = time.perf_counter()
-        engine = ContinuousBatchingEngine(config=cfg, weights=weights, n_slots=8,
+        # The INT8 pool's run, which no other run is held to, at half depth:
+        # the tp phase's time is paid here (PERF.md §4).
+        c, w = _first_layers(cfg, weights, SERVE_INT8_POOL_LAYERS) if name == "paged_int8" else (cfg, weights)
+        engine = ContinuousBatchingEngine(config=c, weights=w, n_slots=8,
                                           **{"kv_layout": "paged", "page_size": 128, "sampling": "host", **kw},
                                           device=DEV)
         engine.warmup()
         warm = time.perf_counter() - t0
-        out[name] = _serve_run(torch, ctx, name, engine, traffic, cfg.n_layers, profile=kw.get("sampling") != "device")
+        out[name] = _serve_run(torch, ctx, name, engine, traffic, c.n_layers, profile=kw.get("sampling") != "device")
+        out[name]["layers"] = c.n_layers
         if name.endswith("_device"):
             out[name]["greedy_vs_host"] = stream_partings(torch, cfg, weights, traffic,
                                                           out[name[: -len("_device")]]["streams"],
@@ -2039,7 +2256,7 @@ def phase_serve(torch, ctx) -> None:
             out[name]["kv_pages"] = engine.allocator.n_pages - 1
             pool_bytes = sum(t.numel() * t.element_size() for t in engine.cache)
             esz = engine.cache.k.element_size()
-            need(pool_bytes == paged_pool_bytes(cfg, engine.allocator.n_pages, 128, esz),
+            need(pool_bytes == paged_pool_bytes(c, engine.allocator.n_pages, 128, esz),
                  f"serve {name}: the pool holds {pool_bytes} bytes, not the layout's")
             out[name]["kv_pool_gb"] = pool_bytes / 1e9
         del engine
@@ -2050,27 +2267,32 @@ def phase_serve(torch, ctx) -> None:
                                         for k in keys}
     emit({"phase": "serve", "run": "dense slots, device sampling: INT4 (Q4 #11) beside INT8 (#11), same traffic",
           **out["int4_vs_int8_dense_device"]})
+    ctx["tp1_streams"] = out["paged_bf16_device"]["streams"]  # the tp phase's reference
     for run in out.values():
         if isinstance(run, dict):
             run.pop("streams", None)
+            run.pop("prefill_records", None)
     out["prefix_cache"] = serve_prefix_path(torch, ctx, cfg, weights)
     out["chunked_prefill"] = serve_chunked_path(torch, ctx, cfg, weights)
     out["http"] = serve_http_path(torch, ctx, cfg, weights, tok)
-    ctx.pop("8b")  # the last user of the 8B weights
     torch.cuda.empty_cache()
 
 
-def stream_partings(torch, cfg, weights, traffic, ref: dict, got: dict) -> dict:
+def stream_partings(torch, cfg, weights, traffic, ref: dict, got: dict, tol: float = 2e-2) -> dict:
     """Where two greedy serving runs' streams part: for each parting, its
     token and both picks' logits on the shared history (a b=1 prefill), the
-    top-2 logit gap there.  A parting is held to a near-tie: the two picks'
-    logits within 2e-2 of the largest."""
+    top-2 logit gap there, and the forward's sensitivity there (the logits
+    moved by one norm weight of layer 0 scaled by 1 + 2^-7, relative to
+    their largest).  A parting is held to a near-tie: the two picks' logits
+    within ``tol`` of the largest.  ``weights`` None: the 8B weights of the
+    seed, drawn at the first parting."""
     import numpy as np
 
     from qwen3_rs_tpu_torch import Engine
+    from qwen3_rs_tpu_torch.testing import random_weights
 
     need(ref.keys() == got.keys(), "the two runs completed different requests")
-    engine = Engine(config=cfg, weights=weights, cache_dtype=torch.bfloat16, device=DEV)
+    engines = None
     parts = []
     for rid in sorted(ref):
         a, b = ref[rid], got[rid]
@@ -2079,15 +2301,22 @@ def stream_partings(torch, cfg, weights, traffic, ref: dict, got: dict) -> dict:
             need(a == b, f"request {rid}: streams of different lengths")
             continue
         i = diff[0]
+        if engines is None:
+            w = weights if weights is not None else random_weights(cfg, SEED, DEV)
+            lw = w.layers
+            nudged = lw.rms_att.clone()
+            nudged[0, 0] *= 1 + 2.0**-7
+            engines = [Engine(config=cfg, weights=x, cache_dtype=torch.bfloat16, device=DEV)
+                       for x in (w, w._replace(layers=lw._replace(rms_att=nudged)))]
         hist = np.asarray([list(traffic[rid][0]) + a[:i]])
-        logits, _ = engine.prefill(engine.new_cache(1), hist, np.zeros(1, np.int64))
-        lg = logits[0].float()
+        lg, lgn = (e.prefill(e.new_cache(1), hist, np.zeros(1, np.int64))[0][0].float() for e in engines)
         top2 = torch.topk(lg, 2).values
         gap = float((lg[a[i]] - lg[b[i]]).abs())
         parts.append({"request": rid, "token_index": i, "tokens": [a[i], b[i]], "pick_gap": gap,
-                      "top2_gap": float(top2[0] - top2[1]), "max_abs_logit": float(lg.abs().max())})
-        need(gap <= 2e-2 * float(lg.abs().max()), f"request {rid} parts at token {i} away from a near-tie: {parts[-1]}")
-    return {"requests": len(ref), "equal": len(ref) - len(parts), "partings": parts}
+                      "top2_gap": float(top2[0] - top2[1]), "max_abs_logit": float(lg.abs().max()),
+                      "sensitivity": float((lgn - lg).abs().max() / lg.abs().max())})
+        need(gap <= tol * float(lg.abs().max()), f"request {rid} parts at token {i} away from a near-tie: {parts[-1]}")
+    return {"requests": len(ref), "equal": len(ref) - len(parts), "tol": tol, "partings": parts}
 
 
 def serve_prefix_path(torch, ctx, cfg, weights) -> dict:
@@ -2263,6 +2492,281 @@ def serve_http_path(torch, ctx, cfg, weights, tok) -> dict:
     del engine, fe
     torch.cuda.empty_cache()
     return res
+
+
+# ------------------------------------------------------------------------- tp
+TP_DEVICES = ["cuda:0", "cuda:0"]  # two ranks on the one card: the gloo backend
+
+
+def _rank_children(pid: int) -> list[int]:
+    """The processes whose parent is ``pid``."""
+    out = []
+    for d in Path("/proc").iterdir():
+        if d.name.isdigit():
+            try:
+                if int((d / "stat").read_text().rsplit(")", 1)[1].split()[1]) == pid:
+                    out.append(int(d.name))
+            except (OSError, IndexError, ValueError):
+                pass
+    return out
+
+
+def _tp_breakdown(torch, engine, traffic, chunks: int = 2) -> dict:
+    """Where a tp decode chunk with every slot active goes, on rank 0: 8
+    requests admitted, then ``chunks`` engine steps (8 decode steps each)
+    under torch.profiler, then as many with each collective bracketed by
+    synchronisations (``ops.collectives.TIMING``)."""
+    from qwen3_rs_tpu_torch.ops import collectives
+    from qwen3_rs_tpu_torch.serving import Request
+
+    for i in range(engine.n_slots):
+        engine.submit(Request(2000 + i, traffic[i % len(traffic)][0][:200], max_new_tokens=2 * chunks * engine.decode_chunk_steps + 8,
+                              eos_token_ids=()))
+    engine.step()  # admits all of them
+    need(engine.active_count == engine.n_slots, "tp breakdown: not every slot active")
+    prof = profile_calls(torch, lambda i: engine.step(), chunks)
+    collectives.TIMING.update(on=True, seconds=0.0)
+    n0 = dict(collectives.COUNTS)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(chunks):
+            engine.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        collectives.TIMING["on"] = False
+    engine.run()
+    tokens = chunks * engine.decode_chunk_steps
+    out = {"chunks": chunks, "decode_steps": tokens, "step_ms_synced": wall / tokens * 1e3,
+           "collective_ms_per_step": collectives.TIMING["seconds"] / tokens * 1e3,
+           "collective_share": collectives.TIMING["seconds"] / wall,
+           "all_reduces_per_step": (collectives.COUNTS["all_reduce"] - n0["all_reduce"]) / tokens,
+           "all_gathers_per_step": (collectives.COUNTS["all_gather"] - n0["all_gather"]) / tokens,
+           "profile_rank0": prof}
+    if "device_busy_ms_per_step" in prof:
+        # Rank 0's trace holds its own kernels only; rank 1 launches the same
+        # kernels on the same shapes (equal launch counts), so the card is
+        # busy about twice as long.
+        out["device_idle_share_rank0_kernels"] = prof["device_idle_share"]
+        out["device_idle_share_both_ranks_est"] = 1.0 - 2 * prof["device_busy_ms_per_step"] / prof["wall_ms_per_step"]
+    return out
+
+
+def _tp_logits_vs_tp1(torch, engine, cfg, histories) -> list[float]:
+    """The tp engine's logits for each history (a fresh admission of one
+    request, read from its prefill on rank 0) against the tp=1 forward's on
+    the same history: max |difference| over the largest |logit|."""
+    import numpy as np
+
+    from qwen3_rs_tpu_torch import Engine
+    from qwen3_rs_tpu_torch.serving import Request
+    from qwen3_rs_tpu_torch.testing import random_weights
+
+    seen, real = [], engine._prefill_paged
+
+    def keep(*a, **k):
+        out = real(*a, **k)
+        seen.append(out[0].float())
+        return out
+
+    engine._prefill_paged = keep
+    try:
+        for j, hist in enumerate(histories):
+            engine.submit(Request(3000 + j, list(hist), max_new_tokens=1, eos_token_ids=()))
+            engine.run()
+    finally:
+        engine._prefill_paged = real
+    one = Engine(config=cfg, weights=random_weights(cfg, SEED, DEV), cache_dtype=torch.bfloat16, device=DEV)
+    errs = []
+    for hist, got in zip(histories, seen):
+        ref = one.prefill(one.new_cache(1), np.asarray([hist]), np.zeros(1, np.int64))[0][0].float()
+        errs.append(float((got - ref).abs().max() / ref.abs().max()))
+    del one
+    torch.cuda.empty_cache()
+    return errs
+
+
+def phase_tp(torch, ctx) -> None:
+    """Tensor-parallel serving: Qwen3-8B INT8 at full width and depth on 2
+    ranks of the one card (each 16/4 heads, 6144 hidden columns, half the
+    vocabulary), the paged bf16 pool, device sampling, the serve phase's 24
+    requests; then ``cli.py serve --tp 2``."""
+    import functools
+
+    from qwen3_rs_tpu_torch.models.qwen3 import reference_rows
+    from qwen3_rs_tpu_torch.serving import ContinuousBatchingEngine
+    from qwen3_rs_tpu_torch.serving.scheduler import start_tp_engine
+    from qwen3_rs_tpu_torch.testing import qwen3_config, random_model
+
+    cfg = qwen3_config("8b", seq_len=4096)
+    traffic = _serve_traffic(cfg)
+    kw = dict(n_slots=8, kv_layout="paged", page_size=128, sampling="device")
+    ref = ctx.get("tp1_streams")
+    if ref is None:  # the serve phase did not run: the tp=1 reference here
+        c1, w1, _ = model_8b(torch, ctx)
+        engine = ContinuousBatchingEngine(config=c1, weights=w1, device=DEV, **kw)
+        engine.warmup()
+        ref = _serve_run(torch, ctx, "paged_bf16_device_tp1", engine, traffic, cfg.n_layers, profile=False)["streams"]
+        del engine
+    ctx.pop("8b", None)  # the tp ranks draw their own
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    engine = start_tp_engine(functools.partial(random_model, cfg, seed=SEED, device=DEV), TP_DEVICES, **kw)
+    start_s = time.perf_counter() - t0
+    workers = [p.pid for p in engine.mesh.workers.procs]
+    engine.warmup()
+    warm_s = time.perf_counter() - t0 - start_s
+    mem_gb = torch.cuda.memory_allocated() / 1e9
+    try:
+        engine.reset_counters()  # every rank's counts start here
+        run = _serve_run(torch, ctx, "tp2_paged_bf16_device", engine, traffic, cfg.n_layers, profile=False)
+        reports = engine.rank_reports()  # and end here
+        n = cfg.n_layers
+        for rec in run.pop("prefill_records"):
+            ref_rows = rec["batch"] * reference_rows(rec["rows"])
+            want = 2 * 4 * n if ref_rows >= 512 else 0  # wo and w2 in 4 column chunks each
+            got = rec["launches"].get("qmatmul_w8a16_rows_cols", 0)
+            need(got == want, f"tp: a window of {ref_rows} reference rows launched {got} #6 column windows, not {want}")
+        streams = run.pop("streams")
+        need([r["rank"] for r in reports] == [0, 1], f"tp: rank reports {[r['rank'] for r in reports]}")
+        need(all(r["streams"] == streams for r in reports), "tp: the ranks emitted different streams")
+        need(reports[0]["launches"] == reports[1]["launches"] and reports[0]["collectives"] == reports[1]["collectives"],
+             "tp: the ranks launched different kernels or collectives")
+        ctx["path_launches"].pop("serve_tp2_paged_bf16_device")  # rank 0's, counted per rank below
+        for r in reports:
+            ctx["path_launches"][f"tp_rank{r['rank']}"] = r["launches"]
+        # tp changes the f32 summation order of every wo and w2 product (two
+        # partial sums, then the all-reduce), so each rounding flip is carried
+        # through the later layers of random weights: at full depth the two
+        # runs' logits part by about the forward's sensitivity (~2e-2 of the
+        # largest, reported per parting), as the megakernel's do (MK_TOL_DEEP).
+        # tp_cli holds tp=2 to tp=1 at 2e-2 on a 2-layer model.
+        run["greedy_vs_tp1"] = stream_partings(torch, cfg, None, traffic, ref, streams, tol=MK_TOL_DEEP)
+        # The logits themselves, on the histories where the first streams
+        # part: within the same bound (an error of the algorithm moves them
+        # by O(1)).
+        parted = run["greedy_vs_tp1"]["partings"][:2]
+        hists = [list(traffic[p_["request"]][0]) + ref[p_["request"]][: p_["token_index"]] for p_ in parted]
+        errs = _tp_logits_vs_tp1(torch, engine, cfg, hists or [traffic[0][0]])
+        need(all(math.isfinite(e) and e <= MK_TOL_DEEP for e in errs), f"tp: logits against tp=1 rel errs {errs}")
+        run["logits_vs_tp1_rel_errs"] = errs
+        run["breakdown_8_active"] = _tp_breakdown(torch, engine, traffic)
+    finally:
+        engine.close()
+    need(not any(Path(f"/proc/{pid}").exists() for pid in workers), "tp: a worker rank outlived close()")
+    run.update({"backend": engine.mesh.backend, "devices": TP_DEVICES, "ranks": 2, "start_s": start_s,
+                "warmup_s": warm_s, "rank0_device_memory_gb": mem_gb,
+                "per_rank": [{"rank": r["rank"], "launches": {k: v for k, v in r["launches"].items() if v},
+                              "collectives": r["collectives"]} for r in reports]})
+    emit({"phase": "tp", "run": "8b tp=2 paged bf16 device sampling", **{k: v for k, v in run.items() if k != "launches"}})
+    ctx["tp"] = {k: v for k, v in run.items() if k != "prefill_windows"}
+    torch.cuda.empty_cache()
+    tp_cli(torch, ctx)
+
+
+def tp_cli(torch, ctx) -> None:
+    """``cli.py serve --tp 2 --device cuda:0,cuda:0`` on the cli phase's
+    exported dim-512 INT8 model, in a process of its own: two completions
+    equal to the API's (the same tp engine through the library), whose
+    prefill logits are held to the tp=1 engine's; SIGTERM stops the server
+    and its worker rank.
+    ``--tp 2`` with one device fails with the JAX package's message."""
+    import functools
+    import signal
+    import socket
+    import urllib.request
+
+    from qwen3_rs_tpu_torch import Tokenizer
+    from qwen3_rs_tpu_torch.checkpoint import load_checkpoint
+    from qwen3_rs_tpu_torch.cli import main as cli_main
+    from qwen3_rs_tpu_torch.serving import ContinuousBatchingEngine, Request
+    from qwen3_rs_tpu_torch.serving.scheduler import start_tp_engine
+
+    ckpt = ctx["tmp"] / "m8.bin"
+    if not ckpt.exists():  # the cli phase did not run
+        model = write_hf_model(ctx["tmp"] / "hf_tp", SEED + 8)
+        with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+            need(cli_main(["export", str(model), str(ckpt), "-g", "64", "--format", "legacy"]) == 0, "tp cli: export")
+    try:
+        cli_main(["serve", str(ckpt), "--tp", "2", "--device", "cuda:0"])
+        need(False, "serve --tp 2 with one device did not fail")
+    except SystemExit as e:
+        need("needs 2 devices, have 1" in str(e), f"serve --tp 2 with one device: {e}")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    log = open(ctx["tmp"] / "serve_tp.log", "w")
+    proc = subprocess.Popen([sys.executable, "-m", "qwen3_rs_tpu_torch.cli", "serve", str(ckpt), "--port", str(port),
+                             "--slots", "4", "--tp", "2", "--device", ",".join(TP_DEVICES)],
+                            cwd=ROOT, stdout=log, stderr=log)
+    prompts = [prompt_text(150), prompt_text(40)]
+    bodies, ranks = [], []
+    try:
+        for _ in range(600):
+            need(proc.poll() is None, f"cli serve --tp 2 exited {proc.returncode}: {(ctx['tmp'] / 'serve_tp.log').read_text()}")
+            try:
+                urllib.request.urlopen(f"http://127.0.0.1:{port}/health", timeout=5).read()
+                break
+            except OSError:
+                time.sleep(0.5)
+        ready_s = time.perf_counter() - t0
+        for prompt in prompts:
+            req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/completions",
+                                         data=json.dumps({"prompt": prompt, "max_tokens": 16}).encode(),
+                                         headers={"Content-Type": "application/json"})
+            bodies.append(json.loads(urllib.request.urlopen(req, timeout=300).read()))
+        ranks = _rank_children(proc.pid)
+        need(len(ranks) >= 1, "cli serve --tp 2 runs no worker rank")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+        log.close()
+    need(rc == 0, f"cli serve --tp 2 exited {rc} on SIGTERM: {(ctx['tmp'] / 'serve_tp.log').read_text()[-2000:]}")
+    for _ in range(100):
+        if not any(Path(f"/proc/{pid}").exists() for pid in ranks):
+            break
+        time.sleep(0.1)
+    need(not any(Path(f"/proc/{pid}").exists() for pid in ranks), "cli serve --tp 2 left a worker rank behind")
+    # The API's counterpart: the same tp engine through the library; each of
+    # its prefill windows' logits held to the tp=1 engine's at 2e-2 of the
+    # largest (2 layers: no depth to carry a rounding flip far).
+    cfg, weights = load_checkpoint(ckpt)
+    tok = Tokenizer(ckpt, cfg.vocab_size)
+    kw = dict(n_slots=4, kv_layout="paged", sampling="device")
+    engines = [start_tp_engine(functools.partial(load_checkpoint, ckpt), TP_DEVICES, **kw),
+               ContinuousBatchingEngine(config=cfg, weights=weights, device=DEV, **kw)]
+    seen = [[], []]
+    for e, box in zip(engines, seen):
+        def keep(*a, _real=e._prefill_paged, _box=box, **k):
+            out = _real(*a, **k)
+            _box.append(out.float().cpu())
+            return out
+
+        e._prefill_paged = keep
+    try:
+        for prompt, body in zip(prompts, bodies):
+            for e in engines:
+                e.submit(Request(0, tok.encode(prompt), max_new_tokens=16,
+                                 eos_token_ids=(tok.bos_token_id, tok.eos_token_id)))
+            solo = engines[0].run()[-1]
+            engines[1].run()
+            need(body["text"] == tok.decode(solo.generated) and body["tokens"] == len(solo.generated),
+                 "cli serve --tp 2: a completion differs from the API's")
+    finally:
+        engines[0].close()
+    errs = [float((a[:1] - b[:1]).abs().max() / b[:1].abs().max()) for a, b in zip(*seen)]
+    need(len(errs) == len(prompts) and all(math.isfinite(e) and e <= 2e-2 for e in errs),
+         f"tp=2 against tp=1 at 2 layers: prefill logits rel errs {errs}")
+    emit({"phase": "tp", "mode": "cli serve --tp 2", "devices": TP_DEVICES, "ready_s": ready_s,
+          "completions": len(bodies), "equal_to_api": True, "worker_ranks_stopped": len(ranks),
+          "tp2_vs_tp1_prefill_rel_errs_2_layers": errs,
+          "one_device_refused": True, "seconds": time.perf_counter() - t0})
 
 
 # ------------------------------------------------------------------ cli/parity
@@ -2524,6 +3028,7 @@ def phase_parity(torch, ctx) -> None:
     parity_eval(torch, ctx)
     parity_paged(torch, ctx)
     parity_gated_shapes(torch, ctx)
+    parity_head_dim_256(torch, ctx)
 
 
 def parity_gated_shapes(torch, ctx) -> None:
@@ -2580,6 +3085,57 @@ def parity_gated_shapes(torch, ctx) -> None:
         emit({"phase": "parity", "run": f"gated shapes: {name}", "rel_errs": errs, "tol_rel": 2e-2,
               "expected_launched": want, "launches": {k: v for k, v in launches.items() if v},
               "seconds": time.perf_counter() - t0})
+
+
+def parity_head_dim_256(torch, ctx) -> None:
+    """Card against CPU on a 2-layer head_dim-256 model (dim 1024, 8 query
+    and 4 kv heads), within 2e-2 of the largest logit: on the dense cache a
+    300-row fresh window (#5) and two decode steps (#4); on a page pool a
+    fresh group window, a continued 8-row window (#10) and two decode steps
+    (#9).  Each of the four kernels must launch."""
+    import numpy as np
+
+    from qwen3_rs_tpu_torch import Engine
+    from qwen3_rs_tpu_torch.configuration import ModelConfig
+    from qwen3_rs_tpu_torch.models.qwen3 import cast_weight_scales, qwen3_forward, weights_to
+    from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from qwen3_rs_tpu_torch.serving.paged_cache import init_paged_cache
+    from qwen3_rs_tpu_torch.testing import random_weights
+
+    t0 = time.perf_counter()
+    cfg = ModelConfig(architecture_id=1, dim=1024, hidden_dim=3072, n_layers=2, n_heads=8, n_kv_heads=4,
+                      head_dim=256, seq_len=1024, vocab_size=4096, group_size=64, shared_classifier=True)
+    weights = random_weights(cfg, seed=SEED + 13, device=DEV)
+    cpu_weights = weights_to(weights, "cpu")
+    rng = np.random.default_rng(SEED + 13)
+    errs = []
+    reset_launches()  # this path's run starts here
+    engines = [Engine(config=cfg, weights=weights, device=DEV), Engine(config=cfg, weights=cpu_weights, device="cpu")]
+    caches = [e.new_cache() for e in engines]
+    pos = 0
+    for rows in (300, 1, 1):
+        toks = rng.integers(0, cfg.vocab_size, (1, rows))
+        (lc, caches[0]), (lp, caches[1]) = (e.prefill(c, toks, [pos]) for e, c in zip(engines, caches))
+        errs.append(float((lc.float().cpu() - lp.float()).abs().max()) / float(lp.float().abs().max()))
+        pos += rows
+    ws = [cast_weight_scales(weights), cast_weight_scales(cpu_weights)]
+    pools = [init_paged_cache(cfg, 9, 128, device=d) for d in (DEV, "cpu")]
+    table = np.arange(1, 9, dtype=np.int32).reshape(2, 4)
+    pos = np.array([0, 0])
+    for rows, fresh in ((40, True), (8, False), (1, False), (1, False)):
+        toks = rng.integers(0, cfg.vocab_size, (2, rows))
+        lc, lp = (qwen3_forward(cfg, w, toks, pool, pos, page_table=table, fresh_prefill=fresh)[0]
+                  for w, pool in zip(ws, pools))
+        errs.append(float((lc.float().cpu() - lp).abs().max()) / float(lp.abs().max()))
+        pos = pos + rows
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)  # and ends here
+    ctx["path_launches"]["parity head_dim 256"] = launches
+    want = ("flash_decode", "causal_prefill_attention", "paged_decode", "paged_window_partials")
+    need(all(launches[k] > 0 for k in want), f"head_dim 256: launches {launches}")
+    need(all(math.isfinite(e) and e <= 2e-2 for e in errs), f"head_dim 256: card vs CPU rel errs {errs}")
+    emit({"phase": "parity", "run": "head_dim 256", "layers": cfg.n_layers, "width": cfg.dim, "rel_errs": errs,
+          "tol_rel": 2e-2, "launches": {k: launches[k] for k in want}, "seconds": time.perf_counter() - t0})
 
 
 def parity_paged(torch, ctx) -> None:
@@ -2745,7 +3301,8 @@ def main(argv=None) -> int:
             elif name == "kernels":
                 phase_kernels(torch, ctx)
             else:
-                {"e2e": phase_e2e, "serve": phase_serve, "cli": phase_cli, "parity": phase_parity}[name](torch, ctx)
+                {"e2e": phase_e2e, "serve": phase_serve, "cli": phase_cli, "tp": phase_tp,
+                 "parity": phase_parity}[name](torch, ctx)
             emit({"phase": name, "done": True, "seconds": time.perf_counter() - t0})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2754,10 +3311,12 @@ def main(argv=None) -> int:
     launches = {name: sum(p.get(name, 0) for p in paths.values()) for name in
                 {r["name"] for r in ctx.get("kernel_rows", [])}}
     if {"kernels", "e2e", "serve"} <= set(phases):
-        idle = sorted(name for name, n in launches.items() if n == 0)
+        # #6's column window runs on the tensor-parallel path alone.
+        idle = sorted(name for name, n in launches.items()
+                      if n == 0 and (name != "qmatmul_w8a16_rows_cols" or "tp" in phases))
         need(not idle, f"no path launched {idle}")
     rows = [dict(r, launches=launches[r["name"]]) for r in ctx.get("kernel_rows", [])]
-    emit({"kernels": rows, "e2e": ctx.get("e2e"), "serve": ctx.get("serve"),
+    emit({"kernels": rows, "e2e": ctx.get("e2e"), "serve": ctx.get("serve"), "tp": ctx.get("tp"),
           "total_seconds": time.perf_counter() - t_all})
     print(ctx.get("smi") or subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

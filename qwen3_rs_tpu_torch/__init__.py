@@ -12,9 +12,11 @@ kernels replaced by hand-written CUDA kernels for Hopper (``csrc/``).
 Entry points run on the card unless the caller passes ``device="cpu"``,
 where the kernels' plain PyTorch versions run instead.
 
-Not ported yet (``NOT_PORTED`` names each with its ``ROADMAP.md`` item):
-speculative decoding, the tensor-, pipeline- and sequence-parallel layouts,
-replicated serving and the cross-host gateway.
+Tensor-parallel serving (``serve --tp N``, ``ContinuousBatchingEngine``
+with a mesh) runs one process per rank on ``torch.distributed``
+(``parallel/``).  Not ported yet (``NOT_PORTED`` names each with its
+``ROADMAP.md`` item): speculative decoding, the pipeline- and
+sequence-parallel layouts, replicated serving and the cross-host gateway.
 """
 
 from __future__ import annotations
@@ -93,7 +95,13 @@ def run_inference(config: InferenceConfig) -> None:
 # inside the package: a module, or module.name), each with the ROADMAP.md
 # item that ports it.
 NOT_PORTED = {
-    "parallel": "queue 1, item 5: parallel layouts",
+    "parallel.pipelined_forward": "queue 1, item 5: pipeline parallelism",
+    "parallel.create_pp_mesh": "queue 1, item 5: pipeline parallelism",
+    "parallel.shard_for_pp": "queue 1, item 5: pipeline parallelism",
+    "parallel.PP_AXIS": "queue 1, item 5: pipeline parallelism",
+    "parallel.ring_prefill_attention": "queue 1, item 5: sequence parallelism",
+    "parallel.SP_AXIS": "queue 1, item 5: sequence parallelism",
+    "parallel.distributed.scaling_report": "queue 1, item 1: the benchmark",
     "utils.enable_compile_cache": "queue 1, item 6: not carried (the nvcc build cache serves)",
     "inference.speculative": "queue 1, item 3: speculative decoding",
     "serving.remote": "queue 1, item 4: the rest of serving",

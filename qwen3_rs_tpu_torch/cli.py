@@ -3,12 +3,14 @@
 
 The same flags, defaults and output as the reference package's subcommands,
 plus ``--device`` (default: the card).  ``--device-sampling`` runs the
-decode loop in on-device chunks (``Engine.decode_chunk``).  Flags whose paths
-are not ported yet (``--spec``, ``--sp > 1``, ``--sampling device``,
-``--tp > 1``, ``--replicas > 1``, ``--gateway``) raise a "not ported" error
-naming the ROADMAP.md item; they never run something else.  ``--sampling``
-defaults to ``device`` as in the reference package, so ``batch`` and
-``serve`` need ``--sampling host`` for now.
+decode loop in on-device chunks (``Engine.decode_chunk``); ``batch`` and
+``serve`` sample on the device by default (``--sampling device``), as the
+reference's do.  ``serve --tp N`` shards the engine over N ranks, one
+process each (``--device`` lists one device per rank; ``cuda:0,cuda:0`` puts
+two ranks on one card, ``cpu,cpu`` runs them on the CPU).  Flags whose paths
+are not ported yet (``--spec``, ``--sp > 1``, ``--replicas > 1``,
+``--gateway``) raise a "not ported" error naming the ROADMAP.md item; they
+never run something else.
 
     python -m qwen3_rs_tpu_torch.cli export HF_DIR m.qtpu -g 64 --bits 4
     python -m qwen3_rs_tpu_torch.cli export HF_DIR m.bin --format legacy
@@ -17,7 +19,8 @@ defaults to ``device`` as in the reference package, so ``batch`` and
     python -m qwen3_rs_tpu_torch.cli inference CKPT -m generate -i "hello" --engine-mode exact
     python -m qwen3_rs_tpu_torch.cli eval-ppl CKPT -f text.txt --modes fast,exact,f32 -w 4096
     python -m qwen3_rs_tpu_torch.cli batch CKPT -f prompts.txt --sampling host --kv paged
-    python -m qwen3_rs_tpu_torch.cli serve CKPT --sampling host --kv-int8 --prefix-cache
+    python -m qwen3_rs_tpu_torch.cli serve CKPT --kv-int8 --prefix-cache
+    python -m qwen3_rs_tpu_torch.cli serve CKPT --tp 2 --device cuda:0,cuda:0
 """
 
 from __future__ import annotations
@@ -165,9 +168,16 @@ def build_parser() -> argparse.ArgumentParser:
         "--gateway", default=None, metavar="URL,URL",
         help="cross-host gateway over worker servers (not ported yet)",
     )
-    sv.add_argument("--tp", type=int, default=1, help="tensor-shard each replica (not ported yet)")
+    sv.add_argument(
+        "--tp", type=int, default=1,
+        help="tensor-shard the engine's weights and KV over this many devices, one process each",
+    )
     sv.add_argument("--replicas", type=int, default=1, help="engine replicas (not ported yet)")
-    sv.add_argument("--device", default=None, help=_DEVICE_HELP)
+    sv.add_argument(
+        "--device", default=None,
+        help=_DEVICE_HELP + "; with --tp, one device per rank, comma-separated (default: the first "
+        "--tp cards; cuda:0,cuda:0 puts two ranks on one card, cpu,cpu runs them on the CPU)",
+    )
     return parser
 
 
@@ -179,12 +189,23 @@ def _serving_not_ported(args) -> None:
     if args.spec > 0:
         raise not_ported("speculative serving (--spec)", "queue 1, item 3: speculative decoding")
     if args.command == "serve":
-        if args.tp > 1:
-            raise not_ported("tensor-parallel serving (--tp)", "queue 1, item 5: parallel layouts")
         if args.replicas > 1:
             raise not_ported("replicated serving (--replicas)", "queue 1, item 4: the rest of serving")
         if args.gateway:
             raise not_ported("the cross-host gateway (--gateway)", "queue 1, item 4: the rest of serving")
+
+
+def _tp_devices(args) -> list[str]:
+    """One device per rank of ``--tp``: the ``--device`` list, or the first
+    ``--tp`` cards."""
+    import torch
+
+    have = args.device.split(",") if args.device else [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    if args.replicas * args.tp > len(have):
+        raise SystemExit(
+            f"--replicas {args.replicas} x --tp {args.tp} needs {args.replicas * args.tp} devices, have {len(have)}"
+        )
+    return have[: args.tp]
 
 
 def _engine(args, config, weights, **kw):
@@ -194,11 +215,20 @@ def _engine(args, config, weights, **kw):
         if getattr(args, flag) not in (None, False) and args.kv != "paged":
             name = "--" + flag.replace("_", "-")
             raise SystemExit(f"{name} requires the paged KV layout: add --kv paged")
-    engine = ContinuousBatchingEngine(
-        config=config, weights=weights, n_slots=args.slots, sampling=args.sampling, seed=getattr(args, "seed", 0),
-        kv_layout=args.kv, page_size=args.page_size, n_pages=args.pages,
-        prefix_cache=args.prefix_cache, prefill_chunk=args.prefill_chunk, device=args.device, **kw,
-    )
+    kw = dict(n_slots=args.slots, sampling=args.sampling, seed=getattr(args, "seed", 0), kv_layout=args.kv,
+              page_size=args.page_size, n_pages=args.pages, prefix_cache=args.prefix_cache,
+              prefill_chunk=args.prefill_chunk, **kw)
+    if getattr(args, "tp", 1) > 1:
+        import functools
+
+        from .checkpoint import load_checkpoint
+        from .serving.scheduler import start_tp_engine
+
+        # Every rank loads the checkpoint itself and keeps its shard.
+        engine = start_tp_engine(functools.partial(load_checkpoint, args.checkpoint), _tp_devices(args), **kw)
+    else:
+        device = args.device.split(",")[0] if args.device else None
+        engine = ContinuousBatchingEngine(config=config, weights=weights, device=device, **kw)
     if not args.no_warmup:
         engine.warmup()
     return engine
@@ -246,17 +276,37 @@ def _batch(args) -> int:
 
 
 def _serve(args) -> int:
+    import signal
+    import threading
+
     from .checkpoint import load_checkpoint
+    from .configuration import read_config
     from .inference.tokenizer import Tokenizer
     from .serving.server import ServingFrontend, serve
 
-    config, weights = load_checkpoint(args.checkpoint)
+    if args.tp > 1:  # the ranks load the weights themselves
+        config, weights = read_config(args.checkpoint), None
+        _tp_devices(args)  # too few devices: fail before any rank starts
+    else:
+        config, weights = load_checkpoint(args.checkpoint)
     tokenizer = Tokenizer(args.checkpoint, config.vocab_size)
     kw = {"cache_dtype": "int8"} if args.kv_int8 else {}
     if not args.no_warmup:
         logging.info("warming up (building the kernels)...")
     engine = _engine(args, config, weights, **kw)
-    serve(ServingFrontend(engine, tokenizer), host=args.host, port=args.port)
+    frontend = ServingFrontend(engine, tokenizer)
+
+    def tp_ready(httpd):
+        # SIGTERM stops the server as Ctrl-C does, so that the engine's ranks
+        # stop with it.  An engine whose step failed has ranks out of step: it
+        # cannot serve again, so the server stops (and exits non-zero).
+        signal.signal(signal.SIGTERM, lambda *_: threading.Thread(target=httpd.shutdown).start())
+        threading.Thread(target=lambda: (frontend.failed.wait(), httpd.shutdown()), daemon=True).start()
+
+    serve(frontend, host=args.host, port=args.port, **({"ready": tp_ready} if args.tp > 1 else {}))
+    if frontend.error is not None:
+        logging.error("the serving engine failed: %s", frontend.error)
+        return 1
     return 0
 
 

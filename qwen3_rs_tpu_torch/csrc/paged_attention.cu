@@ -26,16 +26,19 @@
 //  * pass 1, one block per (128-row chunk of the cache, request and kv head, tile of Q query
 //    rows): the tile's rows share every K/V row the block reads, and the split over chunks gives
 //    the card enough blocks at B = 8 (64 (request, kv head) pairs alone would fill 64 SMs).
-//    Decode takes Q = the largest power of two up to 8 that divides kv_mul (so any kv_mul
-//    works, in kv_mul / Q tiles); a window takes Q = 8, so the per-row state stays in
+//    Decode takes Q = the largest power of two up to 8 (head_dim 128) that divides kv_mul (so
+//    any kv_mul works, in kv_mul / Q tiles); a window takes Q = 8, so the per-row state stays in
 //    registers;
 //  * a block reads the page ids of its own rows from the table, per row, so any page size works
 //    and a chunk may span pages;
 //  * blocks whose chunk starts at or past pos[b] return at once, and no row >= pos[b] is read:
 //    an idle slot (pos 0) and the null page cost one block launch that reads nothing;
-//  * a warp reads one 128-wide row per load (lane = 4 consecutive elements) and keeps 8 rows of
-//    K and V in flight, with an online softmax (m, l, acc) per query row; the block merges its
-//    warps in shared memory and writes one partial per chunk;
+//  * a warp reads one row per load (lane = 4 consecutive elements of each 128-wide piece) and
+//    keeps 8 rows of K and V in flight, with an online softmax (m, l, acc) per query row; the
+//    block merges its warps in shared memory and writes one partial per chunk;
+//  * head_dim is a template parameter: 128, 256, 384 or 512 (the reference's gate admits any
+//    multiple of 128).  Past 128 the rows in flight and the query rows per block shrink (4 at
+//    256, 2 above), so the registers a thread holds stay those of head_dim 128;
 //  * pass 2 merges the chunks below pos[b] in order, so the result does not depend on
 //    scheduling: decode seeds the softmax with the self key (m = q.k_self, l = 1, acc = v_self,
 //    as the Pallas kernel) and normalises; the window keeps the reference's isfinite guards and
@@ -47,11 +50,12 @@
 
 namespace {
 
-constexpr int kHd = 128;     // head_dim
 constexpr int kChunk = 128;  // cache rows per block
 constexpr int kWarps = 4;
-constexpr int kRows = 8;     // cache rows per warp in flight
-constexpr int kWindowQ = 8;  // query rows per block of a window
+
+// Query rows per block and cache rows per warp in flight, at most: 8 at head_dim 128, fewer
+// above, so that a thread's registers (q, acc, K and V rows) stay the same.
+__host__ __device__ constexpr int max_group(int hd) { return hd <= 128 ? 8 : hd <= 256 ? 4 : 2; }
 
 __device__ __forceinline__ void load4(const float* p, float* o) {
   const float4 v = *reinterpret_cast<const float4*>(p);
@@ -70,6 +74,13 @@ __device__ __forceinline__ void load4(const int8_t* p, float* o) {
   o[0] = (float)v.x; o[1] = (float)v.y; o[2] = (float)v.z; o[3] = (float)v.w;
 }
 
+// A lane's share of one head_dim-wide row: 4 elements of each 128-wide piece.
+template <typename T, int V>
+__device__ __forceinline__ void load_row(const T* row, int lane, float (&o)[V][4]) {
+#pragma unroll
+  for (int j = 0; j < V; ++j) load4(row + j * 128 + lane * 4, o[j]);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -81,19 +92,20 @@ __device__ __forceinline__ int valid_rows(const int* pos, int b, int limit) {
 }
 
 // Pass 1: one partial (m, l, acc) per (request and kv head, chunk, query row) over the chunk's
-// rows below pos[b], for the Q query rows of tile blockIdx.z.  q: [B * n_kv, R, hd] f32;
+// rows below pos[b], for the Q query rows of tile blockIdx.z.  q: [B * n_kv, R, HD] f32;
 // k/v: the layer's pool; ks/vs: [P, n_kv, page] or null; part_ml: [B * n_kv, n_chunks, R, 2];
-// part_acc: [B * n_kv, n_chunks, R, hd].
-template <typename T, int Q>
+// part_acc: [B * n_kv, n_chunks, R, HD].
+template <typename T, int Q, int HD>
 __global__ void __launch_bounds__(kWarps * 32)
 paged_partial_kernel(const float* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ ks,
                      const float* __restrict__ vs, const int* __restrict__ table,
                      const int* __restrict__ pos, int n_kv, int R, int page, int max_pages,
                      float scale, float* __restrict__ part_ml, float* __restrict__ part_acc) {
+  constexpr int V = HD / 128, kRows = max_group(HD);
   __shared__ float sm_m[kWarps][Q];
   __shared__ float sm_l[kWarps][Q];
-  __shared__ __align__(16) float sm_acc[kWarps][Q][kHd];
+  __shared__ __align__(16) float sm_acc[kWarps][Q][HD];
 
   const int bh = blockIdx.y;  // b * n_kv + kv head
   const int b = bh / n_kv, h = bh % n_kv;
@@ -106,25 +118,31 @@ paged_partial_kernel(const float* __restrict__ q, const T* __restrict__ k,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int* tab = table + (long)b * max_pages;
 
-  float qr[Q][4];
+  float qr[Q][V][4];
 #pragma unroll
   for (int m = 0; m < Q; ++m) {
     if (r0 + m < R) {
-      load4(q + ((long)bh * R + r0 + m) * kHd + lane * 4, qr[m]);
+      load_row<float, V>(q + ((long)bh * R + r0 + m) * HD, lane, qr[m]);
     } else {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qr[m][i] = 0.f;
+      for (int j = 0; j < V; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qr[m][j][i] = 0.f;
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) qr[m][i] *= scale;
+    for (int j = 0; j < V; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qr[m][j][i] *= scale;
   }
-  float mrun[Q], lrun[Q], acc[Q][4];
+  float mrun[Q], lrun[Q], acc[Q][V][4];
 #pragma unroll
   for (int m = 0; m < Q; ++m) {
     mrun[m] = -INFINITY;
     lrun[m] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc[m][i] = 0.f;
+    for (int j = 0; j < V; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][j][i] = 0.f;
   }
 
   for (int tb = t0 + warp * kRows; tb < t1; tb += kWarps * kRows) {
@@ -134,15 +152,17 @@ paged_partial_kernel(const float* __restrict__ q, const T* __restrict__ k,
       const int t = tb + r;
       row[r] = t < t1 ? ((long)tab[t / page] * n_kv + h) * page + t % page : 0;
     }
-    float kf[kRows][4], vf[kRows][4];
+    float kf[kRows][V][4], vf[kRows][V][4];
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       if (tb + r < t1) {
-        load4(k + row[r] * kHd + lane * 4, kf[r]);
-        load4(v + row[r] * kHd + lane * 4, vf[r]);
+        load_row<T, V>(k + row[r] * HD, lane, kf[r]);
+        load_row<T, V>(v + row[r] * HD, lane, vf[r]);
       } else {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) kf[r][i] = vf[r][i] = 0.f;
+        for (int j = 0; j < V; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) kf[r][j][i] = vf[r][j][i] = 0.f;
       }
     }
     float ksc[kRows], vsc[kRows];
@@ -158,10 +178,11 @@ paged_partial_kernel(const float* __restrict__ q, const T* __restrict__ k,
       float mx = -INFINITY;
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
-        float d = qr[m][0] * kf[r][0];
-        d = fmaf(qr[m][1], kf[r][1], d);
-        d = fmaf(qr[m][2], kf[r][2], d);
-        d = fmaf(qr[m][3], kf[r][3], d);
+        float d = qr[m][0][0] * kf[r][0][0];
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+#pragma unroll
+          for (int i = (j == 0 ? 1 : 0); i < 4; ++i) d = fmaf(qr[m][j][i], kf[r][j][i], d);
         d = warp_sum(d) * ksc[r];
         s[r] = tb + r < t1 ? d : -INFINITY;
         mx = fmaxf(mx, s[r]);
@@ -170,14 +191,18 @@ paged_partial_kernel(const float* __restrict__ q, const T* __restrict__ k,
       const float corr = expf(mrun[m] - m_new);
       lrun[m] *= corr;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[m][i] *= corr;
+      for (int j = 0; j < V; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[m][j][i] *= corr;
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         const float pr = expf(s[r] - m_new);
         lrun[m] += pr;
         const float pv = pr * vsc[r];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[m][i] = fmaf(pv, vf[r][i], acc[m][i]);
+        for (int j = 0; j < V; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[m][j][i] = fmaf(pv, vf[r][j][i], acc[m][j][i]);
       }
       mrun[m] = m_new;
     }
@@ -191,10 +216,11 @@ paged_partial_kernel(const float* __restrict__ q, const T* __restrict__ k,
       sm_l[warp][m] = lrun[m];
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) sm_acc[warp][m][lane * 4 + i] = acc[m][i];
+    for (int j = 0; j < V; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sm_acc[warp][m][j * 128 + lane * 4 + i] = acc[m][j][i];
   }
   __syncthreads();
-  const int d = threadIdx.x;  // kHd == blockDim.x
   const long slot = ((long)bh * n_chunks + chunk) * R;
 #pragma unroll
   for (int m = 0; m < Q; ++m) {
@@ -202,15 +228,19 @@ paged_partial_kernel(const float* __restrict__ q, const T* __restrict__ k,
     float mm = -INFINITY;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, sm_m[w][m]);
-    float l = 0.f, a = 0.f;
+    float c[kWarps], l = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      const float c = expf(sm_m[w][m] - mm);
-      l = fmaf(sm_l[w][m], c, l);
-      a = fmaf(sm_acc[w][m][d], c, a);
+      c[w] = expf(sm_m[w][m] - mm);
+      l = fmaf(sm_l[w][m], c[w], l);
     }
-    part_acc[(slot + r0 + m) * kHd + d] = a;
-    if (d == 0) {
+    for (int d = threadIdx.x; d < HD; d += kWarps * 32) {
+      float a = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) a = fmaf(sm_acc[w][m][d], c[w], a);
+      part_acc[(slot + r0 + m) * HD + d] = a;
+    }
+    if (threadIdx.x == 0) {
       part_ml[(slot + r0 + m) * 2] = mm;
       part_ml[(slot + r0 + m) * 2 + 1] = l;
     }
@@ -218,33 +248,33 @@ paged_partial_kernel(const float* __restrict__ q, const T* __restrict__ k,
 }
 
 // Decode pass 2: seed with the self key and merge the chunks below pos[b] in order, one block per
-// (request and kv head, tile of M query heads).  q: [B, n_kv * R, hd] (R = kv_mul);
-// k_new/v_new: [B, n_kv, hd]; out like q.
-template <int M>
-__global__ void __launch_bounds__(kHd)
+// (request and kv head, tile of M query heads), one thread per element of head_dim.
+// q: [B, n_kv * R, HD] (R = kv_mul); k_new/v_new: [B, n_kv, HD]; out like q.
+template <int M, int HD>
+__global__ void __launch_bounds__(HD)
 decode_merge_kernel(const float* __restrict__ q, const float* __restrict__ k_new,
                     const float* __restrict__ v_new, const int* __restrict__ pos, int n_kv, int R,
                     int n_chunks, float scale, const float* __restrict__ part_ml,
                     const float* __restrict__ part_acc, float* __restrict__ out) {
-  __shared__ float red[kHd / 32][M];
+  __shared__ float red[HD / 32][M];
   const int bh = blockIdx.x;
   const int b = bh / n_kv;
   const int r0 = blockIdx.y * M;
   const int d = threadIdx.x, lane = d & 31, warp = d >> 5;
-  const float kd = k_new[(long)bh * kHd + d];
+  const float kd = k_new[(long)bh * HD + d];
 #pragma unroll
   for (int m = 0; m < M; ++m) {
-    const float s = warp_sum(q[((long)bh * R + r0 + m) * kHd + d] * scale * kd);
+    const float s = warp_sum(q[((long)bh * R + r0 + m) * HD + d] * scale * kd);
     if (lane == 0) red[warp][m] = s;
   }
   __syncthreads();
   const int active = (valid_rows(pos, b, n_chunks * kChunk) + kChunk - 1) / kChunk;
-  const float vd = v_new[(long)bh * kHd + d];
+  const float vd = v_new[(long)bh * HD + d];
 #pragma unroll
   for (int m = 0; m < M; ++m) {
     float mcur = 0.f;
 #pragma unroll
-    for (int w = 0; w < kHd / 32; ++w) mcur += red[w][m];
+    for (int w = 0; w < HD / 32; ++w) mcur += red[w][m];
     float l = 1.f, a = vd;
     for (int j = 0; j < active; ++j) {
       const long slot = ((long)bh * n_chunks + j) * R + r0 + m;
@@ -252,16 +282,18 @@ decode_merge_kernel(const float* __restrict__ q, const float* __restrict__ k_new
       const float m_new = fmaxf(mcur, mj);
       const float ca = expf(mcur - m_new), cj = expf(mj - m_new);
       l = l * ca + lj * cj;
-      a = a * ca + part_acc[slot * kHd + d] * cj;
+      a = a * ca + part_acc[slot * HD + d] * cj;
       mcur = m_new;
     }
-    out[((long)bh * R + r0 + m) * kHd + d] = a / l;
+    out[((long)bh * R + r0 + m) * HD + d] = a / l;
   }
 }
 
 // Window pass 2: merge the chunks below pos[b] in order, one block per (request and kv head,
-// query row).  out_m/out_l: [B * n_kv, R]; out_acc: [B * n_kv, R, hd].
-__global__ void __launch_bounds__(kHd)
+// query row), one thread per element of head_dim.  out_m/out_l: [B * n_kv, R];
+// out_acc: [B * n_kv, R, HD].
+template <int HD>
+__global__ void __launch_bounds__(HD)
 window_merge_kernel(const int* __restrict__ pos, int n_kv, int R, int n_chunks,
                     const float* __restrict__ part_ml, const float* __restrict__ part_acc,
                     float* __restrict__ out_m, float* __restrict__ out_l,
@@ -279,11 +311,11 @@ window_merge_kernel(const int* __restrict__ pos, int n_kv, int R, int n_chunks,
     const float ca = finite ? expf(m - m_new) : 0.f;
     const float cj = finite ? expf(mj - m_new) : 0.f;
     l = l * ca + lj * cj;
-    a = a * ca + part_acc[slot * kHd + d] * cj;
+    a = a * ca + part_acc[slot * HD + d] * cj;
     m = m_new;
   }
   const long o = (long)bh * R + r;
-  out_acc[o * kHd + d] = a;
+  out_acc[o * HD + d] = a;
   if (d == 0) {
     out_m[o] = m;
     out_l[o] = l;
@@ -299,33 +331,76 @@ struct Pool {
   int n_chunks() const { return (max_pages * page + kChunk - 1) / kChunk; }
 };
 
-template <typename T, int Q>
+template <typename T, int Q, int HD>
 void launch_partials(const Pool& p, const float* q, int R, float scale, cudaStream_t s) {
   const dim3 grid(p.n_chunks(), p.B * p.n_kv, (R + Q - 1) / Q);
-  paged_partial_kernel<T, Q><<<grid, kWarps * 32, 0, s>>>(
+  paged_partial_kernel<T, Q, HD><<<grid, kWarps * 32, 0, s>>>(
       q, reinterpret_cast<const T*>(p.k), reinterpret_cast<const T*>(p.v),
       reinterpret_cast<const float*>(p.ks), reinterpret_cast<const float*>(p.vs), p.table, p.pos,
       p.n_kv, R, p.page, p.max_pages, scale, p.part_ml, p.part_acc);
 }
 
-template <typename T, int M>
-void launch_decode(const Pool& p, const float* q, int kv_mul, const float* k_new,
-                   const float* v_new, float scale, float* out, cudaStream_t s) {
-  launch_partials<T, M>(p, q, kv_mul, scale, s);
-  decode_merge_kernel<M><<<dim3(p.B * p.n_kv, kv_mul / M), kHd, 0, s>>>(
-      q, k_new, v_new, p.pos, p.n_kv, kv_mul, p.n_chunks(), scale, p.part_ml, p.part_acc, out);
+// The decode kernel's arguments besides the pool.
+struct Step {
+  const float *q, *k_new, *v_new;
+  int kv_mul;
+  float scale;
+  float* out;
+  cudaStream_t s;
+};
+
+template <typename T, int M, int HD>
+void launch_decode(const Pool& p, const Step& a) {
+  launch_partials<T, M, HD>(p, a.q, a.kv_mul, a.scale, a.s);
+  decode_merge_kernel<M, HD><<<dim3(p.B * p.n_kv, a.kv_mul / M), HD, 0, a.s>>>(
+      a.q, a.k_new, a.v_new, p.pos, p.n_kv, a.kv_mul, p.n_chunks(), a.scale, p.part_ml,
+      p.part_acc, a.out);
 }
 
-// Launches with M, the largest power of two up to 8 that divides kv_mul.
+// Launches with M, the largest power of two up to max_group(HD) that divides kv_mul.
+template <typename T, int HD>
+int decode_for(const Pool& p, const Step& a) {
+  if (a.kv_mul < 1) return (int)cudaErrorInvalidValue;
+  constexpr int kMax = max_group(HD);
+  const int low = a.kv_mul & -a.kv_mul;  // the largest power of two dividing kv_mul
+  switch (low < kMax ? low : kMax) {
+    case 1: launch_decode<T, 1, HD>(p, a); break;
+    case 2: launch_decode<T, 2, HD>(p, a); break;
+    case 4: if constexpr (kMax >= 4) launch_decode<T, 4, HD>(p, a); break;
+    default: if constexpr (kMax >= 8) launch_decode<T, 8, HD>(p, a); break;
+  }
+  return 0;
+}
+
 template <typename T>
-int decode_for(int kv_mul, const Pool& p, const float* q, const float* k_new,
-               const float* v_new, float scale, float* out, cudaStream_t s) {
-  if (kv_mul < 1) return (int)cudaErrorInvalidValue;
-  switch ((kv_mul & -kv_mul) < 8 ? (kv_mul & -kv_mul) : 8) {
-    case 1: launch_decode<T, 1>(p, q, kv_mul, k_new, v_new, scale, out, s); break;
-    case 2: launch_decode<T, 2>(p, q, kv_mul, k_new, v_new, scale, out, s); break;
-    case 4: launch_decode<T, 4>(p, q, kv_mul, k_new, v_new, scale, out, s); break;
-    default: launch_decode<T, 8>(p, q, kv_mul, k_new, v_new, scale, out, s); break;
+int decode_hd(int hd, const Pool& p, const Step& a) {
+  switch (hd) {
+    case 128: return decode_for<T, 128>(p, a);
+    case 256: return decode_for<T, 256>(p, a);
+    case 384: return decode_for<T, 384>(p, a);
+    case 512: return decode_for<T, 512>(p, a);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// A window's partials and their merge: query rows in tiles of max_group(HD).
+template <typename T, int HD>
+void window_for(const Pool& p, const float* q, int R, float scale, float* out_m, float* out_l,
+                float* out_acc, cudaStream_t s) {
+  launch_partials<T, max_group(HD), HD>(p, q, R, scale, s);
+  window_merge_kernel<HD><<<dim3(p.B * p.n_kv, R), HD, 0, s>>>(
+      p.pos, p.n_kv, R, p.n_chunks(), p.part_ml, p.part_acc, out_m, out_l, out_acc);
+}
+
+template <typename T>
+int window_hd(int hd, const Pool& p, const float* q, int R, float scale, float* out_m,
+              float* out_l, float* out_acc, cudaStream_t s) {
+  switch (hd) {
+    case 128: window_for<T, 128>(p, q, R, scale, out_m, out_l, out_acc, s); break;
+    case 256: window_for<T, 256>(p, q, R, scale, out_m, out_l, out_acc, s); break;
+    case 384: window_for<T, 384>(p, q, R, scale, out_m, out_l, out_acc, s); break;
+    case 512: window_for<T, 512>(p, q, R, scale, out_m, out_l, out_acc, s); break;
+    default: return (int)cudaErrorInvalidValue;
   }
   return 0;
 }
@@ -340,54 +415,55 @@ Pool pool_of(const void* k, const void* v, const void* ks, const void* vs, const
 
 }  // namespace
 
-// Plain C entry points.  k/v: the layer's pool [P, n_kv, page, 128] (cache_type 0 = f32,
+// Plain C entry points.  k/v: the layer's pool [P, n_kv, page, hd] (cache_type 0 = f32,
 // 1 = bf16, 2 = int8 with ks/vs [P, n_kv, page] f32); table [B, max_pages] and pos [B] int32 on
 // the device; workspaces part_ml / part_acc of B * n_kv * ceil(max_pages * page / 128) * R floats
-// times 2 and times 128.  Each returns cudaGetLastError() (or cudaErrorInvalidValue for an
-// argument it does not take).
+// times 2 and times hd; hd is 128, 256, 384 or 512.  Each returns cudaGetLastError() (or
+// cudaErrorInvalidValue for an argument it does not take).
 
-// q [B, n_kv * kv_mul, 128] f32 (unscaled), k_new/v_new [B, n_kv, 128] f32 → out like q; R = kv_mul.
+// q [B, n_kv * kv_mul, hd] f32 (unscaled), k_new/v_new [B, n_kv, hd] f32 → out like q; R = kv_mul.
 extern "C" int paged_decode(const void* q, const void* k_new, const void* v_new, const void* k,
                             const void* v, const void* ks, const void* vs, const void* table,
                             const void* pos, int cache_type, int B, int n_kv, int kv_mul, int page,
-                            int max_pages, float scale, void* part_ml, void* part_acc, void* out,
-                            void* stream) {
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+                            int max_pages, int hd, float scale, void* part_ml, void* part_acc,
+                            void* out, void* stream) {
   const Pool p = pool_of(k, v, ks, vs, table, pos, B, n_kv, page, max_pages, part_ml, part_acc);
-  const float* qf = reinterpret_cast<const float*>(q);
-  const float* kn = reinterpret_cast<const float*>(k_new);
-  const float* vn = reinterpret_cast<const float*>(v_new);
-  float* o = reinterpret_cast<float*>(out);
+  const Step a{reinterpret_cast<const float*>(q), reinterpret_cast<const float*>(k_new),
+               reinterpret_cast<const float*>(v_new), kv_mul, scale, reinterpret_cast<float*>(out),
+               reinterpret_cast<cudaStream_t>(stream)};
   int rc;
   switch (cache_type) {
-    case 0: rc = decode_for<float>(kv_mul, p, qf, kn, vn, scale, o, s); break;
-    case 1: rc = decode_for<__nv_bfloat16>(kv_mul, p, qf, kn, vn, scale, o, s); break;
-    case 2: rc = decode_for<int8_t>(kv_mul, p, qf, kn, vn, scale, o, s); break;
+    case 0: rc = decode_hd<float>(hd, p, a); break;
+    case 1: rc = decode_hd<__nv_bfloat16>(hd, p, a); break;
+    case 2: rc = decode_hd<int8_t>(hd, p, a); break;
     default: rc = (int)cudaErrorInvalidValue;
   }
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }
 
-// q [B, n_kv, R, 128] f32 (R rows per kv head, unscaled) → out_m/out_l [B, n_kv, R] and out_acc
-// [B, n_kv, R, 128] f32.
+// q [B, n_kv, R, hd] f32 (R rows per kv head, unscaled) → out_m/out_l [B, n_kv, R] and out_acc
+// [B, n_kv, R, hd] f32.
 extern "C" int paged_window_partials(const void* q, const void* k, const void* v, const void* ks,
                                      const void* vs, const void* table, const void* pos,
                                      int cache_type, int B, int n_kv, int R, int page,
-                                     int max_pages, float scale, void* part_ml, void* part_acc,
-                                     void* out_m, void* out_l, void* out_acc, void* stream) {
+                                     int max_pages, int hd, float scale, void* part_ml,
+                                     void* part_acc, void* out_m, void* out_l, void* out_acc,
+                                     void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (R < 1) return (int)cudaErrorInvalidValue;
   const Pool p = pool_of(k, v, ks, vs, table, pos, B, n_kv, page, max_pages, part_ml, part_acc);
   const float* qf = reinterpret_cast<const float*>(q);
+  float* om = reinterpret_cast<float*>(out_m);
+  float* ol = reinterpret_cast<float*>(out_l);
+  float* oa = reinterpret_cast<float*>(out_acc);
+  int rc;
   switch (cache_type) {
-    case 0: launch_partials<float, kWindowQ>(p, qf, R, scale, s); break;
-    case 1: launch_partials<__nv_bfloat16, kWindowQ>(p, qf, R, scale, s); break;
-    case 2: launch_partials<int8_t, kWindowQ>(p, qf, R, scale, s); break;
-    default: return (int)cudaErrorInvalidValue;
+    case 0: rc = window_hd<float>(hd, p, qf, R, scale, om, ol, oa, s); break;
+    case 1: rc = window_hd<__nv_bfloat16>(hd, p, qf, R, scale, om, ol, oa, s); break;
+    case 2: rc = window_hd<int8_t>(hd, p, qf, R, scale, om, ol, oa, s); break;
+    default: rc = (int)cudaErrorInvalidValue;
   }
-  window_merge_kernel<<<dim3(B * n_kv, R), kHd, 0, s>>>(
-      p.pos, n_kv, R, p.n_chunks(), p.part_ml, p.part_acc, reinterpret_cast<float*>(out_m),
-      reinterpret_cast<float*>(out_l), reinterpret_cast<float*>(out_acc));
+  if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }

@@ -1,11 +1,11 @@
-// Causal prefill attention over a fresh window for Hopper (sm_90a), head_dim 128.
+// Causal prefill attention over a fresh window for Hopper (sm_90a), head_dim 128 or 256.
 //
 // Replaces the reference package's Pallas kernel
 //   qwen3_rs_tpu/ops/pallas/prefill_attention.py::causal_prefill_attention (the splash MQA
 //   kernel vmapped over batch and kv heads).
 // Output row i attends to window rows j <= i; query head h reads kv head h / kv_mul.
 //
-// Numerics, as the splash kernel: q is scaled by bf16(1/sqrt(128)) and rounded to bf16 before the
+// Numerics, as the splash kernel: q is scaled by bf16(1/sqrt(hd)) and rounded to bf16 before the
 // scores (the reference scales q in bf16 outside its kernel; here the same two roundings happen
 // as q is loaded); scores accumulate in f32; online softmax in f32 (running max, rescaled sums);
 // P.V is taken with P in f32.  The tensor cores take bf16, so P is split into
@@ -13,16 +13,20 @@
 // P that neither carries is below 2^-16 of P, far under the output's bf16 rounding.  The output is
 // normalised in f32 and rounded to bf16.
 //
-// Bound on the H100: 4 * (S(S+1)/2) * 128 operations per query head (Q.K^T and P.V over the
+// Bound on the H100: 4 * (S(S+1)/2) * hd operations per query head (Q.K^T and P.V over the
 // causal triangle) at 989 TFLOP/s bf16; the bytes (q, k, v and out, each once) are far fewer.
 // Design (a flash-attention forward):
 //  * one block per (query tile, kv head and group of M query heads, batch row) holds the M
 //    heads, 128 query rows in all (128 / M rows per head), so each K/V tile read from device
 //    memory serves the M heads; 8 warps of 16 query rows each.  M is the largest power of two
 //    up to 8 that divides kv_mul, so any kv_mul works (3 or 5 read each tile 3 or 5 times);
-//  * K/V tiles of 64 rows in shared memory (rows padded to 272 bytes: ldmatrix without bank
+//  * K/V tiles of 64 rows in shared memory (rows padded by 16 bytes: ldmatrix without bank
 //    conflicts), mma.sync m16n8k16 for Q.K^T and for P.V, the score tile and the output
 //    accumulator in registers;
+//  * head_dim is a template parameter.  At 256 the K/V tiles hold 32 rows, so that both fit the
+//    48 KB of static shared memory; the Q fragments and the output accumulator double, to 192
+//    registers a thread.  Wider heads (384, 512) would not fit the register file this way and
+//    are not built (the wrapper refuses them);
 //  * key tiles past the block's last query row are never visited (fully masked), only tiles on
 //    the diagonal or past the window's end are masked element by element;
 //  * the query tiles with the most key tiles are scheduled first.
@@ -33,12 +37,12 @@
 
 namespace {
 
-constexpr int HD = 128;   // head_dim
-constexpr int BKV = 64;   // key rows per tile
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRows = kWarps * 16;  // query rows per block, all heads of the group
-constexpr int KV_STRIDE = HD + 8;   // bf16 per shared K/V row
+
+// Key rows per K/V tile: both tiles stay within 48 KB of static shared memory.
+__host__ __device__ constexpr int kv_tile(int hd) { return hd <= 128 ? 64 : 32; }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -79,10 +83,16 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint3
   lo = pack_bf16(a - hf.x, b - hf.y);
 }
 
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 prefill_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
                          int S, int H, int KV, int kv_mul, int M, float q_scale) {
+  constexpr int BKV = kv_tile(HD);        // key rows per tile
+  constexpr int KV_STRIDE = HD + 8;       // bf16 per shared K/V row
+  constexpr int kPieces = HD / 8;         // 16-byte pieces of a K/V row
+  constexpr int kLoads = BKV * kPieces / kThreads;
+  static_assert(kLoads * kThreads == BKV * kPieces, "a K/V tile is whole loads of every thread");
   __shared__ __align__(16) __nv_bfloat16 Ks[BKV * KV_STRIDE];
   __shared__ __align__(16) __nv_bfloat16 Vs[BKV * KV_STRIDE];
 
@@ -97,7 +107,7 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
   const int r0 = q0 + (warp % warps_per_head) * 16;  // this warp's first query row
   const int row_a = r0 + (lane >> 2), row_b = row_a + 8;  // this thread's two rows
 
-  // Q fragments of the warp's 16 rows x 128, scaled and rounded to bf16 as they are loaded.
+  // Q fragments of the warp's 16 rows x HD, scaled and rounded to bf16 as they are loaded.
   uint32_t qf[HD / 16][4];
 #pragma unroll
   for (int ks = 0; ks < HD / 16; ++ks) {
@@ -128,8 +138,8 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
     const int kv0 = kt * BKV;
     __syncthreads();  // the previous tile is consumed
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int id = tid + i * kThreads, r = id >> 4, ch = id & 15;
+    for (int i = 0; i < kLoads; ++i) {
+      const int id = tid + i * kThreads, r = id / kPieces, ch = id % kPieces;
       const int key = kv0 + r;
       const long src = (((long)b * S + key) * KV + kvh) * HD + ch * 8;
       *reinterpret_cast<uint4*>(&Ks[r * KV_STRIDE + ch * 8]) =
@@ -139,7 +149,7 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
     }
     __syncthreads();
 
-    // Scores of 16 rows x 64 keys.
+    // Scores of 16 rows x BKV keys.
     float s[BKV / 8][4];
 #pragma unroll
     for (int i = 0; i < BKV / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
@@ -168,7 +178,7 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
         }
     }
 
-    // Online softmax: each row's 64 scores sit in the 4 lanes of a quad.
+    // Online softmax: each row's BKV scores sit in the 4 lanes of a quad.
     float mx_a = -INFINITY, mx_b = -INFINITY;
 #pragma unroll
     for (int ni = 0; ni < BKV / 8; ++ni) {
@@ -247,19 +257,27 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
 
 }  // namespace
 
-// Plain C entry point.  q [B, S, H, 128], k/v [B, S, KV, 128] and out [B, S, H, 128] are
-// contiguous bf16 device pointers; KV divides H; q_scale is bf16(1/sqrt(128)) as a float.
-// Returns cudaGetLastError().
+// Plain C entry point.  q [B, S, H, hd], k/v [B, S, KV, hd] and out [B, S, H, hd] are
+// contiguous bf16 device pointers; KV divides H; hd is 128 or 256; q_scale is bf16(1/sqrt(hd))
+// as a float.  Returns cudaGetLastError() (or cudaErrorInvalidValue for an argument it does
+// not take).
 extern "C" int causal_prefill_attention(const void* q, const void* k, const void* v, void* out,
-                                        int B, int S, int H, int KV, float q_scale, void* stream) {
+                                        int B, int S, int H, int KV, int hd, float q_scale,
+                                        void* stream) {
   if (KV < 1 || H % KV) return (int)cudaErrorInvalidValue;
   const int kv_mul = H / KV;
   const int M = (kv_mul & -kv_mul) < 8 ? (kv_mul & -kv_mul) : 8;  // query heads per block
   const int bq = kRows / M;
   const dim3 grid((S + bq - 1) / bq, KV * (kv_mul / M), B);
-  prefill_attention_kernel<<<grid, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const __nv_bfloat16*>(q), reinterpret_cast<const __nv_bfloat16*>(k),
-      reinterpret_cast<const __nv_bfloat16*>(v), reinterpret_cast<__nv_bfloat16*>(out), S, H, KV,
-      kv_mul, M, q_scale);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const auto* qb = reinterpret_cast<const __nv_bfloat16*>(q);
+  const auto* kb = reinterpret_cast<const __nv_bfloat16*>(k);
+  const auto* vb = reinterpret_cast<const __nv_bfloat16*>(v);
+  auto* ob = reinterpret_cast<__nv_bfloat16*>(out);
+  switch (hd) {
+    case 128: prefill_attention_kernel<128><<<grid, kThreads, 0, s>>>(qb, kb, vb, ob, S, H, KV, kv_mul, M, q_scale); break;
+    case 256: prefill_attention_kernel<256><<<grid, kThreads, 0, s>>>(qb, kb, vb, ob, S, H, KV, kv_mul, M, q_scale); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

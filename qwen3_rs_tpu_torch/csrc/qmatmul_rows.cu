@@ -1,7 +1,12 @@
-// Row-blocked W8A16 matmul for Hopper (sm_90a): out[M, D] = x[M, N] · dequant(W[N, D]), f32.
+// Row-blocked W8A16 matmul for Hopper (sm_90a): out[M, dc] = x[M, N] · dequant(W[N, c0:c0+dc]), f32.
 //
 // Replaces the reference package's Pallas kernel
-//   qwen3_rs_tpu/ops/pallas/qmatmul.py::qmatmul_pallas_stacked_rows (prefill windows > 256 rows).
+//   qwen3_rs_tpu/ops/pallas/qmatmul.py::qmatmul_pallas_stacked_rows (prefill windows > 256 rows),
+// with its column window out_cols=(c0, dc) (the tensor-parallel overlap's chunks of a
+// row-parallel projection): the code and scale pointers move by c0 columns and keep the full
+// row stride D, so the kernel reads only the window's columns, as the Pallas index map offsets
+// its out-tile axis, and no weight is copied.  Each output element sums its products in the same
+// k order whatever the window, so a window equals those columns of the full product bit for bit.
 // The layer offset of stacked weights is a pointer offset made by the wrapper.  A template
 // parameter picks the code format: int8 codes [N, D], or INT4 codes nibble-packed [N/2, D]
 // (group split-half along N, code + 8 per nibble: the Q4 tiles of the same Pallas kernel).
@@ -83,11 +88,12 @@ __device__ __forceinline__ int q4_in_row(int p0, int k, int h) {
   return (p / h) * 2 * h + (p % h) + (k >> 5) * h;
 }
 
+// D: the output's columns (the window's width); ldw: the weights' row stride (all their columns).
 template <bool Q4>
 __global__ void __launch_bounds__(kThreads)
 qmatmul_rows_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ codes,
                     const __nv_bfloat16* __restrict__ scales, float* __restrict__ out, int M,
-                    int N, int D, int g) {
+                    int N, int D, int ldw, int g) {
   __shared__ __align__(16) __nv_bfloat16 As[BM * A_STRIDE];
   __shared__ __align__(16) __nv_bfloat16 Bs[BK * B_STRIDE];
 
@@ -132,9 +138,9 @@ qmatmul_rows_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restric
       const int id = tid + i * kThreads, r = id >> 3, ch = id & 7;
       const int col = n0 + ch * 16, k = (Q4 ? k0 / 2 : k0) + r;  // a packed row for INT4
       if (col < D) {
-        c_reg[i] = __ldg(reinterpret_cast<const uint4*>(codes + (long)k * D + col));
+        c_reg[i] = __ldg(reinterpret_cast<const uint4*>(codes + (long)k * ldw + col));
         const int grp = Q4 ? k / h : k / g;
-        const uint4* sp = reinterpret_cast<const uint4*>(scales + (long)grp * D + col);
+        const uint4* sp = reinterpret_cast<const uint4*>(scales + (long)grp * ldw + col);
         s_reg[i][0] = __ldg(sp);
         s_reg[i][1] = __ldg(sp + 1);
       } else {
@@ -234,20 +240,22 @@ qmatmul_rows_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restric
 }  // namespace
 
 // Plain C entry point.  x [M, N] bf16, codes [N, D] int8 (q4: [N/2, D] packed) and scales
-// [N/g, D] bf16 are device pointers (codes/scales already offset to the layer); out [M, D] f32.
-// The wrapper guarantees N % 64 == 0, D % 16 == 0, 16-byte alignment and, for q4, an even g.
-// Returns cudaGetLastError().
+// [N/g, D] bf16 are device pointers (codes/scales already offset to the layer); out [M, dc] f32
+// holds columns [c0, c0 + dc) of the product (c0 = 0, dc = D: all of it).  The wrapper guarantees
+// N % 64 == 0, D, c0 and dc multiples of 16 with c0 + dc <= D, 16-byte alignment and, for q4, an
+// even g.  Returns cudaGetLastError().
 extern "C" int qmatmul_w8a16_rows(const void* x, const void* codes, const void* scales, void* out,
-                                  int M, int N, int D, int g, int q4, void* stream) {
-  const dim3 grid((M + BM - 1) / BM, (D + BN - 1) / BN);
+                                  int M, int N, int D, int c0, int dc, int g, int q4,
+                                  void* stream) {
+  const dim3 grid((M + BM - 1) / BM, (dc + BN - 1) / BN);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const auto* xb = reinterpret_cast<const __nv_bfloat16*>(x);
-  const auto* cq = reinterpret_cast<const int8_t*>(codes);
-  const auto* cs = reinterpret_cast<const __nv_bfloat16*>(scales);
+  const auto* cq = reinterpret_cast<const int8_t*>(codes) + c0;  // packed INT4 keeps D columns
+  const auto* cs = reinterpret_cast<const __nv_bfloat16*>(scales) + c0;
   auto* o = reinterpret_cast<float*>(out);
   if (q4)
-    qmatmul_rows_kernel<true><<<grid, kThreads, 0, s>>>(xb, cq, cs, o, M, N, D, g);
+    qmatmul_rows_kernel<true><<<grid, kThreads, 0, s>>>(xb, cq, cs, o, M, N, dc, D, g);
   else
-    qmatmul_rows_kernel<false><<<grid, kThreads, 0, s>>>(xb, cq, cs, o, M, N, D, g);
+    qmatmul_rows_kernel<false><<<grid, kThreads, 0, s>>>(xb, cq, cs, o, M, N, dc, D, g);
   return (int)cudaGetLastError();
 }

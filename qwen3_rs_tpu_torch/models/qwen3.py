@@ -37,8 +37,20 @@ classifier stay INT8.
 Every kernel sits behind the reference's shape gate for it, decided from
 shapes before any launch; a shape the gate refuses takes the plain PyTorch
 path, on the card too (the reference's XLA route there).  The port's kernels
-take every shape the gates admit, except a head_dim other than 128 in the
-attention kernels, whose wrappers raise on the card.
+take every shape the gates admit, except a head_dim of 384 or 512 in the
+causal prefill kernel: the forward refuses it on the card before any launch
+(ROADMAP §3).
+
+Tensor parallelism (``tp_group``, the reference's ``tp_axis``): the weights
+and the cache are one rank's shards (``parallel/tp.py``) and ``config`` is
+the local config.  The embedding gathers the rank's vocab rows and
+all-reduces; the row-parallel projections (wo, w2) all-reduce their f32
+partial sums before the residual add (at windows of 512 reference rows or
+more in column chunks, each chunk's all-reduce issued as soon as its
+product is done, the row-blocked kernel reading only the chunk's columns);
+the classifier's vocab columns are all-gathered before the slice to the
+vocabulary, so every rank returns the same global logits.  The megakernel
+is off under tp, as in the reference.
 
 On CPU tensors the kernel wrappers run their plain PyTorch versions.
 
@@ -61,9 +73,12 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configuration import ModelConfig
 from ..ops.attention import gqa_attention_split, gqa_attention_split_paged
+from ..ops.collectives import all_gather_last, all_reduce
+from ..ops.kernels import flash_attention, paged_attention, prefill_attention
 from ..ops.kernels.flash_attention import decode_supported, flash_decode
 from ..ops.kernels.megakernel import decode_stack_megakernel, head_phase_supported, megakernel_supported
 from ..ops.kernels.paged_attention import (
@@ -99,8 +114,29 @@ _XDOT_PREFILL_MIN_ROWS = 4096
 _XDOT_MIN_WEIGHT_ELEMS = 10_000_000
 
 
+# The reference's column chunks for the row-parallel projections under tp
+# (its ``_tp_overlap_chunks`` defaults; its environment overrides are A/B
+# knobs and are not carried): 4 chunks from 512 rows.
+_TP_OVERLAP_CHUNKS = 4
+_TP_OVERLAP_MIN_ROWS = 512
+
+
 def _xdot_prefill_wins(rows: int, n: int, d: int) -> bool:
     return rows >= _XDOT_PREFILL_MIN_ROWS and n > d and n * d >= _XDOT_MIN_WEIGHT_ELEMS
+
+
+def _tp_overlap_chunks(rows: int, d_out: int) -> int:
+    """Column chunks of a row-parallel projection under tp: each chunk's
+    all-reduce can start while the next chunk's product runs.  Only worth it
+    for large payloads: decode-sized all-reduces are latency-bound, so the
+    chunks engage at prefill row counts (``rows``: the reference's, the
+    window's bucket)."""
+    c = _TP_OVERLAP_CHUNKS
+    if c <= 1 or rows < _TP_OVERLAP_MIN_ROWS:
+        return 1
+    while c > 1 and d_out % (c * 128):
+        c //= 2
+    return c
 
 
 def reference_rows(s: int) -> int:
@@ -333,8 +369,59 @@ def _project_layer(x, xq, w: QuantizedTensor, layer: int, mode: str, *, rounds_t
     return qmatmul_w8a16_rows_plain(x, w, layer)
 
 
-def _head(config, weights, x, mode: str) -> torch.Tensor:
-    """Final norm + classifier → f32 logits over the real vocabulary."""
+def _reference_window_rows(b: int, s: int) -> int:
+    """The rows the reference engine runs for a window of ``b`` requests of
+    ``s`` rows: a prefill window pads to its bucket, a decode step does not."""
+    return b * (reference_rows(s) if s > 1 else 1)
+
+
+def _project_layer_cols(x, xq, w: QuantizedTensor, layer: int, mode: str, c0: int, dc: int, ref_rows: int):
+    """One projection against out columns ``[c0, c0+dc)`` of layer ``layer``
+    → ``[..., dc]`` f32.  INT8 fast mode takes the row-blocked kernel's
+    column window where the reference's gate admits it (no weight copy);
+    INT4, exact and f32 modes and refused shapes slice the (codes, scales)
+    pair and take the plain projection (the reference's ``_project``)."""
+    n, d = w.shape[-2:]
+    g = n // w.scales.shape[-2]
+    if mode == "fast":
+        if not isinstance(w, Q4Tensor) and rows_supported(n, dc, g, ref_rows):
+            return qmatmul_w8a16_rows(x, w, layer, out_cols=(c0, dc))
+        return qmatmul_w8a16_rows_plain(x, w, layer, out_cols=(c0, dc))
+    w_sl = type(w)(w.q[layer, :, c0 : c0 + dc].contiguous(), w.scales[layer, :, c0 : c0 + dc].contiguous())
+    return qmatmul_exact(xq, w_sl) if mode == "exact" else f32_matmul(x, w_sl)
+
+
+def _row_parallel(x, xq, w: QuantizedTensor, layer: int, mode: str, ref_rows: int, tp_group):
+    """A row-parallel projection (wo, w2) summed over the tp ranks → f32:
+    at prefill widths in column chunks, one all-reduce each."""
+    d_out = w.shape[-1]
+    chunks = _tp_overlap_chunks(ref_rows, d_out)
+    if chunks == 1:
+        return all_reduce(_project_layer(x, xq, w, layer, mode), tp_group)
+    dc = d_out // chunks
+    return torch.cat([all_reduce(_project_layer_cols(x, xq, w, layer, mode, ci * dc, dc, ref_rows), tp_group)
+                      for ci in range(chunks)], dim=-1)
+
+
+def _embed(weights, tokens: torch.Tensor, tp_group) -> torch.Tensor:
+    """The tokens' embedding rows dequantized in f32.  Under tp each rank
+    holds a block of vocab rows: it gathers the tokens it holds (the others
+    as zeros) and the ranks' rows are all-reduced."""
+    emb = weights.embed
+    if tp_group is None:
+        return dequantize(QuantizedTensor(emb.q[tokens], emb.scales[tokens]))
+    v_local = emb.q.shape[0]
+    lid = tokens - dist.get_rank(tp_group) * v_local
+    ok = (lid >= 0) & (lid < v_local)
+    lid = lid.clamp(0, v_local - 1)
+    x = dequantize(QuantizedTensor(emb.q[lid], emb.scales[lid]))
+    return all_reduce(x * ok[..., None], tp_group)
+
+
+def _head(config, weights, x, mode: str, tp_group=None) -> torch.Tensor:
+    """Final norm + classifier → f32 logits over the real vocabulary.  Under
+    tp the rank's vocab columns are gathered before the slice: the padding
+    columns sit at the end of the last rank's block."""
     xn = rms_norm(x, weights.rms_final, config.norm_eps)
     if mode == "exact":
         logits = qmatmul_exact(quantize_activations(xn, config.group_size), weights.lm_head)
@@ -342,6 +429,8 @@ def _head(config, weights, x, mode: str) -> torch.Tensor:
         logits = f32_matmul(xn, weights.lm_head)
     else:
         logits = qmatmul(xn, weights.lm_head)
+    if tp_group is not None:
+        logits = all_gather_last(logits.float(), tp_group)
     return logits[..., : config.vocab_size].float()
 
 
@@ -403,6 +492,7 @@ def qwen3_forward(
     page_table=None,
     write_mask=None,
     greedy_head: bool = False,
+    tp_group=None,
 ):
     """One model step: prefill when S > 1, decode when S == 1.
 
@@ -420,9 +510,16 @@ def qwen3_forward(
     ``return_all_logits``; cache), the cache updated in place.
     ``greedy_head`` returns the first-max argmax of those logits (int32) in
     their place; the megakernel fuses it into its classifier phase.
+    ``tp_group``: this rank's process group of a tensor-parallel forward
+    (the weights and the cache its shards, ``config`` the local config;
+    ``parallel/tp.py``); the logits are global.
     """
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} is not one of {MODES}")
+    if greedy_head and tp_group is not None:
+        # Under tp the classifier's columns are gathered after it: the fused
+        # argmax of the reference would see local ids.
+        raise ValueError("greedy_head requires the full head (no skip_head/tp_axis)")
     dev = weights.embed.q.device
     tokens = torch.as_tensor(tokens, device=dev).long()
     b, s = tokens.shape
@@ -448,7 +545,8 @@ def qwen3_forward(
         )
     if fresh_prefill and pos.any():
         raise ValueError(f"fresh_prefill with positions {pos.tolist()}: a fresh window starts at 0")
-    if megakernel_route(config, cache, b, s, mode, paged, q4=isinstance(weights.layers.wqkv, Q4Tensor)):
+    if tp_group is None and megakernel_route(config, cache, b, s, mode, paged,
+                                             q4=isinstance(weights.layers.wqkv, Q4Tensor)):
         ok = None if write_mask is None else torch.as_tensor(np.asarray(write_mask, bool), device=dev)
         out = megakernel_step(config, weights, tokens[:, 0], cache, torch.as_tensor(pos, dtype=torch.int32, device=dev),
                               ok, greedy_head=greedy_head)
@@ -480,13 +578,28 @@ def qwen3_forward(
                      and paged_window_supported(hd, cache.k.shape[3], cache.k.dtype, s, c.kv_mul))
     flash_kernel = (not paged and fast and s == 1
                     and decode_supported(c.n_heads, c.n_kv_heads, hd, cache.seq_len, min_seq_len=0))
+    if dev.type == "cuda":
+        # A head_dim the gates admit and a kernel is not built for raises here,
+        # before any launch, as its wrapper would (ROADMAP §3).
+        for used, module in ((flash_kernel, flash_attention), (prefill_kernel, prefill_attention),
+                             (paged_decode_kernel or window_kernel, paged_attention)):
+            if used and not module.takes_head_dim(hd):
+                raise ValueError(f"{module.__name__.rsplit('.', 1)[-1]}: head_dim {hd} "
+                                 f"(the kernel takes {module.HEAD_DIMS})")
+    ref_rows = _reference_window_rows(b, s)
 
     def quant(t):
         return quantize_activations(t, g) if exact else None
 
+    def _down(t, tq, w, l):
+        """A row-parallel projection (wo, w2), whose result the caller rounds
+        to the stream's dtype."""
+        if tp_group is None:
+            return _project_layer(t, tq, w, l, mode, rounds_to_bf16=True)
+        return _row_parallel(t, tq, w, l, mode, ref_rows, tp_group)
+
     # Embedding: gather the quantized rows, dequantize in f32.
-    x = dequantize(QuantizedTensor(weights.embed.q[tokens], weights.embed.scales[tokens]))
-    x = x.to(cd)
+    x = _embed(weights, tokens, tp_group).to(cd)
 
     # Positions past the RoPE table (padding rows past the context) take its
     # last row, as the reference's gather clamps them.
@@ -544,20 +657,28 @@ def qwen3_forward(
         else:
             _write_rows(cache, l, k, v, pos, write_mask)
         att = att.reshape(b, s, ah)
-        if fused:
+        if fused and tp_group is None:
             x = qmatmul_w8a16(att, lw.wo, l, residual=x).to(bf16)
             gate_up = qmatmul_w8a16(x, lw.w13, l, norm_w=lw.rms_ffn, eps=eps)
             x = qmatmul_w8a16(gate_up, lw.w2, l, swiglu=True, residual=x).to(bf16)
             continue
+        if fused:
+            # Under tp the all-reduce sits between the product and the residual
+            # add, so the residual cannot ride the kernel's epilogue.
+            x = x + all_reduce(qmatmul_w8a16(att, lw.wo, l), tp_group).to(bf16)
+            gate_up = qmatmul_w8a16(x, lw.w13, l, norm_w=lw.rms_ffn, eps=eps)
+            x = x + all_reduce(qmatmul_w8a16(gate_up, lw.w2, l, swiglu=True), tp_group).to(bf16)
+            continue
         # Unfused layer body, in the reference's dtypes: each projection's f32
-        # result is rounded to the stream's dtype, then added in that dtype.
+        # result (under tp: summed over the ranks) is rounded to the stream's
+        # dtype, then added in that dtype.
         att = att.to(cd)
-        x = x + _project_layer(att, quant(att), lw.wo, l, mode, rounds_to_bf16=True).to(cd)
+        x = x + _down(att, quant(att), lw.wo, l).to(cd)
         xn = rms_norm(x, lw.rms_ffn[l], eps)
         gate_up = _project_layer(xn, quant(xn), lw.w13, l, mode)
         gate, up = gate_up[..., : c.hidden_dim], gate_up[..., c.hidden_dim :]
         h = (gate * torch.sigmoid(gate) * up).to(cd)
-        x = x + _project_layer(h, quant(h), lw.w2, l, mode, rounds_to_bf16=True).to(cd)
+        x = x + _down(h, quant(h), lw.w2, l).to(cd)
 
     if not return_all_logits:
         if out_idx is None:
@@ -565,7 +686,7 @@ def qwen3_forward(
         else:
             rows = torch.as_tensor(np.asarray(out_idx, np.int64).reshape(b), device=dev)
             x = x[torch.arange(b, device=dev), rows]
-    logits = _head(c, weights, x, mode)
+    logits = _head(c, weights, x, mode, tp_group)
     if greedy_head:
         return logits.argmax(dim=-1).to(torch.int32), cache
     return logits, cache

@@ -4,14 +4,11 @@ version.
 A wrapper takes the plain version only for tensors on the CPU; for a CUDA
 tensor it launches the kernel or raises.  ``LAUNCHES`` counts the kernel
 launches of each wrapper (plain calls are not counted), so a run can show
-that its path went through the kernels.
+that its path went through the kernels.  The attention kernels' modules each
+say which head_dims their kernels take (``takes_head_dim``).
 """
 
 from __future__ import annotations
-
-# The head_dim the attention kernels and the megakernel take (every Qwen3
-# model's; the reference's attention gates admit any multiple of 128).
-HEAD_DIM = 128
 
 LAUNCHES: dict[str, int] = {
     "qmatmul_w8a16": 0,
@@ -19,6 +16,7 @@ LAUNCHES: dict[str, int] = {
     "flash_decode": 0,
     "qmatmul_w8a16_rows": 0,
     "qmatmul_w8a16_rows_q4": 0,
+    "qmatmul_w8a16_rows_cols": 0,
     "dequant_w8_stacked": 0,
     "dequant_q4_stacked": 0,
     "qmatmul_w8a8_rows": 0,

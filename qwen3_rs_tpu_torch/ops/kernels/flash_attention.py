@@ -10,7 +10,8 @@ the K scale multiplies the score, the V scale the probability.
 
 For a CPU tensor the wrapper runs the plain PyTorch version; for a CUDA
 tensor it launches ``csrc/flash_decode.cu`` or raises.  The kernel takes
-any number of query heads per kv head, and head_dim ``HEAD_DIM``.
+any number of query heads per kv head, and the head_dims of ``HEAD_DIMS``
+(``takes_head_dim``: every multiple of 128 up to 512).
 ``decode_supported`` is the reference package's gate, copied; the forward
 asks it without its minimum window (``MIN_SEQ_LEN``, a speed choice on the
 reference's chip, not a limit of either kernel), and a shape it refuses takes
@@ -24,10 +25,20 @@ import functools
 
 import torch
 
-from . import HEAD_DIM, LAUNCHES, build
+from . import LAUNCHES, build
 
 CHUNK = 128  # cache rows per block of the kernel's first pass
 _CACHE_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+# The head_dims the kernel is built for (a template parameter of its source).
+HEAD_DIMS = (128, 256, 384, 512)
+
+
+def takes_head_dim(hd: int) -> bool:
+    """Whether the kernel takes head_dim ``hd``: the one predicate its
+    wrapper and the forward ask."""
+    return hd in HEAD_DIMS
+
 
 # The reference package's gate: its cache-block candidates and the window
 # from which its kernel engages.
@@ -89,7 +100,7 @@ def flash_decode_plain(
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_decode")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_decode.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, f, p, p, p, p]
+    lib.flash_decode.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, p, p, p, p]
     lib.flash_decode.restype = ctypes.c_int
     return lib
 
@@ -125,7 +136,7 @@ def flash_decode(
     _need(q.device.type == "cuda", f"tensors on {q.device} are neither CPU nor CUDA")
     b, n_heads, hd = q.shape
     n_layers, cb, n_kv, t_max, chd = k_all.shape
-    _need(hd == HEAD_DIM and chd == hd, f"head_dim {hd} (the kernel takes {HEAD_DIM})")
+    _need(takes_head_dim(hd) and chd == hd, f"head_dim {hd} (the kernel takes {HEAD_DIMS})")
     _need(cb == b and n_heads % n_kv == 0, f"q {tuple(q.shape)} does not fit the cache {tuple(k_all.shape)}")
     kv_mul = n_heads // n_kv
     _need(0 <= layer < n_layers, f"layer {layer} out of range")
@@ -169,6 +180,7 @@ def flash_decode(
         n_kv,
         kv_mul,
         t_max,
+        hd,
         1.0 / hd**0.5,
         part_ml.data_ptr(),
         part_acc.data_ptr(),

@@ -43,10 +43,11 @@ import os
 import torch
 
 from ..quant import Q4Tensor
-from . import HEAD_DIM, LAUNCHES, build
+from . import LAUNCHES, build
 from .qmatmul import qmatmul_w8a16_plain
 
 CHUNK = 128  # cache rows per attention item of the kernel
+HEAD_DIM = 128  # the head_dim the kernel takes, as the reference's gate admits only 128
 MAX_BATCH = 8  # rows per step the gate admits (the reference's default)
 _CACHE_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 

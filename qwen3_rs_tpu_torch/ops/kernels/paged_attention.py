@@ -20,8 +20,9 @@ probability.
 Both kernels are in ``csrc/paged_attention.cu`` and share their first pass.
 For a CPU tensor a wrapper runs its plain PyTorch version; for a CUDA tensor
 it launches its kernel or raises.  They take any number of query heads per
-kv head and head_dim ``HEAD_DIM``; unlike the Pallas kernels they take any
-page size (the JAX gate asks for multiples of 128).
+kv head and the head_dims of ``HEAD_DIMS`` (``takes_head_dim``: every
+multiple of 128 up to 512); unlike the Pallas kernels they take any page size
+(the JAX gate asks for multiples of 128).
 """
 
 from __future__ import annotations
@@ -32,11 +33,19 @@ import functools
 import torch
 
 from ..attention import _merge_window, gather_pages
-from . import HEAD_DIM, LAUNCHES, build
+from . import LAUNCHES, build
 
 CHUNK = 128  # cache rows per block of the kernels' first pass
 MAX_WINDOW_ROWS = 128  # the reference's bound on S·kv_mul for the window kernel
 _CACHE_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# The head_dims both kernels are built for (a template parameter of their source).
+HEAD_DIMS = (128, 256, 384, 512)
+
+
+def takes_head_dim(hd: int) -> bool:
+    """Whether the kernels take head_dim ``hd``: the one predicate their
+    wrappers and the forward ask."""
+    return hd in HEAD_DIMS
 
 
 def paged_decode_supported(head_dim: int, page_size: int, dtype) -> bool:
@@ -150,9 +159,9 @@ def paged_window_partials_plain(
 def _lib() -> ctypes.CDLL:
     lib = build.load("paged_attention")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.paged_decode.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, p, p, p, p]
+    lib.paged_decode.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, p, p, p, p]
     lib.paged_decode.restype = ctypes.c_int
-    lib.paged_window_partials.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, f, p, p, p, p, p, p]
+    lib.paged_window_partials.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, p, p, p, p, p, p]
     lib.paged_window_partials.restype = ctypes.c_int
     return lib
 
@@ -166,7 +175,7 @@ def _check_pool(name, q, k_pool, v_pool, page_table, pos, layer, k_scale_pool, v
 
     need(q.device.type == "cuda", f"tensors on {q.device} are neither CPU nor CUDA")
     n_layers, _, n_kv, page, hd = k_pool.shape
-    need(hd == HEAD_DIM and q.shape[-1] == hd, f"head_dim {hd} (the kernel takes {HEAD_DIM})")
+    need(takes_head_dim(hd) and q.shape[-1] == hd, f"head_dim {hd} (the kernel takes {HEAD_DIMS})")
     need(q.shape[-2] % n_kv == 0, f"{q.shape[-2]} query heads over {n_kv} kv heads")
     need(0 <= layer < n_layers, f"layer {layer} out of range")
     need(v_pool.shape == k_pool.shape and v_pool.dtype == k_pool.dtype, "k_pool and v_pool differ")
@@ -233,7 +242,7 @@ def paged_decode(
     err = _lib().paged_decode(
         qf.data_ptr(), kn.data_ptr(), vn.data_ptr(), k, v, ks, vs,
         page_table.data_ptr(), pos.data_ptr(), _CACHE_TYPES[k_pool.dtype],
-        b, n_kv, kv_mul, page, max_pages, 1.0 / hd**0.5,
+        b, n_kv, kv_mul, page, max_pages, hd, 1.0 / hd**0.5,
         part_ml.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -275,7 +284,7 @@ def paged_window_partials(
     acc = torch.empty(b, n_kv, r, hd, dtype=torch.float32, device=q.device)
     err = _lib().paged_window_partials(
         rows.data_ptr(), k, v, ks, vs, page_table.data_ptr(), pos.data_ptr(),
-        _CACHE_TYPES[k_pool.dtype], b, n_kv, r, page, max_pages, 1.0 / hd**0.5,
+        _CACHE_TYPES[k_pool.dtype], b, n_kv, r, page, max_pages, hd, 1.0 / hd**0.5,
         part_ml.data_ptr(), part_acc.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream,
     )

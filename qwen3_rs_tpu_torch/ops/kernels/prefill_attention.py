@@ -12,7 +12,8 @@ window and no block divisibility: the forward sends it every fresh window of
 more than 256 rows whose shapes pass ``splash_prefill_supported`` (the
 reference package's gate, asked at the window's power-of-two bucket, the
 width the reference engine pads it to).  It takes any number of query heads
-per kv head, and head_dim ``HEAD_DIM``.
+per kv head, and the head_dims of ``HEAD_DIMS`` (``takes_head_dim``: 128 and
+256; wider heads would not fit its register tiles, ROADMAP §3).
 
 For a CPU tensor the wrapper runs the plain PyTorch version; for a CUDA
 tensor it launches ``csrc/prefill_attention.cu`` or raises.
@@ -25,10 +26,18 @@ import functools
 
 import torch
 
-from . import HEAD_DIM, LAUNCHES, build
+from . import LAUNCHES, build
 
 QUERY_CHUNK = 512  # query rows per step of the plain version (bounds its score tensor)
 _BLOCK = 1024  # the reference splash kernel's default block
+# The head_dims the kernel is built for (a template parameter of its source).
+HEAD_DIMS = (128, 256)
+
+
+def takes_head_dim(hd: int) -> bool:
+    """Whether the kernel takes head_dim ``hd``: the one predicate its
+    wrapper and the forward ask."""
+    return hd in HEAD_DIMS
 
 
 def _effective_block(s: int) -> int:
@@ -79,7 +88,7 @@ def causal_prefill_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Te
 def _lib() -> ctypes.CDLL:
     lib = build.load("prefill_attention")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.causal_prefill_attention.argtypes = [p, p, p, p, i, i, i, i, f, p]
+    lib.causal_prefill_attention.argtypes = [p, p, p, p, i, i, i, i, i, f, p]
     lib.causal_prefill_attention.restype = ctypes.c_int
     return lib
 
@@ -97,7 +106,7 @@ def causal_prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) 
     _need(q.device.type == "cuda", f"tensors on {q.device} are neither CPU nor CUDA")
     b, s, n_heads, hd = q.shape
     n_kv = k.shape[2]
-    _need(hd == HEAD_DIM, f"head_dim {hd} (the kernel takes {HEAD_DIM})")
+    _need(takes_head_dim(hd), f"head_dim {hd} (the kernel takes {HEAD_DIMS})")
     _need(k.shape == v.shape == (b, s, n_kv, hd), f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
     _need(n_heads % n_kv == 0, f"{n_heads} query heads over {n_kv} kv heads")
     _need(all(t.dtype == torch.bfloat16 for t in (q, k, v)), "q, k and v must be bf16")
@@ -106,7 +115,7 @@ def causal_prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) 
     out = torch.empty_like(qc)
     if b * s:
         err = _lib().causal_prefill_attention(
-            qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(), b, s, n_heads, n_kv,
+            qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(), b, s, n_heads, n_kv, hd,
             q_scale(hd), torch.cuda.current_stream(q.device).cuda_stream,
         )
         build.check(err, "causal_prefill_attention")

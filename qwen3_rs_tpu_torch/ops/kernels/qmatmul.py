@@ -304,10 +304,30 @@ def qmatmul_w8a16(
 
 
 # ------------------------------------------------------------ row-blocked W8A16
-def qmatmul_w8a16_rows_plain(x: torch.Tensor, w: QuantizedTensor, layer: int | None = None) -> torch.Tensor:
+def _check_out_cols(out_cols, d: int) -> tuple[int, int]:
+    """``out_cols=(c0, dc)`` checked against ``d`` columns (None: all of them).
+    The window starts on a 128-column tile, as the tensor-parallel overlap's
+    chunks do, and stays inside the weight."""
+    if out_cols is None:
+        return 0, d
+    c0, dc = (int(c) for c in out_cols)
+    if c0 < 0 or c0 % 128 or dc <= 0 or dc % 16 or c0 + dc > d:
+        raise ValueError(
+            f"qmatmul_w8a16_rows: out_cols ({c0}, {dc}) must start on a multiple of 128, "
+            f"span a positive multiple of 16 and end by D={d}"
+        )
+    return c0, dc
+
+
+def qmatmul_w8a16_rows_plain(x: torch.Tensor, w: QuantizedTensor, layer: int | None = None, *,
+                             out_cols: tuple[int, int] | None = None) -> torch.Tensor:
     """Plain PyTorch version of the row-blocked kernel: x rounded to bf16,
     each weight element ``bf16(code · bf16(scale))``, f32 sums.  It is the
-    fused kernel's plain version without prologue or residual."""
+    fused kernel's plain version without prologue or residual; ``out_cols``
+    slices the weight's columns first."""
+    c0, dc = _check_out_cols(out_cols, w.shape[-1])
+    if (c0, dc) != (0, w.shape[-1]):
+        w = type(w)(w.q[..., c0 : c0 + dc], w.scales[..., c0 : c0 + dc])
     return qmatmul_w8a16_plain(x, w, layer)
 
 
@@ -315,7 +335,7 @@ def qmatmul_w8a16_rows_plain(x: torch.Tensor, w: QuantizedTensor, layer: int | N
 def _rows_lib() -> ctypes.CDLL:
     lib = build.load("qmatmul_rows")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.qmatmul_w8a16_rows.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    lib.qmatmul_w8a16_rows.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
     lib.qmatmul_w8a16_rows.restype = ctypes.c_int
     return lib
 
@@ -344,19 +364,28 @@ def _layer_on_card(w, layer, what: str) -> tuple[torch.Tensor, torch.Tensor]:
     return codes, scales
 
 
-def qmatmul_w8a16_rows(x: torch.Tensor, w: QuantizedTensor, layer: int | None = None) -> torch.Tensor:
+def qmatmul_w8a16_rows(x: torch.Tensor, w: QuantizedTensor, layer: int | None = None, *,
+                       out_cols: tuple[int, int] | None = None) -> torch.Tensor:
     """``x [..., N]`` times layer ``layer`` of ``w`` (a ``QuantizedTensor`` or
     a ``Q4Tensor``) → ``[..., D]`` f32, for windows of any number of rows
     (the engine sends it those over ``MAX_ROWS``).  Scales may be bf16 or
     f32; f32 scales are rounded to bf16, as the reference kernel rounds them
-    in its body."""
+    in its body.
+
+    ``out_cols=(c0, dc)`` computes only columns ``[c0, c0+dc)`` → ``[..., dc]``
+    (INT8 weights: the tensor-parallel overlap's chunks), reading only those
+    columns of the weight; its launches count under
+    ``qmatmul_w8a16_rows_cols``."""
     if x.device.type == "cpu":
-        return qmatmul_w8a16_rows_plain(x, w, layer)
+        return qmatmul_w8a16_rows_plain(x, w, layer, out_cols=out_cols)
     if x.device.type != "cuda":
         raise ValueError(f"qmatmul_w8a16_rows: tensors on {x.device} are neither CPU nor CUDA")
     codes, scales = _layer_on_card(w, layer, "qmatmul_w8a16_rows")
     q4 = isinstance(w, Q4Tensor)
     n, d = w.shape[-2:]
+    c0, dc = _check_out_cols(out_cols, d)
+    if out_cols is not None and q4:
+        raise ValueError("qmatmul_w8a16_rows: out_cols takes INT8 weights (INT4 slices them and takes the plain path)")
     g = n // scales.shape[0]
     if n % 64 or x.shape[-1] != n:
         raise ValueError(f"qmatmul_w8a16_rows: x width {x.shape[-1]} must be N={n}, a multiple of 64")
@@ -369,15 +398,16 @@ def qmatmul_w8a16_rows(x: torch.Tensor, w: QuantizedTensor, layer: int | None = 
     if not (x2.device == codes.device == sb.device):
         raise ValueError("qmatmul_w8a16_rows: all tensors must be on one device")
     rows = x2.shape[0]
-    out = torch.empty(rows, d, dtype=torch.float32, device=x.device)
+    out = torch.empty(rows, dc, dtype=torch.float32, device=x.device)
     if rows:
         err = _rows_lib().qmatmul_w8a16_rows(
-            x2.data_ptr(), codes.data_ptr(), sb.data_ptr(), out.data_ptr(), rows, n, d, g, int(q4),
+            x2.data_ptr(), codes.data_ptr(), sb.data_ptr(), out.data_ptr(), rows, n, d, c0, dc, g, int(q4),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
         build.check(err, "qmatmul_w8a16_rows")
-        LAUNCHES["qmatmul_w8a16_rows_q4" if q4 else "qmatmul_w8a16_rows"] += 1
-    return out.reshape(*x.shape[:-1], d)
+        key = "qmatmul_w8a16_rows_cols" if out_cols is not None else "qmatmul_w8a16_rows"
+        LAUNCHES[key + "_q4" if q4 else key] += 1
+    return out.reshape(*x.shape[:-1], dc)
 
 
 # ------------------------------------------------------------------- dequant

@@ -1,0 +1,116 @@
+"""The device mesh of a tensor-parallel group on ``torch.distributed``.
+
+The port of the reference package's ``parallel/mesh.py``.  There a mesh is
+one ``jax.sharding.Mesh`` over every device, with named axes ``dp`` (data
+parallelism, across hosts) and ``tp`` (tensor parallelism).  Here every rank
+of a process group is one process on one device, and each builds its own
+``Mesh`` after the process group exists: the same device list and axes, plus
+this rank's index, its device and its process group.
+
+The collective backend follows from the device list and is recorded on the
+mesh: NCCL when every rank has a card of its own, gloo when ranks share a
+card (the one-card counterpart of the reference's virtual CPU mesh) or run
+on the CPU.  Data parallelism is request-level (one engine per replica), so
+``dp`` stays 1, as the reference's serving engine requires.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+from ..device import resolve_device
+
+DP_AXIS = "dp"
+TP_AXIS = "tp"
+
+
+def backend_for(devices: Sequence[torch.device]) -> str:
+    """``nccl`` when the ranks' devices are distinct cards, else ``gloo``."""
+    devs = [torch.device(d) for d in devices]
+    cards = [d.index for d in devs if d.type == "cuda"]
+    distinct = len(cards) == len(devs) and None not in cards and len(set(cards)) == len(cards)
+    return "nccl" if distinct else "gloo"
+
+
+@dataclasses.dataclass
+class Mesh:
+    """One rank's view of a (dp, tp) mesh: ``devices`` holds one device per
+    rank, in rank order."""
+
+    devices: tuple[torch.device, ...]
+    shape: dict
+    rank: int = 0
+    group: Optional[dist.ProcessGroup] = None
+    backend: Optional[str] = None
+    # Ranks 1..N-1 as processes of this host, on the rank that started them
+    # (``parallel.distributed.launch``); None elsewhere.
+    workers: object = None
+
+    @property
+    def tp(self) -> int:
+        return self.shape[TP_AXIS]
+
+    @property
+    def device(self) -> torch.device:
+        """This rank's device."""
+        return self.devices[self.rank]
+
+    def close(self) -> None:
+        """Join the workers this rank started (they leave the group on their
+        own), then leave the process group."""
+        if self.workers is not None:
+            self.workers.join()
+            self.workers = None
+        if self.group is not None and dist.is_initialized():
+            dist.destroy_process_group()
+            self.group = None
+
+
+def create_mesh(
+    tp: Optional[int] = None,
+    dp: Optional[int] = None,
+    devices: Optional[Sequence] = None,
+) -> Mesh:
+    """This rank's mesh over ``devices`` (default: every visible card), all
+    on the tp axis unless ``tp``/``dp`` say otherwise.  A mesh of more than
+    one device needs the process group of that many ranks to exist
+    (``parallel.distributed``); this process's rank is its place in
+    ``devices``."""
+    if devices is None:
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())] or [resolve_device(None)]
+    devs = tuple(torch.device(d) for d in devices)
+    n = len(devs)
+    if tp is None and dp is None:
+        tp, dp = n, 1
+    elif tp is None:
+        tp = n // dp
+    elif dp is None:
+        dp = n // tp
+    if dp * tp != n:
+        raise ValueError(f"dp ({dp}) × tp ({tp}) must equal device count ({n})")
+    if dp != 1:
+        raise ValueError(
+            "serving engine shards tensor-parallel only; run one engine per dp replica for data parallelism"
+        )
+    for d in devs:
+        resolve_device(d)  # a card that is not there raises here
+    shape = {DP_AXIS: dp, TP_AXIS: tp}
+    if n == 1:
+        return Mesh(devs, shape)
+    if not dist.is_initialized() or dist.get_world_size() != n:
+        raise RuntimeError(
+            f"a mesh of {n} devices needs a process group of {n} ranks: start it with "
+            "parallel.distributed.initialize_distributed or launch"
+        )
+    backend = backend_for(devs)
+    if dist.get_backend() != backend:
+        raise RuntimeError(f"devices {[str(d) for d in devs]} take the {backend} backend, the group runs {dist.get_backend()}")
+    return Mesh(devs, shape, rank=dist.get_rank(), group=dist.group.WORLD, backend=backend)
+
+
+def single_device_mesh(device=None) -> Mesh:
+    return create_mesh(tp=1, dp=1, devices=[resolve_device(device)])

@@ -1,0 +1,117 @@
+"""Sharding rules: which part of each weight and cache tensor a tp rank holds.
+
+The port of the reference package's ``parallel/sharding.py``.  Its
+PartitionSpecs become ``Split`` rules (a tensor cut into tp equal parts along
+one axis; rank r keeps part r) and ``None`` (replicated), applied per rank:
+
+* column-parallel (the out axis): wqkv, w13 and lm_head (its padded vocab
+  columns);
+* row-parallel (the in axis): wo and w2, their scales' group axis split
+  alike, so each rank's groups stay whole (``validate_tp``);
+* the embedding on its vocab rows;
+* norms replicated;
+* the KV cache on its kv-head axis, so attention stays local to a rank.
+
+INT4 codes are nibble-packed within a group along the in axis, and the
+row-parallel cut falls on group boundaries, so the packed codes split like
+INT8 ones.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..configuration import ModelConfig
+from ..models.qwen3 import KVCache, Qwen3LayerWeights, Qwen3Weights
+from ..ops.quant import QuantizedTensor
+from .mesh import TP_AXIS
+
+
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """A tensor cut into tp equal parts along ``axis``."""
+
+    axis: int
+
+    def take(self, t: torch.Tensor, tp: int, rank: int) -> torch.Tensor:
+        """Part ``rank`` of ``t``, as a tensor of its own (the rest can be
+        freed)."""
+        n = t.shape[self.axis]
+        if n % tp:
+            raise ValueError(f"tp={tp} does not divide axis {self.axis} of a tensor of shape {tuple(t.shape)}")
+        w = n // tp
+        return t.narrow(self.axis, rank * w, w).contiguous()
+
+
+def validate_tp(config: ModelConfig, tp: int) -> None:
+    """Check that a tp degree is compatible with the model's shapes."""
+    if config.n_kv_heads % tp and tp % config.n_kv_heads:
+        raise ValueError(
+            f"tp={tp} incompatible with n_kv_heads={config.n_kv_heads}: one must divide the other"
+        )
+    if config.n_heads % tp:
+        raise ValueError(f"tp={tp} must divide n_heads={config.n_heads}")
+    for name, out_dim in (
+        ("hidden_dim", config.hidden_dim),
+        ("all_heads_dim", config.all_heads_dim),
+    ):
+        if out_dim % tp:
+            raise ValueError(f"tp={tp} must divide {name}={out_dim}")
+    for name, in_dim in (
+        ("all_heads_dim", config.all_heads_dim),
+        ("hidden_dim", config.hidden_dim),
+    ):
+        shard = in_dim // tp
+        if shard % config.group_size:
+            raise ValueError(
+                f"tp={tp} shards {name}={in_dim} into {shard}, which breaks "
+                f"group_size={config.group_size} alignment"
+            )
+
+
+def _qt_spec(rule) -> QuantizedTensor:
+    """Scales follow the codes (the group axis stands in for the in axis)."""
+    return QuantizedTensor(rule, rule)
+
+
+def weight_pspecs(config: ModelConfig) -> Qwen3Weights:
+    """The rule of every tensor of ``Qwen3Weights`` (in-major layout: codes
+    [L, in, out], scales [L, in/g, out]); ``None`` is replicated."""
+    col = _qt_spec(Split(-1))  # the out axis
+    row = _qt_spec(Split(-2))  # the in (contraction) axis
+    layers = Qwen3LayerWeights(
+        rms_att=None, rms_ffn=None, q_norm=None, k_norm=None, wqkv=col, wo=row, w13=col, w2=row
+    )
+    return Qwen3Weights(embed=_qt_spec(Split(0)), layers=layers, rms_final=None, lm_head=col)
+
+
+def cache_pspecs() -> KVCache:
+    """[L, B, n_kv(tp), T, head_dim]."""
+    return KVCache(Split(2), Split(2))
+
+
+def shard_tree(tree, specs, tp: int, rank: int):
+    """Rank ``rank``'s part of each tensor of ``tree`` (nested NamedTuples:
+    weights, a linear layer of either code format, a cache) under the rules
+    ``specs`` of the same structure."""
+    if specs is None:
+        return tree
+    if isinstance(specs, Split):
+        return specs.take(tree, tp, rank)
+    return type(tree)(*(shard_tree(t, s, tp, rank) for t, s in zip(tree, specs, strict=True)))
+
+
+def shard_weights(weights: Qwen3Weights, mesh, config: ModelConfig) -> Qwen3Weights:
+    """This rank's part of the weights under ``weight_pspecs`` (no column
+    interleave: ``parallel.tp.shard_weights_tp`` is the forward's)."""
+    tp = mesh.shape[TP_AXIS]
+    validate_tp(config, tp)
+    return shard_tree(weights, weight_pspecs(config), tp, mesh.rank)
+
+
+def shard_cache(cache, mesh):
+    """This rank's kv heads of a cache: every leaf (K, V and an INT8 cache's
+    scales; dense or paged) splits its kv-head axis, axis 2."""
+    return shard_tree(cache, type(cache)(*(Split(2) for _ in cache)), mesh.shape[TP_AXIS], mesh.rank)

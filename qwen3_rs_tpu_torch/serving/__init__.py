@@ -1,5 +1,6 @@
-"""Continuous-batching serving: the engine over dense slots or the page pool,
-the refcounted prefix cache, and the HTTP front end."""
+"""Continuous-batching serving: the engine over dense slots or the page pool
+(``start_tp_engine``: over the ranks of a tensor-parallel group), the
+refcounted prefix cache, and the HTTP front end."""
 
 from .paged_cache import (
     PageAllocator,
@@ -8,13 +9,14 @@ from .paged_cache import (
     init_paged_cache,
     paged_cache_from_jax_numpy,
 )
-from .scheduler import ContinuousBatchingEngine, Request, RequestState
+from .scheduler import ContinuousBatchingEngine, Request, RequestState, start_tp_engine
 from .server import ServingFrontend, make_handler, render_chat, serve
 
 __all__ = [
     "ContinuousBatchingEngine",
     "Request",
     "RequestState",
+    "start_tp_engine",
     "PageAllocator",
     "PagedKVCache",
     "QuantizedPagedKVCache",

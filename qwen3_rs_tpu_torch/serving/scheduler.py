@@ -34,8 +34,17 @@ the reference package.
 Scheduling is FCFS; each ``step()`` first admits queued requests into free
 slots (bounded by ``max_admissions_per_step``), then advances every active
 slot by one decode step (host sampling) or one chunk (device sampling).
-Speculative decoding (``spec_k``) and tensor-parallel meshes are not ported
-yet and raise.
+Speculative decoding (``spec_k``) is not ported yet and raises.
+
+Tensor parallelism (``mesh``, ``start_tp_engine``): every rank of the mesh
+runs this engine in lockstep on its own weight and cache shards (SPMD).  At
+the top of each ``step()`` rank 0 broadcasts the requests submitted since
+the last step; every rank then makes the same scheduling decisions and
+samples the same tokens from the same all-gathered logits with the same
+seeded streams, so the cache bookkeeping outside the forward (the dense
+admission copy, the warm-up, the page tables) needs no messages of its own.
+Ranks 1..N-1 run ``worker_loop()`` until rank 0's ``close()``.  A rank that
+dies makes rank 0's next step raise; it never carries on with fewer ranks.
 """
 
 from __future__ import annotations
@@ -44,7 +53,7 @@ import dataclasses
 import enum
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -62,10 +71,20 @@ from ..models.qwen3 import (
     qwen3_forward,
     weights_to,
 )
-from ..ops.kernels import build
+from ..ops import collectives
+from ..ops.kernels import LAUNCHES, build, reset_launches
 from ..ops.quant import Q4Tensor
 from ..ops.sampling import Sampler, sample_tokens
+from ..parallel.distributed import launch
+from ..parallel.mesh import DP_AXIS, TP_AXIS
+from ..parallel.tp import local_config, shard_weights_tp
 from .paged_cache import PageAllocator, init_paged_cache
+
+# Seconds an idle tensor-parallel engine waits before it tells its workers it
+# is alive (``heartbeat``); far below the collectives' timeout.
+HEARTBEAT_S = 10.0
+# The request fields rank 0 sends its workers.
+_REQUEST_FIELDS = ("request_id", "prompt_tokens", "max_new_tokens", "temperature", "topp", "seed", "eos_token_ids")
 
 
 class RequestState(enum.Enum):
@@ -133,18 +152,41 @@ class ContinuousBatchingEngine:
             raise ValueError(f"unknown sampling: {sampling!r}")
         if spec_k > 0:
             raise not_ported("speculative serving (spec_k)", "queue 1, item 3: speculative decoding")
+        # Tensor-parallel serving: weights and KV shard over the mesh's tp
+        # axis, and every forward is this rank's part of the tp forward.
+        # Data parallelism is request-level (one engine per replica), so the
+        # mesh must be tp-only.
+        self.mesh = mesh
+        tp = 1
         if mesh is not None:
-            raise not_ported("tensor-parallel serving (mesh)", "queue 1, item 5: parallel layouts")
+            if mesh.shape.get(DP_AXIS, 1) != 1:
+                raise ValueError(
+                    "serving engine shards tensor-parallel only; run one engine per dp replica for data parallelism"
+                )
+            tp = mesh.shape[TP_AXIS]
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's device {mesh.device} for this rank")
+            device = mesh.device
+        self._tp = tp
+        self._rank = mesh.rank if mesh is not None else 0
         self.device = resolve_device(device)
         if checkpoint is not None:
             config, weights = load_checkpoint(checkpoint)
         if config is None or weights is None:
             raise ValueError("ContinuousBatchingEngine needs a checkpoint, or config and weights")
         self.config = config.validate()
+        # The forward's config: this rank's heads and hidden columns under tp.
+        self._cfg = local_config(self.config, tp)
+        if tp > 1:
+            weights = shard_weights_tp(weights, mesh, self.config)  # this rank's part, before the copy
         weights = weights_to(weights, self.device)
         if mode == "fast":
             weights = cast_weight_scales(weights)
         self.weights = weights
+        self._group = mesh.group if tp > 1 else None
+        self._outbox: list[Request] = []  # rank 0: submitted since the last step, for the workers
+        self._last_sync = time.monotonic()
+        self._broken = False
         self.n_slots = n_slots
         self.mode = mode
         # "host": per-request xorshift samplers, one forward per step.
@@ -185,7 +227,7 @@ class ContinuousBatchingEngine:
             if n_pages is None:
                 # Default pool: half of the dense footprint, plus the null page.
                 n_pages = 1 + max(2, (n_slots * max_pages_per_slot) // 2)
-            self.cache = init_paged_cache(self.config, n_pages, page_size, dtype=cache_dtype, device=self.device)
+            self.cache = init_paged_cache(self._cfg, n_pages, page_size, dtype=cache_dtype, device=self.device)
             self.allocator = PageAllocator(n_pages, n_slots, max_pages_per_slot)
             self.page_size = page_size
             self._scratch_cache = None
@@ -194,8 +236,8 @@ class ContinuousBatchingEngine:
                 raise ValueError(
                     'INT8 KV cache requires kv_layout="paged" (the dense layout has no per-row scale storage)'
                 )
-            self.cache = init_kv_cache(self.config, n_slots, dtype=cache_dtype, device=self.device)
-            self._scratch_cache = init_kv_cache(self.config, 1, dtype=cache_dtype, device=self.device)
+            self.cache = init_kv_cache(self._cfg, n_slots, dtype=cache_dtype, device=self.device)
+            self._scratch_cache = init_kv_cache(self._cfg, 1, dtype=cache_dtype, device=self.device)
             self.allocator = None
         else:
             raise ValueError(f"unknown kv_layout: {kv_layout!r}")
@@ -222,7 +264,12 @@ class ContinuousBatchingEngine:
 
     # ------------------------------------------------------- step functions
     def _forward(self, tokens, pos, **kw):
-        return qwen3_forward(self.config, self.weights, tokens, self.cache, pos, mode=self.mode, **kw)
+        logits, self.cache = self._forward_on(self.cache, tokens, pos, **kw)
+        return logits, self.cache
+
+    def _forward_on(self, cache, tokens, pos, **kw):
+        """The forward (this rank's part under tp) over ``cache``."""
+        return qwen3_forward(self._cfg, self.weights, tokens, cache, pos, mode=self.mode, tp_group=self._group, **kw)
 
     def _decode(self, active):
         """One decode step over every slot; inactive slots write nothing."""
@@ -293,8 +340,8 @@ class ContinuousBatchingEngine:
         tokens = torch.where(fresh >= 0, fresh, prev_last)
         temps_t, topps_t = self._to_device(temps, torch.float32), self._to_device(topps, torch.float32)
         paged = self.kv_layout == "paged"
-        fused = megakernel_route(self.config, self.cache, self.n_slots, 1, self.mode, paged,
-                                 q4=isinstance(self.weights.layers.wqkv, Q4Tensor))
+        fused = self._tp == 1 and megakernel_route(self.config, self.cache, self.n_slots, 1, self.mode, paged,
+                                                   q4=isinstance(self.weights.layers.wqkv, Q4Tensor))
         if fused:
             pos_dev = self._to_device(pos0, torch.int32)
             ok = self._to_device(active, torch.int32)
@@ -310,6 +357,95 @@ class ContinuousBatchingEngine:
             out.append(tokens)
         return torch.stack(out), tokens
 
+    # ------------------------------------------------------- tensor parallel
+    def _sync(self, op: str) -> None:
+        """Rank 0: tell every worker what to do next (``op``), with the
+        requests submitted since the last step.  Raises if a worker is gone."""
+        if self._tp == 1:
+            return
+        if self._rank != 0 or self._group is None:
+            raise RuntimeError("only rank 0 drives a tensor-parallel engine, and only until close()")
+        if self._broken:
+            raise RuntimeError("a step of this tensor-parallel engine failed; its ranks are out of step")
+        reqs = [{f: getattr(r, f) for f in _REQUEST_FIELDS} for r in self._outbox] if op == "step" else []
+        try:
+            self.mesh.workers.check()
+            torch.distributed.broadcast_object_list([(op, reqs)], src=0, group=self._group)
+        except BaseException:
+            self._broken = True
+            raise
+        if op == "step":
+            self._outbox.clear()
+        self._last_sync = time.monotonic()
+
+    def worker_loop(self) -> None:
+        """Ranks 1..N-1: follow rank 0's engine, step for step, until it
+        closes."""
+        while True:
+            box = [None]
+            torch.distributed.broadcast_object_list(box, src=0, group=self._group)
+            op, reqs = box[0]
+            if op == "stop":
+                return
+            if op == "step":
+                for fields in reqs:
+                    self.submit(Request(**fields))
+                self._step()
+            elif op == "warmup":
+                self._warmup()
+            elif op == "reset":
+                self._reset_counters()
+            elif op == "report":
+                torch.distributed.gather_object(self._report(), None, dst=0, group=self._group)
+
+    def heartbeat(self) -> None:
+        """Rank 0 of an idle tp engine: tell the workers it is alive, at most
+        every ``HEARTBEAT_S`` seconds, so that their wait for the next step
+        never reaches the collectives' timeout."""
+        if self._tp > 1 and time.monotonic() - self._last_sync >= HEARTBEAT_S:
+            self._sync("heartbeat")
+
+    def close(self, force: bool = False) -> None:
+        """Rank 0 of a tp engine: stop the workers, join them and leave the
+        process group.  The engine takes no step after it.  ``force``: the
+        ranks may be out of step (a step still runs in another thread), so
+        the workers are stopped without a message."""
+        if self._tp == 1 or self._group is None:
+            return
+        self._broken |= force
+        try:
+            if not self._broken:
+                self._sync("stop")
+        finally:
+            if self._broken:
+                self.mesh.workers.join(timeout=0)  # out of step: stop them now
+            self.mesh.close()
+            self._group = None
+
+    def _reset_counters(self) -> None:
+        reset_launches()
+        collectives.reset_counts()
+
+    def reset_counters(self) -> None:
+        """Zero the kernel launch and collective counts of every rank."""
+        self._sync("reset")
+        self._reset_counters()
+
+    def _report(self) -> dict:
+        return {"rank": self._rank, "streams": {r.request_id: list(r.generated) for r in self.completed},
+                "launches": dict(LAUNCHES), "collectives": dict(collectives.COUNTS)}
+
+    def rank_reports(self) -> list[dict]:
+        """Every rank's completed streams, kernel launches and collective
+        counts since the last ``reset_counters``, rank 0 first (one rank:
+        this one's)."""
+        if self._tp == 1:
+            return [self._report()]
+        self._sync("report")
+        out = [None] * self._tp
+        torch.distributed.gather_object(self._report(), out, dst=0, group=self._group)
+        return out
+
     # ------------------------------------------------------------------ api
     def warmup(self) -> None:
         """Build the kernels and run one prefill per warmed bucket and one
@@ -318,6 +454,10 @@ class ContinuousBatchingEngine:
         Safe on live state: every write goes to the null page (zeroed page
         tables) or the dense scratch cache, and the decode step runs with
         every slot masked."""
+        self._sync("warmup")
+        self._warmup()
+
+    def _warmup(self) -> None:
         if self.device.type == "cuda":
             build.build()
         device = self.sampling == "device"
@@ -336,10 +476,8 @@ class ContinuousBatchingEngine:
                 else:
                     self._prefill_paged(tokens, [0], tables)
             else:
-                _, self._scratch_cache = qwen3_forward(
-                    self.config, self.weights, tokens, self._scratch_cache, [0],
-                    mode=self.mode, out_idx=[0], fresh_prefill=True,
-                )
+                _, self._scratch_cache = self._forward_on(self._scratch_cache, tokens, [0], out_idx=[0],
+                                                          fresh_prefill=True)
         inactive = np.zeros(self.n_slots, bool)
         if device:
             zeros = torch.zeros(self.n_slots, dtype=torch.int32, device=self.device)
@@ -356,6 +494,8 @@ class ContinuousBatchingEngine:
         request.state = RequestState.QUEUED
         request._sampler = Sampler(request.temperature, request.topp, request.seed)
         self.queue.append(request)
+        if self._tp > 1 and self._rank == 0:
+            self._outbox.append(request)
 
     @property
     def active_count(self) -> int:
@@ -402,6 +542,14 @@ class ContinuousBatchingEngine:
     # ------------------------------------------------------------ scheduling
     def step(self) -> list[tuple[Request, int]]:
         """One scheduler iteration.  Returns the (request, token) pairs emitted."""
+        self._sync("step")
+        try:
+            return self._step()
+        except BaseException:
+            self._broken = self._tp > 1  # the other ranks may wait in a collective of this step
+            raise
+
+    def _step(self) -> list[tuple[Request, int]]:
         emitted: list[tuple[Request, int]] = []
         # Device sampling on the pool defers admissions: their first tokens
         # stay on the device, chained into the next chunk's input (``fresh``),
@@ -463,10 +611,8 @@ class ContinuousBatchingEngine:
         s_pad = max(s_real, min(self._bucket(s_real), self.config.seq_len))
         padded = np.zeros((1, s_pad), np.int64)
         padded[0, :s_real] = prompt
-        logits, self._scratch_cache = qwen3_forward(
-            self.config, self.weights, padded, self._scratch_cache, [0],
-            mode=self.mode, out_idx=[s_real - 1], fresh_prefill=True,
-        )
+        logits, self._scratch_cache = self._forward_on(self._scratch_cache, padded, [0], out_idx=[s_real - 1],
+                                                       fresh_prefill=True)
         # Copy the scratch window into the slot (padding rows included: they
         # sit past the request's position until decode overwrites them).
         for big, small in zip(self.cache, self._scratch_cache):
@@ -887,3 +1033,29 @@ class ContinuousBatchingEngine:
         if self.prefill_chunk is not None:
             out["prefill_waves"] = self._partial_waves
         return out
+
+
+def _engine_rank(mesh, source: Callable, engine_kw: dict) -> None:
+    """A worker rank of ``start_tp_engine``: its own engine over its shard,
+    following rank 0."""
+    config, weights = source()
+    engine = ContinuousBatchingEngine(config=config, weights=weights, mesh=mesh, **engine_kw)
+    del config, weights  # only the shard stays
+    engine.worker_loop()
+
+
+def start_tp_engine(source: Callable, devices, **engine_kw) -> ContinuousBatchingEngine:
+    """A tensor-parallel engine over ``devices`` (one rank each; a card may
+    hold more than one rank): ranks 1..N-1 start as processes of their own,
+    and this process is rank 0, whose engine is returned.  ``source()``
+    gives (config, weights) on every rank, which takes its shard and frees
+    the rest (e.g. ``functools.partial(load_checkpoint, path)``); it and
+    ``engine_kw`` must pickle.  ``close()`` stops the workers."""
+    mesh = launch(devices, _engine_rank, source, engine_kw)
+    try:
+        config, weights = source()
+        return ContinuousBatchingEngine(config=config, weights=weights, mesh=mesh, **engine_kw)
+    except BaseException:
+        mesh.workers.join(timeout=0)
+        mesh.close()
+        raise

@@ -19,6 +19,12 @@ talk to it through queues.  The worker runs the engine on its device's
 current stream.  If a step raises, the worker stops: every request in flight
 and every later one fails with the error (HTTP 500), nothing is dropped
 silently.
+
+A tensor-parallel engine (``start_tp_engine``) is driven from rank 0 as any
+other; its worker ranks run behind it.  While idle the worker sends them a
+heartbeat, and ``shutdown()`` stops and joins them.  ``failed`` is set when
+the engine fails, so that a caller can stop serving (``cli.py serve --tp``
+exits non-zero).
 """
 
 from __future__ import annotations
@@ -90,6 +96,7 @@ class ServingFrontend:
         self._running = True
         self._completed_seen = 0
         self.error: Optional[str] = None  # set when an engine step raised
+        self.failed = threading.Event()  # and set with it
         dev = engine.device  # the worker launches on the engine's card ("cuda": this thread's)
         self._cuda_index = None if dev.type != "cuda" else (
             dev.index if dev.index is not None else torch.cuda.current_device())
@@ -134,8 +141,11 @@ class ServingFrontend:
         return self._submissions.qsize() + len(self._pending)
 
     def shutdown(self):
+        """Stop the worker thread; a tensor-parallel engine's worker ranks
+        stop with it."""
         self._running = False
         self._thread.join(timeout=10)
+        self.engine.close(force=self._thread.is_alive())
 
     # ---------------------------------------------------------------- worker
     def _worker(self):
@@ -147,6 +157,7 @@ class ServingFrontend:
         except Exception as e:  # an engine failure fails its requests, never silently
             logger.exception("serving engine failed")
             self.error = f"{type(e).__name__}: {e}"
+            self.failed.set()
             for p in self._pending.values():
                 self._fail(p)
             self._pending.clear()
@@ -179,6 +190,7 @@ class ServingFrontend:
                         p.tokens.put(None)  # sentinel
                     p.done.set()
         elif not admitted:
+            self.engine.heartbeat()
             time.sleep(self._poll_idle_s)
 
     def _fail(self, p: _Pending) -> None:

@@ -111,6 +111,13 @@ def random_weights(config: ModelConfig, seed: int = 0, device=None, bits: int = 
     )
 
 
+def random_model(config: ModelConfig, seed: int = 0, device=None, bits: int = 8):
+    """``(config, random_weights(...))``: a weight source for a
+    tensor-parallel engine's ranks (``serving.scheduler.start_tp_engine``),
+    each of which draws the same weights and keeps its shard."""
+    return config, random_weights(config, seed=seed, device=device, bits=bits)
+
+
 def weight_bytes_per_decode_token(config: ModelConfig, scale_bytes: int = 4, bits: int = 8) -> int:
     """Device-memory bytes of weights and scales streamed per decode step.
 
@@ -193,3 +200,11 @@ def megakernel_bytes(config: ModelConfig, pos, elem_bytes: int, written: int, v_
     rows = sum(min(int(p), c.seq_len) for p in pos) + written
     kv = 2 * c.n_layers * c.n_kv_heads * rows * _kv_row_bytes(c.head_dim, elem_bytes)
     return weights + kv + 2 * len(pos) * c.dim * 4 + (len(pos) * v_pad * 4 if v_pad else 0)
+
+
+def rows_cols_counts(rows: int, n: int, dc: int, group_size: int) -> tuple[int, float]:
+    """(bytes, operations) of a column window ``[c0, c0+dc)`` of the
+    row-blocked W8A16 product (#6's ``out_cols``): the window's int8 codes
+    and bf16 scales, the bf16 activations ``[rows, n]`` and the f32 output
+    ``[rows, dc]``, each moved once; ``2·rows·n·dc`` multiply-adds."""
+    return n * dc + (n // group_size) * dc * 2 + rows * n * 2 + rows * dc * 4, 2.0 * rows * n * dc

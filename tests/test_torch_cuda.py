@@ -765,3 +765,145 @@ def test_gated_shapes_run_on_the_card(card, case):
         pos += rows
     torch.cuda.synchronize()
     assert {k: LAUNCHES[k] > before[k] for k in launched} == launched, {k: LAUNCHES[k] - before[k] for k in launched}
+
+
+# ------------------------------------------------- head_dim past 128, out_cols
+def _cache_of(gen, card, kind, shape):
+    """K and V of ``kind`` (f32, bf16 or int8 with row scales) and the scales
+    under the names ``_all``/``_pool`` callers give them."""
+    if kind == "int8":
+        k, v = (torch.randint(-127, 128, shape, generator=gen, device=card, dtype=torch.int8) for _ in range(2))
+        return k, v, [torch.rand(shape[:-1], generator=gen, device=card) * 0.02 + 0.005 for _ in range(2)]
+    dt = torch.float32 if kind == "f32" else torch.bfloat16
+    k, v = (torch.randn(shape, generator=gen, device=card).to(dt) for _ in range(2))
+    return k, v, None
+
+
+@pytest.mark.parametrize("hd", [256, 384, 512])
+@pytest.mark.parametrize("cache", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("kv_mul", [1, 3, 4, 8])
+def test_flash_decode_head_dims_match_plain(card, hd, cache, kv_mul):
+    gen = _gen(hd + kv_mul * 3 + len(cache))
+    n_kv, t, pos_list = 2, 300, [0, 1, 129, 300]
+    b = len(pos_list)
+    k_all, v_all, sc = _cache_of(gen, card, cache, (2, b, n_kv, t, hd))
+    sc = {} if sc is None else dict(zip(("k_scale_all", "v_scale_all"), sc))
+    q = torch.randn(b, n_kv * kv_mul, hd, generator=gen, device=card)
+    kn, vn = torch.randn(2, b, n_kv, hd, generator=gen, device=card)
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=card)
+    got = flash_decode(q, kn, vn, k_all, v_all, pos, 1, **sc)
+    ref = flash_decode_plain(q, kn, vn, k_all, v_all, pos, 1, **sc)
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) <= 1e-5 * max(1.0, float(ref.abs().max()))
+    assert torch.equal(got[0], vn[0].repeat_interleave(kv_mul, dim=0))  # pos 0: v_self
+
+
+@pytest.mark.parametrize("hd", [256, 384, 512])
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+@pytest.mark.parametrize("kv_mul,s", [(1, 3), (4, 8), (5, 2)])
+def test_paged_kernels_head_dims_match_plain(card, hd, pool, kv_mul, s):
+    """#9 and #10 at head_dims past 128 (a page of 128 rows, shuffled tables)."""
+    gen = _gen(hd + kv_mul + s + len(pool))
+    page, max_pages, pos_list = 128, 3, [0, 1, 129, 300]
+    b = len(pos_list)
+    n_pages = 1 + b * max_pages
+    k, v, sc = _cache_of(gen, card, pool, (2, n_pages, 2, page, hd))
+    sc = {} if sc is None else dict(zip(("k_scale_pool", "v_scale_pool"), sc))
+    table = _tables(gen, card, b, max_pages, n_pages)
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=card)
+    q = torch.randn(b, 2 * kv_mul, hd, generator=gen, device=card)
+    kn, vn = torch.randn(2, b, 2, hd, generator=gen, device=card)
+    got = paged_decode(q, kn, vn, k, v, table, pos, 1, **sc)
+    ref = paged_decode_plain(q, kn, vn, k, v, table, pos, 1, **sc)
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    qw = torch.randn(b, s, 2 * kv_mul, hd, generator=gen, device=card)
+    got = paged_window_partials(qw, k, v, table, pos, 1, **sc)
+    ref = paged_window_partials_plain(qw, k, v, table, pos, 1, **sc)
+    torch.cuda.synchronize()
+    for a, r in zip(got, ref):
+        assert a.shape == r.shape and torch.equal(torch.isneginf(a), torch.isneginf(r))
+        fin = torch.isfinite(r)
+        assert float((a[fin] - r[fin]).abs().max()) <= 1e-4 * float(r[fin].abs().max())
+
+
+@pytest.mark.parametrize("s", [1, 65, 300])
+@pytest.mark.parametrize("kv_mul", [1, 4, 5])
+def test_prefill_attention_head_dim_256_matches_plain(card, s, kv_mul):
+    gen = _gen(s * 13 + kv_mul)
+    q = torch.randn(2, s, 2 * kv_mul, 256, generator=gen, device=card).to(torch.bfloat16)
+    k, v = (torch.randn(2, s, 2, 256, generator=gen, device=card).to(torch.bfloat16) for _ in range(2))
+    got = causal_prefill_attention(q, k, v)
+    ref = causal_prefill_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.float(), rtol=2.0**-7, atol=1e-5)  # as at head_dim 128
+
+
+def test_attention_kernels_refuse_head_dims_they_are_not_built_for(card):
+    q = torch.zeros(1, 4, 2, 384, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 384"):
+        causal_prefill_attention(q, q[:, :, :1], q[:, :, :1])
+    k = torch.zeros(1, 1, 1, 8, 192, device=card)
+    with pytest.raises(ValueError, match="head_dim 192"):
+        flash_decode(torch.zeros(1, 1, 192, device=card), k[:, 0, :, 0], k[:, 0, :, 0], k, k,
+                     torch.zeros(1, dtype=torch.int32, device=card), 0)
+
+
+@pytest.mark.parametrize("n,d,g", [(2048, 4096, 64), (512, 1040, 64), (256, 512, 32)])
+def test_qmatmul_rows_out_cols_match_full_and_plain(card, n, d, g):
+    """Column windows of #6: bit for bit the same columns of the full launch
+    (each element's k order does not depend on the window), and the plain
+    version within its tolerance; counted under their own key."""
+    gen = _gen(n + d + g)
+    w = _weights(gen, card, 2, n, d, g)
+    x = torch.randn(520, n, generator=gen, device=card).to(torch.bfloat16)
+    full = qmatmul_w8a16_rows(x, w, 1)
+    for c0, dc in ((0, 128), (128, 256), (d - d % 128 - 128, 128 + d % 128), (0, d)):
+        before = LAUNCHES["qmatmul_w8a16_rows_cols"]
+        got = qmatmul_w8a16_rows(x, w, 1, out_cols=(c0, dc))
+        assert LAUNCHES["qmatmul_w8a16_rows_cols"] == before + 1
+        ref = qmatmul_w8a16_rows_plain(x, w, 1, out_cols=(c0, dc))
+        torch.cuda.synchronize()
+        assert got.shape == (520, dc) and torch.equal(got, full[:, c0 : c0 + dc])
+        assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    for bad in ((64, 128), (0, d + 16), (d, 16), (128, 8)):
+        with pytest.raises(ValueError, match="out_cols"):
+            qmatmul_w8a16_rows(x, w, 1, out_cols=bad)
+
+
+def test_head_dim_256_model_card_matches_cpu(card):
+    """A 2-layer head_dim-256 model, card against CPU within 2e-2 of the
+    largest logit: a 300-row fresh window (#5), decode steps on the dense
+    cache (#4), and on a page pool a group prefill, a continued window (#10)
+    and decode steps (#9)."""
+    from qwen3_rs_tpu_torch.models.qwen3 import cast_weight_scales, qwen3_forward
+    from qwen3_rs_tpu_torch.serving.paged_cache import init_paged_cache
+
+    cfg = ModelConfig(architecture_id=1, dim=512, hidden_dim=1024, n_layers=2, n_heads=4, n_kv_heads=2,
+                      head_dim=256, seq_len=512, vocab_size=1024, group_size=64, shared_classifier=True)
+    weights = random_weights(cfg, seed=9, device=card)
+    rng = np.random.default_rng(9)
+    before = dict(LAUNCHES)
+    engines = [Engine(config=cfg, weights=weights, device=card),
+               Engine(config=cfg, weights=weights_to(weights, "cpu"), device="cpu")]
+    caches = [e.new_cache() for e in engines]
+    pos = 0
+    for rows in (300, 1, 1):
+        toks = rng.integers(0, cfg.vocab_size, (1, rows))
+        (lc, caches[0]), (lp, caches[1]) = (e.prefill(c, toks, [pos]) for e, c in zip(engines, caches))
+        assert float((lc.float().cpu() - lp.float()).abs().max()) <= 2e-2 * float(lp.float().abs().max()), rows
+        pos += rows
+    ws = [cast_weight_scales(weights), cast_weight_scales(weights_to(weights, "cpu"))]
+    pools = [init_paged_cache(cfg, 9, 128, device=d) for d in (card, "cpu")]
+    table = np.arange(1, 9, dtype=np.int32).reshape(2, 4)
+    pos = np.array([0, 0])
+    for rows, fresh in ((40, True), (8, False), (1, False), (1, False)):
+        toks = rng.integers(0, cfg.vocab_size, (2, rows))
+        outs = [qwen3_forward(cfg, w, toks, pool, pos, page_table=table, fresh_prefill=fresh)[0]
+                for w, pool in zip(ws, pools)]
+        assert float((outs[0].float().cpu() - outs[1]).abs().max()) <= 2e-2 * float(outs[1].abs().max()), rows
+        pos = pos + rows
+    torch.cuda.synchronize()
+    made = {k: LAUNCHES[k] - before[k] for k in ("flash_decode", "causal_prefill_attention", "paged_decode",
+                                                 "paged_window_partials")}
+    assert all(made.values()), made

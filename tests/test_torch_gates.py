@@ -5,14 +5,16 @@ The gates are plain Python on both sides: ``decode_supported``,
 ``splash_prefill_supported``, ``paged_decode_supported`` /
 ``paged_window_supported`` and the W8A16 tiling gates ``supports_shapes``,
 ``rows_supported`` and ``dequant_supported`` are held equal to the JAX ones
-over grids of head_dims (64, 128), page sizes, window and cache lengths, INT4
+over grids of head_dims (64, 128, 256), page sizes, window and cache lengths, INT4
 group sizes from 32 to 512 and row counts.  The forward asks them alone
 before a launch (the port's kernels take every shape they admit): a refused
 shape takes the plain path, as the JAX forward takes XLA, and an admitted one
 the kernel.  A head_dim-64 Llama (refused), an INT4 checkpoint with 512-row
-groups and a model with 5 query heads per kv head (both admitted) call the
-kernel wrappers the JAX gates say, and agree with the JAX forward within
-2e-2 of the largest logit.
+groups, a model with 5 query heads per kv head and a head_dim-256 model (all
+three admitted) call the kernel wrappers the JAX gates say, and agree with
+the JAX forward within 2e-2 of the largest logit.  The attention kernels
+say which head_dims they are built for (``takes_head_dim``): #4, #9 and #10
+every multiple of 128 up to 512, #5 128 and 256.
 """
 
 import dataclasses
@@ -59,7 +61,7 @@ def test_attention_gates_match_jax():
         for s in (2, 100, 256, 300, 512, 700, 1024, 1536, 2048, 3000, 4096):
             want = jax_prefill.splash_prefill_supported(s, hd, h, kv)
             assert prefill_attention.splash_prefill_supported(s, hd, h, kv) == want, (s, hd, h, kv)
-    for hd, page, (dt, jdt) in itertools.product((64, 128), (16, 64, 128, 256), DTYPES.items()):
+    for hd, page, (dt, jdt) in itertools.product((64, 128, 256), (16, 64, 128, 256), DTYPES.items()):
         assert paged_attention.paged_decode_supported(hd, page, dt) == jax_paged.paged_decode_supported(hd, page, jdt)
         for s, mul in itertools.product((1, 2, 16, 32, 64, 129), (1, 2, 4, 8)):
             want = jax_paged.paged_window_supported(hd, page, jdt, s, mul)
@@ -91,11 +93,21 @@ INT4_G512 = ModelConfig(architecture_id=1, dim=512, hidden_dim=1024, n_layers=2,
                         head_dim=128, seq_len=512, vocab_size=512, group_size=512, shared_classifier=True)
 KV_MUL5 = ModelConfig(architecture_id=1, dim=256, hidden_dim=512, n_layers=2, n_heads=5, n_kv_heads=1,
                       head_dim=128, seq_len=512, vocab_size=512, group_size=64, shared_classifier=True)
+HD256 = ModelConfig(architecture_id=1, dim=256, hidden_dim=512, n_layers=2, n_heads=4, n_kv_heads=2,
+                    head_dim=256, seq_len=512, vocab_size=512, group_size=64, shared_classifier=True)
 ROUTES = {  # whether the forward calls each kernel wrapper on the shape (the JAX gates' answer)
     "head_dim 64": (LLAMA_HD64, 8, {"flash_decode": False, "causal_prefill_attention": False}),
     "INT4 g512": (INT4_G512, 4, {"qmatmul_w8a16": True}),
     "kv_mul 5": (KV_MUL5, 8, {"flash_decode": True, "causal_prefill_attention": True}),
+    "head_dim 256": (HD256, 8, {"flash_decode": True, "causal_prefill_attention": True}),
 }
+
+
+def test_attention_kernels_say_their_head_dims():
+    for hd in (64, 128, 192, 256, 384, 512, 640):
+        built = hd % 128 == 0 and hd <= 512
+        assert flash_attention.takes_head_dim(hd) == paged_attention.takes_head_dim(hd) == built, hd
+        assert prefill_attention.takes_head_dim(hd) == (hd in (128, 256)), hd
 
 
 @pytest.mark.parametrize("case", list(ROUTES))

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX package,
 and its entry points run on the card unless the caller asks for the CPU."""
 
+import os
 import re
 import subprocess
 import sys
@@ -50,6 +51,44 @@ def test_package_imports_without_jax():
     export = ("tensor_reader", "config_loader", "architectures", "lora", "model_exporter", "tokenizer_exporter",
               "chat_template_exporter")  # the exporter: numpy and JSON, no JAX helper either
     assert {f"qwen3_rs_tpu_torch.export.{m}" for m in export} | {"qwen3_rs_tpu_torch.utils.progress"} <= names
+    parallel = ("mesh", "sharding", "distributed", "tp")  # tensor parallelism, whose ranks are processes of their own
+    assert {f"qwen3_rs_tpu_torch.parallel.{m}" for m in parallel} | {"qwen3_rs_tpu_torch.ops.collectives"} <= names
+
+
+_TP_RANKS = """
+import functools
+from qwen3_rs_tpu_torch.serving import Request
+from qwen3_rs_tpu_torch.serving.scheduler import start_tp_engine
+from qwen3_rs_tpu_torch.testing import random_model
+from qwen3_rs_tpu_torch.configuration import ModelConfig
+
+if __name__ == "__main__":
+    cfg = ModelConfig(architecture_id=1, dim=256, hidden_dim=512, n_layers=1, n_heads=4, n_kv_heads=2,
+                      head_dim=128, seq_len=64, vocab_size=256, group_size=64, shared_classifier=True)
+    engine = start_tp_engine(functools.partial(random_model, cfg, seed=1, device="cpu"), ["cpu", "cpu"],
+                             n_slots=2, kv_layout="paged", page_size=16, sampling="device")
+    engine.submit(Request(0, [3, 4, 5], max_new_tokens=3))
+    done = engine.run()
+    reports = engine.rank_reports()
+    engine.close()
+    assert len(done[0].generated) == 3 and reports[0]["streams"] == reports[1]["streams"]
+    print("ranks ok")
+"""
+
+
+def test_spawned_ranks_import_no_jax(tmp_path):
+    """A tensor-parallel engine's ranks, spawned processes of their own, run
+    with JAX and the JAX package made unimportable: a fake ``jax`` and
+    ``qwen3_rs_tpu`` that raise come first on every rank's path."""
+    for name in ("jax", "qwen3_rs_tpu"):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "__init__.py").write_text(f"raise ImportError('{name} imported by the port')\n")
+    script = tmp_path / "ranks.py"
+    script.write_text(_TP_RANKS)
+    env = dict(os.environ, PYTHONPATH=f"{tmp_path}{os.pathsep}{ROOT}")
+    out = subprocess.run([sys.executable, str(script)], cwd=tmp_path, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0 and "ranks ok" in out.stdout, out.stderr[-3000:]
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

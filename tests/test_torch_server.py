@@ -263,7 +263,7 @@ def test_serve_cli_defaults_answer_as_the_api(exported, kv, monkeypatch):  # noq
 
 @pytest.mark.parametrize("argv,what", [
     (["batch", "-f", "p.txt", "--sampling", "host", "--spec", "2"], "speculative"),
-    (["serve", "--sampling", "host", "--tp", "2"], "tensor-parallel"),
+    (["serve", "--sampling", "host", "--tp", "2", "--replicas", "2"], "replicated"),
     (["serve", "--sampling", "host", "--replicas", "2"], "replicated"),
     (["serve", "--sampling", "host", "--gateway", "http://a:1"], "gateway"),
 ])

@@ -140,7 +140,8 @@ def _checked_forward(jweights, calls):
     same state (the null page aside: padding rows write it in any order)."""
     port_forward = port_scheduler.qwen3_forward
 
-    def forward(config, weights, tokens, cache, pos, *, mode, **kw):
+    def forward(config, weights, tokens, cache, pos, *, mode, tp_group=None, **kw):
+        assert tp_group is None  # one rank: the forward the JAX call is held against
         ref_logits, ref_cache = _jax_call(jweights, tokens, cache, pos, mode, **kw)
         logits, cache = port_forward(config, weights, tokens, cache, pos, mode=mode, **kw)
         assert logits.shape == ref_logits.shape
@@ -373,7 +374,6 @@ def test_device_sampling_options_run(weights, kw):
 
 @pytest.mark.parametrize("kw,what", [
     (dict(spec_k=2, kv_layout="paged"), "speculative"),
-    (dict(mesh=object()), "tensor-parallel"),
 ])
 def test_unported_options_raise(weights, kw, what):
     with pytest.raises(NotImplementedError, match=f"{what}.*not ported.*ROADMAP.md"):
