@@ -15,11 +15,20 @@ Phases, in order; any failure exits non-zero before the final line:
                megakernel at full depth; the Q4 variants of #3, #6, #7 and
                #11 on INT4-g64 codes; #6's column window at the 8B tp=2
                shard shapes, also bit for bit against a full launch's
-               columns; #4, #5, #9 and #10 at head_dim 256), with its time,
+               columns; #4, #5, #9 and #10 at head_dim 256, #5 at 384 and
+               512), with its time,
                the plain version's time, one PyTorch library call's time
                where one computes the same function, and the least time the
                card could take.
-3. ``e2e``     Qwen3-8B at full width and depth with random weights made on
+3. ``probes``  the four measurement probes (``qwen3_rs_tpu_torch.scripts``)
+               through their ``run()`` entry points, the probe kernels'
+               path: the launch boundary at 8B ``wo`` and ``w13`` (eager #2
+               launches, a CUDA graph of them, one ``boundary_onecall``
+               launch), the read stream over 4 GB at blocks of 0.5-4 MB, the
+               classifier's compute path at B=8 and 1, the depth-64 int8
+               question at 2048x4096x24576; then each probe kernel against
+               its plain version with its time, bound and yardsticks.
+4. ``e2e``     Qwen3-8B at full width and depth with random weights made on
                the card from a seed, each path driven with the launch counts
                reset just before it and read just after:
                * ``generate()``/``chat()`` on a 200-token prompt, f32 and INT8
@@ -48,7 +57,7 @@ Phases, in order; any failure exits non-zero before the final line:
                  prompt (Q4 #6, #5); eval-ppl at one 4096-row window, fast
                  (Q4 #6, Q4 #7) and f32; exact mode raising; the card against
                  the CPU on a one-layer slice, per layer and through Q4 #11.
-4. ``serve``   the continuous-batching engine on the same 8B weights, ctx
+5. ``serve``   the continuous-batching engine on the same 8B weights, ctx
                4096, 8 slots, page 128, greedy: 24 requests (prompts of
                16-1024 tokens, 64 new tokens) with host sampling on the paged
                bf16 pool, the INT8 pool (at 18 of the 36 layers) and the
@@ -63,7 +72,7 @@ Phases, in order; any failure exits non-zero before the final line:
                prefix cache (15 hits, each continued window L paged-window
                launches); chunked prefill; the HTTP front end on port 0
                (answers equal to the requests run alone, then a burst of 8).
-5. ``cli``     a 2-layer 8B-width ``.qtpu`` checkpoint written with numpy,
+6. ``cli``     a 2-layer 8B-width ``.qtpu`` checkpoint written with numpy,
                run through ``qwen3_rs_tpu_torch.cli.main`` (``inference`` in
                generate, chat, exact mode and with ``--device-sampling``,
                ``eval-ppl`` in three modes,
@@ -74,7 +83,7 @@ Phases, in order; any failure exits non-zero before the final line:
                defaults on each (INT4 with ``QWEN3_TPU_MEGA_Q4=1``: Q4 #11
                where the gate admits dim 512) and ``--sampling host`` on the
                INT4 one; the output must equal the API's.
-6. ``tp``      tensor-parallel serving: the same 8B weights drawn by each of
+7. ``tp``      tensor-parallel serving: the same 8B weights drawn by each of
                2 ranks on the one card (gloo), each keeping its shard, the
                serve phase's 24 requests on the paged bf16 pool with device
                sampling; its greedy streams held to the tp=1 run's (a
@@ -86,7 +95,7 @@ Phases, in order; any failure exits non-zero before the final line:
                2 --device cuda:0,cuda:0`` on the cli phase's dim-512 model
                (two completions equal to the API's, SIGTERM leaves no rank)
                and ``--tp 2`` with one device refused.
-7. ``parity``  the 2-layer model on the CPU (plain versions) and on the card
+8. ``parity``  the 2-layer model on the CPU (plain versions) and on the card
                (kernels): prefill windows and decode steps (the megakernel) in
                fast mode (16-,
                512- and 300-row windows) and exact mode; eval-ppl at 0.6B width;
@@ -95,12 +104,12 @@ Phases, in order; any failure exits non-zero before the final line:
                JAX gates refuse (a head_dim-64 Llama) on the plain path with
                no launch of the refused kernels, and shapes they admit that
                the port's kernels once refused (INT4 with 512-row groups, 5
-               query heads per kv head) through the kernels; a head_dim-256
-               model through #4, #5, #9 and #10.
+               query heads per kv head) through the kernels; head_dim-256
+               and head_dim-512 models through #4, #5, #9 and #10.
 
 Output: one JSON object per line.  The second-to-last lines hold the kernel
-table and the serve and tp phases' numbers
-(``{"kernels": [...], "serve": {...}, "tp": {...}}``)
+table and the serve, tp and probes phases' numbers
+(``{"kernels": [...], "serve": {...}, "tp": {...}, "probes": {...}}``)
 and the card's ``name, power.limit``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -122,7 +131,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 DEV = "cuda"
-PHASES = ("build", "kernels", "e2e", "serve", "cli", "tp", "parity")
+PHASES = ("build", "kernels", "probes", "e2e", "serve", "cli", "tp", "parity")
 
 # Published peaks of one H100 SXM (dense): the denominators of bound_ms.
 HBM_BYTES_PER_S = 3.35e12
@@ -506,8 +515,9 @@ def rows_cols_cases(torch, ctx) -> list[dict]:
 def head_dim_cases(torch, ctx) -> list[dict]:
     """#4, #5, #9 and #10 at head_dim 256 (small shapes: 2 kv heads of 4
     query heads, 8 requests at mixed positions over a 1024-row cache or a
-    page-128 pool), each against its plain version with the tolerance of its
-    head_dim-128 cases."""
+    page-128 pool), and #5's wide kernel at head_dim 384 and 512 (a fresh
+    1000-row window, the same heads), each against its plain version with the
+    tolerance of its head_dim-128 cases."""
     import torch.nn.functional as F
 
     from qwen3_rs_tpu_torch.ops.kernels.flash_attention import flash_decode, flash_decode_plain
@@ -552,28 +562,31 @@ def head_dim_cases(torch, ctx) -> list[dict]:
                     nbytes, b_ms, b_by, lib_ms, "F.scaled_dot_product_attention, K/V prepared beforehand"))
     del k_all, v_all, kk, vv
 
-    # #5 over a fresh 1000-row window.
+    # #5 over a fresh 1000-row window; at 384 and 512 its wide kernel.
     s = 1000
-    qp = torch.randn(1, s, h, hd, generator=gen, device=DEV).to(torch.bfloat16)
-    kp, vp = (torch.randn(1, s, n_kv, hd, generator=gen, device=DEV).to(torch.bfloat16) for _ in range(2))
-    got = causal_prefill_attention(qp, kp, vp).float()
-    ref = causal_prefill_attention_plain(qp, kp, vp).float()
-    torch.cuda.synchronize()
-    err = float((got - ref).abs().max())
-    excess = float(((got - ref).abs() - 2.0**-7 * ref.abs()).max())
-    need(math.isfinite(err) and excess <= 1e-5, "causal_prefill_attention head_dim 256: off by more than a bf16 step")
-    ms = device_ms(torch, lambda i: causal_prefill_attention(qp, kp, vp))
-    plain_ms = device_ms(torch, lambda i: causal_prefill_attention_plain(qp, kp, vp), reps=5, warmup=1)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (qp, kp, vp))
-    lib_ms = device_ms(torch, lambda i: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True))
-    nbytes = 2 * (2 * qp.numel() + kp.numel() + vp.numel())
-    b_ms, b_by = bound(nbytes, 4.0 * (s * (s + 1) // 2) * hd * h, "bf16")
-    out.append(_row(ctx, "causal_prefill_attention", f"head_dim 256, fresh window S={s}",
-                    "qwen3_rs_tpu_torch/csrc/prefill_attention.cu",
-                    "qwen3_rs_tpu/ops/pallas/prefill_attention.py:87 causal_prefill_attention",
-                    {"B": 1, "S": s, "heads": h, "kv_heads": n_kv, "hd": hd}, err, "2^-7 * |ref| + 1e-5 per element",
-                    ms, plain_ms, nbytes, b_ms, b_by, lib_ms, "F.scaled_dot_product_attention is_causal, enable_gqa"))
-    del qp, kp, vp, qt, kt, vt
+    for phd in (hd, 384, 512):
+        qp = torch.randn(1, s, h, phd, generator=gen, device=DEV).to(torch.bfloat16)
+        kp, vp = (torch.randn(1, s, n_kv, phd, generator=gen, device=DEV).to(torch.bfloat16) for _ in range(2))
+        got = causal_prefill_attention(qp, kp, vp).float()
+        ref = causal_prefill_attention_plain(qp, kp, vp).float()
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        excess = float(((got - ref).abs() - 2.0**-7 * ref.abs()).max())
+        need(math.isfinite(err) and excess <= 1e-5,
+             f"causal_prefill_attention head_dim {phd}: off by more than a bf16 step")
+        ms = device_ms(torch, lambda i: causal_prefill_attention(qp, kp, vp))
+        plain_ms = device_ms(torch, lambda i: causal_prefill_attention_plain(qp, kp, vp), reps=5, warmup=1)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (qp, kp, vp))
+        lib_ms = device_ms(torch, lambda i: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True))
+        nbytes = 2 * (2 * qp.numel() + kp.numel() + vp.numel())
+        b_ms, b_by = bound(nbytes, 4.0 * (s * (s + 1) // 2) * phd * h, "bf16")
+        out.append(_row(ctx, "causal_prefill_attention", f"head_dim {phd}, fresh window S={s}",
+                        "qwen3_rs_tpu_torch/csrc/prefill_attention.cu",
+                        "qwen3_rs_tpu/ops/pallas/prefill_attention.py:87 causal_prefill_attention",
+                        {"B": 1, "S": s, "heads": h, "kv_heads": n_kv, "hd": phd}, err,
+                        "2^-7 * |ref| + 1e-5 per element", ms, plain_ms, nbytes, b_ms, b_by, lib_ms,
+                        "F.scaled_dot_product_attention is_causal, enable_gqa"))
+        del qp, kp, vp, qt, kt, vt, got, ref
 
     # #9 and #10 over a page-128 bf16 pool, shuffled tables.
     page, max_pages = 128, t // 128
@@ -1264,7 +1277,199 @@ def phase_kernels(torch, ctx) -> None:
                           + dequant_q4_cases(torch, ctx) + megakernel_q4_kernel_cases(torch, ctx)
                           + rows_cols_cases(torch, ctx) + head_dim_cases(torch, ctx))
     made = {k for k in LAUNCHES if LAUNCHES[k] != before[k]}
-    need(made == set(LAUNCHES), f"the kernel cases launched no {sorted(set(LAUNCHES) - made)}")
+    missed = set(LAUNCHES) - made - set(PROBE_KERNELS)  # the probes phase holds the probe kernels
+    need(not missed, f"the kernel cases launched no {sorted(missed)}")
+
+
+# --------------------------------------------------------------------- probes
+PROBE_KERNELS = ("boundary_onecall", "hbm_stream", "head_a8", "a8_depth")
+PROBE_MODEL = "8b"  # the boundary probe's matrices
+PROBE_STREAM_GB = 4.0
+PROBE_HEAD = (4096, 1536)  # TN, TD
+PROBE_DEPTH = (2048, 4096, 24576)  # rows, N, D
+
+
+def phase_probes(torch, ctx) -> None:
+    """The four measurement probes through their entry points
+    (``qwen3_rs_tpu_torch.scripts.<probe>.run``), the probes' path: the
+    boundary probe at 8B ``wo`` and ``w13`` (L=8; eager, graph and one-call
+    arms), the stream over 4 GB at blocks of 0.5-4 MB, the head's compute
+    path at B=8 and B=1, the depth probe at 2048x4096x24576.  The probe
+    kernels' launch counts are reset just before and read just after.  Then
+    each probe kernel against its plain version on the card at those shapes
+    (these launches are not counted), with its time, the plain version's, a
+    library call's where one computes the same function, and its bound."""
+    from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES
+    from qwen3_rs_tpu_torch.scripts import a8_depth_probe, boundary_probe, hbm_stream_bench, head_a8_probe
+
+    t0 = time.perf_counter()
+    for k in PROBE_KERNELS:
+        LAUNCHES[k] = 0  # this path's run starts here
+    runs = {"boundary": [boundary_probe.run(PROBE_MODEL, mat) for mat in ("wo", "w13")]}
+    torch.cuda.empty_cache()
+    runs["stream"] = hbm_stream_bench.run(PROBE_STREAM_GB, (0.5, 1.0, 2.0, 4.0))
+    torch.cuda.empty_cache()
+    stream_gbps = runs["stream"]["best_gb_per_s"]
+    runs["head"] = [head_a8_probe.run(b, *PROBE_HEAD, stream_gb_per_s=stream_gbps) for b in (8, 1)]
+    runs["depth"] = a8_depth_probe.run(*PROBE_DEPTH)
+    torch.cuda.synchronize()
+    ctx["path_launches"]["probes"] = {k: LAUNCHES[k] for k in PROBE_KERNELS}  # and ends here
+    need(all(LAUNCHES[k] > 0 for k in PROBE_KERNELS), f"probes: launches {ctx['path_launches']['probes']}")
+    for name, found in runs.items():
+        for one in found if isinstance(found, list) else [found]:
+            emit({"phase": "probes", "run": name, **{k: v for k, v in one.items() if k != "card"}})
+    ctx["probes"] = {
+        "boundary_ms_per_layer": {r["mat"]: {a: r["arms"][a]["ms_per_layer"] for a in r["arms"]}
+                                  for r in runs["boundary"]},
+        "stream_best_gb_per_s": stream_gbps, "stream_best_share_of_peak": runs["stream"]["best_share_of_peak"],
+        "stream_library_gb_per_s": runs["stream"]["library_gb_per_s"], "copy_gb_per_s": ctx["copy_gbps"],
+        "head_us_per_tile": {f"B={r['B']}": {v: r["variants"][v]["us_per_tile"] for v in r["variants"]}
+                             for r in runs["head"]},
+        "head_hbm_us_per_tile": runs["head"][0]["hbm_us_per_tile"],
+        "depth_tf_per_s": {v: r["tf_per_s"] for v, r in {**runs["depth"]["variants"],
+                                                          **runs["depth"]["library"]}.items()},
+        "seconds": time.perf_counter() - t0,
+    }
+    rows = boundary_rows(torch, ctx) + stream_rows(torch, ctx) + head_a8_rows(torch, ctx) + a8_depth_rows(torch, ctx)
+    ctx.setdefault("kernel_rows", []).extend(rows)
+
+
+def boundary_rows(torch, ctx) -> list[dict]:
+    """P1 at 8B ``wo`` and ``w13``, L=8 layers streamed once (reps=1), against
+    its plain version and against #2's launches (1e-4 of the largest value);
+    library: one batched bf16 matmul on the layers dequantized beforehand."""
+    from qwen3_rs_tpu_torch.ops.kernels.probes import boundary_onecall, boundary_onecall_plain
+    from qwen3_rs_tpu_torch.ops.kernels.qmatmul import qmatmul_w8a16
+    from qwen3_rs_tpu_torch.ops.matmul import dequant_weights
+    from qwen3_rs_tpu_torch.ops.quant import QuantizedTensor
+    from qwen3_rs_tpu_torch.scripts.boundary_probe import LAYERS, matrices
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(8001)
+    out = []
+    for mat in ("wo", "w13"):
+        n, d = matrices(PROBE_MODEL)[mat]
+        g = 64
+        w = _stacked_weights(torch, gen, LAYERS, n, d, g, torch.bfloat16)
+        x = torch.randn(1, n, generator=gen, device=DEV)
+        got = boundary_onecall(x, w, 1)
+        ref = boundary_onecall_plain(x, w)
+        kern = torch.cat([qmatmul_w8a16(x, w, l) for l in range(LAYERS)])
+        torch.cuda.synchronize()
+        err, tol = float((got - ref).abs().max()), 1e-4 * float(ref.abs().max())
+        need(math.isfinite(err) and err <= tol, f"boundary_onecall {mat}: {err} > {tol}")
+        need(float((got - kern).abs().max()) <= tol, f"boundary_onecall {mat}: off #2 by more than {tol}")
+        ms = device_ms(torch, lambda i: boundary_onecall(x, w, 1))
+        plain_ms = device_ms(torch, lambda i: boundary_onecall_plain(x, w), reps=5, warmup=1)
+        dense = torch.stack([dequant_weights(QuantizedTensor(w.q[l], w.scales[l])) for l in range(LAYERS)])
+        xb = x.to(torch.bfloat16)
+        lib_ms = device_ms(torch, lambda i: torch.matmul(xb, dense))
+        del dense
+        nbytes = LAYERS * (n * d + (n // g) * d * 2) + n * 4 + LAYERS * d * 4
+        b_ms, b_by = bound(nbytes, 2.0 * LAYERS * n * d, "bf16")
+        out.append(_row(ctx, "boundary_onecall", f"{PROBE_MODEL} {mat}, L={LAYERS} layers in one launch",
+                        "qwen3_rs_tpu_torch/csrc/boundary_probe.cu", "scripts/boundary_probe.py:98 onecall",
+                        {"L": LAYERS, "N": n, "D": d, "g": g, "reps": 1}, err, tol, ms, plain_ms, nbytes, b_ms, b_by,
+                        lib_ms, "torch.matmul bf16 [1, N] x [L, N, D], layers dequantized beforehand"))
+        del w, x, got, ref, kern
+        torch.cuda.empty_cache()
+    return out
+
+
+def stream_rows(torch, ctx) -> list[dict]:
+    """P2 over the 4 GB array at each block size, bit for bit against the
+    plain version; the plain version is the library call itself."""
+    from qwen3_rs_tpu_torch.ops.kernels.probes import hbm_stream, hbm_stream_plain
+    from qwen3_rs_tpu_torch.scripts.hbm_stream_bench import LANES, geometry
+
+    shapes = {mb: geometry(PROBE_STREAM_GB, mb) for mb in (0.5, 1.0, 2.0, 4.0)}
+    n_max = max(arr_rows for _, _, arr_rows in shapes.values()) * LANES
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(8002)
+    x = torch.empty(n_max, dtype=torch.int8, device=DEV).random_(-128, 128, generator=gen)
+    out = []
+    for mb, (rows, n_blocks, arr_rows) in shapes.items():
+        view = x[: arr_rows * LANES]
+        span = rows * LANES
+        got, ref = hbm_stream(view, span), hbm_stream_plain(view, span)
+        need(torch.equal(got, ref), f"hbm_stream block={mb} MB: {int(got)} != {int(ref)}")
+        ms = device_ms(torch, lambda i: hbm_stream(view, span), reps=10)
+        plain_ms = device_ms(torch, lambda i: hbm_stream_plain(view, span), reps=10)
+        b_ms, b_by = bound(view.numel() + 8, 0.0, "int8")
+        out.append(_row(ctx, "hbm_stream", f"{PROBE_STREAM_GB} GB, blocks of {mb} MB", "qwen3_rs_tpu_torch/csrc/hbm_stream_bench.cu",
+                        "scripts/hbm_stream_bench.py:57", {"bytes": view.numel(), "span": span, "blocks": n_blocks},
+                        0, "bit for bit", ms, plain_ms, view.numel() + 8, b_ms, b_by, plain_ms,
+                        "torch.sum(x, dtype=torch.int64) (the plain version)"))
+        out[-1]["gb_per_s"] = view.numel() / (ms * 1e-3) / 1e9
+    del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def head_a8_rows(torch, ctx) -> list[dict]:
+    """P3 at B=8 and B=1 (TN 4096, TD 1536, 2 tiles, 32 sweeps a launch),
+    each variant against its plain version (``probes.HEAD_A8_RTOL`` of the
+    largest value).  No one PyTorch call computes it."""
+    from qwen3_rs_tpu_torch.ops.kernels.probes import HEAD_A8_RTOL, HEAD_A8_VARIANTS, head_a8, head_a8_plain
+    from qwen3_rs_tpu_torch.scripts.head_a8_probe import N_TILES, inputs
+
+    tn, td = PROBE_HEAD
+    out = []
+    for b in (8, 1):
+        ops = inputs(b, tn, td, DEV, seed=8003 + b)
+        sweeps = N_TILES * 16
+        for v in HEAD_A8_VARIANTS:
+            got, ref = head_a8(v, **ops), head_a8_plain(v, **ops)
+            torch.cuda.synchronize()
+            err, tol = float((got - ref).abs().max()), HEAD_A8_RTOL[v] * float(ref.abs().max())
+            need(math.isfinite(err) and err <= tol, f"head_a8 {v} B={b}: {err} > {tol}")
+            ms = device_ms(torch, lambda i: head_a8(v, **ops))
+            plain_ms = device_ms(torch, lambda i: head_a8_plain(v, **ops), reps=5, warmup=1)
+            reads = {"deq-dot": ("x", "w", "s"), "i8-seg": ("xq", "xs", "w", "s"), "i8-seg2": ("xq", "w", "s")}[v]
+            nbytes = sum(ops[k].numel() * ops[k].element_size() for k in reads) + b * td * 4
+            b_ms, b_by = bound(nbytes, 2.0 * b * tn * td * sweeps, "bf16" if v == "deq-dot" else "int8")
+            out.append(_row(ctx, "head_a8", f"{v} B={b}", "qwen3_rs_tpu_torch/csrc/head_a8_probe.cu",
+                            "scripts/head_a8_probe.py:99 make_kernel",
+                            {"B": b, "TN": tn, "TD": td, "tiles": N_TILES, "sweeps": sweeps}, err, tol, ms, plain_ms,
+                            nbytes, b_ms, b_by, None, "none: no one PyTorch call applies group scales inside a product"))
+        del ops
+    return out
+
+
+def a8_depth_rows(torch, ctx) -> list[dict]:
+    """P4 at 2048x4096x24576: the int arms bit for bit against their plain
+    versions, bf16-full within 1e-4 of the largest value; library:
+    ``torch.matmul`` (bf16) and ``torch._int_mm`` (int8) on the same operands."""
+    from qwen3_rs_tpu_torch.ops.kernels.probes import A8_DEPTH_RTOL, A8_DEPTH_VARIANTS, a8_depth, a8_depth_plain
+    from qwen3_rs_tpu_torch.scripts.a8_depth_probe import inputs
+
+    rows, n, d = PROBE_DEPTH
+    ops = inputs(rows, n, d, DEV, seed=8004)
+    out = []
+    for v in A8_DEPTH_VARIANTS:
+        kind = "bf16" if v == "bf16-full" else "int8"
+        x, wt = ops[kind]
+        got, ref = a8_depth(v, x, wt), a8_depth_plain(v, x, wt)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        tol = A8_DEPTH_RTOL[v] * float(ref.abs().max())
+        need(math.isfinite(err) and err <= tol, f"a8_depth {v}: {err} > {tol}")
+        del got, ref
+        ms = device_ms(torch, lambda i: a8_depth(v, x, wt), reps=10)
+        plain_ms = device_ms(torch, lambda i: a8_depth_plain(v, x, wt), reps=3, warmup=1)
+        if kind == "bf16":
+            lib_ms, lib = device_ms(torch, lambda i: torch.matmul(x, wt.T), reps=10), "torch.matmul bf16 (bf16 out)"
+        else:
+            lib_ms, lib = device_ms(torch, lambda i: torch._int_mm(x, wt.T), reps=10), "torch._int_mm (int32 out)"
+        nbytes = (x.numel() + wt.numel()) * x.element_size() + rows * d * 4
+        b_ms, b_by = bound(nbytes, 2.0 * rows * n * d, kind)
+        out.append(_row(ctx, "a8_depth", v, "qwen3_rs_tpu_torch/csrc/a8_depth_probe.cu",
+                        "scripts/a8_depth_probe.py:90 make_kernel", {"rows": rows, "N": n, "D": d}, err,
+                        tol if kind == "bf16" else "bit for bit", ms, plain_ms, nbytes, b_ms, b_by, lib_ms, lib))
+        out[-1]["tf_per_s"] = 2.0 * rows * n * d / (ms * 1e-3) / 1e12
+        torch.cuda.empty_cache()
+    del ops
+    return out
 
 
 # ------------------------------------------------------------ model helpers
@@ -3028,7 +3233,8 @@ def phase_parity(torch, ctx) -> None:
     parity_eval(torch, ctx)
     parity_paged(torch, ctx)
     parity_gated_shapes(torch, ctx)
-    parity_head_dim_256(torch, ctx)
+    for hd in (256, 512):
+        parity_head_dim(torch, ctx, hd)
 
 
 def parity_gated_shapes(torch, ctx) -> None:
@@ -3087,12 +3293,13 @@ def parity_gated_shapes(torch, ctx) -> None:
               "seconds": time.perf_counter() - t0})
 
 
-def parity_head_dim_256(torch, ctx) -> None:
-    """Card against CPU on a 2-layer head_dim-256 model (dim 1024, 8 query
-    and 4 kv heads), within 2e-2 of the largest logit: on the dense cache a
-    300-row fresh window (#5) and two decode steps (#4); on a page pool a
-    fresh group window, a continued 8-row window (#10) and two decode steps
-    (#9).  Each of the four kernels must launch."""
+def parity_head_dim(torch, ctx, hd: int) -> None:
+    """Card against CPU on a 2-layer model of head_dim ``hd`` (256, or 512
+    for #5's wide kernel; dim 1024, 8 query and 4 kv heads), within 2e-2 of
+    the largest logit: on the dense cache a 300-row fresh window (#5) and two
+    decode steps (#4); on a page pool a fresh group window, a continued 8-row
+    window (#10) and two decode steps (#9).  Each of the four kernels must
+    launch."""
     import numpy as np
 
     from qwen3_rs_tpu_torch import Engine
@@ -3104,7 +3311,7 @@ def parity_head_dim_256(torch, ctx) -> None:
 
     t0 = time.perf_counter()
     cfg = ModelConfig(architecture_id=1, dim=1024, hidden_dim=3072, n_layers=2, n_heads=8, n_kv_heads=4,
-                      head_dim=256, seq_len=1024, vocab_size=4096, group_size=64, shared_classifier=True)
+                      head_dim=hd, seq_len=1024, vocab_size=4096, group_size=64, shared_classifier=True)
     weights = random_weights(cfg, seed=SEED + 13, device=DEV)
     cpu_weights = weights_to(weights, "cpu")
     rng = np.random.default_rng(SEED + 13)
@@ -3130,11 +3337,11 @@ def parity_head_dim_256(torch, ctx) -> None:
         pos = pos + rows
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)  # and ends here
-    ctx["path_launches"]["parity head_dim 256"] = launches
+    ctx["path_launches"][f"parity head_dim {hd}"] = launches
     want = ("flash_decode", "causal_prefill_attention", "paged_decode", "paged_window_partials")
-    need(all(launches[k] > 0 for k in want), f"head_dim 256: launches {launches}")
-    need(all(math.isfinite(e) and e <= 2e-2 for e in errs), f"head_dim 256: card vs CPU rel errs {errs}")
-    emit({"phase": "parity", "run": "head_dim 256", "layers": cfg.n_layers, "width": cfg.dim, "rel_errs": errs,
+    need(all(launches[k] > 0 for k in want), f"head_dim {hd}: launches {launches}")
+    need(all(math.isfinite(e) and e <= 2e-2 for e in errs), f"head_dim {hd}: card vs CPU rel errs {errs}")
+    emit({"phase": "parity", "run": f"head_dim {hd}", "layers": cfg.n_layers, "width": cfg.dim, "rel_errs": errs,
           "tol_rel": 2e-2, "launches": {k: launches[k] for k in want}, "seconds": time.perf_counter() - t0})
 
 
@@ -3300,6 +3507,8 @@ def main(argv=None) -> int:
                 phase_build(torch, ctx)
             elif name == "kernels":
                 phase_kernels(torch, ctx)
+            elif name == "probes":
+                phase_probes(torch, ctx)
             else:
                 {"e2e": phase_e2e, "serve": phase_serve, "cli": phase_cli, "tp": phase_tp,
                  "parity": phase_parity}[name](torch, ctx)
@@ -3311,12 +3520,14 @@ def main(argv=None) -> int:
     launches = {name: sum(p.get(name, 0) for p in paths.values()) for name in
                 {r["name"] for r in ctx.get("kernel_rows", [])}}
     if {"kernels", "e2e", "serve"} <= set(phases):
-        # #6's column window runs on the tensor-parallel path alone.
+        # #6's column window runs on the tensor-parallel path alone, the probe kernels on the probes'.
         idle = sorted(name for name, n in launches.items()
-                      if n == 0 and (name != "qmatmul_w8a16_rows_cols" or "tp" in phases))
+                      if n == 0 and (name != "qmatmul_w8a16_rows_cols" or "tp" in phases)
+                      and (name not in PROBE_KERNELS or "probes" in phases))
         need(not idle, f"no path launched {idle}")
     rows = [dict(r, launches=launches[r["name"]]) for r in ctx.get("kernel_rows", [])]
     emit({"kernels": rows, "e2e": ctx.get("e2e"), "serve": ctx.get("serve"), "tp": ctx.get("tp"),
+          "probes": ctx.get("probes"),
           "total_seconds": time.perf_counter() - t_all})
     print(ctx.get("smi") or subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -25,6 +25,11 @@ LAUNCHES: dict[str, int] = {
     "paged_window_partials": 0,
     "decode_megakernel": 0,
     "decode_megakernel_q4": 0,
+    # The measurement probes' kernels (``probes.py``), driven by ``qwen3_rs_tpu_torch.scripts``.
+    "boundary_onecall": 0,
+    "hbm_stream": 0,
+    "head_a8": 0,
+    "a8_depth": 0,
 }
 
 

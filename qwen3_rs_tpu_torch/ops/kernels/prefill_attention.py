@@ -12,8 +12,9 @@ window and no block divisibility: the forward sends it every fresh window of
 more than 256 rows whose shapes pass ``splash_prefill_supported`` (the
 reference package's gate, asked at the window's power-of-two bucket, the
 width the reference engine pads it to).  It takes any number of query heads
-per kv head, and the head_dims of ``HEAD_DIMS`` (``takes_head_dim``: 128 and
-256; wider heads would not fit its register tiles, ROADMAP §3).
+per kv head, and the head_dims of ``HEAD_DIMS`` (``takes_head_dim``: every
+multiple of 128 up to 512; at 384 and 512 a wide kernel holds q in shared
+memory and splits the output over column blocks).
 
 For a CPU tensor the wrapper runs the plain PyTorch version; for a CUDA
 tensor it launches ``csrc/prefill_attention.cu`` or raises.
@@ -31,7 +32,7 @@ from . import LAUNCHES, build
 QUERY_CHUNK = 512  # query rows per step of the plain version (bounds its score tensor)
 _BLOCK = 1024  # the reference splash kernel's default block
 # The head_dims the kernel is built for (a template parameter of its source).
-HEAD_DIMS = (128, 256)
+HEAD_DIMS = (128, 256, 384, 512)
 
 
 def takes_head_dim(hd: int) -> bool:

@@ -38,6 +38,18 @@ from qwen3_rs_tpu_torch.ops.kernels.qmatmul import (
     qmatmul_w8a16_rows,
     qmatmul_w8a16_rows_plain,
 )
+from qwen3_rs_tpu_torch.ops.kernels.probes import (
+    A8_DEPTH_RTOL,
+    HEAD_A8_RTOL,
+    a8_depth,
+    a8_depth_plain,
+    boundary_onecall,
+    boundary_onecall_plain,
+    hbm_stream,
+    hbm_stream_plain,
+    head_a8,
+    head_a8_plain,
+)
 from qwen3_rs_tpu_torch.ops.kernels.qmatmul_a8 import qmatmul_w8a8_rows, qmatmul_w8a8_rows_plain
 from qwen3_rs_tpu_torch.ops.quant import Q4Tensor, QuantizedTensor, quantize_activations
 from qwen3_rs_tpu_torch.serving import ContinuousBatchingEngine, Request
@@ -839,9 +851,27 @@ def test_prefill_attention_head_dim_256_matches_plain(card, s, kv_mul):
     torch.testing.assert_close(got.float(), ref.float(), rtol=2.0**-7, atol=1e-5)  # as at head_dim 128
 
 
+@pytest.mark.parametrize("s", [1, 65, 300, 1000])
+@pytest.mark.parametrize("hd", [384, 512])
+@pytest.mark.parametrize("kv_mul", [1, 4, 5])
+def test_prefill_attention_wide_head_dims_match_plain(card, s, hd, kv_mul):
+    """#5's wide kernel (q in shared memory, the output in 128-column blocks)
+    at ragged windows, with the tolerance of head_dim 128."""
+    gen = _gen(s * 17 + hd + kv_mul)
+    q = torch.randn(2, s, 2 * kv_mul, hd, generator=gen, device=card).to(torch.bfloat16)
+    k, v = (torch.randn(2, s, 2, hd, generator=gen, device=card).to(torch.bfloat16) for _ in range(2))
+    before = LAUNCHES["causal_prefill_attention"]
+    got = causal_prefill_attention(q, k, v)
+    assert LAUNCHES["causal_prefill_attention"] == before + 1
+    ref = causal_prefill_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.float(), rtol=2.0**-7, atol=1e-5)
+    assert torch.equal(got[:, 0], v[:, 0].repeat_interleave(kv_mul, dim=1))  # row 0: its own value
+
+
 def test_attention_kernels_refuse_head_dims_they_are_not_built_for(card):
-    q = torch.zeros(1, 4, 2, 384, device=card, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim 384"):
+    q = torch.zeros(1, 4, 2, 640, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 640"):
         causal_prefill_attention(q, q[:, :, :1], q[:, :, :1])
     k = torch.zeros(1, 1, 1, 8, 192, device=card)
     with pytest.raises(ValueError, match="head_dim 192"):
@@ -872,7 +902,15 @@ def test_qmatmul_rows_out_cols_match_full_and_plain(card, n, d, g):
 
 
 def test_head_dim_256_model_card_matches_cpu(card):
-    """A 2-layer head_dim-256 model, card against CPU within 2e-2 of the
+    _head_dim_model_card_matches_cpu(card, 256)
+
+
+def test_head_dim_512_model_card_matches_cpu(card):
+    _head_dim_model_card_matches_cpu(card, 512)
+
+
+def _head_dim_model_card_matches_cpu(card, hd):
+    """A 2-layer model of head_dim ``hd``, card against CPU within 2e-2 of the
     largest logit: a 300-row fresh window (#5), decode steps on the dense
     cache (#4), and on a page pool a group prefill, a continued window (#10)
     and decode steps (#9)."""
@@ -880,7 +918,7 @@ def test_head_dim_256_model_card_matches_cpu(card):
     from qwen3_rs_tpu_torch.serving.paged_cache import init_paged_cache
 
     cfg = ModelConfig(architecture_id=1, dim=512, hidden_dim=1024, n_layers=2, n_heads=4, n_kv_heads=2,
-                      head_dim=256, seq_len=512, vocab_size=1024, group_size=64, shared_classifier=True)
+                      head_dim=hd, seq_len=512, vocab_size=1024, group_size=64, shared_classifier=True)
     weights = random_weights(cfg, seed=9, device=card)
     rng = np.random.default_rng(9)
     before = dict(LAUNCHES)
@@ -907,3 +945,82 @@ def test_head_dim_256_model_card_matches_cpu(card):
     made = {k: LAUNCHES[k] - before[k] for k in ("flash_decode", "causal_prefill_attention", "paged_decode",
                                                  "paged_window_partials")}
     assert all(made.values()), made
+
+
+# ------------------------------------------------------- measurement probes
+@pytest.mark.parametrize("layers,n,d", [(3, 512, 4096), (2, 256, 384), (8, 1024, 24576)])
+def test_boundary_onecall_matches_plain_and_qmatmul(card, layers, n, d):
+    """P1: every layer against its plain version and against #2, each rep
+    overwriting the same values."""
+    gen = _gen(layers + n + d)
+    w = _weights(gen, card, layers, n, d, 64)
+    x = torch.randn(1, n, generator=gen, device=card)
+    before = LAUNCHES["boundary_onecall"]
+    got = boundary_onecall(x, w, 3)
+    assert LAUNCHES["boundary_onecall"] == before + 1
+    ref = boundary_onecall_plain(x, w)
+    kern = torch.cat([qmatmul_w8a16(x, w, l) for l in range(layers)])
+    torch.cuda.synchronize()
+    tol = 1e-4 * float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= tol and float((got - kern).abs().max()) <= tol
+    assert torch.equal(boundary_onecall(x, w, 1), got)
+
+
+@pytest.mark.parametrize("nbytes,span", [(16, 16), (4096 * 33, 4096), (3 << 20, 1 << 20), (40 << 20, 16 << 20),
+                                         (1 << 20, (1 << 20) - 16)])
+def test_hbm_stream_is_the_exact_sum(card, nbytes, span):
+    gen = _gen(nbytes % 1000 + span % 777)
+    x = torch.empty(nbytes, dtype=torch.int8, device=card).random_(-128, 128, generator=gen)
+    x[: nbytes // 3] = -128  # long runs of the extreme code
+    before = LAUNCHES["hbm_stream"]
+    got = hbm_stream(x, span)
+    assert LAUNCHES["hbm_stream"] == before + 1
+    assert got.dtype == torch.int64 and torch.equal(got, hbm_stream_plain(x, span))
+
+
+@pytest.mark.parametrize("variant", ["deq-dot", "i8-seg", "i8-seg2"])
+@pytest.mark.parametrize("b,tn,td", [(8, 4096, 1536), (1, 512, 48), (5, 1024, 64)])
+def test_head_a8_matches_plain(card, variant, b, tn, td):
+    from qwen3_rs_tpu_torch.scripts.head_a8_probe import inputs
+
+    ops = inputs(b, tn, td, card, seed=b + tn + td)
+    for sweeps in (None, 3):
+        before = LAUNCHES["head_a8"]
+        got = head_a8(variant, **ops, sweeps=sweeps)
+        assert LAUNCHES["head_a8"] == before + 1
+        ref = head_a8_plain(variant, **ops, sweeps=sweeps)
+        torch.cuda.synchronize()
+        assert float((got - ref).abs().max()) <= HEAD_A8_RTOL[variant] * float(ref.abs().max()), (variant, sweeps)
+
+
+@pytest.mark.parametrize("variant", ["bf16-full", "i8-seg64", "i8-full"])
+@pytest.mark.parametrize("m,k,d", [(128, 64, 128), (256, 1024, 384), (384, 4096, 256), (128, 576, 128)])
+def test_a8_depth_matches_plain(card, variant, m, k, d):
+    """P4: the int arms bit for bit (every partial sum is an integer below
+    2^24), bf16-full within 1e-4 of the largest output (the tensor cores'
+    f32 accumulation rounds toward zero)."""
+    from qwen3_rs_tpu_torch.scripts.a8_depth_probe import inputs
+
+    x, wt = inputs(m, k, d, card, seed=m + k + d)["bf16" if variant == "bf16-full" else "int8"]
+    before = LAUNCHES["a8_depth"]
+    got = a8_depth(variant, x, wt)
+    assert LAUNCHES["a8_depth"] == before + 1
+    ref = a8_depth_plain(variant, x, wt)
+    torch.cuda.synchronize()
+    if variant == "bf16-full":
+        assert float((got - ref).abs().max()) <= A8_DEPTH_RTOL[variant] * float(ref.abs().max())
+    else:
+        assert torch.equal(got, ref)
+
+
+def test_probe_wrappers_refuse_what_they_cannot_take(card):
+    x = torch.zeros(128, 64, dtype=torch.int8, device=card)
+    with pytest.raises(ValueError, match="contiguous torch.bfloat16"):
+        a8_depth("bf16-full", x, x)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        a8_depth("i8-full", x[:64], x)
+    with pytest.raises(ValueError, match="int8"):
+        hbm_stream(torch.zeros(64, device=card), 16)
+    w = _weights(_gen(3), card, 2, 256, 48, 64)
+    with pytest.raises(ValueError, match="D=48 of 32"):
+        boundary_onecall(torch.zeros(1, 256, device=card), w)

@@ -12,9 +12,10 @@ shape takes the plain path, as the JAX forward takes XLA, and an admitted one
 the kernel.  A head_dim-64 Llama (refused), an INT4 checkpoint with 512-row
 groups, a model with 5 query heads per kv head and a head_dim-256 model (all
 three admitted) call the kernel wrappers the JAX gates say, and agree with
-the JAX forward within 2e-2 of the largest logit.  The attention kernels
-say which head_dims they are built for (``takes_head_dim``): #4, #9 and #10
-every multiple of 128 up to 512, #5 128 and 256.
+the JAX forward within 2e-2 of the largest logit; so does a head_dim-512
+model's fresh 512-row window, the JAX forward through its interpret-mode
+splash kernel (#5).  The attention kernels say which head_dims they are built
+for (``takes_head_dim``): #4, #5, #9 and #10 every multiple of 128 up to 512.
 """
 
 import dataclasses
@@ -26,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import jax_numpy_weights
+from torch_parity import jax_numpy_weights, route_jax_through_interpret_kernels
 
 import qwen3_rs_tpu.ops.pallas.flash_attention as jax_flash
 import qwen3_rs_tpu.ops.pallas.paged_attention as jax_paged
@@ -107,7 +108,7 @@ def test_attention_kernels_say_their_head_dims():
     for hd in (64, 128, 192, 256, 384, 512, 640):
         built = hd % 128 == 0 and hd <= 512
         assert flash_attention.takes_head_dim(hd) == paged_attention.takes_head_dim(hd) == built, hd
-        assert prefill_attention.takes_head_dim(hd) == (hd in (128, 256)), hd
+        assert prefill_attention.takes_head_dim(hd) == built, hd
 
 
 @pytest.mark.parametrize("case", list(ROUTES))
@@ -142,3 +143,34 @@ def test_shapes_route_as_the_jax_gates_say(case, monkeypatch):
         assert np.isfinite(err) and err <= 2e-2 * float(np.abs(ref).max()), (rows, err)
         pos += rows
     assert {name: n > 0 for name, n in called.items()} == routes
+
+
+HD512 = ModelConfig(architecture_id=1, dim=256, hidden_dim=512, n_layers=2, n_heads=4, n_kv_heads=2,
+                    head_dim=512, seq_len=512, vocab_size=512, group_size=64, shared_classifier=True)
+
+
+def test_head_dim_512_fresh_window_matches_jax_through_its_prefill_kernel(monkeypatch):
+    """A fresh 512-row window of a head_dim-512 model: the port's forward
+    calls #5 (its plain version here) where the JAX forward runs its splash
+    kernel in interpret mode; the logits agree within 2e-2 of the largest."""
+    jax_calls = route_jax_through_interpret_kernels(monkeypatch, min_seq_len=128)
+    called = []
+
+    def spy(*a, _real=port_qwen3.causal_prefill_attention, **k):
+        called.append(a[0].shape)
+        return _real(*a, **k)
+
+    monkeypatch.setattr(port_qwen3, "causal_prefill_attention", spy)
+    tree = jax_numpy_weights(HD512, 12)
+    pw = weights_from_jax_numpy(tree)
+    jw = jax.tree.map(jnp.asarray, tree)
+    jcfg = JaxConfig(**dataclasses.asdict(HD512))
+    toks = np.random.default_rng(12).integers(0, HD512.vocab_size, (1, 512))
+    logits, _ = qwen3_forward(HD512, pw, toks, init_kv_cache(HD512, 1), [0], fresh_prefill=True)
+    fwd = jax.jit(lambda w, t, c, p: jax_forward(jcfg, w, t, c, p, mode="fast", fresh_prefill=True))
+    ref, _ = fwd(jw, jnp.asarray(toks, jnp.int32), jax_init_cache(jcfg, 1, dtype=jnp.float32),
+                 jnp.asarray([0], jnp.int32))
+    ref = np.asarray(ref, np.float32)
+    assert jax_calls["prefill"] >= 1 and called == [(1, 512, 4, 512)] * HD512.n_layers
+    err = float(np.abs(logits.float().numpy() - ref).max())
+    assert np.isfinite(err) and err <= 2e-2 * float(np.abs(ref).max()), err

@@ -53,6 +53,8 @@ def test_package_imports_without_jax():
     assert {f"qwen3_rs_tpu_torch.export.{m}" for m in export} | {"qwen3_rs_tpu_torch.utils.progress"} <= names
     parallel = ("mesh", "sharding", "distributed", "tp")  # tensor parallelism, whose ranks are processes of their own
     assert {f"qwen3_rs_tpu_torch.parallel.{m}" for m in parallel} | {"qwen3_rs_tpu_torch.ops.collectives"} <= names
+    probes = ("boundary_probe", "hbm_stream_bench", "head_a8_probe", "a8_depth_probe")  # importing one runs nothing
+    assert {f"qwen3_rs_tpu_torch.scripts.{m}" for m in probes} | {"qwen3_rs_tpu_torch.ops.kernels.probes"} <= names
 
 
 _TP_RANKS = """
