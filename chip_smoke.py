@@ -15,8 +15,10 @@ Phases, in order; any failure exits non-zero before the final line:
                megakernel at full depth; the Q4 variants of #3, #6, #7 and
                #11 on INT4-g64 codes; #6's column window at the 8B tp=2
                shard shapes, also bit for bit against a full launch's
-               columns; #4, #5, #9 and #10 at head_dim 256, #5 at 384 and
-               512), with its time,
+               columns; #4, #5, #9 and #10 at head_dim 256 and 640, #5 at
+               384 and 512; #3 by route at 8-256 rows over the four 8B
+               projections, both routes at 8, 16 and 32 rows, the
+               measurement behind ``qmatmul.TC_MIN_ROWS``), with its time,
                the plain version's time, one PyTorch library call's time
                where one computes the same function, and the least time the
                card could take.
@@ -44,6 +46,8 @@ Phases, in order; any failure exits non-zero before the final line:
                * ``generate()`` on a 3000-token prompt: a fresh 2048-row window
                  (L causal prefill attentions, 4·L row-blocked W8A16 matmuls),
                  a continuation window (4·L row-blocked), then decode steps;
+               * a continued 32-row window (4·L #3 launches on its
+                 tensor-core route), timed and profiled;
                * ``compute_perplexity`` (eval-ppl) at 4096-row windows, fast
                  (3·L row-blocked, L dequant per window) twice, identical;
                * exact-mode ``generate()`` on a 300-token prompt (4·L W8A8 on
@@ -104,8 +108,8 @@ Phases, in order; any failure exits non-zero before the final line:
                JAX gates refuse (a head_dim-64 Llama) on the plain path with
                no launch of the refused kernels, and shapes they admit that
                the port's kernels once refused (INT4 with 512-row groups, 5
-               query heads per kv head) through the kernels; head_dim-256
-               and head_dim-512 models through #4, #5, #9 and #10.
+               query heads per kv head) through the kernels; head_dim-256,
+               -512 and -640 models through #4, #5, #9 and #10.
 
 Output: one JSON object per line.  The second-to-last lines hold the kernel
 table and the serve, tp and probes phases' numbers
@@ -247,7 +251,6 @@ def qmatmul_cases(torch, ctx) -> list[dict]:
         ("w2+swiglu+residual b=1", hid, dim, "swiglu", True, 1, True, f32),
         ("wo stacked b=1", ah, dim, None, False, 1, True, f32),
         ("lm_head b=1", dim, vpad, None, False, 1, False, bf16),
-        ("wqkv+rms b=256", dim, ah + 2 * kvd, "rms", False, 256, True, bf16),
     ]
     gen = torch.Generator(device=DEV)
     gen.manual_seed(1234)
@@ -312,6 +315,90 @@ def qmatmul_cases(torch, ctx) -> list[dict]:
         emit({"phase": "kernels", **out[-1]})
         del codes, scales, w, x, kw, ref, got
         torch.cuda.empty_cache()
+    return out
+
+
+ROUTE_ROWS = {8: ((8, "cores"), (8, "tc"), (16, "cores"), (16, "tc"), (32, "cores"), (32, "tc"), (64, "tc"),
+                  (128, "tc"), (256, "tc")),
+              4: ((16, "tc"), (256, "tc"))}
+
+
+def qmatmul_route_cases(torch, ctx) -> list[dict]:
+    """#3 by route at windows of 8-256 rows over the four 8B projections, as
+    qwen3_forward calls them (prologue, residual, x dtype): the CUDA-core
+    kernel and the tensor-core kernel side by side at 8, 16 and 32 rows (the
+    measurement that sets ``qmatmul.TC_MIN_ROWS``), the tensor-core kernel at
+    64, 128 and 256 rows; INT4 at 16 and 256 rows.  Each route is forced by
+    calling its launcher; ``route`` says which the wrapper takes."""
+    from qwen3_rs_tpu_torch.ops.kernels.qmatmul import (
+        dequant_q4_stacked_plain, qmatmul_w8a16_cores, qmatmul_w8a16_plain, qmatmul_w8a16_tc, route,
+    )
+    from qwen3_rs_tpu_torch.ops.matmul import dequant_weights
+    from qwen3_rs_tpu_torch.ops.quant import QuantizedTensor
+    from qwen3_rs_tpu_torch.testing import qwen3_config
+
+    c = qwen3_config("8b")
+    g = c.group_size
+    ah, kvd, dim, hid = c.all_heads_dim, c.kv_dim, c.dim, c.hidden_dim
+    f32, bf16 = torch.float32, torch.bfloat16
+    specs = [("wqkv+rms", dim, ah + 2 * kvd, "rms", False, bf16), ("wo+residual", ah, dim, None, True, f32),
+             ("w13+rms", dim, 2 * hid, "rms", False, bf16), ("w2+swiglu+residual", hid, dim, "swiglu", True, f32)]
+    launchers = {"cores": qmatmul_w8a16_cores, "tc": qmatmul_w8a16_tc}
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(9090)
+    out, crossover = [], {}
+    for bits in (8, 4):
+        for proj, n, d, prologue, has_res, xdt in specs:
+            wbytes = (n * d // 2 + (n // g) * d * 2) if bits == 4 else n * d + (n // g) * d * 2
+            nl = _layers_for(wbytes)
+            if bits == 4:
+                w = _q4_stacked(torch, gen, nl, n, d, g, bf16)
+                dense = [dequant_q4_stacked_plain(w, l) for l in range(2)]
+            else:
+                w = QuantizedTensor(torch.randint(-127, 128, (nl, n, d), generator=gen, device=DEV, dtype=torch.int8),
+                                    (torch.rand(nl, n // g, d, generator=gen, device=DEV) * 0.02).to(bf16))
+                dense = [dequant_weights(QuantizedTensor(w.q[l], w.scales[l])) for l in range(2)]
+            norm_w = 1.0 + 0.02 * torch.randn(nl, n, generator=gen, device=DEV) if prologue == "rms" else None
+            for rows, rt in ROUTE_ROWS[bits]:
+                width = 2 * n if prologue == "swiglu" else n
+                x = torch.randn(rows, width, generator=gen, device=DEV).to(xdt)
+                kw = {"norm_w": norm_w, "swiglu": prologue == "swiglu",
+                      "residual": torch.randn(rows, d, generator=gen, device=DEV).to(bf16) if has_res else None}
+                launch = launchers[rt]
+                ref = qmatmul_w8a16_plain(x, w, 1, **kw)
+                got = launch(x, w, 1, **kw)
+                torch.cuda.synchronize()
+                err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+                # f32 sums in another order (the tensor cores' round toward zero); a
+                # prologue's f32 result may flip an activation's bf16 rounding.
+                tol = (2e-3 if prologue else 1e-4) * scale
+                need(math.isfinite(err) and err <= tol, f"#3 {rt} {proj} rows={rows} bits={bits}: {err} > {tol}")
+                ms = device_ms(torch, lambda i: launch(x, w, i % nl, **kw))
+                plain_ms = device_ms(torch, lambda i: qmatmul_w8a16_plain(x, w, i % nl, **kw), reps=3, warmup=1)
+                xl = x[:, :n].to(bf16)
+                lib_ms = device_ms(torch, lambda i: torch.matmul(xl, dense[i % 2]))
+                nbytes = (wbytes + x.numel() * x.element_size() + rows * d * 4 + (rows * d * 2 if has_res else 0)
+                          + (n * 4 if prologue == "rms" else 0))
+                b_ms, b_by = bound(nbytes, 2.0 * rows * n * d, "bf16")
+                name = ("qmatmul_w8a16_tc" if rt == "tc" else "qmatmul_w8a16") + ("_q4" if bits == 4 else "")
+                out.append(_row(
+                    ctx, name, f"{proj} rows={rows} ({'tensor' if rt == 'tc' else 'CUDA'} cores"
+                    f"{', the route' if route(rows) == rt else ''})",
+                    "qwen3_rs_tpu_torch/csrc/qmatmul_w8a16.cu" + (" + w8a16_wgmma.cuh" if rt == "tc" else ""),
+                    "qwen3_rs_tpu/ops/pallas/qmatmul.py:761 qmatmul_pallas_stacked_fused"
+                    + (" (Q4 tiles, :34 _dequant_tile_q4)" if bits == 4 else ""),
+                    {"rows": rows, "N": n, "D": d, "g": g, "bits": bits, "route": rt}, err, tol, ms, plain_ms, nbytes,
+                    b_ms, b_by, lib_ms, "torch.matmul bf16, weights dequantized beforehand",
+                ))
+                if bits == 8 and rows <= 32:
+                    crossover.setdefault(rows, {}).setdefault(rt, 0.0)
+                    crossover[rows][rt] += ms
+                del x, kw, ref, got
+            del w, dense, norm_w
+            torch.cuda.empty_cache()
+    # Both routes over the four projections: the rows from which the tensor cores win.
+    emit({"phase": "kernels", "crossover_ms_four_projections": crossover,
+          "tc_faster_from_rows": min((r for r, t in crossover.items() if t["tc"] < t["cores"]), default=None)})
     return out
 
 
@@ -513,11 +600,16 @@ def rows_cols_cases(torch, ctx) -> list[dict]:
 
 
 def head_dim_cases(torch, ctx) -> list[dict]:
-    """#4, #5, #9 and #10 at head_dim 256 (small shapes: 2 kv heads of 4
-    query heads, 8 requests at mixed positions over a 1024-row cache or a
-    page-128 pool), and #5's wide kernel at head_dim 384 and 512 (a fresh
-    1000-row window, the same heads), each against its plain version with the
+    """#4, #5, #9 and #10 at head_dim 256 and 640 (small shapes: 2 kv heads of
+    4 query heads, 8 requests at mixed positions over a 1024-row cache or a
+    page-128 pool; past 512 the column-blocked kernels), and #5 at head_dim
+    384 and 512 (its wide kernel) and 640 (its streaming kernel) over a fresh
+    1000-row window, the same heads, each against its plain version with the
     tolerance of its head_dim-128 cases."""
+    return _head_dim_cases(torch, ctx, 256, (256, 384, 512)) + _head_dim_cases(torch, ctx, 640, (640,))
+
+
+def _head_dim_cases(torch, ctx, hd: int, prefill_hds) -> list[dict]:
     import torch.nn.functional as F
 
     from qwen3_rs_tpu_torch.ops.kernels.flash_attention import flash_decode, flash_decode_plain
@@ -529,12 +621,12 @@ def head_dim_cases(torch, ctx) -> list[dict]:
     )
     from qwen3_rs_tpu_torch.testing import paged_read_bytes
 
-    hd, n_kv, kv_mul, t = 256, 2, 4, 1024
+    n_kv, kv_mul, t = 2, 4, 1024
     h = n_kv * kv_mul
     pos_list = [0, 1, 127, 128, 129, 500, 777, 1023]
     b = len(pos_list)
     gen = torch.Generator(device=DEV)
-    gen.manual_seed(1256)
+    gen.manual_seed(1000 + hd)
     pos = torch.tensor(pos_list, dtype=torch.int32, device=DEV)
     out = []
     mask_rows = lambda n: (torch.arange(n, device=DEV)[None, :] < pos[:, None].long())[:, None, None, :]
@@ -547,7 +639,7 @@ def head_dim_cases(torch, ctx) -> list[dict]:
     got = flash_decode(q, kn, vn, k_all, v_all, pos, 1)
     torch.cuda.synchronize()
     err, tol = float((got - ref).abs().max()), 1e-5
-    need(math.isfinite(err) and err <= tol, f"flash_decode head_dim 256: {err} > {tol}")
+    need(math.isfinite(err) and err <= tol, f"flash_decode head_dim {hd}: {err} > {tol}")
     ms = device_ms(torch, lambda i: flash_decode(q, kn, vn, k_all, v_all, pos, i % 2))
     plain_ms = device_ms(torch, lambda i: flash_decode_plain(q, kn, vn, k_all, v_all, pos, i % 2), reps=5, warmup=1)
     kk = torch.cat([kn[:, :, None], k_all[1].float()], 2).repeat_interleave(kv_mul, dim=1)
@@ -556,15 +648,15 @@ def head_dim_cases(torch, ctx) -> list[dict]:
     lib_ms = device_ms(torch, lambda i: F.scaled_dot_product_attention(q[:, :, None], kk, vv, attn_mask=m))
     nbytes = 2 * n_kv * sum(pos_list) * hd * 2 + (2 * q.numel() + kn.numel() + vn.numel()) * 4 + b * 4
     b_ms, b_by = bound(nbytes, 4.0 * h * sum(p + 1 for p in pos_list) * hd, "f32")
-    out.append(_row(ctx, "flash_decode", f"head_dim 256, bf16 cache B={b} T={t}", "qwen3_rs_tpu_torch/csrc/flash_decode.cu",
+    out.append(_row(ctx, "flash_decode", f"head_dim {hd}, bf16 cache B={b} T={t}", "qwen3_rs_tpu_torch/csrc/flash_decode.cu",
                     "qwen3_rs_tpu/ops/pallas/flash_attention.py:212 flash_gqa_decode_stacked",
                     {"B": b, "heads": h, "kv_heads": n_kv, "hd": hd, "T": t, "pos": pos_list}, err, tol, ms, plain_ms,
                     nbytes, b_ms, b_by, lib_ms, "F.scaled_dot_product_attention, K/V prepared beforehand"))
     del k_all, v_all, kk, vv
 
-    # #5 over a fresh 1000-row window; at 384 and 512 its wide kernel.
+    # #5 over a fresh 1000-row window; at 384 and 512 its wide kernel, past 512 its streaming one.
     s = 1000
-    for phd in (hd, 384, 512):
+    for phd in prefill_hds:
         qp = torch.randn(1, s, h, phd, generator=gen, device=DEV).to(torch.bfloat16)
         kp, vp = (torch.randn(1, s, n_kv, phd, generator=gen, device=DEV).to(torch.bfloat16) for _ in range(2))
         got = causal_prefill_attention(qp, kp, vp).float()
@@ -600,7 +692,7 @@ def head_dim_cases(torch, ctx) -> list[dict]:
     got = paged_decode(q, kn, vn, kpool, vpool, table, pos, 1)
     torch.cuda.synchronize()
     err, tol = float((got - ref).abs().max()), 1e-4 * float(ref.abs().max())
-    need(math.isfinite(err) and err <= tol, f"paged_decode head_dim 256: {err} > {tol}")
+    need(math.isfinite(err) and err <= tol, f"paged_decode head_dim {hd}: {err} > {tol}")
     ms = device_ms(torch, lambda i: paged_decode(q, kn, vn, kpool, vpool, table, pos, i % 2))
     plain_ms = device_ms(torch, lambda i: paged_decode_plain(q, kn, vn, kpool, vpool, table, pos, i % 2), reps=5, warmup=1)
     kk = torch.cat([kn[:, :, None], rows_of(1, kpool)], 2)
@@ -608,7 +700,7 @@ def head_dim_cases(torch, ctx) -> list[dict]:
     lib_ms = device_ms(torch, lambda i: F.scaled_dot_product_attention(q[:, :, None], kk, vv, attn_mask=m, enable_gqa=True))
     nbytes = read + (2 * q.numel() + kn.numel() + vn.numel()) * 4
     b_ms, b_by = bound(nbytes, 4.0 * h * sum(p + 1 for p in pos_list) * hd, "f32")
-    out.append(_row(ctx, "paged_decode", f"head_dim 256, bf16 pool B={b} pos={pos_list}",
+    out.append(_row(ctx, "paged_decode", f"head_dim {hd}, bf16 pool B={b} pos={pos_list}",
                     "qwen3_rs_tpu_torch/csrc/paged_attention.cu",
                     "qwen3_rs_tpu/ops/pallas/paged_attention.py:207 paged_gqa_decode_stacked",
                     {"B": b, "heads": h, "kv_heads": n_kv, "hd": hd, "page": page, "pos": pos_list}, err, tol, ms,
@@ -622,11 +714,11 @@ def head_dim_cases(torch, ctx) -> list[dict]:
     err, tol = 0.0, 0.0
     for a, e in zip(got, ref):
         need(a.shape == e.shape and torch.equal(torch.isneginf(a), torch.isneginf(e)),
-             "paged_window_partials head_dim 256: shapes or -inf entries differ")
+             f"paged_window_partials head_dim {hd}: shapes or -inf entries differ")
         fin = torch.isfinite(e)
         d_ = float((a[fin] - e[fin]).abs().max())
         t_ = 1e-4 * float(e[fin].abs().max())
-        need(d_ <= t_, f"paged_window_partials head_dim 256: off by {d_} > {t_}")
+        need(d_ <= t_, f"paged_window_partials head_dim {hd}: off by {d_} > {t_}")
         err, tol = max(err, d_), max(tol, t_)
     ms = device_ms(torch, lambda i: paged_window_partials(qw, kpool, vpool, table, pos, i % 2))
     plain_ms = device_ms(torch, lambda i: paged_window_partials_plain(qw, kpool, vpool, table, pos, i % 2),
@@ -637,7 +729,7 @@ def head_dim_cases(torch, ctx) -> list[dict]:
     r = sw * kv_mul
     nbytes = read + qw.numel() * 4 + b * n_kv * r * (hd + 2) * 4
     b_ms, b_by = bound(nbytes, 4.0 * h * sw * sum(pos_list) * hd, "f32")
-    out.append(_row(ctx, "paged_window_partials", f"head_dim 256, bf16 pool B={b} S={sw} (R={r})",
+    out.append(_row(ctx, "paged_window_partials", f"head_dim {hd}, bf16 pool B={b} S={sw} (R={r})",
                     "qwen3_rs_tpu_torch/csrc/paged_attention.cu",
                     "qwen3_rs_tpu/ops/pallas/paged_attention.py:437 paged_gqa_window_stacked (_partials_kernel :287)",
                     {"B": b, "S": sw, "R": r, "heads": h, "kv_heads": n_kv, "hd": hd, "page": page, "pos": pos_list},
@@ -699,7 +791,7 @@ def _q4_bytes(n, d, g) -> int:
 
 def qmatmul_q4_cases(torch, ctx) -> list[dict]:
     """The Q4 variant of #3 (``qmatmul_w8a16`` on a ``Q4Tensor``) at the
-    INT4 decode step's shapes, and a 256-row window."""
+    INT4 decode step's shapes."""
     from qwen3_rs_tpu_torch.ops.kernels.qmatmul import dequant_q4_stacked_plain, qmatmul_w8a16, qmatmul_w8a16_plain
     from qwen3_rs_tpu_torch.testing import qwen3_config
 
@@ -712,7 +804,6 @@ def qmatmul_q4_cases(torch, ctx) -> list[dict]:
         ("wo+residual b=1", ah, dim, None, True, 1, f32),
         ("w13+rms b=1", dim, 2 * hid, "rms", False, 1, bf16),
         ("w2+swiglu+residual b=1", hid, dim, "swiglu", True, 1, f32),
-        ("wqkv+rms b=256", dim, ah + 2 * kvd, "rms", False, 256, bf16),
     ]
     gen = torch.Generator(device=DEV)
     gen.manual_seed(4242)
@@ -1270,7 +1361,8 @@ def phase_kernels(torch, ctx) -> None:
     from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES
 
     before = dict(LAUNCHES)
-    ctx["kernel_rows"] = (qmatmul_cases(torch, ctx) + flash_cases(torch, ctx) + prefill_attention_cases(torch, ctx)
+    ctx["kernel_rows"] = (qmatmul_cases(torch, ctx) + qmatmul_route_cases(torch, ctx) + flash_cases(torch, ctx)
+                          + prefill_attention_cases(torch, ctx)
                           + rows_cases(torch, ctx) + dequant_cases(torch, ctx) + a8_cases(torch, ctx)
                           + paged_decode_cases(torch, ctx) + paged_window_cases(torch, ctx)
                           + megakernel_cases(torch, ctx) + qmatmul_q4_cases(torch, ctx) + rows_q4_cases(torch, ctx)
@@ -1727,6 +1819,7 @@ def phase_e2e(torch, ctx) -> None:
     torch.cuda.empty_cache()
 
     ctx["e2e"]["long_prompt"] = long_prompt_path(torch, ctx, cfg, engine, tok)
+    ctx["e2e"]["continued_window"] = continued_window_path(torch, ctx, cfg, engine)
     del engine
     torch.cuda.empty_cache()
     ctx["e2e"]["eval_ppl_fast"] = eval_path(torch, ctx, cfg, weights, "fast", windows=2, runs=2)
@@ -1737,6 +1830,13 @@ def phase_e2e(torch, ctx) -> None:
     torch.cuda.empty_cache()
     ctx["e2e"]["int4"] = int4_path(torch, ctx, cfg, tok)
     torch.cuda.empty_cache()
+    e = ctx["e2e"]
+    emit({"phase": "e2e", "summary": True, "decode_tok_per_s_b1": e["decode_tok_per_s"],
+          "ttft_ms_3000_tokens": e["long_prompt"]["ttft_ms"],
+          "fresh_2048_window_ms": e["long_prompt"]["fresh_2048_ttft_ms"],
+          "continued_32_row_window_ms": e["continued_window"]["window_ms_median"],
+          "eval_ppl_fast_s_per_window": e["eval_ppl_fast"]["seconds_per_window"],
+          "int4_ttft_ms_3000_tokens": e["int4"].get("long_prompt", {}).get("ttft_ms")})
 
 
 def int4_path(torch, ctx, cfg, tok) -> dict:
@@ -1765,7 +1865,7 @@ def int4_path(torch, ctx, cfg, tok) -> dict:
     launches = dict(LAUNCHES)  # and ends here
     ctx["path_launches"]["int4_decode"] = launches
     need(len(ids) > 1 and recs[0]["rows"] == len(tok.encode(prompt)), f"INT4 generate: {len(ids)} tokens")
-    _expect(recs[0], {"qmatmul_w8a16_q4": 4 * n_l, "qmatmul_w8a16": 1}, "INT4 prompt window")
+    _expect(recs[0], {"qmatmul_w8a16_tc_q4": 4 * n_l, "qmatmul_w8a16": 1}, "INT4 prompt window")
     for rec in recs[1:]:
         _expect(rec, step, "INT4 decode step")
     need(launches["decode_megakernel"] == 0, "INT4 decode took the megakernel")
@@ -1824,7 +1924,7 @@ def int4_megakernel_path(torch, ctx, cfg, engine, tok, prompt, per_layer_step_s)
         launches = dict(LAUNCHES)  # and ends here
         ctx["path_launches"]["int4_megakernel_decode"] = launches
         need(len(ids) > 2, f"INT4 megakernel generate: {len(ids)} tokens")
-        _expect(recs[0], {"qmatmul_w8a16_q4": 4 * n_l, "qmatmul_w8a16": 1}, "INT4 prompt window")
+        _expect(recs[0], {"qmatmul_w8a16_tc_q4": 4 * n_l, "qmatmul_w8a16": 1}, "INT4 prompt window")
         for rec in recs[1:]:
             _expect(rec, {"decode_megakernel_q4": 1}, "INT4 decode step (Q4 megakernel)")
         steady = [r["seconds"] for r in recs[2:]]
@@ -2026,8 +2126,10 @@ def device_sampling_path(torch, ctx, cfg, engine, tok, prompt, host_ids) -> dict
                       max_tokens=DECODE_TOKENS)
     made = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
     need(greedy == host_ids, "device-sampling greedy generate differs from the host-greedy stream")
-    need(made.get("decode_megakernel", 0) >= len(greedy) - 1 and set(made) == {"qmatmul_w8a16", "decode_megakernel"}
-         and made["qmatmul_w8a16"] == 4 * n_l + 1, f"device-sampling generate launched {made}")
+    need(made.get("decode_megakernel", 0) >= len(greedy) - 1
+         and set(made) == {"qmatmul_w8a16_tc", "qmatmul_w8a16", "decode_megakernel"}
+         and made["qmatmul_w8a16_tc"] == 4 * n_l and made["qmatmul_w8a16"] == 1,
+         f"device-sampling generate launched {made}")
     sampled = [generate(engine, tok, TokenSampler(0.8, 0.9, 7, device=True), prompt, out=io.StringIO(),
                         max_tokens=DECODE_TOKENS) for _ in range(2)]
     need(sampled[0] == sampled[1] and len(sampled[0]) > 1, "device-sampling -t 0.8 is not repeatable per seed")
@@ -2064,7 +2166,8 @@ def device_sampling_path(torch, ctx, cfg, engine, tok, prompt, host_ids) -> dict
 
 def dense_b9_path(torch, ctx, cfg, engine) -> dict:
     """A dense decode of 9 rows, which the megakernel gate refuses (B > 8):
-    every step keeps the per-layer kernels, 4·L+1 W8A16 and L flash decode."""
+    every step keeps the per-layer kernels, 4·L+1 W8A16 (9 rows: #3's
+    tensor-core route) and L flash decode."""
     import numpy as np
 
     from qwen3_rs_tpu_torch.models.qwen3 import init_kv_cache, qwen3_forward
@@ -2084,7 +2187,7 @@ def dense_b9_path(torch, ctx, cfg, engine) -> dict:
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         made = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
-        need(made == {"qmatmul_w8a16": 4 * n_l + 1, "flash_decode": n_l}, f"B=9 decode step launched {made}")
+        need(made == {"qmatmul_w8a16_tc": 4 * n_l + 1, "flash_decode": n_l}, f"B=9 decode step launched {made}")
         need(logits.shape == (b, cfg.vocab_size) and bool(torch.isfinite(logits).all()), "B=9 logits malformed")
     launches = dict(LAUNCHES)  # and ends here
     ctx["path_launches"]["dense_b9"] = launches
@@ -2166,6 +2269,43 @@ def long_prompt_path(torch, ctx, cfg, engine, tok, q4: bool = False) -> dict:
         out[f"profile_{name}"] = profile_calls(
             torch, lambda i: engine.prefill(cache, ids_all[:, off : off + rows], np.full(1, off)), 1)
         emit({"phase": "e2e", "profile": name, "rows": rows, **out[f"profile_{name}"]})
+    return out
+
+
+def continued_window_path(torch, ctx, cfg, engine) -> dict:
+    """A continued 32-row window on the dense cache after a 200-row prompt
+    (a chunk of a longer prompt; the paged pool's continued windows run the
+    same projections): 4·L #3 launches on its tensor-core route and the
+    classifier's one row on its CUDA-core route, the attention in plain
+    PyTorch.  Host clock around each synchronised window, three times, then
+    one profiled."""
+    import numpy as np
+
+    from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    n_l = cfg.n_layers
+    rng = np.random.default_rng(SEED + 32)
+    _, cache = engine.prefill(engine.new_cache(1), rng.integers(0, cfg.vocab_size, (1, 200)), np.zeros(1, np.int64))
+    toks, pos = rng.integers(0, cfg.vocab_size, (1, 32)), np.full(1, 200)
+    engine.prefill(cache, toks, pos)  # warm: the window rewrites the same cache rows each time
+    seconds = []
+    reset_launches()  # this path's run starts here
+    for _ in range(3):
+        before = dict(LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = engine.prefill(cache, toks, pos)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        made = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
+        need(made == {"qmatmul_w8a16_tc": 4 * n_l, "qmatmul_w8a16": 1}, f"continued 32-row window launched {made}")
+        need(bool(torch.isfinite(logits).all()), "continued window logits are not finite")
+    launches = dict(LAUNCHES)  # and ends here
+    ctx["path_launches"]["continued_window"] = launches
+    out = {"rows": 32, "pos": 200, "window_ms": [x * 1e3 for x in seconds],
+           "window_ms_median": statistics.median(seconds) * 1e3, "launches": launches}
+    out["profile"] = profile_calls(torch, lambda i: engine.prefill(cache, toks, pos), 1)
+    emit({"phase": "e2e", "run": "continued 32-row window", **out})
     return out
 
 
@@ -3233,7 +3373,7 @@ def phase_parity(torch, ctx) -> None:
     parity_eval(torch, ctx)
     parity_paged(torch, ctx)
     parity_gated_shapes(torch, ctx)
-    for hd in (256, 512):
+    for hd in (256, 512, 640):
         parity_head_dim(torch, ctx, hd)
 
 
@@ -3294,8 +3434,9 @@ def parity_gated_shapes(torch, ctx) -> None:
 
 
 def parity_head_dim(torch, ctx, hd: int) -> None:
-    """Card against CPU on a 2-layer model of head_dim ``hd`` (256, or 512
-    for #5's wide kernel; dim 1024, 8 query and 4 kv heads), within 2e-2 of
+    """Card against CPU on a 2-layer model of head_dim ``hd`` (256, 512 for
+    #5's wide kernel, 640 for the column-blocked and streaming kernels past
+    512; dim 1024, 8 query and 4 kv heads), within 2e-2 of
     the largest logit: on the dense cache a 300-row fresh window (#5) and two
     decode steps (#4); on a page pool a fresh group window, a continued 8-row
     window (#10) and two decode steps (#9).  Each of the four kernels must

@@ -19,9 +19,14 @@
 //  * blocks whose chunk starts at or past pos[b] return at once, and no row >= pos[b] is read;
 //  * a warp reads one row per load (lane = 4 consecutive elements of each 128-wide piece:
 //    16 B in f32), and keeps 8 rows of K and V in flight before it computes on them;
-//  * head_dim is a template parameter: 128, 256, 384 or 512 (the reference's gate admits any
-//    multiple of 128).  Past 128 the rows in flight and the query heads per block shrink
-//    (4 at 256, 2 above), so the registers a thread holds stay those of head_dim 128;
+//  * head_dim is a template parameter: 128, 256, 384 or 512.  Past 128 the rows in flight and
+//    the query heads per block shrink (4 at 256, 2 above), so the registers a thread holds stay
+//    those of head_dim 128;
+//  * any larger multiple of 128 (the reference's gate admits them all) takes the column-blocked
+//    kernels: the output is split into 128-column blocks over the grid, each block computes the
+//    full scores by reading q and K in 128-column pieces and keeps only its own 128 columns of V
+//    and of the partials, so registers and shared memory stay those of head_dim 128 whatever the
+//    head.  K is read once per column block (right first; speed is later work);
 //  * each warp keeps an online softmax (m, l, acc) per query head; the block merges its
 //    warps in shared memory and writes one partial (m, l, acc) per chunk;
 //  * a second pass per (batch row, kv head) seeds the softmax with the self key (m = q.k_self,
@@ -257,6 +262,184 @@ flash_decode_merge_kernel(const float* __restrict__ q, const float* __restrict__
   }
 }
 
+// Column-blocked pass 1 for head_dim hd > 512 (a multiple of 128): blockIdx.z is group * n_cb +
+// column block.  The scores sum each lane's share of the head piece by piece, as the template
+// kernels do; every column block computes the same (m, l), and block 0 writes them.
+template <typename T, int M>
+__global__ void __launch_bounds__(kWarps * 32)
+flash_decode_partial_wide_kernel(const float* __restrict__ q, const T* __restrict__ k,
+                                 const T* __restrict__ v, const float* __restrict__ ks,
+                                 const float* __restrict__ vs, const int* __restrict__ pos,
+                                 int n_kv, int kv_mul, int t_max, int hd, float scale,
+                                 float* __restrict__ part_ml, float* __restrict__ part_acc) {
+  constexpr int kRows = max_group(512);
+  __shared__ float sm_m[kWarps][M];
+  __shared__ float sm_l[kWarps][M];
+  __shared__ __align__(16) float sm_acc[kWarps][M][128];
+
+  const int n_cb = hd / 128;
+  const int bh = blockIdx.y;
+  const int b = bh / n_kv;
+  const int chunk = blockIdx.x, n_chunks = gridDim.x;
+  const int grp = blockIdx.z / n_cb, cb = blockIdx.z % n_cb;
+  const long head0 = (long)bh * kv_mul + grp * M;
+  const int p = min(max(pos[b], 0), t_max);
+  const int t0 = chunk * kChunk;
+  if (t0 >= p) return;
+  const int t1 = min(p, t0 + kChunk);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  float mrun[M], lrun[M], acc[M][4];
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    mrun[m] = -INFINITY;
+    lrun[m] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[m][i] = 0.f;
+  }
+
+  const long row0 = (long)bh * t_max;
+  for (int tb = t0 + warp * kRows; tb < t1; tb += kWarps * kRows) {
+    float d[M][kRows];
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) d[m][r] = 0.f;
+    for (int j = 0; j < n_cb; ++j) {
+      float qv[M][4], kf[kRows][4];
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        load4(q + (head0 + m) * hd + j * 128 + lane * 4, qv[m]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qv[m][i] *= scale;
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        if (tb + r < t1) load4(k + (row0 + tb + r) * hd + j * 128 + lane * 4, kf[r]);
+        else kf[r][0] = kf[r][1] = kf[r][2] = kf[r][3] = 0.f;
+      }
+#pragma unroll
+      for (int m = 0; m < M; ++m)
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) d[m][r] = fmaf(qv[m][i], kf[r][i], d[m][r]);
+    }
+    float vf[kRows][4], ksc[kRows], vsc[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const bool ok = tb + r < t1;
+      if (ok) load4(v + (row0 + tb + r) * hd + cb * 128 + lane * 4, vf[r]);
+      else vf[r][0] = vf[r][1] = vf[r][2] = vf[r][3] = 0.f;
+      ksc[r] = (ks != nullptr && ok) ? ks[row0 + tb + r] : 1.f;
+      vsc[r] = (vs != nullptr && ok) ? vs[row0 + tb + r] : 1.f;
+    }
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      float s[kRows];
+      float mx = -INFINITY;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float sr = warp_sum(d[m][r]) * ksc[r];
+        s[r] = tb + r < t1 ? sr : -INFINITY;
+        mx = fmaxf(mx, s[r]);
+      }
+      const float m_new = fmaxf(mrun[m], mx);
+      const float corr = expf(mrun[m] - m_new);
+      lrun[m] *= corr;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][i] *= corr;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float pr = expf(s[r] - m_new);
+        lrun[m] += pr;
+        const float pv = pr * vsc[r];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[m][i] = fmaf(pv, vf[r][i], acc[m][i]);
+      }
+      mrun[m] = m_new;
+    }
+  }
+
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    if (lane == 0) {
+      sm_m[warp][m] = mrun[m];
+      sm_l[warp][m] = lrun[m];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) sm_acc[warp][m][lane * 4 + i] = acc[m][i];
+  }
+  __syncthreads();
+  const long slot = ((long)bh * n_chunks + chunk) * kv_mul + grp * M;
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    float mm = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, sm_m[w][m]);
+    float c[kWarps], l = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      c[w] = expf(sm_m[w][m] - mm);
+      l = fmaf(sm_l[w][m], c[w], l);
+    }
+    const int d = threadIdx.x;  // kWarps * 32 == 128 columns
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) a = fmaf(sm_acc[w][m][d], c[w], a);
+    part_acc[(slot + m) * hd + cb * 128 + d] = a;
+    if (threadIdx.x == 0 && cb == 0) {
+      part_ml[(slot + m) * 2] = mm;
+      part_ml[(slot + m) * 2 + 1] = l;
+    }
+  }
+}
+
+// Column-blocked pass 2 for head_dim hd > 512: one block per (batch row and kv head, group of M
+// query heads, 128-column block), one thread per column; the self score sums each thread's
+// columns piece by piece, then the block.
+template <int M>
+__global__ void __launch_bounds__(128)
+flash_decode_merge_wide_kernel(const float* __restrict__ q, const float* __restrict__ k_new,
+                               const float* __restrict__ v_new, const int* __restrict__ pos,
+                               int n_kv, int kv_mul, int n_chunks, int hd, float scale,
+                               const float* __restrict__ part_ml,
+                               const float* __restrict__ part_acc, float* __restrict__ out) {
+  __shared__ float red[4][M];
+  const int bh = blockIdx.x;
+  const int b = bh / n_kv;
+  const int m0 = blockIdx.y * M;
+  const long head0 = (long)bh * kv_mul + m0;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int col = blockIdx.z * 128 + t;
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    float s = 0.f;
+    for (int j = 0; j < hd / 128; ++j)
+      s = fmaf(q[(head0 + m) * hd + j * 128 + t] * scale, k_new[(long)bh * hd + j * 128 + t], s);
+    s = warp_sum(s);
+    if (lane == 0) red[warp][m] = s;
+  }
+  __syncthreads();
+  const int active = (min(max(pos[b], 0), n_chunks * kChunk) + kChunk - 1) / kChunk;
+  const float vd = v_new[(long)bh * hd + col];
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    float mcur = red[0][m] + red[1][m] + red[2][m] + red[3][m];
+    float l = 1.f, a = vd;
+    for (int j = 0; j < active; ++j) {
+      const long slot = ((long)bh * n_chunks + j) * kv_mul + m0 + m;
+      const float mj = part_ml[slot * 2], lj = part_ml[slot * 2 + 1];
+      const float m_new = fmaxf(mcur, mj);
+      const float ca = expf(mcur - m_new), cj = expf(mj - m_new);
+      l = l * ca + lj * cj;
+      a = a * ca + part_acc[slot * hd + col] * cj;
+      mcur = m_new;
+    }
+    out[(head0 + m) * hd + col] = a / l;
+  }
+}
+
 // The arguments of one call, as the entry point receives them.
 struct Args {
   const void *q, *k_new, *v_new, *k, *v, *ks, *vs;
@@ -297,6 +480,21 @@ int dispatch_m(const Args& a) {
   return 0;
 }
 
+template <typename T, int M>
+void launch_wide(const Args& a, int hd) {
+  const int n_chunks = (a.t_max + kChunk - 1) / kChunk;
+  const int groups = a.kv_mul / M, n_cb = hd / 128;
+  flash_decode_partial_wide_kernel<T, M><<<dim3(n_chunks, a.B * a.n_kv, groups * n_cb), kWarps * 32, 0, a.s>>>(
+      reinterpret_cast<const float*>(a.q), reinterpret_cast<const T*>(a.k),
+      reinterpret_cast<const T*>(a.v), reinterpret_cast<const float*>(a.ks),
+      reinterpret_cast<const float*>(a.vs), a.pos, a.n_kv, a.kv_mul, a.t_max, hd, a.scale,
+      a.part_ml, a.part_acc);
+  flash_decode_merge_wide_kernel<M><<<dim3(a.B * a.n_kv, groups, n_cb), 128, 0, a.s>>>(
+      reinterpret_cast<const float*>(a.q), reinterpret_cast<const float*>(a.k_new),
+      reinterpret_cast<const float*>(a.v_new), a.pos, a.n_kv, a.kv_mul, n_chunks, hd, a.scale,
+      a.part_ml, a.part_acc, a.out);
+}
+
 template <typename T>
 int dispatch_hd(int hd, const Args& a) {
   switch (hd) {
@@ -304,7 +502,11 @@ int dispatch_hd(int hd, const Args& a) {
     case 256: return dispatch_m<T, 256>(a);
     case 384: return dispatch_m<T, 384>(a);
     case 512: return dispatch_m<T, 512>(a);
-    default: return (int)cudaErrorInvalidValue;
+    default:
+      if (hd % 128 || hd < 128 || a.kv_mul < 1) return (int)cudaErrorInvalidValue;
+      if (a.kv_mul % 2) launch_wide<T, 1>(a, hd);  // query heads per block: as at 512
+      else launch_wide<T, 2>(a, hd);
+      return 0;
   }
 }
 
@@ -313,7 +515,7 @@ int dispatch_hd(int hd, const Args& a) {
 // Plain C entry point.  q [B, n_kv * kv_mul, hd] f32, k_new/v_new [B, n_kv, hd] f32, k/v the
 // layer's cache base [B, n_kv, t_max, hd] (cache_type 0 = f32, 1 = bf16, 2 = int8 with
 // ks/vs [B, n_kv, t_max] f32), pos [B] int32 on the device, workspaces of
-// B * n_kv * ceil(t_max / 128) * kv_mul * (2 | hd) floats; hd is 128, 256, 384 or 512.
+// B * n_kv * ceil(t_max / 128) * kv_mul * (2 | hd) floats; hd is a multiple of 128.
 // Returns cudaGetLastError() (or cudaErrorInvalidValue for an argument it does not take).
 extern "C" int flash_decode(const void* q, const void* k_new, const void* v_new, const void* k,
                             const void* v, const void* ks, const void* vs, const void* pos,

@@ -36,9 +36,14 @@
 //  * a warp reads one row per load (lane = 4 consecutive elements of each 128-wide piece) and
 //    keeps 8 rows of K and V in flight, with an online softmax (m, l, acc) per query row; the
 //    block merges its warps in shared memory and writes one partial per chunk;
-//  * head_dim is a template parameter: 128, 256, 384 or 512 (the reference's gate admits any
-//    multiple of 128).  Past 128 the rows in flight and the query rows per block shrink (4 at
-//    256, 2 above), so the registers a thread holds stay those of head_dim 128;
+//  * head_dim is a template parameter: 128, 256, 384 or 512.  Past 128 the rows in flight and
+//    the query rows per block shrink (4 at 256, 2 above), so the registers a thread holds stay
+//    those of head_dim 128;
+//  * any larger multiple of 128 (the reference's gates admit them all) takes the column-blocked
+//    kernels: the output is split into 128-column blocks over the grid, each block computes the
+//    full scores by reading q and K in 128-column pieces and keeps only its own 128 columns of V
+//    and of the partials, so registers and shared memory stay those of head_dim 128 whatever the
+//    head.  K is read once per column block (right first; speed is later work);
 //  * pass 2 merges the chunks below pos[b] in order, so the result does not depend on
 //    scheduling: decode seeds the softmax with the self key (m = q.k_self, l = 1, acc = v_self,
 //    as the Pallas kernel) and normalises; the window keeps the reference's isfinite guards and
@@ -322,6 +327,222 @@ window_merge_kernel(const int* __restrict__ pos, int n_kv, int R, int n_chunks,
   }
 }
 
+// Column-blocked pass 1 for head_dim hd > 512 (a multiple of 128): blockIdx.z is tile * n_cb +
+// column block.  The scores sum each lane's share of the head piece by piece, as the template
+// kernels do; every column block computes the same (m, l), and block 0 writes them.
+template <typename T, int Q>
+__global__ void __launch_bounds__(kWarps * 32)
+paged_partial_wide_kernel(const float* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const float* __restrict__ ks,
+                          const float* __restrict__ vs, const int* __restrict__ table,
+                          const int* __restrict__ pos, int n_kv, int R, int page, int max_pages,
+                          int hd, float scale, float* __restrict__ part_ml,
+                          float* __restrict__ part_acc) {
+  constexpr int kRows = max_group(512);
+  __shared__ float sm_m[kWarps][Q];
+  __shared__ float sm_l[kWarps][Q];
+  __shared__ __align__(16) float sm_acc[kWarps][Q][128];
+
+  const int n_cb = hd / 128;
+  const int bh = blockIdx.y;
+  const int b = bh / n_kv, h = bh % n_kv;
+  const int chunk = blockIdx.x, n_chunks = gridDim.x;
+  const int r0 = (blockIdx.z / n_cb) * Q, cb = blockIdx.z % n_cb;
+  const int p = valid_rows(pos, b, max_pages * page);
+  const int t0 = chunk * kChunk;
+  if (t0 >= p) return;
+  const int t1 = min(p, t0 + kChunk);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int* tab = table + (long)b * max_pages;
+
+  float mrun[Q], lrun[Q], acc[Q][4];
+#pragma unroll
+  for (int m = 0; m < Q; ++m) {
+    mrun[m] = -INFINITY;
+    lrun[m] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[m][i] = 0.f;
+  }
+
+  for (int tb = t0 + warp * kRows; tb < t1; tb += kWarps * kRows) {
+    long row[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int t = tb + r;
+      row[r] = t < t1 ? ((long)tab[t / page] * n_kv + h) * page + t % page : 0;
+    }
+    float d[Q][kRows];
+#pragma unroll
+    for (int m = 0; m < Q; ++m)
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) d[m][r] = 0.f;
+    for (int j = 0; j < n_cb; ++j) {
+      float qv[Q][4], kf[kRows][4];
+#pragma unroll
+      for (int m = 0; m < Q; ++m) {
+        if (r0 + m < R) load4(q + ((long)bh * R + r0 + m) * hd + j * 128 + lane * 4, qv[m]);
+        else qv[m][0] = qv[m][1] = qv[m][2] = qv[m][3] = 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qv[m][i] *= scale;
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        if (tb + r < t1) load4(k + row[r] * hd + j * 128 + lane * 4, kf[r]);
+        else kf[r][0] = kf[r][1] = kf[r][2] = kf[r][3] = 0.f;
+      }
+#pragma unroll
+      for (int m = 0; m < Q; ++m)
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) d[m][r] = fmaf(qv[m][i], kf[r][i], d[m][r]);
+    }
+    float vf[kRows][4], ksc[kRows], vsc[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const bool ok = tb + r < t1;
+      if (ok) load4(v + row[r] * hd + cb * 128 + lane * 4, vf[r]);
+      else vf[r][0] = vf[r][1] = vf[r][2] = vf[r][3] = 0.f;
+      ksc[r] = (ks != nullptr && ok) ? ks[row[r]] : 1.f;
+      vsc[r] = (vs != nullptr && ok) ? vs[row[r]] : 1.f;
+    }
+#pragma unroll
+    for (int m = 0; m < Q; ++m) {
+      float s[kRows];
+      float mx = -INFINITY;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float sr = warp_sum(d[m][r]) * ksc[r];
+        s[r] = tb + r < t1 ? sr : -INFINITY;
+        mx = fmaxf(mx, s[r]);
+      }
+      const float m_new = fmaxf(mrun[m], mx);
+      const float corr = expf(mrun[m] - m_new);
+      lrun[m] *= corr;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][i] *= corr;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float pr = expf(s[r] - m_new);
+        lrun[m] += pr;
+        const float pv = pr * vsc[r];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[m][i] = fmaf(pv, vf[r][i], acc[m][i]);
+      }
+      mrun[m] = m_new;
+    }
+  }
+
+#pragma unroll
+  for (int m = 0; m < Q; ++m) {
+    if (lane == 0) {
+      sm_m[warp][m] = mrun[m];
+      sm_l[warp][m] = lrun[m];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) sm_acc[warp][m][lane * 4 + i] = acc[m][i];
+  }
+  __syncthreads();
+  const long slot = ((long)bh * n_chunks + chunk) * R;
+#pragma unroll
+  for (int m = 0; m < Q; ++m) {
+    if (r0 + m >= R) break;
+    float mm = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, sm_m[w][m]);
+    float c[kWarps], l = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      c[w] = expf(sm_m[w][m] - mm);
+      l = fmaf(sm_l[w][m], c[w], l);
+    }
+    const int d = threadIdx.x;  // kWarps * 32 == 128 columns
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) a = fmaf(sm_acc[w][m][d], c[w], a);
+    part_acc[(slot + r0 + m) * hd + cb * 128 + d] = a;
+    if (threadIdx.x == 0 && cb == 0) {
+      part_ml[(slot + r0 + m) * 2] = mm;
+      part_ml[(slot + r0 + m) * 2 + 1] = l;
+    }
+  }
+}
+
+// Column-blocked decode pass 2 for head_dim hd > 512: one block per (request and kv head, tile of
+// M query heads, 128-column block), one thread per column.
+template <int M>
+__global__ void __launch_bounds__(128)
+decode_merge_wide_kernel(const float* __restrict__ q, const float* __restrict__ k_new,
+                         const float* __restrict__ v_new, const int* __restrict__ pos, int n_kv,
+                         int R, int n_chunks, int hd, float scale,
+                         const float* __restrict__ part_ml, const float* __restrict__ part_acc,
+                         float* __restrict__ out) {
+  __shared__ float red[4][M];
+  const int bh = blockIdx.x;
+  const int b = bh / n_kv;
+  const int r0 = blockIdx.y * M;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int col = blockIdx.z * 128 + t;
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    float s = 0.f;
+    for (int j = 0; j < hd / 128; ++j)
+      s = fmaf(q[((long)bh * R + r0 + m) * hd + j * 128 + t] * scale,
+               k_new[(long)bh * hd + j * 128 + t], s);
+    s = warp_sum(s);
+    if (lane == 0) red[warp][m] = s;
+  }
+  __syncthreads();
+  const int active = (valid_rows(pos, b, n_chunks * kChunk) + kChunk - 1) / kChunk;
+  const float vd = v_new[(long)bh * hd + col];
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    float mcur = red[0][m] + red[1][m] + red[2][m] + red[3][m];
+    float l = 1.f, a = vd;
+    for (int j = 0; j < active; ++j) {
+      const long slot = ((long)bh * n_chunks + j) * R + r0 + m;
+      const float mj = part_ml[slot * 2], lj = part_ml[slot * 2 + 1];
+      const float m_new = fmaxf(mcur, mj);
+      const float ca = expf(mcur - m_new), cj = expf(mj - m_new);
+      l = l * ca + lj * cj;
+      a = a * ca + part_acc[slot * hd + col] * cj;
+      mcur = m_new;
+    }
+    out[((long)bh * R + r0 + m) * hd + col] = a / l;
+  }
+}
+
+// Column-blocked window pass 2 for head_dim hd > 512: one block per (request and kv head, query
+// row, 128-column block).
+__global__ void __launch_bounds__(128)
+window_merge_wide_kernel(const int* __restrict__ pos, int n_kv, int R, int n_chunks, int hd,
+                         const float* __restrict__ part_ml, const float* __restrict__ part_acc,
+                         float* __restrict__ out_m, float* __restrict__ out_l,
+                         float* __restrict__ out_acc) {
+  const int bh = blockIdx.x, r = blockIdx.y;
+  const int b = bh / n_kv;
+  const int col = blockIdx.z * 128 + threadIdx.x;
+  const int active = (valid_rows(pos, b, n_chunks * kChunk) + kChunk - 1) / kChunk;
+  float m = -INFINITY, l = 0.f, a = 0.f;
+  for (int j = 0; j < active; ++j) {
+    const long slot = ((long)bh * n_chunks + j) * R + r;
+    const float mj = part_ml[slot * 2], lj = part_ml[slot * 2 + 1];
+    const float m_new = fmaxf(m, mj);
+    const bool finite = isfinite(m_new);
+    const float ca = finite ? expf(m - m_new) : 0.f;
+    const float cj = finite ? expf(mj - m_new) : 0.f;
+    l = l * ca + lj * cj;
+    a = a * ca + part_acc[slot * hd + col] * cj;
+    m = m_new;
+  }
+  const long o = (long)bh * R + r;
+  out_acc[o * hd + col] = a;
+  if (col == 0) {
+    out_m[o] = m;
+    out_l[o] = l;
+  }
+}
+
 // The pointers of one call, as the entry points receive them.
 struct Pool {
   const void *k, *v, *ks, *vs;
@@ -372,6 +593,23 @@ int decode_for(const Pool& p, const Step& a) {
   return 0;
 }
 
+template <typename T, int Q>
+void launch_partials_wide(const Pool& p, const float* q, int R, int hd, float scale, cudaStream_t s) {
+  const dim3 grid(p.n_chunks(), p.B * p.n_kv, (R + Q - 1) / Q * (hd / 128));
+  paged_partial_wide_kernel<T, Q><<<grid, kWarps * 32, 0, s>>>(
+      q, reinterpret_cast<const T*>(p.k), reinterpret_cast<const T*>(p.v),
+      reinterpret_cast<const float*>(p.ks), reinterpret_cast<const float*>(p.vs), p.table, p.pos,
+      p.n_kv, R, p.page, p.max_pages, hd, scale, p.part_ml, p.part_acc);
+}
+
+template <typename T, int M>
+void launch_decode_wide(const Pool& p, const Step& a, int hd) {
+  launch_partials_wide<T, M>(p, a.q, a.kv_mul, hd, a.scale, a.s);
+  decode_merge_wide_kernel<M><<<dim3(p.B * p.n_kv, a.kv_mul / M, hd / 128), 128, 0, a.s>>>(
+      a.q, a.k_new, a.v_new, p.pos, p.n_kv, a.kv_mul, p.n_chunks(), hd, a.scale, p.part_ml,
+      p.part_acc, a.out);
+}
+
 template <typename T>
 int decode_hd(int hd, const Pool& p, const Step& a) {
   switch (hd) {
@@ -379,7 +617,11 @@ int decode_hd(int hd, const Pool& p, const Step& a) {
     case 256: return decode_for<T, 256>(p, a);
     case 384: return decode_for<T, 384>(p, a);
     case 512: return decode_for<T, 512>(p, a);
-    default: return (int)cudaErrorInvalidValue;
+    default:
+      if (hd % 128 || hd < 128 || a.kv_mul < 1) return (int)cudaErrorInvalidValue;
+      if (a.kv_mul % 2) launch_decode_wide<T, 1>(p, a, hd);  // query heads per block: as at 512
+      else launch_decode_wide<T, 2>(p, a, hd);
+      return 0;
   }
 }
 
@@ -400,7 +642,11 @@ int window_hd(int hd, const Pool& p, const float* q, int R, float scale, float* 
     case 256: window_for<T, 256>(p, q, R, scale, out_m, out_l, out_acc, s); break;
     case 384: window_for<T, 384>(p, q, R, scale, out_m, out_l, out_acc, s); break;
     case 512: window_for<T, 512>(p, q, R, scale, out_m, out_l, out_acc, s); break;
-    default: return (int)cudaErrorInvalidValue;
+    default:
+      if (hd % 128 || hd < 128) return (int)cudaErrorInvalidValue;
+      launch_partials_wide<T, max_group(512)>(p, q, R, hd, scale, s);
+      window_merge_wide_kernel<<<dim3(p.B * p.n_kv, R, hd / 128), 128, 0, s>>>(
+          p.pos, p.n_kv, R, p.n_chunks(), hd, p.part_ml, p.part_acc, out_m, out_l, out_acc);
   }
   return 0;
 }
@@ -418,7 +664,7 @@ Pool pool_of(const void* k, const void* v, const void* ks, const void* vs, const
 // Plain C entry points.  k/v: the layer's pool [P, n_kv, page, hd] (cache_type 0 = f32,
 // 1 = bf16, 2 = int8 with ks/vs [P, n_kv, page] f32); table [B, max_pages] and pos [B] int32 on
 // the device; workspaces part_ml / part_acc of B * n_kv * ceil(max_pages * page / 128) * R floats
-// times 2 and times hd; hd is 128, 256, 384 or 512.  Each returns cudaGetLastError() (or
+// times 2 and times hd; hd is a multiple of 128.  Each returns cudaGetLastError() (or
 // cudaErrorInvalidValue for an argument it does not take).
 
 // q [B, n_kv * kv_mul, hd] f32 (unscaled), k_new/v_new [B, n_kv, hd] f32 → out like q; R = kv_mul.

@@ -1,4 +1,4 @@
-// Causal prefill attention over a fresh window for Hopper (sm_90a), head_dim 128, 256, 384 or 512.
+// Causal prefill attention over a fresh window for Hopper (sm_90a), any head_dim a multiple of 128.
 //
 // Replaces the reference package's Pallas kernel
 //   qwen3_rs_tpu/ops/pallas/prefill_attention.py::causal_prefill_attention (the splash MQA
@@ -39,6 +39,11 @@
 //    column block (3 or 4 times; the P.V work is not repeated).  Q (128 x hd), a 64-row K tile
 //    (64 x hd) and the V tile's 128 columns take 167 KB at 384 and 212 KB at 512, within the
 //    227 KB a block may have after cudaFuncSetAttribute.
+// Past 512 the block's Q no longer fits beside a K tile, and the streaming kernel takes the head:
+// the wide kernel's block, column blocks and online softmax, but each Q.K^T step of a key tile
+// loads a 128-column piece of Q (scaled and rounded as above) and of the K tile into shared
+// memory, 68 KB whatever the head.  Q is read once per key tile and column block (from L2): right
+// first, fast later.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -467,6 +472,218 @@ prefill_attention_wide_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+constexpr int kPiece = 128;  // head columns of Q and K per shared-memory piece
+constexpr int kStreamSmem = 2 * (kRows * (kPiece + 8) + kWideKv * (kPiece + 8) + kWideKv * (kWideCols + 8));
+
+__global__ void __launch_bounds__(kThreads, 1)
+prefill_attention_stream_kernel(const __nv_bfloat16* __restrict__ q,
+                                const __nv_bfloat16* __restrict__ k,
+                                const __nv_bfloat16* __restrict__ v,
+                                __nv_bfloat16* __restrict__ out, int S, int H, int KV, int kv_mul,
+                                int M, int hd, float q_scale) {
+  constexpr int BKV = kWideKv;
+  constexpr int DC = kWideCols;
+  constexpr int P_STRIDE = kPiece + 8;   // bf16 per shared Q or K row (one piece)
+  constexpr int V_STRIDE = DC + 8;
+  constexpr int kChunks = kPiece / 8;    // 16-byte chunks of a piece row
+  constexpr int kQLoads = kRows * kChunks / kThreads;
+  constexpr int kKLoads = BKV * kChunks / kThreads;
+  constexpr int kVLoads = BKV * (DC / 8) / kThreads;
+  static_assert(kQLoads * kThreads == kRows * kChunks && kKLoads * kThreads == BKV * kChunks &&
+                    kVLoads * kThreads == BKV * (DC / 8),
+                "tiles are whole loads of every thread");
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* Ks = Qs + kRows * P_STRIDE;
+  __nv_bfloat16* Vs = Ks + BKV * P_STRIDE;
+
+  const int nc = hd / DC;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int bq = kRows / M;
+  const int n_qt = (S + bq - 1) / bq;
+  const int q0 = (n_qt - 1 - (int)blockIdx.x) * bq;  // longest tiles first
+  const int groups = kv_mul / M;
+  const int cb = blockIdx.y % nc;
+  const int hg = blockIdx.y / nc;
+  const int kvh = hg / groups, b = blockIdx.z;
+  const int warps_per_head = kWarps / M;
+  const int h0 = kvh * kv_mul + (hg % groups) * M;
+  const int h = h0 + warp / warps_per_head;
+  const int r0 = q0 + (warp % warps_per_head) * 16;
+  const int row_a = r0 + (lane >> 2), row_b = row_a + 8;
+  const int c0 = cb * DC;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+
+  float o[DC / 8][4];
+#pragma unroll
+  for (int i = 0; i < DC / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+  const __nv_bfloat16* qw = Qs + (warp * 16 + (lane & 15)) * P_STRIDE + (lane >> 4) * 8;
+
+  const int kv_end = min(S, q0 + bq);
+  const int n_kt = (kv_end + BKV - 1) / BKV;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int kv0 = kt * BKV;
+    float s[BKV / 8][4];
+#pragma unroll
+    for (int i = 0; i < BKV / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+    for (int pc = 0; pc < hd / kPiece; ++pc) {
+      __syncthreads();  // the previous piece (and, at piece 0, the previous V tile) is consumed
+#pragma unroll 2
+      for (int i = 0; i < kQLoads; ++i) {
+        const int id = tid + i * kThreads, lr = id / kChunks, ch = id % kChunks;
+        const int w = lr / 16;
+        const int row = q0 + (w % warps_per_head) * 16 + lr % 16;
+        uint4 val = zero;
+        if (row < S) {
+          const uint4 raw = *reinterpret_cast<const uint4*>(
+              q + (((long)b * S + row) * H + h0 + w / warps_per_head) * hd + pc * kPiece + ch * 8);
+          const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
+          uint32_t scaled[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&words[e]));
+            scaled[e] = pack_bf16(f.x * q_scale, f.y * q_scale);
+          }
+          val = make_uint4(scaled[0], scaled[1], scaled[2], scaled[3]);
+        }
+        *reinterpret_cast<uint4*>(&Qs[lr * P_STRIDE + ch * 8]) = val;
+      }
+#pragma unroll
+      for (int i = 0; i < kKLoads; ++i) {
+        const int id = tid + i * kThreads, r = id / kChunks, ch = id % kChunks;
+        const int key = kv0 + r;
+        *reinterpret_cast<uint4*>(&Ks[r * P_STRIDE + ch * 8]) =
+            key < S ? *reinterpret_cast<const uint4*>(k + (((long)b * S + key) * KV + kvh) * hd + pc * kPiece + ch * 8)
+                    : zero;
+      }
+      if (pc == 0) {
+#pragma unroll
+        for (int i = 0; i < kVLoads; ++i) {
+          const int id = tid + i * kThreads, r = id / (DC / 8), ch = id % (DC / 8);
+          const int key = kv0 + r;
+          *reinterpret_cast<uint4*>(&Vs[r * V_STRIDE + ch * 8]) =
+              key < S ? *reinterpret_cast<const uint4*>(v + (((long)b * S + key) * KV + kvh) * hd + c0 + ch * 8)
+                      : zero;
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int ks = 0; ks < kPiece / 16; ++ks) {
+        uint32_t a[4];
+        ldsm_x4(smem_addr(qw + ks * 16), a[0], a[1], a[2], a[3]);
+#pragma unroll
+        for (int nj = 0; nj < BKV / 16; ++nj) {
+          uint32_t b0, b1, b2, b3;
+          const int key = nj * 16 + (lane & 7) + (lane >> 4) * 8;
+          const int col = ks * 16 + ((lane >> 3) & 1) * 8;
+          ldsm_x4(smem_addr(&Ks[key * P_STRIDE + col]), b0, b1, b2, b3);
+          mma_bf16(s[2 * nj], a, b0, b1);
+          mma_bf16(s[2 * nj + 1], a, b2, b3);
+        }
+      }
+    }
+
+    if (kv0 + BKV - 1 > r0 || kv0 + BKV > S) {
+#pragma unroll
+      for (int ni = 0; ni < BKV / 8; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = kv0 + ni * 8 + (lane & 3) * 2 + (e & 1);
+          const int row = (e & 2) ? row_b : row_a;
+          if (key > row || key >= S) s[ni][e] = -INFINITY;
+        }
+    }
+
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int ni = 0; ni < BKV / 8; ++ni) {
+      mx_a = fmaxf(mx_a, fmaxf(s[ni][0], s[ni][1]));
+      mx_b = fmaxf(mx_b, fmaxf(s[ni][2], s[ni][3]));
+    }
+#pragma unroll
+    for (int o_ = 1; o_ < 4; o_ <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, o_));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, o_));
+    }
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    const float alpha_a = expf(m_a - mn_a), alpha_b = expf(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int ni = 0; ni < BKV / 8; ++ni) {
+      s[ni][0] = expf(s[ni][0] - mn_a);
+      s[ni][1] = expf(s[ni][1] - mn_a);
+      s[ni][2] = expf(s[ni][2] - mn_b);
+      s[ni][3] = expf(s[ni][3] - mn_b);
+      sum_a += s[ni][0] + s[ni][1];
+      sum_b += s[ni][2] + s[ni][3];
+    }
+#pragma unroll
+    for (int o_ = 1; o_ < 4; o_ <<= 1) {
+      sum_a += __shfl_xor_sync(0xffffffffu, sum_a, o_);
+      sum_b += __shfl_xor_sync(0xffffffffu, sum_b, o_);
+    }
+    l_a = l_a * alpha_a + sum_a;
+    l_b = l_b * alpha_b + sum_b;
+#pragma unroll
+    for (int i = 0; i < DC / 8; ++i) {
+      o[i][0] *= alpha_a;
+      o[i][1] *= alpha_a;
+      o[i][2] *= alpha_b;
+      o[i][3] *= alpha_b;
+    }
+
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+      uint32_t hi[4], lo[4];
+      split_bf16(s[2 * kk][0], s[2 * kk][1], hi[0], lo[0]);
+      split_bf16(s[2 * kk][2], s[2 * kk][3], hi[1], lo[1]);
+      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[2], lo[2]);
+      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[3], lo[3]);
+#pragma unroll
+      for (int nj = 0; nj < DC / 16; ++nj) {
+        uint32_t b0, b1, b2, b3;
+        const int key = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+        const int col = nj * 16 + (lane >> 4) * 8;
+        ldsm_x4_trans(smem_addr(&Vs[key * V_STRIDE + col]), b0, b1, b2, b3);
+        mma_bf16(o[2 * nj], hi, b0, b1);
+        mma_bf16(o[2 * nj], lo, b0, b1);
+        mma_bf16(o[2 * nj + 1], hi, b2, b3);
+        mma_bf16(o[2 * nj + 1], lo, b2, b3);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int ni = 0; ni < DC / 8; ++ni) {
+    const int col = c0 + ni * 8 + (lane & 3) * 2;
+    if (row_a < S)
+      *reinterpret_cast<uint32_t*>(out + (((long)b * S + row_a) * H + h) * hd + col) =
+          pack_bf16(o[ni][0] / l_a, o[ni][1] / l_a);
+    if (row_b < S)
+      *reinterpret_cast<uint32_t*>(out + (((long)b * S + row_b) * H + h) * hd + col) =
+          pack_bf16(o[ni][2] / l_b, o[ni][3] / l_b);
+  }
+}
+
+int launch_stream(const dim3& grid, cudaStream_t s, const __nv_bfloat16* qb, const __nv_bfloat16* kb,
+                  const __nv_bfloat16* vb, __nv_bfloat16* ob, int S, int H, int KV, int kv_mul, int M,
+                  int hd, float q_scale) {
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(prefill_attention_stream_kernel,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, kStreamSmem);
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
+  }
+  const dim3 cols(grid.x, grid.y * (hd / kWideCols), grid.z);
+  prefill_attention_stream_kernel<<<cols, kThreads, kStreamSmem, s>>>(qb, kb, vb, ob, S, H, KV,
+                                                                      kv_mul, M, hd, q_scale);
+  return 0;
+}
+
 template <int HD>
 int launch_wide(const dim3& grid, cudaStream_t s, const __nv_bfloat16* qb, const __nv_bfloat16* kb,
                 const __nv_bfloat16* vb, __nv_bfloat16* ob, int S, int H, int KV, int kv_mul, int M,
@@ -488,7 +705,7 @@ int launch_wide(const dim3& grid, cudaStream_t s, const __nv_bfloat16* qb, const
 }  // namespace
 
 // Plain C entry point.  q [B, S, H, hd], k/v [B, S, KV, hd] and out [B, S, H, hd] are
-// contiguous bf16 device pointers; KV divides H; hd is 128, 256, 384 or 512; q_scale is
+// contiguous bf16 device pointers; KV divides H; hd is a multiple of 128; q_scale is
 // bf16(1/sqrt(hd)) as a float.  Returns cudaGetLastError() (or cudaErrorInvalidValue for an
 // argument it does not take, or the error of cudaFuncSetAttribute).
 extern "C" int causal_prefill_attention(const void* q, const void* k, const void* v, void* out,
@@ -517,7 +734,11 @@ extern "C" int causal_prefill_attention(const void* q, const void* k, const void
       if (e) return e;
       break;
     }
-    default: return (int)cudaErrorInvalidValue;
+    default: {
+      if (hd % kPiece || hd < kPiece) return (int)cudaErrorInvalidValue;
+      const int e = launch_stream(grid, s, qb, kb, vb, ob, S, H, KV, kv_mul, M, hd, q_scale);
+      if (e) return e;
+    }
   }
   return (int)cudaGetLastError();
 }

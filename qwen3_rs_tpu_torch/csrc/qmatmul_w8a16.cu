@@ -30,18 +30,28 @@
 //    there once);
 //  * the 8 warps of a block share the strip's columns and split the rows of each staged tile;
 //    their partial sums meet in shared memory in a fixed order;
-//  * row tiles of up to 8 activation rows (grid.z) keep prefill windows (B <= 256) correct
-//    without holding B x 16 accumulators per thread; tensor cores are left for a later version.
+//  * row tiles of up to 8 activation rows (grid.z): at 1-8 rows a thread holds B x 16
+//    accumulators, and each weight byte is read once.
 // INT4: the bound halves (N*D/2 code bytes).  A 16-byte load along D holds 16 columns of two
 // in-rows, j and j + g/2 of one group; the thread dequantizes the low nibbles, accumulates them
 // against activation row j, then the high nibbles against row j + g/2.  The tile stages its
 // activation rows in packed order (staged_row), so any even group size works, 512 included.
 // Any group size: a thread reloads its scales where a code row leaves their group.
+//
+// The tensor-core route (qmatmul_w8a16_tc, the wrapper's route for windows of 9 or more rows):
+// on CUDA cores a window of B rows would read every weight B / 8 times.  Instead a small pass
+// (tc::stage_x_kernel) writes the prologue's bf16 activation once, in the kernel's slot order,
+// and w8a16_wgmma.cuh's kernel streams each weight byte once for all the rows: wgmma with the
+// dequantized weights as the register A operand and the rows as N (64, 128 or 256: the row tile
+// the wrapper picks), the contraction split over blocks as here (tc_plan in the wrapper), the
+// splits summed in split order by the same reduce pass, which adds the residual; unsplit, the
+// residual is added in the store.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "w8a16_dequant.cuh"
+#include "w8a16_wgmma.cuh"
 
 namespace {
 
@@ -240,6 +250,45 @@ extern "C" int qmatmul_w8a16(const void* x, int x_bf16, const void* codes, const
     const long bd = (long)B * D;
     qmatmul_reduce_kernel<<<(unsigned)((bd + 255) / 256), 256, 0, s>>>(p, residual, res_bf16, o,
                                                                        splits, bd);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Plain C entry point of the tensor-core route: the same arguments as qmatmul_w8a16 but for the
+// CUDA cores' tiling, and xs, scratch of B * ceil(N / 64) * 64 bf16 for the staged activation.
+// n_tile is the row tile (64, 128 or 256, at least B); the contraction's k-tiles (64 in-rows)
+// go kts to a split; `partial` holds splits * B * D floats when splits > 1.  Returns cudaGetLastError() (or the error of a tensor map, negated).
+extern "C" int qmatmul_w8a16_tc(const void* x, int x_bf16, void* xs, const void* codes,
+                                const void* scales, const void* norm_w, const void* residual,
+                                int res_bf16, void* out, void* partial, int B, int N, int D, int g,
+                                int prologue, float eps, int q4, int n_tile, int splits, int kts,
+                                void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const int kp = (N + tc::kSlots - 1) / tc::kSlots * tc::kSlots;
+  auto* xb = reinterpret_cast<__nv_bfloat16*>(xs);
+  tc::stage_x(s, x, x_bf16, reinterpret_cast<const float*>(norm_w), prologue, eps, B, N, g, q4, kp, xb);
+  CUtensorMap xm, cm;
+  const int e = tc::make_maps(&xm, &cm, xb, B, kp, n_tile, codes, q4 ? N / 2 : N, D, q4 != 0);
+  if (e) return e;
+  const int bd = tc::tile_cols(n_tile);
+  auto* o = reinterpret_cast<float*>(out);
+  auto* p = reinterpret_cast<float*>(partial);
+  const tc::Args a{reinterpret_cast<const __nv_bfloat16*>(scales), D, N / g, g, B, D, 0,
+                   (D + bd - 1) / bd, 1, splits, kts, kp / tc::kSlots, splits > 1 ? p : o,
+                   residual, res_bf16};
+  const bool uniform = g % 64 == 0;
+  int rc;
+  switch (n_tile) {
+    case 64: rc = tc::launch_for<64>(q4 != 0, uniform, xm, cm, a, s); break;
+    case 128: rc = tc::launch_for<128>(q4 != 0, uniform, xm, cm, a, s); break;
+    case 256: rc = tc::launch_for<256>(q4 != 0, uniform, xm, cm, a, s); break;
+    default: rc = (int)cudaErrorInvalidValue;
+  }
+  if (rc) return rc;
+  if (splits > 1) {
+    const long bd_ = (long)B * D;
+    qmatmul_reduce_kernel<<<(unsigned)((bd_ + 255) / 256), 256, 0, s>>>(p, residual, res_bf16, o,
+                                                                         splits, bd_);
   }
   return (int)cudaGetLastError();
 }

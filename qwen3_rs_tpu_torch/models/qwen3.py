@@ -78,7 +78,6 @@ import torch.distributed as dist
 from ..configuration import ModelConfig
 from ..ops.attention import gqa_attention_split, gqa_attention_split_paged
 from ..ops.collectives import all_gather_last, all_reduce
-from ..ops.kernels import flash_attention, paged_attention, prefill_attention
 from ..ops.kernels.flash_attention import decode_supported, flash_decode
 from ..ops.kernels.megakernel import decode_stack_megakernel, head_phase_supported, megakernel_supported
 from ..ops.kernels.paged_attention import (
@@ -578,14 +577,6 @@ def qwen3_forward(
                      and paged_window_supported(hd, cache.k.shape[3], cache.k.dtype, s, c.kv_mul))
     flash_kernel = (not paged and fast and s == 1
                     and decode_supported(c.n_heads, c.n_kv_heads, hd, cache.seq_len, min_seq_len=0))
-    if dev.type == "cuda":
-        # A head_dim the gates admit and a kernel is not built for raises here,
-        # before any launch, as its wrapper would (ROADMAP §3).
-        for used, module in ((flash_kernel, flash_attention), (prefill_kernel, prefill_attention),
-                             (paged_decode_kernel or window_kernel, paged_attention)):
-            if used and not module.takes_head_dim(hd):
-                raise ValueError(f"{module.__name__.rsplit('.', 1)[-1]}: head_dim {hd} "
-                                 f"(the kernel takes {module.HEAD_DIMS})")
     ref_rows = _reference_window_rows(b, s)
 
     def quant(t):

@@ -10,8 +10,8 @@ the K scale multiplies the score, the V scale the probability.
 
 For a CPU tensor the wrapper runs the plain PyTorch version; for a CUDA
 tensor it launches ``csrc/flash_decode.cu`` or raises.  The kernel takes
-any number of query heads per kv head, and the head_dims of ``HEAD_DIMS``
-(``takes_head_dim``: every multiple of 128 up to 512).
+any number of query heads per kv head, and every head_dim that is a multiple
+of 128 (``takes_head_dim``; past 512 in 128-column blocks).
 ``decode_supported`` is the reference package's gate, copied; the forward
 asks it without its minimum window (``MIN_SEQ_LEN``, a speed choice on the
 reference's chip, not a limit of either kernel), and a shape it refuses takes
@@ -30,14 +30,12 @@ from . import LAUNCHES, build
 CHUNK = 128  # cache rows per block of the kernel's first pass
 _CACHE_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
-# The head_dims the kernel is built for (a template parameter of its source).
-HEAD_DIMS = (128, 256, 384, 512)
-
 
 def takes_head_dim(hd: int) -> bool:
-    """Whether the kernel takes head_dim ``hd``: the one predicate its
-    wrapper and the forward ask."""
-    return hd in HEAD_DIMS
+    """Whether the kernel takes head_dim ``hd``: every positive multiple of
+    128, as the reference's gates admit (a template instance up to 512, the
+    column-blocked kernels past it)."""
+    return hd > 0 and hd % 128 == 0
 
 
 # The reference package's gate: its cache-block candidates and the window
@@ -136,7 +134,7 @@ def flash_decode(
     _need(q.device.type == "cuda", f"tensors on {q.device} are neither CPU nor CUDA")
     b, n_heads, hd = q.shape
     n_layers, cb, n_kv, t_max, chd = k_all.shape
-    _need(takes_head_dim(hd) and chd == hd, f"head_dim {hd} (the kernel takes {HEAD_DIMS})")
+    _need(takes_head_dim(hd) and chd == hd, f"head_dim {hd} (the kernel takes positive multiples of 128)")
     _need(cb == b and n_heads % n_kv == 0, f"q {tuple(q.shape)} does not fit the cache {tuple(k_all.shape)}")
     kv_mul = n_heads // n_kv
     _need(0 <= layer < n_layers, f"layer {layer} out of range")

@@ -20,8 +20,8 @@ probability.
 Both kernels are in ``csrc/paged_attention.cu`` and share their first pass.
 For a CPU tensor a wrapper runs its plain PyTorch version; for a CUDA tensor
 it launches its kernel or raises.  They take any number of query heads per
-kv head and the head_dims of ``HEAD_DIMS`` (``takes_head_dim``: every
-multiple of 128 up to 512); unlike the Pallas kernels they take any page size
+kv head and every head_dim that is a multiple of 128 (``takes_head_dim``;
+past 512 in 128-column blocks); unlike the Pallas kernels they take any page size
 (the JAX gate asks for multiples of 128).
 """
 
@@ -38,14 +38,13 @@ from . import LAUNCHES, build
 CHUNK = 128  # cache rows per block of the kernels' first pass
 MAX_WINDOW_ROWS = 128  # the reference's bound on S·kv_mul for the window kernel
 _CACHE_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-# The head_dims both kernels are built for (a template parameter of their source).
-HEAD_DIMS = (128, 256, 384, 512)
 
 
 def takes_head_dim(hd: int) -> bool:
-    """Whether the kernels take head_dim ``hd``: the one predicate their
-    wrappers and the forward ask."""
-    return hd in HEAD_DIMS
+    """Whether the kernels take head_dim ``hd``: every positive multiple of
+    128, as the reference's gates admit (a template instance up to 512, the
+    column-blocked kernels past it)."""
+    return hd > 0 and hd % 128 == 0
 
 
 def paged_decode_supported(head_dim: int, page_size: int, dtype) -> bool:
@@ -175,7 +174,7 @@ def _check_pool(name, q, k_pool, v_pool, page_table, pos, layer, k_scale_pool, v
 
     need(q.device.type == "cuda", f"tensors on {q.device} are neither CPU nor CUDA")
     n_layers, _, n_kv, page, hd = k_pool.shape
-    need(takes_head_dim(hd) and q.shape[-1] == hd, f"head_dim {hd} (the kernel takes {HEAD_DIMS})")
+    need(takes_head_dim(hd) and q.shape[-1] == hd, f"head_dim {hd} (the kernels take positive multiples of 128)")
     need(q.shape[-2] % n_kv == 0, f"{q.shape[-2]} query heads over {n_kv} kv heads")
     need(0 <= layer < n_layers, f"layer {layer} out of range")
     need(v_pool.shape == k_pool.shape and v_pool.dtype == k_pool.dtype, "k_pool and v_pool differ")

@@ -12,9 +12,10 @@ window and no block divisibility: the forward sends it every fresh window of
 more than 256 rows whose shapes pass ``splash_prefill_supported`` (the
 reference package's gate, asked at the window's power-of-two bucket, the
 width the reference engine pads it to).  It takes any number of query heads
-per kv head, and the head_dims of ``HEAD_DIMS`` (``takes_head_dim``: every
-multiple of 128 up to 512; at 384 and 512 a wide kernel holds q in shared
-memory and splits the output over column blocks).
+per kv head, and every head_dim that is a multiple of 128
+(``takes_head_dim``; at 384 and 512 a wide kernel holds q in shared memory
+and splits the output over column blocks, past 512 a streaming kernel reads
+q and k in 128-column pieces).
 
 For a CPU tensor the wrapper runs the plain PyTorch version; for a CUDA
 tensor it launches ``csrc/prefill_attention.cu`` or raises.
@@ -31,14 +32,12 @@ from . import LAUNCHES, build
 
 QUERY_CHUNK = 512  # query rows per step of the plain version (bounds its score tensor)
 _BLOCK = 1024  # the reference splash kernel's default block
-# The head_dims the kernel is built for (a template parameter of its source).
-HEAD_DIMS = (128, 256, 384, 512)
 
 
 def takes_head_dim(hd: int) -> bool:
-    """Whether the kernel takes head_dim ``hd``: the one predicate its
-    wrapper and the forward ask."""
-    return hd in HEAD_DIMS
+    """Whether the kernel takes head_dim ``hd``: every positive multiple of
+    128, as the reference's gate admits."""
+    return hd > 0 and hd % 128 == 0
 
 
 def _effective_block(s: int) -> int:
@@ -107,7 +106,7 @@ def causal_prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) 
     _need(q.device.type == "cuda", f"tensors on {q.device} are neither CPU nor CUDA")
     b, s, n_heads, hd = q.shape
     n_kv = k.shape[2]
-    _need(takes_head_dim(hd), f"head_dim {hd} (the kernel takes {HEAD_DIMS})")
+    _need(takes_head_dim(hd), f"head_dim {hd} (the kernel takes positive multiples of 128)")
     _need(k.shape == v.shape == (b, s, n_kv, hd), f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
     _need(n_heads % n_kv == 0, f"{n_heads} query heads over {n_kv} kv heads")
     _need(all(t.dtype == torch.bfloat16 for t in (q, k, v)), "q, k and v must be bf16")

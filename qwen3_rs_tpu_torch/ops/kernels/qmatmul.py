@@ -11,6 +11,14 @@ Numerics ("scale_w"): the prologue runs in f32, the activation is rounded to
 bf16 after it, each weight element is ``bf16(bf16(code) · bf16(scale))`` and
 the products accumulate in f32.
 
+The wrapper routes by rows alone (``route``): a window of fewer than
+``TC_MIN_ROWS`` rows takes the CUDA-core kernel (``qmatmul_w8a16_cores``),
+which reads each weight byte once at 1-8 rows; a larger one the tensor-core
+kernel (``qmatmul_w8a16_tc``), which stages the prologue's bf16 activation
+once and streams each weight byte once for all the rows (``tc_plan`` picks
+its row tile and contraction split).  Each route counts its launches under
+its own ``LAUNCHES`` key.
+
 For windows of more than ``MAX_ROWS`` rows, ``qmatmul_w8a16_rows`` (the
 reference package's ``qmatmul_pallas_stacked_rows``) takes the projection on
 the tensor cores, without prologue or epilogue; and ``dequant_w8_stacked``
@@ -45,6 +53,12 @@ MAX_ROWS = 256
 _BLOCK_COLS = 512  # output columns per block (32 lanes x 16 columns)
 _SPLIT_ROWS = 64  # contraction rows per split are a multiple of this
 _PROLOGUES = {None: 0, "rms": 1, "swiglu": 2}
+# The crossover of the two routes: windows of at least this many rows take
+# the tensor-core kernel.  Set from chip_smoke.py's timings of both routes at
+# 8, 16 and 32 rows over the four 8B projections (PERF.md).
+TC_MIN_ROWS = 9
+TC_ROW_TILES = (64, 128, 256)  # the tensor-core kernel's row tiles (wgmma N)
+_TC_SLOTS = 64  # contraction rows (INT4: 32 packed rows) per k-tile
 
 
 # ------------------------------------------------------------------- gates
@@ -165,6 +179,8 @@ def _lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.qmatmul_w8a16.argtypes = [p, i, p, p, p, p, i, p, p, i, i, i, i, i, f, i, i, i, i, p]
     lib.qmatmul_w8a16.restype = ctypes.c_int
+    lib.qmatmul_w8a16_tc.argtypes = [p, i, p, p, p, p, p, i, p, p, i, i, i, i, i, f, i, i, i, i, p]
+    lib.qmatmul_w8a16_tc.restype = ctypes.c_int
     return lib
 
 
@@ -181,6 +197,41 @@ def split_plan(n: int, d: int, rows: int, bt: int, sms: int) -> tuple[int, int]:
     kc = max(_SPLIT_ROWS, -(-n // want // _SPLIT_ROWS) * _SPLIT_ROWS)
     kc = min(kc, -(-n // 8) * 8)
     return -(-n // kc), kc
+
+
+def route(rows: int) -> str:
+    """The kernel that takes a window of ``rows`` rows: ``"cores"`` below
+    ``TC_MIN_ROWS``, ``"tc"`` from it on."""
+    if not 0 < rows <= MAX_ROWS:
+        raise ValueError(f"qmatmul_w8a16: {rows} activation rows; the kernels take 1..{MAX_ROWS}")
+    return "tc" if rows >= TC_MIN_ROWS else "cores"
+
+
+@functools.cache
+def tc_plan(n: int, d: int, rows: int, sms: int) -> tuple[int, int, int]:
+    """(row tile, splits, k-tiles per split) of the tensor-core kernel for
+    ``rows`` rows of an ``[N, D]`` weight on ``sms`` SMs.
+
+    The row tile is the smallest of ``TC_ROW_TILES`` that holds the rows; a
+    tile covers 256 output columns (128 at the 256-row tile).  The
+    contraction's k-tiles of 64 rows are split so that the tiles fill the
+    card: the plan takes the least ``waves * kts`` (a block's k-tiles, one
+    block per SM) plus the f32 partials' write and read where it splits,
+    in k-tiles of codes (``rows / 8`` per tile), spread over the SMs.
+    """
+    tile = next(t for t in TC_ROW_TILES if rows <= t)
+    strips = -(-d // (256 if tile <= 128 else 128))
+    k_tiles = -(-n // _TC_SLOTS)
+    best = None
+    for want in range(1, k_tiles + 1):
+        kts = -(-k_tiles // want)
+        splits = -(-k_tiles // kts)
+        if splits != want:
+            continue  # the same plan as a smaller split count
+        cost = -(-strips * splits // sms) * kts + (splits > 1) * splits * strips * rows / (8 * sms)
+        if best is None or cost < best[0]:
+            best = (cost, splits, kts)
+    return tile, best[1], best[2]
 
 
 def _row_tile(rows: int) -> int:
@@ -211,14 +262,21 @@ def qmatmul_w8a16(
 
     ``norm_w`` ([L, N] or [N] f32) fuses an RMSNorm prologue, ``swiglu`` a
     ``silu(gate)·up`` prologue, ``residual`` ([..., D]) is added once to the
-    f32 result.
+    f32 result.  On the card the rows alone pick the kernel (``route``).
     """
     if norm_w is not None and swiglu:
         raise ValueError("qmatmul_w8a16: one prologue at a time (norm_w or swiglu)")
+    kw = {"norm_w": norm_w, "eps": eps, "residual": residual, "swiglu": swiglu}
     if x.device.type == "cpu":
-        return qmatmul_w8a16_plain(
-            x, w, layer, norm_w=norm_w, eps=eps, residual=residual, swiglu=swiglu
-        )
+        return qmatmul_w8a16_plain(x, w, layer, **kw)
+    launch = qmatmul_w8a16_tc if route(x.numel() // x.shape[-1]) == "tc" else qmatmul_w8a16_cores
+    return launch(x, w, layer, **kw)
+
+
+def _prepare(x, w, layer, norm_w, eps, residual, swiglu) -> dict:
+    """The checked arguments of one launch of either route, for a CUDA ``x``."""
+    if norm_w is not None and swiglu:
+        raise ValueError("qmatmul_w8a16: one prologue at a time (norm_w or swiglu)")
     _need(x.device.type == "cuda", f"tensors on {x.device} are neither CPU nor CUDA")
     codes, scales = w.q, w.scales
     q4 = isinstance(w, Q4Tensor)
@@ -269,38 +327,63 @@ def qmatmul_w8a16(
         tensors.append(res)
     _need(all(t.device == dev for t in tensors), "all tensors must be on one device")
     _need(codes.data_ptr() % 16 == 0 and scales.data_ptr() % 16 == 0, "weights must be 16-byte aligned")
-
     li = layer if stacked else 0
+    prologue = "rms" if norm_w is not None else ("swiglu" if swiglu else None)
+    return {
+        "x2": x2, "res": res, "rows": rows, "n": n, "d": d, "g": g, "q4": q4, "dev": dev,
+        "codes": codes.data_ptr() + li * codes.shape[-2] * d, "scales": scales.data_ptr() + li * groups * d * 2,
+        "nw": nw_ptr, "prologue": _PROLOGUES[prologue], "out_shape": (*x.shape[:-1], d),
+    }
+
+
+def qmatmul_w8a16_cores(x: torch.Tensor, w: QuantizedTensor, layer: int | None = None, *,
+                        norm_w: torch.Tensor | None = None, eps: float = 1e-6,
+                        residual: torch.Tensor | None = None, swiglu: bool = False) -> torch.Tensor:
+    """``qmatmul_w8a16`` on the CUDA-core kernel (its route below
+    ``TC_MIN_ROWS`` rows), at any 1..256 rows."""
+    if x.device.type == "cpu":
+        return qmatmul_w8a16(x, w, layer, norm_w=norm_w, eps=eps, residual=residual, swiglu=swiglu)
+    a = _prepare(x, w, layer, norm_w, eps, residual, swiglu)
+    rows, n, d, dev, res = a["rows"], a["n"], a["d"], a["dev"], a["res"]
     out = torch.empty(rows, d, dtype=torch.float32, device=dev)
     bt = _row_tile(rows)
     splits, kc = split_plan(n, d, rows, bt, _sm_count(dev.index or 0))
     partial = torch.empty(splits * rows * d, dtype=torch.float32, device=dev) if splits > 1 else None
-    prologue = "rms" if norm_w is not None else ("swiglu" if swiglu else None)
     err = _lib().qmatmul_w8a16(
-        x2.data_ptr(),
-        int(x2.dtype == torch.bfloat16),
-        codes.data_ptr() + li * codes.shape[-2] * d,
-        scales.data_ptr() + li * groups * d * 2,
-        nw_ptr,
-        None if res is None else res.data_ptr(),
-        int(res is not None and res.dtype == torch.bfloat16),
-        out.data_ptr(),
-        None if partial is None else partial.data_ptr(),
-        rows,
-        n,
-        d,
-        g,
-        _PROLOGUES[prologue],
-        float(eps),
-        bt,
-        kc,
-        splits,
-        int(q4),
+        a["x2"].data_ptr(), int(a["x2"].dtype == torch.bfloat16), a["codes"], a["scales"], a["nw"],
+        None if res is None else res.data_ptr(), int(res is not None and res.dtype == torch.bfloat16),
+        out.data_ptr(), None if partial is None else partial.data_ptr(),
+        rows, n, d, a["g"], a["prologue"], float(eps), bt, kc, splits, int(a["q4"]),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(err, "qmatmul_w8a16")
-    LAUNCHES["qmatmul_w8a16_q4" if q4 else "qmatmul_w8a16"] += 1
-    return out.reshape(*x.shape[:-1], d)
+    LAUNCHES["qmatmul_w8a16_q4" if a["q4"] else "qmatmul_w8a16"] += 1
+    return out.reshape(a["out_shape"])
+
+
+def qmatmul_w8a16_tc(x: torch.Tensor, w: QuantizedTensor, layer: int | None = None, *,
+                     norm_w: torch.Tensor | None = None, eps: float = 1e-6,
+                     residual: torch.Tensor | None = None, swiglu: bool = False) -> torch.Tensor:
+    """``qmatmul_w8a16`` on the tensor-core kernel (its route from
+    ``TC_MIN_ROWS`` rows on), at any 1..256 rows."""
+    if x.device.type == "cpu":
+        return qmatmul_w8a16(x, w, layer, norm_w=norm_w, eps=eps, residual=residual, swiglu=swiglu)
+    a = _prepare(x, w, layer, norm_w, eps, residual, swiglu)
+    rows, n, d, dev, res = a["rows"], a["n"], a["d"], a["dev"], a["res"]
+    tile, splits, kts = tc_plan(n, d, rows, _sm_count(dev.index or 0))
+    out = torch.empty(rows, d, dtype=torch.float32, device=dev)
+    xs = torch.empty(rows, -(-n // _TC_SLOTS) * _TC_SLOTS, dtype=torch.bfloat16, device=dev)
+    partial = torch.empty(splits * rows * d, dtype=torch.float32, device=dev) if splits > 1 else None
+    err = _lib().qmatmul_w8a16_tc(
+        a["x2"].data_ptr(), int(a["x2"].dtype == torch.bfloat16), xs.data_ptr(), a["codes"], a["scales"],
+        a["nw"], None if res is None else res.data_ptr(), int(res is not None and res.dtype == torch.bfloat16),
+        out.data_ptr(), None if partial is None else partial.data_ptr(),
+        rows, n, d, a["g"], a["prologue"], float(eps), int(a["q4"]), tile, splits, kts,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check(err, "qmatmul_w8a16_tc")
+    LAUNCHES["qmatmul_w8a16_tc_q4" if a["q4"] else "qmatmul_w8a16_tc"] += 1
+    return out.reshape(a["out_shape"])
 
 
 # ------------------------------------------------------------ row-blocked W8A16
@@ -335,7 +418,7 @@ def qmatmul_w8a16_rows_plain(x: torch.Tensor, w: QuantizedTensor, layer: int | N
 def _rows_lib() -> ctypes.CDLL:
     lib = build.load("qmatmul_rows")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.qmatmul_w8a16_rows.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.qmatmul_w8a16_rows.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
     lib.qmatmul_w8a16_rows.restype = ctypes.c_int
     return lib
 
@@ -400,9 +483,11 @@ def qmatmul_w8a16_rows(x: torch.Tensor, w: QuantizedTensor, layer: int | None = 
     rows = x2.shape[0]
     out = torch.empty(rows, dc, dtype=torch.float32, device=x.device)
     if rows:
+        # INT4 with g != 64: x staged in the kernel's slot order (g == 64 is x's own order).
+        xs = torch.empty_like(x2) if q4 and g != 64 else None
         err = _rows_lib().qmatmul_w8a16_rows(
-            x2.data_ptr(), codes.data_ptr(), sb.data_ptr(), out.data_ptr(), rows, n, d, c0, dc, g, int(q4),
-            torch.cuda.current_stream(x.device).cuda_stream,
+            x2.data_ptr(), None if xs is None else xs.data_ptr(), codes.data_ptr(), sb.data_ptr(), out.data_ptr(),
+            rows, n, d, c0, dc, g, int(q4), torch.cuda.current_stream(x.device).cuda_stream,
         )
         build.check(err, "qmatmul_w8a16_rows")
         key = "qmatmul_w8a16_rows_cols" if out_cols is not None else "qmatmul_w8a16_rows"

@@ -34,9 +34,12 @@ from qwen3_rs_tpu_torch.ops.kernels.qmatmul import (
     dequant_w8_stacked,
     dequant_w8_stacked_plain,
     qmatmul_w8a16,
+    qmatmul_w8a16_cores,
     qmatmul_w8a16_plain,
     qmatmul_w8a16_rows,
     qmatmul_w8a16_rows_plain,
+    qmatmul_w8a16_tc,
+    route,
 )
 from qwen3_rs_tpu_torch.ops.kernels.probes import (
     A8_DEPTH_RTOL,
@@ -100,14 +103,74 @@ def test_qmatmul_matches_plain(card, rows, n, d, g, prologue, residual):
     if residual:
         dt = torch.float32 if residual == "f32" else torch.bfloat16
         kw["residual"] = torch.randn(rows, d, generator=gen, device=card).to(dt)
-    before = LAUNCHES["qmatmul_w8a16"]
+    key = "qmatmul_w8a16_tc" if route(rows) == "tc" else "qmatmul_w8a16"
+    before = LAUNCHES[key]
     got = qmatmul_w8a16(x, w, 2, **kw)
-    assert LAUNCHES["qmatmul_w8a16"] == before + 1
+    assert LAUNCHES[key] == before + 1
     ref = qmatmul_w8a16_plain(x, w, 2, **kw)
     torch.cuda.synchronize()
     # f32 sums in another order; a prologue may flip a bf16 rounding.
     rel = 2e-3 if prologue else 1e-4
     assert float((got - ref).abs().max()) <= rel * float(ref.abs().max())
+
+
+ROUTE_SHAPES = [  # (N, D, g, prologue, residual) for both routes, INT8 and INT4
+    (256, 48, 64, None, None),  # D below one tile
+    (512, 1040, 64, "rms", "bf16"),  # ragged last tile
+    (1024, 512, 2, "swiglu", "f32"),  # g = 2: every code row its own group
+    (768, 528, 6, "rms", None),  # g = 6: groups straddle the k-steps; ragged D
+    (1024, 512, 512, None, "f32"),  # g = 512: a group spans eight k-tiles
+    (4096, 1024, 64, "swiglu", "bf16"),  # a split contraction, the residual added in the reduce
+    (520, 256, 8, None, None),  # N not a multiple of 64: a ragged last k-tile
+]
+
+
+@pytest.mark.parametrize("launch", [qmatmul_w8a16_cores, qmatmul_w8a16_tc], ids=["cores", "tc"])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("rows", [8, 9, 16, 37, 64, 255, 256])
+@pytest.mark.parametrize("n,d,g,prologue,residual", ROUTE_SHAPES)
+def test_qmatmul_routes_match_plain(card, launch, bits, rows, n, d, g, prologue, residual):
+    """Both routes of #3, each forced by calling its launcher, at rows on both
+    sides of the crossover.  Tolerance: the f32 sums differ in order (and the
+    tensor cores' round toward zero), 1e-4 of the largest output; a
+    prologue's f32 result may flip a bf16 rounding of an activation, 2e-3."""
+    gen = _gen(rows * 13 + d + g + bits)
+    w = _q4_weights(gen, card, 2, n, d, g) if bits == 4 else _weights(gen, card, 2, n, d, g)
+    width = 2 * n if prologue == "swiglu" else n
+    x = torch.randn(rows, width, generator=gen, device=card).to(torch.bfloat16 if rows % 2 else torch.float32)
+    kw = {}
+    if prologue == "rms":
+        kw["norm_w"] = 1 + 0.1 * torch.randn(2, n, generator=gen, device=card)
+    if prologue == "swiglu":
+        kw["swiglu"] = True
+    if residual:
+        dt = torch.float32 if residual == "f32" else torch.bfloat16
+        kw["residual"] = torch.randn(rows, d, generator=gen, device=card).to(dt)
+    key = ("qmatmul_w8a16_tc" if launch is qmatmul_w8a16_tc else "qmatmul_w8a16") + ("_q4" if bits == 4 else "")
+    before = dict(LAUNCHES)
+    got = launch(x, w, 1, **kw)
+    assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]} == {key: 1}
+    ref = qmatmul_w8a16_plain(x, w, 1, **kw)
+    torch.cuda.synchronize()
+    rel = 2e-3 if prologue else 1e-4
+    assert got.shape == ref.shape
+    assert float((got - ref).abs().max()) <= rel * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_qmatmul_routes_are_deterministic(card, bits):
+    """Two launches of each route give the same bytes (the split contraction
+    is summed in split order, with no atomics), and the row-blocked kernel's
+    too."""
+    gen = _gen(31 + bits)
+    n, d = 4096, 1024
+    w = _q4_weights(gen, card, 2, n, d, 64) if bits == 4 else _weights(gen, card, 2, n, d, 64)
+    for rows, launch in ((4, qmatmul_w8a16_cores), (37, qmatmul_w8a16_tc), (256, qmatmul_w8a16_tc),
+                         (300, qmatmul_w8a16_rows)):
+        x = torch.randn(rows, n, generator=gen, device=card).to(torch.bfloat16)
+        a, b = launch(x, w, 1), launch(x, w, 1)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), (rows, launch.__name__)
 
 
 def test_qmatmul_unstacked_classifier_shape(card):
@@ -203,10 +266,11 @@ def _weights(gen, card, layers, n, d, g, scale_dtype=torch.bfloat16):
     return QuantizedTensor(codes, scales)
 
 
-@pytest.mark.parametrize("rows", [1, 100, 257, 300, 1000])
+@pytest.mark.parametrize("rows", [1, 100, 257, 300, 1000, 2048])
 @pytest.mark.parametrize(
     "n,d,g,scale_dtype",
-    [(256, 48, 64, torch.bfloat16), (512, 1040, 64, torch.float32), (1024, 384, 32, torch.bfloat16)],
+    [(256, 48, 64, torch.bfloat16), (512, 1040, 64, torch.float32), (1024, 384, 32, torch.bfloat16),
+     (768, 272, 6, torch.bfloat16)],
 )
 def test_qmatmul_rows_matches_plain(card, rows, n, d, g, scale_dtype):
     gen = _gen(rows + d)
@@ -268,8 +332,8 @@ def test_qmatmul_q4_matches_plain(card, rows, n, d, g, prologue, residual):
         kw["residual"] = torch.randn(rows, d, generator=gen, device=card).to(dt)
     before = dict(LAUNCHES)
     got = qmatmul_w8a16(x, w, 2, **kw)
-    assert LAUNCHES["qmatmul_w8a16_q4"] == before["qmatmul_w8a16_q4"] + 1
-    assert LAUNCHES["qmatmul_w8a16"] == before["qmatmul_w8a16"]
+    key = "qmatmul_w8a16_tc_q4" if route(rows) == "tc" else "qmatmul_w8a16_q4"
+    assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]} == {key: 1}
     ref = qmatmul_w8a16_plain(x, w, 2, **kw)
     torch.cuda.synchronize()
     rel = 2e-3 if prologue else 1e-4  # as for INT8
@@ -306,7 +370,7 @@ def test_qmatmul_q4_unstacked(card):
     assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
 
 
-@pytest.mark.parametrize("rows", [1, 100, 257, 1000])
+@pytest.mark.parametrize("rows", [1, 100, 257, 300, 1000, 2048])
 @pytest.mark.parametrize(
     "n,d,g,scale_dtype",
     [(256, 48, 64, torch.bfloat16), (512, 1040, 64, torch.float32), (1024, 384, 32, torch.bfloat16),
@@ -791,7 +855,7 @@ def _cache_of(gen, card, kind, shape):
     return k, v, None
 
 
-@pytest.mark.parametrize("hd", [256, 384, 512])
+@pytest.mark.parametrize("hd", [256, 384, 512, 640, 1024])
 @pytest.mark.parametrize("cache", ["f32", "bf16", "int8"])
 @pytest.mark.parametrize("kv_mul", [1, 3, 4, 8])
 def test_flash_decode_head_dims_match_plain(card, hd, cache, kv_mul):
@@ -810,7 +874,7 @@ def test_flash_decode_head_dims_match_plain(card, hd, cache, kv_mul):
     assert torch.equal(got[0], vn[0].repeat_interleave(kv_mul, dim=0))  # pos 0: v_self
 
 
-@pytest.mark.parametrize("hd", [256, 384, 512])
+@pytest.mark.parametrize("hd", [256, 384, 512, 640, 1024])
 @pytest.mark.parametrize("pool", ["bf16", "int8"])
 @pytest.mark.parametrize("kv_mul,s", [(1, 3), (4, 8), (5, 2)])
 def test_paged_kernels_head_dims_match_plain(card, hd, pool, kv_mul, s):
@@ -852,11 +916,12 @@ def test_prefill_attention_head_dim_256_matches_plain(card, s, kv_mul):
 
 
 @pytest.mark.parametrize("s", [1, 65, 300, 1000])
-@pytest.mark.parametrize("hd", [384, 512])
+@pytest.mark.parametrize("hd", [384, 512, 640, 1024])
 @pytest.mark.parametrize("kv_mul", [1, 4, 5])
 def test_prefill_attention_wide_head_dims_match_plain(card, s, hd, kv_mul):
     """#5's wide kernel (q in shared memory, the output in 128-column blocks)
-    at ragged windows, with the tolerance of head_dim 128."""
+    and, past 512, its streaming kernel (q and k in 128-column pieces) at
+    ragged windows, with the tolerance of head_dim 128."""
     gen = _gen(s * 17 + hd + kv_mul)
     q = torch.randn(2, s, 2 * kv_mul, hd, generator=gen, device=card).to(torch.bfloat16)
     k, v = (torch.randn(2, s, 2, hd, generator=gen, device=card).to(torch.bfloat16) for _ in range(2))
@@ -870,8 +935,8 @@ def test_prefill_attention_wide_head_dims_match_plain(card, s, hd, kv_mul):
 
 
 def test_attention_kernels_refuse_head_dims_they_are_not_built_for(card):
-    q = torch.zeros(1, 4, 2, 640, device=card, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim 640"):
+    q = torch.zeros(1, 4, 2, 576, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 576"):
         causal_prefill_attention(q, q[:, :, :1], q[:, :, :1])
     k = torch.zeros(1, 1, 1, 8, 192, device=card)
     with pytest.raises(ValueError, match="head_dim 192"):
@@ -907,6 +972,11 @@ def test_head_dim_256_model_card_matches_cpu(card):
 
 def test_head_dim_512_model_card_matches_cpu(card):
     _head_dim_model_card_matches_cpu(card, 512)
+
+
+@pytest.mark.parametrize("hd", [640, 1024])
+def test_head_dim_past_512_model_card_matches_cpu(card, hd):
+    _head_dim_model_card_matches_cpu(card, hd)
 
 
 def _head_dim_model_card_matches_cpu(card, hd):

@@ -15,7 +15,7 @@ three admitted) call the kernel wrappers the JAX gates say, and agree with
 the JAX forward within 2e-2 of the largest logit; so does a head_dim-512
 model's fresh 512-row window, the JAX forward through its interpret-mode
 splash kernel (#5).  The attention kernels say which head_dims they are built
-for (``takes_head_dim``): #4, #5, #9 and #10 every multiple of 128 up to 512.
+for (``takes_head_dim``): #4, #5, #9 and #10 every positive multiple of 128.
 """
 
 import dataclasses
@@ -105,8 +105,8 @@ ROUTES = {  # whether the forward calls each kernel wrapper on the shape (the JA
 
 
 def test_attention_kernels_say_their_head_dims():
-    for hd in (64, 128, 192, 256, 384, 512, 640):
-        built = hd % 128 == 0 and hd <= 512
+    for hd in (0, 64, 128, 192, 256, 384, 512, 576, 640, 768, 1024, 2048):
+        built = hd > 0 and hd % 128 == 0  # every head_dim the JAX gates admit
         assert flash_attention.takes_head_dim(hd) == paged_attention.takes_head_dim(hd) == built, hd
         assert prefill_attention.takes_head_dim(hd) == built, hd
 
@@ -174,3 +174,38 @@ def test_head_dim_512_fresh_window_matches_jax_through_its_prefill_kernel(monkey
     assert jax_calls["prefill"] >= 1 and called == [(1, 512, 4, 512)] * HD512.n_layers
     err = float(np.abs(logits.float().numpy() - ref).max())
     assert np.isfinite(err) and err <= 2e-2 * float(np.abs(ref).max()), err
+
+
+HD640 = ModelConfig(architecture_id=1, dim=256, hidden_dim=512, n_layers=2, n_heads=4, n_kv_heads=2,
+                    head_dim=640, seq_len=1024, vocab_size=512, group_size=64, shared_classifier=True)
+
+
+def test_head_dim_640_window_and_decode_match_jax_through_its_kernels(monkeypatch):
+    """A head_dim past 512: a fresh 512-row window and a decode step of a
+    head_dim-640 model.  The port's forward calls #5 and #4 (their plain
+    versions here; the column-blocked kernels on the card) where the JAX
+    forward runs its splash and flash-decode kernels in interpret mode; the
+    logits agree within 2e-2 of the largest."""
+    jax_calls = route_jax_through_interpret_kernels(monkeypatch, min_seq_len=128)
+    called = {"causal_prefill_attention": 0, "flash_decode": 0}
+    for name in called:
+        def spy(*a, _name=name, _real=getattr(port_qwen3, name), **k):
+            called[_name] += 1
+            return _real(*a, **k)
+
+        monkeypatch.setattr(port_qwen3, name, spy)
+    tree = jax_numpy_weights(HD640, 13)
+    pw = weights_from_jax_numpy(tree)
+    jw = jax.tree.map(jnp.asarray, tree)
+    jcfg = JaxConfig(**dataclasses.asdict(HD640))
+    toks = np.random.default_rng(13).integers(0, HD640.vocab_size, (1, 512))
+    pcache, jcache = init_kv_cache(HD640, 1), jax_init_cache(jcfg, 1, dtype=jnp.float32)
+    for fresh, t, pos in ((True, toks, 0), (False, toks[:, -1:], 512)):
+        logits, pcache = qwen3_forward(HD640, pw, t, pcache, [pos], fresh_prefill=fresh)
+        fwd = jax.jit(lambda w, t_, c, p, _f=fresh: jax_forward(jcfg, w, t_, c, p, mode="fast", fresh_prefill=_f))
+        ref, jcache = fwd(jw, jnp.asarray(t, jnp.int32), jcache, jnp.asarray([pos], jnp.int32))
+        ref = np.asarray(ref, np.float32)
+        err = float(np.abs(logits.float().numpy() - ref).max())
+        assert np.isfinite(err) and err <= 2e-2 * float(np.abs(ref).max()), (pos, err)
+    assert jax_calls["prefill"] >= 1 and jax_calls["flash"] >= 1, jax_calls
+    assert called == {"causal_prefill_attention": HD640.n_layers, "flash_decode": HD640.n_layers}

@@ -22,11 +22,18 @@ from qwen3_rs_tpu.ops.pallas.qmatmul import (
     qmatmul_pallas_stacked_fused,
 )
 from qwen3_rs_tpu.ops.quant import QuantizedTensor as JaxQT
+import qwen3_rs_tpu_torch.ops.kernels.qmatmul as port_qmm
 from qwen3_rs_tpu_torch.ops.kernels.qmatmul import (
     MAX_ROWS,
+    TC_MIN_ROWS,
+    TC_ROW_TILES,
     qmatmul_w8a16,
+    qmatmul_w8a16_cores,
     qmatmul_w8a16_plain,
+    qmatmul_w8a16_tc,
+    route,
     split_plan,
+    tc_plan,
 )
 from qwen3_rs_tpu_torch.ops.quant import QuantizedTensor
 from qwen3_rs_tpu_torch.testing import QWEN3_CONFIGS
@@ -135,10 +142,11 @@ def test_cpu_wrapper_is_the_plain_version():
     x = torch.from_numpy(rng.normal(0, 1, (4, N)).astype(np.float32))
     from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES
 
-    before = LAUNCHES["qmatmul_w8a16"]
-    got = qmatmul_w8a16(x, tw, 0)
-    assert torch.equal(got, qmatmul_w8a16_plain(x, tw, 0))
-    assert LAUNCHES["qmatmul_w8a16"] == before  # plain calls are not launches
+    before = dict(LAUNCHES)
+    for launch in (qmatmul_w8a16, qmatmul_w8a16_cores, qmatmul_w8a16_tc):
+        got = launch(x, tw, 0)
+        assert torch.equal(got, qmatmul_w8a16_plain(x, tw, 0))
+    assert LAUNCHES == before  # plain calls are not launches
 
 
 @pytest.mark.parametrize("rows", [1, 7, MAX_ROWS])
@@ -156,3 +164,49 @@ def test_split_plan_covers_the_contraction_at_8b(rows):
         assert (splits - 1) * kc < n <= splits * kc
         blocks = -(-d // 512) * -(-rows // bt) * splits
         assert blocks >= 132 or splits * 64 >= n
+
+
+def _8b_shapes():
+    c = QWEN3_CONFIGS["8b"]
+    ah, kvd = c["n_heads"] * c["head_dim"], c["n_kv_heads"] * c["head_dim"]
+    return [(c["dim"], ah + 2 * kvd), (ah, c["dim"]), (c["dim"], 2 * c["hidden_dim"]), (c["hidden_dim"], c["dim"])]
+
+
+def test_route_is_by_rows_alone():
+    """Every window of 1-256 rows takes exactly one route, by its rows alone:
+    the CUDA cores below the crossover, the tensor cores from it on.  The
+    crossover is a module constant; the module reads no environment."""
+    assert isinstance(TC_MIN_ROWS, int) and 1 < TC_MIN_ROWS <= MAX_ROWS
+    routes = [route(rows) for rows in range(1, MAX_ROWS + 1)]
+    assert routes == ["cores"] * (TC_MIN_ROWS - 1) + ["tc"] * (MAX_ROWS - TC_MIN_ROWS + 1)
+    for rows in (0, MAX_ROWS + 1):
+        with pytest.raises(ValueError, match="activation rows"):
+            route(rows)
+    src = open(port_qmm.__file__).read()
+    assert "os.environ" not in src and "getenv" not in src and "import os" not in src
+
+
+@pytest.mark.parametrize("shape", _8b_shapes() + [(512, 1040), (520, 48), (768, 528), (256, 153600)])
+def test_tc_plan_covers_the_contraction(shape):
+    """The tensor-core route's plan at every row count 1-256 (the 8B
+    projections, ragged D and N, the classifier): the smallest row tile
+    that holds the rows, splits that cover the k-tiles with none empty, and
+    at most one k-tile per split more than needed."""
+    n, d = shape
+    k_tiles = -(-n // 64)
+    for rows in range(1, MAX_ROWS + 1):
+        tile, splits, kts = tc_plan(n, d, rows, 132)
+        assert tile == min(t for t in TC_ROW_TILES if t >= rows)
+        assert 1 <= splits <= k_tiles and (splits - 1) * kts < k_tiles <= splits * kts
+        assert splits == -(-k_tiles // kts)
+
+
+def test_tc_plan_fills_the_card_at_8b():
+    """At 16 and 64 rows (memory-bound) the plan's tiles keep at least 3/4 of
+    132 SMs busy on each 8B projection."""
+    for n, d in _8b_shapes():
+        for rows in (16, 64):
+            tile, splits, _ = tc_plan(n, d, rows, 132)
+            tiles = -(-d // (256 if tile <= 128 else 128)) * splits
+            waves = -(-tiles // 132)
+            assert tiles / (waves * 132) >= 0.7, (n, d, rows, tiles)
