@@ -16,9 +16,11 @@ Phases, in order; any failure exits non-zero before the final line:
                #11 on INT4-g64 codes; #6's column window at the 8B tp=2
                shard shapes, also bit for bit against a full launch's
                columns; #4, #5, #9 and #10 at head_dim 256 and 640, #5 at
-               384 and 512; #3 by route at 8-256 rows over the four 8B
-               projections, both routes at 8, 16 and 32 rows, the
-               measurement behind ``qmatmul.TC_MIN_ROWS``), with its time,
+               384 and 512; #3 by route at 1-256 rows over the four 8B
+               projections, the CUDA-core, mma and tensor-core routes side
+               by side at 1, 2, 3, 4, 8 and 16 rows, the measurement behind
+               ``qmatmul.MMA_MIN_ROWS`` and ``TC_MIN_ROWS``; #1 and #2 on the
+               CUDA-core and mma routes at 1 and 8 rows), with its time,
                the plain version's time, one PyTorch library call's time
                where one computes the same function, and the least time the
                card could take.
@@ -70,9 +72,11 @@ Phases, in order; any failure exits non-zero before the final line:
                pool and the dense slots, its streams held to the host
                runs' (a parting only at a near-tie), and on the dense slots
                with the INT4 weights and ``QWEN3_TPU_MEGA_Q4=1`` beside the
-               INT8 run; every decode step checked for L paged-decode
-               launches (on the dense slots: one decode-megakernel launch,
-               Q4 #11 for INT4); the
+               INT8 run, and before it, without the opt-in, 8 requests on the
+               INT4 dense slots per layer (Q4 #3 at 8 rows: its mma route);
+               every decode step checked for its launches (the pool: 4·L+1
+               #1-#3 on the mma route and L paged-decode; the dense slots:
+               one decode-megakernel launch, Q4 #11 for INT4); the
                prefix cache (15 hits, each continued window L paged-window
                launches); chunked prefill; the HTTP front end on port 0
                (answers equal to the requests run alone, then a burst of 8).
@@ -194,6 +198,16 @@ def bound(nbytes: float, ops: float, op_type: str) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def w8a16_key(rows: int, q4: bool = False) -> str:
+    """The ``LAUNCHES`` key of the fused W8A16 wrapper's route at ``rows``
+    rows (``qmatmul.route``): the CUDA cores, the mma kernel or the tensor
+    cores."""
+    from qwen3_rs_tpu_torch.ops.kernels.qmatmul import route
+
+    key = {"cores": "qmatmul_w8a16", "mma": "qmatmul_w8a16_mma", "tc": "qmatmul_w8a16_tc"}[route(rows)]
+    return key + "_q4" if q4 else key
+
+
 # ---------------------------------------------------------------------- build
 def phase_build(torch, ctx) -> None:
     from qwen3_rs_tpu_torch.ops.kernels import build
@@ -300,7 +314,7 @@ def qmatmul_cases(torch, ctx) -> list[dict]:
                   + (rows * d * 2 if has_res else 0) + (n * 4 if prologue == "rms" else 0))
         b_ms, b_by = bound(nbytes, 2.0 * rows * n * d, "bf16")
         out.append({
-            "name": "qmatmul_w8a16", "case": case, "route": "cuda",
+            "name": w8a16_key(rows), "case": case, "route": "cuda",
             "source": "qwen3_rs_tpu_torch/csrc/qmatmul_w8a16.cu",
             "replaces": ("qwen3_rs_tpu/ops/pallas/qmatmul.py:469 qmatmul_pallas" if not stacked
                          else "qwen3_rs_tpu/ops/pallas/qmatmul.py:563 qmatmul_pallas_stacked"
@@ -318,20 +332,25 @@ def qmatmul_cases(torch, ctx) -> list[dict]:
     return out
 
 
-ROUTE_ROWS = {8: ((8, "cores"), (8, "tc"), (16, "cores"), (16, "tc"), (32, "cores"), (32, "tc"), (64, "tc"),
-                  (128, "tc"), (256, "tc")),
-              4: ((16, "tc"), (256, "tc"))}
+CROSSOVER_ROWS = (1, 2, 3, 4, 8, 16)  # the three routes side by side
+ROUTE_ROWS = {8: tuple((r, rt) for r in CROSSOVER_ROWS for rt in ("cores", "mma", "tc"))
+                 + ((32, "tc"), (64, "tc"), (128, "tc"), (256, "tc")),
+              4: ((8, "mma"), (16, "tc"), (256, "tc"))}
+ROUTE_KEYS = {"cores": "qmatmul_w8a16", "mma": "qmatmul_w8a16_mma", "tc": "qmatmul_w8a16_tc"}
+ROUTE_NAMES = {"cores": "CUDA cores", "mma": "mma.sync", "tc": "tensor cores, wgmma"}
 
 
 def qmatmul_route_cases(torch, ctx) -> list[dict]:
-    """#3 by route at windows of 8-256 rows over the four 8B projections, as
-    qwen3_forward calls them (prologue, residual, x dtype): the CUDA-core
-    kernel and the tensor-core kernel side by side at 8, 16 and 32 rows (the
-    measurement that sets ``qmatmul.TC_MIN_ROWS``), the tensor-core kernel at
-    64, 128 and 256 rows; INT4 at 16 and 256 rows.  Each route is forced by
-    calling its launcher; ``route`` says which the wrapper takes."""
+    """#3 by route at windows of 1-256 rows over the four 8B projections, as
+    qwen3_forward calls them (prologue, residual, x dtype): the CUDA-core,
+    mma and tensor-core kernels side by side at 1, 2, 3, 4, 8 and 16 rows (the
+    measurement that sets ``qmatmul.MMA_MIN_ROWS`` and ``TC_MIN_ROWS``), the
+    tensor-core kernel at 32-256 rows; INT4 at 8, 16 and 256 rows.  Each
+    route is forced by calling its launcher; ``route`` says which the
+    wrapper takes."""
     from qwen3_rs_tpu_torch.ops.kernels.qmatmul import (
-        dequant_q4_stacked_plain, qmatmul_w8a16_cores, qmatmul_w8a16_plain, qmatmul_w8a16_tc, route,
+        dequant_q4_stacked_plain, qmatmul_w8a16_cores, qmatmul_w8a16_mma, qmatmul_w8a16_plain, qmatmul_w8a16_tc,
+        route,
     )
     from qwen3_rs_tpu_torch.ops.matmul import dequant_weights
     from qwen3_rs_tpu_torch.ops.quant import QuantizedTensor
@@ -343,7 +362,7 @@ def qmatmul_route_cases(torch, ctx) -> list[dict]:
     f32, bf16 = torch.float32, torch.bfloat16
     specs = [("wqkv+rms", dim, ah + 2 * kvd, "rms", False, bf16), ("wo+residual", ah, dim, None, True, f32),
              ("w13+rms", dim, 2 * hid, "rms", False, bf16), ("w2+swiglu+residual", hid, dim, "swiglu", True, f32)]
-    launchers = {"cores": qmatmul_w8a16_cores, "tc": qmatmul_w8a16_tc}
+    launchers = {"cores": qmatmul_w8a16_cores, "mma": qmatmul_w8a16_mma, "tc": qmatmul_w8a16_tc}
     gen = torch.Generator(device=DEV)
     gen.manual_seed(9090)
     out, crossover = [], {}
@@ -380,25 +399,86 @@ def qmatmul_route_cases(torch, ctx) -> list[dict]:
                 nbytes = (wbytes + x.numel() * x.element_size() + rows * d * 4 + (rows * d * 2 if has_res else 0)
                           + (n * 4 if prologue == "rms" else 0))
                 b_ms, b_by = bound(nbytes, 2.0 * rows * n * d, "bf16")
-                name = ("qmatmul_w8a16_tc" if rt == "tc" else "qmatmul_w8a16") + ("_q4" if bits == 4 else "")
+                name = ROUTE_KEYS[rt] + ("_q4" if bits == 4 else "")
                 out.append(_row(
-                    ctx, name, f"{proj} rows={rows} ({'tensor' if rt == 'tc' else 'CUDA'} cores"
-                    f"{', the route' if route(rows) == rt else ''})",
+                    ctx, name, f"{proj} rows={rows} ({ROUTE_NAMES[rt]}{', the route' if route(rows) == rt else ''})",
                     "qwen3_rs_tpu_torch/csrc/qmatmul_w8a16.cu" + (" + w8a16_wgmma.cuh" if rt == "tc" else ""),
                     "qwen3_rs_tpu/ops/pallas/qmatmul.py:761 qmatmul_pallas_stacked_fused"
                     + (" (Q4 tiles, :34 _dequant_tile_q4)" if bits == 4 else ""),
                     {"rows": rows, "N": n, "D": d, "g": g, "bits": bits, "route": rt}, err, tol, ms, plain_ms, nbytes,
                     b_ms, b_by, lib_ms, "torch.matmul bf16, weights dequantized beforehand",
                 ))
-                if bits == 8 and rows <= 32:
+                if bits == 8 and rows in CROSSOVER_ROWS:
                     crossover.setdefault(rows, {}).setdefault(rt, 0.0)
                     crossover[rows][rt] += ms
                 del x, kw, ref, got
             del w, dense, norm_w
             torch.cuda.empty_cache()
-    # Both routes over the four projections: the rows from which the tensor cores win.
-    emit({"phase": "kernels", "crossover_ms_four_projections": crossover,
-          "tc_faster_from_rows": min((r for r, t in crossover.items() if t["tc"] < t["cores"]), default=None)})
+    # The three routes over the four projections: the fastest at each row count.
+    fastest = {r: min(t, key=t.get) for r, t in crossover.items()}
+    ctx["crossover"] = {"ms_four_projections": crossover, "fastest": fastest}
+    emit({"phase": "kernels", "crossover_ms_four_projections": crossover, "fastest_route_by_rows": fastest,
+          "mma_beats_cores_from_rows": min((r for r, t in crossover.items() if t["mma"] < t["cores"]), default=None),
+          "tc_beats_mma_from_rows": min((r for r, t in crossover.items() if t["tc"] < t["mma"]), default=None)})
+    return out
+
+
+def qmatmul_single_route_cases(torch, ctx) -> list[dict]:
+    """#1 (the 8B classifier, 2-D weights) and #2 (``wo`` alone, no prologue
+    or residual) on the CUDA-core and mma kernels at 1 and 8 rows: with the
+    four projections' crossover, whether 1 row keeps the CUDA-core kernel."""
+    from qwen3_rs_tpu_torch.ops.kernels.qmatmul import qmatmul_w8a16_cores, qmatmul_w8a16_mma, qmatmul_w8a16_plain, route
+    from qwen3_rs_tpu_torch.ops.matmul import dequant_weights
+    from qwen3_rs_tpu_torch.ops.quant import QuantizedTensor
+    from qwen3_rs_tpu_torch.testing import padded_vocab, qwen3_config
+
+    c = qwen3_config("8b")
+    g = c.group_size
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(4321)
+    launchers = {"cores": qmatmul_w8a16_cores, "mma": qmatmul_w8a16_mma}
+    out, one_row = [], {}
+    for case, n, d, stacked in (("lm_head", c.dim, padded_vocab(c.vocab_size), False),
+                                ("wo stacked", c.all_heads_dim, c.dim, True)):
+        wbytes = n * d + (n // g) * d * 2
+        nl = _layers_for(wbytes) if stacked else 1
+        shape = (nl, n, d) if stacked else (n, d)
+        w = QuantizedTensor(torch.randint(-127, 128, shape, generator=gen, device=DEV, dtype=torch.int8),
+                            (torch.rand((*shape[:-2], n // g, d), generator=gen, device=DEV) * 0.02).to(torch.bfloat16))
+        dense = [dequant_weights(QuantizedTensor(w.q[l], w.scales[l]) if stacked else w) for l in range(2 if stacked else 1)]
+        layer = (lambda i: i % nl) if stacked else (lambda i: None)
+        xdt = torch.float32 if stacked else torch.bfloat16
+        for rows in (1, 8):
+            x = torch.randn(rows, n, generator=gen, device=DEV).to(xdt)
+            ref = qmatmul_w8a16_plain(x, w, layer(1))
+            xl = x.to(torch.bfloat16)
+            lib_ms = device_ms(torch, lambda i: torch.matmul(xl, dense[i % len(dense)]))
+            plain_ms = device_ms(torch, lambda i: qmatmul_w8a16_plain(x, w, layer(i)), reps=3, warmup=1)
+            nbytes = wbytes + x.numel() * x.element_size() + rows * d * 4
+            b_ms, b_by = bound(nbytes, 2.0 * rows * n * d, "bf16")
+            for rt, launch in launchers.items():
+                got = launch(x, w, layer(1))
+                torch.cuda.synchronize()
+                err, tol = float((got - ref).abs().max()), 1e-4 * float(ref.abs().max())
+                need(math.isfinite(err) and err <= tol, f"#1/#2 {rt} {case} rows={rows}: {err} > {tol}")
+                ms = device_ms(torch, lambda i: launch(x, w, layer(i)))
+                one_row.setdefault(f"{case} rows={rows}", {})[rt] = ms
+                out.append(_row(
+                    ctx, ROUTE_KEYS[rt], f"{case} rows={rows} ({ROUTE_NAMES[rt]}{', the route' if route(rows) == rt else ''})",
+                    "qwen3_rs_tpu_torch/csrc/qmatmul_w8a16.cu",
+                    "qwen3_rs_tpu/ops/pallas/qmatmul.py:469 qmatmul_pallas" if not stacked
+                    else "qwen3_rs_tpu/ops/pallas/qmatmul.py:563 qmatmul_pallas_stacked",
+                    {"rows": rows, "N": n, "D": d, "g": g, "route": rt}, err, tol, ms, plain_ms, nbytes, b_ms, b_by,
+                    lib_ms, "torch.matmul bf16, weights dequantized beforehand",
+                ))
+                del got
+            del x, ref
+        del w, dense
+        torch.cuda.empty_cache()
+    four = ctx["crossover"]["ms_four_projections"][1]
+    emit({"phase": "kernels", "one_row_cores_vs_mma_ms": {**one_row, "four projections rows=1": four},
+          "mma_faster_at_1_row_everywhere": four["mma"] < four["cores"]
+          and all(t["mma"] < t["cores"] for k, t in one_row.items() if k.endswith("rows=1"))})
     return out
 
 
@@ -836,7 +916,7 @@ def qmatmul_q4_cases(torch, ctx) -> list[dict]:
                   + (rows * d * 2 if has_res else 0) + (n * 4 if prologue == "rms" else 0))
         b_ms, b_by = bound(nbytes, 2.0 * rows * n * d, "bf16")
         out.append(_row(
-            ctx, "qmatmul_w8a16_q4", case, "qwen3_rs_tpu_torch/csrc/qmatmul_w8a16.cu",
+            ctx, w8a16_key(rows, q4=True), case, "qwen3_rs_tpu_torch/csrc/qmatmul_w8a16.cu",
             "qwen3_rs_tpu/ops/pallas/qmatmul.py:761 qmatmul_pallas_stacked_fused (Q4 tiles, :34 _dequant_tile_q4)",
             {"rows": rows, "N": n, "D": d, "g": g, "bits": 4}, err, tol, ms, plain_ms, nbytes, b_ms, b_by, lib_ms,
             "torch.matmul bf16, weights dequantized beforehand",
@@ -1361,7 +1441,8 @@ def phase_kernels(torch, ctx) -> None:
     from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES
 
     before = dict(LAUNCHES)
-    ctx["kernel_rows"] = (qmatmul_cases(torch, ctx) + qmatmul_route_cases(torch, ctx) + flash_cases(torch, ctx)
+    ctx["kernel_rows"] = (qmatmul_cases(torch, ctx) + qmatmul_route_cases(torch, ctx)
+                          + qmatmul_single_route_cases(torch, ctx) + flash_cases(torch, ctx)
                           + prefill_attention_cases(torch, ctx)
                           + rows_cases(torch, ctx) + dequant_cases(torch, ctx) + a8_cases(torch, ctx)
                           + paged_decode_cases(torch, ctx) + paged_window_cases(torch, ctx)
@@ -1857,7 +1938,7 @@ def int4_path(torch, ctx, cfg, tok) -> dict:
     out = {"device_memory_gb": torch.cuda.memory_allocated() / 1e9}
     engine = Engine(config=cfg, weights=weights, device=DEV)
     prompt = prompt_text(200)
-    step = {"qmatmul_w8a16_q4": 4 * n_l, "qmatmul_w8a16": 1, "flash_decode": n_l}
+    step = {w8a16_key(1, q4=True): 4 * n_l, w8a16_key(1): 1, "flash_decode": n_l}
     recs: list = []
     reset_launches()  # this path's run starts here
     with forward_records(torch, engine_mod, recs):
@@ -1865,7 +1946,8 @@ def int4_path(torch, ctx, cfg, tok) -> dict:
     launches = dict(LAUNCHES)  # and ends here
     ctx["path_launches"]["int4_decode"] = launches
     need(len(ids) > 1 and recs[0]["rows"] == len(tok.encode(prompt)), f"INT4 generate: {len(ids)} tokens")
-    _expect(recs[0], {"qmatmul_w8a16_tc_q4": 4 * n_l, "qmatmul_w8a16": 1}, "INT4 prompt window")
+    window = recs[0]["rows"]
+    _expect(recs[0], {w8a16_key(window, q4=True): 4 * n_l, w8a16_key(1): 1}, "INT4 prompt window")
     for rec in recs[1:]:
         _expect(rec, step, "INT4 decode step")
     need(launches["decode_megakernel"] == 0, "INT4 decode took the megakernel")
@@ -1924,7 +2006,7 @@ def int4_megakernel_path(torch, ctx, cfg, engine, tok, prompt, per_layer_step_s)
         launches = dict(LAUNCHES)  # and ends here
         ctx["path_launches"]["int4_megakernel_decode"] = launches
         need(len(ids) > 2, f"INT4 megakernel generate: {len(ids)} tokens")
-        _expect(recs[0], {"qmatmul_w8a16_tc_q4": 4 * n_l, "qmatmul_w8a16": 1}, "INT4 prompt window")
+        _expect(recs[0], {w8a16_key(recs[0]["rows"], q4=True): 4 * n_l, w8a16_key(1): 1}, "INT4 prompt window")
         for rec in recs[1:]:
             _expect(rec, {"decode_megakernel_q4": 1}, "INT4 decode step (Q4 megakernel)")
         steady = [r["seconds"] for r in recs[2:]]
@@ -1932,7 +2014,7 @@ def int4_megakernel_path(torch, ctx, cfg, engine, tok, prompt, per_layer_step_s)
         out = {"generated": len(ids), "decode_step_ms": step_s * 1e3, "decode_tok_per_s": 1.0 / step_s,
                "decode_step_ms_p90": statistics.quantiles(steady, n=10)[-1] * 1e3, "decode_step_samples": len(steady),
                "per_layer_decode_step_ms_same_call": per_layer_step_s * 1e3,
-               "launches_per_decode_step": {"decode_megakernel_q4": 1, "qmatmul_w8a16_q4": 0},
+               "launches_per_decode_step": {"decode_megakernel_q4": 1, w8a16_key(1, q4=True): 0},
                "every_step_checked": True, "launches": launches}
         out["profile"] = profile_decode(torch, engine, prompt_ids=tok.encode(prompt))
         # Device sampling on the same route: one chunk, greedy, checked for
@@ -1967,14 +2049,32 @@ def int4_megakernel_path(torch, ctx, cfg, engine, tok, prompt, per_layer_step_s)
     return out
 
 
+INT4_PER_LAYER_REQUESTS = 8  # the INT4 dense run without the opt-in: one full wave of slots
+INT4_PER_LAYER_NEW_TOKENS = 16
+
+
 def int4_dense_batch(torch, ctx, cfg, traffic) -> dict:
     """The serve traffic on the INT4 weights' dense slots with device
     sampling (the ``batch`` CLI's defaults) and the Q4 megakernel opted in:
-    every chunk step one Q4 megakernel launch.  It frees the INT4 weights."""
+    every chunk step one Q4 megakernel launch.  Before it, the JAX default
+    (not opted in) on the first 8 requests, 16 new tokens each: every chunk
+    step 4·L Q4 #3 launches at 8 rows (its mma route) and the INT8
+    classifier's.  It frees the INT4 weights."""
     from qwen3_rs_tpu_torch.serving import ContinuousBatchingEngine
 
     weights = model_8b_q4(torch, ctx)
     ctx.pop("8b_q4")  # freed with this run's last reference
+    n_l = cfg.n_layers
+    with q4_megakernel_opt_in(False):
+        engine = ContinuousBatchingEngine(config=cfg, weights=weights, n_slots=8, kv_layout="dense", sampling="device",
+                                          device=DEV)
+        engine.warmup()
+        short = [(p, INT4_PER_LAYER_NEW_TOKENS) for p, _ in traffic[:INT4_PER_LAYER_REQUESTS]]
+        per_layer = _serve_run(torch, ctx, "int4_dense_device_per_layer", engine, short, n_l, profile=False,
+                               want={w8a16_key(8, q4=True): 4 * n_l, w8a16_key(8): 1, "flash_decode": n_l})
+    ctx["serve"]["int4_dense_device_per_layer"] = per_layer
+    del engine
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     with q4_megakernel_opt_in():
         engine = ContinuousBatchingEngine(config=cfg, weights=weights, n_slots=8, kv_layout="dense", sampling="device",
@@ -2096,7 +2196,7 @@ def megakernel_off_path(torch, ctx, cfg, engine, tok, prompt, steady_on) -> dict
     ctx["path_launches"]["megakernel_off"] = launches
     need(len(ids) > 1, "gate-off generate stopped before its first decode step")
     for rec in recs[1:]:
-        _expect(rec, {"qmatmul_w8a16": 4 * n_l + 1, "flash_decode": n_l}, "gate-off decode step")
+        _expect(rec, {w8a16_key(1): 4 * n_l + 1, "flash_decode": n_l}, "gate-off decode step")
     steady_off = [r["seconds"] for r in recs[2:]]
     out = {"generated": len(ids), "decode_step_ms": statistics.median(steady_off) * 1e3,
            "decode_tok_per_s": 1.0 / statistics.median(steady_off),
@@ -2126,9 +2226,10 @@ def device_sampling_path(torch, ctx, cfg, engine, tok, prompt, host_ids) -> dict
                       max_tokens=DECODE_TOKENS)
     made = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
     need(greedy == host_ids, "device-sampling greedy generate differs from the host-greedy stream")
+    window, head = w8a16_key(len(tok.encode(prompt))), w8a16_key(1)
     need(made.get("decode_megakernel", 0) >= len(greedy) - 1
-         and set(made) == {"qmatmul_w8a16_tc", "qmatmul_w8a16", "decode_megakernel"}
-         and made["qmatmul_w8a16_tc"] == 4 * n_l and made["qmatmul_w8a16"] == 1,
+         and set(made) == {window, head, "decode_megakernel"}
+         and made[window] == 4 * n_l and made[head] == 1,
          f"device-sampling generate launched {made}")
     sampled = [generate(engine, tok, TokenSampler(0.8, 0.9, 7, device=True), prompt, out=io.StringIO(),
                         max_tokens=DECODE_TOKENS) for _ in range(2)]
@@ -2187,7 +2288,7 @@ def dense_b9_path(torch, ctx, cfg, engine) -> dict:
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         made = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
-        need(made == {"qmatmul_w8a16_tc": 4 * n_l + 1, "flash_decode": n_l}, f"B=9 decode step launched {made}")
+        need(made == {w8a16_key(9): 4 * n_l + 1, "flash_decode": n_l}, f"B=9 decode step launched {made}")
         need(logits.shape == (b, cfg.vocab_size) and bool(torch.isfinite(logits).all()), "B=9 logits malformed")
     launches = dict(LAUNCHES)  # and ends here
     ctx["path_launches"]["dense_b9"] = launches
@@ -2219,7 +2320,7 @@ def long_prompt_path(torch, ctx, cfg, engine, tok, q4: bool = False) -> dict:
     need(len(windows) == 2 and windows[0][1] == 2048, f"prompt of {n_tok} tokens: windows {windows}")
     runs = []
     rows_key = "qmatmul_w8a16_rows_q4" if q4 else "qmatmul_w8a16_rows"
-    step = ({"qmatmul_w8a16_q4": 4 * n_l, "qmatmul_w8a16": 1, "flash_decode": n_l} if q4
+    step = ({w8a16_key(1, q4=True): 4 * n_l, w8a16_key(1): 1, "flash_decode": n_l} if q4
             else {"decode_megakernel": 1})
     reset_launches()  # this path's run starts here
     for _ in range(1 if q4 else 2):
@@ -2238,7 +2339,7 @@ def long_prompt_path(torch, ctx, cfg, engine, tok, q4: bool = False) -> dict:
             need((recs[i]["rows"], recs[i]["pos"]) == (rows, off), f"window {i}: {recs[i]['rows']} rows at {recs[i]['pos']}")
             need(rows > 256, f"window {i} of {rows} rows takes the fused kernel")
             _expect(recs[i], {rows_key: 4 * n_l, "causal_prefill_attention": n_l if off == 0 else 0,
-                              "qmatmul_w8a16": 1}, f"prefill window {i}")
+                              w8a16_key(1): 1}, f"prefill window {i}")
         for rec in recs[len(windows):]:
             _expect(rec, step, "decode step")
     ids, recs, t0 = runs[-1]
@@ -2298,7 +2399,7 @@ def continued_window_path(torch, ctx, cfg, engine) -> dict:
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         made = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
-        need(made == {"qmatmul_w8a16_tc": 4 * n_l, "qmatmul_w8a16": 1}, f"continued 32-row window launched {made}")
+        need(made == {w8a16_key(32): 4 * n_l, w8a16_key(1): 1}, f"continued 32-row window launched {made}")
         need(bool(torch.isfinite(logits).all()), "continued window logits are not finite")
     launches = dict(LAUNCHES)  # and ends here
     ctx["path_launches"]["continued_window"] = launches
@@ -2488,9 +2589,11 @@ def _instrument_engine(torch, engine, records: list):
         engine._prefill_paged = wrap("prefill", engine._prefill_paged)
 
 
-def _serve_run(torch, ctx, name, engine, traffic, n_layers, *, profile=True) -> dict:
+def _serve_run(torch, ctx, name, engine, traffic, n_layers, *, profile=True, want=None) -> dict:
     """Submit ``traffic`` at once and run the engine to the end, every
-    decode step checked for its launches; then the numbers of the run."""
+    decode step checked for its launches (``want`` a step, by default the
+    pool's per-layer kernels or the dense slots' megakernel); then the
+    numbers of the run."""
     from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES, reset_launches
     from qwen3_rs_tpu_torch.serving import Request
 
@@ -2500,7 +2603,8 @@ def _serve_run(torch, ctx, name, engine, traffic, n_layers, *, profile=True) -> 
     # The pool's decode takes the per-layer kernels; the dense slots' (8 rows)
     # the megakernel, with the idle slots' writes gated off.
     mk = "decode_megakernel_q4" if isinstance(engine.weights.layers.wqkv, Q4Tensor) else "decode_megakernel"
-    want = {"qmatmul_w8a16": 4 * n_layers + 1, "paged_decode": n_layers} if paged else {mk: 1}
+    if want is None:
+        want = {w8a16_key(engine.n_slots): 4 * n_layers + 1, "paged_decode": n_layers} if paged else {mk: 1}
     recs: list = []
     _instrument_engine(torch, engine, recs)
     reqs = [Request(i, p, max_new_tokens=n, eos_token_ids=()) for i, (p, n) in enumerate(traffic)]
@@ -2533,7 +2637,8 @@ def _serve_run(torch, ctx, name, engine, traffic, n_layers, *, profile=True) -> 
         "decode_steps_8_active": len(full),
         "prefill_windows": [(r["rows"], r["seconds"] * 1e3) for r in recs if r["kind"] == "prefill"],
         "prefill_records": [r for r in recs if r["kind"] == "prefill"],
-        "launches": launches, "every_step_checked": True, "sampling": engine.sampling,
+        "launches": launches, "launches_per_decode_step": want, "every_step_checked": True,
+        "sampling": engine.sampling,
         "streams": {r.request_id: r.generated for r in done},
     }
     if profile:
@@ -3215,8 +3320,8 @@ def cli_export(torch, ctx) -> None:
         launches = dict(LAUNCHES)  # and ends here
         ctx["path_launches"][f"cli_export_{name}"] = launches
         need(rc == 0, f"cli inference on the exported {name} exited {rc}")
-        key = "qmatmul_w8a16_q4" if q4 else "qmatmul_w8a16"
-        need(launches[key] > 0 and (launches["qmatmul_w8a16_q4"] == 0) == (not q4), f"cli {name}: launched {launches}")
+        key = w8a16_key(1, q4)
+        need(launches[key] > 0 and (launches[w8a16_key(1, True)] == 0) == (not q4), f"cli {name}: launched {launches}")
         cfg, weights = load_checkpoint(ckpt)
         need(cfg.weight_bits == (4 if q4 else 8), f"{name}: weight_bits {cfg.weight_bits}")
         api = io.StringIO()
@@ -3402,7 +3507,7 @@ def parity_gated_shapes(torch, ctx) -> None:
          {"flash_decode": False, "causal_prefill_attention": False, "decode_megakernel": False}),
         ("INT4 g512", ModelConfig(architecture_id=1, dim=1024, hidden_dim=3072, n_heads=4, n_kv_heads=2, head_dim=128,
                                   group_size=512, shared_classifier=True, **common), 4,
-         {"qmatmul_w8a16_q4": True, "decode_megakernel_q4": False}),
+         {w8a16_key(1, True): True, "decode_megakernel_q4": False}),
         ("kv_mul 5", ModelConfig(architecture_id=1, dim=1024, hidden_dim=3072, n_heads=10, n_kv_heads=2, head_dim=128,
                                  group_size=64, shared_classifier=True, **common), 8,
          {"flash_decode": True, "causal_prefill_attention": True}),

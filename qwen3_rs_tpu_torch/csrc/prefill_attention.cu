@@ -15,23 +15,29 @@
 //
 // Bound on the H100: 4 * (S(S+1)/2) * hd operations per query head (Q.K^T and P.V over the
 // causal triangle) at 989 TFLOP/s bf16; the bytes (q, k, v and out, each once) are far fewer.
-// Design (a flash-attention forward):
+// Design at head_dim 128 and 256 (a flash-attention forward in Hopper's shape):
 //  * one block per (query tile, kv head and group of M query heads, batch row) holds the M
 //    heads, 128 query rows in all (128 / M rows per head), so each K/V tile read from device
-//    memory serves the M heads; 8 warps of 16 query rows each.  M is the largest power of two
-//    up to 8 that divides kv_mul, so any kv_mul works (3 or 5 read each tile 3 or 5 times);
-//  * K/V tiles of 64 rows in shared memory (rows padded by 16 bytes: ldmatrix without bank
-//    conflicts), mma.sync m16n8k16 for Q.K^T and for P.V, the score tile and the output
-//    accumulator in registers;
-//  * head_dim is a template parameter.  At 256 the K/V tiles hold 32 rows, so that both fit the
-//    48 KB of static shared memory; the Q fragments and the output accumulator double, to 192
-//    registers a thread.  Wider heads (384, 512) would need 288 and 384 registers a thread this
-//    way, past the 255 a thread may use, so they take the wide kernel below;
-//  * key tiles past the block's last query row are never visited (fully masked), only tiles on
-//    the diagonal or past the window's end are masked element by element;
-//  * the query tiles with the most key tiles are scheduled first.
-// The wide kernel (head_dim 384 and 512) keeps the same block, warps and online softmax, with two
-// changes that keep a thread's registers near those of head_dim 128:
+//    memory serves the M heads.  M is the largest power of two up to 8 that divides kv_mul, so
+//    any kv_mul works (3 or 5 read each tile 3 or 5 times);
+//  * a producer warp issues TMA loads of K and V tiles (128 rows at head_dim 128, 64 at 256; a
+//    4-D tensor map over [B, S, KV, hd], 64-column boxes with 128-byte swizzle; rows past the
+//    window read zeros) into a ring of stages (3 at head_dim 128, 2 at 256: 224 and 192 KB with
+//    q), with full and empty mbarriers; it gives its registers to the consumers (setmaxnreg
+//    40 / 232);
+//  * two consumer warpgroups, each with 64 of the block's query rows (warp w holds the rows
+//    16 w .. 16 w + 15 of the block, as the heads are packed).  Q, scaled and rounded as it is
+//    loaded, is written once into shared memory in wgmma's K-major 128-byte-swizzled layout;
+//    S = Q.K^T is one group of wgmma m64n{tile}k16 with both operands in shared memory; the online
+//    softmax runs in f32 registers; O += P.V is a group of register-A wgmma m64n{hd}k16 (hi and
+//    lo parts of P, each tile's 16 keys) with V read MN-major from the same stage, O in f32
+//    registers (64 or 128 a thread);
+//  * key tiles past the block's last query row are never loaded; a warpgroup skips the tiles
+//    past its own last row; only tiles on the diagonal or past the window's end are masked
+//    element by element; the query tiles with the most key tiles are scheduled first.
+// The wide kernel (head_dim 384 and 512) keeps the same block and online softmax on 8 warps of
+// mma.sync m16n8k16 (16 query rows a warp, K/V tiles of 64 rows loaded by all threads, ldmatrix
+// fragments), and keeps a thread's registers near those of head_dim 128 this way:
 //  * the block's 128 query rows (scaled and rounded as above) sit in dynamic shared memory, and
 //    each Q.K^T step reads its Q fragment from there with ldmatrix;
 //  * the output is split over column blocks of 128: a block computes the scores over the whole
@@ -44,6 +50,7 @@
 // loads a 128-column piece of Q (scaled and rounded as above) and of the K tile into shared
 // memory, 68 KB whatever the head.  Q is read once per key tile and column block (from L2): right
 // first, fast later.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -54,9 +61,6 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRows = kWarps * 16;  // query rows per block, all heads of the group
-
-// Key rows per K/V tile: both tiles stay within 48 KB of static shared memory.
-__host__ __device__ constexpr int kv_tile(int hd) { return hd <= 128 ? 64 : 32; }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -97,128 +101,325 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint3
   lo = pack_bf16(a - hf.x, b - hf.y);
 }
 
+// ------------------------------------------------------- head_dim 128 and 256: TMA and wgmma
+namespace hopper {
+
+constexpr int kConsumerWarps = 8;                    // two warpgroups of 64 query rows
+constexpr int kThreads = kConsumerWarps * 32 + 128;  // and a producer warpgroup
+
+template <int HD>
+struct Tile {
+  static constexpr int BKV = HD <= 128 ? 128 : 64;  // key rows per K/V tile
+  static constexpr int BOXES = HD / 64;           // 64-column (128-byte) boxes of a row
+  static constexpr int BOX = BKV * 128;           // one box of a K or V tile
+  static constexpr int Q_BYTES = kRows * HD * 2;  // the block's scaled q
+  static constexpr int KV_BYTES = BOXES * BOX;    // one K or V tile
+  static constexpr int STAGE = 2 * KV_BYTES;
+  static constexpr int STAGES = HD <= 128 ? 3 : 2;
+  static constexpr int SMEM = Q_BYTES + STAGES * STAGE + 2 * STAGES * 8 + 1024;  // + barriers, alignment
+  static_assert(Q_BYTES % 1024 == 0 && BOX % 1024 == 0, "tiles keep the swizzle's alignment");
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// A 4-D TMA load of the box at (c0, c1, c2, c3) (innermost first), counted on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                            int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma's descriptor of a K-major bf16 tile with 128-byte swizzle: rows of 128 bytes, 8-row
+// groups 1024 bytes apart.  A k-step of 16 columns adds 32 bytes within a box.
+__device__ __forceinline__ uint64_t desc_k(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+// The descriptor of an MN-major bf16 tile with 128-byte swizzle (V for P.V: keys on K, head
+// columns on N): 8-key groups 1024 bytes apart, 64-column boxes `box` bytes apart.
+__device__ __forceinline__ uint64_t desc_mn(uint32_t addr, uint32_t box) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(box >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+
+// Keeps the compiler from moving accesses of the accumulators across the asynchronous wgmma.
+template <int K>
+__device__ __forceinline__ void fence_acc(float (&d)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// S (64 x 64 or 64 x 128, f32) = A . B, or += where scale_d: A (64 x 16) and B (16 x 64 or
+// 16 x 128) in shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// O (64 x 128, f32) += A . B: A (64 x 16) in registers, B (16 x 128) in shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// O (64 x 256, f32) += A . B: A (64 x 16) in registers, B (16 x 256) in shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
-prefill_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                         int S, int H, int KV, int kv_mul, int M, float q_scale) {
-  constexpr int BKV = kv_tile(HD);        // key rows per tile
-  constexpr int KV_STRIDE = HD + 8;       // bf16 per shared K/V row
-  constexpr int kPieces = HD / 8;         // 16-byte pieces of a K/V row
-  constexpr int kLoads = BKV * kPieces / kThreads;
-  static_assert(kLoads * kThreads == BKV * kPieces, "a K/V tile is whole loads of every thread");
-  __shared__ __align__(16) __nv_bfloat16 Ks[BKV * KV_STRIDE];
-  __shared__ __align__(16) __nv_bfloat16 Vs[BKV * KV_STRIDE];
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+prefill_attention_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+                         const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ out, int S,
+                         int H, int kv_mul, int M, float q_scale) {
+  using T = Tile<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  uint8_t* smem = smem_raw + (((raw + 1023u) & ~1023u) - raw);  // the swizzle's 1024-byte grid
+  uint8_t* kv = smem + T::Q_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(kv + T::STAGES * T::STAGE);
+  uint64_t* empty = full + T::STAGES;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int bq = kRows / M;  // query rows per head in this block
   const int n_qt = (S + bq - 1) / bq;
   const int q0 = (n_qt - 1 - (int)blockIdx.x) * bq;  // longest tiles first
   const int groups = kv_mul / M;
   const int kvh = blockIdx.y / groups, b = blockIdx.z;
-  const int warps_per_head = kWarps / M;
-  const int h = kvh * kv_mul + (blockIdx.y % groups) * M + warp / warps_per_head;
-  const int r0 = q0 + (warp % warps_per_head) * 16;  // this warp's first query row
-  const int row_a = r0 + (lane >> 2), row_b = row_a + 8;  // this thread's two rows
-
-  // Q fragments of the warp's 16 rows x HD, scaled and rounded to bf16 as they are loaded.
-  uint32_t qf[HD / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = (r & 1) ? row_b : row_a;
-      const int col = ks * 16 + (lane & 3) * 2 + ((r & 2) ? 8 : 0);
-      uint32_t val = 0u;
-      if (row < S) {
-        const __nv_bfloat162 x2 = *reinterpret_cast<const __nv_bfloat162*>(
-            q + (((long)b * S + row) * H + h) * HD + col);
-        const float2 f = __bfloat1622float2(x2);
-        val = pack_bf16(f.x * q_scale, f.y * q_scale);
-      }
-      qf[ks][r] = val;
+  const int wph = kWarps / M;  // warps per head
+  const int h0 = kvh * kv_mul + (blockIdx.y % groups) * M;
+  constexpr int kBkv = T::BKV;
+  const int n_kt = (min(S, q0 + bq) + kBkv - 1) / kBkv;  // keys past the last query row: masked
+  if (tid == 0) {
+    for (int st = 0; st < T::STAGES; ++st) {
+      mbar_init(smem_addr(&full[st]), 1);
+      mbar_init(smem_addr(&empty[st]), kConsumerWarps);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  float o[HD / 8][4];
+  if (warp >= kConsumerWarps) {  // the producer: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == kConsumerWarps && lane == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int kt = 0; kt < n_kt; ++kt) {
+        mbar_wait(smem_addr(&empty[stage]), phase ^ 1);
+        const uint32_t bar = smem_addr(&full[stage]);
+        mbar_expect_tx(bar, T::STAGE);
+        const uint32_t st = smem_addr(kv + stage * T::STAGE);
 #pragma unroll
-  for (int i = 0; i < HD / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
-
-  const int kv_end = min(S, q0 + bq);  // keys past the block's last query row are all masked
-  const int n_kt = (kv_end + BKV - 1) / BKV;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int kv0 = kt * BKV;
-    __syncthreads();  // the previous tile is consumed
-#pragma unroll
-    for (int i = 0; i < kLoads; ++i) {
-      const int id = tid + i * kThreads, r = id / kPieces, ch = id % kPieces;
-      const int key = kv0 + r;
-      const long src = (((long)b * S + key) * KV + kvh) * HD + ch * 8;
-      *reinterpret_cast<uint4*>(&Ks[r * KV_STRIDE + ch * 8]) =
-          key < S ? *reinterpret_cast<const uint4*>(k + src) : zero;
-      *reinterpret_cast<uint4*>(&Vs[r * KV_STRIDE + ch * 8]) =
-          key < S ? *reinterpret_cast<const uint4*>(v + src) : zero;
-    }
-    __syncthreads();
-
-    // Scores of 16 rows x BKV keys.
-    float s[BKV / 8][4];
-#pragma unroll
-    for (int i = 0; i < BKV / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks) {
-#pragma unroll
-      for (int nj = 0; nj < BKV / 16; ++nj) {
-        uint32_t b0, b1, b2, b3;
-        const int key = nj * 16 + (lane & 7) + (lane >> 4) * 8;
-        const int col = ks * 16 + ((lane >> 3) & 1) * 8;
-        ldsm_x4(smem_addr(&Ks[key * KV_STRIDE + col]), b0, b1, b2, b3);
-        mma_bf16(s[2 * nj], qf[ks], b0, b1);
-        mma_bf16(s[2 * nj + 1], qf[ks], b2, b3);
+        for (int c = 0; c < T::BOXES; ++c) {
+          tma_load_4d(st + c * T::BOX, &kmap, bar, c * 64, kvh, kt * kBkv, b);
+          tma_load_4d(st + T::KV_BYTES + c * T::BOX, &vmap, bar, c * 64, kvh, kt * kBkv, b);
+        }
+        if (++stage == T::STAGES) stage = 0, phase ^= 1;
       }
     }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
 
-    // Causal mask and the window's end, only where the tile reaches them.
-    if (kv0 + BKV - 1 > r0 || kv0 + BKV > S) {
+  const int wg = warp >> 2, r8 = lane >> 2, t4 = lane & 3;
+  const int h = h0 + warp / wph;
+  const int r0 = q0 + (warp % wph) * 16;  // this warp's first query row
+  const int row_a = r0 + r8, row_b = row_a + 8;
+
+  // The warpgroup's 64 rows of q (row rr is warp 4 wg + rr / 16's row rr % 16), scaled and
+  // rounded, in the K-major swizzled layout: box c holds columns 64 c .. 64 c + 63.
+  uint8_t* qw = smem + wg * (T::Q_BYTES / 2);
+  for (int i = tid & 127; i < 64 * (HD / 8); i += 128) {
+    const int rr = i / (HD / 8), ch = i % (HD / 8);
+    const int w = 4 * wg + rr / 16;
+    const int row = q0 + (w % wph) * 16 + rr % 16;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row < S) {
+      const uint4 x = *reinterpret_cast<const uint4*>(q + (((long)b * S + row) * H + h0 + w / wph) * HD + ch * 8);
+      const uint32_t words[4] = {x.x, x.y, x.z, x.w};
+      uint32_t scaled[4];
 #pragma unroll
-      for (int ni = 0; ni < BKV / 8; ++ni)
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&words[e]));
+        scaled[e] = pack_bf16(f.x * q_scale, f.y * q_scale);
+      }
+      val = make_uint4(scaled[0], scaled[1], scaled[2], scaled[3]);
+    }
+    *reinterpret_cast<uint4*>(qw + (ch / 8) * (64 * 128) + rr * 128 + (((ch % 8) ^ (rr & 7)) << 4)) = val;
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // q is read by wgmma
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+  int wg_last = 0;  // the warpgroup's last query row
+#pragma unroll
+  for (int wi = 0; wi < 4; ++wi) wg_last = max(wg_last, q0 + ((4 * wg + wi) % wph) * 16 + 15);
+  const uint32_t q_base = smem_addr(qw);
+
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+  auto stage_of = [](int kt) { return kt % T::STAGES; };
+  auto full_wait = [&](int kt) { mbar_wait(smem_addr(&full[stage_of(kt)]), (kt / T::STAGES) & 1); };
+  auto release = [&](int kt) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(smem_addr(&empty[stage_of(kt)]));
+  };
+  auto k_base = [&](int kt) { return smem_addr(kv + stage_of(kt) * T::STAGE); };
+
+  // S = Q.K^T of tile kt, issued as one group: 64 rows x kBkv keys; n8 chunk i of a thread holds
+  // s[4 i + e], row (e & 2 ? row_b : row_a), key kBkv kt + 8 i + 2 t4 + (e & 1).
+  auto issue_s = [&](float (&s)[kBkv / 2], int kt) {
+#pragma unroll
+    for (int i = 0; i < kBkv / 2; ++i) s[i] = 0.f;
+    fence_acc(s);
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < HD / 16; ++ks)
+      wgmma_ss(s, desc_k(q_base + (ks / 4) * (64 * 128) + (ks % 4) * 32),
+                   desc_k(k_base(kt) + (ks / 4) * T::BOX + (ks % 4) * 32), ks > 0);
+    wg_commit();
+  };
+  // The causal mask (only where the tile reaches the diagonal or the window's end) and the online
+  // softmax of tile kt: each row's kBkv scores sit in the 4 lanes of a quad.  Key 0 lies in the
+  // first tile and below every row, so the running max is finite from the first tile on.
+  auto softmax = [&](float (&s)[kBkv / 2], int kt, float& alpha_a, float& alpha_b) {
+    const int kv0 = kt * kBkv;
+    if (kv0 + kBkv - 1 > r0 || kv0 + kBkv > S) {
+#pragma unroll
+      for (int i = 0; i < kBkv / 8; ++i)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int key = kv0 + ni * 8 + (lane & 3) * 2 + (e & 1);
+          const int key = kv0 + 8 * i + 2 * t4 + (e & 1);
           const int row = (e & 2) ? row_b : row_a;
-          if (key > row || key >= S) s[ni][e] = -INFINITY;
+          if (key > row || key >= S) s[4 * i + e] = -INFINITY;
         }
     }
-
-    // Online softmax: each row's BKV scores sit in the 4 lanes of a quad.
     float mx_a = -INFINITY, mx_b = -INFINITY;
 #pragma unroll
-    for (int ni = 0; ni < BKV / 8; ++ni) {
-      mx_a = fmaxf(mx_a, fmaxf(s[ni][0], s[ni][1]));
-      mx_b = fmaxf(mx_b, fmaxf(s[ni][2], s[ni][3]));
+    for (int i = 0; i < kBkv / 8; ++i) {
+      mx_a = fmaxf(mx_a, fmaxf(s[4 * i], s[4 * i + 1]));
+      mx_b = fmaxf(mx_b, fmaxf(s[4 * i + 2], s[4 * i + 3]));
     }
 #pragma unroll
     for (int o_ = 1; o_ < 4; o_ <<= 1) {
       mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, o_));
       mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, o_));
     }
-    // Key 0 lies in the first tile and below every row, so the running max is finite from
-    // the first tile on.
     const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
-    const float alpha_a = expf(m_a - mn_a), alpha_b = expf(m_b - mn_b);
+    alpha_a = expf(m_a - mn_a), alpha_b = expf(m_b - mn_b);
     m_a = mn_a;
     m_b = mn_b;
     float sum_a = 0.f, sum_b = 0.f;
 #pragma unroll
-    for (int ni = 0; ni < BKV / 8; ++ni) {
-      s[ni][0] = expf(s[ni][0] - mn_a);
-      s[ni][1] = expf(s[ni][1] - mn_a);
-      s[ni][2] = expf(s[ni][2] - mn_b);
-      s[ni][3] = expf(s[ni][3] - mn_b);
-      sum_a += s[ni][0] + s[ni][1];
-      sum_b += s[ni][2] + s[ni][3];
+    for (int i = 0; i < kBkv / 8; ++i) {
+      s[4 * i] = expf(s[4 * i] - mn_a);
+      s[4 * i + 1] = expf(s[4 * i + 1] - mn_a);
+      s[4 * i + 2] = expf(s[4 * i + 2] - mn_b);
+      s[4 * i + 3] = expf(s[4 * i + 3] - mn_b);
+      sum_a += s[4 * i] + s[4 * i + 1];
+      sum_b += s[4 * i + 2] + s[4 * i + 3];
     }
 #pragma unroll
     for (int o_ = 1; o_ < 4; o_ <<= 1) {
@@ -227,47 +428,124 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
     }
     l_a = l_a * alpha_a + sum_a;
     l_b = l_b * alpha_b + sum_b;
+  };
+  // O = alpha O + P.V of tile kt with P as hi + lo bf16 parts, issued as one group: the A
+  // fragment of the keys 16 kk .. 16 kk + 15 is the score chunks 2 kk and 2 kk + 1, all built
+  // before the group is issued (no other instruction may define a wgmma's registers while it
+  // runs).  The previous tile's P.V must be complete.
+  auto issue_pv = [&](float (&s)[kBkv / 2], int kt, float alpha_a, float alpha_b) {
 #pragma unroll
     for (int i = 0; i < HD / 8; ++i) {
-      o[i][0] *= alpha_a;
-      o[i][1] *= alpha_a;
-      o[i][2] *= alpha_b;
-      o[i][3] *= alpha_b;
+      o[4 * i] *= alpha_a;
+      o[4 * i + 1] *= alpha_a;
+      o[4 * i + 2] *= alpha_b;
+      o[4 * i + 3] *= alpha_b;
     }
+    uint32_t hi[kBkv / 16][4], lo[kBkv / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kBkv / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) split_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], hi[kk][r], lo[kk][r]);
+    fence_acc(o);
+    wg_fence();
+    const uint32_t v_base = k_base(kt) + T::KV_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < kBkv / 16; ++kk) {
+      const uint64_t dv = desc_mn(v_base + kk * 16 * 128, T::BOX);
+      wgmma_rs_mn(o, hi[kk], dv);
+      wgmma_rs_mn(o, lo[kk], dv);
+    }
+    wg_commit();
+  };
 
-    // O += P.V, P as hi + lo bf16 parts; the score accumulators' layout is the A operand's.
-#pragma unroll
-    for (int kk = 0; kk < BKV / 16; ++kk) {
-      uint32_t hi[4], lo[4];
-      split_bf16(s[2 * kk][0], s[2 * kk][1], hi[0], lo[0]);
-      split_bf16(s[2 * kk][2], s[2 * kk][3], hi[1], lo[1]);
-      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[2], lo[2]);
-      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[3], lo[3]);
-#pragma unroll
-      for (int nj = 0; nj < HD / 16; ++nj) {
-        uint32_t b0, b1, b2, b3;
-        const int key = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        const int col = nj * 16 + (lane >> 4) * 8;
-        ldsm_x4_trans(smem_addr(&Vs[key * KV_STRIDE + col]), b0, b1, b2, b3);
-        mma_bf16(o[2 * nj], hi, b0, b1);
-        mma_bf16(o[2 * nj], lo, b0, b1);
-        mma_bf16(o[2 * nj + 1], hi, b2, b3);
-        mma_bf16(o[2 * nj + 1], lo, b2, b3);
-      }
-    }
+  // The warpgroup's tiles: those up to its last row (the block's later ones only pass by).
+  const int n_act = min(n_kt, wg_last / kBkv + 1);
+  float alpha_a, alpha_b;
+  float sa[kBkv / 2];
+  // S, softmax and P.V in turn; the other warpgroup's work runs beside them.
+  for (int kt = 0; kt < n_act; ++kt) {
+    full_wait(kt);
+    issue_s(sa, kt);
+    wg_wait0();
+    fence_acc(sa);
+    softmax(sa, kt, alpha_a, alpha_b);
+    issue_pv(sa, kt, alpha_a, alpha_b);
+    wg_wait0();
+    fence_acc(o);
+    release(kt);
+  }
+  for (int kt = n_act; kt < n_kt; ++kt) {
+    full_wait(kt);
+    release(kt);
   }
 
 #pragma unroll
-  for (int ni = 0; ni < HD / 8; ++ni) {
-    const int col = ni * 8 + (lane & 3) * 2;
+  for (int i = 0; i < HD / 8; ++i) {
+    const int col = 8 * i + 2 * t4;
     if (row_a < S)
       *reinterpret_cast<uint32_t*>(out + (((long)b * S + row_a) * H + h) * HD + col) =
-          pack_bf16(o[ni][0] / l_a, o[ni][1] / l_a);
+          pack_bf16(o[4 * i] / l_a, o[4 * i + 1] / l_a);
     if (row_b < S)
       *reinterpret_cast<uint32_t*>(out + (((long)b * S + row_b) * H + h) * HD + col) =
-          pack_bf16(o[ni][2] / l_b, o[ni][3] / l_b);
+          pack_bf16(o[4 * i + 2] / l_b, o[4 * i + 3] / l_b);
   }
 }
+
+// ---------------------------------------------------------------------------- host side
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, found through the runtime's entry-point query (no link against libcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult r;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &r) == cudaSuccess &&
+        r == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The map of k or v [B, S, KV, hd] bf16: boxes of 64 columns of one kv head's bkv rows, 128-byte
+// swizzle; rows past S read zeros.  Returns 0, or the negated CUresult minus one.
+int make_kv_map(CUtensorMap* map, const void* base, int B, int S, int KV, int hd, int bkv) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)KV, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {2ull * hd, 2ull * hd * KV, 2ull * hd * KV * S};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)bkv, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+                        elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -(int)r - 1;
+}
+
+template <int HD>
+int launch(const dim3& grid, cudaStream_t s, const __nv_bfloat16* qb, const __nv_bfloat16* kb,
+           const __nv_bfloat16* vb, __nv_bfloat16* ob, int B, int S, int H, int KV, int kv_mul, int M,
+           float q_scale) {
+  using T = Tile<HD>;
+  static bool sized = false;  // the attribute is set once per template
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(prefill_attention_kernel<HD>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
+  }
+  CUtensorMap km, vm;
+  int e = make_kv_map(&km, kb, B, S, KV, HD, T::BKV);
+  if (e == 0) e = make_kv_map(&vm, vb, B, S, KV, HD, T::BKV);
+  if (e) return e;
+  prefill_attention_kernel<HD><<<grid, kThreads, T::SMEM, s>>>(km, vm, qb, ob, S, H, kv_mul, M, q_scale);
+  return 0;
+}
+
+}  // namespace hopper
 
 // Output columns per block of the wide kernel.
 constexpr int kWideCols = 128;
@@ -722,8 +1000,16 @@ extern "C" int causal_prefill_attention(const void* q, const void* k, const void
   const auto* vb = reinterpret_cast<const __nv_bfloat16*>(v);
   auto* ob = reinterpret_cast<__nv_bfloat16*>(out);
   switch (hd) {
-    case 128: prefill_attention_kernel<128><<<grid, kThreads, 0, s>>>(qb, kb, vb, ob, S, H, KV, kv_mul, M, q_scale); break;
-    case 256: prefill_attention_kernel<256><<<grid, kThreads, 0, s>>>(qb, kb, vb, ob, S, H, KV, kv_mul, M, q_scale); break;
+    case 128: {
+      const int e = hopper::launch<128>(grid, s, qb, kb, vb, ob, B, S, H, KV, kv_mul, M, q_scale);
+      if (e) return e;
+      break;
+    }
+    case 256: {
+      const int e = hopper::launch<256>(grid, s, qb, kb, vb, ob, B, S, H, KV, kv_mul, M, q_scale);
+      if (e) return e;
+      break;
+    }
     case 384: {
       const int e = launch_wide<384>(grid, s, qb, kb, vb, ob, S, H, KV, kv_mul, M, q_scale);
       if (e) return e;
@@ -742,3 +1028,5 @@ extern "C" int causal_prefill_attention(const void* q, const void* k, const void
   }
   return (int)cudaGetLastError();
 }
+
+

@@ -76,6 +76,7 @@ import torch
 import torch.distributed as dist
 
 from ..configuration import ModelConfig
+from ..device import resolve_device
 from ..ops.attention import gqa_attention_split, gqa_attention_split_paged
 from ..ops.collectives import all_gather_last, all_reduce
 from ..ops.kernels.flash_attention import decode_supported, flash_decode
@@ -259,9 +260,11 @@ def init_kv_cache(
     batch: int,
     dtype=torch.float32,
     seq_len: int | None = None,
-    device="cpu",
+    device=None,
 ) -> KVCache | QuantizedKVCache:
-    """Zeroed dense cache; ``dtype="int8"`` builds the quantized cache."""
+    """Zeroed dense cache on ``device`` (the card unless the caller asks for
+    the CPU); ``dtype="int8"`` builds the quantized cache."""
+    device = resolve_device(device)
     t = seq_len or config.seq_len
     shape = (config.n_layers, batch, config.n_kv_heads, t, config.head_dim)
     if dtype == "int8":

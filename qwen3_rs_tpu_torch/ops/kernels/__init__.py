@@ -13,6 +13,9 @@ from __future__ import annotations
 LAUNCHES: dict[str, int] = {
     "qmatmul_w8a16": 0,
     "qmatmul_w8a16_q4": 0,
+    # The fused kernel's mma route (``qmatmul.MMA_MIN_ROWS`` to ``TC_MIN_ROWS - 1`` rows).
+    "qmatmul_w8a16_mma": 0,
+    "qmatmul_w8a16_mma_q4": 0,
     # The fused kernel's tensor-core route (windows of ``qmatmul.TC_MIN_ROWS`` rows or more).
     "qmatmul_w8a16_tc": 0,
     "qmatmul_w8a16_tc_q4": 0,

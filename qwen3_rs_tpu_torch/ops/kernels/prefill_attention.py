@@ -13,9 +13,10 @@ more than 256 rows whose shapes pass ``splash_prefill_supported`` (the
 reference package's gate, asked at the window's power-of-two bucket, the
 width the reference engine pads it to).  It takes any number of query heads
 per kv head, and every head_dim that is a multiple of 128
-(``takes_head_dim``; at 384 and 512 a wide kernel holds q in shared memory
-and splits the output over column blocks, past 512 a streaming kernel reads
-q and k in 128-column pieces).
+(``takes_head_dim``; at 128 and 256 a TMA-fed kernel on ``wgmma``, at 384
+and 512 a wide kernel holds q in shared memory and splits the output over
+column blocks, past 512 a streaming kernel reads q and k in 128-column
+pieces).
 
 For a CPU tensor the wrapper runs the plain PyTorch version; for a CUDA
 tensor it launches ``csrc/prefill_attention.cu`` or raises.

@@ -12,12 +12,16 @@ bf16 after it, each weight element is ``bf16(bf16(code) · bf16(scale))`` and
 the products accumulate in f32.
 
 The wrapper routes by rows alone (``route``): a window of fewer than
-``TC_MIN_ROWS`` rows takes the CUDA-core kernel (``qmatmul_w8a16_cores``),
-which reads each weight byte once at 1-8 rows; a larger one the tensor-core
-kernel (``qmatmul_w8a16_tc``), which stages the prologue's bf16 activation
-once and streams each weight byte once for all the rows (``tc_plan`` picks
-its row tile and contraction split).  Each route counts its launches under
-its own ``LAUNCHES`` key.
+``MMA_MIN_ROWS`` rows takes the CUDA-core kernel (``qmatmul_w8a16_cores``),
+which multiplies each dequantized weight once per row; up to
+``TC_MIN_ROWS`` rows the mma kernel (``qmatmul_w8a16_mma``), which
+dequantizes each weight once into ``mma.sync``'s A operand and lets the
+tensor cores take the rows (``mma_plan`` picks its contraction split;
+``mma_k_slots``, ``mma_cols`` and ``mma_slot_rows`` are its fragment maps);
+a larger window the tensor-core kernel (``qmatmul_w8a16_tc``), which stages
+the prologue's bf16 activation once and streams each weight byte once for
+all the rows on ``wgmma`` (``tc_plan`` picks its row tile and contraction
+split).  Each route counts its launches under its own ``LAUNCHES`` key.
 
 For windows of more than ``MAX_ROWS`` rows, ``qmatmul_w8a16_rows`` (the
 reference package's ``qmatmul_pallas_stacked_rows``) takes the projection on
@@ -53,10 +57,19 @@ MAX_ROWS = 256
 _BLOCK_COLS = 512  # output columns per block (32 lanes x 16 columns)
 _SPLIT_ROWS = 64  # contraction rows per split are a multiple of this
 _PROLOGUES = {None: 0, "rms": 1, "swiglu": 2}
-# The crossover of the two routes: windows of at least this many rows take
-# the tensor-core kernel.  Set from chip_smoke.py's timings of both routes at
-# 8, 16 and 32 rows over the four 8B projections (PERF.md).
+# The crossovers of the three routes: windows of at least MMA_MIN_ROWS rows
+# take the mma kernel, of at least TC_MIN_ROWS rows the tensor-core kernel.
+# Set from chip_smoke.py's timings of the three routes at 1-4, 8 and 16 rows
+# over the four 8B projections (PERF.md): the CUDA cores are fastest at 1
+# row, the mma kernel from 2 to 8 (one n8 tile), the tensor cores from 9 (the
+# mma kernel's second n8 tile).
+MMA_MIN_ROWS = 2
 TC_MIN_ROWS = 9
+MMA_MAX_ROWS = 16  # the mma kernel takes 1..16 rows (one or two n8 tiles)
+_MMA_SLICE = 16  # contraction slots of an mma k-slice
+_MMA_BLOCK_COLS = 128  # output columns of a block (eight m16 tiles)
+_MMA_WARPS = 8  # warps of a block, each a run of its k-slices
+_MMA_MAX_SPLIT = 128  # k-slices of a block at most (2048 contraction rows)
 TC_ROW_TILES = (64, 128, 256)  # the tensor-core kernel's row tiles (wgmma N)
 _TC_SLOTS = 64  # contraction rows (INT4: 32 packed rows) per k-tile
 
@@ -181,6 +194,8 @@ def _lib() -> ctypes.CDLL:
     lib.qmatmul_w8a16.restype = ctypes.c_int
     lib.qmatmul_w8a16_tc.argtypes = [p, i, p, p, p, p, p, i, p, p, i, i, i, i, i, f, i, i, i, i, p]
     lib.qmatmul_w8a16_tc.restype = ctypes.c_int
+    lib.qmatmul_w8a16_mma.argtypes = [p, i, p, p, p, p, p, i, p, p, p, i, i, i, i, i, f, i, i, i, p]
+    lib.qmatmul_w8a16_mma.restype = ctypes.c_int
     return lib
 
 
@@ -201,10 +216,71 @@ def split_plan(n: int, d: int, rows: int, bt: int, sms: int) -> tuple[int, int]:
 
 def route(rows: int) -> str:
     """The kernel that takes a window of ``rows`` rows: ``"cores"`` below
-    ``TC_MIN_ROWS``, ``"tc"`` from it on."""
+    ``MMA_MIN_ROWS``, ``"mma"`` below ``TC_MIN_ROWS``, ``"tc"`` from it on."""
     if not 0 < rows <= MAX_ROWS:
         raise ValueError(f"qmatmul_w8a16: {rows} activation rows; the kernels take 1..{MAX_ROWS}")
-    return "tc" if rows >= TC_MIN_ROWS else "cores"
+    return "tc" if rows >= TC_MIN_ROWS else "mma" if rows >= MMA_MIN_ROWS else "cores"
+
+
+def mma_k_slots() -> torch.Tensor:
+    """The mma kernel's contraction relabelling within a 16-slot k-slice:
+    entry k is the slot that ``mma.sync``'s k index k holds.  Thread t of a
+    quad holds k = 2t, 2t+1, 2t+8, 2t+9, which are slots 4t .. 4t+3: the four
+    code rows it loads and the four activation slots of its B fragment."""
+    k = torch.arange(_MMA_SLICE)
+    return 4 * ((k % 8) // 2) + 2 * (k // 8) + k % 2
+
+
+def mma_cols() -> torch.Tensor:
+    """The mma kernel's column relabelling within a warp's 128 columns:
+    entry ``[mt, r]`` is the column that fragment row r of m16 tile mt
+    holds.  Lane group r8 (rows r8 and r8+8 of every tile) holds columns
+    16·r8 .. 16·r8+15, one 16-byte load of a code row."""
+    mt = torch.arange(8)[:, None]
+    r = torch.arange(16)[None, :]
+    return 16 * (r % 8) + 2 * mt + r // 8
+
+
+def mma_slot_rows(n: int, g: int, q4: bool) -> torch.Tensor:
+    """The activation in-row of each of the ``n`` contraction slots, in the
+    order the mma kernel stages them: INT8 slot s is in-row s; INT4 slot
+    2p+h is packed row p's low (h = 0) or high (h = 1) nibble, in-row
+    ``(p // (g/2))·g + p % (g/2) + h·g/2``."""
+    s = torch.arange(n)
+    if not q4:
+        return s
+    p, half = s // 2, g // 2
+    return (p // half) * g + p % half + (s % 2) * half
+
+
+@functools.cache
+def mma_plan(n: int, d: int, rows: int, sms: int) -> tuple[int, int]:
+    """(splits, k-slices per split) of the mma kernel for ``rows`` rows of
+    an ``[N, D]`` weight on ``sms`` SMs.
+
+    A block is 128 output columns by a split's 16-slot k-slices, shared by
+    its 8 warps (a multiple of 8, so each warp streams an equal run; at
+    most 128), two blocks resident an SM.  An SM's time is its blocks'
+    bytes: the plan takes the least
+    ``ceil(blocks / sms)`` times a block's codes (2 KB a slice, and 4
+    slices of start-up), plus an SM's share of the f32 partials that a
+    split writes and the strip's last block reads."""
+    if not 0 < rows <= MMA_MAX_ROWS:
+        raise ValueError(f"qmatmul_w8a16_mma: {rows} activation rows; the kernel takes 1..{MMA_MAX_ROWS}")
+    slices = -(-n // _MMA_SLICE)
+    strips = -(-d // _MMA_BLOCK_COLS)
+    best = None
+    for want in range(1, -(-slices // _MMA_WARPS) + 1):
+        spb = -(-(-(-slices // want)) // _MMA_WARPS) * _MMA_WARPS
+        splits = -(-slices // spb)
+        if splits != want or spb > _MMA_MAX_SPLIT:
+            continue  # the same plan as a smaller split count, or too long a split
+        cost = -(-strips * splits // sms) * (spb + 4) * 2048
+        if splits > 1:
+            cost += splits * rows * d * 8 / sms
+        if best is None or cost < best[0]:
+            best = (cost, splits, spb)
+    return best[1], best[2]
 
 
 @functools.cache
@@ -269,8 +345,8 @@ def qmatmul_w8a16(
     kw = {"norm_w": norm_w, "eps": eps, "residual": residual, "swiglu": swiglu}
     if x.device.type == "cpu":
         return qmatmul_w8a16_plain(x, w, layer, **kw)
-    launch = qmatmul_w8a16_tc if route(x.numel() // x.shape[-1]) == "tc" else qmatmul_w8a16_cores
-    return launch(x, w, layer, **kw)
+    launch = {"cores": qmatmul_w8a16_cores, "mma": qmatmul_w8a16_mma, "tc": qmatmul_w8a16_tc}
+    return launch[route(x.numel() // x.shape[-1])](x, w, layer, **kw)
 
 
 def _prepare(x, w, layer, norm_w, eps, residual, swiglu) -> dict:
@@ -340,7 +416,7 @@ def qmatmul_w8a16_cores(x: torch.Tensor, w: QuantizedTensor, layer: int | None =
                         norm_w: torch.Tensor | None = None, eps: float = 1e-6,
                         residual: torch.Tensor | None = None, swiglu: bool = False) -> torch.Tensor:
     """``qmatmul_w8a16`` on the CUDA-core kernel (its route below
-    ``TC_MIN_ROWS`` rows), at any 1..256 rows."""
+    ``MMA_MIN_ROWS`` rows), at any 1..256 rows."""
     if x.device.type == "cpu":
         return qmatmul_w8a16(x, w, layer, norm_w=norm_w, eps=eps, residual=residual, swiglu=swiglu)
     a = _prepare(x, w, layer, norm_w, eps, residual, swiglu)
@@ -358,6 +434,48 @@ def qmatmul_w8a16_cores(x: torch.Tensor, w: QuantizedTensor, layer: int | None =
     )
     build.check(err, "qmatmul_w8a16")
     LAUNCHES["qmatmul_w8a16_q4" if a["q4"] else "qmatmul_w8a16"] += 1
+    return out.reshape(a["out_shape"])
+
+
+_MMA_COUNTERS: dict = {}
+
+
+def _mma_counters(dev: torch.device, strips: int) -> torch.Tensor:
+    """The mma kernel's split counters on ``dev``: one zero int per column
+    strip, made once (grown when a wider weight needs more); each launch
+    leaves them zero."""
+    t = _MMA_COUNTERS.get(dev)
+    if t is None or t.numel() < strips:
+        t = _MMA_COUNTERS[dev] = torch.zeros(max(strips, 2048), dtype=torch.int32, device=dev)
+    return t
+
+
+def qmatmul_w8a16_mma(x: torch.Tensor, w: QuantizedTensor, layer: int | None = None, *,
+                      norm_w: torch.Tensor | None = None, eps: float = 1e-6,
+                      residual: torch.Tensor | None = None, swiglu: bool = False) -> torch.Tensor:
+    """``qmatmul_w8a16`` on the mma kernel (its route from ``MMA_MIN_ROWS``
+    to ``TC_MIN_ROWS - 1`` rows), at any 1..16 rows."""
+    if x.device.type == "cpu":
+        return qmatmul_w8a16(x, w, layer, norm_w=norm_w, eps=eps, residual=residual, swiglu=swiglu)
+    a = _prepare(x, w, layer, norm_w, eps, residual, swiglu)
+    rows, n, d, dev, res = a["rows"], a["n"], a["d"], a["dev"], a["res"]
+    splits, spb = mma_plan(n, d, rows, _sm_count(dev.index or 0))
+    out = torch.empty(rows, d, dtype=torch.float32, device=dev)
+    xs = torch.empty(rows, -(-n // _MMA_SLICE) * _MMA_SLICE, dtype=torch.bfloat16, device=dev)
+    partial = counters = None
+    if splits > 1:
+        partial = torch.empty(splits * rows * d, dtype=torch.float32, device=dev)
+        counters = _mma_counters(dev, -(-d // _MMA_BLOCK_COLS))
+    err = _lib().qmatmul_w8a16_mma(
+        a["x2"].data_ptr(), int(a["x2"].dtype == torch.bfloat16), xs.data_ptr(), a["codes"], a["scales"], a["nw"],
+        None if res is None else res.data_ptr(), int(res is not None and res.dtype == torch.bfloat16),
+        out.data_ptr(), None if partial is None else partial.data_ptr(),
+        None if counters is None else counters.data_ptr(),
+        rows, n, d, a["g"], a["prologue"], float(eps), int(a["q4"]), spb, splits,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check(err, "qmatmul_w8a16_mma")
+    LAUNCHES["qmatmul_w8a16_mma_q4" if a["q4"] else "qmatmul_w8a16_mma"] += 1
     return out.reshape(a["out_shape"])
 
 

@@ -35,6 +35,7 @@ from qwen3_rs_tpu_torch.ops.kernels.qmatmul import (
     dequant_w8_stacked_plain,
     qmatmul_w8a16,
     qmatmul_w8a16_cores,
+    qmatmul_w8a16_mma,
     qmatmul_w8a16_plain,
     qmatmul_w8a16_rows,
     qmatmul_w8a16_rows_plain,
@@ -75,6 +76,9 @@ def _gen(seed):
     return g
 
 
+ROUTE_KEYS = {"cores": "qmatmul_w8a16", "mma": "qmatmul_w8a16_mma", "tc": "qmatmul_w8a16_tc"}
+
+
 @pytest.mark.parametrize("rows", [1, 2, 3, 8, 9, 37, 256])
 @pytest.mark.parametrize(
     "n,d,g,prologue,residual",
@@ -103,7 +107,7 @@ def test_qmatmul_matches_plain(card, rows, n, d, g, prologue, residual):
     if residual:
         dt = torch.float32 if residual == "f32" else torch.bfloat16
         kw["residual"] = torch.randn(rows, d, generator=gen, device=card).to(dt)
-    key = "qmatmul_w8a16_tc" if route(rows) == "tc" else "qmatmul_w8a16"
+    key = ROUTE_KEYS[route(rows)]
     before = LAUNCHES[key]
     got = qmatmul_w8a16(x, w, 2, **kw)
     assert LAUNCHES[key] == before + 1
@@ -157,6 +161,56 @@ def test_qmatmul_routes_match_plain(card, launch, bits, rows, n, d, g, prologue,
     assert float((got - ref).abs().max()) <= rel * float(ref.abs().max())
 
 
+MMA_SHAPES = [  # (N, D, g, prologue, residual, stacked) for the mma route, INT8 and INT4
+    (256, 48, 32, None, None, True),  # D below one warp's 128 columns
+    (512, 1040, 64, "rms", "bf16", True),  # ragged last block of columns
+    (1024, 528, 128, "swiglu", "f32", True),  # ragged D, g = 128
+    (1024, 512, 512, "rms", "f32", True),  # g = 512: a group spans 32 k-slices
+    (4096, 1024, 64, "swiglu", "bf16", True),  # a split contraction, the residual added in the reduce
+    (520, 256, 40, None, "f32", False),  # N % 16 == 8: a ragged last k-slice; 2-D weights, g = 40
+    (8192, 4096, 64, None, None, False),  # 2-D, several k-warps per block and splits
+    (768, 64, 6, "rms", None, True),  # g = 6: a thread's four slots straddle two groups
+]
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("rows", list(range(1, 17)))
+@pytest.mark.parametrize("n,d,g,prologue,residual,stacked", MMA_SHAPES)
+def test_qmatmul_mma_matches_plain(card, bits, rows, n, d, g, prologue, residual, stacked):
+    """#1-#3's mma route at every row count it takes (1-16: one and two n8
+    tiles), forced by calling its launcher: ragged N and D, every prologue,
+    with and without residual, stacked and 2-D weights, INT8 and INT4, group
+    sizes from 6 to 512.  Tolerance as on the other routes: 1e-4 of the
+    largest output (the tensor cores' f32 sums in another order), 2e-3 where
+    a prologue's f32 result may flip an activation's bf16 rounding."""
+    gen = _gen(rows * 19 + d + g + bits)
+    w = _q4_weights(gen, card, 2, n, d, g) if bits == 4 else _weights(gen, card, 2, n, d, g)
+    layer = 1
+    if not stacked:
+        w, layer = type(w)(w.q[1].contiguous(), w.scales[1].contiguous()), None
+    width = 2 * n if prologue == "swiglu" else n
+    x = torch.randn(rows, width, generator=gen, device=card).to(torch.bfloat16 if rows % 2 else torch.float32)
+    kw = {}
+    if prologue == "rms":
+        kw["norm_w"] = 1 + 0.1 * torch.randn(2, n, generator=gen, device=card)
+        if not stacked:
+            kw["norm_w"] = kw["norm_w"][1].contiguous()
+    if prologue == "swiglu":
+        kw["swiglu"] = True
+    if residual:
+        dt = torch.float32 if residual == "f32" else torch.bfloat16
+        kw["residual"] = torch.randn(rows, d, generator=gen, device=card).to(dt)
+    key = "qmatmul_w8a16_mma" + ("_q4" if bits == 4 else "")
+    before = dict(LAUNCHES)
+    got = qmatmul_w8a16_mma(x, w, layer, **kw)
+    assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]} == {key: 1}
+    ref = qmatmul_w8a16_plain(x, w, layer, **kw)
+    torch.cuda.synchronize()
+    rel = 2e-3 if prologue else 1e-4
+    assert got.shape == ref.shape
+    assert float((got - ref).abs().max()) <= rel * float(ref.abs().max())
+
+
 @pytest.mark.parametrize("bits", [8, 4])
 def test_qmatmul_routes_are_deterministic(card, bits):
     """Two launches of each route give the same bytes (the split contraction
@@ -165,8 +219,8 @@ def test_qmatmul_routes_are_deterministic(card, bits):
     gen = _gen(31 + bits)
     n, d = 4096, 1024
     w = _q4_weights(gen, card, 2, n, d, 64) if bits == 4 else _weights(gen, card, 2, n, d, 64)
-    for rows, launch in ((4, qmatmul_w8a16_cores), (37, qmatmul_w8a16_tc), (256, qmatmul_w8a16_tc),
-                         (300, qmatmul_w8a16_rows)):
+    for rows, launch in ((4, qmatmul_w8a16_cores), (4, qmatmul_w8a16_mma), (16, qmatmul_w8a16_mma),
+                         (37, qmatmul_w8a16_tc), (256, qmatmul_w8a16_tc), (300, qmatmul_w8a16_rows)):
         x = torch.randn(rows, n, generator=gen, device=card).to(torch.bfloat16)
         a, b = launch(x, w, 1), launch(x, w, 1)
         torch.cuda.synchronize()
@@ -332,7 +386,7 @@ def test_qmatmul_q4_matches_plain(card, rows, n, d, g, prologue, residual):
         kw["residual"] = torch.randn(rows, d, generator=gen, device=card).to(dt)
     before = dict(LAUNCHES)
     got = qmatmul_w8a16(x, w, 2, **kw)
-    key = "qmatmul_w8a16_tc_q4" if route(rows) == "tc" else "qmatmul_w8a16_q4"
+    key = ROUTE_KEYS[route(rows)] + "_q4"
     assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]} == {key: 1}
     ref = qmatmul_w8a16_plain(x, w, 2, **kw)
     torch.cuda.synchronize()
@@ -901,6 +955,26 @@ def test_paged_kernels_head_dims_match_plain(card, hd, pool, kv_mul, s):
         assert a.shape == r.shape and torch.equal(torch.isneginf(a), torch.isneginf(r))
         fin = torch.isfinite(r)
         assert float((a[fin] - r[fin]).abs().max()) <= 1e-4 * float(r[fin].abs().max())
+
+
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 300, 1000, 2048])
+@pytest.mark.parametrize("kv_mul", [1, 3, 4, 5, 8])
+@pytest.mark.parametrize("hd", [128, 256])
+def test_prefill_attention_wgmma_matches_plain(card, s, kv_mul, hd):
+    """#5's TMA and wgmma kernel (head_dim 128 and 256) at windows on both
+    sides of its 64-row key tiles and 128-row query tiles, every packing of
+    query heads per block (kv_mul 1, 3, 5: one head; 4: four; 8: eight),
+    two batch rows, with the tolerance of the kernel it replaced."""
+    gen = _gen(s * 23 + kv_mul + hd)
+    q = torch.randn(2, s, 2 * kv_mul, hd, generator=gen, device=card).to(torch.bfloat16)
+    k, v = (torch.randn(2, s, 2, hd, generator=gen, device=card).to(torch.bfloat16) for _ in range(2))
+    before = LAUNCHES["causal_prefill_attention"]
+    got = causal_prefill_attention(q, k, v)
+    assert LAUNCHES["causal_prefill_attention"] == before + 1
+    ref = causal_prefill_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.float(), rtol=2.0**-7, atol=1e-5)
+    assert torch.equal(got[:, 0], v[:, 0].repeat_interleave(kv_mul, dim=1))  # row 0: its own value
 
 
 @pytest.mark.parametrize("s", [1, 65, 300])

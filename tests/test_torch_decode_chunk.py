@@ -88,7 +88,7 @@ def test_decode_steps_route_through_the_megakernel_and_match_jax(cache_dtype, sp
     cfg = dataclasses.replace(CFG, vocab_size=2000)
     jcfg, jw, pw = _weights(cfg, 21)
     jdt, tdt = (jnp.float32, torch.float32) if cache_dtype == "f32" else ("int8", "int8")
-    jcache, pcache = jax_init_cache(jcfg, 2, dtype=jdt), init_kv_cache(cfg, 2, dtype=tdt)
+    jcache, pcache = jax_init_cache(jcfg, 2, dtype=jdt), init_kv_cache(cfg, 2, dtype=tdt, device="cpu")
     fwd = jax.jit(lambda w, t, c, p: jax_forward(jcfg, w, t, c, p, mode="fast"))
     rng = np.random.default_rng(21)
     tokens, pos = rng.integers(0, cfg.vocab_size, (2, 7)), np.zeros(2, np.int32)
@@ -110,25 +110,25 @@ def test_gate_refusals_keep_the_per_layer_path(spy):
     of eight rows takes the kernel."""
     _, _, pw = _weights(CFG, 22)
     for b, taken in ((9, False), (8, True)):
-        cache = init_kv_cache(CFG, b)
+        cache = init_kv_cache(CFG, b, device="cpu")
         qwen3_forward(CFG, pw, np.ones((b, 1), np.int64), cache, np.arange(b))
         assert bool(spy) == taken, b
         spy.clear()
-    cache = init_kv_cache(CFG, 1)
+    cache = init_kv_cache(CFG, 1, device="cpu")
     assert port_qwen3.megakernel_route(CFG, cache, 1, 1, "fast")
     assert not port_qwen3.megakernel_route(CFG, cache, 1, 1, "exact")
     assert not port_qwen3.megakernel_route(CFG, cache, 1, 2, "fast")
     assert not port_qwen3.megakernel_route(CFG, cache, 1, 1, "fast", paged=True)
     _, _, sw = _weights(SMALL, 22)
-    qwen3_forward(SMALL, sw, np.ones((1, 1), np.int64), init_kv_cache(SMALL, 1), [3])
+    qwen3_forward(SMALL, sw, np.ones((1, 1), np.int64), init_kv_cache(SMALL, 1, device="cpu"), [3])
     assert not spy
 
 
 def test_greedy_head_is_the_first_max_on_both_paths(spy):
     _, _, pw = _weights(CFG, 23)
     for cfg, w in ((CFG, pw), (SMALL, _weights(SMALL, 23)[2])):
-        cache = init_kv_cache(cfg, 2)
-        logits, _ = qwen3_forward(cfg, w, [[5], [9]], init_kv_cache(cfg, 2), [4, 4])
+        cache = init_kv_cache(cfg, 2, device="cpu")
+        logits, _ = qwen3_forward(cfg, w, [[5], [9]], init_kv_cache(cfg, 2, device="cpu"), [4, 4])
         tok, _ = qwen3_forward(cfg, w, [[5], [9]], cache, [4, 4], greedy_head=True)
         assert tok.dtype == torch.int32 and torch.equal(tok, logits.argmax(-1).to(torch.int32))
     assert spy == [2, 2]

@@ -118,7 +118,7 @@ def test_shapes_route_as_the_jax_gates_say(case, monkeypatch):
     exactly where the JAX gate admits the shape; the logits agree with the
     JAX forward."""
     cfg, bits, routes = ROUTES[case]
-    assert not port_qwen3.megakernel_route(cfg, init_kv_cache(cfg, 1), 1, 1)
+    assert not port_qwen3.megakernel_route(cfg, init_kv_cache(cfg, 1, device="cpu"), 1, 1)
     called = {name: 0 for name in routes}
     for name in routes:
         def spy(*a, _name=name, _real=getattr(port_qwen3, name), **k):
@@ -131,7 +131,7 @@ def test_shapes_route_as_the_jax_gates_say(case, monkeypatch):
     jw = jax.tree.map(jnp.asarray, tree)
     jcfg = JaxConfig(**dataclasses.asdict(cfg))
     rng = np.random.default_rng(9)
-    pcache, jcache = init_kv_cache(cfg, 1), jax_init_cache(jcfg, 1, dtype=jnp.float32)
+    pcache, jcache = init_kv_cache(cfg, 1, device="cpu"), jax_init_cache(jcfg, 1, dtype=jnp.float32)
     pos = 0
     for rows in (300, 20, 1, 1):
         toks = rng.integers(0, cfg.vocab_size, (1, rows))
@@ -166,7 +166,7 @@ def test_head_dim_512_fresh_window_matches_jax_through_its_prefill_kernel(monkey
     jw = jax.tree.map(jnp.asarray, tree)
     jcfg = JaxConfig(**dataclasses.asdict(HD512))
     toks = np.random.default_rng(12).integers(0, HD512.vocab_size, (1, 512))
-    logits, _ = qwen3_forward(HD512, pw, toks, init_kv_cache(HD512, 1), [0], fresh_prefill=True)
+    logits, _ = qwen3_forward(HD512, pw, toks, init_kv_cache(HD512, 1, device="cpu"), [0], fresh_prefill=True)
     fwd = jax.jit(lambda w, t, c, p: jax_forward(jcfg, w, t, c, p, mode="fast", fresh_prefill=True))
     ref, _ = fwd(jw, jnp.asarray(toks, jnp.int32), jax_init_cache(jcfg, 1, dtype=jnp.float32),
                  jnp.asarray([0], jnp.int32))
@@ -199,7 +199,7 @@ def test_head_dim_640_window_and_decode_match_jax_through_its_kernels(monkeypatc
     jw = jax.tree.map(jnp.asarray, tree)
     jcfg = JaxConfig(**dataclasses.asdict(HD640))
     toks = np.random.default_rng(13).integers(0, HD640.vocab_size, (1, 512))
-    pcache, jcache = init_kv_cache(HD640, 1), jax_init_cache(jcfg, 1, dtype=jnp.float32)
+    pcache, jcache = init_kv_cache(HD640, 1, device="cpu"), jax_init_cache(jcfg, 1, dtype=jnp.float32)
     for fresh, t, pos in ((True, toks, 0), (False, toks[:, -1:], 512)):
         logits, pcache = qwen3_forward(HD640, pw, t, pcache, [pos], fresh_prefill=fresh)
         fwd = jax.jit(lambda w, t_, c, p, _f=fresh: jax_forward(jcfg, w, t_, c, p, mode="fast", fresh_prefill=_f))

@@ -232,7 +232,7 @@ def test_both_forwards_take_the_megakernel_on_an_int4_step(monkeypatch):
         jax_forward(jcfg, jw, jnp.asarray(tok, jnp.int32), jax_init_cache(jcfg, 1, dtype=jnp.float32),
                     jnp.asarray(pos, jnp.int32), mode="fast")
     with pytest.raises(_Taken):
-        qwen3_forward(CFG, pw, tok, init_kv_cache(CFG, 1), pos)
+        qwen3_forward(CFG, pw, tok, init_kv_cache(CFG, 1, device="cpu"), pos)
     monkeypatch.setenv("QWEN3_TPU_MEGA_Q4", "0")
-    logits, _ = qwen3_forward(CFG, pw, tok, init_kv_cache(CFG, 1), pos)
+    logits, _ = qwen3_forward(CFG, pw, tok, init_kv_cache(CFG, 1, device="cpu"), pos)
     assert logits.shape == (1, CFG.vocab_size)

@@ -75,7 +75,7 @@ def _run_both(config, cache_dtype, seed):
     jdt = {"f32": jnp.float32, "bf16": jnp.bfloat16, "int8": "int8"}[cache_dtype]
     tdt = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": "int8"}[cache_dtype]
     jcache = jax_init_cache(jcfg, 2, dtype=jdt)
-    pcache = init_kv_cache(config, 2, dtype=tdt)
+    pcache = init_kv_cache(config, 2, dtype=tdt, device="cpu")
 
     tokens = rng.integers(0, config.vocab_size, (2, PROMPT_LEN))
     pos = np.zeros(2, np.int32)
@@ -137,9 +137,21 @@ def test_scales_cast_keeps_codes():
     assert cast.layers.w2.q is pw.layers.w2.q
 
 
+def test_init_kv_cache_takes_the_card_by_default(monkeypatch):
+    """Like every entry point of the port, ``init_kv_cache`` builds on the
+    card unless the caller asks for the CPU: with no device and no CUDA it
+    raises rather than build a CPU cache."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for dtype in (torch.float32, "int8"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            init_kv_cache(CONFIG, 1, dtype=dtype)
+        cache = init_kv_cache(CONFIG, 1, dtype=dtype, device="cpu")
+        assert all(t.device.type == "cpu" for t in cache)
+
+
 def test_window_past_the_cache_is_refused():
     pw = weights_from_jax_numpy(jax_numpy_weights(CONFIG, 0))
-    cache = init_kv_cache(CONFIG, 1, seq_len=8)
+    cache = init_kv_cache(CONFIG, 1, seq_len=8, device="cpu")
     with pytest.raises(ValueError, match="does not fit"):
         qwen3_forward(CONFIG, pw, np.zeros((1, 4), np.int64), cache, [5])
 
@@ -192,7 +204,7 @@ def test_long_fast_windows_match_jax(long_kernels):
     jax_calls, port_calls = long_kernels
     jcfg, jw, pw = _both(LONG, 5, "fast")
     rng = np.random.default_rng(5)
-    jcache, pcache = jax_init_cache(jcfg, 1), init_kv_cache(LONG, 1)
+    jcache, pcache = jax_init_cache(jcfg, 1), init_kv_cache(LONG, 1, device="cpu")
     for s, p0, fresh in ((512, 0, True), (384, 512, False)):
         tokens = rng.integers(0, LONG.vocab_size, (1, s))
         pos = np.full(1, p0, np.int32)
@@ -217,7 +229,7 @@ def test_exact_prefill_and_decode_match_jax(long_kernels):
     jcfg, jw, pw = _both(LONG, 6, "exact")
     rng = np.random.default_rng(6)
     fwd = jax.jit(functools.partial(jax_forward, jcfg, mode="exact"))
-    jcache, pcache = jax_init_cache(jcfg, 1), init_kv_cache(LONG, 1)
+    jcache, pcache = jax_init_cache(jcfg, 1), init_kv_cache(LONG, 1, device="cpu")
     tokens, pos = rng.integers(0, LONG.vocab_size, (1, 256)), np.zeros(1, np.int32)
     errs = []
     for step in range(4):
@@ -243,7 +255,7 @@ def test_all_logits_match_jax(long_kernels, s):
     tokens = np.random.default_rng(7).integers(0, LONG.vocab_size, (1, s))
     fwd = jax.jit(functools.partial(jax_forward, jcfg, mode="fast", return_all_logits=True))
     jl, _ = fwd(jw, jnp.asarray(tokens, jnp.int32), jax_init_cache(jcfg, 1), jnp.zeros(1, jnp.int32))
-    pl_, _ = qwen3_forward(LONG, pw, tokens, init_kv_cache(LONG, 1), [0], return_all_logits=True)
+    pl_, _ = qwen3_forward(LONG, pw, tokens, init_kv_cache(LONG, 1, device="cpu"), [0], return_all_logits=True)
     assert pl_.shape == (1, s, LONG.vocab_size) and pl_.dtype == torch.float32
     assert _rel_err(pl_.numpy(), jl) <= 2e-2
 
@@ -251,7 +263,7 @@ def test_all_logits_match_jax(long_kernels, s):
 def test_fresh_prefill_needs_position_zero():
     pw = weights_from_jax_numpy(jax_numpy_weights(CONFIG, 0))
     with pytest.raises(ValueError, match="fresh"):
-        qwen3_forward(CONFIG, pw, np.zeros((1, 4), np.int64), init_kv_cache(CONFIG, 1), [3],
+        qwen3_forward(CONFIG, pw, np.zeros((1, 4), np.int64), init_kv_cache(CONFIG, 1, device="cpu"), [3],
                       fresh_prefill=True)
 
 
@@ -270,7 +282,7 @@ def test_unfused_body_matches_jax_without_excess_precision(mode):
     args = (jw, jnp.asarray(tokens, jnp.int32), jax_init_cache(jcfg, 1), jnp.zeros(1, jnp.int32))
     fwd = jax.jit(functools.partial(jax_forward, jcfg, mode=mode, return_all_logits=True))
     jl, _ = fwd.lower(*args).compile({"xla_allow_excess_precision": False})(*args)
-    pl_, _ = qwen3_forward(cfg, pw, tokens, init_kv_cache(cfg, 1), [0], mode=mode, return_all_logits=True)
+    pl_, _ = qwen3_forward(cfg, pw, tokens, init_kv_cache(cfg, 1, device="cpu"), [0], mode=mode, return_all_logits=True)
 
     def rows_apart(ref):
         ref = np.asarray(ref, np.float32)[0]
@@ -429,7 +441,7 @@ def test_dense_write_mask_matches_jax(cache_dtype):
     jcfg = JaxConfig(**dataclasses.asdict(CONFIG))
     jw, pw = jax.tree.map(jnp.asarray, tree), weights_from_jax_numpy(tree)
     jdt, tdt = (jnp.bfloat16, torch.bfloat16) if cache_dtype == "bf16" else ("int8", "int8")
-    jcache, pcache = jax_init_cache(jcfg, 2, dtype=jdt), init_kv_cache(CONFIG, 2, dtype=tdt)
+    jcache, pcache = jax_init_cache(jcfg, 2, dtype=jdt), init_kv_cache(CONFIG, 2, dtype=tdt, device="cpu")
     rng = np.random.default_rng(4)
     fwd = jax.jit(functools.partial(jax_forward, jcfg, mode="fast"))
     for tokens, pos, mask in ((rng.integers(0, CONFIG.vocab_size, (2, 5)), [0, 0], [True, True]),

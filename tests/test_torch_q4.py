@@ -323,7 +323,7 @@ def test_decode_and_long_windows_match_jax(monkeypatch):
     port_calls = _spy_port(monkeypatch)
     jcfg, jw, pw = _both(5)
     rng = np.random.default_rng(5)
-    jcache, pcache = jax_init_cache(jcfg, 1), init_kv_cache(CONFIG, 1)
+    jcache, pcache = jax_init_cache(jcfg, 1), init_kv_cache(CONFIG, 1, device="cpu")
     errs, p0 = [], 0
     for s, fresh in ((512, True), (384, False), (1, False), (1, False), (1, False)):
         tokens = rng.integers(0, CONFIG.vocab_size, (1, s))
@@ -360,7 +360,7 @@ def test_exact_mode_raises_in_both_packages():
         jax_forward(jcfg, jw, jnp.asarray(tokens, jnp.int32), jax_init_cache(jcfg, 1), jnp.zeros(1, jnp.int32),
                     mode="exact")
     with pytest.raises(ValueError, match="INT4 weights have no reference-exact"):
-        qwen3_forward(CONFIG, pw, tokens, init_kv_cache(CONFIG, 1), [0], mode="exact")
+        qwen3_forward(CONFIG, pw, tokens, init_kv_cache(CONFIG, 1, device="cpu"), [0], mode="exact")
 
 
 def test_dequant_wrappers_refuse_the_other_kind():

@@ -25,17 +25,24 @@ from qwen3_rs_tpu.ops.quant import QuantizedTensor as JaxQT
 import qwen3_rs_tpu_torch.ops.kernels.qmatmul as port_qmm
 from qwen3_rs_tpu_torch.ops.kernels.qmatmul import (
     MAX_ROWS,
+    MMA_MAX_ROWS,
+    MMA_MIN_ROWS,
     TC_MIN_ROWS,
     TC_ROW_TILES,
+    mma_cols,
+    mma_k_slots,
+    mma_plan,
+    mma_slot_rows,
     qmatmul_w8a16,
     qmatmul_w8a16_cores,
+    qmatmul_w8a16_mma,
     qmatmul_w8a16_plain,
     qmatmul_w8a16_tc,
     route,
     split_plan,
     tc_plan,
 )
-from qwen3_rs_tpu_torch.ops.quant import QuantizedTensor
+from qwen3_rs_tpu_torch.ops.quant import Q4Tensor, QuantizedTensor, pack_q4_np
 from qwen3_rs_tpu_torch.testing import QWEN3_CONFIGS
 
 torch.set_num_threads(2)
@@ -143,7 +150,7 @@ def test_cpu_wrapper_is_the_plain_version():
     from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES
 
     before = dict(LAUNCHES)
-    for launch in (qmatmul_w8a16, qmatmul_w8a16_cores, qmatmul_w8a16_tc):
+    for launch in (qmatmul_w8a16, qmatmul_w8a16_cores, qmatmul_w8a16_mma, qmatmul_w8a16_tc):
         got = launch(x, tw, 0)
         assert torch.equal(got, qmatmul_w8a16_plain(x, tw, 0))
     assert LAUNCHES == before  # plain calls are not launches
@@ -174,11 +181,15 @@ def _8b_shapes():
 
 def test_route_is_by_rows_alone():
     """Every window of 1-256 rows takes exactly one route, by its rows alone:
-    the CUDA cores below the crossover, the tensor cores from it on.  The
-    crossover is a module constant; the module reads no environment."""
-    assert isinstance(TC_MIN_ROWS, int) and 1 < TC_MIN_ROWS <= MAX_ROWS
+    the CUDA cores below ``MMA_MIN_ROWS``, the mma kernel up to
+    ``TC_MIN_ROWS``, the tensor cores from it on.  The crossovers are module
+    constants, in that order, within the rows the mma kernel takes; the
+    module reads no environment."""
+    assert all(isinstance(c, int) for c in (MMA_MIN_ROWS, TC_MIN_ROWS, MMA_MAX_ROWS))
+    assert 1 <= MMA_MIN_ROWS <= TC_MIN_ROWS <= MMA_MAX_ROWS + 1 <= MAX_ROWS
     routes = [route(rows) for rows in range(1, MAX_ROWS + 1)]
-    assert routes == ["cores"] * (TC_MIN_ROWS - 1) + ["tc"] * (MAX_ROWS - TC_MIN_ROWS + 1)
+    assert routes == (["cores"] * (MMA_MIN_ROWS - 1) + ["mma"] * (TC_MIN_ROWS - MMA_MIN_ROWS)
+                      + ["tc"] * (MAX_ROWS - TC_MIN_ROWS + 1))
     for rows in (0, MAX_ROWS + 1):
         with pytest.raises(ValueError, match="activation rows"):
             route(rows)
@@ -210,3 +221,127 @@ def test_tc_plan_fills_the_card_at_8b():
             tiles = -(-d // (256 if tile <= 128 else 128)) * splits
             waves = -(-tiles // 132)
             assert tiles / (waves * 132) >= 0.7, (n, d, rows, tiles)
+
+
+_CLASSIFIER = (QWEN3_CONFIGS["8b"]["dim"], 153600)  # the 8B classifier, vocabulary padded
+
+
+@pytest.mark.parametrize("shape", _8b_shapes() + [_CLASSIFIER, (520, 48), (768, 528)])
+def test_mma_plan_covers_the_contraction(shape):
+    """The mma route's plan at every row count it takes (1-16): the splits
+    cover the 16-slot k-slices with none empty, each split whole slices for
+    every one of a block's 8 warps and at most 128, and the 8B shapes keep
+    at least 90% of the SMs at work over the plan's waves of blocks."""
+    n, d = shape
+    slices = -(-n // 16)
+    for rows in range(1, MMA_MAX_ROWS + 1):
+        splits, spb = mma_plan(n, d, rows, 132)
+        assert spb % 8 == 0 and spb <= 128 and (splits - 1) * spb < slices <= splits * spb
+        blocks = -(-d // 128) * splits
+        busy = blocks / (-(-blocks // 132) * 132)  # the SMs' share at work over the waves
+        assert busy >= 0.9 or (n, d) not in _8b_shapes() + [_CLASSIFIER], (rows, splits, spb)
+    with pytest.raises(ValueError, match="activation rows"):
+        mma_plan(n, d, MMA_MAX_ROWS + 1, 132)
+
+
+def _maps_from_the_threads():
+    """The k and column maps that the kernel's per-thread rules give under
+    ``mma.sync.m16n8k16``'s fragment layout (PTX ISA).  Lane 4·r8 + t4 loads
+    slots 4·t4 + j (j = 0..3) of columns 16·r8 .. 16·r8 + 15; its A register
+    e of m-tile mt packs slots 4·t4 + 2·(e>>1) + {0, 1} of column
+    16·r8 + 2·mt + (e&1), and the layout puts that register at row
+    r8 + 8·(e&1), k 2·t4 + 8·(e>>1) + {0, 1}.  Its B register f packs
+    slots 4·t4 + 2·f + {0, 1}, which the layout puts at k 2·t4 + 8·f + {0, 1}.
+    Its C register e' (row r8 + 8·(e'>>1)) goes to column 16·r8 + 2·mt + (e'>>1)."""
+    a_k, b_k = [None] * 16, [None] * 16
+    a_col = [[None] * 16 for _ in range(8)]
+    c_col = [[None] * 16 for _ in range(8)]
+    for r8 in range(8):
+        for t4 in range(4):
+            for half in range(2):
+                for e in range(4):
+                    a_k[2 * t4 + 8 * (e >> 1) + half] = 4 * t4 + 2 * (e >> 1) + half
+                    for mt in range(8):
+                        a_col[mt][r8 + 8 * (e & 1)] = 16 * r8 + 2 * mt + (e & 1)
+                        c_col[mt][r8 + 8 * (e >> 1)] = 16 * r8 + 2 * mt + (e >> 1)
+                for f in range(2):
+                    b_k[2 * t4 + 8 * f + half] = 4 * t4 + 2 * f + half
+    return a_k, b_k, a_col, c_col
+
+
+def test_mma_maps_are_bijections():
+    """The mma kernel's relabellings: the 16 k indices of a slice onto its 16
+    slots, thread t's four k indices (2t, 2t+1, 2t+8, 2t+9) onto its four
+    loaded rows 4t..4t+3; the 8 m16 tiles' fragment rows onto the warp's 128
+    columns, lane group r8's onto its 16 adjacent columns; and the staged
+    INT4 slots onto the in-rows, every group's two halves.  The maps are the
+    ones the threads' loads, fragments and stores make: the A and B operands
+    agree on every k, the stores on every column."""
+    a_k, b_k, a_col, c_col = _maps_from_the_threads()
+    assert mma_k_slots().tolist() == a_k == b_k
+    assert mma_cols().tolist() == a_col == c_col
+    k = mma_k_slots()
+    assert sorted(k.tolist()) == list(range(16))
+    for t in range(4):
+        assert sorted(k[[2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9]].tolist()) == list(range(4 * t, 4 * t + 4))
+    cols = mma_cols()
+    assert sorted(cols.flatten().tolist()) == list(range(128))
+    for r8 in range(8):
+        assert sorted(cols[:, [r8, r8 + 8]].flatten().tolist()) == list(range(16 * r8, 16 * r8 + 16))
+    for n, g in ((512, 32), (512, 64), (1024, 512), (96, 6)):
+        rows = mma_slot_rows(n, g, True)
+        assert sorted(rows.tolist()) == list(range(n))
+        assert torch.equal(mma_slot_rows(n, g, False), torch.arange(n))
+
+
+def _through_the_maps(x, w, g, q4):
+    """x · W taken the way the mma kernel lays it out: per 16-slot k-slice
+    and 128-column warp tile, the A operand [8 m-tiles, 16 fragment rows, 16
+    k] gathered from the codes and scales through the maps, the B operand
+    [16 k, rows] from x through the same k map, the products summed in f32,
+    then the columns un-permuted."""
+    n, d = w.shape
+    rows_of = mma_slot_rows(n, g, q4)
+    k_slots, cols = mma_k_slots(), mma_cols()
+    xb = x.to(torch.bfloat16).float()
+    out = torch.zeros(x.shape[0], d)
+    for c0 in range(0, d, 128):
+        wcols = c0 + cols  # [8, 16] columns of this warp tile
+        valid = wcols < d
+        acc = torch.zeros(8, 16, x.shape[0])
+        for s0 in range(0, n, 16):
+            slots = s0 + k_slots  # [16]: the slot of each k index
+            ok = slots < n
+            slot = slots.clamp(max=n - 1)
+            if q4:
+                p, half = slot // 2, slot % 2
+                code = ((w.q[p[None, None, :], wcols.clamp(max=d - 1)[..., None]].int() >> (4 * half)) & 15) - 8
+                grp = p // (g // 2)
+            else:
+                code = w.q[slot[None, None, :], wcols.clamp(max=d - 1)[..., None]].int()
+                grp = slot // g
+            sc = w.scales[grp[None, None, :], wcols.clamp(max=d - 1)[..., None]]
+            a = (code.to(torch.bfloat16) * sc).float() * ok  # [8, 16, 16 k]
+            b = xb[:, rows_of[slot]].T * ok[:, None]  # [16 k, rows]
+            acc += torch.einsum("mrk,kn->mrn", a, b)
+        out[:, wcols[valid]] = acc[valid].T
+    return out
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("g", [32, 64, 512])
+def test_mma_maps_give_the_plain_product(bits, g):
+    """A product taken through the mma kernel's maps equals the plain
+    version within f32 rounding (the sums in another order): a wrong
+    fragment map would pair a weight with another slot's activation or put a
+    result in another column."""
+    rng = np.random.default_rng(g + bits)
+    n, d, rows = 1024, 272, 5
+    codes = rng.integers(-8 if bits == 4 else -127, 8 if bits == 4 else 128, (n, d)).astype(np.int8)
+    scales = torch.from_numpy(rng.uniform(1e-3, 2e-2, (n // g, d)).astype(np.float32)).to(torch.bfloat16)
+    w = (Q4Tensor(torch.from_numpy(pack_q4_np(codes, g)), scales) if bits == 4
+         else QuantizedTensor(torch.from_numpy(codes), scales))
+    x = torch.from_numpy(rng.normal(0, 1, (rows, n)).astype(np.float32))
+    got = _through_the_maps(x, w, g, bits == 4)
+    ref = qmatmul_w8a16_plain(x, w)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())

@@ -46,7 +46,7 @@ LAYOUTS = {
 def _near_tie(pw, history, a, b) -> bool:
     """Whether tokens ``a`` and ``b`` have logits within the tolerance after
     ``history`` (the port's forward on a fresh dense cache)."""
-    logits, _ = qwen3_forward(CONFIG, pw, np.asarray([history]), init_kv_cache(CONFIG, 1), [0])
+    logits, _ = qwen3_forward(CONFIG, pw, np.asarray([history]), init_kv_cache(CONFIG, 1, device="cpu"), [0])
     lg = logits[0].float()
     return float((lg[a] - lg[b]).abs()) <= TOL * float(lg.abs().max())
 

@@ -174,7 +174,7 @@ def test_cache_shards_equal_the_jax_shards(pool):
     _equal_shards(jax_tp.shard_cache_tp(jpool, _jax_mesh()), lambda mesh: shard_cache_tp(full, mesh))
     dense = jax_qwen3.init_kv_cache(JCONFIG, 2, dtype=jnp.float32)
     dense = jax.tree.map(lambda a: jnp.asarray(rng.normal(0, 1, a.shape), a.dtype), dense)
-    port_dense = type(init_kv_cache(CONFIG, 1))(*(torch.from_numpy(np.array(a)) for a in dense))
+    port_dense = type(init_kv_cache(CONFIG, 1, device="cpu"))(*(torch.from_numpy(np.array(a)) for a in dense))
     _equal_shards(jax_tp.shard_cache_tp(dense, _jax_mesh()), lambda mesh: shard_cache(port_dense, mesh))
 
 
@@ -251,7 +251,7 @@ def _tp1_run(weights, sequences):
         w = weights[seq["weights"]]
         w = cast_weight_scales(w) if seq["mode"] == "fast" else w
         kind, *size = seq["cache"]
-        cache = (init_kv_cache(CONFIG, size[0], dtype=torch.bfloat16) if kind == "dense"
+        cache = (init_kv_cache(CONFIG, size[0], dtype=torch.bfloat16, device="cpu") if kind == "dense"
                  else init_paged_cache(CONFIG, size[0], size[1], device="cpu"))
         logits = []
         for tokens, pos, kw in seq["calls"]:
@@ -365,7 +365,7 @@ def test_tp_engine_refuses_what_jax_refuses():
 def test_greedy_head_under_tp_raises_as_jax():
     w = weights_from_jax_numpy(jax_numpy_weights(CONFIG, 3))
     with pytest.raises(ValueError, match="greedy_head requires the full head"):
-        qwen3_forward(CONFIG, w, [[1]], init_kv_cache(CONFIG, 1), [0], greedy_head=True, tp_group=object())
+        qwen3_forward(CONFIG, w, [[1]], init_kv_cache(CONFIG, 1, device="cpu"), [0], greedy_head=True, tp_group=object())
 
 
 # -------------------------------------------------------------------- the CLI

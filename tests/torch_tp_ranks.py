@@ -31,7 +31,7 @@ def run_calls(mesh, config, weights, sequences):
         if seq["mode"] == "fast":
             w = cast_weight_scales(w)
         kind, *size = seq["cache"]
-        cache = (init_kv_cache(local, size[0], dtype=torch.bfloat16) if kind == "dense"
+        cache = (init_kv_cache(local, size[0], dtype=torch.bfloat16, device="cpu") if kind == "dense"
                  else init_paged_cache(local, size[0], size[1], device="cpu"))
         fwd = make_tp_forward(config, mesh, mode=seq["mode"])
         logits = []
