@@ -12,7 +12,8 @@ Phases, in order; any failure exits non-zero before the final line:
 2. ``kernels`` each hand-written kernel against its plain PyTorch version on
                the same inputs at Qwen3-8B shapes (INT8-g64; the paged kernels
                over a page-128 pool with shuffled tables; the decode
-               megakernel at full depth; the Q4 variants of #3, #6, #7 and
+               megakernel at full depth, each case with its phase breakdown
+               from the kernel's own clock stamps; the Q4 variants of #3, #6, #7 and
                #11 on INT4-g64 codes; #6's column window at the 8B tp=2
                shard shapes, also bit for bit against a full launch's
                columns; #4, #5, #9 and #10 at head_dim 256 and 640, #5 at
@@ -1271,13 +1272,22 @@ def megakernel_cases(torch, ctx, q4: bool = False) -> list[dict]:
     version; the cache outside the rows written stays as it was, bit for
     bit.  ``q4``: its Q4 tiles, on the INT4-g64 layers of ``model_8b_q4`` (the
     classifier INT8), at 200 (f32), 2049 (INT8), the B = 8 case and the
-    greedy head."""
+    greedy head.  Beside each case: one more launch with stamps, read into
+    the phase breakdown (``phases_us``), the share of the launch the mean
+    block waits at barriers (``barrier_wait_share``) and the barriers a
+    step (ptxas' registers and spills are the build phase's line for its
+    source)."""
     import dataclasses
 
     from qwen3_rs_tpu_torch.models.qwen3 import cast_weight_scales
     from qwen3_rs_tpu_torch.ops.kernels.megakernel import (
+        barrier_wait_share,
+        barriers_per_step,
         decode_stack_megakernel,
         decode_stack_megakernel_plain,
+        launch_grid,
+        phase_breakdown,
+        phase_names,
         split_plans,
     )
     from qwen3_rs_tpu_torch.ops.quant import QuantizedTensor, dequantize
@@ -1322,12 +1332,12 @@ def megakernel_cases(torch, ctx, q4: bool = False) -> list[dict]:
         written = ok.bool()
         label = f"megakernel {cache} pos={pos_list}"
 
-        def run(fn, state, depth, greedy_=greedy, rms_att=lw.rms_att):
+        def run(fn, state, depth, greedy_=greedy, rms_att=lw.rms_att, **kw):
             c = cfg if depth == n_l else dataclasses.replace(cfg, n_layers=depth)
             mats = [type(m)(m.q[:depth], m.scales[:depth]) for m in (lw.wqkv, lw.wo, lw.w13, lw.w2)]
             return fn(c, x, rms_att[:depth], lw.rms_ffn[:depth], lw.q_norm[:depth], lw.k_norm[:depth], cos_t[rows],
                       sin_t[rows], *mats, state[0], state[1], pos, w.rms_final, w.lm_head, ok, k_scale=state[2],
-                      v_scale=state[3], eps=cfg.norm_eps, greedy=greedy_)
+                      v_scale=state[3], eps=cfg.norm_eps, greedy=greedy_, **kw)
 
         def state(depth):
             return [None if a is None else a[:depth].clone() for a in kv + sc]
@@ -1385,12 +1395,25 @@ def megakernel_cases(torch, ctx, q4: bool = False) -> list[dict]:
         sensitivity = max(rel(sx[1][r], sx[0][r]) for r in range(b))
         del sx
         ms = device_ms(torch, lambda i: run(decode_stack_megakernel, got_state, n_l))
+        # The phase breakdown: one more launch (warm), each block stamping the
+        # device clock as it finishes each phase and leaves the barrier after it.
+        names = phase_names(n_l, True, greedy)
+        stamps = torch.zeros(launch_grid(cfg.group_size, q4), len(names) + 1, 2, dtype=torch.int64, device=DEV)
+        run(decode_stack_megakernel, got_state, n_l, stamps=stamps)
+        torch.cuda.synchronize()
+        breakdown = phase_breakdown(stamps, names)
+        wait_share = barrier_wait_share(stamps, names)
+        span_us = float((stamps[:, -1, 0].max() - stamps[:, 0, 0].min()).item()) / 1e3
+        emit({"phase": "kernels", "megakernel_breakdown": case_label(cache, b, pos_list, ok_list, greedy),
+              "layer_bits": 4 if q4 else 8, "stamped_launch_us": span_us,
+              "barriers_per_step": barriers_per_step(n_l, True, greedy), "barrier_wait_share": wait_share,
+              "phases_us": breakdown})
+        del stamps
         plain_ms = device_ms(torch, lambda i: run(decode_stack_megakernel_plain, got_state, n_l), reps=3, warmup=1)
         nbytes = megakernel_bytes(cfg, pos_list, esz, written=sum(ok_list), v_pad=v_pad, bits=4 if q4 else 8)
         ops = 2.0 * b * (params + cfg.dim * v_pad) + 4.0 * hd * cfg.n_heads * n_l * sum(min(p, t) + 1 for p in pos_list)
         b_ms, b_by = bound(nbytes, ops, "bf16")
-        case = f"{cache} cache B={b} pos={pos_list}" + (f" write_ok={ok_list}" if 0 in ok_list else "") + (
-            " greedy" if greedy else "")
+        case = case_label(cache, b, pos_list, ok_list, greedy)
         replaces = ("qwen3_rs_tpu/ops/pallas/megakernel.py:528-540 and :711-716 (Q4 tiles of "
                     "decode_stack_megakernel :1110; gate :229-241)" if q4 else
                     "qwen3_rs_tpu/ops/pallas/megakernel.py:1110 decode_stack_megakernel (pallas_call :1441)")
@@ -1398,14 +1421,21 @@ def megakernel_cases(torch, ctx, q4: bool = False) -> list[dict]:
                    "qwen3_rs_tpu_torch/csrc/decode_megakernel.cu", replaces,
                    {"B": b, "layers": n_l, "dim": cfg.dim, "T": t, "pos": pos_list, "v_pad": v_pad,
                     "layer_bits": 4 if q4 else 8,
-                    "splits": split_plans(cfg, b, _mega_grid(torch, b), v_pad, q4), "depth1_max_abs_err": err1,
-                    "depth1_tol": tol1, "sensitivity": sensitivity},
+                    "splits": split_plans(cfg, b, launch_grid(cfg.group_size, q4), v_pad, q4), "depth1_max_abs_err": err1,
+                    "depth1_tol": tol1, "sensitivity": sensitivity,
+                    "barriers_per_step": barriers_per_step(n_l, True, greedy), "barrier_wait_share": wait_share,
+                    "phases_us": breakdown},
                    err, tol, ms, plain_ms, nbytes, b_ms, b_by, None,
                    "none: no one PyTorch call computes a whole decode step")
         out.append(row)
         del kv, sc, got_state
         torch.cuda.empty_cache()
     return out
+
+
+def case_label(cache, b, pos_list, ok_list, greedy) -> str:
+    return f"{cache} cache B={b} pos={pos_list}" + (f" write_ok={ok_list}" if 0 in ok_list else "") + (
+        " greedy" if greedy else "")
 
 
 def megakernel_q4_kernel_cases(torch, ctx) -> list[dict]:
@@ -1429,12 +1459,6 @@ def q4_megakernel_opt_in(on: bool = True):
             del os.environ["QWEN3_TPU_MEGA_Q4"]
         else:
             os.environ["QWEN3_TPU_MEGA_Q4"] = old
-
-
-def _mega_grid(torch, b: int) -> int:
-    from qwen3_rs_tpu_torch.ops.kernels import megakernel as mk
-
-    return mk._grid(mk._row_tile(b), torch.cuda.current_device())
 
 
 def phase_kernels(torch, ctx) -> None:

@@ -57,6 +57,7 @@ class InferenceConfig:
     kv_int8: bool = False
     speculative: int = 0
     sp: int = 1
+    sp_threshold: int = 4096  # min prompt rows of the sp prefill (inert while sp is 1)
     device: Optional[str] = None  # None = the card
 
     def __post_init__(self):

@@ -370,6 +370,7 @@ def main(argv=None) -> int:
             kv_int8=args.kv_int8,
             speculative=args.spec,
             sp=args.sp,
+            sp_threshold=args.sp_threshold,
             device=args.device,
         )
     )

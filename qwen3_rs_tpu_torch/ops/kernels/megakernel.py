@@ -36,6 +36,7 @@ default there and here).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 import os
@@ -257,17 +258,38 @@ class _MatPlan(ctypes.Structure):
 
 
 _PTRS = ("x_in", "x_out", "rms_att", "rms_ffn", "q_norm", "k_norm", "rms_final", "cos", "sin", "k_cache",
-         "v_cache", "k_scale", "v_scale", "pos", "write_ok", "logits", "tokens", "part", "att", "act",
-         "red_val", "red_idx")
+         "v_cache", "k_scale", "v_scale", "pos", "write_ok", "logits", "tokens", "part_a", "part_b", "qkv", "att",
+         "act", "ssq", "red_val", "red_idx", "counters")
 _INTS = ("B", "dim", "ah", "kvd", "hidden", "n_kv", "kv_mul", "T", "L", "g", "vocab", "v_pad",
-         "cache_type", "use_qk_norm", "has_head", "greedy")
+         "cache_type", "use_qk_norm", "has_head", "greedy", "chunk_rows", "scale_slots", "stage_bytes", "n_stages",
+         "strip_counters")
 
 
 class _Params(ctypes.Structure):
     """The mirror of ``struct Params`` in ``csrc/decode_megakernel.cu``."""
 
     _fields_ = ([("mat", _MatPlan * 5)] + [(n, ctypes.c_void_p) for n in _PTRS]
-                + [(n, ctypes.c_int) for n in _INTS] + [("eps", ctypes.c_float), ("scale", ctypes.c_float)])
+                + [(n, ctypes.c_int) for n in _INTS] + [("eps", ctypes.c_float), ("scale", ctypes.c_float)]
+                + [("stamps", ctypes.c_void_p)])
+
+
+# The kernel's fixed layout (``decode_megakernel_layout`` returns the same, and
+# the wrapper checks it at first use): threads of a block, the mbarrier and
+# scratch bytes in front of the ring of stages, the most stages, the columns of a
+# code box (a stage holds four, 128-byte swizzled), a stage's scale row stride,
+# the activation slots staged at a time, the ring's alignment.
+THREADS = 288  # eight consumer warps and one producer warp
+BAR_BYTES = 1024
+SCRATCH_BYTES = 37888
+MAX_STAGES = 16
+BOX_COLS = 128
+SCALE_STRIDE = 1024  # a scale row: 512 bf16
+PIECE = 1024
+ALIGN = 1024
+SMEM_BYTES = 232448  # the most dynamic shared memory a block takes on the H100
+STRIP = 512  # output columns of an item
+CHUNK_ROWS = (64, 32, 16)  # code rows of a stage, the first that fits STAGE_CAP
+STAGE_CAP = 40 * 1024
 
 
 @functools.cache
@@ -277,39 +299,91 @@ def _lib() -> ctypes.CDLL:
     lib.decode_megakernel.restype = ctypes.c_int
     lib.decode_megakernel_grid.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.decode_megakernel_grid.restype = ctypes.c_int
+    lib.decode_megakernel_layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.decode_megakernel_layout.restype = None
+    i = ctypes.c_int
+    lib.decode_megakernel_stages.argtypes = [ctypes.POINTER(_MatPlan), i, i, i, i, i, ctypes.POINTER(i), i]
+    lib.decode_megakernel_stages.restype = i
+    out = (ctypes.c_int * 9)()
+    lib.decode_megakernel_layout(out)
+    want = (THREADS, BAR_BYTES, SCRATCH_BYTES, MAX_STAGES, BOX_COLS, SCALE_STRIDE, PIECE, ALIGN,
+            ctypes.sizeof(_Params))
+    if tuple(out) != want:
+        raise RuntimeError(f"decode_megakernel: the kernel's layout {tuple(out)} is not the wrapper's {want}")
     return lib
 
 
 @functools.cache
-def _grid(bt: int, device_index: int) -> int:
+def _grid(smem: int, device_index: int) -> int:
     """The kernel's cooperative grid on the current device (cached per device)."""
     out = ctypes.c_int(0)
-    build.check(_lib().decode_megakernel_grid(bt, ctypes.byref(out)), "decode_megakernel occupancy")
+    build.check(_lib().decode_megakernel_grid(smem, ctypes.byref(out)), "decode_megakernel occupancy")
     return out.value
 
 
-def _row_tile(b: int) -> int:
-    for bt in (1, 2, 4, 8):
-        if b <= bt:
-            return bt
-    raise ValueError(f"decode_stack_megakernel: {b} rows; the kernel takes at most {MAX_BATCH}")
+@dataclasses.dataclass(frozen=True)
+class RingPlan:
+    """A block's ring of stages: ``chunk_rows`` code rows (INT4: packed rows)
+    of one item a stage, as four TMA boxes of 128 columns, then
+    ``scale_slots`` bf16 scale rows (the most groups a chunk touches, over the
+    layer matrices' and the classifier's group rows); ``n_stages`` of
+    ``stage_bytes`` behind the mbarriers, the scratch and the alignment;
+    ``smem_bytes`` in all."""
+
+    chunk_rows: int
+    scale_slots: int
+    stage_bytes: int
+    n_stages: int
+    smem_bytes: int
+
+
+def _scale_slots(rows: int, group_rows: int) -> int:
+    """The most scale groups ``rows`` code rows starting at a multiple of
+    ``rows`` can touch."""
+    return min(rows, (rows - 1) // group_rows + 2)
+
+
+@functools.cache
+def ring_plan(g: int, q4: bool = False) -> RingPlan:
+    """The ring for group size ``g`` (``q4``: INT4 layer matrices, whose
+    groups are g/2 packed rows; the classifier's are g rows): the largest
+    stage of ``CHUNK_ROWS`` that fits ``STAGE_CAP``, and as many stages as
+    the shared memory holds."""
+    group_rows = (g // 2 if q4 else g, g)
+    for rows in CHUNK_ROWS:
+        slots = max(_scale_slots(rows, r) for r in group_rows)
+        stage = -(-(STRIP // BOX_COLS * rows * BOX_COLS + slots * SCALE_STRIDE) // ALIGN) * ALIGN
+        if stage <= STAGE_CAP:
+            break
+    fixed = BAR_BYTES + SCRATCH_BYTES + ALIGN
+    n = min(MAX_STAGES, (SMEM_BYTES - fixed) // stage)
+    return RingPlan(rows, slots, stage, n, fixed + n * stage)
+
+
+# What an item costs a block besides its weight rows, in bytes of the stream:
+# staging its activation, summing the warps, writing and arriving (a few µs
+# at a block's ~24 GB/s share of the card's rate).
+ITEM_BYTES = 96 * 1024
 
 
 @functools.cache
 def split_plan(n: int, d: int, rows: int, grid: int, g: int, q4: bool = False) -> tuple[int, int]:
     """(splits, rows per split) of a matmul phase: the split of the
-    contraction into multiples of 64 rows that gives the slowest block the
-    fewest bytes, counting the codes and scales (``q4``: packed codes) it
-    streams over its rounds of (512-column strip, split) items and its share
-    of the partials written and read back."""
-    strips = -(-d // 512)
-    per_row = min(512, d) * ((0.5 if q4 else 1.0) + 2.0 / g)
+    contraction into whole 64-code-row multiples (INT8 64 rows, INT4 128)
+    that gives the slowest block the least work over its rounds of
+    (512-column strip, split) items: a byte a weight (the consumers'
+    dequantization and products set the pace, INT4's half-byte weights
+    included) and its scales, ``ITEM_BYTES`` an item, and its share of the
+    partials written and read back."""
+    strips = -(-d // STRIP)
+    align = 128 if q4 else 64
+    per_row = min(STRIP, d) * (1.0 + 2.0 / g)
     best = None
-    for want in range(1, max(1, n // 64) + 1):
-        kc = min(-(-n // want // 64) * 64, -(-n // 8) * 8)
+    for want in range(1, max(1, n // align) + 1):
+        kc = -(-n // want // align) * align
         splits = -(-n // kc)
         rounds = -(-strips * splits // grid)
-        cost = rounds * kc * per_row + splits * rows * d * 8.0 / grid
+        cost = rounds * (kc * per_row + ITEM_BYTES) + splits * rows * d * 8.0 / grid
         if best is None or cost < best[0]:
             best = (cost, splits, kc)
     return best[1], best[2]
@@ -326,6 +400,107 @@ def _mat_shapes(config, v_pad: int | None) -> dict[str, tuple[int, int]]:
     return shapes
 
 
+# ------------------------------------------------------- the schedule, mirrored
+def strips_of(d: int, paired: bool = False) -> int:
+    """Strips of a matmul phase's output columns: 512 columns each, or for
+    w13 (``paired``: [gate | up], d/2 each) 256 gate and the same 256 up
+    columns each."""
+    return -(-(d // 2) // (STRIP // 2)) if paired else -(-d // STRIP)
+
+
+def item_of(n: int, d: int, splits: int, kc: int, q4: bool, it: int,
+            paired: bool = False) -> tuple[int, int, int, int, int]:
+    """Item ``it`` of a matmul phase, as the kernel's ``item_of``: (strip,
+    split, valid columns of the strip (``paired``: of each half), first code
+    row, end code row); INT4 code rows are packed rows."""
+    strips = strips_of(d, paired)
+    si, ki = it % strips, it // strips
+    k0, k1 = ki * kc, min(n, ki * kc + kc)
+    width = min(STRIP // 2, d // 2 - si * (STRIP // 2)) if paired else min(STRIP, d - si * STRIP)
+    return si, ki, width, (k0 // 2 if q4 else k0), (k1 // 2 if q4 else k1)
+
+
+@dataclasses.dataclass(frozen=True)
+class MatSchedule:
+    """One matmul phase of the kernel's schedule: its [n, d] matrix, the
+    split of its contraction (``splits`` of ``kc`` rows), whether its codes
+    are INT4, its strips (``paired``: w13's, 256 gate and 256 up columns
+    each) and the code rows of a scale group."""
+
+    name: str
+    n: int
+    d: int
+    splits: int
+    kc: int
+    q4: bool
+    paired: bool
+    strips: int
+    group_rows: int
+
+
+def block_stages(mat: MatSchedule, ring: RingPlan, grid: int, block: int) -> list[tuple[int, int, int, int, int]]:
+    """The stages block ``block`` streams for one matmul phase, in the order
+    its producer fills them (the kernel's ``produce_mat``, which
+    ``decode_megakernel_stages`` lists on the card): (strip, split, first
+    code row, code rows, scale rows)."""
+    out = []
+    gr = mat.group_rows
+    for it in range(block, mat.strips * mat.splits, grid):
+        si, ki, _, c0, c1 = item_of(mat.n, mat.d, mat.splits, mat.kc, mat.q4, it, mat.paired)
+        for r0 in range(c0, c1, ring.chunk_rows):
+            rows = min(ring.chunk_rows, c1 - r0)
+            out.append((si, ki, r0, rows, (r0 + rows - 1) // gr - r0 // gr + 1))
+    return out
+
+
+def phase_names(n_layers: int, has_head: bool, greedy: bool) -> list[str]:
+    """The name of each phase of one launch, in order; each but the last
+    ends at a grid barrier."""
+    tail = (["head", "argmax"] if greedy else ["head"]) if has_head else []
+    return list(LAYER_PHASES) * n_layers + tail
+
+
+# The phases of a layer, each ending at a grid barrier: the residuals are folded
+# into wo and w2 (the strip's last item adds them), SwiGLU into w2's activation,
+# the chunks' merge into attention (the last chunk item of a (row, kv head)).
+LAYER_PHASES = ("wqkv", "attention", "wo", "w13", "w2")
+
+
+def barriers_per_step(n_layers: int, has_head: bool, greedy: bool) -> int:
+    return len(phase_names(n_layers, has_head, greedy)) - 1
+
+
+@dataclasses.dataclass(frozen=True)
+class Schedule:
+    """The whole step as the kernel walks it: the ring, the matmul phases in
+    the kernel's order (wqkv, wo, w13, w2, the classifier), the name of every
+    phase of the launch and the grid barriers between them."""
+
+    ring: RingPlan
+    mats: tuple[MatSchedule, ...]
+    phases: tuple[str, ...]
+    barriers: int
+
+
+@functools.cache
+def schedule(config, b: int, grid: int, v_pad: int | None = None, q4: bool = False,
+             greedy: bool = False) -> Schedule:
+    """The launch's schedule at ``b`` rows on a grid of ``grid`` blocks
+    (``v_pad``: the classifier's columns; ``q4``: INT4 layer matrices): what
+    the wrapper hands the kernel, and what the tests hold to the kernel's own
+    walk."""
+    g = config.group_size
+    mats = []
+    for name, (n, d) in _mat_shapes(config, v_pad).items():
+        mq4 = q4 and name != "lm_head"
+        splits, kc = split_plan(n, d, b, grid, g, mq4)
+        paired = name == "w13"
+        mats.append(MatSchedule(name, n, d, splits, kc, mq4, paired, strips_of(d, paired), g // 2 if mq4 else g))
+    head = v_pad is not None
+    return Schedule(ring_plan(g, q4), tuple(mats), tuple(phase_names(config.n_layers, head, greedy)),
+                    barriers_per_step(config.n_layers, head, greedy))
+
+
 def _need(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"decode_stack_megakernel: {msg}")
@@ -335,10 +510,25 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+_COUNTERS: dict[torch.device, torch.Tensor] = {}
+
+
+def _counters(dev: torch.device, n: int) -> torch.Tensor:
+    """The kernel's barrier and arrival counters on ``dev``, made once
+    (zeros; grown when a launch needs more): each launch leaves the arrival
+    counts at zero and the barrier's counter where the next launch can start
+    from it, so a step adds no device op.  One stream at a time may use
+    them."""
+    t = _COUNTERS.get(dev)
+    if t is None or t.numel() < n:
+        t = _COUNTERS[dev] = torch.zeros(max(n, 4096), dtype=torch.int32, device=dev)
+    return t
+
+
 def decode_stack_megakernel(
     config, x, rms_att, rms_ffn, q_norm, k_norm, cos, sin, wqkv, wo, w13, w2, k_cache, v_cache, pos,
     rms_final=None, lm_head=None, write_ok=None, k_scale=None, v_scale=None, *, eps=1e-6,
-    greedy=False,
+    greedy=False, stamps=None,
 ):
     """One whole decode step over every layer → ``(x_out [B, dim] f32,
     head)``: ``head`` is the logits ``[B, v_pad]`` f32 with ``lm_head`` and
@@ -353,6 +543,11 @@ def decode_stack_megakernel(
     the caches ``[L, B, n_kv, T, hd]`` (f32, bf16, or int8 with f32 scales
     ``[L, B, n_kv, T]``), pos ``[B]`` int32, write_ok ``[B]`` (None: every
     row writes).  The caches are updated in place.
+
+    ``stamps`` (card only, for the phase breakdown): int64 ``[grid,
+    barriers + 2, 2]`` (``schedule(...).barriers``), where each block writes the device
+    clock (ns) at its start, as it finishes each phase and leaves the grid
+    barrier after it, and at its end (``phase_breakdown`` reads them).
     """
     if x.device.type == "cpu":
         return decode_stack_megakernel_plain(
@@ -384,7 +579,8 @@ def decode_stack_megakernel(
     _need(lm_head is None or not isinstance(lm_head, Q4Tensor), "the classifier must be INT8")
     _need(not q4 or g % 2 == 0, f"INT4 group size {g} must be even")
     mats = [wqkv, wo, w13, w2] + ([lm_head] if lm_head is not None else [])
-    shapes = list(_mat_shapes(c, lm_head.q.shape[-1] if lm_head is not None else None).values())
+    v_pad = lm_head.q.shape[-1] if lm_head is not None else None
+    shapes = list(_mat_shapes(c, v_pad).values())
     f32 = torch.float32
     vecs = [x, rms_att, rms_ffn, q_norm, k_norm, cos, sin] + ([rms_final] if lm_head is not None else [])
     vecs = [v.contiguous() if v.dtype == f32 else v.float().contiguous() for v in vecs]
@@ -411,43 +607,122 @@ def decode_stack_megakernel(
         s for s in (k_scale, v_scale, ok) if s is not None]
     _need(all(t_.device == dev for t_ in tensors), "all tensors must be on one device")
 
-    bt = _row_tile(b)
-    grid = _grid(bt, dev.index if dev.index is not None else torch.cuda.current_device())
-    plans = [split_plan(n, d, b, grid, g, q4 and i < 4) for i, (n, d) in enumerate(shapes)]
+    grid = _grid(ring_plan(g, q4).smem_bytes, dev.index if dev.index is not None else torch.cuda.current_device())
+    sched = schedule(c, b, grid, v_pad, q4, greedy)
+    ring = sched.ring
+    strips = [m.strips for m in sched.mats]
     n_chunks = -(-t // CHUNK)
-    part = torch.empty(max(s * b * d for (s, _), (_, d) in zip(plans, shapes)), dtype=f32, device=dev)
+    # Split partials [split, B, strips * 512]: wqkv, w13 and the classifier, then wo and w2.
+    part = [m.splits * b * m.strips * STRIP for m in sched.mats]
+    part_a = torch.empty(max(part[i] for i in (0, 2, 4) if i < len(part)), dtype=f32, device=dev)
+    part_b = torch.empty(max(part[1], part[3]), dtype=f32, device=dev)
+    qkv = torch.empty(b * shapes[0][1], dtype=f32, device=dev)
     att = torch.empty(b * n_kv * n_chunks * c.kv_mul * (2 + hd), dtype=f32, device=dev)
     act = torch.empty(b * max(c.all_heads_dim, c.hidden_dim), dtype=f32, device=dev)
+    ssq = torch.empty(strips[1] * b, dtype=f32, device=dev)
     x_out = torch.empty(b, dim, dtype=f32, device=dev)
-    v_pad = lm_head.q.shape[-1] if lm_head is not None else 0
     logits = torch.empty(b, v_pad, dtype=f32, device=dev) if lm_head is not None else None
     tokens = torch.empty(b, dtype=torch.int32, device=dev) if greedy else None
-    red_val = torch.empty(grid * b, dtype=f32, device=dev) if greedy else None
-    red_idx = torch.empty(grid * b, dtype=torch.int32, device=dev) if greedy else None
+    red_val = torch.empty(strips[-1] * b, dtype=f32, device=dev) if greedy else None
+    red_idx = torch.empty(strips[-1] * b, dtype=torch.int32, device=dev) if greedy else None
+    strip_counters = max(strips)
+    counters = _counters(dev, 1 + strip_counters + b * n_kv)
 
     prm = _Params()
-    for i, (w, (n, d), (splits, kc)) in enumerate(zip(mats, shapes, plans)):
-        prm.mat[i] = _MatPlan(w.q.data_ptr(), w.scales.data_ptr(), n, d, splits, kc, int(q4 and i < 4))
+    for i, (w, m) in enumerate(zip(mats, sched.mats)):
+        prm.mat[i] = _MatPlan(w.q.data_ptr(), w.scales.data_ptr(), m.n, m.d, m.splits, m.kc, int(m.q4))
     ptrs = dict(x_in=x, x_out=x_out, rms_att=rms_att, rms_ffn=rms_ffn, q_norm=q_norm, k_norm=k_norm,
                 rms_final=rms_final, cos=cos, sin=sin, k_cache=k_cache, v_cache=v_cache, k_scale=k_scale,
-                v_scale=v_scale, pos=pos, write_ok=ok, logits=logits, tokens=tokens, part=part, att=att,
-                act=act, red_val=red_val, red_idx=red_idx)
+                v_scale=v_scale, pos=pos, write_ok=ok, logits=logits, tokens=tokens, part_a=part_a, part_b=part_b,
+                qkv=qkv, att=att, act=act, ssq=ssq, red_val=red_val, red_idx=red_idx, counters=counters)
     for name in _PTRS:
         setattr(prm, name, _ptr(ptrs[name]))
     ints = dict(B=b, dim=dim, ah=c.all_heads_dim, kvd=c.kv_dim, hidden=c.hidden_dim, n_kv=n_kv, kv_mul=c.kv_mul,
-                T=t, L=n_layers, g=g, vocab=c.vocab_size, v_pad=v_pad, cache_type=_CACHE_TYPES[k_cache.dtype],
-                use_qk_norm=int(c.use_qk_norm), has_head=int(lm_head is not None), greedy=int(greedy))
+                T=t, L=n_layers, g=g, vocab=c.vocab_size, v_pad=v_pad or 0, cache_type=_CACHE_TYPES[k_cache.dtype],
+                use_qk_norm=int(c.use_qk_norm), has_head=int(lm_head is not None), greedy=int(greedy),
+                chunk_rows=ring.chunk_rows, scale_slots=ring.scale_slots, stage_bytes=ring.stage_bytes,
+                n_stages=ring.n_stages, strip_counters=strip_counters)
     for name in _INTS:
         setattr(prm, name, ints[name])
     prm.eps, prm.scale = eps, 1.0 / math.sqrt(hd)
-    err = _lib().decode_megakernel(ctypes.byref(prm), bt, grid, torch.cuda.current_stream(dev).cuda_stream)
+    if stamps is not None:
+        slots = sched.barriers + 2
+        _need(stamps.dtype == torch.int64 and stamps.shape == (grid, slots, 2) and stamps.is_contiguous()
+              and stamps.device == dev, f"stamps must be contiguous int64 [{grid}, {slots}, 2] on {dev}")
+        prm.stamps = stamps.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib().decode_megakernel(ctypes.byref(prm), grid, ring.smem_bytes, stream)
     build.check(err, "decode_stack_megakernel")
     LAUNCHES["decode_megakernel_q4" if q4 else "decode_megakernel"] += 1
     return x_out, (tokens if greedy else logits)
 
 
+def kernel_stages(mat: MatSchedule, g: int, ring: RingPlan, grid: int, block: int) -> list[tuple[int, ...]]:
+    """The stages block ``block`` streams for ``mat`` as the kernel's own
+    walk lists them (``decode_megakernel_stages``; card builds only): what
+    ``block_stages`` mirrors."""
+    index = ("wqkv", "wo", "w13", "w2", "lm_head").index(mat.name)
+    plan = _MatPlan(None, None, mat.n, mat.d, mat.splits, mat.kc, int(mat.q4))
+    cap = -(-mat.strips * mat.splits // grid) * -(-mat.kc // ring.chunk_rows)
+    out = (ctypes.c_int * (5 * cap))()
+    n = _lib().decode_megakernel_stages(ctypes.byref(plan), index, g, ring.chunk_rows, grid, block, out, cap)
+    if n > cap:
+        raise RuntimeError(f"decode_megakernel_stages: {n} stages past the {cap} expected")
+    return [tuple(out[5 * k: 5 * k + 5]) for k in range(n)]
+
+
+def launch_grid(g: int, q4: bool = False) -> int:
+    """The grid the kernel takes at group size ``g`` on the current device
+    (card only)."""
+    return _grid(ring_plan(g, q4).smem_bytes, torch.cuda.current_device())
+
+
+def phase_breakdown(stamps, names: list[str]) -> dict[str, dict[str, float]]:
+    """Per phase kind, the median over its occurrences (the layers) in µs
+    of: ``work``, the last block's finish minus the first block's release
+    into the phase (its leave of the barrier before, or its start);
+    ``barrier``, the first block's leave of the barrier after the phase minus
+    the last block's finish (0 for the last phase); ``spread``, the last
+    block's finish minus the first's; ``wait``, the mean over blocks of each
+    block's own leave of that barrier minus its own finish (what a block
+    spends there, the spread's share included).  ``stamps``: int64 ``[grid,
+    slots, 2]`` as the kernel writes them (``len(names) + 1`` slots)."""
+    st = _stamps(stamps, names)
+    rel = (st - st[:, 0, 0].min()).double() / 1e3
+    rows: dict[str, list[tuple[float, float, float, float]]] = {}
+    for i, name in enumerate(names):
+        release = float(rel[:, i, 1].min())
+        fin = rel[:, i + 1, 0]
+        last = float(fin.max())
+        leave = float(rel[:, i + 1, 1].min()) if i + 1 < len(names) else last
+        wait = float((rel[:, i + 1, 1] - fin).mean()) if i + 1 < len(names) else 0.0
+        rows.setdefault(name, []).append((last - release, leave - last, last - float(fin.min()), wait))
+    out = {}
+    for name, vals in rows.items():
+        cols = list(zip(*vals))
+        out[name] = {k: float(torch.tensor(c, dtype=torch.float64).median())
+                     for k, c in zip(("work", "barrier", "spread", "wait"), cols)}
+        out[name]["count"] = len(vals)
+    return out
+
+
+def barrier_wait_share(stamps, names: list[str]) -> float:
+    """The share of the stamped launch (first start to last end) that the
+    mean block spends at grid barriers, from its finish of a phase to its
+    leave of the barrier after it."""
+    st = _stamps(stamps, names).double()
+    waits = (st[:, 1:-1, 1] - st[:, 1:-1, 0]).sum(dim=1)
+    return float(waits.mean() / (st[:, -1, 0].max() - st[:, 0, 0].min()))
+
+
+def _stamps(stamps, names: list[str]) -> torch.Tensor:
+    st = stamps.to("cpu", torch.int64) if isinstance(stamps, torch.Tensor) else torch.as_tensor(stamps)
+    if st.shape[1] != len(names) + 1:
+        raise ValueError(f"{st.shape[1]} stamp slots for {len(names)} phases")
+    return st
+
+
 def split_plans(config, b: int, grid: int, v_pad: int | None = None, q4: bool = False) -> dict[str, tuple[int, int]]:
     """The kernel's (splits, rows per split) of each matmul phase at ``b``
     rows on a grid of ``grid`` blocks (for reports); ``q4``: INT4 layers."""
-    return {k: split_plan(n, d, b, grid, config.group_size, q4 and k != "lm_head")
-            for k, (n, d) in _mat_shapes(config, v_pad).items()}
+    return {m.name: (m.splits, m.kc) for m in schedule(config, b, grid, v_pad, q4).mats}

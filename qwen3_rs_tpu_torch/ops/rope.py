@@ -7,13 +7,20 @@ import functools
 
 import torch
 
+from ..device import resolve_device
+
+
+def rope_table(
+    seq_len: int, head_dim: int, theta: float = 1e6, device=None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) tables ``[seq_len, head_dim // 2]`` in f32 on ``device``
+    (None: the card, raising without CUDA).  Computed on the host so every
+    device sees the same table, then moved once and cached per device."""
+    return _rope_table(seq_len, head_dim, theta, resolve_device(device))
+
 
 @functools.lru_cache(maxsize=8)
-def rope_table(
-    seq_len: int, head_dim: int, theta: float = 1e6, device: str = "cpu"
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """(cos, sin) tables ``[seq_len, head_dim // 2]`` in f32.  Computed on the
-    host so every device sees the same table, then moved once."""
+def _rope_table(seq_len: int, head_dim: int, theta: float, device: torch.device):
     half = head_dim // 2
     freqs = torch.pow(
         torch.tensor(theta, dtype=torch.float32),

@@ -69,3 +69,39 @@ def test_registry_and_architecture_name_match_jax(arch):
 def test_top_level_docstring_names_the_formats():
     doc = qwen3_rs_tpu_torch.__doc__
     assert "INT4" in doc and "device sampling" in doc and qwen3_rs_tpu.__all__
+
+
+def test_inference_config_has_the_jax_fields_and_defaults():
+    """The port's ``InferenceConfig`` is JAX's, field for field and default
+    for default (the seed's default is the clock in both), plus ``device``."""
+    ref = {f.name: f for f in dataclasses.fields(qwen3_rs_tpu.InferenceConfig)}
+    port = {f.name: f for f in dataclasses.fields(qwen3_rs_tpu_torch.InferenceConfig)}
+    assert set(port) - set(ref) == {"device"}
+    assert set(ref) <= set(port)
+    assert [n for n in port if n in ref] == list(ref)  # in JAX's order
+    for name, f in ref.items():
+        assert port[name].default == f.default, name
+        assert port[name].default_factory == f.default_factory, name
+    assert qwen3_rs_tpu_torch.InferenceConfig("ckpt", sp_threshold=8192).sp_threshold == 8192
+
+
+def test_cli_passes_sp_threshold_to_the_config(monkeypatch):
+    from qwen3_rs_tpu_torch import cli
+
+    seen = []
+    monkeypatch.setattr(qwen3_rs_tpu_torch, "run_inference", seen.append)
+    for argv, want in ((["inference", "m.qtpu", "--sp-threshold", "8192"], 8192), (["inference", "m.qtpu"], 4096)):
+        assert cli.main(argv + ["--device", "cpu"]) == 0
+        assert seen[-1].sp_threshold == want and seen[-1].device == "cpu"
+
+
+def test_rope_table_takes_the_card_by_default(monkeypatch):
+    import torch
+
+    from qwen3_rs_tpu_torch.ops.rope import rope_table
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        rope_table(16, 8)
+    cos, sin = rope_table(16, 8, 1e6, "cpu")
+    assert cos.device.type == sin.device.type == "cpu" and cos.shape == (16, 4)

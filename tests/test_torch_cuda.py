@@ -848,6 +848,173 @@ def test_megakernel_q4_matches_plain(card, cache, g, heads, b):
         assert torch.equal(copies[2][i], copies[0][i])
 
 
+_RING_CASES = [(b, g, q4) for q4 in (False, True) for g in (32, 64, 128) for b in (1, 2, 3, 5, 8)]
+
+
+@pytest.mark.parametrize("b,g,q4", _RING_CASES)
+def test_megakernel_ring_matches_plain(card, b, g, q4):
+    """The ring's shapes: dim 640 (wo's and w2's last strip 128 columns, w13's
+    1792 columns 3.5 strips, wqkv 896), group sizes 32, 64 and 128 for INT8
+    and INT4 layers, B = 1, 2, 3, 5, 8, the three caches in turn, 5 query
+    heads on one kv head; the rows written and the cache outside them as in
+    test_megakernel_q4_matches_plain, greedy the first max of the logits.
+
+    Each layer is held to the plain version's layer from the same input:
+    within 5e-3 of a row's largest value (logits 1e-2), as
+    tests/test_torch_megakernel.py argues (an f32 sum in another order may
+    flip one bf16 rounding).  Layer 0 from the step's input; layer 1 of a
+    two-layer launch against the plain second layer from the one-layer
+    launch's output (the launch is repeatable bit for bit and its plans do
+    not depend on the depth), so that a rounding flipped in layer 0 is not
+    counted again as layer 1's error, while the hand-over between the layers
+    (the stream in place, its norm from the strips' sums of squares) is still
+    the kernel's own."""
+    import dataclasses
+
+    cache = ("f32", "bf16", "int8")[(b + g // 32 + int(q4)) % 3]
+    cfg = ModelConfig(architecture_id=1, dim=640, hidden_dim=896, n_layers=2, n_heads=5, n_kv_heads=1,
+                      head_dim=128, seq_len=200, vocab_size=1000, group_size=g, shared_classifier=True)
+    gen = _gen(b * 41 + g + 7 * int(q4))
+    w, x, cos, sin, kv, sc = _mega_inputs(gen, card, cfg, b, cache, 1024, q4=q4)
+    pos = torch.tensor([0, 199, 64, 150, 1, 128, 127, 230][:b], dtype=torch.int32, device=card)
+    ok = torch.tensor([1, 1, 0, 1, 1, 0, 1, 1][:b], dtype=torch.int32, device=card)
+    key = "decode_megakernel_q4" if q4 else "decode_megakernel"
+
+    def layers(lo, hi):
+        ws = dict(w)
+        for k in ("rms_att", "rms_ffn", "q_norm", "k_norm"):
+            ws[k] = w[k][lo:hi]
+        for k in ("wqkv", "wo", "w13", "w2"):
+            ws[k] = type(w[k])(w[k].q[lo:hi], w[k].scales[lo:hi])
+        return dataclasses.replace(cfg, n_layers=hi - lo), ws
+
+    def state(lo, hi):
+        return [t[lo:hi].clone() if t is not None else None for t in kv + sc]
+
+    def run(fn, lo, hi, x_in, st, greedy=False):
+        c, ws = layers(lo, hi)
+        return _mega(fn, c, ws, x_in, cos, sin, st[:2], st[2:], pos, ok, greedy=greedy)
+
+    def rel(a, ref):
+        return float((a - ref).abs().max()) / float(ref.abs().max())
+
+    got1, ref1, tok1 = state(0, 1), state(0, 1), state(0, 1)
+    before = LAUNCHES[key]
+    gx1, glog1 = run(decode_stack_megakernel, 0, 1, x, got1)
+    assert LAUNCHES[key] == before + 1
+    px1, plog1 = run(decode_stack_megakernel_plain, 0, 1, x, ref1)
+    gtok1 = run(decode_stack_megakernel, 0, 1, x, tok1, greedy=True)[1]
+    got2, tok2, ref_l1 = state(0, 2), state(0, 2), state(1, 2)
+    gx2, glog2 = run(decode_stack_megakernel, 0, 2, x, got2)
+    gtok2 = run(decode_stack_megakernel, 0, 2, x, tok2, greedy=True)[1]
+    px2, plog2 = run(decode_stack_megakernel_plain, 1, 2, gx1, ref_l1)
+    ref2 = [torch.cat([a, b_]) if a is not None else None for a, b_ in zip(ref1, ref_l1)]
+    torch.cuda.synchronize()
+    for depth, gx, glog, px, plog, gtok, got, ref, tok in (
+            (1, gx1, glog1, px1, plog1, gtok1, got1, ref1, tok1),
+            (2, gx2, glog2, px2, plog2, gtok2, got2, ref2, tok2)):
+        assert bool(torch.isfinite(glog).all())
+        for r in range(b):
+            assert rel(gx[r], px[r]) <= 5e-3, (depth, r, rel(gx[r], px[r]))
+            assert rel(glog[r], plog[r]) <= 1e-2, (depth, r, rel(glog[r], plog[r]))
+        assert torch.equal(gtok, glog[:, : cfg.vocab_size].argmax(-1).to(torch.int32))
+        for i in range(2):
+            g_, r_, old = got[i].float(), ref[i].float(), kv[i][:depth].float()
+            if cache == "int8":
+                assert float((g_ - r_).abs().max()) <= 1
+            else:
+                lim = 5e-3 * float(r_.abs().max()) + 2.0**-7 * r_.abs()
+                assert bool(((g_ - r_).abs() <= lim).all())
+            for r in range(b):
+                keep = torch.ones(cfg.seq_len, dtype=torch.bool, device=card)
+                if ok[r]:
+                    keep[min(int(pos[r]), cfg.seq_len - 1)] = False
+                assert torch.equal(g_[:, r][:, :, keep], old[:, r][:, :, keep]), r
+            assert torch.equal(tok[i], got[i])
+
+
+@pytest.mark.parametrize("b,q4,cache", [(1, False, "f32"), (8, False, "bf16"), (1, True, "int8"), (5, True, "f32")])
+def test_megakernel_repeats_bit_for_bit(card, b, q4, cache):
+    """Launches back to back on one stream from the same inputs are equal bit
+    for bit: the barrier and arrival counters are left as the next launch
+    expects them, and every sum across blocks is taken in a fixed order."""
+    cfg = ModelConfig(architecture_id=1, dim=512, hidden_dim=1024, n_layers=2, n_heads=8, n_kv_heads=2,
+                      head_dim=128, seq_len=256, vocab_size=2000, group_size=64, shared_classifier=True)
+    w, x, cos, sin, kv, sc = _mega_inputs(_gen(b * 3 + int(q4)), card, cfg, b, cache, 2048, q4=q4)
+    pos = torch.tensor([255, 3, 129, 0, 64, 200, 17, 128][:b], dtype=torch.int32, device=card)
+    copies = [[t.clone() if t is not None else None for t in kv + sc] for _ in range(3)]
+    outs = [_mega(decode_stack_megakernel, cfg, w, x, cos, sin, c[:2], c[2:], pos, None) for c in copies]
+    toks = [_mega(decode_stack_megakernel, cfg, w, x, cos, sin, [t.clone() for t in kv],
+                  [t.clone() if t is not None else None for t in sc], pos, None, greedy=True)[1] for _ in range(2)]
+    torch.cuda.synchronize()
+    for o, c in zip(outs[1:], copies[1:]):
+        assert torch.equal(o[0], outs[0][0]) and torch.equal(o[1], outs[0][1])
+        assert all(torch.equal(a, b_) for a, b_ in zip(c, copies[0]) if a is not None)
+    assert torch.equal(toks[0], toks[1])
+
+
+@pytest.mark.parametrize("cache", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("heads", [(8, 2), (16, 2), (12, 1)])
+def test_megakernel_head_groups_match_plain(card, heads, cache):
+    """Attention items of 4 or 8 query heads (the kernel takes one head an
+    item only where those items fit one round of the grid, so short caches
+    never reach the groups): a 1024-row cache with B = 8 rows up to its last
+    position, kv_mul 4, 8 and 12 (a group of 8 and one of 4); one layer
+    against the plain version at the single-layer tolerances, the rows
+    written and the cache outside them as in the other cases."""
+    cfg = ModelConfig(architecture_id=1, dim=512, hidden_dim=768, n_layers=1, n_heads=heads[0],
+                      n_kv_heads=heads[1], head_dim=128, seq_len=1024, vocab_size=1000, group_size=64,
+                      shared_classifier=True)
+    b = 8
+    w, x, cos, sin, kv, sc = _mega_inputs(_gen(heads[0] * 7 + len(cache)), card, cfg, b, cache, 1024)
+    pos = torch.tensor([1023, 900, 512, 0, 7, 300, 1500, 64], dtype=torch.int32, device=card)
+    ok = torch.tensor([1, 1, 0, 1, 1, 1, 1, 1], dtype=torch.int32, device=card)
+    assert b * heads[0] * 8 > 132  # the one-head items would not fit one round
+    copies = [[t.clone() if t is not None else None for t in kv + sc] for _ in range(2)]
+    gx, glog = _mega(decode_stack_megakernel, cfg, w, x, cos, sin, copies[0][:2], copies[0][2:], pos, ok)
+    px, plog = _mega(decode_stack_megakernel_plain, cfg, w, x, cos, sin, copies[1][:2], copies[1][2:], pos, ok)
+    torch.cuda.synchronize()
+    for r in range(b):
+        assert float((gx[r] - px[r]).abs().max()) <= 5e-3 * float(px[r].abs().max()), r
+        assert float((glog[r] - plog[r]).abs().max()) <= 1e-2 * float(plog[r].abs().max()), r
+    for i in range(2):
+        got, ref, old = copies[0][i].float(), copies[1][i].float(), kv[i].float()
+        if cache == "int8":
+            assert float((got - ref).abs().max()) <= 1
+        else:
+            assert bool(((got - ref).abs() <= 5e-3 * float(ref.abs().max()) + 2.0**-7 * ref.abs()).all())
+        for r in range(b):
+            keep = torch.ones(cfg.seq_len, dtype=torch.bool, device=card)
+            if ok[r]:
+                keep[min(int(pos[r]), cfg.seq_len - 1)] = False
+            assert torch.equal(got[:, r][:, :, keep], old[:, r][:, :, keep]), r
+
+
+@pytest.mark.parametrize("q4", [False, True])
+@pytest.mark.parametrize("b", [1, 2, 8])
+def test_megakernel_schedule_is_the_kernels_walk(card, b, q4):
+    """The wrapper's mirror of #11's schedule (``block_stages``, which the
+    CPU tests check for coverage and the ring's budget) lists block for block
+    the stages the kernel's producer walks (``decode_megakernel_stages``: the
+    same ``item_of`` and ``stage_of`` as ``produce_mat``), at Qwen3-8B on this
+    card's grid and at the card tests' dim 640, groups 32 and 128."""
+    from qwen3_rs_tpu_torch.ops.kernels import megakernel as mk
+    from qwen3_rs_tpu_torch.testing import QWEN3_CONFIGS
+
+    small = dict(architecture_id=1, dim=640, hidden_dim=896, n_layers=2, n_heads=5, n_kv_heads=1, head_dim=128,
+                 seq_len=200, vocab_size=1000, shared_classifier=True)
+    configs = [(ModelConfig(architecture_id=1, seq_len=4096, group_size=64, shared_classifier=True,
+                            **QWEN3_CONFIGS["8b"]), 153600),
+               (ModelConfig(group_size=32, **small), 1024), (ModelConfig(group_size=128, **small), None)]
+    for cfg, v_pad in configs:
+        grid = mk.launch_grid(cfg.group_size, q4)
+        s = mk.schedule(cfg, b, grid, v_pad, q4)
+        for m in s.mats:
+            for blk in range(grid):
+                want = mk.block_stages(m, s.ring, grid, blk)
+                assert mk.kernel_stages(m, cfg.group_size, s.ring, grid, blk) == want, (cfg.dim, m.name, blk)
+
+
 def test_megakernel_q4_refuses_what_it_cannot_take(card):
     cfg = ModelConfig(architecture_id=1, dim=512, hidden_dim=768, n_layers=1, n_heads=4, n_kv_heads=2,
                       head_dim=128, seq_len=128, vocab_size=1000, group_size=64, shared_classifier=True)

@@ -40,11 +40,17 @@ from qwen3_rs_tpu.ops.quant import QuantizedTensor as JaxQT
 from qwen3_rs_tpu_torch.configuration import ModelConfig
 from qwen3_rs_tpu_torch.models.qwen3 import weights_from_jax_numpy
 from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES
+from qwen3_rs_tpu_torch.ops.kernels import megakernel as mk
 from qwen3_rs_tpu_torch.ops.kernels.megakernel import (
+    barrier_wait_share,
+    barriers_per_step,
     decode_stack_megakernel,
     decode_stack_megakernel_plain,
     head_phase_supported,
     megakernel_supported,
+    phase_breakdown,
+    phase_names,
+    schedule,
 )
 from qwen3_rs_tpu_torch.ops.quant import QuantizedTensor
 from qwen3_rs_tpu_torch.testing import QWEN3_CONFIGS
@@ -277,3 +283,100 @@ def test_gate_agrees_with_the_jax_gate(monkeypatch):
     assert not megakernel_supported(big, 4096, torch.float32, 9)
     assert not megakernel_supported(big, 4096, torch.float32, 1, q4=True)
     assert head_phase_supported(big, 153600)
+
+
+# ------------------------------------------------- the kernel's schedule (mirror)
+def _schedule_configs():
+    """(config, classifier columns, grid): Qwen3-8B on the H100's 132 SMs and
+    the card tests' small widths (a dim that is not a multiple of 512)."""
+    spec = dict(QWEN3_CONFIGS["8b"])
+    big = ModelConfig(architecture_id=1, seq_len=4096, group_size=64, shared_classifier=True, **spec)
+    small = dict(architecture_id=1, n_layers=2, head_dim=128, seq_len=200, vocab_size=1000,
+                 shared_classifier=True)
+    return [
+        (big, 153600, 132),
+        (ModelConfig(dim=512, hidden_dim=768, n_heads=12, n_kv_heads=1, group_size=64, **small), 1024, 132),
+        (ModelConfig(dim=640, hidden_dim=896, n_heads=5, n_kv_heads=1, group_size=128, **small), 1024, 132),
+        (ModelConfig(dim=640, hidden_dim=896, n_heads=5, n_kv_heads=1, group_size=32, **small), None, 7),
+    ]
+
+
+@pytest.mark.parametrize("q4", [False, True])
+@pytest.mark.parametrize("b", [1, 2, 8])
+@pytest.mark.parametrize("which", range(4))
+def test_schedule_streams_every_item_once(which, b, q4):
+    """Every (strip, split) of every matmul phase is one block's, its code
+    rows streamed once in stages of at most ``chunk_rows`` rows whose scale
+    groups fit the stage's slots; the ring fits the shared memory; the
+    plans' splits are whole 64-row (INT4: 128) multiples."""
+    cfg, v_pad, grid = _schedule_configs()[which]
+    s = schedule(cfg, b, grid, v_pad, q4)
+    ring = s.ring
+    assert ring.smem_bytes <= mk.SMEM_BYTES and 2 <= ring.n_stages <= mk.MAX_STAGES
+    assert ring.stage_bytes >= 4 * ring.chunk_rows * mk.BOX_COLS + ring.scale_slots * mk.SCALE_STRIDE
+    assert ring.stage_bytes % mk.ALIGN == 0 and ring.chunk_rows % 16 == 0
+    assert [m.name for m in s.mats] == ["wqkv", "wo", "w13", "w2"] + (["lm_head"] if v_pad else [])
+    assert len(s.phases) == s.barriers + 1
+    for m in s.mats:
+        n, d, splits, kc, mq4 = m.n, m.d, m.splits, m.kc, m.q4
+        assert kc % (128 if mq4 else 64) == 0 and (splits - 1) * kc < n <= splits * kc, m.name
+        assert m.strips == -(-d // 512)  # w13's strips pair 256 gate and 256 up columns
+        assert m.group_rows == (cfg.group_size // 2 if mq4 else cfg.group_size)
+        rows = {}
+        for blk in range(grid):
+            stages = mk.block_stages(m, ring, grid, blk)
+            for si, ki, r0, nrows, nscale in stages:
+                assert (ki * m.strips + si) % grid == blk  # item it = ki * strips + si, dealt round robin
+                assert 0 < nrows <= ring.chunk_rows and r0 % ring.chunk_rows == 0
+                assert 1 <= nscale <= ring.scale_slots, (m.name, nscale)
+                rows.setdefault((si, ki), []).append((r0, nrows))
+            # The consumers walk each item in staged pieces of PIECE slots (INT4: PIECE / 2 packed
+            # rows) and each piece in stages: the producer's stages, one for one.
+            piece = mk.PIECE // 2 if mq4 else mk.PIECE
+            walk = []
+            for it in range(blk, m.strips * splits, grid):
+                si, ki, _, c0, c1 = mk.item_of(n, d, splits, kc, mq4, it, m.paired)
+                for p0 in range(c0, c1, piece):
+                    p1 = min(c1, p0 + piece)
+                    walk += [(si, ki, r0, min(ring.chunk_rows, p1 - r0)) for r0 in range(p0, p1, ring.chunk_rows)]
+            assert walk == [st[:4] for st in stages], (m.name, blk)
+        assert set(rows) == {(si, ki) for si in range(m.strips) for ki in range(splits)}, m.name
+        for (si, ki), runs in rows.items():
+            c0, c1 = (ki * kc, min(n, ki * kc + kc))
+            c0, c1 = (c0 // 2, c1 // 2) if mq4 else (c0, c1)
+            got = [r for r0, nr in runs for r in range(r0, r0 + nr)]
+            assert got == list(range(c0, c1)), (m.name, si, ki)  # in order, each row once
+
+
+@pytest.mark.parametrize("n_layers", [1, 2, 36])
+def test_barriers_stay_within_six_a_layer(n_layers):
+    for head, greedy in ((False, False), (True, False), (True, True)):
+        bars = barriers_per_step(n_layers, head, greedy)
+        names = phase_names(n_layers, head, greedy)
+        assert bars == len(names) - 1
+        assert bars <= 6 * n_layers
+    assert barriers_per_step(36, True, True) == 181  # 325 before the ring
+
+
+def test_phase_breakdown_reads_the_stamps():
+    """Two blocks, two layers of one phase each: work is the last finish
+    minus the first release, barrier the first leave minus the last
+    finish, spread the finishes' range, wait each block's own time at the
+    barrier, meaned; medians over the layers."""
+    names = ["wqkv", "wqkv", "head"]
+    st = torch.zeros(2, 4, 2, dtype=torch.int64)
+    # (finish, leave) in ns per block and slot; slot 0 the start.
+    st[:, 0] = torch.tensor([[1000, 1000], [1500, 1500]])
+    st[:, 1] = torch.tensor([[4000, 6000], [5000, 6500]])
+    st[:, 2] = torch.tensor([[8000, 11000], [10000, 11200]])
+    st[:, 3] = torch.tensor([[20000, 20000], [21000, 21000]])
+    out = phase_breakdown(st, names)
+    # layer 0: work 5000 - 1000, barrier 6000 - 5000, spread 1000; layer 1: work 10000 - 6000,
+    # barrier 11000 - 10000, spread 2000 (the median of two takes the lower)
+    # wait: the blocks' own (leave - finish), meaned: layer 0 (2000 + 1500) / 2, layer 1 (3000 + 1200) / 2
+    assert out["wqkv"] == {"work": 4.0, "barrier": 1.0, "spread": 1.0, "wait": 1.75, "count": 2}
+    assert out["head"] == {"work": 10.0, "barrier": 0.0, "spread": 1.0, "wait": 0.0, "count": 1}
+    # The mean block waits (5000 + 2700) / 2 ns of the 20000 from the first start to the last end.
+    assert barrier_wait_share(st, names) == pytest.approx(3850 / 20000)
+    with pytest.raises(ValueError, match="stamp slots"):
+        phase_breakdown(st, names[:2])
