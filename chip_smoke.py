@@ -141,10 +141,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 DEV = "cuda"
 PHASES = ("build", "kernels", "probes", "e2e", "serve", "cli", "tp", "parity")
+OPTIONAL_PHASES = ("exact",)  # run only when named: a subset of e2e for comparisons in one call
 
 # Published peaks of one H100 SXM (dense): the denominators of bound_ms.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+F32_INSTR_PER_S = PEAK_OPS_PER_S["f32"] / 2  # f32 instructions a second (an FMA is one)
 SLEEP_CYCLES = 2_000_000  # ~1 ms of device time: keeps the host ahead of the card
 SEED = 0
 DECODE_TOKENS = 64  # per greedy generate run
@@ -782,7 +784,7 @@ def _head_dim_cases(torch, ctx, hd: int, prefill_hds) -> list[dict]:
     nbytes = read + (2 * q.numel() + kn.numel() + vn.numel()) * 4
     b_ms, b_by = bound(nbytes, 4.0 * h * sum(p + 1 for p in pos_list) * hd, "f32")
     out.append(_row(ctx, "paged_decode", f"head_dim {hd}, bf16 pool B={b} pos={pos_list}",
-                    "qwen3_rs_tpu_torch/csrc/paged_attention.cu",
+                    paged_decode_source(hd, page),
                     "qwen3_rs_tpu/ops/pallas/paged_attention.py:207 paged_gqa_decode_stacked",
                     {"B": b, "heads": h, "kv_heads": n_kv, "hd": hd, "page": page, "pos": pos_list}, err, tol, ms,
                     plain_ms, nbytes, b_ms, b_by, lib_ms,
@@ -1030,9 +1032,12 @@ def a8_cases(torch, ctx) -> list[dict]:
         plain_ms = device_ms(torch, lambda i: qmatmul_w8a8_rows_plain(xq.q, xq.scales, w, i % nl), reps=3, warmup=1)
         groups = n // g
         nbytes = rows * n + rows * groups * 4 + n * d + groups * d * 4 + rows * d * 4
-        # int8 products on the tensor cores, then 3 rounded f32 operations per
-        # output element and group (the fixup) on the CUDA cores.
-        t_ops = (2.0 * rows * n * d / PEAK_OPS_PER_S["int8"] + 3.0 * rows * d * groups / PEAK_OPS_PER_S["f32"]) * 1e3
+        # int8 products on the tensor cores and the fix-up on the CUDA cores, on
+        # separate pipes that may overlap: the larger of the two.  The fix-up is 3
+        # rounded f32 operations per output element and group, each one
+        # instruction (no FMA), at 128 a clock per SM: F32_INSTR_PER_S, half of
+        # PEAK_OPS_PER_S["f32"], which counts an FMA as two operations.
+        t_ops = max(2.0 * rows * n * d / PEAK_OPS_PER_S["int8"], 3.0 * rows * d * groups / F32_INSTR_PER_S) * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
         out.append(_row(
@@ -1137,12 +1142,27 @@ def _gathered(torch, k, v, sc, table, pos_list, layer):
     return kc, vc
 
 
+def paged_decode_source(hd: int, page: int) -> str:
+    """The source of the kernel ``paged_decode`` launches at this head_dim
+    and page size."""
+    from qwen3_rs_tpu_torch.ops.kernels.paged_attention import split_kernel_takes
+
+    return f"qwen3_rs_tpu_torch/csrc/{'paged_decode' if split_kernel_takes(hd, page) else 'paged_attention'}.cu"
+
+
 def paged_decode_cases(torch, ctx) -> list[dict]:
     """Paged decode (#9) at 8B shapes: B = 8 slots at mixed positions over
     bf16, f32 and INT8 pools, and one request at the context's end."""
     import torch.nn.functional as F
 
-    from qwen3_rs_tpu_torch.ops.kernels.paged_attention import paged_decode, paged_decode_plain
+    from qwen3_rs_tpu_torch.ops.kernels.paged_attention import (
+        decode_units,
+        paged_decode,
+        paged_decode_kernel_plan,
+        paged_decode_phases,
+        paged_decode_plain,
+        split_grid,
+    )
     from qwen3_rs_tpu_torch.testing import paged_read_bytes
 
     gen = torch.Generator(device=DEV)
@@ -1163,7 +1183,19 @@ def paged_decode_cases(torch, ctx) -> list[dict]:
         need(math.isfinite(err) and err <= tol, f"paged_decode {pool} pos={pos_list}: max_abs_err {err} > tol {tol}")
         if pos_list[0] == 0:  # only the self key: the output is v_self, exactly
             need(torch.equal(got[0], vn[0].repeat_interleave(kv_mul, dim=0)), "paged_decode pos=0 != v_self")
+        # The plan the kernel's blocks made from the positions, read back, against decode_units.
+        grid = split_grid(q.device, k.dtype, hd, b, n_kv, kv_mul)
+        plan = paged_decode_kernel_plan(pos, n_kv, kv_mul, 128, table.shape[1], grid)
+        need(plan == decode_units(pos_list, n_kv, kv_mul, 128, table.shape[1], grid),
+             f"paged_decode {pool} pos={pos_list}: the kernel's plan differs from decode_units")
         ms = device_ms(torch, lambda i: paged_decode(q, kn, vn, k, v, table, pos, i % nl, **sc))
+        if pool != "f32":
+            emit({"phase": "kernels", "paged_decode_phases_us": paged_decode_phases(q, kn, vn, k, v, table, pos, 1, **sc),
+                  "case": f"{pool} pool B={b} pos={pos_list}", "grid": grid, "units": len(plan)})
+        prof = profile_calls(torch, lambda i: paged_decode(q, kn, vn, k, v, table, pos, i % nl, **sc), 10)
+        emit({"phase": "kernels", "profile": "paged_decode", "case": f"{pool} pool B={b} pos={pos_list}",
+              "launches_per_call": prof.get("device_ops_per_step"),
+              "kernels": [{k2: t[k2] for k2 in ("kernel", "ms_per_step", "calls_per_step")} for t in prof.get("top", [])]})
         plain_ms = device_ms(torch, lambda i: paged_decode_plain(q, kn, vn, k, v, table, pos, i % nl, **sc),
                              reps=10, warmup=1)
         # Library yardstick: SDPA over [self; rows < pos], the rows gathered
@@ -1182,7 +1214,7 @@ def paged_decode_cases(torch, ctx) -> list[dict]:
                   + table.numel() * 4 + b * 4)
         b_ms, b_by = bound(nbytes, 4.0 * h * sum(p + 1 for p in pos_list) * hd, "f32")
         out.append(_row(
-            ctx, "paged_decode", f"{pool} pool B={b} pos={pos_list}", "qwen3_rs_tpu_torch/csrc/paged_attention.cu",
+            ctx, "paged_decode", f"{pool} pool B={b} pos={pos_list}", paged_decode_source(hd, 128),
             "qwen3_rs_tpu/ops/pallas/paged_attention.py:207 paged_gqa_decode_stacked",
             {"B": b, "heads": h, "kv_heads": n_kv, "hd": hd, "page": 128, "pos": pos_list}, err, tol, ms, plain_ms,
             nbytes, b_ms, b_by, lib_ms, "F.scaled_dot_product_attention enable_gqa, K/V gathered into dense f32 beforehand",
@@ -1928,8 +1960,7 @@ def phase_e2e(torch, ctx) -> None:
     del engine
     torch.cuda.empty_cache()
     ctx["e2e"]["eval_ppl_fast"] = eval_path(torch, ctx, cfg, weights, "fast", windows=2, runs=2)
-    ctx["e2e"]["exact_generate"] = exact_generate_path(torch, ctx, cfg, weights, tok)
-    ctx["e2e"]["eval_ppl_exact"] = eval_path(torch, ctx, cfg, weights, "exact", windows=1, runs=1)
+    ctx["e2e"].update(exact_paths(torch, ctx, cfg, weights, tok))
     del weights
     ctx.pop("8b")  # the INT8 weights make room; the serve phase draws them again from the seed
     torch.cuda.empty_cache()
@@ -1942,6 +1973,25 @@ def phase_e2e(torch, ctx) -> None:
           "continued_32_row_window_ms": e["continued_window"]["window_ms_median"],
           "eval_ppl_fast_s_per_window": e["eval_ppl_fast"]["seconds_per_window"],
           "int4_ttft_ms_3000_tokens": e["int4"].get("long_prompt", {}).get("ttft_ms")})
+
+
+def exact_paths(torch, ctx, cfg, weights, tok) -> dict:
+    """Exact mode's two paths at 8B: generate() on a 300-token prompt (its
+    window through #8) and eval-ppl at one 4096-row window (#8 throughout)."""
+    return {"exact_generate": exact_generate_path(torch, ctx, cfg, weights, tok),
+            "eval_ppl_exact": eval_path(torch, ctx, cfg, weights, "exact", windows=1, runs=1)}
+
+
+def phase_exact(torch, ctx) -> None:
+    """Exact mode alone (``--phases build,exact``): the e2e phase's exact
+    paths on the same 8B weights, for a comparison of two trees in one call."""
+    cfg, weights, tok = model_8b(torch, ctx)
+    ctx["e2e"] = exact_paths(torch, ctx, cfg, weights, tok)
+    emit({"phase": "exact", "exact_window_ms": ctx["e2e"]["exact_generate"]["window_ms"],
+          "eval_ppl_exact_s_per_window": ctx["e2e"]["eval_ppl_exact"]["seconds_per_window"]})
+    del weights
+    ctx.pop("8b")
+    torch.cuda.empty_cache()
 
 
 def int4_path(torch, ctx, cfg, tok) -> dict:
@@ -3738,10 +3788,11 @@ def parity_eval(torch, ctx) -> None:
 # ----------------------------------------------------------------------- main
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default=",".join(PHASES), help="comma-separated subset of " + ",".join(PHASES))
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES + OPTIONAL_PHASES))
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
-    unknown = set(phases) - set(PHASES)
+    unknown = set(phases) - set(PHASES + OPTIONAL_PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
 
@@ -3769,7 +3820,7 @@ def main(argv=None) -> int:
             from qwen3_rs_tpu_torch.ops.kernels import build
 
             build.build()
-        for name in PHASES:
+        for name in PHASES + OPTIONAL_PHASES:
             if name not in phases:
                 continue
             t0 = time.perf_counter()
@@ -3781,7 +3832,7 @@ def main(argv=None) -> int:
                 phase_probes(torch, ctx)
             else:
                 {"e2e": phase_e2e, "serve": phase_serve, "cli": phase_cli, "tp": phase_tp,
-                 "parity": phase_parity}[name](torch, ctx)
+                 "parity": phase_parity, "exact": phase_exact}[name](torch, ctx)
             emit({"phase": name, "done": True, "seconds": time.perf_counter() - t0})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

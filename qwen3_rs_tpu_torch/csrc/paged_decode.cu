@@ -1,0 +1,1030 @@
+// Paged decode attention for Hopper (sm_90a) at head_dim 128 and 256: one launch a call.
+//
+// Replaces the reference package's Pallas kernel
+//   qwen3_rs_tpu/ops/pallas/paged_attention.py::paged_gqa_decode_stacked
+// at these head_dims (paged_attention.cu keeps the two-pass kernels for the others).  The pool of one
+// layer is [P, n_kv, page, hd]; cache row t of request b lives in page table[b, t / page] at page row
+// t % page, and only rows t < pos[b] are valid.  For request b and kv head h the kv_mul query heads of
+// h (pre-scaled by 1/sqrt(hd)) attend over those rows and over the step's own key and value:
+//     out = softmax([q.k_self, q.K[0:pos]]) . [v_self; V[0:pos]].
+// INT8 pools: the per-row K scale multiplies the score, the V scale the probability after l takes it.
+//
+// Bound on the H100: bytes (each valid row read once for 2 * hd elements, against 4 * kv_mul flops per
+// element).  What the design does about it:
+//  * one launch: a fixed grid of blocks, as many as fit the card (at least one per request, kv head
+//    and head tile).  Every block reads the positions and makes the same plan from them: the live
+//    rows of every request are cut into splits of `span` rows, the least multiple of 16 for which the
+//    splits fit the grid, so that the live rows of the whole batch spread over every SM, and block u
+//    takes unit u in (request, kv head, head tile, split) order (warp 0 plans from the positions in
+//    registers while the producer warp prefetches the tensor maps).  Its partial (m, l, acc) goes to a
+//    workspace slot; the last block of a (request, kv head, head tile) to arrive merges the splits in
+//    split order, seeded with the self key as the Pallas kernel (m = q.k_self, l = 1, acc = v_self),
+//    and normalises.  The result does not depend on scheduling, and the arrival counters are left at
+//    zero, so a CUDA graph can replay the launch;
+//  * whole pages copied in bulk: a producer warp fills a ring of stages with TMA copies of 16-row
+//    boxes of a (page, kv head) slab (the slab is contiguous; a box is 16 rows by one 128-byte band
+//    of the row, with the 128-byte swizzle, so that the compute reads it free of bank conflicts), up
+//    to 64 rows a stage, never past the page; INT8 pools copy their row scales the same way.  The
+//    producer reads the block's page ids once, 32 at a time, one per lane;
+//  * no shuffle per score: the stage compute follows the pool's type:
+//      - bf16 and INT8 pools (kMma): the kv head's query heads against the stage on the tensor cores
+//        (mma.sync m16n8k16, cache rows on the 16-row side, the heads padded to 8): q and P are split
+//        into bf16 hi + lo, so the f32 tolerance holds; the K and V tiles come by ldmatrix from the
+//        swizzled stage (INT8 codes converted to bf16 in registers, exactly; their scales go on in
+//        f32).  On the card it beat one cache row a lane on the CUDA cores at B = 8 on a bf16 pool,
+//        so the CUDA cores are not built for these pools;
+//      - f32 pools (kCores), whose K and V are not exact in bf16: one cache row a lane on the CUDA
+//        cores, q broadcast from shared memory; then the lanes take the columns for P.V, the
+//        probabilities broadcast from the warp's shared scratch.
+//    Each consumer warp keeps an online softmax over its rows of every stage; one shuffle reduction
+//    per head and stage, not per score; the warps merge at the end of the split.  The last block's
+//    merge loads 16 splits' partials at once (none depends on the merge so far).
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBox = 16;           // rows of one TMA box
+constexpr int kBandBytes = 128;    // bytes of one band of a row (the 128-byte swizzle's line)
+constexpr int kMaxStages = 4;
+constexpr int kHeadsMma = 8;       // the mma route's head tile (the n side of m16n8k16)
+
+enum Route { kCores = 0, kMma = 1 };
+
+// The stage compute of a pool of element type T.
+template <typename T>
+__host__ __device__ constexpr int route_of() { return sizeof(T) == 4 ? kCores : kMma; }
+
+// The tensor maps and pointers of one call.
+struct Args {
+  CUtensorMap kmap, vmap;  // the layer's K and V pool, [P * n_kv, page, hd], 16-row boxes of a band
+  const float *q, *k_new, *v_new;  // q [B, n_kv * kv_mul, HD] f32 (unscaled), k_new/v_new [B, n_kv, HD]
+  const float *ks, *vs;            // the layer's row scales [P, n_kv, page] (INT8), else null
+  const int *table, *pos;          // [B, max_pages], [B]
+  float *ws_ml, *ws_acc;           // [grid, qm, 2], [grid, qm, HD]
+  int* counters;                   // [B * n_kv * tiles], zero at rest
+  float* out;                      // like q
+  unsigned long long* stamps;      // [grid, kStamps] global ns of each block's phases, or null
+  int B, n_kv, kv_mul, qm, page, max_pages;
+  float scale;
+};
+
+// One block's share: request b, kv head h, head tile `tile`, split s of n_s, rows [lo, hi); slot:
+// the workspace slot of split 0 of this (b, h, tile) (split s has slot + s); pair: the counter.
+struct Unit {
+  int b, h, tile, s, n_s, lo, hi, slot, pair;
+};
+
+template <typename T>
+struct Pool;
+template <>
+struct Pool<float> {
+  static constexpr int kEsz = 4;
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+};
+template <>
+struct Pool<__nv_bfloat16> {
+  static constexpr int kEsz = 2;
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+template <>
+struct Pool<int8_t> {
+  static constexpr int kEsz = 1;
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+};
+
+// The layout of one instance: rows a stage, bands a row, stages, consumer warps, shared memory.
+template <typename T, int HD, int R>
+struct Shape {
+  static constexpr int kEsz = Pool<T>::kEsz;
+  static constexpr int kBands = HD * kEsz / kBandBytes;
+  static constexpr int kBandElems = kBandBytes / kEsz;
+  static constexpr bool kQuant = kEsz == 1;
+  // 64 rows a stage, 32 where a stage of 64 would pass 64 KB (f32 at head_dim 256).
+  static constexpr int kT = 2 * 64 * HD * kEsz > 65536 ? 32 : 64;
+  static constexpr int kKvBytes = kBands * kT * kBandBytes;  // K (or V) of one stage
+  static constexpr int kStageBytes = ((2 * kKvBytes + (kQuant ? 2 * kT * 4 : 0)) + 1023) / 1024 * 1024;
+  static constexpr int kStages = kStageBytes <= 16384 ? 4 : kStageBytes <= 32768 ? 3 : 2;
+  static constexpr int kWarps = R == kMma ? kT / 16 : kT / 32;  // consumer warps
+  static constexpr int kThreads = (kWarps + 1) * 32;
+};
+
+// A block's clock stamps (`stamps`, for the phase breakdown): its start, the plan made, the
+// producer's first copies issued, the first stage landed, the last stage done, the partial
+// written, the arrival counted, the merge done (the last block only).
+constexpr int kStamps = 8;
+
+__device__ __forceinline__ void stamp(const Args& a, int k) {
+  if (a.stamps != nullptr) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    a.stamps[blockIdx.x * kStamps + k] = t;
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+  }
+}
+
+// `bytes` (a multiple of 16) from global to shared memory, counted on `bar`.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// A 3-D TMA load of the box at (c0, c1, c2) (element, page row, slab), counted on `bar`.
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::
+          "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// The consumer warps' own barrier (the producer warp never takes part).
+__device__ __forceinline__ void consumer_sync(int threads) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
+}
+
+// Byte offset of 16-byte chunk `c` of band row `r` in a band of a stage (128-byte swizzle: the
+// chunks of a row are permuted by the row's index mod 8).
+__device__ __forceinline__ int swz(int r, int c) { return r * kBandBytes + ((c ^ (r & 7)) << 4); }
+
+__device__ __forceinline__ int live_rows(const Args& a, int b) { return min(max(__ldg(a.pos + b), 0), a.max_pages * a.page); }
+
+// The plan (every block makes the same one, in its warp 0): the least span, a multiple of 16, whose
+// splits fit the grid, then unit u's place in it.  Returns false if u is past the last unit.  Lane
+// l holds the live rows of requests l, l + 32, l + 64 and l + 96 in registers (read once); requests
+// past 128 are read again at each step.
+__device__ bool plan_unit(const Args& a, int tiles, int u, Unit& out) {
+  constexpr int kRegs = 4;
+  const int lane = threadIdx.x & 31, per = a.n_kv * tiles;
+  int pr[kRegs];
+#pragma unroll
+  for (int c = 0; c < kRegs; ++c) pr[c] = 32 * c + lane < a.B ? live_rows(a, 32 * c + lane) : 0;
+  auto live = [&](int c) { return c < kRegs ? pr[c] : (32 * c + lane < a.B ? live_rows(a, 32 * c + lane) : 0); };
+  const int chunks = (a.B + 31) / 32;
+  int maxp = 0;
+  for (int c = 0; c < chunks; ++c) maxp = max(maxp, live(c));
+  maxp = __reduce_max_sync(0xffffffffu, maxp);
+  auto units = [&](int span) {
+    int n = 0;
+    for (int c = 0; c < chunks; ++c)
+      if (32 * c + lane < a.B) n += max(1, (live(c) + span - 1) / span);
+    return (int)__reduce_add_sync(0xffffffffu, (unsigned)n) * per;
+  };
+  int lo = 1, hi = max(1, (maxp + kBox - 1) / kBox);  // in boxes; at hi every request is one split
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    if (units(mid * kBox) <= (int)gridDim.x) hi = mid;
+    else lo = mid + 1;
+  }
+  const int span = lo * kBox;
+  int base = 0;
+  for (int c = 0; c < chunks; ++c) {
+    const int b = 32 * c + lane;
+    const int p = live(c);
+    const int s = b < a.B ? max(1, (p + span - 1) / span) : 0;
+    int inc = s * per;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, inc, o);
+      if (lane >= o) inc += v;
+    }
+    const int tot = __shfl_sync(0xffffffffu, inc, 31);
+    if (u < base + tot) {
+      const int L = __ffs(__ballot_sync(0xffffffffu, u < base + inc)) - 1;
+      const int excl = __shfl_sync(0xffffffffu, inc - s * per, L);
+      const int n_s = __shfl_sync(0xffffffffu, s, L), pb = __shfl_sync(0xffffffffu, p, L);
+      const int off = u - base - excl, pair = off / n_s;
+      out.b = 32 * c + L;
+      out.h = pair / tiles;
+      out.tile = pair % tiles;
+      out.s = off % n_s;
+      out.n_s = n_s;
+      out.lo = out.s * span;
+      out.hi = min(pb, out.lo + span);
+      out.slot = base + excl + pair * n_s;
+      out.pair = (out.b * a.n_kv + out.h) * tiles + out.tile;
+      return true;
+    }
+    base += tot;
+  }
+  return false;
+}
+
+// Rows [t, t + n) of the split's next stage: never past the split, the page or kT rows.
+template <int kT>
+__device__ __forceinline__ int stage_rows(const Args& a, const Unit& u, int t) {
+  return min(min(u.hi - t, a.page - t % a.page), kT);
+}
+
+// --------------------------------------------------------------------------------- producer
+template <typename T, int HD, int R>
+__device__ void produce(const Args& a, const Unit& u, uint8_t* ring, uint32_t bars) {
+  using S = Shape<T, HD, R>;
+  const int lane = threadIdx.x & 31;
+  const int* tab = a.table + (long)u.b * a.max_pages;
+  const int p0 = u.lo / a.page;
+  int id_base = -32, id = 0, stage = 0;
+  uint32_t phase = 0;
+  for (int t = u.lo; t < u.hi;) {
+    const int n = stage_rows<S::kT>(a, u, t);
+    const int pg = t / a.page - p0, r0 = t % a.page;
+    if (pg >= id_base + 32) {  // the next 32 page ids, one a lane
+      id_base = pg / 32 * 32;
+      id = p0 + id_base + lane < a.max_pages ? __ldg(tab + p0 + id_base + lane) : 0;
+    }
+    const int slab = __shfl_sync(0xffffffffu, id, pg - id_base) * a.n_kv + u.h;
+    const int nbox = (n + kBox - 1) / kBox, srows = (n + 3) & ~3;
+    mbar_wait(bars + 8 * (kMaxStages + stage), phase ^ 1u);
+    const uint32_t full = bars + 8 * stage;
+    if (lane == 0)
+      mbar_expect_tx(full, 2 * nbox * S::kBands * kBox * kBandBytes + (S::kQuant ? 2 * srows * 4 : 0));
+    __syncwarp();
+    const uint32_t dst = smem_u32(ring + stage * S::kStageBytes);
+    for (int i = lane; i < 2 * nbox * S::kBands; i += 32) {
+      const int kv = i / (nbox * S::kBands), band = i / nbox % S::kBands, j = i % nbox;
+      tma_box(dst + kv * S::kKvBytes + band * S::kT * kBandBytes + j * kBox * kBandBytes, kv ? &a.vmap : &a.kmap,
+              full, band * S::kBandElems, r0 + j * kBox, slab);
+    }
+    if (S::kQuant && lane < 2) {
+      const float* src = (lane ? a.vs : a.ks) + ((long)slab * a.page + r0);
+      bulk_copy(dst + 2 * S::kKvBytes + lane * S::kT * 4, src, srows * 4, full);
+    }
+    if (t == u.lo && lane == 0) stamp(a, 2);
+    if (++stage == S::kStages) {
+      stage = 0;
+      phase ^= 1u;
+    }
+    t += n;
+  }
+}
+
+// -------------------------------------------------------------------------- consumers: cores
+// 16 bytes of a row as floats.
+template <typename T>
+__device__ __forceinline__ void chunk_floats(const uint8_t* p, float* o);
+template <>
+__device__ __forceinline__ void chunk_floats<float>(const uint8_t* p, float* o) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+}
+
+// `E` consecutive elements of a row from byte `cb` of its band (E * esz == 16: one chunk).
+template <typename T, int E>
+__device__ __forceinline__ void cols_floats(const uint8_t* band_row, int r, int cb, float* o) {
+  const uint8_t* p = band_row + ((((cb >> 4) ^ (r & 7)) << 4) | (cb & 15));
+  static_assert(sizeof(T) * E == 16, "the CUDA cores read f32 pools in 16-byte chunks");
+  chunk_floats<T>(p, o);
+}
+
+// The online softmax of a consumer warp: m (the same in every lane), l (each lane's share), and
+// its lanes' share of acc.
+template <int QM, int NACC>
+struct Soft {
+  float m[QM], l[QM], acc[QM][NACC];
+};
+
+// One stage on the CUDA cores (f32 pools): lane = row 32 w + lane for the scores, then lane = columns
+// [lane * HD / 32, ...) for P.V.  qs: the scaled q [QM][HD] f32; pw: the warp's scratch [32][QM].
+template <typename T, int HD, int QM>
+__device__ __forceinline__ void stage_cores(const uint8_t* st, int n, int w, const float* qs, float* pw,
+                                            Soft<QM, HD / 32>& sm) {
+  using S = Shape<T, HD, kCores>;
+  constexpr int E = 16 / sizeof(T);  // elements a chunk
+  constexpr int C = HD / 32;         // columns a lane in P.V
+  const int lane = threadIdx.x & 31, r0 = 32 * w, i = r0 + lane;
+  const int rows = min(32, n - r0);
+  if (rows <= 0) return;
+  const bool valid = lane < rows;
+  float s[QM];
+#pragma unroll
+  for (int m = 0; m < QM; ++m) s[m] = 0.f;
+  if (valid) {
+#pragma unroll
+    for (int band = 0; band < S::kBands; ++band) {
+      const uint8_t* kr = st + band * S::kT * kBandBytes;
+#pragma unroll
+      for (int c = 0; c < kBandBytes / 16; ++c) {
+        float kf[E];
+        chunk_floats<T>(kr + swz(i, c), kf);
+        const int col = band * S::kBandElems + c * E;
+#pragma unroll
+        for (int m = 0; m < QM; ++m)
+#pragma unroll
+          for (int e = 0; e < E; e += 4) {
+            const float4 qv = *reinterpret_cast<const float4*>(qs + m * HD + col + e);
+            s[m] = fmaf(qv.x, kf[e], s[m]);
+            s[m] = fmaf(qv.y, kf[e + 1], s[m]);
+            s[m] = fmaf(qv.z, kf[e + 2], s[m]);
+            s[m] = fmaf(qv.w, kf[e + 3], s[m]);
+          }
+      }
+    }
+  }
+  float ksc = 1.f, vsc = 1.f;
+  if (S::kQuant && valid) {
+    const float* sc = reinterpret_cast<const float*>(st + 2 * S::kKvBytes);
+    ksc = sc[i];
+    vsc = sc[S::kT + i];
+  }
+  float corr[QM];
+#pragma unroll
+  for (int m = 0; m < QM; ++m) {
+    const float sv = valid ? s[m] * ksc : -INFINITY;
+    float mx = sv;
+#pragma unroll
+    for (int o = 16; o; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    const float m_new = fmaxf(sm.m[m], mx);  // finite: row r0 is valid
+    corr[m] = expf(sm.m[m] - m_new);
+    const float p = valid ? expf(sv - m_new) : 0.f;
+    sm.l[m] = sm.l[m] * corr[m] + p;
+    sm.m[m] = m_new;
+    pw[lane * QM + m] = p * vsc;
+  }
+  __syncwarp();
+#pragma unroll
+  for (int m = 0; m < QM; ++m)
+#pragma unroll
+    for (int j = 0; j < C; ++j) sm.acc[m][j] *= corr[m];
+  // Lane's columns: C consecutive elements from column lane * C, in pieces within one chunk.
+  constexpr int PE = C * sizeof(T) > 16 ? 16 / sizeof(T) : C;  // elements a piece
+  const int col0 = lane * C;
+  for (int r = 0; r < rows; ++r) {
+    const int ir = r0 + r;
+    float v[C];
+#pragma unroll
+    for (int j = 0; j < C; j += PE) {
+      const int col = col0 + j, band = col / S::kBandElems, cb = (col % S::kBandElems) * (int)sizeof(T);
+      cols_floats<T, PE>(st + S::kKvBytes + band * S::kT * kBandBytes + ir * kBandBytes, ir, cb, v + j);
+    }
+    float p[QM];
+#pragma unroll
+    for (int m = 0; m < QM; m += (QM >= 4 ? 4 : QM)) {
+      if constexpr (QM >= 4) {
+        const float4 pv = *reinterpret_cast<const float4*>(pw + r * QM + m);
+        p[m] = pv.x; p[m + 1] = pv.y; p[m + 2] = pv.z; p[m + 3] = pv.w;
+      } else {
+#pragma unroll
+        for (int k = 0; k < QM; ++k) p[k] = pw[r * QM + k];
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < QM; ++m)
+#pragma unroll
+      for (int j = 0; j < C; ++j) sm.acc[m][j] = fmaf(p[m], v[j], sm.acc[m][j]);
+  }
+  __syncwarp();  // pw is rewritten by the next stage
+}
+
+// ---------------------------------------------------------------------------- consumers: mma
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// x = hi + lo in bf16, hi the nearest bf16.
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
+}
+
+// The mma route's state of a warp: m and l of heads 2t, 2t+1 (t = lane % 4), and O^T [HD x 8 heads]
+// as HD / 16 accumulator tiles.
+template <int HD>
+struct SoftMma {
+  float m[2], l[2], o[HD / 16][4];
+};
+
+// bf16 pairs of bytes I and J of 4 int8 codes (xu: the codes ^ 0x80808080), exactly: the float
+// with bits 0x4B000000 | (code + 128) is 2^23 + code + 128.
+template <int I, int J>
+__device__ __forceinline__ uint32_t i8_pair(uint32_t xu) {
+  const float a = __int_as_float(__byte_perm(xu, 0x4B000000u, 0x7540 | I)) - 8388736.f;
+  const float b = __int_as_float(__byte_perm(xu, 0x4B000000u, 0x7540 | J)) - 8388736.f;
+  return pack_bf16(a, b);
+}
+
+// One stage on the tensor cores, the warp's 16 rows [16 w, 16 w + 16): S^T = K . q^T (hi and lo of
+// q, two accumulator chains), the online softmax, O^T += V^T . P^T (hi and lo of P).  qf: q's B
+// fragments, hi then lo.  bf16 rows: fragment tile mt holds head_dim columns 16 mt + g (+ 8).  INT8
+// rows: the codes are converted to bf16 (exact) in registers; a 32-column tile pair takes K's
+// columns 4t .. 4t + 3 of each 16 as k slots 2t, 2t + 1, 2t + 8, 2t + 9 (q's fragments follow), and
+// V's even and odd columns as two fragment tiles: tile 2 cp + e holds columns 32 cp + 2 g + e (+ 16).
+// The row scales: K's multiplies the score, V's the probability.
+template <typename T, int HD>
+__device__ __forceinline__ void stage_mma(uint8_t* st, int n, int w, const uint32_t (&qf)[2][HD / 16][2],
+                                          SoftMma<HD>& sm) {
+  using S = Shape<T, HD, kMma>;
+  constexpr bool kI8 = S::kQuant;
+  const int lane = threadIdx.x & 31, g = lane >> 2;
+  const int r0 = 16 * w;
+  if (r0 >= n) return;
+  if (n < r0 + 16) {  // rows past the stage's last valid one: zero V (their P is 0, V may be NaN)
+    for (int k = lane; k < (r0 + 16 - n) * S::kBands * 8; k += 32) {
+      const int r = n + k / (S::kBands * 8), band = k / 8 % S::kBands;
+      *reinterpret_cast<uint4*>(st + S::kKvBytes + band * S::kT * kBandBytes + r * kBandBytes + (k % 8) * 16) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+    __syncwarp();
+  }
+  const uint32_t kbase = smem_u32(st), vbase = kbase + S::kKvBytes;
+  float ch[4] = {0.f, 0.f, 0.f, 0.f}, cl[4] = {0.f, 0.f, 0.f, 0.f};
+  const int mi = lane >> 3;
+  if constexpr (kI8) {
+    const int row = r0 + (lane & 7) + 8 * (mi & 1), half = mi >> 1;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; kk += 2) {  // 32 columns: chunks kk, kk + 1 of the row
+      const int band = kk / 8, ch0 = kk % 8 + half;
+      uint32_t x[4];
+      ldsm_x4(kbase + band * S::kT * kBandBytes + swz(row, ch0), x);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) x[i] ^= 0x80808080u;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // chunk kk + h: matrices 2 h (rows 0-7) and 2 h + 1 (rows 8-15)
+        const uint32_t a[4] = {i8_pair<0, 1>(x[2 * h]), i8_pair<0, 1>(x[2 * h + 1]), i8_pair<2, 3>(x[2 * h]),
+                               i8_pair<2, 3>(x[2 * h + 1])};
+        mma_bf16(ch, a, qf[0][kk + h][0], qf[0][kk + h][1]);
+        mma_bf16(cl, a, qf[1][kk + h][0], qf[1][kk + h][1]);
+      }
+    }
+  } else {
+    const int row = r0 + (lane & 7) + 8 * (mi & 1), half = mi >> 1;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {  // 16 columns: chunks 2 kk, 2 kk + 1 of the row
+      const int band = kk / 4, ch0 = 2 * (kk % 4) + half;
+      uint32_t a[4];
+      ldsm_x4(kbase + band * S::kT * kBandBytes + swz(row, ch0), a);
+      mma_bf16(ch, a, qf[0][kk][0], qf[0][kk][1]);
+      mma_bf16(cl, a, qf[1][kk][0], qf[1][kk][1]);
+    }
+  }
+  const bool v0 = r0 + g < n, v1 = r0 + g + 8 < n;
+  float ks0 = 1.f, ks1 = 1.f, vs0 = 1.f, vs1 = 1.f;
+  if constexpr (kI8) {  // the stage's scales: K's [kT], then V's
+    const float* sc = reinterpret_cast<const float*>(st + 2 * S::kKvBytes);
+    ks0 = sc[r0 + g];
+    ks1 = sc[r0 + g + 8];
+    vs0 = sc[S::kT + r0 + g];
+    vs1 = sc[S::kT + r0 + g + 8];
+  }
+  const float s[4] = {v0 ? (ch[0] + cl[0]) * ks0 : -INFINITY, v0 ? (ch[1] + cl[1]) * ks0 : -INFINITY,
+                      v1 ? (ch[2] + cl[2]) * ks1 : -INFINITY, v1 ? (ch[3] + cl[3]) * ks1 : -INFINITY};
+  float corr[2], p[4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    float mx = fmaxf(s[j], s[j + 2]);
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    const float m_new = fmaxf(sm.m[j], mx);  // finite: row r0 is valid
+    corr[j] = expf(sm.m[j] - m_new);
+    p[j] = v0 ? expf(s[j] - m_new) : 0.f;
+    p[j + 2] = v1 ? expf(s[j + 2] - m_new) : 0.f;
+    sm.l[j] = sm.l[j] * corr[j] + p[j] + p[j + 2];
+    sm.m[j] = m_new;
+  }
+#pragma unroll
+  for (int mt = 0; mt < HD / 16; ++mt) {
+    sm.o[mt][0] *= corr[0];
+    sm.o[mt][1] *= corr[1];
+    sm.o[mt][2] *= corr[0];
+    sm.o[mt][3] *= corr[1];
+  }
+  // P^T's C fragments (rows g, g + 8; heads 2t, 2t + 1) transposed into B fragments (rows 2t, 2t + 1
+  // and 2t + 8, 2t + 9; head g).  INT8: V's row scale goes on the probability first.
+  uint32_t top_hi, top_lo, bot_hi, bot_lo;
+  split_bf16(v0 ? p[0] * vs0 : 0.f, v0 ? p[1] * vs0 : 0.f, top_hi, top_lo);
+  split_bf16(v1 ? p[2] * vs1 : 0.f, v1 ? p[3] * vs1 : 0.f, bot_hi, bot_lo);
+  const uint32_t b0h = movmatrix_trans(top_hi), b1h = movmatrix_trans(bot_hi);
+  const uint32_t b0l = movmatrix_trans(top_lo), b1l = movmatrix_trans(bot_lo);
+  if constexpr (kI8) {
+    const int row = r0 + (lane & 7) + 8 * (mi >> 1), half = mi & 1;
+#pragma unroll
+    for (int cp = 0; cp < HD / 32; ++cp) {  // head_dim columns 32 cp .. 32 cp + 31
+      const int band = cp / 4, ch0 = 2 * (cp % 4) + half;
+      uint32_t x[4];
+      ldsm_x4_trans(vbase + band * S::kT * kBandBytes + swz(row, ch0), x);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) x[i] ^= 0x80808080u;
+      const uint32_t ae[4] = {i8_pair<0, 2>(x[0]), i8_pair<0, 2>(x[1]), i8_pair<0, 2>(x[2]), i8_pair<0, 2>(x[3])};
+      const uint32_t ao[4] = {i8_pair<1, 3>(x[0]), i8_pair<1, 3>(x[1]), i8_pair<1, 3>(x[2]), i8_pair<1, 3>(x[3])};
+      mma_bf16(sm.o[2 * cp], ae, b0h, b1h);
+      mma_bf16(sm.o[2 * cp], ae, b0l, b1l);
+      mma_bf16(sm.o[2 * cp + 1], ao, b0h, b1h);
+      mma_bf16(sm.o[2 * cp + 1], ao, b0l, b1l);
+    }
+  } else {
+    const int row = r0 + (lane & 7) + 8 * (mi >> 1), half = mi & 1;
+#pragma unroll
+    for (int mt = 0; mt < HD / 16; ++mt) {  // head_dim columns 16 mt .. 16 mt + 15
+      const int band = mt / 4, ch0 = 2 * (mt % 4) + half;
+      uint32_t a[4];
+      ldsm_x4_trans(vbase + band * S::kT * kBandBytes + swz(row, ch0), a);
+      mma_bf16(sm.o[mt], a, b0h, b1h);
+      mma_bf16(sm.o[mt], a, b0l, b1l);
+    }
+  }
+}
+
+// The head_dim column of fragment tile mt's element e (row half e >> 1) for lane row g.
+template <typename T>
+__device__ __forceinline__ int o_col(int mt, int e, int g) {
+  if constexpr (sizeof(T) == 1) return 32 * (mt >> 1) + 16 * (e >> 1) + 2 * g + (mt & 1);
+  else return 16 * mt + g + 8 * (e >> 1);
+}
+
+// ------------------------------------------------------------------------------- the kernel
+// Shared memory: the mbarriers, the unit, the split's flag, q (scaled, [QH][HD] f32), the cores
+// route's per-warp scratch, then the ring (1024-aligned), which the warps' merge reuses at the end.
+template <typename T, int HD, int R, int QM>
+struct Smem {
+  using S = Shape<T, HD, R>;
+  static constexpr int QH = R == kMma ? kHeadsMma : QM;  // heads the block holds
+  static constexpr int kUnit = 2 * kMaxStages * 8, kFlag = kUnit + sizeof(Unit);  // the mbarriers at 0
+  static constexpr int kSelf = kFlag + 4;  // the self key's scores [QH]
+  static constexpr int kQ = (kSelf + QH * 4 + 15) / 16 * 16;
+  static constexpr int kScratch = kQ + QH * HD * 4;
+  static constexpr int kRing = kScratch + (R == kCores ? S::kWarps * 32 * QM * 4 : 0);
+  static constexpr int kBytes = kRing + 1024 + S::kStages * S::kStageBytes;  // the ring 1024-aligned at run time
+  static constexpr int kMergeBytes = S::kWarps * QH * (HD + 2) * 4;
+  static_assert(kMergeBytes <= S::kStages * S::kStageBytes, "the warps' merge fits the ring");
+};
+
+template <typename T, int HD, int R, int QM>
+__global__ void __launch_bounds__(Shape<T, HD, R>::kThreads)
+paged_decode_kernel(const __grid_constant__ Args a) {
+  using S = Shape<T, HD, R>;
+  using L = Smem<T, HD, R, QM>;
+  static_assert(R == route_of<T>(), "the pool's type fixes the stage compute");
+  constexpr int QH = L::QH, W = S::kWarps, NT = W * 32;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const uint32_t bars = smem_u32(smem);
+  Unit& unit = *reinterpret_cast<Unit*>(smem + L::kUnit);
+  int& flag = *reinterpret_cast<int*>(smem + L::kFlag);
+  float* qs = reinterpret_cast<float*>(smem + L::kQ);
+  uint8_t* ring = smem + L::kRing;
+  ring += (1024 - (smem_u32(ring) & 1023)) & 1023;  // the swizzle's pattern repeats every 1024 bytes
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) stamp(a, 0);
+  const int tiles = a.kv_mul / a.qm;
+  if (warp == 0) {
+    Unit u;
+    const bool ok = plan_unit(a, tiles, blockIdx.x, u);
+    if (lane == 0) {
+      unit = u;
+      flag = ok;
+      for (int s = 0; s < S::kStages; ++s) {
+        mbar_init(bars + 8 * s, 1);
+        mbar_init(bars + 8 * (kMaxStages + s), W);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+  } else if (warp == W && lane < 2) {  // meanwhile the tensor maps into the TMA unit's cache
+    asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(lane ? &a.vmap : &a.kmap)) : "memory");
+  }
+  __syncthreads();
+  if (tid == 0) stamp(a, 1);
+  if (!flag) return;
+  const Unit u = unit;
+  if (warp == W) {
+    produce<T, HD, R>(a, u, ring, bars);
+    return;
+  }
+  // q of the tile's heads, scaled; zero rows past qm (the mma route's padding).
+  const long qrow0 = ((long)u.b * a.n_kv + u.h) * a.kv_mul + u.tile * a.qm;
+  for (int k = tid; k < QH * HD; k += NT) {
+    const int m = k / HD;
+    qs[k] = m < a.qm ? __ldg(a.q + (qrow0 + m) * HD + k % HD) * a.scale : 0.f;
+  }
+  consumer_sync(NT);
+  float* sself = reinterpret_cast<float*>(smem + L::kSelf);  // scaled q . k_self, for the merge
+  {
+    const float* kn = a.k_new + ((long)u.b * a.n_kv + u.h) * HD;
+    for (int m = warp; m < a.qm; m += W) {
+      float d = 0.f;
+      for (int c = lane; c < HD; c += 32) d = fmaf(qs[m * HD + c], __ldg(kn + c), d);
+#pragma unroll
+      for (int o = 16; o; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
+      if (lane == 0) sself[m] = d;
+    }
+  }
+
+  float m_w[QH], l_w[QH];  // this warp's m and l per head, after the split (lane 0's copy is used)
+  float* merge = reinterpret_cast<float*>(ring);  // [W][QH][HD + 2] after the ring's last stage
+  int stage = 0;
+  uint32_t phase = 0;
+  if constexpr (R == kCores) {
+    Soft<QM, HD / 32> sm;
+#pragma unroll
+    for (int m = 0; m < QM; ++m) {
+      sm.m[m] = -INFINITY;
+      sm.l[m] = 0.f;
+#pragma unroll
+      for (int j = 0; j < HD / 32; ++j) sm.acc[m][j] = 0.f;
+    }
+    float* pw = reinterpret_cast<float*>(smem + L::kScratch) + warp * 32 * QM;
+    for (int t = u.lo; t < u.hi;) {
+      const int n = stage_rows<S::kT>(a, u, t);
+      mbar_wait(bars + 8 * stage, phase);
+      if (t == u.lo && tid == 0) stamp(a, 3);
+      stage_cores<T, HD, QM>(ring + stage * S::kStageBytes, n, warp, qs, pw, sm);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bars + 8 * (kMaxStages + stage));
+      if (++stage == S::kStages) {
+        stage = 0;
+        phase ^= 1u;
+      }
+      t += n;
+    }
+#pragma unroll
+    for (int m = 0; m < QM; ++m) {
+      float l = sm.l[m];
+#pragma unroll
+      for (int o = 16; o; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+      m_w[m] = sm.m[m];
+      l_w[m] = l;
+    }
+    consumer_sync(NT);  // every warp is past its last stage: the ring is free
+#pragma unroll
+    for (int m = 0; m < QM; ++m)
+#pragma unroll
+      for (int j = 0; j < HD / 32; ++j) merge[(warp * QH + m) * (HD + 2) + lane * (HD / 32) + j] = sm.acc[m][j];
+  } else {
+    uint32_t qf[2][HD / 16][2];
+    {
+      const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // INT8: k slots 2t, 2t + 1 (+ 8) are columns 4t, 4t + 1 (+ 2)
+          const float* qr = qs + g * HD + 16 * kk + (S::kQuant ? 2 * h + 4 * t : 8 * h + 2 * t);
+          split_bf16(qr[0], qr[1], qf[0][kk][h], qf[1][kk][h]);
+        }
+    }
+    SoftMma<HD> sm;
+    sm.m[0] = sm.m[1] = -INFINITY;
+    sm.l[0] = sm.l[1] = 0.f;
+#pragma unroll
+    for (int mt = 0; mt < HD / 16; ++mt) sm.o[mt][0] = sm.o[mt][1] = sm.o[mt][2] = sm.o[mt][3] = 0.f;
+    for (int t = u.lo; t < u.hi;) {
+      const int n = stage_rows<S::kT>(a, u, t);
+      mbar_wait(bars + 8 * stage, phase);
+      if (t == u.lo && tid == 0) stamp(a, 3);
+      stage_mma<T, HD>(ring + stage * S::kStageBytes, n, warp, qf, sm);
+      // The zeroed V rows were written by this warp's threads: order them before the next TMA write.
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bars + 8 * (kMaxStages + stage));
+      if (++stage == S::kStages) {
+        stage = 0;
+        phase ^= 1u;
+      }
+      t += n;
+    }
+    const int g = lane >> 2, t = lane & 3;
+    float l2[2] = {sm.l[0], sm.l[1]};
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) l2[j] += __shfl_xor_sync(0xffffffffu, l2[j], o);
+    // Lane t holds heads 2t, 2t + 1: every lane learns every head's m and l.
+#pragma unroll
+    for (int m = 0; m < QH; ++m) {
+      m_w[m] = __shfl_sync(0xffffffffu, sm.m[m & 1], m >> 1);
+      l_w[m] = __shfl_sync(0xffffffffu, l2[m & 1], m >> 1);
+    }
+    consumer_sync(NT);
+#pragma unroll
+    for (int mt = 0; mt < HD / 16; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        merge[(warp * QH + 2 * t + (e & 1)) * (HD + 2) + o_col<T>(mt, e, g)] = sm.o[mt][e];
+  }
+  if (tid == 0) stamp(a, 4);
+  if (lane == 0)
+#pragma unroll
+    for (int m = 0; m < QH; ++m) {
+      merge[(warp * QH + m) * (HD + 2) + HD] = m_w[m];
+      merge[(warp * QH + m) * (HD + 2) + HD + 1] = l_w[m];
+    }
+  consumer_sync(NT);
+
+  // The split's partial: the warps merged (a warp with no rows has m = -inf, l = 0, acc = 0; warp 0
+  // has rows whenever the split has any).
+  const int qm = a.qm;
+  const long slot = u.slot + u.s;
+  const bool empty = u.hi <= u.lo;
+  for (int k = tid; k < qm * HD; k += NT) {
+    const int m = k / HD, col = k % HD;
+    float mm = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < W; ++w) mm = fmaxf(mm, merge[(w * QH + m) * (HD + 2) + HD]);
+    float l = 0.f, acc = 0.f;
+    if (!empty)
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        const float* mw = merge + (w * QH + m) * (HD + 2);
+        const float c = expf(mw[HD] - mm);
+        l = fmaf(mw[HD + 1], c, l);
+        acc = fmaf(mw[col], c, acc);
+      }
+    a.ws_acc[(slot * qm + m) * HD + col] = acc;
+    if (col == 0) {
+      a.ws_ml[(slot * qm + m) * 2] = mm;
+      a.ws_ml[(slot * qm + m) * 2 + 1] = l;
+    }
+  }
+  if (u.n_s > 1) {
+    __threadfence();
+    consumer_sync(NT);
+    if (tid == 0) stamp(a, 5);
+    if (tid == 0) {
+      const int old = atomicAdd(a.counters + u.pair, 1);
+      flag = old == u.n_s - 1;
+      if (flag) a.counters[u.pair] = 0;  // left at zero for the next launch
+    }
+    consumer_sync(NT);
+    if (tid == 0) stamp(a, 6);
+    if (!flag) return;
+    __threadfence();
+  } else {
+    consumer_sync(NT);
+  }
+
+  // The last block: the splits merged in split order into the self key's seed (m = q.k_self,
+  // l = 1, acc = v_self), normalised; each thread 4 columns of a head, the loads of 16 splits in
+  // flight at once (none depends on the merge so far).
+  const int ns = u.n_s;
+  const float* vn = a.v_new + ((long)u.b * a.n_kv + u.h) * HD;
+  for (int k = tid; k < qm * HD / 4; k += NT) {
+    const int m = k / (HD / 4), col = k % (HD / 4) * 4;
+    float mcur = sself[m], l = 1.f;
+    float4 acc = __ldg(reinterpret_cast<const float4*>(vn + col));
+#pragma unroll 16
+    for (int s = 0; s < ns; ++s) {
+      const long sl = (u.slot + s) * qm + m;
+      const float2 ml = __ldcg(reinterpret_cast<const float2*>(a.ws_ml + sl * 2));
+      const float4 p4 = __ldcg(reinterpret_cast<const float4*>(a.ws_acc + sl * HD + col));
+      const float m_new = fmaxf(mcur, ml.x);
+      const float ca = expf(mcur - m_new), cj = expf(ml.x - m_new);
+      l = l * ca + ml.y * cj;
+      acc.x = acc.x * ca + p4.x * cj;
+      acc.y = acc.y * ca + p4.y * cj;
+      acc.z = acc.z * ca + p4.z * cj;
+      acc.w = acc.w * ca + p4.w * cj;
+      mcur = m_new;
+    }
+    *reinterpret_cast<float4*>(a.out + (qrow0 + m) * HD + col) =
+        make_float4(acc.x / l, acc.y / l, acc.z / l, acc.w / l);
+  }
+  if (a.stamps != nullptr) {
+    consumer_sync(NT);
+    if (tid == 0) stamp(a, 7);
+  }
+}
+
+// Each block's unit as paged_decode_kernel's blocks plan it, one warp a block: units [grid, 10] int
+// (planned, b, h, tile, s, n_s, lo, hi, slot, pair; only `planned`, 0, past the last unit).
+__global__ void __launch_bounds__(32) plan_kernel(const __grid_constant__ Args a, int* units) {
+  Unit u;
+  const bool ok = plan_unit(a, a.kv_mul / a.qm, blockIdx.x, u);
+  if (threadIdx.x == 0) {
+    int* o = units + blockIdx.x * 10;
+    o[0] = ok;
+    if (ok) {
+      o[1] = u.b; o[2] = u.h; o[3] = u.tile; o[4] = u.s; o[5] = u.n_s;
+      o[6] = u.lo; o[7] = u.hi; o[8] = u.slot; o[9] = u.pair;
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, found through the runtime's entry-point query (no link
+// against libcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The map of one layer's pool as [P * n_kv, page, hd]: boxes of 16 rows by one 128-byte band,
+// 128-byte swizzle.  Returns 0, or the negated CUresult minus one.
+template <typename T>
+int pool_map(CUtensorMap* map, const void* pool, int slabs, int page, int hd) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  constexpr int esz = Pool<T>::kEsz;
+  const cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)page, (cuuint64_t)slabs};
+  const cuuint64_t strides[2] = {(cuuint64_t)hd * esz, (cuuint64_t)page * hd * esz};
+  const cuuint32_t box[3] = {(cuuint32_t)(kBandBytes / esz), (cuuint32_t)kBox, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(map, Pool<T>::kMap, 3, const_cast<void*>(pool), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -(int)r - 1;
+}
+
+template <typename T, int HD, int R, int QM>
+const void* kernel_of() {
+  return reinterpret_cast<const void*>(&paged_decode_kernel<T, HD, R, QM>);
+}
+
+// The instance for (pool type, head_dim, head tile), its shared memory and threads, or null: f32
+// pools on the CUDA cores at 1, 2, 4 or 8 heads a block, bf16 and INT8 pools on mma.sync (the heads
+// padded to 8).
+template <typename T, int HD>
+const void* pick_qm(int qm, int* smem, int* threads) {
+  constexpr int R = route_of<T>();
+  *threads = Shape<T, HD, R>::kThreads;
+  if constexpr (R == kMma) {
+    *smem = Smem<T, HD, R, kHeadsMma>::kBytes;
+    return qm <= kHeadsMma ? kernel_of<T, HD, R, kHeadsMma>() : nullptr;
+  } else {
+    switch (qm) {
+      case 1: *smem = Smem<T, HD, R, 1>::kBytes; return kernel_of<T, HD, R, 1>();
+      case 2: *smem = Smem<T, HD, R, 2>::kBytes; return kernel_of<T, HD, R, 2>();
+      case 4: *smem = Smem<T, HD, R, 4>::kBytes; return kernel_of<T, HD, R, 4>();
+      case 8: *smem = Smem<T, HD, R, 8>::kBytes; return kernel_of<T, HD, R, 8>();
+      default: return nullptr;
+    }
+  }
+}
+
+template <typename T>
+const void* pick_hd(int hd, int qm, int* smem, int* threads) {
+  switch (hd) {
+    case 128: return pick_qm<T, 128>(qm, smem, threads);
+    case 256: return pick_qm<T, 256>(qm, smem, threads);
+    default: return nullptr;
+  }
+}
+
+const void* pick(int cache_type, int hd, int qm, int* smem, int* threads) {
+  switch (cache_type) {
+    case 0: return pick_hd<float>(hd, qm, smem, threads);
+    case 1: return pick_hd<__nv_bfloat16>(hd, qm, smem, threads);
+    case 2: return pick_hd<int8_t>(hd, qm, smem, threads);
+    default: return nullptr;
+  }
+}
+
+// Lets the instance use `smem` bytes of dynamic shared memory (once per instance).
+int allow_smem(const void* fn, int smem) {
+  return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+}  // namespace
+
+// Plain C entry points.  cache_type 0 = f32, 1 = bf16, 2 = int8; qm: query heads a block takes (1,
+// 2, 4 or 8, dividing kv_mul).
+
+// Blocks of the instance one SM holds at once (0 for an instance that does not exist).
+extern "C" int paged_decode_blocks_per_sm(int cache_type, int hd, int qm) {
+  int smem = 0, threads = 0, blocks = 0;
+  const void* fn = pick(cache_type, hd, qm, &smem, &threads);
+  if (fn == nullptr || allow_smem(fn, smem) != 0) return 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads, smem) != cudaSuccess) return 0;
+  return blocks;
+}
+
+// One launch of `grid` blocks (at least B * n_kv * kv_mul / qm).  q [B, n_kv * kv_mul, hd] f32
+// (unscaled), k_new/v_new [B, n_kv, hd] f32, k/v the layer's pool [P, n_kv, page, hd] with
+// ks/vs [P, n_kv, page] f32 (int8) or null, table [B, max_pages] and pos [B] int32; ws_ml
+// [grid, qm, 2] and ws_acc [grid, qm, hd] f32 scratch; counters [B * n_kv * kv_mul / qm] int32,
+// zero (left zero); out like q; stamps [grid, 8] int64 or null.  page must be a multiple of 16.  Returns a cudaError_t, or a
+// tensor map's negated CUresult minus one.
+extern "C" int paged_decode_split(const void* q, const void* k_new, const void* v_new, const void* k,
+                                  const void* v, const void* ks, const void* vs, const void* table,
+                                  const void* pos, int cache_type, int B, int n_kv, int kv_mul,
+                                  int qm, int n_pages, int page, int max_pages, int hd, float scale,
+                                  int grid, void* ws_ml, void* ws_acc, void* counters, void* out,
+                                  void* stamps, void* stream) {
+  int smem = 0, threads = 0;
+  const void* fn = pick(cache_type, hd, qm, &smem, &threads);
+  if (fn == nullptr || B < 1 || kv_mul % qm || page % kBox || grid < B * n_kv * (kv_mul / qm))
+    return (int)cudaErrorInvalidValue;
+  Args a;
+  int e = 0;
+  switch (cache_type) {
+    case 0: e = pool_map<float>(&a.kmap, k, n_pages * n_kv, page, hd); break;
+    case 1: e = pool_map<__nv_bfloat16>(&a.kmap, k, n_pages * n_kv, page, hd); break;
+    default: e = pool_map<int8_t>(&a.kmap, k, n_pages * n_kv, page, hd); break;
+  }
+  if (e) return e;
+  switch (cache_type) {
+    case 0: e = pool_map<float>(&a.vmap, v, n_pages * n_kv, page, hd); break;
+    case 1: e = pool_map<__nv_bfloat16>(&a.vmap, v, n_pages * n_kv, page, hd); break;
+    default: e = pool_map<int8_t>(&a.vmap, v, n_pages * n_kv, page, hd); break;
+  }
+  if (e) return e;
+  a.q = reinterpret_cast<const float*>(q);
+  a.k_new = reinterpret_cast<const float*>(k_new);
+  a.v_new = reinterpret_cast<const float*>(v_new);
+  a.ks = reinterpret_cast<const float*>(ks);
+  a.vs = reinterpret_cast<const float*>(vs);
+  a.table = reinterpret_cast<const int*>(table);
+  a.pos = reinterpret_cast<const int*>(pos);
+  a.ws_ml = reinterpret_cast<float*>(ws_ml);
+  a.ws_acc = reinterpret_cast<float*>(ws_acc);
+  a.counters = reinterpret_cast<int*>(counters);
+  a.out = reinterpret_cast<float*>(out);
+  a.stamps = reinterpret_cast<unsigned long long*>(stamps);
+  a.B = B;
+  a.n_kv = n_kv;
+  a.kv_mul = kv_mul;
+  a.qm = qm;
+  a.page = page;
+  a.max_pages = max_pages;
+  a.scale = scale;
+  e = allow_smem(fn, smem);
+  if (e) return e;
+  void* args[] = {&a};
+  const cudaError_t le = cudaLaunchKernel(fn, dim3(grid), dim3(threads), args, (size_t)smem,
+                                          reinterpret_cast<cudaStream_t>(stream));
+  if (le != cudaSuccess) return (int)le;
+  return (int)cudaGetLastError();
+}
+
+// The plan of a launch of `grid` blocks, as its blocks make it (plan_kernel): pos [B] int32 and
+// units [grid, 10] int32 device pointers.  Returns a cudaError_t.
+extern "C" int paged_decode_plan(const void* pos, int B, int n_kv, int kv_mul, int qm, int page, int max_pages,
+                                 int grid, void* units, void* stream) {
+  if (B < 1 || qm < 1 || kv_mul % qm || grid < 1) return (int)cudaErrorInvalidValue;
+  Args a = {};
+  a.pos = reinterpret_cast<const int*>(pos);
+  a.B = B;
+  a.n_kv = n_kv;
+  a.kv_mul = kv_mul;
+  a.qm = qm;
+  a.page = page;
+  a.max_pages = max_pages;
+  plan_kernel<<<grid, 32, 0, reinterpret_cast<cudaStream_t>(stream)>>>(a, reinterpret_cast<int*>(units));
+  return (int)cudaGetLastError();
+}

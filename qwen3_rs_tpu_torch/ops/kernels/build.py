@@ -24,8 +24,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = (
     "qmatmul_w8a16", "flash_decode", "qmatmul_rows", "dequant", "qmatmul_a8", "prefill_attention",
-    "paged_attention", "decode_megakernel", "boundary_probe", "hbm_stream_bench", "head_a8_probe",
-    "a8_depth_probe",
+    "paged_attention", "paged_decode", "decode_megakernel", "boundary_probe", "hbm_stream_bench",
+    "head_a8_probe", "a8_depth_probe",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

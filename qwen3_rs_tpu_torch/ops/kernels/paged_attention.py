@@ -17,7 +17,15 @@ probability.
   the window in plain PyTorch, as the reference package merges them in XLA
   outside its kernel.
 
-Both kernels are in ``csrc/paged_attention.cu`` and share their first pass.
+At head_dim 128 and 256 over pages of a multiple of 16 rows, ``paged_decode``
+is one launch of ``csrc/paged_decode.cu`` (``SPLIT_HEAD_DIMS``): a grid that
+fills the card, split over the live rows on the device (``decode_units`` is
+the plan in Python; ``paged_decode_kernel_plan`` reads the kernel's own),
+whole pages brought by TMA, the splits merged by the last block of each
+(request, kv head, head tile).  Its stage compute follows the pool:
+``mma.sync`` for bf16 and INT8 pools, the CUDA cores for f32 pools, whose
+rows are not exact in bf16.  Elsewhere both wrappers launch the
+two-pass kernels of ``csrc/paged_attention.cu``, which share their first pass.
 For a CPU tensor a wrapper runs its plain PyTorch version; for a CUDA tensor
 it launches its kernel or raises.  They take any number of query heads per
 kv head and every head_dim that is a multiple of 128 (``takes_head_dim``;
@@ -29,13 +37,17 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import statistics
 
 import torch
 
 from ..attention import _merge_window, gather_pages
 from . import LAUNCHES, build
+from .qmatmul import _sm_count
 
-CHUNK = 128  # cache rows per block of the kernels' first pass
+CHUNK = 128  # cache rows per block of the two-pass kernels' first pass
+SPLIT_HEAD_DIMS = (128, 256)  # head_dims of the one-launch decode kernel
+SPLIT_ROWS = 16  # the one-launch kernel's split sizes and page sizes are multiples of it
 MAX_WINDOW_ROWS = 128  # the reference's bound on S·kv_mul for the window kernel
 _CACHE_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -154,6 +166,134 @@ def paged_window_partials_plain(
     return m, l, torch.einsum("bnrt,bnth->bnrh", p, vc)
 
 
+def decode_qm(kv_mul: int) -> int:
+    """Query heads a block of the decode kernels takes: the largest power of
+    two that divides kv_mul, at most 8."""
+    return min(kv_mul & -kv_mul, 8)
+
+
+def decode_grid(b: int, n_kv: int, kv_mul: int, sms: int, blocks_per_sm: int) -> int:
+    """Blocks of one launch of the one-launch decode kernel: as many as the
+    card holds at once, and at least one per (request, kv head, head tile)."""
+    return max(sms * blocks_per_sm, b * n_kv * (kv_mul // decode_qm(kv_mul)))
+
+
+def decode_plan(pos: list[int], n_kv: int, kv_mul: int, page: int, max_pages: int, grid: int) -> tuple[int, list[int]]:
+    """The one-launch kernel's plan from the positions: (span, splits per
+    request), as every block of a launch of ``grid`` blocks makes it.  A request's live rows
+    ``min(pos, max_pages·page)`` are cut into splits of ``span`` rows (one
+    split when it has none); span is the least multiple of ``SPLIT_ROWS``
+    for which the splits of every request, kv head and head tile fit the
+    grid."""
+    per = n_kv * (kv_mul // decode_qm(kv_mul))
+    live = [min(max(p, 0), max_pages * page) for p in pos]
+
+    def splits(span):
+        return [max(1, -(-p // span)) for p in live]
+
+    lo, hi = 1, max(1, -(-max(live, default=0) // SPLIT_ROWS))
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if sum(splits(mid * SPLIT_ROWS)) * per <= grid:
+            hi = mid
+        else:
+            lo = mid + 1
+    return lo * SPLIT_ROWS, splits(lo * SPLIT_ROWS)
+
+
+def decode_units(pos: list[int], n_kv: int, kv_mul: int, page: int, max_pages: int, grid: int) -> list[tuple]:
+    """The units of ``decode_plan``, block u taking the u-th: (b, kv head,
+    head tile, split, splits, first row, end row, workspace slot of split 0,
+    arrival counter), in (request, kv head, head tile, split) order."""
+    span, splits = decode_plan(pos, n_kv, kv_mul, page, max_pages, grid)
+    tiles = kv_mul // decode_qm(kv_mul)
+    units = []
+    for b, (p, n_s) in enumerate(zip(pos, splits)):
+        live = min(max(p, 0), max_pages * page)
+        for pair in range(n_kv * tiles):
+            for s in range(n_s):
+                units.append((b, pair // tiles, pair % tiles, s, n_s, s * span, min(live, (s + 1) * span),
+                              len(units) - s, b * n_kv * tiles + pair))
+    return units
+
+
+def decode_workspace_floats(grid: int, kv_mul: int, hd: int) -> tuple[int, int]:
+    """Floats of the one-launch kernel's two workspaces: (m, l) and acc of
+    one split partial a block."""
+    qm = decode_qm(kv_mul)
+    return grid * qm * 2, grid * qm * hd
+
+
+def split_kernel_takes(hd: int, page: int) -> bool:
+    """Whether ``paged_decode`` launches the one-launch kernel for a pool of
+    head_dim ``hd`` and pages of ``page`` rows (else the two-pass kernels)."""
+    return hd in SPLIT_HEAD_DIMS and page % SPLIT_ROWS == 0
+
+
+_DECODE_COUNTERS: dict = {}
+
+
+def _decode_counters(dev: torch.device, n: int) -> torch.Tensor:
+    """The one-launch kernel's arrival counters on ``dev``: one zero int per
+    (request, kv head, head tile), made once (grown when a launch needs more);
+    each launch leaves them zero."""
+    t = _DECODE_COUNTERS.get(dev)
+    if t is None or t.numel() < n:
+        t = _DECODE_COUNTERS[dev] = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+    return t
+
+
+@functools.cache
+def _blocks_per_sm(index: int, cache_type: int, hd: int, qm: int) -> int:
+    with torch.cuda.device(index):
+        n = _split_lib().paged_decode_blocks_per_sm(cache_type, hd, qm)
+    if n < 1:
+        raise RuntimeError(f"paged_decode: no kernel instance for pool type {cache_type}, head_dim {hd}, "
+                           f"{qm} heads a block")
+    return n
+
+
+def split_grid(dev: torch.device, pool_dtype: torch.dtype, hd: int, b: int, n_kv: int, kv_mul: int) -> int:
+    """Blocks of a one-launch #9 call on ``dev`` (``decode_grid`` with the
+    card's SMs and the instance's blocks an SM)."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return decode_grid(b, n_kv, kv_mul, _sm_count(index),
+                       _blocks_per_sm(index, _CACHE_TYPES[pool_dtype], hd, decode_qm(kv_mul)))
+
+
+def paged_decode_kernel_plan(pos: torch.Tensor, n_kv: int, kv_mul: int, page: int, max_pages: int,
+                             grid: int) -> list[tuple]:
+    """The plan the one-launch kernel's blocks make from ``pos`` (int32 [B]
+    on the card) in a launch of ``grid`` blocks, read back: the units of the
+    blocks that took one, in block order, as ``decode_units`` gives them
+    (card only; a block past the last unit must take none)."""
+    if pos.device.type != "cuda" or pos.dtype != torch.int32 or pos.dim() != 1 or not pos.is_contiguous():
+        raise ValueError("paged_decode_kernel_plan: pos must be contiguous int32 [B] on the card")
+    units = torch.full((grid, 10), -1, dtype=torch.int32, device=pos.device)
+    err = _split_lib().paged_decode_plan(pos.data_ptr(), pos.shape[0], n_kv, kv_mul, decode_qm(kv_mul), page,
+                                         max_pages, grid, units.data_ptr(),
+                                         torch.cuda.current_stream(pos.device).cuda_stream)
+    build.check(err, "paged_decode_plan")
+    rows = units.cpu().tolist()
+    taken = [tuple(r[1:]) for r in rows if r[0] == 1]
+    if any(r[0] != 1 for r in rows[:len(taken)]) or any(r[0] != 0 for r in rows[len(taken):]):
+        raise RuntimeError("paged_decode_plan: the blocks with units are not the first ones")
+    return taken
+
+
+@functools.cache
+def _split_lib() -> ctypes.CDLL:
+    lib = build.load("paged_decode")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.paged_decode_blocks_per_sm.argtypes = [i, i, i]
+    lib.paged_decode_blocks_per_sm.restype = ctypes.c_int
+    lib.paged_decode_split.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, i, p, p, p, p, p, p]
+    lib.paged_decode_split.restype = ctypes.c_int
+    lib.paged_decode_plan.argtypes = [p, i, i, i, i, i, i, i, p, p]
+    lib.paged_decode_plan.restype = ctypes.c_int
+    return lib
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("paged_attention")
@@ -233,21 +373,88 @@ def paged_decode(
     vn = v_new.float().contiguous()
     if kn.shape != (b, n_kv, hd) or vn.shape != kn.shape:
         raise ValueError("paged_decode: k_new/v_new must be [B, n_kv, hd]")
+    out = torch.empty(b, n_heads, hd, dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if split_kernel_takes(hd, page):
+        _split_launch(qf, kn, vn, k_pool, (k, v, ks, vs), page_table, pos, kv_mul, out, None)
+        return out
     n_chunks = -(-max_pages * page // CHUNK)
     slots = b * n_kv * n_chunks * kv_mul
     part_ml = torch.empty(slots * 2, dtype=torch.float32, device=q.device)
     part_acc = torch.empty(slots * hd, dtype=torch.float32, device=q.device)
-    out = torch.empty(b, n_heads, hd, dtype=torch.float32, device=q.device)
     err = _lib().paged_decode(
         qf.data_ptr(), kn.data_ptr(), vn.data_ptr(), k, v, ks, vs,
         page_table.data_ptr(), pos.data_ptr(), _CACHE_TYPES[k_pool.dtype],
         b, n_kv, kv_mul, page, max_pages, hd, 1.0 / hd**0.5,
-        part_ml.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        part_ml.data_ptr(), part_acc.data_ptr(), out.data_ptr(), stream,
     )
     build.check(err, "paged_decode")
     LAUNCHES["paged_decode"] += 1
     return out
+
+
+def _split_launch(qf, kn, vn, k_pool, ptrs, page_table, pos, kv_mul, out, stamps) -> int:
+    """One launch of the one-launch decode kernel (checked inputs: q, k_new,
+    v_new f32 contiguous; ptrs the layer's pool and scale pointers) into
+    ``out``; ``stamps`` an int64 tensor of ``[grid, 8]`` or None.  Returns
+    the grid."""
+    k, v, ks, vs = ptrs
+    b, n_kv, hd = kn.shape
+    page, max_pages = k_pool.shape[3], page_table.shape[1]
+    qm = decode_qm(kv_mul)
+    grid = split_grid(qf.device, k_pool.dtype, hd, b, n_kv, kv_mul)
+    if stamps is not None and stamps.shape != (grid, 8):
+        raise ValueError(f"paged_decode: stamps must be [{grid}, 8]")
+    n_ml, n_acc = decode_workspace_floats(grid, kv_mul, hd)
+    ws = torch.empty(n_acc + n_ml, dtype=torch.float32, device=qf.device)  # acc first: 16-byte rows
+    counters = _decode_counters(qf.device, b * n_kv * (kv_mul // qm))
+    err = _split_lib().paged_decode_split(
+        qf.data_ptr(), kn.data_ptr(), vn.data_ptr(), k, v, ks, vs, page_table.data_ptr(), pos.data_ptr(),
+        _CACHE_TYPES[k_pool.dtype], b, n_kv, kv_mul, qm, k_pool.shape[1], page, max_pages, hd, 1.0 / hd**0.5,
+        grid, ws.data_ptr() + n_acc * 4, ws.data_ptr(), counters.data_ptr(), out.data_ptr(),
+        None if stamps is None else stamps.data_ptr(), torch.cuda.current_stream(qf.device).cuda_stream,
+    )
+    build.check(err, "paged_decode")
+    LAUNCHES["paged_decode"] += 1
+    return grid
+
+
+def paged_decode_phases(q, k_new, v_new, k_pool, v_pool, page_table, pos, layer, *,
+                        k_scale_pool=None, v_scale_pool=None) -> dict:
+    """Where one launch of the one-launch decode kernel spends its time (card
+    only): median µs over the blocks with rows of each phase, from the
+    kernel's own clock stamps (``plan``: start to the plan made; ``first_copy``
+    and ``first_stage``: from the plan to the producer's first copies issued
+    and to the first stage landed; ``stages``: the first stage landed to the
+    last done; ``partial``: the partial written; ``arrive``: the arrival
+    counted; ``merge``: the last blocks' merge), and the launch's span."""
+    (k, v, ks, vs), n_kv, page, max_pages = _check_pool(
+        "paged_decode_phases", q, k_pool, v_pool, page_table, pos, layer, k_scale_pool, v_scale_pool)
+    if not split_kernel_takes(q.shape[-1], page):
+        raise ValueError("paged_decode_phases: the pool takes the two-pass kernels")
+    b, n_heads, hd = q.shape
+    out = torch.empty(b, n_heads, hd, dtype=torch.float32, device=q.device)
+    grid = _split_launch(q.float().contiguous(), k_new.float().contiguous(), v_new.float().contiguous(), k_pool,
+                         (k, v, ks, vs), page_table, pos, n_heads // n_kv, out, None)
+    stamps = torch.zeros(grid, 8, dtype=torch.int64, device=q.device)
+    _split_launch(q.float().contiguous(), k_new.float().contiguous(), v_new.float().contiguous(), k_pool,
+                  (k, v, ks, vs), page_table, pos, n_heads // n_kv, out, stamps)
+    return stamp_phases(stamps.cpu().tolist())
+
+
+def stamp_phases(stamps: list[list[int]]) -> dict:
+    """The phase breakdown of ``paged_decode_phases`` from a launch's stamps
+    (a row of 8 global-timer ns a block; 0 where a block took no such step)."""
+    active = [r for r in stamps if r[1] and r[4]]
+    t0 = min(r[0] for r in stamps)
+
+    def med(i, j):
+        d = [(r[j] - r[i]) / 1e3 for r in active if r[i] and r[j]]
+        return statistics.median(d) if d else None
+
+    return {"blocks": len(stamps), "blocks_with_rows": len(active), "plan": med(0, 1), "first_copy": med(1, 2),
+            "first_stage": med(1, 3), "stages": med(3, 4), "partial": med(4, 5), "arrive": med(5, 6),
+            "merge": med(6, 7), "span": (max(max(r) for r in stamps) - t0) / 1e3}
 
 
 def paged_window_partials(

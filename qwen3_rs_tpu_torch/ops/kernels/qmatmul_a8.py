@@ -12,7 +12,8 @@ where ``dot`` is the group's exact int8 · int8 → int32 product.  It replaces
 the reference package's ``qmatmul_pallas_stacked_rows_a8``, which exact mode
 reaches for windows of 128 rows or more (``ops/matmul.py::qmatmul_exact``).
 Every multiply and add rounds on its own, in both versions, so they agree
-bit for bit.
+bit for bit.  The kernel converts each group's integer sum to f32 without a
+conversion instruction for g ≤ 128 (``magic_group_float``, its arithmetic).
 
 For a CPU tensor the wrapper runs the plain PyTorch version; for a CUDA
 tensor it launches ``csrc/qmatmul_a8.cu`` or raises.
@@ -23,6 +24,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from ..quant import QuantizedTensor
@@ -51,11 +53,23 @@ def qmatmul_w8a8_rows_plain(
     return acc.reshape(*xq.shape[:-1], d)
 
 
+MAGIC_BITS = 0x4B400000  # 1.5·2^23: a group's int32 partials start here in the kernel (g ≤ 128)
+MAGIC_FLOAT = 12582912.0
+
+
+def magic_group_float(dot: np.ndarray) -> np.ndarray:
+    """The kernel's conversion of a group's int32 dot to f32 for g ≤ 128:
+    the partials start at ``MAGIC_BITS``, the sum's bits read as a float are
+    12582912 + dot for |dot| < 2^22, and one f32 subtraction leaves dot."""
+    bits = (np.int64(MAGIC_BITS) + dot.astype(np.int64)).astype(np.uint32)
+    return bits.view(np.float32) - np.float32(MAGIC_FLOAT)
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("qmatmul_a8")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.qmatmul_w8a8_rows.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.qmatmul_w8a8_rows.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
     lib.qmatmul_w8a8_rows.restype = ctypes.c_int
     return lib
 
@@ -79,6 +93,7 @@ def qmatmul_w8a8_rows(
             raise ValueError(f"qmatmul_w8a8_rows: {msg}")
 
     need(n % 64 == 0 and g % 32 == 0, f"N={n} must be a multiple of 64 and the group size {g} of 32")
+    need(d % 16 == 0, f"D={d} must be a multiple of 16")
     need(xq.dtype == torch.int8 and xq.shape[-1] == n, f"xq must be int8 [..., {n}]")
     xq2 = xq.reshape(-1, n).contiguous()
     if xq2.data_ptr() % 16:
@@ -90,9 +105,12 @@ def qmatmul_w8a8_rows(
     need(xq2.device == xs2.device == codes.device == ws.device, "all tensors must be on one device")
     out = torch.empty(rows, d, dtype=torch.float32, device=xq.device)
     if rows:
+        m_pad = -(-rows // 4) * 4  # the kernel reads a block's x scales in 16-byte pieces
+        xs_t = torch.zeros(groups, m_pad, dtype=torch.float32, device=xq.device)
+        xs_t[:, :rows] = xs2.t()
         err = _lib().qmatmul_w8a8_rows(
-            xq2.data_ptr(), xs2.data_ptr(), codes.data_ptr(), ws.data_ptr(), out.data_ptr(),
-            rows, n, d, g, torch.cuda.current_stream(xq.device).cuda_stream,
+            xq2.data_ptr(), xs_t.data_ptr(), codes.data_ptr(), ws.data_ptr(), out.data_ptr(),
+            rows, m_pad, n, d, g, torch.cuda.current_stream(xq.device).cuda_stream,
         )
         build.check(err, "qmatmul_w8a8_rows")
         LAUNCHES["qmatmul_w8a8_rows"] += 1

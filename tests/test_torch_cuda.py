@@ -504,14 +504,35 @@ def test_int4_model_card_matches_cpu(card, monkeypatch):
         exact.prefill(exact.new_cache(), np.zeros((1, 8), np.int64), [0])
 
 
-@pytest.mark.parametrize("rows", [1, 128, 129, 300, 1000])
-@pytest.mark.parametrize("n,d,g", [(256, 48, 64), (512, 1040, 64), (1024, 384, 32), (512, 256, 128)])
+@pytest.mark.parametrize("rows", [1, 127, 128, 129, 300, 1000, 2048])
+@pytest.mark.parametrize(
+    "n,d,g",
+    [(256, 48, 64), (512, 1040, 64), (1024, 384, 32), (512, 256, 128), (1024, 1040, 256), (192, 144, 64)],
+)
 def test_qmatmul_a8_matches_plain_bit_exact(card, rows, n, d, g):
     gen = _gen(rows * 3 + d)
     w = _weights(gen, card, 2, n, d, g, torch.float32)
     xq = quantize_activations(torch.randn(rows, n, generator=gen, device=card), g)
     got = qmatmul_w8a8_rows(xq.q, xq.scales, w, 1)
     ref = qmatmul_w8a8_rows_plain(xq.q, xq.scales, w, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("g", [32, 64, 128, 256])
+def test_qmatmul_a8_extreme_codes_bit_exact(card, g):
+    """Every code -128 on both sides: each group's dot reaches 128·128·g, its
+    largest value (2^21 at g = 128, the conversion for free's edge; 2^22 at
+    256 on the int-to-float path)."""
+    gen = _gen(g)
+    n, d, rows = 1024, 272, 300
+    codes = torch.full((2, n, d), -128, dtype=torch.int8, device=card)
+    scales = torch.rand(2, n // g, d, generator=gen, device=card) * 0.02 + 1e-3
+    w = QuantizedTensor(codes, scales)
+    xq = torch.full((rows, n), -128, dtype=torch.int8, device=card)
+    xs = torch.rand(rows, n // g, generator=gen, device=card) * 0.05 + 1e-3
+    got = qmatmul_w8a8_rows(xq, xs, w, 1)
+    ref = qmatmul_w8a8_rows_plain(xq, xs, w, 1)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
 
@@ -1335,3 +1356,97 @@ def test_probe_wrappers_refuse_what_they_cannot_take(card):
     w = _weights(_gen(3), card, 2, 256, 48, 64)
     with pytest.raises(ValueError, match="D=48 of 32"):
         boundary_onecall(torch.zeros(1, 256, device=card), w)
+
+
+@pytest.mark.parametrize("pool", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("hd", [128, 256, 384, 512, 640])
+@pytest.mark.parametrize("page", [8, 16, 128])
+@pytest.mark.parametrize("kv_mul", [1, 2, 4, 8])
+def test_paged_decode_batches_match_plain(card, pool, hd, page, kv_mul):
+    """#9 at every B from 1 to 8 over positions 0, 1, 127, 128, 129, a page
+    boundary and max_pages·page (the one-launch kernel at head_dim 128 and
+    256, on the CUDA cores for f32 pools and mma.sync for bf16 and INT8; pages
+    of 8 rows: the two-pass kernels at every head_dim): within 1e-4·max|ref|
+    of the plain version, exactly v_self at pos 0, each call one launch, two
+    launches equal bit for bit."""
+    gen = _gen(hd + 7 * kv_mul + page + len(pool))
+    max_pages = -(-600 // page)
+    full = max_pages * page
+    positions = [full, 0, 1, 127, 128, 129, 3 * page, full - 1]
+    n_kv = 2
+    n_pages = 1 + 8 * max_pages
+    k, v, sc = _cache_of(gen, card, pool, (2, n_pages, n_kv, page, hd))
+    sc = {} if sc is None else dict(zip(("k_scale_pool", "v_scale_pool"), sc))
+    for b in range(1, 9):
+        pos_list = positions[:b]
+        table = _tables(gen, card, b, max_pages, n_pages)
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=card)
+        q = torch.randn(b, n_kv * kv_mul, hd, generator=gen, device=card)
+        kn, vn = torch.randn(2, b, n_kv, hd, generator=gen, device=card)
+        ref = paged_decode_plain(q, kn, vn, k, v, table, pos, 1, **sc)
+        before = LAUNCHES["paged_decode"]
+        got = paged_decode(q, kn, vn, k, v, table, pos, 1, **sc)
+        again = paged_decode(q, kn, vn, k, v, table, pos, 1, **sc)
+        torch.cuda.synchronize()
+        assert LAUNCHES["paged_decode"] == before + 2
+        assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max()), b
+        assert torch.equal(got, again), b
+        for i, p in enumerate(pos_list):
+            if p == 0:
+                assert torch.equal(got[i], vn[i].repeat_interleave(kv_mul, dim=0)), b
+
+
+@pytest.mark.parametrize(
+    "pos,n_kv,kv_mul,grid",
+    [
+        ([0, 1, 127, 128, 129, 1000, 2049, 4095], 8, 4, 264),
+        ([4095], 8, 4, 264),
+        ([0, 0, 0], 2, 3, 132),
+        ([5000, 17, 300], 2, 12, 132),
+        (list(range(0, 64 * 40, 40)), 8, 1, 512),
+        (list(range(0, 200 * 20, 20)), 2, 2, 800),  # more than 128 requests: read past the lanes' registers
+    ],
+)
+def test_paged_decode_kernel_plan_is_decode_units(card, pos, n_kv, kv_mul, grid):
+    """The plan the one-launch #9 kernel's blocks make from the positions on
+    the card, read back block by block, is ``decode_units``'s, unit for unit
+    (the CPU tests' cases of ``decode_plan``, and one past 128 requests)."""
+    from qwen3_rs_tpu_torch.ops.kernels.paged_attention import decode_grid, decode_units, paged_decode_kernel_plan
+
+    page, max_pages = 128, 32
+    grid = max(grid, decode_grid(len(pos), n_kv, kv_mul, 1, 1))
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=card)
+    assert paged_decode_kernel_plan(pos_t, n_kv, kv_mul, page, max_pages, grid) == decode_units(
+        pos, n_kv, kv_mul, page, max_pages, grid)
+
+
+def test_paged_decode_counters_stay_zero(card):
+    """The one-launch kernel's arrival counters are zero after every launch
+    (a CUDA graph can replay it), and a replay in a graph gives the same
+    output bit for bit."""
+    from qwen3_rs_tpu_torch.ops.kernels import paged_attention as pa
+
+    gen = _gen(77)
+    page, max_pages, pos_list = 128, 32, [4095, 1000, 0, 2049]
+    b = len(pos_list)
+    n_pages = 1 + b * max_pages
+    k, v, _ = _cache_of(gen, card, "bf16", (2, n_pages, 8, page, 128))
+    table = _tables(gen, card, b, max_pages, n_pages)
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=card)
+    q = torch.randn(b, 32, 128, generator=gen, device=card)
+    kn, vn = torch.randn(2, b, 8, 128, generator=gen, device=card)
+    first = paged_decode(q, kn, vn, k, v, table, pos, 1)
+    torch.cuda.synchronize()
+    assert int(pa._DECODE_COUNTERS[first.device].abs().sum()) == 0
+    out = {}
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        paged_decode(q, kn, vn, k, v, table, pos, 1)  # warm-up on the capture stream
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            out["x"] = paged_decode(q, kn, vn, k, v, table, pos, 1)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out["x"], first)
+    assert int(pa._DECODE_COUNTERS[first.device].abs().sum()) == 0

@@ -135,3 +135,101 @@ def test_split_paged_matches_jax(dtype, s):
                           jnp.asarray(kn), jnp.asarray(vn), jnp.asarray(pos),
                           **{k: v[LAYER] for k, v in jsc.items()})
     _close(got.numpy(), ref)
+
+
+PLAN_CASES = [
+    ([0, 1, 127, 128, 129, 1000, 2049, 4095], 8, 4, 264),  # 8B's serving batch, two blocks an SM
+    ([4095], 8, 4, 264),  # one request at the context's end
+    ([0, 0, 0], 2, 3, 132),  # idle slots only: one split each, no rows
+    ([5000, 17, 300], 2, 12, 132),  # a position past the table, head tiles of 4
+    (list(range(0, 64 * 40, 40)), 8, 1, 512),  # more (request, kv head) pairs than SMs
+]
+
+
+@pytest.mark.parametrize("pos,n_kv,kv_mul,grid", PLAN_CASES)
+def test_decode_plan_fits_the_grid_and_covers_every_row(pos, n_kv, kv_mul, grid):
+    """The one-launch #9 kernel's plan in Python (a card test holds the
+    kernel's own plan to it): splits of a 16-row multiple that cover each
+    request's live rows, one split for an idle slot, no more units than the
+    grid, and the least such span."""
+    from qwen3_rs_tpu_torch.ops.kernels.paged_attention import SPLIT_ROWS, decode_grid, decode_plan, decode_qm
+
+    page, max_pages = 128, 32
+    tiles = kv_mul // decode_qm(kv_mul)
+    grid = max(grid, decode_grid(len(pos), n_kv, kv_mul, 1, 1))
+    span, splits = decode_plan(pos, n_kv, kv_mul, page, max_pages, grid)
+    live = [min(p, max_pages * page) for p in pos]
+    assert span % SPLIT_ROWS == 0 and span >= SPLIT_ROWS
+    assert sum(splits) * n_kv * tiles <= grid
+    for p, s in zip(live, splits):
+        assert s == max(1, -(-p // span)) and (s - 1) * span < max(p, 1)
+    if span > SPLIT_ROWS:  # one box less a split would not fit
+        smaller = sum(max(1, -(-p // (span - SPLIT_ROWS))) for p in live)
+        assert smaller * n_kv * tiles > grid
+
+
+@pytest.mark.parametrize("pos,n_kv,kv_mul,grid", PLAN_CASES + [(list(range(0, 200 * 20, 20)), 2, 2, 800)])
+def test_decode_units_give_each_block_one_split_of_one_pair(pos, n_kv, kv_mul, grid):
+    """``decode_units``, the unit each block of the one-launch #9 kernel
+    takes (a card test holds the kernel's own plan to it): no more units than
+    blocks; each (request, kv head, head tile) once, with its own counter,
+    its splits in order on consecutive workspace slots from its slot, their
+    rows covering the live rows exactly."""
+    from qwen3_rs_tpu_torch.ops.kernels.paged_attention import decode_grid, decode_plan, decode_qm, decode_units
+
+    page, max_pages = 128, 32
+    tiles = kv_mul // decode_qm(kv_mul)
+    grid = max(grid, decode_grid(len(pos), n_kv, kv_mul, 1, 1))
+    span, splits = decode_plan(pos, n_kv, kv_mul, page, max_pages, grid)
+    units = decode_units(pos, n_kv, kv_mul, page, max_pages, grid)
+    assert len(units) == sum(splits) * n_kv * tiles <= grid
+    pairs = {}
+    for u, (b, h, tile, s, n_s, lo, hi, slot, pair) in enumerate(units):
+        assert slot == u - s and n_s == splits[b] and 0 <= h < n_kv and 0 <= tile < tiles
+        assert pair == (b * n_kv + h) * tiles + tile
+        pairs.setdefault(pair, []).append((s, lo, hi))
+    assert sorted(pairs) == list(range(len(pos) * n_kv * tiles))
+    for pair, parts in pairs.items():
+        live = min(pos[pair // (n_kv * tiles)], max_pages * page)
+        assert [s for s, _, _ in parts] == list(range(len(parts)))
+        assert parts[0][1] == 0 and parts[-1][2] == live
+        assert all(lo == s * span and lo <= hi for s, lo, hi in parts)
+        assert all(parts[i][2] == parts[i + 1][1] for i in range(len(parts) - 1))
+
+
+def test_decode_grid_and_workspace():
+    """The host's share of a one-launch #9 call: the grid (the card's SMs
+    times the blocks an SM holds, at least one a request, kv head and head
+    tile), the heads a block takes, and the workspaces."""
+    from qwen3_rs_tpu_torch.ops.kernels.paged_attention import (
+        decode_grid,
+        decode_qm,
+        decode_workspace_floats,
+        split_kernel_takes,
+    )
+
+    assert [decode_qm(m) for m in (1, 2, 3, 4, 5, 6, 8, 12, 16)] == [1, 2, 1, 4, 1, 2, 8, 4, 8]
+    assert decode_grid(8, 8, 4, 132, 2) == 264
+    assert decode_grid(64, 8, 12, 132, 2) == 64 * 8 * 3
+    assert decode_workspace_floats(264, 4, 128) == (264 * 4 * 2, 264 * 4 * 128)
+    assert split_kernel_takes(128, 128) and split_kernel_takes(256, 16)
+    assert not split_kernel_takes(384, 128) and not split_kernel_takes(128, 8)
+
+
+def test_stamp_phases_reads_a_launch():
+    """The one-launch #9 kernel's phase breakdown from its clock stamps: the
+    blocks with rows only, each phase's median, the merge of the last blocks
+    alone, and the launch's span."""
+    from qwen3_rs_tpu_torch.ops.kernels.paged_attention import stamp_phases
+
+    t = 1_000_000
+    rows = [
+        [t, t + 2000, t + 3000, t + 6000, t + 9000, t + 10000, t + 10300, t + 12000],  # the last block
+        [t + 100, t + 2100, t + 3500, t + 6100, t + 8100, t + 9100, t + 9400, 0],
+        [t + 50, t + 1800, 0, 0, 0, 0, 0, 0],  # past the last unit: no rows
+    ]
+    ph = stamp_phases(rows)
+    assert ph["blocks"] == 3 and ph["blocks_with_rows"] == 2
+    assert ph["plan"] == 2.0 and ph["first_copy"] == 1.2 and ph["first_stage"] == 4.0
+    assert ph["stages"] == 2.5 and ph["partial"] == 1.0 and ph["arrive"] == 0.3 and ph["merge"] == 1.7
+    assert ph["span"] == 12.0

@@ -45,7 +45,13 @@ from qwen3_rs_tpu_torch.ops.kernels.qmatmul import (
     qmatmul_w8a16_rows,
     qmatmul_w8a16_rows_plain,
 )
-from qwen3_rs_tpu_torch.ops.kernels.qmatmul_a8 import qmatmul_w8a8_rows, qmatmul_w8a8_rows_plain
+from qwen3_rs_tpu_torch.ops.kernels.qmatmul_a8 import (
+    MAGIC_BITS,
+    MAGIC_FLOAT,
+    magic_group_float,
+    qmatmul_w8a8_rows,
+    qmatmul_w8a8_rows_plain,
+)
 from qwen3_rs_tpu_torch.ops.matmul import qmatmul_exact
 from qwen3_rs_tpu_torch.ops.quant import QuantizedTensor, quantize_activations
 
@@ -218,3 +224,49 @@ def test_cpu_wrappers_are_the_plain_versions():
     assert torch.equal(dequant_w8_stacked(w, 0), dequant_w8_stacked_plain(w, 0))
     assert torch.equal(qmatmul_w8a8_rows(xq.q, xq.scales, w, 0), qmatmul_w8a8_rows_plain(xq.q, xq.scales, w, 0))
     assert LAUNCHES == before  # plain calls are not launches
+
+
+def test_magic_group_float_is_exact_over_its_range():
+    """Every int32 dot in [-2^22, 2^22): the bits MAGIC_BITS + dot read as an
+    f32, less 12582912, are f32(dot) exactly (the W8A8 kernel's conversion of
+    a group's sum for g <= 128, where |dot| <= 128·128·128 = 2^21)."""
+    dot = np.arange(-(2**22), 2**22, dtype=np.int64)
+    bits = (np.int64(MAGIC_BITS) + dot).astype(np.uint32)
+    assert np.array_equal(bits.view(np.float32) - np.float32(MAGIC_FLOAT), dot.astype(np.float32))
+    assert np.array_equal(magic_group_float(dot), dot.astype(np.float32))
+
+
+def _a8_kernel_order(xq, xs, codes, scales, g):
+    """numpy emulation of the W8A8 kernel's fix-up: per group in order, the
+    int dot through the magic conversion (g <= 128) or a plain int-to-float
+    one, then acc = acc + (d · w_scale) · x_scale, each operation rounded to
+    f32 on its own."""
+    acc = np.zeros((xq.shape[0], codes.shape[1]), np.float32)
+    for gi in range(codes.shape[0] // g):
+        sl = slice(gi * g, (gi + 1) * g)
+        dot = xq[:, sl].astype(np.int64) @ codes[sl].astype(np.int64)
+        d = magic_group_float(dot) if g <= 128 else dot.astype(np.float32)
+        t = (d * scales[gi][None, :]).astype(np.float32)
+        acc = (acc + (t * xs[:, gi : gi + 1]).astype(np.float32)).astype(np.float32)
+    return acc
+
+
+@pytest.mark.parametrize("g", [32, 64, 128, 256])
+@pytest.mark.parametrize("extreme", [False, True])
+def test_a8_kernel_order_matches_plain_bit_exact(g, extreme):
+    """The emulated kernel order equals ``qmatmul_w8a8_rows_plain`` bit for
+    bit on general scales; ``extreme``: every code -128, the largest |dot|."""
+    rng = np.random.default_rng(g + extreme)
+    n, d, rows = 512, 48, 9
+    if extreme:
+        xq = np.full((rows, n), -128, np.int8)
+        codes = np.full((n, d), -128, np.int8)
+    else:
+        xq = _codes(rng, (rows, n))
+        codes = _codes(rng, (n, d))
+    xs = rng.uniform(0.001, 0.05, (rows, n // g)).astype(np.float32)
+    scales = rng.uniform(0.001, 0.05, (n // g, d)).astype(np.float32)
+    want = _a8_kernel_order(xq, xs, codes, scales, g)
+    got = qmatmul_w8a8_rows_plain(torch.from_numpy(xq), torch.from_numpy(xs),
+                                  QuantizedTensor(torch.from_numpy(codes), torch.from_numpy(scales)))
+    assert np.array_equal(got.numpy(), want)
