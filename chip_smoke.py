@@ -19,9 +19,12 @@ Phases, in order; any failure exits non-zero before the final line:
                columns; #4, #5, #9 and #10 at head_dim 256 and 640, #5 at
                384 and 512; #3 by route at 1-256 rows over the four 8B
                projections, the CUDA-core, mma and tensor-core routes side
-               by side at 1, 2, 3, 4, 8 and 16 rows, the measurement behind
-               ``qmatmul.MMA_MIN_ROWS`` and ``TC_MIN_ROWS``; #1 and #2 on the
-               CUDA-core and mma routes at 1 and 8 rows), with its time,
+               by side at 1, 2, 3, 4, 8 and 16 rows and the row kernel at 1,
+               the measurement behind ``qmatmul.MMA_MIN_ROWS`` and
+               ``TC_MIN_ROWS``; #1 and #2 on the row and mma routes at 1 row
+               and the mma route at 8; #4 at B=1 with its two-pass kernel
+               beside the one-launch one and the latter's phase stamps), with
+               its time,
                the plain version's time, one PyTorch library call's time
                where one computes the same function, and the least time the
                card could take.
@@ -116,6 +119,11 @@ Phases, in order; any failure exits non-zero before the final line:
                query heads per kv head) through the kernels; head_dim-256,
                -512 and -640 models through #4, #5, #9 and #10.
 
+Optional phases, run only when named: ``exact`` (exact mode's two paths
+alone) and ``decode`` (#1-#3 at one row and #4 at B=1 by route, with each
+kernel's device time from torch.profiler, and the b=1 per-layer INT8 and
+INT4 steps' device time), both for comparing two trees in one call.
+
 Output: one JSON object per line.  The second-to-last lines hold the kernel
 table and the serve, tp and probes phases' numbers
 (``{"kernels": [...], "serve": {...}, "tp": {...}, "probes": {...}}``)
@@ -141,7 +149,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 DEV = "cuda"
 PHASES = ("build", "kernels", "probes", "e2e", "serve", "cli", "tp", "parity")
-OPTIONAL_PHASES = ("exact",)  # run only when named: a subset of e2e for comparisons in one call
+OPTIONAL_PHASES = ("exact", "decode")  # run only when named: subsets for comparisons of two trees in one call
 
 # Published peaks of one H100 SXM (dense): the denominators of bound_ms.
 HBM_BYTES_PER_S = 3.35e12
@@ -203,11 +211,11 @@ def bound(nbytes: float, ops: float, op_type: str) -> tuple[float, str]:
 
 def w8a16_key(rows: int, q4: bool = False) -> str:
     """The ``LAUNCHES`` key of the fused W8A16 wrapper's route at ``rows``
-    rows (``qmatmul.route``): the CUDA cores, the mma kernel or the tensor
+    rows (``qmatmul.route``): the row kernel, the mma kernel or the tensor
     cores."""
     from qwen3_rs_tpu_torch.ops.kernels.qmatmul import route
 
-    key = {"cores": "qmatmul_w8a16", "mma": "qmatmul_w8a16_mma", "tc": "qmatmul_w8a16_tc"}[route(rows)]
+    key = ROUTE_KEYS[route(rows)]
     return key + "_q4" if q4 else key
 
 
@@ -335,24 +343,25 @@ def qmatmul_cases(torch, ctx) -> list[dict]:
     return out
 
 
-CROSSOVER_ROWS = (1, 2, 3, 4, 8, 16)  # the three routes side by side
-ROUTE_ROWS = {8: tuple((r, rt) for r in CROSSOVER_ROWS for rt in ("cores", "mma", "tc"))
+CROSSOVER_ROWS = (1, 2, 3, 4, 8, 16)  # the routes side by side (the row kernel at 1 row)
+ROUTE_ROWS = {8: ((1, "row"),) + tuple((r, rt) for r in CROSSOVER_ROWS for rt in ("mma", "tc"))
                  + ((32, "tc"), (64, "tc"), (128, "tc"), (256, "tc")),
               4: ((8, "mma"), (16, "tc"), (256, "tc"))}
-ROUTE_KEYS = {"cores": "qmatmul_w8a16", "mma": "qmatmul_w8a16_mma", "tc": "qmatmul_w8a16_tc"}
-ROUTE_NAMES = {"cores": "CUDA cores", "mma": "mma.sync", "tc": "tensor cores, wgmma"}
+ROUTE_KEYS = {"row": "qmatmul_w8a16", "mma": "qmatmul_w8a16_mma", "tc": "qmatmul_w8a16_tc"}
+ROUTE_NAMES = {"row": "row kernel, mma.sync", "mma": "mma.sync", "tc": "tensor cores, wgmma"}
 
 
 def qmatmul_route_cases(torch, ctx) -> list[dict]:
     """#3 by route at windows of 1-256 rows over the four 8B projections, as
-    qwen3_forward calls them (prologue, residual, x dtype): the CUDA-core,
-    mma and tensor-core kernels side by side at 1, 2, 3, 4, 8 and 16 rows (the
-    measurement that sets ``qmatmul.MMA_MIN_ROWS`` and ``TC_MIN_ROWS``), the
+    qwen3_forward calls them (prologue, residual, x dtype): the mma and
+    tensor-core kernels side by side at 1, 2, 3, 4, 8 and 16 rows and the row
+    kernel at 1 (the measurement that sets ``qmatmul.MMA_MIN_ROWS`` and
+    ``TC_MIN_ROWS``), the
     tensor-core kernel at 32-256 rows; INT4 at 8, 16 and 256 rows.  Each
     route is forced by calling its launcher; ``route`` says which the
     wrapper takes."""
     from qwen3_rs_tpu_torch.ops.kernels.qmatmul import (
-        dequant_q4_stacked_plain, qmatmul_w8a16_cores, qmatmul_w8a16_mma, qmatmul_w8a16_plain, qmatmul_w8a16_tc,
+        dequant_q4_stacked_plain, qmatmul_w8a16_mma, qmatmul_w8a16_plain, qmatmul_w8a16_row, qmatmul_w8a16_tc,
         route,
     )
     from qwen3_rs_tpu_torch.ops.matmul import dequant_weights
@@ -365,7 +374,7 @@ def qmatmul_route_cases(torch, ctx) -> list[dict]:
     f32, bf16 = torch.float32, torch.bfloat16
     specs = [("wqkv+rms", dim, ah + 2 * kvd, "rms", False, bf16), ("wo+residual", ah, dim, None, True, f32),
              ("w13+rms", dim, 2 * hid, "rms", False, bf16), ("w2+swiglu+residual", hid, dim, "swiglu", True, f32)]
-    launchers = {"cores": qmatmul_w8a16_cores, "mma": qmatmul_w8a16_mma, "tc": qmatmul_w8a16_tc}
+    launchers = {"row": qmatmul_w8a16_row, "mma": qmatmul_w8a16_mma, "tc": qmatmul_w8a16_tc}
     gen = torch.Generator(device=DEV)
     gen.manual_seed(9090)
     out, crossover = [], {}
@@ -417,20 +426,20 @@ def qmatmul_route_cases(torch, ctx) -> list[dict]:
                 del x, kw, ref, got
             del w, dense, norm_w
             torch.cuda.empty_cache()
-    # The three routes over the four projections: the fastest at each row count.
+    # The routes over the four projections: the fastest at each row count.
     fastest = {r: min(t, key=t.get) for r, t in crossover.items()}
     ctx["crossover"] = {"ms_four_projections": crossover, "fastest": fastest}
     emit({"phase": "kernels", "crossover_ms_four_projections": crossover, "fastest_route_by_rows": fastest,
-          "mma_beats_cores_from_rows": min((r for r, t in crossover.items() if t["mma"] < t["cores"]), default=None),
           "tc_beats_mma_from_rows": min((r for r, t in crossover.items() if t["tc"] < t["mma"]), default=None)})
     return out
 
 
 def qmatmul_single_route_cases(torch, ctx) -> list[dict]:
     """#1 (the 8B classifier, 2-D weights) and #2 (``wo`` alone, no prologue
-    or residual) on the CUDA-core and mma kernels at 1 and 8 rows: with the
-    four projections' crossover, whether 1 row keeps the CUDA-core kernel."""
-    from qwen3_rs_tpu_torch.ops.kernels.qmatmul import qmatmul_w8a16_cores, qmatmul_w8a16_mma, qmatmul_w8a16_plain, route
+    or residual) on the row kernel at 1 row and the mma kernel at 1 and 8
+    rows: with the four projections' crossover, whether 1 row keeps the row
+    kernel."""
+    from qwen3_rs_tpu_torch.ops.kernels.qmatmul import qmatmul_w8a16_mma, qmatmul_w8a16_plain, qmatmul_w8a16_row, route
     from qwen3_rs_tpu_torch.ops.matmul import dequant_weights
     from qwen3_rs_tpu_torch.ops.quant import QuantizedTensor
     from qwen3_rs_tpu_torch.testing import padded_vocab, qwen3_config
@@ -439,7 +448,7 @@ def qmatmul_single_route_cases(torch, ctx) -> list[dict]:
     g = c.group_size
     gen = torch.Generator(device=DEV)
     gen.manual_seed(4321)
-    launchers = {"cores": qmatmul_w8a16_cores, "mma": qmatmul_w8a16_mma}
+    launchers = {"row": qmatmul_w8a16_row, "mma": qmatmul_w8a16_mma}
     out, one_row = [], {}
     for case, n, d, stacked in (("lm_head", c.dim, padded_vocab(c.vocab_size), False),
                                 ("wo stacked", c.all_heads_dim, c.dim, True)):
@@ -460,6 +469,8 @@ def qmatmul_single_route_cases(torch, ctx) -> list[dict]:
             nbytes = wbytes + x.numel() * x.element_size() + rows * d * 4
             b_ms, b_by = bound(nbytes, 2.0 * rows * n * d, "bf16")
             for rt, launch in launchers.items():
+                if rt == "row" and rows != 1:
+                    continue  # the row kernel takes one row
                 got = launch(x, w, layer(1))
                 torch.cuda.synchronize()
                 err, tol = float((got - ref).abs().max()), 1e-4 * float(ref.abs().max())
@@ -479,16 +490,30 @@ def qmatmul_single_route_cases(torch, ctx) -> list[dict]:
         del w, dense
         torch.cuda.empty_cache()
     four = ctx["crossover"]["ms_four_projections"][1]
-    emit({"phase": "kernels", "one_row_cores_vs_mma_ms": {**one_row, "four projections rows=1": four},
-          "mma_faster_at_1_row_everywhere": four["mma"] < four["cores"]
-          and all(t["mma"] < t["cores"] for k, t in one_row.items() if k.endswith("rows=1"))})
+    emit({"phase": "kernels", "one_row_routes_ms": {**one_row, "four projections rows=1": four},
+          "row_kernel_fastest_at_1_row_everywhere": four["row"] == min(four.values())
+          and all(t["row"] == min(t.values()) for k, t in one_row.items() if k.endswith("rows=1"))})
     return out
 
 
+def flash_source(hd: int, t_max: int, dtype) -> str:
+    """The source of the kernel ``flash_decode`` launches at this head_dim,
+    cache length and cache type."""
+    from qwen3_rs_tpu_torch.ops.kernels.flash_attention import one_launch_takes
+
+    return f"qwen3_rs_tpu_torch/csrc/{'paged_decode' if one_launch_takes(hd, t_max, dtype) else 'flash_decode'}.cu"
+
+
 def flash_cases(torch, ctx) -> list[dict]:
+    """#4 at the 8B layer (B=1, T=4096) over f32, bf16 and INT8 caches, the
+    wrapper's kernel (the one-launch kernel here) beside the two-pass
+    kernel it replaced on these shapes, and the one-launch kernel's phase
+    stamps."""
     import torch.nn.functional as F
 
-    from qwen3_rs_tpu_torch.ops.kernels.flash_attention import flash_decode, flash_decode_plain
+    from qwen3_rs_tpu_torch.ops.kernels.flash_attention import (
+        flash_decode, flash_decode_phases, flash_decode_plain, flash_decode_two_pass,
+    )
     from qwen3_rs_tpu_torch.testing import qwen3_config
 
     c = qwen3_config("8b")
@@ -527,11 +552,19 @@ def flash_cases(torch, ctx) -> list[dict]:
         if p == 0:  # only the self key: the output is v_self, exactly
             need(torch.equal(got, vn.repeat_interleave(kv_mul, dim=1)), "flash_decode pos=0 != v_self")
 
+        two = flash_decode_two_pass(q, kn, vn, k_all, v_all, pos, 1, **sc)
+        torch.cuda.synchronize()
+        parent_err = float((two - ref).abs().max())
+        need(math.isfinite(parent_err) and parent_err <= tol, f"flash_decode two-pass {cache} pos={p}: {parent_err}")
         ms = device_ms(torch, lambda i: flash_decode(q, kn, vn, k_all, v_all, pos, i % nl, **sc))
+        parent_ms = device_ms(torch, lambda i: flash_decode_two_pass(q, kn, vn, k_all, v_all, pos, i % nl, **sc))
         plain_ms = device_ms(
             torch, lambda i: flash_decode_plain(q, kn, vn, k_all, v_all, pos, i % nl, **sc),
             reps=10, warmup=1,
         )
+        if p and cache != "int8":  # an INT8 cache keeps the two-pass kernel
+            emit({"phase": "kernels", "flash_decode_phases_us": flash_decode_phases(q, kn, vn, k_all, v_all, pos, 1, **sc),
+                  "case": f"{cache} cache B=1 pos={p} T={t_max}"})
 
         # Library yardstick: SDPA over [self; rows < pos], K/V dequantized and
         # expanded to the query heads beforehand.
@@ -555,13 +588,15 @@ def flash_cases(torch, ctx) -> list[dict]:
         b_ms, b_by = bound(nbytes, 4.0 * h * (p + 1) * hd, "f32")
         out.append({
             "name": "flash_decode", "case": f"{cache} cache pos={p} T={t_max}", "route": "cuda",
-            "source": "qwen3_rs_tpu_torch/csrc/flash_decode.cu",
+            "source": flash_source(hd, t_max, k_all.dtype),
             "replaces": "qwen3_rs_tpu/ops/pallas/flash_attention.py:212 flash_gqa_decode_stacked",
             "shape": {"B": 1, "heads": h, "kv_heads": n_kv, "hd": hd, "T": t_max, "pos": p},
             "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": nbytes,
             "bound_ms_copy_bw": nbytes / (ctx["copy_gbps"] * 1e9) * 1e3,
             "library_ms": lib_ms, "library": "F.scaled_dot_product_attention, K/V prepared beforehand",
+            "parent_ms": parent_ms, "parent_max_abs_err": parent_err,
+            "parent": "the two-pass kernel (flash_decode_two_pass, csrc/flash_decode.cu), same inputs",
         })
         emit({"phase": "kernels", **out[-1]})
         del k_all, v_all, sc, ref, got
@@ -731,7 +766,7 @@ def _head_dim_cases(torch, ctx, hd: int, prefill_hds) -> list[dict]:
     lib_ms = device_ms(torch, lambda i: F.scaled_dot_product_attention(q[:, :, None], kk, vv, attn_mask=m))
     nbytes = 2 * n_kv * sum(pos_list) * hd * 2 + (2 * q.numel() + kn.numel() + vn.numel()) * 4 + b * 4
     b_ms, b_by = bound(nbytes, 4.0 * h * sum(p + 1 for p in pos_list) * hd, "f32")
-    out.append(_row(ctx, "flash_decode", f"head_dim {hd}, bf16 cache B={b} T={t}", "qwen3_rs_tpu_torch/csrc/flash_decode.cu",
+    out.append(_row(ctx, "flash_decode", f"head_dim {hd}, bf16 cache B={b} T={t}", flash_source(hd, t, torch.bfloat16),
                     "qwen3_rs_tpu/ops/pallas/flash_attention.py:212 flash_gqa_decode_stacked",
                     {"B": b, "heads": h, "kv_heads": n_kv, "hd": hd, "T": t, "pos": pos_list}, err, tol, ms, plain_ms,
                     nbytes, b_ms, b_by, lib_ms, "F.scaled_dot_product_attention, K/V prepared beforehand"))
@@ -1491,6 +1526,229 @@ def q4_megakernel_opt_in(on: bool = True):
             del os.environ["QWEN3_TPU_MEGA_Q4"]
         else:
             os.environ["QWEN3_TPU_MEGA_Q4"] = old
+
+
+def _kernel_ms(prof: dict) -> dict:
+    """A ``profile_calls`` result as device ms a call by kernel name (the
+    name up to its template arguments)."""
+    out: dict = {}
+    for t in prof.get("top", []):
+        name = t["kernel"].replace("(anonymous namespace)::", "").replace("void ", "")
+        name = name.split("<")[0].split("(")[0].split("::")[-1].strip()
+        out[name] = out.get(name, 0.0) + t["ms_per_step"]
+    return out
+
+
+def one_row_breakdown(torch, ctx) -> dict:
+    """#1-#3 at one activation row (INT8 and INT4, the four 8B projections as
+    qwen3_forward calls them, ``wo`` alone and the INT8 classifier) through
+    the wrapper's route and the mma kernel on the same inputs: each held to
+    the plain version, its CUDA-event time and its device time by kernel
+    (torch.profiler over 10 calls)."""
+    from qwen3_rs_tpu_torch.ops.kernels import qmatmul as qm
+    from qwen3_rs_tpu_torch.ops.quant import QuantizedTensor
+    from qwen3_rs_tpu_torch.testing import padded_vocab, qwen3_config
+
+    c = qwen3_config("8b")
+    g = c.group_size
+    ah, kvd, dim, hid = c.all_heads_dim, c.kv_dim, c.dim, c.hidden_dim
+    f32, bf16 = torch.float32, torch.bfloat16
+    specs = [("wqkv+rms", dim, ah + 2 * kvd, "rms", False, bf16), ("wo+residual", ah, dim, None, True, f32),
+             ("w13+rms", dim, 2 * hid, "rms", False, bf16), ("w2+swiglu+residual", hid, dim, "swiglu", True, f32),
+             ("wo stacked", ah, dim, None, False, f32), ("lm_head", dim, padded_vocab(c.vocab_size), None, False, bf16)]
+    launchers = {"wrapper": qm.qmatmul_w8a16, "mma": qm.qmatmul_w8a16_mma}
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(1313)
+    out: dict = {}
+    for bits in (8, 4):
+        for proj, n, d, prologue, has_res, xdt in specs:
+            if bits == 4 and proj == "lm_head":
+                continue  # the INT4 checkpoints keep an INT8 classifier
+            wbytes = _q4_bytes(n, d, g) if bits == 4 else n * d + (n // g) * d * 2
+            stacked = proj != "lm_head"
+            nl = _layers_for(wbytes) if stacked else 1
+            if bits == 4:
+                w = _q4_stacked(torch, gen, nl, n, d, g, bf16)
+            else:
+                shape = (nl, n, d) if stacked else (n, d)
+                w = QuantizedTensor(torch.randint(-127, 128, shape, generator=gen, device=DEV, dtype=torch.int8),
+                                    (torch.rand((*shape[:-2], n // g, d), generator=gen, device=DEV) * 0.02).to(bf16))
+            layer = (lambda i: i % nl) if stacked else (lambda i: None)
+            x = torch.randn(1, 2 * n if prologue == "swiglu" else n, generator=gen, device=DEV).to(xdt)
+            kw = {"norm_w": 1.0 + 0.02 * torch.randn(nl, n, generator=gen, device=DEV) if prologue == "rms" else None,
+                  "swiglu": prologue == "swiglu",
+                  "residual": torch.randn(1, d, generator=gen, device=DEV).to(bf16) if has_res else None}
+            ref = qm.qmatmul_w8a16_plain(x, w, layer(1), **kw)
+            tol = (2e-3 if prologue else 1e-4) * float(ref.abs().max())
+            case = {}
+            for rt, launch in launchers.items():
+                got = launch(x, w, layer(1), **kw)
+                torch.cuda.synchronize()
+                err = float((got - ref).abs().max())
+                need(math.isfinite(err) and err <= tol, f"one row {rt} {proj} bits={bits}: {err} > {tol}")
+                prof = profile_calls(torch, lambda i: launch(x, w, layer(i), **kw), 10)
+                case[rt] = {"ms": device_ms(torch, lambda i: launch(x, w, layer(i), **kw)), "max_abs_err": err,
+                            "device_ms_by_kernel": _kernel_ms(prof),
+                            "device_ops_per_call": prof.get("device_ops_per_step")}
+            out[f"{proj} bits={bits}"] = case
+            emit({"phase": "decode", "one_row": f"{proj} bits={bits}", "tol": tol, "N": n, "D": d, **case})
+            del w, x, kw, ref
+            torch.cuda.empty_cache()
+    for bits in (8, 4):
+        four = {rt: sum(out[f"{p} bits={bits}"][rt]["ms"] for p, *_ in specs[:4]) for rt in launchers}
+        out[f"four projections bits={bits}"] = four
+        emit({"phase": "decode", "one_row_four_projections_ms": four, "bits": bits})
+    return out
+
+
+def dense_decode_breakdown(torch, ctx) -> dict:
+    """#4 at B=1 over the 8B dense layer (T = 4096, 32/8 heads, head_dim 128)
+    on the same inputs through ``flash_decode`` (the wrapper's route) and
+    ``paged_decode`` over the layer viewed as B pages of T rows with the
+    table ``arange(B)[:, None]``, each held to ``flash_decode_plain`` (its
+    error recorded against 1e-5) and timed, with the latter's phase stamps."""
+    from qwen3_rs_tpu_torch.ops.kernels import flash_attention as fa
+    from qwen3_rs_tpu_torch.ops.kernels.paged_attention import paged_decode, paged_decode_phases
+    from qwen3_rs_tpu_torch.testing import qwen3_config
+
+    c = qwen3_config("8b")
+    t_max, n_kv, h, hd = 4096, c.n_kv_heads, c.n_heads, c.head_dim
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(4444)
+    out = {}
+    for cache, p in (("f32", 0), ("f32", 257), ("f32", t_max - 1), ("bf16", 2049), ("int8", 2049)):
+        esz = {"f32": 4, "bf16": 2, "int8": 1}[cache]
+        nl = _layers_for(2 * n_kv * t_max * hd * esz)
+        k_all, v_all, sc = _dense_cache(torch, gen, cache, (nl, 1, n_kv, t_max, hd))
+        scp = {"k_scale_pool": sc["k_scale_all"], "v_scale_pool": sc["v_scale_all"]} if sc else {}
+        q = torch.randn(1, h, hd, generator=gen, device=DEV)
+        kn, vn = (torch.randn(1, n_kv, hd, generator=gen, device=DEV) for _ in range(2))
+        pos = torch.tensor([p], dtype=torch.int32, device=DEV)
+        table = torch.zeros(1, 1, dtype=torch.int32, device=DEV)
+        ref = fa.flash_decode_plain(q, kn, vn, k_all, v_all, pos, 1, **sc)
+        routes = {"flash_decode": lambda i: fa.flash_decode(q, kn, vn, k_all, v_all, pos, i % nl, **sc),
+                  "paged_decode_dense": lambda i: paged_decode(q, kn, vn, k_all, v_all, table, pos, i % nl, **scp)}
+        case = {}
+        for rt, fn in routes.items():
+            got = fn(1)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            need(math.isfinite(err), f"#4 {rt} {cache} pos={p}: not finite")
+            prof = profile_calls(torch, fn, 10)
+            case[rt] = {"ms": device_ms(torch, fn), "max_abs_err": err, "within_1e-5": err <= 1e-5,
+                        "device_ms_by_kernel": _kernel_ms(prof), "device_ops_per_call": prof.get("device_ops_per_step")}
+        case["paged_decode_dense_phases_us"] = (
+            paged_decode_phases(q, kn, vn, k_all, v_all, table, pos, 1, **scp) if p else None)
+        out[f"{cache} pos={p}"] = case
+        emit({"phase": "decode", "dense_decode": f"{cache} cache pos={p} T={t_max}", **case})
+        del k_all, v_all, sc, scp, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def _dense_cache(torch, gen, cache, shape):
+    """A dense cache [L, B, n_kv, T, hd] of random rows and its scales
+    (INT8: codes and row scales; f32 and bf16: no scales)."""
+    if cache == "int8":
+        k, v = (torch.randint(-127, 128, shape, generator=gen, device=DEV, dtype=torch.int8) for _ in range(2))
+        return k, v, {n_: torch.rand(shape[:-1], generator=gen, device=DEV) * 0.02 + 0.005
+                      for n_ in ("k_scale_all", "v_scale_all")}
+    dt = torch.float32 if cache == "f32" else torch.bfloat16
+    return (*(torch.randn(shape, generator=gen, device=DEV).to(dt) for _ in range(2)), {})
+
+
+def one_launch_error_grid(torch, ctx) -> dict:
+    """The one-launch decode kernel's largest error against
+    ``flash_decode_plain`` over the card tests' grids of #4 (T = 208 at
+    kv_mul 1-16 and pos 0/1/127/128/129/T; T = 512, kv_mul 4, head_dim
+    128/256, B = 1 and 3), each cache type on the same inputs as its test
+    (the tests' seeds and order of draws; INT8 caches, which ``flash_decode``
+    keeps on the two-pass kernel, through ``paged_decode`` on the dense layer
+    viewed as pages), and the error of ``flash_decode`` (the wrapper's route)
+    on the same inputs."""
+    from qwen3_rs_tpu_torch.ops.kernels import flash_attention as fa
+    from qwen3_rs_tpu_torch.ops.kernels.paged_attention import paged_decode
+
+    def gen_of(seed):
+        g = torch.Generator(device=DEV)
+        g.manual_seed(seed)
+        return g
+
+    def errors(q, kn, vn, k_all, v_all, sc, pos):
+        b = q.shape[0]
+        table = torch.arange(b, dtype=torch.int32, device=DEV)[:, None]
+        scp = {"k_scale_pool": sc["k_scale_all"], "v_scale_pool": sc["v_scale_all"]} if sc else {}
+        ref = fa.flash_decode_plain(q, kn, vn, k_all, v_all, pos, 1, **sc)
+        one = paged_decode(q, kn, vn, k_all, v_all, table, pos, 1, **scp)
+        wrapped = fa.flash_decode(q, kn, vn, k_all, v_all, pos, 1, **sc)
+        torch.cuda.synchronize()
+        return float((one - ref).abs().max()), float((wrapped - ref).abs().max()), float(ref.abs().max())
+
+    worst: dict = {}
+
+    def keep(cache, case, e1, e2, scale):
+        w = worst.setdefault(cache, {"one_launch": 0.0, "flash_decode": 0.0, "case": None, "max_abs_ref": 0.0})
+        if e1 > w["one_launch"]:
+            w.update(one_launch=e1, case=case)
+        w["flash_decode"], w["max_abs_ref"] = max(w["flash_decode"], e2), max(w["max_abs_ref"], scale)
+
+    for cache in ("f32", "bf16", "int8"):
+        for kv_mul in (1, 2, 3, 4, 5, 6, 8, 16):  # test_flash_decode_one_launch_matches_plain
+            t, n_kv, hd = 208, 2, 128
+            gen = gen_of(kv_mul * 3 + len(cache) + t)
+            pos_list = [0, 1, 127, 128, 129, t]
+            b = len(pos_list)
+            k_all, v_all, sc = _dense_cache(torch, gen, cache, (2, b, n_kv, t, hd))
+            q = torch.randn(b, n_kv * kv_mul, hd, generator=gen, device=DEV)
+            kn, vn = (torch.randn(b, n_kv, hd, generator=gen, device=DEV) for _ in range(2))
+            pos = torch.tensor(pos_list, dtype=torch.int32, device=DEV)
+            keep(cache, f"T={t} kv_mul={kv_mul}", *errors(q, kn, vn, k_all, v_all, sc, pos))
+        for hd in (128, 256):  # test_flash_decode_is_one_launch_where_it_takes_the_split_kernel
+            gen = gen_of(hd + len(cache))
+            t, n_kv, kv_mul = 512, 2, 4
+            for pos_list in ([t - 1], [0, 1, 127], [128, 129, t]):
+                b = len(pos_list)
+                k_all, v_all, sc = _dense_cache(torch, gen, cache, (2, b, n_kv, t, hd))
+                q = torch.randn(b, n_kv * kv_mul, hd, generator=gen, device=DEV)
+                kn, vn = torch.randn(2, b, n_kv, hd, generator=gen, device=DEV)
+                pos = torch.tensor(pos_list, dtype=torch.int32, device=DEV)
+                keep(cache, f"T={t} hd={hd} pos={pos_list}", *errors(q, kn, vn, k_all, v_all, sc, pos))
+    emit({"phase": "decode", "one_launch_error_grid": worst, "tol": 1e-5})
+    return worst
+
+
+def decode_step_profiles(torch, ctx) -> dict:
+    """Device time of one b=1 decode step on the per-layer kernels at 8B full
+    depth, as the e2e phase profiles it: INT8 with the megakernel gate
+    patched off, and INT4 on the JAX default route (no megakernel)."""
+    from qwen3_rs_tpu_torch import Engine
+    from qwen3_rs_tpu_torch.testing import qwen3_config, random_weights
+
+    cfg = qwen3_config("8b", seq_len=4096)
+    prompt_ids = [(7 * i + 3) % 1000 + 10 for i in range(200)]
+    out = {}
+    for bits in (8, 4):
+        weights = random_weights(cfg, seed=SEED, device=DEV, bits=bits)
+        engine = Engine(config=cfg, weights=weights, device=DEV)
+        with megakernel_gate_off():
+            out[f"int{bits}_per_layer"] = profile_decode(torch, engine, prompt_ids, steps=8)
+        emit({"phase": "decode", "step_profile": f"INT{bits} b=1 per layer (megakernel gate off)",
+              **out[f"int{bits}_per_layer"]})
+        del engine, weights
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_decode(torch, ctx) -> None:
+    """The b=1 per-layer decode's kernels alone (``--phases build,decode``),
+    through entry points that every tree of the port has, so that this file,
+    copied into an older checkout, times that checkout's kernels in the same
+    call: #1-#3 at one row and #4 at B=1, #9's kernel-table cases, the
+    one-launch decode kernel's error over the card tests' grids, and the
+    per-layer steps' device time."""
+    ctx["decode"] = {"one_row": one_row_breakdown(torch, ctx), "dense_decode": dense_decode_breakdown(torch, ctx),
+                     "paged_decode": paged_decode_cases(torch, ctx), "error_grid": one_launch_error_grid(torch, ctx),
+                     "step_profiles": decode_step_profiles(torch, ctx)}
 
 
 def phase_kernels(torch, ctx) -> None:
@@ -3832,7 +4090,7 @@ def main(argv=None) -> int:
                 phase_probes(torch, ctx)
             else:
                 {"e2e": phase_e2e, "serve": phase_serve, "cli": phase_cli, "tp": phase_tp,
-                 "parity": phase_parity, "exact": phase_exact}[name](torch, ctx)
+                 "parity": phase_parity, "exact": phase_exact, "decode": phase_decode}[name](torch, ctx)
             emit({"phase": name, "done": True, "seconds": time.perf_counter() - t0})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3848,7 +4106,7 @@ def main(argv=None) -> int:
         need(not idle, f"no path launched {idle}")
     rows = [dict(r, launches=launches[r["name"]]) for r in ctx.get("kernel_rows", [])]
     emit({"kernels": rows, "e2e": ctx.get("e2e"), "serve": ctx.get("serve"), "tp": ctx.get("tp"),
-          "probes": ctx.get("probes"),
+          "probes": ctx.get("probes"), "decode": ctx.get("decode"),
           "total_seconds": time.perf_counter() - t_all})
     print(ctx.get("smi") or subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

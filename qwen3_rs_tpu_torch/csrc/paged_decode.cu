@@ -25,7 +25,9 @@
 //    boxes of a (page, kv head) slab (the slab is contiguous; a box is 16 rows by one 128-byte band
 //    of the row, with the 128-byte swizzle, so that the compute reads it free of bank conflicts), up
 //    to 64 rows a stage, never past the page; INT8 pools copy their row scales the same way.  The
-//    producer reads the block's page ids once, 32 at a time, one per lane;
+//    producer reads the block's page ids once, 32 at a time, one per lane; without a table (a dense
+//    layer [B, n_kv, T, hd] viewed as B pages of T rows, the flash_decode wrapper's call) request
+//    b's page is b and nothing is read before the first copy;
 //  * no shuffle per score: the stage compute follows the pool's type:
 //      - bf16 and INT8 pools (kMma): the kv head's query heads against the stage on the tensor cores
 //        (mma.sync m16n8k16, cache rows on the 16-row side, the heads padded to 8): q and P are split
@@ -33,12 +35,17 @@
 //        swizzled stage (INT8 codes converted to bf16 in registers, exactly; their scales go on in
 //        f32).  On the card it beat one cache row a lane on the CUDA cores at B = 8 on a bf16 pool,
 //        so the CUDA cores are not built for these pools;
-//      - f32 pools (kCores), whose K and V are not exact in bf16: one cache row a lane on the CUDA
-//        cores, q broadcast from shared memory; then the lanes take the columns for P.V, the
-//        probabilities broadcast from the warp's shared scratch.
+//      - f32 pools (kCores), whose K and V are not exact in bf16: on the CUDA cores, 16 rows a warp,
+//        a row on two lanes (each half the head_dim, one shuffle to sum them: twice the warps of a
+//        row a lane, so a short split's one stage does not rest on one warp), q broadcast from
+//        shared memory; then the lanes take the columns for P.V, the probabilities broadcast from
+//        the warp's shared scratch.
 //    Each consumer warp keeps an online softmax over its rows of every stage; one shuffle reduction
 //    per head and stage, not per score; the warps merge at the end of the split.  The last block's
-//    merge loads 16 splits' partials at once (none depends on the merge so far).
+//    merge loads 16 splits' partials at once, unconditionally (the last run's spare slots reload the
+//    last split and weigh 0), and rescales its sums once a run, so that each split's weight is an exp
+//    of its own (merged one by one, each exp waited on the one before; a loop's remainder issued
+//    the last run's loads one by one, and loads behind a condition each ran slower on the card).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,6 +58,7 @@ constexpr int kBox = 16;           // rows of one TMA box
 constexpr int kBandBytes = 128;    // bytes of one band of a row (the 128-byte swizzle's line)
 constexpr int kMaxStages = 4;
 constexpr int kHeadsMma = 8;       // the mma route's head tile (the n side of m16n8k16)
+constexpr int kCoreRows = 16;      // rows of a stage a consumer warp takes on the CUDA cores
 
 enum Route { kCores = 0, kMma = 1 };
 
@@ -108,7 +116,7 @@ struct Shape {
   static constexpr int kKvBytes = kBands * kT * kBandBytes;  // K (or V) of one stage
   static constexpr int kStageBytes = ((2 * kKvBytes + (kQuant ? 2 * kT * 4 : 0)) + 1023) / 1024 * 1024;
   static constexpr int kStages = kStageBytes <= 16384 ? 4 : kStageBytes <= 32768 ? 3 : 2;
-  static constexpr int kWarps = R == kMma ? kT / 16 : kT / 32;  // consumer warps
+  static constexpr int kWarps = kT / 16;  // consumer warps: 16 rows each
   static constexpr int kThreads = (kWarps + 1) * 32;
 };
 
@@ -253,18 +261,21 @@ template <typename T, int HD, int R>
 __device__ void produce(const Args& a, const Unit& u, uint8_t* ring, uint32_t bars) {
   using S = Shape<T, HD, R>;
   const int lane = threadIdx.x & 31;
-  const int* tab = a.table + (long)u.b * a.max_pages;
+  const int* tab = a.table + (a.table != nullptr ? (long)u.b * a.max_pages : 0L);
   const int p0 = u.lo / a.page;
   int id_base = -32, id = 0, stage = 0;
   uint32_t phase = 0;
   for (int t = u.lo; t < u.hi;) {
     const int n = stage_rows<S::kT>(a, u, t);
     const int pg = t / a.page - p0, r0 = t % a.page;
-    if (pg >= id_base + 32) {  // the next 32 page ids, one a lane
-      id_base = pg / 32 * 32;
-      id = p0 + id_base + lane < a.max_pages ? __ldg(tab + p0 + id_base + lane) : 0;
+    int slab = u.b * a.n_kv + u.h;  // a dense layer (no table): request b's rows are page b
+    if (a.table != nullptr) {
+      if (pg >= id_base + 32) {  // the next 32 page ids, one a lane
+        id_base = pg / 32 * 32;
+        id = p0 + id_base + lane < a.max_pages ? __ldg(tab + p0 + id_base + lane) : 0;
+      }
+      slab = __shfl_sync(0xffffffffu, id, pg - id_base) * a.n_kv + u.h;
     }
-    const int slab = __shfl_sync(0xffffffffu, id, pg - id_base) * a.n_kv + u.h;
     const int nbox = (n + kBox - 1) / kBox, srows = (n + 3) & ~3;
     mbar_wait(bars + 8 * (kMaxStages + stage), phase ^ 1u);
     const uint32_t full = bars + 8 * stage;
@@ -315,24 +326,29 @@ struct Soft {
   float m[QM], l[QM], acc[QM][NACC];
 };
 
-// One stage on the CUDA cores (f32 pools): lane = row 32 w + lane for the scores, then lane = columns
-// [lane * HD / 32, ...) for P.V.  qs: the scaled q [QM][HD] f32; pw: the warp's scratch [32][QM].
+// One stage on the CUDA cores (f32 pools): warp w takes rows [16 w, 16 w + 16).  For the scores lane
+// l holds row 16 w + l % 16 and half l / 16 of its head_dim (the halves summed by one shuffle), so a
+// stage's rows spread over twice the warps that one row a lane would need; then lane = columns
+// [lane * HD / 32, ...) for P.V over the warp's rows.  qs: the scaled q [QM][HD] f32; pw: the warp's
+// scratch [16][QM] of probabilities.
 template <typename T, int HD, int QM>
 __device__ __forceinline__ void stage_cores(const uint8_t* st, int n, int w, const float* qs, float* pw,
                                             Soft<QM, HD / 32>& sm) {
   using S = Shape<T, HD, kCores>;
   constexpr int E = 16 / sizeof(T);  // elements a chunk
   constexpr int C = HD / 32;         // columns a lane in P.V
-  const int lane = threadIdx.x & 31, r0 = 32 * w, i = r0 + lane;
-  const int rows = min(32, n - r0);
+  constexpr int HB = S::kBands / 2;  // bands of half a row
+  const int lane = threadIdx.x & 31, r0 = kCoreRows * w, i = r0 + (lane & 15), half = lane >> 4;
+  const int rows = min(kCoreRows, n - r0);
   if (rows <= 0) return;
-  const bool valid = lane < rows;
+  const bool valid = (lane & 15) < rows;
   float s[QM];
 #pragma unroll
   for (int m = 0; m < QM; ++m) s[m] = 0.f;
   if (valid) {
 #pragma unroll
-    for (int band = 0; band < S::kBands; ++band) {
+    for (int hb = 0; hb < HB; ++hb) {
+      const int band = half * HB + hb;
       const uint8_t* kr = st + band * S::kT * kBandBytes;
 #pragma unroll
       for (int c = 0; c < kBandBytes / 16; ++c) {
@@ -352,6 +368,8 @@ __device__ __forceinline__ void stage_cores(const uint8_t* st, int n, int w, con
       }
     }
   }
+#pragma unroll
+  for (int m = 0; m < QM; ++m) s[m] += __shfl_xor_sync(0xffffffffu, s[m], 16);  // both halves: the row's dot
   float ksc = 1.f, vsc = 1.f;
   if (S::kQuant && valid) {
     const float* sc = reinterpret_cast<const float*>(st + 2 * S::kKvBytes);
@@ -364,13 +382,13 @@ __device__ __forceinline__ void stage_cores(const uint8_t* st, int n, int w, con
     const float sv = valid ? s[m] * ksc : -INFINITY;
     float mx = sv;
 #pragma unroll
-    for (int o = 16; o; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    for (int o = 8; o; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
     const float m_new = fmaxf(sm.m[m], mx);  // finite: row r0 is valid
     corr[m] = expf(sm.m[m] - m_new);
     const float p = valid ? expf(sv - m_new) : 0.f;
-    sm.l[m] = sm.l[m] * corr[m] + p;
+    sm.l[m] = sm.l[m] * corr[m] + (half == 0 ? p : 0.f);  // each row once: the lanes of half 0
     sm.m[m] = m_new;
-    pw[lane * QM + m] = p * vsc;
+    if (half == 0) pw[(lane & 15) * QM + m] = p * vsc;
   }
   __syncwarp();
 #pragma unroll
@@ -602,7 +620,7 @@ struct Smem {
   static constexpr int kSelf = kFlag + 4;  // the self key's scores [QH]
   static constexpr int kQ = (kSelf + QH * 4 + 15) / 16 * 16;
   static constexpr int kScratch = kQ + QH * HD * 4;
-  static constexpr int kRing = kScratch + (R == kCores ? S::kWarps * 32 * QM * 4 : 0);
+  static constexpr int kRing = kScratch + (R == kCores ? S::kWarps * kCoreRows * QM * 4 : 0);
   static constexpr int kBytes = kRing + 1024 + S::kStages * S::kStageBytes;  // the ring 1024-aligned at run time
   static constexpr int kMergeBytes = S::kWarps * QH * (HD + 2) * 4;
   static_assert(kMergeBytes <= S::kStages * S::kStageBytes, "the warps' merge fits the ring");
@@ -680,7 +698,7 @@ paged_decode_kernel(const __grid_constant__ Args a) {
 #pragma unroll
       for (int j = 0; j < HD / 32; ++j) sm.acc[m][j] = 0.f;
     }
-    float* pw = reinterpret_cast<float*>(smem + L::kScratch) + warp * 32 * QM;
+    float* pw = reinterpret_cast<float*>(smem + L::kScratch) + warp * kCoreRows * QM;
     for (int t = u.lo; t < u.hi;) {
       const int n = stage_rows<S::kT>(a, u, t);
       mbar_wait(bars + 8 * stage, phase);
@@ -810,27 +828,40 @@ paged_decode_kernel(const __grid_constant__ Args a) {
   }
 
   // The last block: the splits merged in split order into the self key's seed (m = q.k_self,
-  // l = 1, acc = v_self), normalised; each thread 4 columns of a head, the loads of 16 splits in
-  // flight at once (none depends on the merge so far).
+  // l = 1, acc = v_self), normalised; each thread 4 columns of a head.  Runs of 16 splits: a run's
+  // loads all go out at once, unconditionally (a slot past the last split reloads the last one; a
+  // load behind a condition waited for its data where the branches joined), then the run's largest
+  // m, one rescale of the sums to it, and each split's weight exp(m_s - max), independent of the
+  // others, added in split order; a slot past the last split weighs 0.
   const int ns = u.n_s;
   const float* vn = a.v_new + ((long)u.b * a.n_kv + u.h) * HD;
   for (int k = tid; k < qm * HD / 4; k += NT) {
     const int m = k / (HD / 4), col = k % (HD / 4) * 4;
     float mcur = sself[m], l = 1.f;
     float4 acc = __ldg(reinterpret_cast<const float4*>(vn + col));
-#pragma unroll 16
-    for (int s = 0; s < ns; ++s) {
-      const long sl = (u.slot + s) * qm + m;
-      const float2 ml = __ldcg(reinterpret_cast<const float2*>(a.ws_ml + sl * 2));
-      const float4 p4 = __ldcg(reinterpret_cast<const float4*>(a.ws_acc + sl * HD + col));
-      const float m_new = fmaxf(mcur, ml.x);
-      const float ca = expf(mcur - m_new), cj = expf(ml.x - m_new);
-      l = l * ca + ml.y * cj;
-      acc.x = acc.x * ca + p4.x * cj;
-      acc.y = acc.y * ca + p4.y * cj;
-      acc.z = acc.z * ca + p4.z * cj;
-      acc.w = acc.w * ca + p4.w * cj;
-      mcur = m_new;
+    for (int s0 = 0; s0 < ns; s0 += 16) {
+      float2 ml[16];
+      float4 p4[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const long sl = (u.slot + min(s0 + j, ns - 1)) * qm + m;
+        ml[j] = __ldcg(reinterpret_cast<const float2*>(a.ws_ml + sl * 2));
+        p4[j] = __ldcg(reinterpret_cast<const float4*>(a.ws_acc + sl * HD + col));
+      }
+      float mx = mcur;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) mx = fmaxf(mx, s0 + j < ns ? ml[j].x : -INFINITY);
+      const float r = expf(mcur - mx);
+      l *= r;
+      acc = make_float4(acc.x * r, acc.y * r, acc.z * r, acc.w * r);
+      mcur = mx;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float c = s0 + j < ns ? expf(ml[j].x - mx) : 0.f;
+        l = fmaf(ml[j].y, c, l);
+        acc = make_float4(fmaf(p4[j].x, c, acc.x), fmaf(p4[j].y, c, acc.y), fmaf(p4[j].z, c, acc.z),
+                          fmaf(p4[j].w, c, acc.w));
+      }
     }
     *reinterpret_cast<float4*>(a.out + (qrow0 + m) * HD + col) =
         make_float4(acc.x / l, acc.y / l, acc.z / l, acc.w / l);
@@ -956,7 +987,8 @@ extern "C" int paged_decode_blocks_per_sm(int cache_type, int hd, int qm) {
 
 // One launch of `grid` blocks (at least B * n_kv * kv_mul / qm).  q [B, n_kv * kv_mul, hd] f32
 // (unscaled), k_new/v_new [B, n_kv, hd] f32, k/v the layer's pool [P, n_kv, page, hd] with
-// ks/vs [P, n_kv, page] f32 (int8) or null, table [B, max_pages] and pos [B] int32; ws_ml
+// ks/vs [P, n_kv, page] f32 (int8) or null, table [B, max_pages] int32 (or null: page b is request
+// b's, max_pages 1) and pos [B] int32; ws_ml
 // [grid, qm, 2] and ws_acc [grid, qm, hd] f32 scratch; counters [B * n_kv * kv_mul / qm] int32,
 // zero (left zero); out like q; stamps [grid, 8] int64 or null.  page must be a multiple of 16.  Returns a cudaError_t, or a
 // tensor map's negated CUresult minus one.

@@ -1,5 +1,5 @@
-// Weight dequantization and the tile dot product shared by the W8A16 kernels
-// (csrc/qmatmul_w8a16.cu) and the decode megakernel (csrc/decode_megakernel.cu): int8 codes,
+// Weight dequantization and the tile dot product on the CUDA cores, of the launch-boundary
+// probe's one-call kernel (csrc/boundary_probe.cu): int8 codes,
 // or INT4 codes nibble-packed group split-half along the in axis (byte row k*g/2 + j of group k
 // holds in-row k*g + j in its low nibble and in-row k*g + g/2 + j in its high nibble, each
 // stored as code + 8).

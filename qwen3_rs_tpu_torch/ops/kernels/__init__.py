@@ -11,6 +11,7 @@ say which head_dims their kernels take (``takes_head_dim``).
 from __future__ import annotations
 
 LAUNCHES: dict[str, int] = {
+    # The fused kernel's route at one row (``qmatmul.qmatmul_w8a16_row``).
     "qmatmul_w8a16": 0,
     "qmatmul_w8a16_q4": 0,
     # The fused kernel's mma route (``qmatmul.MMA_MIN_ROWS`` to ``TC_MIN_ROWS - 1`` rows).

@@ -18,7 +18,9 @@ probability.
   outside its kernel.
 
 At head_dim 128 and 256 over pages of a multiple of 16 rows, ``paged_decode``
-is one launch of ``csrc/paged_decode.cu`` (``SPLIT_HEAD_DIMS``): a grid that
+(and ``flash_decode`` over the dense cache, a layer viewed as one page a
+request: ``one_launch`` without a table) is one launch of
+``csrc/paged_decode.cu`` (``SPLIT_HEAD_DIMS``): a grid that
 fills the card, split over the live rows on the device (``decode_units`` is
 the plan in Python; ``paged_decode_kernel_plan`` reads the kernel's own),
 whole pages brought by TMA, the splits merged by the last block of each
@@ -376,7 +378,7 @@ def paged_decode(
     out = torch.empty(b, n_heads, hd, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if split_kernel_takes(hd, page):
-        _split_launch(qf, kn, vn, k_pool, (k, v, ks, vs), page_table, pos, kv_mul, out, None)
+        one_launch(qf, kn, vn, k_pool, (k, v, ks, vs), page_table, pos, kv_mul, out, None)
         return out
     n_chunks = -(-max_pages * page // CHUNK)
     slots = b * n_kv * n_chunks * kv_mul
@@ -393,14 +395,16 @@ def paged_decode(
     return out
 
 
-def _split_launch(qf, kn, vn, k_pool, ptrs, page_table, pos, kv_mul, out, stamps) -> int:
+def one_launch(qf, kn, vn, k_pool, ptrs, page_table, pos, kv_mul, out, stamps, key="paged_decode") -> int:
     """One launch of the one-launch decode kernel (checked inputs: q, k_new,
     v_new f32 contiguous; ptrs the layer's pool and scale pointers) into
-    ``out``; ``stamps`` an int64 tensor of ``[grid, 8]`` or None.  Returns
-    the grid."""
+    ``out``, counted under ``LAUNCHES[key]``; ``page_table`` None for a
+    dense layer ``[B, n_kv, T, hd]`` viewed as B pages of T rows (request b's
+    page is b); ``stamps`` an int64 tensor of ``[grid, 8]`` or None.
+    Returns the grid."""
     k, v, ks, vs = ptrs
     b, n_kv, hd = kn.shape
-    page, max_pages = k_pool.shape[3], page_table.shape[1]
+    page, max_pages = k_pool.shape[3], 1 if page_table is None else page_table.shape[1]
     qm = decode_qm(kv_mul)
     grid = split_grid(qf.device, k_pool.dtype, hd, b, n_kv, kv_mul)
     if stamps is not None and stamps.shape != (grid, 8):
@@ -409,14 +413,25 @@ def _split_launch(qf, kn, vn, k_pool, ptrs, page_table, pos, kv_mul, out, stamps
     ws = torch.empty(n_acc + n_ml, dtype=torch.float32, device=qf.device)  # acc first: 16-byte rows
     counters = _decode_counters(qf.device, b * n_kv * (kv_mul // qm))
     err = _split_lib().paged_decode_split(
-        qf.data_ptr(), kn.data_ptr(), vn.data_ptr(), k, v, ks, vs, page_table.data_ptr(), pos.data_ptr(),
+        qf.data_ptr(), kn.data_ptr(), vn.data_ptr(), k, v, ks, vs,
+        None if page_table is None else page_table.data_ptr(), pos.data_ptr(),
         _CACHE_TYPES[k_pool.dtype], b, n_kv, kv_mul, qm, k_pool.shape[1], page, max_pages, hd, 1.0 / hd**0.5,
         grid, ws.data_ptr() + n_acc * 4, ws.data_ptr(), counters.data_ptr(), out.data_ptr(),
         None if stamps is None else stamps.data_ptr(), torch.cuda.current_stream(qf.device).cuda_stream,
     )
-    build.check(err, "paged_decode")
-    LAUNCHES["paged_decode"] += 1
+    build.check(err, key)
+    LAUNCHES[key] += 1
     return grid
+
+
+def launch_phases(qf, kn, vn, k_pool, ptrs, page_table, pos, kv_mul) -> dict:
+    """``paged_decode_phases``' breakdown of one launch on checked inputs
+    (``one_launch``'s arguments), after one launch unstamped."""
+    out = torch.empty(qf.shape, dtype=torch.float32, device=qf.device)
+    grid = one_launch(qf, kn, vn, k_pool, ptrs, page_table, pos, kv_mul, out, None)
+    stamps = torch.zeros(grid, 8, dtype=torch.int64, device=qf.device)
+    one_launch(qf, kn, vn, k_pool, ptrs, page_table, pos, kv_mul, out, stamps)
+    return stamp_phases(stamps.cpu().tolist())
 
 
 def paged_decode_phases(q, k_new, v_new, k_pool, v_pool, page_table, pos, layer, *,
@@ -432,14 +447,8 @@ def paged_decode_phases(q, k_new, v_new, k_pool, v_pool, page_table, pos, layer,
         "paged_decode_phases", q, k_pool, v_pool, page_table, pos, layer, k_scale_pool, v_scale_pool)
     if not split_kernel_takes(q.shape[-1], page):
         raise ValueError("paged_decode_phases: the pool takes the two-pass kernels")
-    b, n_heads, hd = q.shape
-    out = torch.empty(b, n_heads, hd, dtype=torch.float32, device=q.device)
-    grid = _split_launch(q.float().contiguous(), k_new.float().contiguous(), v_new.float().contiguous(), k_pool,
-                         (k, v, ks, vs), page_table, pos, n_heads // n_kv, out, None)
-    stamps = torch.zeros(grid, 8, dtype=torch.int64, device=q.device)
-    _split_launch(q.float().contiguous(), k_new.float().contiguous(), v_new.float().contiguous(), k_pool,
-                  (k, v, ks, vs), page_table, pos, n_heads // n_kv, out, stamps)
-    return stamp_phases(stamps.cpu().tolist())
+    return launch_phases(q.float().contiguous(), k_new.float().contiguous(), v_new.float().contiguous(), k_pool,
+                         (k, v, ks, vs), page_table, pos, q.shape[1] // n_kv)
 
 
 def stamp_phases(stamps: list[list[int]]) -> dict:

@@ -11,17 +11,21 @@ Numerics ("scale_w"): the prologue runs in f32, the activation is rounded to
 bf16 after it, each weight element is ``bf16(bf16(code) · bf16(scale))`` and
 the products accumulate in f32.
 
-The wrapper routes by rows alone (``route``): a window of fewer than
-``MMA_MIN_ROWS`` rows takes the CUDA-core kernel (``qmatmul_w8a16_cores``),
-which multiplies each dequantized weight once per row; up to
-``TC_MIN_ROWS`` rows the mma kernel (``qmatmul_w8a16_mma``), which
-dequantizes each weight once into ``mma.sync``'s A operand and lets the
-tensor cores take the rows (``mma_plan`` picks its contraction split;
-``mma_k_slots``, ``mma_cols`` and ``mma_slot_rows`` are its fragment maps);
-a larger window the tensor-core kernel (``qmatmul_w8a16_tc``), which stages
-the prologue's bf16 activation once and streams each weight byte once for
-all the rows on ``wgmma`` (``tc_plan`` picks its row tile and contraction
-split).  Each route counts its launches under its own ``LAUNCHES`` key.
+The wrapper routes by rows alone (``route``): one row (decode at b = 1)
+takes the row kernel (``qmatmul_w8a16_row``), one launch that applies the
+prologue itself, keeps its codes several k-slices deep in flight and lets
+``mma.sync`` take the products of the row zero-padded to n8 (``row_plan``
+picks its contraction split, the strip's last block sums the splits);
+from ``MMA_MIN_ROWS`` up to ``TC_MIN_ROWS`` rows the mma kernel
+(``qmatmul_w8a16_mma``), which dequantizes each weight once into
+``mma.sync``'s A operand and lets the tensor cores take the rows
+(``mma_plan`` picks its contraction split; ``mma_k_slots``, ``mma_cols`` and
+``mma_slot_rows`` are its fragment maps, the row kernel's too); a larger
+window the tensor-core kernel (``qmatmul_w8a16_tc``), which stages the
+prologue's bf16 activation once and streams each weight byte once for all
+the rows on ``wgmma`` (``tc_plan`` picks its row tile and contraction
+split).  Each kernel counts its launches under its own ``LAUNCHES`` key (the row
+kernel under ``qmatmul_w8a16``).
 
 For windows of more than ``MAX_ROWS`` rows, ``qmatmul_w8a16_rows`` (the
 reference package's ``qmatmul_pallas_stacked_rows``) takes the projection on
@@ -54,17 +58,22 @@ from . import LAUNCHES, build
 # Activation rows the fused kernel takes in one call; longer windows take the
 # row-blocked kernel (``qmatmul_w8a16_rows``).
 MAX_ROWS = 256
-_BLOCK_COLS = 512  # output columns per block (32 lanes x 16 columns)
-_SPLIT_ROWS = 64  # contraction rows per split are a multiple of this
 _PROLOGUES = {None: 0, "rms": 1, "swiglu": 2}
 # The crossovers of the three routes: windows of at least MMA_MIN_ROWS rows
 # take the mma kernel, of at least TC_MIN_ROWS rows the tensor-core kernel.
-# Set from chip_smoke.py's timings of the three routes at 1-4, 8 and 16 rows
-# over the four 8B projections (PERF.md): the CUDA cores are fastest at 1
-# row, the mma kernel from 2 to 8 (one n8 tile), the tensor cores from 9 (the
-# mma kernel's second n8 tile).
+# Set from chip_smoke.py's timings of the routes at 1-4, 8 and 16 rows over
+# the four 8B projections (PERF.md): the row kernel is fastest at 1 row, the
+# mma kernel from 2 to 8 (one n8 tile), the tensor cores from 9 (the mma
+# kernel's second n8 tile).
 MMA_MIN_ROWS = 2
 TC_MIN_ROWS = 9
+_ROW_SLICE = 16  # contraction slots of the row kernel's k-slice
+_ROW_BLOCK_COLS = 128  # output columns of its block
+_ROW_WARPS = 8  # warps of its block, each a run of the block's k-slices
+_ROW_MAX_SPLIT = 1024  # its k-slices of a block at most
+_ROW_SMEM_CAP = 64 * 1024  # its shared memory a block at most: three blocks fit an SM
+_ROW_SCALE_ROW = 2 * _ROW_BLOCK_COLS  # bytes of one group's scales over a block's columns
+_ROW_WAVE_SHARE = 0.95  # the share of a wave of resident blocks the row plan fills
 MMA_MAX_ROWS = 16  # the mma kernel takes 1..16 rows (one or two n8 tiles)
 _MMA_SLICE = 16  # contraction slots of an mma k-slice
 _MMA_BLOCK_COLS = 128  # output columns of a block (eight m16 tiles)
@@ -190,13 +199,27 @@ def qmatmul_w8a16_plain(
 def _lib() -> ctypes.CDLL:
     lib = build.load("qmatmul_w8a16")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.qmatmul_w8a16.argtypes = [p, i, p, p, p, p, i, p, p, i, i, i, i, i, f, i, i, i, i, p]
-    lib.qmatmul_w8a16.restype = ctypes.c_int
     lib.qmatmul_w8a16_tc.argtypes = [p, i, p, p, p, p, p, i, p, p, i, i, i, i, i, f, i, i, i, i, p]
     lib.qmatmul_w8a16_tc.restype = ctypes.c_int
     lib.qmatmul_w8a16_mma.argtypes = [p, i, p, p, p, p, p, i, p, p, p, i, i, i, i, i, f, i, i, i, p]
     lib.qmatmul_w8a16_mma.restype = ctypes.c_int
+    lib.qmatmul_w8a16_row.argtypes = [p, i, p, p, p, p, i, p, p, p, i, i, i, i, f, i, i, i, p]
+    lib.qmatmul_w8a16_row.restype = ctypes.c_int
+    lib.qmatmul_w8a16_row_blocks_per_sm.argtypes = [i, i]
+    lib.qmatmul_w8a16_row_blocks_per_sm.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _row_blocks_per_sm(index: int, q4: bool, uniform: bool) -> int:
+    """Row-kernel blocks one SM of card ``index`` holds at once (registers
+    alone: a block's shared memory stays within ``_ROW_SMEM_CAP``, so three
+    fit), at most 3."""
+    with torch.cuda.device(index):
+        n = _lib().qmatmul_w8a16_row_blocks_per_sm(int(q4), int(uniform))
+    if n < 1:
+        raise RuntimeError("qmatmul_w8a16_row: the occupancy query failed")
+    return min(n, 3)
 
 
 @functools.cache
@@ -204,22 +227,84 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def split_plan(n: int, d: int, rows: int, bt: int, sms: int) -> tuple[int, int]:
-    """(splits, rows per split) of the contraction axis: enough blocks for
-    about three per SM, each split a multiple of 64 rows."""
-    blocks = -(-d // _BLOCK_COLS) * -(-rows // bt)
-    want = max(1, -(-3 * sms // blocks))
-    kc = max(_SPLIT_ROWS, -(-n // want // _SPLIT_ROWS) * _SPLIT_ROWS)
-    kc = min(kc, -(-n // 8) * 8)
-    return -(-n // kc), kc
-
-
 def route(rows: int) -> str:
-    """The kernel that takes a window of ``rows`` rows: ``"cores"`` below
-    ``MMA_MIN_ROWS``, ``"mma"`` below ``TC_MIN_ROWS``, ``"tc"`` from it on."""
+    """The kernel that takes a window of ``rows`` rows: ``"row"`` below
+    ``MMA_MIN_ROWS`` (one row), ``"mma"`` below ``TC_MIN_ROWS``, ``"tc"``
+    from it on."""
     if not 0 < rows <= MAX_ROWS:
         raise ValueError(f"qmatmul_w8a16: {rows} activation rows; the kernels take 1..{MAX_ROWS}")
-    return "tc" if rows >= TC_MIN_ROWS else "mma" if rows >= MMA_MIN_ROWS else "cores"
+    return "tc" if rows >= TC_MIN_ROWS else "mma" if rows >= MMA_MIN_ROWS else "row"
+
+
+def row_smem_bytes(spb: int, g: int) -> int:
+    """Shared memory of a row-kernel block of ``spb`` k-slices at group size
+    ``g``: the scale rows of the groups its slots touch (at most
+    ``spb·16/g + 2``), then its staged bf16 slots."""
+    return -(-(spb * _ROW_SLICE // g + 2) * _ROW_SCALE_ROW // 16) * 16 + spb * _ROW_SLICE * 2
+
+
+def row_max_spb(g: int) -> int:
+    """The row kernel's longest split at group size ``g``: whole slices for
+    each of the 8 warps, at most ``_ROW_MAX_SPLIT``, and a block's shared
+    memory within ``_ROW_SMEM_CAP``."""
+    spb = _ROW_MAX_SPLIT
+    while spb > _ROW_WARPS and row_smem_bytes(spb, g) > _ROW_SMEM_CAP:
+        spb -= _ROW_WARPS
+    return spb
+
+
+@functools.cache
+def row_plan(n: int, d: int, g: int, q4: bool, sms: int, per_sm: int) -> tuple[int, int]:
+    """(splits, k-slices per split) of the row kernel for an ``[N, D]``
+    weight on ``sms`` SMs holding ``per_sm`` of its blocks each.
+
+    A block is 128 output columns by a split's 16-slot k-slices (a multiple
+    of 8: an equal run for each warp).  A block's own stream is bound by
+    the bytes it keeps in flight, so the card needs about a full wave of
+    resident blocks (``per_sm·sms``) to reach its rate, and each block pays
+    a fixed start (its scale rows, the prologue's loads) and end (its sums):
+    the plan takes the fewest splits whose blocks fill ``_ROW_WAVE_SHARE``
+    of a wave, within the split cap (else the most splits there are); where
+    those blocks would spill into a second wave that stays under half full,
+    it takes the most splits that fit one wave instead.  (On an H100 fewer
+    blocks streamed slower and more splits paid their fixed work again.)"""
+    slices = -(-n // _ROW_SLICE)
+    strips = -(-d // _ROW_BLOCK_COLS)
+    cap = row_max_spb(g)
+    plans = []  # (splits, spb) by increasing splits, each split count once
+    for want in range(1, slices + 1):
+        spb = -(-(-(-slices // want)) // _ROW_WARPS) * _ROW_WARPS
+        if -(-slices // spb) == want and spb <= cap:
+            plans.append((want, spb))
+    wave = per_sm * sms
+    fill = [p for p in plans if strips * p[0] >= _ROW_WAVE_SHARE * wave]
+    if not fill:
+        return plans[-1]
+    one_wave = [p for p in plans if strips * p[0] <= wave]
+    if wave < strips * fill[0][0] < 1.5 * wave and one_wave:
+        return one_wave[-1]
+    return fill[0]
+
+
+def row_runs(n: int, splits: int, spb: int, q4: bool) -> list[list[tuple[int, int]]]:
+    """The code rows that each warp of a row-kernel block streams, as the
+    kernel cuts them: per split (in split order), per warp (in warp order),
+    ``[first, end)`` code rows (INT4: packed rows), a contiguous run of the
+    split's k-slices; rows past the weight are zeros the kernel never reads."""
+    slices = -(-n // _ROW_SLICE)
+    per_slice = _ROW_SLICE // 2 if q4 else _ROW_SLICE
+    code_rows = n // 2 if q4 else n
+    out = []
+    for split in range(splits):
+        s0 = split * spb
+        ns = min(slices - s0, spb)
+        per = -(-ns // _ROW_WARPS)
+        runs = []
+        for warp in range(_ROW_WARPS):
+            first, last = s0 + min(ns, warp * per), s0 + min(ns, (warp + 1) * per)
+            runs.append((min(first * per_slice, code_rows), min(last * per_slice, code_rows)))
+        out.append(runs)
+    return out
 
 
 def mma_k_slots() -> torch.Tensor:
@@ -310,13 +395,6 @@ def tc_plan(n: int, d: int, rows: int, sms: int) -> tuple[int, int, int]:
     return tile, best[1], best[2]
 
 
-def _row_tile(rows: int) -> int:
-    for bt in (1, 2, 4):
-        if rows <= bt:
-            return bt
-    return 8
-
-
 def _need(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"qmatmul_w8a16: {msg}")
@@ -345,7 +423,7 @@ def qmatmul_w8a16(
     kw = {"norm_w": norm_w, "eps": eps, "residual": residual, "swiglu": swiglu}
     if x.device.type == "cpu":
         return qmatmul_w8a16_plain(x, w, layer, **kw)
-    launch = {"cores": qmatmul_w8a16_cores, "mma": qmatmul_w8a16_mma, "tc": qmatmul_w8a16_tc}
+    launch = {"row": qmatmul_w8a16_row, "mma": qmatmul_w8a16_mma, "tc": qmatmul_w8a16_tc}
     return launch[route(x.numel() // x.shape[-1])](x, w, layer, **kw)
 
 
@@ -412,28 +490,33 @@ def _prepare(x, w, layer, norm_w, eps, residual, swiglu) -> dict:
     }
 
 
-def qmatmul_w8a16_cores(x: torch.Tensor, w: QuantizedTensor, layer: int | None = None, *,
-                        norm_w: torch.Tensor | None = None, eps: float = 1e-6,
-                        residual: torch.Tensor | None = None, swiglu: bool = False) -> torch.Tensor:
-    """``qmatmul_w8a16`` on the CUDA-core kernel (its route below
-    ``MMA_MIN_ROWS`` rows), at any 1..256 rows."""
+def qmatmul_w8a16_row(x: torch.Tensor, w: QuantizedTensor, layer: int | None = None, *,
+                      norm_w: torch.Tensor | None = None, eps: float = 1e-6,
+                      residual: torch.Tensor | None = None, swiglu: bool = False) -> torch.Tensor:
+    """``qmatmul_w8a16`` on the row kernel (its route at one row), for
+    exactly one activation row; its launches count under ``qmatmul_w8a16``."""
     if x.device.type == "cpu":
         return qmatmul_w8a16(x, w, layer, norm_w=norm_w, eps=eps, residual=residual, swiglu=swiglu)
     a = _prepare(x, w, layer, norm_w, eps, residual, swiglu)
-    rows, n, d, dev, res = a["rows"], a["n"], a["d"], a["dev"], a["res"]
-    out = torch.empty(rows, d, dtype=torch.float32, device=dev)
-    bt = _row_tile(rows)
-    splits, kc = split_plan(n, d, rows, bt, _sm_count(dev.index or 0))
-    partial = torch.empty(splits * rows * d, dtype=torch.float32, device=dev) if splits > 1 else None
-    err = _lib().qmatmul_w8a16(
+    n, d, dev, res, g, q4 = a["n"], a["d"], a["dev"], a["res"], a["g"], a["q4"]
+    _need(a["rows"] == 1, f"the row kernel takes one activation row, not {a['rows']}")
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    uniform = (g // 2) % 2 == 0 if q4 else g % 4 == 0
+    splits, spb = row_plan(n, d, g, q4, _sm_count(index), _row_blocks_per_sm(index, q4, uniform))
+    out = torch.empty(1, d, dtype=torch.float32, device=dev)
+    partial = counters = None
+    if splits > 1:
+        partial = torch.empty(splits * d, dtype=torch.float32, device=dev)
+        counters = _mma_counters(dev, -(-d // _ROW_BLOCK_COLS))
+    err = _lib().qmatmul_w8a16_row(
         a["x2"].data_ptr(), int(a["x2"].dtype == torch.bfloat16), a["codes"], a["scales"], a["nw"],
         None if res is None else res.data_ptr(), int(res is not None and res.dtype == torch.bfloat16),
         out.data_ptr(), None if partial is None else partial.data_ptr(),
-        rows, n, d, a["g"], a["prologue"], float(eps), bt, kc, splits, int(a["q4"]),
-        torch.cuda.current_stream(dev).cuda_stream,
+        None if counters is None else counters.data_ptr(),
+        n, d, g, a["prologue"], float(eps), int(q4), spb, splits, torch.cuda.current_stream(dev).cuda_stream,
     )
-    build.check(err, "qmatmul_w8a16")
-    LAUNCHES["qmatmul_w8a16_q4" if a["q4"] else "qmatmul_w8a16"] += 1
+    build.check(err, "qmatmul_w8a16_row")
+    LAUNCHES["qmatmul_w8a16_q4" if q4 else "qmatmul_w8a16"] += 1
     return out.reshape(a["out_shape"])
 
 
@@ -441,9 +524,9 @@ _MMA_COUNTERS: dict = {}
 
 
 def _mma_counters(dev: torch.device, strips: int) -> torch.Tensor:
-    """The mma kernel's split counters on ``dev``: one zero int per column
-    strip, made once (grown when a wider weight needs more); each launch
-    leaves them zero."""
+    """The split counters of the mma and row kernels on ``dev``: one zero
+    int per 128-column strip, made once (grown when a wider weight needs
+    more); each launch leaves them zero."""
     t = _MMA_COUNTERS.get(dev)
     if t is None or t.numel() < strips:
         t = _MMA_COUNTERS[dev] = torch.zeros(max(strips, 2048), dtype=torch.int32, device=dev)

@@ -15,7 +15,7 @@ from qwen3_rs_tpu_torch.configuration import ModelConfig
 from qwen3_rs_tpu_torch.inference.engine import Engine
 from qwen3_rs_tpu_torch.models.qwen3 import weights_to
 from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES
-from qwen3_rs_tpu_torch.ops.kernels.flash_attention import flash_decode, flash_decode_plain
+from qwen3_rs_tpu_torch.ops.kernels.flash_attention import flash_decode, flash_decode_plain, flash_decode_two_pass
 from qwen3_rs_tpu_torch.ops.kernels.megakernel import decode_stack_megakernel, decode_stack_megakernel_plain
 from qwen3_rs_tpu_torch.ops.kernels.paged_attention import (
     paged_decode,
@@ -34,9 +34,9 @@ from qwen3_rs_tpu_torch.ops.kernels.qmatmul import (
     dequant_w8_stacked,
     dequant_w8_stacked_plain,
     qmatmul_w8a16,
-    qmatmul_w8a16_cores,
     qmatmul_w8a16_mma,
     qmatmul_w8a16_plain,
+    qmatmul_w8a16_row,
     qmatmul_w8a16_rows,
     qmatmul_w8a16_rows_plain,
     qmatmul_w8a16_tc,
@@ -76,7 +76,7 @@ def _gen(seed):
     return g
 
 
-ROUTE_KEYS = {"cores": "qmatmul_w8a16", "mma": "qmatmul_w8a16_mma", "tc": "qmatmul_w8a16_tc"}
+ROUTE_KEYS = {"row": "qmatmul_w8a16", "mma": "qmatmul_w8a16_mma", "tc": "qmatmul_w8a16_tc"}
 
 
 @pytest.mark.parametrize("rows", [1, 2, 3, 8, 9, 37, 256])
@@ -118,7 +118,7 @@ def test_qmatmul_matches_plain(card, rows, n, d, g, prologue, residual):
     assert float((got - ref).abs().max()) <= rel * float(ref.abs().max())
 
 
-ROUTE_SHAPES = [  # (N, D, g, prologue, residual) for both routes, INT8 and INT4
+ROUTE_SHAPES = [  # (N, D, g, prologue, residual) for the tensor-core route, INT8 and INT4
     (256, 48, 64, None, None),  # D below one tile
     (512, 1040, 64, "rms", "bf16"),  # ragged last tile
     (1024, 512, 2, "swiglu", "f32"),  # g = 2: every code row its own group
@@ -129,13 +129,13 @@ ROUTE_SHAPES = [  # (N, D, g, prologue, residual) for both routes, INT8 and INT4
 ]
 
 
-@pytest.mark.parametrize("launch", [qmatmul_w8a16_cores, qmatmul_w8a16_tc], ids=["cores", "tc"])
+@pytest.mark.parametrize("launch", [qmatmul_w8a16_tc], ids=["tc"])
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("rows", [8, 9, 16, 37, 64, 255, 256])
 @pytest.mark.parametrize("n,d,g,prologue,residual", ROUTE_SHAPES)
 def test_qmatmul_routes_match_plain(card, launch, bits, rows, n, d, g, prologue, residual):
-    """Both routes of #3, each forced by calling its launcher, at rows on both
-    sides of the crossover.  Tolerance: the f32 sums differ in order (and the
+    """The tensor-core route of #3, forced by calling its launcher, at rows on
+    both sides of its crossover.  Tolerance: the f32 sums differ in order (and the
     tensor cores' round toward zero), 1e-4 of the largest output; a
     prologue's f32 result may flip a bf16 rounding of an activation, 2e-3."""
     gen = _gen(rows * 13 + d + g + bits)
@@ -150,7 +150,7 @@ def test_qmatmul_routes_match_plain(card, launch, bits, rows, n, d, g, prologue,
     if residual:
         dt = torch.float32 if residual == "f32" else torch.bfloat16
         kw["residual"] = torch.randn(rows, d, generator=gen, device=card).to(dt)
-    key = ("qmatmul_w8a16_tc" if launch is qmatmul_w8a16_tc else "qmatmul_w8a16") + ("_q4" if bits == 4 else "")
+    key = "qmatmul_w8a16_tc" + ("_q4" if bits == 4 else "")
     before = dict(LAUNCHES)
     got = launch(x, w, 1, **kw)
     assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]} == {key: 1}
@@ -211,6 +211,97 @@ def test_qmatmul_mma_matches_plain(card, bits, rows, n, d, g, prologue, residual
     assert float((got - ref).abs().max()) <= rel * float(ref.abs().max())
 
 
+ROW_SHAPES = [  # (N, D, g, prologue, residual, stacked) for the row kernel, INT8 and INT4
+    (256, 48, 32, None, None, True),  # D below one block's 128 columns
+    (512, 1040, 64, "rms", "bf16", True),  # ragged last block of columns
+    (1024, 528, 128, "swiglu", "f32", True),  # ragged D, g = 128
+    (1024, 512, 512, "rms", "f32", True),  # g = 512: a group spans 32 k-slices
+    (4096, 1024, 64, "swiglu", "bf16", True),  # a split contraction, the residual added by the last block
+    (520, 256, 40, None, "f32", False),  # N % 16 == 8: a ragged last k-slice; 2-D weights, g = 40
+    (12296, 272, 8, "rms", None, True),  # N not a multiple of the split, g = 8: many groups a block
+    (768, 64, 6, "rms", None, True),  # g = 6: a thread's four slots straddle two groups
+    (8192, 4096, 64, None, "bf16", False),  # 2-D, long runs, splits
+    (4096, 512, 2, "rms", "f32", True),  # g = 2: a short split cap, eleven splits
+]
+
+
+@pytest.mark.parametrize("xdt", ["f32", "bf16"])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("n,d,g,prologue,residual,stacked", ROW_SHAPES)
+def test_qmatmul_row_matches_plain(card, bits, xdt, n, d, g, prologue, residual, stacked):
+    """#1-#3's one-row route, one launch of the row kernel: ragged N and D,
+    every prologue and residual type, stacked and 2-D weights, INT8 and INT4,
+    group sizes from 6 to 512, f32 and bf16 activations.  Tolerance as on the
+    other routes: 1e-4 of the largest output (the tensor cores' f32 sums in
+    another order), 2e-3 where a prologue's f32 result may flip an
+    activation's bf16 rounding."""
+    gen = _gen(n + d + g + bits + len(xdt))
+    w = _q4_weights(gen, card, 2, n, d, g) if bits == 4 else _weights(gen, card, 2, n, d, g)
+    layer = 1
+    if not stacked:
+        w, layer = type(w)(w.q[1].contiguous(), w.scales[1].contiguous()), None
+    width = 2 * n if prologue == "swiglu" else n
+    x = torch.randn(1, width, generator=gen, device=card).to(torch.float32 if xdt == "f32" else torch.bfloat16)
+    kw = {}
+    if prologue == "rms":
+        kw["norm_w"] = 1 + 0.1 * torch.randn(2, n, generator=gen, device=card)
+        if not stacked:
+            kw["norm_w"] = kw["norm_w"][1].contiguous()
+    if prologue == "swiglu":
+        kw["swiglu"] = True
+    if residual:
+        dt = torch.float32 if residual == "f32" else torch.bfloat16
+        kw["residual"] = torch.randn(1, d, generator=gen, device=card).to(dt)
+    key = "qmatmul_w8a16" + ("_q4" if bits == 4 else "")
+    before = dict(LAUNCHES)
+    got = qmatmul_w8a16(x, w, layer, **kw)  # the route at one row
+    assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]} == {key: 1}
+    ref = qmatmul_w8a16_plain(x, w, layer, **kw)
+    torch.cuda.synchronize()
+    rel = 2e-3 if prologue else 1e-4
+    assert got.shape == ref.shape
+    assert float((got - ref).abs().max()) <= rel * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("g", [64, 2])
+def test_qmatmul_row_repeats_and_leaves_its_counters_zero(card, bits, g):
+    """Two launches of the row kernel in a row give the same bytes (the
+    splits summed in split order by the strip's last block: the 8B wo's
+    eight splits, and more at g = 2), the split counters read zero after
+    each, and a CUDA graph's replay gives the same output."""
+    from qwen3_rs_tpu_torch.ops.kernels import qmatmul as qm
+
+    gen = _gen(41 + bits + g)
+    n, d = 4096, 4096 if g == 64 else 512
+    splits, _ = qm.row_plan(n, d, g, bits == 4, qm._sm_count(0),
+                            qm._row_blocks_per_sm(0, bits == 4, (g // 2) % 2 == 0 if bits == 4 else g % 4 == 0))
+    assert splits >= 8
+    w = _q4_weights(gen, card, 2, n, d, g) if bits == 4 else _weights(gen, card, 2, n, d, g)
+    x = torch.randn(1, n, generator=gen, device=card)
+    res = torch.randn(1, d, generator=gen, device=card)
+    outs = []
+    for _ in range(2):
+        outs.append(qmatmul_w8a16_row(x, w, 1, residual=res))
+        torch.cuda.synchronize()
+        assert all(int(t.abs().sum()) == 0 for t in qm._MMA_COUNTERS.values())
+    assert torch.equal(outs[0], outs[1])
+    out = {}
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        qmatmul_w8a16_row(x, w, 1, residual=res)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            out["x"] = qmatmul_w8a16_row(x, w, 1, residual=res)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out["x"], outs[0])
+    assert all(int(t.abs().sum()) == 0 for t in qm._MMA_COUNTERS.values())
+    with pytest.raises(ValueError, match="one activation row"):
+        qmatmul_w8a16_row(torch.randn(2, n, device=card), w, 1)
+
+
 @pytest.mark.parametrize("bits", [8, 4])
 def test_qmatmul_routes_are_deterministic(card, bits):
     """Two launches of each route give the same bytes (the split contraction
@@ -219,7 +310,7 @@ def test_qmatmul_routes_are_deterministic(card, bits):
     gen = _gen(31 + bits)
     n, d = 4096, 1024
     w = _q4_weights(gen, card, 2, n, d, 64) if bits == 4 else _weights(gen, card, 2, n, d, 64)
-    for rows, launch in ((4, qmatmul_w8a16_cores), (4, qmatmul_w8a16_mma), (16, qmatmul_w8a16_mma),
+    for rows, launch in ((1, qmatmul_w8a16_row), (4, qmatmul_w8a16_mma), (16, qmatmul_w8a16_mma),
                          (37, qmatmul_w8a16_tc), (256, qmatmul_w8a16_tc), (300, qmatmul_w8a16_rows)):
         x = torch.randn(rows, n, generator=gen, device=card).to(torch.bfloat16)
         a, b = launch(x, w, 1), launch(x, w, 1)
@@ -250,11 +341,12 @@ def test_qmatmul_refuses_what_it_cannot_take(card):
         qmatmul_w8a16(torch.zeros(1, 128, device=card), QuantizedTensor(w.q, w.scales.float()), 0)
 
 
-@pytest.mark.parametrize("cache", ["f32", "bf16", "int8"])
-@pytest.mark.parametrize("kv_mul", [1, 2, 3, 4, 5, 6, 8, 16])
-def test_flash_decode_matches_plain(card, cache, kv_mul):
-    gen = _gen(kv_mul * 3 + len(cache))
-    layers, n_kv, t, hd = 2, 2, 200, 128  # T not a multiple of the 128-row chunk
+def _flash_decode_holds(card, cache, kv_mul, t, seed):
+    """#4 against its plain version at 1e-5 over B = 6 rows at pos
+    0/1/127/128/129/T of a T-row cache, one launch counted; pos 0 returns
+    v_self."""
+    gen = _gen(seed)
+    layers, n_kv, hd = 2, 2, 128
     pos_list = [0, 1, 127, 128, 129, t]
     b = len(pos_list)
     shape = (layers, b, n_kv, t, hd)
@@ -272,16 +364,112 @@ def test_flash_decode_matches_plain(card, cache, kv_mul):
     kn = torch.randn(b, n_kv, hd, generator=gen, device=card)
     vn = torch.randn(b, n_kv, hd, generator=gen, device=card)
     pos = torch.tensor(pos_list, dtype=torch.int32, device=card)
+    before = LAUNCHES["flash_decode"]
     got = flash_decode(q, kn, vn, k_all, v_all, pos, 1, **sc)
+    assert LAUNCHES["flash_decode"] == before + 1
     ref = flash_decode_plain(q, kn, vn, k_all, v_all, pos, 1, **sc)
     torch.cuda.synchronize()
     assert float((got - ref).abs().max()) <= 1e-5
     assert torch.equal(got[0], vn[0].repeat_interleave(kv_mul, dim=0))  # pos 0: v_self
 
 
-def test_flash_decode_reads_no_row_at_or_past_pos(card):
+@pytest.mark.parametrize("cache", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("kv_mul", [1, 2, 3, 4, 5, 6, 8, 16])
+def test_flash_decode_matches_plain(card, cache, kv_mul):
+    """T = 200, not a multiple of the two-pass kernel's 128-row chunk nor of
+    16: the two-pass kernel."""
+    _flash_decode_holds(card, cache, kv_mul, 200, kv_mul * 3 + len(cache))
+
+
+@pytest.mark.parametrize("cache", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("kv_mul", [1, 2, 3, 4, 5, 6, 8, 16])
+def test_flash_decode_one_launch_matches_plain(card, cache, kv_mul):
+    """T = 208, a multiple of 16: the one-launch kernel for f32 and bf16
+    caches (INT8 caches keep the two-pass kernel)."""
+    _flash_decode_holds(card, cache, kv_mul, 208, kv_mul * 3 + len(cache) + 208)
+
+
+@pytest.mark.parametrize("cache", ["f32", "bf16"])
+@pytest.mark.parametrize("hd", [128, 256])
+def test_flash_decode_is_one_launch_where_it_takes_the_split_kernel(card, cache, hd):
+    """At head_dim 128/256 over an f32 or bf16 cache of a multiple of 16 rows
+    a call is one kernel on the card (the profiler's count), held at 1e-5
+    against the plain version and against the two-pass kernel on the same
+    inputs, at B = 1 and B = 3 with pos 0/1/127/128/129/T across the rows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = _gen(hd + len(cache))
+    t, n_kv, kv_mul = 512, 2, 4
+    for pos_list in ([t - 1], [0, 1, 127], [128, 129, t]):
+        b = len(pos_list)
+        k_all, v_all, sc = _dense_cache(gen, card, cache, (2, b, n_kv, t, hd))
+        q = torch.randn(b, n_kv * kv_mul, hd, generator=gen, device=card)
+        kn, vn = torch.randn(2, b, n_kv, hd, generator=gen, device=card)
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=card)
+        flash_decode(q, kn, vn, k_all, v_all, pos, 1, **sc)  # built and planned before the count
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            got = flash_decode(q, kn, vn, k_all, v_all, pos, 1, **sc)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(kernels) == 1 and "paged_decode_kernel" in kernels[0].name, [e.name for e in kernels]
+        ref = flash_decode_plain(q, kn, vn, k_all, v_all, pos, 1, **sc)
+        two = flash_decode_two_pass(q, kn, vn, k_all, v_all, pos, 1, **sc)
+        torch.cuda.synchronize()
+        assert float((got - ref).abs().max()) <= 1e-5, pos_list
+        assert float((got - two).abs().max()) <= 1e-5, pos_list
+        for i, p in enumerate(pos_list):
+            if p == 0:
+                assert torch.equal(got[i], vn[i].repeat_interleave(kv_mul, dim=0))
+
+
+def _dense_cache(gen, card, cache, shape):
+    """A dense cache [L, B, n_kv, T, hd] of random rows (INT8: codes and row
+    scales)."""
+    if cache == "int8":
+        k, v = (torch.randint(-127, 128, shape, generator=gen, device=card, dtype=torch.int8) for _ in range(2))
+        return k, v, {name: torch.rand(shape[:-1], generator=gen, device=card) * 0.02 + 0.005
+                      for name in ("k_scale_all", "v_scale_all")}
+    dt = torch.float32 if cache == "f32" else torch.bfloat16
+    return (*(torch.randn(shape, generator=gen, device=card).to(dt) for _ in range(2)), {})
+
+
+def test_flash_decode_counters_stay_zero_and_repeat(card):
+    """Two calls of the one-launch route give the same bytes, its arrival
+    counters read zero after each, and a CUDA graph's replay gives the
+    same output."""
+    from qwen3_rs_tpu_torch.ops.kernels import paged_attention as pa
+
+    gen = _gen(99)
+    k_all, v_all, _ = _dense_cache(gen, card, "f32", (2, 1, 8, 4096, 128))
+    q = torch.randn(1, 32, 128, generator=gen, device=card)
+    kn, vn = torch.randn(2, 1, 8, 128, generator=gen, device=card)
+    pos = torch.tensor([4095], dtype=torch.int32, device=card)
+    first = flash_decode(q, kn, vn, k_all, v_all, pos, 1)
+    torch.cuda.synchronize()
+    assert int(pa._DECODE_COUNTERS[first.device].abs().sum()) == 0
+    again = flash_decode(q, kn, vn, k_all, v_all, pos, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    assert int(pa._DECODE_COUNTERS[first.device].abs().sum()) == 0
+    out = {}
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        flash_decode(q, kn, vn, k_all, v_all, pos, 1)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            out["x"] = flash_decode(q, kn, vn, k_all, v_all, pos, 1)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out["x"], first)
+    assert int(pa._DECODE_COUNTERS[first.device].abs().sum()) == 0
+
+
+def _flash_decode_reads_below_pos(card, t):
+    """NaN in every cache row at or past pos leaves the output finite."""
     gen = _gen(11)
-    shape = (1, 3, 2, 300, 128)
+    shape = (1, 3, 2, t, 128)
     k_all = torch.randn(shape, generator=gen, device=card)
     v_all = torch.randn(shape, generator=gen, device=card)
     pos_list = [0, 5, 260]
@@ -292,6 +480,14 @@ def test_flash_decode_reads_no_row_at_or_past_pos(card):
     kn, vn = torch.randn(2, 3, 2, 128, generator=gen, device=card)
     out = flash_decode(q, kn, vn, k_all, v_all, torch.tensor(pos_list, dtype=torch.int32, device=card), 0)
     assert bool(torch.isfinite(out).all())
+
+
+def test_flash_decode_reads_no_row_at_or_past_pos(card):
+    _flash_decode_reads_below_pos(card, 300)  # the two-pass kernel
+
+
+def test_flash_decode_one_launch_reads_no_row_at_or_past_pos(card):
+    _flash_decode_reads_below_pos(card, 304)  # the one-launch kernel
 
 
 def test_small_model_card_matches_cpu(card):
@@ -407,6 +603,8 @@ def test_q4_kernels_place_every_nibble(card):
     x = torch.zeros(len(idx), n, device=card)
     x[torch.arange(len(idx), device=card), idx] = 1.0
     assert torch.equal(qmatmul_w8a16(x, w, 1), dense[idx])
+    for i in range(len(idx)):  # one row at a time: the row kernel
+        assert torch.equal(qmatmul_w8a16(x[i : i + 1], w, 1), dense[idx[i : i + 1]])
     xr = torch.zeros(300, n, device=card, dtype=torch.bfloat16)
     rows = torch.arange(300, device=card) % n
     xr[torch.arange(300, device=card), rows] = 1.0

@@ -12,7 +12,14 @@ import torch
 
 from qwen3_rs_tpu.ops.pallas.flash_attention import flash_gqa_decode_stacked
 from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES
-from qwen3_rs_tpu_torch.ops.kernels.flash_attention import flash_decode, flash_decode_plain
+from qwen3_rs_tpu_torch.ops.kernels.flash_attention import (
+    decode_supported,
+    flash_decode,
+    flash_decode_plain,
+    flash_decode_two_pass,
+    one_launch_takes,
+)
+from qwen3_rs_tpu_torch.ops.kernels.paged_attention import SPLIT_HEAD_DIMS, paged_decode_plain
 
 torch.set_num_threads(2)
 
@@ -90,4 +97,44 @@ def test_cpu_wrapper_is_the_plain_version():
     pos = torch.tensor(POS, dtype=torch.int32)
     before = LAUNCHES["flash_decode"]
     assert torch.equal(flash_decode(*args, pos, 1), flash_decode_plain(*args, pos, 1))
+    assert torch.equal(flash_decode_two_pass(*args, pos, 1), flash_decode_plain(*args, pos, 1))
     assert LAUNCHES["flash_decode"] == before
+
+
+@pytest.mark.parametrize("pos", [[0, 0, 0, 0], POS, [5, T, 17, 300]])
+@pytest.mark.parametrize("kv_mul", [1, 2, 4])
+@pytest.mark.parametrize("cache", ["f32", "bf16", "int8"])
+def test_dense_layer_as_pages_is_the_plain_version(cache, kv_mul, pos):
+    """The one-launch kernel's view of the dense cache: the layer
+    ``[B, n_kv, T, hd]`` as a pool of B pages of T rows with the table
+    ``arange(B)[:, None]``.  The paged kernel's plain version over that view
+    equals ``flash_decode_plain`` (which the test above holds to the JAX
+    kernel) at pos 0 and ragged positions, T among them."""
+    q, kn, vn, k, v, scales = _inputs(20 + kv_mul, kv_mul, cache)
+    tk, tv = torch.from_numpy(k), torch.from_numpy(v)
+    if cache == "bf16":
+        tk, tv = tk.to(torch.bfloat16), tv.to(torch.bfloat16)
+    args = [torch.from_numpy(a) for a in (q, kn, vn)]
+    p = torch.tensor(pos, dtype=torch.int32)
+    table = torch.arange(len(pos), dtype=torch.int32)[:, None]
+    ref = flash_decode_plain(*args, tk, tv, p, 1, **{n: torch.from_numpy(s) for n, s in scales.items()})
+    got = paged_decode_plain(*args, tk, tv, table, p, 1,
+                             **{n.replace("_all", "_pool"): torch.from_numpy(s) for n, s in scales.items()})
+    assert float((got - ref).abs().max()) <= TOL * max(1.0, float(ref.abs().max()))
+    for b, pb in enumerate(pos):
+        if pb == 0:
+            assert torch.equal(got[b], ref[b])
+
+
+def test_one_launch_takes_the_split_kernels_shapes():
+    """``flash_decode`` takes the one-launch kernel exactly where the paged
+    kernel would take a page of T rows of an f32 or bf16 cache: head_dim
+    128 or 256 and T a multiple of 16 (every T the JAX gate admits, a
+    multiple of 128, included); an INT8 cache keeps the two-pass kernel."""
+    for hd in (128, 256, 384, 512, 640):
+        for t in (16, 200, 208, 384, 4096, 4100):
+            for dt in (torch.float32, torch.bfloat16):
+                assert one_launch_takes(hd, t, dt) == (hd in SPLIT_HEAD_DIMS and t % 16 == 0)
+                if decode_supported(32, 8, hd, t, min_seq_len=0) and hd in SPLIT_HEAD_DIMS:
+                    assert one_launch_takes(hd, t, dt)
+            assert not one_launch_takes(hd, t, torch.int8)

@@ -34,12 +34,15 @@ from qwen3_rs_tpu_torch.ops.kernels.qmatmul import (
     mma_plan,
     mma_slot_rows,
     qmatmul_w8a16,
-    qmatmul_w8a16_cores,
     qmatmul_w8a16_mma,
     qmatmul_w8a16_plain,
+    qmatmul_w8a16_row,
     qmatmul_w8a16_tc,
     route,
-    split_plan,
+    row_max_spb,
+    row_plan,
+    row_runs,
+    row_smem_bytes,
     tc_plan,
 )
 from qwen3_rs_tpu_torch.ops.quant import Q4Tensor, QuantizedTensor, pack_q4_np
@@ -150,27 +153,24 @@ def test_cpu_wrapper_is_the_plain_version():
     from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES
 
     before = dict(LAUNCHES)
-    for launch in (qmatmul_w8a16, qmatmul_w8a16_cores, qmatmul_w8a16_mma, qmatmul_w8a16_tc):
+    for launch in (qmatmul_w8a16, qmatmul_w8a16_mma, qmatmul_w8a16_tc):
         got = launch(x, tw, 0)
         assert torch.equal(got, qmatmul_w8a16_plain(x, tw, 0))
+    for launch in (qmatmul_w8a16, qmatmul_w8a16_row):  # one row
+        got = launch(x[:1], tw, 0)
+        assert torch.equal(got, qmatmul_w8a16_plain(x[:1], tw, 0))
     assert LAUNCHES == before  # plain calls are not launches
 
 
-@pytest.mark.parametrize("rows", [1, 7, MAX_ROWS])
-def test_split_plan_covers_the_contraction_at_8b(rows):
-    c = QWEN3_CONFIGS["8b"]
-    ah, kvd = c["n_heads"] * c["head_dim"], c["n_kv_heads"] * c["head_dim"]
-    shapes = [
-        (c["dim"], ah + 2 * kvd), (ah, c["dim"]), (c["dim"], 2 * c["hidden_dim"]),
-        (c["hidden_dim"], c["dim"]), (c["dim"], 153600),
-    ]
-    for n, d in shapes:
-        bt = 1 if rows == 1 else 8
-        splits, kc = split_plan(n, d, rows, bt, 132)
-        assert kc % 4 == 0 and (kc % 64 == 0 or kc == n)
-        assert (splits - 1) * kc < n <= splits * kc
-        blocks = -(-d // 512) * -(-rows // bt) * splits
-        assert blocks >= 132 or splits * 64 >= n
+@pytest.mark.parametrize("g", [2, 64, 512])
+def test_row_max_spb_is_the_longest_split_that_fits(g):
+    """The row kernel's split cap at group size ``g``: whole k-slices for each
+    of its 8 warps, a block's shared memory within its cap, and no longer
+    split of 8 more slices that would fit."""
+    spb = row_max_spb(g)
+    assert spb % 8 == 0 and 8 <= spb <= port_qmm._ROW_MAX_SPLIT
+    assert row_smem_bytes(spb, g) <= port_qmm._ROW_SMEM_CAP
+    assert spb == port_qmm._ROW_MAX_SPLIT or row_smem_bytes(spb + 8, g) > port_qmm._ROW_SMEM_CAP
 
 
 def _8b_shapes():
@@ -181,14 +181,15 @@ def _8b_shapes():
 
 def test_route_is_by_rows_alone():
     """Every window of 1-256 rows takes exactly one route, by its rows alone:
-    the CUDA cores below ``MMA_MIN_ROWS``, the mma kernel up to
+    the row kernel below ``MMA_MIN_ROWS`` (one row), the mma kernel up to
     ``TC_MIN_ROWS``, the tensor cores from it on.  The crossovers are module
     constants, in that order, within the rows the mma kernel takes; the
     module reads no environment."""
     assert all(isinstance(c, int) for c in (MMA_MIN_ROWS, TC_MIN_ROWS, MMA_MAX_ROWS))
+    assert MMA_MIN_ROWS == 2  # the row kernel takes one row
     assert 1 <= MMA_MIN_ROWS <= TC_MIN_ROWS <= MMA_MAX_ROWS + 1 <= MAX_ROWS
     routes = [route(rows) for rows in range(1, MAX_ROWS + 1)]
-    assert routes == (["cores"] * (MMA_MIN_ROWS - 1) + ["mma"] * (TC_MIN_ROWS - MMA_MIN_ROWS)
+    assert routes == (["row"] * (MMA_MIN_ROWS - 1) + ["mma"] * (TC_MIN_ROWS - MMA_MIN_ROWS)
                       + ["tc"] * (MAX_ROWS - TC_MIN_ROWS + 1))
     for rows in (0, MAX_ROWS + 1):
         with pytest.raises(ValueError, match="activation rows"):
@@ -343,5 +344,173 @@ def test_mma_maps_give_the_plain_product(bits, g):
          else QuantizedTensor(torch.from_numpy(codes), scales))
     x = torch.from_numpy(rng.normal(0, 1, (rows, n)).astype(np.float32))
     got = _through_the_maps(x, w, g, bits == 4)
+    ref = qmatmul_w8a16_plain(x, w)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+_ROW_SHAPES = _8b_shapes() + [_CLASSIFIER, (520, 48), (768, 528), (12296, 272), (256, 16)]
+
+
+@pytest.mark.parametrize("q4", [False, True])
+@pytest.mark.parametrize("shape,g", [(s, g) for s in _ROW_SHAPES for g in (8, 32, 64, 128, 512) if s[0] % g == 0])
+def test_row_plan_covers_the_contraction(shape, g, q4):
+    """The row kernel's plan (the 8B projections and classifier, ragged N
+    and D, group sizes 8-512, INT8 and INT4, two and three blocks an SM):
+    splits of whole k-slices for each of a block's 8 warps, within the
+    split cap and the shared-memory cap; the warps' runs, split by split
+    and warp by warp in order, cover every code row of the contraction once
+    and in order (split order is the order the strip's last block sums)."""
+    n, d = shape
+    code_rows = n // 2 if q4 else n
+    slices = -(-n // 16)
+    for per_sm in (2, 3):
+        splits, spb = row_plan(n, d, g, q4, 132, per_sm)
+        assert spb % 8 == 0 and 8 <= spb <= row_max_spb(g)
+        assert row_smem_bytes(spb, g) <= port_qmm._ROW_SMEM_CAP
+        assert (splits - 1) * spb < slices <= splits * spb
+        runs = row_runs(n, splits, spb, q4)
+        assert len(runs) == splits and all(len(r) == 8 for r in runs)
+        walked = [row for split in runs for first, end in split for row in range(first, end)]
+        assert walked == list(range(code_rows))
+
+
+def test_row_plan_fills_the_card_at_8b():
+    """At the 8B shapes and the classifier the plan's blocks fill a wave of
+    resident blocks (two an SM on 132 SMs) to ``_ROW_WAVE_SHARE`` with the
+    fewest splits that do, unless those would spill into a second wave less
+    than half full: then the most splits within one wave."""
+    wave = 2 * 132
+    for n, d in _8b_shapes() + [_CLASSIFIER]:
+        for q4 in (False, True):
+            splits, spb = row_plan(n, d, 64, q4, 132, 2)
+            blocks, strips = -(-d // 128) * splits, -(-d // 128)
+            if blocks <= wave:
+                assert blocks >= port_qmm._ROW_WAVE_SHARE * wave or strips * (splits + 1) > wave, (n, d, splits)
+            else:
+                assert blocks >= 1.5 * wave or strips > wave, (n, d, splits)
+                assert splits == 1 or strips * (splits - 1) < port_qmm._ROW_WAVE_SHARE * wave, (n, d, splits)
+
+
+def _bf16_bits(x: np.ndarray) -> np.ndarray:
+    """float32 → bf16 bit patterns, rounded to nearest even."""
+    u = x.astype(np.float32).view(np.uint32).astype(np.uint64)
+    return ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint32)
+
+
+def _bf16_value(bits: np.ndarray) -> np.ndarray:
+    return (bits.astype(np.uint32) << 16).view(np.float32)
+
+
+def test_row_kernel_q4_pairs_are_the_plain_weights():
+    """The row kernel's INT4 dequantization, emulated bit for bit: for byte k
+    of a packed word w, ``byte_perm(w, w >> 4, k | (k + 4) << 8)`` masked with
+    0x000F000F and or-ed with 0x43004300 holds 128 + the low nibble in its low
+    half and 128 + the high nibble in its high half; ``(t·1 - 136)`` is the
+    code exactly, and ``code·s + (-0)`` rounded once is bf16(code·s), the
+    plain version's weight, for every byte value, position and scale."""
+    rng = np.random.default_rng(3)
+    scales = np.concatenate([rng.uniform(1e-3, 2e-2, 64), 2.0 ** rng.integers(-12, 0, 8)]).astype(np.float32)
+    s_bits = _bf16_bits(scales)
+    for byte in range(256):
+        for k in range(4):
+            w = np.uint32(byte) << np.uint32(8 * k) | np.uint32(0x5A000000 if k < 3 else 0x5A)
+            wb = w >> np.uint32(4)
+            a_bytes = [(int(w) >> (8 * i)) & 0xFF for i in range(4)]
+            b_bytes = [(int(wb) >> (8 * i)) & 0xFF for i in range(4)]
+            perm = a_bytes[k] | (a_bytes[0] << 8) | (b_bytes[k] << 16) | (a_bytes[0] << 24)
+            t = (perm & 0x000F000F) | 0x43004300
+            lo, hi = _bf16_value(np.uint32(t & 0xFFFF)), _bf16_value(np.uint32(t >> 16))
+            assert lo == 128 + (byte & 15) and hi == 128 + (byte >> 4)
+            for half, tv in ((0, lo), (1, hi)):
+                code = np.float32(tv) - np.float32(136)  # exact: a small integer
+                assert code == ((byte >> (4 * half)) & 15) - 8
+                got = _bf16_bits(code * _bf16_value(s_bits))  # the exact product, rounded once
+                want = torch.tensor(code).to(torch.bfloat16) * torch.from_numpy(_bf16_value(s_bits)).to(torch.bfloat16)
+                assert np.array_equal(got, want.view(torch.int16).numpy().astype(np.uint16).astype(np.uint32))
+
+
+def test_row_kernel_int8_pairs_are_the_plain_weights():
+    """The row kernel's INT8 dequantization, emulated bit for bit: a code
+    byte r (two's complement) masked to ``(r & 0x7F) | 0x4300`` is 128 + the
+    low 7 bits in bf16, its sign masked to ``(r & 0x80) | 0xC300`` is -128
+    (r ≥ 0) or -256 (r < 0), ``t·1 + c`` is the code exactly, and
+    ``code·s + (-0)`` rounded once is the plain version's weight, for every
+    code and scale; ``byte_perm(wa, wb, k | (k + 4) << 8)`` puts byte k of
+    wa in the low half and byte k of wb in the high half."""
+    rng = np.random.default_rng(5)
+    scales = np.concatenate([rng.uniform(1e-3, 2e-2, 64), 2.0 ** rng.integers(-12, 0, 8)]).astype(np.float32)
+    sb = torch.from_numpy(_bf16_value(_bf16_bits(scales))).to(torch.bfloat16)
+    for byte in range(256):
+        code = byte - 256 if byte >= 128 else byte
+        t = _bf16_value(np.uint32((byte & 0x7F) | 0x4300))
+        c = _bf16_value(np.uint32((byte & 0x80) | 0xC300))
+        assert c == (-256.0 if byte & 0x80 else -128.0)
+        assert np.float32(t) + np.float32(c) == code  # exact: a small integer
+        got = _bf16_bits(np.float32(code) * sb.float().numpy())  # the exact product, rounded once
+        want = torch.tensor(float(code)).to(torch.bfloat16) * sb
+        assert np.array_equal(got, want.view(torch.int16).numpy().astype(np.uint16).astype(np.uint32))
+    for k in range(4):
+        wa, wb = 0x11223344, 0xA5B6C7D8
+        perm = ((wa >> (8 * k)) & 0xFF) | ((wa & 0xFF) << 8) | (((wb >> (8 * k)) & 0xFF) << 16) | ((wa & 0xFF) << 24)
+        assert perm & 0x00FF00FF == ((wa >> (8 * k)) & 0xFF) | (((wb >> (8 * k)) & 0xFF) << 16)
+
+
+def _through_the_row_kernel(x, w, g, q4, splits, spb):
+    """x · W for one row taken the way the row kernel walks it: per split
+    and warp (``row_runs``' order), each 16-slot k-slice through the mma
+    maps (the A operand from the codes and scales, the B operand's column 0
+    from x, the other columns zero), a warp's slices summed in order, the
+    warps of a split in warp order, the splits in split order."""
+    n, d = w.shape
+    rows_of = mma_slot_rows(n, g, q4)
+    k_slots, cols = mma_k_slots(), mma_cols()
+    xb = x.to(torch.bfloat16).float()[0]
+    per_slice = 8 if q4 else 16
+    out = torch.zeros(d)
+    for c0 in range(0, d, 128):
+        wcols = c0 + cols
+        valid = wcols < d
+        total = torch.zeros(8, 16)
+        for split in row_runs(n, splits, spb, q4):
+            part = torch.zeros(8, 16)
+            for first, end in split:
+                acc = torch.zeros(8, 16)
+                for s0 in range(first // per_slice * 16, -(-end // per_slice) * 16, 16):
+                    slots = s0 + k_slots
+                    ok = slots < n
+                    slot = slots.clamp(max=n - 1)
+                    if q4:
+                        p, half = slot // 2, slot % 2
+                        code = ((w.q[p[None, None, :], wcols.clamp(max=d - 1)[..., None]].int() >> (4 * half)) & 15) - 8
+                        grp = p // (g // 2)
+                    else:
+                        code = w.q[slot[None, None, :], wcols.clamp(max=d - 1)[..., None]].int()
+                        grp = slot // g
+                    sc = w.scales[grp[None, None, :], wcols.clamp(max=d - 1)[..., None]]
+                    a = (code.to(torch.bfloat16) * sc).float() * ok
+                    acc += torch.einsum("mrk,k->mr", a, xb[rows_of[slot]] * ok)
+                part += acc
+            total += part
+        out[wcols[valid]] = total[valid]
+    return out[None]
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("g", [32, 64, 512])
+def test_row_kernel_maps_give_the_plain_product(bits, g):
+    """A one-row product taken through the row kernel's walk (its plan's
+    splits and warp runs, the mma maps) equals the plain version within f32
+    rounding: a wrong run would drop or repeat code rows, a wrong map pair a
+    weight with another slot's activation."""
+    rng = np.random.default_rng(g + 7 * bits)
+    n, d = 2048, 272
+    codes = rng.integers(-8 if bits == 4 else -127, 8 if bits == 4 else 128, (n, d)).astype(np.int8)
+    scales = torch.from_numpy(rng.uniform(1e-3, 2e-2, (n // g, d)).astype(np.float32)).to(torch.bfloat16)
+    w = (Q4Tensor(torch.from_numpy(pack_q4_np(codes, g)), scales) if bits == 4
+         else QuantizedTensor(torch.from_numpy(codes), scales))
+    x = torch.from_numpy(rng.normal(0, 1, (1, n)).astype(np.float32))
+    splits, spb = row_plan(n, d, g, bits == 4, 132, 2)
+    assert splits > 1  # the walk crosses splits
+    got = _through_the_row_kernel(x, w, g, bits == 4, splits, spb)
     ref = qmatmul_w8a16_plain(x, w)
     assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
