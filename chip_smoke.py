@@ -16,7 +16,8 @@ Phases, in order; any failure exits non-zero before the final line:
                from the kernel's own clock stamps; the Q4 variants of #3, #6, #7 and
                #11 on INT4-g64 codes; #6's column window at the 8B tp=2
                shard shapes, also bit for bit against a full launch's
-               columns; #4, #5, #9 and #10 at head_dim 256 and 640, #5 at
+               columns; #10's plan read back against ``window_units``;
+               #4, #5, #9 and #10 at head_dim 256 and 640, #5 at
                384 and 512; #3 by route at 1-256 rows over the four 8B
                projections, the CUDA-core, mma and tensor-core routes side
                by side at 1, 2, 3, 4, 8 and 16 rows and the row kernel at 1,
@@ -120,9 +121,13 @@ Phases, in order; any failure exits non-zero before the final line:
                -512 and -640 models through #4, #5, #9 and #10.
 
 Optional phases, run only when named: ``exact`` (exact mode's two paths
-alone) and ``decode`` (#1-#3 at one row and #4 at B=1 by route, with each
+alone), ``decode`` (#1-#3 at one row and #4 at B=1 by route, with each
 kernel's device time from torch.profiler, and the b=1 per-layer INT8 and
-INT4 steps' device time), both for comparing two trees in one call.
+INT4 steps' device time) and ``window`` (#10's 8B cases and its head_dim-256
+and -640 cases, #4 over an INT8 cache, the one-launch decode kernel's error
+over #4's card-test grids, and the prefix-cache path's TTFT and its
+continued windows' device time split into #10, the merge glue and the
+rest), each for comparing two trees in one call.
 
 Output: one JSON object per line.  The second-to-last lines hold the kernel
 table and the serve, tp and probes phases' numbers
@@ -149,7 +154,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 DEV = "cuda"
 PHASES = ("build", "kernels", "probes", "e2e", "serve", "cli", "tp", "parity")
-OPTIONAL_PHASES = ("exact", "decode")  # run only when named: subsets for comparisons of two trees in one call
+OPTIONAL_PHASES = ("exact", "decode", "window")  # run only when named: subsets for comparing two trees in one call
 
 # Published peaks of one H100 SXM (dense): the denominators of bound_ms.
 HBM_BYTES_PER_S = 3.35e12
@@ -496,19 +501,22 @@ def qmatmul_single_route_cases(torch, ctx) -> list[dict]:
     return out
 
 
-def flash_source(hd: int, t_max: int, dtype) -> str:
-    """The source of the kernel ``flash_decode`` launches at this head_dim,
-    cache length and cache type."""
+def flash_source(hd: int, t_max: int) -> str:
+    """The source of the kernel ``flash_decode`` launches at this head_dim
+    and cache length."""
     from qwen3_rs_tpu_torch.ops.kernels.flash_attention import one_launch_takes
 
-    return f"qwen3_rs_tpu_torch/csrc/{'paged_decode' if one_launch_takes(hd, t_max, dtype) else 'flash_decode'}.cu"
+    return f"qwen3_rs_tpu_torch/csrc/{'paged_decode' if one_launch_takes(hd, t_max) else 'flash_decode'}.cu"
 
 
-def flash_cases(torch, ctx) -> list[dict]:
-    """#4 at the 8B layer (B=1, T=4096) over f32, bf16 and INT8 caches, the
-    wrapper's kernel (the one-launch kernel here) beside the two-pass
-    kernel it replaced on these shapes, and the one-launch kernel's phase
-    stamps."""
+FLASH_SPECS = (("f32", 0), ("f32", 1), ("f32", 257), ("f32", 4095), ("bf16", 2049), ("int8", 2049))
+
+
+def flash_cases(torch, ctx, specs=FLASH_SPECS, phases: bool = True) -> list[dict]:
+    """#4 at the 8B layer (B=1, T=4096) over f32, bf16 and INT8 caches at
+    the positions of ``specs``, the wrapper's kernel (the one-launch kernel
+    here) beside the two-pass kernel it replaced on these shapes, and (with
+    ``phases``) the one-launch kernel's phase stamps."""
     import torch.nn.functional as F
 
     from qwen3_rs_tpu_torch.ops.kernels.flash_attention import (
@@ -519,7 +527,6 @@ def flash_cases(torch, ctx) -> list[dict]:
     c = qwen3_config("8b")
     t_max, n_kv, h, hd = 4096, c.n_kv_heads, c.n_heads, c.head_dim
     kv_mul = h // n_kv
-    specs = [("f32", 0), ("f32", 1), ("f32", 257), ("f32", t_max - 1), ("bf16", 2049), ("int8", 2049)]
     gen = torch.Generator(device=DEV)
     gen.manual_seed(4321)
     out = []
@@ -562,7 +569,7 @@ def flash_cases(torch, ctx) -> list[dict]:
             torch, lambda i: flash_decode_plain(q, kn, vn, k_all, v_all, pos, i % nl, **sc),
             reps=10, warmup=1,
         )
-        if p and cache != "int8":  # an INT8 cache keeps the two-pass kernel
+        if p and phases:
             emit({"phase": "kernels", "flash_decode_phases_us": flash_decode_phases(q, kn, vn, k_all, v_all, pos, 1, **sc),
                   "case": f"{cache} cache B=1 pos={p} T={t_max}"})
 
@@ -588,7 +595,7 @@ def flash_cases(torch, ctx) -> list[dict]:
         b_ms, b_by = bound(nbytes, 4.0 * h * (p + 1) * hd, "f32")
         out.append({
             "name": "flash_decode", "case": f"{cache} cache pos={p} T={t_max}", "route": "cuda",
-            "source": flash_source(hd, t_max, k_all.dtype),
+            "source": flash_source(hd, t_max),
             "replaces": "qwen3_rs_tpu/ops/pallas/flash_attention.py:212 flash_gqa_decode_stacked",
             "shape": {"B": 1, "heads": h, "kv_heads": n_kv, "hd": hd, "T": t_max, "pos": p},
             "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
@@ -727,7 +734,9 @@ def head_dim_cases(torch, ctx) -> list[dict]:
     return _head_dim_cases(torch, ctx, 256, (256, 384, 512)) + _head_dim_cases(torch, ctx, 640, (640,))
 
 
-def _head_dim_cases(torch, ctx, hd: int, prefill_hds) -> list[dict]:
+def _head_dim_cases(torch, ctx, hd: int, prefill_hds, labels: bool = True) -> list[dict]:
+    """``head_dim_cases`` at one head_dim; ``labels`` False leaves #10's
+    source unnamed (the name needs this tree's route function)."""
     import torch.nn.functional as F
 
     from qwen3_rs_tpu_torch.ops.kernels.flash_attention import flash_decode, flash_decode_plain
@@ -766,7 +775,7 @@ def _head_dim_cases(torch, ctx, hd: int, prefill_hds) -> list[dict]:
     lib_ms = device_ms(torch, lambda i: F.scaled_dot_product_attention(q[:, :, None], kk, vv, attn_mask=m))
     nbytes = 2 * n_kv * sum(pos_list) * hd * 2 + (2 * q.numel() + kn.numel() + vn.numel()) * 4 + b * 4
     b_ms, b_by = bound(nbytes, 4.0 * h * sum(p + 1 for p in pos_list) * hd, "f32")
-    out.append(_row(ctx, "flash_decode", f"head_dim {hd}, bf16 cache B={b} T={t}", flash_source(hd, t, torch.bfloat16),
+    out.append(_row(ctx, "flash_decode", f"head_dim {hd}, bf16 cache B={b} T={t}", flash_source(hd, t),
                     "qwen3_rs_tpu/ops/pallas/flash_attention.py:212 flash_gqa_decode_stacked",
                     {"B": b, "heads": h, "kv_heads": n_kv, "hd": hd, "T": t, "pos": pos_list}, err, tol, ms, plain_ms,
                     nbytes, b_ms, b_by, lib_ms, "F.scaled_dot_product_attention, K/V prepared beforehand"))
@@ -838,6 +847,12 @@ def _head_dim_cases(torch, ctx, hd: int, prefill_hds) -> list[dict]:
         t_ = 1e-4 * float(e[fin].abs().max())
         need(d_ <= t_, f"paged_window_partials head_dim {hd}: off by {d_} > {t_}")
         err, tol = max(err, d_), max(tol, t_)
+    if labels:
+        from qwen3_rs_tpu_torch.ops.kernels.paged_attention import paged_window_phases, window_split_takes
+
+        if window_split_takes(hd, page, kpool.dtype):
+            emit({"phase": "kernels", "paged_window_phases_us": paged_window_phases(qw, kpool, vpool, table, pos, 1),
+                  "case": f"head_dim {hd}, bf16 pool B={b} S={sw}"})
     ms = device_ms(torch, lambda i: paged_window_partials(qw, kpool, vpool, table, pos, i % 2))
     plain_ms = device_ms(torch, lambda i: paged_window_partials_plain(qw, kpool, vpool, table, pos, i % 2),
                          reps=5, warmup=1)
@@ -846,9 +861,9 @@ def _head_dim_cases(torch, ctx, hd: int, prefill_hds) -> list[dict]:
     lib_ms = device_ms(torch, lambda i: F.scaled_dot_product_attention(qt, kc, vc, attn_mask=mask_rows(t), enable_gqa=True))
     r = sw * kv_mul
     nbytes = read + qw.numel() * 4 + b * n_kv * r * (hd + 2) * 4
-    b_ms, b_by = bound(nbytes, 4.0 * h * sw * sum(pos_list) * hd, "f32")
+    b_ms, b_by = bound(nbytes, 4.0 * h * sw * sum(pos_list) * hd, "bf16")  # #10's products: tensor cores
     out.append(_row(ctx, "paged_window_partials", f"head_dim {hd}, bf16 pool B={b} S={sw} (R={r})",
-                    "qwen3_rs_tpu_torch/csrc/paged_attention.cu",
+                    paged_window_source(hd, page, torch.bfloat16) if labels else None,
                     "qwen3_rs_tpu/ops/pallas/paged_attention.py:437 paged_gqa_window_stacked (_partials_kernel :287)",
                     {"B": b, "S": sw, "R": r, "heads": h, "kv_heads": n_kv, "hd": hd, "page": page, "pos": pos_list},
                     err, tol, ms, plain_ms, nbytes, b_ms, b_by, lib_ms,
@@ -1259,14 +1274,26 @@ def paged_decode_cases(torch, ctx) -> list[dict]:
     return out
 
 
-def paged_window_cases(torch, ctx) -> list[dict]:
+def paged_window_source(hd: int, page: int, dtype) -> str:
+    """The source of the kernel ``paged_window_partials`` launches at this
+    head_dim, page size and pool type."""
+    from qwen3_rs_tpu_torch.ops.kernels.paged_attention import window_split_takes
+
+    return f"qwen3_rs_tpu_torch/csrc/{'paged_decode' if window_split_takes(hd, page, dtype) else 'paged_attention'}.cu"
+
+
+def paged_window_cases(torch, ctx, plan: bool = True) -> list[dict]:
     """Paged window partials (#10) at 8B shapes: S = 32 (R = 128 query rows
     per kv head) and S = 4 at mixed positions, 0 included, over bf16 and
-    INT8 pools."""
+    INT8 pools; with ``plan`` (this tree's entry points) the plan the
+    window kernel's blocks make, read back against ``window_units``, and
+    each row's source."""
     import torch.nn.functional as F
 
-    from qwen3_rs_tpu_torch.ops.kernels.paged_attention import paged_window_partials, paged_window_partials_plain
+    from qwen3_rs_tpu_torch.ops.kernels import paged_attention as pa
     from qwen3_rs_tpu_torch.testing import paged_read_bytes
+
+    paged_window_partials, paged_window_partials_plain = pa.paged_window_partials, pa.paged_window_partials_plain
 
     gen = torch.Generator(device=DEV)
     gen.manual_seed(8642)
@@ -1289,6 +1316,13 @@ def paged_window_cases(torch, ctx) -> list[dict]:
             t = 1e-4 * float(e[fin].abs().max())
             need(float((a[fin] - e[fin]).abs().max()) <= t, f"paged_window_partials {pool} S={s}: off by more than {t}")
             tol = max(tol, t)
+        if plan:  # the plan the window kernel's blocks made from the positions, against window_units
+            grid = pa.window_split_grid(q.device, k.dtype, hd, b, n_kv, r)
+            units = pa.paged_window_kernel_plan(pos, n_kv, r, 128, table.shape[1], grid)
+            need(units == pa.window_units(pos_list, n_kv, r, 128, table.shape[1], grid),
+                 f"paged_window_partials {pool} S={s}: the kernel's plan differs from window_units")
+            emit({"phase": "kernels", "paged_window_plan": f"{pool} pool B={b} S={s} (R={r})", "grid": grid,
+                  "units": len(units), "paged_window_phases_us": pa.paged_window_phases(q, k, v, table, pos, 1, **sc)})
         ms = device_ms(torch, lambda i: paged_window_partials(q, k, v, table, pos, i % nl, **sc))
         plain_ms = device_ms(torch, lambda i: paged_window_partials_plain(q, k, v, table, pos, i % nl, **sc),
                              reps=10, warmup=1)
@@ -1303,9 +1337,10 @@ def paged_window_cases(torch, ctx) -> list[dict]:
         del lib
         nbytes = (paged_read_bytes(pos_list, n_kv, hd, esz) + q.numel() * 4 + b * n_kv * r * (hd + 2) * 4
                   + table.numel() * 4 + b * 4)
-        b_ms, b_by = bound(nbytes, 4.0 * h * s * sum(pos_list) * hd, "f32")
+        b_ms, b_by = bound(nbytes, 4.0 * h * s * sum(pos_list) * hd, "bf16")  # the products on the tensor cores
         out.append(_row(
-            ctx, "paged_window_partials", f"{pool} pool B={b} S={s} (R={r})", "qwen3_rs_tpu_torch/csrc/paged_attention.cu",
+            ctx, "paged_window_partials", f"{pool} pool B={b} S={s} (R={r})",
+            paged_window_source(hd, 128, k.dtype) if plan else None,
             "qwen3_rs_tpu/ops/pallas/paged_attention.py:437 paged_gqa_window_stacked (_partials_kernel :287)",
             {"B": b, "S": s, "R": r, "heads": h, "kv_heads": n_kv, "hd": hd, "page": 128, "pos": pos_list},
             err, tol, ms, plain_ms, nbytes, b_ms, b_by, lib_ms,
@@ -1662,10 +1697,10 @@ def one_launch_error_grid(torch, ctx) -> dict:
     ``flash_decode_plain`` over the card tests' grids of #4 (T = 208 at
     kv_mul 1-16 and pos 0/1/127/128/129/T; T = 512, kv_mul 4, head_dim
     128/256, B = 1 and 3), each cache type on the same inputs as its test
-    (the tests' seeds and order of draws; INT8 caches, which ``flash_decode``
-    keeps on the two-pass kernel, through ``paged_decode`` on the dense layer
-    viewed as pages), and the error of ``flash_decode`` (the wrapper's route)
-    on the same inputs."""
+    (the tests' seeds and order of draws), through ``paged_decode`` on the
+    dense layer viewed as pages, and the error of ``flash_decode`` (the
+    wrapper's route: the same kernel since every cache type takes it, the
+    two-pass kernel on an older tree's INT8 caches) on the same inputs."""
     from qwen3_rs_tpu_torch.ops.kernels import flash_attention as fa
     from qwen3_rs_tpu_torch.ops.kernels.paged_attention import paged_decode
 
@@ -1749,6 +1784,28 @@ def phase_decode(torch, ctx) -> None:
     ctx["decode"] = {"one_row": one_row_breakdown(torch, ctx), "dense_decode": dense_decode_breakdown(torch, ctx),
                      "paged_decode": paged_decode_cases(torch, ctx), "error_grid": one_launch_error_grid(torch, ctx),
                      "step_profiles": decode_step_profiles(torch, ctx)}
+
+
+def phase_window(torch, ctx) -> None:
+    """#10 and #4's INT8 row alone (``--phases build,window``), through
+    entry points that every tree of the port has, so that this file, copied
+    into an older checkout, times that checkout's kernels in the same call:
+    #10's 8B cases and its head_dim-256 and -640 cases (with #4 and #9's
+    there), #4 over an INT8 cache at pos 2049, #9's kernel-table cases (its
+    INT8 pool's stage shares #4's), the one-launch decode kernel's error
+    over #4's card-test grids, and the prefix-cache path's TTFT and its
+    continued windows' device time by part."""
+    ctx["window"] = {
+        "paged_window": paged_window_cases(torch, ctx, plan=False),
+        "paged_decode": paged_decode_cases(torch, ctx),
+        "head_dims": (_head_dim_cases(torch, ctx, 256, (), labels=False)
+                      + _head_dim_cases(torch, ctx, 640, (), labels=False)),
+        "flash_int8": flash_cases(torch, ctx, specs=(("int8", 2049),), phases=False),
+        "error_grid": one_launch_error_grid(torch, ctx),
+    }
+    cfg, weights, _ = model_8b(torch, ctx)
+    ctx["window"]["prefix_cache"] = serve_prefix_path(torch, ctx, cfg, weights)
+    ctx["window"]["prefix_windows"] = prefix_window_breakdown(torch, ctx, cfg, weights)
 
 
 def phase_kernels(torch, ctx) -> None:
@@ -3101,32 +3158,51 @@ def stream_partings(torch, cfg, weights, traffic, ref: dict, got: dict, tol: flo
     return {"requests": len(ref), "equal": len(ref) - len(parts), "tol": tol, "partings": parts}
 
 
+def _prefix_traffic(cfg) -> tuple[list[int], list[list[int]]]:
+    """The prefix-cache path's requests: a 512-token prefix, then a 16-token
+    suffix and 15 distinct 8-24-token ones (seed SEED + 5)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 5)
+    prefix = [int(t) for t in rng.integers(3, cfg.vocab_size - 2, 512)]
+    return prefix, [[int(t) for t in rng.integers(3, cfg.vocab_size - 2, n)] for n in [16] + list(rng.integers(8, 25, 15))]
+
+
+def _prefix_engine(cfg, weights):
+    from qwen3_rs_tpu_torch.serving import ContinuousBatchingEngine
+
+    engine = ContinuousBatchingEngine(config=cfg, weights=weights, n_slots=8, kv_layout="paged", page_size=128,
+                                      prefix_cache=True, device=DEV)
+    engine.warmup()
+    return engine
+
+
+def _prefix_run(engine, prefix, suffixes) -> list:
+    """The first request alone for one step, then the 15 hits; run to the end."""
+    from qwen3_rs_tpu_torch.serving import Request
+
+    engine.submit(Request(0, prefix + suffixes[0], max_new_tokens=32, eos_token_ids=()))
+    engine.step()
+    for i, suf in enumerate(suffixes[1:], 1):
+        engine.submit(Request(i, prefix + suf, max_new_tokens=32, eos_token_ids=()))
+    return engine.run()
+
+
 def serve_prefix_path(torch, ctx, cfg, weights) -> dict:
     """One request with a 512-token prefix and a 16-token suffix, one step;
     then 15 with the same prefix and distinct 8-24-token suffixes: every
     later admission adopts the prefix's 4 pages and prefills its suffix in a
     continued window through the paged window kernel (#10)."""
-    import numpy as np
-
     from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES, reset_launches
-    from qwen3_rs_tpu_torch.serving import ContinuousBatchingEngine, Request
 
-    rng = np.random.default_rng(SEED + 5)
-    prefix = [int(t) for t in rng.integers(3, cfg.vocab_size - 2, 512)]
-    suffixes = [[int(t) for t in rng.integers(3, cfg.vocab_size - 2, n)] for n in [16] + list(rng.integers(8, 25, 15))]
-    engine = ContinuousBatchingEngine(config=cfg, weights=weights, n_slots=8, kv_layout="paged", page_size=128,
-                                      prefix_cache=True, device=DEV)
-    engine.warmup()
+    prefix, suffixes = _prefix_traffic(cfg)
+    engine = _prefix_engine(cfg, weights)
     recs: list = []
     _instrument_engine(torch, engine, recs)
     n = cfg.n_layers
     reset_launches()  # this path's run starts here
     t0 = time.perf_counter()
-    engine.submit(Request(0, prefix + suffixes[0], max_new_tokens=32, eos_token_ids=()))
-    engine.step()
-    for i, suf in enumerate(suffixes[1:], 1):
-        engine.submit(Request(i, prefix + suf, max_new_tokens=32, eos_token_ids=()))
-    done = engine.run()
+    done = _prefix_run(engine, prefix, suffixes)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)  # and ends here
@@ -3145,9 +3221,71 @@ def serve_prefix_path(torch, ctx, cfg, weights) -> dict:
     res = {"requests": 16, "prefix_hits": stats["prefix_hits"], "prefix_rows_reused": stats["prefix_rows_reused"],
            "continued_windows": [(r["rows"], r["seconds"] * 1e3) for r in cont],
            "first_window": (windows[0]["rows"], windows[0]["seconds"] * 1e3),
-           "ttft_p50_ms_hits": statistics.median(ttft) * 1e3, "wall_s": wall,
+           "ttft_p50_ms_hits": statistics.median(ttft) * 1e3,
+           "ttft_p90_ms_hits": statistics.quantiles(ttft, n=10)[-1] * 1e3, "wall_s": wall,
            "tok_per_s": sum(len(r.generated) for r in done) / wall, "launches": launches}
     emit({"phase": "serve", "run": "prefix cache", **res})
+    del engine
+    torch.cuda.empty_cache()
+    return res
+
+
+WINDOW_KERNEL_NAMES = ("paged_window_kernel", "paged_partial_kernel", "window_merge_kernel")  # #10's, any tree
+
+
+def prefix_window_breakdown(torch, ctx, cfg, weights) -> dict:
+    """Where the prefix-cache path's continued windows spend device time:
+    ``serve_prefix_path``'s 16 requests on a fresh engine, each continued
+    window under torch.profiler on its own, its device time (kernels,
+    copies and fills) split into #10 (the window kernel, or the two-pass
+    kernels' two passes), the merge glue (what ``_merge_window`` launches)
+    and the rest (projections, norms, RoPE, cache writes); through entry
+    points every tree has."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES
+    from qwen3_rs_tpu_torch.ops.kernels import paged_attention as pa
+
+    prefix, suffixes = _prefix_traffic(cfg)
+    engine = _prefix_engine(cfg, weights)
+    merge_fn, prefill_fn = pa._merge_window, engine._prefill_paged
+    windows = []
+
+    def merge(*a, **k):
+        with record_function("window_merge_glue"):
+            return merge_fn(*a, **k)
+
+    def prefill(*a, **k):  # _prefill_paged(tokens, out_idx, tables, pos): pos None for a fresh window
+        if len(a) <= 3 or a[3] is None:
+            return prefill_fn(*a, **k)
+        before = LAUNCHES["paged_window_partials"]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = prefill_fn(*a, **k)
+            torch.cuda.synchronize()
+        events = prof.events()
+        dev = [e for e in events if e.device_type == DeviceType.CUDA and e.name != "window_merge_glue"]
+        glue = [e for e in events if e.device_type == DeviceType.CPU and e.name == "window_merge_glue"]
+        total = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+        w10 = sum(e.time_range.elapsed_us() for e in dev if any(n in e.name for n in WINDOW_KERNEL_NAMES)) / 1e3
+        mg = sum(getattr(e, "device_time_total", 0.0) for e in glue) / 1e3
+        windows.append({"rows": int(a[0].shape[1]), "batch": int(a[0].shape[0]), "device_ms": total,
+                        "window_kernel_ms": w10, "merge_glue_ms": mg, "rest_ms": total - w10 - mg,
+                        "device_ops": len(dev), "paged_window_launches": LAUNCHES["paged_window_partials"] - before})
+        return out
+
+    pa._merge_window, engine._prefill_paged = merge, prefill
+    try:
+        done = _prefix_run(engine, prefix, suffixes)
+    finally:
+        pa._merge_window = merge_fn
+    need(len(done) == 16 and windows and all(w["paged_window_launches"] == cfg.n_layers for w in windows),
+         f"prefix windows: {len(done)} done, {[w['paged_window_launches'] for w in windows]} #10 launches a window")
+    keys = ("device_ms", "window_kernel_ms", "merge_glue_ms", "rest_ms")
+    res = {"windows": windows, "sum": {k: sum(w[k] for w in windows) for k in keys},
+           "rows": sum(w["rows"] * w["batch"] for w in windows)}
+    emit({"phase": "window", "prefix_windows": res})
     del engine
     torch.cuda.empty_cache()
     return res
@@ -4090,7 +4228,8 @@ def main(argv=None) -> int:
                 phase_probes(torch, ctx)
             else:
                 {"e2e": phase_e2e, "serve": phase_serve, "cli": phase_cli, "tp": phase_tp,
-                 "parity": phase_parity, "exact": phase_exact, "decode": phase_decode}[name](torch, ctx)
+                 "parity": phase_parity, "exact": phase_exact, "decode": phase_decode,
+                 "window": phase_window}[name](torch, ctx)
             emit({"phase": name, "done": True, "seconds": time.perf_counter() - t0})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4106,7 +4245,7 @@ def main(argv=None) -> int:
         need(not idle, f"no path launched {idle}")
     rows = [dict(r, launches=launches[r["name"]]) for r in ctx.get("kernel_rows", [])]
     emit({"kernels": rows, "e2e": ctx.get("e2e"), "serve": ctx.get("serve"), "tp": ctx.get("tp"),
-          "probes": ctx.get("probes"), "decode": ctx.get("decode"),
+          "probes": ctx.get("probes"), "decode": ctx.get("decode"), "window": ctx.get("window"),
           "total_seconds": time.perf_counter() - t_all})
     print(ctx.get("smi") or subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

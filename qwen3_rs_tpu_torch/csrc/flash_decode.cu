@@ -7,6 +7,8 @@
 //   out = softmax([q.k_self, q.K[0:pos]] / sqrt(hd)) . [v_self; V[0:pos]].
 // f32, bf16 and INT8 caches; for INT8 the per-row K scale multiplies the score before the
 // max and the per-row V scale multiplies the probability before P.V, as the Pallas kernel.
+// At head_dim 128 and 256 with a cache of a multiple of 16 rows the flash_decode wrapper takes
+// paged_decode.cu's one-launch kernel for every cache type; this kernel takes the other shapes.
 //
 // Bound on the H100: bytes.  Every valid cache row is read once (2 * pos * hd elements per
 // kv head), against ~4 flops per element.

@@ -1,26 +1,38 @@
-// Paged decode attention for Hopper (sm_90a) at head_dim 128 and 256: one launch a call.
+// Paged attention for Hopper (sm_90a) at head_dim 128 and 256, one launch a call: the decode kernel
+// and the window kernel.
 //
-// Replaces the reference package's Pallas kernel
-//   qwen3_rs_tpu/ops/pallas/paged_attention.py::paged_gqa_decode_stacked
-// at these head_dims (paged_attention.cu keeps the two-pass kernels for the others).  The pool of one
-// layer is [P, n_kv, page, hd]; cache row t of request b lives in page table[b, t / page] at page row
-// t % page, and only rows t < pos[b] are valid.  For request b and kv head h the kv_mul query heads of
-// h (pre-scaled by 1/sqrt(hd)) attend over those rows and over the step's own key and value:
-//     out = softmax([q.k_self, q.K[0:pos]]) . [v_self; V[0:pos]].
-// INT8 pools: the per-row K scale multiplies the score, the V scale the probability after l takes it.
+// Replaces the reference package's Pallas kernels
+//   qwen3_rs_tpu/ops/pallas/paged_attention.py::paged_gqa_decode_stacked   (paged_decode_kernel)
+//   qwen3_rs_tpu/ops/pallas/paged_attention.py::paged_gqa_window_stacked   (paged_window_kernel: its
+//                                                                           _partials_kernel)
+// at these head_dims (paged_attention.cu keeps the two-pass kernels for the others, and for windows
+// over f32 pools).  The pool of one layer is [P, n_kv, page, hd]; cache row t of request b lives in
+// page table[b, t / page] at page row t % page, and only rows t < pos[b] are valid.  INT8 pools: the
+// per-row K scale multiplies the score, the V scale the probability after l takes it.
+//  * decode: for request b and kv head h the kv_mul query heads of h (pre-scaled by 1/sqrt(hd))
+//    attend over those rows and over the step's own key and value:
+//        out = softmax([q.k_self, q.K[0:pos]]) . [v_self; V[0:pos]].
+//  * window: R = S * kv_mul rows of a window ((mul, s) order, R <= 128) attend over the cache rows,
+//    one mask for every row; the kernel returns the unnormalised partials of that part,
+//        m = max_t s_t,  l = sum_t exp(s_t - m),  acc = sum_t exp(s_t - m) v_t,
+//    with m = -inf, l = 0 and acc = 0 where pos[b] = 0; the caller merges them with the causal
+//    attention inside the window.
 //
-// Bound on the H100: bytes (each valid row read once for 2 * hd elements, against 4 * kv_mul flops per
-// element).  What the design does about it:
+// Bound on the H100: bytes for the decode (each valid row read once for 2 * hd elements, against
+// 4 * kv_mul flops per element); for the window the bytes too as long as every query row shares each
+// K/V row read (4 * R flops per element, on the tensor cores; with q and P in two bf16 terms each
+// product is computed twice).  What the design does about it:
 //  * one launch: a fixed grid of blocks, as many as fit the card (at least one per request, kv head
-//    and head tile).  Every block reads the positions and makes the same plan from them: the live
-//    rows of every request are cut into splits of `span` rows, the least multiple of 16 for which the
-//    splits fit the grid, so that the live rows of the whole batch spread over every SM, and block u
-//    takes unit u in (request, kv head, head tile, split) order (warp 0 plans from the positions in
-//    registers while the producer warp prefetches the tensor maps).  Its partial (m, l, acc) goes to a
-//    workspace slot; the last block of a (request, kv head, head tile) to arrive merges the splits in
-//    split order, seeded with the self key as the Pallas kernel (m = q.k_self, l = 1, acc = v_self),
-//    and normalises.  The result does not depend on scheduling, and the arrival counters are left at
-//    zero, so a CUDA graph can replay the launch;
+//    and head tile, or row tile of the window).  Every block reads the positions and makes the same
+//    plan from them: the live rows of every request are cut into splits of `span` rows, the least
+//    multiple of 16 for which the splits fit the grid, so that the live rows of the whole batch
+//    spread over every SM, and block u takes unit u in (request, kv head, tile, split) order (warp 0
+//    plans from the positions in registers while the producer warp prefetches the tensor maps).  Its
+//    partial (m, l, acc) goes to a workspace slot; the last block of a (request, kv head, tile) to
+//    arrive merges the splits in split order: the decode seeded with the self key as the Pallas
+//    kernel (m = q.k_self, l = 1, acc = v_self) and normalised, the window with the reference's
+//    isfinite guards and left unnormalised.  The result does not depend on scheduling, and the
+//    arrival counters are left at zero, so a CUDA graph can replay the launch;
 //  * whole pages copied in bulk: a producer warp fills a ring of stages with TMA copies of 16-row
 //    boxes of a (page, kv head) slab (the slab is contiguous; a box is 16 rows by one 128-byte band
 //    of the row, with the 128-byte swizzle, so that the compute reads it free of bank conflicts), up
@@ -28,10 +40,11 @@
 //    producer reads the block's page ids once, 32 at a time, one per lane; without a table (a dense
 //    layer [B, n_kv, T, hd] viewed as B pages of T rows, the flash_decode wrapper's call) request
 //    b's page is b and nothing is read before the first copy;
-//  * no shuffle per score: the stage compute follows the pool's type:
+//  * no shuffle per score: the decode's stage compute follows the pool's type:
 //      - bf16 and INT8 pools (kMma): the kv head's query heads against the stage on the tensor cores
 //        (mma.sync m16n8k16, cache rows on the 16-row side, the heads padded to 8): q and P are split
-//        into bf16 hi + lo, so the f32 tolerance holds; the K and V tiles come by ldmatrix from the
+//        into bf16 terms (two; three for an INT8 dense layer, which then holds #4's 1e-5), so the f32
+//        tolerance holds; the K and V tiles come by ldmatrix from the
 //        swizzled stage (INT8 codes converted to bf16 in registers, exactly; their scales go on in
 //        f32).  On the card it beat one cache row a lane on the CUDA cores at B = 8 on a bf16 pool,
 //        so the CUDA cores are not built for these pools;
@@ -45,12 +58,24 @@
 //    merge loads 16 splits' partials at once, unconditionally (the last run's spare slots reload the
 //    last split and weigh 0), and rescales its sums once a run, so that each split's weight is an exp
 //    of its own (merged one by one, each exp waited on the one before; a loop's remainder issued
-//    the last run's loads one by one, and loads behind a condition each ran slower on the card).
+//    the last run's loads one by one, and loads behind a condition each ran slower on the card);
+//  * the window: all R query rows of a (request, kv head) share each K/V row the block reads (the
+//    two-pass kernel read every row once per 8 query rows): a block takes a tile of 64 rows (R = 128
+//    in two tiles), its q as bf16 hi + lo in shared memory, and its four consumer warps, one
+//    warpgroup, compute each stage's S = Q . K^T and O += P . V on wgmma (P's hi and lo as the
+//    register operand, straight from S's accumulators).  An INT8 stage is converted to bf16 once, in
+//    shared memory, each warp its 16 rows.  Splits are at least 128 rows (a split's partial is a
+//    tile of rows by hd), and the last block weighs each split once a row before it sums the
+//    columns.  A first version on mma.sync (each warp 16 query rows against a share of each stage's
+//    rows, every warp converting the INT8 codes it read) was slower on the card at every 8B window
+//    but S = 4 over an INT8 pool, where the two were level.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "attention_wgmma.cuh"
 
 namespace {
 
@@ -78,6 +103,11 @@ struct Args {
   unsigned long long* stamps;      // [grid, kStamps] global ns of each block's phases, or null
   int B, n_kv, kv_mul, qm, page, max_pages;
   float scale;
+  // The window kernel: q is the window [B, S, n_kv * kv_mul, HD] (row r = (mul, s) of kv head h is
+  // q[b, s, h * kv_mul + mul]; R = S * kv_mul), out its acc [B, n_kv, R, HD], and out_m / out_l its m
+  // and l [B, n_kv, R].
+  int R, S;
+  float *out_m, *out_l;
 };
 
 // One block's share: request b, kv head h, head tile `tile`, split s of n_s, rows [lo, hi); slot:
@@ -189,11 +219,11 @@ __device__ __forceinline__ int swz(int r, int c) { return r * kBandBytes + ((c ^
 
 __device__ __forceinline__ int live_rows(const Args& a, int b) { return min(max(__ldg(a.pos + b), 0), a.max_pages * a.page); }
 
-// The plan (every block makes the same one, in its warp 0): the least span, a multiple of 16, whose
-// splits fit the grid, then unit u's place in it.  Returns false if u is past the last unit.  Lane
-// l holds the live rows of requests l, l + 32, l + 64 and l + 96 in registers (read once); requests
-// past 128 are read again at each step.
-__device__ bool plan_unit(const Args& a, int tiles, int u, Unit& out) {
+// The plan (every block makes the same one, in its warp 0): the least span, a multiple of 16 and at
+// least min_boxes boxes (or the longest request's rows), whose splits fit the grid, then unit u's
+// place in it.  Returns false if u is past the last unit.  Lane l holds the live rows of requests l,
+// l + 32, l + 64 and l + 96 in registers (read once); requests past 128 are read again at each step.
+__device__ bool plan_unit(const Args& a, int tiles, int min_boxes, int u, Unit& out) {
   constexpr int kRegs = 4;
   const int lane = threadIdx.x & 31, per = a.n_kv * tiles;
   int pr[kRegs];
@@ -210,7 +240,7 @@ __device__ bool plan_unit(const Args& a, int tiles, int u, Unit& out) {
       if (32 * c + lane < a.B) n += max(1, (live(c) + span - 1) / span);
     return (int)__reduce_add_sync(0xffffffffu, (unsigned)n) * per;
   };
-  int lo = 1, hi = max(1, (maxp + kBox - 1) / kBox);  // in boxes; at hi every request is one split
+  int hi = max(1, (maxp + kBox - 1) / kBox), lo = min(min_boxes, hi);  // in boxes; at hi every request is one split
   while (lo < hi) {
     const int mid = (lo + hi) / 2;
     if (units(mid * kBox) <= (int)gridDim.x) hi = mid;
@@ -257,7 +287,7 @@ __device__ __forceinline__ int stage_rows(const Args& a, const Unit& u, int t) {
 }
 
 // --------------------------------------------------------------------------------- producer
-template <typename T, int HD, int R>
+template <typename T, int HD, int R, int NST>
 __device__ void produce(const Args& a, const Unit& u, uint8_t* ring, uint32_t bars) {
   using S = Shape<T, HD, R>;
   const int lane = threadIdx.x & 31;
@@ -293,7 +323,7 @@ __device__ void produce(const Args& a, const Unit& u, uint8_t* ring, uint32_t ba
       bulk_copy(dst + 2 * S::kKvBytes + lane * S::kT * 4, src, srows * 4, full);
     }
     if (t == u.lo && lane == 0) stamp(a, 2);
-    if (++stage == S::kStages) {
+    if (++stage == NST) {
       stage = 0;
       phase ^= 1u;
     }
@@ -457,14 +487,25 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// x = hi + lo in bf16, hi the nearest bf16.
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
+// x as the sum of N bf16 terms, each the nearest bf16 to what the terms before it leave (exactly in
+// f32: x minus a nearest bf16 is an f32).  Two terms hold x to ~2^-17 of its value; three hold every
+// bit of an f32 (8 + 8 + 8 significant bits).  paged_attention.bf16_terms is the same split in Python.
+template <int N>
+__device__ __forceinline__ void split_terms(float x0, float x1, uint32_t* out) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    out[i] = *reinterpret_cast<const uint32_t*>(&h);
+    const float2 hf = __bfloat1622float2(h);
+    x0 -= hf.x;
+    x1 -= hf.y;
+  }
 }
 
+// Terms of q and P on the decode's mma route (TERMS): two for bf16 and INT8 pools (#9, held to
+// 1e-4·max|ref|), three for an INT8 dense layer (#4's call, held to 1e-5, which two missed on the card;
+// three were slower on #9's INT8 pool, so the pool keeps two).
+constexpr int kExactInt8 = 3;  // the cache type of an INT8 layer on three terms
 // The mma route's state of a warp: m and l of heads 2t, 2t+1 (t = lane % 4), and O^T [HD x 8 heads]
 // as HD / 16 accumulator tiles.
 template <int HD>
@@ -481,15 +522,16 @@ __device__ __forceinline__ uint32_t i8_pair(uint32_t xu) {
   return pack_bf16(a, b);
 }
 
-// One stage on the tensor cores, the warp's 16 rows [16 w, 16 w + 16): S^T = K . q^T (hi and lo of
-// q, two accumulator chains), the online softmax, O^T += V^T . P^T (hi and lo of P).  qf: q's B
-// fragments, hi then lo.  bf16 rows: fragment tile mt holds head_dim columns 16 mt + g (+ 8).  INT8
+// One stage on the tensor cores, the warp's 16 rows [16 w, 16 w + 16): S^T = K . q^T (each of q's
+// NT terms, NT accumulator chains), the online softmax, O^T += V^T . P^T (each of P's NT terms).
+// qf: q's B fragments, term by term.  bf16 rows: fragment tile mt holds head_dim columns 16 mt + g
+// (+ 8).  INT8
 // rows: the codes are converted to bf16 (exact) in registers; a 32-column tile pair takes K's
 // columns 4t .. 4t + 3 of each 16 as k slots 2t, 2t + 1, 2t + 8, 2t + 9 (q's fragments follow), and
 // V's even and odd columns as two fragment tiles: tile 2 cp + e holds columns 32 cp + 2 g + e (+ 16).
 // The row scales: K's multiplies the score, V's the probability.
-template <typename T, int HD>
-__device__ __forceinline__ void stage_mma(uint8_t* st, int n, int w, const uint32_t (&qf)[2][HD / 16][2],
+template <typename T, int HD, int NT>
+__device__ __forceinline__ void stage_mma(uint8_t* st, int n, int w, const uint32_t (&qf)[NT][HD / 16][2],
                                           SoftMma<HD>& sm) {
   using S = Shape<T, HD, kMma>;
   constexpr bool kI8 = S::kQuant;
@@ -505,7 +547,7 @@ __device__ __forceinline__ void stage_mma(uint8_t* st, int n, int w, const uint3
     __syncwarp();
   }
   const uint32_t kbase = smem_u32(st), vbase = kbase + S::kKvBytes;
-  float ch[4] = {0.f, 0.f, 0.f, 0.f}, cl[4] = {0.f, 0.f, 0.f, 0.f};
+  float c[NT][4] = {};
   const int mi = lane >> 3;
   if constexpr (kI8) {
     const int row = r0 + (lane & 7) + 8 * (mi & 1), half = mi >> 1;
@@ -520,8 +562,8 @@ __device__ __forceinline__ void stage_mma(uint8_t* st, int n, int w, const uint3
       for (int h = 0; h < 2; ++h) {  // chunk kk + h: matrices 2 h (rows 0-7) and 2 h + 1 (rows 8-15)
         const uint32_t a[4] = {i8_pair<0, 1>(x[2 * h]), i8_pair<0, 1>(x[2 * h + 1]), i8_pair<2, 3>(x[2 * h]),
                                i8_pair<2, 3>(x[2 * h + 1])};
-        mma_bf16(ch, a, qf[0][kk + h][0], qf[0][kk + h][1]);
-        mma_bf16(cl, a, qf[1][kk + h][0], qf[1][kk + h][1]);
+#pragma unroll
+        for (int i = 0; i < NT; ++i) mma_bf16(c[i], a, qf[i][kk + h][0], qf[i][kk + h][1]);
       }
     }
   } else {
@@ -531,8 +573,8 @@ __device__ __forceinline__ void stage_mma(uint8_t* st, int n, int w, const uint3
       const int band = kk / 4, ch0 = 2 * (kk % 4) + half;
       uint32_t a[4];
       ldsm_x4(kbase + band * S::kT * kBandBytes + swz(row, ch0), a);
-      mma_bf16(ch, a, qf[0][kk][0], qf[0][kk][1]);
-      mma_bf16(cl, a, qf[1][kk][0], qf[1][kk][1]);
+#pragma unroll
+      for (int i = 0; i < NT; ++i) mma_bf16(c[i], a, qf[i][kk][0], qf[i][kk][1]);
     }
   }
   const bool v0 = r0 + g < n, v1 = r0 + g + 8 < n;
@@ -544,8 +586,15 @@ __device__ __forceinline__ void stage_mma(uint8_t* st, int n, int w, const uint3
     vs0 = sc[S::kT + r0 + g];
     vs1 = sc[S::kT + r0 + g + 8];
   }
-  const float s[4] = {v0 ? (ch[0] + cl[0]) * ks0 : -INFINITY, v0 ? (ch[1] + cl[1]) * ks0 : -INFINITY,
-                      v1 ? (ch[2] + cl[2]) * ks1 : -INFINITY, v1 ? (ch[3] + cl[3]) * ks1 : -INFINITY};
+  float d[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    d[e] = c[NT - 1][e];  // the smallest terms' sum first
+#pragma unroll
+    for (int i = NT - 2; i >= 0; --i) d[e] += c[i][e];
+  }
+  const float s[4] = {v0 ? d[0] * ks0 : -INFINITY, v0 ? d[1] * ks0 : -INFINITY, v1 ? d[2] * ks1 : -INFINITY,
+                      v1 ? d[3] * ks1 : -INFINITY};
   float corr[2], p[4];
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
@@ -568,11 +617,14 @@ __device__ __forceinline__ void stage_mma(uint8_t* st, int n, int w, const uint3
   }
   // P^T's C fragments (rows g, g + 8; heads 2t, 2t + 1) transposed into B fragments (rows 2t, 2t + 1
   // and 2t + 8, 2t + 9; head g).  INT8: V's row scale goes on the probability first.
-  uint32_t top_hi, top_lo, bot_hi, bot_lo;
-  split_bf16(v0 ? p[0] * vs0 : 0.f, v0 ? p[1] * vs0 : 0.f, top_hi, top_lo);
-  split_bf16(v1 ? p[2] * vs1 : 0.f, v1 ? p[3] * vs1 : 0.f, bot_hi, bot_lo);
-  const uint32_t b0h = movmatrix_trans(top_hi), b1h = movmatrix_trans(bot_hi);
-  const uint32_t b0l = movmatrix_trans(top_lo), b1l = movmatrix_trans(bot_lo);
+  uint32_t top[NT], bot[NT], b0[NT], b1[NT];
+  split_terms<NT>(v0 ? p[0] * vs0 : 0.f, v0 ? p[1] * vs0 : 0.f, top);
+  split_terms<NT>(v1 ? p[2] * vs1 : 0.f, v1 ? p[3] * vs1 : 0.f, bot);
+#pragma unroll
+  for (int i = 0; i < NT; ++i) {
+    b0[i] = movmatrix_trans(top[i]);
+    b1[i] = movmatrix_trans(bot[i]);
+  }
   if constexpr (kI8) {
     const int row = r0 + (lane & 7) + 8 * (mi >> 1), half = mi & 1;
 #pragma unroll
@@ -584,10 +636,11 @@ __device__ __forceinline__ void stage_mma(uint8_t* st, int n, int w, const uint3
       for (int i = 0; i < 4; ++i) x[i] ^= 0x80808080u;
       const uint32_t ae[4] = {i8_pair<0, 2>(x[0]), i8_pair<0, 2>(x[1]), i8_pair<0, 2>(x[2]), i8_pair<0, 2>(x[3])};
       const uint32_t ao[4] = {i8_pair<1, 3>(x[0]), i8_pair<1, 3>(x[1]), i8_pair<1, 3>(x[2]), i8_pair<1, 3>(x[3])};
-      mma_bf16(sm.o[2 * cp], ae, b0h, b1h);
-      mma_bf16(sm.o[2 * cp], ae, b0l, b1l);
-      mma_bf16(sm.o[2 * cp + 1], ao, b0h, b1h);
-      mma_bf16(sm.o[2 * cp + 1], ao, b0l, b1l);
+#pragma unroll
+      for (int i = 0; i < NT; ++i) {
+        mma_bf16(sm.o[2 * cp], ae, b0[i], b1[i]);
+        mma_bf16(sm.o[2 * cp + 1], ao, b0[i], b1[i]);
+      }
     }
   } else {
     const int row = r0 + (lane & 7) + 8 * (mi >> 1), half = mi & 1;
@@ -596,8 +649,8 @@ __device__ __forceinline__ void stage_mma(uint8_t* st, int n, int w, const uint3
       const int band = mt / 4, ch0 = 2 * (mt % 4) + half;
       uint32_t a[4];
       ldsm_x4_trans(vbase + band * S::kT * kBandBytes + swz(row, ch0), a);
-      mma_bf16(sm.o[mt], a, b0h, b1h);
-      mma_bf16(sm.o[mt], a, b0l, b1l);
+#pragma unroll
+      for (int i = 0; i < NT; ++i) mma_bf16(sm.o[mt], a, b0[i], b1[i]);
     }
   }
 }
@@ -626,7 +679,7 @@ struct Smem {
   static_assert(kMergeBytes <= S::kStages * S::kStageBytes, "the warps' merge fits the ring");
 };
 
-template <typename T, int HD, int R, int QM>
+template <typename T, int HD, int R, int QM, int TERMS>
 __global__ void __launch_bounds__(Shape<T, HD, R>::kThreads)
 paged_decode_kernel(const __grid_constant__ Args a) {
   using S = Shape<T, HD, R>;
@@ -645,7 +698,7 @@ paged_decode_kernel(const __grid_constant__ Args a) {
   const int tiles = a.kv_mul / a.qm;
   if (warp == 0) {
     Unit u;
-    const bool ok = plan_unit(a, tiles, blockIdx.x, u);
+    const bool ok = plan_unit(a, tiles, 1, blockIdx.x, u);
     if (lane == 0) {
       unit = u;
       flag = ok;
@@ -663,7 +716,7 @@ paged_decode_kernel(const __grid_constant__ Args a) {
   if (!flag) return;
   const Unit u = unit;
   if (warp == W) {
-    produce<T, HD, R>(a, u, ring, bars);
+    produce<T, HD, R, S::kStages>(a, u, ring, bars);
     return;
   }
   // q of the tile's heads, scaled; zero rows past qm (the mma route's padding).
@@ -726,7 +779,7 @@ paged_decode_kernel(const __grid_constant__ Args a) {
 #pragma unroll
       for (int j = 0; j < HD / 32; ++j) merge[(warp * QH + m) * (HD + 2) + lane * (HD / 32) + j] = sm.acc[m][j];
   } else {
-    uint32_t qf[2][HD / 16][2];
+    uint32_t qf[TERMS][HD / 16][2];
     {
       const int g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -734,7 +787,10 @@ paged_decode_kernel(const __grid_constant__ Args a) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {  // INT8: k slots 2t, 2t + 1 (+ 8) are columns 4t, 4t + 1 (+ 2)
           const float* qr = qs + g * HD + 16 * kk + (S::kQuant ? 2 * h + 4 * t : 8 * h + 2 * t);
-          split_bf16(qr[0], qr[1], qf[0][kk][h], qf[1][kk][h]);
+          uint32_t x[TERMS];
+          split_terms<TERMS>(qr[0], qr[1], x);
+#pragma unroll
+          for (int i = 0; i < TERMS; ++i) qf[i][kk][h] = x[i];
         }
     }
     SoftMma<HD> sm;
@@ -746,7 +802,7 @@ paged_decode_kernel(const __grid_constant__ Args a) {
       const int n = stage_rows<S::kT>(a, u, t);
       mbar_wait(bars + 8 * stage, phase);
       if (t == u.lo && tid == 0) stamp(a, 3);
-      stage_mma<T, HD>(ring + stage * S::kStageBytes, n, warp, qf, sm);
+      stage_mma<T, HD, TERMS>(ring + stage * S::kStageBytes, n, warp, qf, sm);
       // The zeroed V rows were written by this warp's threads: order them before the next TMA write.
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       __syncwarp();
@@ -872,11 +928,407 @@ paged_decode_kernel(const __grid_constant__ Args a) {
   }
 }
 
+// ------------------------------------------------------------------------- the window kernel
+// paged_window_kernel: the cache part of a window of S query rows, R = S * kv_mul rows a kv head,
+// in tiles of kRowTile rows.  Unit u of the plan (tiles = ceil(R / kRowTile) in place of head tiles)
+// is one split of one (request, kv head, row tile): the producer warp brings its rows as the decode
+// kernel's does, and the four consumer warps, one warpgroup, take the tile's 64 query rows against
+// each stage's 64 cache rows on wgmma: S = Q . K^T with q's bf16 hi and lo in shared memory (m64n64k16,
+// both operands K-major), the online softmax in registers, O += P . V with P's hi and lo as the
+// register operand and V (row-major: MN-major) in shared memory (m64n{hd}k16).  Every query row of
+// the tile shares each K/V row the block reads.  An INT8 stage is first converted to bf16 (exactly)
+// in shared memory, each warp its 16 rows, and released as soon as it is.
+constexpr int kRowTile = 64;
+// A window split's least rows (2 stages): its partial is 64 rows by hd, so a shorter split costs its
+// block's fixed start and its partial's write and merge more than it saves.
+constexpr int kWinMinSpan = 128;
+
+// The window kernel's layout: the mbarriers, the unit and the split's flag in the first kHead bytes,
+// then from the next 1024-byte boundary (the swizzle's grid, which wgmma reads by address): the
+// tile's q as bf16 hi and lo in 128-byte swizzled bands, INT8 pools' converted stage (a bf16 stage,
+// then its K and V row scales), and the ring of two stages.
+template <typename T, int HD>
+struct WinSmem {
+  using S = Shape<T, HD, kMma>;
+  using B = Shape<__nv_bfloat16, HD, kMma>;  // the layout wgmma reads
+  static_assert(S::kT == kRowTile && S::kWarps * 16 == kRowTile, "a stage of 64 rows, one warpgroup");
+  static constexpr int kStages = 2;
+  static constexpr int kUnit = 2 * kMaxStages * 8, kFlag = kUnit + sizeof(Unit), kHead = 128;
+  static constexpr int kQTerm = kRowTile * HD * 2;  // bytes of one bf16 term of the tile's q
+  static constexpr int kConv = 2 * kQTerm;          // from the aligned base
+  static constexpr int kConvBytes = S::kQuant ? (2 * B::kKvBytes + 2 * kRowTile * 4 + 1023) / 1024 * 1024 : 0;
+  static constexpr int kRing = kConv + kConvBytes;
+  static constexpr int kBytes = kHead + 1024 + kRing + kStages * S::kStageBytes;
+  static_assert(kFlag + 4 <= kHead, "the head holds the barriers, the unit and the flag");
+};
+
+// The byte of element pair (row, 2 c) of a q term: bands of 64 bf16 columns, 128-byte swizzled rows.
+__device__ __forceinline__ int q_byte(int row, int c) {
+  return (c >> 6) * kRowTile * kBandBytes + swz(row, (c & 63) >> 3) + (c & 7) * 2;
+}
+
+// Rows [16 w, 16 w + 16) of an INT8 stage into the bf16 stage layout (each code exactly; rows at or
+// past n zero, which wgmma then multiplies by P = 0), and their K and V row scales after it.
+template <int HD>
+__device__ __forceinline__ void convert_rows(const uint8_t* st8, uint8_t* stb, int w, int n) {
+  using S8 = Shape<int8_t, HD, kMma>;
+  using SB = Shape<__nv_bfloat16, HD, kMma>;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = lane; k < 2 * 16 * (HD / 16); k += 32) {  // (K or V, row, 16 codes)
+    const int kv = k / (16 * (HD / 16)), row = 16 * w + k / (HD / 16) % 16, c = k % (HD / 16);
+    uint32_t xw[4] = {0x80808080u, 0x80808080u, 0x80808080u, 0x80808080u};  // codes 0 after the flip
+    if (row < n) {
+      const uint4 x = *reinterpret_cast<const uint4*>(st8 + kv * S8::kKvBytes + (c >> 3) * S8::kT * kBandBytes +
+                                                      swz(row, c & 7));
+      xw[0] = x.x ^ 0x80808080u, xw[1] = x.y ^ 0x80808080u, xw[2] = x.z ^ 0x80808080u, xw[3] = x.w ^ 0x80808080u;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // bf16 chunk 2 c + h: codes 8 h .. 8 h + 7
+      const int cb = 2 * c + h;
+      *reinterpret_cast<uint4*>(stb + kv * SB::kKvBytes + (cb >> 3) * SB::kT * kBandBytes + swz(row, cb & 7)) =
+          make_uint4(i8_pair<0, 1>(xw[2 * h]), i8_pair<2, 3>(xw[2 * h]), i8_pair<0, 1>(xw[2 * h + 1]),
+                     i8_pair<2, 3>(xw[2 * h + 1]));
+    }
+  }
+  if (lane < 16) {
+    const float* sc = reinterpret_cast<const float*>(st8 + 2 * S8::kKvBytes);
+    float* dc = reinterpret_cast<float*>(stb + 2 * SB::kKvBytes);
+    dc[16 * w + lane] = sc[16 * w + lane];
+    dc[kRowTile + 16 * w + lane] = sc[S8::kT + 16 * w + lane];
+  }
+}
+
+// V rows [n, 64) of a bf16 stage zeroed (they may hold anything, NaN included, and wgmma multiplies
+// them by P = 0), by the warpgroup's 128 threads.
+template <int HD>
+__device__ __forceinline__ void zero_rows(uint8_t* st, int n) {
+  using SB = Shape<__nv_bfloat16, HD, kMma>;
+  for (int k = (int)threadIdx.x; k < (kRowTile - n) * (HD / 8); k += 128) {  // (row, 16-byte chunk)
+    const int row = n + k / (HD / 8), c = k % (HD / 8);
+    *reinterpret_cast<uint4*>(st + SB::kKvBytes + (c >> 3) * SB::kT * kBandBytes + swz(row, c & 7)) =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(Shape<T, HD, kMma>::kThreads)
+paged_window_kernel(const __grid_constant__ Args a) {
+  using S = Shape<T, HD, kMma>;
+  using L = WinSmem<T, HD>;
+  constexpr bool kI8 = S::kQuant;
+  constexpr int W = S::kWarps, NT = W * 32, NST = L::kStages;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const uint32_t bars = smem_u32(smem);
+  Unit& unit = *reinterpret_cast<Unit*>(smem + L::kUnit);
+  int& flag = *reinterpret_cast<int*>(smem + L::kFlag);
+  uint8_t* base = smem + L::kHead;
+  base += (1024 - (smem_u32(base) & 1023)) & 1023;  // the swizzle's pattern repeats every 1024 bytes
+  uint8_t* qt = base;
+  uint8_t* conv = base + L::kConv;
+  uint8_t* ring = base + L::kRing;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tiles = (a.R + kRowTile - 1) / kRowTile;
+  if (tid == 0) stamp(a, 0);
+  if (warp == 0) {
+    Unit u;
+    const bool ok = plan_unit(a, tiles, kWinMinSpan / kBox, blockIdx.x, u);
+    if (lane == 0) {
+      unit = u;
+      flag = ok;
+      for (int s = 0; s < NST; ++s) {
+        mbar_init(bars + 8 * s, 1);
+        mbar_init(bars + 8 * (kMaxStages + s), W);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+  } else if (warp == W && lane < 2) {
+    asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(lane ? &a.vmap : &a.kmap)) : "memory");
+  }
+  __syncthreads();
+  if (tid == 0) stamp(a, 1);
+  if (!flag) return;
+  const Unit u = unit;
+  if (warp == W) {
+    produce<T, HD, kMma, NST>(a, u, ring, bars);
+    return;
+  }
+  // The tile's q rows, scaled, as bf16 hi and lo (rows past R zero), 16 loads of 16 bytes in flight a
+  // thread.
+  const long bh = (long)u.b * a.n_kv + u.h;
+  const int r0 = u.tile * kRowTile, rows = min(kRowTile, a.R - r0);
+  auto q_row = [&](int r) {  // row r0 + r = (mul, s) of the tile's kv head
+    const int mul = (r0 + r) / a.S, sq = (r0 + r) % a.S;
+    return a.q + (((long)u.b * a.S + sq) * a.n_kv * a.kv_mul + (long)u.h * a.kv_mul + mul) * HD;
+  };
+  constexpr int kVecs = kRowTile * HD / 4 / NT;  // 16-byte pieces a thread
+  static_assert(kVecs % 16 == 0, "q is staged 16 pieces at a time");
+#pragma unroll
+  for (int k0 = 0; k0 < kVecs; k0 += 16) {
+    float4 x[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int k = (k0 + j) * NT + tid, r = k / (HD / 4);
+      x[j] = r < rows ? __ldg(reinterpret_cast<const float4*>(q_row(r)) + k % (HD / 4)) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int k = (k0 + j) * NT + tid, r = k / (HD / 4), c = k % (HD / 4) * 4;  // columns c .. c + 3
+      uint32_t tm[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        split_terms<2>((h ? x[j].z : x[j].x) * a.scale, (h ? x[j].w : x[j].y) * a.scale, tm);
+        *reinterpret_cast<uint32_t*>(qt + q_byte(r, c + 2 * h)) = tm[0];
+        *reinterpret_cast<uint32_t*>(qt + L::kQTerm + q_byte(r, c + 2 * h)) = tm[1];
+      }
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // q is read by wgmma
+  consumer_sync(NT);
+
+  // This thread's rows of the tile: 16 w + g and 16 w + g + 8; n8 chunk j of S holds s[4 j + e], row
+  // (e & 2 ? the second : the first), cache row 8 j + 2 t4 + (e & 1) of the stage; O alike, with
+  // head_dim columns in place of cache rows.
+  const int g = lane >> 2, t4 = lane & 3;
+  const uint32_t q_base = smem_u32(qt);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int t = u.lo; t < u.hi;) {
+    const int n = stage_rows<S::kT>(a, u, t);
+    mbar_wait(bars + 8 * stage, phase);
+    if (t == u.lo && tid == 0) stamp(a, 3);
+    uint8_t* st = ring + stage * S::kStageBytes;
+    if constexpr (kI8) {  // this warp's 16 rows to bf16; the stage is free once every warp's are
+      convert_rows<HD>(st, conv, warp, n);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bars + 8 * (kMaxStages + stage));
+      consumer_sync(NT);
+      st = conv;
+    } else if (n < kRowTile) {
+      zero_rows<HD>(st, n);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      consumer_sync(NT);
+    }
+    const uint32_t kbase = smem_u32(st);
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    fence_acc(s);
+    wg_fence();
+#pragma unroll
+    for (int term = 1; term >= 0; --term)  // lo first: the small terms' sum
+#pragma unroll
+      for (int ks = 0; ks < HD / 16; ++ks)
+        wgmma_ss(s, desc_k(q_base + term * L::kQTerm + (ks / 4) * (kRowTile * kBandBytes) + (ks % 4) * 32),
+                 desc_k(kbase + (ks / 4) * (S::kT * kBandBytes) + (ks % 4) * 32), term == 0 || ks > 0);
+    wg_commit();
+    wg_wait0();
+    fence_acc(s);
+    // The online softmax (INT8: K's row scale on the score before the max, V's on the probability
+    // after l takes it).
+    const float* sc = reinterpret_cast<const float*>(st + 2 * L::B::kKvBytes);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int row = 8 * (i >> 2) + 2 * t4 + (i & 1);
+      const float v = row < n ? (kI8 ? s[i] * sc[row] : s[i]) : -INFINITY;
+      s[i] = v;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], v);
+    }
+    float corr[2], lsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);  // finite: the stage's row 0 is valid
+      corr[h] = expf(m[h] - m_new);
+      m[h] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int row = 8 * (i >> 2) + 2 * t4 + (i & 1);
+      const float pr = expf(s[i] - m[(i >> 1) & 1]);  // 0 at -inf
+      lsum[(i >> 1) & 1] += pr;
+      s[i] = kI8 ? (row < n ? pr * sc[kRowTile + row] : 0.f) : pr;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + lsum[h];
+#pragma unroll
+    for (int i = 0; i < HD / 8; ++i) {
+      o[4 * i] *= corr[0];
+      o[4 * i + 1] *= corr[0];
+      o[4 * i + 2] *= corr[1];
+      o[4 * i + 3] *= corr[1];
+    }
+    // O += P . V: P's hi and lo as wgmma's register operand, one k16 step (16 cache rows) at a time.
+    uint32_t pa[2][kRowTile / 16][4];  // [term][k16 step][fragment]
+#pragma unroll
+    for (int kk = 0; kk < kRowTile / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        uint32_t x[2];
+        split_terms<2>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], x);
+        pa[0][kk][r] = x[0];
+        pa[1][kk][r] = x[1];
+      }
+    const uint32_t vbase = kbase + L::B::kKvBytes;
+    fence_acc(o);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kRowTile / 16; ++kk) {
+      if (16 * kk >= n) break;  // the rest of P is 0
+      const uint64_t dv = desc_mn(vbase + kk * 16 * kBandBytes, S::kT * kBandBytes);
+      wgmma_rs_mn(o, pa[1][kk], dv);
+      wgmma_rs_mn(o, pa[0][kk], dv);
+    }
+    wg_commit();
+    wg_wait0();
+    fence_acc(o);
+    if constexpr (kI8) {
+      consumer_sync(NT);  // the converted stage is rewritten by the next one
+    } else {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bars + 8 * (kMaxStages + stage));
+    }
+    if (++stage == NST) {
+      stage = 0;
+      phase ^= 1u;
+    }
+    t += n;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  consumer_sync(NT);
+  if (tid == 0) stamp(a, 4);
+
+  // The split's partial, straight from the accumulators (each row is one warp's), to the outputs when
+  // the split is the only one, else to its workspace slot.
+  const bool direct = u.n_s == 1;
+  const long slot = u.slot + u.s;
+  float* dst = direct ? a.out + (bh * a.R + r0) * HD : a.ws_acc + slot * kRowTile * HD;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 16 * warp + g + 8 * h;
+    if (r >= rows) continue;
+#pragma unroll
+    for (int i = 0; i < HD / 8; ++i)
+      *reinterpret_cast<float2*>(dst + (long)r * HD + 8 * i + 2 * t4) = make_float2(o[4 * i + 2 * h], o[4 * i + 2 * h + 1]);
+    if (t4 == 0) {
+      if (direct) {
+        a.out_m[bh * a.R + r0 + r] = m[h];
+        a.out_l[bh * a.R + r0 + r] = l[h];
+      } else {
+        a.ws_ml[(slot * kRowTile + r) * 2] = m[h];
+        a.ws_ml[(slot * kRowTile + r) * 2 + 1] = l[h];
+      }
+    }
+  }
+  if (direct) {
+    if (a.stamps != nullptr) {
+      consumer_sync(NT);
+      if (tid == 0) stamp(a, 5);
+    }
+    return;
+  }
+  __threadfence();
+  consumer_sync(NT);
+  if (tid == 0) stamp(a, 5);
+  if (tid == 0) {
+    const int old = atomicAdd(a.counters + u.pair, 1);
+    flag = old == u.n_s - 1;
+    if (flag) a.counters[u.pair] = 0;  // left at zero for the next launch
+  }
+  consumer_sync(NT);
+  if (tid == 0) stamp(a, 6);
+  if (!flag) return;
+  __threadfence();
+  // The last block: the splits merged in split order with the reference's isfinite guards.  One
+  // thread a row finds the largest m, writes m and l, and puts each split's weight exp(m_s - m) (0
+  // where every m is -inf) in place of that split's m in the workspace, 8 splits' loads at once; then
+  // the columns go as float4s, 4 items of a thread and 4 splits at once, each a sum of independent
+  // loads.
+  const int ns = u.n_s;
+  if (tid < rows) {
+    float* ml = a.ws_ml + (u.slot * kRowTile + tid) * 2;  // split s at ml + s * kRowTile * 2
+    float mm = -INFINITY;
+    for (int s0 = 0; s0 < ns; s0 += 8) {
+      float x[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) x[j] = s0 + j < ns ? __ldcg(ml + (s0 + j) * kRowTile * 2) : -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mm = fmaxf(mm, x[j]);
+    }
+    const bool fin = isfinite(mm);
+    float lv = 0.f;
+    for (int s0 = 0; s0 < ns; s0 += 8) {
+      float2 x[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        x[j] = s0 + j < ns ? __ldcg(reinterpret_cast<const float2*>(ml + (s0 + j) * kRowTile * 2)) : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (s0 + j >= ns) break;
+        const float c = fin ? expf(x[j].x - mm) : 0.f;
+        ml[(s0 + j) * kRowTile * 2] = c;
+        lv = fmaf(x[j].y, c, lv);
+      }
+    }
+    a.out_m[bh * a.R + r0 + tid] = mm;
+    a.out_l[bh * a.R + r0 + tid] = lv;
+  }
+  __threadfence_block();
+  consumer_sync(NT);
+  constexpr int IT = 4;
+  const int items = rows * HD / 4;
+  for (int k0 = tid; k0 < items; k0 += IT * NT) {
+    float4 acc[IT];
+#pragma unroll
+    for (int i = 0; i < IT; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s0 = 0; s0 < ns; s0 += 4) {
+      float c[IT][4];
+      float4 p4[IT][4];
+#pragma unroll
+      for (int i = 0; i < IT; ++i) {
+        const int k = min(k0 + i * NT, items - 1), r = k / (HD / 4), col = k % (HD / 4) * 4;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {  // a slot past the last split reloads it and weighs 0
+          const long sl = (u.slot + min(s0 + j, ns - 1)) * kRowTile + r;
+          c[i][j] = s0 + j < ns ? __ldcg(a.ws_ml + sl * 2) : 0.f;
+          p4[i][j] = __ldcg(reinterpret_cast<const float4*>(a.ws_acc + sl * HD + col));
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < IT; ++i)
+          acc[i] = make_float4(fmaf(p4[i][j].x, c[i][j], acc[i].x), fmaf(p4[i][j].y, c[i][j], acc[i].y),
+                               fmaf(p4[i][j].z, c[i][j], acc[i].z), fmaf(p4[i][j].w, c[i][j], acc[i].w));
+    }
+#pragma unroll
+    for (int i = 0; i < IT; ++i) {
+      const int k = k0 + i * NT;
+      if (k >= items) break;
+      *reinterpret_cast<float4*>(a.out + (bh * a.R + r0 + k / (HD / 4)) * HD + k % (HD / 4) * 4) = acc[i];
+    }
+  }
+  if (a.stamps != nullptr) {
+    consumer_sync(NT);
+    if (tid == 0) stamp(a, 7);
+  }
+}
+
 // Each block's unit as paged_decode_kernel's blocks plan it, one warp a block: units [grid, 10] int
 // (planned, b, h, tile, s, n_s, lo, hi, slot, pair; only `planned`, 0, past the last unit).
-__global__ void __launch_bounds__(32) plan_kernel(const __grid_constant__ Args a, int* units) {
+__global__ void __launch_bounds__(32) plan_kernel(const __grid_constant__ Args a, int min_boxes, int* units) {
   Unit u;
-  const bool ok = plan_unit(a, a.kv_mul / a.qm, blockIdx.x, u);
+  const bool ok = plan_unit(a, a.kv_mul / a.qm, min_boxes, blockIdx.x, u);
   if (threadIdx.x == 0) {
     int* o = units + blockIdx.x * 10;
     o[0] = ok;
@@ -922,21 +1374,21 @@ int pool_map(CUtensorMap* map, const void* pool, int slabs, int page, int hd) {
   return r == CUDA_SUCCESS ? 0 : -(int)r - 1;
 }
 
-template <typename T, int HD, int R, int QM>
+template <typename T, int HD, int R, int QM, int NT = 2>
 const void* kernel_of() {
-  return reinterpret_cast<const void*>(&paged_decode_kernel<T, HD, R, QM>);
+  return reinterpret_cast<const void*>(&paged_decode_kernel<T, HD, R, QM, NT>);
 }
 
-// The instance for (pool type, head_dim, head tile), its shared memory and threads, or null: f32
-// pools on the CUDA cores at 1, 2, 4 or 8 heads a block, bf16 and INT8 pools on mma.sync (the heads
-// padded to 8).
-template <typename T, int HD>
+// The instance for (pool type, head_dim, head tile, terms), its shared memory and threads, or null:
+// f32 pools on the CUDA cores at 1, 2, 4 or 8 heads a block, bf16 and INT8 pools on mma.sync (the
+// heads padded to 8) with NT terms of q and P.
+template <typename T, int HD, int NT>
 const void* pick_qm(int qm, int* smem, int* threads) {
   constexpr int R = route_of<T>();
   *threads = Shape<T, HD, R>::kThreads;
   if constexpr (R == kMma) {
     *smem = Smem<T, HD, R, kHeadsMma>::kBytes;
-    return qm <= kHeadsMma ? kernel_of<T, HD, R, kHeadsMma>() : nullptr;
+    return qm <= kHeadsMma ? kernel_of<T, HD, R, kHeadsMma, NT>() : nullptr;
   } else {
     switch (qm) {
       case 1: *smem = Smem<T, HD, R, 1>::kBytes; return kernel_of<T, HD, R, 1>();
@@ -948,11 +1400,11 @@ const void* pick_qm(int qm, int* smem, int* threads) {
   }
 }
 
-template <typename T>
+template <typename T, int NT = 2>
 const void* pick_hd(int hd, int qm, int* smem, int* threads) {
   switch (hd) {
-    case 128: return pick_qm<T, 128>(qm, smem, threads);
-    case 256: return pick_qm<T, 256>(qm, smem, threads);
+    case 128: return pick_qm<T, 128, NT>(qm, smem, threads);
+    case 256: return pick_qm<T, 256, NT>(qm, smem, threads);
     default: return nullptr;
   }
 }
@@ -962,6 +1414,7 @@ const void* pick(int cache_type, int hd, int qm, int* smem, int* threads) {
     case 0: return pick_hd<float>(hd, qm, smem, threads);
     case 1: return pick_hd<__nv_bfloat16>(hd, qm, smem, threads);
     case 2: return pick_hd<int8_t>(hd, qm, smem, threads);
+    case kExactInt8: return pick_hd<int8_t, 3>(hd, qm, smem, threads);
     default: return nullptr;
   }
 }
@@ -971,10 +1424,65 @@ int allow_smem(const void* fn, int smem) {
   return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
+// The window kernel's instance for (pool type, head_dim), its shared memory and threads, or null: bf16
+// and INT8 pools at head_dim 128 and 256 (f32 pools keep the two-pass kernels of paged_attention.cu).
+template <typename T>
+const void* pick_window_hd(int hd, int* smem, int* threads) {
+  *threads = Shape<T, 128, kMma>::kThreads;
+  switch (hd) {
+    case 128: *smem = WinSmem<T, 128>::kBytes; return reinterpret_cast<const void*>(&paged_window_kernel<T, 128>);
+    case 256: *smem = WinSmem<T, 256>::kBytes; return reinterpret_cast<const void*>(&paged_window_kernel<T, 256>);
+    default: return nullptr;
+  }
+}
+
+const void* pick_window(int cache_type, int hd, int* smem, int* threads) {
+  switch (cache_type) {
+    case 1: return pick_window_hd<__nv_bfloat16>(hd, smem, threads);
+    case 2: return pick_window_hd<int8_t>(hd, smem, threads);
+    default: return nullptr;
+  }
+}
+
+// The K and V maps of one layer's pool, and the pointers and sizes both kernels share.  Returns 0, or
+// the negated CUresult minus one.
+int pool_args(Args& a, int cache_type, const void* k, const void* v, const void* ks, const void* vs,
+              const void* table, const void* pos, int B, int n_kv, int n_pages, int page, int max_pages, int hd) {
+  int e = 0;
+  for (int i = 0; i < 2 && e == 0; ++i) {
+    CUtensorMap* map = i ? &a.vmap : &a.kmap;
+    const void* pool = i ? v : k;
+    switch (cache_type) {
+      case 0: e = pool_map<float>(map, pool, n_pages * n_kv, page, hd); break;
+      case 1: e = pool_map<__nv_bfloat16>(map, pool, n_pages * n_kv, page, hd); break;
+      default: e = pool_map<int8_t>(map, pool, n_pages * n_kv, page, hd); break;
+    }
+  }
+  a.ks = reinterpret_cast<const float*>(ks);
+  a.vs = reinterpret_cast<const float*>(vs);
+  a.table = reinterpret_cast<const int*>(table);
+  a.pos = reinterpret_cast<const int*>(pos);
+  a.B = B;
+  a.n_kv = n_kv;
+  a.page = page;
+  a.max_pages = max_pages;
+  return e;
+}
+
+int launch(const void* fn, int grid, int threads, int smem, Args& a, void* stream) {
+  const int e = allow_smem(fn, smem);
+  if (e) return e;
+  void* args[] = {&a};
+  const cudaError_t le = cudaLaunchKernel(fn, dim3(grid), dim3(threads), args, (size_t)smem,
+                                          reinterpret_cast<cudaStream_t>(stream));
+  if (le != cudaSuccess) return (int)le;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Plain C entry points.  cache_type 0 = f32, 1 = bf16, 2 = int8; qm: query heads a block takes (1,
-// 2, 4 or 8, dividing kv_mul).
+// Plain C entry points.  cache_type 0 = f32, 1 = bf16, 2 = int8, 3 = int8 on three terms (#4's dense
+// layer); qm: query heads a block takes (1, 2, 4 or 8, dividing kv_mul).
 
 // Blocks of the instance one SM holds at once (0 for an instance that does not exist).
 extern "C" int paged_decode_blocks_per_sm(int cache_type, int hd, int qm) {
@@ -1002,52 +1510,71 @@ extern "C" int paged_decode_split(const void* q, const void* k_new, const void* 
   const void* fn = pick(cache_type, hd, qm, &smem, &threads);
   if (fn == nullptr || B < 1 || kv_mul % qm || page % kBox || grid < B * n_kv * (kv_mul / qm))
     return (int)cudaErrorInvalidValue;
-  Args a;
-  int e = 0;
-  switch (cache_type) {
-    case 0: e = pool_map<float>(&a.kmap, k, n_pages * n_kv, page, hd); break;
-    case 1: e = pool_map<__nv_bfloat16>(&a.kmap, k, n_pages * n_kv, page, hd); break;
-    default: e = pool_map<int8_t>(&a.kmap, k, n_pages * n_kv, page, hd); break;
-  }
-  if (e) return e;
-  switch (cache_type) {
-    case 0: e = pool_map<float>(&a.vmap, v, n_pages * n_kv, page, hd); break;
-    case 1: e = pool_map<__nv_bfloat16>(&a.vmap, v, n_pages * n_kv, page, hd); break;
-    default: e = pool_map<int8_t>(&a.vmap, v, n_pages * n_kv, page, hd); break;
-  }
+  Args a = {};
+  const int e = pool_args(a, cache_type, k, v, ks, vs, table, pos, B, n_kv, n_pages, page, max_pages, hd);
   if (e) return e;
   a.q = reinterpret_cast<const float*>(q);
   a.k_new = reinterpret_cast<const float*>(k_new);
   a.v_new = reinterpret_cast<const float*>(v_new);
-  a.ks = reinterpret_cast<const float*>(ks);
-  a.vs = reinterpret_cast<const float*>(vs);
-  a.table = reinterpret_cast<const int*>(table);
-  a.pos = reinterpret_cast<const int*>(pos);
   a.ws_ml = reinterpret_cast<float*>(ws_ml);
   a.ws_acc = reinterpret_cast<float*>(ws_acc);
   a.counters = reinterpret_cast<int*>(counters);
   a.out = reinterpret_cast<float*>(out);
   a.stamps = reinterpret_cast<unsigned long long*>(stamps);
-  a.B = B;
-  a.n_kv = n_kv;
   a.kv_mul = kv_mul;
   a.qm = qm;
-  a.page = page;
-  a.max_pages = max_pages;
   a.scale = scale;
-  e = allow_smem(fn, smem);
+  return launch(fn, grid, threads, smem, a, stream);
+}
+
+// Blocks of the window kernel's instance one SM holds at once (0 for an instance that does not exist).
+extern "C" int paged_window_blocks_per_sm(int cache_type, int hd) {
+  int smem = 0, threads = 0, blocks = 0;
+  const void* fn = pick_window(cache_type, hd, &smem, &threads);
+  if (fn == nullptr || allow_smem(fn, smem) != 0) return 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads, smem) != cudaSuccess) return 0;
+  return blocks;
+}
+
+// One launch of the window kernel over `grid` blocks (at least B * n_kv * ceil(R / 64)).  q [B, S,
+// n_kv * kv_mul, hd] f32 (unscaled, R = S * kv_mul <= 128), the pool and table as paged_decode_split's (cache_type 1 = bf16,
+// 2 = int8); ws_ml [grid, 64, 2] and ws_acc [grid, 64, hd] f32 scratch; counters [B * n_kv *
+// ceil(R / 64)] int32, zero (left zero); out_m, out_l [B, n_kv, R] and out_acc [B, n_kv, R, hd] f32;
+// stamps [grid, 8] int64 or null (the decode kernel's phases).  Returns a cudaError_t, or a tensor map's negated CUresult minus one.
+extern "C" int paged_window_split(const void* q, const void* k, const void* v, const void* ks, const void* vs,
+                                  const void* table, const void* pos, int cache_type, int B, int n_kv, int S,
+                                  int kv_mul, int n_pages, int page, int max_pages, int hd, float scale, int grid,
+                                  void* ws_ml, void* ws_acc, void* counters, void* out_m, void* out_l,
+                                  void* out_acc, void* stamps, void* stream) {
+  int smem = 0, threads = 0;
+  const void* fn = pick_window(cache_type, hd, &smem, &threads);
+  const int R = S * kv_mul;
+  if (fn == nullptr || B < 1 || S < 1 || kv_mul < 1 || R > 2 * kRowTile || page % kBox ||
+      grid < B * n_kv * ((R + kRowTile - 1) / kRowTile))
+    return (int)cudaErrorInvalidValue;
+  Args a = {};
+  const int e = pool_args(a, cache_type, k, v, ks, vs, table, pos, B, n_kv, n_pages, page, max_pages, hd);
   if (e) return e;
-  void* args[] = {&a};
-  const cudaError_t le = cudaLaunchKernel(fn, dim3(grid), dim3(threads), args, (size_t)smem,
-                                          reinterpret_cast<cudaStream_t>(stream));
-  if (le != cudaSuccess) return (int)le;
-  return (int)cudaGetLastError();
+  a.q = reinterpret_cast<const float*>(q);
+  a.ws_ml = reinterpret_cast<float*>(ws_ml);
+  a.ws_acc = reinterpret_cast<float*>(ws_acc);
+  a.counters = reinterpret_cast<int*>(counters);
+  a.out = reinterpret_cast<float*>(out_acc);
+  a.out_m = reinterpret_cast<float*>(out_m);
+  a.out_l = reinterpret_cast<float*>(out_l);
+  a.stamps = reinterpret_cast<unsigned long long*>(stamps);
+  a.R = R;
+  a.S = S;
+  a.kv_mul = kv_mul;
+  a.scale = scale;
+  return launch(fn, grid, threads, smem, a, stream);
 }
 
 // The plan of a launch of `grid` blocks, as its blocks make it (plan_kernel): pos [B] int32 and
-// units [grid, 10] int32 device pointers.  Returns a cudaError_t.
-extern "C" int paged_decode_plan(const void* pos, int B, int n_kv, int kv_mul, int qm, int page, int max_pages,
-                                 int grid, void* units, void* stream) {
+// units [grid, 10] int32 device pointers.  Returns a cudaError_t.  (A window
+// launch's plan: min_boxes kWinMinSpan / kBox, the decode's: 1.)
+static int plan(const void* pos, int B, int n_kv, int kv_mul, int qm, int page, int max_pages, int grid,
+                int min_boxes, void* units, void* stream) {
   if (B < 1 || qm < 1 || kv_mul % qm || grid < 1) return (int)cudaErrorInvalidValue;
   Args a = {};
   a.pos = reinterpret_cast<const int*>(pos);
@@ -1057,6 +1584,21 @@ extern "C" int paged_decode_plan(const void* pos, int B, int n_kv, int kv_mul, i
   a.qm = qm;
   a.page = page;
   a.max_pages = max_pages;
-  plan_kernel<<<grid, 32, 0, reinterpret_cast<cudaStream_t>(stream)>>>(a, reinterpret_cast<int*>(units));
+  plan_kernel<<<grid, 32, 0, reinterpret_cast<cudaStream_t>(stream)>>>(a, min_boxes, reinterpret_cast<int*>(units));
   return (int)cudaGetLastError();
+}
+
+extern "C" int paged_decode_plan(const void* pos, int B, int n_kv, int kv_mul, int qm, int page, int max_pages,
+                                 int grid, void* units, void* stream) {
+  return plan(pos, B, n_kv, kv_mul, qm, page, max_pages, grid, 1, units, stream);
+}
+
+// The window kernel's plan of a launch of `grid` blocks for R rows a kv head: the decode plan with the
+// row tiles (ceil(R / 64)) in place of head tiles and splits of at least kWinMinSpan rows, made by the
+// same device function.
+extern "C" int paged_window_plan(const void* pos, int B, int n_kv, int R, int page, int max_pages, int grid,
+                                 void* units, void* stream) {
+  if (R < 1) return (int)cudaErrorInvalidValue;
+  return plan(pos, B, n_kv, (R + kRowTile - 1) / kRowTile, 1, page, max_pages, grid, kWinMinSpan / kBox, units,
+              stream);
 }

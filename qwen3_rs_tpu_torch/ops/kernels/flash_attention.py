@@ -9,10 +9,9 @@ and INT8 caches; an INT8 cache passes per-row scales ``[L, B, n_kv, T]``, and
 the K scale multiplies the score, the V scale the probability.
 
 For a CPU tensor the wrapper runs the plain PyTorch version; for a CUDA
-tensor it launches a kernel or raises.  At head_dim 128 and 256 over an f32
-or bf16 cache of a multiple of 16 rows (``one_launch_takes``) that is the
-one-launch decode kernel of ``csrc/paged_decode.cu`` (#9's), on the layer
-``[B, n_kv, T, hd]``
+tensor it launches a kernel or raises.  At head_dim 128 and 256 over a cache
+of a multiple of 16 rows (``one_launch_takes``) that is the one-launch decode
+kernel of ``csrc/paged_decode.cu`` (#9's), on the layer ``[B, n_kv, T, hd]``
 viewed as a pool of B pages of T rows, request b's page being b: a split
 plan made on the device from the positions over the live rows only, TMA
 copies, the last block of each kv head merging its splits.  Elsewhere it is
@@ -116,16 +115,15 @@ def _need(cond: bool, msg: str) -> None:
         raise ValueError(f"flash_decode: {msg}")
 
 
-def one_launch_takes(hd: int, t_max: int, dtype=torch.float32) -> bool:
+def one_launch_takes(hd: int, t_max: int) -> bool:
     """Whether ``flash_decode`` launches the one-launch decode kernel for a
-    cache of ``t_max`` rows of ``dtype`` at head_dim ``hd`` (else the
-    two-pass kernel): the one-launch kernel's head_dims and pages, with the
-    whole layer as a request's one page, over f32 and bf16 caches.  An INT8
-    cache keeps the two-pass kernel: on the one-launch kernel's tensor-core
-    stage (q and P split into bf16 hi + lo) its output missed the 1e-5 that
-    #4 is held to (1.18e-5 at T = 208, 3 query heads a kv head, on the
-    card)."""
-    return dtype != torch.int8 and paged_attention.split_kernel_takes(hd, t_max)
+    cache of ``t_max`` rows at head_dim ``hd`` (else the two-pass kernel):
+    the one-launch kernel's head_dims and pages, with the whole layer as a
+    request's one page, over f32, bf16 and INT8 caches alike.  An INT8
+    cache's tensor-core stage splits q and P into three bf16 terms: with two
+    its output missed the 1e-5 that #4 is held to (1.18e-5 at T = 208, 3
+    query heads a kv head, on the card)."""
+    return paged_attention.split_kernel_takes(hd, t_max)
 
 
 def _checked(q, k_new, v_new, k_all, v_all, pos, layer, k_scale_all, v_scale_all):
@@ -187,7 +185,7 @@ def flash_decode(
             k_scale_all=k_scale_all, v_scale_all=v_scale_all,
         )
     qf, kn, vn, ptrs = _checked(q, k_new, v_new, k_all, v_all, pos, layer, k_scale_all, v_scale_all)
-    if one_launch_takes(q.shape[-1], k_all.shape[3], k_all.dtype):
+    if one_launch_takes(q.shape[-1], k_all.shape[3]):
         out = torch.empty(qf.shape, dtype=torch.float32, device=q.device)
         paged_attention.one_launch(qf, kn, vn, k_all, ptrs, None, pos, q.shape[1] // k_all.shape[2], out, None,
                                    "flash_decode")
@@ -211,7 +209,7 @@ def flash_decode_phases(q, k_new, v_new, k_all, v_all, pos, layer, *, k_scale_al
     """Where one launch of the one-launch kernel on the dense layer spends
     its time (card only; ``paged_attention.paged_decode_phases``' breakdown
     from the kernel's clock stamps)."""
-    _need(one_launch_takes(q.shape[-1], k_all.shape[3], k_all.dtype), "the cache takes the two-pass kernel")
+    _need(one_launch_takes(q.shape[-1], k_all.shape[3]), "the cache takes the two-pass kernel")
     qf, kn, vn, ptrs = _checked(q, k_new, v_new, k_all, v_all, pos, layer, k_scale_all, v_scale_all)
     return paged_attention.launch_phases(qf, kn, vn, k_all, ptrs, None, pos, q.shape[1] // k_all.shape[2])
 

@@ -25,9 +25,16 @@ fills the card, split over the live rows on the device (``decode_units`` is
 the plan in Python; ``paged_decode_kernel_plan`` reads the kernel's own),
 whole pages brought by TMA, the splits merged by the last block of each
 (request, kv head, head tile).  Its stage compute follows the pool:
-``mma.sync`` for bf16 and INT8 pools, the CUDA cores for f32 pools, whose
-rows are not exact in bf16.  Elsewhere both wrappers launch the
-two-pass kernels of ``csrc/paged_attention.cu``, which share their first pass.
+``mma.sync`` for bf16 and INT8 pools (q and P in two bf16 terms, three for
+an INT8 dense layer: ``bf16_terms``), the CUDA cores for f32 pools, whose
+rows are not exact in bf16.  ``paged_window_partials`` over bf16 and INT8 pools at those
+shapes (``window_split_takes``) is one launch of the window kernel of the
+same source, on the same plan with row tiles of ``WINDOW_ROW_TILE`` query
+rows in place of head tiles (``window_units``; ``paged_window_kernel_plan``
+reads the kernel's own): every query row of a tile shares each K/V row read,
+S and P·V on ``mma.sync`` with the query rows on its 16-row side.  Elsewhere
+both wrappers launch the two-pass kernels of ``csrc/paged_attention.cu``,
+which share their first pass.
 For a CPU tensor a wrapper runs its plain PyTorch version; for a CUDA tensor
 it launches its kernel or raises.  They take any number of query heads per
 kv head and every head_dim that is a multiple of 128 (``takes_head_dim``;
@@ -50,8 +57,11 @@ from .qmatmul import _sm_count
 CHUNK = 128  # cache rows per block of the two-pass kernels' first pass
 SPLIT_HEAD_DIMS = (128, 256)  # head_dims of the one-launch decode kernel
 SPLIT_ROWS = 16  # the one-launch kernel's split sizes and page sizes are multiples of it
+WINDOW_ROW_TILE = 64  # query rows a block of the one-launch window kernel takes
+WINDOW_MIN_SPAN = 128  # a window split's least rows (2 stages): its partial is WINDOW_ROW_TILE rows by hd
 MAX_WINDOW_ROWS = 128  # the reference's bound on S·kv_mul for the window kernel
 _CACHE_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_EXACT_INT8 = 3  # the one-launch kernel's cache type for an INT8 dense layer: q and P in three bf16 terms
 
 
 def takes_head_dim(hd: int) -> bool:
@@ -187,13 +197,21 @@ def decode_plan(pos: list[int], n_kv: int, kv_mul: int, page: int, max_pages: in
     split when it has none); span is the least multiple of ``SPLIT_ROWS``
     for which the splits of every request, kv head and head tile fit the
     grid."""
-    per = n_kv * (kv_mul // decode_qm(kv_mul))
+    return _plan(pos, n_kv * (kv_mul // decode_qm(kv_mul)), page, max_pages, grid)
+
+
+def _plan(pos: list[int], per: int, page: int, max_pages: int, grid: int,
+          min_span: int = SPLIT_ROWS) -> tuple[int, list[int]]:
+    """``decode_plan`` with ``per`` tiles a request (kv heads times head or
+    row tiles) and a span of at least ``min_span`` rows (or the longest
+    request's, rounded up to ``SPLIT_ROWS``)."""
     live = [min(max(p, 0), max_pages * page) for p in pos]
 
     def splits(span):
         return [max(1, -(-p // span)) for p in live]
 
-    lo, hi = 1, max(1, -(-max(live, default=0) // SPLIT_ROWS))
+    hi = max(1, -(-max(live, default=0) // SPLIT_ROWS))
+    lo = min(min_span // SPLIT_ROWS, hi)
     while lo < hi:
         mid = (lo + hi) // 2
         if sum(splits(mid * SPLIT_ROWS)) * per <= grid:
@@ -207,8 +225,14 @@ def decode_units(pos: list[int], n_kv: int, kv_mul: int, page: int, max_pages: i
     """The units of ``decode_plan``, block u taking the u-th: (b, kv head,
     head tile, split, splits, first row, end row, workspace slot of split 0,
     arrival counter), in (request, kv head, head tile, split) order."""
-    span, splits = decode_plan(pos, n_kv, kv_mul, page, max_pages, grid)
-    tiles = kv_mul // decode_qm(kv_mul)
+    return _units(pos, n_kv, kv_mul // decode_qm(kv_mul), page, max_pages, grid)
+
+
+def _units(pos: list[int], n_kv: int, tiles: int, page: int, max_pages: int, grid: int,
+           min_span: int = SPLIT_ROWS) -> list[tuple]:
+    """``decode_units`` with ``tiles`` tiles a kv head and splits of at least
+    ``min_span`` rows."""
+    span, splits = _plan(pos, n_kv * tiles, page, max_pages, grid, min_span)
     units = []
     for b, (p, n_s) in enumerate(zip(pos, splits)):
         live = min(max(p, 0), max_pages * page)
@@ -230,6 +254,55 @@ def split_kernel_takes(hd: int, page: int) -> bool:
     """Whether ``paged_decode`` launches the one-launch kernel for a pool of
     head_dim ``hd`` and pages of ``page`` rows (else the two-pass kernels)."""
     return hd in SPLIT_HEAD_DIMS and page % SPLIT_ROWS == 0
+
+
+def window_split_takes(hd: int, page: int, dtype) -> bool:
+    """Whether ``paged_window_partials`` launches the one-launch window
+    kernel (else the two-pass kernels): the decode kernel's head_dims and
+    pages, over bf16 and INT8 pools (an f32 pool's rows are not exact in
+    bf16, and its window keeps the CUDA cores)."""
+    return split_kernel_takes(hd, page) and dtype in (torch.bfloat16, torch.int8)
+
+
+def window_tiles(r: int) -> int:
+    """Row tiles of ``WINDOW_ROW_TILE`` query rows over a kv head's ``r``
+    rows."""
+    return -(-r // WINDOW_ROW_TILE)
+
+
+def window_grid(b: int, n_kv: int, r: int, sms: int, blocks_per_sm: int) -> int:
+    """Blocks of one launch of the window kernel: as many as the card holds
+    at once, and at least one per (request, kv head, row tile)."""
+    return max(sms * blocks_per_sm, b * n_kv * window_tiles(r))
+
+
+def window_units(pos: list[int], n_kv: int, r: int, page: int, max_pages: int, grid: int) -> list[tuple]:
+    """The window kernel's units, block u taking the u-th: ``decode_units``'
+    plan and layout with the row tiles of ``r`` query rows in place of head
+    tiles and splits of at least ``WINDOW_MIN_SPAN`` rows (a split's
+    partial is a tile of rows by hd: a shorter split costs its block's
+    fixed start and its partial's write and merge more than it saves):
+    (b, kv head, row tile, split, splits, first row, end row, workspace slot
+    of split 0, arrival counter)."""
+    return _units(pos, n_kv, window_tiles(r), page, max_pages, grid, WINDOW_MIN_SPAN)
+
+
+def window_workspace_floats(grid: int, hd: int) -> tuple[int, int]:
+    """Floats of the window kernel's two workspaces: (m, l) and acc of one
+    split partial of a row tile a block."""
+    return grid * WINDOW_ROW_TILE * 2, grid * WINDOW_ROW_TILE * hd
+
+
+def bf16_terms(x: torch.Tensor, n: int) -> list[torch.Tensor]:
+    """x (f32) as ``n`` bf16 terms, each the nearest bf16 to what the terms
+    before it leave, as the tensor-core stages split q and P
+    (``split_terms`` in ``csrc/paged_decode.cu``): two hold x to ~2^-17 of
+    its value, three to every bit of an f32."""
+    terms, rest = [], x.float()
+    for _ in range(n):
+        terms.append(rest.to(torch.bfloat16))
+        rest = rest - terms[-1].float()
+    return terms
 
 
 _DECODE_COUNTERS: dict = {}
@@ -255,12 +328,21 @@ def _blocks_per_sm(index: int, cache_type: int, hd: int, qm: int) -> int:
     return n
 
 
-def split_grid(dev: torch.device, pool_dtype: torch.dtype, hd: int, b: int, n_kv: int, kv_mul: int) -> int:
+def split_grid(dev: torch.device, pool_dtype: torch.dtype, hd: int, b: int, n_kv: int, kv_mul: int,
+               dense: bool = False) -> int:
     """Blocks of a one-launch #9 call on ``dev`` (``decode_grid`` with the
-    card's SMs and the instance's blocks an SM)."""
+    card's SMs and the instance's blocks an SM); ``dense``: #4's call on a
+    dense layer."""
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     return decode_grid(b, n_kv, kv_mul, _sm_count(index),
-                       _blocks_per_sm(index, _CACHE_TYPES[pool_dtype], hd, decode_qm(kv_mul)))
+                       _blocks_per_sm(index, _cache_type(pool_dtype, dense), hd, decode_qm(kv_mul)))
+
+
+def _cache_type(dtype: torch.dtype, dense: bool) -> int:
+    """The one-launch decode kernel's cache type: an INT8 dense layer (#4,
+    held to 1e-5) splits q and P into three bf16 terms, an INT8 pool (#9,
+    held to 1e-4·max|ref|) into two, which were faster there on the card."""
+    return _EXACT_INT8 if dense and dtype == torch.int8 else _CACHE_TYPES[dtype]
 
 
 def paged_decode_kernel_plan(pos: torch.Tensor, n_kv: int, kv_mul: int, page: int, max_pages: int,
@@ -269,18 +351,45 @@ def paged_decode_kernel_plan(pos: torch.Tensor, n_kv: int, kv_mul: int, page: in
     on the card) in a launch of ``grid`` blocks, read back: the units of the
     blocks that took one, in block order, as ``decode_units`` gives them
     (card only; a block past the last unit must take none)."""
+    return _kernel_plan("paged_decode_plan", pos, grid, lambda lib, units, stream: lib.paged_decode_plan(
+        pos.data_ptr(), pos.shape[0], n_kv, kv_mul, decode_qm(kv_mul), page, max_pages, grid, units, stream))
+
+
+def paged_window_kernel_plan(pos: torch.Tensor, n_kv: int, r: int, page: int, max_pages: int,
+                             grid: int) -> list[tuple]:
+    """The plan the window kernel's blocks make from ``pos`` for ``r`` query
+    rows a kv head in a launch of ``grid`` blocks, read back as
+    ``window_units`` gives it (card only)."""
+    return _kernel_plan("paged_window_plan", pos, grid, lambda lib, units, stream: lib.paged_window_plan(
+        pos.data_ptr(), pos.shape[0], n_kv, r, page, max_pages, grid, units, stream))
+
+
+def _kernel_plan(name: str, pos: torch.Tensor, grid: int, call) -> list[tuple]:
     if pos.device.type != "cuda" or pos.dtype != torch.int32 or pos.dim() != 1 or not pos.is_contiguous():
-        raise ValueError("paged_decode_kernel_plan: pos must be contiguous int32 [B] on the card")
+        raise ValueError(f"{name}: pos must be contiguous int32 [B] on the card")
     units = torch.full((grid, 10), -1, dtype=torch.int32, device=pos.device)
-    err = _split_lib().paged_decode_plan(pos.data_ptr(), pos.shape[0], n_kv, kv_mul, decode_qm(kv_mul), page,
-                                         max_pages, grid, units.data_ptr(),
-                                         torch.cuda.current_stream(pos.device).cuda_stream)
-    build.check(err, "paged_decode_plan")
+    build.check(call(_split_lib(), units.data_ptr(), torch.cuda.current_stream(pos.device).cuda_stream), name)
     rows = units.cpu().tolist()
     taken = [tuple(r[1:]) for r in rows if r[0] == 1]
     if any(r[0] != 1 for r in rows[:len(taken)]) or any(r[0] != 0 for r in rows[len(taken):]):
-        raise RuntimeError("paged_decode_plan: the blocks with units are not the first ones")
+        raise RuntimeError(f"{name}: the blocks with units are not the first ones")
     return taken
+
+
+@functools.cache
+def _window_blocks_per_sm(index: int, cache_type: int, hd: int) -> int:
+    with torch.cuda.device(index):
+        n = _split_lib().paged_window_blocks_per_sm(cache_type, hd)
+    if n < 1:
+        raise RuntimeError(f"paged_window_partials: no kernel instance for pool type {cache_type}, head_dim {hd}")
+    return n
+
+
+def window_split_grid(dev: torch.device, pool_dtype: torch.dtype, hd: int, b: int, n_kv: int, r: int) -> int:
+    """Blocks of a one-launch #10 call on ``dev`` (``window_grid`` with the
+    card's SMs and the instance's blocks an SM)."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return window_grid(b, n_kv, r, _sm_count(index), _window_blocks_per_sm(index, _CACHE_TYPES[pool_dtype], hd))
 
 
 @functools.cache
@@ -293,6 +402,12 @@ def _split_lib() -> ctypes.CDLL:
     lib.paged_decode_split.restype = ctypes.c_int
     lib.paged_decode_plan.argtypes = [p, i, i, i, i, i, i, i, p, p]
     lib.paged_decode_plan.restype = ctypes.c_int
+    lib.paged_window_blocks_per_sm.argtypes = [i, i]
+    lib.paged_window_blocks_per_sm.restype = ctypes.c_int
+    lib.paged_window_split.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, i, p, p, p, p, p, p, p, p]
+    lib.paged_window_split.restype = ctypes.c_int
+    lib.paged_window_plan.argtypes = [p, i, i, i, i, i, i, p, p]
+    lib.paged_window_plan.restype = ctypes.c_int
     return lib
 
 
@@ -406,7 +521,7 @@ def one_launch(qf, kn, vn, k_pool, ptrs, page_table, pos, kv_mul, out, stamps, k
     b, n_kv, hd = kn.shape
     page, max_pages = k_pool.shape[3], 1 if page_table is None else page_table.shape[1]
     qm = decode_qm(kv_mul)
-    grid = split_grid(qf.device, k_pool.dtype, hd, b, n_kv, kv_mul)
+    grid = split_grid(qf.device, k_pool.dtype, hd, b, n_kv, kv_mul, page_table is None)
     if stamps is not None and stamps.shape != (grid, 8):
         raise ValueError(f"paged_decode: stamps must be [{grid}, 8]")
     n_ml, n_acc = decode_workspace_floats(grid, kv_mul, hd)
@@ -415,7 +530,8 @@ def one_launch(qf, kn, vn, k_pool, ptrs, page_table, pos, kv_mul, out, stamps, k
     err = _split_lib().paged_decode_split(
         qf.data_ptr(), kn.data_ptr(), vn.data_ptr(), k, v, ks, vs,
         None if page_table is None else page_table.data_ptr(), pos.data_ptr(),
-        _CACHE_TYPES[k_pool.dtype], b, n_kv, kv_mul, qm, k_pool.shape[1], page, max_pages, hd, 1.0 / hd**0.5,
+        _cache_type(k_pool.dtype, page_table is None), b, n_kv, kv_mul, qm, k_pool.shape[1], page, max_pages, hd,
+        1.0 / hd**0.5,
         grid, ws.data_ptr() + n_acc * 4, ws.data_ptr(), counters.data_ptr(), out.data_ptr(),
         None if stamps is None else stamps.data_ptr(), torch.cuda.current_stream(qf.device).cuda_stream,
     )
@@ -479,7 +595,9 @@ def paged_window_partials(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Cache-part partials of a window q ``[B, S, n_heads, hd]`` over layer
     ``layer`` of the pool → (m, l ``[B, n_kv, R]``, acc ``[B, n_kv, R, hd]``)
-    f32, with R = S·kv_mul rows in the order (mul, s)."""
+    f32, with R = S·kv_mul rows in the order (mul, s).  On the card: one
+    launch of the window kernel where ``window_split_takes``, else the
+    two-pass kernels."""
     if q.device.type == "cpu":
         return paged_window_partials_plain(q, k_pool, v_pool, page_table, pos, layer,
                                            k_scale_pool=k_scale_pool, v_scale_pool=v_scale_pool)
@@ -489,23 +607,73 @@ def paged_window_partials(
     r = s * (n_heads // n_kv)
     if r > MAX_WINDOW_ROWS:
         raise ValueError(f"paged_window_partials: S·kv_mul = {r} > {MAX_WINDOW_ROWS}")
+    m = torch.empty(b, n_kv, r, dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    acc = torch.empty(b, n_kv, r, hd, dtype=torch.float32, device=q.device)
+    if window_split_takes(hd, page, k_pool.dtype):
+        _window_launch(q.float().contiguous(), k_pool, (k, v, ks, vs), page_table, pos, (m, l, acc), None)
+        return m, l, acc
     rows = _window_rows(q, n_kv).contiguous()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     n_chunks = -(-max_pages * page // CHUNK)
     slots = b * n_kv * n_chunks * r
     part_ml = torch.empty(slots * 2, dtype=torch.float32, device=q.device)
     part_acc = torch.empty(slots * hd, dtype=torch.float32, device=q.device)
-    m = torch.empty(b, n_kv, r, dtype=torch.float32, device=q.device)
-    l = torch.empty_like(m)
-    acc = torch.empty(b, n_kv, r, hd, dtype=torch.float32, device=q.device)
     err = _lib().paged_window_partials(
         rows.data_ptr(), k, v, ks, vs, page_table.data_ptr(), pos.data_ptr(),
         _CACHE_TYPES[k_pool.dtype], b, n_kv, r, page, max_pages, hd, 1.0 / hd**0.5,
-        part_ml.data_ptr(), part_acc.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        part_ml.data_ptr(), part_acc.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(), stream,
     )
     build.check(err, "paged_window_partials")
     LAUNCHES["paged_window_partials"] += 1
     return m, l, acc
+
+
+def _window_launch(q, k_pool, ptrs, page_table, pos, outs, stamps) -> int:
+    """One launch of the window kernel (checked inputs: q ``[B, S, n_heads,
+    hd]`` f32 contiguous, read in the rows' (mul, s) order by the kernel;
+    ptrs the layer's pool and scale pointers) into ``outs`` (m, l, acc),
+    counted under ``paged_window_partials``; ``stamps`` an int64 tensor of
+    ``[grid, 8]`` or None.  Returns the grid."""
+    k, v, ks, vs = ptrs
+    b, s, n_heads, hd = q.shape
+    n_kv = k_pool.shape[2]
+    kv_mul = n_heads // n_kv
+    r = s * kv_mul
+    grid = window_split_grid(q.device, k_pool.dtype, hd, b, n_kv, r)
+    if stamps is not None and stamps.shape != (grid, 8):
+        raise ValueError(f"paged_window_partials: stamps must be [{grid}, 8]")
+    n_ml, n_acc = window_workspace_floats(grid, hd)
+    ws = torch.empty(n_acc + n_ml, dtype=torch.float32, device=q.device)  # acc first: 16-byte rows
+    counters = _decode_counters(q.device, b * n_kv * window_tiles(r))
+    m, l, acc = outs
+    err = _split_lib().paged_window_split(
+        q.data_ptr(), k, v, ks, vs, page_table.data_ptr(), pos.data_ptr(), _CACHE_TYPES[k_pool.dtype],
+        b, n_kv, s, kv_mul, k_pool.shape[1], k_pool.shape[3], page_table.shape[1], hd, 1.0 / hd**0.5, grid,
+        ws.data_ptr() + n_acc * 4, ws.data_ptr(), counters.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
+        None if stamps is None else stamps.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "paged_window_partials")
+    LAUNCHES["paged_window_partials"] += 1
+    return grid
+
+
+def paged_window_phases(q, k_pool, v_pool, page_table, pos, layer, *, k_scale_pool=None, v_scale_pool=None) -> dict:
+    """Where one launch of the window kernel spends its time (card only):
+    ``paged_decode_phases``' breakdown from the kernel's clock stamps, after
+    one launch unstamped."""
+    ptrs, n_kv, page, _ = _check_pool(
+        "paged_window_phases", q, k_pool, v_pool, page_table, pos, layer, k_scale_pool, v_scale_pool)
+    if not window_split_takes(q.shape[-1], page, k_pool.dtype):
+        raise ValueError("paged_window_phases: the pool takes the two-pass kernels")
+    qf = q.float().contiguous()
+    b, s, n_heads, hd = qf.shape
+    r = s * (n_heads // n_kv)
+    outs = (torch.empty(b, n_kv, r, device=q.device), torch.empty(b, n_kv, r, device=q.device),
+            torch.empty(b, n_kv, r, hd, device=q.device))
+    grid = _window_launch(qf, k_pool, ptrs, page_table, pos, outs, None)
+    stamps = torch.zeros(grid, 8, dtype=torch.int64, device=q.device)
+    _window_launch(qf, k_pool, ptrs, page_table, pos, outs, stamps)
+    return stamp_phases(stamps.cpu().tolist())
 
 
 def paged_window_attention(

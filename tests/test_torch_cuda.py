@@ -384,15 +384,15 @@ def test_flash_decode_matches_plain(card, cache, kv_mul):
 @pytest.mark.parametrize("cache", ["f32", "bf16", "int8"])
 @pytest.mark.parametrize("kv_mul", [1, 2, 3, 4, 5, 6, 8, 16])
 def test_flash_decode_one_launch_matches_plain(card, cache, kv_mul):
-    """T = 208, a multiple of 16: the one-launch kernel for f32 and bf16
-    caches (INT8 caches keep the two-pass kernel)."""
+    """T = 208, a multiple of 16: the one-launch kernel for every cache type
+    (an INT8 cache's stage with q and P in three bf16 terms), at 1e-5."""
     _flash_decode_holds(card, cache, kv_mul, 208, kv_mul * 3 + len(cache) + 208)
 
 
-@pytest.mark.parametrize("cache", ["f32", "bf16"])
+@pytest.mark.parametrize("cache", ["f32", "bf16", "int8"])
 @pytest.mark.parametrize("hd", [128, 256])
 def test_flash_decode_is_one_launch_where_it_takes_the_split_kernel(card, cache, hd):
-    """At head_dim 128/256 over an f32 or bf16 cache of a multiple of 16 rows
+    """At head_dim 128/256 over an f32, bf16 or INT8 cache of a multiple of 16 rows
     a call is one kernel on the card (the profiler's count), held at 1e-5
     against the plain version and against the two-pass kernel on the same
     inputs, at B = 1 and B = 3 with pos 0/1/127/128/129/T across the rows."""
@@ -845,29 +845,130 @@ def test_paged_kernels_read_no_row_at_or_past_pos(card):
     assert bool(torch.isfinite(acc).all()) and bool(torch.isneginf(m[0]).all()) and bool(torch.isfinite(m[1:]).all())
 
 
-@pytest.mark.parametrize("pool", ["bf16", "int8"])
+def _window_holds(got, ref):
+    """#10's partials against the plain version's: the same shapes and -inf
+    entries, the finite ones within 1e-4·max|ref|."""
+    for a, r in zip(got, ref):
+        assert a.shape == r.shape
+        assert torch.equal(torch.isneginf(a), torch.isneginf(r))
+        fin = torch.isfinite(r)
+        if bool(fin.any()):
+            assert float((a[fin] - r[fin]).abs().max()) <= 1e-4 * float(r[fin].abs().max())
+
+
+@pytest.mark.parametrize("pool", ["f32", "bf16", "int8"])
 @pytest.mark.parametrize("s,kv_mul", [(2, 1), (3, 2), (32, 4), (16, 8), (5, 4), (4, 3), (3, 5), (8, 16)])
 @pytest.mark.parametrize("page", [16, 128])
-def test_paged_window_matches_plain(card, pool, s, kv_mul, page):
-    gen = _gen(s * 7 + kv_mul + page)
+@pytest.mark.parametrize("hd", [128, 256])
+def test_paged_window_matches_plain(card, pool, s, kv_mul, page, hd):
+    """#10 over f32 (the two-pass kernels), bf16 and INT8 pools (the window
+    kernel) at R = S·kv_mul from 2 to 128 rows, pages of 16 and 128 rows,
+    head_dim 128 and 256: one launch, within 1e-4·max|ref| with the -inf
+    entries equal; then an all-idle batch (every pos 0)."""
+    gen = _gen(s * 7 + kv_mul + page + hd + len(pool))
     max_pages = -(-300 // page)
     pos_list = [0, 1, page + 1, 300]
     b = len(pos_list)
     n_pages = 1 + b * max_pages
-    k, v, sc = _pool(gen, card, pool, page, n_pages)
+    k, v, sc = _cache_of(gen, card, pool, (2, n_pages, 2, page, hd))
+    sc = {} if sc is None else dict(zip(("k_scale_pool", "v_scale_pool"), sc))
     table = _tables(gen, card, b, max_pages, n_pages)
-    q = torch.randn(b, s, 2 * kv_mul, 128, generator=gen, device=card)
+    q = torch.randn(b, s, 2 * kv_mul, hd, generator=gen, device=card)
     pos = torch.tensor(pos_list, dtype=torch.int32, device=card)
     before = LAUNCHES["paged_window_partials"]
     got = paged_window_partials(q, k, v, table, pos, 1, **sc)
     assert LAUNCHES["paged_window_partials"] == before + 1
     ref = paged_window_partials_plain(q, k, v, table, pos, 1, **sc)
     torch.cuda.synchronize()
-    for a, r in zip(got, ref):
-        assert a.shape == r.shape
-        assert torch.equal(torch.isneginf(a), torch.isneginf(r))
-        fin = torch.isfinite(r)
-        assert float((a[fin] - r[fin]).abs().max()) <= 1e-4 * float(r[fin].abs().max())
+    _window_holds(got, ref)
+    idle = torch.zeros_like(pos)
+    m, l, acc = paged_window_partials(q, k, v, table, idle, 1, **sc)
+    torch.cuda.synchronize()
+    assert bool(torch.isneginf(m).all()) and bool((l == 0).all()) and bool((acc == 0).all())
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+def test_paged_window_kernel_reads_no_row_at_or_past_pos(card, pool):
+    """The window kernel's pools: rows at or past pos and the null page hold
+    NaN (INT8: their scales too), and the partials stay finite where pos > 0."""
+    gen = _gen(17 + len(pool))
+    page, max_pages = 16, 8
+    k, v, sc = _cache_of(gen, card, pool, (1, 1 + 3 * max_pages, 2, page, 128))
+    sc = {} if sc is None else dict(zip(("k_scale_pool", "v_scale_pool"), sc))
+    table = _tables(gen, card, 3, max_pages, 1 + 3 * max_pages)
+    pos_list = [0, 5, 40]
+    nan_rows = [(table[b, t // page], t % page) for b, p in enumerate(pos_list) for t in range(p, max_pages * page)]
+    for pg, r in nan_rows + [(0, r) for r in range(page)]:
+        if pool == "int8":
+            sc["k_scale_pool"][0, pg, :, r] = float("nan")
+            sc["v_scale_pool"][0, pg, :, r] = float("nan")
+        else:
+            k[0, pg, :, r] = float("nan")
+            v[0, pg, :, r] = float("nan")
+    table[0] = 0  # an idle slot: all-null table at pos 0
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=card)
+    m, l, acc = paged_window_partials(torch.randn(3, 5, 4, 128, generator=gen, device=card), k, v, table, pos, 0, **sc)
+    assert bool(torch.isfinite(acc).all()) and bool(torch.isfinite(l).all())
+    assert bool(torch.isneginf(m[0]).all()) and bool(torch.isfinite(m[1:]).all())
+
+
+@pytest.mark.parametrize(
+    "pos,n_kv,r,grid",
+    [
+        ([0, 1, 127, 128, 512, 1000, 2049, 4064], 8, 128, 264),  # 8B, S = 32: two row tiles
+        ([0, 1, 127, 128, 512, 1000, 2049, 4064], 8, 16, 264),  # 8B, S = 4
+        ([0, 0, 0], 2, 64, 132),  # idle slots only
+        ([5000, 17, 300], 2, 80, 132),  # a position past the table
+        (list(range(0, 200 * 20, 20)), 2, 100, 800),  # more than 128 requests
+    ],
+)
+def test_paged_window_kernel_plan_is_window_units(card, pos, n_kv, r, grid):
+    """The plan the window kernel's blocks make from the positions, read
+    back block by block, is ``window_units``'s, unit for unit."""
+    from qwen3_rs_tpu_torch.ops.kernels.paged_attention import (
+        paged_window_kernel_plan,
+        window_grid,
+        window_units,
+    )
+
+    page, max_pages = 128, 32
+    grid = max(grid, window_grid(len(pos), n_kv, r, 1, 1))
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=card)
+    assert paged_window_kernel_plan(pos_t, n_kv, r, page, max_pages, grid) == window_units(
+        pos, n_kv, r, page, max_pages, grid)
+
+
+def test_paged_window_counters_stay_zero(card):
+    """The window kernel's arrival counters are zero after every launch, two
+    launches give the same bytes, and a CUDA graph's replay gives the same
+    partials."""
+    from qwen3_rs_tpu_torch.ops.kernels import paged_attention as pa
+
+    gen = _gen(78)
+    page, max_pages, pos_list = 128, 32, [4064, 1000, 0, 2049]
+    b = len(pos_list)
+    n_pages = 1 + b * max_pages
+    k, v, _ = _cache_of(gen, card, "bf16", (2, n_pages, 8, page, 128))
+    table = _tables(gen, card, b, max_pages, n_pages)
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=card)
+    q = torch.randn(b, 32, 32, 128, generator=gen, device=card)
+    first = paged_window_partials(q, k, v, table, pos, 1)
+    again = paged_window_partials(q, k, v, table, pos, 1)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+    assert int(pa._DECODE_COUNTERS[q.device].abs().sum()) == 0
+    out = {}
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        paged_window_partials(q, k, v, table, pos, 1)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            out["x"] = paged_window_partials(q, k, v, table, pos, 1)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(out["x"], first))
+    assert int(pa._DECODE_COUNTERS[q.device].abs().sum()) == 0
 
 
 def test_paged_serving_card_matches_cpu(card):

@@ -128,13 +128,13 @@ def test_dense_layer_as_pages_is_the_plain_version(cache, kv_mul, pos):
 
 def test_one_launch_takes_the_split_kernels_shapes():
     """``flash_decode`` takes the one-launch kernel exactly where the paged
-    kernel would take a page of T rows of an f32 or bf16 cache: head_dim
-    128 or 256 and T a multiple of 16 (every T the JAX gate admits, a
-    multiple of 128, included); an INT8 cache keeps the two-pass kernel."""
+    kernel would take a page of T rows: head_dim 128 or 256 and T a
+    multiple of 16 (every T the JAX gate admits, a multiple of 128,
+    included), over f32, bf16 and INT8 caches alike (an INT8 cache took the
+    two-pass kernel until its stage split q and P into three bf16 terms);
+    the two-pass kernel keeps the other head_dims and T."""
     for hd in (128, 256, 384, 512, 640):
         for t in (16, 200, 208, 384, 4096, 4100):
-            for dt in (torch.float32, torch.bfloat16):
-                assert one_launch_takes(hd, t, dt) == (hd in SPLIT_HEAD_DIMS and t % 16 == 0)
-                if decode_supported(32, 8, hd, t, min_seq_len=0) and hd in SPLIT_HEAD_DIMS:
-                    assert one_launch_takes(hd, t, dt)
-            assert not one_launch_takes(hd, t, torch.int8)
+            assert one_launch_takes(hd, t) == (hd in SPLIT_HEAD_DIMS and t % 16 == 0)
+            if decode_supported(32, 8, hd, t, min_seq_len=0) and hd in SPLIT_HEAD_DIMS:
+                assert one_launch_takes(hd, t)

@@ -233,3 +233,101 @@ def test_stamp_phases_reads_a_launch():
     assert ph["plan"] == 2.0 and ph["first_copy"] == 1.2 and ph["first_stage"] == 4.0
     assert ph["stages"] == 2.5 and ph["partial"] == 1.0 and ph["arrive"] == 0.3 and ph["merge"] == 1.7
     assert ph["span"] == 12.0
+
+
+WINDOW_PLAN_CASES = [
+    ([0, 1, 127, 128, 512, 1000, 2049, 4064], 8, 128, 264),  # 8B, S = 32: two row tiles, two blocks an SM
+    ([0, 1, 127, 128, 512, 1000, 2049, 4064], 8, 16, 264),  # 8B, S = 4: one tile of 16 rows
+    ([0, 0, 0], 2, 64, 132),  # idle slots only: one split each, no rows
+    ([5000, 17, 300], 2, 80, 132),  # a position past the table, a tile of 64 and one of 16
+    ([512] * 8, 8, 96, 132),  # the prefix cache's windows: every request at one position
+    (list(range(0, 200 * 20, 20)), 2, 100, 800),  # more than 128 requests
+]
+
+
+@pytest.mark.parametrize("pos,n_kv,r,grid", WINDOW_PLAN_CASES)
+def test_window_units_cover_every_live_row_once_and_fit_the_grid(pos, n_kv, r, grid):
+    """``window_units``, the unit each block of the window kernel takes (a
+    card test holds the kernel's own plan to it): no more units than
+    blocks; each (request, kv head, row tile) once, with its own counter,
+    its splits in order on consecutive workspace slots, their rows covering
+    the request's live rows exactly once; splits of a 16-row multiple, the
+    least span of at least ``WINDOW_MIN_SPAN`` rows that fits."""
+    from qwen3_rs_tpu_torch.ops.kernels.paged_attention import (
+        SPLIT_ROWS,
+        WINDOW_MIN_SPAN,
+        WINDOW_ROW_TILE,
+        window_grid,
+        window_tiles,
+        window_units,
+    )
+
+    page, max_pages = 128, 32
+    tiles = window_tiles(r)
+    assert tiles == -(-r // WINDOW_ROW_TILE) and (tiles - 1) * WINDOW_ROW_TILE < r <= tiles * WINDOW_ROW_TILE
+    grid = max(grid, window_grid(len(pos), n_kv, r, 1, 1))
+    units = window_units(pos, n_kv, r, page, max_pages, grid)
+    assert len(units) <= grid
+    rows = {}
+    for u, (b, h, tile, s, n_s, lo, hi, slot, pair) in enumerate(units):
+        assert slot == u - s and 0 <= h < n_kv and 0 <= tile < tiles
+        assert pair == (b * n_kv + h) * tiles + tile
+        rows.setdefault(pair, []).append((s, n_s, lo, hi))
+    assert sorted(rows) == list(range(len(pos) * n_kv * tiles))
+    spans = set()
+    for pair, parts in rows.items():
+        live = min(pos[pair // (n_kv * tiles)], max_pages * page)
+        covered = [t for _, _, lo, hi in parts for t in range(lo, hi)]
+        assert covered == list(range(live))  # each live row once, in split order
+        assert [s for s, _, _, _ in parts] == list(range(len(parts))) and all(n == len(parts) for _, n, _, _ in parts)
+        spans |= {hi - lo for _, _, lo, hi in parts[:-1]}
+    assert len(spans) <= 1 and all(x % SPLIT_ROWS == 0 and x >= WINDOW_MIN_SPAN for x in spans)
+    if spans and spans != {WINDOW_MIN_SPAN}:  # one box less a split would not fit the grid
+        smaller = spans.pop() - SPLIT_ROWS
+        n = sum(max(1, -(-min(p, max_pages * page) // smaller)) for p in pos)
+        assert n * n_kv * tiles > grid
+
+
+def test_window_route_grid_and_workspace():
+    """The window kernel's route (head_dim 128/256, pages of a multiple of 16
+    rows, bf16 and INT8 pools; f32 pools and the rest keep the two-pass
+    kernels), its grid and its workspaces."""
+    from qwen3_rs_tpu_torch.ops.kernels.paged_attention import (
+        window_grid,
+        window_split_takes,
+        window_workspace_floats,
+    )
+
+    for hd in (128, 256, 384, 512, 640):
+        for page in (8, 16, 128, 200):
+            for dt in (torch.float32, torch.bfloat16, torch.int8):
+                want = hd in (128, 256) and page % 16 == 0 and dt != torch.float32
+                assert window_split_takes(hd, page, dt) == want
+    assert window_grid(8, 8, 128, 132, 2) == 264 and window_grid(8, 8, 16, 132, 1) == 132
+    assert window_grid(64, 8, 128, 132, 1) == 64 * 8 * 2
+    assert window_workspace_floats(264, 128) == (264 * 64 * 2, 264 * 64 * 128)
+
+
+@pytest.mark.parametrize("n", [2, 3])
+def test_bf16_terms_rebuild_f32(n):
+    """q and P split into bf16 terms as the tensor-core stages split them:
+    three terms rebuild every f32 value to within 2^-24·|x| (#4's INT8 cache
+    at 1e-5), two to within 2^-16·|x| (bf16 and INT8 pools at 1e-4), over
+    random values of every scale and edge values."""
+    from qwen3_rs_tpu_torch.ops.kernels.paged_attention import bf16_terms
+
+    rng = np.random.default_rng(5)
+    x = np.concatenate([
+        rng.normal(0, 1, 20000) * np.exp2(rng.integers(-60, 60, 20000)),
+        rng.uniform(0, 1, 5000),  # probabilities
+        [0.0, -0.0, 1.0, -1.0, 1 + 2.0**-23, 1 - 2.0**-24, 2.0**-126, 3.0e38, -3.0e38, 2.0**-100 * 3],
+    ]).astype(np.float32)
+    xt = torch.from_numpy(x)
+    terms = bf16_terms(xt, n)
+    assert len(terms) == n and all(t.dtype == torch.bfloat16 for t in terms)
+    back = torch.zeros_like(xt, dtype=torch.float64)
+    for t in reversed(terms):
+        back += t.double()
+    err = (back - xt.double()).abs()
+    bound = 2.0 ** (-24 if n == 3 else -16) * xt.double().abs()
+    assert bool((err <= bound).all()), float((err - bound).max())
