@@ -16,7 +16,8 @@ Phases, in order; any failure exits non-zero before the final line:
                from the kernel's own clock stamps; the Q4 variants of #3, #6, #7 and
                #11 on INT4-g64 codes; #6's column window at the 8B tp=2
                shard shapes, also bit for bit against a full launch's
-               columns; #10's plan read back against ``window_units``;
+               columns; #10's plan read back against ``window_units``,
+               P1's one-call walk against ``probes.onecall_walk``;
                #4, #5, #9 and #10 at head_dim 256 and 640, #5 at
                384 and 512; #3 by route at 1-256 rows over the four 8B
                projections, the CUDA-core, mma and tensor-core routes side
@@ -33,10 +34,14 @@ Phases, in order; any failure exits non-zero before the final line:
                through their ``run()`` entry points, the probe kernels'
                path: the launch boundary at 8B ``wo`` and ``w13`` (eager #2
                launches, a CUDA graph of them, one ``boundary_onecall``
-               launch), the read stream over 4 GB at blocks of 0.5-4 MB, the
-               classifier's compute path at B=8 and 1, the depth-64 int8
-               question at 2048x4096x24576; then each probe kernel against
-               its plain version with its time, bound and yardsticks.
+               launch; the price of a boundary a layer), the read stream over
+               4 GB at blocks of 0.5-4 MB, the classifier's compute path at
+               B=8 and 1, the depth-64 int8 question at 2048x4096x24576
+               (i8-seg64 against bf16-full); then each probe kernel against
+               its plain version with its time, bound and yardsticks.  The
+               phase uses only the probes' ``run()`` entry points, wrappers
+               and constants and #2, so it runs unchanged when copied into
+               the ``git archive`` of an older tree that has the probes.
 4. ``e2e``     Qwen3-8B at full width and depth with random weights made on
                the card from a seed, each path driven with the launch counts
                reset just before it and read just after:
@@ -1820,9 +1825,35 @@ def phase_kernels(torch, ctx) -> None:
                           + megakernel_cases(torch, ctx) + qmatmul_q4_cases(torch, ctx) + rows_q4_cases(torch, ctx)
                           + dequant_q4_cases(torch, ctx) + megakernel_q4_kernel_cases(torch, ctx)
                           + rows_cols_cases(torch, ctx) + head_dim_cases(torch, ctx))
+    onecall_walk_checks(torch, ctx)
     made = {k for k in LAUNCHES if LAUNCHES[k] != before[k]}
     missed = set(LAUNCHES) - made - set(PROBE_KERNELS)  # the probes phase holds the probe kernels
     need(not missed, f"the kernel cases launched no {sorted(missed)}")
+
+
+def onecall_walk_checks(torch, ctx) -> None:
+    """P1's plan read back: the one-call kernel's record of its first rep's
+    units equals the Python mirror (``probes.onecall_walk``) at 8B ``wo`` and
+    ``w13``, L = 1 and 8 (checks only; the probes phase times the kernel)."""
+    from qwen3_rs_tpu_torch.ops.kernels.probes import (
+        _onecall_per_sm, _sm_count, boundary_onecall_walk, onecall_plan, onecall_walk,
+    )
+    from qwen3_rs_tpu_torch.scripts.boundary_probe import matrices
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(8005)
+    for mat in ("wo", "w13"):
+        n, d = matrices(PROBE_MODEL)[mat]
+        for layers in (1, 8):
+            w = _stacked_weights(torch, gen, layers, n, d, 64, torch.bfloat16)
+            x = torch.randn(1, n, generator=gen, device=DEV)
+            _, walk = boundary_onecall_walk(x, w)
+            plan = onecall_plan(n, d, 64, layers, _sm_count(0), _onecall_per_sm(0, True))
+            want = torch.tensor(onecall_walk(n, d, layers, *plan), dtype=torch.int32)
+            need(torch.equal(walk.cpu(), want), f"boundary_onecall {mat} L={layers}: the walk is not the plan {plan}")
+            emit({"phase": "kernels", "check": "onecall_walk", "mat": mat, "L": layers,
+                  "splits_spb_grid": list(plan), "units": int(want.shape[0])})
+            del w, x
 
 
 # --------------------------------------------------------------------- probes
@@ -1862,9 +1893,16 @@ def phase_probes(torch, ctx) -> None:
     for name, found in runs.items():
         for one in found if isinstance(found, list) else [found]:
             emit({"phase": "probes", "run": name, **{k: v for k, v in one.items() if k != "card"}})
+    depth_ms = {v: r["ms"] for v, r in runs["depth"]["variants"].items()}
     ctx["probes"] = {
         "boundary_ms_per_layer": {r["mat"]: {a: r["arms"][a]["ms_per_layer"] for a in r["arms"]}
                                   for r in runs["boundary"]},
+        # The price of a launch boundary a layer: each per-call arm less the one-call arm.
+        "boundary_price_ms_per_layer": {
+            r["mat"]: {a: r["arms"][a]["ms_per_layer"] - r["arms"]["onecall"]["ms_per_layer"]
+                       for a in ("percall-eager", "percall-graph")} for r in runs["boundary"]},
+        # The W8A8-g64 answer: bf16-full's time over i8-seg64's (above 1, the flushed int8 wins).
+        "depth_seg64_speedup_over_bf16": depth_ms["bf16-full"] / depth_ms["i8-seg64"],
         "stream_best_gb_per_s": stream_gbps, "stream_best_share_of_peak": runs["stream"]["best_share_of_peak"],
         "stream_library_gb_per_s": runs["stream"]["library_gb_per_s"], "copy_gb_per_s": ctx["copy_gbps"],
         "head_us_per_tile": {f"B={r['B']}": {v: r["variants"][v]["us_per_tile"] for v in r["variants"]}
@@ -1983,8 +2021,11 @@ def head_a8_rows(torch, ctx) -> list[dict]:
 def a8_depth_rows(torch, ctx) -> list[dict]:
     """P4 at 2048x4096x24576: the int arms bit for bit against their plain
     versions, bf16-full within 1e-4 of the largest value; library:
-    ``torch.matmul`` (bf16) and ``torch._int_mm`` (int8) on the same operands."""
-    from qwen3_rs_tpu_torch.ops.kernels.probes import A8_DEPTH_RTOL, A8_DEPTH_VARIANTS, a8_depth, a8_depth_plain
+    ``torch.matmul`` (bf16) and ``torch._int_mm`` (int8) on the same operands.
+    The int arms' bound is the larger of their products and their flushes."""
+    from qwen3_rs_tpu_torch.ops.kernels.probes import (
+        A8_DEPTH_RTOL, A8_DEPTH_VARIANTS, A8_SEG_DEPTH, a8_depth, a8_depth_plain,
+    )
     from qwen3_rs_tpu_torch.scripts.a8_depth_probe import inputs
 
     rows, n, d = PROBE_DEPTH
@@ -2007,6 +2048,13 @@ def a8_depth_rows(torch, ctx) -> list[dict]:
             lib_ms, lib = device_ms(torch, lambda i: torch._int_mm(x, wt.T), reps=10), "torch._int_mm (int32 out)"
         nbytes = (x.numel() + wt.numel()) * x.element_size() + rows * d * 4
         b_ms, b_by = bound(nbytes, 2.0 * rows * n * d, kind)
+        if kind == "int8":
+            # The int8 products on the tensor cores and the flush on the CUDA cores, on separate
+            # pipes that may overlap: the larger of the two.  A flush is 2 instructions (a
+            # conversion and an add) per output element and flush segment, at F32_INSTR_PER_S.
+            t_flush = 2.0 * rows * d * -(-n // A8_SEG_DEPTH[v]) / F32_INSTR_PER_S * 1e3
+            if t_flush > b_ms:
+                b_ms, b_by = t_flush, "operations"
         out.append(_row(ctx, "a8_depth", v, "qwen3_rs_tpu_torch/csrc/a8_depth_probe.cu",
                         "scripts/a8_depth_probe.py:90 make_kernel", {"rows": rows, "N": n, "D": d}, err,
                         tol if kind == "bf16" else "bit for bit", ms, plain_ms, nbytes, b_ms, b_by, lib_ms, lib))

@@ -18,7 +18,7 @@
 // repeatable.
 //
 // INT4 layers (the Pallas kernel's Q4 tiles): the four layer matrices of an INT4 checkpoint
-// hold nibble-packed codes [L, n/2, d] (group split-half, code + 8; csrc/w8a16_dequant.cuh); each
+// hold nibble-packed codes [L, n/2, d] (group split-half, code + 8; ops/quant.py); each
 // plan says its own format, so one launch carries Q4 layers and the INT8 classifier.
 //
 // Bound on the H100: bytes.  A step streams every weight byte once (7.8 GB at 8B; 4.3 GB with

@@ -29,7 +29,7 @@ import torch
 
 from ..quant import QuantizedTensor
 from . import LAUNCHES, build
-from .qmatmul import qmatmul_w8a16_plain
+from .qmatmul import _ROW_BLOCK_COLS, _ROW_SCALE_ROW, _ROW_SLICE, _ROW_WARPS, _mma_counters, qmatmul_w8a16_plain
 
 HEAD_A8_VARIANTS = ("deq-dot", "i8-seg", "i8-seg2")
 A8_DEPTH_VARIANTS = ("bf16-full", "i8-seg64", "i8-full")
@@ -41,7 +41,18 @@ A8_SEG_DEPTH = {"i8-seg64": 64, "i8-full": 512}  # int32 depth before each flush
 # i8-seg's f32 fixups differ only in summation order (1e-5), a8_depth's int arms not at all.
 HEAD_A8_RTOL = {"deq-dot": 1e-4, "i8-seg": 1e-5, "i8-seg2": 1e-5}
 A8_DEPTH_RTOL = {"bf16-full": 1e-4, "i8-seg64": 0.0, "i8-full": 0.0}
-_STRIP_THREADS = (32, 16, 8, 4, 2)  # threads across a column strip of the one-call kernel
+# The one-call kernel (P1) has the row kernel's blocks (qmatmul._ROW_*: 128 output columns by a
+# split's 16-row k-slices, a multiple of 8, one run a warp); its dynamic shared memory, x's bf16
+# slots and two buffers of scale rows, stays within 64 KB so that three blocks fit an SM.
+_ONECALL_SMEM_CAP = 64 * 1024
+_ONECALL_SMEM_MAX = 227 * 1024  # one block an SM, where x alone leaves no room under the cap
+_ONECALL_FILL = 0.9  # the share of its waves of resident blocks that a plan's units must fill
+_ONECALL_WALK = 6  # a unit's record: block, layer, columns [c0, c1), contraction rows [r0, r1)
+# P4: the tile of each arm (x rows, output columns), its k-tile (128 bytes of depth), and the int
+# arms' 64-deep groups, flushed every A8_SEG_DEPTH rows.
+A8_DEPTH_TILE = {"bf16-full": (128, 256), "i8-seg64": (128, 128), "i8-full": (128, 128)}
+A8_K_TILE_BYTES = 128
+A8_GROUP = 64
 _MAX_SPAN = 16 << 20  # the stream kernel's largest span a block
 
 
@@ -67,7 +78,7 @@ def _lib(name: str) -> ctypes.CDLL:
     lib = build.load(name)
     p, i, l_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
     sigs = {
-        "boundary_probe": ("boundary_onecall", [p, p, p, p, i, i, i, i, i, i, p]),
+        "boundary_probe": ("boundary_onecall", [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]),
         "hbm_stream_bench": ("hbm_stream", [p, l_, l_, p, p, p]),
         "head_a8_probe": ("head_a8", [i, p, p, p, p, p, p, i, i, i, i, i, p]),
         "a8_depth_probe": ("a8_depth", [i, p, p, p, i, i, i, p]),
@@ -75,6 +86,9 @@ def _lib(name: str) -> ctypes.CDLL:
     fn, args = sigs[name]
     getattr(lib, fn).argtypes = args
     getattr(lib, fn).restype = ctypes.c_int
+    if name == "boundary_probe":
+        lib.boundary_onecall_blocks_per_sm.argtypes = [i, i]
+        lib.boundary_onecall_blocks_per_sm.restype = ctypes.c_int
     return lib
 
 
@@ -90,23 +104,98 @@ def boundary_onecall_plain(x: torch.Tensor, w: QuantizedTensor, reps: int = 1) -
     return torch.stack([qmatmul_w8a16_plain(x.reshape(1, -1), w, l)[0] for l in range(w.q.shape[0])])
 
 
-def strip_threads(d: int, sms: int) -> int:
-    """Threads across the one-call kernel's column strip (16 columns each):
-    the widest strip that still gives every SM a block, else the narrowest."""
-    fits = [tc for tc in _STRIP_THREADS if d % (16 * tc) == 0]
-    if not fits:
-        raise ValueError(f"boundary_onecall: D={d} must be a multiple of 32")
-    return next((tc for tc in fits if d // (16 * tc) >= sms), fits[-1])
+def onecall_smem(n: int, spb: int, g: int) -> int:
+    """Dynamic shared memory of a one-call block (``smem_bytes`` in its source):
+    x's bf16 slots (N rounded up to 16), then two buffers of the scale rows
+    that a unit of ``spb`` k-slices touches (at most ``spb·16/g + 2``)."""
+    kp = -(-n // _ROW_SLICE) * _ROW_SLICE
+    return 2 * kp + 2 * (-(-(spb * _ROW_SLICE // g + 2) * _ROW_SCALE_ROW // 16) * 16)
+
+
+@functools.cache
+def onecall_plan(n: int, d: int, g: int, layers: int, sms: int, per_sm: int) -> tuple[int, int, int]:
+    """(splits, k-slices per split, grid) of the one-call kernel for ``layers``
+    stacked ``[N, D]`` weights on ``sms`` SMs holding ``per_sm`` of its blocks.
+
+    A unit is a 128-column strip of one layer by a split of its k-slices, as
+    a row-kernel block is; the grid walks a pass's units, pass after pass,
+    unit u on block ``u % grid``.  The plan takes the fewest splits whose
+    ``layers · strips · splits`` units fill at least ``_ONECALL_FILL`` of the
+    whole waves of resident blocks they take, else the plan that fills the
+    most; the grid is one wave, or the units of a rep where they are fewer.
+    Where x's slots leave no room for a unit's scale rows under the 64 KB
+    that lets three blocks share an SM, a block takes up to 227 KB alone."""
+    slices = -(-n // _ROW_SLICE)
+    strips = -(-d // _ROW_BLOCK_COLS)
+    cap = _ONECALL_SMEM_CAP
+    if onecall_smem(n, _ROW_WARPS, g) > cap:
+        cap, per_sm = _ONECALL_SMEM_MAX, 1
+    plans = []  # (splits, spb) by increasing splits, each split count once
+    for want in range(1, slices + 1):
+        spb = -(-(-(-slices // want)) // _ROW_WARPS) * _ROW_WARPS
+        if -(-slices // spb) == want and onecall_smem(n, spb, g) <= cap:
+            plans.append((want, spb))
+    if not plans:
+        raise ValueError(f"boundary_onecall: N={n} at g={g} leaves no room for a block's shared memory")
+    wave = per_sm * sms
+
+    def fill(plan):
+        units = layers * strips * plan[0]
+        return units / (-(-units // wave) * wave)
+
+    good = [p for p in plans if fill(p) >= _ONECALL_FILL]
+    splits, spb = good[0] if good else max(plans, key=fill)
+    return splits, spb, min(layers * strips * splits, wave)
+
+
+def onecall_walk(n: int, d: int, layers: int, splits: int, spb: int, grid: int) -> list[tuple[int, ...]]:
+    """The one-call kernel's units of one rep, in walk order, as the kernel
+    records them: (block, layer, first column, end column, first
+    contraction row, end row); the kernel repeats them each rep."""
+    slices = -(-n // _ROW_SLICE)
+    strips = -(-d // _ROW_BLOCK_COLS)
+    out = []
+    for u in range(layers * strips * splits):
+        layer, r = divmod(u, strips * splits)
+        strip, split = divmod(r, splits)
+        s0 = split * spb
+        ns = min(slices - s0, spb)
+        c0 = strip * _ROW_BLOCK_COLS
+        out.append((u % grid, layer, c0, min(c0 + _ROW_BLOCK_COLS, d), _ROW_SLICE * s0,
+                    min(_ROW_SLICE * (s0 + ns), n)))
+    return out
+
+
+@functools.cache
+def _onecall_per_sm(index: int, uniform: bool) -> int:
+    """One-call blocks that one SM of card ``index`` holds at 64 KB of shared
+    memory each, at most 3."""
+    with torch.cuda.device(index):
+        n = _lib("boundary_probe").boundary_onecall_blocks_per_sm(int(uniform), _ONECALL_SMEM_CAP)
+    if n < 1:
+        raise RuntimeError("boundary_onecall: the occupancy query failed")
+    return min(n, 3)
 
 
 def boundary_onecall(x: torch.Tensor, w: QuantizedTensor, reps: int = 1) -> torch.Tensor:
     """x f32 ``[1, N]`` (or ``[N]``) times every layer of ``w`` (int8 codes
     ``[L, N, D]``, bf16 scales ``[L, N/g, D]``), the ``L`` layers streamed
     ``reps`` times in one launch → ``[L, D]`` f32."""
+    return _onecall(x, w, reps, walk=False)[0]
+
+
+def boundary_onecall_walk(x: torch.Tensor, w: QuantizedTensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``boundary_onecall(x, w, 1)`` and the kernel's record of its walk
+    (int32 ``[units, 6]``, as ``onecall_walk`` lists it); card only."""
+    _need(x.device.type == "cuda", "boundary_onecall", "the walk is the card kernel's")
+    return _onecall(x, w, 1, walk=True)
+
+
+def _onecall(x: torch.Tensor, w: QuantizedTensor, reps: int, walk: bool):
     who = "boundary_onecall"
     _need(reps >= 1, who, f"reps {reps} < 1")
     if not _on_card(x, who):
-        return boundary_onecall_plain(x, w, reps)
+        return boundary_onecall_plain(x, w, reps), None
     codes, scales = w.q, w.scales
     _need(codes.dim() == 3 and scales.dim() == 3, who, "weights must be stacked [L, N, D]")
     layers, n, d = codes.shape
@@ -118,15 +207,24 @@ def boundary_onecall(x: torch.Tensor, w: QuantizedTensor, reps: int = 1) -> torc
     _need(scales.dtype == torch.bfloat16 and scales.is_contiguous(), who, "scales must be contiguous bf16")
     _need(x.dtype == torch.float32 and x.numel() == n, who, f"x must be f32 with N={n} values")
     _need(x.device == codes.device == scales.device, who, "all tensors must be on one device")
+    dev = x.device
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    splits, spb, grid = onecall_plan(n, d, g, layers, _sm_count(index), _onecall_per_sm(index, g % 4 == 0))
+    passes, strips = reps * layers, -(-d // _ROW_BLOCK_COLS)
     xc = x.reshape(n).contiguous()
-    y = torch.empty(layers, d, dtype=torch.float32, device=x.device)
-    tc = strip_threads(d, _sm_count(x.device.index or 0))
+    y = torch.empty(layers, d, dtype=torch.float32, device=dev)
+    partial = counters = None
+    if splits > 1:
+        partial = torch.empty(passes * splits * d, dtype=torch.float32, device=dev)
+        counters = _mma_counters(dev, passes * strips)  # one per (pass, strip)
+    rec = torch.full((layers * strips * splits, _ONECALL_WALK), -1, dtype=torch.int32, device=dev) if walk else None
     err = _lib("boundary_probe").boundary_onecall(
-        xc.data_ptr(), codes.data_ptr(), scales.data_ptr(), y.data_ptr(), n, d, g, layers, reps * layers, tc,
-        _stream(x))
+        xc.data_ptr(), codes.data_ptr(), scales.data_ptr(), y.data_ptr(),
+        None if partial is None else partial.data_ptr(), None if counters is None else counters.data_ptr(),
+        None if rec is None else rec.data_ptr(), n, d, g, layers, passes, splits, spb, grid, _stream(x))
     build.check(err, who)
     LAUNCHES["boundary_onecall"] += 1
-    return y
+    return y, rec
 
 
 # ------------------------------------------------------------------- P2: stream
@@ -229,11 +327,36 @@ def a8_depth_plain(variant: str, x: torch.Tensor, wt: torch.Tensor) -> torch.Ten
     below 2^24, exact in f32), the segments added in depth order."""
     if variant == "bf16-full":
         return x.float() @ wt.float().T
-    seg = A8_SEG_DEPTH[variant]
     acc = torch.zeros(x.shape[0], wt.shape[0], dtype=torch.float32, device=x.device)
-    for k0 in range(0, x.shape[1], seg):
-        acc += x[:, k0 : k0 + seg].float() @ wt[:, k0 : k0 + seg].float().T
+    for k0, k1 in a8_depth_flushes(variant, x.shape[1]):
+        acc += x[:, k0:k1].float() @ wt[:, k0:k1].float().T
     return acc
+
+
+def a8_depth_flushes(variant: str, k: int) -> list[tuple[int, int]]:
+    """The int arms' flush segments ``[k0, k1)`` of a depth of ``k``, in
+    depth order: ``A8_SEG_DEPTH`` rows each (whole 64-deep groups), the last
+    cut at ``k``."""
+    seg = A8_SEG_DEPTH[variant]
+    return [(k0, min(k0 + seg, k)) for k0 in range(0, k, seg)]
+
+
+def a8_depth_plan(variant: str, m: int, k: int, d: int) -> dict:
+    """The kernel's tiling of ``x [m, k] · wt[d, k]^T`` (``k_tiles_of`` in
+    ``csrc/a8_depth_probe.cu``): output tiles of ``A8_DEPTH_TILE`` (row tiles
+    first; columns past ``d`` masked), k-tiles of 128 bytes of depth (those
+    past ``k`` read zeros; i8-full walks whole 512-deep flush segments), and,
+    for the int arms, 64-deep groups flushed along ``a8_depth_flushes``."""
+    bm, bn = A8_DEPTH_TILE[variant]
+    per_tile = A8_K_TILE_BYTES // (2 if variant == "bf16-full" else 1)
+    k_tiles = -(-k // per_tile)
+    if variant == "i8-full":
+        k_tiles = -(-k // A8_SEG_DEPTH[variant]) * (A8_SEG_DEPTH[variant] // per_tile)
+    plan = {"tile": (bm, bn), "tiles": (-(-m // bm), -(-d // bn)), "k_tile": per_tile, "k_tiles": k_tiles}
+    if variant != "bf16-full":
+        plan["groups"] = k // A8_GROUP
+        plan["flushes"] = a8_depth_flushes(variant, k)
+    return plan
 
 
 def a8_depth(variant: str, x: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:

@@ -526,7 +526,8 @@ _MMA_COUNTERS: dict = {}
 def _mma_counters(dev: torch.device, strips: int) -> torch.Tensor:
     """The split counters of the mma and row kernels on ``dev``: one zero
     int per 128-column strip, made once (grown when a wider weight needs
-    more); each launch leaves them zero."""
+    more); each launch leaves them zero.  The one-call probe kernel takes
+    one per (pass, strip) from the same buffer."""
     t = _MMA_COUNTERS.get(dev)
     if t is None or t.numel() < strips:
         t = _MMA_COUNTERS[dev] = torch.zeros(max(strips, 2048), dtype=torch.int32, device=dev)

@@ -16,7 +16,8 @@ scale work, as the reference probe:
 Beside them, as yardsticks only, ``torch.matmul`` on the bf16 operands and
 ``torch._int_mm`` on the int8 ones.  Timing: the slope between 8 calls and 2,
 each timed by the median of CUDA events after warm-up, as the reference
-probe's 8 and 2 reps; printed as ms per call and TF/s.
+probe's 8 and 2 reps; printed as ms per call and TF/s, then the answer:
+bf16-full's time over i8-seg64's (above 1, the flushed int8 product wins).
 """
 
 from __future__ import annotations
@@ -61,7 +62,7 @@ def run(rows: int = 2048, n: int = 4096, d: int = 24576, repeat: int = 3, device
         library[name] = {"ms": ms, "tf_per_s": flops / (ms * 1e-3) / 1e12}
     return {"probe": "a8_depth_probe", "card": card_line(), "rows": rows, "N": n, "D": d, "flops": flops,
             "timing": "slope between 8 calls and 2 of CUDA-event medians", "variants": variants,
-            "library": library}
+            "library": library, "seg64_speedup_over_bf16": variants["bf16-full"]["ms"] / variants["i8-seg64"]["ms"]}
 
 
 def main(argv=None) -> None:
@@ -72,6 +73,7 @@ def main(argv=None) -> None:
     print(f"rows={rows} n={n} d={d} flops/call={out['flops'] / 1e9:.1f} GF", flush=True)
     for v, r in {**out["variants"], **out["library"]}.items():
         print(f"  {v:>18}: {r['ms']:7.3f} ms/call  {r['tf_per_s']:6.1f} TF/s", flush=True)
+    print(f"i8-seg64 against bf16-full: {out['seg64_speedup_over_bf16']:.3f}x", flush=True)
 
 
 if __name__ == "__main__":

@@ -13,12 +13,14 @@ are streamed reps·L times:
   percall-graph  the same launches captured once in a ``torch.cuda.CUDAGraph``
                  and replayed: the counterpart of the reference's jitted scan
   onecall        one launch of ``boundary_onecall`` that streams all reps·L
-                 layers (a loop inside each block for the layer axis)
+                 layers: #2's row kernel with the boundary taken out (a
+                 persistent grid walking every layer's units)
 
 Timing: the slope between 48 and 12 reps of CUDA-event medians (each over
 ``repeat`` calls after warm-up), so a call's fixed cost cancels; printed as ms
-per layer and the layer's bytes (codes and bf16 scales) per second.  The
-one-call kernel's layers are held against #2's before any timing.
+per layer and the layer's bytes (codes and bf16 scales) per second, then the
+price of a boundary: each per-call arm's ms a layer less the one-call arm's.
+The one-call kernel's layers are held against #2's before any timing.
 """
 
 from __future__ import annotations
@@ -98,9 +100,12 @@ def run(model: str = "8b", mat: str = "w13", reps_hi: int = 48, repeat: int = 5,
         ms = per_rep / LAYERS
         arms[name] = {"ms_per_layer": ms, "gb_per_s": layer_bytes / (ms * 1e-3) / 1e9}
     del graphs
+    one = arms["onecall"]["ms_per_layer"]
+    price = {arm: arms[arm]["ms_per_layer"] - one for arm in ("percall-eager", "percall-graph")}
     return {"probe": "boundary_probe", "card": card_line(), "model": model, "mat": mat, "N": n, "D": d, "g": g,
             "layers": LAYERS, "reps": [lo, reps_hi], "bytes_per_layer": layer_bytes,
-            "onecall_max_abs_err": err, "tol": tol, "timing": "slope of CUDA-event medians", "arms": arms}
+            "onecall_max_abs_err": err, "tol": tol, "timing": "slope of CUDA-event medians", "arms": arms,
+            "boundary_ms_per_layer": price}
 
 
 def main(argv=None) -> None:
@@ -111,6 +116,8 @@ def main(argv=None) -> None:
     print(out["card"], flush=True)
     for name, arm in out["arms"].items():
         print(f"{mat} {name}: {arm['ms_per_layer']:7.4f} ms/layer  {arm['gb_per_s']:6.1f} GB/s", flush=True)
+    for name, ms in out["boundary_ms_per_layer"].items():
+        print(f"{mat} boundary ({name} - onecall): {ms:7.4f} ms/layer", flush=True)
 
 
 if __name__ == "__main__":

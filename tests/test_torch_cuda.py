@@ -49,10 +49,13 @@ from qwen3_rs_tpu_torch.ops.kernels.probes import (
     a8_depth_plain,
     boundary_onecall,
     boundary_onecall_plain,
+    boundary_onecall_walk,
     hbm_stream,
     hbm_stream_plain,
     head_a8,
     head_a8_plain,
+    onecall_plan,
+    onecall_walk,
 )
 from qwen3_rs_tpu_torch.ops.kernels.qmatmul_a8 import qmatmul_w8a8_rows, qmatmul_w8a8_rows_plain
 from qwen3_rs_tpu_torch.ops.quant import Q4Tensor, QuantizedTensor, quantize_activations
@@ -1579,22 +1582,48 @@ def _head_dim_model_card_matches_cpu(card, hd):
 
 
 # ------------------------------------------------------- measurement probes
-@pytest.mark.parametrize("layers,n,d", [(3, 512, 4096), (2, 256, 384), (8, 1024, 24576)])
-def test_boundary_onecall_matches_plain_and_qmatmul(card, layers, n, d):
+@pytest.mark.parametrize("reps", [1, 2, 5])
+@pytest.mark.parametrize("layers,n,d,g", [(3, 512, 4096, 64), (2, 256, 384, 64), (8, 1024, 24576, 64),
+                                          (1, 4096, 4096, 64), (8, 4096, 4096, 64), (1, 768, 288, 6),
+                                          (2, 40960, 256, 64)])
+def test_boundary_onecall_matches_plain_and_qmatmul(card, layers, n, d, g, reps):
     """P1: every layer against its plain version and against #2, each rep
-    overwriting the same values."""
+    overwriting the same values; the split counters end at zero and a
+    repeated call is equal bit for bit."""
+    import qwen3_rs_tpu_torch.ops.kernels.qmatmul as qm
+
     gen = _gen(layers + n + d)
-    w = _weights(gen, card, layers, n, d, 64)
+    w = _weights(gen, card, layers, n, d, g)
     x = torch.randn(1, n, generator=gen, device=card)
     before = LAUNCHES["boundary_onecall"]
-    got = boundary_onecall(x, w, 3)
+    got = boundary_onecall(x, w, reps)
     assert LAUNCHES["boundary_onecall"] == before + 1
     ref = boundary_onecall_plain(x, w)
     kern = torch.cat([qmatmul_w8a16(x, w, l) for l in range(layers)])
     torch.cuda.synchronize()
     tol = 1e-4 * float(ref.abs().max())
     assert float((got - ref).abs().max()) <= tol and float((got - kern).abs().max()) <= tol
-    assert torch.equal(boundary_onecall(x, w, 1), got)
+    assert all(int(t.abs().sum()) == 0 for t in qm._MMA_COUNTERS.values())
+    assert torch.equal(boundary_onecall(x, w, reps), got) and torch.equal(boundary_onecall(x, w, 1), got)
+
+
+@pytest.mark.parametrize("layers", [1, 3, 8])
+@pytest.mark.parametrize("mat", ["wqkv", "wo", "w13", "w2"])
+def test_boundary_onecall_walk_is_the_plan(card, mat, layers):
+    """P1's kernel records the units of its first rep: the same as the
+    Python mirror of its plan (``onecall_walk``), at the 8B matrices."""
+    from qwen3_rs_tpu_torch.ops.kernels.probes import _onecall_per_sm, _sm_count
+    from qwen3_rs_tpu_torch.scripts.boundary_probe import matrices
+
+    n, d = matrices("8b")[mat]
+    gen = _gen(n + d + layers)
+    w = _weights(gen, card, layers, n, d, 64)
+    x = torch.randn(1, n, generator=gen, device=card)
+    y, walk = boundary_onecall_walk(x, w)
+    plan = onecall_plan(n, d, 64, layers, _sm_count(0), _onecall_per_sm(0, True))
+    want = torch.tensor(onecall_walk(n, d, layers, *plan), dtype=torch.int32)
+    assert torch.equal(walk.cpu(), want)
+    assert torch.equal(y, boundary_onecall(x, w, 1))
 
 
 @pytest.mark.parametrize("nbytes,span", [(16, 16), (4096 * 33, 4096), (3 << 20, 1 << 20), (40 << 20, 16 << 20),
@@ -1625,7 +1654,8 @@ def test_head_a8_matches_plain(card, variant, b, tn, td):
 
 
 @pytest.mark.parametrize("variant", ["bf16-full", "i8-seg64", "i8-full"])
-@pytest.mark.parametrize("m,k,d", [(128, 64, 128), (256, 1024, 384), (384, 4096, 256), (128, 576, 128)])
+@pytest.mark.parametrize("m,k,d", [(128, 64, 128), (256, 1024, 384), (384, 4096, 256), (128, 576, 128),
+                                   (384, 576, 640)])
 def test_a8_depth_matches_plain(card, variant, m, k, d):
     """P4: the int arms bit for bit (every partial sum is an integer below
     2^24), bf16-full within 1e-4 of the largest output (the tensor cores'

@@ -14,7 +14,10 @@ it stands in for, on the same numpy inputs, at tiny shapes.
   within 512-deep k-tiles, f32 across them.  The int arms bit for bit (every
   partial sum is an integer below 2^24), ``bf16-full`` at ``1e-5 · max|ref|``.
 
-Each probe's entry point raises without CUDA.
+Beside them, the pure functions the card kernels follow: P1's plan and walk
+(``onecall_plan``, ``onecall_walk``) at the 8B matrices, the int-to-float
+identity of the magic number 1.5·2^23 over its whole range, and P4's tiles
+and flush segments over K.  Each probe's entry point raises without CUDA.
 """
 
 import importlib
@@ -34,17 +37,23 @@ from qwen3_rs_tpu.ops.pallas.qmatmul import qmatmul_pallas_stacked
 from qwen3_rs_tpu.ops.quant import QuantizedTensor as JaxQT
 from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES
 from qwen3_rs_tpu_torch.ops.kernels.probes import (
+    A8_DEPTH_TILE,
     A8_DEPTH_VARIANTS,
+    A8_SEG_DEPTH,
     HEAD_A8_VARIANTS,
     a8_depth,
+    a8_depth_flushes,
     a8_depth_plain,
+    a8_depth_plan,
     boundary_onecall,
     boundary_onecall_plain,
     hbm_stream,
     hbm_stream_plain,
     head_a8,
     head_a8_plain,
-    strip_threads,
+    onecall_plan,
+    onecall_smem,
+    onecall_walk,
 )
 from qwen3_rs_tpu_torch.ops.quant import QuantizedTensor
 
@@ -79,12 +88,88 @@ def test_boundary_onecall_plain_matches_qmatmul_pallas_stacked(layers, n, d):
     assert LAUNCHES["boundary_onecall"] == before
 
 
-def test_strip_threads_give_every_sm_a_block_where_they_can():
-    assert strip_threads(24576, 132) == 8  # w13: 192 strips of 128 columns
-    assert strip_threads(6144, 132) == 2 and strip_threads(4096, 132) == 2  # as many strips as D/32 allows
-    assert strip_threads(65536, 132) == 16
-    with pytest.raises(ValueError, match="multiple of 32"):
-        strip_threads(48, 132)
+@pytest.mark.parametrize("layers", [1, 3, 8])
+@pytest.mark.parametrize("mat", ["wqkv", "wo", "w13", "w2"])
+def test_onecall_plan_covers_every_layer_strip_and_slice_once(mat, layers):
+    """The one-call kernel's walk of a rep at the 8B matrices on an H100 (132
+    SMs, 3 blocks each): every (layer, 128-column strip, 16-row k-slice)
+    exactly once, split runs of whole warps' k-slices, and a grid of one wave
+    of resident blocks (or every unit) whose units fill its waves."""
+    from qwen3_rs_tpu_torch.scripts.boundary_probe import matrices
+
+    n, d = matrices("8b")[mat]
+    g, sms, per_sm = 64, 132, 3
+    splits, spb, grid = onecall_plan(n, d, g, layers, sms, per_sm)
+    strips, slices = -(-d // 128), -(-n // 16)
+    units = layers * strips * splits
+    assert spb % 8 == 0 and (splits - 1) * spb < slices <= splits * spb
+    assert onecall_smem(n, spb, g) <= 64 * 1024  # three blocks an SM
+    assert grid == min(units, sms * per_sm)
+    assert units / (-(-units // grid) * grid) >= 0.88, (splits, units, grid)
+    walk = onecall_walk(n, d, layers, splits, spb, grid)
+    assert len(walk) == units and [rec[0] for rec in walk] == [u % grid for u in range(units)]
+    seen = np.zeros((layers, strips, slices), np.int32)
+    for _, layer, c0, c1, r0, r1 in walk:
+        assert c0 % 128 == 0 and c1 == min(c0 + 128, d) and r0 % 16 == 0 and r0 < r1 <= n
+        seen[layer, c0 // 128, r0 // 16 : -(-r1 // 16)] += 1
+    assert (seen == 1).all()
+
+
+def test_onecall_plan_takes_a_block_an_sm_where_x_fills_its_shared_memory():
+    """Past N ≈ 28K, x's bf16 slots leave no room for a unit's scale rows
+    under the 64 KB that lets three blocks share an SM: the plan takes one
+    block an SM and up to 227 KB, and still covers every slice once."""
+    n, d, g, layers = 40960, 256, 64, 2
+    splits, spb, grid = onecall_plan(n, d, g, layers, 132, 3)
+    assert onecall_smem(n, 8, g) > 64 * 1024
+    assert onecall_smem(n, spb, g) <= 227 * 1024 and grid <= 132
+    walk = onecall_walk(n, d, layers, splits, spb, grid)
+    rows = sorted((layer, c0, r0, r1) for _, layer, c0, _, r0, r1 in walk)
+    for layer in range(layers):
+        for c0 in (0, 128):
+            runs = [(r0, r1) for lay, c, r0, r1 in rows if lay == layer and c == c0]
+            assert runs[0][0] == 0 and runs[-1][1] == n and all(a[1] == b[0] for a, b in zip(runs, runs[1:]))
+
+
+def test_conversion_for_free_is_exact_over_its_whole_range():
+    """P4's flush (and #8's): a group's int32 partials start at the bits of
+    1.5·2^23, the tensor cores add the dot as an integer, and the sum read as
+    a float minus 12582912 is the dot exactly, for every |dot| <= 2^22."""
+    dots = np.arange(-(2**22), 2**22 + 1, dtype=np.int64)
+    edges = np.array([-(2**22), -(2**22) + 1, -1, 0, 1, 2**22 - 1, 2**22], np.int64)
+    for d in (dots, edges):
+        bits = (np.int64(0x4B400000) + d).astype(np.int32)  # the s32 accumulator, no overflow
+        got = bits.view(np.float32) - np.float32(12582912.0)
+        assert got.dtype == np.float32 and np.array_equal(got, d.astype(np.float32))
+        assert np.array_equal(got.astype(np.int64), d)
+
+
+@pytest.mark.parametrize("k", [64, 576, 4096])
+@pytest.mark.parametrize("variant", A8_DEPTH_VARIANTS)
+def test_a8_depth_flushes_and_tiles_cover_the_depth(variant, k):
+    """P4's k-tiles (128 bytes of depth) cover K with less than one tile
+    past it (i8-full: less than one 512-deep segment, whose k-tiles past K
+    read zeros); the int arms' flushes (64 and 512 rows) cut K into whole
+    64-deep groups in depth order, each A8_SEG_DEPTH deep but the last."""
+    m, d = 256, 640
+    plan = a8_depth_plan(variant, m, k, d)
+    bm, bn = A8_DEPTH_TILE[variant]
+    assert plan["tiles"] == (m // bm, -(-d // bn)) and plan["tile"] == (bm, bn)
+    assert plan["k_tile"] == (64 if variant == "bf16-full" else 128)
+    past = plan["k_tile"] if variant != "i8-full" else A8_SEG_DEPTH[variant]
+    assert plan["k_tiles"] * plan["k_tile"] - past < k <= plan["k_tiles"] * plan["k_tile"]
+    if variant == "i8-full":
+        assert plan["k_tiles"] == 4 * len(plan["flushes"])
+    if variant == "bf16-full":
+        assert "flushes" not in plan
+        return
+    seg = A8_SEG_DEPTH[variant]
+    flushes = a8_depth_flushes(variant, k)
+    assert plan["flushes"] == flushes and plan["groups"] * 64 == k
+    assert flushes[0][0] == 0 and flushes[-1][1] == k
+    assert all(a[1] == b[0] for a, b in zip(flushes, flushes[1:]))
+    assert all(k1 - k0 == seg for k0, k1 in flushes[:-1]) and 0 < flushes[-1][1] - flushes[-1][0] <= seg
+    assert all(k0 % 64 == 0 and k1 % 64 == 0 for k0, k1 in flushes)
 
 
 # --------------------------------------------------------------------- P2
