@@ -1289,10 +1289,13 @@ def paged_window_source(hd: int, page: int, dtype) -> str:
 
 def paged_window_cases(torch, ctx, plan: bool = True) -> list[dict]:
     """Paged window partials (#10) at 8B shapes: S = 32 (R = 128 query rows
-    per kv head) and S = 4 at mixed positions, 0 included, over bf16 and
-    INT8 pools; with ``plan`` (this tree's entry points) the plan the
+    per kv head) and S = 4 at mixed positions, 0 included, over bf16, INT8
+    and f32 pools; with ``plan`` (this tree's entry points) the plan the
     window kernel's blocks make, read back against ``window_units``, and
-    each row's source."""
+    each row's source.  The products' bound: bf16 and INT8 pools at 989
+    TFLOP/s once; an f32 pool at the rate of the unit its kernel runs them
+    on, times their terms (``window_split_takes``: the tensor cores, three
+    bf16 terms; else the CUDA cores at 67 TFLOP/s, once)."""
     import torch.nn.functional as F
 
     from qwen3_rs_tpu_torch.ops.kernels import paged_attention as pa
@@ -1304,7 +1307,7 @@ def paged_window_cases(torch, ctx, plan: bool = True) -> list[dict]:
     gen.manual_seed(8642)
     pos_list = [0, 1, 127, 128, 512, 1000, 2049, 4064]
     out = []
-    for pool, s in (("bf16", 32), ("int8", 32), ("bf16", 4), ("int8", 4)):
+    for pool, s in (("bf16", 32), ("int8", 32), ("bf16", 4), ("int8", 4), ("f32", 32), ("f32", 4)):
         c, nl, k, v, sc, table, pos, esz = _paged_inputs(torch, gen, pool, pos_list)
         b, h, n_kv, hd = len(pos_list), c.n_heads, c.n_kv_heads, c.head_dim
         r = s * (h // n_kv)
@@ -1312,15 +1315,24 @@ def paged_window_cases(torch, ctx, plan: bool = True) -> list[dict]:
         ref = paged_window_partials_plain(q, k, v, table, pos, 1, **sc)
         got = paged_window_partials(q, k, v, table, pos, 1, **sc)
         torch.cuda.synchronize()
-        err, tol = 0.0, 0.0
+        err, tol, worst = 0.0, 0.0, 0.0
         for a, e in zip(got, ref):
             need(a.shape == e.shape and torch.equal(torch.isneginf(a), torch.isneginf(e)),
                  f"paged_window_partials {pool} S={s}: shapes or -inf entries differ")
             fin = torch.isfinite(e)
-            err = max(err, float((a[fin] - e[fin]).abs().max()))
+            one_err = float((a[fin] - e[fin]).abs().max())
             t = 1e-4 * float(e[fin].abs().max())
-            need(float((a[fin] - e[fin]).abs().max()) <= t, f"paged_window_partials {pool} S={s}: off by more than {t}")
-            tol = max(tol, t)
+            need(one_err <= t, f"paged_window_partials {pool} S={s}: off by more than {t}")
+            err, tol, worst = max(err, one_err), max(tol, t), max(worst, one_err / t if t else 0.0)
+        if pool == "f32":  # the control: the plain window over the pool rounded to bf16 must miss the tolerance
+            one = [p[1:2].to(torch.bfloat16).float() for p in (k, v)]
+            ctl = paged_window_partials_plain(q, *one, table, pos, 0)
+            ratio = max(float((a[fin] - e[fin]).abs().max()) / (1e-4 * float(e[fin].abs().max()))
+                        for a, e in zip(ctl, ref) for fin in [torch.isfinite(e)])
+            need(ratio > 1.0, f"paged_window_partials {pool} S={s}: the tolerance passes a bf16-rounded pool")
+            emit({"phase": "kernels", "paged_window_bf16_control": f"{pool} pool B={b} S={s} (R={r})",
+                  "bf16_pool_err_over_tol": ratio, "kernel_err_over_tol": worst})
+            del one, ctl
         if plan:  # the plan the window kernel's blocks made from the positions, against window_units
             grid = pa.window_split_grid(q.device, k.dtype, hd, b, n_kv, r)
             units = pa.paged_window_kernel_plan(pos, n_kv, r, 128, table.shape[1], grid)
@@ -1342,7 +1354,13 @@ def paged_window_cases(torch, ctx, plan: bool = True) -> list[dict]:
         del lib
         nbytes = (paged_read_bytes(pos_list, n_kv, hd, esz) + q.numel() * 4 + b * n_kv * r * (hd + 2) * 4
                   + table.numel() * 4 + b * 4)
-        b_ms, b_by = bound(nbytes, 4.0 * h * s * sum(pos_list) * hd, "bf16")  # the products on the tensor cores
+        ops = 4.0 * h * s * sum(pos_list) * hd
+        if pool != "f32":
+            b_ms, b_by = bound(nbytes, ops, "bf16")  # the products on the tensor cores
+        elif pa.window_split_takes(hd, 128, k.dtype):
+            b_ms, b_by = bound(nbytes, 3 * ops, "bf16")  # three bf16 terms on the tensor cores
+        else:
+            b_ms, b_by = bound(nbytes, ops, "f32")  # the two-pass kernels' CUDA cores
         out.append(_row(
             ctx, "paged_window_partials", f"{pool} pool B={b} S={s} (R={r})",
             paged_window_source(hd, 128, k.dtype) if plan else None,
@@ -1912,6 +1930,8 @@ def phase_probes(torch, ctx) -> None:
                                                           **runs["depth"]["library"]}.items()},
         "seconds": time.perf_counter() - t0,
     }
+    ctx["probes"]["head_us_per_tile_by_timer"] = head_a8_slopes(torch)
+    emit({"phase": "probes", "head_us_per_tile_by_timer": ctx["probes"]["head_us_per_tile_by_timer"]})
     rows = boundary_rows(torch, ctx) + stream_rows(torch, ctx) + head_a8_rows(torch, ctx) + a8_depth_rows(torch, ctx)
     ctx.setdefault("kernel_rows", []).extend(rows)
 
@@ -1988,10 +2008,59 @@ def stream_rows(torch, ctx) -> list[dict]:
     return out
 
 
+# P3's instructions on the CUDA cores: deq-dot's dequantization, 5 a pair of codes (a byte permute,
+# two logic ops, two bf16x2 FMAs: the row kernel's); the int arms' fixup, an output, group and sweep:
+# the conversion and 3 f32 operations (i8-seg) or 2 (i8-seg2).
+HEAD_A8_INSTR = {"deq-dot": 2.5, "i8-seg": 4.0, "i8-seg2": 3.0}
+
+
+def head_a8_slopes(torch) -> dict:
+    """P3's slope a tile (µs) at B=8 and B=1 under two timers, from
+    ``probes.head_a8`` and the probe's own operands alone, so that an older
+    tree's kernel is timed here the same way: the probe's slope (128 against
+    32 sweeps, the median of 5 calls after 2) with each call's events
+    recorded as the host issues it (``unqueued``) and with each call queued
+    behind ``SLEEP_CYCLES`` of device sleep (``queued``, the probe's timer:
+    a launch shorter than the host's issue of it is timed at the card's
+    pace, not the host's)."""
+    from qwen3_rs_tpu_torch.ops.kernels.probes import HEAD_A8_VARIANTS, head_a8
+    from qwen3_rs_tpu_torch.scripts.head_a8_probe import N_TILES, inputs
+
+    def median_ms(fn, queued: bool) -> float:
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(5):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            if queued:
+                torch.cuda._sleep(SLEEP_CYCLES)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    lo, out = N_TILES * 16, {}
+    for b in (8, 1):
+        ops = inputs(b, *PROBE_HEAD, DEV)
+        out[f"B={b}"] = {v: {timer: (median_ms(lambda: head_a8(v, **ops, sweeps=4 * lo), timer == "queued")
+                                     - median_ms(lambda: head_a8(v, **ops, sweeps=lo), timer == "queued"))
+                                    / (3 * lo) * 1e3 for timer in ("unqueued", "queued")}
+                         for v in HEAD_A8_VARIANTS}
+        del ops
+    return out
+
+
 def head_a8_rows(torch, ctx) -> list[dict]:
     """P3 at B=8 and B=1 (TN 4096, TD 1536, 2 tiles, 32 sweeps a launch),
     each variant against its plain version (``probes.HEAD_A8_RTOL`` of the
-    largest value).  No one PyTorch call computes it."""
+    largest value).  No one PyTorch call computes it.  The bound is the
+    largest of the bytes (each tile read once), the products at their peak
+    (bf16 or int8) and the dequantization's or fixup's instructions at
+    ``F32_INSTR_PER_S`` (``HEAD_A8_INSTR``: per code for deq-dot, per output,
+    group and sweep for the int arms)."""
     from qwen3_rs_tpu_torch.ops.kernels.probes import HEAD_A8_RTOL, HEAD_A8_VARIANTS, head_a8, head_a8_plain
     from qwen3_rs_tpu_torch.scripts.head_a8_probe import N_TILES, inputs
 
@@ -2010,6 +2079,10 @@ def head_a8_rows(torch, ctx) -> list[dict]:
             reads = {"deq-dot": ("x", "w", "s"), "i8-seg": ("xq", "xs", "w", "s"), "i8-seg2": ("xq", "w", "s")}[v]
             nbytes = sum(ops[k].numel() * ops[k].element_size() for k in reads) + b * td * 4
             b_ms, b_by = bound(nbytes, 2.0 * b * tn * td * sweeps, "bf16" if v == "deq-dot" else "int8")
+            per = tn * td if v == "deq-dot" else b * td * (tn // 64)  # codes, or outputs × groups, a sweep
+            t_instr = HEAD_A8_INSTR[v] * per * sweeps / F32_INSTR_PER_S * 1e3
+            if t_instr > b_ms:
+                b_ms, b_by = t_instr, "operations"
             out.append(_row(ctx, "head_a8", f"{v} B={b}", "qwen3_rs_tpu_torch/csrc/head_a8_probe.cu",
                             "scripts/head_a8_probe.py:99 make_kernel",
                             {"B": b, "TN": tn, "TD": td, "tiles": N_TILES, "sweeps": sweeps}, err, tol, ms, plain_ms,

@@ -1,7 +1,7 @@
 // GQA attention over the serving page pool, for Hopper (sm_90a): the paged decode kernel and
 // the paged window partials kernel, which share their first pass.  At head_dim 128 and 256 over
-// pages of a multiple of 16 rows paged_decode.cu's one-launch kernels take over (the window's over
-// bf16 and INT8 pools); these kernels take the other head_dims and pages, and windows over f32 pools.
+// pages of a multiple of 16 rows paged_decode.cu's one-launch kernels take over, for every pool type;
+// these kernels take the other head_dims and pages.
 //
 // Replaces the reference package's Pallas kernels
 //   qwen3_rs_tpu/ops/pallas/paged_attention.py::paged_gqa_decode_stacked      (paged_decode)

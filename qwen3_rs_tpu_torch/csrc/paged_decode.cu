@@ -5,8 +5,7 @@
 //   qwen3_rs_tpu/ops/pallas/paged_attention.py::paged_gqa_decode_stacked   (paged_decode_kernel)
 //   qwen3_rs_tpu/ops/pallas/paged_attention.py::paged_gqa_window_stacked   (paged_window_kernel: its
 //                                                                           _partials_kernel)
-// at these head_dims (paged_attention.cu keeps the two-pass kernels for the others, and for windows
-// over f32 pools).  The pool of one layer is [P, n_kv, page, hd]; cache row t of request b lives in
+// at these head_dims (paged_attention.cu keeps the two-pass kernels for the others).  The pool of one layer is [P, n_kv, page, hd]; cache row t of request b lives in
 // page table[b, t / page] at page row t % page, and only rows t < pos[b] are valid.  INT8 pools: the
 // per-row K scale multiplies the score, the V scale the probability after l takes it.
 //  * decode: for request b and kv head h the kv_mul query heads of h (pre-scaled by 1/sqrt(hd))
@@ -21,7 +20,7 @@
 // Bound on the H100: bytes for the decode (each valid row read once for 2 * hd elements, against
 // 4 * kv_mul flops per element); for the window the bytes too as long as every query row shares each
 // K/V row read (4 * R flops per element, on the tensor cores; with q and P in two bf16 terms each
-// product is computed twice).  What the design does about it:
+// product is computed twice, over an f32 pool three times).  What the design does about it:
 //  * one launch: a fixed grid of blocks, as many as fit the card (at least one per request, kv head
 //    and head tile, or row tile of the window).  Every block reads the positions and makes the same
 //    plan from them: the live rows of every request are cut into splits of `span` rows, the least
@@ -64,7 +63,9 @@
 //    in two tiles), its q as bf16 hi + lo in shared memory, and its four consumer warps, one
 //    warpgroup, compute each stage's S = Q . K^T and O += P . V on wgmma (P's hi and lo as the
 //    register operand, straight from S's accumulators).  An INT8 stage is converted to bf16 once, in
-//    shared memory, each warp its 16 rows.  Splits are at least 128 rows (a split's partial is a
+//    shared memory, each warp its 16 rows; an f32 stage (whose rows are not exact in bf16) to bf16
+//    hi and lo, and each product takes three terms: q lo . K hi, q hi . K lo, q hi . K hi, and
+//    P alike with V (the lo . lo term, under 2^-16 of the product, is left out).  Splits are at least 128 rows (a split's partial is a
 //    tile of rows by hd), and the last block weighs each split once a row before it sums the
 //    columns.  A first version on mma.sync (each warp 16 query rows against a share of each stage's
 //    rows, every warp converting the INT8 codes it read) was slower on the card at every 8B window
@@ -135,14 +136,14 @@ struct Pool<int8_t> {
 };
 
 // The layout of one instance: rows a stage, bands a row, stages, consumer warps, shared memory.
-template <typename T, int HD, int R>
+template <typename T, int HD, int R, int KT = 0>
 struct Shape {
   static constexpr int kEsz = Pool<T>::kEsz;
   static constexpr int kBands = HD * kEsz / kBandBytes;
   static constexpr int kBandElems = kBandBytes / kEsz;
   static constexpr bool kQuant = kEsz == 1;
-  // 64 rows a stage, 32 where a stage of 64 would pass 64 KB (f32 at head_dim 256).
-  static constexpr int kT = 2 * 64 * HD * kEsz > 65536 ? 32 : 64;
+  // 64 rows a stage, 32 where a stage of 64 would pass 64 KB (f32 at head_dim 256), or KT.
+  static constexpr int kT = KT ? KT : 2 * 64 * HD * kEsz > 65536 ? 32 : 64;
   static constexpr int kKvBytes = kBands * kT * kBandBytes;  // K (or V) of one stage
   static constexpr int kStageBytes = ((2 * kKvBytes + (kQuant ? 2 * kT * 4 : 0)) + 1023) / 1024 * 1024;
   static constexpr int kStages = kStageBytes <= 16384 ? 4 : kStageBytes <= 32768 ? 3 : 2;
@@ -287,9 +288,9 @@ __device__ __forceinline__ int stage_rows(const Args& a, const Unit& u, int t) {
 }
 
 // --------------------------------------------------------------------------------- producer
-template <typename T, int HD, int R, int NST>
+template <typename T, int HD, int R, int NST, int KT = 0>
 __device__ void produce(const Args& a, const Unit& u, uint8_t* ring, uint32_t bars) {
-  using S = Shape<T, HD, R>;
+  using S = Shape<T, HD, R, KT>;
   const int lane = threadIdx.x & 31;
   const int* tab = a.table + (a.table != nullptr ? (long)u.b * a.max_pages : 0L);
   const int p0 = u.lo / a.page;
@@ -937,29 +938,52 @@ paged_decode_kernel(const __grid_constant__ Args a) {
 // both operands K-major), the online softmax in registers, O += P . V with P's hi and lo as the
 // register operand and V (row-major: MN-major) in shared memory (m64n{hd}k16).  Every query row of
 // the tile shares each K/V row the block reads.  An INT8 stage is first converted to bf16 (exactly)
-// in shared memory, each warp its 16 rows, and released as soon as it is.
+// in shared memory, each warp its 16 rows, and released as soon as it is; an f32 stage likewise to
+// K's and V's bf16 hi and lo, by the whole warpgroup (at head_dim 256 an f32 stage has 32 rows, so
+// that a stage, its conversion and q fit: S is m64n32k16 there).
+// An f32 pool's products could instead run on the CUDA cores (#9's stage_cores widened to a tile of
+// query rows, q from shared memory, every product in f32, 4 * R * hd flops a cache row at 67 TFLOP/s);
+// the tensor cores' three terms keep the bf16 pools' structure and their rate.  Measured and not
+// kept: 64-row f32 stages in a ring of two (a block then takes 225 KB, one an SM, and the plan's
+// splits, cut for a wave of one block an SM, leave the longest request on one block).
 constexpr int kRowTile = 64;
 // A window split's least rows (2 stages): its partial is 64 rows by hd, so a shorter split costs its
 // block's fixed start and its partial's write and merge more than it saves.
 constexpr int kWinMinSpan = 128;
 
+// The window kernel's threads: one warpgroup of consumers (a 64-row tile of query rows) and the
+// producer warp.
+constexpr int kWinWarps = kRowTile / 16;
+constexpr int kWinThreads = (kWinWarps + 1) * 32;
+
+// Cache rows of a window stage: 64; an f32 stage 32, so that its conversion to bf16 hi and lo, q
+// and one stage of the ring take half an SM's shared memory (two blocks an SM at head_dim 128).
+template <typename T>
+__host__ __device__ constexpr int win_rows() { return sizeof(T) == 4 ? 32 : 64; }
+
 // The window kernel's layout: the mbarriers, the unit and the split's flag in the first kHead bytes,
 // then from the next 1024-byte boundary (the swizzle's grid, which wgmma reads by address): the
-// tile's q as bf16 hi and lo in 128-byte swizzled bands, INT8 pools' converted stage (a bf16 stage,
-// then its K and V row scales), and the ring of two stages.
+// tile's q as bf16 hi and lo in 128-byte swizzled bands, the converted stage (INT8: a bf16 stage,
+// then its K and V row scales; f32: K's bf16 hi and lo, then V's), and the ring: two stages, one
+// of an f32 pool (converted as soon as it lands, it is free while the products run).  A stage has
+// win_rows cache rows; the converted stage's bands have as many rows.
 template <typename T, int HD>
 struct WinSmem {
-  using S = Shape<T, HD, kMma>;
+  using S = Shape<T, HD, kMma, win_rows<T>()>;
   using B = Shape<__nv_bfloat16, HD, kMma>;  // the layout wgmma reads
-  static_assert(S::kT == kRowTile && S::kWarps * 16 == kRowTile, "a stage of 64 rows, one warpgroup");
-  static constexpr int kStages = 2;
+  static constexpr bool kF32 = sizeof(T) == 4;
+  static_assert(S::kT == kRowTile || (kF32 && S::kT == kRowTile / 2), "a stage of 64 rows (f32: 32)");
   static constexpr int kUnit = 2 * kMaxStages * 8, kFlag = kUnit + sizeof(Unit), kHead = 128;
   static constexpr int kQTerm = kRowTile * HD * 2;  // bytes of one bf16 term of the tile's q
   static constexpr int kConv = 2 * kQTerm;          // from the aligned base
-  static constexpr int kConvBytes = S::kQuant ? (2 * B::kKvBytes + 2 * kRowTile * 4 + 1023) / 1024 * 1024 : 0;
+  static constexpr int kTerm = HD / 64 * S::kT * kBandBytes;  // one bf16 matrix of a converted stage
+  static constexpr int kConvBytes = kF32 ? 4 * kTerm
+                                         : S::kQuant ? (2 * B::kKvBytes + 2 * kRowTile * 4 + 1023) / 1024 * 1024 : 0;
   static constexpr int kRing = kConv + kConvBytes;
+  static constexpr int kStages = kF32 ? 1 : 2;
   static constexpr int kBytes = kHead + 1024 + kRing + kStages * S::kStageBytes;
   static_assert(kFlag + 4 <= kHead, "the head holds the barriers, the unit and the flag");
+  static_assert(kBytes <= 227 * 1024, "a block's shared memory");
 };
 
 // The byte of element pair (row, 2 c) of a q term: bands of 64 bf16 columns, 128-byte swizzled rows.
@@ -1011,13 +1035,46 @@ __device__ __forceinline__ void zero_rows(uint8_t* st, int n) {
   }
 }
 
+// An f32 stage of KT rows as bf16 hi and lo (hi = the nearest bf16, lo = the nearest to what hi
+// leaves), K's two then V's, each a bf16 stage of KT-row bands; rows at or past n zero (their P is
+// 0, and V may hold NaN).  The warpgroup's 128 threads take 16-byte pieces of rows in turn, 8 loads
+// in flight a thread.
+template <int HD, int KT>
+__device__ __forceinline__ void convert_f32_rows(const uint8_t* st, uint8_t* conv, int n) {
+  using S32 = Shape<float, HD, kMma, KT>;
+  constexpr int kTerm = HD / 64 * KT * kBandBytes, kPieces = 2 * KT * (HD / 4), kBatch = 8;
+  static_assert(kPieces % (kBatch * 128) == 0, "whole batches");
+#pragma unroll 1
+  for (int k0 = (int)threadIdx.x; k0 < kPieces; k0 += kBatch * 128) {
+    float4 x[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {  // piece (K or V, row, 4 columns from 4 c)
+      const int k = k0 + j * 128, kv = k / (KT * (HD / 4)), row = k / (HD / 4) % KT, c = k % (HD / 4);
+      x[j] = row < n ? *reinterpret_cast<const float4*>(st + kv * S32::kKvBytes + (c >> 3) * KT * kBandBytes +
+                                                         swz(row, c & 7))
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int k = k0 + j * 128, kv = k / (KT * (HD / 4)), row = k / (HD / 4) % KT, c = k % (HD / 4);
+      uint32_t p01[2], p23[2];  // columns 4c, 4c + 1 and 4c + 2, 4c + 3: [hi, lo] each
+      split_terms<2>(x[j].x, x[j].y, p01);
+      split_terms<2>(x[j].z, x[j].w, p23);
+      uint8_t* d = conv + 2 * kv * kTerm + (c >> 4) * KT * kBandBytes + swz(row, (c & 15) >> 1) + 8 * (c & 1);
+      *reinterpret_cast<uint2*>(d) = make_uint2(p01[0], p23[0]);
+      *reinterpret_cast<uint2*>(d + kTerm) = make_uint2(p01[1], p23[1]);
+    }
+  }
+}
+
 template <typename T, int HD>
-__global__ void __launch_bounds__(Shape<T, HD, kMma>::kThreads)
+__global__ void __launch_bounds__(kWinThreads)
 paged_window_kernel(const __grid_constant__ Args a) {
-  using S = Shape<T, HD, kMma>;
   using L = WinSmem<T, HD>;
-  constexpr bool kI8 = S::kQuant;
-  constexpr int W = S::kWarps, NT = W * 32, NST = L::kStages;
+  using S = typename L::S;
+  constexpr bool kI8 = S::kQuant, kF32 = L::kF32;
+  constexpr int KT = S::kT;  // cache rows of a stage
+  constexpr int W = kWinWarps, NT = W * 32, NST = L::kStages;
   extern __shared__ __align__(16) uint8_t smem[];
   const uint32_t bars = smem_u32(smem);
   Unit& unit = *reinterpret_cast<Unit*>(smem + L::kUnit);
@@ -1050,7 +1107,7 @@ paged_window_kernel(const __grid_constant__ Args a) {
   if (!flag) return;
   const Unit u = unit;
   if (warp == W) {
-    produce<T, HD, kMma, NST>(a, u, ring, bars);
+    produce<T, HD, kMma, NST, KT>(a, u, ring, bars);
     return;
   }
   // The tile's q rows, scaled, as bf16 hi and lo (rows past R zero), 16 loads of 16 bytes in flight a
@@ -1101,8 +1158,9 @@ paged_window_kernel(const __grid_constant__ Args a) {
     mbar_wait(bars + 8 * stage, phase);
     if (t == u.lo && tid == 0) stamp(a, 3);
     uint8_t* st = ring + stage * S::kStageBytes;
-    if constexpr (kI8) {  // this warp's 16 rows to bf16; the stage is free once every warp's are
-      convert_rows<HD>(st, conv, warp, n);
+    if constexpr (kI8 || kF32) {  // the stage to bf16 (INT8: each warp its 16 rows); then it is free
+      if constexpr (kI8) convert_rows<HD>(st, conv, warp, n);
+      else convert_f32_rows<HD, KT>(st, conv, n);
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       __syncwarp();
       if (lane == 0) mbar_arrive(bars + 8 * (kMaxStages + stage));
@@ -1114,17 +1172,22 @@ paged_window_kernel(const __grid_constant__ Args a) {
       consumer_sync(NT);
     }
     const uint32_t kbase = smem_u32(st);
-    float s[32];
+    float s[KT / 2];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    for (int i = 0; i < KT / 2; ++i) s[i] = 0.f;
     fence_acc(s);
     wg_fence();
+    // q's lo and hi against K (bf16 and INT8 rows are exact); f32 rows: q lo . K hi, q hi . K lo,
+    // q hi . K hi (q lo . K lo, below 2^-16 of the product, is left out).  The small terms first.
+    constexpr int kProducts = kF32 ? 3 : 2;
 #pragma unroll
-    for (int term = 1; term >= 0; --term)  // lo first: the small terms' sum
+    for (int pr = 0; pr < kProducts; ++pr) {
+      const int qt_ = pr == 0 ? 1 : 0, kt_ = kF32 && pr == 1 ? 1 : 0;
 #pragma unroll
       for (int ks = 0; ks < HD / 16; ++ks)
-        wgmma_ss(s, desc_k(q_base + term * L::kQTerm + (ks / 4) * (kRowTile * kBandBytes) + (ks % 4) * 32),
-                 desc_k(kbase + (ks / 4) * (S::kT * kBandBytes) + (ks % 4) * 32), term == 0 || ks > 0);
+        wgmma_ss(s, desc_k(q_base + qt_ * L::kQTerm + (ks / 4) * (kRowTile * kBandBytes) + (ks % 4) * 32),
+                 desc_k(kbase + kt_ * L::kTerm + (ks / 4) * (KT * kBandBytes) + (ks % 4) * 32), pr > 0 || ks > 0);
+    }
     wg_commit();
     wg_wait0();
     fence_acc(s);
@@ -1133,7 +1196,7 @@ paged_window_kernel(const __grid_constant__ Args a) {
     const float* sc = reinterpret_cast<const float*>(st + 2 * L::B::kKvBytes);
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
+    for (int i = 0; i < KT / 2; ++i) {
       const int row = 8 * (i >> 2) + 2 * t4 + (i & 1);
       const float v = row < n ? (kI8 ? s[i] * sc[row] : s[i]) : -INFINITY;
       s[i] = v;
@@ -1149,7 +1212,7 @@ paged_window_kernel(const __grid_constant__ Args a) {
       m[h] = m_new;
     }
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
+    for (int i = 0; i < KT / 2; ++i) {
       const int row = 8 * (i >> 2) + 2 * t4 + (i & 1);
       const float pr = expf(s[i] - m[(i >> 1) & 1]);  // 0 at -inf
       lsum[(i >> 1) & 1] += pr;
@@ -1165,9 +1228,9 @@ paged_window_kernel(const __grid_constant__ Args a) {
       o[4 * i + 3] *= corr[1];
     }
     // O += P . V: P's hi and lo as wgmma's register operand, one k16 step (16 cache rows) at a time.
-    uint32_t pa[2][kRowTile / 16][4];  // [term][k16 step][fragment]
+    uint32_t pa[2][KT / 16][4];  // [term][k16 step][fragment]
 #pragma unroll
-    for (int kk = 0; kk < kRowTile / 16; ++kk)
+    for (int kk = 0; kk < KT / 16; ++kk)
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         uint32_t x[2];
@@ -1175,20 +1238,21 @@ paged_window_kernel(const __grid_constant__ Args a) {
         pa[0][kk][r] = x[0];
         pa[1][kk][r] = x[1];
       }
-    const uint32_t vbase = kbase + L::B::kKvBytes;
+    const uint32_t vbase = kbase + (kF32 ? 2 * L::kTerm : L::B::kKvBytes);
     fence_acc(o);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < kRowTile / 16; ++kk) {
+    for (int kk = 0; kk < KT / 16; ++kk) {
       if (16 * kk >= n) break;  // the rest of P is 0
-      const uint64_t dv = desc_mn(vbase + kk * 16 * kBandBytes, S::kT * kBandBytes);
+      const uint64_t dv = desc_mn(vbase + kk * 16 * kBandBytes, KT * kBandBytes);
       wgmma_rs_mn(o, pa[1][kk], dv);
+      if constexpr (kF32) wgmma_rs_mn(o, pa[0][kk], desc_mn(vbase + L::kTerm + kk * 16 * kBandBytes, KT * kBandBytes));
       wgmma_rs_mn(o, pa[0][kk], dv);
     }
     wg_commit();
     wg_wait0();
     fence_acc(o);
-    if constexpr (kI8) {
+    if constexpr (kI8 || kF32) {
       consumer_sync(NT);  // the converted stage is rewritten by the next one
     } else {
       __syncwarp();
@@ -1424,11 +1488,11 @@ int allow_smem(const void* fn, int smem) {
   return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-// The window kernel's instance for (pool type, head_dim), its shared memory and threads, or null: bf16
-// and INT8 pools at head_dim 128 and 256 (f32 pools keep the two-pass kernels of paged_attention.cu).
+// The window kernel's instance for (pool type, head_dim), its shared memory and threads, or null: f32,
+// bf16 and INT8 pools at head_dim 128 and 256.
 template <typename T>
 const void* pick_window_hd(int hd, int* smem, int* threads) {
-  *threads = Shape<T, 128, kMma>::kThreads;
+  *threads = kWinThreads;
   switch (hd) {
     case 128: *smem = WinSmem<T, 128>::kBytes; return reinterpret_cast<const void*>(&paged_window_kernel<T, 128>);
     case 256: *smem = WinSmem<T, 256>::kBytes; return reinterpret_cast<const void*>(&paged_window_kernel<T, 256>);
@@ -1438,6 +1502,7 @@ const void* pick_window_hd(int hd, int* smem, int* threads) {
 
 const void* pick_window(int cache_type, int hd, int* smem, int* threads) {
   switch (cache_type) {
+    case 0: return pick_window_hd<float>(hd, smem, threads);
     case 1: return pick_window_hd<__nv_bfloat16>(hd, smem, threads);
     case 2: return pick_window_hd<int8_t>(hd, smem, threads);
     default: return nullptr;
@@ -1537,8 +1602,8 @@ extern "C" int paged_window_blocks_per_sm(int cache_type, int hd) {
 }
 
 // One launch of the window kernel over `grid` blocks (at least B * n_kv * ceil(R / 64)).  q [B, S,
-// n_kv * kv_mul, hd] f32 (unscaled, R = S * kv_mul <= 128), the pool and table as paged_decode_split's (cache_type 1 = bf16,
-// 2 = int8); ws_ml [grid, 64, 2] and ws_acc [grid, 64, hd] f32 scratch; counters [B * n_kv *
+// n_kv * kv_mul, hd] f32 (unscaled, R = S * kv_mul <= 128), the pool and table as paged_decode_split's (cache_type 0 = f32,
+// 1 = bf16, 2 = int8); ws_ml [grid, 64, 2] and ws_acc [grid, 64, hd] f32 scratch; counters [B * n_kv *
 // ceil(R / 64)] int32, zero (left zero); out_m, out_l [B, n_kv, R] and out_acc [B, n_kv, R, hd] f32;
 // stamps [grid, 8] int64 or null (the decode kernel's phases).  Returns a cudaError_t, or a tensor map's negated CUresult minus one.
 extern "C" int paged_window_split(const void* q, const void* k, const void* v, const void* ks, const void* vs,

@@ -27,12 +27,14 @@ whole pages brought by TMA, the splits merged by the last block of each
 (request, kv head, head tile).  Its stage compute follows the pool:
 ``mma.sync`` for bf16 and INT8 pools (q and P in two bf16 terms, three for
 an INT8 dense layer: ``bf16_terms``), the CUDA cores for f32 pools, whose
-rows are not exact in bf16.  ``paged_window_partials`` over bf16 and INT8 pools at those
-shapes (``window_split_takes``) is one launch of the window kernel of the
-same source, on the same plan with row tiles of ``WINDOW_ROW_TILE`` query
-rows in place of head tiles (``window_units``; ``paged_window_kernel_plan``
-reads the kernel's own): every query row of a tile shares each K/V row read,
-S and P·V on ``mma.sync`` with the query rows on its 16-row side.  Elsewhere
+rows are not exact in bf16.  ``paged_window_partials`` at those shapes, over
+every pool type (``window_split_takes``), is one launch of the window kernel
+of the same source, on the same plan with row tiles of ``WINDOW_ROW_TILE``
+query rows in place of head tiles (``window_units``;
+``paged_window_kernel_plan`` reads the kernel's own): every query row of a
+tile shares each K/V row read, S and P·V on ``wgmma`` with q and P in bf16
+hi + lo (an f32 pool's stage converted to bf16 hi + lo too, each product in
+three terms).  Elsewhere
 both wrappers launch the two-pass kernels of ``csrc/paged_attention.cu``,
 which share their first pass.
 For a CPU tensor a wrapper runs its plain PyTorch version; for a CUDA tensor
@@ -259,9 +261,9 @@ def split_kernel_takes(hd: int, page: int) -> bool:
 def window_split_takes(hd: int, page: int, dtype) -> bool:
     """Whether ``paged_window_partials`` launches the one-launch window
     kernel (else the two-pass kernels): the decode kernel's head_dims and
-    pages, over bf16 and INT8 pools (an f32 pool's rows are not exact in
-    bf16, and its window keeps the CUDA cores)."""
-    return split_kernel_takes(hd, page) and dtype in (torch.bfloat16, torch.int8)
+    pages, over every pool type (an f32 pool's rows, not exact in bf16, go
+    to the tensor cores as bf16 hi and lo, each product in three terms)."""
+    return split_kernel_takes(hd, page) and dtype in _CACHE_TYPES
 
 
 def window_tiles(r: int) -> int:

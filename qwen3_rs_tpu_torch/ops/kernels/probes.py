@@ -40,6 +40,12 @@ A8_SEG_DEPTH = {"i8-seg64": 64, "i8-full": 512}  # int32 depth before each flush
 # k-steps it drifts by ~2e-5, so these take #6's tolerance (1e-4).  The int8 dots are exact:
 # i8-seg's f32 fixups differ only in summation order (1e-5), a8_depth's int arms not at all.
 HEAD_A8_RTOL = {"deq-dot": 1e-4, "i8-seg": 1e-5, "i8-seg2": 1e-5}
+# P3's unit of work (csrc/head_a8_probe.cu): 16 weight columns (an m16 tile) by one 64-row group of
+# one tile; a block holds up to 96 units in shared memory, with the activations.
+HEAD_A8_UNIT_COLS = 16
+_HEAD_A8_MAX_UNITS = 96
+_HEAD_A8_UNIT_BYTES = HEAD_A8_UNIT_COLS * 64 + HEAD_A8_UNIT_COLS * 4  # codes and scales
+_HEAD_A8_SMEM = 226 * 1024
 A8_DEPTH_RTOL = {"bf16-full": 1e-4, "i8-seg64": 0.0, "i8-full": 0.0}
 # The one-call kernel (P1) has the row kernel's blocks (qmatmul._ROW_*: 128 output columns by a
 # split's 16-row k-slices, a multiple of 8, one run a warp); its dynamic shared memory, x's bf16
@@ -80,7 +86,7 @@ def _lib(name: str) -> ctypes.CDLL:
     sigs = {
         "boundary_probe": ("boundary_onecall", [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]),
         "hbm_stream_bench": ("hbm_stream", [p, l_, l_, p, p, p]),
-        "head_a8_probe": ("head_a8", [i, p, p, p, p, p, p, i, i, i, i, i, p]),
+        "head_a8_probe": ("head_a8", [i, p, p, p, p, p, p, i, i, i, i, i, i, p, p, p]),
         "a8_depth_probe": ("a8_depth", [i, p, p, p, i, i, i, p]),
     }
     fn, args = sigs[name]
@@ -89,6 +95,9 @@ def _lib(name: str) -> ctypes.CDLL:
     if name == "boundary_probe":
         lib.boundary_onecall_blocks_per_sm.argtypes = [i, i]
         lib.boundary_onecall_blocks_per_sm.restype = ctypes.c_int
+    if name == "head_a8_probe":
+        lib.head_a8_grid.argtypes = [i, i, i, i, i]
+        lib.head_a8_grid.restype = ctypes.c_int
     return lib
 
 
@@ -287,12 +296,53 @@ def head_a8_plain(variant: str, x: torch.Tensor, xq: torch.Tensor, xs: torch.Ten
     return o
 
 
+def head_a8_smem(variant: str, tn: int, units: int) -> int:
+    """Dynamic shared memory of a P3 block of ``units`` units (``smem_bytes``
+    in its source): each unit's 1 KB of codes and 16 scales, then the
+    activations (deq-dot: B fragments, 1 KB a group; the int arms: 8 xq rows
+    of tn + 64 bytes and 8 x-scales a group)."""
+    groups = tn // HEAD_A8_GROUP
+    acts = groups * 1024 if variant == "deq-dot" else 8 * (tn + 64) + groups * 8 * 4
+    return units * _HEAD_A8_UNIT_BYTES + acts
+
+
+def head_a8_grid(variant: str, tn: int, td: int, n_tiles: int, sms: int) -> int:
+    """Blocks of a P3 launch, the mirror of ``head_a8_grid`` in its source
+    (which the wrapper calls; the card test holds the two equal): the units
+    (``n_tiles · td/16 · tn/64``) cut into equal ranges, one an SM, fewer
+    where there are fewer units, more where a range would pass a block's
+    shared memory or its 96 units; 0 where no block holds one unit."""
+    units = n_tiles * (td // HEAD_A8_UNIT_COLS) * (tn // HEAD_A8_GROUP)
+    cap = min(_HEAD_A8_MAX_UNITS, (_HEAD_A8_SMEM - head_a8_smem(variant, tn, 0)) // _HEAD_A8_UNIT_BYTES)
+    if cap < 1:
+        return 0
+    return max(-(-units // cap), min(units, sms))
+
+
+def head_a8_plan(tn: int, td: int, n_tiles: int, grid: int) -> list[list[tuple[int, int, int]]]:
+    """Each block's units as the kernel cuts them: the units in (tile,
+    16-column tile, group) order, block i taking ``[i·U // grid, (i+1)·U //
+    grid)``; a unit is (tile, first column, first row)."""
+    m, c = td // HEAD_A8_UNIT_COLS, tn // HEAD_A8_GROUP
+    n = n_tiles * m * c
+    return [[(u // (m * c), u // c % m * HEAD_A8_UNIT_COLS, u % c * HEAD_A8_GROUP)
+             for u in range(i * n // grid, (i + 1) * n // grid)] for i in range(grid)]
+
+
+def head_a8_workspace_floats(grid: int, td: int, n_tiles: int, b: int) -> int:
+    """Floats of a P3 launch's partials: block i writes the B·16 sums of each
+    (tile, column tile) pair p its units touch to slot i + p."""
+    return (grid + n_tiles * (td // HEAD_A8_UNIT_COLS)) * b * HEAD_A8_UNIT_COLS
+
+
 def head_a8(variant: str, x: torch.Tensor, xq: torch.Tensor, xs: torch.Tensor, w: torch.Tensor,
             s: torch.Tensor, sweeps: int | None = None) -> torch.Tensor:
     """x bf16 ``[B, TN]``, xq int8 ``[B, TN]``, xs f32 ``[B, TN/64]``, w int8
     ``[n_tiles, TN, TD]``, s f32 ``[n_tiles, TN/64, TD]`` → f32 ``[B, TD]``,
     the sum over ``sweeps`` (default ``n_tiles·16``) sweeps of tile
-    ``sweep % n_tiles`` of ``variant``'s product."""
+    ``sweep % n_tiles`` of ``variant``'s product.  On the card one launch
+    of ``head_a8_grid`` blocks (``head_a8_plan``), the split sums merged in
+    a fixed order, the column tiles' counters left zero."""
     who = "head_a8"
     _need(variant in HEAD_A8_VARIANTS, who, f"variant {variant!r} is none of {HEAD_A8_VARIANTS}")
     _need(w.dim() == 3, who, "w must be [n_tiles, TN, TD]")
@@ -311,10 +361,16 @@ def head_a8(variant: str, x: torch.Tensor, xq: torch.Tensor, xs: torch.Tensor, w
         _need(t.dtype == dt and tuple(t.shape) == shape and t.is_contiguous(), who,
               f"{name} must be contiguous {dt} {list(shape)}, got {t.dtype} {list(t.shape)}")
         _need(t.device == x.device, who, "all tensors must be on one device")
+    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
     lib = _lib("head_a8_probe")
+    grid = lib.head_a8_grid(HEAD_A8_VARIANTS.index(variant), tn, td, n_tiles, _sm_count(index))
+    _need(grid > 0, who, f"TN={tn}: a block's shared memory holds no unit beside the activations")
     out = torch.empty(b, td, dtype=torch.float32, device=x.device)
+    ws = torch.empty(head_a8_workspace_floats(grid, td, n_tiles, b), dtype=torch.float32, device=x.device)
+    counters = _mma_counters(x.device, td // HEAD_A8_UNIT_COLS)
     err = lib.head_a8(HEAD_A8_VARIANTS.index(variant), x.data_ptr(), xq.data_ptr(), xs.data_ptr(), w.data_ptr(),
-                      s.data_ptr(), out.data_ptr(), b, tn, td, n_tiles, sweeps, _stream(x))
+                      s.data_ptr(), out.data_ptr(), b, tn, td, n_tiles, sweeps, grid, ws.data_ptr(),
+                      counters.data_ptr(), _stream(x))
     build.check(err, who)
     LAUNCHES["head_a8"] += 1
     return out

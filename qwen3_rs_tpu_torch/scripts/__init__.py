@@ -41,16 +41,25 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def event_ms(fn, repeat: int = 5, warmup: int = 2) -> float:
+# Device cycles of the sleep that queued timing puts before a call (~1 ms): the host issues the
+# call while the card sleeps.
+QUEUE_CYCLES = 2_000_000
+
+
+def event_ms(fn, repeat: int = 5, warmup: int = 2, queued: bool = False) -> float:
     """Median device time (ms) of ``fn()``: CUDA events around each call,
     recorded as the host issues them, so a call whose launches the host
-    issues slower than the card runs them is timed at the host's pace."""
+    issues slower than the card runs them is timed at the host's pace; with
+    ``queued`` the start event waits behind a device sleep, so that the
+    events bracket the card's work alone."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(repeat):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(QUEUE_CYCLES)
         start.record()
         fn()
         end.record()
@@ -59,11 +68,12 @@ def event_ms(fn, repeat: int = 5, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def slope_ms(fn_of, lo: int, hi: int, repeat: int = 5) -> float:
+def slope_ms(fn_of, lo: int, hi: int, repeat: int = 5, queued: bool = False) -> float:
     """Device time (ms) of one unit of work: the slope between ``fn_of(hi)``
     and ``fn_of(lo)`` units, each timed by ``event_ms`` (the fixed cost of a
     call cancels)."""
-    return (event_ms(lambda: fn_of(hi), repeat) - event_ms(lambda: fn_of(lo), repeat)) / (hi - lo)
+    return (event_ms(lambda: fn_of(hi), repeat, queued=queued)
+            - event_ms(lambda: fn_of(lo), repeat, queued=queued)) / (hi - lo)
 
 
 def generator(dev: torch.device, seed: int) -> torch.Generator:

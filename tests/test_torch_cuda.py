@@ -864,10 +864,11 @@ def _window_holds(got, ref):
 @pytest.mark.parametrize("page", [16, 128])
 @pytest.mark.parametrize("hd", [128, 256])
 def test_paged_window_matches_plain(card, pool, s, kv_mul, page, hd):
-    """#10 over f32 (the two-pass kernels), bf16 and INT8 pools (the window
-    kernel) at R = S·kv_mul from 2 to 128 rows, pages of 16 and 128 rows,
-    head_dim 128 and 256: one launch, within 1e-4·max|ref| with the -inf
-    entries equal; then an all-idle batch (every pos 0)."""
+    """#10 over f32, bf16 and INT8 pools (the window kernel; an f32 stage as
+    bf16 hi + lo, 32 rows a stage at head_dim 256) at R = S·kv_mul from 2 to
+    128 rows, pages of 16 and 128 rows, head_dim 128 and 256: one launch,
+    within 1e-4·max|ref| with the -inf entries equal; then an all-idle batch
+    (every pos 0)."""
     gen = _gen(s * 7 + kv_mul + page + hd + len(pool))
     max_pages = -(-300 // page)
     pos_list = [0, 1, page + 1, 300]
@@ -890,7 +891,7 @@ def test_paged_window_matches_plain(card, pool, s, kv_mul, page, hd):
     assert bool(torch.isneginf(m).all()) and bool((l == 0).all()) and bool((acc == 0).all())
 
 
-@pytest.mark.parametrize("pool", ["bf16", "int8"])
+@pytest.mark.parametrize("pool", ["bf16", "int8", "f32"])
 def test_paged_window_kernel_reads_no_row_at_or_past_pos(card, pool):
     """The window kernel's pools: rows at or past pos and the null page hold
     NaN (INT8: their scales too), and the partials stay finite where pos > 0."""
@@ -927,21 +928,27 @@ def test_paged_window_kernel_reads_no_row_at_or_past_pos(card, pool):
 )
 def test_paged_window_kernel_plan_is_window_units(card, pos, n_kv, r, grid):
     """The plan the window kernel's blocks make from the positions, read
-    back block by block, is ``window_units``'s, unit for unit."""
+    back block by block, is ``window_units``'s, unit for unit: at the given
+    grid and at the grid the wrapper launches over each pool type (f32, bf16,
+    INT8: its instance's blocks an SM)."""
     from qwen3_rs_tpu_torch.ops.kernels.paged_attention import (
         paged_window_kernel_plan,
         window_grid,
+        window_split_grid,
         window_units,
     )
 
     page, max_pages = 128, 32
-    grid = max(grid, window_grid(len(pos), n_kv, r, 1, 1))
+    grids = {max(grid, window_grid(len(pos), n_kv, r, 1, 1))}
+    grids |= {window_split_grid(card, dt, 128, len(pos), n_kv, r) for dt in (torch.float32, torch.bfloat16, torch.int8)}
     pos_t = torch.tensor(pos, dtype=torch.int32, device=card)
-    assert paged_window_kernel_plan(pos_t, n_kv, r, page, max_pages, grid) == window_units(
-        pos, n_kv, r, page, max_pages, grid)
+    for g in sorted(grids):
+        assert paged_window_kernel_plan(pos_t, n_kv, r, page, max_pages, g) == window_units(
+            pos, n_kv, r, page, max_pages, g), g
 
 
-def test_paged_window_counters_stay_zero(card):
+@pytest.mark.parametrize("pool", ["bf16", "f32"])
+def test_paged_window_counters_stay_zero(card, pool):
     """The window kernel's arrival counters are zero after every launch, two
     launches give the same bytes, and a CUDA graph's replay gives the same
     partials."""
@@ -951,7 +958,7 @@ def test_paged_window_counters_stay_zero(card):
     page, max_pages, pos_list = 128, 32, [4064, 1000, 0, 2049]
     b = len(pos_list)
     n_pages = 1 + b * max_pages
-    k, v, _ = _cache_of(gen, card, "bf16", (2, n_pages, 8, page, 128))
+    k, v, _ = _cache_of(gen, card, pool, (2, n_pages, 8, page, 128))
     table = _tables(gen, card, b, max_pages, n_pages)
     pos = torch.tensor(pos_list, dtype=torch.int32, device=card)
     q = torch.randn(b, 32, 32, 128, generator=gen, device=card)
@@ -1639,18 +1646,31 @@ def test_hbm_stream_is_the_exact_sum(card, nbytes, span):
 
 
 @pytest.mark.parametrize("variant", ["deq-dot", "i8-seg", "i8-seg2"])
-@pytest.mark.parametrize("b,tn,td", [(8, 4096, 1536), (1, 512, 48), (5, 1024, 64)])
+@pytest.mark.parametrize("b,tn,td", [(8, 4096, 1536), (1, 512, 48), (5, 1024, 64)]
+                         + [(b, tn, td) for b in (1, 3, 8) for tn in (512, 4096) for td in (16, 1536)])
 def test_head_a8_matches_plain(card, variant, b, tn, td):
+    """P3 against its plain version at 1, 2, 33 and the default 32 sweeps
+    (an odd count sweeps one tile once more), one launch each; a second
+    launch gives the same bits (the split sums merge in a fixed order) and
+    the column tiles' counters end at zero; the C grid is ``head_a8_grid``'s."""
+    from qwen3_rs_tpu_torch.ops.kernels.probes import _lib, _sm_count, head_a8_grid
+    from qwen3_rs_tpu_torch.ops.kernels.qmatmul import _mma_counters
     from qwen3_rs_tpu_torch.scripts.head_a8_probe import inputs
 
     ops = inputs(b, tn, td, card, seed=b + tn + td)
-    for sweeps in (None, 3):
+    for sweeps in (None, 1, 2, 33):
         before = LAUNCHES["head_a8"]
         got = head_a8(variant, **ops, sweeps=sweeps)
         assert LAUNCHES["head_a8"] == before + 1
+        again = head_a8(variant, **ops, sweeps=sweeps)
         ref = head_a8_plain(variant, **ops, sweeps=sweeps)
         torch.cuda.synchronize()
         assert float((got - ref).abs().max()) <= HEAD_A8_RTOL[variant] * float(ref.abs().max()), (variant, sweeps)
+        assert torch.equal(got, again), (variant, sweeps)
+    assert not _mma_counters(card, td // 16)[: td // 16].any()
+    sms = _sm_count(torch.cuda.current_device())
+    assert _lib("head_a8_probe").head_a8_grid(["deq-dot", "i8-seg", "i8-seg2"].index(variant), tn, td, 2, sms) \
+        == head_a8_grid(variant, tn, td, 2, sms)
 
 
 @pytest.mark.parametrize("variant", ["bf16-full", "i8-seg64", "i8-full"])

@@ -290,8 +290,8 @@ def test_window_units_cover_every_live_row_once_and_fit_the_grid(pos, n_kv, r, g
 
 def test_window_route_grid_and_workspace():
     """The window kernel's route (head_dim 128/256, pages of a multiple of 16
-    rows, bf16 and INT8 pools; f32 pools and the rest keep the two-pass
-    kernels), its grid and its workspaces."""
+    rows, f32, bf16 and INT8 pools; the rest keep the two-pass kernels), its
+    grid and its workspaces."""
     from qwen3_rs_tpu_torch.ops.kernels.paged_attention import (
         window_grid,
         window_split_takes,
@@ -301,11 +301,37 @@ def test_window_route_grid_and_workspace():
     for hd in (128, 256, 384, 512, 640):
         for page in (8, 16, 128, 200):
             for dt in (torch.float32, torch.bfloat16, torch.int8):
-                want = hd in (128, 256) and page % 16 == 0 and dt != torch.float32
+                want = hd in (128, 256) and page % 16 == 0
                 assert window_split_takes(hd, page, dt) == want
     assert window_grid(8, 8, 128, 132, 2) == 264 and window_grid(8, 8, 16, 132, 1) == 132
     assert window_grid(64, 8, 128, 132, 1) == 64 * 8 * 2
     assert window_workspace_floats(264, 128) == (264 * 64 * 2, 264 * 64 * 128)
+
+
+@pytest.mark.parametrize("kv_mul", [1, 4])
+def test_window_tolerance_separates_two_bf16_terms_of_an_f32_pool_from_one(kv_mul):
+    """#10's tolerance (1e-4 of each output's largest value) tells the f32
+    pool's stage (K and V as bf16 hi + lo, ~2^-16 of each value) from a
+    pool rounded to bf16: the plain window over the two-term pool holds it,
+    over the one-term pool it misses it."""
+    from qwen3_rs_tpu_torch.ops.kernels.paged_attention import bf16_terms, paged_window_partials_plain
+
+    rng, b, _, _, (k, v), _, table, pos = _case(17, "f32", POS, kv_mul)
+    q = torch.from_numpy(rng.normal(0, 1, (b, 4, N_KV * kv_mul, HD)).astype(np.float32))
+    args = (torch.from_numpy(table), torch.from_numpy(pos), LAYER)
+    ref = paged_window_partials_plain(q, k, v, *args)
+
+    def worst(pool_of):
+        got = paged_window_partials_plain(q, pool_of(k), pool_of(v), *args)
+        ratios = []
+        for a, e in zip(got, ref):
+            assert torch.equal(torch.isneginf(a), torch.isneginf(e))
+            fin = torch.isfinite(e)
+            ratios.append(float((a[fin] - e[fin]).abs().max()) / (1e-4 * float(e[fin].abs().max())))
+        return max(ratios)
+
+    assert worst(lambda t: sum(x.float() for x in bf16_terms(t, 2))) <= 1.0
+    assert worst(lambda t: t.to(torch.bfloat16).float()) > 1.0
 
 
 @pytest.mark.parametrize("n", [2, 3])

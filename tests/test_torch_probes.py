@@ -15,7 +15,8 @@ it stands in for, on the same numpy inputs, at tiny shapes.
   partial sum is an integer below 2^24), ``bf16-full`` at ``1e-5 · max|ref|``.
 
 Beside them, the pure functions the card kernels follow: P1's plan and walk
-(``onecall_plan``, ``onecall_walk``) at the 8B matrices, the int-to-float
+(``onecall_plan``, ``onecall_walk``) at the 8B matrices, P3's cut of the work
+(``head_a8_plan``), the int-to-float
 identity of the magic number 1.5·2^23 over its whole range, and P4's tiles
 and flush segments over K.  Each probe's entry point raises without CUDA.
 """
@@ -50,7 +51,11 @@ from qwen3_rs_tpu_torch.ops.kernels.probes import (
     hbm_stream,
     hbm_stream_plain,
     head_a8,
+    head_a8_grid,
     head_a8_plain,
+    head_a8_plan,
+    head_a8_smem,
+    head_a8_workspace_floats,
     onecall_plan,
     onecall_smem,
     onecall_walk,
@@ -252,6 +257,42 @@ def test_head_a8_sweeps_cycle_the_tiles():
     assert torch.equal(two, one + tile1)
     with pytest.raises(ValueError, match="variant"):
         head_a8("i4-seg", **t)
+
+
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("tn", [512, 4096])
+@pytest.mark.parametrize("td", [16, 1536, 1552])
+def test_head_a8_plan_covers_every_tile_column_and_group_once(td, tn, b):
+    """P3's cut of the work (``head_a8_plan``, the kernel's ranges): every
+    (tile, 16 columns, 64-row group) in one block exactly, each block one
+    contiguous run of units that fits its shared memory and 96 units, a block
+    on every SM of a 132-SM card at TD 1536 (TD 1552 = 97 column tiles: the
+    units do not divide evenly).  The kernel finds the block of unit u as
+    ``((u + 1)·G - 1) // U`` and writes the partial of block i and pair p =
+    (tile, column tile) to slot i + p of B·16 floats: both hold here, and
+    the slots are distinct and lie within the wrapper's workspace."""
+    sms, n_tiles = 132, 2
+    m_tiles, groups = td // 16, tn // 64
+    n_units = n_tiles * m_tiles * groups
+    for variant in HEAD_A8_VARIANTS:
+        grid = head_a8_grid(variant, tn, td, n_tiles, sms)
+        plan = head_a8_plan(tn, td, n_tiles, grid)
+        assert len(plan) == grid and all(plan)
+        assert max(len(p) for p in plan) <= 96 and head_a8_smem(variant, tn, max(len(p) for p in plan)) <= 226 * 1024
+        flat = [u for p in plan for u in p]
+        want = [(t, 16 * m, 64 * c) for t in range(n_tiles) for m in range(m_tiles) for c in range(groups)]
+        assert flat == want  # each (tile, columns, group) once, in the kernel's unit order
+        if td == 1536:
+            assert grid == sms
+        start = 0
+        for i, p in enumerate(plan):
+            for u in range(start, start + len(p)):
+                assert ((u + 1) * grid - 1) // n_units == i
+            start += len(p)
+        segments = {(i, t * m_tiles + c0 // 16) for i, p in enumerate(plan) for t, c0, _ in p}
+        slots = {i + pair for i, pair in segments}
+        assert len(slots) == len(segments)
+        assert (max(slots) + 1) * b * 16 <= head_a8_workspace_floats(grid, td, n_tiles, b)
 
 
 # --------------------------------------------------------------------- P4
