@@ -18,8 +18,10 @@ Phases, in order; any failure exits non-zero before the final line:
                shard shapes, also bit for bit against a full launch's
                columns; #10's plan read back against ``window_units``,
                P1's one-call walk against ``probes.onecall_walk``;
-               #4, #5, #9 and #10 at head_dim 256 and 640, #5 at
-               384 and 512; #3 by route at 1-256 rows over the four 8B
+               #4, #5, #9 and #10 at head_dim 256, 384, 512 and 640, and
+               #5 and #10 at head_dim 512 with the 8B's 32/8 heads (#5 over
+               a fresh 2048-row window, #10 over bf16, INT8 and f32 pools
+               at B=8, S=16); #3 by route at 1-256 rows over the four 8B
                projections, the CUDA-core, mma and tensor-core routes side
                by side at 1, 2, 3, 4, 8 and 16 rows and the row kernel at 1,
                the measurement behind ``qmatmul.MMA_MIN_ROWS`` and
@@ -128,11 +130,13 @@ Phases, in order; any failure exits non-zero before the final line:
 Optional phases, run only when named: ``exact`` (exact mode's two paths
 alone), ``decode`` (#1-#3 at one row and #4 at B=1 by route, with each
 kernel's device time from torch.profiler, and the b=1 per-layer INT8 and
-INT4 steps' device time) and ``window`` (#10's 8B cases and its head_dim-256
+INT4 steps' device time), ``window`` (#10's 8B cases and its head_dim-256
 and -640 cases, #4 over an INT8 cache, the one-launch decode kernel's error
 over #4's card-test grids, and the prefix-cache path's TTFT and its
 continued windows' device time split into #10, the merge glue and the
-rest), each for comparing two trees in one call.
+rest) and ``heads`` (the kernels phase's head_dim rows alone: #4, #5, #9,
+#10 at 256-640 and the 32/8-head rows at 512), each for comparing two trees
+in one call.
 
 Output: one JSON object per line.  The second-to-last lines hold the kernel
 table and the serve, tp and probes phases' numbers
@@ -159,7 +163,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 DEV = "cuda"
 PHASES = ("build", "kernels", "probes", "e2e", "serve", "cli", "tp", "parity")
-OPTIONAL_PHASES = ("exact", "decode", "window")  # run only when named: subsets for comparing two trees in one call
+OPTIONAL_PHASES = ("exact", "decode", "window", "heads")  # run only when named: subsets for comparing two trees in one call
 
 # Published peaks of one H100 SXM (dense): the denominators of bound_ms.
 HBM_BYTES_PER_S = 3.35e12
@@ -730,13 +734,17 @@ def rows_cols_cases(torch, ctx) -> list[dict]:
 
 
 def head_dim_cases(torch, ctx) -> list[dict]:
-    """#4, #5, #9 and #10 at head_dim 256 and 640 (small shapes: 2 kv heads of
-    4 query heads, 8 requests at mixed positions over a 1024-row cache or a
-    page-128 pool; past 512 the column-blocked kernels), and #5 at head_dim
-    384 and 512 (its wide kernel) and 640 (its streaming kernel) over a fresh
-    1000-row window, the same heads, each against its plain version with the
-    tolerance of its head_dim-128 cases."""
-    return _head_dim_cases(torch, ctx, 256, (256, 384, 512)) + _head_dim_cases(torch, ctx, 640, (640,))
+    """#4, #5, #9 and #10 at head_dim 256, 384, 512 and 640 (small shapes: 2 kv
+    heads of 4 query heads, 8 requests at mixed positions over a 1024-row
+    cache or a page-128 pool; #5 over a fresh 1000-row window), each against
+    its plain version with the tolerance of its head_dim-128 cases, then the
+    full-width rows of #5 and #10 at head_dim 512 (``wide_head_dim_cases``).
+    Past 256: #5's and #10's kernels past 256, #4's and #9's two-pass
+    kernels (column-blocked past 512).  Every entry point here is one that
+    older trees have too, so that ``--phases build,heads`` times an older
+    checkout's kernels at the same cases."""
+    return ([row for hd in (256, 384, 512, 640) for row in _head_dim_cases(torch, ctx, hd, (hd,))]
+            + wide_head_dim_cases(torch, ctx))
 
 
 def _head_dim_cases(torch, ctx, hd: int, prefill_hds, labels: bool = True) -> list[dict]:
@@ -786,7 +794,7 @@ def _head_dim_cases(torch, ctx, hd: int, prefill_hds, labels: bool = True) -> li
                     nbytes, b_ms, b_by, lib_ms, "F.scaled_dot_product_attention, K/V prepared beforehand"))
     del k_all, v_all, kk, vv
 
-    # #5 over a fresh 1000-row window; at 384 and 512 its wide kernel, past 512 its streaming one.
+    # #5 over a fresh 1000-row window.
     s = 1000
     for phd in prefill_hds:
         qp = torch.randn(1, s, h, phd, generator=gen, device=DEV).to(torch.bfloat16)
@@ -1152,14 +1160,15 @@ def prefill_attention_cases(torch, ctx) -> list[dict]:
     return out
 
 
-def _paged_inputs(torch, gen, pool, pos_list, n_layers_min=2):
-    """An 8B-shaped page pool (page 128, ctx 4096) with random rows, layers
-    enough that the touched pages of each launch are cold in L2, and one
-    shuffled table of disjoint pages per request."""
+def _paged_inputs(torch, gen, pool, pos_list, n_layers_min=2, head_dim=None):
+    """An 8B-shaped page pool (page 128, ctx 4096; head_dim ``head_dim``
+    where given) with random rows, layers enough that the touched pages of
+    each launch are cold in L2, and one shuffled table of disjoint pages per
+    request."""
     from qwen3_rs_tpu_torch.testing import paged_read_bytes, qwen3_config
 
     c = qwen3_config("8b")
-    page, max_pages, n_kv, hd = 128, 4096 // 128, c.n_kv_heads, c.head_dim
+    page, max_pages, n_kv, hd = 128, 4096 // 128, c.n_kv_heads, head_dim or c.head_dim
     b = len(pos_list)
     n_pages = 1 + b * max_pages
     esz = {"f32": 4, "bf16": 2, "int8": 1}[pool]
@@ -1195,6 +1204,63 @@ def _gathered(torch, k, v, sc, table, pos_list, layer):
         kc = kc * rows(sc["k_scale_pool"])[..., None]
         vc = vc * rows(sc["v_scale_pool"])[..., None]
     return kc, vc
+
+
+def _sdpa_backend(torch, q, k, v) -> str:
+    """The backend that ``F.scaled_dot_product_attention(q, k, v,
+    is_causal=True)`` takes for these inputs, by name (torch's own choice,
+    read through its private ``_fused_sdp_choice``)."""
+    from torch.nn.attention import SDPBackend
+
+    try:
+        return SDPBackend(torch._fused_sdp_choice(q, k, v, None, 0.0, True)).name
+    except (AttributeError, TypeError, ValueError, RuntimeError) as e:
+        return f"not named ({type(e).__name__})"
+
+
+def wide_head_dim_cases(torch, ctx) -> list[dict]:
+    """#5 and #10 at head_dim 512 with the 8B's head counts (32 query heads
+    over 8 kv heads): #5 over a fresh 2048-row window, its library call on
+    heads expanded beforehand (the backend torch picks named); #10 at B=8,
+    S=16 (R=64 a kv head) at the kernel table's mixed positions over bf16,
+    INT8 and f32 pools of page 128 (one layer's bf16 pool ~0.54 GB)."""
+    import torch.nn.functional as F
+
+    from qwen3_rs_tpu_torch.ops.kernels.prefill_attention import (
+        causal_prefill_attention,
+        causal_prefill_attention_plain,
+    )
+    from qwen3_rs_tpu_torch.testing import qwen3_config
+
+    c = qwen3_config("8b")
+    h, n_kv, hd, s = c.n_heads, c.n_kv_heads, 512, 2048
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(2468)
+    q, k, v = (torch.randn(1, s, heads, hd, generator=gen, device=DEV).to(torch.bfloat16) for heads in (h, n_kv, n_kv))
+    got = causal_prefill_attention(q, k, v).float()
+    ref = causal_prefill_attention_plain(q, k, v).float()
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    excess = float(((got - ref).abs() - 2.0**-7 * ref.abs()).max())
+    need(math.isfinite(err) and excess <= 1e-5, f"causal_prefill_attention head_dim {hd} S={s}: off by more than a bf16 step")
+    ms = device_ms(torch, lambda i: causal_prefill_attention(q, k, v))
+    plain_ms = device_ms(torch, lambda i: causal_prefill_attention_plain(q, k, v), reps=5, warmup=1)
+    qt = q.transpose(1, 2).contiguous()
+    kx, vx = (t.repeat_interleave(h // n_kv, dim=2).transpose(1, 2).contiguous() for t in (k, v))
+    lib_ms = device_ms(torch, lambda i: F.scaled_dot_product_attention(qt, kx, vx, is_causal=True))
+    backend = _sdpa_backend(torch, qt, kx, vx)
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    b_ms, b_by = bound(nbytes, 4.0 * (s * (s + 1) // 2) * hd * h, "bf16")
+    out = [_row(ctx, "causal_prefill_attention", f"head_dim {hd}, {h}/{n_kv} heads, fresh window S={s}",
+                "qwen3_rs_tpu_torch/csrc/prefill_attention.cu",
+                "qwen3_rs_tpu/ops/pallas/prefill_attention.py:87 causal_prefill_attention",
+                {"B": 1, "S": s, "heads": h, "kv_heads": n_kv, "hd": hd}, err, "2^-7 * |ref| + 1e-5 per element",
+                ms, plain_ms, nbytes, b_ms, b_by, lib_ms,
+                f"F.scaled_dot_product_attention is_causal on heads expanded beforehand ({backend})")]
+    del q, k, v, qt, kx, vx, got, ref
+    torch.cuda.empty_cache()
+    return out + paged_window_cases(torch, ctx, plan=False, hd=hd, cases=(("bf16", 16), ("int8", 16), ("f32", 16)),
+                                    source=True)
 
 
 def paged_decode_source(hd: int, page: int) -> str:
@@ -1287,12 +1353,17 @@ def paged_window_source(hd: int, page: int, dtype) -> str:
     return f"qwen3_rs_tpu_torch/csrc/{'paged_decode' if window_split_takes(hd, page, dtype) else 'paged_attention'}.cu"
 
 
-def paged_window_cases(torch, ctx, plan: bool = True) -> list[dict]:
+def paged_window_cases(torch, ctx, plan: bool = True, hd: int | None = None,
+                       cases=(("bf16", 32), ("int8", 32), ("bf16", 4), ("int8", 4), ("f32", 32), ("f32", 4)),
+                       source: bool | None = None) -> list[dict]:
     """Paged window partials (#10) at 8B shapes: S = 32 (R = 128 query rows
     per kv head) and S = 4 at mixed positions, 0 included, over bf16, INT8
-    and f32 pools; with ``plan`` (this tree's entry points) the plan the
+    and f32 pools (or ``cases``, at head_dim ``hd`` with the 8B's heads); with
+    ``plan`` (this tree's entry points) the plan the
     window kernel's blocks make, read back against ``window_units``, and
-    each row's source.  The products' bound: bf16 and INT8 pools at 989
+    each row's source (``source``: the source alone, named by
+    ``window_split_takes``, which trees with the one-launch window kernel
+    have).  The products' bound: bf16 and INT8 pools at 989
     TFLOP/s once; an f32 pool at the rate of the unit its kernel runs them
     on, times their terms (``window_split_takes``: the tensor cores, three
     bf16 terms; else the CUDA cores at 67 TFLOP/s, once)."""
@@ -1307,9 +1378,9 @@ def paged_window_cases(torch, ctx, plan: bool = True) -> list[dict]:
     gen.manual_seed(8642)
     pos_list = [0, 1, 127, 128, 512, 1000, 2049, 4064]
     out = []
-    for pool, s in (("bf16", 32), ("int8", 32), ("bf16", 4), ("int8", 4), ("f32", 32), ("f32", 4)):
-        c, nl, k, v, sc, table, pos, esz = _paged_inputs(torch, gen, pool, pos_list)
-        b, h, n_kv, hd = len(pos_list), c.n_heads, c.n_kv_heads, c.head_dim
+    for pool, s in cases:
+        c, nl, k, v, sc, table, pos, esz = _paged_inputs(torch, gen, pool, pos_list, head_dim=hd)
+        b, h, n_kv, hd = len(pos_list), c.n_heads, c.n_kv_heads, k.shape[-1]
         r = s * (h // n_kv)
         q = torch.randn(b, s, h, hd, generator=gen, device=DEV)
         ref = paged_window_partials_plain(q, k, v, table, pos, 1, **sc)
@@ -1335,8 +1406,8 @@ def paged_window_cases(torch, ctx, plan: bool = True) -> list[dict]:
             del one, ctl
         if plan:  # the plan the window kernel's blocks made from the positions, against window_units
             grid = pa.window_split_grid(q.device, k.dtype, hd, b, n_kv, r)
-            units = pa.paged_window_kernel_plan(pos, n_kv, r, 128, table.shape[1], grid)
-            need(units == pa.window_units(pos_list, n_kv, r, 128, table.shape[1], grid),
+            units = pa.paged_window_kernel_plan(pos, n_kv, r, 128, table.shape[1], grid, hd)
+            need(units == pa.window_units(pos_list, n_kv, r, 128, table.shape[1], grid, hd),
                  f"paged_window_partials {pool} S={s}: the kernel's plan differs from window_units")
             emit({"phase": "kernels", "paged_window_plan": f"{pool} pool B={b} S={s} (R={r})", "grid": grid,
                   "units": len(units), "paged_window_phases_us": pa.paged_window_phases(q, k, v, table, pos, 1, **sc)})
@@ -1362,8 +1433,9 @@ def paged_window_cases(torch, ctx, plan: bool = True) -> list[dict]:
         else:
             b_ms, b_by = bound(nbytes, ops, "f32")  # the two-pass kernels' CUDA cores
         out.append(_row(
-            ctx, "paged_window_partials", f"{pool} pool B={b} S={s} (R={r})",
-            paged_window_source(hd, 128, k.dtype) if plan else None,
+            ctx, "paged_window_partials", (f"head_dim {hd}, {h}/{n_kv} heads, " if hd != 128 else "")
+            + f"{pool} pool B={b} S={s} (R={r})",
+            paged_window_source(hd, 128, k.dtype) if (plan if source is None else source) else None,
             "qwen3_rs_tpu/ops/pallas/paged_attention.py:437 paged_gqa_window_stacked (_partials_kernel :287)",
             {"B": b, "S": s, "R": r, "heads": h, "kv_heads": n_kv, "hd": hd, "page": 128, "pos": pos_list},
             err, tol, ms, plain_ms, nbytes, b_ms, b_by, lib_ms,
@@ -1829,6 +1901,14 @@ def phase_window(torch, ctx) -> None:
     cfg, weights, _ = model_8b(torch, ctx)
     ctx["window"]["prefix_cache"] = serve_prefix_path(torch, ctx, cfg, weights)
     ctx["window"]["prefix_windows"] = prefix_window_breakdown(torch, ctx, cfg, weights)
+
+
+def phase_heads(torch, ctx) -> None:
+    """The attention kernels' head_dim rows alone (``--phases build,heads``):
+    ``head_dim_cases`` through entry points every tree of the port has, so
+    that this file, copied into an older checkout, times that checkout's
+    kernels at the same cases in the same call."""
+    ctx["heads"] = head_dim_cases(torch, ctx)
 
 
 def phase_kernels(torch, ctx) -> None:
@@ -4350,7 +4430,7 @@ def main(argv=None) -> int:
             else:
                 {"e2e": phase_e2e, "serve": phase_serve, "cli": phase_cli, "tp": phase_tp,
                  "parity": phase_parity, "exact": phase_exact, "decode": phase_decode,
-                 "window": phase_window}[name](torch, ctx)
+                 "window": phase_window, "heads": phase_heads}[name](torch, ctx)
             emit({"phase": name, "done": True, "seconds": time.perf_counter() - t0})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

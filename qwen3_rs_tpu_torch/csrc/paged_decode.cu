@@ -1,11 +1,14 @@
-// Paged attention for Hopper (sm_90a) at head_dim 128 and 256, one launch a call: the decode kernel
-// and the window kernel.
+// Paged attention for Hopper (sm_90a), one launch a call: the decode kernel and the window kernel at
+// head_dim 128 and 256, and the window kernel past 256 (paged_window_wide_kernel, every multiple of
+// 128).
 //
 // Replaces the reference package's Pallas kernels
 //   qwen3_rs_tpu/ops/pallas/paged_attention.py::paged_gqa_decode_stacked   (paged_decode_kernel)
-//   qwen3_rs_tpu/ops/pallas/paged_attention.py::paged_gqa_window_stacked   (paged_window_kernel: its
-//                                                                           _partials_kernel)
-// at these head_dims (paged_attention.cu keeps the two-pass kernels for the others).  The pool of one layer is [P, n_kv, page, hd]; cache row t of request b lives in
+//   qwen3_rs_tpu/ops/pallas/paged_attention.py::paged_gqa_window_stacked   (paged_window_kernel and
+//                                                                           paged_window_wide_kernel:
+//                                                                           its _partials_kernel)
+// at these head_dims (paged_attention.cu keeps the two-pass kernels for the decode's other head_dims
+// and for pages that are not a multiple of 16 rows).  The pool of one layer is [P, n_kv, page, hd]; cache row t of request b lives in
 // page table[b, t / page] at page row t % page, and only rows t < pos[b] are valid.  INT8 pools: the
 // per-row K scale multiplies the score, the V scale the probability after l takes it.
 //  * decode: for request b and kv head h the kv_mul query heads of h (pre-scaled by 1/sqrt(hd))
@@ -109,6 +112,10 @@ struct Args {
   // and l [B, n_kv, R].
   int R, S;
   float *out_m, *out_l;
+  // The window kernel past head_dim 256: the head_dim, and each block's scratch for its q tile's bf16
+  // hi and lo terms [grid][hd / 64 bands][2 terms][64 rows x 128 bytes].
+  int hd;
+  uint8_t* ws_q;
 };
 
 // One block's share: request b, kv head h, head tile `tile`, split s of n_s, rows [lo, hi); slot:
@@ -1388,6 +1395,504 @@ paged_window_kernel(const __grid_constant__ Args a) {
   }
 }
 
+// ---------------------------------------------------------------- the window kernel past 256
+// paged_window_wide_kernel: the window kernel at every head_dim past 256 (a multiple of 128), one
+// instance a pool type.  One warpgroup's f32 O for a 64-row tile is hd / 2 registers a thread, so the
+// output's columns are cut into slices of 256 (kWideCols; the last one 128 wide where 256 does not
+// divide hd), one slice a block: the plan's tiles are the row tiles times the slices, and every split
+// of a (request, kv head, row tile) is taken once a slice.  The block keeps the window kernel's shape,
+// the producer warp and one consumer warpgroup, and computes the tile's scores once, over the whole
+// head, by 64-column bands:
+//  * q's terms do not fit in shared memory beside the ring past 256 (64 rows by hd in two bf16 terms
+//    is 256 hd bytes), so the warpgroup writes them once, scaled and in wgmma's swizzled layout, to
+//    the block's slot of a global scratch, and the producer copies each band's two terms (16 KB, one
+//    bulk copy, from L2) into the ring slot that holds the K band of a stage (a TMA box of 16 rows by
+//    64 columns; the maps of the wide kernel have 64-element boxes: 128-byte swizzle for bf16, none
+//    for INT8 and f32 rows).  Measured and not kept: q resident in shared memory where the block
+//    still fits (bf16 pools up to head_dim 512), 4-6% faster, a second instance of each kernel;
+//  * S = Q . K^T band by band (m64n64k16, m64n32k16 over an f32 pool; q lo then q hi against K, an f32
+//    pool's three terms), an INT8 or f32 band converted to bf16 (hi and lo) in its slot first, band
+//    c's products issued while band c - 1's finish, each slot released once its products are done,
+//    the ring as deep as the block's shared memory allows (6, 5 and 4 slots over bf16, INT8 and f32
+//    pools; 4 slots and a wait after each band were 2-12% slower).  Measured and not kept: L2 cache
+//    hints (q's copies kept, K and V evicted first), within 2%;
+//  * then, as below 256, the online softmax in registers and O += P . V with P's terms as the
+//    register operand (m64n256k16), V from a stage that holds the slice's 256 columns of the stage's
+//    rows (an INT8 or f32 stage converted once into a bf16 stage, then released); the partial, the
+//    workspace slots, the counters and the last block's merge are the window kernel's, each slice
+//    its own columns.
+// The scores of a tile are computed once a slice (2, 2 and 3 times at head_dim 384, 512 and 640):
+// K is read once a slice, V once.  Past 256 the grid is two waves where one split a unit fills more
+// than half a wave (window_grid): one wave held one split per (request, kv head, slice) at the 8B's
+// heads, and the longest request's split was the launch (64 stages at position 4064).
+constexpr int kWideCols = 256;                     // output columns of a block past 256
+constexpr int kQTermBand = kRowTile * kBandBytes;  // one 64-column band of one q term: 8 KB
+
+// Column slices of a window head: one up to 256, else ceil(hd / 256).
+__host__ __device__ inline int win_slices(int hd) { return hd <= 256 ? 1 : (hd + kWideCols - 1) / kWideCols; }
+
+// The layout of the kernel past 256 for a pool of T: the barriers, the unit and the split's flag in
+// the first kHead bytes, then from the next 1024-byte boundary the ring (each slot: q's hi and lo
+// band, the stage's raw K band, its bf16 term(s) for INT8 and f32), the V stages (the slice's raw
+// columns, then INT8's K and V row scales) and the converted V stage (INT8 and f32).
+template <typename T>
+struct WideSmem {
+  static constexpr int kEsz = Pool<T>::kEsz;
+  static constexpr bool kF32 = kEsz == 4, kI8 = kEsz == 1;
+  static constexpr int kT = win_rows<T>();                                   // cache rows of a stage
+  static constexpr int kTerms = kF32 ? 2 : kI8 ? 1 : 0;                      // bf16 terms of a converted band
+  static constexpr int kRowBytes = 64 * kEsz;                                // a raw row of a 64-column band
+  static constexpr int kRawBand = kT * kRowBytes;
+  static constexpr int kConvBand = kTerms * kT * kBandBytes;
+  static constexpr int kSlot = 2 * kQTermBand + kRawBand + kConvBand;
+  static constexpr int kSlots = kF32 ? 4 : kI8 ? 5 : 6;  // as many as fit: 230,656 / 212,224 / 214,272 bytes
+  static constexpr int kRawV = kWideCols / 64 * kRawBand;
+  static constexpr int kVStage = (kRawV + (kI8 ? 2 * kT * 4 : 0) + 1023) / 1024 * 1024;
+  static constexpr int kVStages = 2;
+  static constexpr int kConvV = kTerms * (kWideCols / 64) * kT * kBandBytes;
+  static constexpr int kHead = 256;
+  static constexpr int kUnit = 2 * (kSlots + kVStages) * 8 + 16, kFlag = kUnit + sizeof(Unit);
+  static constexpr int kV = kSlots * kSlot, kCV = kV + kVStages * kVStage;
+  static constexpr int kBytes = kHead + 1024 + kCV + kConvV;
+  static_assert(kSlot % 1024 == 0 && kRawBand % 1024 == 0 && kFlag + 4 <= kHead, "the layout's alignment");
+  static_assert(kBytes <= 227 * 1024, "a block's shared memory");
+  // The mbarriers: a slot's full and empty, a V stage's full and empty.
+  __device__ static uint32_t full(uint32_t bars, int i) { return bars + 8 * i; }
+  __device__ static uint32_t empty(uint32_t bars, int i) { return bars + 8 * (kSlots + i); }
+  __device__ static uint32_t vfull(uint32_t bars, int i) { return bars + 8 * (2 * kSlots + i); }
+  __device__ static uint32_t vempty(uint32_t bars, int i) { return bars + 8 * (2 * kSlots + kVStages + i); }
+};
+
+// Rows of a raw INT8 or f32 band (kRowBytes a row, no swizzle) into bf16 term bands (f32: hi, and lo
+// `term` bytes after it) in the swizzled layout wgmma reads; rows at or past n zero.  `boxes` 64-column
+// boxes, the raw and converted boxes kT rows apart; the warpgroup's 128 threads.
+template <typename T>
+__device__ __forceinline__ void convert_band(const uint8_t* raw, uint8_t* conv, int n, int boxes, int term) {
+  using L = WideSmem<T>;
+  constexpr int KT = L::kT;
+  const int tid = threadIdx.x;
+  if constexpr (L::kI8) {
+    for (int k = tid; k < boxes * KT * 4; k += 128) {  // (box, row, 16 codes)
+      const int bx = k / (KT * 4), row = k / 4 % KT, c = k % 4;
+      uint32_t xw[4] = {0x80808080u, 0x80808080u, 0x80808080u, 0x80808080u};  // codes 0 after the flip
+      if (row < n) {
+        const uint4 x = *reinterpret_cast<const uint4*>(raw + bx * L::kRawBand + row * L::kRowBytes + 16 * c);
+        xw[0] = x.x ^ 0x80808080u, xw[1] = x.y ^ 0x80808080u, xw[2] = x.z ^ 0x80808080u, xw[3] = x.w ^ 0x80808080u;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)  // bf16 chunk 2 c + h: codes 8 h .. 8 h + 7
+        *reinterpret_cast<uint4*>(conv + bx * KT * kBandBytes + swz(row, 2 * c + h)) =
+            make_uint4(i8_pair<0, 1>(xw[2 * h]), i8_pair<2, 3>(xw[2 * h]), i8_pair<0, 1>(xw[2 * h + 1]),
+                       i8_pair<2, 3>(xw[2 * h + 1]));
+    }
+  } else {
+    for (int k = tid; k < boxes * KT * 16; k += 128) {  // (box, row, 4 columns from 4 c)
+      const int bx = k / (KT * 16), row = k / 16 % KT, c = k % 16;
+      const float4 x = row < n ? *reinterpret_cast<const float4*>(raw + bx * L::kRawBand + row * L::kRowBytes + 16 * c)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+      uint32_t p01[2], p23[2];
+      split_terms<2>(x.x, x.y, p01);
+      split_terms<2>(x.z, x.w, p23);
+      uint8_t* d = conv + bx * KT * kBandBytes + swz(row, c >> 1) + 8 * (c & 1);
+      *reinterpret_cast<uint2*>(d) = make_uint2(p01[0], p23[0]);
+      *reinterpret_cast<uint2*>(d + term) = make_uint2(p01[1], p23[1]);
+    }
+  }
+}
+
+// The producer of the kernel past 256 (one thread): for each stage, each band's slot (q's two terms
+// by one bulk copy from the block's scratch, the stage's K band by TMA boxes of 16 rows), then the V
+// stage (the slice's boxes that lie inside the head; INT8: the K and V row scales).
+template <typename T>
+__device__ void produce_wide(const Args& a, const Unit& u, uint8_t* ring, uint8_t* vring, uint32_t bars,
+                             const uint8_t* qs, int col0, int ncols) {
+  using L = WideSmem<T>;
+  const int nb = a.hd / 64;
+  const int* tab = a.table != nullptr ? a.table + (long)u.b * a.max_pages : nullptr;
+  int slot = 0, vs = 0;
+  uint32_t ph = 0, vph = 0;
+  for (int t = u.lo; t < u.hi;) {
+    const int n = stage_rows<L::kT>(a, u, t), r0 = t % a.page;
+    const int slab = (tab != nullptr ? __ldg(tab + t / a.page) : u.b) * a.n_kv + u.h;
+    const int nbox = (n + kBox - 1) / kBox;
+    const uint32_t box_bytes = kBox * L::kRowBytes;
+    for (int c = 0; c < nb; ++c) {
+      mbar_wait(L::empty(bars, slot), ph ^ 1u);
+      const uint32_t full = L::full(bars, slot), dst = smem_u32(ring + slot * L::kSlot);
+      mbar_expect_tx(full, 2 * kQTermBand + nbox * box_bytes);
+      bulk_copy(dst, qs + (long)c * 2 * kQTermBand, 2 * kQTermBand, full);
+      for (int j = 0; j < nbox; ++j)
+        tma_box(dst + 2 * kQTermBand + j * box_bytes, &a.kmap, full, c * 64, r0 + j * kBox, slab);
+      if (++slot == L::kSlots) slot = 0, ph ^= 1u;
+    }
+    mbar_wait(L::vempty(bars, vs), vph ^ 1u);
+    const uint32_t vfull = L::vfull(bars, vs), vdst = smem_u32(vring + vs * L::kVStage);
+    const int boxes = ncols / 64, srows = (n + 3) & ~3;
+    mbar_expect_tx(vfull, boxes * nbox * box_bytes + (L::kI8 ? 2 * srows * 4 : 0));
+    for (int cb = 0; cb < boxes; ++cb)
+      for (int j = 0; j < nbox; ++j)
+        tma_box(vdst + cb * L::kRawBand + j * box_bytes, &a.vmap, vfull, col0 + cb * 64, r0 + j * kBox, slab);
+    if constexpr (L::kI8) {
+      bulk_copy(vdst + L::kRawV, a.ks + ((long)slab * a.page + r0), srows * 4, vfull);
+      bulk_copy(vdst + L::kRawV + L::kT * 4, a.vs + ((long)slab * a.page + r0), srows * 4, vfull);
+    }
+    if (t == u.lo) stamp(a, 2);
+    if (++vs == L::kVStages) vs = 0, vph ^= 1u;
+    t += n;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWinThreads)
+paged_window_wide_kernel(const __grid_constant__ Args a) {
+  using L = WideSmem<T>;
+  constexpr bool kI8 = L::kI8, kF32 = L::kF32;
+  constexpr int KT = L::kT, W = kWinWarps, NT = W * 32;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const uint32_t bars = smem_u32(smem);
+  Unit& unit = *reinterpret_cast<Unit*>(smem + L::kUnit);
+  int& flag = *reinterpret_cast<int*>(smem + L::kFlag);
+  uint8_t* base = smem + L::kHead;
+  base += (1024 - (smem_u32(base) & 1023)) & 1023;  // the swizzle's pattern repeats every 1024 bytes
+  uint8_t* ring = base;
+  uint8_t* vring = base + L::kV;
+  uint8_t* convv = base + L::kCV;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int hd = a.hd, nb = hd / 64, slices = win_slices(hd);
+  const int tiles = (a.R + kRowTile - 1) / kRowTile * slices;
+  if (tid == 0) stamp(a, 0);
+  if (warp == 0) {
+    Unit u;
+    const bool ok = plan_unit(a, tiles, kWinMinSpan / kBox, blockIdx.x, u);
+    if (lane == 0) {
+      unit = u;
+      flag = ok;
+      for (int i = 0; i < L::kSlots; ++i) {
+        mbar_init(L::full(bars, i), 1);
+        mbar_init(L::empty(bars, i), W);
+      }
+      for (int i = 0; i < L::kVStages; ++i) {
+        mbar_init(L::vfull(bars, i), 1);
+        mbar_init(L::vempty(bars, i), W);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+  } else if (warp == W && lane < 2) {
+    asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(lane ? &a.vmap : &a.kmap)) : "memory");
+  }
+  __syncthreads();
+  if (tid == 0) stamp(a, 1);
+  if (!flag) return;
+  const Unit u = unit;
+  const int rt = u.tile / slices, sl = u.tile % slices;
+  const int col0 = sl * kWideCols, ncols = min(kWideCols, hd - col0);
+  const long bh = (long)u.b * a.n_kv + u.h;
+  const int r0 = rt * kRowTile, rows = min(kRowTile, a.R - r0);
+  uint8_t* qs = a.ws_q + (long)blockIdx.x * kRowTile * hd * 4;  // this block's q terms
+
+  // The tile's q rows, scaled, as bf16 hi and lo (rows past R zero) into the scratch, 16 loads of 16
+  // bytes in flight a thread; then ordered before the producer's bulk copies read them.
+  if (warp < W) {
+    auto q_row = [&](int r) {  // row r0 + r = (mul, s) of the tile's kv head
+      const int mul = (r0 + r) / a.S, sq = (r0 + r) % a.S;
+      return a.q + (((long)u.b * a.S + sq) * a.n_kv * a.kv_mul + (long)u.h * a.kv_mul + mul) * hd;
+    };
+    const int vecs = kRowTile * hd / 4;  // 16-byte pieces of the tile: a multiple of 16 * NT
+    for (int k0 = tid; k0 < vecs; k0 += 16 * NT) {
+      float4 x[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int k = k0 + j * NT, r = k / (hd / 4);
+        x[j] = r < rows ? __ldg(reinterpret_cast<const float4*>(q_row(r)) + k % (hd / 4)) : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int k = k0 + j * NT, r = k / (hd / 4), c = k % (hd / 4) * 4;  // columns c .. c + 3
+        uint32_t p01[2], p23[2];
+        split_terms<2>(x[j].x * a.scale, x[j].y * a.scale, p01);
+        split_terms<2>(x[j].z * a.scale, x[j].w * a.scale, p23);
+        uint8_t* d = qs + (long)(c >> 6) * 2 * kQTermBand + swz(r, (c & 63) >> 3) + (c & 7) * 2;
+        *reinterpret_cast<uint2*>(d) = make_uint2(p01[0], p23[0]);
+        *reinterpret_cast<uint2*>(d + kQTermBand) = make_uint2(p01[1], p23[1]);
+      }
+    }
+    __threadfence();
+    asm volatile("fence.proxy.async.global;\n" ::: "memory");  // read next by the bulk copies
+  }
+  asm volatile("bar.sync 2, %0;\n" ::"r"(kWinThreads) : "memory");
+  if (warp == W) {
+    if (lane == 0) produce_wide<T>(a, u, ring, vring, bars, qs, col0, ncols);
+    return;
+  }
+
+  // This thread's rows of the tile: 16 w + g and 16 w + g + 8 (S's and O's fragments as below 256).
+  const int g = lane >> 2, t4 = lane & 3;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, o[kWideCols / 2];
+#pragma unroll
+  for (int i = 0; i < kWideCols / 2; ++i) o[i] = 0.f;
+  int slot = 0, vs = 0;
+  uint32_t ph = 0, vph = 0;
+  // Stamp 3 (below 256: the first stage landed) here: the warpgroup starts its stages.  Taken inside
+  // the loop, the stamp's branch drew C7520 (wgmma serialized); so did the P.V loop's early exit.
+  if (tid == 0) stamp(a, 3);
+  for (int t = u.lo; t < u.hi;) {
+    const int n = stage_rows<KT>(a, u, t);
+    float s[KT / 2];
+#pragma unroll
+    for (int i = 0; i < KT / 2; ++i) s[i] = 0.f;
+    fence_acc(s);
+    int prev = 0;
+    for (int c = 0; c < nb; ++c) {  // S over the head's bands, band c's products issued while c - 1's finish
+      mbar_wait(L::full(bars, slot), ph);
+      uint8_t* st = ring + slot * L::kSlot;
+      uint8_t* kb = st + 2 * kQTermBand;
+      if constexpr (kI8 || kF32) {
+        convert_band<T>(kb, kb + L::kRawBand, n, 1, KT * kBandBytes);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        consumer_sync(NT);
+        kb += L::kRawBand;
+      }
+      const uint32_t qa = smem_u32(st), ka = smem_u32(kb);
+      wg_fence();
+      // q's lo and hi against K (bf16 and INT8 rows are exact); f32 rows: q lo . K hi, q hi . K lo,
+      // q hi . K hi.  The small terms first.
+      constexpr int kProducts = kF32 ? 3 : 2;
+#pragma unroll
+      for (int pr = 0; pr < kProducts; ++pr) {
+        const int qt_ = pr == 0 ? 1 : 0, kt_ = kF32 && pr == 1 ? 1 : 0;
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          wgmma_ss(s, desc_k(qa + qt_ * kQTermBand + ks * 32), desc_k(ka + kt_ * KT * kBandBytes + ks * 32), 1);
+      }
+      wg_commit();
+      wg_wait1();
+      if (c > 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(L::empty(bars, prev));
+      }
+      prev = slot;
+      if (++slot == L::kSlots) slot = 0, ph ^= 1u;
+    }
+    wg_wait0();
+    fence_acc(s);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(L::empty(bars, prev));
+    mbar_wait(L::vfull(bars, vs), vph);
+    uint8_t* vst = vring + vs * L::kVStage;
+    // The online softmax (INT8: K's row scale on the score before the max, V's on the probability
+    // after l takes it).
+    const float* sc = reinterpret_cast<const float*>(vst + L::kRawV);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < KT / 2; ++i) {
+      const int row = 8 * (i >> 2) + 2 * t4 + (i & 1);
+      const float v = row < n ? (kI8 ? s[i] * sc[row] : s[i]) : -INFINITY;
+      s[i] = v;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], v);
+    }
+    float corr[2], lsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);  // finite: the stage's row 0 is valid
+      corr[h] = expf(m[h] - m_new);
+      m[h] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < KT / 2; ++i) {
+      const int row = 8 * (i >> 2) + 2 * t4 + (i & 1);
+      const float pr = expf(s[i] - m[(i >> 1) & 1]);  // 0 at -inf
+      lsum[(i >> 1) & 1] += pr;
+      s[i] = kI8 ? (row < n ? pr * sc[KT + row] : 0.f) : pr;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + lsum[h];
+#pragma unroll
+    for (int i = 0; i < kWideCols / 8; ++i) {
+      o[4 * i] *= corr[0];
+      o[4 * i + 1] *= corr[0];
+      o[4 * i + 2] *= corr[1];
+      o[4 * i + 3] *= corr[1];
+    }
+    // The stage's V: an INT8 or f32 stage converted to bf16 (hi and lo) and released; a bf16 stage's
+    // rows at or past n zeroed (they may hold anything, NaN included, and wgmma multiplies them by 0).
+    constexpr int kVTerm = kWideCols / 64 * KT * kBandBytes;  // an f32 stage's lo term
+    uint8_t* vb = vst;
+    if constexpr (kI8 || kF32) {
+      convert_band<T>(vst, convv, n, ncols / 64, kVTerm);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      consumer_sync(NT);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(L::vempty(bars, vs));
+      vb = convv;
+    } else if (n < KT) {
+      for (int k = tid; k < (KT - n) * (ncols / 8); k += NT) {  // (row, 16-byte chunk of the slice)
+        const int row = n + k / (ncols / 8), c = k % (ncols / 8);
+        *reinterpret_cast<uint4*>(vst + (c >> 3) * L::kRawBand + row * kBandBytes + ((c & 7) << 4)) =
+            make_uint4(0u, 0u, 0u, 0u);
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      consumer_sync(NT);
+    }
+    // O += P . V: P's hi and lo as wgmma's register operand, one k16 step (16 cache rows) at a time.
+    uint32_t pa[2][KT / 16][4];  // [term][k16 step][fragment]
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        uint32_t x[2];
+        split_terms<2>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], x);
+        pa[0][kk][r] = x[0];
+        pa[1][kk][r] = x[1];
+      }
+    const uint32_t vbase = smem_u32(vb);
+    fence_acc(o);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) {  // P is 0 on rows at or past n, and their V rows are zero
+      const uint64_t dv = desc_mn(vbase + kk * 16 * kBandBytes, KT * kBandBytes);
+      wgmma_rs_mn(o, pa[1][kk], dv);
+      if constexpr (kF32) wgmma_rs_mn(o, pa[0][kk], desc_mn(vbase + kVTerm + kk * 16 * kBandBytes, KT * kBandBytes));
+      wgmma_rs_mn(o, pa[0][kk], dv);
+    }
+    wg_commit();
+    wg_wait0();
+    fence_acc(o);
+    if constexpr (kI8 || kF32) {
+      consumer_sync(NT);  // the converted stage is rewritten by the next one
+    } else {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(L::vempty(bars, vs));
+    }
+    if (++vs == L::kVStages) vs = 0, vph ^= 1u;
+    t += n;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  consumer_sync(NT);
+  if (tid == 0) stamp(a, 4);
+
+  // The split's partial of the slice's columns, straight from the accumulators, to the outputs when
+  // the split is the only one, else to its workspace slot; m and l by slice 0 only (every slice has
+  // the same ones).
+  const bool direct = u.n_s == 1;
+  const long slot_ = u.slot + u.s;
+  float* dst = (direct ? a.out + (bh * a.R + r0) * hd : a.ws_acc + slot_ * kRowTile * hd) + col0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 16 * warp + g + 8 * h;
+    if (r >= rows) continue;
+#pragma unroll
+    for (int i = 0; i < kWideCols / 8; ++i)
+      if (8 * i < ncols)
+        *reinterpret_cast<float2*>(dst + (long)r * hd + 8 * i + 2 * t4) = make_float2(o[4 * i + 2 * h], o[4 * i + 2 * h + 1]);
+    if (t4 == 0) {
+      if (!direct) {
+        a.ws_ml[(slot_ * kRowTile + r) * 2] = m[h];
+        a.ws_ml[(slot_ * kRowTile + r) * 2 + 1] = l[h];
+      } else if (sl == 0) {
+        a.out_m[bh * a.R + r0 + r] = m[h];
+        a.out_l[bh * a.R + r0 + r] = l[h];
+      }
+    }
+  }
+  if (direct) {
+    if (a.stamps != nullptr) {
+      consumer_sync(NT);
+      if (tid == 0) stamp(a, 5);
+    }
+    return;
+  }
+  __threadfence();
+  consumer_sync(NT);
+  if (tid == 0) stamp(a, 5);
+  if (tid == 0) {
+    const int old = atomicAdd(a.counters + u.pair, 1);
+    flag = old == u.n_s - 1;
+    if (flag) a.counters[u.pair] = 0;  // left at zero for the next launch
+  }
+  consumer_sync(NT);
+  if (tid == 0) stamp(a, 6);
+  if (!flag) return;
+  __threadfence();
+  // The last block of the slice: the window kernel's merge (split order, the reference's isfinite
+  // guards) over the slice's columns.
+  const int ns = u.n_s;
+  if (tid < rows) {
+    float* ml = a.ws_ml + (u.slot * kRowTile + tid) * 2;  // split s at ml + s * kRowTile * 2
+    float mm = -INFINITY;
+    for (int s0 = 0; s0 < ns; s0 += 8) {
+      float x[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) x[j] = s0 + j < ns ? __ldcg(ml + (s0 + j) * kRowTile * 2) : -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mm = fmaxf(mm, x[j]);
+    }
+    const bool fin = isfinite(mm);
+    float lv = 0.f;
+    for (int s0 = 0; s0 < ns; s0 += 8) {
+      float2 x[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        x[j] = s0 + j < ns ? __ldcg(reinterpret_cast<const float2*>(ml + (s0 + j) * kRowTile * 2)) : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (s0 + j >= ns) break;
+        const float c = fin ? expf(x[j].x - mm) : 0.f;
+        ml[(s0 + j) * kRowTile * 2] = c;
+        lv = fmaf(x[j].y, c, lv);
+      }
+    }
+    if (sl == 0) {
+      a.out_m[bh * a.R + r0 + tid] = mm;
+      a.out_l[bh * a.R + r0 + tid] = lv;
+    }
+  }
+  __threadfence_block();
+  consumer_sync(NT);
+  constexpr int IT = 4;
+  const int items = rows * ncols / 4;
+  for (int k0 = tid; k0 < items; k0 += IT * NT) {
+    float4 acc[IT];
+#pragma unroll
+    for (int i = 0; i < IT; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s0 = 0; s0 < ns; s0 += 4) {
+      float c[IT][4];
+      float4 p4[IT][4];
+#pragma unroll
+      for (int i = 0; i < IT; ++i) {
+        const int k = min(k0 + i * NT, items - 1), r = k / (ncols / 4), col = col0 + k % (ncols / 4) * 4;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {  // a slot past the last split reloads it and weighs 0
+          const long sl_ = (u.slot + min(s0 + j, ns - 1)) * kRowTile + r;
+          c[i][j] = s0 + j < ns ? __ldcg(a.ws_ml + sl_ * 2) : 0.f;
+          p4[i][j] = __ldcg(reinterpret_cast<const float4*>(a.ws_acc + sl_ * hd + col));
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < IT; ++i)
+          acc[i] = make_float4(fmaf(p4[i][j].x, c[i][j], acc[i].x), fmaf(p4[i][j].y, c[i][j], acc[i].y),
+                               fmaf(p4[i][j].z, c[i][j], acc[i].z), fmaf(p4[i][j].w, c[i][j], acc[i].w));
+    }
+#pragma unroll
+    for (int i = 0; i < IT; ++i) {
+      const int k = k0 + i * NT;
+      if (k >= items) break;
+      *reinterpret_cast<float4*>(a.out + (bh * a.R + r0 + k / (ncols / 4)) * hd + col0 + k % (ncols / 4) * 4) = acc[i];
+    }
+  }
+  if (a.stamps != nullptr) {
+    consumer_sync(NT);
+    if (tid == 0) stamp(a, 7);
+  }
+}
+
 // Each block's unit as paged_decode_kernel's blocks plan it, one warp a block: units [grid, 10] int
 // (planned, b, h, tile, s, n_s, lo, hi, slot, pair; only `planned`, 0, past the last unit).
 __global__ void __launch_bounds__(32) plan_kernel(const __grid_constant__ Args a, int min_boxes, int* units) {
@@ -1435,6 +1940,23 @@ int pool_map(CUtensorMap* map, const void* pool, int slabs, int page, int hd) {
   const CUresult r = fn(map, Pool<T>::kMap, 3, const_cast<void*>(pool), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -(int)r - 1;
+}
+
+// The map of the kernel past 256: boxes of 16 rows by 64 elements, with the 128-byte swizzle for bf16
+// (wgmma reads the box as it lands) and none for INT8 and f32 rows (converted first).
+template <typename T>
+int pool_map_wide(CUtensorMap* map, const void* pool, int slabs, int page, int hd) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  constexpr int esz = Pool<T>::kEsz;
+  const cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)page, (cuuint64_t)slabs};
+  const cuuint64_t strides[2] = {(cuuint64_t)hd * esz, (cuuint64_t)page * hd * esz};
+  const cuuint32_t box[3] = {64, (cuuint32_t)kBox, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(map, Pool<T>::kMap, 3, const_cast<void*>(pool), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, esz == 2 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : -(int)r - 1;
 }
 
@@ -1489,14 +2011,17 @@ int allow_smem(const void* fn, int smem) {
 }
 
 // The window kernel's instance for (pool type, head_dim), its shared memory and threads, or null: f32,
-// bf16 and INT8 pools at head_dim 128 and 256.
+// bf16 and INT8 pools at head_dim 128 and 256, and past 256 (a multiple of 128) the wide kernel.
 template <typename T>
 const void* pick_window_hd(int hd, int* smem, int* threads) {
   *threads = kWinThreads;
   switch (hd) {
     case 128: *smem = WinSmem<T, 128>::kBytes; return reinterpret_cast<const void*>(&paged_window_kernel<T, 128>);
     case 256: *smem = WinSmem<T, 256>::kBytes; return reinterpret_cast<const void*>(&paged_window_kernel<T, 256>);
-    default: return nullptr;
+    default:
+      if (hd < 384 || hd % 128) return nullptr;
+      *smem = WideSmem<T>::kBytes;
+      return reinterpret_cast<const void*>(&paged_window_wide_kernel<T>);
   }
 }
 
@@ -1601,25 +2126,38 @@ extern "C" int paged_window_blocks_per_sm(int cache_type, int hd) {
   return blocks;
 }
 
-// One launch of the window kernel over `grid` blocks (at least B * n_kv * ceil(R / 64)).  q [B, S,
-// n_kv * kv_mul, hd] f32 (unscaled, R = S * kv_mul <= 128), the pool and table as paged_decode_split's (cache_type 0 = f32,
-// 1 = bf16, 2 = int8); ws_ml [grid, 64, 2] and ws_acc [grid, 64, hd] f32 scratch; counters [B * n_kv *
-// ceil(R / 64)] int32, zero (left zero); out_m, out_l [B, n_kv, R] and out_acc [B, n_kv, R, hd] f32;
+// One launch of the window kernel over `grid` blocks (at least B * n_kv * ceil(R / 64) * slices, slices
+// = ceil(hd / 256) past 256, else 1).  q [B, S, n_kv * kv_mul, hd] f32 (unscaled, R = S * kv_mul <= 128), the pool and table as paged_decode_split's (cache_type 0 = f32,
+// 1 = bf16, 2 = int8); ws_ml [grid, 64, 2] and ws_acc [grid, 64, hd] f32 scratch, ws_q [grid, 64 * hd * 4]
+// bytes of scratch past 256 (else unused); counters [B * n_kv * ceil(R / 64) * slices] int32, zero (left
+// zero); out_m, out_l [B, n_kv, R] and out_acc [B, n_kv, R, hd] f32;
 // stamps [grid, 8] int64 or null (the decode kernel's phases).  Returns a cudaError_t, or a tensor map's negated CUresult minus one.
 extern "C" int paged_window_split(const void* q, const void* k, const void* v, const void* ks, const void* vs,
                                   const void* table, const void* pos, int cache_type, int B, int n_kv, int S,
                                   int kv_mul, int n_pages, int page, int max_pages, int hd, float scale, int grid,
-                                  void* ws_ml, void* ws_acc, void* counters, void* out_m, void* out_l,
+                                  void* ws_ml, void* ws_acc, void* ws_q, void* counters, void* out_m, void* out_l,
                                   void* out_acc, void* stamps, void* stream) {
   int smem = 0, threads = 0;
   const void* fn = pick_window(cache_type, hd, &smem, &threads);
   const int R = S * kv_mul;
   if (fn == nullptr || B < 1 || S < 1 || kv_mul < 1 || R > 2 * kRowTile || page % kBox ||
-      grid < B * n_kv * ((R + kRowTile - 1) / kRowTile))
+      grid < B * n_kv * ((R + kRowTile - 1) / kRowTile) * win_slices(hd) ||
+      (hd > 256 && ws_q == nullptr))
     return (int)cudaErrorInvalidValue;
   Args a = {};
-  const int e = pool_args(a, cache_type, k, v, ks, vs, table, pos, B, n_kv, n_pages, page, max_pages, hd);
+  int e = pool_args(a, cache_type, k, v, ks, vs, table, pos, B, n_kv, n_pages, page, max_pages, hd);
+  for (int i = 0; i < 2 && e == 0 && hd > 256; ++i) {  // the wide kernel's maps in their place
+    CUtensorMap* map = i ? &a.vmap : &a.kmap;
+    const void* pool = i ? v : k;
+    switch (cache_type) {
+      case 0: e = pool_map_wide<float>(map, pool, n_pages * n_kv, page, hd); break;
+      case 1: e = pool_map_wide<__nv_bfloat16>(map, pool, n_pages * n_kv, page, hd); break;
+      default: e = pool_map_wide<int8_t>(map, pool, n_pages * n_kv, page, hd); break;
+    }
+  }
   if (e) return e;
+  a.hd = hd;
+  a.ws_q = reinterpret_cast<uint8_t*>(ws_q);
   a.q = reinterpret_cast<const float*>(q);
   a.ws_ml = reinterpret_cast<float*>(ws_ml);
   a.ws_acc = reinterpret_cast<float*>(ws_acc);
@@ -1658,12 +2196,31 @@ extern "C" int paged_decode_plan(const void* pos, int B, int n_kv, int kv_mul, i
   return plan(pos, B, n_kv, kv_mul, qm, page, max_pages, grid, 1, units, stream);
 }
 
-// The window kernel's plan of a launch of `grid` blocks for R rows a kv head: the decode plan with the
-// row tiles (ceil(R / 64)) in place of head tiles and splits of at least kWinMinSpan rows, made by the
-// same device function.
-extern "C" int paged_window_plan(const void* pos, int B, int n_kv, int R, int page, int max_pages, int grid,
-                                 void* units, void* stream) {
-  if (R < 1) return (int)cudaErrorInvalidValue;
-  return plan(pos, B, n_kv, (R + kRowTile - 1) / kRowTile, 1, page, max_pages, grid, kWinMinSpan / kBox, units,
-              stream);
+// The window kernel's plan of a launch of `grid` blocks for R rows a kv head at head_dim hd: the decode
+// plan with the row tiles (ceil(R / 64)) times the column slices (win_slices) in place of head tiles
+// and splits of at least kWinMinSpan rows, made by the same device function.
+extern "C" int paged_window_plan(const void* pos, int B, int n_kv, int R, int hd, int page, int max_pages,
+                                 int grid, void* units, void* stream) {
+  if (R < 1 || hd < 128 || hd % 128) return (int)cudaErrorInvalidValue;
+  return plan(pos, B, n_kv, (R + kRowTile - 1) / kRowTile * win_slices(hd), 1, page, max_pages, grid,
+              kWinMinSpan / kBox, units, stream);
+}
+
+// The layout of the window kernel past 256 for a pool type (0 = f32, 1 = bf16, 2 = int8) into out[6]:
+// cache rows a stage, ring slots, a slot's bytes, V stages, a V stage's bytes, the block's shared
+// memory bytes.  Returns 0, or cudaErrorInvalidValue.
+template <typename T>
+void wide_layout(int* out) {
+  using L = WideSmem<T>;
+  const int v[6] = {L::kT, L::kSlots, L::kSlot, L::kVStages, L::kVStage, L::kBytes};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+}
+
+extern "C" int paged_window_wide_layout(int cache_type, int* out) {
+  switch (cache_type) {
+    case 0: wide_layout<float>(out); return 0;
+    case 1: wide_layout<__nv_bfloat16>(out); return 0;
+    case 2: wide_layout<int8_t>(out); return 0;
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -27,21 +27,26 @@ whole pages brought by TMA, the splits merged by the last block of each
 (request, kv head, head tile).  Its stage compute follows the pool:
 ``mma.sync`` for bf16 and INT8 pools (q and P in two bf16 terms, three for
 an INT8 dense layer: ``bf16_terms``), the CUDA cores for f32 pools, whose
-rows are not exact in bf16.  ``paged_window_partials`` at those shapes, over
-every pool type (``window_split_takes``), is one launch of the window kernel
-of the same source, on the same plan with row tiles of ``WINDOW_ROW_TILE``
-query rows in place of head tiles (``window_units``;
-``paged_window_kernel_plan`` reads the kernel's own): every query row of a
-tile shares each K/V row read, S and P·V on ``wgmma`` with q and P in bf16
-hi + lo (an f32 pool's stage converted to bf16 hi + lo too, each product in
-three terms).  Elsewhere
-both wrappers launch the two-pass kernels of ``csrc/paged_attention.cu``,
-which share their first pass.
+rows are not exact in bf16.  ``paged_window_partials`` over pages of a
+multiple of 16 rows, at every head_dim and over every pool type
+(``window_split_takes``: the window route's own head_dims, wider than the
+decode's), is one launch of the window kernel of the same source, on the
+same plan with row tiles of ``WINDOW_ROW_TILE`` query rows in place of head
+tiles (``window_units``; ``paged_window_kernel_plan`` reads the kernel's
+own): every query row of a tile shares each K/V row read, S and P·V on
+``wgmma`` with q and P in bf16 hi + lo (an f32 pool's stage converted to
+bf16 hi + lo too, each product in three terms).  Past head_dim 256 the
+output's columns are cut into slices of ``WINDOW_WIDE_COLS``
+(``window_slices``; the plan's tiles are the row tiles times the slices), S
+is computed by 64-column bands with q's terms copied from a per-block
+scratch (``window_q_scratch_bytes``), and ``window_wide_layout`` is the
+block's shared memory.  Elsewhere both wrappers launch the two-pass kernels
+of ``csrc/paged_attention.cu``, which share their first pass.
 For a CPU tensor a wrapper runs its plain PyTorch version; for a CUDA tensor
 it launches its kernel or raises.  They take any number of query heads per
 kv head and every head_dim that is a multiple of 128 (``takes_head_dim``;
-past 512 in 128-column blocks); unlike the Pallas kernels they take any page size
-(the JAX gate asks for multiples of 128).
+the two-pass kernels past 512 in 128-column blocks); unlike the Pallas
+kernels they take any page size (the JAX gate asks for multiples of 128).
 """
 
 from __future__ import annotations
@@ -60,6 +65,7 @@ CHUNK = 128  # cache rows per block of the two-pass kernels' first pass
 SPLIT_HEAD_DIMS = (128, 256)  # head_dims of the one-launch decode kernel
 SPLIT_ROWS = 16  # the one-launch kernel's split sizes and page sizes are multiples of it
 WINDOW_ROW_TILE = 64  # query rows a block of the one-launch window kernel takes
+WINDOW_WIDE_COLS = 256  # output columns a block of the window kernel takes past head_dim 256
 WINDOW_MIN_SPAN = 128  # a window split's least rows (2 stages): its partial is WINDOW_ROW_TILE rows by hd
 MAX_WINDOW_ROWS = 128  # the reference's bound on S·kv_mul for the window kernel
 _CACHE_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -260,10 +266,45 @@ def split_kernel_takes(hd: int, page: int) -> bool:
 
 def window_split_takes(hd: int, page: int, dtype) -> bool:
     """Whether ``paged_window_partials`` launches the one-launch window
-    kernel (else the two-pass kernels): the decode kernel's head_dims and
-    pages, over every pool type (an f32 pool's rows, not exact in bf16, go
-    to the tensor cores as bf16 hi and lo, each product in three terms)."""
-    return split_kernel_takes(hd, page) and dtype in _CACHE_TYPES
+    kernel (else the two-pass kernels): every head_dim the kernels take
+    (past 256 in column slices: ``window_slices``), pages of a multiple of
+    ``SPLIT_ROWS``, every pool type (an f32 pool's rows, not exact in bf16,
+    go to the tensor cores as bf16 hi and lo, each product in three
+    terms).  The decode's one-launch kernel keeps ``SPLIT_HEAD_DIMS``."""
+    return takes_head_dim(hd) and page % SPLIT_ROWS == 0 and dtype in _CACHE_TYPES
+
+
+def window_slices(hd: int) -> int:
+    """Column slices of the window kernel at head_dim ``hd``: one up to
+    256, else ``ceil(hd / WINDOW_WIDE_COLS)`` (the last one 128 wide where
+    256 does not divide hd), each a block's share of the output."""
+    return 1 if hd <= 256 else -(-hd // WINDOW_WIDE_COLS)
+
+
+def window_q_scratch_bytes(grid: int, hd: int) -> int:
+    """Bytes of the window kernel's q scratch past head_dim 256: each
+    block's 64 query rows by hd in two bf16 terms (none up to 256)."""
+    return 0 if hd <= 256 else grid * WINDOW_ROW_TILE * hd * 4
+
+
+def window_wide_layout(dtype) -> dict:
+    """The window kernel's shared memory past head_dim 256 for a pool of
+    ``dtype`` (``WideSmem`` in csrc/paged_decode.cu): cache rows a stage (64;
+    f32 32), ring slots (as many as fit: a band of q's two terms, 16 KB,
+    beside the stage's raw K band of 64 columns and, for INT8 and f32, its
+    bf16 terms), V stages (the slice's 256 raw columns; INT8: then the K and
+    V row scales, rounded to 1 KB), and the block's bytes (a 256-byte head,
+    1 KB of alignment, and the converted V stage of INT8 and f32)."""
+    esz = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}[dtype]
+    rows = 32 if esz == 4 else 64
+    terms = {4: 2, 2: 0, 1: 1}[esz]
+    raw_band = rows * 64 * esz
+    slot = 2 * WINDOW_ROW_TILE * 128 + raw_band + terms * rows * 128
+    slots = {4: 4, 2: 6, 1: 5}[esz]
+    vstage = -(-(WINDOW_WIDE_COLS // 64 * raw_band + (2 * rows * 4 if esz == 1 else 0)) // 1024) * 1024
+    conv_v = terms * WINDOW_WIDE_COLS // 64 * rows * 128
+    return {"rows": rows, "slots": slots, "slot_bytes": slot, "vstages": 2, "vstage_bytes": vstage,
+            "smem": 256 + 1024 + slots * slot + 2 * vstage + conv_v}
 
 
 def window_tiles(r: int) -> int:
@@ -272,21 +313,30 @@ def window_tiles(r: int) -> int:
     return -(-r // WINDOW_ROW_TILE)
 
 
-def window_grid(b: int, n_kv: int, r: int, sms: int, blocks_per_sm: int) -> int:
+def window_grid(b: int, n_kv: int, r: int, sms: int, blocks_per_sm: int, hd: int = 128) -> int:
     """Blocks of one launch of the window kernel: as many as the card holds
-    at once, and at least one per (request, kv head, row tile)."""
-    return max(sms * blocks_per_sm, b * n_kv * window_tiles(r))
+    at once, and at least one per (request, kv head, row tile, column
+    slice); past 256, two waves where those units fill more than half of
+    one (one wave would then leave the plan no room to cut a long request
+    into splits: at the 8B's heads the 4064-row request was one block's
+    64 stages; where they fill less, a second wave cost each block its q
+    conversion again and ran slower)."""
+    units = b * n_kv * window_tiles(r) * window_slices(hd)
+    wave = sms * blocks_per_sm
+    return max(2 * wave if hd > 256 and 2 * units > wave else wave, units)
 
 
-def window_units(pos: list[int], n_kv: int, r: int, page: int, max_pages: int, grid: int) -> list[tuple]:
+def window_units(pos: list[int], n_kv: int, r: int, page: int, max_pages: int, grid: int,
+                 hd: int = 128) -> list[tuple]:
     """The window kernel's units, block u taking the u-th: ``decode_units``'
-    plan and layout with the row tiles of ``r`` query rows in place of head
-    tiles and splits of at least ``WINDOW_MIN_SPAN`` rows (a split's
-    partial is a tile of rows by hd: a shorter split costs its block's
-    fixed start and its partial's write and merge more than it saves):
-    (b, kv head, row tile, split, splits, first row, end row, workspace slot
-    of split 0, arrival counter)."""
-    return _units(pos, n_kv, window_tiles(r), page, max_pages, grid, WINDOW_MIN_SPAN)
+    plan and layout with the row tiles of ``r`` query rows times the column
+    slices of head_dim ``hd`` in place of head tiles (tile t is row tile
+    ``t // window_slices(hd)``, slice ``t % window_slices(hd)``) and splits
+    of at least ``WINDOW_MIN_SPAN`` rows (a split's partial is a tile of rows
+    by hd: a shorter split costs its block's fixed start and its partial's
+    write and merge more than it saves): (b, kv head, tile, split, splits,
+    first row, end row, workspace slot of split 0, arrival counter)."""
+    return _units(pos, n_kv, window_tiles(r) * window_slices(hd), page, max_pages, grid, WINDOW_MIN_SPAN)
 
 
 def window_workspace_floats(grid: int, hd: int) -> tuple[int, int]:
@@ -358,12 +408,20 @@ def paged_decode_kernel_plan(pos: torch.Tensor, n_kv: int, kv_mul: int, page: in
 
 
 def paged_window_kernel_plan(pos: torch.Tensor, n_kv: int, r: int, page: int, max_pages: int,
-                             grid: int) -> list[tuple]:
+                             grid: int, hd: int = 128) -> list[tuple]:
     """The plan the window kernel's blocks make from ``pos`` for ``r`` query
-    rows a kv head in a launch of ``grid`` blocks, read back as
-    ``window_units`` gives it (card only)."""
+    rows a kv head at head_dim ``hd`` in a launch of ``grid`` blocks, read
+    back as ``window_units`` gives it (card only)."""
     return _kernel_plan("paged_window_plan", pos, grid, lambda lib, units, stream: lib.paged_window_plan(
-        pos.data_ptr(), pos.shape[0], n_kv, r, page, max_pages, grid, units, stream))
+        pos.data_ptr(), pos.shape[0], n_kv, r, hd, page, max_pages, grid, units, stream))
+
+
+def window_wide_kernel_layout(dtype) -> dict:
+    """``window_wide_layout`` as the kernel's source makes it (card only:
+    the built library's ``paged_window_wide_layout``)."""
+    out = (ctypes.c_int * 6)()
+    build.check(_split_lib().paged_window_wide_layout(_CACHE_TYPES[dtype], out), "paged_window_wide_layout")
+    return dict(zip(("rows", "slots", "slot_bytes", "vstages", "vstage_bytes", "smem"), list(out)))
 
 
 def _kernel_plan(name: str, pos: torch.Tensor, grid: int, call) -> list[tuple]:
@@ -391,7 +449,7 @@ def window_split_grid(dev: torch.device, pool_dtype: torch.dtype, hd: int, b: in
     """Blocks of a one-launch #10 call on ``dev`` (``window_grid`` with the
     card's SMs and the instance's blocks an SM)."""
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    return window_grid(b, n_kv, r, _sm_count(index), _window_blocks_per_sm(index, _CACHE_TYPES[pool_dtype], hd))
+    return window_grid(b, n_kv, r, _sm_count(index), _window_blocks_per_sm(index, _CACHE_TYPES[pool_dtype], hd), hd)
 
 
 @functools.cache
@@ -406,10 +464,12 @@ def _split_lib() -> ctypes.CDLL:
     lib.paged_decode_plan.restype = ctypes.c_int
     lib.paged_window_blocks_per_sm.argtypes = [i, i]
     lib.paged_window_blocks_per_sm.restype = ctypes.c_int
-    lib.paged_window_split.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, i, p, p, p, p, p, p, p, p]
+    lib.paged_window_split.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, i, p, p, p, p, p, p, p, p, p]
     lib.paged_window_split.restype = ctypes.c_int
-    lib.paged_window_plan.argtypes = [p, i, i, i, i, i, i, p, p]
+    lib.paged_window_plan.argtypes = [p, i, i, i, i, i, i, i, p, p]
     lib.paged_window_plan.restype = ctypes.c_int
+    lib.paged_window_wide_layout.argtypes = [i, p]
+    lib.paged_window_wide_layout.restype = ctypes.c_int
     return lib
 
 
@@ -646,13 +706,15 @@ def _window_launch(q, k_pool, ptrs, page_table, pos, outs, stamps) -> int:
     if stamps is not None and stamps.shape != (grid, 8):
         raise ValueError(f"paged_window_partials: stamps must be [{grid}, 8]")
     n_ml, n_acc = window_workspace_floats(grid, hd)
-    ws = torch.empty(n_acc + n_ml, dtype=torch.float32, device=q.device)  # acc first: 16-byte rows
-    counters = _decode_counters(q.device, b * n_kv * window_tiles(r))
+    n_q = window_q_scratch_bytes(grid, hd) // 4
+    ws = torch.empty(n_acc + n_q + n_ml, dtype=torch.float32, device=q.device)  # acc, q terms: 16-byte rows
+    counters = _decode_counters(q.device, b * n_kv * window_tiles(r) * window_slices(hd))
     m, l, acc = outs
     err = _split_lib().paged_window_split(
         q.data_ptr(), k, v, ks, vs, page_table.data_ptr(), pos.data_ptr(), _CACHE_TYPES[k_pool.dtype],
         b, n_kv, s, kv_mul, k_pool.shape[1], k_pool.shape[3], page_table.shape[1], hd, 1.0 / hd**0.5, grid,
-        ws.data_ptr() + n_acc * 4, ws.data_ptr(), counters.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
+        ws.data_ptr() + (n_acc + n_q) * 4, ws.data_ptr(), ws.data_ptr() + n_acc * 4 if n_q else None,
+        counters.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
         None if stamps is None else stamps.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "paged_window_partials")
     LAUNCHES["paged_window_partials"] += 1
@@ -662,7 +724,9 @@ def _window_launch(q, k_pool, ptrs, page_table, pos, outs, stamps) -> int:
 def paged_window_phases(q, k_pool, v_pool, page_table, pos, layer, *, k_scale_pool=None, v_scale_pool=None) -> dict:
     """Where one launch of the window kernel spends its time (card only):
     ``paged_decode_phases``' breakdown from the kernel's clock stamps, after
-    one launch unstamped."""
+    one launch unstamped (past head_dim 256 ``first_stage`` ends when the
+    warpgroup starts its stages, q converted, and ``stages`` runs from
+    there)."""
     ptrs, n_kv, page, _ = _check_pool(
         "paged_window_phases", q, k_pool, v_pool, page_table, pos, layer, k_scale_pool, v_scale_pool)
     if not window_split_takes(q.shape[-1], page, k_pool.dtype):

@@ -13,10 +13,11 @@ more than 256 rows whose shapes pass ``splash_prefill_supported`` (the
 reference package's gate, asked at the window's power-of-two bucket, the
 width the reference engine pads it to).  It takes any number of query heads
 per kv head, and every head_dim that is a multiple of 128
-(``takes_head_dim``; at 128 and 256 a TMA-fed kernel on ``wgmma``, at 384
-and 512 a wide kernel holds q in shared memory and splits the output over
-column blocks, past 512 a streaming kernel reads q and k in 128-column
-pieces).
+(``takes_head_dim``).  Both routes are TMA-fed kernels on ``wgmma``: at 128
+and 256 each warpgroup holds its query rows' whole output; past 256 a block
+of 64 query rows computes the scores once in one warpgroup and shares P
+through shared memory with one warpgroup for each 128-column piece of a
+slice of at most 384 output columns (``wide_plan`` is its shape).
 
 For a CPU tensor the wrapper runs the plain PyTorch version; for a CUDA
 tensor it launches ``csrc/prefill_attention.cu`` or raises.
@@ -34,11 +35,55 @@ from . import LAUNCHES, build
 QUERY_CHUNK = 512  # query rows per step of the plain version (bounds its score tensor)
 _BLOCK = 1024  # the reference splash kernel's default block
 
+# The past-256 kernel's layout (``wide`` in csrc/prefill_attention.cu).
+WIDE_PIECE_COLS = 128  # output columns of a P.V warpgroup
+WIDE_MAX_PV = 3  # P.V warpgroups a block
+WIDE_KEYS = 32  # keys a K/V tile
+WIDE_BOX = WIDE_KEYS * 128  # one 64-column box of a K or V tile (a ring slot)
+WIDE_Q_BAND = 64 * 128  # one 64-column band of the block's 64 query rows
+WIDE_MAX_SLOTS = 16
+WIDE_MAX_V_STAGES = 4
+WIDE_FIXED = 1024 + 2 * WIDE_Q_BAND + 2 * 2 * 64 * 4 + (2 * WIDE_MAX_SLOTS + 2 * WIDE_MAX_V_STAGES + 4) * 8
+SMEM_MAX = 232448  # a block's shared memory on the H100
+
 
 def takes_head_dim(hd: int) -> bool:
     """Whether the kernel takes head_dim ``hd``: every positive multiple of
     128, as the reference's gate admits."""
     return hd > 0 and hd % 128 == 0
+
+
+def wide_plan(hd: int) -> dict:
+    """The past-256 kernel's block at head_dim ``hd`` (``wide::plan_of``):
+    hd/128 column pieces over ``slices`` blocks of ``npv`` P.V warpgroups
+    (the last slice's spare ones idle); q resident in shared memory where it
+    fits (``qres``), else loaded band by band; the most V stages (4 to 1)
+    that leave room for 8 K ring slots of 4 KB (4 at two stages or fewer),
+    and as many slots as the rest holds, at most 16; the block's shared
+    memory bytes (``WIDE_FIXED``: alignment, the two P buffers, their
+    rescale factors and sums, the barriers)."""
+    if hd <= 256 or hd % 128:
+        raise ValueError(f"wide_plan: head_dim {hd} is not a multiple of 128 past 256")
+    pieces = hd // WIDE_PIECE_COLS
+    slices = -(-pieces // WIDE_MAX_PV)
+    npv = -(-pieces // slices)
+    vbytes = npv * 2 * WIDE_BOX
+    for qres in (1, 0):
+        for vstages in range(WIDE_MAX_V_STAGES, 0, -1):
+            qbytes = 64 * hd * 2 if qres else 2 * WIDE_Q_BAND
+            slots = min(WIDE_MAX_SLOTS, (SMEM_MAX - WIDE_FIXED - qbytes - vstages * vbytes) // WIDE_BOX)
+            if slots >= (8 if vstages > 2 else 4):
+                return {"npv": npv, "slices": slices, "qres": qres, "vstages": vstages, "kslots": slots,
+                        "smem": WIDE_FIXED + qbytes + vstages * vbytes + slots * WIDE_BOX}
+    raise AssertionError("q's two bands, four V stages and 16 slots always fit")
+
+
+def wide_kernel_plan(hd: int) -> dict:
+    """``wide_plan`` as the kernel's source makes it (card only: the built
+    library's ``causal_prefill_wide_plan``)."""
+    out = (ctypes.c_int * 6)()
+    build.check(_lib().causal_prefill_wide_plan(hd, out), "causal_prefill_wide_plan")
+    return dict(zip(("npv", "slices", "qres", "vstages", "kslots", "smem"), list(out)))
 
 
 def _effective_block(s: int) -> int:
@@ -91,6 +136,8 @@ def _lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.causal_prefill_attention.argtypes = [p, p, p, p, i, i, i, i, i, f, p]
     lib.causal_prefill_attention.restype = ctypes.c_int
+    lib.causal_prefill_wide_plan.argtypes = [i, p]
+    lib.causal_prefill_wide_plan.restype = ctypes.c_int
     return lib
 
 

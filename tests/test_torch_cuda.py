@@ -930,7 +930,8 @@ def test_paged_window_kernel_plan_is_window_units(card, pos, n_kv, r, grid):
     """The plan the window kernel's blocks make from the positions, read
     back block by block, is ``window_units``'s, unit for unit: at the given
     grid and at the grid the wrapper launches over each pool type (f32, bf16,
-    INT8: its instance's blocks an SM)."""
+    INT8: its instance's blocks an SM), at head_dim 128 and at 640 (three
+    column slices a row tile)."""
     from qwen3_rs_tpu_torch.ops.kernels.paged_attention import (
         paged_window_kernel_plan,
         window_grid,
@@ -939,41 +940,47 @@ def test_paged_window_kernel_plan_is_window_units(card, pos, n_kv, r, grid):
     )
 
     page, max_pages = 128, 32
-    grids = {max(grid, window_grid(len(pos), n_kv, r, 1, 1))}
-    grids |= {window_split_grid(card, dt, 128, len(pos), n_kv, r) for dt in (torch.float32, torch.bfloat16, torch.int8)}
     pos_t = torch.tensor(pos, dtype=torch.int32, device=card)
-    for g in sorted(grids):
-        assert paged_window_kernel_plan(pos_t, n_kv, r, page, max_pages, g) == window_units(
-            pos, n_kv, r, page, max_pages, g), g
+    for hd in (128, 640):
+        grids = {max(grid, window_grid(len(pos), n_kv, r, 1, 1, hd))}
+        grids |= {window_split_grid(card, dt, hd, len(pos), n_kv, r) for dt in (torch.float32, torch.bfloat16, torch.int8)}
+        for g in sorted(grids):
+            assert paged_window_kernel_plan(pos_t, n_kv, r, page, max_pages, g, hd) == window_units(
+                pos, n_kv, r, page, max_pages, g, hd), (hd, g)
 
 
-@pytest.mark.parametrize("pool", ["bf16", "f32"])
-def test_paged_window_counters_stay_zero(card, pool):
+@pytest.mark.parametrize("pool", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("hd", [128, 640])
+def test_paged_window_counters_stay_zero(card, pool, hd):
     """The window kernel's arrival counters are zero after every launch, two
-    launches give the same bytes, and a CUDA graph's replay gives the same
-    partials."""
+    launches give the same bytes, one launch a call, and a CUDA graph's
+    replay gives the same partials (at head_dim 640 the kernel past 256, its
+    column slices and q scratch)."""
     from qwen3_rs_tpu_torch.ops.kernels import paged_attention as pa
 
-    gen = _gen(78)
+    gen = _gen(78 + hd)
     page, max_pages, pos_list = 128, 32, [4064, 1000, 0, 2049]
     b = len(pos_list)
     n_pages = 1 + b * max_pages
-    k, v, _ = _cache_of(gen, card, pool, (2, n_pages, 8, page, 128))
+    k, v, sc = _cache_of(gen, card, pool, (2, n_pages, 8, page, hd))
+    sc = {} if sc is None else dict(zip(("k_scale_pool", "v_scale_pool"), sc))
     table = _tables(gen, card, b, max_pages, n_pages)
     pos = torch.tensor(pos_list, dtype=torch.int32, device=card)
-    q = torch.randn(b, 32, 32, 128, generator=gen, device=card)
-    first = paged_window_partials(q, k, v, table, pos, 1)
-    again = paged_window_partials(q, k, v, table, pos, 1)
+    q = torch.randn(b, 32, 32, hd, generator=gen, device=card)
+    before = LAUNCHES["paged_window_partials"]
+    first = paged_window_partials(q, k, v, table, pos, 1, **sc)
+    assert LAUNCHES["paged_window_partials"] == before + 1
+    again = paged_window_partials(q, k, v, table, pos, 1, **sc)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(first, again))
     assert int(pa._DECODE_COUNTERS[q.device].abs().sum()) == 0
     out = {}
     stream = torch.cuda.Stream()
     with torch.cuda.stream(stream):
-        paged_window_partials(q, k, v, table, pos, 1)
+        paged_window_partials(q, k, v, table, pos, 1, **sc)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=stream):
-            out["x"] = paged_window_partials(q, k, v, table, pos, 1)
+            out["x"] = paged_window_partials(q, k, v, table, pos, 1, **sc)
     for _ in range(3):
         graph.replay()
     torch.cuda.synchronize()
@@ -1426,12 +1433,15 @@ def test_flash_decode_head_dims_match_plain(card, hd, cache, kv_mul):
 
 
 @pytest.mark.parametrize("hd", [256, 384, 512, 640, 1024])
-@pytest.mark.parametrize("pool", ["bf16", "int8"])
-@pytest.mark.parametrize("kv_mul,s", [(1, 3), (4, 8), (5, 2)])
-def test_paged_kernels_head_dims_match_plain(card, hd, pool, kv_mul, s):
-    """#9 and #10 at head_dims past 128 (a page of 128 rows, shuffled tables)."""
-    gen = _gen(hd + kv_mul + s + len(pool))
-    page, max_pages, pos_list = 128, 3, [0, 1, 129, 300]
+@pytest.mark.parametrize("pool", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("page", [16, 128])
+@pytest.mark.parametrize("kv_mul,s", [(1, 3), (4, 8), (5, 2), (4, 32)])
+def test_paged_kernels_head_dims_match_plain(card, hd, pool, page, kv_mul, s):
+    """#9 and #10 at head_dims past 128 (pages of 16 and 128 rows, shuffled
+    tables, up to R = 128 window rows a kv head: two row tiles), each one
+    launch a call."""
+    gen = _gen(hd + kv_mul + s + len(pool) + page)
+    max_pages, pos_list = -(-300 // page), [0, 1, 129, 300]
     b = len(pos_list)
     n_pages = 1 + b * max_pages
     k, v, sc = _cache_of(gen, card, pool, (2, n_pages, 2, page, hd))
@@ -1440,12 +1450,16 @@ def test_paged_kernels_head_dims_match_plain(card, hd, pool, kv_mul, s):
     pos = torch.tensor(pos_list, dtype=torch.int32, device=card)
     q = torch.randn(b, 2 * kv_mul, hd, generator=gen, device=card)
     kn, vn = torch.randn(2, b, 2, hd, generator=gen, device=card)
+    before = LAUNCHES["paged_decode"]
     got = paged_decode(q, kn, vn, k, v, table, pos, 1, **sc)
+    assert LAUNCHES["paged_decode"] == before + 1
     ref = paged_decode_plain(q, kn, vn, k, v, table, pos, 1, **sc)
     torch.cuda.synchronize()
     assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
     qw = torch.randn(b, s, 2 * kv_mul, hd, generator=gen, device=card)
+    before = LAUNCHES["paged_window_partials"]
     got = paged_window_partials(qw, k, v, table, pos, 1, **sc)
+    assert LAUNCHES["paged_window_partials"] == before + 1
     ref = paged_window_partials_plain(qw, k, v, table, pos, 1, **sc)
     torch.cuda.synchronize()
     for a, r in zip(got, ref):
@@ -1486,13 +1500,14 @@ def test_prefill_attention_head_dim_256_matches_plain(card, s, kv_mul):
     torch.testing.assert_close(got.float(), ref.float(), rtol=2.0**-7, atol=1e-5)  # as at head_dim 128
 
 
-@pytest.mark.parametrize("s", [1, 65, 300, 1000])
+@pytest.mark.parametrize("s", [1, 65, 300, 1000, 2048])
 @pytest.mark.parametrize("hd", [384, 512, 640, 1024])
-@pytest.mark.parametrize("kv_mul", [1, 4, 5])
+@pytest.mark.parametrize("kv_mul", [1, 4, 5, 8])
 def test_prefill_attention_wide_head_dims_match_plain(card, s, hd, kv_mul):
-    """#5's wide kernel (q in shared memory, the output in 128-column blocks)
-    and, past 512, its streaming kernel (q and k in 128-column pieces) at
-    ragged windows, with the tolerance of head_dim 128."""
+    """#5 past head_dim 256 (one S warpgroup, P shared with the P.V
+    warpgroups of a column slice; 1, 2 and 3 slices) at ragged windows up to
+    S = 2048 and every packing of query heads (kv_mul 8: eight a block), one
+    launch a call, with the tolerance of head_dim 128."""
     gen = _gen(s * 17 + hd + kv_mul)
     q = torch.randn(2, s, 2 * kv_mul, hd, generator=gen, device=card).to(torch.bfloat16)
     k, v = (torch.randn(2, s, 2, hd, generator=gen, device=card).to(torch.bfloat16) for _ in range(2))
@@ -1503,6 +1518,25 @@ def test_prefill_attention_wide_head_dims_match_plain(card, s, hd, kv_mul):
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), ref.float(), rtol=2.0**-7, atol=1e-5)
     assert torch.equal(got[:, 0], v[:, 0].repeat_interleave(kv_mul, dim=1))  # row 0: its own value
+
+
+def test_prefill_wide_plan_is_the_kernels(card):
+    """#5's block past head_dim 256, as its source makes it, is
+    ``wide_plan``'s at every head_dim up to 2048 (q resident up to 1280,
+    then band by band)."""
+    from qwen3_rs_tpu_torch.ops.kernels.prefill_attention import wide_kernel_plan, wide_plan
+
+    for hd in range(384, 2049, 128):
+        assert wide_kernel_plan(hd) == wide_plan(hd), hd
+
+
+def test_window_wide_layout_is_the_kernels(card):
+    """#10's shared memory past head_dim 256, as its source lays it out, is
+    ``window_wide_layout``'s for each pool type."""
+    from qwen3_rs_tpu_torch.ops.kernels.paged_attention import window_wide_kernel_layout, window_wide_layout
+
+    for dt in (torch.float32, torch.bfloat16, torch.int8):
+        assert window_wide_kernel_layout(dt) == window_wide_layout(dt), dt
 
 
 def test_attention_kernels_refuse_head_dims_they_are_not_built_for(card):

@@ -32,10 +32,10 @@ PAGE, HD, N_KV, L, LAYER = 128, 128, 2, 2, 1
 POS = [0, 1, PAGE - 1, PAGE, PAGE + 1, 300]  # one request each
 
 
-def _pool(rng, dtype, n_pages):
+def _pool(rng, dtype, n_pages, hd=HD):
     """(numpy pools and scales for JAX, torch ones for the port): bf16 values
     rounded alike on both sides, INT8 codes with per-row scales."""
-    shape = (L, n_pages, N_KV, PAGE, HD)
+    shape = (L, n_pages, N_KV, PAGE, hd)
     if dtype == "int8":
         k, v = (rng.integers(-127, 128, shape).astype(np.int8) for _ in range(2))
         ks, vs = (rng.uniform(0.005, 0.02, shape[:-1]).astype(np.float32) for _ in range(2))
@@ -55,12 +55,12 @@ def _table(rng, b, max_pages, n_pages):
     return ids.reshape(b, max_pages).astype(np.int32)
 
 
-def _case(seed, dtype, pos, kv_mul):
+def _case(seed, dtype, pos, kv_mul, hd=HD):
     rng = np.random.default_rng(seed)
     b = len(pos)
     max_pages = 3
     n_pages = 1 + b * max_pages
-    (jpool, jsc), (ppool, psc) = _pool(rng, dtype, n_pages)
+    (jpool, jsc), (ppool, psc) = _pool(rng, dtype, n_pages, hd)
     table = _table(rng, b, max_pages, n_pages)
     return rng, b, jpool, jsc, ppool, psc, table, np.asarray(pos, np.int32)
 
@@ -108,6 +108,23 @@ def test_paged_window_plain_matches_pallas(dtype, s, kv_mul):
     xla = jax_split_paged(jnp.asarray(q), jpool[0][LAYER], jpool[1][LAYER], jnp.asarray(table),
                           jnp.asarray(kn), jnp.asarray(vn), jnp.asarray(pos), **xla_sc)
     _close(got.numpy(), xla)
+
+
+@pytest.mark.parametrize("hd", [384, 640])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+def test_paged_window_plain_matches_pallas_past_256(dtype, hd):
+    """As ``test_paged_window_plain_matches_pallas`` at the head_dims the
+    window kernel past 256 takes (two column slices at 384, three at 640):
+    the plain partials, merged, against the Pallas window kernel in
+    interpret mode."""
+    s, kv_mul = 4, 2
+    rng, b, jpool, jsc, ppool, psc, table, pos = _case(13 + hd, dtype, POS, kv_mul, hd)
+    q = rng.normal(0, 1, (b, s, N_KV * kv_mul, hd)).astype(np.float32)
+    kn, vn = (rng.normal(0, 1, (b, s, N_KV, hd)).astype(np.float32) for _ in range(2))
+    got = paged_window_attention(torch.from_numpy(q), torch.from_numpy(kn), torch.from_numpy(vn), *ppool,
+                                 torch.from_numpy(table), torch.from_numpy(pos), LAYER, **psc)
+    jargs = (jnp.asarray(q), jnp.asarray(kn), jnp.asarray(vn), *jpool, jnp.asarray(table), jnp.asarray(pos))
+    _close(got.numpy(), paged_gqa_window_stacked(*jargs, LAYER, interpret=True, **jsc))
 
 
 def test_window_partials_of_an_empty_prefix():
@@ -289,23 +306,31 @@ def test_window_units_cover_every_live_row_once_and_fit_the_grid(pos, n_kv, r, g
 
 
 def test_window_route_grid_and_workspace():
-    """The window kernel's route (head_dim 128/256, pages of a multiple of 16
-    rows, f32, bf16 and INT8 pools; the rest keep the two-pass kernels), its
-    grid and its workspaces."""
+    """The window kernel's route (every head_dim a multiple of 128, past 256
+    the kernel past 256; pages of a multiple of 16 rows; f32, bf16 and INT8
+    pools; the rest keep the two-pass kernels) beside the decode's, which
+    stays at head_dim 128/256; its grid and its workspaces."""
     from qwen3_rs_tpu_torch.ops.kernels.paged_attention import (
+        split_kernel_takes,
         window_grid,
+        window_q_scratch_bytes,
         window_split_takes,
         window_workspace_floats,
     )
 
-    for hd in (128, 256, 384, 512, 640):
+    for hd in (128, 256, 384, 512, 640, 1024):
         for page in (8, 16, 128, 200):
+            assert split_kernel_takes(hd, page) == (hd in (128, 256) and page % 16 == 0)  # #9's decode
             for dt in (torch.float32, torch.bfloat16, torch.int8):
-                want = hd in (128, 256) and page % 16 == 0
-                assert window_split_takes(hd, page, dt) == want
+                assert window_split_takes(hd, page, dt) == (page % 16 == 0)
+    assert not window_split_takes(192, 128, torch.bfloat16) and not window_split_takes(640, 128, torch.float16)
     assert window_grid(8, 8, 128, 132, 2) == 264 and window_grid(8, 8, 16, 132, 1) == 132
     assert window_grid(64, 8, 128, 132, 1) == 64 * 8 * 2
+    assert window_grid(8, 8, 64, 132, 1, 512) == 264 and window_grid(8, 8, 64, 132, 1, 640) == 264
+    assert window_grid(64, 8, 64, 132, 1, 640) == 64 * 8 * 3
+    assert window_grid(8, 2, 64, 132, 1, 640) == 132  # 48 units: one wave
     assert window_workspace_floats(264, 128) == (264 * 64 * 2, 264 * 64 * 128)
+    assert window_q_scratch_bytes(264, 256) == 0 and window_q_scratch_bytes(132, 640) == 132 * 64 * 640 * 4
 
 
 @pytest.mark.parametrize("kv_mul", [1, 4])
@@ -357,3 +382,56 @@ def test_bf16_terms_rebuild_f32(n):
     err = (back - xt.double()).abs()
     bound = 2.0 ** (-24 if n == 3 else -16) * xt.double().abs()
     assert bool((err <= bound).all()), float((err - bound).max())
+
+
+@pytest.mark.parametrize("hd,slices", [(128, 1), (256, 1), (384, 2), (512, 2), (640, 3), (1024, 4), (1152, 5)])
+def test_window_slices(hd, slices):
+    """The window kernel's column slices: the whole head up to 256, else
+    256 columns a slice, the last one 128 wide where 256 does not divide."""
+    from qwen3_rs_tpu_torch.ops.kernels.paged_attention import WINDOW_WIDE_COLS, window_slices
+
+    assert window_slices(hd) == slices
+    widths = [min(WINDOW_WIDE_COLS, hd - c) for c in range(0, hd, WINDOW_WIDE_COLS)] if hd > 256 else [hd]
+    assert len(widths) == slices and sum(widths) == hd and all(w in (128, 256) for w in widths)
+
+
+@pytest.mark.parametrize("pos,n_kv,r,grid", WINDOW_PLAN_CASES)
+def test_window_units_past_256_take_every_slice_of_each_row_tile(pos, n_kv, r, grid):
+    """At head_dim 640 the plan's tiles are the row tiles times 3 column
+    slices (tile t: row tile t // 3, slice t % 3): each (request, kv head,
+    row tile, slice) once, with its own counter, its splits covering the
+    request's live rows exactly once."""
+    from qwen3_rs_tpu_torch.ops.kernels.paged_attention import window_grid, window_tiles, window_units
+
+    page, max_pages, hd = 128, 32, 640
+    tiles = window_tiles(r) * 3
+    grid = max(grid, window_grid(len(pos), n_kv, r, 1, 1, hd))
+    units = window_units(pos, n_kv, r, page, max_pages, grid, hd)
+    assert len(units) <= grid
+    rows = {}
+    for b, h, tile, s, n_s, lo, hi, slot, pair in units:
+        assert pair == (b * n_kv + h) * tiles + tile and 0 <= tile < tiles
+        rows.setdefault(pair, []).extend(range(lo, hi))
+    assert sorted(rows) == list(range(len(pos) * n_kv * tiles))
+    for pair, covered in rows.items():
+        assert covered == list(range(min(pos[pair // (n_kv * tiles)], max_pages * page)))
+
+
+@pytest.mark.parametrize("dtype,layout", [
+    (torch.bfloat16, dict(rows=64, slots=6, slot_bytes=24576, vstages=2, vstage_bytes=32768, smem=214272)),
+    (torch.int8, dict(rows=64, slots=5, slot_bytes=28672, vstages=2, vstage_bytes=17408, smem=212224)),
+    (torch.float32, dict(rows=32, slots=4, slot_bytes=32768, vstages=2, vstage_bytes=32768, smem=230656)),
+])
+def test_window_wide_layout_hand_worked(dtype, layout):
+    """The window kernel's shared memory past 256 (``window_wide_layout``, the
+    source's ``WideSmem``; a card test holds them equal), worked by hand: a
+    slot is q's two 8 KB term bands and the stage's K band of 64 columns
+    (bf16: 64 rows of 128 bytes; INT8: 64 of 64 plus an 8 KB bf16 band; f32:
+    32 of 256 plus two 4 KB bf16 bands); a V stage the slice's 256 columns
+    (INT8: 16 KB plus 512 bytes of row scales, rounded to 17 KB); INT8 and f32
+    add a converted V stage of 32 KB; 1,280 bytes of head and alignment; as
+    many slots as keep the block within 232,448 bytes (f32: 4 × 32 KB + 64 KB
+    + 32 KB + 1,280 = 230,656)."""
+    from qwen3_rs_tpu_torch.ops.kernels.paged_attention import window_wide_layout
+
+    assert window_wide_layout(dtype) == layout
