@@ -738,9 +738,9 @@ def head_dim_cases(torch, ctx) -> list[dict]:
     heads of 4 query heads, 8 requests at mixed positions over a 1024-row
     cache or a page-128 pool; #5 over a fresh 1000-row window), each against
     its plain version with the tolerance of its head_dim-128 cases, then the
-    full-width rows of #5 and #10 at head_dim 512 (``wide_head_dim_cases``).
-    Past 256: #5's and #10's kernels past 256, #4's and #9's two-pass
-    kernels (column-blocked past 512).  Every entry point here is one that
+    full-width rows of #5, #10, #9 and #4 at head_dim 512
+    (``wide_head_dim_cases``).  Past 256: the kernels past 256 of #5, #10
+    and #9's decode (which #4 runs too).  Every entry point here is one that
     older trees have too, so that ``--phases build,heads`` times an older
     checkout's kernels at the same cases."""
     return ([row for hd in (256, 384, 512, 640) for row in _head_dim_cases(torch, ctx, hd, (hd,))]
@@ -780,6 +780,7 @@ def _head_dim_cases(torch, ctx, hd: int, prefill_hds, labels: bool = True) -> li
     torch.cuda.synchronize()
     err, tol = float((got - ref).abs().max()), 1e-5
     need(math.isfinite(err) and err <= tol, f"flash_decode head_dim {hd}: {err} > {tol}")
+    need(torch.equal(got[0], vn[0].repeat_interleave(kv_mul, dim=0)), f"flash_decode head_dim {hd}: pos 0 != v_self")
     ms = device_ms(torch, lambda i: flash_decode(q, kn, vn, k_all, v_all, pos, i % 2))
     plain_ms = device_ms(torch, lambda i: flash_decode_plain(q, kn, vn, k_all, v_all, pos, i % 2), reps=5, warmup=1)
     kk = torch.cat([kn[:, :, None], k_all[1].float()], 2).repeat_interleave(kv_mul, dim=1)
@@ -833,6 +834,14 @@ def _head_dim_cases(torch, ctx, hd: int, prefill_hds, labels: bool = True) -> li
     torch.cuda.synchronize()
     err, tol = float((got - ref).abs().max()), 1e-4 * float(ref.abs().max())
     need(math.isfinite(err) and err <= tol, f"paged_decode head_dim {hd}: {err} > {tol}")
+    need(torch.equal(got[0], vn[0].repeat_interleave(kv_mul, dim=0)), f"paged_decode head_dim {hd}: pos 0 != v_self")
+    if labels:
+        from qwen3_rs_tpu_torch.ops.kernels.paged_attention import paged_decode_phases, split_kernel_takes
+
+        if split_kernel_takes(hd, page):
+            emit({"phase": "kernels", "paged_decode_phases_us": paged_decode_phases(q, kn, vn, kpool, vpool, table,
+                                                                                    pos, 1),
+                  "case": f"head_dim {hd}, bf16 pool B={b}"})
     ms = device_ms(torch, lambda i: paged_decode(q, kn, vn, kpool, vpool, table, pos, i % 2))
     plain_ms = device_ms(torch, lambda i: paged_decode_plain(q, kn, vn, kpool, vpool, table, pos, i % 2), reps=5, warmup=1)
     kk = torch.cat([kn[:, :, None], rows_of(1, kpool)], 2)
@@ -1206,24 +1215,26 @@ def _gathered(torch, k, v, sc, table, pos_list, layer):
     return kc, vc
 
 
-def _sdpa_backend(torch, q, k, v) -> str:
+def _sdpa_backend(torch, q, k, v, mask=None) -> str:
     """The backend that ``F.scaled_dot_product_attention(q, k, v,
-    is_causal=True)`` takes for these inputs, by name (torch's own choice,
-    read through its private ``_fused_sdp_choice``)."""
+    is_causal=True)`` (with ``mask``: ``attn_mask=mask``) takes for these
+    inputs, by name (torch's own choice, read through its private
+    ``_fused_sdp_choice``)."""
     from torch.nn.attention import SDPBackend
 
     try:
-        return SDPBackend(torch._fused_sdp_choice(q, k, v, None, 0.0, True)).name
+        return SDPBackend(torch._fused_sdp_choice(q, k, v, mask, 0.0, mask is None)).name
     except (AttributeError, TypeError, ValueError, RuntimeError) as e:
         return f"not named ({type(e).__name__})"
 
 
 def wide_head_dim_cases(torch, ctx) -> list[dict]:
-    """#5 and #10 at head_dim 512 with the 8B's head counts (32 query heads
-    over 8 kv heads): #5 over a fresh 2048-row window, its library call on
-    heads expanded beforehand (the backend torch picks named); #10 at B=8,
+    """#5, #10, #9 and #4 at head_dim 512 with the 8B's head counts (32 query
+    heads over 8 kv heads): #5 over a fresh 2048-row window, its library call
+    on heads expanded beforehand (the backend torch picks named); #10 at B=8,
     S=16 (R=64 a kv head) at the kernel table's mixed positions over bf16,
-    INT8 and f32 pools of page 128 (one layer's bf16 pool ~0.54 GB)."""
+    INT8 and f32 pools of page 128 (one layer's bf16 pool ~0.54 GB); #9 and
+    #4 as ``wide_decode_cases``."""
     import torch.nn.functional as F
 
     from qwen3_rs_tpu_torch.ops.kernels.prefill_attention import (
@@ -1259,8 +1270,117 @@ def wide_head_dim_cases(torch, ctx) -> list[dict]:
                 f"F.scaled_dot_product_attention is_causal on heads expanded beforehand ({backend})")]
     del q, k, v, qt, kx, vx, got, ref
     torch.cuda.empty_cache()
-    return out + paged_window_cases(torch, ctx, plan=False, hd=hd, cases=(("bf16", 16), ("int8", 16), ("f32", 16)),
-                                    source=True)
+    return (out + paged_window_cases(torch, ctx, plan=False, hd=hd, cases=(("bf16", 16), ("int8", 16), ("f32", 16)),
+                                     source=True)
+            + wide_decode_cases(torch, ctx, hd))
+
+
+def wide_decode_cases(torch, ctx, hd: int) -> list[dict]:
+    """#9 and #4 at head_dim ``hd`` with the 8B's head counts (32 query heads
+    over 8 kv heads): #9 at B=8 at the kernel table's mixed positions to 4095
+    over bf16, INT8 and f32 pools of page 128 (one layer's bf16 pool ~0.54
+    GB), the one-launch kernel's stamps over the bf16 pool where it takes the
+    pool; #4 at B=1, T=4096, pos 4095 over f32 and bf16 caches, the two-pass
+    kernel beside it.  Each against its plain version (1e-4·max|ref|, 1e-5·
+    max(1, max|ref|)), v_self exactly at pos 0; the library call SDPA on
+    heads expanded beforehand (K/V gathered into dense f32, its backend
+    named).  Entry points every tree of the port has (``paged_decode``,
+    ``flash_decode``, ``flash_decode_two_pass`` and their plain versions)."""
+    import torch.nn.functional as F
+
+    from qwen3_rs_tpu_torch.ops.kernels import paged_attention as pa
+    from qwen3_rs_tpu_torch.ops.kernels.flash_attention import (
+        flash_decode, flash_decode_plain, flash_decode_two_pass,
+    )
+    from qwen3_rs_tpu_torch.testing import paged_read_bytes, qwen3_config
+
+    c = qwen3_config("8b")
+    h, n_kv = c.n_heads, c.n_kv_heads
+    kv_mul = h // n_kv
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(1357)
+    out = []
+    pos_list = [0, 1, 127, 128, 129, 1000, 2049, 4095]
+    b = len(pos_list)
+    for pool in ("bf16", "int8", "f32"):
+        _, nl, k, v, sc, table, pos, esz = _paged_inputs(torch, gen, pool, pos_list, head_dim=hd)
+        q = torch.randn(b, h, hd, generator=gen, device=DEV)
+        kn, vn = (torch.randn(b, n_kv, hd, generator=gen, device=DEV) for _ in range(2))
+        ref = pa.paged_decode_plain(q, kn, vn, k, v, table, pos, 1, **sc)
+        got = pa.paged_decode(q, kn, vn, k, v, table, pos, 1, **sc)
+        torch.cuda.synchronize()
+        err, tol = float((got - ref).abs().max()), 1e-4 * float(ref.abs().max())
+        case = f"head_dim {hd}, {h}/{n_kv} heads, {pool} pool B={b} pos={pos_list}"
+        need(math.isfinite(err) and err <= tol, f"paged_decode {case}: {err} > {tol}")
+        need(torch.equal(got[0], vn[0].repeat_interleave(kv_mul, dim=0)), f"paged_decode {case}: pos 0 != v_self")
+        if pool == "bf16" and pa.split_kernel_takes(hd, 128):
+            emit({"phase": "kernels", "paged_decode_phases_us": pa.paged_decode_phases(q, kn, vn, k, v, table, pos, 1,
+                                                                                       **sc), "case": case})
+        ms = device_ms(torch, lambda i: pa.paged_decode(q, kn, vn, k, v, table, pos, i % nl, **sc))
+        plain_ms = device_ms(torch, lambda i: pa.paged_decode_plain(q, kn, vn, k, v, table, pos, i % nl, **sc),
+                             reps=5, warmup=1)
+        lib = []
+        for l in range(min(nl, 2)):
+            kc, vc = _gathered(torch, k, v, sc, table, pos_list, l)
+            kk, vv = (torch.cat([x[:, :, None], y], 2).repeat_interleave(kv_mul, dim=1) for x, y in ((kn, kc), (vn, vc)))
+            mask = (torch.arange(kk.shape[2], device=DEV)[None, :] <= pos[:, None].long())[:, None, None, :]
+            lib.append((kk, vv, mask))
+            del kc, vc
+        q4 = q[:, :, None]
+        lib_ms = device_ms(torch, lambda i: F.scaled_dot_product_attention(q4, *lib[i % len(lib)][:2],
+                                                                           attn_mask=lib[i % len(lib)][2]))
+        backend = _sdpa_backend(torch, q4, *lib[0][:2], lib[0][2])
+        del lib
+        nbytes = (paged_read_bytes(pos_list, n_kv, hd, esz) + (2 * q.numel() + kn.numel() + vn.numel()) * 4
+                  + table.numel() * 4 + b * 4)
+        b_ms, b_by = bound(nbytes, 4.0 * h * sum(p + 1 for p in pos_list) * hd, "f32")
+        out.append(_row(ctx, "paged_decode", case, paged_decode_source(hd, 128),
+                        "qwen3_rs_tpu/ops/pallas/paged_attention.py:207 paged_gqa_decode_stacked",
+                        {"B": b, "heads": h, "kv_heads": n_kv, "hd": hd, "page": 128, "pos": pos_list}, err, tol, ms,
+                        plain_ms, nbytes, b_ms, b_by, lib_ms,
+                        f"F.scaled_dot_product_attention on heads expanded beforehand, K/V gathered into dense f32 "
+                        f"({backend})"))
+        del k, v, sc, ref, got
+        torch.cuda.empty_cache()
+    t, p = 4096, 4095
+    for cache in ("f32", "bf16"):
+        esz = {"f32": 4, "bf16": 2}[cache]
+        shape = (_layers_for(2 * n_kv * t * hd * esz), 1, n_kv, t, hd)
+        dt = torch.float32 if cache == "f32" else torch.bfloat16
+        k_all, v_all = (torch.randn(shape, generator=gen, device=DEV).to(dt) for _ in range(2))
+        nl = shape[0]
+        q = torch.randn(1, h, hd, generator=gen, device=DEV)
+        kn, vn = (torch.randn(1, n_kv, hd, generator=gen, device=DEV) for _ in range(2))
+        pos = torch.tensor([p], dtype=torch.int32, device=DEV)
+        ref = flash_decode_plain(q, kn, vn, k_all, v_all, pos, 1)
+        got = flash_decode(q, kn, vn, k_all, v_all, pos, 1)
+        two = flash_decode_two_pass(q, kn, vn, k_all, v_all, pos, 1)
+        torch.cuda.synchronize()
+        err, tol = float((got - ref).abs().max()), 1e-5 * max(1.0, float(ref.abs().max()))
+        case = f"head_dim {hd}, {h}/{n_kv} heads, {cache} cache B=1 pos={p} T={t}"
+        need(math.isfinite(err) and err <= tol, f"flash_decode {case}: {err} > {tol}")
+        need(float((two - ref).abs().max()) <= tol, f"flash_decode two-pass {case}")
+        ms = device_ms(torch, lambda i: flash_decode(q, kn, vn, k_all, v_all, pos, i % nl))
+        two_ms = device_ms(torch, lambda i: flash_decode_two_pass(q, kn, vn, k_all, v_all, pos, i % nl))
+        plain_ms = device_ms(torch, lambda i: flash_decode_plain(q, kn, vn, k_all, v_all, pos, i % nl), reps=5, warmup=1)
+        lib = [tuple(torch.cat([x[:, :, None], y[l, :, :, :p].float()], 2).repeat_interleave(kv_mul, dim=1)
+                     for x, y in ((kn, k_all), (vn, v_all))) for l in range(min(nl, 2))]
+        q4 = q[:, :, None]
+        lib_ms = device_ms(torch, lambda i: F.scaled_dot_product_attention(q4, *lib[i % len(lib)]))
+        backend = _sdpa_backend(torch, q4, *lib[0], None)
+        del lib
+        nbytes = 2 * n_kv * p * hd * esz + (2 * q.numel() + kn.numel() + vn.numel()) * 4 + 4
+        b_ms, b_by = bound(nbytes, 4.0 * h * (p + 1) * hd, "f32")
+        row = _row(ctx, "flash_decode", case, flash_source(hd, t),
+                   "qwen3_rs_tpu/ops/pallas/flash_attention.py:212 flash_gqa_decode_stacked",
+                   {"B": 1, "heads": h, "kv_heads": n_kv, "hd": hd, "T": t, "pos": p}, err, tol, ms, plain_ms, nbytes,
+                   b_ms, b_by, lib_ms, f"F.scaled_dot_product_attention on heads expanded beforehand ({backend})")
+        row["two_pass_ms"] = two_ms
+        emit({"phase": "kernels", "case": case, "two_pass_ms": two_ms})
+        out.append(row)
+        del k_all, v_all, ref, got, two
+        torch.cuda.empty_cache()
+    return out
 
 
 def paged_decode_source(hd: int, page: int) -> str:

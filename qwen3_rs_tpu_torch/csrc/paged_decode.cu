@@ -1,14 +1,15 @@
 // Paged attention for Hopper (sm_90a), one launch a call: the decode kernel and the window kernel at
-// head_dim 128 and 256, and the window kernel past 256 (paged_window_wide_kernel, every multiple of
-// 128).
+// head_dim 128 and 256, the decode kernel past 256 (paged_decode_wide_kernel, every multiple of 128 up
+// to 1024) and the window kernel past 256 (paged_window_wide_kernel, every multiple of 128).
 //
 // Replaces the reference package's Pallas kernels
-//   qwen3_rs_tpu/ops/pallas/paged_attention.py::paged_gqa_decode_stacked   (paged_decode_kernel)
+//   qwen3_rs_tpu/ops/pallas/paged_attention.py::paged_gqa_decode_stacked   (paged_decode_kernel and
+//                                                                           paged_decode_wide_kernel)
 //   qwen3_rs_tpu/ops/pallas/paged_attention.py::paged_gqa_window_stacked   (paged_window_kernel and
 //                                                                           paged_window_wide_kernel:
 //                                                                           its _partials_kernel)
-// at these head_dims (paged_attention.cu keeps the two-pass kernels for the decode's other head_dims
-// and for pages that are not a multiple of 16 rows).  The pool of one layer is [P, n_kv, page, hd]; cache row t of request b lives in
+// at these head_dims (paged_attention.cu keeps the two-pass kernels for the decode past 1024 and for
+// pages that are not a multiple of 16 rows).  The pool of one layer is [P, n_kv, page, hd]; cache row t of request b lives in
 // page table[b, t / page] at page row t % page, and only rows t < pos[b] are valid.  INT8 pools: the
 // per-row K scale multiplies the score, the V scale the probability after l takes it.
 //  * decode: for request b and kv head h the kv_mul query heads of h (pre-scaled by 1/sqrt(hd))
@@ -670,6 +671,74 @@ __device__ __forceinline__ int o_col(int mt, int e, int g) {
   else return 16 * mt + g + 8 * (e >> 1);
 }
 
+// The tail of a decode block, its split's partial in workspace slot u.slot + u.s (written by the
+// NT consumer threads): the last block of the (request, kv head, head tile) to arrive merges the
+// splits into out; sself holds the tile's heads' scaled q . k_self.  flag is the block's shared int.
+__device__ __forceinline__ void merge_decode(const Args& a, const Unit& u, int hd, long qrow0, const float* sself,
+                                             int NT, int& flag) {
+  const int tid = threadIdx.x;
+  if (u.n_s > 1) {
+    __threadfence();
+    consumer_sync(NT);
+    if (tid == 0) stamp(a, 5);
+    if (tid == 0) {
+      const int old = atomicAdd(a.counters + u.pair, 1);
+      flag = old == u.n_s - 1;
+      if (flag) a.counters[u.pair] = 0;  // left at zero for the next launch
+    }
+    consumer_sync(NT);
+    if (tid == 0) stamp(a, 6);
+    if (!flag) return;
+    __threadfence();
+  } else {
+    consumer_sync(NT);
+  }
+
+  // The last block: the splits merged in split order into the self key's seed (m = q.k_self,
+  // l = 1, acc = v_self), normalised; each thread 4 columns of a head.  Runs of 16 splits: a run's
+  // loads all go out at once, unconditionally (a slot past the last split reloads the last one; a
+  // load behind a condition waited for its data where the branches joined), then the run's largest
+  // m, one rescale of the sums to it, and each split's weight exp(m_s - max), independent of the
+  // others, added in split order; a slot past the last split weighs 0.
+  const int ns = u.n_s, qm = a.qm;
+  const float* vn = a.v_new + ((long)u.b * a.n_kv + u.h) * hd;
+  for (int k = tid; k < qm * hd / 4; k += NT) {
+    const int m = k / (hd / 4), col = k % (hd / 4) * 4;
+    float mcur = sself[m], l = 1.f;
+    float4 acc = __ldg(reinterpret_cast<const float4*>(vn + col));
+    for (int s0 = 0; s0 < ns; s0 += 16) {
+      float2 ml[16];
+      float4 p4[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const long sl = (u.slot + min(s0 + j, ns - 1)) * qm + m;
+        ml[j] = __ldcg(reinterpret_cast<const float2*>(a.ws_ml + sl * 2));
+        p4[j] = __ldcg(reinterpret_cast<const float4*>(a.ws_acc + sl * hd + col));
+      }
+      float mx = mcur;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) mx = fmaxf(mx, s0 + j < ns ? ml[j].x : -INFINITY);
+      const float r = expf(mcur - mx);
+      l *= r;
+      acc = make_float4(acc.x * r, acc.y * r, acc.z * r, acc.w * r);
+      mcur = mx;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float c = s0 + j < ns ? expf(ml[j].x - mx) : 0.f;
+        l = fmaf(ml[j].y, c, l);
+        acc = make_float4(fmaf(p4[j].x, c, acc.x), fmaf(p4[j].y, c, acc.y), fmaf(p4[j].z, c, acc.z),
+                          fmaf(p4[j].w, c, acc.w));
+      }
+    }
+    *reinterpret_cast<float4*>(a.out + (qrow0 + m) * hd + col) =
+        make_float4(acc.x / l, acc.y / l, acc.z / l, acc.w / l);
+  }
+  if (a.stamps != nullptr) {
+    consumer_sync(NT);
+    if (tid == 0) stamp(a, 7);
+  }
+}
+
 // ------------------------------------------------------------------------------- the kernel
 // Shared memory: the mbarriers, the unit, the split's flag, q (scaled, [QH][HD] f32), the cores
 // route's per-warp scratch, then the ring (1024-aligned), which the warps' merge reuses at the end.
@@ -874,66 +943,524 @@ paged_decode_kernel(const __grid_constant__ Args a) {
       a.ws_ml[(slot * qm + m) * 2 + 1] = l;
     }
   }
-  if (u.n_s > 1) {
-    __threadfence();
-    consumer_sync(NT);
-    if (tid == 0) stamp(a, 5);
-    if (tid == 0) {
-      const int old = atomicAdd(a.counters + u.pair, 1);
-      flag = old == u.n_s - 1;
-      if (flag) a.counters[u.pair] = 0;  // left at zero for the next launch
-    }
-    consumer_sync(NT);
-    if (tid == 0) stamp(a, 6);
-    if (!flag) return;
-    __threadfence();
-  } else {
-    consumer_sync(NT);
-  }
+  merge_decode(a, u, HD, qrow0, sself, NT, flag);
+}
 
-  // The last block: the splits merged in split order into the self key's seed (m = q.k_self,
-  // l = 1, acc = v_self), normalised; each thread 4 columns of a head.  Runs of 16 splits: a run's
-  // loads all go out at once, unconditionally (a slot past the last split reloads the last one; a
-  // load behind a condition waited for its data where the branches joined), then the run's largest
-  // m, one rescale of the sums to it, and each split's weight exp(m_s - max), independent of the
-  // others, added in split order; a slot past the last split weighs 0.
-  const int ns = u.n_s;
-  const float* vn = a.v_new + ((long)u.b * a.n_kv + u.h) * HD;
-  for (int k = tid; k < qm * HD / 4; k += NT) {
-    const int m = k / (HD / 4), col = k % (HD / 4) * 4;
-    float mcur = sself[m], l = 1.f;
-    float4 acc = __ldg(reinterpret_cast<const float4*>(vn + col));
-    for (int s0 = 0; s0 < ns; s0 += 16) {
-      float2 ml[16];
-      float4 p4[16];
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const long sl = (u.slot + min(s0 + j, ns - 1)) * qm + m;
-        ml[j] = __ldcg(reinterpret_cast<const float2*>(a.ws_ml + sl * 2));
-        p4[j] = __ldcg(reinterpret_cast<const float4*>(a.ws_acc + sl * HD + col));
+// ---------------------------------------------------------------- the decode kernel past 256
+// paged_decode_wide_kernel: the decode at every head_dim past 256 up to kMaxWideHeadDim (a multiple
+// of 128), one instance a pool type (and #4's INT8 dense layer on three terms), the head_dim at run
+// time.  The kernel above stages whole rows, 32-64 a stage, and keeps a full-width O in each warp:
+// past 256 a bf16 stage of 32 rows by 512 is 64 KB, and O is hd / 4 registers a lane (128 at 512).
+// This one keeps its plan, its TMA ring filled by the producer warp, the self key's seed and the
+// last block's merge (merge_decode), and changes the stage:
+//  * a stage is 16 rows, one TMA box a band, and its K and its V take a ring slot each (K of stage
+//    i, then its V): a slot is 16 rows of the head (6-64 KB), and the ring holds as many as keep a
+//    block within kWideBlock (two blocks an SM; at least two slots);
+//  * hd / 128 consumer warps, warp w owning head_dim columns [128 w, 128 w + 128).  For each stage a
+//    warp computes S^T = K . q^T over its columns for the 16 rows and the tile's heads (bf16 and
+//    INT8 rows on mma.sync m16n8k16, q's terms for its columns in registers, the heads padded to 8;
+//    f32 rows on the CUDA cores, a row on two lanes, q from shared memory) and writes that partial
+//    to shared memory; after one barrier every warp sums the warps' partials in warp order, so that
+//    each holds the stage's S and runs the same online softmax (m and l equal in every warp); then
+//    O^T += V^T . P^T over its own columns only, P from its registers.  O is 32 floats a lane at
+//    every head_dim, and the scores are computed once a stage;
+//  * a block takes all the query heads of its kv head up to 8 (the tile: the largest divisor of
+//    kv_mul up to 8, decode_qm in Python), so that each K/V row of a (request, kv head) is read from
+//    device memory once a launch wherever kv_mul <= 8;
+//  * the split's partial goes to its workspace slot straight from the warps' registers, each warp
+//    its columns.
+// Not built: one warp's S over the whole head with P handed to the others through shared memory,
+// which would put hd / 128 times this stage's S chain on one warp while the others wait.
+constexpr int kWideRows = 16;          // cache rows of a stage past 256
+constexpr int kWarpCols = 128;         // head_dim columns a consumer warp owns past 256
+constexpr int kMaxWideHeadDim = 1024;  // the kernel past 256 takes head_dims up to this
+constexpr int kMaxWideWarps = kMaxWideHeadDim / kWarpCols;
+constexpr int kMaxWideSlots = 12;
+constexpr int kWideBlock = 112 * 1024;  // a block's shared memory: two fit an SM's 228 KB
+// The head of its shared memory: the mbarriers (a slot's full, then its empty), the unit, the flag,
+// the tile's scaled q . k_self for the merge, and each warp's share of it.
+constexpr int kWUnit = 2 * kMaxWideSlots * 8, kWFlag = kWUnit + sizeof(Unit), kWSelf = 256, kWSelfParts = 512;
+constexpr int kWHead = 1024;
+static_assert(kWFlag + 4 <= kWSelf && kWSelfParts + kMaxWideWarps * kHeadsMma * 4 <= kWHead, "the head's layout");
+
+// The layout of paged_decode_wide_kernel for a pool of T at head_dim hd: consumer warps, ring slots,
+// a slot's bytes, and byte offsets: the stages' S partials [2][warps][128] f32, the f32 route's P of
+// each warp [warps][16][8], the INT8 slots' row scales [kMaxWideSlots][16], the f32 route's q
+// [8][hd], the ring (from the next 1024-byte boundary, the swizzle's grid), and the block's bytes.
+struct DecWide {
+  int warps, slots, slot, part, pw, scales, q, ring, bytes;
+};
+
+template <typename T>
+__host__ __device__ inline DecWide dec_wide(int hd) {
+  constexpr int esz = Pool<T>::kEsz;
+  DecWide d;
+  d.warps = hd / kWarpCols;
+  d.slot = kWideRows * hd * esz;
+  d.part = kWHead;
+  d.pw = d.part + 2 * d.warps * 128 * 4;
+  d.scales = d.pw + (esz == 4 ? d.warps * kWideRows * kHeadsMma * 4 : 0);
+  d.q = d.scales + (esz == 1 ? kMaxWideSlots * kWideRows * 4 : 0);
+  d.ring = d.q + (esz == 4 ? kHeadsMma * hd * 4 : 0);
+  const int fit = (kWideBlock - d.ring - 1024) / d.slot;
+  d.slots = fit > kMaxWideSlots ? kMaxWideSlots : fit < 2 ? 2 : fit;
+  d.bytes = d.ring + 1024 + d.slots * d.slot;
+  return d;
+}
+
+// The producer of the kernel past 256: for each stage of 16 rows, K's slot then V's (a TMA box of
+// 16 rows by one 128-byte band for each band of the head, one a lane; INT8: the slot's row scales).
+template <typename T>
+__device__ void produce_wide_decode(const Args& a, const Unit& u, uint8_t* ring, const float* scales,
+                                    uint32_t bars, const DecWide& L) {
+  constexpr int esz = Pool<T>::kEsz;
+  const int lane = threadIdx.x & 31, bands = a.hd * esz / kBandBytes;
+  const int* tab = a.table + (a.table != nullptr ? (long)u.b * a.max_pages : 0L);
+  const int p0 = u.lo / a.page;
+  int id_base = -32, id = 0, slot = 0;
+  uint32_t phase = 0;
+  for (int t = u.lo; t < u.hi; t += kWideRows) {  // a stage never crosses a page (both multiples of 16)
+    const int n = min(u.hi - t, kWideRows), pg = t / a.page - p0, r0 = t % a.page;
+    int slab = u.b * a.n_kv + u.h;  // a dense layer (no table): request b's rows are page b
+    if (a.table != nullptr) {
+      if (pg >= id_base + 32) {  // the next 32 page ids, one a lane
+        id_base = pg / 32 * 32;
+        id = p0 + id_base + lane < a.max_pages ? __ldg(tab + p0 + id_base + lane) : 0;
       }
-      float mx = mcur;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) mx = fmaxf(mx, s0 + j < ns ? ml[j].x : -INFINITY);
-      const float r = expf(mcur - mx);
-      l *= r;
-      acc = make_float4(acc.x * r, acc.y * r, acc.z * r, acc.w * r);
-      mcur = mx;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const float c = s0 + j < ns ? expf(ml[j].x - mx) : 0.f;
-        l = fmaf(ml[j].y, c, l);
-        acc = make_float4(fmaf(p4[j].x, c, acc.x), fmaf(p4[j].y, c, acc.y), fmaf(p4[j].z, c, acc.z),
-                          fmaf(p4[j].w, c, acc.w));
+      slab = __shfl_sync(0xffffffffu, id, pg - id_base) * a.n_kv + u.h;
+    }
+    const int srows = (n + 3) & ~3;
+    for (int kv = 0; kv < 2; ++kv) {
+      mbar_wait(bars + 8 * (kMaxWideSlots + slot), phase ^ 1u);
+      const uint32_t full = bars + 8 * slot, dst = smem_u32(ring + slot * L.slot);
+      if (lane == 0) mbar_expect_tx(full, bands * kBox * kBandBytes + (esz == 1 ? srows * 4 : 0));
+      __syncwarp();
+      for (int i = lane; i < bands; i += 32)
+        tma_box(dst + i * kBox * kBandBytes, kv ? &a.vmap : &a.kmap, full, i * (kBandBytes / esz), r0, slab);
+      if (esz == 1 && lane == 0)
+        bulk_copy(smem_u32(scales + slot * kWideRows), (kv ? a.vs : a.ks) + ((long)slab * a.page + r0), srows * 4,
+                  full);
+      if (++slot == L.slots) {
+        slot = 0;
+        phase ^= 1u;
       }
     }
-    *reinterpret_cast<float4*>(a.out + (qrow0 + m) * HD + col) =
-        make_float4(acc.x / l, acc.y / l, acc.z / l, acc.w / l);
+    if (t == u.lo && lane == 0) stamp(a, 2);
   }
-  if (a.stamps != nullptr) {
+}
+
+template <typename T, int TERMS>
+__global__ void __launch_bounds__((kMaxWideWarps + 1) * 32)
+paged_decode_wide_kernel(const __grid_constant__ Args a) {
+  constexpr bool kI8 = sizeof(T) == 1, kF32 = sizeof(T) == 4;
+  constexpr int kBandBox = kBox * kBandBytes;  // one band of a slot: 16 rows of 128 bytes
+  const int hd = a.hd;
+  const DecWide L = dec_wide<T>(hd);
+  const int W = L.warps, NT = W * 32;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const uint32_t bars = smem_u32(smem);
+  Unit& unit = *reinterpret_cast<Unit*>(smem + kWUnit);
+  int& flag = *reinterpret_cast<int*>(smem + kWFlag);
+  float* sself = reinterpret_cast<float*>(smem + kWSelf);
+  float* sparts = reinterpret_cast<float*>(smem + kWSelfParts);
+  float* part = reinterpret_cast<float*>(smem + L.part);
+  const float* scl = reinterpret_cast<const float*>(smem + L.scales);
+  uint8_t* ring = smem + L.ring;
+  ring += (1024 - (smem_u32(ring) & 1023)) & 1023;  // the swizzle's pattern repeats every 1024 bytes
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const auto full = [&](int i) { return bars + 8 * i; };
+  const auto empty = [&](int i) { return bars + 8 * (kMaxWideSlots + i); };
+  if (tid == 0) stamp(a, 0);
+  if (warp == 0) {
+    Unit u;
+    const bool ok = plan_unit(a, a.kv_mul / a.qm, 1, blockIdx.x, u);
+    if (lane == 0) {
+      unit = u;
+      flag = ok;
+      for (int s = 0; s < L.slots; ++s) {
+        mbar_init(full(s), 1);
+        mbar_init(empty(s), W);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+  } else if (warp == W && lane < 2) {  // meanwhile the tensor maps into the TMA unit's cache
+    asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(lane ? &a.vmap : &a.kmap)) : "memory");
+  }
+  __syncthreads();
+  if (tid == 0) stamp(a, 1);
+  if (!flag) return;
+  const Unit u = unit;
+  if (warp == W) {
+    produce_wide_decode<T>(a, u, ring, scl, bars, L);
+    return;
+  }
+  const int qm = a.qm, c0 = warp * kWarpCols;
+  const long bh = (long)u.b * a.n_kv + u.h, qrow0 = bh * a.kv_mul + u.tile * qm;
+  const float* kn = a.k_new + bh * hd;
+  // The scaled q . k_self of the tile's heads is summed over each warp's columns into sparts, read
+  // with the same loads as q (one round of loads before the first stage), and over the warps at
+  // the end.
+  const long slot0 = u.slot + u.s;
+  int slot = 0, par = 0;
+  uint32_t phase = 0;
+  // The next slot of the ring and its phase (a stage takes K's, then V's).
+  const auto next = [&](int& s, uint32_t& ph) {
+    s = slot;
+    ph = phase;
+    if (++slot == L.slots) {
+      slot = 0;
+      phase ^= 1u;
+    }
+  };
+  if constexpr (!kF32) {
+    const int g = lane >> 2, t4 = lane & 3, mi = lane >> 3;
+    // q's B fragments for the warp's 8 k-steps, term by term (heads past qm zero).  bf16 rows: k-step
+    // kk holds columns c0 + 16 kk + 2 t4 (+ 1) and + 8; INT8 rows: c0 + 16 kk + 4 t4 .. + 3 (the
+    // converted codes' k slots, as in stage_mma).
+    // Lane (g, t4) reads 32 of head g's 128 columns; with k_self's, its share of q . k_self.
+    uint32_t qf[TERMS][8][2];
+    {
+      float2 x[8][2], kx[8][2];
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int col = c0 + 16 * kk + (kI8 ? 2 * h + 4 * t4 : 8 * h + 2 * t4);
+          x[kk][h] = g < qm ? __ldg(reinterpret_cast<const float2*>(a.q + (qrow0 + g) * hd + col)) : make_float2(0.f, 0.f);
+          kx[kk][h] = __ldg(reinterpret_cast<const float2*>(kn + col));
+        }
+      float d = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float q0 = x[kk][h].x * a.scale, q1 = x[kk][h].y * a.scale;
+          d = fmaf(q1, kx[kk][h].y, fmaf(q0, kx[kk][h].x, d));
+          uint32_t y[TERMS];
+          split_terms<TERMS>(q0, q1, y);
+#pragma unroll
+          for (int i = 0; i < TERMS; ++i) qf[i][kk][h] = y[i];
+        }
+      d += __shfl_xor_sync(0xffffffffu, d, 1);
+      d += __shfl_xor_sync(0xffffffffu, d, 2);
+      if (t4 == 0 && g < qm) sparts[warp * kHeadsMma + g] = d;
+    }
+    float mrun[2] = {-INFINITY, -INFINITY}, lrun[2] = {0.f, 0.f}, o[8][4];
+#pragma unroll
+    for (int mt = 0; mt < 8; ++mt) o[mt][0] = o[mt][1] = o[mt][2] = o[mt][3] = 0.f;
+    for (int t = u.lo; t < u.hi; t += kWideRows) {
+      const int n = min(u.hi - t, kWideRows);
+      int ks, vs;
+      uint32_t kph, vph;
+      next(ks, kph);
+      next(vs, vph);
+      mbar_wait(full(ks), kph);
+      if (t == u.lo && tid == 0) stamp(a, 3);
+      // S^T over the warp's columns: rows g, g + 8 of the stage; heads 2 t4, 2 t4 + 1.
+      const uint32_t kb = smem_u32(ring + ks * L.slot);
+      float c[TERMS][4] = {};
+      if constexpr (kI8) {  // the warp's 128 columns are band `warp`
+        const int row = (lane & 7) + 8 * (mi & 1), half = mi >> 1;
+#pragma unroll
+        for (int kk = 0; kk < 8; kk += 2) {
+          uint32_t x[4];
+          ldsm_x4(kb + warp * kBandBox + swz(row, kk + half), x);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) x[i] ^= 0x80808080u;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const uint32_t af[4] = {i8_pair<0, 1>(x[2 * h]), i8_pair<0, 1>(x[2 * h + 1]), i8_pair<2, 3>(x[2 * h]),
+                                    i8_pair<2, 3>(x[2 * h + 1])};
+#pragma unroll
+            for (int i = 0; i < TERMS; ++i) mma_bf16(c[i], af, qf[i][kk + h][0], qf[i][kk + h][1]);
+          }
+        }
+      } else {  // bands 2 warp and 2 warp + 1
+        const int row = (lane & 7) + 8 * (mi & 1), half = mi >> 1;
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          uint32_t af[4];
+          ldsm_x4(kb + (2 * warp + kk / 4) * kBandBox + swz(row, 2 * (kk % 4) + half), af);
+#pragma unroll
+          for (int i = 0; i < TERMS; ++i) mma_bf16(c[i], af, qf[i][kk][0], qf[i][kk][1]);
+        }
+      }
+      float ks0 = 1.f, ks1 = 1.f;
+      if constexpr (kI8) {
+        ks0 = scl[ks * kWideRows + g];
+        ks1 = scl[ks * kWideRows + g + 8];
+      }
+      // K's slot is free: its reads ordered before the producer's next TMA write into it (without
+      // this fence an INT8 stage, whose slots the producer refills at once, now and then read a
+      // later lap's rows).
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(ks));
+      float* pp = part + par * W * 128;
+      {
+        float d[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          d[e] = c[TERMS - 1][e];  // the smallest terms' sum first
+#pragma unroll
+          for (int i = TERMS - 2; i >= 0; --i) d[e] += c[i][e];
+        }
+        *reinterpret_cast<float4*>(pp + (warp * 32 + lane) * 4) = make_float4(d[0], d[1], d[2], d[3]);
+      }
+      consumer_sync(NT);
+      float sum[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int w = 0; w < W; ++w) {
+        const float4 x = *reinterpret_cast<const float4*>(pp + (w * 32 + lane) * 4);
+        sum[0] += x.x;
+        sum[1] += x.y;
+        sum[2] += x.z;
+        sum[3] += x.w;
+      }
+      par ^= 1;
+      // The online softmax, as stage_mma's (INT8: K's row scale on the score, V's on the probability).
+      const bool v0 = g < n, v1 = g + 8 < n;
+      const float s[4] = {v0 ? sum[0] * ks0 : -INFINITY, v0 ? sum[1] * ks0 : -INFINITY,
+                          v1 ? sum[2] * ks1 : -INFINITY, v1 ? sum[3] * ks1 : -INFINITY};
+      float corr[2], p[4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float mx = fmaxf(s[j], s[j + 2]);
+#pragma unroll
+        for (int o_ = 4; o_ < 32; o_ <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o_));
+        const float m_new = fmaxf(mrun[j], mx);  // finite: the stage's row 0 is valid
+        corr[j] = expf(mrun[j] - m_new);
+        p[j] = v0 ? expf(s[j] - m_new) : 0.f;
+        p[j + 2] = v1 ? expf(s[j + 2] - m_new) : 0.f;
+        lrun[j] = lrun[j] * corr[j] + p[j] + p[j + 2];
+        mrun[j] = m_new;
+      }
+#pragma unroll
+      for (int mt = 0; mt < 8; ++mt) {
+        o[mt][0] *= corr[0];
+        o[mt][1] *= corr[1];
+        o[mt][2] *= corr[0];
+        o[mt][3] *= corr[1];
+      }
+      mbar_wait(full(vs), vph);
+      float vs0 = 1.f, vs1 = 1.f;
+      if constexpr (kI8) {
+        vs0 = scl[vs * kWideRows + g];
+        vs1 = scl[vs * kWideRows + g + 8];
+      }
+      uint32_t top[TERMS], bot[TERMS], b0[TERMS], b1[TERMS];
+      split_terms<TERMS>(v0 ? p[0] * vs0 : 0.f, v0 ? p[1] * vs0 : 0.f, top);
+      split_terms<TERMS>(v1 ? p[2] * vs1 : 0.f, v1 ? p[3] * vs1 : 0.f, bot);
+#pragma unroll
+      for (int i = 0; i < TERMS; ++i) {
+        b0[i] = movmatrix_trans(top[i]);
+        b1[i] = movmatrix_trans(bot[i]);
+      }
+      uint8_t* vst = ring + vs * L.slot;
+      if (!kI8 && n < kWideRows) {  // bf16 rows past the stage's last valid one: zero (P is 0, V may be NaN)
+        for (int k = lane; k < (kWideRows - n) * 16; k += 32) {  // (row, band of the warp's two, chunk)
+          const int r = n + k / 16, band = 2 * warp + (k >> 3 & 1);
+          *reinterpret_cast<uint4*>(vst + band * kBandBox + r * kBandBytes + (k & 7) * 16) = make_uint4(0u, 0u, 0u, 0u);
+        }
+        __syncwarp();
+      }
+      const uint32_t vb = smem_u32(vst);
+      if constexpr (kI8) {
+        const int row = (lane & 7) + 8 * (mi >> 1), half = mi & 1;
+#pragma unroll
+        for (int cp = 0; cp < 4; ++cp) {  // columns c0 + 32 cp .. + 31
+          uint32_t x[4];
+          ldsm_x4_trans(vb + warp * kBandBox + swz(row, 2 * cp + half), x);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) x[i] ^= 0x80808080u;
+          const uint32_t ae[4] = {i8_pair<0, 2>(x[0]), i8_pair<0, 2>(x[1]), i8_pair<0, 2>(x[2]), i8_pair<0, 2>(x[3])};
+          const uint32_t ao[4] = {i8_pair<1, 3>(x[0]), i8_pair<1, 3>(x[1]), i8_pair<1, 3>(x[2]), i8_pair<1, 3>(x[3])};
+#pragma unroll
+          for (int i = 0; i < TERMS; ++i) {
+            mma_bf16(o[2 * cp], ae, b0[i], b1[i]);
+            mma_bf16(o[2 * cp + 1], ao, b0[i], b1[i]);
+          }
+        }
+      } else {
+        const int row = (lane & 7) + 8 * (mi >> 1), half = mi & 1;
+#pragma unroll
+        for (int mt = 0; mt < 8; ++mt) {  // columns c0 + 16 mt .. + 15
+          uint32_t af[4];
+          ldsm_x4_trans(vb + (2 * warp + mt / 4) * kBandBox + swz(row, 2 * (mt % 4) + half), af);
+#pragma unroll
+          for (int i = 0; i < TERMS; ++i) mma_bf16(o[mt], af, b0[i], b1[i]);
+        }
+      }
+      // V's slot is free: its reads and zeroed rows ordered before the next TMA write into it.
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(vs));
+    }
+    if (tid == 0) stamp(a, 4);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int o_ = 4; o_ < 32; o_ <<= 1) lrun[j] += __shfl_xor_sync(0xffffffffu, lrun[j], o_);
+    // The split's partial: each warp its columns; m and l (equal in every warp) from warp 0.
+#pragma unroll
+    for (int mt = 0; mt < 8; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = 2 * t4 + (e & 1);
+        if (m < qm) a.ws_acc[(slot0 * qm + m) * hd + c0 + o_col<T>(mt, e, g)] = o[mt][e];
+      }
+    if (warp == 0 && g == 0)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        if (2 * t4 + j < qm) {
+          a.ws_ml[(slot0 * qm + 2 * t4 + j) * 2] = mrun[j];
+          a.ws_ml[(slot0 * qm + 2 * t4 + j) * 2 + 1] = lrun[j];
+        }
+  } else {
+    // f32 rows on the CUDA cores.  S: lane l holds stage row l % 16 and half l / 16 of the warp's
+    // columns (two 128-byte bands; one shuffle sums the halves); P.V: lane l holds columns
+    // c0 + 4 l .. + 3, the probabilities broadcast from the warp's scratch.
+    float* qs = reinterpret_cast<float*>(smem + L.q);  // the tile's q, scaled [qm][hd]
+    const float4 k4 = __ldg(reinterpret_cast<const float4*>(kn + c0) + lane);
+    for (int k = tid; k < qm * hd; k += NT) qs[k] = __ldg(a.q + qrow0 * hd + k) * a.scale;
     consumer_sync(NT);
-    if (tid == 0) stamp(a, 7);
+    for (int m = 0; m < qm; ++m) {  // lane l: columns c0 + 4 l .. + 3
+      const float4 q4 = *reinterpret_cast<const float4*>(qs + m * hd + c0 + 4 * lane);
+      float d = fmaf(q4.w, k4.w, fmaf(q4.z, k4.z, fmaf(q4.y, k4.y, q4.x * k4.x)));
+#pragma unroll
+      for (int o_ = 16; o_; o_ >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o_);
+      if (lane == 0) sparts[warp * kHeadsMma + m] = d;
+    }
+    float* pw = reinterpret_cast<float*>(smem + L.pw) + warp * kWideRows * kHeadsMma;  // [16][8]
+    const int r = lane & 15, half = lane >> 4;
+    float mrun[kHeadsMma], lrun[kHeadsMma], acc[kHeadsMma][4];
+#pragma unroll
+    for (int m = 0; m < kHeadsMma; ++m) {
+      mrun[m] = -INFINITY;
+      lrun[m] = 0.f;
+      acc[m][0] = acc[m][1] = acc[m][2] = acc[m][3] = 0.f;
+    }
+    const int vcol = c0 + 4 * lane, vband = vcol / 32, vch = vcol % 32 / 4;
+    for (int t = u.lo; t < u.hi; t += kWideRows) {
+      const int n = min(u.hi - t, kWideRows);
+      int ks, vs;
+      uint32_t kph, vph;
+      next(ks, kph);
+      next(vs, vph);
+      mbar_wait(full(ks), kph);
+      if (t == u.lo && tid == 0) stamp(a, 3);
+      const uint8_t* kst = ring + ks * L.slot;
+      float s[kHeadsMma];
+#pragma unroll
+      for (int m = 0; m < kHeadsMma; ++m) s[m] = 0.f;
+#pragma unroll 1
+      for (int hb = 0; hb < 2; ++hb) {  // one band's loads in flight at a time: a full unroll spilled
+        const int band = 4 * warp + 2 * half + hb;  // 32 columns a band
+#pragma unroll
+        for (int ch = 0; ch < 8; ++ch) {
+          const float4 kf = *reinterpret_cast<const float4*>(kst + band * kBandBox + swz(r, ch));
+          const float* qc = qs + band * 32 + 4 * ch;
+#pragma unroll
+          for (int m = 0; m < kHeadsMma; ++m)
+            if (m < qm) {
+              const float4 qv = *reinterpret_cast<const float4*>(qc + m * hd);
+              s[m] = fmaf(qv.x, kf.x, s[m]);
+              s[m] = fmaf(qv.y, kf.y, s[m]);
+              s[m] = fmaf(qv.z, kf.z, s[m]);
+              s[m] = fmaf(qv.w, kf.w, s[m]);
+            }
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // K's slot is free
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(ks));
+#pragma unroll
+      for (int m = 0; m < kHeadsMma; ++m) s[m] += __shfl_xor_sync(0xffffffffu, s[m], 16);  // both halves
+      float* pp = part + par * W * 128;  // [warps][16 rows][8 heads]
+      if (half == 0) {
+        *reinterpret_cast<float4*>(pp + (warp * 16 + r) * 8) = make_float4(s[0], s[1], s[2], s[3]);
+        *reinterpret_cast<float4*>(pp + (warp * 16 + r) * 8 + 4) = make_float4(s[4], s[5], s[6], s[7]);
+      }
+      consumer_sync(NT);
+#pragma unroll
+      for (int m = 0; m < kHeadsMma; ++m) s[m] = 0.f;
+      for (int w = 0; w < W; ++w) {
+        const float4 x0 = *reinterpret_cast<const float4*>(pp + (w * 16 + r) * 8);
+        const float4 x1 = *reinterpret_cast<const float4*>(pp + (w * 16 + r) * 8 + 4);
+        s[0] += x0.x;
+        s[1] += x0.y;
+        s[2] += x0.z;
+        s[3] += x0.w;
+        s[4] += x1.x;
+        s[5] += x1.y;
+        s[6] += x1.z;
+        s[7] += x1.w;
+      }
+      par ^= 1;
+      const bool valid = r < n;
+      float corr[kHeadsMma];
+#pragma unroll
+      for (int m = 0; m < kHeadsMma; ++m) {
+        corr[m] = 1.f;
+        if (m < qm) {
+          const float sv = valid ? s[m] : -INFINITY;
+          float mx = sv;
+#pragma unroll
+          for (int o_ = 8; o_; o_ >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o_));
+          const float m_new = fmaxf(mrun[m], mx);  // finite: the stage's row 0 is valid
+          corr[m] = expf(mrun[m] - m_new);
+          const float pr = valid ? expf(sv - m_new) : 0.f;
+          lrun[m] = lrun[m] * corr[m] + (half == 0 ? pr : 0.f);  // each row once: the lanes of half 0
+          mrun[m] = m_new;
+          if (half == 0) pw[r * kHeadsMma + m] = pr;
+        }
+      }
+      __syncwarp();
+#pragma unroll
+      for (int m = 0; m < kHeadsMma; ++m)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[m][j] *= corr[m];
+      mbar_wait(full(vs), vph);
+      const uint8_t* vst = ring + vs * L.slot + vband * kBandBox;
+      for (int i = 0; i < n; ++i) {
+        const float4 v = *reinterpret_cast<const float4*>(vst + swz(i, vch));
+        const float4 p0 = *reinterpret_cast<const float4*>(pw + i * kHeadsMma);
+        const float4 p1 = *reinterpret_cast<const float4*>(pw + i * kHeadsMma + 4);
+        const float pr[kHeadsMma] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+#pragma unroll
+        for (int m = 0; m < kHeadsMma; ++m)
+          if (m < qm) {
+            acc[m][0] = fmaf(pr[m], v.x, acc[m][0]);
+            acc[m][1] = fmaf(pr[m], v.y, acc[m][1]);
+            acc[m][2] = fmaf(pr[m], v.z, acc[m][2]);
+            acc[m][3] = fmaf(pr[m], v.w, acc[m][3]);
+          }
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // V's slot is free
+      __syncwarp();  // and pw is rewritten by the next stage
+      if (lane == 0) mbar_arrive(empty(vs));
+    }
+    if (tid == 0) stamp(a, 4);
+#pragma unroll
+    for (int m = 0; m < kHeadsMma; ++m)
+      if (m < qm) {
+        *reinterpret_cast<float4*>(a.ws_acc + (slot0 * qm + m) * hd + vcol) =
+            make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+        float l = lrun[m];
+#pragma unroll
+        for (int o_ = 16; o_; o_ >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o_);
+        if (warp == 0 && lane == 0) {
+          a.ws_ml[(slot0 * qm + m) * 2] = mrun[m];
+          a.ws_ml[(slot0 * qm + m) * 2 + 1] = l;
+        }
+      }
   }
+  consumer_sync(NT);
+  if (tid < qm) {
+    float d = 0.f;
+    for (int w = 0; w < W; ++w) d += sparts[w * kHeadsMma + tid];
+    sself[tid] = d;
+  }
+  merge_decode(a, u, hd, qrow0, sself, NT, flag);
 }
 
 // ------------------------------------------------------------------------- the window kernel
@@ -1986,12 +2513,22 @@ const void* pick_qm(int qm, int* smem, int* threads) {
   }
 }
 
+// The kernel past 256 at head_dim hd (a multiple of 128 up to kMaxWideHeadDim), any head tile up to 8.
+template <typename T, int NT>
+const void* pick_wide(int hd, int qm, int* smem, int* threads) {
+  if (hd <= 256 || hd % kWarpCols || hd > kMaxWideHeadDim || qm < 1 || qm > kHeadsMma) return nullptr;
+  const DecWide L = dec_wide<T>(hd);
+  *smem = L.bytes;
+  *threads = (L.warps + 1) * 32;
+  return reinterpret_cast<const void*>(&paged_decode_wide_kernel<T, NT>);
+}
+
 template <typename T, int NT = 2>
 const void* pick_hd(int hd, int qm, int* smem, int* threads) {
   switch (hd) {
     case 128: return pick_qm<T, 128, NT>(qm, smem, threads);
     case 256: return pick_qm<T, 256, NT>(qm, smem, threads);
-    default: return nullptr;
+    default: return pick_wide<T, NT>(hd, qm, smem, threads);
   }
 }
 
@@ -2072,7 +2609,8 @@ int launch(const void* fn, int grid, int threads, int smem, Args& a, void* strea
 }  // namespace
 
 // Plain C entry points.  cache_type 0 = f32, 1 = bf16, 2 = int8, 3 = int8 on three terms (#4's dense
-// layer); qm: query heads a block takes (1, 2, 4 or 8, dividing kv_mul).
+// layer); qm: query heads a block takes, dividing kv_mul (1, 2, 4 or 8 at head_dim 128/256 over f32;
+// up to 8 elsewhere); hd: 128, 256, or a multiple of 128 up to 1024 (the kernel past 256).
 
 // Blocks of the instance one SM holds at once (0 for an instance that does not exist).
 extern "C" int paged_decode_blocks_per_sm(int cache_type, int hd, int qm) {
@@ -2113,6 +2651,7 @@ extern "C" int paged_decode_split(const void* q, const void* k_new, const void* 
   a.stamps = reinterpret_cast<unsigned long long*>(stamps);
   a.kv_mul = kv_mul;
   a.qm = qm;
+  a.hd = hd;
   a.scale = scale;
   return launch(fn, grid, threads, smem, a, stream);
 }
@@ -2223,4 +2762,22 @@ extern "C" int paged_window_wide_layout(int cache_type, int* out) {
     case 2: wide_layout<int8_t>(out); return 0;
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The layout of the decode kernel past 256 for a cache type (0 = f32, 1 = bf16, 2 and 3 = int8) at
+// head_dim hd into out[5]: cache rows a stage, consumer warps, ring slots, a slot's bytes, the block's
+// shared memory bytes.  Returns 0, or cudaErrorInvalidValue.
+extern "C" int paged_decode_wide_layout(int cache_type, int hd, int* out) {
+  if (hd <= 256 || hd % kWarpCols || hd > kMaxWideHeadDim) return (int)cudaErrorInvalidValue;
+  DecWide d;
+  switch (cache_type) {
+    case 0: d = dec_wide<float>(hd); break;
+    case 1: d = dec_wide<__nv_bfloat16>(hd); break;
+    case 2:
+    case kExactInt8: d = dec_wide<int8_t>(hd); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  const int v[5] = {kWideRows, d.warps, d.slots, d.slot, d.bytes};
+  for (int i = 0; i < 5; ++i) out[i] = v[i];
+  return 0;
 }

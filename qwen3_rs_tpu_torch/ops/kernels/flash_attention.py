@@ -9,16 +9,18 @@ and INT8 caches; an INT8 cache passes per-row scales ``[L, B, n_kv, T]``, and
 the K scale multiplies the score, the V scale the probability.
 
 For a CPU tensor the wrapper runs the plain PyTorch version; for a CUDA
-tensor it launches a kernel or raises.  At head_dim 128 and 256 over a cache
-of a multiple of 16 rows (``one_launch_takes``) that is the one-launch decode
-kernel of ``csrc/paged_decode.cu`` (#9's), on the layer ``[B, n_kv, T, hd]``
-viewed as a pool of B pages of T rows, request b's page being b: a split
-plan made on the device from the positions over the live rows only, TMA
-copies, the last block of each kv head merging its splits.  Elsewhere it is
-the two-pass kernel of ``csrc/flash_decode.cu`` (``flash_decode_two_pass``,
-which ``chip_smoke.py`` also times beside the other).  Both take any number
-of query heads per kv head, and the two-pass kernel every head_dim that is a
-multiple of 128 (``takes_head_dim``; past 512 in 128-column blocks).
+tensor it launches a kernel or raises.  At every head_dim that is a multiple
+of 128 up to 1024 over a cache of a multiple of 16 rows
+(``one_launch_takes``) that is the one-launch decode kernel of
+``csrc/paged_decode.cu`` (#9's; past 256 its kernel past 256), on the layer
+``[B, n_kv, T, hd]`` viewed as a pool of B pages of T rows, request b's page
+being b: a split plan made on the device from the positions over the live
+rows only, TMA copies, the last block of each kv head merging its splits.
+Elsewhere it is the two-pass kernel of ``csrc/flash_decode.cu``
+(``flash_decode_two_pass``, which ``chip_smoke.py`` also times beside the
+other).  Both take any number of query heads per kv head, and the two-pass
+kernel every head_dim that is a multiple of 128 (``takes_head_dim``; past
+512 in 128-column blocks).
 ``decode_supported`` is the reference package's gate, copied; the forward
 asks it without its minimum window (``MIN_SEQ_LEN``, a speed choice on the
 reference's chip, not a limit of either kernel), and a shape it refuses takes
@@ -118,11 +120,12 @@ def _need(cond: bool, msg: str) -> None:
 def one_launch_takes(hd: int, t_max: int) -> bool:
     """Whether ``flash_decode`` launches the one-launch decode kernel for a
     cache of ``t_max`` rows at head_dim ``hd`` (else the two-pass kernel):
-    the one-launch kernel's head_dims and pages, with the whole layer as a
-    request's one page, over f32, bf16 and INT8 caches alike.  An INT8
-    cache's tensor-core stage splits q and P into three bf16 terms: with two
-    its output missed the 1e-5 that #4 is held to (1.18e-5 at T = 208, 3
-    query heads a kv head, on the card)."""
+    the one-launch kernel's head_dims and pages (``split_kernel_takes``:
+    every multiple of 128 up to 1024, past 256 on the kernel past 256), with
+    the whole layer as a request's one page, over f32, bf16 and INT8 caches
+    alike.  An INT8 cache's tensor-core stage splits q and P into three bf16
+    terms: with two its output missed the 1e-5 that #4 is held to (1.18e-5
+    at T = 208, 3 query heads a kv head, on the card)."""
     return paged_attention.split_kernel_takes(hd, t_max)
 
 

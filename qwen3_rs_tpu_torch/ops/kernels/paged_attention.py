@@ -17,18 +17,26 @@ probability.
   the window in plain PyTorch, as the reference package merges them in XLA
   outside its kernel.
 
-At head_dim 128 and 256 over pages of a multiple of 16 rows, ``paged_decode``
-(and ``flash_decode`` over the dense cache, a layer viewed as one page a
-request: ``one_launch`` without a table) is one launch of
-``csrc/paged_decode.cu`` (``SPLIT_HEAD_DIMS``): a grid that
-fills the card, split over the live rows on the device (``decode_units`` is
-the plan in Python; ``paged_decode_kernel_plan`` reads the kernel's own),
-whole pages brought by TMA, the splits merged by the last block of each
-(request, kv head, head tile).  Its stage compute follows the pool:
-``mma.sync`` for bf16 and INT8 pools (q and P in two bf16 terms, three for
-an INT8 dense layer: ``bf16_terms``), the CUDA cores for f32 pools, whose
-rows are not exact in bf16.  ``paged_window_partials`` over pages of a
-multiple of 16 rows, at every head_dim and over every pool type
+At every head_dim that is a multiple of 128 up to ``WIDE_MAX_HEAD_DIM``
+over pages of a multiple of 16 rows (``split_kernel_takes``),
+``paged_decode`` (and ``flash_decode`` over the dense cache, a layer viewed
+as one page a request: ``one_launch`` without a table) is one launch of
+``csrc/paged_decode.cu``: a grid that fills the card, split over the live
+rows on the device (``decode_units`` is the plan in Python;
+``paged_decode_kernel_plan`` reads the kernel's own), whole pages brought by
+TMA, the splits merged by the last block of each (request, kv head, head
+tile).  Its stage compute follows the pool: ``mma.sync`` for bf16 and INT8
+pools (q and P in two bf16 terms, three for an INT8 dense layer:
+``bf16_terms``), the CUDA cores for f32 pools, whose rows are not exact in
+bf16.  At 128 and 256 (``SPLIT_HEAD_DIMS``) a stage is whole rows and each
+warp keeps the whole O; past 256 (the kernel past 256) a stage is
+``WIDE_ROWS`` rows, its K and its V a ring slot each
+(``decode_wide_layout``), and each of hd / 128 consumer warps owns 128
+columns: the warps' partial scores summed in shared memory, the same
+softmax in each, P.V over a warp's own columns; a block takes every query
+head of its kv head up to 8 (``decode_qm``), so each K/V row is read once.
+``paged_window_partials`` over pages of a multiple of 16 rows, at every
+head_dim and over every pool type
 (``window_split_takes``: the window route's own head_dims, wider than the
 decode's), is one launch of the window kernel of the same source, on the
 same plan with row tiles of ``WINDOW_ROW_TILE`` query rows in place of head
@@ -45,7 +53,7 @@ of ``csrc/paged_attention.cu``, which share their first pass.
 For a CPU tensor a wrapper runs its plain PyTorch version; for a CUDA tensor
 it launches its kernel or raises.  They take any number of query heads per
 kv head and every head_dim that is a multiple of 128 (``takes_head_dim``;
-the two-pass kernels past 512 in 128-column blocks); unlike the Pallas
+the two-pass kernels past 1024 in 128-column blocks); unlike the Pallas
 kernels they take any page size (the JAX gate asks for multiples of 128).
 """
 
@@ -62,8 +70,12 @@ from . import LAUNCHES, build
 from .qmatmul import _sm_count
 
 CHUNK = 128  # cache rows per block of the two-pass kernels' first pass
-SPLIT_HEAD_DIMS = (128, 256)  # head_dims of the one-launch decode kernel
+SPLIT_HEAD_DIMS = (128, 256)  # head_dims of the one-launch decode kernel's whole-row instances
 SPLIT_ROWS = 16  # the one-launch kernel's split sizes and page sizes are multiples of it
+WIDE_MAX_HEAD_DIM = 1024  # the decode kernel past 256 takes multiples of 128 up to this (one warp a 128 columns)
+WIDE_ROWS = 16  # cache rows of a stage of the decode kernel past 256
+WIDE_MAX_SLOTS = 12  # its ring slots at most (a slot holds a stage's K or its V)
+WIDE_BLOCK_BYTES = 112 * 1024  # its block's shared memory at most where the ring has more than 2 slots
 WINDOW_ROW_TILE = 64  # query rows a block of the one-launch window kernel takes
 WINDOW_WIDE_COLS = 256  # output columns a block of the window kernel takes past head_dim 256
 WINDOW_MIN_SPAN = 128  # a window split's least rows (2 stages): its partial is WINDOW_ROW_TILE rows by hd
@@ -186,26 +198,32 @@ def paged_window_partials_plain(
     return m, l, torch.einsum("bnrt,bnth->bnrh", p, vc)
 
 
-def decode_qm(kv_mul: int) -> int:
-    """Query heads a block of the decode kernels takes: the largest power of
-    two that divides kv_mul, at most 8."""
+def decode_qm(kv_mul: int, hd: int = 128) -> int:
+    """Query heads a block of the decode kernels takes: at head_dim 128 and
+    256 the largest power of two that divides kv_mul, at most 8; past 256
+    the largest divisor of kv_mul up to 8 (the heads padded to 8 on
+    ``mma.sync``), so that the kernel past 256 reads each K/V row of a kv
+    head once wherever kv_mul ≤ 8."""
+    if hd > 256:
+        return max(d for d in range(1, 9) if kv_mul % d == 0)
     return min(kv_mul & -kv_mul, 8)
 
 
-def decode_grid(b: int, n_kv: int, kv_mul: int, sms: int, blocks_per_sm: int) -> int:
+def decode_grid(b: int, n_kv: int, kv_mul: int, sms: int, blocks_per_sm: int, hd: int = 128) -> int:
     """Blocks of one launch of the one-launch decode kernel: as many as the
     card holds at once, and at least one per (request, kv head, head tile)."""
-    return max(sms * blocks_per_sm, b * n_kv * (kv_mul // decode_qm(kv_mul)))
+    return max(sms * blocks_per_sm, b * n_kv * (kv_mul // decode_qm(kv_mul, hd)))
 
 
-def decode_plan(pos: list[int], n_kv: int, kv_mul: int, page: int, max_pages: int, grid: int) -> tuple[int, list[int]]:
+def decode_plan(pos: list[int], n_kv: int, kv_mul: int, page: int, max_pages: int, grid: int,
+                hd: int = 128) -> tuple[int, list[int]]:
     """The one-launch kernel's plan from the positions: (span, splits per
     request), as every block of a launch of ``grid`` blocks makes it.  A request's live rows
     ``min(pos, max_pages·page)`` are cut into splits of ``span`` rows (one
     split when it has none); span is the least multiple of ``SPLIT_ROWS``
     for which the splits of every request, kv head and head tile fit the
     grid."""
-    return _plan(pos, n_kv * (kv_mul // decode_qm(kv_mul)), page, max_pages, grid)
+    return _plan(pos, n_kv * (kv_mul // decode_qm(kv_mul, hd)), page, max_pages, grid)
 
 
 def _plan(pos: list[int], per: int, page: int, max_pages: int, grid: int,
@@ -229,11 +247,12 @@ def _plan(pos: list[int], per: int, page: int, max_pages: int, grid: int,
     return lo * SPLIT_ROWS, splits(lo * SPLIT_ROWS)
 
 
-def decode_units(pos: list[int], n_kv: int, kv_mul: int, page: int, max_pages: int, grid: int) -> list[tuple]:
+def decode_units(pos: list[int], n_kv: int, kv_mul: int, page: int, max_pages: int, grid: int,
+                 hd: int = 128) -> list[tuple]:
     """The units of ``decode_plan``, block u taking the u-th: (b, kv head,
     head tile, split, splits, first row, end row, workspace slot of split 0,
     arrival counter), in (request, kv head, head tile, split) order."""
-    return _units(pos, n_kv, kv_mul // decode_qm(kv_mul), page, max_pages, grid)
+    return _units(pos, n_kv, kv_mul // decode_qm(kv_mul, hd), page, max_pages, grid)
 
 
 def _units(pos: list[int], n_kv: int, tiles: int, page: int, max_pages: int, grid: int,
@@ -254,14 +273,38 @@ def _units(pos: list[int], n_kv: int, tiles: int, page: int, max_pages: int, gri
 def decode_workspace_floats(grid: int, kv_mul: int, hd: int) -> tuple[int, int]:
     """Floats of the one-launch kernel's two workspaces: (m, l) and acc of
     one split partial a block."""
-    qm = decode_qm(kv_mul)
+    qm = decode_qm(kv_mul, hd)
     return grid * qm * 2, grid * qm * hd
 
 
 def split_kernel_takes(hd: int, page: int) -> bool:
     """Whether ``paged_decode`` launches the one-launch kernel for a pool of
-    head_dim ``hd`` and pages of ``page`` rows (else the two-pass kernels)."""
-    return hd in SPLIT_HEAD_DIMS and page % SPLIT_ROWS == 0
+    head_dim ``hd`` and pages of ``page`` rows (else the two-pass kernels):
+    every multiple of 128 up to ``WIDE_MAX_HEAD_DIM`` (past 256 the kernel
+    past 256), pages of a multiple of ``SPLIT_ROWS``."""
+    return takes_head_dim(hd) and hd <= WIDE_MAX_HEAD_DIM and page % SPLIT_ROWS == 0
+
+
+def decode_wide_layout(dtype, hd: int) -> dict:
+    """The decode kernel's shared memory past head_dim 256 (``dec_wide`` in
+    csrc/paged_decode.cu) for a pool of ``dtype`` at head_dim ``hd``: cache
+    rows a stage (``WIDE_ROWS``), consumer warps (one a 128 columns), ring
+    slots (each a stage's K or V: 16 rows of the head), a slot's bytes, and
+    the block's bytes: a 1 KB head (barriers, the unit, q·k_self), the
+    stages' partial scores (two buffers of 128 floats a warp), for f32 each
+    warp's P (16 × 8 floats) and q (8 heads × hd), for INT8 the slots' row
+    scales (``WIDE_MAX_SLOTS`` × 16 floats), 1 KB of alignment, and as many
+    slots as keep the block within ``WIDE_BLOCK_BYTES`` (2 to
+    ``WIDE_MAX_SLOTS``)."""
+    if not (takes_head_dim(hd) and 256 < hd <= WIDE_MAX_HEAD_DIM):
+        raise ValueError(f"decode_wide_layout: head_dim {hd}")
+    esz = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}[dtype]
+    warps, slot = hd // 128, WIDE_ROWS * hd * esz
+    ring = 1024 + 2 * warps * 128 * 4
+    ring += warps * WIDE_ROWS * 8 * 4 + 8 * hd * 4 if esz == 4 else WIDE_MAX_SLOTS * WIDE_ROWS * 4 if esz == 1 else 0
+    slots = min(WIDE_MAX_SLOTS, max(2, (WIDE_BLOCK_BYTES - ring - 1024) // slot))
+    return {"rows": WIDE_ROWS, "warps": warps, "slots": slots, "slot_bytes": slot,
+            "smem": ring + 1024 + slots * slot}
 
 
 def window_split_takes(hd: int, page: int, dtype) -> bool:
@@ -270,7 +313,7 @@ def window_split_takes(hd: int, page: int, dtype) -> bool:
     (past 256 in column slices: ``window_slices``), pages of a multiple of
     ``SPLIT_ROWS``, every pool type (an f32 pool's rows, not exact in bf16,
     go to the tensor cores as bf16 hi and lo, each product in three
-    terms).  The decode's one-launch kernel keeps ``SPLIT_HEAD_DIMS``."""
+    terms)."""
     return takes_head_dim(hd) and page % SPLIT_ROWS == 0 and dtype in _CACHE_TYPES
 
 
@@ -387,7 +430,7 @@ def split_grid(dev: torch.device, pool_dtype: torch.dtype, hd: int, b: int, n_kv
     dense layer."""
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     return decode_grid(b, n_kv, kv_mul, _sm_count(index),
-                       _blocks_per_sm(index, _cache_type(pool_dtype, dense), hd, decode_qm(kv_mul)))
+                       _blocks_per_sm(index, _cache_type(pool_dtype, dense), hd, decode_qm(kv_mul, hd)), hd)
 
 
 def _cache_type(dtype: torch.dtype, dense: bool) -> int:
@@ -398,13 +441,14 @@ def _cache_type(dtype: torch.dtype, dense: bool) -> int:
 
 
 def paged_decode_kernel_plan(pos: torch.Tensor, n_kv: int, kv_mul: int, page: int, max_pages: int,
-                             grid: int) -> list[tuple]:
+                             grid: int, hd: int = 128) -> list[tuple]:
     """The plan the one-launch kernel's blocks make from ``pos`` (int32 [B]
-    on the card) in a launch of ``grid`` blocks, read back: the units of the
-    blocks that took one, in block order, as ``decode_units`` gives them
-    (card only; a block past the last unit must take none)."""
+    on the card) in a launch of ``grid`` blocks at head_dim ``hd``, read
+    back: the units of the blocks that took one, in block order, as
+    ``decode_units`` gives them (card only; a block past the last unit must
+    take none)."""
     return _kernel_plan("paged_decode_plan", pos, grid, lambda lib, units, stream: lib.paged_decode_plan(
-        pos.data_ptr(), pos.shape[0], n_kv, kv_mul, decode_qm(kv_mul), page, max_pages, grid, units, stream))
+        pos.data_ptr(), pos.shape[0], n_kv, kv_mul, decode_qm(kv_mul, hd), page, max_pages, grid, units, stream))
 
 
 def paged_window_kernel_plan(pos: torch.Tensor, n_kv: int, r: int, page: int, max_pages: int,
@@ -414,6 +458,14 @@ def paged_window_kernel_plan(pos: torch.Tensor, n_kv: int, r: int, page: int, ma
     back as ``window_units`` gives it (card only)."""
     return _kernel_plan("paged_window_plan", pos, grid, lambda lib, units, stream: lib.paged_window_plan(
         pos.data_ptr(), pos.shape[0], n_kv, r, hd, page, max_pages, grid, units, stream))
+
+
+def decode_wide_kernel_layout(dtype, hd: int) -> dict:
+    """``decode_wide_layout`` as the kernel's source makes it (card only:
+    the built library's ``paged_decode_wide_layout``)."""
+    out = (ctypes.c_int * 5)()
+    build.check(_split_lib().paged_decode_wide_layout(_CACHE_TYPES[dtype], hd, out), "paged_decode_wide_layout")
+    return dict(zip(("rows", "warps", "slots", "slot_bytes", "smem"), list(out)))
 
 
 def window_wide_kernel_layout(dtype) -> dict:
@@ -470,6 +522,8 @@ def _split_lib() -> ctypes.CDLL:
     lib.paged_window_plan.restype = ctypes.c_int
     lib.paged_window_wide_layout.argtypes = [i, p]
     lib.paged_window_wide_layout.restype = ctypes.c_int
+    lib.paged_decode_wide_layout.argtypes = [i, i, p]
+    lib.paged_decode_wide_layout.restype = ctypes.c_int
     return lib
 
 
@@ -582,7 +636,7 @@ def one_launch(qf, kn, vn, k_pool, ptrs, page_table, pos, kv_mul, out, stamps, k
     k, v, ks, vs = ptrs
     b, n_kv, hd = kn.shape
     page, max_pages = k_pool.shape[3], 1 if page_table is None else page_table.shape[1]
-    qm = decode_qm(kv_mul)
+    qm = decode_qm(kv_mul, hd)
     grid = split_grid(qf.device, k_pool.dtype, hd, b, n_kv, kv_mul, page_table is None)
     if stamps is not None and stamps.shape != (grid, 8):
         raise ValueError(f"paged_decode: stamps must be [{grid}, 8]")

@@ -1413,33 +1413,58 @@ def _cache_of(gen, card, kind, shape):
     return k, v, None
 
 
+def _one_launch_spy(monkeypatch) -> list:
+    """The grids of the one-launch decode kernel's launches from now on (``paged_attention.one_launch``,
+    which #9 and #4 both call; past head_dim 256 its C entry point takes the kernel past 256)."""
+    from qwen3_rs_tpu_torch.ops.kernels import paged_attention as pa
+
+    grids, real = [], pa.one_launch
+
+    def spy(*args, **kwargs):
+        grids.append(real(*args, **kwargs))
+        return grids[-1]
+
+    monkeypatch.setattr(pa, "one_launch", spy)
+    return grids
+
+
 @pytest.mark.parametrize("hd", [256, 384, 512, 640, 1024])
 @pytest.mark.parametrize("cache", ["f32", "bf16", "int8"])
 @pytest.mark.parametrize("kv_mul", [1, 3, 4, 8])
-def test_flash_decode_head_dims_match_plain(card, hd, cache, kv_mul):
+def test_flash_decode_head_dims_match_plain(card, monkeypatch, hd, cache, kv_mul):
+    """#4 past head_dim 128 over caches of T = 300 rows (the two-pass kernel) and T = 304 (a multiple
+    of 16: one launch of the one-launch kernel, past 256 its kernel past 256), at 1e-5, v_self at
+    pos 0."""
     gen = _gen(hd + kv_mul * 3 + len(cache))
-    n_kv, t, pos_list = 2, 300, [0, 1, 129, 300]
-    b = len(pos_list)
-    k_all, v_all, sc = _cache_of(gen, card, cache, (2, b, n_kv, t, hd))
-    sc = {} if sc is None else dict(zip(("k_scale_all", "v_scale_all"), sc))
-    q = torch.randn(b, n_kv * kv_mul, hd, generator=gen, device=card)
-    kn, vn = torch.randn(2, b, n_kv, hd, generator=gen, device=card)
-    pos = torch.tensor(pos_list, dtype=torch.int32, device=card)
-    got = flash_decode(q, kn, vn, k_all, v_all, pos, 1, **sc)
-    ref = flash_decode_plain(q, kn, vn, k_all, v_all, pos, 1, **sc)
-    torch.cuda.synchronize()
-    assert float((got - ref).abs().max()) <= 1e-5 * max(1.0, float(ref.abs().max()))
-    assert torch.equal(got[0], vn[0].repeat_interleave(kv_mul, dim=0))  # pos 0: v_self
+    n_kv = 2
+    grids = _one_launch_spy(monkeypatch)
+    for t in (300, 304):
+        pos_list = [0, 1, 129, t]
+        b = len(pos_list)
+        k_all, v_all, sc = _cache_of(gen, card, cache, (2, b, n_kv, t, hd))
+        sc = {} if sc is None else dict(zip(("k_scale_all", "v_scale_all"), sc))
+        q = torch.randn(b, n_kv * kv_mul, hd, generator=gen, device=card)
+        kn, vn = torch.randn(2, b, n_kv, hd, generator=gen, device=card)
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=card)
+        before, ran = LAUNCHES["flash_decode"], len(grids)
+        got = flash_decode(q, kn, vn, k_all, v_all, pos, 1, **sc)
+        assert LAUNCHES["flash_decode"] == before + 1
+        assert len(grids) == ran + (t % 16 == 0), t  # the one-launch kernel exactly where T is a multiple of 16
+        ref = flash_decode_plain(q, kn, vn, k_all, v_all, pos, 1, **sc)
+        torch.cuda.synchronize()
+        assert float((got - ref).abs().max()) <= 1e-5 * max(1.0, float(ref.abs().max())), t
+        assert torch.equal(got[0], vn[0].repeat_interleave(kv_mul, dim=0)), t  # pos 0: v_self
 
 
 @pytest.mark.parametrize("hd", [256, 384, 512, 640, 1024])
 @pytest.mark.parametrize("pool", ["f32", "bf16", "int8"])
 @pytest.mark.parametrize("page", [16, 128])
 @pytest.mark.parametrize("kv_mul,s", [(1, 3), (4, 8), (5, 2), (4, 32)])
-def test_paged_kernels_head_dims_match_plain(card, hd, pool, page, kv_mul, s):
+def test_paged_kernels_head_dims_match_plain(card, monkeypatch, hd, pool, page, kv_mul, s):
     """#9 and #10 at head_dims past 128 (pages of 16 and 128 rows, shuffled
     tables, up to R = 128 window rows a kv head: two row tiles), each one
-    launch a call."""
+    launch a call, #9's of the one-launch kernel (past 256 its kernel past
+    256), v_self at pos 0."""
     gen = _gen(hd + kv_mul + s + len(pool) + page)
     max_pages, pos_list = -(-300 // page), [0, 1, 129, 300]
     b = len(pos_list)
@@ -1450,12 +1475,14 @@ def test_paged_kernels_head_dims_match_plain(card, hd, pool, page, kv_mul, s):
     pos = torch.tensor(pos_list, dtype=torch.int32, device=card)
     q = torch.randn(b, 2 * kv_mul, hd, generator=gen, device=card)
     kn, vn = torch.randn(2, b, 2, hd, generator=gen, device=card)
+    grids = _one_launch_spy(monkeypatch)
     before = LAUNCHES["paged_decode"]
     got = paged_decode(q, kn, vn, k, v, table, pos, 1, **sc)
-    assert LAUNCHES["paged_decode"] == before + 1
+    assert LAUNCHES["paged_decode"] == before + 1 and len(grids) == 1  # one launch of the one-launch kernel
     ref = paged_decode_plain(q, kn, vn, k, v, table, pos, 1, **sc)
     torch.cuda.synchronize()
     assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    assert torch.equal(got[0], vn[0].repeat_interleave(kv_mul, dim=0))  # pos 0: v_self
     qw = torch.randn(b, s, 2 * kv_mul, hd, generator=gen, device=card)
     before = LAUNCHES["paged_window_partials"]
     got = paged_window_partials(qw, k, v, table, pos, 1, **sc)
@@ -1528,6 +1555,116 @@ def test_prefill_wide_plan_is_the_kernels(card):
 
     for hd in range(384, 2049, 128):
         assert wide_kernel_plan(hd) == wide_plan(hd), hd
+
+
+def test_decode_wide_layout_is_the_kernels(card):
+    """The decode kernel's shared memory past head_dim 256, as its source lays it out, is
+    ``decode_wide_layout``'s for each pool type at every head_dim it takes; and it fits a block."""
+    from qwen3_rs_tpu_torch.ops.kernels.paged_attention import decode_wide_kernel_layout, decode_wide_layout
+
+    for dt in (torch.float32, torch.bfloat16, torch.int8):
+        for hd in range(384, 1025, 128):
+            got = decode_wide_kernel_layout(dt, hd)
+            assert got == decode_wide_layout(dt, hd), (dt, hd)
+            assert got["smem"] <= 232448
+
+
+@pytest.mark.parametrize(
+    "pos,n_kv,kv_mul,grid",
+    [
+        ([0, 1, 127, 128, 129, 1000, 2049, 4095], 8, 4, 264),
+        ([0, 0, 0], 2, 3, 132),
+        ([5000, 17, 300], 2, 12, 132),  # head tiles of 6
+        (list(range(0, 200 * 20, 20)), 2, 5, 800),  # more than 128 requests, 5 heads a tile
+    ],
+)
+def test_paged_decode_wide_plan_is_decode_units(card, pos, n_kv, kv_mul, grid):
+    """Past head_dim 256 the kernel's blocks plan with head tiles of the largest divisor of kv_mul
+    up to 8 (``decode_qm(kv_mul, hd)``): the plan read back is ``decode_units``' at head_dim 640."""
+    from qwen3_rs_tpu_torch.ops.kernels.paged_attention import decode_grid, decode_units, paged_decode_kernel_plan
+
+    page, max_pages, hd = 128, 32, 640
+    grid = max(grid, decode_grid(len(pos), n_kv, kv_mul, 1, 1, hd))
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=card)
+    assert paged_decode_kernel_plan(pos_t, n_kv, kv_mul, page, max_pages, grid, hd) == decode_units(
+        pos, n_kv, kv_mul, page, max_pages, grid, hd)
+
+
+@pytest.mark.parametrize("cache", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("kind", ["paged", "dense"])
+def test_decode_past_256_replays_from_a_graph(card, kind, cache):
+    """#9 (a page-128 pool) and #4 (a dense cache) at head_dim 640 on the kernel past 256: two calls
+    equal bit for bit, the arrival counters zero after each, and a CUDA graph's replay of the launch
+    gives the same output, the counters still zero (positions that take several splits)."""
+    from qwen3_rs_tpu_torch.ops.kernels import paged_attention as pa
+
+    gen = _gen(640 + len(kind) + len(cache))
+    hd, n_kv, kv_mul, pos_list = 640, 2, 4, [4095, 1000, 0, 2049]
+    b = len(pos_list)
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=card)
+    q = torch.randn(b, n_kv * kv_mul, hd, generator=gen, device=card)
+    kn, vn = torch.randn(2, b, n_kv, hd, generator=gen, device=card)
+    if kind == "paged":
+        page, max_pages = 128, 32
+        n_pages = 1 + b * max_pages
+        k, v, sc = _cache_of(gen, card, cache, (2, n_pages, n_kv, page, hd))
+        sc = {} if sc is None else dict(zip(("k_scale_pool", "v_scale_pool"), sc))
+        table = _tables(gen, card, b, max_pages, n_pages)
+        call = lambda: paged_decode(q, kn, vn, k, v, table, pos, 1, **sc)
+        ref = paged_decode_plain(q, kn, vn, k, v, table, pos, 1, **sc)
+        tol = 1e-4 * float(ref.abs().max())
+    else:
+        k, v, sc = _cache_of(gen, card, cache, (2, b, n_kv, 4096, hd))
+        sc = {} if sc is None else dict(zip(("k_scale_all", "v_scale_all"), sc))
+        call = lambda: flash_decode(q, kn, vn, k, v, pos, 1, **sc)
+        ref = flash_decode_plain(q, kn, vn, k, v, pos, 1, **sc)
+        tol = 1e-5 * max(1.0, float(ref.abs().max()))
+    first = call()
+    torch.cuda.synchronize()
+    assert float((first - ref).abs().max()) <= tol
+    assert torch.equal(first[2], vn[2].repeat_interleave(kv_mul, dim=0))  # pos 0: v_self
+    assert int(pa._DECODE_COUNTERS[first.device].abs().sum()) == 0
+    again = call()
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    assert int(pa._DECODE_COUNTERS[first.device].abs().sum()) == 0
+    out = {}
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        call()  # warm-up on the capture stream
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            out["x"] = call()
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out["x"], first)
+    assert int(pa._DECODE_COUNTERS[first.device].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("pool,hd", [("int8", 512), ("int8", 640), ("bf16", 640), ("f32", 512)])
+def test_decode_past_256_repeats_with_a_full_ring(card, pool, hd):
+    """#9 past head_dim 256 at the 8B's 8 kv heads and 32 query heads over splits of ~17 stages, where
+    the producer refills each slot as soon as it is released (an INT8 pool's stages are consumed
+    slower than they load): 20 launches equal bit for bit and within 1e-4·max|ref|.  Without the
+    proxy fence before each slot's release, 8 of 40 INT8 launches at 512 and 36 of 40 at 640 read
+    a later lap's rows in some stage."""
+    gen = _gen(hd + len(pool) + 4095)
+    page, max_pages, n_kv, kv_mul = 128, 32, 8, 4
+    pos_list = [0, 1, 127, 128, 129, 1000, 2049, 4095]
+    b = len(pos_list)
+    n_pages = 1 + b * max_pages
+    k, v, sc = _cache_of(gen, card, pool, (2, n_pages, n_kv, page, hd))
+    sc = {} if sc is None else dict(zip(("k_scale_pool", "v_scale_pool"), sc))
+    table = _tables(gen, card, b, max_pages, n_pages)
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=card)
+    q = torch.randn(b, n_kv * kv_mul, hd, generator=gen, device=card)
+    kn, vn = torch.randn(2, b, n_kv, hd, generator=gen, device=card)
+    ref = paged_decode_plain(q, kn, vn, k, v, table, pos, 1, **sc)
+    outs = [paged_decode(q, kn, vn, k, v, table, pos, 1, **sc) for _ in range(20)]
+    torch.cuda.synchronize()
+    assert float((outs[0] - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
 
 
 def test_window_wide_layout_is_the_kernels(card):
@@ -1747,9 +1884,9 @@ def test_probe_wrappers_refuse_what_they_cannot_take(card):
 @pytest.mark.parametrize("kv_mul", [1, 2, 4, 8])
 def test_paged_decode_batches_match_plain(card, pool, hd, page, kv_mul):
     """#9 at every B from 1 to 8 over positions 0, 1, 127, 128, 129, a page
-    boundary and max_pages·page (the one-launch kernel at head_dim 128 and
-    256, on the CUDA cores for f32 pools and mma.sync for bf16 and INT8; pages
-    of 8 rows: the two-pass kernels at every head_dim): within 1e-4·max|ref|
+    boundary and max_pages·page (the one-launch kernel at every head_dim here,
+    past 256 its kernel past 256, on the CUDA cores for f32 pools and mma.sync
+    for bf16 and INT8; pages of 8 rows: the two-pass kernels): within 1e-4·max|ref|
     of the plain version, exactly v_self at pos 0, each call one launch, two
     launches equal bit for bit."""
     gen = _gen(hd + 7 * kv_mul + page + len(pool))

@@ -19,7 +19,7 @@ from qwen3_rs_tpu_torch.ops.kernels.flash_attention import (
     flash_decode_two_pass,
     one_launch_takes,
 )
-from qwen3_rs_tpu_torch.ops.kernels.paged_attention import SPLIT_HEAD_DIMS, paged_decode_plain
+from qwen3_rs_tpu_torch.ops.kernels.paged_attention import WIDE_MAX_HEAD_DIM, paged_decode_plain
 
 torch.set_num_threads(2)
 
@@ -29,13 +29,13 @@ POS = [0, 1, BLK + 3, T - 1]  # one batch row each
 TOL = 1e-5
 
 
-def _inputs(seed, kv_mul, cache):
+def _inputs(seed, kv_mul, cache, hd=HD):
     rng = np.random.default_rng(seed)
     b, h = len(POS), N_KV * kv_mul
-    q = rng.normal(0, 1, (b, h, HD)).astype(np.float32)
-    kn = rng.normal(0, 1, (b, N_KV, HD)).astype(np.float32)
-    vn = rng.normal(0, 1, (b, N_KV, HD)).astype(np.float32)
-    shape = (L, b, N_KV, T, HD)
+    q = rng.normal(0, 1, (b, h, hd)).astype(np.float32)
+    kn = rng.normal(0, 1, (b, N_KV, hd)).astype(np.float32)
+    vn = rng.normal(0, 1, (b, N_KV, hd)).astype(np.float32)
+    shape = (L, b, N_KV, T, hd)
     scales = {}
     if cache == "int8":
         k = rng.integers(-127, 128, shape).astype(np.int8)
@@ -53,7 +53,19 @@ def _inputs(seed, kv_mul, cache):
 @pytest.mark.parametrize("kv_mul", [1, 2, 4])
 @pytest.mark.parametrize("cache", ["f32", "bf16", "int8"])
 def test_plain_matches_flash_gqa_decode_stacked(kv_mul, cache):
-    q, kn, vn, k, v, scales = _inputs(kv_mul, kv_mul, cache)
+    _plain_matches_flash_gqa_decode_stacked(kv_mul, cache, HD, kv_mul)
+
+
+@pytest.mark.parametrize("hd", [384, 640])
+@pytest.mark.parametrize("cache", ["f32", "bf16", "int8"])
+def test_plain_matches_flash_gqa_decode_stacked_past_256(hd, cache):
+    """As above at head_dims the decode kernel past 256 takes, 3 query heads
+    a kv head (one head tile there)."""
+    _plain_matches_flash_gqa_decode_stacked(3, cache, hd, 31 + hd)
+
+
+def _plain_matches_flash_gqa_decode_stacked(kv_mul, cache, hd, seed):
+    q, kn, vn, k, v, scales = _inputs(seed, kv_mul, cache, hd)
     pos = np.asarray(POS, np.int32)
     layer = 1
     jk, jv = jnp.asarray(k), jnp.asarray(v)
@@ -128,13 +140,14 @@ def test_dense_layer_as_pages_is_the_plain_version(cache, kv_mul, pos):
 
 def test_one_launch_takes_the_split_kernels_shapes():
     """``flash_decode`` takes the one-launch kernel exactly where the paged
-    kernel would take a page of T rows: head_dim 128 or 256 and T a
-    multiple of 16 (every T the JAX gate admits, a multiple of 128,
-    included), over f32, bf16 and INT8 caches alike (an INT8 cache took the
-    two-pass kernel until its stage split q and P into three bf16 terms);
-    the two-pass kernel keeps the other head_dims and T."""
-    for hd in (128, 256, 384, 512, 640):
+    kernel would take a page of T rows: every head_dim that is a multiple of
+    128 up to 1024 (past 256 the kernel past 256) and T a multiple of 16
+    (every T the JAX gate admits, a multiple of 128, included), over f32,
+    bf16 and INT8 caches alike (an INT8 cache took the two-pass kernel until
+    its stage split q and P into three bf16 terms); the two-pass kernel keeps
+    the other T and head_dims past 1024."""
+    for hd in (128, 256, 384, 512, 640, 1024, 1152):
         for t in (16, 200, 208, 384, 4096, 4100):
-            assert one_launch_takes(hd, t) == (hd in SPLIT_HEAD_DIMS and t % 16 == 0)
-            if decode_supported(32, 8, hd, t, min_seq_len=0) and hd in SPLIT_HEAD_DIMS:
+            assert one_launch_takes(hd, t) == (hd <= WIDE_MAX_HEAD_DIM and t % 16 == 0)
+            if decode_supported(32, 8, hd, t, min_seq_len=0) and hd <= WIDE_MAX_HEAD_DIM:
                 assert one_launch_takes(hd, t)

@@ -93,6 +93,24 @@ def test_paged_decode_plain_matches_pallas(dtype, kv_mul):
     assert torch.equal(got[0], torch.from_numpy(vn[0]).repeat_interleave(kv_mul, 0))
 
 
+@pytest.mark.parametrize("hd", [384, 640])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+def test_paged_decode_plain_matches_pallas_past_256(dtype, hd):
+    """As ``test_paged_decode_plain_matches_pallas`` at head_dims the decode
+    kernel past 256 takes (three and five of its 128-column warps), 3 query
+    heads a kv head (one head tile there): the plain version against the
+    Pallas decode kernel in interpret mode; v_self at pos 0."""
+    kv_mul = 3
+    rng, b, jpool, jsc, ppool, psc, table, pos = _case(29 + hd, dtype, POS, kv_mul, hd)
+    q = rng.normal(0, 1, (b, N_KV * kv_mul, hd)).astype(np.float32)
+    kn, vn = (rng.normal(0, 1, (b, N_KV, hd)).astype(np.float32) for _ in range(2))
+    got = paged_decode(torch.from_numpy(q), torch.from_numpy(kn), torch.from_numpy(vn), *ppool,
+                       torch.from_numpy(table), torch.from_numpy(pos), LAYER, **psc)
+    args = (jnp.asarray(q), jnp.asarray(kn), jnp.asarray(vn), *jpool, jnp.asarray(table), jnp.asarray(pos))
+    _close(got.numpy(), paged_gqa_decode_stacked(*args, LAYER, interpret=True, **jsc))
+    assert torch.equal(got[0], torch.from_numpy(vn[0]).repeat_interleave(kv_mul, 0))
+
+
 @pytest.mark.parametrize("s,kv_mul", [(4, 2), (32, 4), (2, 8)])
 @pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
 def test_paged_window_plain_matches_pallas(dtype, s, kv_mul):
@@ -226,11 +244,16 @@ def test_decode_grid_and_workspace():
     )
 
     assert [decode_qm(m) for m in (1, 2, 3, 4, 5, 6, 8, 12, 16)] == [1, 2, 1, 4, 1, 2, 8, 4, 8]
+    # Past 256: every query head of a kv head in one tile up to 8 (each K/V row read once).
+    assert [decode_qm(m, 640) for m in (1, 2, 3, 4, 5, 6, 7, 8, 9, 12, 16)] == [1, 2, 3, 4, 5, 6, 7, 8, 3, 6, 8]
     assert decode_grid(8, 8, 4, 132, 2) == 264
     assert decode_grid(64, 8, 12, 132, 2) == 64 * 8 * 3
+    assert decode_grid(64, 8, 12, 132, 2, 512) == 64 * 8 * 2 and decode_grid(64, 8, 5, 132, 1, 384) == 64 * 8
     assert decode_workspace_floats(264, 4, 128) == (264 * 4 * 2, 264 * 4 * 128)
+    assert decode_workspace_floats(132, 5, 640) == (132 * 5 * 2, 132 * 5 * 640)
     assert split_kernel_takes(128, 128) and split_kernel_takes(256, 16)
-    assert not split_kernel_takes(384, 128) and not split_kernel_takes(128, 8)
+    assert split_kernel_takes(384, 128) and split_kernel_takes(1024, 16) and not split_kernel_takes(128, 8)
+    assert not split_kernel_takes(640, 8) and not split_kernel_takes(1152, 128) and not split_kernel_takes(192, 128)
 
 
 def test_stamp_phases_reads_a_launch():
@@ -309,7 +332,7 @@ def test_window_route_grid_and_workspace():
     """The window kernel's route (every head_dim a multiple of 128, past 256
     the kernel past 256; pages of a multiple of 16 rows; f32, bf16 and INT8
     pools; the rest keep the two-pass kernels) beside the decode's, which
-    stays at head_dim 128/256; its grid and its workspaces."""
+    takes head_dims up to 1024; its grid and its workspaces."""
     from qwen3_rs_tpu_torch.ops.kernels.paged_attention import (
         split_kernel_takes,
         window_grid,
@@ -320,7 +343,7 @@ def test_window_route_grid_and_workspace():
 
     for hd in (128, 256, 384, 512, 640, 1024):
         for page in (8, 16, 128, 200):
-            assert split_kernel_takes(hd, page) == (hd in (128, 256) and page % 16 == 0)  # #9's decode
+            assert split_kernel_takes(hd, page) == (hd <= 1024 and page % 16 == 0)  # #9's decode
             for dt in (torch.float32, torch.bfloat16, torch.int8):
                 assert window_split_takes(hd, page, dt) == (page % 16 == 0)
     assert not window_split_takes(192, 128, torch.bfloat16) and not window_split_takes(640, 128, torch.float16)
@@ -435,3 +458,61 @@ def test_window_wide_layout_hand_worked(dtype, layout):
     from qwen3_rs_tpu_torch.ops.kernels.paged_attention import window_wide_layout
 
     assert window_wide_layout(dtype) == layout
+
+
+@pytest.mark.parametrize("pos,n_kv,kv_mul,grid", PLAN_CASES + [(list(range(0, 200 * 20, 20)), 2, 5, 800)])
+def test_decode_units_past_256_take_every_head_of_a_kv_head_at_once(pos, n_kv, kv_mul, grid):
+    """At head_dim 640 the plan's head tiles are the largest divisor of
+    kv_mul up to 8 (one tile a kv head wherever kv_mul ≤ 8, so each K/V row
+    is read once): each (request, kv head, tile) once, with its own counter,
+    its splits covering the request's live rows exactly once."""
+    from qwen3_rs_tpu_torch.ops.kernels.paged_attention import decode_grid, decode_qm, decode_units
+
+    page, max_pages, hd = 128, 32, 640
+    tiles = kv_mul // decode_qm(kv_mul, hd)
+    assert tiles == (1 if kv_mul <= 8 else {12: 2}[kv_mul])
+    grid = max(grid, decode_grid(len(pos), n_kv, kv_mul, 1, 1, hd))
+    units = decode_units(pos, n_kv, kv_mul, page, max_pages, grid, hd)
+    assert len(units) <= grid
+    rows = {}
+    for b, h, tile, s, n_s, lo, hi, slot, pair in units:
+        assert pair == (b * n_kv + h) * tiles + tile and 0 <= tile < tiles
+        rows.setdefault(pair, []).extend(range(lo, hi))
+    assert sorted(rows) == list(range(len(pos) * n_kv * tiles))
+    for pair, covered in rows.items():
+        assert covered == list(range(min(pos[pair // (n_kv * tiles)], max_pages * page)))
+
+
+@pytest.mark.parametrize("dtype,hd,layout", [
+    (torch.bfloat16, 384, dict(rows=16, warps=3, slots=8, slot_bytes=12288, smem=103424)),
+    (torch.bfloat16, 512, dict(rows=16, warps=4, slots=6, slot_bytes=16384, smem=104448)),
+    (torch.bfloat16, 640, dict(rows=16, warps=5, slots=5, slot_bytes=20480, smem=109568)),
+    (torch.bfloat16, 1024, dict(rows=16, warps=8, slots=3, slot_bytes=32768, smem=108544)),
+    (torch.int8, 512, dict(rows=16, warps=4, slots=12, slot_bytes=8192, smem=105216)),
+    (torch.float32, 384, dict(rows=16, warps=3, slots=3, slot_bytes=24576, smem=92672)),
+    (torch.float32, 512, dict(rows=16, warps=4, slots=2, slot_bytes=32768, smem=90112)),
+    (torch.float32, 1024, dict(rows=16, warps=8, slots=2, slot_bytes=65536, smem=178176)),
+])
+def test_decode_wide_layout_hand_worked(dtype, hd, layout):
+    """The decode kernel's shared memory past 256 (``decode_wide_layout``,
+    the source's ``dec_wide``; a card test holds them equal), worked by
+    hand: hd / 128 warps; a slot is 16 rows of the head (bf16 512: 16 KB);
+    before the ring a 1 KB head, two buffers of 128 partial scores a warp
+    (bf16 512: 4 KB), for INT8 12 slots' 16 row scales (768 bytes), for f32
+    each warp's 16 × 8 probabilities and q's 8 heads (f32 384: 1,536 +
+    12,288 bytes), then 1 KB of alignment; as many slots as keep the block
+    within 112 KB, 2 to 12 (bf16 512: (114,688 − 5,120 − 1,024) // 16,384 =
+    6; INT8 512: 13, capped at 12; f32 1024: 1, raised to 2, so one block
+    an SM)."""
+    from qwen3_rs_tpu_torch.ops.kernels.paged_attention import decode_wide_layout
+
+    assert decode_wide_layout(dtype, hd) == layout
+    assert layout["smem"] <= 232448
+
+
+def test_decode_wide_layout_refuses_the_whole_row_head_dims():
+    from qwen3_rs_tpu_torch.ops.kernels.paged_attention import decode_wide_layout
+
+    for hd in (128, 256, 320, 1152):
+        with pytest.raises(ValueError, match="head_dim"):
+            decode_wide_layout(torch.bfloat16, hd)
