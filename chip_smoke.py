@@ -92,7 +92,19 @@ Phases, in order; any failure exits non-zero before the final line:
                prefix cache (15 hits, each continued window L paged-window
                launches); chunked prefill; the HTTP front end on port 0
                (answers equal to the requests run alone, then a burst of 8).
-6. ``cli``     a 2-layer 8B-width ``.qtpu`` checkpoint written with numpy,
+6. ``spec``    n-gram speculative decoding on the same 8B weights and on the
+               parrot fixture (every layer's scales zeroed, the tied
+               classifier repeating its input: drafts accepted): b=1 greedy
+               ``generate(spec_k=4)`` for 128 tokens, every round one window
+               of 5 rows (4·L + 1 launches of #3's mma route, the classifier
+               among them) and one count read, its stream held to plain
+               greedy's (#11), ms a round and a token beside the plain chunk's,
+               one round under torch.profiler; the paged bf16 8-slot serve
+               with ``spec_k=3`` on the serve phase's first 8 requests beside
+               ``spec_k=0``, every speculative chunk's rounds checked for
+               4·L + 1 tensor-core #3 and L #10 launches, the streams held to
+               each other, every page released.
+7. ``cli``     a 2-layer 8B-width ``.qtpu`` checkpoint written with numpy,
                run through ``qwen3_rs_tpu_torch.cli.main`` (``inference`` in
                generate, chat, exact mode and with ``--device-sampling``,
                ``eval-ppl`` in three modes,
@@ -103,19 +115,19 @@ Phases, in order; any failure exits non-zero before the final line:
                defaults on each (INT4 with ``QWEN3_TPU_MEGA_Q4=1``: Q4 #11
                where the gate admits dim 512) and ``--sampling host`` on the
                INT4 one; the output must equal the API's.
-7. ``tp``      tensor-parallel serving: the same 8B weights drawn by each of
-               2 ranks on the one card (gloo), each keeping its shard, the
-               serve phase's 24 requests on the paged bf16 pool with device
-               sampling; its greedy streams held to the tp=1 run's (a
-               parting only at a near-tie), every rank's streams, launches
+8. ``tp``      tensor-parallel serving: 8B at full width and 18 of its 36
+               layers drawn by each of 2 ranks on the one card (gloo), each
+               keeping its shard, the serve phase's 24 requests on the paged
+               bf16 pool with device sampling; its greedy streams held to a
+               tp=1 run of the same weights (a parting only at a near-tie), every rank's streams, launches
                and collectives equal, every decode chunk checked for its
                launches and every window of 512 reference rows or more for
-               288 #6 column windows (wo and w2 in 4 chunks, 36 layers); the
+               144 #6 column windows (wo and w2 in 4 chunks, 18 layers); the
                collectives' share of a decode step; then ``cli.py serve --tp
                2 --device cuda:0,cuda:0`` on the cli phase's dim-512 model
                (two completions equal to the API's, SIGTERM leaves no rank)
                and ``--tp 2`` with one device refused.
-8. ``parity``  the 2-layer model on the CPU (plain versions) and on the card
+9. ``parity``  the 2-layer model on the CPU (plain versions) and on the card
                (kernels): prefill windows and decode steps (the megakernel) in
                fast mode (16-,
                512- and 300-row windows) and exact mode; eval-ppl at 0.6B width;
@@ -139,8 +151,8 @@ rest) and ``heads`` (the kernels phase's head_dim rows alone: #4, #5, #9,
 in one call.
 
 Output: one JSON object per line.  The second-to-last lines hold the kernel
-table and the serve, tp and probes phases' numbers
-(``{"kernels": [...], "serve": {...}, "tp": {...}, "probes": {...}}``)
+table and the serve, spec, tp and probes phases' numbers
+(``{"kernels": [...], "serve": {...}, "spec": {...}, "tp": {...}, "probes": {...}}``)
 and the card's ``name, power.limit``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -162,7 +174,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 DEV = "cuda"
-PHASES = ("build", "kernels", "probes", "e2e", "serve", "cli", "tp", "parity")
+PHASES = ("build", "kernels", "probes", "e2e", "serve", "spec", "cli", "tp", "parity")
 OPTIONAL_PHASES = ("exact", "decode", "window", "heads")  # run only when named: subsets for comparing two trees in one call
 
 # Published peaks of one H100 SXM (dense): the denominators of bound_ms.
@@ -3427,7 +3439,6 @@ def phase_serve(torch, ctx) -> None:
                                         for k in keys}
     emit({"phase": "serve", "run": "dense slots, device sampling: INT4 (Q4 #11) beside INT8 (#11), same traffic",
           **out["int4_vs_int8_dense_device"]})
-    ctx["tp1_streams"] = out["paged_bf16_device"]["streams"]  # the tp phase's reference
     for run in out.values():
         if isinstance(run, dict):
             run.pop("streams", None)
@@ -3735,8 +3746,229 @@ def serve_http_path(torch, ctx, cfg, weights, tok) -> dict:
     return res
 
 
+# ----------------------------------------------------------------------- spec
+SPEC_K = 4  # b=1 generate: drafts a round
+SPEC_NEW_TOKENS = 128
+SPEC_SERVE_K = 3  # the paged 8-slot serving run: drafts a round
+SPEC_SERVE_REQUESTS = 8
+
+
+def parrot_weights(torch, weights):
+    """``bench.py``'s parrot fixture (``BENCH_PARROT=1``): every layer's
+    scales zeroed, so the residual stream is the token's embedding and the
+    tied classifier's argmax repeats the input token, while the kernels
+    stream the same bytes; greedy continuations repeat, and drafts are
+    accepted."""
+    lw = weights.layers
+    zero = lambda t: t._replace(scales=torch.zeros_like(t.scales))  # noqa: E731
+    return weights._replace(layers=lw._replace(wqkv=zero(lw.wqkv), wo=zero(lw.wo), w13=zero(lw.w13), w2=zero(lw.w2)))
+
+
+def phase_spec(torch, ctx) -> None:
+    """N-gram speculative decoding at Qwen3-8B full width and depth (INT8-g64,
+    ctx 4096) on two fixtures, the random weights (drafts rarely accepted)
+    and the parrot (drafts accepted): b=1 greedy ``generate(spec_k=4)``
+    beside the plain greedy chunk (#11), and the paged bf16 8-slot serve with
+    ``spec_k=3`` beside ``spec_k=0``."""
+    cfg, weights, tok = model_8b(torch, ctx)
+    out = ctx["spec"] = {}
+    for name, w in (("random", weights), ("parrot", parrot_weights(torch, weights))):
+        out[name] = {"generate": spec_generate_path(torch, ctx, cfg, w, tok, name),
+                     "serve": spec_serve_path(torch, ctx, cfg, w, name)}
+        torch.cuda.empty_cache()
+    emit({"phase": "spec", "summary": True, **{
+        name: {"tokens_per_round": r["generate"]["tokens_per_round"], "ms_per_round": r["generate"]["ms_per_round"],
+               "ms_per_token_spec": r["generate"]["ms_per_token_spec"],
+               "ms_per_token_plain": r["generate"]["ms_per_token_plain"],
+               "serve_tok_per_s_spec": r["serve"]["spec"]["tok_per_s"],
+               "serve_tok_per_s_plain": r["serve"]["plain"]["tok_per_s"],
+               "serve_spec_accept_ewma": r["serve"]["spec"]["stats"]["spec_accept_ewma"]}
+        for name, r in out.items()}})
+
+
+def _first_parting(torch, engine, prompt_ids, ref: list, got: list, tol: float = 2e-2) -> dict:
+    """Two greedy streams of one prompt held to each other: equal up to the
+    shorter's end, or parted once at a near-tie (both picks' logits within
+    ``tol`` of the largest on the shared history; the streams are not
+    compared past it)."""
+    import numpy as np
+
+    diff = [i for i, (x, y) in enumerate(zip(ref, got)) if x != y]
+    if not diff:
+        return {"equal": True, "compared": min(len(ref), len(got))}
+    i = diff[0]
+    lg = engine.prefill(engine.new_cache(1), np.asarray([list(prompt_ids) + ref[:i]]), np.zeros(1, np.int64))[0][0]
+    lg = lg.float()
+    gap = float((lg[ref[i]] - lg[got[i]]).abs())
+    part = {"equal": False, "token_index": i, "tokens": [ref[i], got[i]], "pick_gap": gap,
+            "max_abs_logit": float(lg.abs().max()), "tol": tol}
+    need(gap <= tol * float(lg.abs().max()), f"spec: the stream parts at token {i} away from a near-tie: {part}")
+    return part
+
+
+def spec_generate_path(torch, ctx, cfg, weights, tok, name) -> dict:
+    """b=1 greedy ``generate(spec_k=SPEC_K)``, SPEC_NEW_TOKENS new tokens:
+    each round (drafted on the device, verified by a window of k + 1 rows:
+    4·L + 1 launches of #3's mma route, the classifier (#1) among them,
+    and the plain split attention) timed on the host clock, synchronised;
+    its count read to the host once; the stream held to plain greedy's
+    (``decode_chunk``, #11); ms a token of both in the same call; one round
+    under torch.profiler."""
+    import numpy as np
+
+    import qwen3_rs_tpu_torch.inference.speculative as spec_mod
+    from qwen3_rs_tpu_torch import Engine, TokenSampler, generate
+    from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    n_l, k, n = cfg.n_layers, SPEC_K, SPEC_NEW_TOKENS
+    engine = Engine(config=cfg, weights=weights, device=DEV)
+    prompt = prompt_text(200)
+    prompt_ids = tok.encode(prompt)
+    window = w8a16_key(k + 1)
+    per_round = {window: 4 * n_l + 1}
+    rounds: list = []
+    real = spec_mod.spec_round
+
+    def timed_round(forward, carry, k_):
+        before, reads = dict(LAUNCHES), spec_mod.HOST_READS["counts"]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        carry, (preds, count) = real(forward, carry, k_)
+        torch.cuda.synchronize()
+        rounds.append({"seconds": time.perf_counter() - t, "count": count,
+                       "reads": spec_mod.HOST_READS["counts"] - reads,
+                       "launches": {x: LAUNCHES[x] - before[x] for x in LAUNCHES if LAUNCHES[x] != before[x]}})
+        return carry, (preds, count)
+
+    # Plain greedy reference, and its chunk's ms a token (#11, device sampling).
+    plain_ids = generate(engine, tok, TokenSampler(0.0, 0.9, SEED, device=True), prompt, out=io.StringIO(),
+                         max_tokens=n)
+    logits, cache = engine.prefill(engine.new_cache(1), np.asarray([prompt_ids]), np.zeros(1, np.int64))
+    first, pos = int(logits.float().argmax()), len(prompt_ids)
+    engine.decode_chunk(cache, first, pos, 2)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.decode_chunk(cache, first, pos, n)
+    torch.cuda.synchronize()
+    plain_ms_tok = (time.perf_counter() - t0) * 1e3 / n
+
+    spec_mod.spec_round = timed_round
+    reset_launches()  # the main path's run starts here
+    try:
+        t0 = time.perf_counter()
+        ids = generate(engine, tok, TokenSampler(0.0, 0.9, SEED, device=True), prompt, out=io.StringIO(),
+                       max_tokens=n, spec_k=k)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        spec_mod.spec_round = real
+    launches = dict(LAUNCHES)  # and ends here
+    ctx["path_launches"][f"spec_generate_{name}"] = launches
+    need(len(ids) == n and rounds, f"spec {name}: generate gave {len(ids)} tokens in {len(rounds)} rounds")
+    for r in rounds:
+        need(r["launches"] == per_round, f"spec {name}: a round launched {r['launches']}, expected {per_round}")
+        need(r["reads"] == 1, f"spec {name}: a round read its count {r['reads']} times")
+    parting = _first_parting(torch, engine, prompt_ids, plain_ids, ids)
+    counts = [r["count"] for r in rounds]
+    round_s = [r["seconds"] for r in rounds]
+    res = {
+        "k": k, "generated": len(ids), "rounds": len(rounds), "tokens_per_round": sum(counts) / len(counts),
+        "ms_per_round": statistics.median(round_s) * 1e3, "ms_per_round_max": max(round_s) * 1e3,
+        "count_reads": sum(r["reads"] for r in rounds),
+        "ms_per_token_spec": sum(round_s) * 1e3 / sum(counts), "ms_per_token_plain": plain_ms_tok,
+        "generate_wall_s": wall, "launches_per_round": per_round, "every_round_checked": True,
+        "stream_vs_plain_greedy": parting,
+    }
+    if name == "parrot":
+        need(res["tokens_per_round"] > 1.0, f"spec parrot: {res['tokens_per_round']} tokens a round")
+    # One round under the profiler: device time and idle share.
+    logits, cache = engine.prefill(engine.new_cache(1), np.asarray([prompt_ids]), np.zeros(1, np.int64))
+    res["profile_one_round"] = profile_calls(
+        torch, lambda i: engine.decode_chunk_spec(cache, first, pos, 1, k, prompt_ids + [first]), 1)
+    emit({"phase": "spec", "fixture": name, "run": f"b=1 generate greedy spec_k={k}", **res, "launches": launches})
+    del engine
+    return res
+
+
+def spec_serve_path(torch, ctx, cfg, weights, name) -> dict:
+    """The serve phase's traffic cut to SPEC_SERVE_REQUESTS requests (64 new
+    tokens each) on the paged bf16 pool, 8 slots, device sampling, greedy:
+    ``spec_k=SPEC_SERVE_K`` (every round of a speculative chunk one window
+    of 8·(k + 1) rows: 4·L + 1 launches of #3's tensor-core route and L of
+    #10) beside ``spec_k=0``; streams held to each other, every page
+    released."""
+    from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from qwen3_rs_tpu_torch.serving import ContinuousBatchingEngine, Request
+
+    n_l, k = cfg.n_layers, SPEC_SERVE_K
+    traffic = _serve_traffic(cfg)[:SPEC_SERVE_REQUESTS]
+    per_round = {w8a16_key(8 * (k + 1)): 4 * n_l + 1, "paged_window_partials": n_l}
+    res = {}
+    for run, spec_k in (("plain", 0), ("spec", k)):
+        engine = ContinuousBatchingEngine(config=cfg, weights=weights, n_slots=8, kv_layout="paged", page_size=128,
+                                          sampling="device", spec_k=spec_k, device=DEV)
+        engine.warmup()
+        chunks: list = []
+        if spec_k:
+            real = engine._decode_spec
+
+            def timed(*a, **kw):
+                before = dict(LAUNCHES)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = real(*a, **kw)
+                torch.cuda.synchronize()
+                chunks.append({"rounds": len(out[1]), "seconds": time.perf_counter() - t,
+                               "launches": {x: LAUNCHES[x] - before[x] for x in LAUNCHES if LAUNCHES[x] != before[x]}})
+                return out
+
+            engine._decode_spec = timed
+        reqs = [Request(i, p, max_new_tokens=m, eos_token_ids=()) for i, (p, m) in enumerate(traffic)]
+        reset_launches()  # this path's run starts here
+        t0 = time.perf_counter()
+        for r in reqs:
+            engine.submit(r)
+        done = engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)  # and ends here
+        ctx["path_launches"][f"spec_serve_{name}_{run}"] = launches
+        need(len(done) == len(reqs) and all(len(r.generated) == r.max_new_tokens for r in done),
+             f"spec serve {name} {run}: not every request completed")
+        need(engine.allocator.free_pages == engine.allocator.n_pages - 1, f"spec serve {name} {run}: pages held")
+        tokens = sum(len(r.generated) for r in done)
+        res[run] = {"requests": len(done), "generated_tokens": tokens, "wall_s": wall, "tok_per_s": tokens / wall,
+                    "stats": engine.stats(), "streams": {r.request_id: r.generated for r in done},
+                    "launches": {x: v for x, v in launches.items() if v}}
+        if spec_k:
+            need(chunks, f"spec serve {name}: no speculative chunk ran")
+            for c in chunks:
+                want = {x: v * c["rounds"] for x, v in per_round.items()}
+                need(c["launches"] == want, f"spec serve {name}: a chunk launched {c['launches']}, expected {want}")
+            res[run].update({"spec_chunks": len(chunks), "spec_rounds": sum(c["rounds"] for c in chunks),
+                             "ms_per_round": sum(c["seconds"] for c in chunks) * 1e3 / sum(c["rounds"] for c in chunks),
+                             "launches_per_round": per_round, "every_chunk_checked": True})
+            need(launches["paged_window_partials"] > 0 and launches[w8a16_key(8 * (k + 1))] > 0,
+                 f"spec serve {name}: the verify windows launched {launches}")
+        del engine
+        torch.cuda.empty_cache()
+    # A verify window's projections take #3's tensor-core route (32 rows), a
+    # plain step's its mma route (8 rows): the f32 summation order of every
+    # product differs, and random weights at full depth carry a flipped
+    # rounding to ~3.6% of the largest logit (the sensitivity this check
+    # reports), so a parting is held to MK_TOL_DEEP, as the tp phase holds
+    # its own; the parrot's margins leave its streams equal.
+    partings = stream_partings(torch, cfg, weights, traffic, res["plain"].pop("streams"), res["spec"].pop("streams"),
+                               tol=MK_TOL_DEEP)
+    need(name != "parrot" or not partings["partings"], f"spec serve parrot: streams part {partings['partings']}")
+    res["spec_vs_plain"] = partings
+    emit({"phase": "spec", "fixture": name, "run": f"paged bf16 8 slots spec_k={k} beside spec_k=0", **res})
+    return res
+
+
 # ------------------------------------------------------------------------- tp
 TP_DEVICES = ["cuda:0", "cuda:0"]  # two ranks on the one card: the gloo backend
+TP_LAYERS = 18  # the tp phase's depth: half of 8B's, which pays for the spec phase's time (PERF.md §4)
 
 
 def _rank_children(pid: int) -> list[int]:
@@ -3829,10 +4061,11 @@ def _tp_logits_vs_tp1(torch, engine, cfg, histories) -> list[float]:
 
 
 def phase_tp(torch, ctx) -> None:
-    """Tensor-parallel serving: Qwen3-8B INT8 at full width and depth on 2
-    ranks of the one card (each 16/4 heads, 6144 hidden columns, half the
-    vocabulary), the paged bf16 pool, device sampling, the serve phase's 24
-    requests; then ``cli.py serve --tp 2``."""
+    """Tensor-parallel serving: Qwen3-8B INT8 at full width and TP_LAYERS of
+    its 36 layers on 2 ranks of the one card (each 16/4 heads, 6144 hidden
+    columns, half the vocabulary), the paged bf16 pool, device sampling, the
+    serve phase's 24 requests, held to a tp=1 run of the same weights; then
+    ``cli.py serve --tp 2``."""
     import functools
 
     from qwen3_rs_tpu_torch.models.qwen3 import reference_rows
@@ -3840,17 +4073,16 @@ def phase_tp(torch, ctx) -> None:
     from qwen3_rs_tpu_torch.serving.scheduler import start_tp_engine
     from qwen3_rs_tpu_torch.testing import qwen3_config, random_model
 
-    cfg = qwen3_config("8b", seq_len=4096)
+    cfg = qwen3_config("8b", seq_len=4096, n_layers=TP_LAYERS)
     traffic = _serve_traffic(cfg)
     kw = dict(n_slots=8, kv_layout="paged", page_size=128, sampling="device")
-    ref = ctx.get("tp1_streams")
-    if ref is None:  # the serve phase did not run: the tp=1 reference here
-        c1, w1, _ = model_8b(torch, ctx)
-        engine = ContinuousBatchingEngine(config=c1, weights=w1, device=DEV, **kw)
-        engine.warmup()
-        ref = _serve_run(torch, ctx, "paged_bf16_device_tp1", engine, traffic, cfg.n_layers, profile=False)["streams"]
-        del engine
-    ctx.pop("8b", None)  # the tp ranks draw their own
+    ctx.pop("8b", None)  # the tp=1 reference and the tp ranks draw the cut model from the seed
+    torch.cuda.empty_cache()
+    c1, w1 = random_model(cfg, seed=SEED, device=DEV)
+    engine = ContinuousBatchingEngine(config=c1, weights=w1, device=DEV, **kw)
+    engine.warmup()
+    ref = _serve_run(torch, ctx, "paged_bf16_device_tp1", engine, traffic, cfg.n_layers, profile=False)["streams"]
+    del engine, w1
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -4548,7 +4780,7 @@ def main(argv=None) -> int:
             elif name == "probes":
                 phase_probes(torch, ctx)
             else:
-                {"e2e": phase_e2e, "serve": phase_serve, "cli": phase_cli, "tp": phase_tp,
+                {"e2e": phase_e2e, "serve": phase_serve, "spec": phase_spec, "cli": phase_cli, "tp": phase_tp,
                  "parity": phase_parity, "exact": phase_exact, "decode": phase_decode,
                  "window": phase_window, "heads": phase_heads}[name](torch, ctx)
             emit({"phase": name, "done": True, "seconds": time.perf_counter() - t0})
@@ -4565,7 +4797,8 @@ def main(argv=None) -> int:
                       and (name not in PROBE_KERNELS or "probes" in phases))
         need(not idle, f"no path launched {idle}")
     rows = [dict(r, launches=launches[r["name"]]) for r in ctx.get("kernel_rows", [])]
-    emit({"kernels": rows, "e2e": ctx.get("e2e"), "serve": ctx.get("serve"), "tp": ctx.get("tp"),
+    emit({"kernels": rows, "e2e": ctx.get("e2e"), "serve": ctx.get("serve"), "spec": ctx.get("spec"),
+          "tp": ctx.get("tp"),
           "probes": ctx.get("probes"), "decode": ctx.get("decode"), "window": ctx.get("window"),
           "total_seconds": time.perf_counter() - t_all})
     print(ctx.get("smi") or subprocess.run(

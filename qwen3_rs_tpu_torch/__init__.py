@@ -7,7 +7,8 @@ NVIDIA H100: the same checkpoints, tokenizer, samplers, generation loops
 W8A16, exact W8A8; a dense decode step through the whole-step megakernel,
 INT4 layers too with ``QWEN3_TPU_MEGA_Q4=1``), ``eval-ppl`` and serving
 engine (dense slots or the page pool, prefix cache, chunked prefill, HTTP
-front end, host or device sampling) as the JAX package, with its Pallas
+front end, host or device sampling) and n-gram speculative decoding
+(``inference --spec K``, serving's ``spec_k``) as the JAX package, with its Pallas
 kernels replaced by hand-written CUDA kernels for Hopper (``csrc/``).
 Entry points run on the card unless the caller passes ``device="cpu"``,
 where the kernels' plain PyTorch versions run instead.
@@ -15,8 +16,8 @@ where the kernels' plain PyTorch versions run instead.
 Tensor-parallel serving (``serve --tp N``, ``ContinuousBatchingEngine``
 with a mesh) runs one process per rank on ``torch.distributed``
 (``parallel/``).  Not ported yet (``NOT_PORTED`` names each with its
-``ROADMAP.md`` item): speculative decoding, the pipeline- and
-sequence-parallel layouts, replicated serving and the cross-host gateway.
+``ROADMAP.md`` item): the pipeline- and sequence-parallel layouts,
+replicated serving and the cross-host gateway.
 """
 
 from __future__ import annotations
@@ -68,7 +69,17 @@ class InferenceConfig:
 def run_inference(config: InferenceConfig) -> None:
     """Wire engine, tokenizer and sampler, and run generate or chat."""
     if config.speculative > 0:
-        raise not_ported("speculative decoding (--spec)", "queue 1, item 3: speculative decoding")
+        # Speculative decoding is greedy-exact only (inference/speculative.py).
+        if config.temperature != 0.0:
+            raise ValueError(
+                "speculative decoding requires temperature 0 (greedy); "
+                f"got temperature={config.temperature}"
+            )
+        if config.mode != "generate":
+            raise ValueError("speculative decoding is generate-mode only")
+        # Greedy device sampling picks the last maximum, as the host sampler
+        # does: turning it on changes nothing but where the loop runs.
+        config.device_sampling = True
     if config.sp > 1:
         raise not_ported("sequence-parallel prefill (--sp)", "queue 1, item 5: parallel layouts")
     if config.mode not in ("generate", "chat"):
@@ -87,7 +98,7 @@ def run_inference(config: InferenceConfig) -> None:
         config.checkpoint_path, engine.config.vocab_size, config.enable_thinking
     )
     if config.mode == "generate":
-        generate(engine, tokenizer, sampler, config.prompt)
+        generate(engine, tokenizer, sampler, config.prompt, spec_k=config.speculative)
     else:
         chat(engine, tokenizer, sampler, config.prompt, config.system_prompt)
 
@@ -104,7 +115,6 @@ NOT_PORTED = {
     "parallel.SP_AXIS": "queue 1, item 5: sequence parallelism",
     "parallel.distributed.scaling_report": "queue 1, item 1: the benchmark",
     "utils.enable_compile_cache": "queue 1, item 6: not carried (the nvcc build cache serves)",
-    "inference.speculative": "queue 1, item 3: speculative decoding",
     "serving.remote": "queue 1, item 4: the rest of serving",
 }
 

@@ -7,8 +7,10 @@ decode loop in on-device chunks (``Engine.decode_chunk``); ``batch`` and
 ``serve`` sample on the device by default (``--sampling device``), as the
 reference's do.  ``serve --tp N`` shards the engine over N ranks, one
 process each (``--device`` lists one device per rank; ``cuda:0,cuda:0`` puts
-two ranks on one card, ``cpu,cpu`` runs them on the CPU).  Flags whose paths
-are not ported yet (``--spec``, ``--sp > 1``, ``--replicas > 1``,
+two ranks on one card, ``cpu,cpu`` runs them on the CPU).  ``--spec K``
+decodes with n-gram speculative rounds (``inference``: greedy, generate
+mode; ``batch`` and ``serve``: the page pool with device sampling).  Flags
+whose paths are not ported yet (``--sp > 1``, ``--replicas > 1``,
 ``--gateway``) raise a "not ported" error naming the ROADMAP.md item; they
 never run something else.
 
@@ -17,9 +19,11 @@ never run something else.
     python -m qwen3_rs_tpu_torch.cli inference CKPT -m generate -i "hello" -t 0
     python -m qwen3_rs_tpu_torch.cli inference CKPT -m generate -i "hello" -t 0.8 --device-sampling
     python -m qwen3_rs_tpu_torch.cli inference CKPT -m generate -i "hello" --engine-mode exact
+    python -m qwen3_rs_tpu_torch.cli inference CKPT -m generate -i "hello" -t 0 --spec 4
     python -m qwen3_rs_tpu_torch.cli eval-ppl CKPT -f text.txt --modes fast,exact,f32 -w 4096
     python -m qwen3_rs_tpu_torch.cli batch CKPT -f prompts.txt --sampling host --kv paged
     python -m qwen3_rs_tpu_torch.cli serve CKPT --kv-int8 --prefix-cache
+    python -m qwen3_rs_tpu_torch.cli serve CKPT --spec 3 --spec-min-accept 1.35
     python -m qwen3_rs_tpu_torch.cli serve CKPT --tp 2 --device cuda:0,cuda:0
 """
 
@@ -37,7 +41,10 @@ _SAMPLING_HELP = (
     "host = reference-parity xorshift; device = on-device sampling in decode chunks "
     "(reproducible per --seed, not the host stream's bits)"
 )
-_SPEC_HELP = "n-gram speculative decoding with K-token drafts (not ported yet)"
+_SPEC_HELP = (
+    "n-gram speculative decoding: every slot verifies K drafts per round, distribution-exact at any "
+    "temperature (paged + device sampling only; sync scheduling)"
+)
 _PREFIX_HELP = (
     "reuse KV pages across requests sharing a prompt prefix "
     "(paged layout; prefills run only the unmatched suffix)"
@@ -93,7 +100,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     inf.add_argument(
         "--spec", type=int, default=0, metavar="K",
-        help="n-gram speculative decoding (not ported yet)",
+        help="n-gram speculative decoding with K-token drafts (greedy-exact; "
+        "requires -t 0, generate mode; device sampling is auto-enabled)",
     )
     inf.add_argument(
         "--sp", type=int, default=1, metavar="N",
@@ -160,7 +168,9 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--spec", type=int, default=0, metavar="K", help=_SPEC_HELP)
     sv.add_argument(
         "--spec-min-accept", type=float, default=1.35, metavar="T",
-        help="acceptance-adaptive floor of --spec (not ported yet)",
+        help="acceptance-adaptive floor: fall back to plain decode chunks while the measured tokens/round "
+        "EWMA sits below T (speculation re-probes periodically) — --spec never underperforms plain "
+        "decoding on low-acceptance traffic",
     )
     sv.add_argument("--prefix-cache", action="store_true", help=_PREFIX_HELP)
     sv.add_argument("--prefill-chunk", type=int, default=None, metavar="N", help=_CHUNK_HELP)
@@ -186,8 +196,6 @@ def _serving_not_ported(args) -> None:
     lacks."""
     from .inference.engine import not_ported
 
-    if args.spec > 0:
-        raise not_ported("speculative serving (--spec)", "queue 1, item 3: speculative decoding")
     if args.command == "serve":
         if args.replicas > 1:
             raise not_ported("replicated serving (--replicas)", "queue 1, item 4: the rest of serving")
@@ -211,12 +219,14 @@ def _tp_devices(args) -> list[str]:
 def _engine(args, config, weights, **kw):
     from .serving import ContinuousBatchingEngine
 
-    for flag in ("prefix_cache", "prefill_chunk"):
+    for flag in ("spec", "prefix_cache", "prefill_chunk"):
         if getattr(args, flag) not in (None, False) and args.kv != "paged":
             name = "--" + flag.replace("_", "-")
             raise SystemExit(f"{name} requires the paged KV layout: add --kv paged")
+    if args.command == "serve":
+        kw["spec_min_accept"] = args.spec_min_accept
     kw = dict(n_slots=args.slots, sampling=args.sampling, seed=getattr(args, "seed", 0), kv_layout=args.kv,
-              page_size=args.page_size, n_pages=args.pages, prefix_cache=args.prefix_cache,
+              page_size=args.page_size, n_pages=args.pages, spec_k=args.spec, prefix_cache=args.prefix_cache,
               prefill_chunk=args.prefill_chunk, **kw)
     if getattr(args, "tp", 1) > 1:
         import functools

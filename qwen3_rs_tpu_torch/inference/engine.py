@@ -2,7 +2,8 @@
 
 The port of the reference package's ``inference/engine.py`` for the fast
 (W8A16) and exact (W8A8) engines, with host sampling or, through
-``decode_chunk``, device sampling.  PyTorch runs eagerly, so there is no
+``decode_chunk``, device sampling; ``decode_chunk_spec`` runs greedy n-gram
+speculative rounds.  PyTorch runs eagerly, so there is no
 compile step and no bucket padding: a prompt window is exactly as long as the
 prompt.  ``prefill`` feeds prompts in windows of at
 most ``MAX_PREFILL_WINDOW`` rows; a window that starts at position 0 is a
@@ -186,6 +187,46 @@ class Engine:
             token_dev = sample_tokens(logits, generator, temperature, topp).long()
             out.append(token_dev)
         return torch.cat(out), cache
+
+    def decode_chunk_spec(
+        self, cache, token: int, pos: int, n_rounds: int, k: int, history,
+    ) -> tuple[np.ndarray, np.ndarray, KVCache | QuantizedKVCache]:
+        """``n_rounds`` greedy speculative rounds (n-gram drafts,
+        ``speculative.spec_round``) of one request from ``token`` at ``pos``.
+
+        ``history`` holds every consumed token (prompt and generated, ending
+        with ``token``); the most recent ``seq_len`` of them go into a
+        ``[seq_len]`` buffer on the device, which the rounds extend there.  A
+        round verifies ``k`` drafts in one window of ``k + 1`` rows and emits
+        1 to ``k + 1`` tokens.  The drafted window, the tokens, the history
+        and its length stay on the device; each round reads its count back
+        to the host (the forward takes host positions), and the tokens come
+        back once, at the end.  Returns (tokens ``[n_rounds, k + 1]``, counts
+        ``[n_rounds]``, cache): round r's tokens are ``tokens[r, :counts[r]]``,
+        the plain greedy loop's."""
+        if n_rounds < 1 or k < 1 or pos < 0 or pos + n_rounds * (k + 1) > cache.seq_len:
+            raise ValueError(
+                f"{n_rounds} rounds of {k + 1} rows at position {pos} do not fit the cache of {cache.seq_len} rows"
+            )
+        from .speculative import spec_round
+
+        t = self.config.seq_len
+        history = np.asarray(history, np.int32)[-t:]
+        dev = self.weights.embed.q.device
+        hist = torch.zeros(t, dtype=torch.int32, device=dev)
+        hist[: len(history)] = torch.as_tensor(history, device=dev)
+        carry = (torch.full((1,), int(token), dtype=torch.int32, device=dev), cache, np.asarray([pos], np.int64),
+                 hist, torch.tensor(len(history), dtype=torch.int32, device=dev))
+
+        def forward(window, cache, pos, **kw):
+            return qwen3_forward(self.config, self.weights, window, cache, pos, mode=self.mode, **kw)
+
+        preds, counts = [], []
+        for _ in range(n_rounds):
+            carry, (p, c) = spec_round(forward, carry, k)
+            preds.append(p)
+            counts.append(c)
+        return torch.stack(preds).cpu().numpy(), np.asarray(counts, np.int32), carry[1]
 
     def all_logits(self, cache, tokens, pos_start) -> tuple[torch.Tensor, KVCache | QuantizedKVCache]:
         """Logits for every position of one window: tokens [B, S] → [B, S, V]."""

@@ -3,8 +3,9 @@
 The port of the reference package's ``inference/generation.py``: the
 host-sampler loops, one decode step per token, and the device-sampling loops,
 one ``Engine.decode_chunk`` per chunk of tokens (64 in ``generate``, 32 in a
-chat turn).  The prompt goes through prefill windows instead of a
-token-at-a-time feed.
+chat turn); ``generate(spec_k=)`` decodes greedily in speculative chunks of
+``Engine.decode_chunk_spec``.  The prompt goes through prefill windows
+instead of a token-at-a-time feed.
 
 Sampling parity: in chat mode the Rust reference draws one RNG coin per
 *prompt* token as well (it samples after every fed token and keeps only the
@@ -42,12 +43,15 @@ def generate(
     prompt: Optional[str],
     out=None,
     max_tokens: Optional[int] = None,
+    spec_k: int = 0,
 ) -> list[int]:
     """Single-prompt generation (generation.rs:9-48). Returns generated ids.
 
     ``max_tokens`` stops after that many generated tokens; by default the
     loop runs to a termination token or the end of the context, as the
-    reference does."""
+    reference does.  ``spec_k > 0`` enables n-gram speculative decoding
+    (``speculative.py``): greedy-exact, so it takes effect with temperature
+    0 and device sampling."""
     prompt_tokens = tokenizer.encode(prompt or "")
     if not prompt_tokens:
         raise ValueError("Please provide a prompt")
@@ -70,8 +74,12 @@ def generate(
     pos = len(prompt_tokens) - 1
 
     if sampler.device:
-        _generate_chunks(engine, tokenizer, sampler, logits, cache, pos, generated, metrics, decoder, out,
-                         max_tokens)
+        if spec_k > 0 and sampler.temperature == 0.0:
+            _generate_spec(engine, tokenizer, sampler, logits, cache, pos, generated, metrics, decoder, out,
+                           max_tokens, spec_k, prompt_tokens)
+        else:
+            _generate_chunks(engine, tokenizer, sampler, logits, cache, pos, generated, metrics, decoder, out,
+                             max_tokens)
         _emit(decoder.flush(), out)
         metrics.report_and_reset()
         _emit("\n", out)
@@ -129,6 +137,61 @@ def _generate_chunks(engine, tokenizer, sampler, logits, cache, pos, generated, 
             generated.append(t)
             _emit(decoder.push(tokenizer.decode_bytes(t)), out)
         next_token = int(chunk[-1])
+        metrics.increment()
+        done = tokenizer.is_termination(next_token)
+
+
+# Rounds a speculative chunk takes: the largest that fits the room left.
+SPEC_ROUND_BUCKETS = (16, 8, 4, 2, 1)
+
+
+def _generate_spec(engine, tokenizer, sampler, logits, cache, pos, generated, metrics, decoder, out, max_tokens,
+                   spec_k, prompt_tokens) -> None:
+    """The speculative branch of ``generate``: each round verifies ``spec_k``
+    drafted tokens in one forward and emits 1 to ``spec_k + 1`` tokens, the
+    plain greedy loop's.  A chunk takes the largest round bucket that fits
+    the context (and ``max_tokens``, a round emitting at least one token);
+    fewer than ``spec_k + 1`` rows left finish on the plain ``decode_chunk``,
+    since a round could overrun the cache."""
+    metrics.start_generation()
+    next_token = sampler.sample(logits)
+    metrics.increment()
+    done = tokenizer.is_termination(next_token)
+    pos += 1
+    history = list(prompt_tokens) + [next_token]
+    seq_len = engine.config.seq_len
+    while not done:
+        generated.append(next_token)
+        _emit(decoder.push(tokenizer.decode_bytes(next_token)), out)
+        if len(generated) == max_tokens:
+            break
+        left = None if max_tokens is None else max_tokens - len(generated)
+        n_avail = (seq_len - pos) // (spec_k + 1)
+        if left is not None:
+            n_avail = min(n_avail, left)
+        n_rounds = next((rb for rb in SPEC_ROUND_BUCKETS if rb <= n_avail), 0)
+        if n_rounds > 0:
+            toks, counts, cache = engine.decode_chunk_spec(cache, next_token, pos, n_rounds, spec_k,
+                                                           np.asarray(history))
+            emitted = [int(t) for r in range(n_rounds) for t in toks[r, : counts[r]]]
+        else:
+            room = seq_len - pos
+            if room <= 0:
+                break
+            tail, cache = engine.decode_chunk(cache, next_token, pos, room if left is None else min(room, left),
+                                              temperature=0.0)
+            emitted = [int(t) for t in tail]
+        pos += len(emitted)
+        history.extend(emitted)
+        if left is not None:
+            emitted = emitted[:left]
+        for t in emitted[:-1]:
+            metrics.increment()
+            if tokenizer.is_termination(t):
+                return
+            generated.append(t)
+            _emit(decoder.push(tokenizer.decode_bytes(t)), out)
+        next_token = emitted[-1]
         metrics.increment()
         done = tokenizer.is_termination(next_token)
 

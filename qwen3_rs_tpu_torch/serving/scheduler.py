@@ -19,6 +19,20 @@ every step and refills slots as requests finish:
   temperatures and top-p, the tokens copied to the host once per chunk.
   Draws come from one ``torch.Generator`` seeded with ``seed``: reproducible
   per seed, not the reference's ``jax.random`` bits.
+* speculative decoding (``spec_k``, page pool and device sampling only):
+  every slot drafts ``spec_k`` tokens from its history per round
+  (``inference/speculative.py``), verifies them in one window of
+  ``spec_k + 1`` rows and emits 1 to ``spec_k + 1`` tokens; greedy slots
+  accept by argmax match, sampled slots by sampled-token match (exact
+  speculative sampling for the deterministic drafter).  The histories stay
+  on the device, seeded at admission.  Each round reads its counts back to
+  the host, since the forward takes host positions, so a chunk's positions
+  are exact when its dispatch returns; the host keeps JAX's upper bound
+  (``n_rounds·(spec_k + 1)`` rows a slot) until the chunk's tokens are read.
+  Slots with fewer than ``spec_k + 1`` rows left finish on plain one-token
+  steps.  An acceptance-adaptive policy turns speculation off while the
+  tokens a round (an EWMA) stay under ``spec_min_accept`` and probes it
+  again later, on traffic that repeats bigrams.
 * pipelining (device sampling): chunk N+1 is dispatched before chunk N's
   tokens are read; continuing slots chain their input token on the device,
   and on the page pool admissions sample their first tokens on the device
@@ -33,8 +47,8 @@ the reference package.
 
 Scheduling is FCFS; each ``step()`` first admits queued requests into free
 slots (bounded by ``max_admissions_per_step``), then advances every active
-slot by one decode step (host sampling) or one chunk (device sampling).
-Speculative decoding (``spec_k``) is not ported yet and raises.
+slot by one decode step (host sampling) or one chunk (device sampling, or a
+speculative chunk of rounds).
 
 Tensor parallelism (``mesh``, ``start_tp_engine``): every rank of the mesh
 runs this engine in lockstep on its own weight and cache shards (SPMD).  At
@@ -61,7 +75,7 @@ import torch
 from ..checkpoint import load_checkpoint
 from ..configuration import ModelConfig
 from ..device import resolve_device
-from ..inference.engine import not_ported
+from ..inference.speculative import spec_round_batched
 from ..models.qwen3 import (
     Qwen3Weights,
     cast_weight_scales,
@@ -125,6 +139,18 @@ class ContinuousBatchingEngine:
     or a page pool), on ``device`` (the card unless the caller asks for the
     CPU)."""
 
+    # Speculative chunks read before the acceptance-adaptive policy may turn
+    # speculation off (the drafting histories start cold).
+    _SPEC_GRACE_CHUNKS = 3
+    _SPEC_ROUND_BUCKETS = (16, 8, 4, 2, 1)
+    # The re-probe gate: a bigram repeated in a live stream's last
+    # _SPEC_GATE_WINDOW tokens, checked every _SPEC_GATE_RECHECK plain chunks
+    # once the probe interval has passed; after _SPEC_GATE_MAX_HOLDS held
+    # probes one fires all the same (the window cannot see longer cycles).
+    _SPEC_GATE_WINDOW = 64
+    _SPEC_GATE_RECHECK = 4
+    _SPEC_GATE_MAX_HOLDS = 16
+
     def __init__(
         self,
         checkpoint: str | Path | None = None,
@@ -144,14 +170,16 @@ class ContinuousBatchingEngine:
         max_admissions_per_step: int | None = None,
         mesh=None,
         spec_k: int = 0,
+        spec_min_accept: float = 1.35,
+        spec_probe_chunks: int = 16,
         prefix_cache: bool = False,
         prefill_chunk: int | None = None,
         device=None,
     ):
         if sampling not in ("host", "device"):
             raise ValueError(f"unknown sampling: {sampling!r}")
-        if spec_k > 0:
-            raise not_ported("speculative serving (spec_k)", "queue 1, item 3: speculative decoding")
+        if spec_k > 0 and (kv_layout != "paged" or sampling != "device"):
+            raise ValueError('speculative serving requires kv_layout="paged" and sampling="device"')
         # Tensor-parallel serving: weights and KV shard over the mesh's tp
         # axis, and every forward is this rank's part of the tp forward.
         # Data parallelism is request-level (one engine per replica), so the
@@ -196,6 +224,21 @@ class ContinuousBatchingEngine:
         self.decode_chunk_steps = decode_chunk_steps
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
+        # Speculative decoding pays while the tokens a round stay above
+        # ``spec_min_accept``: the EWMA of a round's tokens is taken as each
+        # chunk is read, speculation falls back to plain chunks below it and
+        # is probed again after ``spec_probe_chunks`` plain chunks (doubling
+        # after a probe that fails at once), gated on repeated bigrams.
+        self.spec_k = spec_k
+        self.spec_min_accept = spec_min_accept
+        self.spec_probe_chunks = spec_probe_chunks
+        self._spec_enabled = spec_k > 0
+        self._spec_accept_ewma: float | None = None
+        self._spec_plain_chunks = 0
+        self._spec_chunks_seen = 0
+        self._spec_probe_interval = spec_probe_chunks
+        self._spec_probes_gated = 0
+        self._spec_gate_base = 0
         # prefix_cache: requests sharing a prompt prefix adopt the pages that
         # cover it; their admission prefill runs only the prompt suffix, at
         # pos_start = the matched rows.
@@ -246,6 +289,9 @@ class ContinuousBatchingEngine:
         self.slot_request: list[Optional[Request]] = [None] * n_slots
         self.slot_pos = np.zeros(n_slots, np.int32)  # next write position
         self.slot_token = np.zeros(n_slots, np.int32)  # last sampled token
+        # Speculative rounds dispatched and not yet read, per slot: each emits
+        # at least one token (``_provably_done``).
+        self._spec_pending_rounds = np.zeros(n_slots, np.int64)
         self.queue: list[Request] = []
         self.completed: list[Request] = []
         self._decode_steps = 0
@@ -312,17 +358,34 @@ class ContinuousBatchingEngine:
             copy["done"].synchronize()
         return copy["host"].numpy()
 
-    def _prefill_paged_sampled(self, tokens, out_idx, tables, pos, temps, topps, slots, fresh, generator=None):
+    def _prefill_paged_sampled(self, tokens, out_idx, tables, pos, temps, topps, slots, fresh, generator=None,
+                               spec_state=None, picks=()):
         """Device-sampling admission: the batched prefill, its first tokens
         sampled on the device, and those scattered into ``fresh`` (the next
         chunk's input, [n_slots] on the device) at ``slots`` (one per real
-        row; padding rows drop).  Returns (tokens [k_pad], fresh)."""
+        row; padding rows drop).  Returns (tokens [k_pad], fresh).
+
+        With ``spec_state`` (speculative serving) each admitted slot's
+        drafting history on the device becomes its whole prompt (an adopted
+        prefix included, so that it can be drafted from) and its first token;
+        ``picks`` holds each real row's (request, prompt length)."""
         logits = self._prefill_paged(tokens, out_idx, tables, pos)
         toks = sample_tokens(logits, generator or self._gen, self._to_device(temps, torch.float32),
                              self._to_device(topps, torch.float32))
-        if len(slots):
+        k = len(slots)
+        if k:
+            sl = self._to_device(slots, torch.long)
             fresh = fresh.clone()
-            fresh[self._to_device(slots, torch.long)] = toks[: len(slots)]
+            fresh[sl] = toks[:k]
+            if spec_state is not None:
+                rows = np.zeros((k, self.config.seq_len), np.int32)
+                plens = np.array([plen for _, plen in picks], np.int64)
+                for i, (req, plen) in enumerate(picks):
+                    rows[i, :plen] = req.prompt_tokens[:plen]
+                hist, hlen = spec_state["hist"], spec_state["hlen"]
+                hist[sl] = self._to_device(rows, torch.int32)
+                hist[sl, self._to_device(plens, torch.long)] = toks[:k].to(hist.dtype)
+                hlen[sl] = self._to_device(plens + 1, torch.int32)
         return toks, fresh
 
     def _decode_chunked(self, prev_last, fresh, pos0, active, temps, topps, n_steps, generator=None):
@@ -356,6 +419,29 @@ class ContinuousBatchingEngine:
             tokens = sample_tokens(logits, gen, temps_t, topps_t)
             out.append(tokens)
         return torch.stack(out), tokens
+
+    def _decode_spec(self, prev_last, fresh, pos, active, temps, topps, hist, hlen, n_rounds, generator=None):
+        """``n_rounds`` batched speculative rounds of every slot
+        (``speculative.spec_round_batched``): slots with ``fresh >= 0`` start
+        from that token, the others from ``prev_last`` (the previous chunk's
+        last tokens, on the device); ``pos`` [n_slots] host positions;
+        inactive slots write nothing and advance nothing.  Returns (tokens
+        [n_rounds, n_slots, k + 1] on the device, counts [n_rounds, n_slots]
+        on the host, the last tokens, the positions after the rounds (host),
+        hist, hlen).  A verify window of n_slots × (k + 1) rows takes #3's
+        routes and, on the pool, #10."""
+        def forward(window, cache, pos, **kw):
+            return self._forward_on(cache, window, pos, **kw)
+
+        tokens = torch.where(fresh >= 0, fresh, prev_last)
+        carry = (tokens, self.cache, np.asarray(pos, np.int64), hist, hlen, temps, topps, generator or self._gen)
+        toks, counts = [], []
+        for _ in range(n_rounds):
+            carry, (t, c) = spec_round_batched(forward, carry, self.spec_k, self.allocator.tables, active)
+            toks.append(t)
+            counts.append(c)
+        last, self.cache, pos, hist, hlen = carry[:5]
+        return torch.stack(toks), np.stack(counts), last, pos, hist, hlen
 
     # ------------------------------------------------------- tensor parallel
     def _sync(self, op: str) -> None:
@@ -484,7 +570,13 @@ class ContinuousBatchingEngine:
             self._decode_chunked(zeros, zeros, self.slot_pos.copy(), inactive, np.zeros(self.n_slots, np.float32),
                                  np.ones(self.n_slots, np.float32),
                                  max(1, min(self.decode_chunk_steps, self.config.seq_len)), gen)
-        else:
+        if self.spec_k and self.config.seq_len >= self.spec_k + 1:
+            # A speculative round, and the plain step of the context-end taper.
+            hist = torch.zeros(self.n_slots, self.config.seq_len, dtype=torch.int32, device=self.device)
+            self._decode_spec(zeros, zeros, np.zeros(self.n_slots, np.int64), inactive,
+                              np.zeros(self.n_slots, np.float32), np.ones(self.n_slots, np.float32), hist,
+                              torch.zeros(self.n_slots, dtype=torch.int32, device=self.device), 1, gen)
+        if not device or self.spec_k:
             self._decode(inactive)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -556,7 +648,28 @@ class ContinuousBatchingEngine:
         # and are read only after that chunk is dispatched.
         deferred = self.sampling == "device" and self.kv_layout == "paged"
         prev = self._inflight
+        # When the acceptance-adaptive policy switched modes since the last
+        # dispatch, read the previous chunk first: chunks of the two kinds do
+        # not chain, and an empty pipeline starts from exact host state.
+        use_spec = self.spec_k > 0 and self._spec_enabled
+        if self.spec_k and prev is not None and ("hist" in prev) != use_spec:
+            self._inflight = None
+            if "hist" in prev:
+                self._process_spec_chunk(prev, emitted)
+            else:
+                self._process_chunk(prev, emitted)
+            prev = None
         fresh = self._to_device(self._fresh_base(prev), torch.int32) if deferred else None
+        # Speculative mode: the drafting histories chain on the device from
+        # the previous chunk; with none in flight they are rebuilt from the
+        # host's exact state.
+        spec_state = None
+        if use_spec:
+            if prev is not None:
+                spec_state = {"hist": prev["hist"], "hlen": prev["hlen"]}
+            else:
+                hist, hlen = self._spec_host_hist()
+                spec_state = {"hist": self._to_device(hist, torch.int32), "hlen": self._to_device(hlen, torch.int32)}
         pending: list[dict] = [] if deferred else None
         admitted = 0
         if self.prefill_chunk is not None:
@@ -564,20 +677,39 @@ class ContinuousBatchingEngine:
             # partials from the queue head) before the group admission, so
             # that short prompts still admit into the remaining slots.  New
             # partial starts count against max_admissions_per_step.
-            fresh, started = self._advance_partials(emitted, fresh, pending, budget=self.max_admissions_per_step)
+            fresh, started = self._advance_partials(emitted, fresh, pending, spec_state,
+                                                    budget=self.max_admissions_per_step)
             admitted += started
         while True:
             budget = None if self.max_admissions_per_step is None else self.max_admissions_per_step - admitted
             if budget is not None and budget <= 0:
                 break
             if self.kv_layout == "paged":
-                k, fresh = self._admit_group(emitted, budget, fresh=fresh, pending=pending)
+                k, fresh = self._admit_group(emitted, budget, fresh=fresh, pending=pending, spec_state=spec_state)
             else:
                 k = 1 if self._admit_one(emitted) else 0
             if k == 0:
                 break
             admitted += k
-        if self.sampling == "device":
+        if use_spec:
+            # Dispatch the next speculative chunk, then read the previous one.
+            self._inflight = chunk = None
+            if self.active_count and not self._all_live_finish_within(prev):
+                chunk = self._inflight = self._dispatch_spec_chunk(prev, fresh, spec_state["hist"], spec_state["hlen"])
+            for entry in pending:
+                self._process_admits(entry, emitted)
+            if prev is not None:
+                self._process_spec_chunk(prev, emitted)
+            # The context-end taper: live slots the chunk could not take
+            # (fewer than k + 1 rows left) advance by plain one-token steps on
+            # exact state, so that one stream near its end does not take the
+            # whole batch out of speculative mode.
+            tail = [slot for slot, r in enumerate(self.slot_request)
+                    if r is not None and not (chunk is not None and chunk["active"][slot])
+                    and not self._provably_done(r, slot) and int(self.slot_pos[slot]) < self.config.seq_len]
+            if tail:
+                self._decode_all(emitted, slots=tail)
+        elif self.sampling == "device":
             # Dispatch the next chunk first, then read the previous one (and
             # the deferred admissions) while it runs.  When every live slot
             # is certain to finish inside the previous chunk, the next one
@@ -585,6 +717,8 @@ class ContinuousBatchingEngine:
             self._inflight = None
             if self.active_count and not self._all_live_finish_within(prev):
                 self._inflight = self._dispatch_chunk(prev, fresh)
+                if self.spec_k:
+                    self._count_plain_chunk()
             for entry in pending or ():
                 self._process_admits(entry, emitted)
             if prev is not None:
@@ -592,6 +726,25 @@ class ContinuousBatchingEngine:
         elif self.active_count:
             self._decode_all(emitted)
         return emitted
+
+    def _count_plain_chunk(self) -> None:
+        """Speculation turned off by the policy: count a plain chunk towards
+        the next probe.  The probe fires only on traffic where some live
+        stream repeats a bigram (the drafter has nothing to draft otherwise);
+        a held probe is checked again every ``_SPEC_GATE_RECHECK`` chunks,
+        and after ``_SPEC_GATE_MAX_HOLDS`` holds it fires all the same."""
+        self._spec_plain_chunks += 1
+        if self._spec_plain_chunks < self._spec_probe_interval:
+            return
+        if self._traffic_repetitive() or self._spec_probes_gated - self._spec_gate_base >= self._SPEC_GATE_MAX_HOLDS:
+            self._spec_enabled = True
+            self._spec_accept_ewma = None
+            self._spec_chunks_seen = 0
+            self._spec_plain_chunks = 0
+            self._spec_gate_base = self._spec_probes_gated
+        else:
+            self._spec_probes_gated += 1
+            self._spec_plain_chunks = max(0, self._spec_probe_interval - self._SPEC_GATE_RECHECK)
 
     def run(self) -> list[Request]:
         """Drain the queue and the slots; returns the completed requests."""
@@ -628,7 +781,8 @@ class ContinuousBatchingEngine:
             p *= 2
         return min(p, self.n_slots)
 
-    def _admit_group(self, emitted, budget: int | None, *, fresh=None, pending=None) -> tuple[int, object]:
+    def _admit_group(self, emitted, budget: int | None, *, fresh=None, pending=None,
+                     spec_state=None) -> tuple[int, object]:
         """Admit a group of queued requests with one batched prefill (paged
         layout).  The group is the longest FCFS prefix that shares a prompt
         bucket and a fresh/continued mode, fits in the free slots and pages,
@@ -638,7 +792,8 @@ class ContinuousBatchingEngine:
         With ``pending`` (device sampling) the admission is deferred: the
         first tokens are sampled on the device and scattered into ``fresh``
         for the next chunk, and ``_process_admits`` reads them after that
-        chunk's dispatch."""
+        chunk's dispatch; with ``spec_state`` each slot's drafting history is
+        seeded on the device too."""
         free = [i for i, r in enumerate(self.slot_request) if r is None and i not in self._partials]
         if not free or not self.queue:
             return 0, fresh
@@ -738,12 +893,13 @@ class ContinuousBatchingEngine:
         # their K/V lands in the null page, which no request reads.
         pos = pos0 if cont_group else None
         if pending is not None:
-            reqs = [p[0] for p in picks]
-            toks, fresh = self._prefill_paged_sampled(tokens, out_idx, tables, pos, *self._sampling_rows(reqs, k_pad),
-                                                      slots, fresh)
-            for i, (req, prompt_len, _, _) in enumerate(picks):
+            pairs = [(r, pl) for r, pl, _, _ in picks]
+            toks, fresh = self._prefill_paged_sampled(tokens, out_idx, tables, pos,
+                                                      *self._sampling_rows([r for r, _ in pairs], k_pad), slots, fresh,
+                                                      spec_state=spec_state, picks=pairs)
+            for i, (req, prompt_len) in enumerate(pairs):
                 self._occupy(req, slots[i], prompt_len)
-            pending.append({"toks": self._to_host(toks[:k]), "picks": [(r, pl) for r, pl, _, _ in picks]})
+            pending.append({"toks": self._to_host(toks[:k]), "picks": pairs})
             return k, fresh
         logits = self._prefill_paged(tokens, out_idx, tables, pos)
         logits_np = logits[:k].float().cpu().numpy()
@@ -763,7 +919,8 @@ class ContinuousBatchingEngine:
                 temps[i], topps[i] = r.temperature, r.topp
         return temps, topps
 
-    def _advance_partials(self, emitted, fresh=None, pending=None, *, budget=None) -> tuple[object, int]:
+    def _advance_partials(self, emitted, fresh=None, pending=None, spec_state=None, *,
+                          budget=None) -> tuple[object, int]:
         """Chunked prefill: start new partial prefills from the queue head and
         advance every partial by one chunk.  Intermediate chunks only write
         the cache; a partial's final chunk samples its first token (deferred,
@@ -818,10 +975,11 @@ class ContinuousBatchingEngine:
             b = max(rem, min(self._bucket(rem), self.config.seq_len))
             by_bucket.setdefault(b, []).append(s)
         for b, slots in sorted(by_bucket.items()):
-            fresh = self._partial_wave(sorted(slots), b, final=True, emitted=emitted, fresh=fresh, pending=pending)
+            fresh = self._partial_wave(sorted(slots), b, final=True, emitted=emitted, fresh=fresh, pending=pending,
+                                       spec_state=spec_state)
         return fresh, started
 
-    def _partial_wave(self, slots, win, *, final, emitted, fresh=None, pending=None):
+    def _partial_wave(self, slots, win, *, final, emitted, fresh=None, pending=None, spec_state=None):
         """One batched continued prefill over partial slots: ``win`` prompt
         rows per slot from each slot's done-rows offset.  Returns ``fresh``."""
         k = len(slots)
@@ -848,7 +1006,8 @@ class ContinuousBatchingEngine:
             del self._partials[s]
         if pending is not None:
             toks, fresh = self._prefill_paged_sampled(tokens, out_idx, tables, pos0,
-                                                      *self._sampling_rows([r for r, _ in picks], k_pad), slots, fresh)
+                                                      *self._sampling_rows([r for r, _ in picks], k_pad), slots, fresh,
+                                                      spec_state=spec_state, picks=picks)
             for i, (req, plen) in enumerate(picks):
                 self._occupy(req, slots[i], plen)
             pending.append({"toks": self._to_host(toks[:k]), "picks": picks})
@@ -884,13 +1043,14 @@ class ContinuousBatchingEngine:
         self._occupy(req, slot, s_real)
         self._first_token(req, first, emitted)
 
-    def _decode_all(self, emitted) -> None:
-        """One single-token step of every active slot."""
-        active = np.array([r is not None for r in self.slot_request])
+    def _decode_all(self, emitted, slots=None) -> None:
+        """One single-token step of every active slot, or of ``slots`` alone
+        (the speculative taper; the other slots' writes are masked)."""
+        active = np.array([r is not None and (slots is None or i in slots) for i, r in enumerate(self.slot_request)])
         logits_np = self._decode(active).float().cpu().numpy()
         self._decode_steps += 1
         for slot, req in enumerate(self.slot_request):
-            if req is None:
+            if req is None or not active[slot]:
                 continue
             self._decode_tokens += 1
             self.slot_pos[slot] += 1
@@ -926,7 +1086,16 @@ class ContinuousBatchingEngine:
         dispatched (processed and in flight): ``slot_pos`` is the dispatch
         position, so it less the prompt end and the processed tokens counts
         the unread ones (a deferred first token included).  EOS only ends a
-        request earlier, so True is exact."""
+        request earlier, so True is exact.
+
+        While speculative rounds are dispatched and unread, ``slot_pos`` is
+        an upper bound (a round advances 1 to k + 1 rows): the tokens certain
+        to come are one a round (and a deferred first token).  The rounds'
+        bound keeps positions inside the context, and the taper finishes on
+        exact state, so there is no context-end clause there."""
+        if self.spec_k and (self._spec_enabled or int(self._spec_pending_rounds[slot]) > 0):
+            pend = int(self._spec_pending_rounds[slot]) + (1 if r.first_token_time is None else 0)
+            return len(r.generated) + pend >= r.max_new_tokens
         pending = int(self.slot_pos[slot]) - (r._next_pos + len(r.generated) - 1)
         return (len(r.generated) + pending >= r.max_new_tokens
                 or int(self.slot_pos[slot]) >= self.config.seq_len)
@@ -988,6 +1157,141 @@ class ContinuousBatchingEngine:
                 if req.state is RequestState.DONE:
                     break
 
+    # ---------------------------------------------------------- speculative
+    def _spec_n_rounds(self, avail: int) -> int:
+        """The largest round bucket that fits ``avail`` rounds (0: none)."""
+        cap = min(avail, max(self.decode_chunk_steps, 1))
+        return next((rb for rb in self._SPEC_ROUND_BUCKETS if rb <= cap), 0)
+
+    def _spec_host_hist(self) -> tuple[np.ndarray, np.ndarray]:
+        """Every slot's drafting history from the host's exact request state
+        (no chunk in flight): prompt (cut as admission cuts it) and generated
+        tokens, the last ``seq_len`` of them, ending with the slot's pending
+        input token."""
+        t = self.config.seq_len
+        hist = np.zeros((self.n_slots, t), np.int32)
+        hlen = np.zeros(self.n_slots, np.int32)
+        for slot, req in enumerate(self.slot_request):
+            if req is None:
+                continue
+            h = (list(req.prompt_tokens[: t - 1]) + req.generated)[-t:]
+            hist[slot, : len(h)] = h
+            hlen[slot] = len(h)
+        return hist, hlen
+
+    def _dispatch_spec_chunk(self, prev, fresh, hist_in, hlen_in) -> Optional[dict]:
+        """Run one speculative chunk without reading the previous one's tokens
+        (the pipelining of ``_dispatch_chunk``): slots that chain from
+        ``prev`` take its last tokens, positions and histories, slots with
+        ``fresh >= 0`` their known token and position.  Slots with fewer than
+        k + 1 rows left are masked out (``step()`` finishes them on plain
+        steps) rather than cutting every slot's rounds.  None when no slot
+        can run a round.
+
+        The rounds read their counts on the host, so the chunk's positions
+        are exact when it returns; ``slot_pos`` takes the upper bound
+        ``n_rounds·(k + 1)`` all the same, as the reference's does, until the
+        chunk is read."""
+        k = self.spec_k
+        seq_len = self.config.seq_len
+        active = np.array([r is not None and not self._provably_done(r, slot)
+                           and seq_len - int(self.slot_pos[slot]) >= k + 1
+                           for slot, r in enumerate(self.slot_request)])
+        if not active.any():
+            return None
+        n_rounds = self._spec_n_rounds((seq_len - int(self.slot_pos[active].max())) // (k + 1))
+        if n_rounds == 0:
+            return None
+        reqs = list(self.slot_request)
+        # The slots that chain from prev are those with fresh < 0 (``_fresh_base``).
+        chained = np.array([prev is not None and r is not None and prev["active"][s] and prev["reqs"][s] is r
+                            for s, r in enumerate(reqs)])
+        pos = np.where(chained, prev["pos"] if prev is not None else 0, self.slot_pos)
+        prev_last = torch.zeros(self.n_slots, dtype=torch.int32, device=self.device) if prev is None else prev["last"]
+        toks, counts, last, pos, hist, hlen = self._decode_spec(prev_last, fresh, pos, active,
+                                                                *self._sampling_rows(reqs, self.n_slots),
+                                                                hist_in, hlen_in, n_rounds)
+        self.slot_pos[active] += n_rounds * (k + 1)
+        self._spec_pending_rounds[active] += n_rounds
+        return {"toks": self._to_host(toks), "counts": counts, "last": last, "pos": pos, "hist": hist, "hlen": hlen,
+                "n_rounds": n_rounds, "active": active, "reqs": reqs}
+
+    def _process_spec_chunk(self, chunk: dict, emitted) -> None:
+        """Read one speculative chunk: emit each slot's accepted runs, set its
+        exact position (prompt and generated less the pending input, plus the
+        reservation of the chunk still in flight), and feed the acceptance
+        policy."""
+        toks_np = self._host_array(chunk["toks"])  # [n_rounds, B, k + 1]
+        counts_np = chunk["counts"]  # [n_rounds, B]
+        n_rounds = chunk["n_rounds"]
+        self._decode_steps += n_rounds
+        for slot, req in enumerate(chunk["reqs"]):
+            if req is None or req.state is not RequestState.ACTIVE or not chunk["active"][slot]:
+                continue  # empty, finished earlier, or masked at dispatch
+            pos = req._next_pos + len(req.generated) - 1  # the chunk's exact start
+            for r in range(n_rounds):
+                for i in range(int(counts_np[r, slot])):
+                    self._decode_tokens += 1
+                    pos += 1
+                    if pos >= self.config.seq_len:
+                        # As the plain path: the token from the last context row is dropped.
+                        self._finish(req, "length")
+                        break
+                    token = int(toks_np[r, slot, i])
+                    self.slot_token[slot] = token
+                    self._emit(req, token, emitted)
+                    if req.state is not RequestState.ACTIVE:
+                        break
+                if req.state is not RequestState.ACTIVE:
+                    break
+            if req.state is not RequestState.ACTIVE:
+                continue
+            self._spec_pending_rounds[slot] = max(0, self._spec_pending_rounds[slot] - n_rounds)
+            inflight = self._inflight
+            reserved = (inflight["n_rounds"] * (self.spec_k + 1)
+                        if inflight is not None and "hist" in inflight and inflight["active"][slot]
+                        and inflight["reqs"][slot] is req else 0)
+            self.slot_pos[slot] = req._next_pos + len(req.generated) - 1 + reserved
+        # The EWMA of the tokens a round over this chunk's live slots.
+        act = [s for s, r in enumerate(chunk["reqs"]) if r is not None and chunk["active"][s]]
+        if not act or not n_rounds:
+            return
+        mean_tok = float(counts_np[:, act].mean())
+        w = 0.2
+        self._spec_chunks_seen += 1
+        self._spec_accept_ewma = mean_tok if self._spec_accept_ewma is None else (
+            (1 - w) * self._spec_accept_ewma + w * mean_tok)
+        # Not one draft accepted after two chunks: cold histories show some
+        # acceptance where there is any, so the grace is not waited out.
+        zero_accept = self._spec_chunks_seen >= 2 and self._spec_accept_ewma <= 1.05
+        if (self._spec_enabled and (zero_accept or self._spec_chunks_seen >= self._SPEC_GRACE_CHUNKS)
+                and self._spec_accept_ewma < self.spec_min_accept):
+            self._spec_enabled = False
+            self._spec_plain_chunks = 0
+            if self._spec_chunks_seen <= self._SPEC_GRACE_CHUNKS + 2:
+                # The probe failed at the grace's end: back off the next one.
+                self._spec_probe_interval = min(self._spec_probe_interval * 2, 1024)
+            else:
+                # It paid for a while before the EWMA sank: the traffic changed.
+                self._spec_probe_interval = self.spec_probe_chunks
+
+    def _traffic_repetitive(self) -> bool:
+        """Whether some live stream's last ``_SPEC_GATE_WINDOW`` tokens (prompt
+        tail and generated) repeat a bigram: the drafter can accept nothing
+        otherwise, so a probe there only pays its grace chunks.  The tails are
+        cut before they are joined."""
+        w = self._SPEC_GATE_WINDOW
+        for r in self.slot_request:
+            if r is None:
+                continue
+            seq = (list(r.prompt_tokens[-w:]) + list(r.generated[-w:]))[-w:]
+            seen = set()
+            for pair in zip(seq, seq[1:]):
+                if pair in seen:
+                    return True
+                seen.add(pair)
+        return False
+
     def _emit(self, req: Request, token: int, emitted) -> None:
         if token in req.eos_token_ids:
             self._finish(req, "stop")
@@ -1007,6 +1311,7 @@ class ContinuousBatchingEngine:
             self.slot_request[req.slot] = None
             self.slot_pos[req.slot] = 0
             self.slot_token[req.slot] = 0
+            self._spec_pending_rounds[req.slot] = 0
             req.slot = None
         self.completed.append(req)
 
@@ -1023,6 +1328,10 @@ class ContinuousBatchingEngine:
                 self._decode_tokens / (self._decode_steps * self.n_slots) if self._decode_steps else 0.0
             ),
         }
+        if self.spec_k:
+            out["spec_enabled"] = self._spec_enabled
+            out["spec_accept_ewma"] = self._spec_accept_ewma
+            out["spec_probes_gated"] = self._spec_probes_gated
         if self.allocator is not None:
             out["kv_pages_total"] = self.allocator.n_pages - 1
             out["kv_pages_free"] = self.allocator.free_pages

@@ -1970,3 +1970,106 @@ def test_paged_decode_counters_stay_zero(card):
     torch.cuda.synchronize()
     assert torch.equal(out["x"], first)
     assert int(pa._DECODE_COUNTERS[first.device].abs().sum()) == 0
+
+
+# ------------------------------------------------------ speculative decoding
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+def test_spec_round_batched_card_matches_cpu(card, pool, monkeypatch):
+    """One batched speculative round (k = 3, 4 slots, one idle) over a page
+    pool (pages of 128 rows) after a fresh prefill, on the card and on the CPU: the verify
+    window's #10 partials within #10's tolerance of the plain version on the
+    same inputs, its logits within 2e-2·max|cpu|, and the same tokens,
+    counts, next tokens, positions and histories.  The window of 16 rows
+    takes #3's tensor-core route and #10, each layer."""
+    import qwen3_rs_tpu_torch.ops.kernels.paged_attention as pa
+    from qwen3_rs_tpu_torch.inference import speculative
+    from qwen3_rs_tpu_torch.serving.paged_cache import init_paged_cache
+
+    cfg = ModelConfig(architecture_id=1, dim=256, hidden_dim=512, n_layers=2, n_heads=4, n_kv_heads=2,
+                      head_dim=128, seq_len=512, vocab_size=2176, group_size=64, shared_classifier=True)
+    weights = port_qwen3.cast_weight_scales(random_weights(cfg, seed=9, device=card))
+    weights = weights._replace(rms_final=weights.rms_final * 20)  # peaked: no near-ties
+    k, b, page, plen = 3, 4, 128, 24  # #10 takes pages of a multiple of 128 (the reference's gate)
+    rng = np.random.default_rng(9)
+    prompts = rng.integers(3, cfg.vocab_size, (b, plen))
+    table = np.arange(1, 1 + b * 2, dtype=np.int32).reshape(b, 2)
+    active = np.array([True, True, False, True])
+    seen, real = [], pa.paged_window_partials
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        seen.append((args, kw, out))
+        return out
+
+    monkeypatch.setattr(pa, "paged_window_partials", spy)
+    dtype = "int8" if pool == "int8" else torch.bfloat16
+    results = []
+    for dev, w in ((card, weights), ("cpu", weights_to(weights, "cpu"))):
+        cache = init_paged_cache(cfg, 1 + b * 2, page, dtype=dtype, device=dev)
+        logits, cache = port_qwen3.qwen3_forward(cfg, w, prompts, cache, np.zeros(b, np.int64), page_table=table,
+                                                 fresh_prefill=True)
+        cur = logits.float().cpu().argmax(-1).to(torch.int32)
+        if dev == card:
+            first = cur
+        hist = torch.zeros(b, cfg.seq_len, dtype=torch.int32)
+        hist[:, :plen] = torch.as_tensor(prompts)
+        hist[:, plen] = first
+        got = {}
+
+        def forward(window, cache, pos, **kw):
+            lg, cache = port_qwen3.qwen3_forward(cfg, w, window, cache, pos, **kw)
+            got["logits"] = lg.float().cpu()
+            return lg, cache
+
+        carry = (first.to(dev), cache, np.full(b, plen, np.int64), hist.to(dev),
+                 torch.full((b,), plen + 1, dtype=torch.int32, device=dev), np.zeros(b, np.float32),
+                 np.ones(b, np.float32), torch.Generator(device=dev))
+        before = dict(LAUNCHES)
+        n_seen = len(seen)
+        (nxt, cache, pos, hist, hlen, *_), (toks, counts) = speculative.spec_round_batched(
+            forward, carry, k, table, active)
+        if dev == card:
+            assert LAUNCHES["paged_window_partials"] - before["paged_window_partials"] == cfg.n_layers
+            assert LAUNCHES["qmatmul_w8a16_tc"] - before["qmatmul_w8a16_tc"] == 4 * cfg.n_layers + 1
+            for args, kw, out in seen[n_seen:]:
+                cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+                ref = pa.paged_window_partials_plain(*cpu, **{n: None if t is None else t.cpu() for n, t in kw.items()})
+                _window_holds([t.cpu() for t in out], ref)
+        results.append((got["logits"], toks.cpu(), counts, nxt.cpu(), pos, hist.cpu(), hlen.cpu()))
+    (lg, *a), (lc, *c) = results
+    assert float((lg - lc).abs().max()) <= 2e-2 * float(lc.abs().max())
+    for x, y in zip(a, c):
+        x, y = np.asarray(x), np.asarray(y)
+        if x.ndim == 2 and x.shape == (b, k + 1):  # the idle slot's row is not emitted
+            x, y = x[active], y[active]
+        np.testing.assert_array_equal(x, y)
+
+
+def test_decode_chunk_spec_8b_widths_is_the_greedy_stream(card):
+    """decode_chunk_spec on a 2-layer model with the 8B's widths: each round
+    one window of k + 1 = 5 rows through #3's mma route (4·L + 1 launches)
+    and the plain split attention; the stream is plain greedy's (the
+    megakernel's ``decode_chunk``), a parting allowed only at a near-tie of
+    2e-2·max|logits| on the shared history."""
+    from qwen3_rs_tpu_torch.testing import qwen3_config
+
+    cfg = qwen3_config("8b", seq_len=512, n_layers=2)
+    weights = random_weights(cfg, seed=11, device=card)
+    eng = Engine(config=cfg, weights=weights, device=card)
+    prompt = [int(t) for t in np.random.default_rng(11).integers(3, 1000, 12)] * 3
+    logits, cache = eng.prefill(eng.new_cache(), np.asarray([prompt]), [0])
+    cur = int(logits.float().argmax())
+    n_rounds, k = 8, 4
+    before = dict(LAUNCHES)
+    toks, counts, _ = eng.decode_chunk_spec(cache, cur, len(prompt), n_rounds, k, prompt + [cur])
+    assert LAUNCHES["qmatmul_w8a16_mma"] - before["qmatmul_w8a16_mma"] == n_rounds * (4 * cfg.n_layers + 1)
+    spec = [cur] + [int(t) for r in range(n_rounds) for t in toks[r, : counts[r]]]
+    logits, cache = eng.prefill(eng.new_cache(), np.asarray([prompt]), [0])
+    plain, _ = eng.decode_chunk(cache, cur, len(prompt), len(spec) - 1)
+    plain = [cur] + [int(t) for t in plain]
+    if spec != plain:
+        i = next(j for j, (x, y) in enumerate(zip(spec, plain)) if x != y)
+        lg, _ = eng.prefill(eng.new_cache(), np.asarray([prompt + plain[:i]]), [0])
+        lg = lg[0].float()
+        assert float((lg[spec[i]] - lg[plain[i]]).abs()) <= 2e-2 * float(lg.abs().max()), i
+        assert spec[:i] == plain[:i]

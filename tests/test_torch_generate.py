@@ -183,13 +183,27 @@ def test_cli_device_sampling_repeats_per_seed(exported):
     assert _stdout(port_main, argv) == _stdout(port_main, argv)
 
 
-@pytest.mark.parametrize("flag", [["--sp", "4", "--sp-threshold", "8"], ["--device-sampling", "--spec", "2"],
-                                  ["--spec", "2"], ["--sp", "2"]])
+@pytest.mark.parametrize("flag", [["--sp", "4", "--sp-threshold", "8"], ["--sp", "2"]])
 def test_unported_flags_raise(exported, flag):
     argv = ["inference", str(exported / "m.qtpu"), "--device", "cpu", "-m", "generate",
             "-i", "hi", *flag]
     with pytest.raises(NotImplementedError, match="not ported.*ROADMAP.md"):
         port_main(argv)
+
+
+@pytest.mark.parametrize("flags,what", [
+    (["-m", "generate", "--device-sampling", "--spec", "2", "-t", "0.8"], "requires temperature 0"),
+    (["-m", "chat", "--spec", "2", "-t", "0"], "generate-mode only"),
+])
+def test_spec_flags_raise_the_jax_errors(exported, flags, what):
+    """``--spec`` outside its greedy generate loop: the JAX CLI's error,
+    word for word."""
+    argv = ["inference", str(exported / "m.qtpu"), "-i", "hi", *flags]
+    with pytest.raises(ValueError, match=what) as want:
+        jax_main(argv)
+    with pytest.raises(ValueError, match=what) as got:
+        port_main([*argv, "--device", "cpu"])
+    assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("temperature,topp", [(0.0, 0.9), (0.8, 0.9), (1.0, 1.0), (0.5, 0.0)])

@@ -261,8 +261,22 @@ def test_serve_cli_defaults_answer_as_the_api(exported, kv, monkeypatch):  # noq
     assert box["body"]["text"] == tok.decode(want) and box["body"]["tokens"] == len(want)
 
 
+@pytest.mark.parametrize("argv,error", [
+    (["batch", "-f", "p.txt", "--sampling", "host", "--spec", "2"], SystemExit),
+    (["batch", "-f", "p.txt", "--sampling", "host", "--kv", "paged", "--spec", "2"], ValueError),
+])
+def test_spec_serving_flags_raise_the_jax_errors(exported, argv, error):  # noqa: F811
+    """``batch --spec`` off the page pool or with host sampling: the JAX
+    CLI's error for the same call, word for word."""
+    argv = [argv[0], str(exported / "m.qtpu"), *argv[1:]]
+    with pytest.raises(error) as want:
+        jax_main(argv)
+    with pytest.raises(error) as got:
+        port_main([*argv, "--device", "cpu"])
+    assert str(got.value) == str(want.value) and "paged" in str(want.value)
+
+
 @pytest.mark.parametrize("argv,what", [
-    (["batch", "-f", "p.txt", "--sampling", "host", "--spec", "2"], "speculative"),
     (["serve", "--sampling", "host", "--tp", "2", "--replicas", "2"], "replicated"),
     (["serve", "--sampling", "host", "--replicas", "2"], "replicated"),
     (["serve", "--sampling", "host", "--gateway", "http://a:1"], "gateway"),

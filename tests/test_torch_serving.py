@@ -372,12 +372,14 @@ def test_device_sampling_options_run(weights, kw):
     assert streams == want and stats["completed"] == want_stats["completed"] == 3
 
 
-@pytest.mark.parametrize("kw,what", [
-    (dict(spec_k=2, kv_layout="paged"), "speculative"),
-])
-def test_unported_options_raise(weights, kw, what):
-    with pytest.raises(NotImplementedError, match=f"{what}.*not ported.*ROADMAP.md"):
+@pytest.mark.parametrize("kw", [dict(spec_k=2, kv_layout="paged")])
+def test_spec_options_raise_the_jax_error(weights, kw):
+    """``spec_k`` with host sampling (the default): the JAX engine's error."""
+    with pytest.raises(ValueError, match="speculative serving requires") as want:
+        JaxEngine(config=JCONFIG, weights=weights[0], **kw)
+    with pytest.raises(ValueError, match="speculative serving requires") as got:
         ContinuousBatchingEngine(config=CONFIG, weights=weights[1], device="cpu", **kw)
+    assert str(got.value) == str(want.value)
 
 
 def test_engine_defaults_to_the_card(weights, monkeypatch):
