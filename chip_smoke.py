@@ -53,6 +53,8 @@ Phases, in order; any failure exits non-zero before the final line:
                * the same greedy decode with the megakernel gate patched off
                  (4·L+1 W8A16 matmuls and L flash-decode attentions a step),
                  timed and profiled in the same call;
+               * one 8-step decode chunk inside ``utils.profiling.
+                 profile_trace``, whose trace file must appear;
                * device sampling (``decode_chunk``): greedy equal to the host
                  stream, ``-t 0.8`` repeatable, a chunk with no host
                  synchronisation before its final copy;
@@ -75,10 +77,11 @@ Phases, in order; any failure exits non-zero before the final line:
                  prompt (Q4 #6, #5); eval-ppl at one 4096-row window, fast
                  (Q4 #6, Q4 #7) and f32; exact mode raising; the card against
                  the CPU on a one-layer slice, per layer and through Q4 #11.
-5. ``serve``   the continuous-batching engine on the same 8B weights, ctx
+5. ``serve``   the continuous-batching engine on the same 8B weights cut to
+               their first SERVE_LAYERS (18) layers, ctx
                4096, 8 slots, page 128, greedy: 24 requests (prompts of
                16-1024 tokens, 64 new tokens) with host sampling on the paged
-               bf16 pool, the INT8 pool (at 18 of the 36 layers) and the
+               bf16 pool, the INT8 pool and the
                dense slots, then with device
                sampling (the CLI default, 8-step chunks) on the paged bf16
                pool and the dense slots, its streams held to the host
@@ -92,7 +95,8 @@ Phases, in order; any failure exits non-zero before the final line:
                prefix cache (15 hits, each continued window L paged-window
                launches); chunked prefill; the HTTP front end on port 0
                (answers equal to the requests run alone, then a burst of 8).
-6. ``spec``    n-gram speculative decoding on the same 8B weights and on the
+6. ``spec``    n-gram speculative decoding on the same 8B weights (their
+               first SPEC_LAYERS, 18, layers) and on the
                parrot fixture (every layer's scales zeroed, the tied
                classifier repeating its input: drafts accepted): b=1 greedy
                ``generate(spec_k=4)`` for 128 tokens, every round one window
@@ -115,19 +119,47 @@ Phases, in order; any failure exits non-zero before the final line:
                defaults on each (INT4 with ``QWEN3_TPU_MEGA_Q4=1``: Q4 #11
                where the gate admits dim 512) and ``--sampling host`` on the
                INT4 one; the output must equal the API's.
-8. ``tp``      tensor-parallel serving: 8B at full width and 18 of its 36
-               layers drawn by each of 2 ranks on the one card (gloo), each
+8. ``tp``      tensor-parallel serving: 8B at full width and TP_LAYERS (6) of
+               its 36 layers drawn by each of 2 ranks on the one card (gloo), each
                keeping its shard, the serve phase's 24 requests on the paged
                bf16 pool with device sampling; its greedy streams held to a
                tp=1 run of the same weights (a parting only at a near-tie), every rank's streams, launches
                and collectives equal, every decode chunk checked for its
                launches and every window of 512 reference rows or more for
-               144 #6 column windows (wo and w2 in 4 chunks, 18 layers); the
+               8·L #6 column windows (wo and w2 in 4 chunks); the
                collectives' share of a decode step; then ``cli.py serve --tp
                2 --device cuda:0,cuda:0`` on the cli phase's dim-512 model
                (two completions equal to the API's, SIGTERM leaves no rank)
                and ``--tp 2`` with one device refused.
-9. ``parity``  the 2-layer model on the CPU (plain versions) and on the card
+9. ``replicas`` two engines (8B, 18 layers each, paged bf16, device
+               sampling) on the one card behind ``ReplicatedFrontend`` and the
+               HTTP front end: the serve phase's 24 request lengths as text,
+               streamed, held to one engine's streams behind the same front
+               end (a parting only within MK_TOL_DEEP of the largest logit,
+               as tp's), both replicas taking requests; prefix affinity (6
+               requests sharing a head: one replica, 5 cache hits); then
+               ``cli.py serve --replicas 2`` at ``--tp 1`` (two engines in
+               the server) and ``--tp 2`` (four ranks of the card, a ``serve
+               --tp 2`` process a replica) on the cli phase's exported 2-layer dim-512 model,
+               completions equal to the API's, SIGTERM leaving no process.
+10. ``gateway`` two ``cli.py serve`` workers and ``cli.py serve --gateway``
+               before them: whole and streamed completions equal to the
+               API's; the gateway absent from ``nvidia-smi``'s compute
+               processes, no ``/dev/nvidia*`` file open in it.
+11. ``pp``     ``pipelined_forward``: 8B at full depth on 2 ranks of the card
+               (gloo), 18 layers a rank, B=4 in 2 microbatches, a 128-row
+               prefill and 8 greedy steps, held to the one-rank pipeline at
+               2e-2·max|logits| and the dense forward (other routes) at
+               MK_TOL_DEEP or twice one rounding's move, layer 0's cache
+               rows at 1e-2; each rank's #1-#3
+               launches the schedule's count, bubbles included; ms a step.
+12. ``sp``     ``start_sp_engine``: 8B, 18 layers, 2 ranks of the card, a
+               fresh 4096-token prompt on the ring (no #5; each rank 4·L #6
+               launches on 2048 rows), held to the one-rank 4096-row window
+               (#5 + #6) at 2e-2·max|logits|, then 32 greedy steps (#11) on
+               rank 0 against the one-rank stream; ``cli.py inference --sp 2``
+               against the API.
+13. ``parity``  the 2-layer model on the CPU (plain versions) and on the card
                (kernels): prefill windows and decode steps (the megakernel) in
                fast mode (16-,
                512- and 300-row windows) and exact mode; eval-ppl at 0.6B width;
@@ -151,8 +183,8 @@ rest) and ``heads`` (the kernels phase's head_dim rows alone: #4, #5, #9,
 in one call.
 
 Output: one JSON object per line.  The second-to-last lines hold the kernel
-table and the serve, spec, tp and probes phases' numbers
-(``{"kernels": [...], "serve": {...}, "spec": {...}, "tp": {...}, "probes": {...}}``)
+table and the serve, spec, tp, replicas, gateway, pp, sp and probes phases'
+numbers (``{"kernels": [...], "serve": {...}, ..., "sp": {...}, "probes": {...}}``)
 and the card's ``name, power.limit``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -164,6 +196,7 @@ import contextlib
 import io
 import json
 import math
+import os
 import shutil
 import statistics
 import struct
@@ -174,7 +207,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 DEV = "cuda"
-PHASES = ("build", "kernels", "probes", "e2e", "serve", "spec", "cli", "tp", "parity")
+PHASES = ("build", "kernels", "probes", "e2e", "serve", "spec", "cli", "tp", "replicas", "gateway", "pp", "sp", "parity")
 OPTIONAL_PHASES = ("exact", "decode", "window", "heads")  # run only when named: subsets for comparing two trees in one call
 
 # Published peaks of one H100 SXM (dense): the denominators of bound_ms.
@@ -190,7 +223,8 @@ EXACT_PROMPT_TOKENS = 300
 EXACT_DECODE_TOKENS = 8
 SERVE_REQUESTS = 24
 SERVE_NEW_TOKENS = 64
-SERVE_INT8_POOL_LAYERS = 18  # the serve phase's INT8-pool run: half of 8B's depth
+SERVE_LAYERS = 18  # the serve phase's depth: half of 8B's, which pays for the replicas, gateway, pp and sp phases
+SPEC_LAYERS = 18  # the spec phase's, likewise
 
 
 def emit(obj) -> None:
@@ -2597,6 +2631,7 @@ def phase_e2e(torch, ctx) -> None:
     torch.cuda.empty_cache()
 
     plain_engine = Engine(config=cfg, weights=engine.weights, device=DEV)  # not instrumented
+    ctx["e2e"]["profile_trace"] = traced_chunk(torch, ctx, plain_engine, tok, prompt)
     ctx["e2e"]["megakernel_off"] = megakernel_off_path(torch, ctx, cfg, plain_engine, tok, prompt, steady)
     ctx["e2e"]["device_sampling"] = device_sampling_path(torch, ctx, cfg, plain_engine, tok, prompt, runs[0])
     ctx["e2e"]["dense_b9"] = dense_b9_path(torch, ctx, cfg, plain_engine)
@@ -2621,6 +2656,28 @@ def phase_e2e(torch, ctx) -> None:
           "continued_32_row_window_ms": e["continued_window"]["window_ms_median"],
           "eval_ppl_fast_s_per_window": e["eval_ppl_fast"]["seconds_per_window"],
           "int4_ttft_ms_3000_tokens": e["int4"].get("long_prompt", {}).get("ttft_ms")})
+
+
+def traced_chunk(torch, ctx, engine, tok, prompt) -> dict:
+    """One 8-step device-sampling decode chunk inside ``utils.profiling.
+    profile_trace``: its trace file must appear under the directory."""
+    import numpy as np
+
+    from qwen3_rs_tpu_torch.utils.profiling import profile_trace
+
+    ids = np.asarray([tok.encode(prompt)])
+    logits, cache = engine.prefill(engine.new_cache(1), ids, np.zeros(1, np.int64))
+    out = ctx["tmp"] / "trace"
+    t0 = time.perf_counter()
+    with profile_trace(str(out)):
+        toks, _ = engine.decode_chunk(cache, int(logits.float().argmax()), ids.shape[1], 8)
+    files = list(out.glob("trace_*.json"))
+    need(len(files) == 1 and len(toks) == 8, f"profile_trace wrote {files}")
+    events = json.loads(files[0].read_text()).get("traceEvents", [])
+    res = {"trace_bytes": files[0].stat().st_size, "events": len(events),
+           "kernel_events": sum(e.get("cat") == "kernel" for e in events), "seconds": time.perf_counter() - t0}
+    emit({"phase": "e2e", "run": "profile_trace around one decode chunk", **res})
+    return res
 
 
 def exact_paths(torch, ctx, cfg, weights, tok) -> dict:
@@ -2784,7 +2841,7 @@ def int4_dense_batch(torch, ctx, cfg, traffic) -> dict:
     classifier's.  It frees the INT4 weights."""
     from qwen3_rs_tpu_torch.serving import ContinuousBatchingEngine
 
-    weights = model_8b_q4(torch, ctx)
+    _, weights = _first_layers(cfg, model_8b_q4(torch, ctx), cfg.n_layers)
     ctx.pop("8b_q4")  # freed with this run's last reference
     n_l = cfg.n_layers
     with q4_megakernel_opt_in(False):
@@ -3394,7 +3451,8 @@ def _first_layers(cfg, weights, n: int):
 
 
 def phase_serve(torch, ctx) -> None:
-    """Continuous-batching serving at Qwen3-8B full depth, ctx 4096, 8 slots,
+    """Continuous-batching serving at Qwen3-8B full width, SERVE_LAYERS of its
+    layers, ctx 4096, 8 slots,
     page 128, greedy host sampling: the same traffic on the paged bf16 pool,
     the INT8 pool and the dense slots; the prefix cache; chunked prefill;
     the HTTP front end."""
@@ -3402,6 +3460,7 @@ def phase_serve(torch, ctx) -> None:
     from qwen3_rs_tpu_torch.testing import paged_pool_bytes
 
     cfg, weights, tok = model_8b(torch, ctx)
+    cfg, weights = _first_layers(cfg, weights, SERVE_LAYERS)
     traffic = _serve_traffic(cfg)
     ctx["serve"] = out = {"traffic": {"requests": len(traffic), "prompt_tokens": [len(p) for p, _ in traffic],
                                       "max_new_tokens": SERVE_NEW_TOKENS}}
@@ -3409,9 +3468,7 @@ def phase_serve(torch, ctx) -> None:
             ("paged_bf16_device", {"sampling": "device"}), ("dense_bf16_device", {"kv_layout": "dense", "sampling": "device"}))
     for name, kw in runs:
         t0 = time.perf_counter()
-        # The INT8 pool's run, which no other run is held to, at half depth:
-        # the tp phase's time is paid here (PERF.md §4).
-        c, w = _first_layers(cfg, weights, SERVE_INT8_POOL_LAYERS) if name == "paged_int8" else (cfg, weights)
+        c, w = cfg, weights
         engine = ContinuousBatchingEngine(config=c, weights=w, n_slots=8,
                                           **{"kv_layout": "paged", "page_size": 128, "sampling": "host", **kw},
                                           device=DEV)
@@ -3765,12 +3822,14 @@ def parrot_weights(torch, weights):
 
 
 def phase_spec(torch, ctx) -> None:
-    """N-gram speculative decoding at Qwen3-8B full width and depth (INT8-g64,
+    """N-gram speculative decoding at Qwen3-8B full width, SPEC_LAYERS of its
+    layers (INT8-g64,
     ctx 4096) on two fixtures, the random weights (drafts rarely accepted)
     and the parrot (drafts accepted): b=1 greedy ``generate(spec_k=4)``
     beside the plain greedy chunk (#11), and the paged bf16 8-slot serve with
     ``spec_k=3`` beside ``spec_k=0``."""
     cfg, weights, tok = model_8b(torch, ctx)
+    cfg, weights = _first_layers(cfg, weights, SPEC_LAYERS)
     out = ctx["spec"] = {}
     for name, w in (("random", weights), ("parrot", parrot_weights(torch, weights))):
         out[name] = {"generate": spec_generate_path(torch, ctx, cfg, w, tok, name),
@@ -3968,7 +4027,7 @@ def spec_serve_path(torch, ctx, cfg, weights, name) -> dict:
 
 # ------------------------------------------------------------------------- tp
 TP_DEVICES = ["cuda:0", "cuda:0"]  # two ranks on the one card: the gloo backend
-TP_LAYERS = 18  # the tp phase's depth: half of 8B's, which pays for the spec phase's time (PERF.md §4)
+TP_LAYERS = 6  # the tp phase's depth: a sixth of 8B's, which pays for the spec, replicas, gateway, pp and sp phases (PERF.md §4)
 
 
 def _rank_children(pid: int) -> list[int]:
@@ -4112,8 +4171,8 @@ def phase_tp(torch, ctx) -> None:
             ctx["path_launches"][f"tp_rank{r['rank']}"] = r["launches"]
         # tp changes the f32 summation order of every wo and w2 product (two
         # partial sums, then the all-reduce), so each rounding flip is carried
-        # through the later layers of random weights: at full depth the two
-        # runs' logits part by about the forward's sensitivity (~2e-2 of the
+        # through the later layers of random weights: at depth the two runs'
+        # logits part by about the forward's sensitivity (~2e-2 of the
         # largest, reported per parting), as the megakernel's do (MK_TOL_DEEP).
         # tp_cli holds tp=2 to tp=1 at 2e-2 on a 2-layer model.
         run["greedy_vs_tp1"] = stream_partings(torch, cfg, None, traffic, ref, streams, tol=MK_TOL_DEEP)
@@ -4148,28 +4207,22 @@ def tp_cli(torch, ctx) -> None:
     ``--tp 2`` with one device fails with the JAX package's message."""
     import functools
     import signal
-    import socket
     import urllib.request
 
     from qwen3_rs_tpu_torch import Tokenizer
     from qwen3_rs_tpu_torch.checkpoint import load_checkpoint
     from qwen3_rs_tpu_torch.cli import main as cli_main
+    from qwen3_rs_tpu_torch.parallel.distributed import free_port
     from qwen3_rs_tpu_torch.serving import ContinuousBatchingEngine, Request
     from qwen3_rs_tpu_torch.serving.scheduler import start_tp_engine
 
-    ckpt = ctx["tmp"] / "m8.bin"
-    if not ckpt.exists():  # the cli phase did not run
-        model = write_hf_model(ctx["tmp"] / "hf_tp", SEED + 8)
-        with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
-            need(cli_main(["export", str(model), str(ckpt), "-g", "64", "--format", "legacy"]) == 0, "tp cli: export")
+    ckpt = _cli_checkpoint(ctx)
     try:
         cli_main(["serve", str(ckpt), "--tp", "2", "--device", "cuda:0"])
         need(False, "serve --tp 2 with one device did not fail")
     except SystemExit as e:
         need("needs 2 devices, have 1" in str(e), f"serve --tp 2 with one device: {e}")
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
+    port = free_port()
     t0 = time.perf_counter()
     log = open(ctx["tmp"] / "serve_tp.log", "w")
     proc = subprocess.Popen([sys.executable, "-m", "qwen3_rs_tpu_torch.cli", "serve", str(ckpt), "--port", str(port),
@@ -4178,14 +4231,7 @@ def tp_cli(torch, ctx) -> None:
     prompts = [prompt_text(150), prompt_text(40)]
     bodies, ranks = [], []
     try:
-        for _ in range(600):
-            need(proc.poll() is None, f"cli serve --tp 2 exited {proc.returncode}: {(ctx['tmp'] / 'serve_tp.log').read_text()}")
-            try:
-                urllib.request.urlopen(f"http://127.0.0.1:{port}/health", timeout=5).read()
-                break
-            except OSError:
-                time.sleep(0.5)
-        ready_s = time.perf_counter() - t0
+        ready_s = _wait_health(proc, port, ctx["tmp"] / "serve_tp.log", "cli serve --tp 2")
         for prompt in prompts:
             req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/completions",
                                          data=json.dumps({"prompt": prompt, "max_tokens": 16}).encode(),
@@ -4240,6 +4286,715 @@ def tp_cli(torch, ctx) -> None:
           "completions": len(bodies), "equal_to_api": True, "worker_ranks_stopped": len(ranks),
           "tp2_vs_tp1_prefill_rel_errs_2_layers": errs,
           "one_device_refused": True, "seconds": time.perf_counter() - t0})
+
+
+# -------------------------------------------------- replicas, gateway, pp, sp
+REPLICA_LAYERS = 18  # the replicas phase's depth, as the tp phase's: two engines on the one card
+
+
+def _descendants(pid: int) -> list[int]:
+    """Every process below ``pid`` (children, their children, ...)."""
+    out, todo = [], [pid]
+    while todo:
+        kids = _rank_children(todo.pop())
+        out += kids
+        todo += kids
+    return out
+
+
+def _gone(pids) -> bool:
+    for _ in range(150):
+        if not any(Path(f"/proc/{p}").exists() for p in pids):
+            return True
+        time.sleep(0.1)
+    return False
+
+
+def _wait_health(proc, port: int, log: Path, what: str) -> float:
+    import urllib.request
+
+    t0 = time.perf_counter()
+    for _ in range(1200):
+        need(proc.poll() is None, f"{what} exited {proc.returncode}: {log.read_text()[-3000:]}")
+        try:
+            urllib.request.urlopen(f"http://127.0.0.1:{port}/health", timeout=5).read()
+            return time.perf_counter() - t0
+        except OSError:
+            time.sleep(0.5)
+    need(False, f"{what} did not answer /health")
+
+
+def _http(port: int, payload: dict) -> dict:
+    """One completion over HTTP: the body, or for a streamed one its token
+    ids, text and closing chunk."""
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/completions", data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    raw = urllib.request.urlopen(req, timeout=900).read().decode()
+    if not payload.get("stream"):
+        return json.loads(raw)
+    lines = [json.loads(x) for x in raw.splitlines() if x.strip()]
+    need(lines and lines[-1].get("done") and "error" not in lines[-1], f"stream ended with {lines[-1:]}")
+    return {"tokens": [x["token"] for x in lines if "token" in x], "text": "".join(x["text"] for x in lines[:-1]),
+            "finish_reason": lines[-1]["finish_reason"]}
+
+
+def _cli_checkpoint(ctx) -> Path:
+    """The cli phase's exported 2-layer dim-512 INT8 ``.bin`` (2 kv heads, so
+    that tp=2 splits them), exported here if that phase did not run."""
+    from qwen3_rs_tpu_torch.cli import main as cli_main
+
+    ckpt = ctx["tmp"] / "m8.bin"
+    if not ckpt.exists():
+        model = write_hf_model(ctx["tmp"] / "hf_small", SEED + 8)
+        with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+            need(cli_main(["export", str(model), str(ckpt), "-g", "64", "--format", "legacy"]) == 0, "cli export")
+    return ckpt
+
+
+def _api_completions(torch, ckpt, prompts: list[str], max_tokens: int, devices=None) -> list[list[int]]:
+    """Each request through the library, one after the other, each alone: a
+    paged device-sampling engine on ``ckpt`` (over ``devices`` with tp, one
+    rank each)."""
+    import functools
+
+    from qwen3_rs_tpu_torch import Tokenizer
+    from qwen3_rs_tpu_torch.checkpoint import load_checkpoint
+    from qwen3_rs_tpu_torch.serving import ContinuousBatchingEngine, Request
+    from qwen3_rs_tpu_torch.serving.scheduler import start_tp_engine
+
+    kw = dict(n_slots=4, kv_layout="paged", sampling="device")
+    cfg, weights = load_checkpoint(ckpt)
+    tok = Tokenizer(ckpt, cfg.vocab_size)
+    engine = (start_tp_engine(functools.partial(load_checkpoint, ckpt), devices, **kw) if devices
+              else ContinuousBatchingEngine(config=cfg, weights=weights, device=DEV, **kw))
+    try:
+        out = []
+        for i, prompt in enumerate(prompts):
+            engine.submit(Request(i, tok.encode(prompt), max_new_tokens=max_tokens,
+                                  eos_token_ids=(tok.bos_token_id, tok.eos_token_id)))
+            out.append(engine.run()[-1].generated)
+        return out
+    finally:
+        engine.close()
+        del engine
+        torch.cuda.empty_cache()
+
+
+def _serve_process(ctx, ckpt, flags, name):
+    """``cli.py serve`` in a process of its own on a free port: (process,
+    port, log path)."""
+    from qwen3_rs_tpu_torch.parallel.distributed import free_port
+
+    port = free_port()
+    log = ctx["tmp"] / f"{name}.log"
+    proc = subprocess.Popen([sys.executable, "-m", "qwen3_rs_tpu_torch.cli", "serve", str(ckpt), "--port", str(port),
+                             "--slots", "4", *flags], cwd=ROOT, stdout=open(log, "w"), stderr=subprocess.STDOUT)
+    return proc, port, log
+
+
+def _stop(proc, what: str, log: Path, plain: bool = False) -> int:
+    """SIGTERM a server; every process below it must be gone after.  A
+    ``plain`` server (one engine in its process) dies of the signal; the
+    others stop their engines, ranks or replicas and exit 0."""
+    import signal
+
+    below = _descendants(proc.pid)
+    proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(180)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(30)
+        need(False, f"{what} did not stop on SIGTERM: {log.read_text()[-2000:]}")
+    need(rc in ((0, -signal.SIGTERM) if plain else (0,)), f"{what} exited {rc} on SIGTERM: {log.read_text()[-2000:]}")
+    need(_gone(below), f"{what} left processes behind: {[p for p in below if Path(f'/proc/{p}').exists()]}")
+    return len(below)
+
+
+def _replica_traffic(cfg):
+    """The serve phase's 24 requests as text (the HTTP front end takes text):
+    the same prompt lengths (16-1024 tokens, one a byte) and 64 new tokens,
+    each prompt distinct."""
+    words = prompt_text(2200)
+    return [(words[i * 37 % 900:][: len(p)], n) for i, (p, n) in enumerate(_serve_traffic(cfg))]
+
+
+def phase_replicas(torch, ctx) -> None:
+    """Replicated serving: Qwen3-8B at full width and REPLICA_LAYERS of its
+    layers, two ``ContinuousBatchingEngine``s on the one card (paged bf16 pool,
+    device sampling) behind ``ReplicatedFrontend`` and the HTTP front end on
+    port 0: the serve phase's 24 requests, streamed, held to one engine's
+    streams on the same weights behind the same front end; the prefix
+    cache's affinity; then ``cli.py
+    serve --replicas 2`` at tp 1 and 2 on the cli phase's exported 2-layer model."""
+    from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from qwen3_rs_tpu_torch.serving import ContinuousBatchingEngine, ReplicatedFrontend, ServingFrontend
+    from qwen3_rs_tpu_torch.testing import qwen3_config, random_model
+
+    cfg = qwen3_config("8b", seq_len=4096, n_layers=REPLICA_LAYERS)
+    tok = model_tokenizer(ctx, cfg)
+    traffic = _replica_traffic(cfg)
+    ids = [(tok.encode(p), n) for p, n in traffic]
+    need([len(t) for t, _ in ids] == [len(p) for p, _ in _serve_traffic(cfg)], "replicas: the prompts' lengths")
+    kw = dict(n_slots=8, kv_layout="paged", page_size=128, sampling="device")
+    ctx.pop("8b", None)
+    torch.cuda.empty_cache()
+    _, weights = random_model(cfg, seed=SEED, device=DEV)
+    out = ctx["replicas"] = {"layers": cfg.n_layers, "requests": len(traffic)}
+
+    one = ContinuousBatchingEngine(config=cfg, weights=weights, device=DEV, **kw)
+    one.warmup()
+    ref_got, one_s, _ = _http_run(ServingFrontend(one, tok), traffic)
+    ref = {i: g["tokens"] for i, g in enumerate(ref_got)}
+    weights = one.weights  # the bf16-scale copy on the card: both replicas share it
+    del one
+    torch.cuda.empty_cache()
+
+    engines = [ContinuousBatchingEngine(config=cfg, weights=weights, device=DEV, **kw) for _ in range(2)]
+    for e in engines:
+        e.warmup()
+    reset_launches()  # this path's run starts here
+    got, wall, stats = _http_run(ReplicatedFrontend([ServingFrontend(e, tok) for e in engines]), traffic)
+    ctx["path_launches"]["replicas"] = dict(LAUNCHES)  # and ends here
+    need(all(g["finish_reason"] in ("length", "stop") for g in got + ref_got), "replicas: not every request completed")
+    per = [s["completed"] for s in stats["per_replica"]]
+    need(len(per) == 2 and all(c > 0 for c in per) and sum(per) == len(traffic), f"replicas: completed {per}")
+    streams = {i: g["tokens"] for i, g in enumerate(got)}
+    # The replicas admit other groups than one engine does, whose windows take
+    # other routes (#3's tensor cores or #6 by the group's rows): their
+    # roundings, carried through 18 layers of random weights, part greedy
+    # streams by about the forward's sensitivity (~2.5%, reported per
+    # parting), as the tp phase's do: MK_TOL_DEEP.
+    partings = stream_partings(torch, cfg, weights, ids, ref, streams, tol=MK_TOL_DEEP)
+    tokens = sum(len(s) for s in streams.values())
+    out.update({"per_replica_completed": per, "wall_s": wall, "tok_per_s": tokens / wall,
+                "one_engine_tok_per_s": sum(len(r) for r in ref.values()) / one_s, "one_engine_wall_s": one_s,
+                "greedy_vs_one_engine": partings,
+                "launches": {k: v for k, v in LAUNCHES.items() if v}})
+    emit({"phase": "replicas", "run": "2 x 8b/18 layers, paged bf16, device sampling, HTTP",
+          **{k: v for k, v in out.items() if k != "launches"}})
+    del engines
+    torch.cuda.empty_cache()
+    out["prefix_affinity"] = replicas_prefix_path(torch, cfg, weights, tok)
+    del weights
+    torch.cuda.empty_cache()
+    out["cli"] = replicas_cli(torch, ctx)
+
+
+def _http_run(frontend, traffic) -> tuple[list, float, dict]:
+    """``traffic`` (text prompts, new tokens) posted at once, streamed, to
+    ``serve(frontend)`` on port 0: each request's ids and closing chunk, the
+    wall time and the front end's stats; the server is stopped after."""
+    import threading
+
+    from qwen3_rs_tpu_torch.serving import serve
+
+    box, bound = {}, threading.Event()
+    thread = threading.Thread(target=serve, args=(frontend, "127.0.0.1", 0),
+                              kwargs={"ready": lambda h: (box.setdefault("httpd", h), bound.set())}, daemon=True)
+    thread.start()
+    need(bound.wait(60), "the HTTP server did not start")
+    port = box["httpd"].server_address[1]
+    got = [None] * len(traffic)
+
+    def post(i):
+        prompt, n = traffic[i]
+        got[i] = _http(port, {"prompt": prompt, "max_tokens": n, "stream": True})
+
+    try:
+        t0 = time.perf_counter()
+        posts = [threading.Thread(target=post, args=(i,)) for i in range(len(traffic))]
+        for t in posts:
+            t.start()
+        for t in posts:
+            t.join(900)
+        wall = time.perf_counter() - t0
+        stats = frontend.stats()
+    finally:
+        box["httpd"].shutdown()
+        thread.join(60)
+    need(all(g is not None for g in got), "a request got no answer")
+    return got, wall, stats
+
+
+def model_tokenizer(ctx, cfg):
+    """The 8B vocabulary's tokenizer (every id distinct bytes), made once."""
+    from qwen3_rs_tpu_torch import Tokenizer
+
+    if "8b_tok" not in ctx:
+        tdir = ctx["tmp"] / "tok"
+        tdir.mkdir(exist_ok=True)
+        write_tokenizer(tdir / "tokenizer.bin", cfg.vocab_size)
+        write_templates(tdir)
+        ctx["8b_tok"] = Tokenizer(tdir, cfg.vocab_size)
+    return ctx["8b_tok"]
+
+
+def replicas_prefix_path(torch, cfg, weights, tok) -> dict:
+    """Two prefix-caching replicas: 6 requests sharing a 700-character head,
+    one after the other, all go to the replica that computed the head first
+    and hit its cache (5 hits), none to the other."""
+    from qwen3_rs_tpu_torch.serving import ContinuousBatchingEngine, ReplicatedFrontend, ServingFrontend
+
+    engines = [ContinuousBatchingEngine(config=cfg, weights=weights, n_slots=8, kv_layout="paged", page_size=128,
+                                        sampling="device", prefix_cache=True, device=DEV) for _ in range(2)]
+    router = ReplicatedFrontend([ServingFrontend(e, tok) for e in engines])
+    head = prompt_text(700)
+    try:
+        for i in range(6):
+            p = router.submit(head + f" question {i}", max_tokens=8)
+            need(p.done.wait(600) and p.error is None, f"replicas prefix: request {i} failed: {p.error}")
+        done = [e.stats()["completed"] for e in engines]
+        hits = [e.stats()["prefix_hits"] for e in engines]
+    finally:
+        router.shutdown()
+    need(sorted(done) == [0, 6] and sorted(hits) == [0, 5], f"replicas prefix: completed {done}, hits {hits}")
+    res = {"completed": done, "prefix_hits": hits, "head_chars": len(head)}
+    emit({"phase": "replicas", "run": "prefix affinity", **res})
+    return res
+
+
+def replicas_cli(torch, ctx) -> dict:
+    """``cli.py serve --replicas 2 --device cuda:0,cuda:0`` (two engines in
+    the server's process) and ``--replicas 2 --tp 2`` over four ranks of the
+    card (a ``serve --tp 2`` process a replica) on the cli phase's exported 2-layer model:
+    a completion each equal to the API's; SIGTERM leaves no process."""
+    from qwen3_rs_tpu_torch import Tokenizer
+    from qwen3_rs_tpu_torch.configuration import read_config
+
+    ckpt = _cli_checkpoint(ctx)
+    tok = Tokenizer(ckpt, read_config(ckpt).vocab_size)
+    prompt = prompt_text(150)
+    res = {}
+    for tp in (1, 2):
+        t0 = time.perf_counter()
+        devices = [TP_DEVICES[0]] * (2 * tp)
+        proc, port, log = _serve_process(ctx, ckpt, ["--replicas", "2", "--tp", str(tp), "--device", ",".join(devices)],
+                                         f"replicas_tp{tp}")
+        try:
+            ready = _wait_health(proc, port, log, f"serve --replicas 2 --tp {tp}")
+            bodies = [_http(port, {"prompt": prompt, "max_tokens": 16}) for _ in range(2)]
+            stopped = _stop(proc, f"serve --replicas 2 --tp {tp}", log)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(30)
+        want = _api_completions(torch, ckpt, [prompt], 16, devices[:tp] if tp > 1 else None)[0]
+        need(all(b["text"] == tok.decode(want) and b["tokens"] == len(want) for b in bodies),
+             f"serve --replicas 2 --tp {tp}: a completion differs from the API's")
+        need(stopped >= (4 if tp > 1 else 0), f"serve --replicas 2 --tp {tp} ran {stopped} processes below it")
+        res[f"tp{tp}"] = {"ready_s": ready, "completions": len(bodies), "equal_to_api": True,
+                          "processes_stopped": stopped, "seconds": time.perf_counter() - t0}
+    emit({"phase": "replicas", "mode": "cli serve --replicas 2", **res})
+    return res
+
+
+def _cuda_pids() -> list[int]:
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout
+    return [int(x) for x in out.split() if x.strip().isdigit()]
+
+
+def _opens_card(pid: int) -> bool:
+    """Whether the process holds the card's device files (``/dev/nvidia*``,
+    which a CUDA context opens and maps; loading a CUDA library does not)."""
+    try:
+        fds = [os.readlink(f) for f in Path(f"/proc/{pid}/fd").iterdir()]
+        return any(f.startswith("/dev/nvidia") for f in fds) or "/dev/nvidia" in Path(f"/proc/{pid}/maps").read_text()
+    except OSError:
+        return False
+
+
+def phase_gateway(torch, ctx) -> None:
+    """The cross-host gateway: two ``cli.py serve`` workers on the card (the
+    cli phase's exported 2-layer model) and ``cli.py serve --gateway URL,URL`` in front of
+    them: whole and streamed completions equal the API's; the gateway never
+    touched the card (absent from ``nvidia-smi``'s compute processes, no
+    ``/dev/nvidia*`` file open or mapped, as each worker has); SIGTERM stops
+    each."""
+    import threading
+    import urllib.request
+
+    from qwen3_rs_tpu_torch import Tokenizer
+    from qwen3_rs_tpu_torch.configuration import read_config
+
+    ckpt = _cli_checkpoint(ctx)
+    tok = Tokenizer(ckpt, read_config(ckpt).vocab_size)
+    t0 = time.perf_counter()
+    workers = [_serve_process(ctx, ckpt, ["--device", DEV], f"worker{i}") for i in range(2)]
+    gw = None
+    try:
+        for i, (proc, port, log) in enumerate(workers):
+            _wait_health(proc, port, log, f"worker {i}")
+        urls = ",".join(f"http://127.0.0.1:{port}" for _, port, _ in workers)
+        gw = _serve_process(ctx, ckpt, ["--gateway", urls], "gateway")
+        ready = _wait_health(gw[0], gw[1], gw[2], "the gateway")
+        prompts = [prompt_text(150), prompt_text(60), prompt_text(333), prompt_text(90)]
+        bodies = [None] * len(prompts)
+
+        def post(i):  # at once, so that the router spreads them
+            bodies[i] = _http(gw[1], {"prompt": prompts[i], "max_tokens": 16, "stream": i % 2 == 1})
+
+        posts = [threading.Thread(target=post, args=(i,)) for i in range(len(prompts))]
+        for t in posts:
+            t.start()
+        for t in posts:
+            t.join(600)
+        need(all(b is not None for b in bodies), "gateway: a request got no answer")
+        stats = json.loads(urllib.request.urlopen(f"http://127.0.0.1:{gw[1]}/v1/stats", timeout=60).read())
+        listed = _cuda_pids()
+        gw_listed, gw_opens = gw[0].pid in listed, _opens_card(gw[0].pid)
+        workers_listed = [p.pid in listed for p, _, _ in workers]
+        workers_open = [_opens_card(p.pid) for p, _, _ in workers]
+        _stop(gw[0], "the gateway", gw[2])
+        for i, (proc, _, log) in enumerate(workers):
+            _stop(proc, f"worker {i}", log, plain=True)
+    finally:
+        for proc, _, _ in workers + ([gw] if gw else []):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(30)
+    need(not gw_listed and not gw_opens, f"the gateway process is on the card (nvidia-smi {gw_listed}, "
+                                         f"device files {gw_opens})")
+    need(all(workers_open), "a worker holds no device file: the gateway's check would be blind")
+    need(stats.get("replicas") == 2 and sum(stats["per_replica"][i]["completed"] for i in range(2)) == len(prompts),
+         f"gateway stats {stats}")
+    for body, want in zip(bodies, _api_completions(torch, ckpt, prompts, 16)):
+        if isinstance(body["tokens"], list):  # streamed: the ids (a trailing partial UTF-8 piece is never sent)
+            same = body["tokens"] == want and tok.decode(want).startswith(body["text"])
+        else:
+            same = body["tokens"] == len(want) and body["text"] == tok.decode(want)
+        need(same, f"gateway: a completion differs from the API's: {body} against {want}")
+    need(all(s["completed"] > 0 for s in stats["per_replica"]), f"gateway: a worker took no request: {stats}")
+    res = {"workers": 2, "ready_s": ready, "completions": len(bodies), "streamed": 2, "equal_to_api": True,
+           "gateway_in_nvidia_smi": False, "gateway_device_files": False, "workers_in_nvidia_smi": workers_listed,
+           "workers_device_files": workers_open,
+           "per_worker_completed": [s["completed"] for s in stats["per_replica"]],
+           "seconds": time.perf_counter() - t0}
+    ctx["gateway"] = res
+    emit({"phase": "gateway", **res})
+
+
+PP_RANKS_LAYERS = 36  # the pp phase: 8B at full depth, half a rank
+PP_BATCH, PP_MICRO, PP_PROMPT, PP_STEPS = 4, 2, 128, 8
+
+
+def _pp_run(mesh, cfg, seed: int, steps: int, picks=None):
+    """The pp phase's calls on this rank (every rank of the group runs it):
+    the weights of ``seed`` drawn on the card (bf16 scales, as the fast
+    engine keeps them), a fresh 128-row prefill of ``PP_BATCH`` requests and
+    ``steps`` greedy decode steps through ``pipelined_forward`` (``picks``:
+    each step's tokens given, not the argmax); returns the logits of each
+    call on the host, each call's synchronised host seconds and this rank's
+    launches (gathered to rank 0 over a group)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from qwen3_rs_tpu_torch.models.qwen3 import cast_weight_scales, init_kv_cache
+    from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from qwen3_rs_tpu_torch.parallel import pipelined_forward
+    from qwen3_rs_tpu_torch.testing import random_weights
+
+    dev = mesh.device
+    weights = cast_weight_scales(random_weights(cfg, seed, device=dev))
+    tokens = np.random.default_rng(seed + 3).integers(3, cfg.vocab_size - 2, (PP_BATCH, PP_PROMPT))
+    cache = init_kv_cache(cfg, PP_BATCH, dtype=torch.bfloat16, device=dev)
+    leaves = [t for leaf in (*weights.layers, weights.embed, weights.lm_head, *cache)
+              for t in (leaf if isinstance(leaf, tuple) else (leaf,))]
+    need(all(t.device == dev for t in leaves), f"pp rank {mesh.rank}: a tensor is not on {dev}")
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    sync()
+    reset_launches()
+    logits, seconds, pos = [], [], np.zeros(PP_BATCH, np.int64)
+    for i in range(steps + 1):
+        t0 = time.perf_counter()
+        lg, _ = pipelined_forward(cfg, weights, tokens, cache, pos, mesh, n_microbatches=PP_MICRO)
+        sync()
+        seconds.append(time.perf_counter() - t0)
+        logits.append(lg.float().cpu())
+        pos = pos + tokens.shape[1]
+        tokens = (lg.argmax(-1).cpu().numpy() if picks is None else picks[i])[:, None]
+    counts = [dict(LAUNCHES)]
+    if len(mesh.devices) > 1:
+        counts = [None] * len(mesh.devices) if mesh.rank == 0 else None
+        dist.gather_object(dict(LAUNCHES), counts, dst=0)
+    return logits, seconds, counts, (cache.k[0].cpu(), cache.v[0].cpu())  # rank 0's first layer: the model's
+
+
+def phase_pp(torch, ctx) -> None:
+    """Pipeline parallelism: Qwen3-8B at full depth, 2 ranks on the one card
+    (gloo), 18 layers a rank, fast mode, B=4 in 2 microbatches: a fresh
+    128-row prefill and 8 greedy decode steps, held to ``pipelined_forward``
+    at pp=1 on one rank (the same routes) within 2e-2·max|logits| and to the
+    dense ``qwen3_forward`` (the engine's routes: #6, the megakernel): layer
+    0's cache rows within 1e-2, the logits within MK_TOL_DEEP or twice their
+    move under one rounding, greedy tokens equal but at a near-tie; each rank's #1-#3 launches the
+    schedule's count, bubble ticks included; ms a pipelined step beside the
+    one-rank step."""
+    import numpy as np
+
+    from qwen3_rs_tpu_torch.models.qwen3 import cast_weight_scales, init_kv_cache, qwen3_forward
+    from qwen3_rs_tpu_torch.parallel import create_pp_mesh, launch
+    from qwen3_rs_tpu_torch.testing import qwen3_config, random_weights
+
+    cfg = qwen3_config("8b", seq_len=4096, n_layers=PP_RANKS_LAYERS)
+    ctx.pop("8b", None)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh = launch(TP_DEVICES, _pp_run, cfg, SEED, PP_STEPS, axis="pp")
+    try:
+        need(mesh.backend == "gloo" and mesh.shape == {"pp": 2} and mesh.devices == tuple(map(torch.device, TP_DEVICES)),
+             f"pp mesh {mesh.devices} {mesh.shape} {mesh.backend}")
+        got, got_s, counts, kv0 = _pp_run(mesh, cfg, SEED, PP_STEPS)
+    finally:
+        mesh.close()
+    torch.cuda.empty_cache()
+    picks = [g.argmax(-1).numpy() for g in got]  # the pipeline's picks: every reference call sees its history
+    one, one_s, _, _ = _pp_run(create_pp_mesh(1, TP_DEVICES[:1]), cfg, SEED, PP_STEPS, picks)
+    # The schedule: 3 ticks (2 microbatches over 2 stages) × 18 layers × 4
+    # projections at the microbatch's rows, and the classifier at B rows.
+    ticks, l_loc = PP_MICRO + 2 - 1, cfg.n_layers // 2
+    want = {}
+    for rows in [PP_PROMPT * PP_BATCH // PP_MICRO] + [PP_BATCH // PP_MICRO] * PP_STEPS:
+        want[w8a16_key(rows)] = want.get(w8a16_key(rows), 0) + ticks * l_loc * 4
+        want[w8a16_key(PP_BATCH)] = want.get(w8a16_key(PP_BATCH), 0) + 1
+    for r, c in enumerate(counts):
+        made = {k: v for k, v in c.items() if v}
+        need(made == want, f"pp rank {r} launched {made}, the schedule's count is {want}")
+        ctx["path_launches"][f"pp_rank{r}"] = c
+    # Against pp=1 and the dense forward, on the same tokens.
+    weights = cast_weight_scales(random_weights(cfg, SEED, device=DEV))
+    tokens = np.random.default_rng(SEED + 3).integers(3, cfg.vocab_size - 2, (PP_BATCH, PP_PROMPT))
+    cache = init_kv_cache(cfg, PP_BATCH, dtype=torch.bfloat16, device=DEV)
+    dense, pos = [], np.zeros(PP_BATCH, np.int64)
+    for i in range(PP_STEPS + 1):
+        lg, cache = qwen3_forward(cfg, weights, tokens, cache, pos, fresh_prefill=i == 0)
+        dense.append(lg.float().cpu())
+        pos = pos + tokens.shape[1]
+        tokens = picks[i][:, None]
+    # Layer 0's K/V rows come from the same math on the same rows (no
+    # attention before them): the pipeline wrote them where the dense
+    # forward does.
+    rows = PP_PROMPT + PP_STEPS
+    kv0_err = max(float((a[..., :rows, :].float() - b[0, ..., :rows, :].float().cpu()).abs().max()
+                        / b[0, ..., :rows, :].float().abs().max()) for a, b in zip(kv0, (cache.k, cache.v)))
+    need(kv0_err <= 1e-2, f"pp cache rows of layer 0 against the dense forward: rel err {kv0_err}")
+    # How far a rounding moves these logits: one norm weight of layer 0 scaled
+    # by 1 + 2^-7 in the dense prefill.
+    lw = weights.layers
+    nudged = lw.rms_att.clone()
+    nudged[0, 0] *= 1 + 2.0**-7
+    tokens = np.random.default_rng(SEED + 3).integers(3, cfg.vocab_size - 2, (PP_BATCH, PP_PROMPT))
+    lg_n, _ = qwen3_forward(cfg, weights._replace(layers=lw._replace(rms_att=nudged)), tokens,
+                            init_kv_cache(cfg, PP_BATCH, dtype=torch.bfloat16, device=DEV), np.zeros(PP_BATCH, np.int64),
+                            fresh_prefill=True)
+    sensitivity = float((lg_n.float().cpu() - dense[0]).abs().max() / dense[0].abs().max())
+    del weights, cache, nudged, lg_n
+    torch.cuda.empty_cache()
+    # pp=1 takes the same routes on the same microbatches: 2e-2 (it is bit for
+    # bit on the CPU).  The dense forward takes others (#6 at 512 rows, the
+    # fused glue or #11), whose f32 sums round otherwise, carried through 36
+    # layers of random weights: MK_TOL_DEEP, as the megakernel's and tp's deep
+    # checks, or twice the logits' move under one rounding (``sensitivity``)
+    # where that is larger; a fault of the schedule moves them by O(1).
+    deep = max(MK_TOL_DEEP, 2 * sensitivity)
+    errs = {"vs_pp1": [], "vs_dense": []}
+    ties = []
+    for i, (g, o, d) in enumerate(zip(got, one, dense)):
+        for name, ref in (("vs_pp1", o), ("vs_dense", d)):
+            tol = deep if name == "vs_dense" else 2e-2
+            err = float((g - ref).abs().max() / ref.abs().max())
+            errs[name].append(err)
+            need(math.isfinite(err) and err <= tol, f"pp call {i} {name}: rel err {err} (limit {tol})")
+            a, b = g.argmax(-1), ref.argmax(-1)
+            for row in (a != b).nonzero().flatten().tolist():
+                gap = float((ref[row, a[row]] - ref[row, b[row]]).abs() / ref[row].abs().max())
+                ties.append({"call": i, "row": row, name: gap})
+                need(gap <= tol, f"pp call {i} row {row} {name}: greedy picks part {gap} away from a near-tie")
+    res = {"layers": cfg.n_layers, "ranks": 2, "devices": TP_DEVICES, "backend": "gloo", "batch": PP_BATCH,
+           "microbatches": PP_MICRO, "prompt_rows": PP_PROMPT, "decode_steps": PP_STEPS,
+           "launches_per_rank": want, "rel_err_max": {k: max(v) for k, v in errs.items()},
+           "prefill_rel_err_vs_dense": errs["vs_dense"][0], "dense_sensitivity": sensitivity, "deep_tol": deep,
+           "layer0_kv_rel_err_vs_dense": kv0_err, "greedy_partings": ties,
+           "prefill_ms": {"pp2": got_s[0] * 1e3, "pp1": one_s[0] * 1e3},
+           "decode_step_ms": {"pp2": statistics.median(got_s[1:]) * 1e3, "pp1": statistics.median(one_s[1:]) * 1e3},
+           "seconds": time.perf_counter() - t0}
+    ctx["pp"] = res
+    emit({"phase": "pp", **res})
+
+
+SP_LAYERS, SP_PROMPT, SP_STEPS = 18, 4096, 32
+
+
+def phase_sp(torch, ctx) -> None:
+    """Sequence parallelism: Qwen3-8B at full width and 18 layers, 2 ranks on
+    the one card (gloo), ``sp_threshold=4096``, a fresh 4096-token prompt:
+    the ring's window (no #5 launch; each rank 4·L #6 launches on its 2048
+    rows) held to the one-rank 4096-row window (#5 + #6): layer 0's cache
+    rows within 1e-2, the logits within MK_TOL_DEEP·max|logits| or twice their
+    move under one rounding; 32 greedy decode steps from the sp-built cache (rank 0,
+    #11) held to the one-rank stream but at a near-tie; then ``cli.py
+    inference --sp 2``."""
+    import functools
+
+    import numpy as np
+
+    from qwen3_rs_tpu_torch import Engine
+    from qwen3_rs_tpu_torch.inference.engine import start_sp_engine
+    from qwen3_rs_tpu_torch.models.qwen3 import qwen3_forward
+    from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from qwen3_rs_tpu_torch.testing import qwen3_config, random_model
+
+    # Room for the decode steps, the cache a multiple of 128 rows as the
+    # megakernel's gate asks.
+    cfg = qwen3_config("8b", seq_len=SP_PROMPT + 128, n_layers=SP_LAYERS)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    engine = start_sp_engine(functools.partial(random_model, cfg, seed=SEED, device=DEV), TP_DEVICES,
+                             sp_threshold=SP_PROMPT, cache_dtype=torch.bfloat16)
+    prompt = np.random.default_rng(SEED + 4).integers(3, cfg.vocab_size - 2, (1, SP_PROMPT))
+    try:
+        need(engine.sp_mesh.backend == "gloo", f"sp backend {engine.sp_mesh.backend}")
+        need(all(t.device.type == "cuda" for t in (engine.weights.embed.q, engine.weights.layers.wqkv.q)),
+             "sp: the weights are not on the card")
+        times = []
+        for i in range(3):  # the first builds and warms; the last two are timed
+            engine.reset_counters()  # every rank's counts start here
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits, cache = engine.prefill(engine.new_cache(), prompt, np.zeros(1, np.int64))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            reports = engine.rank_reports()  # and end here
+        for r in reports:
+            made = {k: v for k, v in r["launches"].items() if v}
+            want = {"qmatmul_w8a16_rows": 4 * cfg.n_layers, **({w8a16_key(1): 1} if r["rank"] == 0 else {})}
+            need(made == want, f"sp rank {r['rank']} launched {made}, expected {want}")
+            ctx["path_launches"][f"sp_rank{r['rank']}"] = r["launches"]
+        reset_launches()
+        ids = [int(logits.float().argmax())]
+        dec = []
+        for i in range(SP_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            lg, cache = engine.decode_step(cache, [ids[-1]], [SP_PROMPT + i])
+            ids.append(int(lg.float().argmax()))
+            dec.append(time.perf_counter() - t1)
+        need(LAUNCHES["decode_megakernel"] == SP_STEPS, f"sp decode: {LAUNCHES['decode_megakernel']} #11 launches")
+        ctx["path_launches"]["sp_decode"] = dict(LAUNCHES)
+
+        one = Engine(config=cfg, weights=engine.weights, cache_dtype=torch.bfloat16, device=DEV)
+        one_times = []
+        for i in range(3):
+            reset_launches()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ref, rcache = qwen3_forward(cfg, one.weights, prompt, one.new_cache(), [0], fresh_prefill=True)
+            torch.cuda.synchronize()
+            one_times.append(time.perf_counter() - t1)
+        need(LAUNCHES["causal_prefill_attention"] == cfg.n_layers, "the one-rank window took no #5")
+        # Layer 0's K/V rows come from the same kernels on the same rows: the
+        # gather wrote them where the one-rank window does.  The logits
+        # differ by the attention's roundings (the ring in f32, #5 on bf16
+        # products), carried through 18 layers of random weights: MK_TOL_DEEP,
+        # or twice their move under one rounding (one norm weight of layer 0
+        # scaled by 1 + 2^-7) where that is larger.
+        kv0 = max(float((a[0, :, :, :SP_PROMPT].float() - b[0, :, :, :SP_PROMPT].float()).abs().max()
+                        / b[0, :, :, :SP_PROMPT].float().abs().max())
+                  for a, b in ((cache.k, rcache.k), (cache.v, rcache.v)))  # the decode steps wrote past the prompt
+        need(kv0 <= 1e-2, f"sp cache rows of layer 0 against one rank: rel err {kv0}")
+        lw = one.weights.layers
+        nudged = lw.rms_att.clone()
+        nudged[0, 0] *= 1 + 2.0**-7
+        ref_n, _ = qwen3_forward(cfg, one.weights._replace(layers=lw._replace(rms_att=nudged)), prompt,
+                                 one.new_cache(), [0], fresh_prefill=True)
+        sensitivity = float((ref_n.float() - ref.float()).abs().max() / ref.float().abs().max())
+        deep = max(MK_TOL_DEEP, 2 * sensitivity)
+        del ref_n, nudged
+        err = float((logits.float() - ref.float()).abs().max() / ref.float().abs().max())
+        need(math.isfinite(err) and err <= deep, f"sp window logits against one rank: rel err {err} (limit {deep})")
+        ref_ids = [int(ref.float().argmax())]
+        for i in range(SP_STEPS):
+            lg, rcache = one.decode_step(rcache, [ref_ids[-1]], [SP_PROMPT + i])
+            ref_ids.append(int(lg.float().argmax()))
+        parting = None
+        if ids != ref_ids:
+            i = next(j for j, (a, b) in enumerate(zip(ids, ref_ids)) if a != b)
+            hist = np.concatenate([prompt[0], ref_ids[:i]])[None]
+            lg = one.prefill(one.new_cache(), hist, np.zeros(1, np.int64))[0][0].float()
+            gap = float((lg[ids[i]] - lg[ref_ids[i]]).abs() / lg.abs().max())
+            parting = {"token_index": i, "pick_gap": gap}
+            need(gap <= 2e-2, f"sp decode parts from one rank at token {i}, {gap} away from a near-tie")
+        del one
+    finally:
+        engine.close()
+    torch.cuda.empty_cache()
+    res = {"layers": cfg.n_layers, "ranks": 2, "devices": TP_DEVICES, "backend": "gloo", "prompt_rows": SP_PROMPT,
+           "rows_a_rank": SP_PROMPT // 2, "launches_per_rank": [{k: v for k, v in r["launches"].items() if v}
+                                                               for r in reports],
+           "exchanges_per_rank": [r["collectives"]["exchange"] for r in reports],
+           "prefill_ms": {"sp2": statistics.median(times[1:]) * 1e3, "one_rank": statistics.median(one_times[1:]) * 1e3},
+           "logits_rel_err": err, "sensitivity": sensitivity, "deep_tol": deep, "layer0_kv_rel_err": kv0,
+           "decode_steps": SP_STEPS, "decode_step_ms": statistics.median(dec) * 1e3,
+           "greedy_equal": ids == ref_ids, "parting": parting, "seconds": time.perf_counter() - t0}
+    emit({"phase": "sp", **res})
+    res["cli"] = sp_cli(torch, ctx)
+    ctx["sp"] = res
+
+
+def sp_cli(torch, ctx) -> dict:
+    """``cli.py inference --sp 2 --sp-threshold 256 --device cuda:0,cuda:0``
+    on the cli phase's exported 2-layer model in a process of its own: its text equals the
+    API's (``start_sp_engine`` and ``generate`` on the same ranks), and
+    ``--sp 2`` with one device is refused."""
+    import functools
+
+    from qwen3_rs_tpu_torch import Tokenizer, TokenSampler, generate
+    from qwen3_rs_tpu_torch.checkpoint import load_checkpoint
+    from qwen3_rs_tpu_torch.configuration import read_config
+    from qwen3_rs_tpu_torch.inference.engine import start_sp_engine
+
+    ckpt = _cli_checkpoint(ctx)
+    prompt = prompt_text(300)
+    flags = ["-m", "generate", "-i", prompt, "-t", "0", "-s", "5", "-c", "1024", "--sp", "2",
+             "--sp-threshold", "256"]
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "qwen3_rs_tpu_torch.cli", "inference", str(ckpt), *flags,
+                          "--device", ",".join(TP_DEVICES)], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    need(run.returncode == 0, f"cli inference --sp 2 exited {run.returncode}: {run.stderr[-2000:]}")
+    cli_s = time.perf_counter() - t0
+    one_dev = subprocess.run([sys.executable, "-m", "qwen3_rs_tpu_torch.cli", "inference", str(ckpt), *flags,
+                              "--device", TP_DEVICES[0]], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    need(one_dev.returncode != 0 and "--sp 2 needs 2 devices, have 1" in one_dev.stderr,
+         f"--sp 2 with one device: {one_dev.stderr[-500:]}")
+    engine = start_sp_engine(functools.partial(load_checkpoint, ckpt), TP_DEVICES, ctx_length=1024,
+                             sp_threshold=256)
+    seen = []
+    real = engine._sync
+
+    def sync(op, payload=None):
+        seen.append(op)
+        return real(op, payload)
+
+    engine._sync = sync
+    try:
+        api = io.StringIO()
+        generate(engine, Tokenizer(ckpt, read_config(ckpt).vocab_size), TokenSampler(0.0, 0.9, 5), prompt, out=api)
+    finally:
+        engine.close()
+    need("prefill" in seen, "the API's prompt did not take the sp window")
+    need(run.stdout == api.getvalue() and len(run.stdout) > len(prompt), "cli inference --sp 2 differs from the API's")
+    res = {"prompt_chars": len(prompt), "chars_out": len(run.stdout), "equal_to_api": True, "seconds": cli_s,
+           "one_device_refused": True}
+    emit({"phase": "sp", "mode": "cli inference --sp 2", **res})
+    return res
 
 
 # ------------------------------------------------------------------ cli/parity
@@ -4412,28 +5167,19 @@ def cli_serve(torch, ctx, root, cfg, weights) -> None:
     """``serve`` with its defaults (device sampling, the paged pool) in a
     process of its own: a completion over HTTP equals the API's run of the
     same request; the process is stopped."""
-    import socket
     import urllib.request
 
     from qwen3_rs_tpu_torch import Tokenizer
+    from qwen3_rs_tpu_torch.parallel.distributed import free_port
     from qwen3_rs_tpu_torch.serving import ContinuousBatchingEngine, Request
 
-    with socket.socket() as sock:  # a free port for the server
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
+    port = free_port()
     t0 = time.perf_counter()
     log = open(ctx["tmp"] / "serve.log", "w")
     proc = subprocess.Popen([sys.executable, "-m", "qwen3_rs_tpu_torch.cli", "serve", str(root),
                              "--port", str(port), "--slots", "4"], cwd=ROOT, stdout=log, stderr=log)
     try:
-        for _ in range(600):
-            need(proc.poll() is None, f"cli serve exited {proc.returncode}: {(ctx['tmp'] / 'serve.log').read_text()}")
-            try:
-                urllib.request.urlopen(f"http://127.0.0.1:{port}/health", timeout=5).read()
-                break
-            except OSError:
-                time.sleep(0.5)
-        ready_s = time.perf_counter() - t0
+        ready_s = _wait_health(proc, port, ctx["tmp"] / "serve.log", "cli serve")
         prompt = prompt_text(150)
         req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/completions",
                                      data=json.dumps({"prompt": prompt, "max_tokens": 16}).encode(),
@@ -4781,6 +5527,7 @@ def main(argv=None) -> int:
                 phase_probes(torch, ctx)
             else:
                 {"e2e": phase_e2e, "serve": phase_serve, "spec": phase_spec, "cli": phase_cli, "tp": phase_tp,
+                 "replicas": phase_replicas, "gateway": phase_gateway, "pp": phase_pp, "sp": phase_sp,
                  "parity": phase_parity, "exact": phase_exact, "decode": phase_decode,
                  "window": phase_window, "heads": phase_heads}[name](torch, ctx)
             emit({"phase": name, "done": True, "seconds": time.perf_counter() - t0})
@@ -4798,8 +5545,8 @@ def main(argv=None) -> int:
         need(not idle, f"no path launched {idle}")
     rows = [dict(r, launches=launches[r["name"]]) for r in ctx.get("kernel_rows", [])]
     emit({"kernels": rows, "e2e": ctx.get("e2e"), "serve": ctx.get("serve"), "spec": ctx.get("spec"),
-          "tp": ctx.get("tp"),
-          "probes": ctx.get("probes"), "decode": ctx.get("decode"), "window": ctx.get("window"),
+          "tp": ctx.get("tp"), "replicas": ctx.get("replicas"), "gateway": ctx.get("gateway"), "pp": ctx.get("pp"),
+          "sp": ctx.get("sp"), "probes": ctx.get("probes"), "decode": ctx.get("decode"), "window": ctx.get("window"),
           "total_seconds": time.perf_counter() - t_all})
     print(ctx.get("smi") or subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

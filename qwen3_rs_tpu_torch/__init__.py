@@ -14,15 +14,19 @@ Entry points run on the card unless the caller passes ``device="cpu"``,
 where the kernels' plain PyTorch versions run instead.
 
 Tensor-parallel serving (``serve --tp N``, ``ContinuousBatchingEngine``
-with a mesh) runs one process per rank on ``torch.distributed``
-(``parallel/``).  Not ported yet (``NOT_PORTED`` names each with its
-``ROADMAP.md`` item): the pipeline- and sequence-parallel layouts,
-replicated serving and the cross-host gateway.
+with a mesh), the sequence-parallel prefill (``inference --sp N``,
+``inference.engine.start_sp_engine``) and the pipeline
+(``parallel.pipelined_forward``) run one process per rank on
+``torch.distributed`` (``parallel/``); replicated serving (``serve
+--replicas R``) and the cross-host gateway (``serve --gateway``,
+``serving.remote``) route requests over engines or worker servers.
+``NOT_PORTED`` names what the port lacks, each with its ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Optional
 
@@ -33,7 +37,7 @@ from .configuration import ModelConfig, read_config
 from .evaluation import PerplexityResult, evaluate_checkpoint
 from .export import export_model
 from .inference import Engine, Tokenizer, TokenSampler, chat, generate
-from .inference.engine import not_ported
+from .inference.engine import start_sp_engine
 from .serving import ContinuousBatchingEngine, Request, ServingFrontend
 
 __version__ = "0.1.0"
@@ -59,7 +63,7 @@ class InferenceConfig:
     speculative: int = 0
     sp: int = 1
     sp_threshold: int = 4096  # min prompt rows of the sp prefill (inert while sp is 1)
-    device: Optional[str] = None  # None = the card
+    device: Optional[str] = None  # None = the card; with sp > 1 one device per rank, comma-separated
 
     def __post_init__(self):
         if self.seed is None:
@@ -80,42 +84,43 @@ def run_inference(config: InferenceConfig) -> None:
         # Greedy device sampling picks the last maximum, as the host sampler
         # does: turning it on changes nothing but where the loop runs.
         config.device_sampling = True
-    if config.sp > 1:
-        raise not_ported("sequence-parallel prefill (--sp)", "queue 1, item 5: parallel layouts")
     if config.mode not in ("generate", "chat"):
         raise ValueError(f"Unknown mode: {config.mode}")
     sampler = TokenSampler(
         config.temperature, config.topp, config.seed, device=config.device_sampling
     )
-    engine = Engine(
-        config.checkpoint_path,
-        ctx_length=config.ctx_length,
-        mode=config.engine_mode,
-        cache_dtype="int8" if config.kv_int8 else torch.float32,
-        device=config.device,
-    )
-    tokenizer = Tokenizer(
-        config.checkpoint_path, engine.config.vocab_size, config.enable_thinking
-    )
-    if config.mode == "generate":
-        generate(engine, tokenizer, sampler, config.prompt, spec_k=config.speculative)
+    engine_kw = dict(ctx_length=config.ctx_length, mode=config.engine_mode,
+                     cache_dtype="int8" if config.kv_int8 else torch.float32)
+    if config.sp > 1:
+        # Sequence-parallel prefill: prompts of sp_threshold rows or more
+        # shard over these devices by ring attention, one process a rank;
+        # decode and short prompts stay on rank 0.
+        devices = (config.device.split(",") if config.device
+                   else [f"cuda:{i}" for i in range(torch.cuda.device_count())])
+        if config.sp > len(devices):
+            raise ValueError(f"--sp {config.sp} needs {config.sp} devices, have {len(devices)}")
+        engine = start_sp_engine(functools.partial(load_checkpoint, config.checkpoint_path), devices[: config.sp],
+                                 sp_threshold=config.sp_threshold, **engine_kw)
     else:
-        chat(engine, tokenizer, sampler, config.prompt, config.system_prompt)
+        engine = Engine(config.checkpoint_path, device=config.device, **engine_kw)
+    try:
+        tokenizer = Tokenizer(
+            config.checkpoint_path, engine.config.vocab_size, config.enable_thinking
+        )
+        if config.mode == "generate":
+            generate(engine, tokenizer, sampler, config.prompt, spec_k=config.speculative)
+        else:
+            chat(engine, tokenizer, sampler, config.prompt, config.system_prompt)
+    finally:
+        engine.close()
 
 
 # Public names of the reference package that the port lacks (by their path
 # inside the package: a module, or module.name), each with the ROADMAP.md
 # item that ports it.
 NOT_PORTED = {
-    "parallel.pipelined_forward": "queue 1, item 5: pipeline parallelism",
-    "parallel.create_pp_mesh": "queue 1, item 5: pipeline parallelism",
-    "parallel.shard_for_pp": "queue 1, item 5: pipeline parallelism",
-    "parallel.PP_AXIS": "queue 1, item 5: pipeline parallelism",
-    "parallel.ring_prefill_attention": "queue 1, item 5: sequence parallelism",
-    "parallel.SP_AXIS": "queue 1, item 5: sequence parallelism",
     "parallel.distributed.scaling_report": "queue 1, item 1: the benchmark",
     "utils.enable_compile_cache": "queue 1, item 6: not carried (the nvcc build cache serves)",
-    "serving.remote": "queue 1, item 4: the rest of serving",
 }
 
 __all__ = [

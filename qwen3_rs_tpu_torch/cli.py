@@ -7,12 +7,16 @@ decode loop in on-device chunks (``Engine.decode_chunk``); ``batch`` and
 ``serve`` sample on the device by default (``--sampling device``), as the
 reference's do.  ``serve --tp N`` shards the engine over N ranks, one
 process each (``--device`` lists one device per rank; ``cuda:0,cuda:0`` puts
-two ranks on one card, ``cpu,cpu`` runs them on the CPU).  ``--spec K``
-decodes with n-gram speculative rounds (``inference``: greedy, generate
-mode; ``batch`` and ``serve``: the page pool with device sampling).  Flags
-whose paths are not ported yet (``--sp > 1``, ``--replicas > 1``,
-``--gateway``) raise a "not ported" error naming the ROADMAP.md item; they
-never run something else.
+two ranks on one card, ``cpu,cpu`` runs them on the CPU).  ``serve
+--replicas R`` routes requests over R engines on disjoint slices of the
+device list (least-loaded, with prefix affinity under ``--prefix-cache``):
+at ``--tp 1`` engines of this process, each on its device; at ``--tp K``
+each replica is a ``serve --tp K`` process of its own on a free local port,
+reached over HTTP.  ``serve --gateway URL,URL`` routes over worker servers
+and loads no weights.  ``inference --sp N`` prefills prompts of at least
+``--sp-threshold`` rows over N ranks (ring attention; one device per rank).
+``--spec K`` decodes with n-gram speculative rounds (``inference``: greedy,
+generate mode; ``batch`` and ``serve``: the page pool with device sampling).
 
     python -m qwen3_rs_tpu_torch.cli export HF_DIR m.qtpu -g 64 --bits 4
     python -m qwen3_rs_tpu_torch.cli export HF_DIR m.bin --format legacy
@@ -25,6 +29,9 @@ never run something else.
     python -m qwen3_rs_tpu_torch.cli serve CKPT --kv-int8 --prefix-cache
     python -m qwen3_rs_tpu_torch.cli serve CKPT --spec 3 --spec-min-accept 1.35
     python -m qwen3_rs_tpu_torch.cli serve CKPT --tp 2 --device cuda:0,cuda:0
+    python -m qwen3_rs_tpu_torch.cli serve CKPT --replicas 2 --device cuda:0,cuda:1
+    python -m qwen3_rs_tpu_torch.cli serve CKPT --gateway http://host1:8000,http://host2:8000
+    python -m qwen3_rs_tpu_torch.cli inference CKPT -m generate -i "..." --sp 2 --device cuda:0,cuda:1
 """
 
 from __future__ import annotations
@@ -105,13 +112,16 @@ def build_parser() -> argparse.ArgumentParser:
     )
     inf.add_argument(
         "--sp", type=int, default=1, metavar="N",
-        help="sequence-parallel prefill over N devices (not ported yet)",
+        help="sequence-parallel prefill over N devices (ring attention), one process each",
     )
     inf.add_argument(
         "--sp-threshold", type=int, default=4096, metavar="ROWS",
         help="minimum prompt rows to engage the sequence-parallel prefill",
     )
-    inf.add_argument("--device", default=None, help=_DEVICE_HELP)
+    inf.add_argument(
+        "--device", default=None,
+        help=_DEVICE_HELP + "; with --sp, one device per rank, comma-separated (default: the first --sp cards)",
+    )
 
     # eval-ppl: perplexity and the int8-vs-f32 delta (the accuracy bar).
     ev = sub.add_parser("eval-ppl", help="Evaluate perplexity of a checkpoint")
@@ -176,36 +186,27 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--prefill-chunk", type=int, default=None, metavar="N", help=_CHUNK_HELP)
     sv.add_argument(
         "--gateway", default=None, metavar="URL,URL",
-        help="cross-host gateway over worker servers (not ported yet)",
+        help="cross-host gateway: route requests over these worker servers (no weights, no device work)",
     )
     sv.add_argument(
         "--tp", type=int, default=1,
         help="tensor-shard the engine's weights and KV over this many devices, one process each",
     )
-    sv.add_argument("--replicas", type=int, default=1, help="engine replicas (not ported yet)")
+    sv.add_argument(
+        "--replicas", type=int, default=1,
+        help="engine replicas behind one least-loaded router, each on --tp devices of its own",
+    )
     sv.add_argument(
         "--device", default=None,
-        help=_DEVICE_HELP + "; with --tp, one device per rank, comma-separated (default: the first "
-        "--tp cards; cuda:0,cuda:0 puts two ranks on one card, cpu,cpu runs them on the CPU)",
+        help=_DEVICE_HELP + "; with --tp or --replicas, one device per rank, comma-separated (default: the "
+        "first --replicas x --tp cards; cuda:0,cuda:0 puts two ranks on one card, cpu,cpu runs them on the CPU)",
     )
     return parser
 
 
-def _serving_not_ported(args) -> None:
-    """Raise the "not ported" error for a serving flag whose path the port
-    lacks."""
-    from .inference.engine import not_ported
-
-    if args.command == "serve":
-        if args.replicas > 1:
-            raise not_ported("replicated serving (--replicas)", "queue 1, item 4: the rest of serving")
-        if args.gateway:
-            raise not_ported("the cross-host gateway (--gateway)", "queue 1, item 4: the rest of serving")
-
-
 def _tp_devices(args) -> list[str]:
-    """One device per rank of ``--tp``: the ``--device`` list, or the first
-    ``--tp`` cards."""
+    """One device per rank of every replica (``--replicas`` × ``--tp``, the
+    replicas' slices in order): the ``--device`` list, or the first cards."""
     import torch
 
     have = args.device.split(",") if args.device else [f"cuda:{i}" for i in range(torch.cuda.device_count())]
@@ -213,10 +214,10 @@ def _tp_devices(args) -> list[str]:
         raise SystemExit(
             f"--replicas {args.replicas} x --tp {args.tp} needs {args.replicas * args.tp} devices, have {len(have)}"
         )
-    return have[: args.tp]
+    return have[: args.replicas * args.tp]
 
 
-def _engine(args, config, weights, **kw):
+def _engine(args, config, weights, devices=None, **kw):
     from .serving import ContinuousBatchingEngine
 
     for flag in ("spec", "prefix_cache", "prefill_chunk"):
@@ -235,9 +236,10 @@ def _engine(args, config, weights, **kw):
         from .serving.scheduler import start_tp_engine
 
         # Every rank loads the checkpoint itself and keeps its shard.
-        engine = start_tp_engine(functools.partial(load_checkpoint, args.checkpoint), _tp_devices(args), **kw)
+        engine = start_tp_engine(functools.partial(load_checkpoint, args.checkpoint),
+                                 (devices or _tp_devices(args))[: args.tp], **kw)
     else:
-        device = args.device.split(",")[0] if args.device else None
+        device = devices[0] if devices else (args.device.split(",")[0] if args.device else None)
         engine = ContinuousBatchingEngine(config=config, weights=weights, device=device, **kw)
     if not args.no_warmup:
         engine.warmup()
@@ -285,37 +287,123 @@ def _batch(args) -> int:
     return 0
 
 
-def _serve(args) -> int:
+def _stop_on(httpd, failed=()) -> None:
+    """SIGTERM stops the server as Ctrl-C does, so that whatever it runs
+    (tp ranks, replica processes) stops with it; so does the first of
+    ``failed`` (callables, polled) that turns true."""
     import signal
     import threading
 
+    signal.signal(signal.SIGTERM, lambda *_: threading.Thread(target=httpd.shutdown).start())
+
+    def watch():
+        while not any(f() for f in failed):
+            time.sleep(0.5)
+        httpd.shutdown()
+
+    if failed:
+        threading.Thread(target=watch, daemon=True).start()
+
+
+def _serve(args) -> int:
     from .checkpoint import load_checkpoint
     from .configuration import read_config
     from .inference.tokenizer import Tokenizer
-    from .serving.server import ServingFrontend, serve
+    from .serving.server import ReplicatedFrontend, ServingFrontend, serve
 
-    if args.tp > 1:  # the ranks load the weights themselves
+    if args.gateway:
+        # The cross-host gateway: the tokenizer only; no weights, no device work.
+        from .serving.remote import connect_workers
+
+        config = read_config(args.checkpoint)
+        tokenizer = Tokenizer(args.checkpoint, config.vocab_size)
+        frontend = connect_workers(args.gateway.split(","), tokenizer, wait_s=600.0)
+        serve(frontend, host=args.host, port=args.port, ready=_stop_on)
+        return 0
+    if args.tp > 1 or args.replicas > 1:  # the ranks (or the replica processes) load the weights themselves
         config, weights = read_config(args.checkpoint), None
-        _tp_devices(args)  # too few devices: fail before any rank starts
+        devices = _tp_devices(args)  # too few devices: fail before any rank starts
+        if args.tp == 1:
+            weights = load_checkpoint(args.checkpoint)[1]
     else:
         config, weights = load_checkpoint(args.checkpoint)
+        devices = None
     tokenizer = Tokenizer(args.checkpoint, config.vocab_size)
     kw = {"cache_dtype": "int8"} if args.kv_int8 else {}
+    if args.replicas > 1 and args.tp > 1:
+        return _serve_tp_replicas(args, devices, tokenizer)
     if not args.no_warmup:
         logging.info("warming up (building the kernels)...")
-    engine = _engine(args, config, weights, **kw)
-    frontend = ServingFrontend(engine, tokenizer)
+    per = args.tp
+    engines = [_engine(args, config, weights, devices[i * per : (i + 1) * per] if devices else None, **kw)
+               for i in range(args.replicas)]
+    frontends = [ServingFrontend(e, tokenizer) for e in engines]
+    frontend = frontends[0] if len(frontends) == 1 else ReplicatedFrontend(frontends)
+    # An engine whose step failed cannot serve again (a tp engine's ranks are
+    # out of step): the server stops and exits non-zero.
+    ready = (lambda httpd: _stop_on(httpd, [f.failed.is_set for f in frontends])) if devices else None
+    serve(frontend, host=args.host, port=args.port, **({"ready": ready} if ready else {}))
+    errors = [f.error for f in frontends if f.error is not None]
+    if errors:
+        logging.error("the serving engine failed: %s", errors[0])
+        return 1
+    return 0
 
-    def tp_ready(httpd):
-        # SIGTERM stops the server as Ctrl-C does, so that the engine's ranks
-        # stop with it.  An engine whose step failed has ranks out of step: it
-        # cannot serve again, so the server stops (and exits non-zero).
-        signal.signal(signal.SIGTERM, lambda *_: threading.Thread(target=httpd.shutdown).start())
-        threading.Thread(target=lambda: (frontend.failed.wait(), httpd.shutdown()), daemon=True).start()
 
-    serve(frontend, host=args.host, port=args.port, **({"ready": tp_ready} if args.tp > 1 else {}))
-    if frontend.error is not None:
-        logging.error("the serving engine failed: %s", frontend.error)
+# The serve flags a replica process takes from its front end's.
+_REPLICA_FLAGS = ("slots", "sampling", "kv", "page_size", "pages", "spec", "spec_min_accept", "prefill_chunk")
+
+
+def _serve_tp_replicas(args, devices: list[str], tokenizer) -> int:
+    """``serve --replicas R --tp K``: one ``serve --tp K`` process a replica,
+    on its slice of the devices and a free local port, behind one router of
+    clients (``serving.remote``).  Its ranks are its own children; SIGTERM to
+    this process stops every replica, and a replica that exits stops the
+    server."""
+    import subprocess
+
+    from .parallel.distributed import free_port
+    from .serving.remote import RemoteWorkerClient
+    from .serving.server import ReplicatedFrontend, serve
+
+    procs, clients = [], []
+    try:
+        for i in range(args.replicas):
+            port = free_port()
+            argv = [sys.executable, "-m", "qwen3_rs_tpu_torch.cli", "serve", str(Path(args.checkpoint).resolve()),
+                    "--host", "127.0.0.1", "--port", str(port), "--tp", str(args.tp),
+                    "--device", ",".join(devices[i * args.tp : (i + 1) * args.tp])]
+            for flag in _REPLICA_FLAGS:
+                if getattr(args, flag) is not None:
+                    argv += ["--" + flag.replace("_", "-"), str(getattr(args, flag))]
+            argv += [f for f, on in (("--kv-int8", args.kv_int8), ("--prefix-cache", args.prefix_cache),
+                                     ("--no-warmup", args.no_warmup)) if on]
+            procs.append(subprocess.Popen(argv, cwd=Path(__file__).resolve().parents[1]))
+            clients.append(RemoteWorkerClient(f"http://127.0.0.1:{port}", tokenizer, prefix_cache=args.prefix_cache))
+        logging.info("starting %d replicas of %d ranks...", args.replicas, args.tp)
+        deadline = time.monotonic() + 600.0
+        while not all(c.healthy(timeout_s=1.0) for c in clients):
+            exited = [p.returncode for p in procs if p.poll() is not None]
+            if exited:
+                raise SystemExit(f"a replica process exited with code {exited[0]} before it served")
+            if time.monotonic() > deadline:
+                raise TimeoutError("the replica processes did not answer /health within 600 s")
+            time.sleep(0.5)
+        serve(ReplicatedFrontend(clients), host=args.host, port=args.port,
+              ready=lambda httpd: _stop_on(httpd, [lambda: any(p.poll() is not None for p in procs)]))
+        failed = [p.returncode for p in procs if p.poll() is not None]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+        for p in procs:
+            try:
+                p.wait(120)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(30)
+    if failed:
+        logging.error("a replica process exited with code %d", failed[0])
         return 1
     return 0
 
@@ -341,7 +429,6 @@ def main(argv=None) -> int:
         export_model(args.model_path, args.output_path, args.group_size, fmt=args.format, weight_bits=args.bits)
         return 0
     if args.command in ("batch", "serve"):
-        _serving_not_ported(args)
         return _batch(args) if args.command == "batch" else _serve(args)
     if args.command == "eval-ppl":
         from .evaluation import evaluate_checkpoint

@@ -9,6 +9,16 @@ prompt.  ``prefill`` feeds prompts in windows of at
 most ``MAX_PREFILL_WINDOW`` rows; a window that starts at position 0 is a
 fresh prefill (the causal prefill kernel in fast mode), a later window
 attends over the cache rows the earlier ones wrote, as a chat turn does.
+
+Sequence parallelism (``sp_mesh``, ``start_sp_engine``): a fresh prompt of
+at least ``sp_threshold`` rows is one window, not chunked, and runs over the
+ranks of the ``sp`` mesh (ring attention, ``qwen3_forward(sp_mesh=...)``)
+where its bucket (the reference engine's padded width) reaches the threshold
+and divides over the ranks; the window is padded to that bucket, and the
+padding rows write nothing.  Otherwise it is one plain window.  Decode steps
+and every other window run on rank 0 alone.  Ranks 1..N-1 hold the weights,
+no cache, and wait in ``worker_loop`` for rank 0's next sp window until its
+``close()``.
 """
 
 from __future__ import annotations
@@ -16,7 +26,7 @@ from __future__ import annotations
 import logging
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -35,14 +45,25 @@ from ..models.qwen3 import (
     qwen3_forward,
     weights_to,
 )
+from ..ops import collectives
+from ..ops.kernels import LAUNCHES, reset_launches
 from ..ops.quant import Q4Tensor
 from ..ops.sampling import Sampler, sample_tokens
+from ..parallel.distributed import launch
+from ..parallel.mesh import SP_AXIS
 
 logger = logging.getLogger(__name__)
 
+# The reference engine's compile buckets: a prefill window pads to the first
+# that holds it, past the last to a multiple of 1024 rows.
+PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP.md, {item})")
+
+def _bucket(n: int) -> int:
+    for b in PREFILL_BUCKETS:
+        if n <= b:
+            return b
+    return -(-n // 1024) * 1024
 
 
 class Engine:
@@ -63,6 +84,9 @@ class Engine:
     device:
         ``None`` takes ``cuda`` and raises without it; pass ``"cpu"`` for the
         plain PyTorch versions of the kernels.
+    sp_mesh, sp_threshold:
+        This rank's mesh on the ``sp`` axis (``start_sp_engine``), and the
+        fewest rows of a fresh prompt that runs sequence-parallel.
     """
 
     # Long prompts prefill in windows of this size, as the reference engine's;
@@ -80,7 +104,13 @@ class Engine:
         cache_dtype=torch.float32,
         batch_size: int = 1,
         device=None,
+        sp_mesh=None,
+        sp_threshold: int = 4096,
     ):
+        if sp_mesh is not None:
+            if device is not None and torch.device(device) != sp_mesh.device:
+                raise ValueError(f"device {device} is not the mesh's device {sp_mesh.device} for this rank")
+            device = sp_mesh.device
         self.device = resolve_device(device)
         if mode not in ("fast", "exact"):
             raise ValueError(f"engine mode {mode!r} is not 'fast' or 'exact'")
@@ -98,6 +128,69 @@ class Engine:
         self.mode = mode
         self.cache_dtype = cache_dtype
         self.batch_size = batch_size
+        self.sp_mesh = sp_mesh
+        self.sp_threshold = sp_threshold
+        self._sp = sp_mesh.shape.get(SP_AXIS, 1) if sp_mesh is not None else 1
+
+    # ------------------------------------------------------ sequence parallel
+    def _sync(self, op: str, payload=None) -> None:
+        """Rank 0: tell the worker ranks what to do next."""
+        if self.sp_mesh.rank != 0 or self.sp_mesh.group is None:
+            raise RuntimeError("only rank 0 drives a sequence-parallel engine, and only until close()")
+        self.sp_mesh.workers.check()
+        torch.distributed.broadcast_object_list([(op, payload)], src=0, group=self.sp_mesh.group)
+
+    def worker_loop(self) -> None:
+        """Ranks 1..N-1: run rank 0's sp windows, each on this rank's rows,
+        until rank 0 closes."""
+        while True:
+            box = [None]
+            torch.distributed.broadcast_object_list(box, src=0, group=self.sp_mesh.group)
+            op, payload = box[0]
+            if op == "stop":
+                return
+            if op == "prefill":
+                tokens, out_idx = payload
+                qwen3_forward(self.config, self.weights, tokens, None, np.zeros(len(tokens), np.int64),
+                              mode=self.mode, out_idx=out_idx, fresh_prefill=True, sp_mesh=self.sp_mesh)
+            elif op == "reset":
+                self._reset_counters()
+            elif op == "report":
+                torch.distributed.gather_object(self._report(), None, dst=0, group=self.sp_mesh.group)
+
+    def close(self) -> None:
+        """Rank 0 of an sp engine: stop the worker ranks, join them and leave
+        the process group.  Nothing else to do for one device."""
+        if self._sp == 1 or self.sp_mesh.group is None:
+            return
+        try:
+            self._sync("stop")
+        finally:
+            self.sp_mesh.close()
+
+    def _reset_counters(self) -> None:
+        reset_launches()
+        collectives.reset_counts()
+
+    def reset_counters(self) -> None:
+        """Zero the kernel launch and collective counts of every rank."""
+        if self._sp > 1:
+            self._sync("reset")
+        self._reset_counters()
+
+    def _report(self) -> dict:
+        rank = self.sp_mesh.rank if self.sp_mesh is not None else 0
+        return {"rank": rank, "launches": dict(LAUNCHES), "collectives": dict(collectives.COUNTS)}
+
+    def rank_reports(self) -> list[dict]:
+        """Every rank's kernel launches and collective counts since the last
+        ``reset_counters``, rank 0 first."""
+        if self._sp == 1:
+            return [self._report()]
+        self._sync("report")
+        out = [None] * self._sp
+        torch.distributed.gather_object(self._report(), out, dst=0, group=self.sp_mesh.group)
+        return out
 
     # ------------------------------------------------------------------ api
     def new_cache(self, batch_size: Optional[int] = None) -> KVCache | QuantizedKVCache:
@@ -119,15 +212,31 @@ class Engine:
                 f"prompt window of {s_real} tokens does not fit the cache: "
                 f"{room} rows left of {cache.seq_len} (pos {int(pos0.max())})"
             )
+        if self._sp > 1 and s_real >= self.sp_threshold and not pos0.any():
+            # A sequence-parallel prompt: one window, not chunked.
+            return self._prefill_window(cache, prompt_tokens, pos0)
         w = self.MAX_PREFILL_WINDOW
         logits = None
         for off in range(0, s_real, w):
-            pos = pos0 + off
-            logits, cache = qwen3_forward(
-                self.config, self.weights, prompt_tokens[:, off : off + w], cache, pos,
-                mode=self.mode, fresh_prefill=bool((pos == 0).all()),
-            )
+            logits, cache = self._prefill_window(cache, prompt_tokens[:, off : off + w], pos0 + off)
         return logits, cache
+
+    def _prefill_window(self, cache, tokens: np.ndarray, pos: np.ndarray):
+        """One window.  A fresh one on an sp engine whose bucket (never past
+        the room in the cache) reaches ``sp_threshold`` and divides over the
+        ranks runs sequence-parallel, padded to that bucket."""
+        b, s_real = tokens.shape
+        fresh = not pos.any()
+        if fresh and self._sp > 1:
+            s_pad = max(s_real, min(_bucket(s_real), cache.seq_len))
+            if s_pad >= self.sp_threshold and s_pad % self._sp == 0:
+                padded = np.zeros((b, s_pad), np.int64)
+                padded[:, :s_real] = tokens
+                out_idx = np.full(b, s_real - 1, np.int64)
+                self._sync("prefill", (padded, out_idx))
+                return qwen3_forward(self.config, self.weights, padded, cache, pos, mode=self.mode,
+                                     out_idx=out_idx, fresh_prefill=True, sp_mesh=self.sp_mesh)
+        return qwen3_forward(self.config, self.weights, tokens, cache, pos, mode=self.mode, fresh_prefill=fresh)
 
     def decode_step(self, cache, tokens, pos) -> tuple[torch.Tensor, KVCache | QuantizedKVCache]:
         """One decode step: tokens [B], pos [B] → logits [B, V]."""
@@ -235,6 +344,32 @@ class Engine:
             self.config, self.weights, tokens, cache, np.asarray(pos_start).reshape(-1),
             mode=self.mode, return_all_logits=True,
         )
+
+
+def _sp_rank(mesh, source: Callable, engine_kw: dict) -> None:
+    """A worker rank of ``start_sp_engine``: the weights, following rank 0."""
+    config, weights = source()
+    engine = Engine(config=config, weights=weights, sp_mesh=mesh, **engine_kw)
+    del config, weights
+    engine.worker_loop()
+
+
+def start_sp_engine(source: Callable, devices, **engine_kw) -> Engine:
+    """A sequence-parallel engine over ``devices`` (one rank each; a card may
+    hold more than one rank): ranks 1..N-1 start as processes of their own
+    and this process is rank 0, whose engine is returned.  ``source()``
+    gives (config, weights) on every rank (e.g.
+    ``functools.partial(load_checkpoint, path)``); it and ``engine_kw``
+    (``Engine``'s keywords: ``ctx_length``, ``mode``, ``sp_threshold``, ...)
+    must pickle.  ``close()`` stops the workers."""
+    mesh = launch(devices, _sp_rank, source, engine_kw, axis=SP_AXIS)
+    try:
+        config, weights = source()
+        return Engine(config=config, weights=weights, sp_mesh=mesh, **engine_kw)
+    except BaseException:
+        mesh.workers.join(timeout=0)
+        mesh.close()
+        raise
 
 
 class TokenMetrics:

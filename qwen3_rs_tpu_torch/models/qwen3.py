@@ -78,7 +78,7 @@ import torch.distributed as dist
 from ..configuration import ModelConfig
 from ..device import resolve_device
 from ..ops.attention import gqa_attention_split, gqa_attention_split_paged
-from ..ops.collectives import all_gather_last, all_reduce
+from ..ops.collectives import all_gather_last, all_reduce, exchange
 from ..ops.kernels.flash_attention import decode_supported, flash_decode
 from ..ops.kernels.megakernel import decode_stack_megakernel, head_phase_supported, megakernel_supported
 from ..ops.kernels.paged_attention import (
@@ -101,7 +101,7 @@ from ..ops.kernels.qmatmul import (
 )
 from ..ops.matmul import exact_float_products, f32_matmul, qmatmul, qmatmul_exact
 from ..ops.norms import rms_norm
-from ..ops.quant import Q4Tensor, QuantizedTensor, dequantize, quantize_activations
+from ..ops.quant import Q4Tensor, QuantizedTensor, dequantize, dequantize_q4_inmajor, quantize_activations
 from ..ops.rope import apply_rope, rope_table
 
 MODES = ("fast", "exact", "f32")
@@ -335,6 +335,28 @@ def _write_pages(pool, layer: int, k: torch.Tensor, v: torch.Tensor, targets) ->
     pool.v[layer][pids, :, rows] = v[bi, si].to(pool.v.dtype)
 
 
+def _project(x, xq, w, mode: str) -> torch.Tensor:
+    """One projection against one (codes, scales) pair ``[N, D]``, as the
+    reference's ``_project`` routes it (its pipeline's layer slabs and
+    classifier): fast mode ``ops.matmul.qmatmul`` (the W8A16 kernel up to 256
+    rows, the dense product above), exact mode ``qmatmul_exact`` on ``xq``,
+    f32 mode the dequantized f32 product; INT4 weights the dense product
+    of the dequantized matrix (bf16, or f32 in f32 mode), which has no exact
+    mode.  → ``[..., D]`` f32."""
+    if isinstance(w, Q4Tensor):
+        if mode == "exact":
+            raise ValueError("INT4 weights have no reference-exact (W8A8) mode")
+        dtype = torch.float32 if mode == "f32" else torch.bfloat16
+        wf = dequantize_q4_inmajor(w, dtype)
+        with exact_float_products():
+            return x.to(dtype).float() @ wf.float()
+    if mode == "exact":
+        return qmatmul_exact(xq, w)
+    if mode == "f32":
+        return f32_matmul(x, w)
+    return qmatmul(x, w)
+
+
 def _project_layer(x, xq, w: QuantizedTensor, layer: int, mode: str, *, rounds_to_bf16: bool = False):
     """One projection against layer ``layer`` of stacked weights, outside
     the fused kernel: ``x [..., N]`` (``xq`` its quantized form in exact
@@ -448,12 +470,14 @@ def megakernel_route(config: ModelConfig, cache, batch: int, rows: int, mode: st
 
 
 def megakernel_step(config: ModelConfig, weights: Qwen3Weights, tokens: torch.Tensor, cache, pos: torch.Tensor,
-                    write_ok: torch.Tensor | None = None, *, greedy_head: bool = False) -> torch.Tensor:
+                    write_ok: torch.Tensor | None = None, *, greedy_head: bool = False,
+                    skip_head: bool = False) -> torch.Tensor:
     """One decode step through the megakernel, from device tensors only (no
     host synchronisation): tokens ``[B]`` ints and pos ``[B]`` int32 on the
     weights' device, write_ok ``[B]`` or None.  Returns the logits
     ``[B, vocab_size]`` f32, or with ``greedy_head`` the first-max argmax
-    ``[B]`` int32; the cache is updated in place.
+    ``[B]`` int32, or with ``skip_head`` the f32 residual stream ``[B, dim]``
+    (the classifier not fused); the cache is updated in place.
 
     The embedding row is rounded to bf16, the stream's dtype in fast mode, as
     the reference casts it before its call.  Where the classifier is not
@@ -465,7 +489,7 @@ def megakernel_step(config: ModelConfig, weights: Qwen3Weights, tokens: torch.Te
     x = x.to(torch.bfloat16).float()
     cos_t, sin_t = rope_table(cache.seq_len, c.head_dim, c.rope_theta, dev)
     rows = pos.long().clamp(0, cache.seq_len - 1)
-    fuse = head_phase_supported(c, weights.lm_head.q.shape[-1])
+    fuse = not skip_head and head_phase_supported(c, weights.lm_head.q.shape[-1])
     greedy = greedy_head and fuse
     x_out, head = decode_stack_megakernel(
         c, x, lw.rms_att, lw.rms_ffn, lw.q_norm, lw.k_norm, cos_t[rows], sin_t[rows],
@@ -476,6 +500,8 @@ def megakernel_step(config: ModelConfig, weights: Qwen3Weights, tokens: torch.Te
     )
     if greedy:
         return head
+    if skip_head:
+        return x_out
     logits = head[:, : c.vocab_size] if fuse else _head(c, weights, x_out, "fast")
     return logits.argmax(dim=-1).to(torch.int32) if greedy_head else logits
 
@@ -494,6 +520,8 @@ def qwen3_forward(
     page_table=None,
     write_mask=None,
     greedy_head: bool = False,
+    skip_head: bool = False,
+    sp_mesh=None,
     tp_group=None,
 ):
     """One model step: prefill when S > 1, decode when S == 1.
@@ -512,26 +540,53 @@ def qwen3_forward(
     ``return_all_logits``; cache), the cache updated in place.
     ``greedy_head`` returns the first-max argmax of those logits (int32) in
     their place; the megakernel fuses it into its classifier phase.
+    ``skip_head`` returns the residual stream ``[B, S, dim]`` (``[B, 1,
+    dim]`` f32 from the megakernel) in place of the logits.
     ``tp_group``: this rank's process group of a tensor-parallel forward
     (the weights and the cache its shards, ``config`` the local config;
     ``parallel/tp.py``); the logits are global.
+
+    ``sp_mesh`` (this rank's mesh on the ``sp`` axis of N ranks, every rank
+    calling the forward with the same arguments): a fresh window of S > 1
+    rows that divides over N runs sequence-parallel.  Rank r takes the S/N
+    rows from r·S/N through the embedding, the norms and every projection,
+    and the attention is the ring over the ranks
+    (``parallel.context.ring_prefill_attention_inner``) in place of the
+    causal prefill kernel.  After the last layer rank 0 gathers every rank's
+    K/V rows into its dense cache (rows past a request's ``out_idx`` are
+    padding and write nothing) and the hidden rows the head needs from the
+    ranks that hold them, and returns as above; the other ranks need no
+    cache (``cache`` may be None) and return ``(None, None)``.
     """
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} is not one of {MODES}")
-    if greedy_head and tp_group is not None:
-        # Under tp the classifier's columns are gathered after it: the fused
-        # argmax of the reference would see local ids.
+    if greedy_head and (skip_head or tp_group is not None):
+        # skip_head has no logits to reduce; under tp the classifier's columns
+        # are gathered after it: the fused argmax of the reference would see
+        # local ids.
         raise ValueError("greedy_head requires the full head (no skip_head/tp_axis)")
     dev = weights.embed.q.device
     tokens = torch.as_tensor(tokens, device=dev).long()
     b, s = tokens.shape
     pos = np.asarray(torch.as_tensor(pos_start).cpu(), np.int64).reshape(b)
     paged = page_table is not None
+    n_sp = sp_mesh.shape.get("sp", 1) if sp_mesh is not None else 1
+    ring = fresh_prefill and n_sp > 1 and s > 1 and s % n_sp == 0
+    r0, s_total = 0, s
+    if ring:
+        if paged or tp_group is not None:
+            raise ValueError("the sequence-parallel prefill takes the dense cache and no tensor parallelism")
+        s = s_total // n_sp
+        r0 = sp_mesh.rank * s
+        tokens = tokens[:, r0 : r0 + s]
     if paged:
         page = cache.k.shape[3]
         table = np.asarray(torch.as_tensor(page_table).cpu(), np.int64).reshape(b, -1)
         t_max, rope_len = table.shape[1] * page, config.seq_len
         bad = (pos < 0) | (pos > t_max)  # rows past the table are dropped, not refused
+    elif cache is None and ring:  # an sp rank past 0: no cache (rank 0 checks the window against its own)
+        t_max = rope_len = s_total
+        bad = pos < 0
     else:
         t_max = rope_len = cache.seq_len
         if write_mask is not None:
@@ -540,19 +595,19 @@ def qwen3_forward(
             # dropped, so it reads up to the window's end.
             masked = ~np.asarray(write_mask, bool).reshape(b)
             pos = np.where(masked, np.clip(pos, 0, max(t_max - s, 0)), pos)
-        bad = (pos < 0) | (pos + s > t_max)
+        bad = (pos < 0) | (pos + s_total > t_max)
     if bad.any():
         raise ValueError(
-            f"window of {s} rows at positions {pos.tolist()} does not fit the cache of {t_max} rows"
+            f"window of {s_total} rows at positions {pos.tolist()} does not fit the cache of {t_max} rows"
         )
     if fresh_prefill and pos.any():
         raise ValueError(f"fresh_prefill with positions {pos.tolist()}: a fresh window starts at 0")
-    if tp_group is None and megakernel_route(config, cache, b, s, mode, paged,
+    if tp_group is None and not ring and megakernel_route(config, cache, b, s, mode, paged,
                                              q4=isinstance(weights.layers.wqkv, Q4Tensor)):
         ok = None if write_mask is None else torch.as_tensor(np.asarray(write_mask, bool), device=dev)
         out = megakernel_step(config, weights, tokens[:, 0], cache, torch.as_tensor(pos, dtype=torch.int32, device=dev),
-                              ok, greedy_head=greedy_head)
-        return (out[:, None] if return_all_logits else out), cache
+                              ok, greedy_head=greedy_head, skip_head=skip_head)
+        return (out[:, None] if return_all_logits or skip_head else out), cache
     c = config
     eps, g = c.norm_eps, c.group_size
     bf16 = torch.bfloat16
@@ -570,7 +625,7 @@ def qwen3_forward(
         supports_shapes(n, d, g, isinstance(w, Q4Tensor)) for w, (n, d) in zip(
             (lw.wqkv, lw.wo, lw.w13, lw.w2),
             ((c.dim, ah + 2 * kvd), (ah, c.dim), (c.dim, 2 * c.hidden_dim), (c.hidden_dim, c.dim))))
-    prefill_kernel = (fast and fresh_prefill and s > MAX_ROWS
+    prefill_kernel = (fast and fresh_prefill and not ring and s > MAX_ROWS
                       and splash_prefill_supported(reference_rows(s), hd, c.n_heads, c.n_kv_heads))
     paged_decode_kernel = (paged and fast and s == 1
                            and paged_decode_supported(hd, cache.k.shape[3], cache.k.dtype))
@@ -597,7 +652,7 @@ def qwen3_forward(
 
     # Positions past the RoPE table (padding rows past the context) take its
     # last row, as the reference's gather clamps them.
-    q_pos = torch.as_tensor(np.minimum(pos[:, None] + np.arange(s), rope_len - 1), device=dev)  # [B, S]
+    q_pos = torch.as_tensor(np.minimum(pos[:, None] + r0 + np.arange(s), rope_len - 1), device=dev)  # [B, S]
     cos_t, sin_t = rope_table(rope_len, hd, c.rope_theta, dev)
     cos = cos_t[q_pos][:, :, None, :]  # [B, S, 1, hd/2]
     sin = sin_t[q_pos][:, :, None, :]
@@ -605,6 +660,7 @@ def qwen3_forward(
     if paged:
         table_dev = torch.as_tensor(table, dtype=torch.int32, device=dev)
         targets = _page_targets(table, pos, s, page, write_mask, dev)
+    kv_rows = []  # the sp path's K/V rows of every layer, written by rank 0 after the last
 
     for l in range(c.n_layers):
         if fused:
@@ -621,7 +677,11 @@ def qwen3_forward(
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         pool_kw = dict(k_scale_pool=ks_all, v_scale_pool=vs_all)
-        if paged_decode_kernel:
+        if ring:
+            from ..parallel.context import ring_prefill_attention_inner  # the parallel package imports this module
+
+            att = ring_prefill_attention_inner(q.to(cd), k.to(cd), v.to(cd), sp_mesh)
+        elif paged_decode_kernel:
             # The reference rounds the paged kernels' f32 output to the stream's dtype.
             att = paged_decode(q[:, 0], k[:, 0], v[:, 0], cache.k, cache.v, table_dev, pos_dev, l, **pool_kw).to(cd)
         elif flash_kernel:
@@ -646,7 +706,9 @@ def qwen3_forward(
                 k_scale_cache=None if ks_all is None else ks_all[l],
                 v_scale_cache=None if vs_all is None else vs_all[l],
             )
-        if paged:
+        if ring:
+            kv_rows.append((k, v))
+        elif paged:
             _write_pages(cache, l, k, v, targets)
         else:
             _write_rows(cache, l, k, v, pos, write_mask)
@@ -674,8 +736,14 @@ def qwen3_forward(
         h = (gate * torch.sigmoid(gate) * up).to(cd)
         x = x + _down(h, quant(h), lw.w2, l).to(cd)
 
+    if ring:
+        x = _sp_gather(cache, x, kv_rows, out_idx, write_mask, sp_mesh, s_total, return_all_logits or skip_head)
+        if sp_mesh.rank != 0:
+            return None, None
+    if skip_head:
+        return x, cache
     if not return_all_logits:
-        if out_idx is None:
+        if out_idx is None or ring:
             x = x[:, -1]
         else:
             rows = torch.as_tensor(np.asarray(out_idx, np.int64).reshape(b), device=dev)
@@ -684,3 +752,42 @@ def qwen3_forward(
     if greedy_head:
         return logits.argmax(dim=-1).to(torch.int32), cache
     return logits, cache
+
+
+def _sp_gather(cache, x, kv_rows, out_idx, write_mask, mesh, s_total: int, all_rows: bool):
+    """The end of a sequence-parallel window on rank ``mesh.rank`` of N (each
+    holding S/N rows from ``rank · S/N``): every rank sends rank 0 its K/V
+    rows of every layer and, of its residual stream ``x`` ``[B, S/N, dim]``,
+    every row (``all_rows``) or the rows at ``out_idx`` it holds (zeros for
+    the others).  Rank 0 writes the K/V rows of each request up to its
+    ``out_idx`` (default the last row; a masked request writes none) into
+    its dense cache and returns the stream ``[B, S, dim]``, or the
+    ``out_idx`` rows as ``[B, 1, dim]``; the other ranks return None."""
+    n, rank = mesh.shape["sp"], mesh.rank
+    b, s_loc = x.shape[:2]
+    dev = x.device
+    last = np.full(b, s_total - 1) if out_idx is None else np.asarray(out_idx, np.int64).reshape(b)
+    k_all = torch.stack([k for k, _ in kv_rows])  # [L, B, S/N, kv, hd]
+    v_all = torch.stack([v for _, v in kv_rows])
+    if all_rows:
+        part = x
+    else:
+        part = torch.zeros(b, 1, x.shape[-1], dtype=x.dtype, device=dev)
+        for i in range(b):
+            if rank * s_loc <= last[i] < (rank + 1) * s_loc:
+                part[i, 0] = x[i, last[i] - rank * s_loc]
+    if rank != 0:
+        exchange([(k_all, 0), (v_all, 0), (part, 0)], [], mesh.group, dev)
+        return None
+    got = exchange([], [(t.shape, t.dtype, r) for r in range(1, n) for t in (k_all, v_all, part)], mesh.group, dev)
+    ranks = [(k_all, v_all, part)] + [tuple(got[3 * j : 3 * j + 3]) for j in range(n - 1)]
+    for r, (kr, vr, _) in enumerate(ranks):
+        for i in range(b):
+            rows = min(s_loc, int(last[i]) + 1 - r * s_loc)
+            if rows <= 0 or (write_mask is not None and not write_mask[i]):
+                continue
+            sub = type(cache)(*(t[:, i : i + 1] for t in cache))
+            for l in range(kr.shape[0]):
+                _write_rows(sub, l, kr[l, i : i + 1, :rows], vr[l, i : i + 1, :rows], np.asarray([r * s_loc]), None)
+    parts = [p for _, _, p in ranks]
+    return torch.cat(parts, dim=1) if all_rows else sum(parts[1:], parts[0])

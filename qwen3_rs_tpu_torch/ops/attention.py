@@ -33,6 +33,17 @@ QUERY_CHUNK = 512
 CACHE_KEY_CHUNK = 4096
 
 
+def merge_softmax_partials(m1, l1, a1, m2, l2, a2):
+    """Combine two online-softmax partial triples (max, sum, acc) in f32:
+    the guarded rescale-and-add rule.  A fully masked part carries ``m =
+    -inf`` and contributes exactly zero (the guard keeps ``exp(-inf - -inf)``
+    from making a NaN)."""
+    m = torch.maximum(m1, m2)
+    r1 = torch.where(torch.isfinite(m1), torch.exp(m1 - m), 0.0)
+    r2 = torch.where(torch.isfinite(m2), torch.exp(m2 - m), 0.0)
+    return m, l1 * r1 + l2 * r2, a1 * r1 + a2 * r2
+
+
 def gqa_attention_split(
     q: torch.Tensor,
     k_cache: torch.Tensor,

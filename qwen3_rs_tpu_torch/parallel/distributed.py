@@ -5,9 +5,10 @@ The port of the reference package's ``parallel/distributed.py``.  There
 wraps ``torch.distributed.init_process_group`` over a TCP rendezvous, given
 its address, world size and rank (nothing tells a process of a cluster).
 
-``launch`` starts the ranks of a tensor-parallel group on this host: ranks
-1..N-1 as processes of their own (the ``spawn`` start method, a free local
-port), each running ``target(mesh, *args)``, and this process as rank 0.
+``launch`` starts the ranks of a group on this host (a tensor-parallel one,
+or with ``axis`` a pipeline or sequence-parallel one): ranks 1..N-1 as
+processes of their own (the ``spawn`` start method, a free local port), each
+running ``target(mesh, *args)``, and this process as rank 0.
 The kernels are built once, by rank 0, before the workers start, so that no
 two processes compile them at once (the build also installs each library by
 an atomic rename).  A worker that dies is seen by rank 0 (``Workers.check``);
@@ -31,7 +32,7 @@ from typing import Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from .mesh import Mesh, backend_for, create_mesh
+from .mesh import TP_AXIS, Mesh, backend_for, create_mesh
 
 logger = logging.getLogger(__name__)
 
@@ -74,7 +75,7 @@ class Workers:
         """Raise if a worker has exited."""
         for rank, p in enumerate(self.procs, 1):
             if not p.is_alive():
-                raise RuntimeError(f"tensor-parallel rank {rank} exited with code {p.exitcode}")
+                raise RuntimeError(f"rank {rank} of the group exited with code {p.exitcode}")
 
     def join(self, timeout: float = 60.0) -> None:
         """Wait for the workers to exit; stop those that do not."""
@@ -98,7 +99,12 @@ def _watch_parent(parent: int) -> None:
     os._exit(1)
 
 
-def _rank_main(rank: int, addr: str, devices: list[str], parent: int, target, args) -> None:
+def _mesh(axis: str, devices) -> Mesh:
+    """This rank's mesh over every rank of the group, on ``axis``."""
+    return create_mesh(devices=devices, **{axis: len(devices)})
+
+
+def _rank_main(rank: int, addr: str, devices: list[str], parent: int, target, args, axis: str = TP_AXIS) -> None:
     torch.set_num_threads(1)
     threading.Thread(target=_watch_parent, args=(parent,), daemon=True).start()
     dev = torch.device(devices[rank])
@@ -109,19 +115,20 @@ def _rank_main(rank: int, addr: str, devices: list[str], parent: int, target, ar
     store.set(f"rank{rank}", "up")
     dist.init_process_group(backend_for(devices), store=store, rank=rank, world_size=len(devices),
                             timeout=GROUP_TIMEOUT)
-    mesh = create_mesh(tp=len(devices), devices=devices)
+    mesh = _mesh(axis, devices)
     try:
         target(mesh, *args)
     finally:
         dist.destroy_process_group()
 
 
-def launch(devices: Sequence, target, *args) -> Mesh:
-    """Start a tensor-parallel group over ``devices`` (one rank each, in
-    order): ranks 1..N-1 run ``target(mesh, *args)`` in processes of their
-    own (``target`` and ``args`` must pickle, and import no JAX); this
-    process joins as rank 0.  Returns rank 0's mesh, whose ``workers`` hold
-    the processes and whose ``close()`` joins them."""
+def launch(devices: Sequence, target, *args, axis: str = TP_AXIS) -> Mesh:
+    """Start a group over ``devices`` (one rank each, in order) whose mesh
+    spans them on ``axis`` (``"tp"``, ``"pp"`` or ``"sp"``): ranks 1..N-1
+    run ``target(mesh, *args)`` in processes of their own (``target`` and
+    ``args`` must pickle, and import no JAX); this process joins as rank 0.
+    Returns rank 0's mesh, whose ``workers`` hold the processes and whose
+    ``close()`` joins them."""
     devices = [str(torch.device(d)) for d in devices]
     n = len(devices)
     if n < 2:
@@ -133,8 +140,8 @@ def launch(devices: Sequence, target, *args) -> Mesh:
     host, port = "127.0.0.1", free_port()
     store = dist.TCPStore(host, port, n, is_master=True, timeout=GROUP_TIMEOUT, wait_for_workers=False)
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_rank_main, args=(r, f"{host}:{port}", devices, os.getpid(), target, args),
-                         daemon=True, name=f"tp-rank{r}") for r in range(1, n)]
+    procs = [ctx.Process(target=_rank_main, args=(r, f"{host}:{port}", devices, os.getpid(), target, args, axis),
+                         daemon=True, name=f"{axis}-rank{r}") for r in range(1, n)]
     for p in procs:
         p.start()
     workers = Workers(procs)
@@ -143,7 +150,7 @@ def launch(devices: Sequence, target, *args) -> Mesh:
         while not store.check([f"rank{r}" for r in range(1, n)]):
             workers.check()
             if time.monotonic() > deadline:
-                raise RuntimeError(f"the tensor-parallel workers did not start within {START_TIMEOUT_S:.0f} s")
+                raise RuntimeError(f"the group's workers did not start within {START_TIMEOUT_S:.0f} s")
             time.sleep(0.05)
         dev = torch.device(devices[0])
         if dev.type == "cuda":
@@ -152,6 +159,6 @@ def launch(devices: Sequence, target, *args) -> Mesh:
     except BaseException:
         workers.join(timeout=0)
         raise
-    mesh = create_mesh(tp=n, devices=devices)
+    mesh = _mesh(axis, devices)
     mesh.workers = workers
     return mesh

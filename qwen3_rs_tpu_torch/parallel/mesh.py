@@ -1,11 +1,14 @@
-"""The device mesh of a tensor-parallel group on ``torch.distributed``.
+"""The device mesh of a process group on ``torch.distributed``.
 
 The port of the reference package's ``parallel/mesh.py``.  There a mesh is
 one ``jax.sharding.Mesh`` over every device, with named axes ``dp`` (data
-parallelism, across hosts) and ``tp`` (tensor parallelism).  Here every rank
-of a process group is one process on one device, and each builds its own
-``Mesh`` after the process group exists: the same device list and axes, plus
-this rank's index, its device and its process group.
+parallelism, across hosts) and ``tp`` (tensor parallelism); its pipeline and
+sequence-parallel layouts build 1-D meshes on a ``pp`` axis
+(``parallel/pipeline.py``) or an ``sp`` axis (``parallel/context.py``).  Here
+every rank of a process group is one process on one device, and each builds
+its own ``Mesh`` after the process group exists: the same device list and
+axes, plus this rank's index, its device and its process group.  A mesh has
+one layout: ``{dp, tp}``, ``{pp}`` or ``{sp}``.
 
 The collective backend follows from the device list and is recorded on the
 mesh: NCCL when every rank has a card of its own, gloo when ranks share a
@@ -26,6 +29,8 @@ from ..device import resolve_device
 
 DP_AXIS = "dp"
 TP_AXIS = "tp"
+PP_AXIS = "pp"
+SP_AXIS = "sp"
 
 
 def backend_for(devices: Sequence[torch.device]) -> str:
@@ -38,8 +43,8 @@ def backend_for(devices: Sequence[torch.device]) -> str:
 
 @dataclasses.dataclass
 class Mesh:
-    """One rank's view of a (dp, tp) mesh: ``devices`` holds one device per
-    rank, in rank order."""
+    """One rank's view of a (dp, tp), (pp) or (sp) mesh: ``devices`` holds
+    one device per rank, in rank order."""
 
     devices: tuple[torch.device, ...]
     shape: dict
@@ -52,7 +57,7 @@ class Mesh:
 
     @property
     def tp(self) -> int:
-        return self.shape[TP_AXIS]
+        return self.shape.get(TP_AXIS, 1)
 
     @property
     def device(self) -> torch.device:
@@ -74,31 +79,43 @@ def create_mesh(
     tp: Optional[int] = None,
     dp: Optional[int] = None,
     devices: Optional[Sequence] = None,
+    *,
+    pp: Optional[int] = None,
+    sp: Optional[int] = None,
 ) -> Mesh:
     """This rank's mesh over ``devices`` (default: every visible card), all
-    on the tp axis unless ``tp``/``dp`` say otherwise.  A mesh of more than
-    one device needs the process group of that many ranks to exist
-    (``parallel.distributed``); this process's rank is its place in
-    ``devices``."""
+    on the tp axis unless ``tp``/``dp`` say otherwise; ``pp`` or ``sp`` (the
+    device count) makes it a pipeline or sequence-parallel mesh on that one
+    axis.  A mesh of more than one device needs the process group of that
+    many ranks to exist (``parallel.distributed``); this process's rank is
+    its place in ``devices``."""
     if devices is None:
         devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())] or [resolve_device(None)]
     devs = tuple(torch.device(d) for d in devices)
     n = len(devs)
-    if tp is None and dp is None:
-        tp, dp = n, 1
-    elif tp is None:
-        tp = n // dp
-    elif dp is None:
-        dp = n // tp
-    if dp * tp != n:
-        raise ValueError(f"dp ({dp}) × tp ({tp}) must equal device count ({n})")
-    if dp != 1:
-        raise ValueError(
-            "serving engine shards tensor-parallel only; run one engine per dp replica for data parallelism"
-        )
+    if pp is not None or sp is not None:
+        if tp is not None or dp is not None or (pp is not None and sp is not None):
+            raise ValueError("a mesh has one layout: tp (with dp), pp or sp")
+        axis, size = (PP_AXIS, pp) if pp is not None else (SP_AXIS, sp)
+        if size != n:
+            raise ValueError(f"{axis} ({size}) must equal device count ({n})")
+        shape = {axis: n}
+    else:
+        if tp is None and dp is None:
+            tp, dp = n, 1
+        elif tp is None:
+            tp = n // dp
+        elif dp is None:
+            dp = n // tp
+        if dp * tp != n:
+            raise ValueError(f"dp ({dp}) × tp ({tp}) must equal device count ({n})")
+        if dp != 1:
+            raise ValueError(
+                "serving engine shards tensor-parallel only; run one engine per dp replica for data parallelism"
+            )
+        shape = {DP_AXIS: dp, TP_AXIS: tp}
     for d in devs:
         resolve_device(d)  # a card that is not there raises here
-    shape = {DP_AXIS: dp, TP_AXIS: tp}
     if n == 1:
         return Mesh(devs, shape)
     if not dist.is_initialized() or dist.get_world_size() != n:

@@ -1,6 +1,8 @@
 """Continuous-batching serving: the engine over dense slots or the page pool
 (``start_tp_engine``: over the ranks of a tensor-parallel group), the
-refcounted prefix cache, and the HTTP front end."""
+refcounted prefix cache, the HTTP front end, the router over replicas
+(``ReplicatedFrontend``) and the gateway's clients of worker servers
+(``remote``)."""
 
 from .paged_cache import (
     PageAllocator,
@@ -10,7 +12,7 @@ from .paged_cache import (
     paged_cache_from_jax_numpy,
 )
 from .scheduler import ContinuousBatchingEngine, Request, RequestState, start_tp_engine
-from .server import ServingFrontend, make_handler, render_chat, serve
+from .server import ReplicatedFrontend, ServingFrontend, make_handler, render_chat, serve
 
 __all__ = [
     "ContinuousBatchingEngine",
@@ -23,6 +25,7 @@ __all__ = [
     "init_paged_cache",
     "paged_cache_from_jax_numpy",
     "ServingFrontend",
+    "ReplicatedFrontend",
     "make_handler",
     "render_chat",
     "serve",

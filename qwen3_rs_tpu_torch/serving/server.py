@@ -20,6 +20,11 @@ current stream.  If a step raises, the worker stops: every request in flight
 and every later one fails with the error (HTTP 500), nothing is dropped
 silently.
 
+``ReplicatedFrontend`` routes each request to the least-loaded of several
+front ends (engine replicas, or ``serving.remote`` clients of worker
+servers), with prefix affinity when the engines cache prefixes; the HTTP
+layer serves it unchanged.
+
 A tensor-parallel engine (``start_tp_engine``) is driven from rank 0 as any
 other; its worker ranks run behind it.  While idle the worker sends them a
 heartbeat, and ``shutdown()`` stops and joins them.  ``failed`` is set when
@@ -34,6 +39,7 @@ import logging
 import queue
 import threading
 import time
+from collections import OrderedDict
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
@@ -209,6 +215,92 @@ class ServingFrontend:
             self._fail(pending)
 
 
+class ReplicatedFrontend:
+    """Request-level data parallelism: route each request to the least-loaded
+    of N front ends.
+
+    Each replica is an engine of its own (weights, page pool, scheduler) on
+    its own device or devices (``serve --replicas R``), or a worker server
+    behind a ``serving.remote.RemoteWorkerClient`` (``serve --gateway``, and
+    the tensor-parallel replicas of ``serve --replicas R --tp K``); replicas
+    share nothing, so nothing on the hot path synchronises them.  Exposes
+    the surface ``make_handler`` needs (submit, stats, tokenizer, shutdown).
+    """
+
+    #: characters of the prompt head that define a routing-affinity key.  It
+    #: must sit inside the shared prefix to bring its requests together, so it
+    #: errs short: merging too much only brings more together (bounded by the
+    #: slack); merging too little loses every hit across requests.  256
+    #: characters are about half a default 128-token page.
+    AFFINITY_CHARS = 256
+
+    def __init__(self, frontends: list, affinity_slack: int = 4):
+        if not frontends:
+            raise ValueError("need at least one replica")
+        self.frontends = frontends
+        self.tokenizer = frontends[0].tokenizer
+        self._lock = threading.Lock()
+        # Routed but not yet queued: submit() tokenizes the prompt outside the
+        # lock, which covers only the choice of replica, so these reservations
+        # keep concurrent submits from all landing on the same replica.
+        self._reserved = [0] * len(frontends)
+        # Prefix affinity: each replica's page pool is its own, so a request
+        # sharing a prefix hits the prefix cache only on the replica that
+        # computed it.  When the engines cache prefixes, prompts with the same
+        # head go to a sticky replica unless it is more than
+        # ``affinity_slack`` requests busier than the least-loaded one.
+        self._affinity_slack = affinity_slack
+        self._affinity: "OrderedDict[int, int] | None" = (
+            OrderedDict()
+            if any(getattr(getattr(f, "engine", None), "prefix_cache", False) for f in frontends)
+            else None
+        )
+        self._affinity_cap = 4096  # an LRU bound for long-lived servers
+
+    def _route(self, prompt: str) -> int:
+        loads = [self.frontends[j].load + self._reserved[j] for j in range(len(self.frontends))]
+        best = min(range(len(loads)), key=loads.__getitem__)
+        if self._affinity is None:
+            return best
+        key = hash(prompt[: self.AFFINITY_CHARS])
+        sticky = self._affinity.get(key)
+        if sticky is not None and loads[sticky] - loads[best] <= self._affinity_slack:
+            self._affinity.move_to_end(key)
+            return sticky
+        self._affinity[key] = best
+        self._affinity.move_to_end(key)
+        while len(self._affinity) > self._affinity_cap:
+            self._affinity.popitem(last=False)
+        return best
+
+    def submit(self, prompt: str, **kwargs) -> _Pending:
+        with self._lock:
+            i = self._route(prompt)
+            self._reserved[i] += 1
+        try:
+            return self.frontends[i].submit(prompt, **kwargs)
+        finally:
+            with self._lock:
+                self._reserved[i] -= 1
+
+    def stats(self) -> dict:
+        per = [f.stats() for f in self.frontends]
+        agg = {"replicas": len(per), "per_replica": per, "load": [f.load for f in self.frontends]}
+        # The counters that sum are summed; the utilization is averaged.
+        for key in ("completed", "kv_pages_total", "kv_pages_free"):
+            if all(key in s for s in per):
+                agg[key] = sum(s[key] for s in per)
+        if all("slot_utilization" in s for s in per):
+            agg["slot_utilization"] = sum(s["slot_utilization"] for s in per) / len(per)
+        ttfts = [s["p50_ttft"] for s in per if s.get("p50_ttft")]
+        agg["p50_ttft"] = sorted(ttfts)[len(ttfts) // 2] if ttfts else None
+        return agg
+
+    def shutdown(self):
+        for f in self.frontends:
+            f.shutdown()
+
+
 def make_handler(frontend: ServingFrontend):
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
@@ -295,11 +387,17 @@ def make_handler(frontend: ServingFrontend):
     return Handler
 
 
+class _Server(ThreadingHTTPServer):
+    # The stdlib's listen backlog of 5 resets connections of a burst of
+    # clients that arrive before the accept loop takes them.
+    request_queue_size = 128
+
+
 def serve(frontend: ServingFrontend, host: str = "127.0.0.1", port: int = 8000, *, ready=None):
     """Blocking server loop.  ``ready(httpd)``, if given, is called once the
     socket is bound (``httpd.server_address`` holds the port when ``port`` is
     0; ``httpd.shutdown()`` from another thread ends the loop)."""
-    httpd = ThreadingHTTPServer((host, port), make_handler(frontend))
+    httpd = _Server((host, port), make_handler(frontend))
     logger.info("serving on http://%s:%d", *httpd.server_address[:2])
     if ready is not None:
         ready(httpd)

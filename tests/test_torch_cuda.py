@@ -394,13 +394,12 @@ def test_flash_decode_one_launch_matches_plain(card, cache, kv_mul):
 
 @pytest.mark.parametrize("cache", ["f32", "bf16", "int8"])
 @pytest.mark.parametrize("hd", [128, 256])
-def test_flash_decode_is_one_launch_where_it_takes_the_split_kernel(card, cache, hd):
+def test_flash_decode_is_one_launch_where_it_takes_the_split_kernel(card, monkeypatch, cache, hd):
     """At head_dim 128/256 over an f32, bf16 or INT8 cache of a multiple of 16 rows
-    a call is one kernel on the card (the profiler's count), held at 1e-5
-    against the plain version and against the two-pass kernel on the same
-    inputs, at B = 1 and B = 3 with pos 0/1/127/128/129/T across the rows."""
-    from torch.profiler import ProfilerActivity, profile
-
+    a call is one kernel on the card: one launch of the one-launch decode
+    kernel (``_one_launch_spy``) and one count under ``LAUNCHES["flash_decode"]``,
+    held at 1e-5 against the plain version and against the two-pass kernel on the
+    same inputs, at B = 1 and B = 3 with pos 0/1/127/128/129/T across the rows."""
     gen = _gen(hd + len(cache))
     t, n_kv, kv_mul = 512, 2, 4
     for pos_list in ([t - 1], [0, 1, 127], [128, 129, t]):
@@ -411,11 +410,13 @@ def test_flash_decode_is_one_launch_where_it_takes_the_split_kernel(card, cache,
         pos = torch.tensor(pos_list, dtype=torch.int32, device=card)
         flash_decode(q, kn, vn, k_all, v_all, pos, 1, **sc)  # built and planned before the count
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            got = flash_decode(q, kn, vn, k_all, v_all, pos, 1, **sc)
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        assert len(kernels) == 1 and "paged_decode_kernel" in kernels[0].name, [e.name for e in kernels]
+        grids = _one_launch_spy(monkeypatch)
+        before = dict(LAUNCHES)
+        got = flash_decode(q, kn, vn, k_all, v_all, pos, 1, **sc)
+        torch.cuda.synchronize()
+        launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
+        assert len(grids) == 1 and launched == {"flash_decode": 1}, (grids, launched)
+        monkeypatch.undo()
         ref = flash_decode_plain(q, kn, vn, k_all, v_all, pos, 1, **sc)
         two = flash_decode_two_pass(q, kn, vn, k_all, v_all, pos, 1, **sc)
         torch.cuda.synchronize()
@@ -2073,3 +2074,65 @@ def test_decode_chunk_spec_8b_widths_is_the_greedy_stream(card):
         lg = lg[0].float()
         assert float((lg[spec[i]] - lg[plain[i]]).abs()) <= 2e-2 * float(lg.abs().max()), i
         assert spec[:i] == plain[:i]
+
+
+# ------------------------------------------------- sequence and pipeline ranks
+@pytest.mark.parametrize("n_heads,n_kv", [(6, 2), (5, 1)])
+def test_ring_on_two_ranks_of_the_card_matches_the_plain_attention(card, n_heads, n_kv):
+    """Ring attention on 2 ranks sharing the card (gloo, the K/V blocks
+    staged through the host) at ragged head counts and a length of 96 rows,
+    whole and inner form, against the dense causal attention on the CPU at
+    1e-4; every block's product ran on the card."""
+    from torch_tp_ranks import Ranks, ring
+
+    from qwen3_rs_tpu_torch.ops.attention import gqa_attention
+
+    gen = torch.Generator().manual_seed(n_heads)
+    b, s, hd = 2, 96, 128
+    q = torch.randn(b, s, n_heads, hd, generator=gen)
+    k, v = torch.randn(2, b, s, n_kv, hd, generator=gen)
+    group = Ranks([str(card) + ":0"] * 2, "sp")
+    try:
+        assert group.mesh.backend == "gloo"
+        got, inner = group.run(ring, q, k, v)
+    finally:
+        group.close()
+    ref = gqa_attention(q, k.transpose(1, 2), v.transpose(1, 2), torch.arange(s)[None].expand(b, s))
+    assert float((got - ref).abs().max()) <= 1e-4
+    assert float((inner - ref[:, : s // 2]).abs().max()) <= 1e-4
+
+
+def test_pipeline_on_two_ranks_of_the_card_matches_one_rank(card):
+    """``pipelined_forward`` on 2 ranks sharing the card (0.6B widths, 4
+    layers, B = 4, 2 microbatches): a 16-row prefill and 2 decode steps
+    equal the one-rank pipeline's on the same weights (same microbatches,
+    same routes), and each rank's #1-#3 launches are the schedule's: 3 ticks
+    (bubbles included) × 2 layers × 4 projections at the microbatch's rows,
+    and the classifier at B rows, a call."""
+    from torch_tp_ranks import Ranks, pipeline_on_card
+
+    from qwen3_rs_tpu_torch.ops.kernels.qmatmul import route
+    from qwen3_rs_tpu_torch.parallel import create_pp_mesh
+    from qwen3_rs_tpu_torch.testing import qwen3_config
+
+    cfg = qwen3_config("0.6b", seq_len=64, n_layers=4)
+    rng = np.random.default_rng(2)
+    calls = [(rng.integers(3, 1000, (4, 16)), np.zeros(4, np.int64))]
+    calls += [(rng.integers(3, 1000, (4, 1)), np.full(4, 16 + i, np.int64)) for i in range(2)]
+    group = Ranks([str(card) + ":0"] * 2, "pp")
+    try:
+        got, counts = group.run(pipeline_on_card, cfg, 5, calls, 2)
+    finally:
+        group.close()
+    one, _ = pipeline_on_card(create_pp_mesh(1, [card]), cfg, 5, calls, 2)
+    for g, o in zip(got, one):
+        assert g.shape == (4, cfg.vocab_size)
+        assert float((g - o).abs().max()) <= 1e-5 * float(o.abs().max())
+    keys = {"row": "qmatmul_w8a16", "mma": "qmatmul_w8a16_mma", "tc": "qmatmul_w8a16_tc"}
+    want = {}
+    for tokens, _ in calls:
+        mb_rows = tokens.shape[1] * 2
+        want[keys[route(mb_rows)]] = want.get(keys[route(mb_rows)], 0) + 3 * 2 * 4
+        want[keys[route(4)]] = want.get(keys[route(4)], 0) + 1
+    for c in counts:
+        assert {k: v for k, v in c.items() if v} == want, c

@@ -183,14 +183,6 @@ def test_cli_device_sampling_repeats_per_seed(exported):
     assert _stdout(port_main, argv) == _stdout(port_main, argv)
 
 
-@pytest.mark.parametrize("flag", [["--sp", "4", "--sp-threshold", "8"], ["--sp", "2"]])
-def test_unported_flags_raise(exported, flag):
-    argv = ["inference", str(exported / "m.qtpu"), "--device", "cpu", "-m", "generate",
-            "-i", "hi", *flag]
-    with pytest.raises(NotImplementedError, match="not ported.*ROADMAP.md"):
-        port_main(argv)
-
-
 @pytest.mark.parametrize("flags,what", [
     (["-m", "generate", "--device-sampling", "--spec", "2", "-t", "0.8"], "requires temperature 0"),
     (["-m", "chat", "--spec", "2", "-t", "0"], "generate-mode only"),

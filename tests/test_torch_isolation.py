@@ -51,8 +51,9 @@ def test_package_imports_without_jax():
     export = ("tensor_reader", "config_loader", "architectures", "lora", "model_exporter", "tokenizer_exporter",
               "chat_template_exporter")  # the exporter: numpy and JSON, no JAX helper either
     assert {f"qwen3_rs_tpu_torch.export.{m}" for m in export} | {"qwen3_rs_tpu_torch.utils.progress"} <= names
-    parallel = ("mesh", "sharding", "distributed", "tp")  # tensor parallelism, whose ranks are processes of their own
+    parallel = ("mesh", "sharding", "distributed", "tp", "pipeline", "context")  # ranks are processes of their own
     assert {f"qwen3_rs_tpu_torch.parallel.{m}" for m in parallel} | {"qwen3_rs_tpu_torch.ops.collectives"} <= names
+    assert {"qwen3_rs_tpu_torch.serving.remote", "qwen3_rs_tpu_torch.utils.profiling"} <= names
     probes = ("boundary_probe", "hbm_stream_bench", "head_a8_probe", "a8_depth_probe")  # importing one runs nothing
     assert {f"qwen3_rs_tpu_torch.scripts.{m}" for m in probes} | {"qwen3_rs_tpu_torch.ops.kernels.probes"} <= names
 

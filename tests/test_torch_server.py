@@ -1,8 +1,9 @@
 """The serving front end and the ``batch`` / ``serve`` CLI: every HTTP
 endpoint of the port's server on the CPU, ``render_chat`` against the JAX
 package's, ``batch`` JSON lines against the JAX CLI's (``--sampling host`` and the
-default device sampling), ``serve`` with its defaults, the "not ported" flags
-and the card default."""
+default device sampling), ``serve`` with its defaults and the card default
+(``serve --replicas`` and ``--gateway``: ``test_torch_replicated.py``,
+``test_torch_remote.py``)."""
 
 import contextlib
 import io
@@ -274,17 +275,6 @@ def test_spec_serving_flags_raise_the_jax_errors(exported, argv, error):  # noqa
     with pytest.raises(error) as got:
         port_main([*argv, "--device", "cpu"])
     assert str(got.value) == str(want.value) and "paged" in str(want.value)
-
-
-@pytest.mark.parametrize("argv,what", [
-    (["serve", "--sampling", "host", "--tp", "2", "--replicas", "2"], "replicated"),
-    (["serve", "--sampling", "host", "--replicas", "2"], "replicated"),
-    (["serve", "--sampling", "host", "--gateway", "http://a:1"], "gateway"),
-])
-def test_unported_serving_flags_raise(exported, argv, what):  # noqa: F811
-    argv = [argv[0], str(exported / "m.qtpu"), *argv[1:], "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match=f"{what}.*not ported.*ROADMAP.md"):
-        port_main(argv)
 
 
 def test_batch_defaults_to_the_card(exported, tmp_path, monkeypatch):  # noqa: F811

@@ -452,7 +452,7 @@ def test_serve_tp_cli_answers_as_the_api_and_stops_cleanly(tp_checkpoint):
 def test_serve_tp_needs_a_device_per_rank(tp_checkpoint):
     with pytest.raises(SystemExit, match="--replicas 1 x --tp 2 needs 2 devices, have 1"):
         port_main(["serve", str(tp_checkpoint), "--tp", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="replicated.*not ported"):
+    with pytest.raises(SystemExit, match="--replicas 2 x --tp 1 needs 2 devices, have 1"):
         port_main(["serve", str(tp_checkpoint), "--replicas", "2", "--device", "cpu"])
 
 

@@ -1,11 +1,19 @@
-"""What every rank of the port's tensor-parallel tests runs.
+"""What every rank of the port's multi-rank tests runs (tensor, pipeline
+and sequence parallelism).
 
 The tests' worker ranks are spawned processes, which import the function
 they run by its module: this one, which imports the port and torch, and no
-JAX.  Rank 0 is the test's own process.
+JAX.  Rank 0 is the test's own process.  ``Ranks`` keeps one group for many
+calls: its workers run ``follow`` and take each call rank 0 broadcasts.
 """
 
+import dataclasses
+
+import numpy as np
 import torch
+import torch.distributed as dist
+
+from qwen3_rs_tpu_torch.parallel import launch
 
 from qwen3_rs_tpu_torch.models.qwen3 import cast_weight_scales, init_kv_cache
 from qwen3_rs_tpu_torch.parallel.tp import local_config, make_tp_forward, shard_weights_tp
@@ -40,3 +48,110 @@ def run_calls(mesh, config, weights, sequences):
             logits.append(lg)
         out.append(logits)
     return out
+
+
+def follow(mesh):
+    """A worker rank of ``Ranks``: run each ``(fn, args)`` rank 0 broadcasts,
+    ``fn(mesh, *args)``, until it sends None."""
+    while True:
+        box = [None]
+        dist.broadcast_object_list(box, src=0)
+        if box[0] is None:
+            return
+        fn, args = box[0]
+        fn(mesh, *args)
+
+
+class Ranks:
+    """Rank 0's handle of a group of ``devices`` whose mesh spans them on
+    ``axis``: ``run(fn, *args)`` runs ``fn(mesh, *args)`` on every rank (a
+    function of this module, and arguments that pickle) and returns rank 0's
+    result; ``close()`` stops the workers and leaves the group."""
+
+    def __init__(self, devices, axis):
+        self.mesh = launch(devices, follow, axis=axis)
+
+    def run(self, fn, *args):
+        dist.broadcast_object_list([(fn, args)], src=0)
+        return fn(self.mesh, *args)
+
+    def close(self):
+        try:
+            dist.broadcast_object_list([None], src=0)
+        finally:
+            self.mesh.close()
+
+
+def on_axis(mesh, axis):
+    """The same group's mesh named on ``axis``."""
+    return dataclasses.replace(mesh, shape={axis: len(mesh.devices)}, workers=None)
+
+
+def pipeline_calls(mesh, config, weights, calls, m, mode):
+    """``calls`` ([(tokens, pos)], in order on one fresh f32 dense cache)
+    through ``pipelined_forward`` on this rank; returns each call's logits and
+    this rank's cache slab after the last."""
+    from qwen3_rs_tpu_torch.models.qwen3 import init_kv_cache
+    from qwen3_rs_tpu_torch.parallel import pipelined_forward
+
+    cache = init_kv_cache(config, len(calls[0][0]), device="cpu")
+    out = []
+    for tokens, pos in calls:
+        logits, slab = pipelined_forward(config, weights, tokens, cache, pos, mesh, n_microbatches=m, mode=mode)
+        out.append(logits)
+    return out, slab
+
+
+def pp_shards(mesh, weights, cache):
+    """This rank's ``shard_for_pp`` slabs."""
+    from qwen3_rs_tpu_torch.parallel import shard_for_pp
+
+    return shard_for_pp(weights, cache, mesh)
+
+
+def ring(mesh, q, k, v):
+    """``ring_prefill_attention`` on this rank, and the inner form on its rows."""
+    from qwen3_rs_tpu_torch.parallel import ring_prefill_attention, ring_prefill_attention_inner
+
+    mesh = on_axis(mesh, "sp")
+    n = len(mesh.devices)
+    q, k, v = (t.to(mesh.device) for t in (q, k, v))
+    rows = slice(mesh.rank * q.shape[1] // n, (mesh.rank + 1) * q.shape[1] // n)
+    inner = ring_prefill_attention_inner(q[:, rows].contiguous(), k[:, rows].contiguous(), v[:, rows].contiguous(),
+                                         mesh)
+    return ring_prefill_attention(q, k, v, mesh).cpu(), inner.cpu()
+
+
+def sp_forward(mesh, config, weights, tokens, kw):
+    """``qwen3_forward(sp_mesh=...)`` of a fresh window on this rank (rank 0
+    over a fresh f32 dense cache)."""
+    from qwen3_rs_tpu_torch.models.qwen3 import init_kv_cache, qwen3_forward
+
+    mesh = on_axis(mesh, "sp")
+    cache = init_kv_cache(config, len(tokens), device="cpu") if mesh.rank == 0 else None
+    return qwen3_forward(config, weights, tokens, cache, np.zeros(len(tokens), np.int64), fresh_prefill=True,
+                         sp_mesh=mesh, **kw)
+
+
+def pipeline_on_card(mesh, config, seed, calls, m):
+    """``calls`` through ``pipelined_forward`` (fast mode) on this rank's card,
+    over the weights of ``seed`` drawn there (``testing.random_weights``, bf16 scales) and
+    a fresh bf16 dense cache; returns rank 0's logits of each call (on the
+    host) and every rank's kernel launches during the calls, rank 0 first."""
+    from qwen3_rs_tpu_torch.models.qwen3 import cast_weight_scales, init_kv_cache
+    from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from qwen3_rs_tpu_torch.parallel import pipelined_forward
+    from qwen3_rs_tpu_torch.testing import random_weights
+
+    weights = cast_weight_scales(random_weights(config, seed, device=mesh.device))  # bf16 scales, as fast mode keeps
+    cache = init_kv_cache(config, len(calls[0][0]), dtype=torch.bfloat16, device=mesh.device)
+    reset_launches()
+    out = []
+    for tokens, pos in calls:
+        logits, cache = pipelined_forward(config, weights, tokens, cache, pos, mesh, n_microbatches=m)
+        out.append(logits.cpu())
+    if len(mesh.devices) == 1:
+        return out, [dict(LAUNCHES)]
+    counts = [None] * len(mesh.devices) if mesh.rank == 0 else None
+    dist.gather_object(dict(LAUNCHES), counts, dst=0)
+    return out, counts
