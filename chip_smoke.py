@@ -118,8 +118,17 @@ Phases, in order; any failure exits non-zero before the final line:
                INT8 ``.bin``, ``inference`` on each, ``batch`` with its
                defaults on each (INT4 with ``QWEN3_TPU_MEGA_Q4=1``: Q4 #11
                where the gate admits dim 512) and ``--sampling host`` on the
-               INT4 one; the output must equal the API's.
-8. ``tp``      tensor-parallel serving: 8B at full width and TP_LAYERS (6) of
+               INT4 one; the output must equal the API's; the CLI runs' host
+               helper calls (the tokenizer's encodes, the loader's
+               transposes) counted, none of them zero.
+8. ``native``  the port's C++ host helper (``utils.native``, built with the
+               host compiler from ``qwen3_rs_tpu_torch/csrc/*.cpp``): loaded
+               from the port's build directory, no other helper mapped; its
+               BPE encoder equal to the Python encoder on the smoke's
+               tokenizer, its transpose equal to numpy's on the 8B's ``w13``
+               codes and scales, both timed on the host beside their plain
+               versions.
+9. ``tp``      tensor-parallel serving: 8B at full width and TP_LAYERS (6) of
                its 36 layers drawn by each of 2 ranks on the one card (gloo), each
                keeping its shard, the serve phase's 24 requests on the paged
                bf16 pool with device sampling; its greedy streams held to a
@@ -131,7 +140,7 @@ Phases, in order; any failure exits non-zero before the final line:
                2 --device cuda:0,cuda:0`` on the cli phase's dim-512 model
                (two completions equal to the API's, SIGTERM leaves no rank)
                and ``--tp 2`` with one device refused.
-9. ``replicas`` two engines (8B, 18 layers each, paged bf16, device
+10. ``replicas`` two engines (8B, 18 layers each, paged bf16, device
                sampling) on the one card behind ``ReplicatedFrontend`` and the
                HTTP front end: the serve phase's 24 request lengths as text,
                streamed, held to one engine's streams behind the same front
@@ -142,24 +151,33 @@ Phases, in order; any failure exits non-zero before the final line:
                the server) and ``--tp 2`` (four ranks of the card, a ``serve
                --tp 2`` process a replica) on the cli phase's exported 2-layer dim-512 model,
                completions equal to the API's, SIGTERM leaving no process.
-10. ``gateway`` two ``cli.py serve`` workers and ``cli.py serve --gateway``
+11. ``gateway`` two ``cli.py serve`` workers and ``cli.py serve --gateway``
                before them: whole and streamed completions equal to the
                API's; the gateway absent from ``nvidia-smi``'s compute
                processes, no ``/dev/nvidia*`` file open in it.
-11. ``pp``     ``pipelined_forward``: 8B at full depth on 2 ranks of the card
+12. ``pp``     ``pipelined_forward``: 8B at full depth on 2 ranks of the card
                (gloo), 18 layers a rank, B=4 in 2 microbatches, a 128-row
                prefill and 8 greedy steps, held to the one-rank pipeline at
                2e-2·max|logits| and the dense forward (other routes) at
                MK_TOL_DEEP or twice one rounding's move, layer 0's cache
                rows at 1e-2; each rank's #1-#3
                launches the schedule's count, bubbles included; ms a step.
-12. ``sp``     ``start_sp_engine``: 8B, 18 layers, 2 ranks of the card, a
+13. ``sp``     ``start_sp_engine``: 8B, 18 layers, 2 ranks of the card, a
                fresh 4096-token prompt on the ring (no #5; each rank 4·L #6
                launches on 2048 rows), held to the one-rank 4096-row window
                (#5 + #6) at 2e-2·max|logits|, then 32 greedy steps (#11) on
                rank 0 against the one-rank stream; ``cli.py inference --sp 2``
                against the API.
-13. ``parity``  the 2-layer model on the CPU (plain versions) and on the card
+14. ``scaling`` ``parallel.scaling_report``: 8B at full width and
+               SCALING_LAYERS (4) layers, ctx 1024, one row a replica, 16 and
+               4 greedy steps, at device counts [1, 2] with tp 1 (dp 2: #11
+               on each replica) and [2, 4] with tp 2 (dp 1 and 2: #1-#3 on
+               the row route and #4), the ranks sharing the card over gloo;
+               every replica's tokens equal one rank's at tp 1, every rank's
+               equal at tp 2 and held to tp 1's (a parting only at a
+               near-tie within MK_TOL_DEEP), rank 0's launches the steps'
+               count; throughput and efficiency, the path's cost on one card.
+15. ``parity``  the 2-layer model on the CPU (plain versions) and on the card
                (kernels): prefill windows and decode steps (the megakernel) in
                fast mode (16-,
                512- and 300-row windows) and exact mode; eval-ppl at 0.6B width;
@@ -183,8 +201,9 @@ rest) and ``heads`` (the kernels phase's head_dim rows alone: #4, #5, #9,
 in one call.
 
 Output: one JSON object per line.  The second-to-last lines hold the kernel
-table and the serve, spec, tp, replicas, gateway, pp, sp and probes phases'
-numbers (``{"kernels": [...], "serve": {...}, ..., "sp": {...}, "probes": {...}}``)
+table and the serve, spec, tp, replicas, gateway, pp, sp, scaling, native and
+probes phases' numbers (``{"kernels": [...], "serve": {...}, ..., "native":
+{...}, "probes": {...}}``)
 and the card's ``name, power.limit``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -207,7 +226,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 DEV = "cuda"
-PHASES = ("build", "kernels", "probes", "e2e", "serve", "spec", "cli", "tp", "replicas", "gateway", "pp", "sp", "parity")
+PHASES = ("build", "kernels", "probes", "e2e", "serve", "spec", "cli", "native", "tp", "replicas", "gateway", "pp", "sp",
+          "scaling", "parity")
 OPTIONAL_PHASES = ("exact", "decode", "window", "heads")  # run only when named: subsets for comparing two trees in one call
 
 # Published peaks of one H100 SXM (dense): the denominators of bound_ms.
@@ -4997,6 +5017,165 @@ def sp_cli(torch, ctx) -> dict:
     return res
 
 
+# -------------------------------------------------------------------- scaling
+SCALING_LAYERS = 4  # the scaling phase's depth: 8B at full width, a ninth of its 36 layers
+SCALING_SEQ, SCALING_STEPS = 1024, 16
+SCALING_CASES = ((1, (1, 2)), (2, (2, 4)))  # (tp_per_group, device counts): dp 2 at tp 1; tp 2 at dp 1 and 2
+
+
+def phase_scaling(torch, ctx) -> None:
+    """``parallel.scaling_report``: Qwen3-8B INT8-g64 at full width and
+    SCALING_LAYERS (4) layers, ctx 1024, one row a replica, greedy fast-mode
+    decode of SCALING_STEPS (16) and 4 steps, at device counts [1, 2] with
+    tp 1 (dp 2) and [2, 4] with tp 2 (dp 1 and dp 2 × tp 2: the one case
+    whose tp subgroup is not the whole group), the ranks sharing the card
+    over gloo, each drawing the seed's weights and keeping its shard.  Each
+    measurement (``distributed.decode_run``) is recorded with every rank's
+    tokens and rank 0's launches: at tp 1 every replica's tokens equal the
+    one-rank tokens and each step is one #11 launch; at tp 2 every rank's
+    tokens are equal, each step is 4·L + 1 #1-#3 launches on the row route
+    and L #4 launches, and the tokens are held to tp 1's (equal, or parted
+    once at a near-tie within MK_TOL_DEEP).  Throughput and efficiency are
+    the path's cost on one card over gloo, not the value of dp or tp."""
+    import functools
+
+    import numpy as np
+
+    from qwen3_rs_tpu_torch import Engine
+    from qwen3_rs_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from qwen3_rs_tpu_torch.parallel import distributed
+    from qwen3_rs_tpu_torch.testing import qwen3_config, random_weights
+
+    cfg = qwen3_config("8b", seq_len=SCALING_SEQ, n_layers=SCALING_LAYERS)
+    ctx.pop("8b", None)
+    torch.cuda.empty_cache()
+    rank_dev = "cpu" if DEV == "cpu" else "cuda:0"
+    source = functools.partial(random_weights, cfg, SEED, DEV)  # drawn on each rank, not pickled to it
+    runs = {}
+    real = distributed.decode_run
+
+    def recorded(config, weights, devices, *, tp, **kw):
+        reset_launches()
+        t0 = time.perf_counter()
+        out = real(config, weights, devices, tp=tp, **kw)
+        runs[(tp, len(devices))] = dict(out, launches={k: v for k, v in LAUNCHES.items() if v},
+                                        wall_seconds=time.perf_counter() - t0)
+        return out
+
+    t_all = time.perf_counter()
+    reports = {}
+    distributed.decode_run = recorded
+    try:
+        for tp, counts in SCALING_CASES:
+            reports[tp] = distributed.scaling_report(cfg, source, device_counts=list(counts), tp_per_group=tp,
+                                                     batch_per_dp=1, steps=SCALING_STEPS,
+                                                     devices=[rank_dev] * max(counts))
+    finally:
+        distributed.decode_run = real
+    steps_all = 3 * (SCALING_STEPS + max(SCALING_STEPS // 4, 1))  # a warm and two timed runs at each length
+    L = cfg.n_layers
+    ref = runs[(1, 1)]["tokens"][0][0].tolist()
+    cases = []
+    for (tp, n), run in sorted(runs.items()):
+        toks = [t[0].tolist() for t in run["tokens"]]
+        need(len(toks) == n and all(len(t) == SCALING_STEPS for t in toks), f"scaling tp={tp} n={n}: tokens {toks}")
+        if tp == 1:
+            need(all(t == ref for t in toks), f"scaling dp={n}: a replica's tokens differ from one rank's: {toks}, {ref}")
+            want = {"decode_megakernel": steps_all}
+        else:
+            need(all(t == toks[0] for t in toks), f"scaling tp=2 n={n}: the ranks' tokens differ: {toks}")
+            want = {w8a16_key(1): steps_all * (4 * L + 1), "flash_decode": steps_all * L}
+        need(run["launches"] == want, f"scaling tp={tp} n={n}: rank 0 launched {run['launches']}, want {want}")
+        ctx["path_launches"][f"scaling_tp{tp}_n{n}"] = run["launches"]
+        cases.append({"tp": tp, "dp": n // tp, "ranks": n, "tokens_rank0": toks[0], "launches_rank0": want,
+                      "seconds_long_short": run["seconds"], "wall_seconds": run["wall_seconds"]})
+    # tp 2 against tp 1: the first step's logits, and the streams.
+    tp2 = runs[(2, 2)]
+    lg1, lg2 = runs[(1, 1)]["logits"][0], tp2["logits"][0]
+    logit_err = float(np.abs(lg2 - lg1).max() / np.abs(lg1).max())
+    need(math.isfinite(logit_err) and logit_err <= MK_TOL_DEEP, f"scaling tp=2 first-step logits vs tp=1: {logit_err}")
+    got = tp2["tokens"][0][0].tolist()
+    if got == ref:
+        parting = {"equal": True, "compared": len(ref)}
+    else:
+        engine = Engine(config=cfg, weights=random_weights(cfg, SEED, DEV), cache_dtype=torch.bfloat16, device=DEV)
+        parting = _first_parting(torch, engine, [1], ref, got, tol=MK_TOL_DEEP)
+        del engine
+        torch.cuda.empty_cache()
+    label = "ranks sharing one card over gloo: the path's cost on one card, not the value of dp or tp"
+    for tp, rep in reports.items():
+        emit({"phase": "scaling", "tp_per_group": tp, "throughput_tok_s": rep["throughput"],
+              "efficiency": rep["efficiency"], "what": label})
+    res = {"layers": L, "seq_len": SCALING_SEQ, "steps": SCALING_STEPS, "batch_per_dp": 1, "devices": rank_dev,
+           "backend": "gloo", "what": label,
+           "reports": {str(tp): {k: {str(n): v for n, v in r.items()} for k, r in rep.items()}
+                       for tp, rep in reports.items()},
+           "cases": cases, "tp2_vs_tp1": {"first_logits_rel_err": logit_err, "tol": MK_TOL_DEEP, **parting},
+           "seconds": time.perf_counter() - t_all}
+    ctx["scaling"] = res
+    emit({"phase": "scaling", **res})
+
+
+# --------------------------------------------------------------------- native
+NATIVE_W13 = (24576, 4096)  # the 8B's w13 as a checkpoint stores it: [out, in] codes, [out, in / 64] scales
+
+
+def _host_ms(fn, reps: int = 5) -> float:
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_native(torch, ctx) -> None:
+    """The port's C++ host helper (``utils.native``, built with the host
+    compiler from ``qwen3_rs_tpu_torch/csrc/*.cpp``): loaded from the port's
+    build directory (no other host helper mapped), its BPE encoder equal to
+    the Python encoder on the smoke's tokenizer, its transpose equal to
+    numpy's on the 8B's ``w13`` codes and scales; the host times of both
+    beside their plain versions (median of 5, the host's CPU count beside)."""
+    import numpy as np
+
+    from qwen3_rs_tpu_torch import Tokenizer
+    from qwen3_rs_tpu_torch.testing import qwen3_config
+    from qwen3_rs_tpu_torch.utils import native
+
+    t0 = time.perf_counter()
+    need(native.load_library() is not None, "the port's host helper did not load (no C++ compiler?)")
+    maps = Path("/proc/self/maps").read_text()
+    need(str(native.lib_path()) in maps, f"{native.lib_path()} is not mapped")
+    need(str(ROOT / "csrc") + "/" not in maps, "a library of the repo root's csrc/ (not the port's) is mapped")
+    cfg = qwen3_config("8b")
+    root = ctx["tmp"] / "native"
+    root.mkdir(exist_ok=True)
+    write_tokenizer(root / "tokenizer.bin", cfg.vocab_size)
+    tok = Tokenizer(root, cfg.vocab_size)
+    need(tok._native_encoder() is not None, "the tokenizer did not take the native encoder")
+    texts = [prompt_text(n) for n in (0, 40, 200, 3000)] + ["<|im_start|>user\nhi<|im_end|>", "é [300] <x> é"]
+    for t in texts:
+        need(tok.encode(t) == tok._encode_py(t), f"native encode differs from Python's on {t[:40]!r}")
+    long = prompt_text(3000)
+    encode = {"chars": len(long), "native_ms": _host_ms(lambda: tok.encode(long)),
+              "python_ms": _host_ms(lambda: tok._encode_py(long))}
+    rng = np.random.default_rng(SEED)
+    out_dim, in_dim = NATIVE_W13
+    arrays = {"codes": rng.integers(-128, 128, NATIVE_W13, dtype=np.int8),
+              "scales": rng.random((out_dim, in_dim // 64), dtype=np.float32)}
+    transpose = {}
+    for name, a in arrays.items():
+        want = np.ascontiguousarray(np.swapaxes(a, -1, -2))
+        need(np.array_equal(native.native_transpose(a), want), f"the native transpose of w13's {name} differs from numpy's")
+        transpose[name] = {"shape": list(a.shape), "dtype": str(a.dtype), "bytes": a.nbytes,
+                           "native_ms": _host_ms(lambda: native.native_transpose(a)),
+                           "numpy_ms": _host_ms(lambda: np.ascontiguousarray(np.swapaxes(a, -1, -2)))}
+    res = {"library": native.lib_path().name, "host_cpus": os.cpu_count(), "encode": encode, "transpose_w13": transpose,
+           "calls": dict(native.CALLS), "seconds": time.perf_counter() - t0}
+    ctx["native"] = res
+    emit({"phase": "native", **res})
+
+
 # ------------------------------------------------------------------ cli/parity
 def small_model(ctx):
     from qwen3_rs_tpu_torch.testing import qwen3_config, random_weights
@@ -5010,6 +5189,7 @@ def small_model(ctx):
 def phase_cli(torch, ctx) -> None:
     from qwen3_rs_tpu_torch import Engine, Tokenizer, TokenSampler, chat, generate
     from qwen3_rs_tpu_torch.cli import main as cli_main
+    from qwen3_rs_tpu_torch.utils import native as host_helper
 
     cfg, weights = small_model(ctx)
     root = ctx["tmp"] / "m.qtpu"
@@ -5027,12 +5207,16 @@ def phase_cli(torch, ctx) -> None:
         ("generate device-sampling", 128, prompt_text(40),
          ["-m", "generate", "-t", "0", "-s", "5", "--device-sampling"], "fast"),
     ]
+    host_calls = dict.fromkeys(host_helper.CALLS, 0)  # the host helper's calls inside the CLI runs
     for case, ctx_len, prompt, flags, mode in cases:
         buf = io.StringIO()
         t0 = time.perf_counter()
+        before = dict(host_helper.CALLS)
         with contextlib.redirect_stdout(buf):
             rc = cli_main(["inference", str(root), "-c", str(ctx_len), "-i", prompt, *flags])
         need(rc == 0, f"cli {case} exited {rc}")
+        for k in host_calls:
+            host_calls[k] += host_helper.CALLS[k] - before[k]
         cli_out = buf.getvalue()
         # The same run through the API on the same weights.
         eng = Engine(config=cfg, weights=weights, ctx_length=ctx_len, mode=mode, device=DEV)
@@ -5045,6 +5229,9 @@ def phase_cli(torch, ctx) -> None:
         need(cli_out == api.getvalue(), f"cli {case} output differs from the API's")
         emit({"phase": "cli", "mode": case, "chars_out": len(cli_out),
               "equal_to_api": True, "seconds": time.perf_counter() - t0})
+    # The CLI's tokenizer and loader (the classifier's transpose) took the host helper.
+    need(host_calls["encode"] > 0 and host_calls["transpose"] > 0, f"cli: host helper calls {host_calls}")
+    emit({"phase": "cli", "host_helper_calls": host_calls})
 
     # eval-ppl through the CLI against the API, at a 600-row window.
     import numpy as np
@@ -5528,8 +5715,8 @@ def main(argv=None) -> int:
             else:
                 {"e2e": phase_e2e, "serve": phase_serve, "spec": phase_spec, "cli": phase_cli, "tp": phase_tp,
                  "replicas": phase_replicas, "gateway": phase_gateway, "pp": phase_pp, "sp": phase_sp,
-                 "parity": phase_parity, "exact": phase_exact, "decode": phase_decode,
-                 "window": phase_window, "heads": phase_heads}[name](torch, ctx)
+                 "scaling": phase_scaling, "native": phase_native, "parity": phase_parity, "exact": phase_exact,
+                 "decode": phase_decode, "window": phase_window, "heads": phase_heads}[name](torch, ctx)
             emit({"phase": name, "done": True, "seconds": time.perf_counter() - t0})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -5546,7 +5733,8 @@ def main(argv=None) -> int:
     rows = [dict(r, launches=launches[r["name"]]) for r in ctx.get("kernel_rows", [])]
     emit({"kernels": rows, "e2e": ctx.get("e2e"), "serve": ctx.get("serve"), "spec": ctx.get("spec"),
           "tp": ctx.get("tp"), "replicas": ctx.get("replicas"), "gateway": ctx.get("gateway"), "pp": ctx.get("pp"),
-          "sp": ctx.get("sp"), "probes": ctx.get("probes"), "decode": ctx.get("decode"), "window": ctx.get("window"),
+          "sp": ctx.get("sp"), "scaling": ctx.get("scaling"), "native": ctx.get("native"), "probes": ctx.get("probes"),
+          "decode": ctx.get("decode"), "window": ctx.get("window"),
           "total_seconds": time.perf_counter() - t_all})
     print(ctx.get("smi") or subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -19,8 +19,11 @@ with a mesh), the sequence-parallel prefill (``inference --sp N``,
 (``parallel.pipelined_forward``) run one process per rank on
 ``torch.distributed`` (``parallel/``); replicated serving (``serve
 --replicas R``) and the cross-host gateway (``serve --gateway``,
-``serving.remote``) route requests over engines or worker servers.
-``NOT_PORTED`` names what the port lacks, each with its ``ROADMAP.md`` item.
+``serving.remote``) route requests over engines or worker servers;
+``parallel.scaling_report`` measures decode on (dp, tp) meshes.  The host
+helper (the tokenizer's BPE encode, the loader's transpose) is the port's own
+C++ build (``utils.native``).  ``NOT_PORTED`` names what the port lacks, each
+with its ``ROADMAP.md`` item: nothing.
 """
 
 from __future__ import annotations
@@ -117,11 +120,8 @@ def run_inference(config: InferenceConfig) -> None:
 
 # Public names of the reference package that the port lacks (by their path
 # inside the package: a module, or module.name), each with the ROADMAP.md
-# item that ports it.
-NOT_PORTED = {
-    "parallel.distributed.scaling_report": "queue 1, item 1: the benchmark",
-    "utils.enable_compile_cache": "queue 1, item 6: not carried (the nvcc build cache serves)",
-}
+# item that ports it.  Every name is ported.
+NOT_PORTED: dict[str, str] = {}
 
 __all__ = [
     "ModelConfig",

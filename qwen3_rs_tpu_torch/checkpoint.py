@@ -45,6 +45,7 @@ import torch
 from .configuration import HEADER_SIZE, ModelConfig, read_config
 from .models.qwen3 import Qwen3LayerWeights, Qwen3Weights
 from .ops.quant import Q4Tensor, QuantizedTensor, pack_q4_np
+from .utils.native import native_transpose
 
 WEIGHTS_DIR = "weights"
 LAYOUT_MARKER = "_layout"
@@ -64,10 +65,20 @@ def _qt(q: np.ndarray, s: np.ndarray) -> QuantizedTensor:
     return QuantizedTensor(_t(q), _t(s))
 
 
-def _transposed(q: np.ndarray, s: np.ndarray) -> QuantizedTensor:
+def _transpose_qt(q: np.ndarray, s: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """Row-major ``[.., out, in]`` codes / ``[.., out, in/g]`` scales →
-    in-major ``[.., in, out]`` / ``[.., in/g, out]``."""
-    return _qt(np.swapaxes(q, -1, -2), np.swapaxes(s, -1, -2))
+    in-major ``[.., in, out]`` / ``[.., in/g, out]``: through the host
+    helper's blocked, multithreaded transpose (``utils.native``) where it
+    builds, else numpy's strided views (``_qt`` copies them)."""
+    q_t, s_t = native_transpose(q), native_transpose(s)
+    if q_t is not None and s_t is not None:
+        return q_t, s_t
+    return np.swapaxes(q, -1, -2), np.swapaxes(s, -1, -2)
+
+
+def _transposed(q: np.ndarray, s: np.ndarray) -> QuantizedTensor:
+    """Row-major codes and scales → the in-major tensor (``_transpose_qt``)."""
+    return _qt(*_transpose_qt(q, s))
 
 
 def _fuse_out(*tensors):
@@ -80,7 +91,7 @@ def _fuse_out(*tensors):
 
 def classifier_from(q_vd: np.ndarray, s_vd: np.ndarray) -> QuantizedTensor:
     """Row-major ``[V, dim]`` codes → the padded in-major classifier."""
-    q_t, s_t = np.swapaxes(q_vd, -1, -2), np.swapaxes(s_vd, -1, -2)
+    q_t, s_t = _transpose_qt(q_vd, s_vd)
     v = q_t.shape[-1]
     if v >= VOCAB_PAD_MULTIPLE and v % VOCAB_PAD_MULTIPLE:
         pad = VOCAB_PAD_MULTIPLE - v % VOCAB_PAD_MULTIPLE

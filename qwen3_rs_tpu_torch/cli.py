@@ -422,6 +422,12 @@ def validate_export_dir(model_path: Path) -> None:
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, format="%(message)s", stream=sys.stderr)
     args = build_parser().parse_args(argv)
+    if args.command != "export":
+        # Model commands load the CUDA kernels and the host helper: keep them
+        # built across invocations.
+        from .utils import enable_compile_cache
+
+        enable_compile_cache()
     if args.command == "export":
         from .export import export_model
 

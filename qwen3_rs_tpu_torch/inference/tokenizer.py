@@ -77,6 +77,7 @@ class Tokenizer:
             self.vocab.append(data[off : off + tok_len])
             off += tok_len
         self.vocab_size = vocab_size
+        self._cpp = None  # the native encoder, made at first use; False where there is none
 
         # Hash index replaces the reference's O(vocab) str_lookup scans.
         # First id wins on duplicates, matching Vec::position (first match).
@@ -124,7 +125,16 @@ class Tokenizer:
            warning, tokenizer.rs:199-201).
         2. Greedy BPE: repeatedly merge the adjacent pair whose concatenation
            is a vocab token with the highest merge score.
+
+        Through the C++ encoder (``utils.native``) where the host helper
+        builds, else in Python (``_encode_py``), with the same ids.
         """
+        native = self._native_encoder()
+        if native is not None:
+            return native.encode(text)
+        return self._encode_py(text)
+
+    def _encode_py(self, text: str) -> list[int]:
         tokens: list[int] = []
         chars = list(text)
         i = 0
@@ -172,6 +182,16 @@ class Tokenizer:
             tokens[best_idx] = best_id
             del tokens[best_idx + 1]
         return tokens
+
+    def _native_encoder(self):
+        if self._cpp is None:
+            from ..utils.native import NativeBpeEncoder
+
+            try:
+                self._cpp = NativeBpeEncoder(self.vocab, self.merge_scores, self.max_token_length)
+            except ImportError:  # no C++ compiler: the Python encoder
+                self._cpp = False
+        return self._cpp or None
 
     def is_termination(self, token: int) -> bool:
         """BOS/EOS terminate generation (generation.rs:170-172)."""

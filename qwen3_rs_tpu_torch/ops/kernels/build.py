@@ -21,7 +21,8 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "build"
+DEFAULT_BUILD_DIR = _PKG / "build"
+BUILD_DIR = DEFAULT_BUILD_DIR  # ``utils.enable_compile_cache`` may point it elsewhere
 SOURCES = (
     "qmatmul_w8a16", "flash_decode", "qmatmul_rows", "dequant", "qmatmul_a8", "prefill_attention",
     "paged_attention", "paged_decode", "decode_megakernel", "boundary_probe", "hbm_stream_bench",

@@ -40,14 +40,25 @@ def exact_float_products():
     """Full-precision products for the dense matmuls of this module: no TF32
     for f32 inputs, and no reduced-precision reduction inside a bf16 product
     (its f32 sum is rounded once, as ``preferred_element_type=f32`` and a
-    cast would round it)."""
+    cast would round it).  Every flag reads as before afterwards, torch's
+    ``fp32_precision`` too, which setting ``allow_tf32`` changes."""
     m = torch.backends.cuda.matmul
     prev = m.allow_tf32, m.allow_bf16_reduced_precision_reduction
+    precision = getattr(m, "fp32_precision", None)
     m.allow_tf32, m.allow_bf16_reduced_precision_reduction = False, False
     try:
         yield
     finally:
         m.allow_tf32, m.allow_bf16_reduced_precision_reduction = prev
+        if precision is not None:
+            m.fp32_precision = precision
+
+
+def transpose_quantized(w: QuantizedTensor) -> QuantizedTensor:
+    """Row-major storage (``[D, N]`` codes, ``[D, G]`` scales: the checkpoint
+    and reference layout) → in-major compute layout (``[N, D]``, ``[G, D]``),
+    as views."""
+    return QuantizedTensor(w.q.T, w.scales.T)
 
 
 def dequant_weights(w: QuantizedTensor, dtype=torch.bfloat16) -> torch.Tensor:

@@ -10,11 +10,17 @@ its own ``Mesh`` after the process group exists: the same device list and
 axes, plus this rank's index, its device and its process group.  A mesh has
 one layout: ``{dp, tp}``, ``{pp}`` or ``{sp}``.
 
+A (dp, tp) mesh orders its ranks as the reference's ``reshape(dp, tp)``
+does: tp varies fastest, so rank r is replica ``r // tp`` (its dp index)
+and shard ``r % tp`` of it (its tp index).  Each replica's tp ranks form a
+process subgroup (``tp_group``, the group of its collectives), and so do
+the ranks that hold the same shard of every replica (``dp_group``).
+
 The collective backend follows from the device list and is recorded on the
 mesh: NCCL when every rank has a card of its own, gloo when ranks share a
 card (the one-card counterpart of the reference's virtual CPU mesh) or run
-on the CPU.  Data parallelism is request-level (one engine per replica), so
-``dp`` stays 1, as the reference's serving engine requires.
+on the CPU.  The serving engine refuses dp > 1, as the reference's does:
+serving's data parallelism is one engine per replica.
 """
 
 from __future__ import annotations
@@ -54,10 +60,36 @@ class Mesh:
     # Ranks 1..N-1 as processes of this host, on the rank that started them
     # (``parallel.distributed.launch``); None elsewhere.
     workers: object = None
+    # The (dp, tp) layout's subgroups of this rank: its replica's tp ranks
+    # (None for a replica of one rank, ``group`` itself where dp = 1) and the
+    # ranks holding its shard in every replica (None where dp = 1).
+    tp_group: Optional[dist.ProcessGroup] = None
+    dp_group: Optional[dist.ProcessGroup] = None
 
     @property
     def tp(self) -> int:
         return self.shape.get(TP_AXIS, 1)
+
+    @property
+    def dp(self) -> int:
+        return self.shape.get(DP_AXIS, 1)
+
+    @property
+    def tp_index(self) -> int:
+        """This rank's shard within its replica."""
+        return self.rank % self.tp
+
+    @property
+    def dp_index(self) -> int:
+        """This rank's replica."""
+        return self.rank // self.tp
+
+    def parts(self) -> dict:
+        """Each axis of the mesh as ``(size, this rank's index on it)``."""
+        if TP_AXIS in self.shape:
+            return {DP_AXIS: (self.dp, self.dp_index), TP_AXIS: (self.tp, self.tp_index)}
+        ((axis, n),) = self.shape.items()
+        return {axis: (n, self.rank)}
 
     @property
     def device(self) -> torch.device:
@@ -71,8 +103,8 @@ class Mesh:
             self.workers.join()
             self.workers = None
         if self.group is not None and dist.is_initialized():
-            dist.destroy_process_group()
-            self.group = None
+            dist.destroy_process_group()  # the subgroups with it
+            self.group = self.tp_group = self.dp_group = None
 
 
 def create_mesh(
@@ -88,7 +120,9 @@ def create_mesh(
     device count) makes it a pipeline or sequence-parallel mesh on that one
     axis.  A mesh of more than one device needs the process group of that
     many ranks to exist (``parallel.distributed``); this process's rank is
-    its place in ``devices``."""
+    its place in ``devices``.  Every rank of the group must call it with the
+    same arguments: a (dp, tp) mesh with dp > 1 makes its subgroups, and each
+    rank makes every subgroup, in the same order, its own or not."""
     if devices is None:
         devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())] or [resolve_device(None)]
     devs = tuple(torch.device(d) for d in devices)
@@ -109,10 +143,6 @@ def create_mesh(
             dp = n // tp
         if dp * tp != n:
             raise ValueError(f"dp ({dp}) × tp ({tp}) must equal device count ({n})")
-        if dp != 1:
-            raise ValueError(
-                "serving engine shards tensor-parallel only; run one engine per dp replica for data parallelism"
-            )
         shape = {DP_AXIS: dp, TP_AXIS: tp}
     for d in devs:
         resolve_device(d)  # a card that is not there raises here
@@ -126,7 +156,32 @@ def create_mesh(
     backend = backend_for(devs)
     if dist.get_backend() != backend:
         raise RuntimeError(f"devices {[str(d) for d in devs]} take the {backend} backend, the group runs {dist.get_backend()}")
-    return Mesh(devs, shape, rank=dist.get_rank(), group=dist.group.WORLD, backend=backend)
+    mesh = Mesh(devs, shape, rank=dist.get_rank(), group=dist.group.WORLD, backend=backend)
+    if TP_AXIS in shape:
+        mesh.tp_group, mesh.dp_group = _subgroups(mesh)
+    return mesh
+
+
+def _subgroups(mesh: Mesh):
+    """This rank's tp and dp subgroups.  ``dist.new_group`` is collective
+    over the whole group: every rank makes every replica's tp group, then
+    every shard's dp group, in that order."""
+    dp, tp = mesh.dp, mesh.tp
+    if dp == 1:
+        return (mesh.group if tp > 1 else None), None
+    tp_group = dp_group = None
+    if tp > 1:
+        for d in range(dp):
+            g = dist.new_group([d * tp + t for t in range(tp)])
+            if d == mesh.dp_index:
+                tp_group = g
+    if tp == 1:
+        return None, mesh.group
+    for t in range(tp):
+        g = dist.new_group([d * tp + t for d in range(dp)])
+        if t == mesh.tp_index:
+            dp_group = g
+    return tp_group, dp_group
 
 
 def single_device_mesh(device=None) -> Mesh:

@@ -64,28 +64,29 @@ def validate_pp(config: ModelConfig, pp: int, batch: int, n_microbatches: int):
 def pp_weight_pspecs(weights: Qwen3Weights) -> Qwen3Weights:
     """The rule of every tensor of ``weights`` for the pipeline: each
     layer-stacked tensor split on its leading (layer) axis over ``pp``
-    (``Split(0)``), the embedding, the final norm and the classifier
+    (``Split(0, "pp")``), the embedding, the final norm and the classifier
     replicated (None)."""
     lw = weights.layers
-    layers = type(lw)(*((type(t)(Split(0), Split(0)) if hasattr(t, "scales") else Split(0)) for t in lw))
+    cut = Split(0, PP_AXIS)
+    layers = type(lw)(*((type(t)(cut, cut) if hasattr(t, "scales") else cut) for t in lw))
     return Qwen3Weights(embed=None, layers=layers, rms_final=None, lm_head=None)
 
 
 def _cache_pspecs(cache) -> KVCache:
-    return type(cache)(*(Split(0) for _ in cache))
+    return type(cache)(*(Split(0, PP_AXIS) for _ in cache))
 
 
 def shard_for_pp(weights: Qwen3Weights, cache, mesh: Mesh):
     """This rank's weights and cache for the pipeline, on its device: its
     slab of every layer-stacked tensor and of the cache (each a tensor of its
     own), the rest as given."""
-    pp, rank, dev = mesh.shape[PP_AXIS], mesh.rank, mesh.device
+    dev, parts = mesh.device, mesh.parts()
 
     def to(tree):
         return type(tree)(*(to(t) if isinstance(t, tuple) else t.to(dev) for t in tree))
 
-    w = to(shard_tree(weights, pp_weight_pspecs(weights), pp, rank))
-    return w, to(shard_tree(cache, _cache_pspecs(cache), pp, rank))
+    w = to(shard_tree(weights, pp_weight_pspecs(weights), parts))
+    return w, to(shard_tree(cache, _cache_pspecs(cache), parts))
 
 
 def _slab_of(tree, n_layers: int, pp: int, rank: int):

@@ -85,7 +85,7 @@ def shard_weights_tp(weights: Qwen3Weights, mesh, config: ModelConfig) -> Qwen3W
     wqkv / w13 columns of this rank (taken directly, without interleaving the
     whole matrices first) and every other tensor under ``weight_pspecs``.
     Each shard is a tensor of its own, so the full weights can be freed."""
-    tp, rank = mesh.shape[TP_AXIS], mesh.rank
+    tp, rank = mesh.tp, mesh.tp_index
     validate_tp(config, tp)
     specs = weight_pspecs(config)
     lw = weights.layers
@@ -96,13 +96,14 @@ def shard_weights_tp(weights: Qwen3Weights, mesh, config: ModelConfig) -> Qwen3W
         fused[name] = _take_cols(getattr(lw, name), idx[rank * w : (rank + 1) * w])
     rest = weights._replace(layers=lw._replace(wqkv=None, w13=None))
     specs = specs._replace(layers=specs.layers._replace(wqkv=None, w13=None))
-    out = shard_tree(rest, specs, tp, rank)
+    out = shard_tree(rest, specs, mesh.parts())
     return out._replace(layers=out.layers._replace(**fused))
 
 
 # The forward's cache shards: every leaf of a dense cache ``[L, B, n_kv, T,
 # hd]``, a page pool ``[L, P, n_kv, page, hd]`` and their INT8 scale
-# companions splits its kv-head axis (axis 2), as ``shard_cache`` does.
+# companions splits its kv-head axis (axis 2) over tp, and axis 1 over dp, as
+# ``shard_cache`` does.
 shard_cache_tp = shard_cache
 
 
@@ -110,7 +111,8 @@ def make_tp_forward(config: ModelConfig, mesh, *, mode: str = "fast"):
     """A ``qwen3_forward``-shaped callable for this rank: weights from
     :func:`shard_weights_tp`, the cache from :func:`shard_cache_tp` (or built
     with ``local_config``), and global logits ``[..., vocab_size]``, the same
-    on every rank, with the cache updated in place."""
+    on every rank of its replica, with the cache updated in place.  Its
+    collectives run over the replica's ranks (``mesh.tp_group``)."""
     tp = mesh.shape[TP_AXIS]
     validate_tp(config, tp)
     config_l = local_config(config, tp)
@@ -119,6 +121,6 @@ def make_tp_forward(config: ModelConfig, mesh, *, mode: str = "fast"):
                    write_mask=None, page_table=None, fresh_prefill: bool = False):
         return qwen3_forward(config_l, weights, tokens, cache, pos_start, mode=mode, out_idx=out_idx,
                              return_all_logits=return_all_logits, fresh_prefill=fresh_prefill,
-                             page_table=page_table, write_mask=write_mask, tp_group=mesh.group)
+                             page_table=page_table, write_mask=write_mask, tp_group=mesh.tp_group)
 
     return tp_forward

@@ -211,7 +211,7 @@ class ContinuousBatchingEngine:
         if mode == "fast":
             weights = cast_weight_scales(weights)
         self.weights = weights
-        self._group = mesh.group if tp > 1 else None
+        self._group = mesh.tp_group if tp > 1 else None
         self._outbox: list[Request] = []  # rank 0: submitted since the last step, for the workers
         self._last_sync = time.monotonic()
         self._broken = False

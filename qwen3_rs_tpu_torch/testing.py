@@ -140,6 +140,26 @@ def weight_bytes_per_decode_token(config: ModelConfig, scale_bytes: int = 4, bit
     return int(linear * (bits / 8.0 + scale_per_param) + head * (1.0 + scale_per_param))
 
 
+def prefill_flops(config: ModelConfig, s: int, batch: int = 1) -> float:
+    """MAC-derived FLOPs of one prefill forward (compute roofline input).
+
+    Linear layers: 2 FLOPs per weight param per token.  Attention: the QKᵀ
+    and PV causal contractions do ~S²/2 useful positions each per (layer,
+    head), 2·head_dim MACs per position.  The classifier head runs on one
+    row per request (logits are only fetched for the last real row).
+    """
+    c = config
+    per_layer = (
+        c.dim * (c.all_heads_dim + 2 * c.kv_dim)  # wqkv
+        + c.all_heads_dim * c.dim  # wo
+        + 3 * c.dim * c.hidden_dim  # w13, w2
+    )
+    linear = 2.0 * c.n_layers * per_layer * s
+    attn = 2.0 * c.n_layers * c.n_heads * 2 * (s * s / 2.0) * c.head_dim
+    head = 2.0 * c.dim * c.vocab_size  # one row per request
+    return batch * (linear + attn + head)
+
+
 def prefill_ops(config: ModelConfig, rows: int, cache_rows: int = 0) -> dict:
     """Operations (multiply and add counted apart) of one prefill window of
     ``rows`` rows after ``cache_rows`` cached rows, b = 1: the projections of

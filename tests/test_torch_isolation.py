@@ -99,8 +99,32 @@ def test_no_source_names_jax(path):
     text = path.read_text()
     assert not re.search(r"\bqwen3_rs_tpu\.", text), "names the JAX package"
     assert not re.search(r"^\s*(import jax|from jax)", text, re.M), "imports jax"
-    # Nor the JAX package's native host helper (its C++ transpose and loaders).
-    assert not re.search(r"utils\.native|native_transpose|libqwen3_host", text), "uses the JAX package's native helper"
+    # Nor the JAX package's native host helper: its library, or the repo
+    # root's csrc/ that builds it (the port builds its own copy of the sources).
+    assert not re.search(r"libqwen3_host|csrc/build\.py", text), "uses the JAX package's native helper"
+
+
+_LOAD_HOST_HELPER = """
+import numpy as np
+from qwen3_rs_tpu_torch.ops.kernels import build
+from qwen3_rs_tpu_torch.utils import native
+assert native.load_library() is not None
+assert (native.native_transpose(np.eye(3, dtype=np.int8)) == np.eye(3)).all()
+maps = open("/proc/self/maps").read()
+assert "libqwen3_host" not in maps
+assert str(native.lib_path()) in maps and native.lib_path().parent == build.BUILD_DIR
+print(native.CSRC, build.CSRC)
+"""
+
+
+def test_host_helper_is_the_ports_own():
+    """The port's host helper builds from the port's sources into the port's
+    build directory, and the process that loads it maps no JAX helper."""
+    out = subprocess.run([sys.executable, "-c", _LOAD_HOST_HELPER], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    port_csrc = str(ROOT / "qwen3_rs_tpu_torch" / "csrc")
+    assert out.stdout.split() == [port_csrc, port_csrc]
 
 
 @pytest.fixture

@@ -45,7 +45,7 @@ from test_torch_serving import BUCKETS, CONFIG as SERVE_CONFIG, JCONFIG as SERVE
 from test_torch_serving import weights  # noqa: F401  (the serving fixture's weights)
 from test_torch_serving_device import _match
 from torch_parity import jax_numpy_weights, route_jax_q4_through_interpret_kernels, route_jax_through_interpret_kernels
-from torch_tp_ranks import model, run_calls
+from torch_tp_ranks import mesh_report, model, run_calls
 from utils import make_hf_model_dir
 
 import qwen3_rs_tpu.models.qwen3 as jax_qwen3
@@ -349,13 +349,21 @@ def test_tp_engine_streams_match_jax_tp_and_tp1(weights, bits, monkeypatch):  # 
 
 
 def test_tp_engine_refuses_what_jax_refuses():
+    """``create_mesh(tp=1, dp=2)`` builds, as JAX's does (in a group of two
+    ranks, which a mesh of two devices needs); the serving engine refuses a
+    dp > 1 mesh with JAX's message."""
     with pytest.raises(ValueError, match="dp replica"):
         ContinuousBatchingEngine(config=CONFIG, weights=None,
                                  mesh=Mesh((torch.device("cpu"),) * 2, {"dp": 2, "tp": 1}), device="cpu")
-    with pytest.raises(ValueError, match="dp replica"):
-        from qwen3_rs_tpu_torch.parallel import create_mesh
-
-        create_mesh(tp=1, dp=2, devices=["cpu", "cpu"])
+    assert dict(jax_create_mesh(tp=1, dp=2, devices=jax.devices()[:2]).shape) == {"dp": 2, "tp": 1}
+    mesh = launch(["cpu", "cpu"], mesh_report, dp=2)
+    try:
+        assert mesh.shape == {"dp": 2, "tp": 1} and (mesh.dp_index, mesh.tp_index) == (0, 0)
+        assert [r["dp"] for r in mesh_report(mesh)] == [0, 1]
+        with pytest.raises(ValueError, match="dp replica"):
+            ContinuousBatchingEngine(config=CONFIG, weights=None, mesh=mesh, device="cpu")
+    finally:
+        mesh.close()
     from qwen3_rs_tpu_torch.parallel.mesh import backend_for
 
     assert backend_for(["cpu", "cpu"]) == backend_for(["cuda:0", "cuda:0"]) == backend_for(["cuda", "cuda"]) == "gloo"

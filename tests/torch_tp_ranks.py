@@ -50,6 +50,27 @@ def run_calls(mesh, config, weights, sequences):
     return out
 
 
+def mesh_report(mesh):
+    """This rank's place in a (dp, tp) mesh: its coordinates, the ranks of
+    its tp and dp subgroups, each subgroup's sum of its ranks' indices (an
+    all-reduce over it) and its kernels' build directory; gathered to rank 0,
+    in rank order."""
+    def over(group):
+        if group is None:
+            return None, mesh.rank
+        t = torch.tensor([float(mesh.rank)])
+        dist.all_reduce(t, group=group)
+        return dist.get_process_group_ranks(group), int(t.item())
+
+    from qwen3_rs_tpu_torch.ops.kernels import build
+
+    mine = {"rank": mesh.rank, "dp": mesh.dp_index, "tp": mesh.tp_index, "tp_group": over(mesh.tp_group),
+            "dp_group": over(mesh.dp_group), "parts": mesh.parts(), "build_dir": str(build.BUILD_DIR)}
+    got = [None] * len(mesh.devices) if mesh.rank == 0 else None
+    dist.gather_object(mine, got, dst=0)
+    return got
+
+
 def follow(mesh):
     """A worker rank of ``Ranks``: run each ``(fn, args)`` rank 0 broadcasts,
     ``fn(mesh, *args)``, until it sends None."""
